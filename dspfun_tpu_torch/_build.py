@@ -1,0 +1,78 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain
+C interface, which ``ctypes`` loads.  Headers that pull in PyTorch take
+minutes to compile; a plain C interface takes seconds.  The library
+lands in ``build/kernels/`` at the root of the checkout, named by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the existing library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build_dir", "load_library"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parent.parent / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda); "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(_CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {_CSRC}")
+    return srcs
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile (when the sources changed) and load the kernel library."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out_dir = build_dir()
+    lib = out_dir / f"libdspfun_kernels_{h.hexdigest()[:16]}.so"
+    if not lib.is_file():
+        nvcc = _nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                    f"{res.stdout}{res.stderr}")
+            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return ctypes.CDLL(str(lib))

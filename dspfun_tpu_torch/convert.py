@@ -1,0 +1,45 @@
+"""Carry the JAX package's plans across to the port.
+
+``dspfun_tpu``'s ``AxisPlan`` and ``FilterPlans`` hold host numpy arrays
+(``hi``, ``lo``, ``digits``, ``scale``, ``rowsum``, ``support``).  These
+helpers turn them into the port's tensors on a device, so one plan can
+feed both packages.  Only numpy crosses the boundary: this module
+imports nothing of JAX.  The bfloat16 digit planes of the ``exact``
+mode arrive as ``ml_dtypes.bfloat16`` arrays; they hold small integers,
+so the detour through float32 is exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dspfun_tpu_torch.core.transforms import AxisPlan
+from dspfun_tpu_torch.models.fused import FilterPlans
+
+__all__ = ["axis_plan_from_jax", "filter_plans_from_jax"]
+
+
+def _tensor(a, device) -> torch.Tensor | None:
+    if a is None:
+        return None
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def axis_plan_from_jax(plan, device: torch.device | str = "cpu") -> AxisPlan:
+    """A JAX-package ``AxisPlan`` as the port's ``AxisPlan`` on ``device``."""
+    return AxisPlan(*(_tensor(f, device) for f in plan))
+
+
+def filter_plans_from_jax(plans, device: torch.device | str = "cpu") -> FilterPlans:
+    """A JAX-package ``FilterPlans`` as the port's ``FilterPlans`` on ``device``."""
+    fwd, inv, support = plans
+    return FilterPlans(
+        tuple(axis_plan_from_jax(p, device) for p in fwd),
+        tuple(axis_plan_from_jax(p, device) for p in inv),
+        tuple(None if k is None else torch.tensor(np.asarray(k, np.int64), device=device)
+              for k in support),
+    )

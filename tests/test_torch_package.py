@@ -1,0 +1,80 @@
+"""The port stands alone: it imports no JAX and no dspfun_tpu, and its
+chip smoke run refuses to run without a CUDA card."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from dspfun_tpu_torch.convert import filter_plans_from_jax
+from dspfun_tpu_torch.core.precision import Precision
+from dspfun_tpu_torch.models import fused
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "dspfun_tpu_torch"
+
+
+def _run(code_or_args, **kw):
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_PRECISION", None)
+    return subprocess.run([sys.executable, *code_or_args], cwd=kw.get("cwd", ROOT),
+                          env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None\n"
+        "import importlib, pkgutil, dspfun_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(dspfun_tpu_torch.__path__,"
+        " 'dspfun_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 11
+
+
+def test_no_jax_imports_in_the_source():
+    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "dspfun_tpu"), f"{path}: {n}"
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """No CUDA: non-zero exit and no ok line, both in the checkout and
+    as a lone copy of the script."""
+    res = _run([str(ROOT / "chip_smoke.py")])
+    assert res.returncode != 0
+    lines = res.stdout.strip().splitlines()
+    assert not lines or '"ok": true' not in lines[-1]
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    res = _run([str(lone)], cwd=tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_filter_plans_move_between_devices():
+    """Plans are tensors on an explicit device; the converter keeps
+    support indices as int64 tensors."""
+    mask = fused.lowpass_mask((64, 48), cutoff=0.5)
+    plans = fused.filter_plans((64, 48), Precision(intermediate="i8"), mask=mask,
+                               device="meta")
+    assert all(p.hi.device.type == "meta" for p in plans.fwd + plans.inv)
+    assert plans.support[0].dtype == torch.int64
+    host = filter_plans_from_jax(
+        (tuple(tuple(None if f is None else np.zeros((2, 2)) for f in p)
+               for p in plans.fwd), (), (np.arange(3), None)), device="cpu")
+    assert host.support[0].tolist() == [0, 1, 2] and host.support[1] is None
