@@ -9,13 +9,19 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. the card: CUDA must be available (nothing runs on the CPU); prints the
    card's name and power limit, and the float32 matmul settings (no TF32);
-2. build: compiles ``dspfun_tpu_torch/csrc/*.cu`` with nvcc and prints the
-   build time;
+2. build: compiles ``dspfun_tpu_torch/csrc/*.cu`` with nvcc (one process
+   per source, in parallel) and prints the build time;
 3. kernels: each int8 digit kernel (left/right layout, 3/4 digits) at the
-   4K chain's four contraction shapes and one ragged shape, held bit-equal
-   (``torch.equal``) to its plain PyTorch version on the same inputs, with
-   both times (CUDA events, median of 10);
-4. main path: ``filter_plans`` + ``fused_filter_2d`` on a 2160x3840x3 image
+   4K chain's four contraction shapes and one ragged shape, and the
+   right 3-digit kernel at motion's two i8-kron shapes, held bit-equal
+   (``torch.equal``) to its plain PyTorch version on the same inputs,
+   with both times (CUDA events, median of 10); the fused block filter
+   kernel at motion's 1080p chroma shape, a half-thresholded 1080p luma
+   8^3 shape and a ragged quant + threshold shape, held to 1e-2 (pels)
+   against its plain version (blocks whose coefficients sit within 1e-5
+   relative of a threshold or quant boundary are excluded and counted)
+   and, on the linear chroma shape, against a scipy float64 oracle;
+4. main path 1: ``filter_plans`` + ``fused_filter_2d`` on a 2160x3840x3 image
    at ``i8@1e-5`` (bench.py's configuration) and at deep ``i8``, each held
    to <= 1e-5 max abs error against a scipy float64 oracle and bit-equal
    to the same chain with the plain version forced, then
@@ -26,7 +32,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    Kernel launches are counted over this phase alone: each chain must
    launch exactly 2 left and 2 right kernels, and every kernel must run;
 5. timing: the 4K chain in MP/s with the kernels and with the plain
-   version forced.
+   version forced;
+6. main path 2, motion: the motion CLI (``dspfun_tpu_torch.tools.motion``,
+   ``-b 16x16x16 -p 0x0x0-8x8x4 -B 1.25``) on a seeded 1920x1080 yuv420p
+   y4m clip of 48 frames (3 slabs).  Launches are counted over this run
+   alone: 2 right 3-digit kernels (luma i8-kron) and 2 block filter
+   kernels (chroma) per slab.  Every output pel must lie within one
+   level of a scipy float64 blockwise DCT oracle.  Then the slab time per
+   plane, the CLI's frames/s with the kernels and with both plain
+   versions forced, and the per-slab luma time at slab batch 1, 2, 4.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -39,7 +53,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from fractions import Fraction
 
 import numpy as np
 
@@ -52,6 +68,18 @@ REPLACES = {                      # the Pallas bodies each instantiation replace
     "right3": "dspfun_tpu/ops/int8mm.py:199",
     "right4": "dspfun_tpu/ops/int8mm.py:213",
 }
+BF_SRC = "dspfun_tpu_torch/csrc/block_filter.cu"
+BF_REPLACES = "dspfun_tpu/ops/pallas_kernels.py:51"
+BF_TOL = 1e-2                     # pels; the JAX package's bound (tests/test_pallas.py:43)
+BF_EDGE = 1e-5                    # relative distance to a threshold/quant boundary
+# motion at 1080p 4:2:0 (benchmarks/suite.py:444-456 at the frame size
+# users process): 16x16x16 luma blocks run i8-kron, the 8x8x16 chroma
+# blocks the fused block filter
+MH, MW, MFRAMES = 1080, 1920, 48
+MOTION_ARGS = ["-Q", "-b", "16x16x16", "-p", "0x0x0-8x8x4", "-B", "1.25"]
+MOTION_NB = (MH // 16) * (MW // 16)   # 8040 blocks per slab and plane
+# the luma i8-kron contractions: [S, V] then [V, S], S = 8*8*4 pass-band rows
+MOTION_I8_SHAPES = [(256, 4096, MOTION_NB, "motion fwd"), (4096, 256, MOTION_NB, "motion inv")]
 # (layout, M, K, B, R): the 4K i8 chain's contractions with the bench mask
 # (cutoff 0.25 keeps 540 of 2160 rows and 960 of 3840 columns), then one
 # ragged shape per layout with M, K and R off every tile multiple
@@ -89,6 +117,250 @@ def _card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def _uniform_factor(d: int, h: int, w: int) -> np.ndarray:
+    """motion's uniform renorm 2*sqrt2 / (s_z s_y s_x), s = sqrt2 at index
+    0 and 1 elsewhere (reference motion.c:643-647)."""
+    s = [np.where(np.arange(n) > 0, 1.0, np.sqrt(2.0)) for n in (d, h, w)]
+    return 2.0 * np.sqrt(2.0) / (s[0][:, None, None] * s[1][None, :, None]
+                                 * s[2][None, None, :])
+
+
+def _lowpass_box(dims, box, boost) -> np.ndarray:
+    """``boost`` inside the [0, box) corner of a (d, h, w) block, 0 outside:
+    motion's bandpass with begin 0 and damp 0."""
+    m = np.zeros(dims)
+    m[: box[0], : box[1], : box[2]] = boost
+    return m
+
+
+def _check_block_filter(torch, dev, block_filter, fft) -> dict:
+    """Kernel #3 against its plain version at three shapes, and against
+    scipy float64 on the linear chroma shape.  Returns its JSON stats."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ms_by_shape": {}}
+    for label, nb, dims in (("chroma 1080p", MOTION_NB, (16, 8, 8)),
+                            ("threshold 1080p luma 8^3", 32400, (8, 8, 8)),
+                            ("ragged", 37, (8, 5, 5))):
+        v = int(np.prod(dims))
+        uf = _uniform_factor(*dims)
+        filt = uf * _lowpass_box(dims, (4, 4, 4), 1.25) if label.startswith("chroma") else uf
+        k2m_t, k3s_t = block_filter.folded_filter_matrices(dims, filt, 1.0 / uf, dev)
+        x = torch.rand((nb, v), generator=gen, device=dev) * 255.0
+        f = x @ k2m_t                       # the plain version's coefficients
+        a = f.abs()
+        sample = a[:4000].flatten()
+        quant, tmin, tmax = 0.0, 0.0, 0.0
+        if not label.startswith("chroma"):
+            lo, hi = (0.45, 0.95) if label.startswith("threshold") else (0.2, 0.99)
+            tmin, tmax = (float(torch.quantile(sample, q)) for q in (lo, hi))
+        if label == "ragged":
+            quant = float(torch.quantile(sample, 0.5)) / 4.0
+        near = torch.zeros_like(a, dtype=torch.bool)
+        if tmax:
+            near |= ((a - tmin).abs() <= BF_EDGE * tmin) | ((a - tmax).abs() <= BF_EDGE * tmax)
+            zeroed = float(((a < tmin) | (a > tmax)).float().mean())
+        if quant:
+            yq = block_filter._middle(f, 0.0, tmin, tmax).abs() * (1.0 / quant)
+            half = torch.floor(yq) + 0.5
+            near |= (yq - half).abs() <= BF_EDGE * half
+        keep = ~near.any(dim=1)
+        args = (x, k2m_t, k3s_t, quant, tmin, tmax)
+        y = block_filter._block_filter_cuda(*args)
+        ref = block_filter._block_filter_plain(*args)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs()[keep].max())
+        if not (np.isfinite(err) and err <= BF_TOL and bool(torch.isfinite(y).all())):
+            raise RuntimeError(f"block filter {label}: max abs diff {err} vs plain "
+                               f"(tolerance {BF_TOL})")
+        msg = (f"kernel block_filter {label} NB={nb} V={v} dims={dims}: max abs diff vs "
+               f"plain {err:.3e} over {int(keep.sum())} blocks "
+               f"({nb - int(keep.sum())} excluded at a boundary)")
+        if tmax:
+            msg += f", threshold zeroes {zeroed:.3f} of the coefficients"
+        if quant:
+            msg += f", quant {quant:.4g}"
+        if label.startswith("chroma"):
+            xb = x.double().cpu().numpy().reshape((nb,) + dims)
+            axes = (1, 2, 3)
+            ff = fft.dctn(xb, type=2, axes=axes, workers=-1) * filt * (1.0 / uf)
+            oracle = fft.dctn(ff, type=3, axes=axes, workers=-1) / (8.0 * v)
+            oerr = float(np.max(np.abs(y.double().cpu().numpy() - oracle.reshape(nb, v))))
+            msg += f"; vs float64 {oerr:.3e}"
+            if not oerr <= BF_TOL:
+                raise RuntimeError(f"block filter {label}: {oerr} vs float64")
+        ms = _time_ms(torch, lambda: block_filter._block_filter_cuda(*args))
+        plain_ms = _time_ms(torch, lambda: block_filter._block_filter_plain(*args))
+        print(f"{msg}; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["ms_by_shape"][label] = {"ms": ms, "plain_ms": plain_ms}
+        if label.startswith("chroma"):        # the motion path's shape
+            out["ms"], out["plain_ms"] = ms, plain_ms
+        del x, f, a, y, ref
+    return out
+
+
+def _write_clip(video, path: str) -> list:
+    """A seeded MWxMH yuv420p y4m clip of MFRAMES frames (smooth moving
+    content plus noise), written with the port's Y4MWriter.  Returns the
+    planes as [MFRAMES, h, w] uint8 arrays."""
+    rng = np.random.default_rng(0)
+    pf = video.PIXEL_FORMATS["yuv420p"]
+    dims = pf.plane_dims(MW, MH)
+    planes = [np.empty((MFRAMES, h, w), np.uint8) for w, h in dims]
+    writer = video.open_output(path, MW, MH, Fraction(25, 1),
+                               video.ColorProps(pix_fmt="yuv420p"))
+    with writer:
+        for t in range(MFRAMES):
+            frame = []
+            for i, (w, h) in enumerate(dims):
+                sx = np.sin(np.arange(w) / (23.0 + 4 * i) + t / 7.0)
+                cy = np.cos(np.arange(h) / 17.0 - t / 11.0)
+                p = 128.0 + 70.0 * cy[:, None] * sx[None, :] \
+                    + 8.0 * rng.standard_normal((h, w), dtype=np.float32)
+                planes[i][t] = np.clip(np.rint(p), 0, 255)
+                frame.append(planes[i][t])
+            writer.write_frame(frame, raw=True)
+    return planes
+
+
+def _read_y4m(path: str, nframes: int):
+    """(header line, [nframes, h, w] uint8 planes) of a yuv420p y4m file."""
+    with open(path, "rb") as f:
+        header = f.readline().decode("ascii").strip()
+        tags = {t[0]: t[1:] for t in header.split()[1:]}
+        w, h = int(tags["W"]), int(tags["H"])
+        dims = [(w, h), ((w + 1) // 2, (h + 1) // 2), ((w + 1) // 2, (h + 1) // 2)]
+        planes = [np.empty((nframes, ph, pw), np.uint8) for pw, ph in dims]
+        for t in range(nframes):
+            if f.readline() != b"FRAME\n":
+                raise RuntimeError(f"{path}: frame {t} missing")
+            for p, (pw, ph) in zip(planes, dims):
+                p[t] = np.frombuffer(f.read(pw * ph), np.uint8).reshape(ph, pw)
+        if f.read(1):
+            raise RuntimeError(f"{path}: trailing bytes after {nframes} frames")
+    return header, planes
+
+
+def _motion_oracle(frames: np.ndarray, block, box, out_hw, fft) -> np.ndarray:
+    """motion's lowpass edit in float64: per (d, h, w) block, scipy DCT-II,
+    ``box`` boosted by 1.25 and the rest zeroed, DCT-III / (8V), then
+    floor(x + 0.5) clipped to 0..255; rows and columns the block grid
+    truncates are zero, as the tool pads them."""
+    bd, bh, bw = block
+    n, h, w = frames.shape
+    nbh, nbw = h // bh, w // bw
+    a = frames[:, : nbh * bh, : nbw * bw].astype(np.float64)
+    a = a.reshape(n // bd, bd, nbh, bh, nbw, bw)
+    mult = _lowpass_box(block, box, 1.25)[None, :, None, :, None, :]
+    f = fft.dctn(a, type=2, axes=(1, 3, 5), workers=-1) * mult
+    y = fft.dctn(f, type=3, axes=(1, 3, 5), workers=-1) / (8.0 * bd * bh * bw)
+    y = np.clip(np.floor(y + 0.5), 0, 255).reshape(n, nbh * bh, nbw * bw)
+    rows, cols = min(nbh * bh, out_hw[0]), min(nbw * bw, out_hw[1])
+    out = np.zeros((n,) + tuple(out_hw))
+    out[:, :rows, :cols] = y[:, :rows, :cols]
+    return out
+
+
+def _motion_phase(torch, dev, plain_versions, int8mm, block_filter, fft) -> dict:
+    """Main path 2: the motion CLI at 1080p 4:2:0; returns its launches."""
+    from dspfun_tpu_torch.io import video
+    from dspfun_tpu_torch.models import motion_pipeline as mp
+    from dspfun_tpu_torch.tools import motion
+
+    nslabs = MFRAMES // 16
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_motion_") as tmp:
+        clip, out, out_plain = (os.path.join(tmp, n) for n in
+                                ("clip.y4m", "out.y4m", "plain.y4m"))
+        src = _write_clip(video, clip)
+
+        def run(dst, extra=()):
+            t0 = time.perf_counter()
+            rc = motion.main(MOTION_ARGS + list(extra) + [clip, dst])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"motion CLI exited {rc}")
+            return wall, dict(motion.LAST_STAGE_TIMES)
+
+        int8mm.LAUNCHES.clear()
+        block_filter.LAUNCHES.clear()
+        cold, _ = run(out)
+        launches = {**int8mm.LAUNCHES, **block_filter.LAUNCHES}
+        print(f"motion main-path launches: {json.dumps(launches)} ({nslabs} slabs, "
+              f"{cold:.3f} s cold)", flush=True)
+        expect = {"right3": 2 * nslabs, "block_filter": 2 * nslabs}
+        if {n: c for n, c in launches.items() if c} != expect:
+            raise RuntimeError(f"motion launches {launches}, expected {expect}")
+        if mp.LAST_FAST_PATH != "cuda-kron":
+            raise RuntimeError(f"motion chroma took {mp.LAST_FAST_PATH}, not cuda-kron")
+
+        header, got = _read_y4m(out, MFRAMES)
+        print(f"motion output header: {header}", flush=True)
+        # the 16-row block grid keeps 1072 of the 1080 rows
+        if got[0].shape[1:] != (MH // 16 * 16, MW):
+            raise RuntimeError(f"motion output plane 0 is {got[0].shape[1:]}")
+        total = off = 0
+        for i, (frames, plane) in enumerate(zip(src, got)):
+            block, box = ((16, 16, 16), (4, 8, 8)) if i == 0 else ((16, 8, 8), (4, 4, 4))
+            oracle = _motion_oracle(frames, block, box, plane.shape[1:], fft)
+            diff = np.abs(plane.astype(np.float64) - oracle)
+            total += diff.size
+            off += int((diff > 0).sum())
+            print(f"motion plane {i} {plane.shape}: max |pel - f64 oracle| "
+                  f"{diff.max():.0f}, off by one {np.mean(diff > 0):.6f}", flush=True)
+            if diff.max() > 1:
+                raise RuntimeError(f"motion plane {i}: a pel is {diff.max()} levels "
+                                   "from the float64 oracle")
+        print(f"motion output vs float64: every pel within one level, "
+              f"{off / total:.6f} off by one", flush=True)
+
+        with plain_versions():
+            run(out_plain)                      # warm the plain path's allocations
+        warm_s, warm_stages = run(out)
+        b2_s, b2_stages = run(out_plain, ("--slab-batch", "2"))
+        _, got_b2 = _read_y4m(out_plain, MFRAMES)
+        if not all(np.array_equal(a, b) for a, b in zip(got, got_b2)):
+            raise RuntimeError("motion --slab-batch 2 output differs from batch 1")
+        with plain_versions():
+            plain_s, plain_stages = run(out_plain)
+        _, got_plain = _read_y4m(out_plain, MFRAMES)
+        ndiff = sum(int((a != b).sum()) for a, b in zip(got, got_plain))
+        print(f"motion CLI 1080p 4:2:0, {MFRAMES} frames: {MFRAMES / warm_s:.2f} frames/s "
+              f"with the kernels ({warm_s:.3f} s; stages {json.dumps(warm_stages)}), "
+              f"{MFRAMES / plain_s:.2f} frames/s plain ({plain_s:.3f} s; stages "
+              f"{json.dumps(plain_stages)}); {ndiff} pels differ kernel vs plain; "
+              f"--slab-batch 2 {MFRAMES / b2_s:.2f} frames/s ({b2_s:.3f} s, same output)",
+              flush=True)
+
+    # slab time per plane (filter_blocks alone, blocks already on the card)
+    geoms = mp.plan_geometry(MW, MH, MFRAMES, 3, 1, 1, block=mp.Dims(16, 16, 16),
+                             bp_end=mp.Dims(8, 8, 4))
+    params = mp.MotionParams(boost=1.25, damp=0.0, float_pixels=False)
+    for i in (0, 1):
+        g = geoms[i]
+        plans = (*mp.make_plans(g, device=dev), mp.maybe_kron_plans(g, params, device=dev))
+        blocks = torch.from_numpy(np.ascontiguousarray(
+            mp.frames_to_blocks(src[i][:16], g))).to(dev)
+
+        def slab(b=blocks, g=g, plans=plans, i=i):
+            return mp.filter_blocks(b, plans, None, None, g, params, i, 3)
+
+        ms = _time_ms(torch, slab)
+        path = mp.LAST_FAST_PATH
+        with plain_versions():
+            plain_ms = _time_ms(torch, slab)
+        print(f"motion slab plane {i} ({path}, NB={blocks.shape[0]}): {ms:.4f} ms "
+              f"kernel, {plain_ms:.4f} ms plain", flush=True)
+        if i == 0:
+            sweep = {}
+            for bsz in (1, 2, 4):
+                big = blocks.repeat(bsz, 1, 1, 1)
+                sweep[bsz] = _time_ms(torch, lambda: slab(big)) / bsz
+            print("motion luma slab batch sweep (ms per slab): "
+                  + ", ".join(f"B={b} {t:.4f}" for b, t in sweep.items()), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -109,7 +381,7 @@ def main() -> int:
     from dspfun_tpu_torch.models.spec_pipeline import (
         SpecChainParams, spec_forward, spec_inverse,
     )
-    from dspfun_tpu_torch.ops import int8mm
+    from dspfun_tpu_torch.ops import block_filter, int8mm
 
     dev = torch.device("cuda", 0)
     print(f"card: {_card_line()}", flush=True)
@@ -129,17 +401,19 @@ def main() -> int:
           flush=True)
 
     @contextlib.contextmanager
-    def plain_groups():
-        """Route the digit-pair groups through the plain version on the
-        card (the comparison baseline); no kernel may launch inside."""
-        saved, before = int8mm._i8_groups, sum(int8mm.LAUNCHES.values())
+    def plain_versions():
+        """Route both kernels through their plain versions on the card
+        (the comparison baseline); no kernel may launch inside."""
+        saved = (int8mm._i8_groups, block_filter._block_filter)
+        before = sum(int8mm.LAUNCHES.values()) + sum(block_filter.LAUNCHES.values())
         int8mm._i8_groups = int8mm._i8_groups_plain
+        block_filter._block_filter = block_filter._block_filter_plain
         try:
             yield
         finally:
-            int8mm._i8_groups = saved
-        if sum(int8mm.LAUNCHES.values()) != before:
-            raise RuntimeError("a kernel launched while the plain version was forced")
+            int8mm._i8_groups, block_filter._block_filter = saved
+        if sum(int8mm.LAUNCHES.values()) + sum(block_filter.LAUNCHES.values()) != before:
+            raise RuntimeError("a kernel launched while the plain versions were forced")
 
     # ---- phase 3: each kernel against its plain version -----------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -172,6 +446,29 @@ def main() -> int:
             print(f"kernel {name} {what:9s} M={m} K={k} B={b} R={r}: equal, "
                   f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
             del a, x, y, ref
+    motion_i8 = {"ms": 0.0, "plain_ms": 0.0}
+    for m, k, r, what in MOTION_I8_SHAPES:
+        a = torch.randint(-64, 65, (3, m, int8mm.ceil_to(k, 128)), generator=gen,
+                          device=dev, dtype=torch.int8)
+        a[:, :, k:] = 0
+        x = torch.randint(-64, 65, (3, 1, r, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        y = int8mm._i8_groups_cuda(a, x, "right")
+        ref = int8mm._i8_groups_plain(a, x, "right")
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        if not torch.equal(y, ref):
+            raise RuntimeError(f"right3 {what} M={m} K={k} R={r}: kernel != plain "
+                               f"(max abs diff {err})")
+        ms = _time_ms(torch, lambda: int8mm._i8_groups_cuda(a, x, "right"))
+        plain_ms = _time_ms(torch, lambda: int8mm._i8_groups_plain(a, x, "right"))
+        motion_i8["ms"] += ms
+        motion_i8["plain_ms"] += plain_ms
+        stats["right3"]["max_abs_err"] = max(stats["right3"]["max_abs_err"], err)
+        print(f"kernel right3 {what} M={m} K={k} B=1 R={r}: equal, {ms:.4f} ms kernel, "
+              f"{plain_ms:.4f} ms plain", flush=True)
+        del a, x, y, ref
+    bf_stats = _check_block_filter(torch, dev, block_filter, scipy.fft)
     torch.cuda.empty_cache()
 
     # ---- phase 4: the main path, launches counted -----------------------
@@ -219,7 +516,7 @@ def main() -> int:
 
     for p, label in ((bench, "i8@1e-5"), (deep, "i8")):
         err = float(np.max(np.abs(y[p].cpu().numpy().astype(np.float64) - ref)))
-        with plain_groups():
+        with plain_versions():
             y_plain = chain(p)
         same = torch.equal(y[p], y_plain)
         print(f"4K fused chain {label}: max abs err vs f64 {err:.3e}, "
@@ -246,7 +543,7 @@ def main() -> int:
     print(f"spec copy round trip (hilo -> exact): max abs err {err:.3e}", flush=True)
     if not err <= CHAIN_TOL:
         raise RuntimeError("spec copy round trip at the default policy failed")
-    with plain_groups():
+    with plain_versions():
         back_plain = spec_round_trip(bench)
     err = float((back_i8 - x).abs().max())
     same = torch.equal(back_i8, back_plain)
@@ -259,17 +556,31 @@ def main() -> int:
     # ---- phase 5: chain throughput, kernel vs plain ---------------------
     for p, label in ((bench, "i8@1e-5"), (deep, "i8")):
         ms = _time_ms(torch, lambda p=p: chain(p))
-        with plain_groups():
+        with plain_versions():
             plain_ms = _time_ms(torch, lambda p=p: chain(p))
         print(f"4K fused chain {label}: {H * W / ms / 1e3:.2f} MP/s kernel "
               f"({ms:.3f} ms), {H * W / plain_ms / 1e3:.2f} MP/s plain "
               f"({plain_ms:.3f} ms)", flush=True)
 
+    # ---- phase 6: main path 2, the motion CLI, launches counted --------
+    motion_launches = _motion_phase(torch, dev, plain_versions, int8mm, block_filter,
+                                     scipy.fft)
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
-                "replaces": REPLACES[n], "launches": launches[n],
+                "replaces": REPLACES[n],
+                "launches": launches[n] + motion_launches.get(n, 0),
+                "launches_by_path": {"4k_chain": launches[n],
+                                     "motion": motion_launches.get(n, 0)},
                 "max_abs_err": stats[n]["max_abs_err"],
                 "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"]}
                for n in REPLACES]
+    kernels[list(REPLACES).index("right3")].update(
+        motion_ms=motion_i8["ms"], motion_plain_ms=motion_i8["plain_ms"])
+    kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
+                    "replaces": BF_REPLACES,
+                    "launches": motion_launches["block_filter"],
+                    "launches_by_path": {"motion": motion_launches["block_filter"]},
+                    **bf_stats})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

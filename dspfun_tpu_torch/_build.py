@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain
-C interface, which ``ctypes`` loads.  Headers that pull in PyTorch take
+``csrc/*.cu`` compile with ``nvcc``, one process per source, all started
+together, and link into one shared library with a plain C interface,
+which ``ctypes`` loads.  Headers that pull in PyTorch take
 minutes to compile; a plain C interface takes seconds.  The library
 lands in ``build/kernels/`` at the root of the checkout, named by a
 hash of the sources and flags, so an edited source rebuilds and an
@@ -23,7 +24,7 @@ __all__ = ["NVCC_FLAGS", "build_dir", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def build_dir() -> Path:
@@ -62,17 +63,21 @@ def load_library() -> ctypes.CDLL:
     if not lib.is_file():
         nvcc = _nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", f"{tmp}/{s.stem}.o"]
+                    for s in srcs]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            logs = [p.communicate()[0] for p in procs]
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}/lib.so",
+                    *(c[-1] for c in cmds)]
+            for cmd, proc, log in zip(cmds, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(cmd)}\n{log}")
+            res = subprocess.run(link, capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stdout}{res.stderr}")
-            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+                raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                                   f"{' '.join(link)}\n{res.stdout}{res.stderr}")
+            os.replace(f"{tmp}/lib.so", lib)  # atomic: a concurrent loader sees all or none
     return ctypes.CDLL(str(lib))

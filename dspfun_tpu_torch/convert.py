@@ -17,7 +17,7 @@ import torch
 from dspfun_tpu_torch.core.transforms import AxisPlan
 from dspfun_tpu_torch.models.fused import FilterPlans
 
-__all__ = ["axis_plan_from_jax", "filter_plans_from_jax"]
+__all__ = ["axis_plan_from_jax", "filter_plans_from_jax", "motion_plans_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -43,3 +43,13 @@ def filter_plans_from_jax(plans, device: torch.device | str = "cpu") -> FilterPl
         tuple(None if k is None else torch.tensor(np.asarray(k, np.int64), device=device)
               for k in support),
     )
+
+
+def motion_plans_from_jax(plans, device: torch.device | str = "cpu") -> tuple:
+    """A JAX-package motion plan tuple ``(fwd, inv[, kron])`` — ``fwd``
+    and ``inv`` tuples of ``AxisPlan``, ``kron`` a pair of ``AxisPlan``
+    or None (``motion_pipeline.make_plans`` and ``maybe_kron_plans``) —
+    as the port's, on ``device``."""
+    return tuple(None if group is None
+                 else tuple(axis_plan_from_jax(p, device) for p in group)
+                 for group in plans)

@@ -63,12 +63,13 @@ class AxisPlan(NamedTuple):
 
 
 def _to(a, device) -> torch.Tensor | None:
-    """A copy on ``device`` (never a view of a cached host array)."""
+    """A contiguous copy on ``device`` (never a view of a cached host
+    array; the kernels take contiguous operands only)."""
     if a is None:
         return None
     if isinstance(a, torch.Tensor):
-        return a.to(device, copy=True)
-    return torch.tensor(np.asarray(a), device=device)
+        return a.to(device, copy=True).contiguous()
+    return torch.tensor(np.asarray(a, order="C"), device=device)
 
 
 def plan_matrix(m: np.ndarray, precision: Precision | None = None,

@@ -1,0 +1,526 @@
+"""motion — apply 2- or 3-dimensional frequency-domain operations to a
+video (PyTorch port of ``dspfun_tpu/tools/motion.py``).
+
+CLI-compatible rebuild of reference motion/motion.c on the batched block
+pipeline in ``dspfun_tpu_torch.models.motion_pipeline``.  Run it as
+
+    python -m dspfun_tpu_torch.tools.motion [options] <infile> [outfile]
+
+It keeps the JAX tool's getopt surface and defaults.  ``--device``
+picks the torch device (default ``cuda`` when a card is present, else
+``cpu``; asking for ``cuda`` without a card is an error).  Not ported
+yet, each refused with exit code 1: ``--mesh``, ``--coordinator``,
+``--nprocs``, ``--proc-id`` (ROADMAP queue 1, item 18),
+``--resume-file`` (item 13), ``--eval`` (item 12) and containers other
+than y4m (item 13).  The FFTW planning flags are accepted for CLI
+parity and do nothing.
+"""
+
+from __future__ import annotations
+
+import getopt
+import math
+import sys
+import time
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from dspfun_tpu_torch.core.precision import apply_tool_default, get_precision
+from dspfun_tpu_torch.io import video
+from dspfun_tpu_torch.models import motion_pipeline as mp
+
+# device-plan cache across main() invocations, keyed on device,
+# precision, geometry and params
+_PLAN_CACHE: dict = {}
+
+# per-stage wall seconds of the last run: read = container decode on the
+# host; compute = host-to-device copy, block gather, filter_blocks and
+# the device-to-host copy of the results (which waits for the device);
+# write = host mux
+LAST_STAGE_TIMES: dict = {}
+
+SHORT = "b:s:p:B:D:c:q:r:dQh"
+LONG = [
+    "size=", "blocksize=", "offset=", "frames=", "framerate=", "keep-rate",
+    "samesize-chroma", "spectrogram=", "ispectrogram=", "bandpass=", "boost=",
+    "damp=", "quant=", "dither", "csp=", "format=", "codec=", "encopts=",
+    "iformat=", "decopts=", "loglevel=", "preserve-dc=", "eval=",
+    "fftw-planning-method=", "fftw-wisdom-file=", "fftw-threads=", "quiet",
+    "help", "threshold=", "coeff-limit=", "linear", "resume-file=", "mesh=",
+    "coordinator=", "nprocs=", "proc-id=", "slab-batch=", "device=",
+]
+
+# getopt has no optional-argument long options; bare forms of these are
+# rewritten to "--opt=" before parsing (empty value selects the default)
+_OPTIONAL_ARG = ("--spectrogram", "--ispectrogram", "--preserve-dc")
+
+# flags the port refuses, with the ROADMAP item that ports them
+_NOT_PORTED = {
+    "--mesh": "the device mesh (ROADMAP queue 1, item 18)",
+    "--coordinator": "multi-process runs (ROADMAP queue 1, item 18)",
+    "--nprocs": "multi-process runs (ROADMAP queue 1, item 18)",
+    "--proc-id": "multi-process runs (ROADMAP queue 1, item 18)",
+    "--resume-file": "checkpoint/resume (ROADMAP queue 1, item 13)",
+    "--eval": "the expression evaluator (ROADMAP queue 1, item 12)",
+}
+
+USAGE = """Usage: motion [options] <infile> [outfile]
+[-s|--size WxHxD] [-b|--blocksize WxHxD] [-p|--bandpass X1xY1xZ1-X2xY2xZ2]
+[-B|--boost float] [-D|--damp float]  [--spectrogram=type] [--ispectrogram=type] [-q|--quant quant] [--threshold] [--coeff-limit limit] [-d|--dither] [--preserve-dc=type]
+[-r|--framerate] [--keep-rate] [--samesize-chroma] [--frames lim] [--offset pos] [--csp|c colorspace options] [--iformat|--format fmt] [--codec codec] [--encopts|--decopts opts] [--loglevel int]
+[--slab-batch N|auto] [--device cuda|cpu] [-Q|--quiet]"""
+
+
+def _parse_dims(arg: str, current: mp.Dims = mp.Dims(0, 0, 0)) -> mp.Dims:
+    """sscanf-style: unmatched trailing fields keep their prior values
+    (so `-b 8x8` keeps the default depth 1, while `-b 8x8x0` explicitly
+    requests whole-clip depth — reference motion.c:227,motion/README.md)."""
+    vals = [current.w, current.h, current.d]
+    for i, p in enumerate(arg.split("x")[:3]):
+        if p != "":
+            vals[i] = int(p)
+    return mp.Dims(*vals)
+
+
+def _parse_multi(arg: str, default: float) -> list[float]:
+    """N[:N:N:N] per-plane values; missing entries repeat the last
+    (reference motion.c:235-236)."""
+    vals = [float(t) for t in arg.split(":") if t != ""]
+    out = []
+    for i in range(4):
+        if i < len(vals):
+            out.append(vals[i])
+        else:
+            out.append(out[-1] if out else default)
+    return out
+
+
+def _device(arg: str | None) -> torch.device:
+    if arg is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = torch.device(arg)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError("--device cuda: torch.cuda.is_available() is False")
+    return dev
+
+
+def main(argv: list[str] | None = None) -> int:
+    apply_tool_default("motion")
+    argv = sys.argv[1:] if argv is None else argv
+    argv = [a + "=" if a in _OPTIONAL_ARG else a for a in argv]
+    try:
+        flags, args = getopt.gnu_getopt(argv, SHORT, LONG)
+    except getopt.GetoptError as e:
+        print(e, file=sys.stderr)
+        print(USAGE, file=sys.stderr)
+        return 1
+
+    block = mp.Dims(0, 0, 1)
+    scaled = mp.Dims()
+    bp_begin = mp.Dims()
+    bp_end = mp.Dims()
+    boost = [1.0] * 4
+    damp = [0.0] * 4
+    quant = 0.0
+    threshold_min = threshold_max = 0.0
+    coeff_limit = 0
+    spec = ispec = preserve_dc = None
+    dither = linear = samerate = samesize = quiet = False
+    offset = 0
+    maxframes = 0
+    out_rate = None
+    csp = iformat = oformat = None
+    slab_batch = "auto"
+    device_arg = None
+    for flag, arg in flags:
+        if flag in ("-h", "--help"):
+            print(USAGE)
+            return 0
+        elif flag in _NOT_PORTED:
+            print(f"{flag}: {_NOT_PORTED[flag]} is not ported to dspfun_tpu_torch "
+                  "yet; use dspfun_tpu.tools.motion", file=sys.stderr)
+            return 1
+        elif flag in ("-b", "--blocksize"):
+            block = _parse_dims(arg, block)
+        elif flag in ("-s", "--size"):
+            scaled = _parse_dims(arg)
+        elif flag in ("-p", "--bandpass"):
+            lo, _, hi = arg.partition("-")
+            bp_begin = _parse_dims(lo)
+            bp_end = _parse_dims(hi) if hi else mp.Dims()
+        elif flag in ("-B", "--boost"):
+            boost = _parse_multi(arg, 1.0)
+        elif flag in ("-D", "--damp"):
+            damp = _parse_multi(arg, 0.0)
+        elif flag in ("-c", "--csp"):
+            csp = arg
+        elif flag in ("-r", "--framerate"):
+            out_rate = video.parse_rate(arg)
+        elif flag == "--offset":
+            offset = int(arg)
+        elif flag == "--frames":
+            maxframes = int(arg)
+        elif flag == "--keep-rate":
+            samerate = True
+        elif flag == "--samesize-chroma":
+            samesize = True
+        elif flag == "--spectrogram":
+            spec = arg or "abs"
+            if spec not in mp.SPECTYPES:
+                print(f"invalid spectrogram type '{spec}', use one of: "
+                      f"{' '.join(mp.SPECTYPES)}", file=sys.stderr)
+                return 1
+        elif flag == "--ispectrogram":
+            ispec = arg or "shift"
+            if ispec not in mp.ISPECTYPES:
+                print(f"invalid ispectrogram type '{ispec}', use one of: "
+                      f"{' '.join(mp.ISPECTYPES)}", file=sys.stderr)
+                return 1
+        elif flag == "--preserve-dc":
+            preserve_dc = arg or "dc"
+            if preserve_dc not in mp.PRESERVE_DCTYPES:
+                print(f"invalid preserve-dc type '{preserve_dc}', use one "
+                      f"of: {' '.join(mp.PRESERVE_DCTYPES)}", file=sys.stderr)
+                return 1
+        elif flag in ("-q", "--quant"):
+            quant = float(arg)
+        elif flag == "--threshold":
+            lo, _, hi = arg.partition("-")
+            threshold_min = float(lo or 0)
+            threshold_max = float(hi or 0)
+        elif flag == "--coeff-limit":
+            coeff_limit = int(arg)
+        elif flag in ("-d", "--dither"):
+            dither = True
+        elif flag == "--linear":
+            linear = True
+        elif flag == "--format":
+            oformat = arg
+        elif flag == "--iformat":
+            iformat = arg
+        elif flag == "--slab-batch":
+            slab_batch = arg  # int | "auto"
+        elif flag == "--device":
+            device_arg = arg
+        elif flag in ("--codec", "--encopts", "--decopts"):
+            pass  # CLI parity: options of the containers y4m is not
+        elif flag in ("--loglevel", "--fftw-planning-method", "--fftw-threads",
+                      "--fftw-wisdom-file"):
+            pass  # CLI parity; PyTorch has no plans to tune or cache
+        elif flag in ("-Q", "--quiet"):
+            quiet = True
+
+    if not args:
+        print(USAGE, file=sys.stderr)
+        return 1
+    infile = args[0]
+    outfile = args[1] if len(args) > 1 else None
+    try:
+        device = _device(device_arg)
+    except (RuntimeError, ValueError) as e:
+        print(f"Bad --device: {e}", file=sys.stderr)
+        return 1
+
+    try:
+        reader = video.open_input(infile, format=iformat)
+    except (OSError, ValueError) as e:
+        print(f'Error opening "{infile}": {e}', file=sys.stderr)
+        return 1
+
+    # processing pixel format: --csp request > spec constraints > input
+    proc_fmt = reader.pix_fmt
+    try:
+        csp_props = video.parse_color_props(csp)
+    except ValueError as e:
+        print(f"Bad --csp: {e}", file=sys.stderr)
+        reader.close()
+        return 1
+    if csp_props.pix_fmt:
+        proc_fmt = video.PIXEL_FORMATS[csp_props.pix_fmt]
+    elif (spec or linear) and not (proc_fmt.is_rgb or proc_fmt.ncomp == 1):
+        # spectrogram / linear processing wants RGB or gray
+        # (reference motion.c:313-325)
+        proc_fmt = video.PIXEL_FORMATS["gbrpf32le"]
+    # --csp overrides every color property for processing/output, not
+    # just pixel_format (reference ffapi.c:94-114 applied at open);
+    # range/matrix changes convert through RGB like the reference's
+    # swscale setup (ffapi.c:283-326)
+    proc_props = reader.props.copy()
+    csp_override = False
+    for field in ("color_range", "color_primaries", "color_trc",
+                  "color_space", "chroma_location"):
+        want = getattr(csp_props, field)
+        if want is not None:
+            if want != getattr(reader.props, field):
+                csp_override = True
+            setattr(proc_props, field, want)
+    convert = proc_fmt.name != reader.pix_fmt.name or csp_override
+    float_pixels = proc_fmt.is_float
+
+    if reader.frames is None and not maxframes:
+        print("Input frame count unknown (unseekable pipe); specify "
+              "--frames", file=sys.stderr)
+        reader.close()
+        return 1
+    nframes_in = reader.frames or 0
+    source_d = nframes_in or maxframes
+    if maxframes:
+        # clamp --frames/--offset against the known input length only
+        if nframes_in and maxframes + offset > nframes_in:
+            if maxframes > nframes_in:
+                maxframes = nframes_in
+            if offset >= nframes_in:
+                offset = nframes_in - maxframes
+            else:
+                maxframes = nframes_in - offset
+        source_d = maxframes
+    elif source_d:
+        if offset >= source_d:
+            offset = source_d - 1
+        source_d -= offset
+
+    if not quiet:
+        print(f"  source: {reader.width} x {reader.height} x {source_d}",
+              file=sys.stderr)
+    if not outfile:
+        reader.close()
+        return 0
+
+    sx, sy = proc_fmt.chroma_shift
+    geoms = mp.plan_geometry(
+        reader.width, reader.height, source_d, proc_fmt.ncomp,
+        log2_chroma_w=sx, log2_chroma_h=sy,
+        block=block, scaled=scaled, bp_begin=bp_begin, bp_end=bp_end,
+        samesize_chroma=samesize,
+    )
+    g0 = geoms[0]
+    if not quiet and (reader.width % g0.block.w or reader.height % g0.block.h
+                      or source_d % g0.block.d):
+        print("Warning: Blocks not evenly divisible, truncating dimensions",
+              file=sys.stderr)
+
+    if out_rate is None:
+        rate = reader.rate
+        if not samerate:
+            rate = rate * Fraction(g0.scaled.d, g0.block.d)
+    else:
+        rate = out_rate
+
+    props = proc_props.copy()
+    props.pix_fmt = proc_fmt.name
+    if spec:
+        props.color_range = "jpeg"
+    try:
+        writer = video.open_output(
+            outfile, g0.newres.w, g0.newres.h, rate, props, format=oformat)
+    except (OSError, ValueError) as e:
+        print(f"Output setup failed for '{outfile}': {e}", file=sys.stderr)
+        reader.close()
+        return 1
+
+    if not quiet:
+        for gi, g in enumerate(geoms):
+            print(f"plane {gi}: block {g.block} scaled {g.scaled} "
+                  f"nblocks {g.nblocks} newres {g.newres}", file=sys.stderr)
+
+    # the container may negotiate a different pixel format than the
+    # processing format (e.g. float RGB spectrograms into y4m ->
+    # yuv444p, the reference's swscale output conversion,
+    # ffapi.c:497-527); convert through RGB on write when they differ
+    out_convert = writer.pix_fmt.name != proc_fmt.name
+
+    if dither and (spec or float_pixels):
+        print("Warning: dithering cannot be used with spectrogram or float "
+              "output, disabling.", file=sys.stderr)
+        dither = False
+
+    if offset:
+        reader.seek_frame(offset)
+
+    params = [
+        mp.MotionParams(
+            spec=spec, ispec=ispec, preserve_dc=preserve_dc,
+            boost=boost[i], damp=damp[i], quant=quant,
+            threshold_min=threshold_min, threshold_max=threshold_max,
+            coeff_limit=coeff_limit, dither=dither,
+            linear=linear, float_pixels=float_pixels,
+        )
+        for i in range(proc_fmt.ncomp)
+    ]
+
+    # device-resident plans, cached across invocations in-process;
+    # pruned int8 Kronecker plans ride along for fused fast-path
+    # geometries with sparse bandpass supports (mp.maybe_kron_plans).
+    # The active precision is part of the key: make_plans sizes its
+    # digit splits from get_precision()
+    pkey = (str(device), get_precision(), tuple(repr(g) for g in geoms),
+            tuple(p._key() for p in params))
+    plans = _PLAN_CACHE.get(pkey)
+    if plans is None:
+        plans = [(*mp.make_plans(g, device=device),
+                  mp.maybe_kron_plans(g, params[i], device=device))
+                 for i, g in enumerate(geoms)]
+        while len(_PLAN_CACHE) >= 4:
+            _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+        _PLAN_CACHE[pkey] = plans
+
+    def read_proc_planes():
+        """One frame in processing format, stored pel units (8-bit:
+        0..255 in the processing color range; float formats: x255)."""
+        if convert:
+            rgb = reader.read_frame_rgb()
+            if rgb is None:
+                return None
+            planes = video.rgb_to_planes(rgb, proc_fmt, props)
+            if float_pixels:
+                return [p * 255.0 for p in planes]
+            return [video.plane_to_pel(p, proc_fmt, i, props.color_range)
+                    for i, p in enumerate(planes)]
+        planes = reader.read_frame(raw=not float_pixels)
+        if planes is None:
+            return None
+        if float_pixels:
+            return [p * 255.0 for p in planes]
+        return planes
+
+    # --slab-batch: how many consecutive slabs' blocks run as one
+    # filter_blocks call per plane (blocks are independent across
+    # slabs).  auto = 1: the JAX tool's auto = 2 was calibrated on a TPU
+    slab_b = 1 if slab_batch == "auto" else max(1, int(slab_batch))
+
+    stage_s = {"read": 0.0, "compute": 0.0, "write": 0.0}
+    # per-plane coded counts stay on the device until the end of the run
+    # (a fetch per plane per slab would synchronise the loop)
+    coded_dev: list = []
+    written = read_count = 0
+    padb = int(math.log10(max(source_d, 1))) + 1
+    pads = int(math.log10(max(g0.newres.d, 1))) + 1
+
+    def progress():
+        if not quiet:
+            print(f"\rread: {read_count:>{padb}} wrote: {written:>{pads}}",
+                  end="", file=sys.stderr)
+
+    def read_slab():
+        """block.d frames in processing form, or None at EOF."""
+        nonlocal read_count
+        slab = []
+        for _z in range(g0.block.d):
+            planes = read_proc_planes()
+            if planes is None:
+                return None
+            slab.append(planes)
+            read_count += 1
+            progress()
+        return slab
+
+    tdims = proc_fmt.plane_dims(g0.newres.w, g0.newres.h)
+    # 8-bit raw output is quantised on the device (the writer's
+    # clip(rint), bit for bit): a quarter of the bytes cross to the host
+    quantise_u8 = not (float_pixels or out_convert) and writer.pix_fmt.depth == 8
+
+    def compute_slabs(slabs):
+        """Per-slab lists of output planes (host numpy) for S consecutive
+        slabs, one filter_blocks call per plane."""
+        t0 = time.perf_counter()
+        S = len(slabs)
+        outs = [[] for _ in range(S)]
+        for i, g in enumerate(geoms):
+            per = []
+            for slab in slabs:
+                frames = np.stack([slab[z][i] for z in range(g.block.d)])
+                if frames.dtype != np.uint8:
+                    # 8-bit pels cross to the device as bytes and cast
+                    # there; anything else as float32 (exact for 16-bit)
+                    frames = frames.astype(np.float32)
+                # the block gather is a strided copy: done on the device
+                per.append(mp.frames_to_blocks(torch.from_numpy(frames).to(device), g))
+            nb = per[0].shape[0]
+            big = torch.cat(per) if S > 1 else per[0].contiguous()
+            out, c = mp.filter_blocks(big, plans[i], None, None,
+                                      geom=g, params=params[i], plane_index=i,
+                                      nplanes=proc_fmt.ncomp)
+            coded_dev.append(c)
+            tw, th = tdims[i] if i < len(tdims) else tdims[-1]
+            for s in range(S):
+                p = mp.blocks_to_frames(out[s * nb:(s + 1) * nb], g)
+                # indivisible block grids truncate a plane's processed
+                # region (the reference leaves the surplus rows of its
+                # frame buffer stale, motion.c:437-439); pad emitted
+                # planes to the container's plane dims with zeros
+                ph, pw = p.shape[1], p.shape[2]
+                if (ph, pw) != (th, tw):
+                    p = torch.nn.functional.pad(
+                        p, (0, max(tw - pw, 0), 0, max(th - ph, 0)))[:, :th, :tw]
+                if quantise_u8:
+                    p = torch.clamp(torch.round(p), 0, 255).to(torch.uint8)
+                outs[s].append(p)
+        outs = [[p.cpu().numpy() for p in o] for o in outs]
+        stage_s["compute"] += time.perf_counter() - t0
+        return outs
+
+    def write_slab(out_planes):
+        nonlocal written
+        t0 = time.perf_counter()
+        for z in range(g0.scaled.d):
+            frame = []
+            for i, g in enumerate(geoms):
+                p = out_planes[i][min(z, g.scaled.d - 1)]
+                frame.append(p / 255.0 if float_pixels else p)
+            if quantise_u8:
+                # already clip(rint)-quantised to uint8 on the device
+                writer.write_frame_payload(b"".join(f.tobytes() for f in frame))
+            elif out_convert:
+                unit = [f if float_pixels
+                        else video.plane_from_pel(f, proc_fmt, i, props.color_range)
+                        for i, f in enumerate(frame)]
+                writer.write_frame_rgb(video.planes_to_rgb(
+                    unit, proc_fmt, props, g0.newres.w, g0.newres.h))
+            else:
+                writer.write_frame(frame, raw=not float_pixels)
+            written += 1
+            progress()
+        stage_s["write"] += time.perf_counter() - t0
+
+    ret = 0
+    try:
+        bz = 0
+        while bz < g0.nblocks.d:
+            t0 = time.perf_counter()
+            staged, eof = [], False
+            for _s in range(min(slab_b, g0.nblocks.d - bz)):
+                slab = read_slab()
+                if slab is None:
+                    eof = True
+                    break
+                staged.append(slab)
+            stage_s["read"] += time.perf_counter() - t0
+            if staged:
+                for out_planes in compute_slabs(staged):
+                    write_slab(out_planes)
+                bz += len(staged)
+            if eof:
+                print("Error reading frame: end of stream", file=sys.stderr)
+                ret = 1
+                break
+    finally:
+        if not quiet:
+            print(file=sys.stderr)
+        writer.close()
+        reader.close()
+    coded = int(sum(int(c.sum()) for c in coded_dev))
+    LAST_STAGE_TIMES.clear()
+    LAST_STAGE_TIMES.update(stage_s)
+
+    if quant and not quiet:
+        total = sum(g.newres.volume() for g in geoms)
+        print(f"coeffs: {coded} / {total} ({coded * 100.0 / total:2.0f}%)\n"
+              f"zeroes: {total - coded} / {total} "
+              f"({(total - coded) * 100.0 / total:2.0f}%)", file=sys.stderr)
+    return ret
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,7 @@
-"""The port on a CUDA card: the hand-written int8 kernel against its plain
-version, and the card's chains against the CPU's and a float64 oracle.
+"""The port on a CUDA card: the hand-written kernels (int8 digit
+contraction, fused Kronecker block filter) against their plain versions,
+and the card's chains, motion's filter_blocks and the motion CLI against
+the CPU's and a float64 oracle.
 
 Every test here needs a card and skips without one.  The machine with the
 card has no JAX, so this file imports none; run it there without the
@@ -7,10 +9,12 @@ repository's conftest (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: the kernel is bit-equal to its plain version (integer group
-sums are exact, the weights are powers of two); a contraction on the card
-is bit-equal to the same one on the CPU (every step is exact or a single
-IEEE rounding in the same order); chains hold 1e-5 against float64.
+Tolerances: the int8 kernel is bit-equal to its plain version (integer
+group sums are exact, the weights are powers of two); a contraction on
+the card is bit-equal to the same one on the CPU (every step is exact or
+a single IEEE rounding in the same order); chains hold 1e-5 against
+float64.  The block filter and motion's float32 paths sum in another
+order than their plain versions; their tolerances are stated per test.
 """
 
 import numpy as np
@@ -22,9 +26,11 @@ from dspfun_tpu_torch.core.basis import dct2_matrix, dct3_matrix
 from dspfun_tpu_torch.core.exact import exact_contract, split_matrix_digits
 from dspfun_tpu_torch.core.precision import Precision
 from dspfun_tpu_torch.models import fused
+from dspfun_tpu_torch.models import motion_pipeline as tmp
 from dspfun_tpu_torch.models.spec_pipeline import (
     SpecChainParams, spec_forward, spec_inverse,
 )
+from dspfun_tpu_torch.ops import block_filter as tbf
 from dspfun_tpu_torch.ops import int8mm as tmm
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +134,132 @@ def test_spec_round_trip_on_card(cuda):
         assert np.max(np.abs(dc.cpu().numpy() - x.mean(axis=(0, 1), dtype=np.float64))) <= 1e-6
         back = spec_inverse(f, params, precision=p)
         assert np.max(np.abs(back.cpu().numpy() - x)) <= 1e-5
+
+
+# ---- the fused Kronecker block filter (csrc/block_filter.cu) and motion ----
+
+
+def _uf(dims):
+    s = [np.where(np.arange(n) > 0, 1.0, np.sqrt(2.0)) for n in dims]
+    return 2.0 * np.sqrt(2.0) / (s[0][:, None, None] * s[1][None, :, None]
+                                 * s[2][None, None, :])
+
+
+# chip_smoke.py's three shapes, scaled down in NB: the 1080p chroma slab
+# (bandpass), the half-thresholded 8^3 luma shape, the ragged quant shape;
+# then a V off every tile multiple and a V of 1
+@pytest.mark.parametrize("nb,dims,mode", [
+    (804, (16, 8, 8), "bandpass"), (3240, (8, 8, 8), "threshold"),
+    (37, (8, 5, 5), "quant"), (70, (3, 7, 11), "quant"), (5, (1, 1, 1), "bandpass"),
+])
+def test_block_filter_kernel_matches_plain(cuda, nb, dims, mode):
+    """<= 1e-2 pels (the JAX package's bound, tests/test_pallas.py:43):
+    both run float32 FMAs, in another order.  Blocks with a coefficient
+    within 1e-5 relative of a threshold or quant boundary are left out."""
+    g = torch.Generator(device=cuda).manual_seed(nb)
+    v = int(np.prod(dims))
+    uf = _uf(dims)
+    filt = uf.copy()
+    if mode == "bandpass":
+        filt[dims[0] // 4 + 1:] = 0.0
+        filt *= 1.25
+    k2m_t, k3s_t = tbf.folded_filter_matrices(dims, filt, 1.0 / uf, cuda)
+    x = torch.rand((nb, v), generator=g, device=cuda) * 255.0
+    f = x @ k2m_t
+    a = f.abs()
+    quant = tmin = tmax = 0.0
+    if mode != "bandpass":
+        tmin, tmax = (float(torch.quantile(a.flatten(), q)) for q in (0.4, 0.97))
+    if mode == "quant":
+        quant = float(torch.quantile(a.flatten(), 0.5)) / 4.0
+    near = torch.zeros_like(a, dtype=torch.bool)
+    if tmax:
+        near |= ((a - tmin).abs() <= 1e-5 * tmin) | ((a - tmax).abs() <= 1e-5 * tmax)
+    if quant:
+        y = tbf._middle(f, 0.0, tmin, tmax).abs() * (1.0 / quant)
+        half = torch.floor(y) + 0.5
+        near |= (y - half).abs() <= 1e-5 * half
+    keep = ~near.any(dim=1)
+    before = tbf.LAUNCHES["block_filter"]
+    out = tbf._block_filter(x, k2m_t, k3s_t, quant, tmin, tmax)
+    assert tbf.LAUNCHES["block_filter"] == before + 1
+    ref = tbf._block_filter_plain(x, k2m_t, k3s_t, quant, tmin, tmax)
+    torch.cuda.synchronize()
+    assert int(keep.sum()) >= nb - max(2, nb // 50)
+    assert float((out - ref).abs()[keep].max()) <= 1e-2
+
+
+def test_block_filter_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    x = torch.zeros((4, 64), device=cuda)
+    k = torch.zeros((64, 64), device=cuda)
+    big = torch.zeros((1025, 1025), device=cuda)
+    with pytest.raises(ValueError, match="V_MAX"):
+        tbf._block_filter_cuda(torch.zeros((4, 1025), device=cuda), big, big, 0.0, 0.0, 0.0)
+    with pytest.raises(TypeError, match="float32"):
+        tbf._block_filter_cuda(x.double(), k, k, 0.0, 0.0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbf._block_filter_cuda(torch.zeros((64, 4), device=cuda).T, k, k, 0.0, 0.0, 0.0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tbf._block_filter_cuda(x, k.cpu(), k, 0.0, 0.0, 0.0)
+    with pytest.raises(ValueError, match="expected"):
+        tbf._block_filter_cuda(x, k[:32], k, 0.0, 0.0, 0.0)
+
+
+@pytest.mark.parametrize("block,bp_end,params,path", [
+    ((8, 8, 8), (4, 4, 4), dict(boost=1.25, damp=0.0), "cuda-kron"),
+    ((8, 8, 8), (8, 8, 8), dict(threshold_min=0.01, threshold_max=0.5), "cuda-kron"),
+    ((16, 16, 8), (8, 8, 4), dict(boost=1.25, damp=0.0), "i8-kron"),
+    ((16, 16, 8), (8, 8, 4), dict(boost=1.25, damp=0.5), "sep"),
+    ((8, 8, 4), (8, 8, 4), dict(quant=0.05, coeff_limit=40, preserve_dc="dc"), None),
+    ((8, 8, 4), (8, 8, 4), dict(linear=True, damp=0.5), None),
+])
+def test_filter_blocks_card_equals_cpu(cuda, block, bp_end, params, path):
+    """Every branch of filter_blocks on the card against the same call on
+    the CPU (the kernels' plain versions there): 2e-3 pels — float32
+    sums in another order (cuBLAS, the kernel, the CPU's BLAS); the
+    i8-kron digit contractions are exact on both sides."""
+    D = tmp.Dims
+    g = tmp.plan_geometry(32, 32, block[2], 1, block=D(*block), bp_end=D(*bp_end))[0]
+    p = tmp.MotionParams(**params)
+    frames = (np.random.default_rng(4).random((block[2], 32, 32)) * 255).astype(np.float32)
+    blocks = torch.from_numpy(np.ascontiguousarray(tmp.frames_to_blocks(frames, g)))
+    outs = []
+    for dev in ("cpu", cuda):
+        plans = (*tmp.make_plans(g, device=dev),
+                 tmp.maybe_kron_plans(g, p, allow_cpu=True, device=dev))
+        out, coded = tmp.filter_blocks(blocks.to(dev), plans, None, None, g, p, 0, 1)
+        expect = path if dev == cuda else {"cuda-kron": "plain-kron"}.get(path, path)
+        assert tmp.LAST_FAST_PATH == expect
+        outs.append((out.cpu().numpy(), coded.cpu().numpy()))
+    torch.cuda.synchronize()
+    assert np.max(np.abs(outs[0][0] - outs[1][0])) <= 2e-3
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+def test_motion_cli_card_equals_cpu(cuda, tmp_path):
+    """The motion CLI with --device cuda against --device cpu on a small
+    4:2:0 clip: byte-equal headers, every pel within one level."""
+    from fractions import Fraction
+
+    from dspfun_tpu_torch.io import video
+    from dspfun_tpu_torch.tools import motion
+
+    rng = np.random.default_rng(5)
+    clip = str(tmp_path / "clip.y4m")
+    with video.open_output(clip, 64, 48, Fraction(25, 1),
+                           video.ColorProps(pix_fmt="yuv420p")) as w:
+        for _ in range(16):
+            w.write_frame([rng.integers(0, 256, (h, wd)).astype(np.uint8)
+                           for wd, h in video.PIXEL_FORMATS["yuv420p"].plane_dims(64, 48)],
+                          raw=True)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.y4m")
+        assert motion.main(["-Q", "--device", dev, "-b", "16x16x16",
+                            "-p", "0x0x0-8x8x4", "-B", "1.25", clip, out]) == 0
+        outs.append(open(out, "rb").read())
+    ha, hb = outs[0].index(b"\n"), outs[1].index(b"\n")
+    assert outs[0][:ha] == outs[1][:hb]
+    a = np.frombuffer(outs[0][ha:], np.uint8).astype(int)
+    b = np.frombuffer(outs[1][hb:], np.uint8).astype(int)
+    assert np.max(np.abs(a - b)) <= 1

@@ -1,0 +1,211 @@
+"""The port's motion CLI and its y4m and colour copies against the JAX
+package's.
+
+* CLI: ``dspfun_tpu_torch.tools.motion.main`` and
+  ``dspfun_tpu.tools.motion.main`` on the same small yuv420p clip
+  (64x48, 16 frames).  The y4m headers must be byte-equal and the frame
+  payloads the same length; pels may differ by one level (a float32 sum
+  in another order crossing a rounding edge) on at most 0.1 % of them.
+* y4m container, pixel formats, colour properties and the RGB/pel
+  conversions (``io/video.py``) and the colour matrices (``io/color.py``)
+  are copies: equal bytes, equal arrays.  The torch transfer functions
+  agree with the JAX device path to 1e-6 (float32, Newton-polished pow
+  on both sides).
+* The flags the port refuses exit 1 and name the ROADMAP item.
+"""
+
+import dataclasses
+import io
+from fractions import Fraction
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dspfun_tpu.io import color as jcolor
+from dspfun_tpu.io import video as jvideo
+from dspfun_tpu.tools import motion as jmotion
+from dspfun_tpu_torch.io import color as tcolor
+from dspfun_tpu_torch.io import video as tvideo
+from dspfun_tpu_torch.tools import motion as tmotion
+
+
+def _planes(rng, pf, w, h, t):
+    out = []
+    for i, (pw, ph) in enumerate(pf.plane_dims(w, h)):
+        y, x = np.mgrid[0:ph, 0:pw]
+        base = 128 + 60 * np.sin(x / (7.0 + i) + t / 5.0) * np.cos(y / 9.0)
+        out.append(np.clip(base + rng.normal(0, 12, (ph, pw)), 0, 255))
+    return out
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    """A 64x48 yuv420p clip of 16 frames, written by the JAX package."""
+    path = str(tmp_path_factory.mktemp("motion_cli") / "clip.y4m")
+    rng = np.random.default_rng(0)
+    pf = jvideo.PIXEL_FORMATS["yuv420p"]
+    w = jvideo.open_output(path, 64, 48, Fraction(25, 1), jvideo.ColorProps(pix_fmt="yuv420p"))
+    for t in range(16):
+        w.write_frame(_planes(rng, pf, 64, 48, t), raw=True)
+    w.close()
+    return path
+
+
+CLI_CASES = {
+    "lowpass i8-kron/kron": ["-b", "16x16x16", "-p", "0x0x0-8x8x4", "-B", "1.25"],
+    "quant dither": ["-b", "8x8x8", "-q", "0.05", "-d"],
+    "csp yuv444p": ["-b", "8x8x4", "--csp", "pixel_format=yuv444p", "-B", "1.5",
+                    "-p", "0x0x0-4x4x2", "-D", "0.5"],
+    "spectrogram flat": ["-b", "8x8x8", "--spectrogram=flat"],
+    "downscale slab batch": ["-b", "16x16x8", "-s", "8x8x8", "--slab-batch", "2",
+                             "--coeff-limit", "30", "-q", "0.01"],
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cli_matches_jax(clip, tmp_path, case):
+    args = ["-Q"] + CLI_CASES[case]
+    outs = []
+    for name, main in (("jax", jmotion.main), ("torch", tmotion.main)):
+        out = str(tmp_path / f"{name}.y4m")
+        assert main(args + [clip, out]) == 0
+        outs.append(open(out, "rb").read())
+    (j, t) = outs
+    hj, ht = j.index(b"\n"), t.index(b"\n")
+    assert t[:ht] == j[:hj]
+    assert len(t) == len(j)
+    a = np.frombuffer(j[hj:], np.uint8).astype(int)
+    b = np.frombuffer(t[ht:], np.uint8).astype(int)
+    diff = np.abs(a - b)
+    assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--mesh", "2"], "item 18"), (["--coordinator", "h:1"], "item 18"),
+    (["--nprocs", "2"], "item 18"), (["--proc-id", "1"], "item 18"),
+    (["--resume-file", "state.json"], "item 13"), (["--eval", "c/2"], "item 12"),
+])
+def test_refused_flags_exit_1(clip, tmp_path, capsys, flag, item):
+    assert tmotion.main(["-Q"] + flag + [clip, str(tmp_path / "o.y4m")]) == 1
+    err = capsys.readouterr().err
+    assert "not ported" in err and f"ROADMAP queue 1, {item}" in err
+
+
+@pytest.mark.parametrize("src,dst", [("in.nut", "o.y4m"), ("clip", "o.mkv"),
+                                     ("clip", "frame%03d.png")])
+def test_other_containers_are_refused(clip, tmp_path, capsys, src, dst):
+    src = clip if src == "clip" else str(tmp_path / src)
+    if src.endswith(".nut"):
+        open(src, "wb").write(b"nut/multimedia container\0")
+    assert tmotion.main(["-Q", src, str(tmp_path / dst)]) == 1
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_device_cuda_without_a_card_is_an_error(clip, tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tmotion.main(["-Q", "--device", "cuda", clip, str(tmp_path / "o.y4m")]) == 1
+    assert "Bad --device" in capsys.readouterr().err
+    assert tmotion._device(None).type == "cpu"
+
+
+PIX = [("yuv420p", None), ("yuv422p", "jpeg"), ("yuv444p", "mpeg"), ("gray", None),
+       ("yuv420p10le", None), ("yuv444p16le", "jpeg")]
+
+
+@pytest.mark.parametrize("pix,crange", PIX)
+def test_y4m_writer_and_reader_match_jax(tmp_path, pix, crange):
+    rng = np.random.default_rng(1)
+    w, h = 21, 10  # odd width: ceiling-shifted chroma
+    frames = []
+    for t in range(3):
+        pf = jvideo.PIXEL_FORMATS[pix]
+        frames.append([rng.random((ph, pw)) for pw, ph in pf.plane_dims(w, h)])
+    blobs = []
+    for mod in (jvideo, tvideo):
+        buf = io.BytesIO()
+        props = mod.ColorProps(pix_fmt=pix, color_range=crange, chroma_location="left")
+        if mod is jvideo:
+            mod._default_props("y4m", props)
+        else:
+            mod._default_props(props)
+        wr = mod.Y4MWriter(buf, "mem", "yuv4mpegpipe", w, h, Fraction(30000, 1001),
+                           mod.PIXEL_FORMATS[pix], props)
+        for f in frames:
+            wr.write_frame(f)
+        wr.write_frame([p * 255 for p in frames[0]], raw=True)
+        blobs.append(buf.getvalue())
+    assert blobs[0] == blobs[1]
+    path = tmp_path / "v.y4m"
+    path.write_bytes(blobs[1])
+    rj = jvideo.open_input(str(path), native=False)
+    rt = tvideo.open_input(str(path))
+    for attr in ("width", "height", "rate", "frames"):
+        assert getattr(rt, attr) == getattr(rj, attr)
+    assert dataclasses.asdict(rt.props) == dataclasses.asdict(rj.props)
+    assert dataclasses.asdict(rt.pix_fmt) == dataclasses.asdict(rj.pix_fmt)
+    for raw in (False, True, False, True):
+        pj, pt = rj.read_frame(raw=raw), rt.read_frame(raw=raw)
+        for a, b in zip(pj, pt):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(b, a)
+    assert rt.read_frame() is None and rj.read_frame() is None
+    rj.close()
+    rt.close()
+
+
+def test_video_helpers_match_jax():
+    assert {k: dataclasses.asdict(v) for k, v in tvideo.PIXEL_FORMATS.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jvideo.PIXEL_FORMATS.items()}
+    for s in ("", "pixel_format=yuv444p:color_range=tv", "colorspace=bt709:color_trc=linear",
+              "chroma_sample_location=left:color_primaries=bt2020"):
+        assert dataclasses.asdict(tvideo.parse_color_props(s)) == \
+            dataclasses.asdict(jvideo.parse_color_props(s))
+    for bad in ("pixel_format=nope", "color_range=odd", "what=1"):
+        with pytest.raises(ValueError):
+            tvideo.parse_color_props(bad)
+    for r in ("30", "30000/1001", "29.97", "25:2"):
+        assert tvideo.parse_rate(r) == jvideo.parse_rate(r)
+    rgb = np.random.default_rng(2).random((9, 13, 3))
+    for name in ("yuv420p", "yuv422p", "gray", "gbrp", "yuv444p16le"):
+        pj, pt = jvideo.PIXEL_FORMATS[name], tvideo.PIXEL_FORMATS[name]
+        for space in (None, "bt709", "bt2020nc"):
+            props_j, props_t = jvideo.ColorProps(color_space=space), tvideo.ColorProps(color_space=space)
+            a = jvideo.rgb_to_planes(rgb, pj, props_j)
+            b = tvideo.rgb_to_planes(rgb, pt, props_t)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(y, x)
+            np.testing.assert_array_equal(tvideo.planes_to_rgb(b, pt, props_t, 13, 9),
+                                          jvideo.planes_to_rgb(a, pj, props_j, 13, 9))
+            for i, p in enumerate(b):
+                for cr in ("mpeg", "jpeg"):
+                    pel = tvideo.plane_to_pel(p, pt, i, cr)
+                    np.testing.assert_array_equal(pel, jvideo.plane_to_pel(p, pj, i, cr))
+                    np.testing.assert_array_equal(tvideo.plane_from_pel(pel, pt, i, cr),
+                                                  jvideo.plane_from_pel(pel, pj, i, cr))
+        if not pt.is_rgb:
+            assert tvideo._y4m_ctag(name, "topleft") == jvideo._y4m_ctag(name, "topleft")
+    for req in (None, "gray", "yuv420p", "gbrp", "grayf32le", "yuv422p12le", "gbrpf32le"):
+        assert tvideo._negotiate_pix_fmt(tvideo.ColorProps(pix_fmt=req)) == \
+            jvideo._negotiate_pix_fmt("y4m", jvideo.ColorProps(pix_fmt=req))
+        pt, pj = tvideo.ColorProps(pix_fmt=req), jvideo.ColorProps(pix_fmt=req)
+        tvideo._default_props(pt)
+        jvideo._default_props("y4m", pj)
+        assert dataclasses.asdict(pt) == dataclasses.asdict(pj)
+
+
+def test_color_matches_jax():
+    for name in ("bt601", "bt709", "bt2020"):
+        np.testing.assert_array_equal(tcolor.ycbcr_matrix(name), jcolor.ycbcr_matrix(name))
+        np.testing.assert_array_equal(tcolor.ycbcr_inverse_matrix(name),
+                                      jcolor.ycbcr_inverse_matrix(name))
+    x = np.concatenate([np.linspace(0, 1, 4001), [0.0031308, 0.04045, 1e-6, 0.0]])
+    for fn in ("srgb_decode", "srgb_encode"):
+        np.testing.assert_array_equal(getattr(tcolor, fn)(x), getattr(jcolor, fn)(x))
+        xf = x.astype(np.float32)
+        yj = np.asarray(getattr(jcolor, fn)(jnp.asarray(xf), jnp))
+        yt = getattr(tcolor, fn)(torch.from_numpy(xf), torch)
+        assert yt.dtype == torch.float32
+        assert np.max(np.abs(yt.numpy() - yj)) <= 1e-6

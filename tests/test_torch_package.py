@@ -33,10 +33,41 @@ def test_every_module_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(dspfun_tpu_torch.__path__,"
         " 'dspfun_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 11
+    names = set(res.stdout.split())
+    assert len(names) >= 20
+    assert {f"dspfun_tpu_torch.{m}" for m in (
+        "ops.blockdct", "ops.block_filter", "io.color", "io.video",
+        "models.motion_pipeline", "tools.motion")} <= names
+
+
+def test_motion_cli_runs_without_jax(tmp_path):
+    """``python -m dspfun_tpu_torch.tools.motion`` with jax and the JAX
+    package unimportable: help, then a small y4m edit on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None\n"
+        "import runpy, numpy as np\n"
+        "from fractions import Fraction\n"
+        "from dspfun_tpu_torch.io import video\n"
+        f"clip, out = {str(tmp_path / 'c.y4m')!r}, {str(tmp_path / 'o.y4m')!r}\n"
+        "w = video.open_output(clip, 32, 16, Fraction(25, 1), video.ColorProps(pix_fmt='gray'))\n"
+        "[w.write_frame([np.full((16, 32), 100.0 + t)], raw=True) for t in range(4)]\n"
+        "w.close()\n"
+        "sys.argv = ['motion', '-Q', '-b', '8x8x4', '-B', '1.5', clip, out]\n"
+        "try:\n"
+        "    runpy.run_module('dspfun_tpu_torch.tools.motion', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('exit', e.code)\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "exit 0"
+    hdr, _, payload = (tmp_path / "o.y4m").read_bytes().partition(b"\n")
+    assert hdr.startswith(b"YUV4MPEG2 W32 H16") and payload.count(b"FRAME\n") == 4
+    res = _run(["-m", "dspfun_tpu_torch.tools.motion", "-h"])
+    assert res.returncode == 0 and "Usage: motion" in res.stdout
 
 
 def test_no_jax_imports_in_the_source():
