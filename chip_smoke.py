@@ -40,7 +40,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    kernels (chroma) per slab.  Every output pel must lie within one
    level of a scipy float64 blockwise DCT oracle.  Then the slab time per
    plane, the CLI's frames/s with the kernels and with both plain
-   versions forced, and the per-slab luma time at slab batch 1, 2, 4.
+   versions forced, and the per-slab luma time at slab batch 1, 2, 4;
+7. main path 3, the calibration of the in-kernel digit split: the four
+   probes of ``dspfun_tpu_torch.benchmarks.calib_r3e`` and the tile sweep
+   of ``calib_r3f`` at K=3840 M=960 R=6480 on the kernel
+   ``csrc/int8split.cu``.  Launches are counted over this phase alone:
+   every instance must run, and the left 3-digit int8 kernel through
+   calib_r3f's split + int8mm route.  Each probe equals its plain version bit for
+   bit; at the 4K shape every tile equals the plain version and the
+   split-then-int8mm route bit for bit, and each route's error against a
+   float64 product on the card is <= 1e-5 of the largest output.  Prints
+   each route's time and eff-TOPS and the probes' kernel and plain times.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.
@@ -59,6 +69,8 @@ from fractions import Fraction
 
 import numpy as np
 
+from dspfun_tpu_torch.benchmarks import cuda_ms
+
 H, W, C = 2160, 3840, 3           # 4K RGB, bench.py's image
 CHAIN_TOL = 1e-5                  # max abs error vs float64 (BASELINE.md)
 SRC = "dspfun_tpu_torch/csrc/int8mm.cu"
@@ -71,6 +83,14 @@ REPLACES = {                      # the Pallas bodies each instantiation replace
 BF_SRC = "dspfun_tpu_torch/csrc/block_filter.cu"
 BF_REPLACES = "dspfun_tpu/ops/pallas_kernels.py:51"
 BF_TOL = 1e-2                     # pels; the JAX package's bound (tests/test_pallas.py:43)
+I8S_SRC = "dspfun_tpu_torch/csrc/int8split.cu"
+I8S_REPLACES = {                  # the split kernel's instances and the Pallas bodies they replace
+    "fixed1": "benchmarks/calib_r3e.py:40, benchmarks/calib_r3e.py:46",
+    "exp1": "benchmarks/calib_r3e.py:51",
+    "exp3g2": "benchmarks/calib_r3e.py:59",
+    "exp3g3": "benchmarks/calib_r3f.py:19",
+}
+CALIB_TOL = 1e-5                  # rel error vs float64 at the 4K shape (the chain's gate)
 BF_EDGE = 1e-5                    # relative distance to a threshold/quant boundary
 # motion at 1080p 4:2:0 (benchmarks/suite.py:444-456 at the frame size
 # users process): 16x16x16 luma blocks run i8-kron, the 8x8x16 chroma
@@ -91,23 +111,6 @@ KERNEL_SHAPES = [
     ("left", 77, 300, 2, 45, "ragged"),
     ("right", 77, 300, 2, 45, "ragged"),
 ]
-
-
-def _time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def _card_line() -> str:
@@ -188,8 +191,8 @@ def _check_block_filter(torch, dev, block_filter, fft) -> dict:
             msg += f"; vs float64 {oerr:.3e}"
             if not oerr <= BF_TOL:
                 raise RuntimeError(f"block filter {label}: {oerr} vs float64")
-        ms = _time_ms(torch, lambda: block_filter._block_filter_cuda(*args))
-        plain_ms = _time_ms(torch, lambda: block_filter._block_filter_plain(*args))
+        ms = cuda_ms(lambda: block_filter._block_filter_cuda(*args))
+        plain_ms = cuda_ms(lambda: block_filter._block_filter_plain(*args))
         print(f"{msg}; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["ms_by_shape"][label] = {"ms": ms, "plain_ms": plain_ms}
@@ -345,20 +348,77 @@ def _motion_phase(torch, dev, plain_versions, int8mm, block_filter, fft) -> dict
         def slab(b=blocks, g=g, plans=plans, i=i):
             return mp.filter_blocks(b, plans, None, None, g, params, i, 3)
 
-        ms = _time_ms(torch, slab)
+        ms = cuda_ms(slab)
         path = mp.LAST_FAST_PATH
         with plain_versions():
-            plain_ms = _time_ms(torch, slab)
+            plain_ms = cuda_ms(slab)
         print(f"motion slab plane {i} ({path}, NB={blocks.shape[0]}): {ms:.4f} ms "
               f"kernel, {plain_ms:.4f} ms plain", flush=True)
         if i == 0:
             sweep = {}
             for bsz in (1, 2, 4):
                 big = blocks.repeat(bsz, 1, 1, 1)
-                sweep[bsz] = _time_ms(torch, lambda: slab(big)) / bsz
+                sweep[bsz] = cuda_ms(lambda: slab(big)) / bsz
             print("motion luma slab batch sweep (ms per slab): "
                   + ", ".join(f"B={b} {t:.4f}" for b, t in sweep.items()), flush=True)
     return launches
+
+
+def _calib_phase(torch, dev) -> dict:
+    """Main path 3: the calibration counterparts on the card; returns the
+    split kernel's launches, the int8 digit kernels' launches (calib_r3f's
+    split + int8mm route) and per-instance stats."""
+    from dspfun_tpu_torch.benchmarks import calib_r3e, calib_r3f
+    from dspfun_tpu_torch.ops import int8mm, int8split
+
+    int8split.LAUNCHES.clear()
+    before = dict(int8mm.LAUNCHES)
+    probes = calib_r3e.run_probes(dev)
+    rows = calib_r3f.run(dev)
+    torch.cuda.synchronize()
+    launches = {n: int8split.LAUNCHES[n] for n in I8S_REPLACES}
+    i8mm_launches = {n: int8mm.LAUNCHES[n] - before.get(n, 0) for n in REPLACES}
+    print(f"calibration main-path launches: {json.dumps(launches)}, "
+          f"int8mm {json.dumps(i8mm_launches)}", flush=True)
+    if not i8mm_launches["left3"]:
+        raise RuntimeError(f"calib_r3f's split + int8mm route never launched left3: "
+                           f"{i8mm_launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a split-kernel instance never launched: {launches}")
+
+    stats = {}
+    a8, xf = calib_r3e.probe_inputs()
+    a, x = torch.tensor(a8, device=dev), torch.tensor(xf, device=dev)
+    for probe, (planes, inst) in calib_r3e.PROBES.items():
+        ap = torch.stack([a] * planes)
+        ref = int8split._i8_split_plain(ap, x, **inst)
+        torch.cuda.synchronize()
+        if not torch.equal(probes[probe], ref):
+            err = float((probes[probe] - ref).abs().max())
+            raise RuntimeError(f"probe {probe}: kernel != plain (max abs diff {err})")
+        ms = cuda_ms(lambda: int8split._i8_split_cuda(ap, x, **inst))
+        plain_ms = cuda_ms(lambda: int8split._i8_split_plain(ap, x, **inst))
+        name = int8split.INSTANCES[(inst["xdigits"], inst["groups"], inst["scale"])]
+        print(f"probe {probe} ({name}) M={calib_r3e.M} K={calib_r3e.K} R={calib_r3e.R}: "
+              f"equal, {ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
+        stats.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+
+    by_route = {row["route"]: row for row in rows}
+    plain, route1 = by_route["plain"]["out"], by_route["split + int8mm"]["out"]
+    for row in rows:
+        same = torch.equal(row["out"], plain) and torch.equal(row["out"], route1)
+        print(f"calib_r3f K={calib_r3f.K} M={calib_r3f.M} R={calib_r3f.R} {row['route']}: "
+              f"rel={row['rel']:.3e} {row['ms']:.4f} ms {row['tops']:.2f} eff-TOPS(int8), "
+              f"== plain and == split + int8mm: {same}", flush=True)
+        if not (same and row["rel"] <= CALIB_TOL):
+            raise RuntimeError(f"calib_r3f {row['route']} failed (rel {row['rel']})")
+    fused = [row for row in rows if row["route"].startswith("fused")]
+    default = fused[int8split.COMPILED_TILES["exp3g3"].index(int8split.DEFAULT_TILE)]
+    stats["exp3g3"] = {"max_abs_err": 0.0, "ms": default["ms"],
+                       "plain_ms": by_route["plain"]["ms"],
+                       "split_then_int8mm_ms": by_route["split + int8mm"]["ms"],
+                       "sweep_ms": {row["route"]: row["ms"] for row in fused}}
+    return {"launches": launches, "i8mm_launches": i8mm_launches, "stats": stats}
 
 
 def main() -> int:
@@ -435,8 +495,8 @@ def main() -> int:
             if not torch.equal(y, ref):
                 raise RuntimeError(f"{layout}{nd} {what} M={m} K={k} B={b} R={r}: "
                                    f"kernel != plain (max abs diff {err})")
-            ms = _time_ms(torch, lambda: int8mm._i8_groups_cuda(a, x, layout))
-            plain_ms = _time_ms(torch, lambda: int8mm._i8_groups_plain(a, x, layout))
+            ms = cuda_ms(lambda: int8mm._i8_groups_cuda(a, x, layout))
+            plain_ms = cuda_ms(lambda: int8mm._i8_groups_plain(a, x, layout))
             name = f"{layout}{nd}"
             st = stats[name]
             st["max_abs_err"] = max(st["max_abs_err"], err)
@@ -460,8 +520,8 @@ def main() -> int:
         if not torch.equal(y, ref):
             raise RuntimeError(f"right3 {what} M={m} K={k} R={r}: kernel != plain "
                                f"(max abs diff {err})")
-        ms = _time_ms(torch, lambda: int8mm._i8_groups_cuda(a, x, "right"))
-        plain_ms = _time_ms(torch, lambda: int8mm._i8_groups_plain(a, x, "right"))
+        ms = cuda_ms(lambda: int8mm._i8_groups_cuda(a, x, "right"))
+        plain_ms = cuda_ms(lambda: int8mm._i8_groups_plain(a, x, "right"))
         motion_i8["ms"] += ms
         motion_i8["plain_ms"] += plain_ms
         stats["right3"]["max_abs_err"] = max(stats["right3"]["max_abs_err"], err)
@@ -555,9 +615,9 @@ def main() -> int:
 
     # ---- phase 5: chain throughput, kernel vs plain ---------------------
     for p, label in ((bench, "i8@1e-5"), (deep, "i8")):
-        ms = _time_ms(torch, lambda p=p: chain(p))
+        ms = cuda_ms(lambda p=p: chain(p))
         with plain_versions():
-            plain_ms = _time_ms(torch, lambda p=p: chain(p))
+            plain_ms = cuda_ms(lambda p=p: chain(p))
         print(f"4K fused chain {label}: {H * W / ms / 1e3:.2f} MP/s kernel "
               f"({ms:.3f} ms), {H * W / plain_ms / 1e3:.2f} MP/s plain "
               f"({plain_ms:.3f} ms)", flush=True)
@@ -566,11 +626,16 @@ def main() -> int:
     motion_launches = _motion_phase(torch, dev, plain_versions, int8mm, block_filter,
                                      scipy.fft)
 
+    # ---- phase 7: main path 3, the calibration of the in-kernel split ---
+    calib = _calib_phase(torch, dev)
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
-                "launches": launches[n] + motion_launches.get(n, 0),
+                "launches": (launches[n] + motion_launches.get(n, 0)
+                             + calib["i8mm_launches"][n]),
                 "launches_by_path": {"4k_chain": launches[n],
-                                     "motion": motion_launches.get(n, 0)},
+                                     "motion": motion_launches.get(n, 0),
+                                     "calibration": calib["i8mm_launches"][n]},
                 "max_abs_err": stats[n]["max_abs_err"],
                 "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"]}
                for n in REPLACES]
@@ -581,6 +646,10 @@ def main() -> int:
                     "launches": motion_launches["block_filter"],
                     "launches_by_path": {"motion": motion_launches["block_filter"]},
                     **bf_stats})
+    kernels += [{"name": f"i8split_{n}", "route": "cuda", "source": I8S_SRC,
+                 "replaces": I8S_REPLACES[n], "launches": calib["launches"][n],
+                 "launches_by_path": {"calibration": calib["launches"][n]},
+                 **calib["stats"][n]} for n in I8S_REPLACES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ Ported so far: the whole-image DCT chain — precision policy, plans,
 the exact and int8 digit contractions, the fused filter chains and the
 spec/ispec compute pipelines — and motion: the blockwise 3-D chain with
 the fused Kronecker block filter, y4m video I/O and the motion CLI
-(``tools/motion.py``).
+(``tools/motion.py``) — and the int8 contraction with the operand split
+inside the kernel, with the calibration scripts that run it
+(``benchmarks/``).
 """
 
 __version__ = "0.1.0"

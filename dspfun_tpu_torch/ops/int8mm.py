@@ -114,14 +114,20 @@ def split_operand_digits(x: torch.Tensor, axis: int, bwidth: int, ndig: int,
     ``e`` with ``axis`` kept as size 1)."""
     mx = torch.amax(torch.abs(x), dim=axis, keepdim=True)
     e = torch.where(mx > 0, log2_ceil1(mx), torch.zeros_like(mx))
-    r = scale_down(x, e)
+    return [d.to(dtype) for d in round_digits(scale_down(x, e), bwidth, ndig)], e
+
+
+def round_digits(r: torch.Tensor, bwidth: int, ndig: int) -> list[torch.Tensor]:
+    """The round/subtract loop of a digit split of scaled ``r``: digit i
+    is ``round(r_i * 2^(bwidth (i+1)))`` of the remainder r_i, each step
+    error-free; float digits of ``r``'s dtype."""
     out = []
     for i in range(ndig):
         sc = float(2.0 ** (bwidth * (i + 1)))
         d = torch.round(r * sc)  # half to even, like jnp.round
         r = r - d * (1.0 / sc)
-        out.append(d.to(dtype))
-    return out, e
+        out.append(d)
+    return out
 
 
 def _split_operand(x: torch.Tensor, axis: int, ndig: int = _NDIG):
@@ -150,24 +156,27 @@ def i8_feasible(m: int, k: int, ndig: int = _NDIG) -> bool:
 
 
 def _i8_groups_plain(a_digits: torch.Tensor, x_digits: torch.Tensor,
-                     layout: str) -> torch.Tensor:
+                     layout: str, weights=_W) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same digit-pair groups
     through float64 matmuls.  Every digit product is at most 2^12 and
     every group sum stays below 2^31 (``_kmax``), so float64
     accumulation is exact in any order, and the float32 cast of each
     exact group rounds as the kernel's int32 -> float32 conversion does.
-    The groups combine in the kernel's order: g0, +g1, +g2[, +g3]."""
+    The groups combine in the kernel's order: g0, +g1, +g2[, +g3].  One
+    group per A digit plane, each pair (i, g - i) whose x digit exists;
+    group g weighs ``weights[g]``."""
     nd = a_digits.shape[0]
     k = x_digits.shape[2] if layout == "left" else x_digits.shape[3]
     a = a_digits[:, :, :k].to(torch.float64)
     x = x_digits.to(torch.float64)
     acc = None
     for g in range(nd):
+        pairs = [i for i in range(g + 1) if g - i < x.shape[0]]
         if layout == "left":   # [M, K] @ [B, K, R] -> [B, M, R]
-            s = sum(a[i] @ x[g - i] for i in range(g + 1))
+            s = sum(a[i] @ x[g - i] for i in pairs)
         else:                  # [B, R, K] @ [K, M] -> [B, R, M]
-            s = sum(x[g - i] @ a[i].T for i in range(g + 1))
-        t = s.to(torch.float32) * _W[g]
+            s = sum(x[g - i] @ a[i].T for i in pairs)
+        t = s.to(torch.float32) * weights[g]
         acc = t if acc is None else acc + t
     return acc
 

@@ -1,5 +1,6 @@
 """The port on a CUDA card: the hand-written kernels (int8 digit
-contraction, fused Kronecker block filter) against their plain versions,
+contraction, fused Kronecker block filter, int8 contraction with the
+in-kernel digit split) against their plain versions,
 and the card's chains, motion's filter_blocks and the motion CLI against
 the CPU's and a float64 oracle.
 
@@ -9,7 +10,7 @@ repository's conftest (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: the int8 kernel is bit-equal to its plain version (integer
+Tolerances: the int8 kernels are bit-equal to their plain versions (integer
 group sums are exact, the weights are powers of two); a contraction on
 the card is bit-equal to the same one on the CPU (every step is exact or
 a single IEEE rounding in the same order); chains hold 1e-5 against
@@ -32,6 +33,7 @@ from dspfun_tpu_torch.models.spec_pipeline import (
 )
 from dspfun_tpu_torch.ops import block_filter as tbf
 from dspfun_tpu_torch.ops import int8mm as tmm
+from dspfun_tpu_torch.ops import int8split as tsp
 
 pytestmark = pytest.mark.cuda
 
@@ -263,3 +265,79 @@ def test_motion_cli_card_equals_cpu(cuda, tmp_path):
     a = np.frombuffer(outs[0][ha:], np.uint8).astype(int)
     b = np.frombuffer(outs[1][hb:], np.uint8).astype(int)
     assert np.max(np.abs(a - b)) <= 1
+
+
+# ---- the in-kernel digit split (csrc/int8split.cu) ----
+
+
+def _split_operands(gen, instance, m, k, r, device):
+    """A planes [groups, m, lda] with lda = k rounded up to 128 (zero
+    padding) and x [k, r] inside the instance's domain, with an all-zero
+    column and a column whose max is a power of two."""
+    xdigits, groups, scale = instance
+    a = _digits(gen, (groups, m, tmm.ceil_to(k, 128)), device)
+    a[:, :, k:] = 0
+    if scale == "fixed64":
+        x = torch.rand((k, r), generator=gen, device=device) * 1.95   # |x * 64| <= 127
+    else:
+        x = (torch.rand((k, r), generator=gen, device=device) - 0.3) * 4
+        x[k // 2, min(1, r - 1)] = 4.0
+    x[:, 0] = 0.0
+    return a, x
+
+
+@pytest.mark.parametrize("m,k,r", [(64, 256, 256), (77, 300, 45), (200, 1000, 300), (3, 5, 1)])
+@pytest.mark.parametrize("instance,tile", [
+    ((1, 1, "fixed64"), 0), ((1, 1, "exp"), 0), ((3, 2, "exp"), 0),
+    ((3, 3, "exp"), 0), ((3, 3, "exp"), 1), ((3, 3, "exp"), 2),
+])
+def test_i8split_kernel_bit_equal_to_plain(cuda, instance, tile, m, k, r):
+    """Every compiled instance and tile at the probes' shape, a ragged
+    shape (M, K and R off every tile multiple), a larger one and a tiny
+    one: bit-equal to the plain version, the zero column exactly 0."""
+    xdigits, groups, scale = instance
+    g = torch.Generator(device=cuda).manual_seed(m * 31 + k + tile)
+    a, x = _split_operands(g, instance, m, k, r, cuda)
+    name = tsp.INSTANCES[instance]
+    before = tsp.LAUNCHES[name]
+    y = tsp.i8_split_contract(a, x, xdigits=xdigits, groups=groups, scale=scale, tile=tile)
+    assert tsp.LAUNCHES[name] == before + 1
+    ref = tsp._i8_split_plain(a, x, xdigits, groups, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref)
+    assert not y[:, 0].any()
+
+
+def test_i8split_probes_and_calib_r3f_on_card_equal_cpu(cuda):
+    """The calibration counterparts on the card against the CPU."""
+    from dspfun_tpu_torch.benchmarks import calib_r3e, calib_r3f
+
+    card, cpu = calib_r3e.run_probes(cuda), calib_r3e.run_probes("cpu")
+    for name in calib_r3e.PROBES:
+        assert torch.equal(card[name].cpu(), cpu[name])
+    a, _, x, _ = calib_r3f.inputs(1000, 200, 300)
+    y = calib_r3f.fused(a.to(cuda), x.to(cuda))
+    assert torch.equal(y.cpu(), calib_r3f.fused(a, x))
+    assert torch.equal(y, calib_r3f.split_then_i8mm(a.to(cuda), x.to(cuda)))
+
+
+def test_i8split_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    a = torch.zeros((3, 8, 128), dtype=torch.int8, device=cuda)
+    x = torch.zeros((128, 4), device=cuda)
+    kw = dict(xdigits=3, groups=3, scale="exp")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tsp._i8_split_cuda(a.cpu(), x.cpu(), 3, 3, "exp")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tsp.i8_split_contract(a.cpu(), x, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        tsp.i8_split_contract(a, x.double(), **kw)
+    with pytest.raises(TypeError, match="int8"):
+        tsp.i8_split_contract(a.float(), x, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsp.i8_split_contract(a, torch.zeros((4, 128), device=cuda).T, **kw)
+    with pytest.raises(ValueError, match="compiled for tiles"):
+        tsp.i8_split_contract(a[:1].contiguous(), x, xdigits=1, groups=1, scale="exp", tile=1)
+    k = tsp._kmax(3, "exp") + 1
+    with pytest.raises(ValueError, match="exact-int32"):
+        tsp.i8_split_contract(torch.zeros((3, 1, k), dtype=torch.int8, device=cuda),
+                              torch.zeros((k, 1), device=cuda), **kw)

@@ -40,7 +40,24 @@ def test_every_module_imports_without_jax():
     assert len(names) >= 20
     assert {f"dspfun_tpu_torch.{m}" for m in (
         "ops.blockdct", "ops.block_filter", "io.color", "io.video",
-        "models.motion_pipeline", "tools.motion")} <= names
+        "models.motion_pipeline", "tools.motion", "ops.int8split",
+        "benchmarks.calib_r3e", "benchmarks.calib_r3f")} <= names
+
+
+def test_calibration_counterparts_run_without_jax():
+    """``python -m dspfun_tpu_torch.benchmarks.calib_r3e`` and ``calib_r3f``
+    (at a small shape) on the CPU with jax and the JAX package unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None\n"
+        "from dspfun_tpu_torch.benchmarks import calib_r3e, calib_r3f\n"
+        "calib_r3e.main(['--device', 'cpu'])\n"
+        "calib_r3f.main(['--device', 'cpu', '--shape', '300,77,45'])\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert sum(": OK  sum=" in ln for ln in lines) == 4
+    assert sum("rel=" in ln for ln in lines) == 3
 
 
 def test_motion_cli_runs_without_jax(tmp_path):
