@@ -11,16 +11,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    card's name and power limit, and the float32 matmul settings (no TF32);
 2. build: compiles ``dspfun_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, in parallel) and prints the build time;
-3. kernels: each int8 digit kernel (left/right layout, 3/4 digits) at the
-   4K chain's four contraction shapes and one ragged shape, and the
-   right 3-digit kernel at motion's two i8-kron shapes, held bit-equal
+3. kernels: ptxas's registers and spills for each int8 digit kernel
+   (the build runs ``-Xptxas -v``) and, where ``cuobjdump`` is found, the
+   tensor-core MMA instructions in each one's SASS (none is a failure);
+   each int8 digit kernel (left/right layout, 3/4 digits) at the 4K
+   chain's four contraction shapes and one ragged shape, and the right
+   3-digit kernel at motion's two i8-kron shapes, held bit-equal
    (``torch.equal``) to its plain PyTorch version on the same inputs,
-   with both times (CUDA events, median of 10); the fused block filter
-   kernel at motion's 1080p chroma shape, a half-thresholded 1080p luma
-   8^3 shape and a ragged quant + threshold shape, held to 1e-2 (pels)
-   against its plain version (blocks whose coefficients sit within 1e-5
-   relative of a threshold or quant boundary are excluded and counted)
-   and, on the linear chroma shape, against a scipy float64 oracle;
+   with both times (CUDA events, median of 10), its bound (operations at
+   1,979 int8 TOP/s or bytes at 3.35 TB/s, the larger) and share of it,
+   and its library yardstick: ``torch._int_mm``, one call per digit group
+   on the K-concatenated digit planes, summed, whose int32 groups combined
+   as the kernel combines must equal the plain version bit for bit
+   ("refused" with the message where ``_int_mm`` refuses a shape); the
+   fused block filter kernel at motion's 1080p chroma shape, a
+   half-thresholded 1080p luma 8^3 shape and a ragged quant + threshold
+   shape, held to 1e-2 (pels) against its plain version (blocks whose
+   coefficients sit within 1e-5 relative of a threshold or quant boundary
+   are excluded and counted) and, on the linear chroma shape, against a
+   scipy float64 oracle, with its bound (float32 FMA at 67 TFLOP/s) and
+   two float32 ``torch.matmul`` calls as its library yardstick;
 4. main path 1: ``filter_plans`` + ``fused_filter_2d`` on a 2160x3840x3 image
    at ``i8@1e-5`` (bench.py's configuration) and at deep ``i8``, each held
    to <= 1e-5 max abs error against a scipy float64 oracle and bit-equal
@@ -32,7 +42,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    Kernel launches are counted over this phase alone: each chain must
    launch exactly 2 left and 2 right kernels, and every kernel must run;
 5. timing: the 4K chain in MP/s with the kernels and with the plain
-   version forced;
+   version forced, then a torch.profiler window over five chains: device
+   time per chain in the int8 kernel, its staging pass and the other
+   kernels, and the device's idle share;
 6. main path 2, motion: the motion CLI (``dspfun_tpu_torch.tools.motion``,
    ``-b 16x16x16 -p 0x0x0-8x8x4 -B 1.25``) on a seeded 1920x1080 yuv420p
    y4m clip of 48 frames (3 slabs).  Launches are counted over this run
@@ -50,10 +62,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    bit; at the 4K shape every tile equals the plain version and the
    split-then-int8mm route bit for bit, and each route's error against a
    float64 product on the card is <= 1e-5 of the largest output.  Prints
-   each route's time and eff-TOPS and the probes' kernel and plain times.
+   each route's time and eff-TOPS, the probes' kernel and plain times, and
+   each instance's bound; the fused kernel's library yardstick is
+   ``torch._int_mm`` on the digits split beforehand.
 
-Prints one JSON line of per-kernel results, then, as the last line,
-``{"ok": true, "device": {...}}``.
+Prints one JSON line of per-kernel results (launches on the main paths,
+max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
+the last line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -80,6 +96,10 @@ REPLACES = {                      # the Pallas bodies each instantiation replace
     "right3": "dspfun_tpu/ops/int8mm.py:199",
     "right4": "dspfun_tpu/ops/int8mm.py:213",
 }
+# the card's peaks (NVIDIA's H100 SXM data sheet: dense rates at 700 W)
+INT8_OPS = 1979e12                # int8 tensor-core operations/s
+F32_FLOPS = 67e12                 # float32 outside the tensor cores
+HBM_BYTES = 3.35e12               # device memory bytes/s
 BF_SRC = "dspfun_tpu_torch/csrc/block_filter.cu"
 BF_REPLACES = "dspfun_tpu/ops/pallas_kernels.py:51"
 BF_TOL = 1e-2                     # pels; the JAX package's bound (tests/test_pallas.py:43)
@@ -118,6 +138,149 @@ def _card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def _bound(ops: float, rate: float, nbytes: float) -> tuple[float, str]:
+    """(the least time in ms the card could take, what bounds it): the
+    larger of the operations over the peak rate and the bytes (each input
+    read once, each output written once) over the memory rate."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _pairs(a_planes: int, x_digits: int) -> int:
+    """Digit-pair products of the plain version's groups (one group per A plane)."""
+    return sum(1 for g in range(a_planes) for i in range(g + 1) if g - i < x_digits)
+
+
+def _i8_bound(a, x, layout: str) -> tuple[float, str]:
+    nd, m, _ = a.shape
+    _, b, d1, d2 = x.shape
+    k, r = (d1, d2) if layout == "left" else (d2, d1)
+    return _bound(2.0 * m * k * r * b * _pairs(nd, x.shape[0]), INT8_OPS,
+                  a.numel() + x.numel() + 4 * b * m * r)
+
+
+def _int_mm_library(torch, a, x, layout: str, weights, ref):
+    """The library yardstick of an int8 digit contraction: ``torch._int_mm``
+    (cuBLASLt int8 on the tensor cores, exact int32 out), one call per
+    digit group on the K-concatenated planes [A_0 ... A_g] @ [x_g; ...;
+    x_0], timed and summed over the groups.  The operands, and the zero
+    padding ``_int_mm`` demands (more than 16 rows, K and the output
+    columns multiples of 8), are built outside the timing.  Its int32
+    groups combined as the kernel combines must equal ``ref``, the plain
+    version, bit for bit.  Returns (ms or None, note); the port never
+    calls ``_int_mm``."""
+    nd, m, _ = a.shape
+    _, b, d1, d2 = x.shape
+    k, r = (d1, d2) if layout == "left" else (d2, d1)
+    xk = (x.transpose(2, 3) if layout == "left" else x).reshape(x.shape[0], b * r, k)
+    pad = torch.nn.functional.pad
+    calls = []
+    for g in range(nd):
+        pairs = [i for i in range(g + 1) if g - i < x.shape[0]]
+        lhs = torch.cat([a[i, :, :k] for i in pairs], 1)        # [M, K']
+        rhs = torch.cat([xk[g - i] for i in pairs], 1)          # [B R, K']
+        kpad = -lhs.shape[1] % 8
+        if layout == "left":                                    # [M, K'] @ [K', B R]
+            mat1 = pad(lhs, (0, kpad)).contiguous()
+            mat2 = pad(rhs, (0, kpad, 0, -rhs.shape[0] % 8)).contiguous().t()
+        else:                                                   # [B R, K'] @ [K', M]
+            mat1 = pad(rhs, (0, kpad)).contiguous()
+            mat2 = pad(lhs, (0, kpad, 0, -m % 8)).contiguous().t()
+        calls.append((mat1, mat2))
+    try:
+        outs = [torch._int_mm(m1, m2) for m1, m2 in calls]
+    except RuntimeError as e:
+        return None, "refused: " + str(e).strip().splitlines()[0]
+    y = None
+    for g, o in enumerate(outs):
+        t = o.float() * weights[g]
+        y = t if y is None else y + t
+    if layout == "left":
+        y = y[:, : b * r].reshape(m, b, r).permute(1, 0, 2)
+    else:
+        y = y[:, :m].reshape(b, r, m)
+    torch.cuda.synchronize()
+    if not torch.equal(y, ref):
+        raise RuntimeError(f"torch._int_mm's int32 groups combined as the kernel combines "
+                           f"differ from the plain version ({layout}, M={m} K={k} B={b} R={r})")
+    ms = sum(cuda_ms(lambda m1=m1, m2=m2: torch._int_mm(m1, m2)) for m1, m2 in calls)
+    return ms, f"{len(calls)} torch._int_mm calls, int32 groups == plain"
+
+
+def _ptxas_lines(log: str, source: str) -> list[str]:
+    """ptxas's registers and spills for each kernel of ``source`` in the
+    build log, one line per kernel, and its performance warnings."""
+    part = log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0] if log else ""
+    lines, fn = [], None
+    for ln in part.splitlines():
+        if "Function properties for" in ln:
+            fn, spill = ln.split("Function properties for")[1].strip(), ""
+        elif "spill" in ln and fn:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and fn:
+            lines.append(f"{fn}: {ln.split('info    :')[1].strip()}; {spill}")
+            fn = None
+        elif "Performance" in ln or "warning" in ln.lower():
+            lines.append(ln.strip())
+    return lines
+
+
+def _sass_mma_counts(path: str) -> dict | None:
+    """Tensor-core MMA instructions (``GMMA`` in their SASS name) per
+    kernel of the built library, from ``cuobjdump --dump-sass``; None
+    without cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "--dump-sass", path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn and "GMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
+def _profile_chain(torch, fn, label: str, runs: int = 5) -> None:
+    """torch.profiler over ``runs`` calls of ``fn`` after a warm-up: device
+    time per call from the kernel events, split into the int8 MMA kernel,
+    its staging pass and everything else (the digit split, scales and
+    casts), the device's idle share of the window and the kernels per
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        print(f"profile {label}: the profiler saw no device events", flush=True)
+        return
+    groups = {"i8mm_kernel": 0.0, "stage_x_kernel": 0.0, "other": 0.0}
+    busy, reach = 0.0, spans[0][0]
+    for start, end, name in spans:
+        key = next((g for g in groups if g in name), "other")
+        groups[key] += (end - start) / 1e3 / runs
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    window = spans[-1][1] - spans[0][0]
+    print(f"profile {label} ({runs} calls): {wall_ms:.3f} ms host wall per call; device "
+          f"per call: int8 MMA kernel {groups['i8mm_kernel']:.3f} ms, its staging pass "
+          f"{groups['stage_x_kernel']:.3f} ms, other kernels {groups['other']:.3f} ms; "
+          f"{len(spans) / runs:.0f} device events per call; device idle "
+          f"{100 * (1 - busy / window):.1f} % of the window", flush=True)
 
 
 def _uniform_factor(d: int, h: int, w: int) -> np.ndarray:
@@ -193,11 +356,19 @@ def _check_block_filter(torch, dev, block_filter, fft) -> dict:
                 raise RuntimeError(f"block filter {label}: {oerr} vs float64")
         ms = cuda_ms(lambda: block_filter._block_filter_cuda(*args))
         plain_ms = cuda_ms(lambda: block_filter._block_filter_plain(*args))
-        print(f"{msg}; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
+        # two [NB, V] x [V, V] float32 products; the library yardstick is
+        # the same two products in cuBLAS with the middle stage left out
+        bound_ms, bound_by = _bound(4.0 * nb * v * v, F32_FLOPS, 8.0 * nb * v + 8.0 * v * v)
+        lib_ms = cuda_ms(lambda: (x @ k2m_t) @ k3s_t)
+        print(f"{msg}; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f} % of bound; library {lib_ms:.4f} ms "
+              f"(two float32 torch.matmul), kernel/library {ms / lib_ms:.3f}", flush=True)
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["ms_by_shape"][label] = {"ms": ms, "plain_ms": plain_ms}
+        out["ms_by_shape"][label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                     "bound_by": bound_by, "library_ms": lib_ms}
         if label.startswith("chroma"):        # the motion path's shape
-            out["ms"], out["plain_ms"] = ms, plain_ms
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
         del x, f, a, y, ref
     return out
 
@@ -399,9 +570,15 @@ def _calib_phase(torch, dev) -> dict:
         ms = cuda_ms(lambda: int8split._i8_split_cuda(ap, x, **inst))
         plain_ms = cuda_ms(lambda: int8split._i8_split_plain(ap, x, **inst))
         name = int8split.INSTANCES[(inst["xdigits"], inst["groups"], inst["scale"])]
-        print(f"probe {probe} ({name}) M={calib_r3e.M} K={calib_r3e.K} R={calib_r3e.R}: "
-              f"equal, {ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
-        stats.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+        m, k, r = calib_r3e.M, calib_r3e.K, calib_r3e.R
+        bound_ms, bound_by = _bound(2.0 * m * k * r * _pairs(planes, inst["xdigits"]),
+                                    INT8_OPS, ap.numel() + 4 * k * r + 4 * m * r)
+        print(f"probe {probe} ({name}) M={m} K={k} R={r}: equal, {ms:.4f} ms kernel, "
+              f"{plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.2f} % of bound; library none (a launch-bound probe)",
+              flush=True)
+        stats.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
     by_route = {row["route"]: row for row in rows}
     plain, route1 = by_route["plain"]["out"], by_route["split + int8mm"]["out"]
@@ -414,8 +591,21 @@ def _calib_phase(torch, dev) -> dict:
             raise RuntimeError(f"calib_r3f {row['route']} failed (rel {row['rel']})")
     fused = [row for row in rows if row["route"].startswith("fused")]
     default = fused[int8split.COMPILED_TILES["exp3g3"].index(int8split.DEFAULT_TILE)]
+    # kernel #5's yardstick: torch._int_mm on the digits split beforehand
+    a, _, x, _ = calib_r3f.inputs(device=dev)
+    xd, _ = int8mm._split_operand(x.reshape(1, *x.shape), 1)
+    lib_ms, note = _int_mm_library(torch, a, xd, "left", int8mm._W,
+                                   int8mm._i8_groups_plain(a, xd, "left"))
+    m, k, r = calib_r3f.M, calib_r3f.K, calib_r3f.R
+    bound_ms, bound_by = _bound(2.0 * m * k * r * _pairs(3, 3), INT8_OPS,
+                                a.numel() + 4 * k * r + 4 * m * r)
+    print(f"calib_r3f fused (default tile) {default['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), {100 * bound_ms / default['ms']:.1f} % of bound; library "
+          + (f"{lib_ms:.4f} ms ({note})" if lib_ms else note), flush=True)
+    del a, x, xd
     stats["exp3g3"] = {"max_abs_err": 0.0, "ms": default["ms"],
                        "plain_ms": by_route["plain"]["ms"],
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                        "split_then_int8mm_ms": by_route["split + int8mm"]["ms"],
                        "sweep_ms": {row["route"]: row["ms"] for row in fused}}
     return {"launches": launches, "i8mm_launches": i8mm_launches, "stats": stats}
@@ -476,58 +666,74 @@ def main() -> int:
             raise RuntimeError("a kernel launched while the plain versions were forced")
 
     # ---- phase 3: each kernel against its plain version -----------------
+    for line in _ptxas_lines(_build.build_log(), "int8mm.cu"):
+        print(f"ptxas int8mm.cu {line}", flush=True)
+    mma = _sass_mma_counts(str(_build.library_path()))
+    if mma is None:
+        print("SASS: cuobjdump not found; tensor-core MMA count not read", flush=True)
+    else:
+        i8mm_mma = {fn: n for fn, n in mma.items() if "i8mm_kernel" in fn}
+        print(f"SASS tensor-core MMA instructions per i8mm kernel: {json.dumps(i8mm_mma)}",
+              flush=True)
+        if len(i8mm_mma) != len(REPLACES) or not all(i8mm_mma.values()):
+            raise RuntimeError(f"an i8mm kernel has no tensor-core MMA in its SASS: {i8mm_mma}")
+
     gen = torch.Generator(device=dev).manual_seed(0)
-    stats = {name: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    stats = {name: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bound_ms": 0.0,
+                    "bound_by": {}, "library_ms": 0.0, "by_shape": {}}
              for name in REPLACES}
-    for nd in (3, 4):
-        for layout, m, k, b, r, what in KERNEL_SHAPES:
-            kp = int8mm.ceil_to(k, 128)
-            a = torch.randint(-64, 65, (nd, m, kp), generator=gen, device=dev,
-                              dtype=torch.int8)
-            a[:, :, k:] = 0  # the plan's zero padding of K
-            xshape = (nd, b, k, r) if layout == "left" else (nd, b, r, k)
-            x = torch.randint(-64, 65, xshape, generator=gen, device=dev,
-                              dtype=torch.int8)
-            y = int8mm._i8_groups_cuda(a, x, layout)
-            ref = int8mm._i8_groups_plain(a, x, layout)
-            torch.cuda.synchronize()
-            err = float((y - ref).abs().max())
-            if not torch.equal(y, ref):
-                raise RuntimeError(f"{layout}{nd} {what} M={m} K={k} B={b} R={r}: "
-                                   f"kernel != plain (max abs diff {err})")
-            ms = cuda_ms(lambda: int8mm._i8_groups_cuda(a, x, layout))
-            plain_ms = cuda_ms(lambda: int8mm._i8_groups_plain(a, x, layout))
-            name = f"{layout}{nd}"
-            st = stats[name]
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            if what != "ragged":
-                st["ms"] += ms
-                st["plain_ms"] += plain_ms
-            print(f"kernel {name} {what:9s} M={m} K={k} B={b} R={r}: equal, "
-                  f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
-            del a, x, y, ref
-    motion_i8 = {"ms": 0.0, "plain_ms": 0.0}
-    for m, k, r, what in MOTION_I8_SHAPES:
-        a = torch.randint(-64, 65, (3, m, int8mm.ceil_to(k, 128)), generator=gen,
-                          device=dev, dtype=torch.int8)
-        a[:, :, k:] = 0
-        x = torch.randint(-64, 65, (3, 1, r, k), generator=gen, device=dev,
-                          dtype=torch.int8)
-        y = int8mm._i8_groups_cuda(a, x, "right")
-        ref = int8mm._i8_groups_plain(a, x, "right")
+
+    def check_i8mm(nd, layout, m, k, b, r, what):
+        """One int8 kernel shape: bit-equal to the plain version, timed
+        beside its bound, the plain version and torch._int_mm."""
+        kp = int8mm.ceil_to(k, 128)
+        a = torch.randint(-64, 65, (nd, m, kp), generator=gen, device=dev, dtype=torch.int8)
+        a[:, :, k:] = 0  # the plan's zero padding of K
+        xshape = (nd, b, k, r) if layout == "left" else (nd, b, r, k)
+        x = torch.randint(-64, 65, xshape, generator=gen, device=dev, dtype=torch.int8)
+        name = f"{layout}{nd}"
+        y = int8mm._i8_groups_cuda(a, x, layout)
+        ref = int8mm._i8_groups_plain(a, x, layout)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         if not torch.equal(y, ref):
-            raise RuntimeError(f"right3 {what} M={m} K={k} R={r}: kernel != plain "
-                               f"(max abs diff {err})")
-        ms = cuda_ms(lambda: int8mm._i8_groups_cuda(a, x, "right"))
-        plain_ms = cuda_ms(lambda: int8mm._i8_groups_plain(a, x, "right"))
-        motion_i8["ms"] += ms
-        motion_i8["plain_ms"] += plain_ms
-        stats["right3"]["max_abs_err"] = max(stats["right3"]["max_abs_err"], err)
-        print(f"kernel right3 {what} M={m} K={k} B=1 R={r}: equal, {ms:.4f} ms kernel, "
-              f"{plain_ms:.4f} ms plain", flush=True)
-        del a, x, y, ref
+            raise RuntimeError(f"{name} {what} M={m} K={k} B={b} R={r}: "
+                               f"kernel != plain (max abs diff {err})")
+        ms = cuda_ms(lambda: int8mm._i8_groups_cuda(a, x, layout))
+        plain_ms = cuda_ms(lambda: int8mm._i8_groups_plain(a, x, layout))
+        bound_ms, bound_by = _i8_bound(a, x, layout)
+        lib_ms, note = _int_mm_library(torch, a, x, layout, int8mm._W, ref)
+        lib = (f"library {lib_ms:.4f} ms ({note}), kernel/library {ms / lib_ms:.3f}"
+               if lib_ms else f"library {note}")
+        print(f"kernel {name} {what:10s} M={m} K={k} B={b} R={r}: equal, {ms:.4f} ms kernel, "
+              f"{plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f} % of bound; {lib}", flush=True)
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["by_shape"][what] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": lib_ms}
+        return ms, plain_ms, bound_ms, bound_by, lib_ms
+
+    def add(st, ms, plain_ms, bound_ms, bound_by, lib_ms):
+        st["ms"] += ms
+        st["plain_ms"] += plain_ms
+        st["bound_ms"] += bound_ms
+        st["bound_by"][bound_by] = st["bound_by"].get(bound_by, 0.0) + bound_ms
+        st["library_ms"] = None if lib_ms is None or st["library_ms"] is None \
+            else st["library_ms"] + lib_ms
+
+    for nd in (3, 4):
+        for layout, m, k, b, r, what in KERNEL_SHAPES:
+            res = check_i8mm(nd, layout, m, k, b, r, what)
+            if what != "ragged":
+                add(stats[f"{layout}{nd}"], *res)
+    motion_i8 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
+                 "library_ms": 0.0}
+    for m, k, r, what in MOTION_I8_SHAPES:
+        add(motion_i8, *check_i8mm(3, "right", m, k, 1, r, what))
+    for st in (*stats.values(), motion_i8):     # the kind that bounds most of the sum
+        st["bound_by"] = max(st["bound_by"], key=st["bound_by"].get)
+    torch.cuda.empty_cache()
     bf_stats = _check_block_filter(torch, dev, block_filter, scipy.fft)
     torch.cuda.empty_cache()
 
@@ -613,7 +819,7 @@ def main() -> int:
         raise RuntimeError("spec flat round trip at i8@1e-5 failed")
     del back_exact, back_i8, back_plain
 
-    # ---- phase 5: chain throughput, kernel vs plain ---------------------
+    # ---- phase 5: chain throughput, kernel vs plain, and where it goes ---
     for p, label in ((bench, "i8@1e-5"), (deep, "i8")):
         ms = cuda_ms(lambda p=p: chain(p))
         with plain_versions():
@@ -621,6 +827,7 @@ def main() -> int:
         print(f"4K fused chain {label}: {H * W / ms / 1e3:.2f} MP/s kernel "
               f"({ms:.3f} ms), {H * W / plain_ms / 1e3:.2f} MP/s plain "
               f"({plain_ms:.3f} ms)", flush=True)
+    _profile_chain(torch, lambda: chain(bench), "4K fused chain i8@1e-5")
 
     # ---- phase 6: main path 2, the motion CLI, launches counted --------
     motion_launches = _motion_phase(torch, dev, plain_versions, int8mm, block_filter,
@@ -636,11 +843,11 @@ def main() -> int:
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n]},
-                "max_abs_err": stats[n]["max_abs_err"],
-                "ms": stats[n]["ms"], "plain_ms": stats[n]["plain_ms"]}
+                **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
     kernels[list(REPLACES).index("right3")].update(
-        motion_ms=motion_i8["ms"], motion_plain_ms=motion_i8["plain_ms"])
+        {f"motion_{key}": val for key, val in motion_i8.items()})
     kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
                     "replaces": BF_REPLACES,
                     "launches": motion_launches["block_filter"],

@@ -6,7 +6,9 @@ which ``ctypes`` loads.  Headers that pull in PyTorch take
 minutes to compile; a plain C interface takes seconds.  The library
 lands in ``build/kernels/`` at the root of the checkout, named by a
 hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing library.
+unchanged one loads the existing library.  ptxas reports each kernel's
+registers, shared memory and spills (``-Xptxas -v``); the compile logs
+are kept beside the library (:func:`build_log`).
 """
 
 from __future__ import annotations
@@ -20,11 +22,11 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_dir", "build_log", "library_path", "load_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def build_dir() -> Path:
@@ -50,16 +52,28 @@ def _sources() -> list[Path]:
     return srcs
 
 
+def library_path() -> Path:
+    """Where the library of the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in _sources():
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return build_dir() / f"libdspfun_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """The compile logs of the current library (ptxas's register, shared
+    memory and spill lines), or "" before it is built."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile (when the sources changed) and load the kernel library."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    out_dir = build_dir()
-    lib = out_dir / f"libdspfun_kernels_{h.hexdigest()[:16]}.so"
+    lib = library_path()
+    out_dir = lib.parent
     if not lib.is_file():
         nvcc = _nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -79,5 +93,8 @@ def load_library() -> ctypes.CDLL:
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({res.returncode}): "
                                    f"{' '.join(link)}\n{res.stdout}{res.stderr}")
+            Path(f"{tmp}/lib.log").write_text(
+                "".join(f"== {s.name}\n{log}" for s, log in zip(srcs, logs)))
+            os.replace(f"{tmp}/lib.log", lib.with_suffix(".log"))
             os.replace(f"{tmp}/lib.so", lib)  # atomic: a concurrent loader sees all or none
     return ctypes.CDLL(str(lib))

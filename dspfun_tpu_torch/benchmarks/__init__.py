@@ -18,7 +18,7 @@ import argparse
 import numpy as np
 import torch
 
-__all__ = ["cuda_ms", "device_arg"]
+__all__ = ["cuda_ms", "device_arg", "parse_device"]
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -39,8 +39,18 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def device_arg(parser: argparse.ArgumentParser) -> None:
-    """``--device``: ``cuda`` (the kernels) when a card is present, else
-    ``cpu`` (their plain versions)."""
-    parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
+    """``--device``: ``cuda`` (the kernels, the default) or ``cpu`` (their
+    plain versions)."""
+    parser.add_argument("--device", default="cuda",
                         help="cuda runs the kernels, cpu their plain versions "
-                             "(default: cuda when a card is present)")
+                             "(default: cuda)")
+
+
+def parse_device(parser: argparse.ArgumentParser, name: str) -> torch.device:
+    """The device ``--device`` names; a CUDA device without a card is a
+    usage error (exit 2 with a message), never a fall-back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        parser.error(f"--device {name}: torch.cuda.is_available() is False "
+                     "(pass --device cpu for the plain versions)")
+    return dev

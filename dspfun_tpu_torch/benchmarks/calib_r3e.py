@@ -26,7 +26,7 @@ import sys
 import numpy as np
 import torch
 
-from dspfun_tpu_torch.benchmarks import device_arg
+from dspfun_tpu_torch.benchmarks import device_arg, parse_device
 from dspfun_tpu_torch.ops.int8split import i8_split_contract
 
 __all__ = ["K", "R", "M", "PROBES", "probe_inputs", "run_probes", "main"]
@@ -65,7 +65,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="calib_r3e", description=__doc__.split("\n\n")[0])
     device_arg(parser)
     args = parser.parse_args(argv)
-    dev = torch.device(args.device)
+    dev = parse_device(parser, args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu (plain versions)"
     print(f"device: {name}", flush=True)
     for probe, out in run_probes(dev).items():

@@ -31,7 +31,7 @@ import sys
 import numpy as np
 import torch
 
-from dspfun_tpu_torch.benchmarks import cuda_ms, device_arg
+from dspfun_tpu_torch.benchmarks import cuda_ms, device_arg, parse_device
 from dspfun_tpu_torch.core.basis import dct2_matrix
 from dspfun_tpu_torch.ops import int8mm
 from dspfun_tpu_torch.ops.int8split import (
@@ -98,7 +98,7 @@ def main(argv=None) -> int:
                         help="K,M,R of the contraction (default: the 4K shape)")
     args = parser.parse_args(argv)
     k, m, r = (int(v) for v in args.shape.split(","))
-    dev = torch.device(args.device)
+    dev = parse_device(parser, args.device)
     on_card = dev.type == "cuda"
     name = torch.cuda.get_device_name(dev) if on_card else "cpu (plain versions, not timed)"
     print(f"device: {name}; K={k} M={m} R={r}", flush=True)

@@ -9,11 +9,12 @@ int32 (see :func:`_kmax`), and the only error is the digit truncation
 (~2^-21 relative for 3 digits, ~2^-28 for 4).
 
 The digit-pair products run in the hand-written CUDA kernel
-``csrc/int8mm.cu`` for CUDA tensors, and in :func:`_i8_groups_plain`,
-its plain PyTorch version, for CPU tensors.  Two layouts avoid
-transposes: ``left`` contracts the middle axis of x [B, K, R] into
-[B, M, R]; ``right`` contracts the last axis of x [B, R, K] into
-[B, R, M].  A [C, H, W] separable chain alternates the two.
+``csrc/int8mm.cu`` (warpgroup int8 MMA on the tensor cores) for CUDA
+tensors, and in :func:`_i8_groups_plain`, its plain PyTorch version, for
+CPU tensors.  Two layouts avoid transposes in the chains: ``left``
+contracts the middle axis of x [B, K, R] into [B, M, R]; ``right``
+contracts the last axis of x [B, R, K] into [B, R, M].  A [C, H, W]
+separable chain alternates the two.
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ _W = [float(2.0 ** (-B_I8 * (p + 2))) for p in range(4)]
 # (10 digit-pair products, truncation ~2^-28); looser budgets keep the
 # 3-digit kernel (6 products)
 I8_DEEP_TOL = 2e-6
+
+# the CUDA kernel's output tile: rows of A (two warpgroups of 64) by
+# slices of x (csrc/int8mm.cu, BM and BN); one block per tile and batch
+KERNEL_TILE = (128, 64)
 
 # kernel launches by instantiation ("left3", "right3", "left4",
 # "right4"); counted where the CUDA kernel launches and nowhere else
@@ -150,7 +155,7 @@ def _kmax(ndig: int) -> int:
 def i8_feasible(m: int, k: int, ndig: int = _NDIG) -> bool:
     """Planner probe: does a [m, k] digit contraction fit the kernel's
     exact-int32 bound?  The CUDA kernel loops over K in shared-memory
-    chunks, so there is no other limit on K (the JAX package also
+    stages, so there is no other limit on K (the JAX package also
     rejects shapes whose tiles overflow the TPU's VMEM)."""
     return k <= _kmax(ndig)
 
@@ -191,10 +196,23 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.dspfun_i8mm.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
     lib.dspfun_cuda_error_string.restype = ctypes.c_char_p
     lib.dspfun_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _x_staging_pitch(layout: str, k: int, x_ptr: int) -> int | None:
+    """The kernel reads x K-major through TMA, which wants 16-byte row
+    strides and addresses.  None when x is read in place (the right
+    layout with K a multiple of 16 at a 16-byte aligned address: every
+    right contraction of the main paths); otherwise the row pitch of the
+    K-major staging buffer [D, B, R, pitch] that the kernel's first pass
+    writes, K rounded up to 16 with zero padding (the left layout, whose
+    x is R-contiguous, and ragged right shapes)."""
+    if layout == "right" and k % 16 == 0 and x_ptr % 16 == 0:
+        return None
+    return ceil_to(k, 16)
 
 
 def _i8_groups_cuda(a_digits: torch.Tensor, x_digits: torch.Tensor,
@@ -224,19 +242,27 @@ def _i8_groups_cuda(a_digits: torch.Tensor, x_digits: torch.Tensor,
     if k > _kmax(nd):
         raise ValueError(f"i8 kernel: contraction length {k} exceeds the "
                          f"exact-int32 bound {_kmax(nd)} for {nd} digits")
-    if max(m, r) >= 2**31 or b > 65535 or m > 65535 * 64:
+    if max(m, r) >= 2**31 or b > 65535 or m > 65535 * KERNEL_TILE[0]:
         raise ValueError(f"i8 kernel: shape B={b} M={m} R={r} exceeds the "
                          "launch grid")
+    if a_digits.data_ptr() % 16 or kp % 16:
+        raise ValueError("i8 kernel: A's digits must start 16-byte aligned with "
+                         f"a padded length a multiple of 16, got length {kp}")
     shape = (b, m, r) if layout == "left" else (b, r, m)
     out = torch.empty(shape, dtype=torch.float32, device=x_digits.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or k == 0:
         return out.zero_()
+    pitch = _x_staging_pitch(layout, k, x_digits.data_ptr())
+    xs = None if pitch is None else torch.empty((nd, b, r, pitch), dtype=torch.int8,
+                                                device=x_digits.device)
     lib = _kernel_lib()
     with torch.cuda.device(x_digits.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dspfun_i8mm(a_digits.data_ptr(), kp, x_digits.data_ptr(),
                               out.data_ptr(), nd, 0 if layout == "left" else 1,
-                              b, m, r, k, stream)
+                              b, m, r, k, stream,
+                              None if xs is None else xs.data_ptr(),
+                              k if pitch is None else pitch)
     if err != 0:
         raise RuntimeError(f"i8 kernel launch failed: CUDA error {err} "
                            f"({lib.dspfun_cuda_error_string(err).decode()})")

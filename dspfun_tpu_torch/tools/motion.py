@@ -7,8 +7,8 @@ pipeline in ``dspfun_tpu_torch.models.motion_pipeline``.  Run it as
     python -m dspfun_tpu_torch.tools.motion [options] <infile> [outfile]
 
 It keeps the JAX tool's getopt surface and defaults.  ``--device``
-picks the torch device (default ``cuda`` when a card is present, else
-``cpu``; asking for ``cuda`` without a card is an error).  Not ported
+picks the torch device (default ``cuda``; without a card that is an
+error, and ``--device cpu`` runs the plain versions).  Not ported
 yet, each refused with exit code 1: ``--mesh``, ``--coordinator``,
 ``--nprocs``, ``--proc-id`` (ROADMAP queue 1, item 18),
 ``--resume-file`` (item 13), ``--eval`` (item 12) and containers other
@@ -98,9 +98,7 @@ def _parse_multi(arg: str, default: float) -> list[float]:
 
 
 def _device(arg: str | None) -> torch.device:
-    if arg is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(arg)
+    dev = torch.device("cuda" if arg is None else arg)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise ValueError("--device cuda: torch.cuda.is_available() is False")
     return dev

@@ -51,15 +51,26 @@ def _digits(gen, shape, device):
 
 @pytest.mark.parametrize("ndig", [3, 4])
 @pytest.mark.parametrize("layout,m,k,b,r", [
-    ("left", 540, 2160, 3, 384), ("right", 960, 3840, 1, 162),
+    # the main paths' shapes at a reduced R: 4K fwd H, inv H, fwd W, inv W,
+    # motion's luma pair
+    ("left", 540, 2160, 3, 384), ("left", 2160, 540, 3, 96),
+    ("right", 960, 3840, 1, 162), ("right", 3840, 960, 1, 648),
+    ("right", 256, 4096, 1, 804), ("right", 4096, 256, 1, 804),
+    # ragged: M, K and R off every tile multiple; K off 16 (8, 300), off
+    # 32 (48, 80) and off 64 and 128 (96, 200); M < 64; R = 1 with B > 1
     ("left", 77, 300, 2, 45), ("right", 77, 300, 2, 45),
-    ("left", 5, 1, 1, 3), ("right", 64, 32, 1, 64),
+    ("left", 5, 1, 1, 3), ("right", 64, 32, 1, 64), ("right", 40, 8, 2, 70),
+    ("left", 40, 48, 3, 1), ("right", 40, 48, 3, 1), ("right", 130, 80, 2, 129),
+    ("left", 130, 96, 2, 129), ("right", 63, 200, 1, 65), ("left", 129, 200, 1, 65),
 ])
 def test_kernel_bit_equal_to_plain(cuda, ndig, layout, m, k, b, r):
-    g = torch.Generator(device=cuda).manual_seed(ndig * 1000 + m)
+    """Every path of the wrapper and the kernel: x read in place (right
+    layout, K a multiple of 16) or through the staging pass (left layout,
+    ragged K), one or many k-stages, edge tiles in M and R.  A's padding
+    past K holds digits, which the kernel must never add in."""
+    g = torch.Generator(device=cuda).manual_seed(ndig * 1000 + m + k)
     kp = tmm.ceil_to(k, 128)
     a = _digits(g, (ndig, m, kp), cuda)
-    a[:, :, k:] = 0  # the plan's zero padding of K
     x = _digits(g, (ndig, b, k, r) if layout == "left" else (ndig, b, r, k), cuda)
     before = tmm.LAUNCHES[f"{layout}{ndig}"]
     y = tmm._i8_groups(a, x, layout)
@@ -67,6 +78,29 @@ def test_kernel_bit_equal_to_plain(cuda, ndig, layout, m, k, b, r):
     ref = tmm._i8_groups_plain(a, x, layout)
     torch.cuda.synchronize()
     assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("ndig", [3, 4])
+@pytest.mark.parametrize("layout", ["left", "right"])
+def test_kernel_exact_at_the_int32_bound(cuda, ndig, layout):
+    """The card twin of tests/test_torch_int8mm.py's plain-version test:
+    every digit at +-64 and K = _kmax, so the heaviest group sum sits just
+    under 2^31.  A saturating or wrapping accumulator, or a float combine
+    of partial sums, would differ from the plain version here."""
+    k = tmm._kmax(ndig)
+    a = torch.full((ndig, 2, tmm.ceil_to(k, 128)), 64, dtype=torch.int8)
+    a[:, 1, ::2] = -64
+    a[:, :, k:] = 0
+    x = torch.full((ndig, 1, k, 3), 64, dtype=torch.int8)
+    x[:, :, 1::3, 2] = -64
+    if layout == "right":
+        x = x.transpose(2, 3).contiguous()
+    ref = tmm._i8_groups_plain(a, x, layout)
+    y = tmm._i8_groups(a.to(cuda), x.to(cuda), layout)
+    torch.cuda.synchronize()
+    # row 0 against slice 0: the heaviest group's ndig dots of K products 64 * 64
+    assert 2**31 - ndig * 64 * 64 <= ndig * k * 64 * 64 < 2**31
+    assert torch.equal(y.cpu(), ref)
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(cuda):
@@ -83,6 +117,9 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         tmm._i8_groups(a.cpu(), x, "left")
     with pytest.raises(ValueError, match="digit planes"):
         tmm._i8_groups(a, x[:2].contiguous(), "left")
+    shifted = torch.zeros(3 * 8 * 128 + 1, dtype=torch.int8, device=cuda)[1:].view(3, 8, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tmm._i8_groups(shifted, x, "left")
 
 
 @pytest.mark.parametrize("ndig", [3, 4])

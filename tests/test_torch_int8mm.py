@@ -219,3 +219,71 @@ def test_build_reports_missing_nvcc(monkeypatch, tmp_path):
         _build.load_library.cache_clear()
     assert not list(tmp_path.glob("*.so"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# (layout, M, K, B, R): chip_smoke.py's main-path and ragged shapes
+KERNEL_PATH_SHAPES = [
+    ("left", 540, 2160, 3, 3840), ("left", 2160, 540, 3, 960),
+    ("right", 960, 3840, 1, 1620), ("right", 3840, 960, 1, 6480),
+    ("right", 256, 4096, 1, 8040), ("right", 4096, 256, 1, 8040),
+    ("left", 77, 300, 2, 45), ("right", 77, 300, 2, 45), ("left", 5, 1, 1, 3),
+]
+
+
+@pytest.mark.parametrize("layout,m,k,b,r", KERNEL_PATH_SHAPES)
+def test_x_staging_rule_at_the_kernel_shapes(layout, m, k, b, r):
+    """TMA reads x in place only where its rows are 16-byte strided: every
+    right contraction of the main paths; the left layout and ragged K
+    take the staging pass into a zero-padded K-major buffer."""
+    pitch = tmm._x_staging_pitch(layout, k, 1 << 20)
+    if layout == "right" and k % 16 == 0:
+        assert pitch is None
+        assert tmm._x_staging_pitch(layout, k, (1 << 20) + 8) == tmm.ceil_to(k, 16)
+    else:
+        assert pitch % 16 == 0 and k <= pitch < k + 16
+    # A's padded length is a multiple of 128, so the kernel's 128-byte
+    # k-stages never read past a row of A
+    assert tmm.ceil_to(k, 128) % 128 == 0 and tmm.ceil_to(k, 128) >= tmm.ceil_to(k, 16)
+
+
+@pytest.mark.parametrize("layout,m,k,b,r", KERNEL_PATH_SHAPES[:6])
+def test_kernel_tiles_fill_the_card_at_the_main_path_shapes(layout, m, k, b, r):
+    """The kernel's fixed 128 x 64 output tile gives every main-path
+    contraction at least one wave of blocks on the H100's 132 SMs, so no
+    shape needs a split of K across blocks."""
+    tm, tr = tmm.KERNEL_TILE
+    assert -(-m // tm) * -(-r // tr) * b >= 132
+
+
+@pytest.mark.parametrize("ndig", [3, 4])
+@pytest.mark.parametrize("layout,k", [("left", 300), ("right", 300), ("left", 1), ("right", 48)])
+def test_padded_stages_equal_the_plain_version(ndig, layout, k):
+    """The kernel's data flow on the CPU: x staged K-major at a pitch of
+    K rounded to 16 with zero padding, A read over 128-byte stages to its
+    padded length whatever that padding holds, the int32 group sums
+    combined in the kernel's order.  Equal to the plain version bit for
+    bit, which ignores A's padding."""
+    rng = np.random.default_rng(ndig + k)
+    m, b, r = 9, 2, 5
+    kp = tmm.ceil_to(k, 128)
+    a = rng.integers(-64, 65, (ndig, m, kp)).astype(np.int8)
+    a[:, :, k:] = rng.integers(-128, 128, (ndig, m, kp - k))  # padding that is not zero
+    xshape = (ndig, b, k, r) if layout == "left" else (ndig, b, r, k)
+    x = rng.integers(-64, 65, xshape).astype(np.int8)
+    pitch = tmm._x_staging_pitch(layout, k, 1 << 20) or k
+    xk = np.zeros((ndig, b, r, kp), np.int64)    # TMA's zero fill past the pitch
+    xk[..., :k] = np.swapaxes(x, 2, 3) if layout == "left" else x
+    assert not xk[..., k:pitch].any()
+    acc = None
+    for g in range(ndig):
+        s = np.zeros((b, m, r), np.int64)
+        for k0 in range(0, kp, 128):                 # one shared-memory stage
+            for i in range(g + 1):
+                s += np.einsum("mk,brk->bmr", a[i, :, k0:k0 + 128].astype(np.int64),
+                               xk[g - i, :, :, k0:k0 + 128])
+        assert np.abs(s).max() < 2**31
+        t = s.astype(np.float32) * np.float32(tmm._W[g])
+        acc = t if acc is None else acc + t
+    if layout == "right":
+        acc = np.swapaxes(acc, 1, 2)
+    np.testing.assert_array_equal(tmm._i8_groups_plain(_t(a), _t(x), layout).numpy(), acc)

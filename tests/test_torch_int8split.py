@@ -300,3 +300,15 @@ def test_calibration_mains_on_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert [ln.split(":")[0] for ln in lines[1:]] == ["fused", "split + int8mm", "plain"]
     assert all(float(ln.split("rel=")[1].split()[0]) <= 1e-5 for ln in lines[1:])
+
+
+@pytest.mark.parametrize("main", [calib_r3e.main, calib_r3f.main])
+def test_calibration_mains_default_to_the_card(main, capsys, monkeypatch):
+    """Without --device the entry points ask for the card; without one
+    they exit non-zero with a message and compute nothing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_info:
+        main([])
+    assert exit_info.value.code != 0
+    captured = capsys.readouterr()
+    assert "is_available() is False" in captured.err and "device:" not in captured.out

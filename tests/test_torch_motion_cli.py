@@ -69,9 +69,10 @@ CLI_CASES = {
 def test_cli_matches_jax(clip, tmp_path, case):
     args = ["-Q"] + CLI_CASES[case]
     outs = []
-    for name, main in (("jax", jmotion.main), ("torch", tmotion.main)):
+    for name, main, extra in (("jax", jmotion.main, []),
+                              ("torch", tmotion.main, ["--device", "cpu"])):
         out = str(tmp_path / f"{name}.y4m")
-        assert main(args + [clip, out]) == 0
+        assert main(args + extra + [clip, out]) == 0
         outs.append(open(out, "rb").read())
     (j, t) = outs
     hj, ht = j.index(b"\n"), t.index(b"\n")
@@ -89,7 +90,7 @@ def test_cli_matches_jax(clip, tmp_path, case):
     (["--resume-file", "state.json"], "item 13"), (["--eval", "c/2"], "item 12"),
 ])
 def test_refused_flags_exit_1(clip, tmp_path, capsys, flag, item):
-    assert tmotion.main(["-Q"] + flag + [clip, str(tmp_path / "o.y4m")]) == 1
+    assert tmotion.main(["-Q", "--device", "cpu"] + flag + [clip, str(tmp_path / "o.y4m")]) == 1
     err = capsys.readouterr().err
     assert "not ported" in err and f"ROADMAP queue 1, {item}" in err
 
@@ -100,15 +101,21 @@ def test_other_containers_are_refused(clip, tmp_path, capsys, src, dst):
     src = clip if src == "clip" else str(tmp_path / src)
     if src.endswith(".nut"):
         open(src, "wb").write(b"nut/multimedia container\0")
-    assert tmotion.main(["-Q", src, str(tmp_path / dst)]) == 1
+    assert tmotion.main(["-Q", "--device", "cpu", src, str(tmp_path / dst)]) == 1
     assert "not ported yet" in capsys.readouterr().err
 
 
 def test_device_cuda_without_a_card_is_an_error(clip, tmp_path, capsys, monkeypatch):
+    """The default device is the card: without one, no --device and
+    --device cuda fail alike, and nothing runs on the CPU unasked."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert tmotion.main(["-Q", "--device", "cuda", clip, str(tmp_path / "o.y4m")]) == 1
-    assert "Bad --device" in capsys.readouterr().err
-    assert tmotion._device(None).type == "cpu"
+    for extra in (["--device", "cuda"], []):
+        assert tmotion.main(["-Q"] + extra + [clip, str(tmp_path / "o.y4m")]) == 1
+        assert "Bad --device" in capsys.readouterr().err
+    assert not (tmp_path / "o.y4m").exists()
+    with pytest.raises(ValueError, match="is_available"):
+        tmotion._device(None)
+    assert tmotion._device("cpu").type == "cpu"
 
 
 PIX = [("yuv420p", None), ("yuv422p", "jpeg"), ("yuv444p", "mpeg"), ("gray", None),

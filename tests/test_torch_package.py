@@ -73,7 +73,7 @@ def test_motion_cli_runs_without_jax(tmp_path):
         "w = video.open_output(clip, 32, 16, Fraction(25, 1), video.ColorProps(pix_fmt='gray'))\n"
         "[w.write_frame([np.full((16, 32), 100.0 + t)], raw=True) for t in range(4)]\n"
         "w.close()\n"
-        "sys.argv = ['motion', '-Q', '-b', '8x8x4', '-B', '1.5', clip, out]\n"
+        "sys.argv = ['motion', '-Q', '--device', 'cpu', '-b', '8x8x4', '-B', '1.5', clip, out]\n"
         "try:\n"
         "    runpy.run_module('dspfun_tpu_torch.tools.motion', run_name='__main__')\n"
         "except SystemExit as e:\n"
