@@ -11,9 +11,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    card's name and power limit, and the float32 matmul settings (no TF32);
 2. build: compiles ``dspfun_tpu_torch/csrc/*.cu`` with nvcc (one process
    per source, in parallel) and prints the build time;
-3. kernels: ptxas's registers and spills for each int8 digit kernel
-   (the build runs ``-Xptxas -v``) and, where ``cuobjdump`` is found, the
-   tensor-core MMA instructions in each one's SASS (none is a failure);
+3. kernels: ptxas's registers and spills for each kernel of
+   ``int8mm.cu`` and ``block_filter.cu`` (the build runs ``-Xptxas -v``)
+   and, where ``cuobjdump`` is found, the tensor-core MMA instructions in
+   each one's SASS (``IGMMA`` for the int8 kernels, ``HGMMA`` for the
+   block filter's TF32 products; none is a failure);
    each int8 digit kernel (left/right layout, 3/4 digits) at the 4K
    chain's four contraction shapes and one ragged shape, and the right
    3-digit kernel at motion's two i8-kron shapes, held bit-equal
@@ -24,13 +26,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    on the K-concatenated digit planes, summed, whose int32 groups combined
    as the kernel combines must equal the plain version bit for bit
    ("refused" with the message where ``_int_mm`` refuses a shape); the
-   fused block filter kernel at motion's 1080p chroma shape, a
-   half-thresholded 1080p luma 8^3 shape and a ragged quant + threshold
-   shape, held to 1e-2 (pels) against its plain version (blocks whose
-   coefficients sit within 1e-5 relative of a threshold or quant boundary
+   fused block filter kernel (split TF32 on the tensor cores, a 2-CTA
+   cluster per 64 rows) at motion's
+   1080p chroma shape, a half-thresholded 1080p luma 8^3 shape and a
+   ragged quant + threshold shape, held to 1e-2 (pels) against its plain
+   version (blocks with a coefficient within the estimated kernel-vs-plain
+   error ``block_filter.boundary_band`` of a threshold or quant boundary
    are excluded and counted) and, on the linear chroma shape, against a
-   scipy float64 oracle, with its bound (float32 FMA at 67 TFLOP/s) and
-   two float32 ``torch.matmul`` calls as its library yardstick;
+   scipy float64 oracle beside the plain version's error, with its bound
+   (the split's three TF32 products at 495 TFLOP/s), the float32 FMA
+   bound of the unsplit products (67 TFLOP/s) printed beside it, and two float32
+   ``torch.matmul`` calls as its library yardstick;
 4. main path 1: ``filter_plans`` + ``fused_filter_2d`` on a 2160x3840x3 image
    at ``i8@1e-5`` (bench.py's configuration) and at deep ``i8``, each held
    to <= 1e-5 max abs error against a scipy float64 oracle and bit-equal
@@ -53,18 +59,20 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    level of a scipy float64 blockwise DCT oracle.  Then the slab time per
    plane, the CLI's frames/s with the kernels and with both plain
    versions forced, and the per-slab luma time at slab batch 1, 2, 4;
-7. main path 3, the calibration of the in-kernel digit split: the four
-   probes of ``dspfun_tpu_torch.benchmarks.calib_r3e`` and the tile sweep
-   of ``calib_r3f`` at K=3840 M=960 R=6480 on the kernel
-   ``csrc/int8split.cu``.  Launches are counted over this phase alone:
-   every instance must run, and the left 3-digit int8 kernel through
-   calib_r3f's split + int8mm route.  Each probe equals its plain version bit for
-   bit; at the 4K shape every tile equals the plain version and the
-   split-then-int8mm route bit for bit, and each route's error against a
-   float64 product on the card is <= 1e-5 of the largest output.  Prints
-   each route's time and eff-TOPS, the probes' kernel and plain times, and
-   each instance's bound; the fused kernel's library yardstick is
-   ``torch._int_mm`` on the digits split beforehand.
+7. main path 3, the calibration of the in-kernel digit split: ptxas's
+   registers and spills and the ``IGMMA`` count of each instance of
+   ``int8split.cu`` (none is a failure), then the four probes of
+   ``dspfun_tpu_torch.benchmarks.calib_r3e`` and the tile sweep of
+   ``calib_r3f`` at K=3840 M=960 R=6480 on that kernel.  Launches are
+   counted over this phase alone: every instance must run, and the left
+   3-digit int8 kernel through calib_r3f's split + int8mm route.  Each
+   probe equals its plain version bit for bit; at the 4K shape every tile
+   equals the plain version and the split-then-int8mm route bit for bit,
+   and each route's error against a float64 product on the card is
+   <= 1e-5 of the largest output.  Prints each route's time and
+   eff-TOPS, the probes' kernel and plain times, and each instance's
+   bound; the fused kernel's library yardstick is ``torch._int_mm`` on
+   the digits split beforehand.
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -99,6 +107,7 @@ REPLACES = {                      # the Pallas bodies each instantiation replace
 # the card's peaks (NVIDIA's H100 SXM data sheet: dense rates at 700 W)
 INT8_OPS = 1979e12                # int8 tensor-core operations/s
 F32_FLOPS = 67e12                 # float32 outside the tensor cores
+TF32_FLOPS = 495e12               # TF32 tensor-core operations/s
 HBM_BYTES = 3.35e12               # device memory bytes/s
 BF_SRC = "dspfun_tpu_torch/csrc/block_filter.cu"
 BF_REPLACES = "dspfun_tpu/ops/pallas_kernels.py:51"
@@ -111,7 +120,6 @@ I8S_REPLACES = {                  # the split kernel's instances and the Pallas 
     "exp3g3": "benchmarks/calib_r3f.py:19",
 }
 CALIB_TOL = 1e-5                  # rel error vs float64 at the 4K shape (the chain's gate)
-BF_EDGE = 1e-5                    # relative distance to a threshold/quant boundary
 # motion at 1080p 4:2:0 (benchmarks/suite.py:444-456 at the frame size
 # users process): 16x16x16 luma blocks run i8-kron, the 8x8x16 chroma
 # blocks the fused block filter
@@ -228,9 +236,9 @@ def _ptxas_lines(log: str, source: str) -> list[str]:
 
 
 def _sass_mma_counts(path: str) -> dict | None:
-    """Tensor-core MMA instructions (``GMMA`` in their SASS name) per
-    kernel of the built library, from ``cuobjdump --dump-sass``; None
-    without cuobjdump."""
+    """Tensor-core MMA instructions (warpgroup MMA: ``GMMA`` in their SASS
+    name, ``IGMMA`` for int8, ``HGMMA`` for TF32) per kernel of the built
+    library, from ``cuobjdump --dump-sass``; None without cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
@@ -245,6 +253,19 @@ def _sass_mma_counts(path: str) -> dict | None:
         elif fn and "GMMA" in ln:
             counts[fn] += 1
     return counts
+
+
+def _check_mma(mma: dict | None, kernel: str, expect: int) -> None:
+    """Print the tensor-core MMA count of every instance of ``kernel`` and
+    fail unless there are ``expect`` instances, each with one or more."""
+    if mma is None:
+        print(f"SASS: cuobjdump not found; {kernel}'s tensor-core MMA count not read",
+              flush=True)
+        return
+    got = {fn: n for fn, n in mma.items() if kernel in fn}
+    print(f"SASS tensor-core MMA instructions per {kernel}: {json.dumps(got)}", flush=True)
+    if len(got) != expect or not all(got.values()):
+        raise RuntimeError(f"a {kernel} instance has no tensor-core MMA in its SASS: {got}")
 
 
 def _profile_chain(torch, fn, label: str, runs: int = 5) -> None:
@@ -310,7 +331,7 @@ def _check_block_filter(torch, dev, block_filter, fft) -> dict:
         v = int(np.prod(dims))
         uf = _uniform_factor(*dims)
         filt = uf * _lowpass_box(dims, (4, 4, 4), 1.25) if label.startswith("chroma") else uf
-        k2m_t, k3s_t = block_filter.folded_filter_matrices(dims, filt, 1.0 / uf, dev)
+        k2m_t, k3s_t, split = block_filter._folded_operands(dims, filt, 1.0 / uf, dev)
         x = torch.rand((nb, v), generator=gen, device=dev) * 255.0
         f = x @ k2m_t                       # the plain version's coefficients
         a = f.abs()
@@ -321,17 +342,22 @@ def _check_block_filter(torch, dev, block_filter, fft) -> dict:
             tmin, tmax = (float(torch.quantile(sample, q)) for q in (lo, hi))
         if label == "ragged":
             quant = float(torch.quantile(sample, 0.5)) / 4.0
+        # a coefficient within the estimated kernel-vs-plain error of a
+        # threshold or quant boundary may fall either way: its block is
+        # left out of the comparison and counted
+        band = block_filter.boundary_band(x, k2m_t)
         near = torch.zeros_like(a, dtype=torch.bool)
         if tmax:
-            near |= ((a - tmin).abs() <= BF_EDGE * tmin) | ((a - tmax).abs() <= BF_EDGE * tmax)
+            near |= ((a - tmin).abs() <= band) | ((a - tmax).abs() <= band)
             zeroed = float(((a < tmin) | (a > tmax)).float().mean())
         if quant:
             yq = block_filter._middle(f, 0.0, tmin, tmax).abs() * (1.0 / quant)
             half = torch.floor(yq) + 0.5
-            near |= (yq - half).abs() <= BF_EDGE * half
+            near |= (yq - half).abs() <= band / quant
         keep = ~near.any(dim=1)
+        del band
         args = (x, k2m_t, k3s_t, quant, tmin, tmax)
-        y = block_filter._block_filter_cuda(*args)
+        y = block_filter._block_filter_cuda(*args, split)
         ref = block_filter._block_filter_plain(*args)
         torch.cuda.synchronize()
         err = float((y - ref).abs()[keep].max())
@@ -340,7 +366,8 @@ def _check_block_filter(torch, dev, block_filter, fft) -> dict:
                                f"(tolerance {BF_TOL})")
         msg = (f"kernel block_filter {label} NB={nb} V={v} dims={dims}: max abs diff vs "
                f"plain {err:.3e} over {int(keep.sum())} blocks "
-               f"({nb - int(keep.sum())} excluded at a boundary)")
+               f"({nb - int(keep.sum())} excluded within band_c = "
+               f"{block_filter.band_c(v):.2f} units of a boundary)")
         if tmax:
             msg += f", threshold zeroes {zeroed:.3f} of the coefficients"
         if quant:
@@ -350,22 +377,32 @@ def _check_block_filter(torch, dev, block_filter, fft) -> dict:
             axes = (1, 2, 3)
             ff = fft.dctn(xb, type=2, axes=axes, workers=-1) * filt * (1.0 / uf)
             oracle = fft.dctn(ff, type=3, axes=axes, workers=-1) / (8.0 * v)
-            oerr = float(np.max(np.abs(y.double().cpu().numpy() - oracle.reshape(nb, v))))
-            msg += f"; vs float64 {oerr:.3e}"
+            oracle = oracle.reshape(nb, v)
+            oerr = float(np.max(np.abs(y.double().cpu().numpy() - oracle)))
+            perr = float(np.max(np.abs(ref.double().cpu().numpy() - oracle)))
+            msg += f"; vs float64 {oerr:.3e} (plain {perr:.3e})"
+            out["f64_err"], out["plain_f64_err"] = oerr, perr
             if not oerr <= BF_TOL:
                 raise RuntimeError(f"block filter {label}: {oerr} vs float64")
-        ms = cuda_ms(lambda: block_filter._block_filter_cuda(*args))
+        ms = cuda_ms(lambda: block_filter._block_filter_cuda(*args, split))
         plain_ms = cuda_ms(lambda: block_filter._block_filter_plain(*args))
-        # two [NB, V] x [V, V] float32 products; the library yardstick is
-        # the same two products in cuBLAS with the middle stage left out
-        bound_ms, bound_by = _bound(4.0 * nb * v * v, F32_FLOPS, 8.0 * nb * v + 8.0 * v * v)
+        # the split's three TF32 products of the two [NB, V] x [V, V]
+        # products on the tensor cores; the unsplit products on the float32
+        # FMA pipes beside it (the bound of the parent's kernel); the
+        # library yardstick is the same two products in cuBLAS float32 with
+        # the middle stage left out
+        nbytes = 8.0 * nb * v + 8.0 * v * v
+        bound_ms, bound_by = _bound(3 * 4.0 * nb * v * v, TF32_FLOPS, nbytes)
+        fma_ms, _ = _bound(4.0 * nb * v * v, F32_FLOPS, nbytes)
         lib_ms = cuda_ms(lambda: (x @ k2m_t) @ k3s_t)
         print(f"{msg}; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms "
-              f"({bound_by}), {100 * bound_ms / ms:.1f} % of bound; library {lib_ms:.4f} ms "
-              f"(two float32 torch.matmul), kernel/library {ms / lib_ms:.3f}", flush=True)
+              f"({bound_by}, split TF32), {100 * bound_ms / ms:.1f} % of bound; float32 FMA "
+              f"bound {fma_ms:.4f} ms; library {lib_ms:.4f} ms (two float32 torch.matmul), "
+              f"kernel/library {ms / lib_ms:.3f}", flush=True)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["ms_by_shape"][label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                     "bound_by": bound_by, "library_ms": lib_ms}
+                                     "bound_by": bound_by, "library_ms": lib_ms,
+                                     "excluded": nb - int(keep.sum())}
         if label.startswith("chroma"):        # the motion path's shape
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
@@ -535,12 +572,18 @@ def _motion_phase(torch, dev, plain_versions, int8mm, block_filter, fft) -> dict
     return launches
 
 
-def _calib_phase(torch, dev) -> dict:
+def _calib_phase(torch, dev, mma) -> dict:
     """Main path 3: the calibration counterparts on the card; returns the
     split kernel's launches, the int8 digit kernels' launches (calib_r3f's
     split + int8mm route) and per-instance stats."""
+    from dspfun_tpu_torch import _build
     from dspfun_tpu_torch.benchmarks import calib_r3e, calib_r3f
     from dspfun_tpu_torch.ops import int8mm, int8split
+
+    for line in _ptxas_lines(_build.build_log(), "int8split.cu"):
+        print(f"ptxas int8split.cu {line}", flush=True)
+    _check_mma(mma, "i8split_kernel",
+               sum(len(tiles) for tiles in int8split.COMPILED_TILES.values()))
 
     int8split.LAUNCHES.clear()
     before = dict(int8mm.LAUNCHES)
@@ -657,7 +700,8 @@ def main() -> int:
         saved = (int8mm._i8_groups, block_filter._block_filter)
         before = sum(int8mm.LAUNCHES.values()) + sum(block_filter.LAUNCHES.values())
         int8mm._i8_groups = int8mm._i8_groups_plain
-        block_filter._block_filter = block_filter._block_filter_plain
+        block_filter._block_filter = (lambda *a, split=None:
+                                      block_filter._block_filter_plain(*a))
         try:
             yield
         finally:
@@ -666,17 +710,12 @@ def main() -> int:
             raise RuntimeError("a kernel launched while the plain versions were forced")
 
     # ---- phase 3: each kernel against its plain version -----------------
-    for line in _ptxas_lines(_build.build_log(), "int8mm.cu"):
-        print(f"ptxas int8mm.cu {line}", flush=True)
+    for src in ("int8mm.cu", "block_filter.cu"):
+        for line in _ptxas_lines(_build.build_log(), src):
+            print(f"ptxas {src} {line}", flush=True)
     mma = _sass_mma_counts(str(_build.library_path()))
-    if mma is None:
-        print("SASS: cuobjdump not found; tensor-core MMA count not read", flush=True)
-    else:
-        i8mm_mma = {fn: n for fn, n in mma.items() if "i8mm_kernel" in fn}
-        print(f"SASS tensor-core MMA instructions per i8mm kernel: {json.dumps(i8mm_mma)}",
-              flush=True)
-        if len(i8mm_mma) != len(REPLACES) or not all(i8mm_mma.values()):
-            raise RuntimeError(f"an i8mm kernel has no tensor-core MMA in its SASS: {i8mm_mma}")
+    _check_mma(mma, "i8mm_kernel", len(REPLACES))
+    _check_mma(mma, "block_filter_kernel", 1)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     stats = {name: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bound_ms": 0.0,
@@ -834,7 +873,7 @@ def main() -> int:
                                      scipy.fft)
 
     # ---- phase 7: main path 3, the calibration of the in-kernel split ---
-    calib = _calib_phase(torch, dev)
+    calib = _calib_phase(torch, dev, mma)
 
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],

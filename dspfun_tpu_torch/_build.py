@@ -3,10 +3,11 @@
 ``csrc/*.cu`` compile with ``nvcc``, one process per source, all started
 together, and link into one shared library with a plain C interface,
 which ``ctypes`` loads.  Headers that pull in PyTorch take
-minutes to compile; a plain C interface takes seconds.  The library
+minutes to compile; a plain C interface takes seconds.  The sources
+share ``csrc/*.cuh`` headers, which nvcc finds beside them.  The library
 lands in ``build/kernels/`` at the root of the checkout, named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing library.  ptxas reports each kernel's
+hash of the sources, headers and flags, so an edited source or header
+rebuilds and an unchanged tree loads the existing library.  ptxas reports each kernel's
 registers, shared memory and spills (``-Xptxas -v``); the compile logs
 are kept beside the library (:func:`build_log`).
 """
@@ -53,9 +54,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library of the current sources and flags lives."""
+    """Where the library of the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in _sources() + sorted(_CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return build_dir() / f"libdspfun_kernels_{h.hexdigest()[:16]}.so"

@@ -50,7 +50,7 @@ def probe_inputs() -> tuple[np.ndarray, np.ndarray]:
     return a8, xf
 
 
-def run_probes(device="cpu", inputs=None) -> dict[str, torch.Tensor]:
+def run_probes(device="cuda", inputs=None) -> dict[str, torch.Tensor]:
     """Probe name -> float32 [M, R] on ``device`` (the kernel on a card,
     its plain version on the CPU), for ``inputs`` = (a8, xf) or the
     seeded :func:`probe_inputs`."""

@@ -43,7 +43,7 @@ __all__ = ["K", "M", "R", "inputs", "fused", "split_then_i8mm", "plain", "run", 
 K, M, R = 3840, 960, 2160 * 3
 
 
-def inputs(k: int = K, m: int = M, r: int = R, device="cpu"):
+def inputs(k: int = K, m: int = M, r: int = R, device="cuda"):
     """(A digit planes int8 [3, m, kp], row scales float32 [m, 1], x
     float32 [k, r], the float64 matrix [m, k]) on ``device``."""
     rng = np.random.default_rng(0)
@@ -70,7 +70,7 @@ def plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _i8_split_plain(a, x, 3, 3, "exp")
 
 
-def run(device, k: int = K, m: int = M, r: int = R) -> list[dict]:
+def run(device="cuda", k: int = K, m: int = M, r: int = R) -> list[dict]:
     """One dict per route: ``route``, ``rel`` (max abs error of the
     row-scaled result against float64 over the largest |ref|), ``ms`` and
     ``tops`` (None off the card) and ``out``, the unscaled result."""

@@ -29,12 +29,12 @@ def _tensor(a, device) -> torch.Tensor | None:
     return torch.tensor(arr, device=device)
 
 
-def axis_plan_from_jax(plan, device: torch.device | str = "cpu") -> AxisPlan:
+def axis_plan_from_jax(plan, device: torch.device | str = "cuda") -> AxisPlan:
     """A JAX-package ``AxisPlan`` as the port's ``AxisPlan`` on ``device``."""
     return AxisPlan(*(_tensor(f, device) for f in plan))
 
 
-def filter_plans_from_jax(plans, device: torch.device | str = "cpu") -> FilterPlans:
+def filter_plans_from_jax(plans, device: torch.device | str = "cuda") -> FilterPlans:
     """A JAX-package ``FilterPlans`` as the port's ``FilterPlans`` on ``device``."""
     fwd, inv, support = plans
     return FilterPlans(
@@ -45,7 +45,7 @@ def filter_plans_from_jax(plans, device: torch.device | str = "cpu") -> FilterPl
     )
 
 
-def motion_plans_from_jax(plans, device: torch.device | str = "cpu") -> tuple:
+def motion_plans_from_jax(plans, device: torch.device | str = "cuda") -> tuple:
     """A JAX-package motion plan tuple ``(fwd, inv[, kron])`` — ``fwd``
     and ``inv`` tuples of ``AxisPlan``, ``kron`` a pair of ``AxisPlan``
     or None (``motion_pipeline.make_plans`` and ``maybe_kron_plans``) —

@@ -73,7 +73,7 @@ def _to(a, device) -> torch.Tensor | None:
 
 
 def plan_matrix(m: np.ndarray, precision: Precision | None = None,
-                device: torch.device | str = "cpu") -> AxisPlan:
+                device: torch.device | str = "cuda") -> AxisPlan:
     """Build an AxisPlan on ``device`` from an arbitrary float64 matrix."""
     p = precision or get_precision()
     m = np.asarray(m, dtype=np.float64)
@@ -115,7 +115,7 @@ def _plan_axis_cached(n: int, kind: str, intermediate: str,
 
 
 def plan_axis(n: int, kind: str, precision: Precision | None = None,
-              device: torch.device | str = "cpu") -> AxisPlan:
+              device: torch.device | str = "cuda") -> AxisPlan:
     """Cached plan for an FFTW-convention DCT along an axis of length n,
     keyed on (n, kind, intermediate, tol, device)."""
     p = precision or get_precision()

@@ -66,6 +66,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int LEFT = 0;
@@ -75,10 +77,6 @@ constexpr int BN = 64;           // slices of x per block
 constexpr int BK = 128;          // contraction bytes per stage: one 128-byte swizzle row
 constexpr int CONSUMERS = 256;   // threads of the two consumer warpgroups
 constexpr int THREADS = 288;     // and one producer warp
-
-// error codes beyond cudaError_t's range, decoded by dspfun_cuda_error_string
-constexpr int ERR_ENTRY_POINT = 20000;   // cuTensorMapEncodeTiled not found
-constexpr int ERR_TENSOR_MAP = 10000;    // + the CUresult of a refused encode
 
 template <int NDIG>
 struct Cfg {
@@ -92,98 +90,6 @@ struct Cfg {
 __device__ __forceinline__ float group_weight(int g) {
   // W_g = 2^(-7 (g + 2)), exact powers of two
   return g == 0 ? 0x1p-14f : g == 1 ? 0x1p-21f : g == 2 ? 0x1p-28f : 0x1p-35f;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`; a
-// wait that outlasts some seconds traps, so a fault in the pipeline ends
-// the launch with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t spins = 0;; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) asm volatile("trap;");
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-         "r"(c3)
-      : "memory");
-}
-
-// shared-memory matrix descriptor of a K-major tile in the 128-byte
-// swizzled layout (rows of 128 bytes, 8-row groups 1024 bytes apart; the
-// leading offset is unused by this layout); `saddr` advances by 32 bytes
-// per k-step inside the swizzle row
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// pins accumulator registers in program order around the asynchronous
-// MMAs: the compiler may not move their reads or writes across this point
-template <int N>
-__device__ __forceinline__ void fence_operands(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// D[64 x 64] += A[64 x 32] . B[64 x 32]^T, s8 x s8 -> s32, both operands
-// K-major in shared memory (128-byte swizzle), accumulators in registers
-__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 // tma_a: A as (k, m, plane), box (BK, BM, NDIG); tma_x: x in K-major form
@@ -324,42 +230,6 @@ stage_x_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ xs, int P, int
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a K-major int8 operand as a tensor map: dims[0] is the row pitch (a
-// multiple of 16), 128-byte boxes along it, 128-byte swizzle, zero fill
-int encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-           const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_ENTRY_POINT;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(ptr), dims,
-                    strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(res);
-}
-
 template <int NDIG, int LAYOUT>
 int launch(const int8_t* a, int64_t lda, const int8_t* x, int8_t* xs, int64_t pitch,
            float* out, int B, int M, int R, int K, cudaStream_t stream) {
@@ -380,13 +250,15 @@ int launch(const int8_t* a, int64_t lda, const int8_t* x, int8_t* xs, int64_t pi
   const cuuint64_t a_dims[3] = {(cuuint64_t)lda, (cuuint64_t)M, NDIG};
   const cuuint64_t a_strides[2] = {(cuuint64_t)lda, (cuuint64_t)(M * lda)};
   const cuuint32_t a_box[3] = {BK, BM, NDIG};
-  int rc = encode(&ta, a, 3, a_dims, a_strides, a_box);
+  int rc = encode(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, 3, a_dims, a_strides, a_box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc != 0) return rc;
   const cuuint64_t x_dims[4] = {(cuuint64_t)pitch, (cuuint64_t)R, (cuuint64_t)B, NDIG};
   const cuuint64_t x_strides[3] = {(cuuint64_t)pitch, (cuuint64_t)R * pitch,
                                    (cuuint64_t)B * R * pitch};
   const cuuint32_t x_box[4] = {BK, BN, 1, NDIG};
-  rc = encode(&tx, xk, 4, x_dims, x_strides, x_box);
+  rc = encode(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, xk, 4, x_dims, x_strides, x_box,
+              CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc != 0) return rc;
 
   cudaError_t err = cudaFuncSetAttribute(i8mm_kernel<NDIG, LAYOUT>,

@@ -34,7 +34,7 @@ class FilterPlans(NamedTuple):
 
 def filter_plans(shape, precision: Precision | None = None,
                  mask: np.ndarray | None = None,
-                 device: torch.device | str = "cpu") -> FilterPlans:
+                 device: torch.device | str = "cuda") -> FilterPlans:
     """Forward and inverse AxisPlans, on ``device``, for an ND fused
     filter chain over the leading ``len(shape)`` axes.
 

@@ -283,7 +283,7 @@ def _fast_eligible(g: PlaneGeometry, p: MotionParams) -> bool:
 def maybe_kron_plans(g: PlaneGeometry, params: MotionParams,
                      max_support_frac: float = 0.25,
                      allow_cpu: bool = False,
-                     device: torch.device | str = "cpu"):
+                     device: torch.device | str = "cuda"):
     """Support-pruned Kronecker-folded int8 plans on ``device`` for the
     fused fast path, or None when they cannot win.
 
@@ -595,7 +595,7 @@ def blocks_to_frames(blocks, g: PlaneGeometry):
 
 
 def make_plans(g: PlaneGeometry, precision: Precision | None = None,
-               device: torch.device | str = "cpu"):
+               device: torch.device | str = "cuda"):
     """(forward, inverse) axis plans on ``device``: forward DCT-II at
     block dims, inverse DCT-III at scaled dims (reference
     motion.c:518-552)."""

@@ -81,7 +81,7 @@ def folded_operator(
     dims: tuple[int, ...],
     coeff_filter: np.ndarray,
     precision: Precision | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> AxisPlan:
     """One [V, V] operator = IDCT @ diag(filter) @ DCT / (2^n V), planned
     on ``device``.
@@ -111,7 +111,7 @@ def bdiag_axis_plan(
     size: int,
     block_matrix: np.ndarray,
     precision: Precision | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> AxisPlan:
     """Block-diagonal [size, size] plan ``I_{size//n} (x) block_matrix``
     on ``device``.

@@ -48,11 +48,11 @@ INSTANCES = {
     (3, 2, "exp"): "exp3g2",
     (3, 3, "exp"): "exp3g3",
 }
-# output tile (rows of A, columns of x) per thread block, by ``tile`` index;
-# tile 0, the default, measured fastest at the calib_r3f shape on the H100;
-# the probes' instances are compiled for tile 0 only
-TILES = ((64, 128), (64, 64), (128, 64))
-COMPILED_TILES = {"fixed1": (0,), "exp1": (0,), "exp3g2": (0,), "exp3g3": (0, 1, 2)}
+# output tile (rows of A, columns of x) per thread block, by ``tile`` index:
+# two consumer warpgroups of 64 rows, or one; every instance is compiled
+# for both
+TILES = ((128, 64), (64, 64))
+COMPILED_TILES = {name: (0, 1) for name in INSTANCES.values()}
 DEFAULT_TILE = 0
 
 # kernel launches by instance name; counted where the CUDA kernel
@@ -60,6 +60,7 @@ DEFAULT_TILE = 0
 LAUNCHES: Counter = Counter()
 
 _E_MIN, _E_MAX = -125, 126   # column exponents whose scales 2^-e, 2^e are normal
+_BN = 64                     # columns of x per thread block (the launch grid's y)
 
 
 def col_exponent(mx: torch.Tensor) -> torch.Tensor:
@@ -146,10 +147,10 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load_library()
     fn = lib.dspfun_i8split
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     lib.dspfun_cuda_error_string.restype = ctypes.c_char_p
     lib.dspfun_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -170,16 +171,28 @@ def _i8_split_cuda(a_planes: torch.Tensor, x: torch.Tensor, xdigits: int,
                          f"{COMPILED_TILES[name]}, not {tile}")
     _, m, lda = a_planes.shape
     k, r = x.shape
-    if r >= 2**31 or -(-m // TILES[tile][0]) > 65535:
+    if m >= 2**31 or -(-r // _BN) > 65535:
         raise ValueError(f"i8 split kernel: shape M={m} R={r} exceeds the launch grid")
     out = torch.empty((m, r), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    # TMA reads 16-byte rows from 16-byte aligned bases: a copy pads A's
+    # rows and x's with zeros (x is zero past K, so A's padding is never
+    # summed, and the store masks the columns past R)
+    if lda % 16 or a_planes.data_ptr() % 16:
+        padded = a_planes.new_zeros((groups, m, -(-lda // 16) * 16))
+        padded[:, :, :lda] = a_planes
+        a_planes, lda = padded, padded.shape[2]
+    ldx = r
+    if r % 4 or x.data_ptr() % 16:
+        padded = x.new_zeros((k, -(-r // 4) * 4))
+        padded[:, :r] = x
+        x, ldx = padded, padded.shape[1]
     e = torch.empty(r if scale == "exp" else 0, dtype=torch.int32, device=x.device)
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dspfun_i8split(a_planes.data_ptr(), lda, x.data_ptr(), e.data_ptr(),
+        err = lib.dspfun_i8split(a_planes.data_ptr(), lda, x.data_ptr(), ldx, e.data_ptr(),
                                  out.data_ptr(), xdigits, groups, int(scale == "exp"),
                                  tile, m, r, k, stream)
     if err != 0:

@@ -47,7 +47,7 @@ def test_folded_operator_matches_jax(dims):
     rng = np.random.default_rng(1)
     filt = rng.random(dims)
     pj = jbd.folded_operator(dims, filt, JP())
-    pt = tbd.folded_operator(dims, filt, TP())
+    pt = tbd.folded_operator(dims, filt, TP(), device="cpu")
     np.testing.assert_array_equal(pt.hi.numpy(), np.asarray(pj.hi))
     np.testing.assert_array_equal(pt.lo.numpy(), np.asarray(pj.lo))
     v = int(np.prod(dims))
@@ -60,13 +60,13 @@ def test_folded_operator_matches_jax(dims):
 def test_bdiag_axis_plan_matches_jax():
     m = np.random.default_rng(2).standard_normal((8, 8))
     pj = jbd.bdiag_axis_plan(64, m, JP())
-    pt = tbd.bdiag_axis_plan(64, m, TP())
+    pt = tbd.bdiag_axis_plan(64, m, TP(), device="cpu")
     np.testing.assert_array_equal(pt.hi.numpy(), np.asarray(pj.hi))
     np.testing.assert_array_equal(pt.lo.numpy(), np.asarray(pj.lo))
     with pytest.raises(ValueError, match="multiple"):
-        tbd.bdiag_axis_plan(60, m)
+        tbd.bdiag_axis_plan(60, m, device="cpu")
     with pytest.raises(ValueError, match="square"):
-        tbd.bdiag_axis_plan(64, m[:4])
+        tbd.bdiag_axis_plan(64, m[:4], device="cpu")
 
 
 @pytest.mark.parametrize("shape,dims", [((64, 48, 3), (8, 8)), ((37, 50, 2), (8, 16)),

@@ -14,8 +14,9 @@ Tolerances: the int8 kernels are bit-equal to their plain versions (integer
 group sums are exact, the weights are powers of two); a contraction on
 the card is bit-equal to the same one on the CPU (every step is exact or
 a single IEEE rounding in the same order); chains hold 1e-5 against
-float64.  The block filter and motion's float32 paths sum in another
-order than their plain versions; their tolerances are stated per test.
+float64.  The block filter (split TF32 on the tensor cores) and motion's
+float32 paths agree with their plain versions to float32-level error,
+not bit for bit; their tolerances are stated per test.
 """
 
 import numpy as np
@@ -186,15 +187,24 @@ def _uf(dims):
 
 # chip_smoke.py's three shapes, scaled down in NB: the 1080p chroma slab
 # (bandpass), the half-thresholded 8^3 luma shape, the ragged quant shape;
-# then a V off every tile multiple and a V of 1
+# then a V off every tile multiple and a V of 1.  The blocks each case's
+# band left out on an H100 80GB HBM3 at 700 W (the test prints them, run
+# with -s): 0 of 804,
+# 272 of 3240, 3 of 37, 11 of 70, 0 of 5; the limits are a quarter above
+# those readings plus 2 blocks.  A bandpass case has no boundary.
+_BF_MAX_EXCLUDED = {804: 2, 3240: 342, 37: 6, 70: 16, 5: 2}
+
+
 @pytest.mark.parametrize("nb,dims,mode", [
     (804, (16, 8, 8), "bandpass"), (3240, (8, 8, 8), "threshold"),
     (37, (8, 5, 5), "quant"), (70, (3, 7, 11), "quant"), (5, (1, 1, 1), "bandpass"),
 ])
 def test_block_filter_kernel_matches_plain(cuda, nb, dims, mode):
     """<= 1e-2 pels (the JAX package's bound, tests/test_pallas.py:43):
-    both run float32 FMAs, in another order.  Blocks with a coefficient
-    within 1e-5 relative of a threshold or quant boundary are left out."""
+    the kernel's split-TF32 products against the plain version's float32
+    ones.  Blocks with a coefficient within the estimated kernel-vs-plain
+    error (``boundary_band``: band_c(V) * 2^-21 * |x| @ |K2m^T|) of a threshold or
+    quant boundary are left out, no more than ``_BF_MAX_EXCLUDED``."""
     g = torch.Generator(device=cuda).manual_seed(nb)
     v = int(np.prod(dims))
     uf = _uf(dims)
@@ -211,21 +221,43 @@ def test_block_filter_kernel_matches_plain(cuda, nb, dims, mode):
         tmin, tmax = (float(torch.quantile(a.flatten(), q)) for q in (0.4, 0.97))
     if mode == "quant":
         quant = float(torch.quantile(a.flatten(), 0.5)) / 4.0
+    band = tbf.boundary_band(x, k2m_t)
     near = torch.zeros_like(a, dtype=torch.bool)
     if tmax:
-        near |= ((a - tmin).abs() <= 1e-5 * tmin) | ((a - tmax).abs() <= 1e-5 * tmax)
+        near |= ((a - tmin).abs() <= band) | ((a - tmax).abs() <= band)
     if quant:
         y = tbf._middle(f, 0.0, tmin, tmax).abs() * (1.0 / quant)
         half = torch.floor(y) + 0.5
-        near |= (y - half).abs() <= 1e-5 * half
+        near |= (y - half).abs() <= band / quant
     keep = ~near.any(dim=1)
     before = tbf.LAUNCHES["block_filter"]
     out = tbf._block_filter(x, k2m_t, k3s_t, quant, tmin, tmax)
     assert tbf.LAUNCHES["block_filter"] == before + 1
     ref = tbf._block_filter_plain(x, k2m_t, k3s_t, quant, tmin, tmax)
     torch.cuda.synchronize()
-    assert int(keep.sum()) >= nb - max(2, nb // 50)
+    excluded = nb - int(keep.sum())
+    print(f"block filter nb={nb} dims={dims} {mode}: {excluded} blocks excluded")
+    assert excluded <= _BF_MAX_EXCLUDED[nb]
     assert float((out - ref).abs()[keep].max()) <= 1e-2
+
+
+def test_block_filter_split_operands_cached_with_the_matrices(cuda):
+    """On the card the folded operands carry the kernel's K-major hi/lo
+    layouts of both matrices, made once: a second call returns the same
+    tensors, and the kernel given them equals the kernel splitting the
+    matrices itself."""
+    dims = (8, 5, 5)
+    filt = np.random.default_rng(5).random(dims) + 0.5
+    k2m_t, k3s_t, split = tbf._folded_operands(dims, filt, None, cuda)
+    assert split is not None and len(split) == 4
+    for got, want in zip(split, (*tbf._kmajor_split(k2m_t), *tbf._kmajor_split(k3s_t))):
+        assert got.is_cuda and torch.equal(got, want)
+    again = tbf._folded_operands(dims, filt.copy(), None, cuda)
+    assert all(a is b for a, b in zip(again[2], split))
+    x = torch.rand((70, 200), generator=torch.Generator(device=cuda).manual_seed(1),
+                   device=cuda) * 255.0
+    y = tbf._block_filter_cuda(x, k2m_t, k3s_t, 0.0, 0.0, 0.0, split)
+    assert torch.equal(y, tbf._block_filter_cuda(x, k2m_t, k3s_t, 0.0, 0.0, 0.0))
 
 
 def test_block_filter_wrapper_rejects_what_the_kernel_cannot_take(cuda):
@@ -323,15 +355,19 @@ def _split_operands(gen, instance, m, k, r, device):
     return a, x
 
 
-@pytest.mark.parametrize("m,k,r", [(64, 256, 256), (77, 300, 45), (200, 1000, 300), (3, 5, 1)])
+@pytest.mark.parametrize("m,k,r", [(64, 256, 256), (77, 300, 45), (200, 1000, 300), (3, 5, 1),
+                                   (5, 1, 7)])
 @pytest.mark.parametrize("instance,tile", [
     ((1, 1, "fixed64"), 0), ((1, 1, "exp"), 0), ((3, 2, "exp"), 0),
-    ((3, 3, "exp"), 0), ((3, 3, "exp"), 1), ((3, 3, "exp"), 2),
+    ((3, 3, "exp"), 0), ((3, 3, "exp"), 1), ((3, 2, "exp"), 1),
+    ((1, 1, "fixed64"), 1), ((1, 1, "exp"), 1),
 ])
 def test_i8split_kernel_bit_equal_to_plain(cuda, instance, tile, m, k, r):
     """Every compiled instance and tile at the probes' shape, a ragged
-    shape (M, K and R off every tile multiple), a larger one and a tiny
-    one: bit-equal to the plain version, the zero column exactly 0."""
+    shape (M, K and R off every tile multiple; R off 4 takes the wrapper's
+    padded copy of x), a larger one, a tiny one and K = 1: bit-equal to the
+    plain version, the zero column exactly 0.  A wrong digit order inside
+    the swizzled words gives wrong sums here without faulting."""
     xdigits, groups, scale = instance
     g = torch.Generator(device=cuda).manual_seed(m * 31 + k + tile)
     a, x = _split_operands(g, instance, m, k, r, cuda)
@@ -345,6 +381,43 @@ def test_i8split_kernel_bit_equal_to_plain(cuda, instance, tile, m, k, r):
     assert not y[:, 0].any()
 
 
+@pytest.mark.parametrize("tile", [0, 1])
+@pytest.mark.parametrize("instance", list(tsp.INSTANCES))
+def test_i8split_kernel_exact_at_the_int32_bound(cuda, instance, tile):
+    """K = _kmax with the heaviest digits the split can make: x = 127/64
+    (digit 127) on the fixed scale, x = 1 (digit 32 after the column scale
+    2^-1) for one digit, and x = 0.99212646484375 for three, which splits
+    at 2^-1 into the digits (63, 64, -64); A's digits are +-64 with signs
+    that make row 0's heaviest group add up to near 2^31.  A saturating or
+    wrapping accumulator, or a float combine of partial sums, would differ
+    from the plain version here.  R = 3 takes the padded copy of x."""
+    xdigits, groups, scale = instance
+    k = tsp._kmax(groups, scale)
+    sign = torch.where(torch.arange(k) % 3 == 0, -1.0, 1.0)
+    if scale == "fixed64":
+        xv, adig = 127 / 64, [64]
+    elif xdigits == 1:
+        xv, adig = 1.0, [64]
+    else:
+        xv, adig = 0.99212646484375, ([64, 64] if groups == 2 else [-64, 64, 64])
+    x = torch.stack([sign * xv, torch.full((k,), xv), -sign * xv], 1)
+    a = torch.zeros((groups, 2, tmm.ceil_to(k, 128)), dtype=torch.int8)
+    for i, d in enumerate(adig):
+        a[i, 0, :k] = (sign * d).to(torch.int8)
+        a[i, 1, :k:2], a[i, 1, 1:k:2] = 64, -64
+    digits, _ = tsp.split_columns(x, xdigits, scale)
+    heavy = sum(adig[i] * int(digits[g - i][1, 0]) for g in [groups - 1]
+                for i in range(groups) if g - i < xdigits)
+    assert abs(heavy) * k <= 2**31 - 1
+    if scale == "fixed64" or xdigits == 3:
+        assert abs(heavy) * k >= 0.99 * 2**31
+    ref = tsp._i8_split_plain(a, x, xdigits, groups, scale)
+    y = tsp.i8_split_contract(a.to(cuda), x.to(cuda), xdigits=xdigits, groups=groups,
+                              scale=scale, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(y.cpu(), ref)
+
+
 def test_i8split_probes_and_calib_r3f_on_card_equal_cpu(cuda):
     """The calibration counterparts on the card against the CPU."""
     from dspfun_tpu_torch.benchmarks import calib_r3e, calib_r3f
@@ -352,7 +425,7 @@ def test_i8split_probes_and_calib_r3f_on_card_equal_cpu(cuda):
     card, cpu = calib_r3e.run_probes(cuda), calib_r3e.run_probes("cpu")
     for name in calib_r3e.PROBES:
         assert torch.equal(card[name].cpu(), cpu[name])
-    a, _, x, _ = calib_r3f.inputs(1000, 200, 300)
+    a, _, x, _ = calib_r3f.inputs(1000, 200, 300, device="cpu")
     y = calib_r3f.fused(a.to(cuda), x.to(cuda))
     assert torch.equal(y.cpu(), calib_r3f.fused(a, x))
     assert torch.equal(y, calib_r3f.split_then_i8mm(a.to(cuda), x.to(cuda)))
@@ -373,7 +446,7 @@ def test_i8split_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tsp.i8_split_contract(a, torch.zeros((4, 128), device=cuda).T, **kw)
     with pytest.raises(ValueError, match="compiled for tiles"):
-        tsp.i8_split_contract(a[:1].contiguous(), x, xdigits=1, groups=1, scale="exp", tile=1)
+        tsp.i8_split_contract(a[:1].contiguous(), x, xdigits=1, groups=1, scale="exp", tile=2)
     k = tsp._kmax(3, "exp") + 1
     with pytest.raises(ValueError, match="exact-int32"):
         tsp.i8_split_contract(torch.zeros((3, 1, k), dtype=torch.int8, device=cuda),

@@ -60,10 +60,10 @@ def test_fused_filter_2d_matches_jax(image, spec):
     x, mask, ref = image
     pj, pt = JP.parse(spec), TP.parse(spec)
     jplans = jfused.filter_plans((H, W), pj, mask=mask)
-    tplans = tfused.filter_plans((H, W), pt, mask=mask)
+    tplans = tfused.filter_plans((H, W), pt, mask=mask, device="cpu")
     # plans built by the port equal the JAX package's, field by field
-    for a, b in zip(tplans.fwd + tplans.inv,
-                    filter_plans_from_jax(jplans).fwd + filter_plans_from_jax(jplans).inv):
+    carried = filter_plans_from_jax(jplans, device="cpu")
+    for a, b in zip(tplans.fwd + tplans.inv, carried.fwd + carried.inv):
         for fa, fb in zip(a, b):
             assert (fa is None and fb is None) or torch.equal(fa, fb)
     assert [None if s is None else s.tolist() for s in tplans.support] == \
@@ -72,7 +72,7 @@ def test_fused_filter_2d_matches_jax(image, spec):
                     np.float64)
     before = sum(tmm.LAUNCHES.values())
     yt = tfused.fused_filter_2d(torch.from_numpy(x), torch.from_numpy(mask),
-                                filter_plans_from_jax(jplans), pt)
+                                filter_plans_from_jax(jplans, device="cpu"), pt)
     assert sum(tmm.LAUNCHES.values()) == before  # CPU tensors: plain version
     assert yt.shape == x.shape and yt.dtype == torch.float32
     yt = yt.numpy().astype(np.float64)
@@ -89,7 +89,7 @@ def test_fused_filter_2d_mask_rank_and_rect():
     mask = np.zeros((h, w), np.float32)
     mask[: h // 4, : w // 2] = 1.0
     p = TP(intermediate="i8")
-    plans = tfused.filter_plans((h, w), p, mask=mask)
+    plans = tfused.filter_plans((h, w), p, mask=mask, device="cpu")
     y = tfused.fused_filter_2d(torch.from_numpy(x), torch.from_numpy(mask), plans, p)
     assert np.max(np.abs(y.numpy() - _oracle(x, mask[:, :, None]))) <= 1e-5
     with pytest.raises(ValueError, match="mask rank"):
@@ -104,11 +104,11 @@ def test_fused_filter_3d_matches_jax():
     pj, pt = JP(coeff="float32", intermediate="hilo"), TP(coeff="float32", intermediate="hilo")
     yj = np.asarray(jfused.fused_filter_3d(jnp.asarray(cube), jnp.asarray(mask),
                                            jfused.filter_plans((t, h, w), pj), pj))
-    plans = tfused.filter_plans((t, h, w), pt)
+    plans = tfused.filter_plans((t, h, w), pt, device="cpu")
     yt = tfused.fused_filter_3d(torch.from_numpy(cube), torch.from_numpy(mask), plans, pt)
     assert np.max(np.abs(yt.numpy() - yj)) <= 1e-5
     # pruned plans compute the same chain
-    pruned = tfused.filter_plans((t, h, w), pt, mask=mask)
+    pruned = tfused.filter_plans((t, h, w), pt, mask=mask, device="cpu")
     assert all(s is not None for s in pruned.support)
     yp = tfused.fused_filter_3d(torch.from_numpy(cube), torch.from_numpy(mask), pruned, pt)
     assert np.max(np.abs(yp.numpy() - yj)) <= 1e-5

@@ -9,6 +9,8 @@ of the range.  The CUDA kernel is held to its plain version on the card
 by tests/test_torch_cuda.py.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -219,6 +221,25 @@ def test_build_reports_missing_nvcc(monkeypatch, tmp_path):
         _build.load_library.cache_clear()
     assert not list(tmp_path.glob("*.so"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_library_path_follows_sources_and_headers(monkeypatch, tmp_path):
+    """The library's name hashes every csrc/*.cu and csrc/*.cuh, so an
+    edited shared header rebuilds instead of loading a stale library
+    (checked on a copy of csrc; no nvcc needed)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    assert sorted(p.name for p in csrc.glob("*.cuh"))
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    first = _build.library_path()
+    assert _build.library_path() == first
+    header = next(csrc.glob("*.cuh"))
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = _build.library_path()
+    assert second != first
+    src = next(csrc.glob("*.cu"))
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path() not in (first, second)
 
 
 # (layout, M, K, B, R): chip_smoke.py's main-path and ragged shapes

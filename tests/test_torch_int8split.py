@@ -107,7 +107,7 @@ def _r3f_inputs():
     the port's seeded x, at the small shape."""
     mat = jbasis.dct2_matrix(SK)[:SM]
     dig, rs = jmm.split_matrix_i8(mat)
-    _, _, x, _ = calib_r3f.inputs(SK, SM, SR)
+    _, _, x, _ = calib_r3f.inputs(SK, SM, SR, device="cpu")
     return mat, dig, rs, x.numpy()
 
 
@@ -154,7 +154,7 @@ def test_calib_r3f_bit_equal_to_jax(jax_r3f, tm, tr):
 def test_calib_r3f_inputs_match_the_jax_split():
     """The port's pinned split_matrix_i8 gives the JAX package's digits."""
     mat, dig, rs, x = _r3f_inputs()
-    a, trs, tx, tmat = calib_r3f.inputs(SK, SM, SR)
+    a, trs, tx, tmat = calib_r3f.inputs(SK, SM, SR, device="cpu")
     np.testing.assert_array_equal(a.numpy(), dig)
     np.testing.assert_array_equal(trs.numpy(), rs)
     np.testing.assert_array_equal(tmat.numpy(), mat)

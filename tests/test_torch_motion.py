@@ -68,7 +68,7 @@ def _run(gj, gt, params, blocks, plans=None, tplans=None):
     oj, cj = jmp.filter_blocks(jnp.asarray(blocks), plans, bc, jnp.asarray(0),
                                geom=gj, params=pj, plane_index=0, nplanes=1)
     ot, ct = tmp.filter_blocks(torch.from_numpy(blocks),
-                               tplans or motion_plans_from_jax(plans), None, 0,
+                               tplans or motion_plans_from_jax(plans, device="cpu"), None, 0,
                                gt, pt, 0, 1)
     assert ct.dtype == torch.int32 and ct.shape == (nb,)
     return (np.asarray(oj), np.asarray(cj)), (ot.numpy(), ct.numpy())
@@ -142,7 +142,8 @@ def test_make_plans_match_jax():
 
     (gj,), (gt,) = _geoms(32, 32, 8, block=JD(16, 8, 8), scaled=JD(4, 12, 2))
     for pol in ("hilo", "f32"):
-        pj, pt = jmp.make_plans(gj, JP(intermediate=pol)), tmp.make_plans(gt, TP(intermediate=pol))
+        pj = jmp.make_plans(gj, JP(intermediate=pol))
+        pt = tmp.make_plans(gt, TP(intermediate=pol), device="cpu")
         for aj, at in zip(pj[0] + pj[1], pt[0] + pt[1]):
             np.testing.assert_array_equal(at.hi.numpy(), np.asarray(aj.hi))
             if aj.lo is not None:
@@ -244,7 +245,7 @@ def test_i8_kron_matches_jax(params):
     plans carry the same digits."""
     (gj,), (gt,) = _geoms(48, 32, 8, block=JD(16, 16, 8), bp_end=JD(8, 8, 4))
     kj = jmp.maybe_kron_plans(gj, jmp.MotionParams(**params), allow_cpu=True)
-    kt = tmp.maybe_kron_plans(gt, tmp.MotionParams(**params), allow_cpu=True)
+    kt = tmp.maybe_kron_plans(gt, tmp.MotionParams(**params), allow_cpu=True, device="cpu")
     for pj, pt in zip(kj, kt):
         np.testing.assert_array_equal(pt.digits.numpy(), np.asarray(pj.digits))
         np.testing.assert_array_equal(pt.scale.numpy(), np.asarray(pj.scale))
@@ -258,14 +259,14 @@ def test_i8_kron_matches_jax(params):
 def test_maybe_kron_plans_gates():
     (g,) = tmp.plan_geometry(32, 32, 8, 1, block=TD(16, 16, 8), bp_end=TD(8, 8, 4))
     ok = tmp.MotionParams(boost=1.25, damp=0.0)
-    assert tmp.maybe_kron_plans(g, ok, allow_cpu=True) is not None
-    assert tmp.maybe_kron_plans(g, ok) is None          # CPU without allow_cpu
+    assert tmp.maybe_kron_plans(g, ok, allow_cpu=True, device="cpu") is not None
+    assert tmp.maybe_kron_plans(g, ok, device="cpu") is None          # CPU without allow_cpu
     assert tmp.maybe_kron_plans(g, tmp.MotionParams(boost=1.25, damp=0.5),
-                                allow_cpu=True) is None  # dense support
+                                allow_cpu=True, device="cpu") is None  # dense support
     assert tmp.maybe_kron_plans(g, tmp.MotionParams(damp=0.0, quant=1.0),
-                                allow_cpu=True) is None  # not fast-eligible
+                                allow_cpu=True, device="cpu") is None  # not fast-eligible
     (g2,) = tmp.plan_geometry(16, 16, 4, 1, block=TD(8, 8, 4), bp_end=TD(4, 4, 2))
-    assert tmp.maybe_kron_plans(g2, ok, allow_cpu=True) is None  # the kron kernel's V
+    assert tmp.maybe_kron_plans(g2, ok, allow_cpu=True, device="cpu") is None  # the kron kernel's V
 
 
 def test_24_cube_blocks_diverge_on_path_not_output():
@@ -275,10 +276,10 @@ def test_24_cube_blocks_diverge_on_path_not_output():
     (gj,), (gt,) = _geoms(72, 48, 24, block=JD(24, 24, 24), bp_end=JD(6, 6, 6))
     params = dict(boost=1.25, damp=0.0)
     assert jmp.maybe_kron_plans(gj, jmp.MotionParams(**params), allow_cpu=True) is None
-    kt = tmp.maybe_kron_plans(gt, tmp.MotionParams(**params), allow_cpu=True)
+    kt = tmp.maybe_kron_plans(gt, tmp.MotionParams(**params), allow_cpu=True, device="cpu")
     assert kt is not None
     jplans = jmp.make_plans(gj)
-    tplans = (*motion_plans_from_jax(jplans), kt)
+    tplans = (*motion_plans_from_jax(jplans, device="cpu"), kt)
     (oj, _), (ot, _) = _run(gj, gt, params, _blocks(gj, 12), plans=jplans, tplans=tplans)
     assert jmp.LAST_FAST_PATH == "xla-sep" and tmp.LAST_FAST_PATH == "i8-kron"
     assert np.isfinite(ot).all()
@@ -290,7 +291,7 @@ def test_eval_is_not_ported():
     expr = parse_expr("c/2", ("c", "x", "y", "z"))
     blocks = torch.zeros((1, 1, 8, 8))
     with pytest.raises(NotImplementedError, match="item 12"):
-        tmp.filter_blocks(blocks, tmp.make_plans(g), None, 0, g,
+        tmp.filter_blocks(blocks, tmp.make_plans(g, device="cpu"), None, 0, g,
                           tmp.MotionParams(expr=expr), 0, 1)
 
 
@@ -300,4 +301,4 @@ def test_motion_plans_from_jax_keeps_the_structure():
     plans = motion_plans_from_jax((*jmp.make_plans(gj), kron), device="cpu")
     assert [len(p) for p in plans] == [3, 3, 2]
     assert plans[2][0].digits.dtype == torch.int8
-    assert motion_plans_from_jax((*jmp.make_plans(gj), None))[2] is None
+    assert motion_plans_from_jax((*jmp.make_plans(gj), None), device="cpu")[2] is None

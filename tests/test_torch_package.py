@@ -1,13 +1,16 @@
-"""The port stands alone: it imports no JAX and no dspfun_tpu, and its
-chip smoke run refuses to run without a CUDA card."""
+"""The port stands alone: it imports no JAX and no dspfun_tpu, its entry
+points run on the card unless told otherwise, and its chip smoke run
+refuses to run without a CUDA card."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from dspfun_tpu_torch.convert import filter_plans_from_jax
@@ -126,3 +129,48 @@ def test_filter_plans_move_between_devices():
         (tuple(tuple(None if f is None else np.zeros((2, 2)) for f in p)
                for p in plans.fwd), (), (np.arange(3), None)), device="cpu")
     assert host.support[0].tolist() == [0, 1, 2] and host.support[1] is None
+
+
+def test_entry_points_default_to_the_card():
+    """Every public function of the port that takes ``device`` defaults to
+    ``"cuda"`` (walked with inspect.signature, jax and the JAX package
+    unimportable), so a caller who names no device never gets the plain
+    versions on the CPU silently."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None\n"
+        "import importlib, inspect, json, pkgutil, dspfun_tpu_torch\n"
+        "found = {}\n"
+        "for m in pkgutil.walk_packages(dspfun_tpu_torch.__path__, 'dspfun_tpu_torch.'):\n"
+        "    mod = importlib.import_module(m.name)\n"
+        "    for name, fn in inspect.getmembers(mod, inspect.isfunction):\n"
+        "        if name.startswith('_') or fn.__module__ != m.name:\n"
+        "            continue\n"
+        "        par = inspect.signature(fn).parameters.get('device')\n"
+        "        if par is not None:\n"
+        "            found[m.name + '.' + name] = repr(par.default)\n"
+        "print(json.dumps(found))\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    found = json.loads(res.stdout)
+    assert {f"dspfun_tpu_torch.{f}" for f in (
+        "core.transforms.plan_matrix", "core.transforms.plan_axis",
+        "models.fused.filter_plans", "models.motion_pipeline.maybe_kron_plans",
+        "models.motion_pipeline.make_plans", "ops.blockdct.folded_operator",
+        "ops.blockdct.bdiag_axis_plan", "ops.block_filter.folded_filter_matrices",
+        "benchmarks.calib_r3e.run_probes", "benchmarks.calib_r3f.inputs",
+        "benchmarks.calib_r3f.run", "convert.axis_plan_from_jax",
+        "convert.filter_plans_from_jax", "convert.motion_plans_from_jax")} <= set(found)
+    assert {name: d for name, d in found.items() if d != "'cuda'"} == {}
+
+
+def test_filter_plans_without_a_device_need_the_card():
+    """``filter_plans`` with no device builds its plans on the card; without
+    one it raises PyTorch's own error instead of returning CPU plans."""
+    mask = fused.lowpass_mask((64, 48), cutoff=0.5)
+    if torch.cuda.is_available():
+        plans = fused.filter_plans((64, 48), Precision(intermediate="i8"), mask=mask)
+        assert all(p.hi.device.type == "cuda" for p in plans.fwd + plans.inv)
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        fused.filter_plans((64, 48), Precision(intermediate="i8"), mask=mask)

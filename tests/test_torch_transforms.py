@@ -129,23 +129,23 @@ def test_exact_contract_bit_equal(axis, shape, tol):
 @pytest.mark.parametrize("kind,n", [("dct2", 64), ("dct3", 300)])
 def test_plans_bit_equal(spec, kind, n):
     pj = jtr.plan_axis(n, kind, jprec.Precision.parse(spec))
-    pt = ttr.plan_axis(n, kind, tprec.Precision.parse(spec))
+    pt = ttr.plan_axis(n, kind, tprec.Precision.parse(spec), device="cpu")
     _plan_equal(pt, pj)
     # and the converter carries the JAX plan across unchanged
-    _plan_equal(axis_plan_from_jax(pj), pj)
+    _plan_equal(axis_plan_from_jax(pj, device="cpu"), pj)
 
 
 def test_plan_cache_keyed_on_precision_and_device():
-    a = ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="i8"))
-    b = ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="i8", tol=1e-5))
-    c = ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="hilo"))
+    a = ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="i8"), device="cpu")
+    b = ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="i8", tol=1e-5), device="cpu")
+    c = ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="hilo"), device="cpu")
     assert a.digits.shape[0] == 4 and b.digits.shape[0] == 3
     assert c.digits is None and c.lo is not None
-    assert ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="i8")) is a
+    assert ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="i8"), device="cpu") is a
     assert ttr.plan_axis(256, "dct2", tprec.Precision(intermediate="i8"),
                          device="meta").hi.device.type == "meta"
     with pytest.raises(ValueError):
-        ttr.plan_axis(8, "dst2")
+        ttr.plan_axis(8, "dst2", device="cpu")
 
 
 def test_i8_plan_falls_back_to_exact_past_int32_bound():
@@ -156,13 +156,13 @@ def test_i8_plan_falls_back_to_exact_past_int32_bound():
     rng = np.random.default_rng(5)
     m = rng.random((3, k)) - 0.5
     p = tprec.Precision(intermediate="i8", tol=1e-6)
-    plan = ttr.plan_matrix(m, p)
+    plan = ttr.plan_matrix(m, p, device="cpu")
     assert plan.digits.dtype == torch.bfloat16
     x = rng.random((k, 2)).astype(np.float32)
     y = ttr.apply_plan(torch.from_numpy(x), plan, 0, p).numpy()
     ref = m @ x.astype(np.float64)
     assert np.max(np.abs(y - ref)) / np.max(np.abs(ref)) < 1e-6
-    deep = ttr.plan_matrix(rng.random((64, 7680)), p)
+    deep = ttr.plan_matrix(rng.random((64, 7680)), p, device="cpu")
     assert deep.digits.dtype == torch.int8 and deep.digits.shape[0] == 4
 
 
@@ -178,7 +178,7 @@ def test_apply_plan_matches_jax(spec, split):
     plan = jtr.plan_axis(300, kind, pj)
     yj = np.asarray(jtr.apply_plan(jnp.asarray(x), plan, 0, pj, split=split),
                     np.float64)
-    yt = ttr.apply_plan(torch.from_numpy(x), ttr.plan_axis(300, kind, pt), 0, pt,
+    yt = ttr.apply_plan(torch.from_numpy(x), ttr.plan_axis(300, kind, pt, device="cpu"), 0, pt,
                         split=split)
     assert str(yt.dtype).removeprefix("torch.") == str(pj.coeff_dtype)
     yt = yt.numpy().astype(np.float64)
@@ -203,8 +203,8 @@ def test_apply_plan_small_k_bypass_and_helpers():
     ph = tprec.Precision()
     back = ttr.dct3(ttr.dct2(torch.from_numpy(x), 0, ph), 0, ph) / 32.0
     assert np.max(np.abs(back.numpy() - x)) <= 1e-6
-    nd = ttr.apply_plan_nd(torch.from_numpy(x), [ttr.plan_axis(16, "dct2", ph),
-                                                 ttr.plan_axis(20, "dct2", ph)],
+    nd = ttr.apply_plan_nd(torch.from_numpy(x), [ttr.plan_axis(16, "dct2", ph, device="cpu"),
+                                                 ttr.plan_axis(20, "dct2", ph, device="cpu")],
                            (0, 1), ph).numpy()
     ref = tbasis.dct2_matrix(16) @ x.astype(np.float64) @ tbasis.dct2_matrix(20).T
     assert np.max(np.abs(nd - ref)) <= 1e-6 * np.max(np.abs(ref))
