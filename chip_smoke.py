@@ -17,8 +17,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    each one's SASS (``IGMMA`` for the int8 kernels, ``HGMMA`` for the
    block filter's TF32 products; none is a failure);
    each int8 digit kernel (left/right layout, 3/4 digits) at the 4K
-   chain's four contraction shapes and one ragged shape, and the right
-   3-digit kernel at motion's two i8-kron shapes, held bit-equal
+   chain's four contraction shapes and one ragged shape, the right
+   3-digit kernel at motion's two i8-kron shapes, and (at the start of
+   phase 8) the left and right 3-digit kernels at the spec CLI's two
+   unpruned shapes, held bit-equal
    (``torch.equal``) to its plain PyTorch version on the same inputs,
    with both times (CUDA events, median of 10), its bound (operations at
    1,979 int8 TOP/s or bytes at 3.35 TB/s, the larger) and share of it,
@@ -72,7 +74,34 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    <= 1e-5 of the largest output.  Prints each route's time and
    eff-TOPS, the probes' kernel and plain times, and each instance's
    bound; the fused kernel's library yardstick is ``torch._int_mm`` on
-   the digits split beforehand.
+   the digits split beforehand;
+8. main path 4, ``spec`` then ``ispec`` through files: a seeded 3840x2160
+   RGB image (noise on a smooth term) written by the port's
+   ``write_image`` as a 16-bit PNG, then ``tools.spec.main`` and
+   ``tools.ispec.main`` in process for ``-t flat`` and ``-t copy`` at the
+   tools' default policy (no kernel may launch) and ``-t flat`` at
+   ``i8@1e-5`` (launches counted over each call: one left and one right
+   3-digit kernel per tool; both files byte-equal to the same run with
+   the plain version forced).  Each spectrum file is held to a scipy
+   float64 oracle of the reference's scalar chain quantised to 16 bits
+   (within one level; prints the share off by one) and its ``DC``
+   property to the channel means (1e-6).  ``-t flat`` must return the
+   input within the noise its 16-bit spectrum leaves: every coefficient
+   is stored to half a level of ``(f / 2 + 0.5) * 254 / 255``, the
+   inverse sums w*h of those errors with unit weights, so the image
+   comes back with sqrt(w*h) * 2 * 255/254 / sqrt(12) = 1669.3 levels rms
+   of noise at this size (held to 5 % of that, the largest to 7 sigma =
+   11685 levels).  ``-t copy`` stores no sign, a PNG holds no negative
+   coefficient, and the writer's clip drops them (in the JAX package
+   too): its output is held to a float64 inverse of the spectrum as the
+   file holds it, within one level.  Prints each tool's seconds per stage
+   (read, host to device, compute on the host's clock and between CUDA
+   events, device to host, quantise + PNG encode + write), the peak
+   device memory of the default-policy run, a float64 contraction rounded
+   to float32 beside the ``exact`` contraction at spec's two shapes (time
+   and distance in float32 ulps), and, for the PNG codec, a round trip of
+   each of the five filters at both depths at a small size and the
+   encode and decode seconds of a 3840x2160 8-bit RGB image per filter.
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -128,6 +157,9 @@ MOTION_ARGS = ["-Q", "-b", "16x16x16", "-p", "0x0x0-8x8x4", "-B", "1.25"]
 MOTION_NB = (MH // 16) * (MW // 16)   # 8040 blocks per slab and plane
 # the luma i8-kron contractions: [S, V] then [V, S], S = 8*8*4 pass-band rows
 MOTION_I8_SHAPES = [(256, 4096, MOTION_NB, "motion fwd"), (4096, 256, MOTION_NB, "motion inv")]
+# the spec and ispec CLIs at i8@1e-5 (no mask, so nothing is pruned): the
+# H contraction channel-first in the left layout, then W in the right one
+SPEC_I8_SHAPES = [("left", H, H, C, W, "spec H"), ("right", W, W, 1, C * H, "spec W")]
 # (layout, M, K, B, R): the 4K i8 chain's contractions with the bench mask
 # (cutoff 0.25 keeps 540 of 2160 rows and 960 of 3840 columns), then one
 # ragged shape per layout with M, K and R off every tile multiple
@@ -139,6 +171,12 @@ KERNEL_SHAPES = [
     ("left", 77, 300, 2, 45, "ragged"),
     ("right", 77, 300, 2, 45, "ragged"),
 ]
+
+
+# spec -t flat through a 16-bit file: levels rms of noise per sqrt(pixel)
+# in the image that ispec returns (see phase 8 in the docstring)
+FLAT_FILE_NOISE = 2.0 * 255.0 / 254.0 / np.sqrt(12.0)
+SPEC_CLI_EXPECT = {"left3": 1, "right3": 1}     # launches per tool at i8@1e-5
 
 
 def _card_line() -> str:
@@ -654,6 +692,228 @@ def _calib_phase(torch, dev, mma) -> dict:
     return {"launches": launches, "i8mm_launches": i8mm_launches, "stats": stats}
 
 
+def _png_codec_checks(png, hw) -> None:
+    """The PNG codec alone: every filter at both depths reads back equal
+    at a small size; then, at ``hw`` in 8-bit RGB, the seconds to encode
+    and to decode per filter (None = the filter chosen per row)."""
+    rng = np.random.default_rng(2)
+    y, x = np.mgrid[0:48, 0:64]
+    for dtype, top in ((np.uint8, 255), (np.uint16, 65535)):
+        a = np.stack([(0.5 + 0.4 * np.sin(x / (7.0 + i) + y / 11.0)) * top * 0.9
+                      for i in range(3)], -1) + rng.integers(0, top // 40, (48, 64, 3))
+        a = a.astype(dtype)
+        for ftype in (None, 0, 1, 2, 3, 4):
+            back, props, _ = png.decode_png(png.encode_png(a, {"k": "v"}, ftype))
+            if not (np.array_equal(back, a) and back.dtype == dtype and props == {"k": "v"}):
+                raise RuntimeError(f"PNG round trip failed: {dtype.__name__} filter {ftype}")
+    print("png codec: filters None, 0-4 at 8 and 16 bits read back equal (64x48 RGB)",
+          flush=True)
+    h, w = hw
+    y, x = np.mgrid[0:h, 0:w]
+    a = np.stack([(0.5 + 0.4 * np.sin(x / (70.0 + i) + y / 110.0)) * 229.0
+                  for i in range(3)], -1) + rng.integers(0, 6, (h, w, 3))
+    a = a.astype(np.uint8)
+    for ftype in (None, 0, 1, 2, 3, 4):
+        t0 = time.perf_counter()
+        data = png.encode_png(a, None, ftype)
+        t1 = time.perf_counter()
+        back = png.decode_png(data)[0]
+        t2 = time.perf_counter()
+        if not np.array_equal(back, a):
+            raise RuntimeError(f"PNG round trip at {w}x{h} failed: filter {ftype}")
+        print(f"png codec {w}x{h} 8-bit RGB filter {ftype}: encode {t1 - t0:.3f} s, "
+              f"decode {t2 - t1:.3f} s (host), {len(data)} bytes", flush=True)
+
+
+def _ulps(torch, a, b):
+    """Distance between two float32 tensors in units in the last place."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _fp64_beside_exact(torch, dev, hw) -> None:
+    """A float64 contraction rounded to float32 beside ``core/exact.py``'s
+    digit contraction, at the two shapes spec's default policy runs."""
+    from dspfun_tpu_torch.core.basis import dct2_matrix
+    from dspfun_tpu_torch.core.precision import Precision
+    from dspfun_tpu_torch.core.transforms import apply_plan, plan_axis
+
+    exact = Precision(intermediate="exact")
+    h, w = hw
+    x = torch.rand((h, w, C), generator=torch.Generator(device=dev).manual_seed(8),
+                   device=dev)
+    for axis, n in ((0, h), (1, w)):
+        plan = plan_axis(n, "dct2", exact, dev)
+        m64 = torch.tensor(dct2_matrix(n), dtype=torch.float64, device=dev)
+
+        def by_digits():
+            return apply_plan(x, plan, axis, exact)
+
+        def by_fp64():
+            y = torch.tensordot(m64, x.double(), dims=([1], [axis]))
+            return y.movedim(0, axis).float()
+
+        ye, y64 = by_digits(), by_fp64()
+        d = _ulps(torch, ye, y64)
+        rel = float((ye - y64).abs().max() / ye.abs().max())
+        print(f"fp64 beside exact, DCT-II along axis {axis} of [{h}, {w}, {C}] (K={n}): "
+              f"exact {cuda_ms(by_digits):.3f} ms, fp64 rounded to float32 "
+              f"{cuda_ms(by_fp64):.3f} ms; largest distance {int(d.max())} ulp, "
+              f"{int((d > 0).sum())} of {d.numel()} outputs differ, "
+              f"{int((d > 1).sum())} by more than 1 ulp; max abs diff "
+              f"{rel:.3e} of the largest output", flush=True)
+        del ye, y64, d, m64
+    del x
+    torch.cuda.empty_cache()
+
+
+def _spec_cli_phase(torch, dev, plain_versions, int8mm, fft, hw=(H, W)) -> dict:
+    """Main path 4: spec then ispec through 16-bit PNG files; returns the
+    int8 kernels' launches over the i8@1e-5 run."""
+    from dspfun_tpu_torch.core import precision as prec
+    from dspfun_tpu_torch.io import images, png
+    from dspfun_tpu_torch.tools import ispec, spec
+
+    h, w = hw
+    _png_codec_checks(png, hw)
+
+    @contextlib.contextmanager
+    def policy(name):
+        """The tools' own default policy (None) or a named one."""
+        saved = (prec._default, prec._explicit)
+        if name is None:
+            prec._explicit = False
+        else:
+            prec.set_precision(prec.Precision.parse(name))
+        try:
+            yield
+        finally:
+            prec._default, prec._explicit = saved
+
+    def levels(path):
+        arr, props, _ = png.decode_png(open(path, "rb").read())
+        if arr.dtype != np.uint16 or arr.shape != (h, w, C):
+            raise RuntimeError(f"{path}: {arr.dtype} {arr.shape}")
+        return arr.astype(np.int64), props
+
+    def tool(main, mod, args, expect):
+        if expect:      # the counts start at 0 for a run that must launch
+            int8mm.LAUNCHES.clear()
+        before = dict(int8mm.LAUNCHES)
+        t0 = time.perf_counter()
+        rc = main(args)
+        wall = time.perf_counter() - t0
+        got = {n: c - before.get(n, 0) for n, c in int8mm.LAUNCHES.items()
+               if c - before.get(n, 0)}
+        if rc != 0:
+            raise RuntimeError(f"{mod.__name__.rsplit('.', 1)[-1]} {args} exited {rc}")
+        if got != expect:
+            raise RuntimeError(f"{mod.__name__} launched {got}, expected {expect}")
+        return wall, dict(mod.LAST_STAGE_TIMES), got
+
+    def round_trip(tmp, tag, template, expect):
+        s, b = (os.path.join(tmp, f"{n}_{template}_{tag.replace(' ', '_')}.png")
+                for n in ("spec", "back"))
+        runs = [tool(spec.main, spec, ["-t", template, src, s], expect),
+                tool(ispec.main, ispec, ["-t", template, s, b], expect)]
+        for name, (wall, stages, got) in zip(("spec", "ispec"), runs):
+            stages = {k: round(v, 4) for k, v in stages.items()}
+            print(f"{name} -t {template} ({tag}) {w}x{h}: {wall:.3f} s wall; stages (s) "
+                  f"{json.dumps(stages)}; launches {json.dumps(got)}", flush=True)
+        return s, b, [r[2] for r in runs]
+
+    scale = [np.where(np.arange(n) > 0, np.sqrt(2.0), 1.0) for n in (h, w)]
+    grid = scale[0][:, None, None] * scale[1][None, :, None]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as tmp:
+        src = os.path.join(tmp, "in.png")
+        rng = np.random.default_rng(7)
+        y, x = np.mgrid[0:h, 0:w]
+        pix = np.stack([0.5 + 0.2 * np.sin(x / (190.0 + 30 * i) + y / 130.0)
+                        for i in range(C)], -1)
+        pix += 0.2 * (rng.random((h, w, C)) - 0.5)            # within [0.2, 0.8]
+        t0 = time.perf_counter()
+        images.write_image(src, pix, depth=16)
+        print(f"input {w}x{h} RGB 16-bit PNG: written in {time.perf_counter() - t0:.3f} s, "
+              f"{os.path.getsize(src)} bytes", flush=True)
+        del pix, x, y
+        lv_in, _ = levels(src)
+        # what the tools compute on: the float32 of the file's levels
+        x32 = (lv_in / 65535.0).astype(np.float32).astype(np.float64)
+        uniform = fft.dctn(x32, type=2, axes=(0, 1), workers=-1) * grid / (4.0 * w * h)
+        means = x32.mean(axis=(0, 1))
+        del x32
+
+        def check_spectrum(path, template):
+            """The file against the float64 chain of the reference
+            (spec.c:63-139; flat and copy: linear scale, range one)."""
+            lv, props = levels(path)
+            f = (uniform / 2 + 0.5) * 254 / 255 if template == "flat" else uniform
+            diff = np.abs(lv - np.rint(np.clip(f, 0, 1) * 65535).astype(np.int64))
+            dc = images.decode_dc_property(props["DC"], C)
+            dc_err = float(np.max(np.abs(dc - means)))
+            print(f"spec -t {template} file vs float64 oracle: largest difference "
+                  f"{int(diff.max())} level, {float((diff > 0).mean()):.6f} of the pels off "
+                  f"by one; DC vs channel means {dc_err:.3e}", flush=True)
+            if diff.max() > 1 or not dc_err <= 1e-6:
+                raise RuntimeError(f"spec -t {template}: the file disagrees with the oracle")
+            return lv
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with policy(None):
+            s_flat, b_flat, _ = round_trip(tmp, "default", "flat", {})
+            peak = torch.cuda.max_memory_allocated()
+            s_copy, b_copy, _ = round_trip(tmp, "default", "copy", {})
+        print(f"peak device memory over spec + ispec -t flat at the default policy "
+              f"(hilo -> exact): {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+              f"above the {base / 2**30:.3f} GiB held before)", flush=True)
+
+        check_spectrum(s_flat, "flat")
+        back, _ = levels(b_flat)
+        d = back - lv_in
+        sigma = FLAT_FILE_NOISE * np.sqrt(h * w)
+        rms, worst = float(np.sqrt(np.mean(d * d.astype(np.float64)))), int(np.abs(d).max())
+        print(f"spec -> ispec -t flat through 16-bit files: back vs input {rms:.1f} levels "
+              f"rms (the spectrum's quantisation leaves {sigma:.1f}), largest {worst} "
+              f"(limit {7 * sigma:.0f})", flush=True)
+        if abs(rms / sigma - 1) > 0.05 or worst > 7 * sigma:
+            raise RuntimeError("spec -> ispec -t flat: outside the file format's noise")
+
+        lv = check_spectrum(s_copy, "copy")
+        coeff = lv / 65535.0 / grid * (4.0 * w * h)
+        oracle = fft.dctn(coeff, type=3, axes=(0, 1), workers=-1) / (4.0 * w * h)
+        back, _ = levels(b_copy)
+        diff = np.abs(back - np.rint(np.clip(oracle, 0, 1) * 65535).astype(np.int64))
+        print(f"ispec -t copy file vs a float64 inverse of the spectrum file "
+              f"({float((lv == 0).mean()):.3f} of its coefficients clipped at 0): largest "
+              f"difference {int(diff.max())} level, {float((diff > 0).mean()):.6f} off by one",
+              flush=True)
+        if diff.max() > 1:
+            raise RuntimeError("ispec -t copy: the file disagrees with the oracle")
+        del coeff, oracle, back, diff, lv, d
+
+        with policy("i8@1e-5"):
+            s_i8, b_i8, counts = round_trip(tmp, "i8@1e-5", "flat", SPEC_CLI_EXPECT)
+            with plain_versions():
+                s_pl, b_pl, _ = round_trip(tmp, "i8@1e-5 plain", "flat", {})
+        same = [open(a, "rb").read() == open(b, "rb").read()
+                for a, b in ((s_i8, s_pl), (b_i8, b_pl))]
+        check_spectrum(s_i8, "flat")
+        print(f"spec, ispec -t flat at i8@1e-5: files byte-equal kernel vs plain: {same}",
+              flush=True)
+        if not all(same):
+            raise RuntimeError("spec/ispec at i8@1e-5: kernel and plain files differ")
+    launches = {n: sum(c.get(n, 0) for c in counts) for n in REPLACES}
+    print(f"spec CLI main-path launches: {json.dumps(launches)}", flush=True)
+    _fp64_beside_exact(torch, dev, hw)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -875,18 +1135,35 @@ def main() -> int:
     # ---- phase 7: main path 3, the calibration of the in-kernel split ---
     calib = _calib_phase(torch, dev, mma)
 
+    # ---- phase 8: main path 4, spec -> ispec through files --------------
+    del x, mask, plans, y, x_np, ref, mask_np
+    torch.cuda.empty_cache()
+    # the 3-digit kernels against their plain versions at this path's shapes
+    # (here, not in phase 3, so that the earlier paths run as they did)
+    spec_i8 = {}
+    for layout, m, k, b, r, what in SPEC_I8_SHAPES:
+        spec_i8[f"{layout}3"] = dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+            check_i8mm(3, layout, m, k, b, r, what)))
+    torch.cuda.empty_cache()
+    spec_cli = _spec_cli_phase(torch, dev, plain_versions, int8mm, scipy.fft)
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
-                             + calib["i8mm_launches"][n]),
+                             + calib["i8mm_launches"][n] + spec_cli[n]),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
-                                     "calibration": calib["i8mm_launches"][n]},
+                                     "calibration": calib["i8mm_launches"][n],
+                                     "spec_cli": spec_cli[n]},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
     kernels[list(REPLACES).index("right3")].update(
         {f"motion_{key}": val for key, val in motion_i8.items()})
+    for n, st in spec_i8.items():
+        kernels[list(REPLACES).index(n)].update(
+            {f"spec_cli_{key}": val for key, val in st.items()})
     kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
                     "replaces": BF_REPLACES,
                     "launches": motion_launches["block_filter"],

@@ -23,7 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "build_log", "library_path", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_dir", "build_inputs", "build_log", "library_path",
+           "load_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,10 +54,17 @@ def _sources() -> list[Path]:
     return srcs
 
 
+def build_inputs() -> list[Path]:
+    """Every file the build reads: the sources it compiles and the headers
+    they include.  An installed copy must ship them all (the package data
+    of pyproject.toml)."""
+    return _sources() + sorted(_CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     """Where the library of the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources() + sorted(_CSRC.glob("*.cuh")):
+    for s in build_inputs():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return build_dir() / f"libdspfun_kernels_{h.hexdigest()[:16]}.so"

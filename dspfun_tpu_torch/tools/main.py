@@ -1,0 +1,50 @@
+"""dspfun-torch — dispatcher for the tool CLIs the port has (PyTorch port
+of ``dspfun_tpu/tools/main.py``).
+
+``dspfun-torch <tool> [options]`` runs ``spec``, ``ispec`` or ``motion``.
+The JAX package's other seven tools are not ported yet: each is refused
+with exit code 1 and the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+
+TOOLS = {
+    "spec": "dspfun_tpu_torch.tools.spec",
+    "ispec": "dspfun_tpu_torch.tools.ispec",
+    "motion": "dspfun_tpu_torch.tools.motion",
+}
+
+# the JAX package's tools the port lacks, and the ROADMAP queue 1 item of each
+NOT_PORTED = {
+    "rotate": 17, "transcode": 17, "applybasis": 16, "genbasis": 16,
+    "draw": 16, "zoom": 15, "scan": 14,
+}
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help"):
+        print("Usage: dspfun-torch <tool> [options]\n\ntools:", file=sys.stderr)
+        for name in TOOLS:
+            print(f"   {name}", file=sys.stderr)
+        return 0 if argv else 1
+    name = argv[0]
+    if name in NOT_PORTED:
+        print(f"{name} is not ported to dspfun_tpu_torch yet (ROADMAP.md queue 1, "
+              f"item {NOT_PORTED[name]}); use dspfun_tpu.tools.{name}", file=sys.stderr)
+        return 1
+    if name not in TOOLS:
+        print(f"unknown tool {name!r}; available: {' '.join(TOOLS)}",
+              file=sys.stderr)
+        return 1
+    mod = importlib.import_module(TOOLS[name])
+    return mod.main(argv[1:])
+
+
+if __name__ == "__main__":
+    from dspfun_tpu_torch.tools import run_main
+
+    run_main(main)

@@ -30,6 +30,7 @@ import torch
 from dspfun_tpu_torch.core.precision import apply_tool_default, get_precision
 from dspfun_tpu_torch.io import video
 from dspfun_tpu_torch.models import motion_pipeline as mp
+from dspfun_tpu_torch.tools import cli_device, run_main
 
 # device-plan cache across main() invocations, keyed on device,
 # precision, geometry and params
@@ -95,13 +96,6 @@ def _parse_multi(arg: str, default: float) -> list[float]:
         else:
             out.append(out[-1] if out else default)
     return out
-
-
-def _device(arg: str | None) -> torch.device:
-    dev = torch.device("cuda" if arg is None else arg)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise ValueError("--device cuda: torch.cuda.is_available() is False")
-    return dev
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -216,7 +210,7 @@ def main(argv: list[str] | None = None) -> int:
     infile = args[0]
     outfile = args[1] if len(args) > 1 else None
     try:
-        device = _device(device_arg)
+        device = cli_device(device_arg)
     except (RuntimeError, ValueError) as e:
         print(f"Bad --device: {e}", file=sys.stderr)
         return 1
@@ -521,4 +515,4 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    run_main(main)

@@ -336,6 +336,45 @@ def test_motion_cli_card_equals_cpu(cuda, tmp_path):
     assert np.max(np.abs(a - b)) <= 1
 
 
+def test_spec_and_ispec_clis_on_card(cuda, tmp_path, monkeypatch):
+    """``spec`` then ``ispec`` through files at 512x384 with the policy set
+    to ``i8@1e-5``: each tool launches the left and the right 3-digit
+    kernel once, its files equal, byte for byte, the files of the same run
+    with the plain version forced, and the spectrum agrees with
+    ``--device cpu``'s within one 16-bit level."""
+    from dspfun_tpu_torch.core import precision
+    from dspfun_tpu_torch.io import images
+    from dspfun_tpu_torch.tools import ispec, spec
+
+    monkeypatch.setattr(precision, "_default", Precision.parse("i8@1e-5"))
+    monkeypatch.setattr(precision, "_explicit", True)
+    rng = np.random.default_rng(6)
+    y, x = np.mgrid[0:384, 0:512]
+    pix = 0.5 + 0.3 * np.sin(x / 31.0 + y / 17.0)[..., None] + 0.1 * (rng.random((384, 512, 3)) - 0.5)
+    src = str(tmp_path / "in.png")
+    images.write_image(src, pix, depth=16)
+
+    def run(tag, extra=()):
+        s, b = str(tmp_path / f"s_{tag}.png"), str(tmp_path / f"b_{tag}.png")
+        counts = []
+        for main, a, o in ((spec.main, src, s), (ispec.main, s, b)):
+            tmm.LAUNCHES.clear()
+            assert main([*extra, "-t", "flat", a, o]) == 0
+            counts.append({n: c for n, c in tmm.LAUNCHES.items() if c})
+        return counts, open(s, "rb").read(), open(b, "rb").read()
+
+    counts, s_kernel, b_kernel = run("kernel")
+    assert counts == [{"left3": 1, "right3": 1}] * 2
+    monkeypatch.setattr(tmm, "_i8_groups", tmm._i8_groups_plain)
+    counts, s_plain, b_plain = run("plain")
+    assert counts == [{}, {}]
+    assert s_kernel == s_plain and b_kernel == b_plain
+    run("cpu", ("--device", "cpu"))
+    a, b = (images.read_image(str(tmp_path / f"s_{t}.png")) for t in ("kernel", "cpu"))
+    assert a.properties.keys() == b.properties.keys() == {"DC"}
+    assert np.max(np.abs(a.pixels - b.pixels)) <= 1.0 / 65535 + 1e-12
+
+
 # ---- the in-kernel digit split (csrc/int8split.cu) ----
 
 

@@ -29,6 +29,7 @@ from dspfun_tpu.io import video as jvideo
 from dspfun_tpu.tools import motion as jmotion
 from dspfun_tpu_torch.io import color as tcolor
 from dspfun_tpu_torch.io import video as tvideo
+from dspfun_tpu_torch.tools import cli_device
 from dspfun_tpu_torch.tools import motion as tmotion
 
 
@@ -114,8 +115,8 @@ def test_device_cuda_without_a_card_is_an_error(clip, tmp_path, capsys, monkeypa
         assert "Bad --device" in capsys.readouterr().err
     assert not (tmp_path / "o.y4m").exists()
     with pytest.raises(ValueError, match="is_available"):
-        tmotion._device(None)
-    assert tmotion._device("cpu").type == "cpu"
+        cli_device(None)
+    assert cli_device("cpu").type == "cpu"
 
 
 PIX = [("yuv420p", None), ("yuv422p", "jpeg"), ("yuv444p", "mpeg"), ("gray", None),

@@ -1,12 +1,16 @@
-"""The port stands alone: it imports no JAX and no dspfun_tpu, its entry
-points run on the card unless told otherwise, and its chip smoke run
-refuses to run without a CUDA card."""
+"""The port stands alone: it imports no JAX, no Pillow and no dspfun_tpu,
+its entry points run on the card unless told otherwise, an installed
+copy ships every file its kernel build reads, its dispatcher lists the
+tools it has, and its chip smoke run refuses to run without a CUDA
+card."""
 
 import ast
+import fnmatch
 import json
 import os
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -31,7 +35,7 @@ def _run(code_or_args, **kw):
 def test_every_module_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
-        "sys.modules['dspfun_tpu'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
         "import importlib, pkgutil, dspfun_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dspfun_tpu_torch.__path__,"
         " 'dspfun_tpu_torch.')]\n"
@@ -44,7 +48,9 @@ def test_every_module_imports_without_jax():
     assert {f"dspfun_tpu_torch.{m}" for m in (
         "ops.blockdct", "ops.block_filter", "io.color", "io.video",
         "models.motion_pipeline", "tools.motion", "ops.int8split",
-        "benchmarks.calib_r3e", "benchmarks.calib_r3f")} <= names
+        "benchmarks.calib_r3e", "benchmarks.calib_r3f", "io.png", "io.images",
+        "utils.profiling", "tools._speccli", "tools.spec", "tools.ispec",
+        "tools.main")} <= names
 
 
 def test_calibration_counterparts_run_without_jax():
@@ -52,7 +58,7 @@ def test_calibration_counterparts_run_without_jax():
     (at a small shape) on the CPU with jax and the JAX package unimportable."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
-        "sys.modules['dspfun_tpu'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
         "from dspfun_tpu_torch.benchmarks import calib_r3e, calib_r3f\n"
         "calib_r3e.main(['--device', 'cpu'])\n"
         "calib_r3f.main(['--device', 'cpu', '--shape', '300,77,45'])\n")
@@ -68,7 +74,7 @@ def test_motion_cli_runs_without_jax(tmp_path):
     package unimportable: help, then a small y4m edit on the CPU."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
-        "sys.modules['dspfun_tpu'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
         "import runpy, numpy as np\n"
         "from fractions import Fraction\n"
         "from dspfun_tpu_torch.io import video\n"
@@ -90,6 +96,84 @@ def test_motion_cli_runs_without_jax(tmp_path):
     assert res.returncode == 0 and "Usage: motion" in res.stdout
 
 
+def test_spec_and_ispec_run_without_jax_and_pillow(tmp_path):
+    """``python -m dspfun_tpu_torch.tools.main spec`` then ``ispec`` on the
+    CPU with jax, Pillow and the JAX package unimportable: a PNG in, a
+    16-bit spectrum with its DC property, and an image of the input's
+    depth out."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
+        "import runpy, numpy as np\n"
+        "from dspfun_tpu_torch.io import images\n"
+        f"src, s, b = ({str(tmp_path / 'i.png')!r}, {str(tmp_path / 's.png')!r},"
+        f" {str(tmp_path / 'b.png')!r})\n"
+        "images.write_image(src, np.random.default_rng(0).random((24, 32, 3)))\n"
+        "for argv in (['spec', '--device', 'cpu', '-t', 'flat', src, s],\n"
+        "             ['ispec', '--device', 'cpu', '-t', 'flat', s, b]):\n"
+        "    sys.argv = ['dspfun-torch'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('dspfun_tpu_torch.tools.main', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        print('exit', e.code)\n"
+        "spectrum, back = images.read_image(s), images.read_image(b)\n"
+        "print(spectrum.depth, sorted(spectrum.properties), back.depth, back.pixels.shape)\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[:3] == ["exit 0", "exit 0", "16 ['DC'] 16 (24, 32, 3)"]
+
+
+def test_dispatcher_lists_the_ported_tools_and_refuses_the_rest(capsys):
+    """``dspfun-torch`` runs exactly the tools the port has; each other
+    tool of the JAX package's dispatcher is refused by ROADMAP item."""
+    from dspfun_tpu.tools import main as jmain
+    from dspfun_tpu_torch.tools import main as tmain
+
+    assert sorted(tmain.TOOLS) == ["ispec", "motion", "spec"]
+    assert set(tmain.NOT_PORTED) == set(jmain.TOOLS) - set(tmain.TOOLS)
+    tool_files = {p.stem for p in (PKG / "tools").glob("*.py")
+                  if not p.stem.startswith("_") and p.stem != "main"}
+    assert tool_files == set(tmain.TOOLS)
+    for name, item in tmain.NOT_PORTED.items():
+        assert tmain.main([name, "-h"]) == 1
+        err = capsys.readouterr().err
+        assert f"queue 1, item {item}" in err and name in err
+    assert tmain.main(["nonesuch"]) == 1
+    assert "unknown tool" in capsys.readouterr().err
+    assert tmain.main([]) == 1 and tmain.main(["-h"]) == 0
+    listed = capsys.readouterr().err
+    assert all(f"   {name}" in listed for name in tmain.TOOLS)
+    assert not any(f"   {name}" in listed for name in tmain.NOT_PORTED)
+    assert tmain.main(["spec", "-h"]) == 0 and "Usage: spec" in capsys.readouterr().out
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]["scripts"]
+    assert scripts["dspfun-torch"] == "dspfun_tpu_torch.tools.main:main"
+    for name in tmain.TOOLS:
+        assert scripts[f"dspfun-torch-{name}"] == f"dspfun_tpu_torch.tools.{name}:main"
+
+
+def test_package_data_ships_what_the_build_reads():
+    """Every file ``_build.py`` compiles or hashes (the sources and the
+    headers they include) matches a package-data pattern of
+    pyproject.toml, and the patterns name nothing that is not there."""
+    from dspfun_tpu_torch import _build
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
+    patterns = conf["package-data"]["dspfun_tpu_torch"]
+    inputs = [p.relative_to(PKG).as_posix() for p in _build.build_inputs()]
+    assert "csrc/hopper_common.cuh" in inputs and "csrc/int8mm.cu" in inputs
+    assert set(inputs) == {p.relative_to(PKG).as_posix()
+                           for p in (PKG / "csrc").iterdir() if p.is_file()}
+    for rel in inputs:
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+    for pat in patterns:
+        assert any(fnmatch.fnmatch(rel, pat) for rel in inputs), pat
+    # a source that includes a header the build does not hash would go stale
+    for src in (PKG / "csrc").glob("*.cu"):
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                assert "csrc/" + line.split('"')[1] in inputs, (src.name, line)
+
+
 def test_no_jax_imports_in_the_source():
     for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -100,7 +184,7 @@ def test_no_jax_imports_in_the_source():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "dspfun_tpu"), f"{path}: {n}"
+                assert root not in ("jax", "jaxlib", "dspfun_tpu", "PIL"), f"{path}: {n}"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -138,7 +222,7 @@ def test_entry_points_default_to_the_card():
     versions on the CPU silently."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
-        "sys.modules['dspfun_tpu'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
         "import importlib, inspect, json, pkgutil, dspfun_tpu_torch\n"
         "found = {}\n"
         "for m in pkgutil.walk_packages(dspfun_tpu_torch.__path__, 'dspfun_tpu_torch.'):\n"
