@@ -101,7 +101,55 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    to float32 beside the ``exact`` contraction at spec's two shapes (time
    and distance in float32 ulps), and, for the PNG codec, a round trip of
    each of the five filters at both depths at a small size and the
-   encode and decode seconds of a 3840x2160 8-bit RGB image per filter.
+   encode and decode seconds of a 3840x2160 8-bit RGB image per filter;
+9. main path 5, ``scan``: ``tools.scan.main`` in process on a seeded
+   256x256 8-bit RGB PNG (BASELINE.md item 4) with ``-m zigzag -P``,
+   every scan index, to y4m at ``-S 16`` (4096 frames, packed to yuv444p
+   on the card) and to fvid at ``-S 64`` (1024 frames; the 65,536 frames
+   of ``-S 1`` are 12.9 GB of y4m).  The last frame and three in between
+   are held to a float64 oracle (scipy's DCT of the float32 pixels, the
+   same schedule, synthesised in ``torch.float64`` on the card): one
+   8-bit level for y4m, 1e-5 for fvid; the ``-P`` index to the oracle's
+   on every frame the oracle decides further than 1e-5 from a rounding
+   boundary.  The default policy may launch no kernel.  Then the y4m run
+   at ``i8@1e-5``: the left 3-digit kernel launches twice in the forward
+   DCT and twice per 64-frame chunk (both contractions of the dense
+   branch are middle axes and go left), and the file equals the one of a
+   run with the plain version forced, byte for byte; the kernel at the
+   chunk's shape (M=K=256, R=49,152) against its plain version.  Then a
+   1920x1080 image, ``-S 4 -n 128`` to y4m with ``-p false`` and with ``-p
+   true`` (the chunk times of dense against pruned, CUDA events) and
+   ``-n 16`` to fvid (both within 1e-5 of the oracle and of each other).
+   Then ``-v -s -i``: the four panes against a host float64 oracle, one
+   level.  Prints frames/s and the seconds per stage of every run;
+10. main path 6, ``zoom``: the 4-digit kernels against their plain
+   versions at the still's shapes (left4 M=4320 K=1080 B=3 R=1920, right4
+   M=7680 K=1920 R=12,960) and at the two pans' (left4 M=K=1080 B=3
+   R=1920 and right4 M=K=1920 R=3240; left3 M=K=768 B=3 R=1024 and right3
+   M=K=1024 R=2304), then ``tools.zoom.main`` in process on a seeded
+   1920x1080 8-bit RGB PNG.  The oracle's bases, DCT-III matrix and
+   zigzag walk are closed forms written here, not the package's.  (a) ``-s 4 -g`` (BASELINE.md item 2) at
+   the tool's default policy, deep ``i8``, to fvid and to y4m: launches
+   left4 3 (the forward DCT's two and the frame's one) and right4 1; the
+   fvid frame within 1e-5, after the OETF, of a float64 synthesis from
+   a float64 basis, both computed on the card; byte-equal to a run with
+   the plain version forced; the y4m frames (packed on the card, and with
+   the packer off) within one level; seconds per stage and the peak
+   device memory.  (b) the pan ``-s 4 -v 1920x1080 -n 24 -x 'i/n*(w*xs-vw)'
+   -y '(h*ys-vh)/2'`` to y4m: the route of every frame (the device basis
+   or the planned host basis), frames/s, seconds per stage, three frames
+   against the oracle (one level), one left4 and one right4 per planned
+   frame, the file byte-equal to a run with the plain version forced.  (c) a 2x pan of a 1024x768 image in a 1024x768 view, where
+   ``device_basis_accurate`` holds on all 12 frames, to fvid: at the
+   default policy (float32 products, no launch in the synthesis) and at
+   ``i8@1e-5`` (``i8_contract_rt``: one left3 and one right3 per frame);
+   each prints PASS or MISS against 1e-5 of the oracle.  The first must
+   pass.  The second misses (both operands of both contractions are
+   split into 3 digits at run time): its file must equal the one of a
+   run with the plain version forced, byte for byte, and its error stay
+   within six standard deviations of the split's rounding model,
+   computed from the run's spectrum.  (d) ``--showsamples=grid``, ``--basis
+   native`` and ``--basis centered`` at 320x240 against the oracle.
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -772,25 +820,11 @@ def _fp64_beside_exact(torch, dev, hw) -> None:
 def _spec_cli_phase(torch, dev, plain_versions, int8mm, fft, hw=(H, W)) -> dict:
     """Main path 4: spec then ispec through 16-bit PNG files; returns the
     int8 kernels' launches over the i8@1e-5 run."""
-    from dspfun_tpu_torch.core import precision as prec
     from dspfun_tpu_torch.io import images, png
     from dspfun_tpu_torch.tools import ispec, spec
 
     h, w = hw
     _png_codec_checks(png, hw)
-
-    @contextlib.contextmanager
-    def policy(name):
-        """The tools' own default policy (None) or a named one."""
-        saved = (prec._default, prec._explicit)
-        if name is None:
-            prec._explicit = False
-        else:
-            prec.set_precision(prec.Precision.parse(name))
-        try:
-            yield
-        finally:
-            prec._default, prec._explicit = saved
 
     def levels(path):
         arr, props, _ = png.decode_png(open(path, "rb").read())
@@ -865,7 +899,7 @@ def _spec_cli_phase(torch, dev, plain_versions, int8mm, fft, hw=(H, W)) -> dict:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        with policy(None):
+        with _policy(None):
             s_flat, b_flat, _ = round_trip(tmp, "default", "flat", {})
             peak = torch.cuda.max_memory_allocated()
             s_copy, b_copy, _ = round_trip(tmp, "default", "copy", {})
@@ -897,7 +931,7 @@ def _spec_cli_phase(torch, dev, plain_versions, int8mm, fft, hw=(H, W)) -> dict:
             raise RuntimeError("ispec -t copy: the file disagrees with the oracle")
         del coeff, oracle, back, diff, lv, d
 
-        with policy("i8@1e-5"):
+        with _policy("i8@1e-5"):
             s_i8, b_i8, counts = round_trip(tmp, "i8@1e-5", "flat", SPEC_CLI_EXPECT)
             with plain_versions():
                 s_pl, b_pl, _ = round_trip(tmp, "i8@1e-5 plain", "flat", {})
@@ -912,6 +946,585 @@ def _spec_cli_phase(torch, dev, plain_versions, int8mm, fft, hw=(H, W)) -> dict:
     print(f"spec CLI main-path launches: {json.dumps(launches)}", flush=True)
     _fp64_beside_exact(torch, dev, hw)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the scan and zoom CLIs
+# ---------------------------------------------------------------------------
+
+SCAN_HW = (256, 256)              # BASELINE.md item 4
+SCAN_STEPS = (16, 64)             # -S for the y4m and the fvid run (every index is
+#                                   scanned; the 65,536-frame schedule at -S 1 is
+#                                   12.9 GB of y4m)
+SCAN_BIG = dict(hw=(1080, 1920), step=4, frames=128, float_frames=16)
+ZOOM_HW = (1080, 1920)            # BASELINE.md item 2: 1080p, 4x, -g
+ZOOM_SCALE = 4
+ZOOM_PAN_FRAMES = 24
+ZOOM_DEV = dict(hw=(768, 1024), scale=2, frames=12, xstep=64, ystep=32)
+ZOOM_SMALL = (240, 320)
+LEVEL = 1.0 / 255.0
+TOOL_TOL = 1e-5                   # BASELINE.md: max abs error vs float64
+# zoom's device route at i8@tol splits both operands of both contractions
+# into 3 digits at run time and misses TOOL_TOL (printed as MISS); it is
+# held to this many standard deviations of the split's rounding model
+# (_rt_split_sigma), about the largest of 2.4 M independent outputs
+RT_SPLIT_SIGMAS = 6.0
+
+
+@contextlib.contextmanager
+def _policy(name):
+    """The tools' own default policy (None) or a named one, then back."""
+    from dspfun_tpu_torch.core import precision as prec
+
+    saved = (prec._default, prec._explicit)
+    if name is None:
+        prec._default, prec._explicit = prec.Precision(), False
+    else:
+        prec.set_precision(prec.Precision.parse(name))
+    try:
+        yield
+    finally:
+        prec._default, prec._explicit = saved
+
+
+def _run_tool(torch, mod, args, int8mm):
+    """``mod.main(args)`` with the int8 kernels' launches counted over
+    this call alone: (wall seconds, stage seconds, launches)."""
+    before = dict(int8mm.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = mod.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{mod.__name__.rsplit('.', 1)[-1]} {args} exited {rc}")
+    got = {n: c - before.get(n, 0) for n, c in int8mm.LAUNCHES.items()}
+    return wall, dict(mod.LAST_STAGE_TIMES), {n: c for n, c in got.items() if c}
+
+
+def _stages(st: dict) -> str:
+    out = {}
+    for k, v in st.items():
+        if k == "chunk_device_ms":
+            out["chunk_device_ms_median"] = round(float(np.median(v)), 4)
+            out["chunk_device_s_total"] = round(float(np.sum(v)) / 1e3, 4)
+        elif k == "routes":
+            out[k] = {r: v.count(r) for r in sorted(set(v))}
+        else:
+            out[k] = round(v, 4) if isinstance(v, float) else v
+    return json.dumps(out)
+
+
+def _seeded_png(images, path, hw, seed, noise=0.1):
+    """A seeded 8-bit RGB PNG (smooth terms plus noise, inside 0.2..0.8);
+    returns the float32 pixels of its levels, which the tools compute on."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    pix = np.stack([0.5 + 0.2 * np.sin(x / (19.0 + 3 * i) * 256.0 / w + y / 13.0 * 256.0 / h)
+                    for i in range(C)], -1)
+    pix += noise * 2.0 * (rng.random((h, w, C)) - 0.5)
+    images.write_image(path, pix)
+    return images.read_image(path).pixels.astype(np.float32)
+
+
+def _stream_frame(video, path, index):
+    """Frame ``index`` of a y4m or fvid file: (reader, list of planes in
+    the container's dtype), read at its offset."""
+    r = video.open_input(path)
+    pf, w, h = r.pix_fmt, r.width, r.height
+    r.close()
+    with open(path, "rb") as f:
+        hdr = len(f.readline())
+        fsize = pf.frame_bytes(w, h)
+        f.seek(hdr + index * (6 + fsize) + 6)
+        data = f.read(fsize)
+    if len(data) != fsize:
+        raise RuntimeError(f"{path}: frame {index} is not there")
+    planes, off = [], 0
+    for pw, ph in pf.plane_dims(w, h):
+        n = pw * ph * pf.dtype.itemsize
+        planes.append(np.frombuffer(data[off:off + n], pf.dtype).reshape(ph, pw))
+        off += n
+    return r, planes
+
+
+def _frame_rgb_error(video, path, index, ref_rgb):
+    """Largest distance of frame ``index`` from the float64 RGB frame
+    ``ref_rgb``: for an integer container in its own levels after the
+    host writers' float64 conversion of the oracle (also the share of
+    samples off by one), for a float container in value."""
+    r, planes = _stream_frame(video, path, index)
+    want = video.rgb_to_planes(ref_rgb, r.pix_fmt, r.props)
+    if r.pix_fmt.is_float:
+        return max(float(np.max(np.abs(p.astype(np.float64) - q))) for p, q in zip(planes, want)), 0.0
+    worst, off, total = 0, 0, 0
+    for i, (p, q) in enumerate(zip(planes, want)):
+        d = np.abs(p.astype(np.int64)
+                   - video._quantize_plane(q, r.pix_fmt, i, r.props.color_range).astype(np.int64))
+        worst, off, total = max(worst, int(d.max())), off + int((d > 0).sum()), total + d.size
+    return worst, off / total
+
+
+def _oracle_dct3(torch, dev, n):
+    """FFTW's REDFT01 matrix from its closed form, float64 on the card:
+    M[k, j] = 2 cos(pi j (2k + 1) / (2n)), column 0 all ones."""
+    k = torch.arange(n, dtype=torch.float64, device=dev)[:, None]
+    j = torch.arange(n, dtype=torch.float64, device=dev)[None, :]
+    m = 2.0 * torch.cos(np.pi * j * (2.0 * k + 1.0) / (2.0 * n))
+    m[:, 0] = 1.0
+    return m
+
+
+def _zigzag_walk(w, h):
+    """The zigzag order walked diagonal by diagonal (y descending on even
+    diagonals, ascending on odd ones): (ys, xs)."""
+    ys = []
+    for d in range(w + h - 1):
+        y = np.arange(max(0, d - w + 1), min(d, h - 1) + 1, dtype=np.int64)
+        ys.append(y[::-1] if d % 2 == 0 else y)
+    ys = np.concatenate(ys)
+    ds = np.repeat(np.arange(w + h - 1), [min(d, h - 1) - max(0, d - w + 1) + 1
+                                          for d in range(w + h - 1)])
+    return ys, ds - ys
+
+
+def _scan_oracle(torch, dev, x32, order, step, nframes, keep, chunk=64):
+    """scan's running reconstructions in float64 on the card, from scipy's
+    DCT of the float32 pixels and the same schedule: returns ({frame:
+    [H, W, C] numpy} for ``keep``, parity flags, and which of them the
+    oracle decides further than TOOL_TOL from a rounding boundary)."""
+    import scipy.fft
+
+    h, w, _ = x32.shape
+    c = scipy.fft.dctn(x32.astype(np.float64), type=2, axes=(0, 1), workers=-1) / (4.0 * w * h)
+    cd = torch.tensor(c, device=dev)
+    bh, bw = _oracle_dct3(torch, dev, h), _oracle_dct3(torch, dev, w)
+    zy, zx = _zigzag_walk(w, h)
+    if not (np.array_equal(order.ys, zy) and np.array_equal(order.xs, zx)
+            and np.array_equal(order.starts, np.arange(w * h + 1)) and order.limit == w * h):
+        raise RuntimeError("the zigzag schedule is not the diagonal walk")
+    orig = torch.tensor(x32.astype(np.float64), device=dev)
+    ys = torch.tensor(order.ys.astype(np.int64), device=dev)
+    xs = torch.tensor(order.xs.astype(np.int64), device=dev)
+    starts = order.starts
+    limit = order.limit
+    frame_of = torch.empty(len(order.ys), dtype=torch.int64, device=dev)
+    for f in range(nframes):
+        a, b = starts[min(f * step, limit)], starts[min((f + 1) * step, limit)]
+        frame_of[a:b] = f
+    ncoef = int(starts[min(nframes * step, limit)])
+    carry = cd[0, 0].expand(h, w, C).clone()
+    nodc = cd.clone()
+    nodc[0, 0] = 0.0
+    kept, parity, safe = {}, [], []
+
+    def lround(t):
+        return torch.sign(t) * torch.floor(torch.abs(t) + 0.5)
+
+    for f0 in range(0, nframes, chunk):
+        n = min(chunk, nframes - f0)
+        sel = torch.nonzero((frame_of[:ncoef] >= f0) & (frame_of[:ncoef] < f0 + n))[:, 0]
+        grid = torch.zeros((n, h, w, C), dtype=torch.float64, device=dev)
+        grid[frame_of[sel] - f0, ys[sel], xs[sel]] = nodc[ys[sel], xs[sel]]
+        delta = torch.einsum("jv,fvuc,iu->fjic", bh, grid, bw)
+        sums = carry[None] + torch.cumsum(delta, 0)
+        carry = sums[-1].clone()
+        scaled = sums * 255.0
+        same = (lround(scaled) == lround(orig * 255.0)[None]).reshape(n, -1)
+        clear = ((scaled - torch.floor(scaled) - 0.5).abs() > TOOL_TOL * 255.0).reshape(n, -1)
+        parity += same.all(1).tolist()
+        safe += ((~same & clear).any(1) | clear.all(1)).tolist()
+        for f in keep:
+            if f0 <= f < f0 + n:
+                kept[f] = sums[f - f0].cpu().numpy()
+    return kept, np.asarray(parity), np.asarray(safe)
+
+
+def _parity_index(err: str, total: int) -> int:
+    for line in err.splitlines():
+        if "Reached parity" in line:
+            return int(line.rsplit(" ", 1)[1])
+        if "Didn't reach parity" in line:
+            return total
+    raise RuntimeError(f"scan -P printed no parity line: {err[-300:]!r}")
+
+
+def _scan_phase(torch, dev, plain_versions, int8mm, check_i8mm, fft, hw=SCAN_HW,
+                steps=SCAN_STEPS, big=SCAN_BIG) -> dict:
+    """Main path 5: the scan CLI; returns the int8 kernels' launches of
+    the i8@1e-5 run and the kernel's stats at the chunk's shape."""
+    import io
+
+    from dspfun_tpu_torch.io import images, video
+    from dspfun_tpu_torch.ops import scan_methods, speclib
+    from dspfun_tpu_torch.tools import scan
+
+    h, w = hw
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_") as tmp:
+        src = os.path.join(tmp, "in.png")
+        x32 = _seeded_png(images, src, hw, 11)
+        order = scan_methods.get_method("zigzag").build(w, h)
+        chunk = int(max(4, min(64, 16_000_000 // (w * h * C))))
+
+        # ---- (a) every index, to y4m (packed on the device) and to fvid, with -P
+        results = {}
+        for ext, step in zip(("y4m", "fvid"), steps):
+            out = os.path.join(tmp, f"a.{ext}")
+            nfr = -(-order.limit // step)
+            keep = sorted({nfr // 4, nfr // 2, 3 * nfr // 4, nfr - 1})
+            with _policy(None), contextlib.redirect_stderr(io.StringIO()) as err:
+                wall, st, got = _run_tool(torch, scan, ["-m", "zigzag", "-S", str(step), "-P", "-q",
+                                                        src, out], int8mm)
+            if got:
+                raise RuntimeError(f"scan at the default policy launched {got}")
+            kept, par, safe = _scan_oracle(torch, dev, x32, order, step, nfr, keep)
+            worst, share = 0.0, 0.0
+            for f in keep:
+                e, s = _frame_rgb_error(video, out, f, kept[f])
+                worst, share = max(worst, e), max(share, s)
+            p = _parity_index(err.getvalue(), nfr)
+            first = int(np.argmax(par)) if par.any() else nfr
+            ok_parity = not (par[:p] & safe[:p]).any() and (p == nfr or par[p] or not safe[p])
+            limit = 1 if ext == "y4m" else TOOL_TOL
+            print(f"scan {w}x{h} -m zigzag -S {step} -P to {ext}: {nfr} frames in {wall:.3f} s "
+                  f"({nfr / wall:.1f} frames/s); stages (s) {_stages(st)}; frames {keep} vs the "
+                  f"float64 oracle: largest difference {worst:.3e}"
+                  + (f" level, {share:.6f} off by one" if ext == "y4m" else "")
+                  + f"; parity index {p} (oracle {first}, {int(safe.sum())} of {nfr} frames "
+                  f"decided beyond {TOOL_TOL:g}): {'consistent' if ok_parity else 'INCONSISTENT'}",
+                  flush=True)
+            if st["frames"] != nfr or worst > limit or not ok_parity:
+                raise RuntimeError(f"scan to {ext} disagrees with the float64 oracle")
+            results[ext] = (out, nfr)
+
+        # ---- (b) the same at i8@1e-5: launches, and kernel == plain byte for byte
+        step = steps[0]
+        nfr = results["y4m"][1]
+        nchunks = -(-nfr // chunk)
+        expect = {"left3": 2 + 2 * nchunks}     # forward H and W, then two per dense chunk
+        ki, kp = (os.path.join(tmp, n) for n in ("i8.y4m", "i8_plain.y4m"))
+        with _policy("i8@1e-5"):
+            wall, st, got = _run_tool(torch, scan, ["-m", "zigzag", "-S", str(step), "-q", src, ki],
+                                      int8mm)
+            with plain_versions():
+                pwall, pst, _ = _run_tool(torch, scan, ["-m", "zigzag", "-S", str(step), "-q",
+                                                        src, kp], int8mm)
+        same = open(ki, "rb").read() == open(kp, "rb").read()
+        kept, _, _ = _scan_oracle(torch, dev, x32, order, step, nfr, [nfr // 2, nfr - 1])
+        worst = max(_frame_rgb_error(video, ki, f, kept[f])[0] for f in kept)
+        print(f"scan {w}x{h} -S {step} at i8@1e-5: launches {json.dumps(got)} (expected "
+              f"{json.dumps(expect)}: {nchunks} chunks of {chunk} frames), {nfr / wall:.1f} frames/s "
+              f"({wall:.3f} s; stages {_stages(st)}); plain forced {nfr / pwall:.1f} frames/s "
+              f"({pwall:.3f} s; stages {_stages(pst)}); files byte-equal kernel vs plain: {same}; "
+              f"vs the float64 oracle {worst} level", flush=True)
+        if got != expect or not same or worst > 1:
+            raise RuntimeError("scan at i8@1e-5 failed")
+        launches = dict(got)
+        # the kernel at the dense chunk's shape (both contractions go left)
+        i8_stats = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                            check_i8mm(3, "left", h, h, 1, chunk * w * C, "scan chunk")))
+
+        # ---- (c) 1080p: dense against pruned
+        bh_, bw_ = big["hw"]
+        bsrc = os.path.join(tmp, "big.png")
+        bx32 = _seeded_png(images, bsrc, big["hw"], 12)
+        border = scan_methods.get_method("zigzag").build(bw_, bh_)
+        base = ["-m", "zigzag", "-S", str(big["step"]), "-q"]
+        chunk_ms = {}
+        for pruned in ("false", "true"):
+            with _policy(None):
+                wall, st, got = _run_tool(torch, scan, base + ["-n", str(big["frames"]), "-p", pruned,
+                                                               bsrc, os.path.join(tmp, f"p_{pruned}.y4m")],
+                                          int8mm)
+                _run_tool(torch, scan, base + ["-n", str(big["float_frames"]), "-p", pruned, bsrc,
+                                               os.path.join(tmp, f"p_{pruned}.fvid")], int8mm)
+            chunk_ms[pruned] = float(np.median(st["chunk_device_ms"]))  # CUDA events, on a card
+            print(f"scan {bw_}x{bh_} -S {big['step']} -n {big['frames']} -p {pruned} to y4m: "
+                  f"{big['frames'] / wall:.1f} frames/s ({wall:.3f} s); stages {_stages(st)}; "
+                  f"launches {json.dumps(got)}", flush=True)
+        keep = [0, big["float_frames"] // 2, big["float_frames"] - 1]
+        kept, _, _ = _scan_oracle(torch, dev, bx32, border, big["step"], big["float_frames"], keep,
+                                  chunk=4)
+        errs = {p: max(_frame_rgb_error(video, os.path.join(tmp, f"p_{p}.fvid"), f, kept[f])[0]
+                       for f in keep) for p in ("false", "true")}
+        between = max(float(np.max(np.abs(a.astype(np.float64) - b)))
+                      for f in keep
+                      for a, b in zip(_stream_frame(video, os.path.join(tmp, "p_false.fvid"), f)[1],
+                                      _stream_frame(video, os.path.join(tmp, "p_true.fvid"), f)[1]))
+        ya, yb = (open(os.path.join(tmp, f"p_{p}.y4m"), "rb").read() for p in ("false", "true"))
+        d = np.abs(np.frombuffer(ya, np.uint8).astype(np.int16) - np.frombuffer(yb, np.uint8))
+        print(f"scan {bw_}x{bh_} dense against pruned: chunk of "
+              f"{int(max(4, min(64, 16_000_000 // (bw_ * bh_ * C))))} frames {chunk_ms['false']:.4f} ms "
+              f"dense, {chunk_ms['true']:.4f} ms pruned (CUDA events, median); fvid frames {keep} vs "
+              f"the float64 oracle: dense {errs['false']:.3e}, pruned {errs['true']:.3e}, dense vs "
+              f"pruned {between:.3e}; y4m files differ by at most {int(d.max())} level on "
+              f"{float((d > 0).mean()):.6f} of the samples", flush=True)
+        if max(errs.values()) > TOOL_TOL or between > TOOL_TOL or d.max() > 1:
+            raise RuntimeError("scan dense and pruned disagree")
+
+        # ---- (d) the panes of -v -s -i against a host-only float64 oracle
+        step, nfr = max(1, (w * h) // 16), 16
+        out = os.path.join(tmp, "panes.y4m")
+        with _policy(None):
+            wall, st, _ = _run_tool(torch, scan, ["-m", "zigzag", "-v", "-s", "-i", "-S", str(step),
+                                                  "-q", src, out], int8mm)
+        c = fft.dctn(x32.astype(np.float64), type=2, axes=(0, 1), workers=-1) / (4.0 * w * h)
+        scaler = speclib.SpecScaler(params=speclib.SpecParams(), max_input=float(c[0, 0].max()),
+                                    gain=127.5 * np.sqrt(w * h * 4))
+        kept, _, _ = _scan_oracle(torch, dev, x32, order, step, nfr, list(range(nfr)))
+        canvas = np.zeros((2 * h, 2 * w, C))
+        worst, share, prev = 0, 0.0, np.broadcast_to(c[0, 0], (h, w, C))
+        for f in range(nfr):
+            a, b = order.starts[f * step], order.starts[min((f + 1) * step, order.limit)]
+            ys, xs = order.ys[a:b], order.xs[a:b]
+            norm = np.where(xs > 0, np.sqrt(2.0), 1.0) * np.where(ys > 0, np.sqrt(2.0), 1.0)
+            canvas[ys, xs + w] = scaler.scale(c[ys, xs] * norm[:, None], xp=np)
+            canvas[ys + h, xs + w] = canvas[ys, xs + w]
+            canvas[:h, :w] = kept[f]
+            canvas[h:, :w] = kept[f] - prev + c[0, 0]     # this frame's delta over the DC
+            prev = kept[f]
+            e, s = _frame_rgb_error(video, out, f, canvas.astype(np.float32).astype(np.float64))
+            worst, share = max(worst, e), max(share, s)
+            canvas[ys + h, xs + w] = 0.0
+        print(f"scan {w}x{h} -v -s -i -S {step}: {nfr} frames of {2 * w}x{2 * h} in {wall:.3f} s "
+              f"(stages {_stages(st)}); panes vs the host float64 oracle: largest difference "
+              f"{worst} level, {share:.6f} off by one", flush=True)
+        if worst > 1:
+            raise RuntimeError("scan's panes disagree with the oracle")
+    return {"launches": launches, "stats": i8_stats}
+
+
+def _oracle_zoom_basis(torch, dev, scaling, scale, offset, nvectors, n):
+    """zoom's synthesis matrix [nvectors, n] for an upscale (``scale`` >= 1,
+    so every frequency takes part) from its closed form, float64 on the
+    card: cos(pi (k + 1/2) j / N), column 0 all 1/2, with (k, N) =
+    ((b + offset) / scale, n) interpolated, (b + offset, n scale) native,
+    ((b + offset)(n - 1) / (n scale - 1), n) centered (zoom/zoom.c:36-68)."""
+    b = torch.arange(nvectors, dtype=torch.float64, device=dev)[:, None] + offset
+    j = torch.arange(n, dtype=torch.float64, device=dev)[None, :]
+    k, big_n = {"interpolated": (b / scale, float(n)), "native": (b, n * scale),
+                "centered": (b * (n - 1) / (n * scale - 1.0), float(n))}[scaling]
+    m = torch.cos(np.pi * (k + 0.5) * j / big_n)
+    m[:, 0] = 0.5
+    return m
+
+
+def _zoom_oracle(torch, dev, x32, scaling, scale, vx, vy, vw, vh, trc):
+    """A float64 synthesis on the card from the closed-form float64 basis
+    and scipy's float64 DCT of the float32 pixels: [vh, vw, C] numpy."""
+    import scipy.fft
+
+    from dspfun_tpu_torch.io.color import srgb_encode
+
+    h, w, _ = x32.shape
+    c = torch.tensor(scipy.fft.dctn(x32.astype(np.float64), type=2, axes=(0, 1), workers=-1),
+                     device=dev)
+    yb = _oracle_zoom_basis(torch, dev, scaling, scale, vy, vh, h)
+    xb = _oracle_zoom_basis(torch, dev, scaling, scale, vx, vw, w)
+    out = torch.matmul(torch.matmul(yb, c.movedim(-1, 0)), xb.T) / float(h * w)
+    out = out.movedim(0, -1).cpu().numpy()
+    return srgb_encode(out) if trc else out
+
+
+def _rt_split_sigma(torch, dev, x32, scale, vx, vy, vw, vh):
+    """The largest standard deviation, over a frame's outputs, that the
+    rounding of zoom's run-time 3-digit route predicts.  Each operand is
+    scaled by its slice's power of two 2^e (2^(e-2) <= max < 2^(e-1)) and
+    kept to 21 bits, and the kernel drops the digit pairs below 2^-21: per
+    term of a contraction three errors, each of variance 2^-42 / 72 in
+    scaled units (an operand's residual, uniform in +-2^-22, times the
+    other operand taken uniform in +-1/2, which overstates it; two
+    dropped pairs of digits uniform in +-64).  K terms add, the first
+    contraction's error goes through the second, the frame is divided by
+    h w.  Computed from this run's spectrum in float64 on the card."""
+    import scipy.fft
+
+    def scale_of(mx):
+        return torch.where(mx > 0, torch.exp2(torch.floor(torch.log2(mx)) + 2.0),
+                           torch.ones_like(mx))
+
+    h, w, _ = x32.shape
+    var_term = 3.0 * 2.0**-42 / 72.0
+    c = torch.tensor(scipy.fft.dctn(x32.astype(np.float64), type=2, axes=(0, 1), workers=-1),
+                     device=dev).movedim(-1, 0)
+    yb = _oracle_zoom_basis(torch, dev, "interpolated", scale, vy, vh, h)
+    xb = _oracle_zoom_basis(torch, dev, "interpolated", scale, vx, vw, w)
+    c0 = c.clone()
+    c0[:, 0, :] = 0.0                               # the route peels the DC row and column
+    v1 = (h * var_term * scale_of(yb.abs().amax(1))[None, :, None] ** 2
+          * scale_of(c0.abs().amax(1))[:, None, :] ** 2)
+    t0 = torch.matmul(yb, c0) + 0.5 * c[:, 0:1, :]
+    t0[:, :, 0] = 0.0
+    v2 = (torch.matmul(v1, (xb ** 2).T)
+          + w * var_term * scale_of(t0.abs().amax(2))[:, :, None] ** 2
+          * scale_of(xb.abs().amax(1))[None, None, :] ** 2)
+    return float(v2.max().sqrt()) / (h * w)
+
+
+def _zoom_phase(torch, dev, plain_versions, int8mm, check_i8mm, hw=ZOOM_HW, scale=ZOOM_SCALE,
+                pan_frames=ZOOM_PAN_FRAMES, devpan=ZOOM_DEV, small=ZOOM_SMALL) -> dict:
+    """Main path 6: the zoom CLI; returns the int8 kernels' launches per
+    sub-phase and the 4-digit kernels' stats at the still's shapes."""
+    from dspfun_tpu_torch.io import images, video
+    from dspfun_tpu_torch.tools import zoom
+
+    h, w = hw
+    vh, vw = h * scale, w * scale
+    dh, dw = devpan["hw"]
+    stats = {}
+    for layout, m, k, b, r, what in (("left", vh, h, C, w, "zoom H"), ("right", vw, w, 1, C * vh, "zoom W")):
+        stats[f"{layout}4"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                                       check_i8mm(4, layout, m, k, b, r, what)))
+    # the pan's planned frames (a view of the source's size) and the device
+    # pan's run-time-split frames launch the kernels at shapes of their own
+    for nd, layout, m, k, b, r, what in ((4, "left", h, h, C, w, "pan H"), (4, "right", w, w, 1, C * h, "pan W"),
+                                         (3, "left", dh, dh, C, dw, "devpan H"),
+                                         (3, "right", dw, dw, 1, C * dh, "devpan W")):
+        check_i8mm(nd, layout, m, k, b, r, what)
+    torch.cuda.empty_cache()
+    launches = {}
+    zoom.TIME_DEVICE = True     # synth_device and pack_device by CUDA events
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoom_") as tmp:
+        src = os.path.join(tmp, "in.png")
+        _seeded_png(images, src, hw, 21, noise=0.03)
+        lin32 = images.read_image(src, linear=True).pixels.astype(np.float32)
+        enc32 = images.read_image(src).pixels.astype(np.float32)
+
+        # ---- (a) the 4x still with -g at the default policy (deep i8)
+        ref = _zoom_oracle(torch, dev, lin32, "interpolated", scale, 0.0, 0.0, vw, vh, True)
+        expect = {"left4": 3, "right4": 1}     # the forward DCT's two, then one of each a frame
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        files = {}
+        for tag, ext, force_plain, packer in (("fvid", "fvid", False, True), ("y4m", "y4m", False, True),
+                                              ("fvid, plain forced", "fvid", True, True),
+                                              ("y4m, no packer", "y4m", False, False)):
+            out = os.path.join(tmp, f"still_{len(files)}.{ext}")
+            saved = zoom.make_packer
+            if not packer:
+                zoom.make_packer = lambda *a: None
+            try:
+                with _policy(None), (plain_versions() if force_plain else contextlib.nullcontext()):
+                    wall, st, got = _run_tool(torch, zoom, ["-s", str(scale), "-g", src, out], int8mm)
+            finally:
+                zoom.make_packer = saved
+            if tag == "fvid":
+                peak = torch.cuda.max_memory_allocated()
+                launches["still"] = got
+            if got != ({} if force_plain else expect) or st["routes"] != ["planned"]:
+                raise RuntimeError(f"zoom still ({tag}) launched {got} on {st['routes']}, "
+                                   f"expected {expect} on the planned route")
+            print(f"zoom {w}x{h} -s {scale} -g to {tag}: {wall:.3f} s wall; stages (s) {_stages(st)}; "
+                  f"launches {json.dumps(got)}", flush=True)
+            files[tag] = out
+        err, _ = _frame_rgb_error(video, files["fvid"], 0, ref)
+        lv, share = _frame_rgb_error(video, files["y4m"], 0, ref)
+        lv2, share2 = _frame_rgb_error(video, files["y4m, no packer"], 0, ref)
+        same = open(files["fvid"], "rb").read() == open(files["fvid, plain forced"], "rb").read()
+        print(f"zoom still {vw}x{vh}: fvid vs the float64 synthesis (after the OETF) {err:.3e}; y4m "
+              f"{lv} level ({share:.6f} off by one), without the packer {lv2} level "
+              f"({share2:.6f}); fvid byte-equal kernel vs plain: {same}; peak device memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held before)", flush=True)
+        if not (err <= TOOL_TOL and lv <= 1 and lv2 <= 1 and same):
+            raise RuntimeError("zoom still failed")
+        del ref
+
+        # ---- (b) the pan across the 4x image, to y4m
+        out = os.path.join(tmp, "pan.y4m")
+        args = ["-s", str(scale), "-v", f"{w}x{h}", "-n", str(pan_frames), "-q",
+                "-x", "i/n*(w*xs-vw)", "-y", "(h*ys-vh)/2"]
+        pout = os.path.join(tmp, "pan_plain.y4m")
+        with _policy(None):
+            wall, st, got = _run_tool(torch, zoom, args + [src, out], int8mm)
+            with plain_versions():
+                pwall, pst, _ = _run_tool(torch, zoom, args + [src, pout], int8mm)
+        launches["pan"] = got
+        same = open(out, "rb").read() == open(pout, "rb").read()
+        worst, share = 0, 0.0
+        for f in sorted({0, pan_frames // 2 - 1, pan_frames - 1}):
+            ref = _zoom_oracle(torch, dev, enc32, "interpolated", scale,
+                               f / pan_frames * (w * scale - w), (h * scale - h) / 2.0, w, h, False)
+            e, sh = _frame_rgb_error(video, out, f, ref)
+            worst, share = max(worst, e), max(share, sh)
+        nplanned = st["routes"].count("planned")
+        want = {"left4": 2 + nplanned, "right4": nplanned}
+        print(f"zoom pan {w}x{h} view of the {scale}x image, {pan_frames} frames to y4m: "
+              f"{pan_frames / wall:.2f} frames/s ({wall:.3f} s); routes {st['routes']}; stages (s) "
+              f"{_stages(st)}; launches {json.dumps(got)}; plain forced {pan_frames / pwall:.2f} "
+              f"frames/s ({pwall:.3f} s; synthesis {pst['synth_device']:.4f} s); y4m byte-equal kernel "
+              f"vs plain: {same}; three frames vs the oracle: {worst} level ({share:.6f} off by one)",
+              flush=True)
+        if worst > 1 or not same or {k: v for k, v in want.items() if v} != got \
+                or pst["routes"] != st["routes"]:
+            raise RuntimeError(f"zoom pan failed (launches {got}, expected {want})")
+
+        # ---- (c) a pan on the device basis: default policy and i8@1e-5
+        dsrc = os.path.join(tmp, "dev.png")
+        _seeded_png(images, dsrc, devpan["hw"], 22, noise=0.03)
+        d32 = images.read_image(dsrc).pixels.astype(np.float32)
+        n = devpan["frames"]
+        args = ["-s", str(devpan["scale"]), "-v", f"{dw}x{dh}", "-n", str(n), "-q",
+                "-x", f"{devpan['xstep']}*i", "-y", f"{devpan['ystep']}*i"]
+        for name, want in ((None, {"left4": 2}), ("i8@1e-5", {"left3": 2 + n, "right3": n})):
+            out = os.path.join(tmp, f"dev_{name}.fvid")
+            with _policy(name):
+                wall, st, got = _run_tool(torch, zoom, args + [dsrc, out], int8mm)
+            launches[f"devpan {name or 'default'}"] = got
+            worst, tol = 0.0, TOOL_TOL
+            for f in (0, n // 2, n - 1):
+                at = (float(devpan["xstep"] * f), float(devpan["ystep"] * f), dw, dh)
+                ref = _zoom_oracle(torch, dev, d32, "interpolated", devpan["scale"], *at, False)
+                worst = max(worst, _frame_rgb_error(video, out, f, ref)[0])
+                if name:
+                    tol = max(tol, RT_SPLIT_SIGMAS
+                              * _rt_split_sigma(torch, dev, d32, devpan["scale"], *at))
+            note = ""
+            if name:
+                # the run-time split: kernel == plain, byte for byte, over the whole file
+                pout = os.path.join(tmp, "dev_plain.fvid")
+                with _policy(name), plain_versions():
+                    pwall, pst, _ = _run_tool(torch, zoom, args + [dsrc, pout], int8mm)
+                same = open(out, "rb").read() == open(pout, "rb").read()
+                note = (f"; plain forced {n / pwall:.2f} frames/s ({pwall:.3f} s; synthesis "
+                        f"{pst['synth_device']:.4f} s); fvid byte-equal kernel vs plain: {same}; held "
+                        f"to {RT_SPLIT_SIGMAS:g} sigma of the split's rounding model, {tol:.3e}")
+                if not same or set(pst["routes"]) != {"device"}:
+                    raise RuntimeError("zoom device-basis pan: kernel and plain files differ")
+            print(f"zoom pan on the device basis, {dw}x{dh} source, {devpan['scale']}x, {dw}x{dh} "
+                  f"view, {n} frames to fvid at {name or 'the default policy (deep i8: float32 products)'}: "
+                  f"{n / wall:.2f} frames/s ({wall:.3f} s); routes {st['routes']}; stages (s) "
+                  f"{_stages(st)}; launches {json.dumps(got)}; three frames vs the oracle {worst:.3e}: "
+                  f"the {TOOL_TOL:g} gate {'PASS' if worst <= TOOL_TOL else 'MISS'}{note}", flush=True)
+            if set(st["routes"]) != {"device"} or got != want or worst > tol:
+                raise RuntimeError(f"zoom device-basis pan at {name} failed (launches {got}, "
+                                   f"expected {want}, error {worst}, limit {tol})")
+
+        # ---- (d) showsamples and the other two bases at a small size
+        sh_, sw_ = small
+        ssrc = os.path.join(tmp, "small.png")
+        _seeded_png(images, ssrc, small, 23, noise=0.03)
+        s32 = images.read_image(ssrc).pixels.astype(np.float32)
+        for extra, scaling in ((["--showsamples=grid"], "interpolated"), (["--basis", "native"], "native"),
+                               (["--basis", "centered"], "centered")):
+            out = os.path.join(tmp, "small.fvid")
+            with _policy(None):
+                _run_tool(torch, zoom, ["-s", "3", "-p", "7x5"] + extra + [ssrc, out], int8mm)
+            ref = _zoom_oracle(torch, dev, s32, scaling, 3, 7.0, 5.0, 3 * sw_, 3 * sh_, False)
+            if extra[0].startswith("--showsamples"):
+                # green lines where the input's samples sit: every 3rd row and column
+                rows, cols = range(3 - 5 % 3, 3 * sh_, 3), range(3 - 7 % 3, 3 * sw_, 3)
+                ref[list(rows), :] = (0.0, 1.0, 0.0)
+                ref[:, list(cols)] = (0.0, 1.0, 0.0)
+            err = _frame_rgb_error(video, out, 0, ref)[0]
+            print(f"zoom {sw_}x{sh_} -s 3 -p 7x5 {' '.join(extra)}: vs the float64 oracle {err:.3e}",
+                  flush=True)
+            if err > TOOL_TOL:
+                raise RuntimeError(f"zoom {extra} failed")
+    return {"launches": launches, "stats": stats}
 
 
 def main() -> int:
@@ -1148,14 +1761,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_cli = _spec_cli_phase(torch, dev, plain_versions, int8mm, scipy.fft)
 
+    # ---- phase 9: main path 5, the scan CLI ------------------------------
+    torch.cuda.empty_cache()
+    scan_cli = _scan_phase(torch, dev, plain_versions, int8mm, check_i8mm, scipy.fft)
+
+    # ---- phase 10: main path 6, the zoom CLI -----------------------------
+    torch.cuda.empty_cache()
+    zoom_cli = _zoom_phase(torch, dev, plain_versions, int8mm, check_i8mm)
+    zoom_launches = {n: sum(part.get(n, 0) for part in zoom_cli["launches"].values())
+                     for n in REPLACES}
+    print(f"scan CLI main-path launches: {json.dumps(scan_cli['launches'])}; zoom CLI "
+          f"main-path launches: {json.dumps(zoom_cli['launches'])}", flush=True)
+    if not (scan_cli["launches"].get("left3") and zoom_launches["left4"]
+            and zoom_launches["right4"] and zoom_launches["left3"] and zoom_launches["right3"]):
+        raise RuntimeError("a kernel of the scan or zoom path never launched")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
-                             + calib["i8mm_launches"][n] + spec_cli[n]),
+                             + calib["i8mm_launches"][n] + spec_cli[n]
+                             + scan_cli["launches"].get(n, 0) + zoom_launches[n]),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
-                                     "spec_cli": spec_cli[n]},
+                                     "spec_cli": spec_cli[n],
+                                     "scan_cli": scan_cli["launches"].get(n, 0),
+                                     "zoom_cli": zoom_launches[n]},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -1164,6 +1795,11 @@ def main() -> int:
     for n, st in spec_i8.items():
         kernels[list(REPLACES).index(n)].update(
             {f"spec_cli_{key}": val for key, val in st.items()})
+    kernels[list(REPLACES).index("left3")].update(
+        {f"scan_cli_{key}": val for key, val in scan_cli["stats"].items()})
+    for n, st in zoom_cli["stats"].items():
+        kernels[list(REPLACES).index(n)].update(
+            {f"zoom_cli_{key}": val for key, val in st.items()})
     kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
                     "replaces": BF_REPLACES,
                     "launches": motion_launches["block_filter"],

@@ -11,13 +11,16 @@ so the detour through float32 is exact.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from dspfun_tpu_torch.core.transforms import AxisPlan
 from dspfun_tpu_torch.models.fused import FilterPlans
 
-__all__ = ["axis_plan_from_jax", "filter_plans_from_jax", "motion_plans_from_jax"]
+__all__ = ["axis_plan_from_jax", "filter_plans_from_jax", "motion_plans_from_jax",
+           "scan_plan_from_jax", "zoom_plans_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor | None:
@@ -53,3 +56,21 @@ def motion_plans_from_jax(plans, device: torch.device | str = "cuda") -> tuple:
     return tuple(None if group is None
                  else tuple(axis_plan_from_jax(p, device) for p in group)
                  for group in plans)
+
+
+def scan_plan_from_jax(plan, device: torch.device | str = "cuda"):
+    """A JAX-package ``ScanPlan`` (host schedule arrays and two inverse
+    ``AxisPlan``s) as the port's ``ScanPlan`` with its plans on
+    ``device``; the schedule arrays are shared, not copied."""
+    from dspfun_tpu_torch.models.scan_pipeline import ScanPlan  # noqa: PLC0415
+
+    fields = {f.name: getattr(plan, f.name) for f in dataclasses.fields(ScanPlan)}
+    fields["plans_inv"] = tuple(axis_plan_from_jax(p, device) for p in plan.plans_inv)
+    return ScanPlan(**fields)
+
+
+def zoom_plans_from_jax(plans, device: torch.device | str = "cuda") -> tuple:
+    """The JAX package's ``zoom_plan`` result ``(plan_y, plan_x)`` as the
+    port's pair of ``AxisPlan``s on ``device``."""
+    plan_y, plan_x = plans
+    return axis_plan_from_jax(plan_y, device), axis_plan_from_jax(plan_x, device)

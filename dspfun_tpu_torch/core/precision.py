@@ -140,18 +140,19 @@ def set_precision(p: Precision) -> None:
     _explicit = True
 
 
-def tool_default(tool: str) -> Precision:
+def tool_default(tool: str, device: torch.device | str = "cuda") -> Precision:
     """Per-tool default policy (the JAX package's ``tool_default``):
-    zoom takes the deep-i8 contraction where the int8 kernels run (a
-    CUDA device); every other tool, and zoom without one, takes hilo."""
-    if tool == "zoom" and torch.cuda.is_available():
+    zoom takes the deep-i8 contraction where the int8 kernels run, that
+    is when ``device``, the device the tool resolved, is a CUDA device;
+    every other tool, and zoom on any other device, takes hilo."""
+    if tool == "zoom" and torch.device(device).type == "cuda":
         return Precision(coeff="float32", intermediate="i8")
     return Precision()
 
 
-def apply_tool_default(tool: str) -> None:
-    """Install the per-tool default policy unless the user already
-    chose one (DSPFUN_PRECISION or set_precision)."""
+def apply_tool_default(tool: str, device: torch.device | str = "cuda") -> None:
+    """Install the per-tool default policy for a run on ``device`` unless
+    the user already chose one (DSPFUN_PRECISION or set_precision)."""
     global _default
     if not _explicit:
-        _default = tool_default(tool)
+        _default = tool_default(tool, device)

@@ -27,6 +27,8 @@ __all__ = [
     "apply_matrix",
     "dct2",
     "dct3",
+    "dct2_nd",
+    "dct3_nd",
     "uniform_grid",
     "split_hilo",
     "AxisPlan",
@@ -254,6 +256,26 @@ def dct2(x: torch.Tensor, axis: int, precision: Precision | None = None) -> torc
 def dct3(x: torch.Tensor, axis: int, precision: Precision | None = None) -> torch.Tensor:
     """FFTW REDFT01 along one axis (unnormalised)."""
     return apply_matrix(x, basis_mod.dct3_matrix(x.shape[axis]), axis, precision)
+
+
+def dct2_nd(
+    x: torch.Tensor, axes: Sequence[int], precision: Precision | None = None
+) -> torch.Tensor:
+    """Separable FFTW DCT-II over several axes (e.g. 2-D whole-image
+    transform, reference spec/spec.c:63)."""
+    for ax in axes:
+        x = dct2(x, ax, precision)
+    return x
+
+
+def dct3_nd(
+    x: torch.Tensor, axes: Sequence[int], precision: Precision | None = None
+) -> torch.Tensor:
+    """Separable FFTW DCT-III over several axes.  dct3_nd(dct2_nd(x))
+    == x * prod(2*N_axis)."""
+    for ax in axes:
+        x = dct3(x, ax, precision)
+    return x
 
 
 @functools.lru_cache(maxsize=None)

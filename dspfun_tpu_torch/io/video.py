@@ -1,21 +1,28 @@
-"""Video I/O: the y4m subset of ``dspfun_tpu/io/video.py``, copied.
+"""Video I/O: the y4m, fvid and image-sequence subset of
+``dspfun_tpu/io/video.py``, copied.
 
 The reference wraps libavformat/libavcodec/libswscale (include/ffapi.{h,c})
 for frame-by-frame video read/write with color-property negotiation.
 The JAX package carries its own containers; the port so far copies the
-one its motion CLI needs on the card, which has no JAX:
+ones its motion, scan and zoom CLIs need on the card, which has no JAX:
 
 * **y4m** (YUV4MPEG2), the reference's default for pipe video
   (ffapi.c:177-178,396-397): 8- to 16-bit planar YCbCr (mono, 420, 422,
   444), full header parsing including C-tag chroma siting and the
   XCOLORRANGE extension;
+* **fvid**, the package's own float container: a one-line ``DSPFVID``
+  header with the color properties, then ``FRAME`` markers and raw
+  float32 planes (gbrpf32le, grayf32le, yuv444pf32);
+* **image2**, a printf pattern (``frame%04d.png``) or a single image
+  path, written through ``io/images.write_image`` (PNG only);
 * the pixel formats, color properties (FFColorProperties, ffapi.h:16-23,
   parsed from the same "k=v:k=v" strings, ffapi.c:94-114) and the
   RGB <-> planar and pel conversions around them.
 
-Every other container (NUT, MKV, FFV1, fvid, image sequences, the ffmpeg
-bridge) raises "not ported yet".  tests/test_torch_motion_cli.py pins
-the copy to its original.
+Every other container (NUT, MKV, FFV1, the ffmpeg bridge, ``ffplay:``
+sinks) and image sequences as input raise "not ported yet".
+tests/test_torch_motion_cli.py and tests/test_torch_video_fvid.py pin the
+copy to its original.
 """
 
 from __future__ import annotations
@@ -42,6 +49,11 @@ __all__ = [
     "VideoWriter",
     "Y4MReader",
     "Y4MWriter",
+    "FvidReader",
+    "FvidWriter",
+    "ImageSeqWriter",
+    "split_codec_opts",
+    "check_output",
     "rgb_to_planes",
     "planes_to_rgb",
 ]
@@ -139,6 +151,25 @@ class ColorProps:
 
 _RANGE_ALIASES = {"full": "jpeg", "pc": "jpeg", "jpeg": "jpeg",
                   "limited": "mpeg", "tv": "mpeg", "mpeg": "mpeg"}
+
+
+# --ff-opts keys that address the encoder rather than color properties
+# (the reference passes one option dict to the codec, zoom.c:217-228):
+# they split off before color parsing.  No container of the port has an
+# encoder, so the CLIs drop them.
+_CODEC_OPT_KEYS = {"level", "slices", "slicecrc", "negotiate"}
+
+
+def split_codec_opts(optstring: str | None) -> tuple[str, str]:
+    """Split a "k=v:k=v" option string into (color-prop string,
+    codec-option string).  Accepts ``:``, ``,`` and ``|`` separators, so
+    a mixed-separator string never drops a color property into the codec
+    bucket."""
+    props, codec = [], []
+    for part in re.split(r"[:,|]", optstring or ""):
+        k = part.split("=", 1)[0].strip()
+        (codec if k in _CODEC_OPT_KEYS else props).append(part)
+    return ":".join(p for p in props if p), ":".join(c for c in codec if c)
 
 
 def parse_color_props(props: str | None) -> ColorProps:
@@ -386,7 +417,7 @@ class VideoReader:
 
 
 class _HeaderedReader(VideoReader):
-    """FRAME-marker logic of the headered containers (y4m)."""
+    """Shared FRAME-marker logic for y4m and fvid."""
 
     def _parse_header(self):
         raise NotImplementedError
@@ -503,6 +534,43 @@ class Y4MReader(_HeaderedReader):
         self.props.chroma_location = loc
 
 
+class FvidReader(_HeaderedReader):
+    def __init__(self, stream, spec):
+        super().__init__(stream, spec, "fvid")
+        self._parse_header()
+        self._count_frames()
+
+    def _parse_header(self):
+        line = self._stream.readline().decode("ascii", "replace")
+        if not line.startswith("DSPFVID"):
+            raise ValueError(f"{self.spec!r} is not an fvid stream")
+        self.props = ColorProps()
+        for tok in line.split()[1:]:
+            k, v = tok[0], tok[1:]
+            if k == "W":
+                self.width = int(v)
+            elif k == "H":
+                self.height = int(v)
+            elif k == "F":
+                n, d = v.split(":")
+                self.rate = Fraction(int(n), int(d))
+            elif k == "C":
+                self.pix_fmt = PIXEL_FORMATS[v]
+                self.props.pix_fmt = v
+            elif k == "R":
+                self.props.color_range = v
+            elif k == "T":
+                self.props.color_trc = v
+            elif k == "S":
+                self.props.color_space = v
+            elif k == "P":
+                self.props.color_primaries = v
+            elif k == "L":
+                self.props.chroma_location = v
+            elif k == "A":
+                self.props.sample_aspect = v
+
+
 class VideoWriter:
     def __init__(self, stream, spec, fmt, width, height, rate, pix_fmt: PixelFormat,
                  props: ColorProps):
@@ -545,10 +613,16 @@ class VideoWriter:
     def write_frame_rgb(self, rgb: np.ndarray) -> None:
         self.write_frame(rgb_to_planes(rgb, self.pix_fmt, self.props))
 
+    def supports_payload(self) -> bool:
+        """True when :meth:`write_frame_payload` is available (raw
+        plane-payload framing: y4m and fvid)."""
+        return True
+
     def write_frame_payload(self, payload: bytes) -> None:
         """Write one frame from pre-packed plane-payload bytes (planes
-        already quantised to the container's dtype, e.g. on the device)
-        — skips the host-side conversion and quantisation entirely."""
+        already quantised to the container's dtype, e.g. by
+        io/device_pack.py on the device) — skips the host-side
+        conversion and quantisation entirely."""
         if not self._wrote_header:
             self._write_header()
             self._wrote_header = True
@@ -585,45 +659,124 @@ class Y4MWriter(VideoWriter):
         self._stream.write((hdr + "\n").encode("ascii"))
 
 
+class FvidWriter(VideoWriter):
+    def _write_header(self):
+        hdr = f"DSPFVID W{self.width} H{self.height} " \
+              f"F{self.rate.numerator}:{self.rate.denominator} C{self.pix_fmt.name}"
+        for tag, val in (
+            ("R", self.props.color_range), ("T", self.props.color_trc),
+            ("S", self.props.color_space), ("P", self.props.color_primaries),
+            ("L", self.props.chroma_location),
+            ("A", self.props.sample_aspect),
+        ):
+            if val:
+                hdr += f" {tag}{val}"
+        self._stream.write((hdr + "\n").encode("ascii"))
+
+
+class ImageSeqWriter(VideoWriter):
+    def __init__(self, pattern, spec, width, height, rate, pix_fmt, props):
+        super().__init__(None, spec, "image2", width, height, rate, pix_fmt, props)
+        self.pattern = pattern
+        self._single = _PATTERN_RE.search(pattern) is None
+
+    def supports_payload(self) -> bool:
+        return False
+
+    def write_frame(self, planes, raw: bool = False):
+        if raw:
+            # stored pel units -> normalized [0,1] before RGB conversion
+            # (the setpel_direct analogue; float formats are already raw)
+            planes = [
+                p if self.pix_fmt.is_float
+                else _dequantize_plane(np.asarray(p), self.pix_fmt, i,
+                                       self.props.color_range)
+                for i, p in enumerate(planes)
+            ]
+        rgb = planes_to_rgb(planes, self.pix_fmt, self.props, self.width, self.height)
+        self.write_frame_rgb(rgb)
+
+    def write_frame_rgb(self, rgb):
+        from dspfun_tpu_torch.io.images import write_image  # noqa: PLC0415
+
+        if self._single:
+            if self.frame_index >= 1:
+                raise RuntimeError(
+                    f"single-image output {self.pattern!r} can hold one "
+                    "frame; use a printf pattern (frame%04d.png) for "
+                    "sequences"
+                )
+            path = self.pattern
+        else:
+            path = self.pattern % self.frame_index
+        write_image(path, np.clip(rgb, 0.0, 1.0))
+        self.frame_index += 1
+
+    def close(self):
+        pass
+
+
 # ---------------------------------------------------------------------------
 # open_input / open_output
 # ---------------------------------------------------------------------------
 
+_PATTERN_RE = re.compile(r"%0?\d*d")
 _PIPES_IN = ("-", "pipe:", "pipe:0")
 _PIPES_OUT = ("-", "pipe:", "pipe:1")
+
+# extensions the JAX package hands to its ffmpeg bridge
+_FFMPEG_EXTS = ("avi", "mkv", "mp4", "mov", "m4v", "webm", "mpg",
+                "mpeg", "ts", "gif", "flv", "wmv", "ogv")
 
 
 def _not_ported(spec: str, what: str) -> ValueError:
     return ValueError(
-        f"{spec!r}: {what} is not ported yet; the port reads and writes "
-        "y4m files and pipes only (ROADMAP queue 1, item 13)")
+        f"{spec!r}: {what} is not ported yet; the port reads y4m and fvid "
+        "and writes y4m, fvid and PNG sequences (ROADMAP queue 1, item 13)")
 
 
 def _sniff_format(path: str, fmt: str | None) -> str:
-    """"y4m" for a y4m request, a .y4m path or a pipe; the name of any
-    other container (which the port refuses)."""
+    """"y4m", "fvid", "image2" or "pipe" (y4m on output, magic bytes on
+    input) as the JAX package's ``_sniff_format`` decides them; for any
+    container the port lacks, its name ("nut", an ffmpeg format or
+    extension), which the callers refuse."""
     if fmt:
-        return "y4m" if fmt in ("yuv4mpegpipe", "y4m") else fmt
-    if re.search(r"%0?\d*d", path):
+        aliases = {"yuv4mpegpipe": "y4m", "y4m": "y4m", "fvid": "fvid",
+                   "image2": "image2"}
+        return aliases.get(fmt, fmt)
+    if _PATTERN_RE.search(path):
         return "image2"
     ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
-    if ext == "y4m" or not ext or path in _PIPES_IN + _PIPES_OUT:
-        return "y4m"
-    return ext
+    if ext in ("y4m", "fvid"):
+        return ext
+    if ext == "nut" or ext in _FFMPEG_EXTS:
+        return ext
+    if ext in ("png", "jpg", "ppm"):
+        return "image2"
+    # pipes default to y4m for output (reference ffapi.c:396-397) and
+    # sniffing for input
+    return "pipe"
 
 
 def open_input(spec: str, format: str | None = None) -> VideoReader:
-    """Open a y4m input (path or ``-`` pipe), recognised by its magic
-    bytes."""
+    """Open a y4m or fvid input (path or ``-`` pipe), recognised by its
+    magic bytes first, so fvid content under a foreign extension still
+    opens."""
     fmt = _sniff_format(spec, format)
-    if fmt != "y4m":
+    if fmt == "image2":
+        raise _not_ported(spec, "an image sequence as input")
+    if fmt not in ("y4m", "fvid", "pipe"):
         raise _not_ported(spec, f"the {fmt} container")
     stream = sys.stdin.buffer if spec in _PIPES_IN else open(spec, "rb")
     magic = stream.peek(9)[:9] if hasattr(stream, "peek") else b""
+    if magic.startswith(b"DSPFVID"):
+        return FvidReader(stream, spec)
     if magic and not magic.startswith(b"YUV4MPEG"):
         if stream is not sys.stdin.buffer:
             stream.close()
-        raise _not_ported(spec, "a non-y4m stream")
+        raise _not_ported(spec, "a stream that is neither y4m nor fvid")
+    if fmt == "fvid":
+        return FvidReader(stream, spec)
     return Y4MReader(stream, spec)
 
 
@@ -634,43 +787,107 @@ def open_output(
     rate: Fraction = Fraction(25, 1),
     props: ColorProps | None = None,
     format: str | None = None,
+    append: bool = False,
 ) -> VideoWriter:
-    """Open a y4m output (path or ``-`` pipe).  The pixel format is
-    negotiated for y4m (an RGB or float request becomes yuv444p or gray,
-    reference ffapi.c:78-80) and unset color properties take the y4m
-    defaults (ffapi.c:33-43)."""
+    """Open a video output.
+
+    Format selection: explicit ``format`` > ``%d`` pattern (image2) >
+    extension (.y4m / .fvid / .png) > pipe defaults to y4m (reference
+    ffapi.c:390-397).  The pixel format is negotiated per container (an
+    RGB or float request becomes yuv444p or gray in y4m, reference
+    ffapi.c:78-80; fvid is float planar) and unset color properties take
+    the container's defaults (ffapi.c:33-92).  ``append`` continues an
+    existing y4m or fvid stream in place, or an image sequence after its
+    last frame (checkpoint/resume).
+    """
     props = (props or ColorProps()).copy()
+    fmt = check_output(spec, format)
+    if fmt == "image2":
+        pf = PIXEL_FORMATS[props.pix_fmt or "gbrpf32le"]
+        _default_props(fmt, props)
+        w = ImageSeqWriter(spec, spec, width, height, rate, pf, props)
+        if append:
+            # resume: continue numbering after the existing frames
+            if w._single:
+                w.frame_index = 1 if os.path.exists(spec) else 0
+            else:
+                n = 0
+                while os.path.exists(spec % n):
+                    n += 1
+                w.frame_index = n
+        return w
+    pf = PIXEL_FORMATS[_negotiate_pix_fmt(fmt, props)]
+    _default_props(fmt, props)
+    cls = Y4MWriter if fmt == "y4m" else FvidWriter
+    name = "yuv4mpegpipe" if fmt == "y4m" else "fvid"
+    if append and spec not in _PIPES_OUT and os.path.exists(spec) \
+            and os.path.getsize(spec) > 0:
+        # checkpoint/resume: continue an existing stream in place
+        w = cls(open(spec, "ab"), spec, name, width, height, rate, pf, props)
+        w._wrote_header = True
+        return w
+    stream = sys.stdout.buffer if spec in _PIPES_OUT else open(spec, "wb")
+    return cls(stream, spec, name, width, height, rate, pf, props)
+
+
+def check_output(spec: str, format: str | None = None) -> str:
+    """The container :func:`open_output` writes for ``spec`` ("y4m",
+    "fvid" or "image2"), or the ``ValueError`` of a target the port
+    cannot write: ``ffplay:`` sinks, containers it lacks, and image
+    sequences in another format than PNG.  The CLIs call it before they
+    read or compute anything."""
     if spec.startswith("ffplay:"):
         raise _not_ported(spec, "an ffplay sink")
     fmt = _sniff_format(spec, format)
-    if fmt != "y4m":
+    fmt = "y4m" if fmt == "pipe" else fmt
+    if fmt == "image2":
+        from dspfun_tpu_torch.io.images import check_target  # noqa: PLC0415
+
+        check_target(spec if _PATTERN_RE.search(spec) is None else spec % 0)
+    elif fmt not in ("y4m", "fvid"):
         raise _not_ported(spec, f"the {fmt} container")
-    pf = PIXEL_FORMATS[_negotiate_pix_fmt(props)]
-    _default_props(props)
-    stream = sys.stdout.buffer if spec in _PIPES_OUT else open(spec, "wb")
-    return Y4MWriter(stream, spec, "yuv4mpegpipe", width, height, rate, pf, props)
+    return fmt
 
 
-def _negotiate_pix_fmt(props: ColorProps) -> str:
-    """Pixel format negotiation for y4m: it cannot carry RGB or floats
-    (an RGB request becomes yuv444p, reference ffapi.c:78-80)."""
+def _negotiate_pix_fmt(fmt: str, props: ColorProps) -> str:
+    """Per-container pixel format negotiation: y4m cannot carry RGB or
+    floats (an RGB request becomes yuv444p, reference ffapi.c:78-80);
+    fvid is float planar."""
     req = props.pix_fmt
-    if req in ("gray", "yuv420p", "yuv422p", "yuv444p"):
-        return req
-    if req and (req == "gray16le"
-                or re.fullmatch(r"yuv(420|422|444)p(10|12|16)le", req)):
-        return req  # high-depth y4m C-tags (C420p16 etc.)
-    if req in ("grayf32le",):
-        return "gray"
-    return "yuv444p"
+    if fmt == "y4m":
+        if req in ("gray", "yuv420p", "yuv422p", "yuv444p"):
+            return req
+        if req and (req == "gray16le"
+                    or re.fullmatch(r"yuv(420|422|444)p(10|12|16)le", req)):
+            return req  # high-depth y4m C-tags (C420p16 etc.)
+        if req in ("grayf32le",):
+            return "gray"
+        return "yuv444p"
+    if fmt == "fvid":
+        if req in PIXEL_FORMATS and PIXEL_FORMATS[req].is_float:
+            return req
+        if req in ("gray", "gray16le", "grayf32le"):
+            return "grayf32le"
+        if req and req.startswith("yuv"):
+            return "yuv444pf32"
+        return "gbrpf32le"
+    return req or "gbrpf32le"
 
 
-def _default_props(props: ColorProps) -> None:
-    """y4m color defaults where unset (reference ffapi.c:33-92)."""
-    props.color_range = props.color_range or "mpeg"
-    props.color_primaries = props.color_primaries or "smpte170m"
-    props.color_trc = props.color_trc or "smpte170m"
-    if props.color_space in (None, "rgb"):
-        # RGB input to a YCbCr container defaults to BT.601
-        # (reference ffapi.c:89-92)
-        props.color_space = "smpte170m"
+def _default_props(fmt: str, props: ColorProps) -> None:
+    """Per-format color defaults where unset (reference ffapi.c:33-92)."""
+    if fmt == "y4m":
+        props.color_range = props.color_range or "mpeg"
+        props.color_primaries = props.color_primaries or "smpte170m"
+        props.color_trc = props.color_trc or "smpte170m"
+        if props.color_space in (None, "rgb"):
+            # RGB input to a YCbCr container defaults to BT.601
+            # (reference ffapi.c:89-92)
+            props.color_space = "smpte170m"
+    elif fmt == "image2":
+        props.color_range = props.color_range or "jpeg"
+        props.color_primaries = props.color_primaries or "bt709"
+        props.color_trc = props.color_trc or "iec61966-2-1"
+        props.color_space = props.color_space or "rgb"
+    else:
+        props.color_range = props.color_range or "jpeg"

@@ -8,9 +8,12 @@ unless the caller asks for ``cpu``, where the kernels' plain versions
 run.
 """
 
+import os
 import sys
 
 import torch
+
+MESH_NOT_PORTED = "ROADMAP.md queue 1, item 18"
 
 
 def run_main(main) -> None:
@@ -38,6 +41,17 @@ def cli_device(arg: str | None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise ValueError("--device cuda: torch.cuda.is_available() is False")
     return dev
+
+
+def mesh_refused(mesh_spec: str | None, flags: str = "--mesh") -> bool:
+    """Whether the caller asked for a device mesh (the option, or a set
+    ``DSPFUN_MESH``), which the port lacks: prints the refusal (exit 1)."""
+    if mesh_spec is None and not os.environ.get("DSPFUN_MESH"):
+        return False
+    print(f"{flags} and DSPFUN_MESH: the device mesh is not ported to "
+          f"dspfun_tpu_torch yet ({MESH_NOT_PORTED}); use dspfun_tpu.tools",
+          file=sys.stderr)
+    return True
 
 
 def parse_pair(arg: str, conv=int):

@@ -13,14 +13,13 @@ targets the port cannot write refused before anything is read.
 from __future__ import annotations
 
 import dataclasses
-import os
 import sys
 
 import torch
 
 from dspfun_tpu_torch.io import images
 from dspfun_tpu_torch.models.spec_pipeline import SpecChainParams
-from dspfun_tpu_torch.tools import cli_device
+from dspfun_tpu_torch.tools import cli_device, mesh_refused
 from dspfun_tpu_torch.utils.profiling import stage
 
 SPECTYPES = ("abs", "shift", "flat", "sign", "copy")
@@ -113,17 +112,13 @@ def resolve_io(args: list[str], opts: SpecOpts) -> bool:
 
 # long options of the port's spec and ispec, beside the JAX tools' short ones
 LONG = ["device=", "mesh="]
-MESH_NOT_PORTED = "ROADMAP.md queue 1, item 18"
 
 
 def setup(opts: SpecOpts, mesh_spec: str | None, device_arg: str | None):
     """What the port's spec and ispec check before they read anything:
     the mesh (refused), the output target (PNG only) and the device.
     Returns the device, or None after printing why not (exit code 1)."""
-    if mesh_spec is not None or os.environ.get("DSPFUN_MESH"):
-        print("-M/--mesh and DSPFUN_MESH: the device mesh is not ported to "
-              f"dspfun_tpu_torch yet ({MESH_NOT_PORTED}); use dspfun_tpu.tools",
-              file=sys.stderr)
+    if mesh_refused(mesh_spec, "-M/--mesh"):
         return None
     try:
         images.check_target(opts.output)

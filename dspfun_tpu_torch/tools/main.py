@@ -1,8 +1,8 @@
 """dspfun-torch — dispatcher for the tool CLIs the port has (PyTorch port
 of ``dspfun_tpu/tools/main.py``).
 
-``dspfun-torch <tool> [options]`` runs ``spec``, ``ispec`` or ``motion``.
-The JAX package's other seven tools are not ported yet: each is refused
+``dspfun-torch <tool> [options]`` runs ``spec``, ``ispec``, ``motion``,
+``scan`` or ``zoom``.  The JAX package's other five tools are not ported yet: each is refused
 with exit code 1 and the ROADMAP item that ports it.
 """
 
@@ -15,12 +15,14 @@ TOOLS = {
     "spec": "dspfun_tpu_torch.tools.spec",
     "ispec": "dspfun_tpu_torch.tools.ispec",
     "motion": "dspfun_tpu_torch.tools.motion",
+    "scan": "dspfun_tpu_torch.tools.scan",
+    "zoom": "dspfun_tpu_torch.tools.zoom",
 }
 
 # the JAX package's tools the port lacks, and the ROADMAP queue 1 item of each
 NOT_PORTED = {
     "rotate": 17, "transcode": 17, "applybasis": 16, "genbasis": 16,
-    "draw": 16, "zoom": 15, "scan": 14,
+    "draw": 16,
 }
 
 

@@ -1,8 +1,8 @@
 """The port on a CUDA card: the hand-written kernels (int8 digit
 contraction, fused Kronecker block filter, int8 contraction with the
 in-kernel digit split) against their plain versions,
-and the card's chains, motion's filter_blocks and the motion CLI against
-the CPU's and a float64 oracle.
+and the card's chains, motion's filter_blocks and the motion, spec, ispec,
+scan and zoom CLIs against the CPU's and a float64 oracle.
 
 Every test here needs a card and skips without one.  The machine with the
 card has no JAX, so this file imports none; run it there without the
@@ -490,3 +490,119 @@ def test_i8split_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="exact-int32"):
         tsp.i8_split_contract(torch.zeros((3, 1, k), dtype=torch.int8, device=cuda),
                               torch.zeros((k, 1), device=cuda), **kw)
+
+
+# ---- scan and zoom on the card (paths 5 and 6) ----
+
+
+@pytest.mark.parametrize("layout,m,k,b,r", [
+    # zoom's 4x still of a 1080p image at a reduced R: the batched-left
+    # form along H, then the right form along W; and the forward DCT's W
+    # pass, which batches over the rows with R = 3
+    ("left", 4320, 1080, 3, 192), ("right", 7680, 1920, 1, 324), ("left", 1920, 1920, 108, 3),
+])
+def test_four_digit_kernel_at_zooms_shapes(cuda, layout, m, k, b, r):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    a = _digits(g, (4, m, tmm.ceil_to(k, 128)), cuda)
+    a[:, :, k:] = 0
+    x = _digits(g, (4, b, k, r) if layout == "left" else (4, b, r, k), cuda)
+    before = tmm.LAUNCHES[f"{layout}4"]
+    y = tmm._i8_groups(a, x, layout)
+    assert tmm.LAUNCHES[f"{layout}4"] == before + 1
+    assert torch.equal(y, tmm._i8_groups_plain(a, x, layout))
+
+
+@pytest.mark.parametrize("axis,shape,m", [(1, (3, 272, 320), 90), (2, (3, 70, 320), 200),
+                                          (0, (300, 70), 33), (1, (2, 300, 5, 7), 20)])
+def test_i8_contract_rt_kernel_equals_plain_and_cpu(cuda, axis, shape, m, monkeypatch):
+    """The run-time split of both operands (zoom's device route): the
+    kernel's result equals the plain version's on the card and the CPU's,
+    bit for bit, and lands within 2^-16 of a float64 product."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((m, shape[axis])).astype(np.float32)
+    x = ((rng.random(shape) - 0.4) * 3).astype(np.float32)
+    tmm.LAUNCHES.clear()
+    y = tmm.i8_contract_rt(torch.from_numpy(x).to(cuda), torch.from_numpy(a).to(cuda), axis)
+    assert sum(tmm.LAUNCHES.values()) == 1 and tuple(y.shape) == shape[:axis] + (m,) + shape[axis + 1:]
+    y_cpu = tmm.i8_contract_rt(torch.from_numpy(x), torch.from_numpy(a), axis)
+    assert torch.equal(y.cpu(), y_cpu)
+    monkeypatch.setattr(tmm, "_i8_groups", tmm._i8_groups_plain)
+    y_plain = tmm.i8_contract_rt(torch.from_numpy(x).to(cuda), torch.from_numpy(a).to(cuda), axis)
+    assert torch.equal(y, y_plain) and sum(tmm.LAUNCHES.values()) == 1
+    ref = np.moveaxis(np.tensordot(a.astype(np.float64), x.astype(np.float64), ([1], [axis])), 0, axis)
+    assert np.max(np.abs(y.cpu().numpy() - ref)) <= 2.0**-16 * np.max(np.abs(ref))
+
+
+def _tool_png(tmp_path, h, w, seed):
+    from dspfun_tpu_torch.io import images
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    pix = 0.5 + 0.25 * np.sin(x / 31.0 + y / 17.0)[..., None] + 0.06 * (rng.random((h, w, 3)) - 0.5)
+    src = str(tmp_path / "in.png")
+    images.write_image(src, pix)
+    return src
+
+
+def test_scan_cli_on_card(cuda, tmp_path, monkeypatch):
+    """``scan`` at 272x320: the default policy launches nothing and agrees
+    with ``--device cpu`` within one level; at ``i8@1e-5`` the left kernel
+    launches twice in the forward DCT and twice per chunk, and the file
+    equals the plain-forced run's, byte for byte."""
+    from dspfun_tpu_torch.core import precision
+    from dspfun_tpu_torch.tools import scan
+
+    src = _tool_png(tmp_path, 272, 320, 1)
+    args = ["-m", "zigzag", "-S", "700", "-q", "-P"]
+    out = {t: str(tmp_path / f"{t}.y4m") for t in ("card", "cpu", "i8", "plain")}
+    monkeypatch.setattr(precision, "_default", Precision())
+    monkeypatch.setattr(precision, "_explicit", True)
+    tmm.LAUNCHES.clear()
+    assert scan.main(args + [src, out["card"]]) == 0 and not tmm.LAUNCHES
+    assert "chunk_device_ms" in scan.LAST_STAGE_TIMES
+    assert scan.main(["--device", "cpu"] + args + [src, out["cpu"]]) == 0
+    a, b = (np.frombuffer(open(out[t], "rb").read(), np.uint8).astype(int) for t in ("card", "cpu"))
+    assert a.shape == b.shape and np.abs(a - b).max() <= 1 and np.mean(a != b) < 0.005
+    monkeypatch.setattr(precision, "_default", Precision.parse("i8@1e-5"))
+    assert scan.main(args + [src, out["i8"]]) == 0
+    nchunks = -(-scan.LAST_STAGE_TIMES["frames"] // 61)       # 16e6 // (272 * 320 * 3) frames a chunk
+    assert dict(tmm.LAUNCHES) == {"left3": 2 + 2 * nchunks}
+    monkeypatch.setattr(tmm, "_i8_groups", tmm._i8_groups_plain)
+    assert scan.main(args + [src, out["plain"]]) == 0
+    assert open(out["i8"], "rb").read() == open(out["plain"], "rb").read()
+
+
+def test_zoom_cli_on_card(cuda, tmp_path, monkeypatch):
+    """``zoom`` at 272x320: the tool's default on a card is deep ``i8``
+    (left4 3, right4 1 for a still), byte-equal to the plain-forced run and
+    within 1e-5 of ``--device cpu``'s ``hilo`` frame after the OETF; a pan
+    on the device basis at ``i8@1e-5`` launches left3 and right3 once a
+    frame through ``i8_contract_rt``."""
+    from dspfun_tpu_torch.core import precision
+    from dspfun_tpu_torch.io import video
+    from dspfun_tpu_torch.tools import zoom
+
+    src = _tool_png(tmp_path, 272, 320, 2)
+    out = {t: str(tmp_path / f"{t}.fvid") for t in ("card", "cpu", "plain", "pan")}
+    monkeypatch.setattr(precision, "_default", Precision())
+    monkeypatch.setattr(precision, "_explicit", False)
+    monkeypatch.setattr(zoom, "TIME_DEVICE", True)
+    tmm.LAUNCHES.clear()
+    assert zoom.main(["-s", "2", "-g", src, out["card"]]) == 0
+    assert dict(tmm.LAUNCHES) == {"left4": 3, "right4": 1}
+    assert precision.get_precision().intermediate == "i8" and precision.get_precision().tol is None
+    assert zoom.LAST_STAGE_TIMES["routes"] == ["planned"] and "synth_device" in zoom.LAST_STAGE_TIMES
+    assert zoom.main(["--device", "cpu", "-s", "2", "-g", src, out["cpu"]]) == 0
+    a, b = (video.open_input(out[t]).read_frame_rgb() for t in ("card", "cpu"))
+    assert a.shape == (544, 640, 3) and np.max(np.abs(a - b)) <= 1e-5
+    plain = tmm._i8_groups_plain
+    monkeypatch.setattr(tmm, "_i8_groups", plain)
+    assert zoom.main(["-s", "2", "-g", src, out["plain"]]) == 0
+    assert open(out["card"], "rb").read() == open(out["plain"], "rb").read()
+    monkeypatch.undo()
+    monkeypatch.setattr(precision, "_default", Precision.parse("i8@1e-5"))
+    monkeypatch.setattr(precision, "_explicit", True)
+    tmm.LAUNCHES.clear()
+    assert zoom.main(["-s", "2", "-v", "320x272", "-n", "4", "-q", "-x", "8*i", src, out["pan"]]) == 0
+    assert zoom.LAST_STAGE_TIMES["routes"] == ["device"] * 4
+    assert dict(tmm.LAUNCHES) == {"left3": 2 + 4, "right3": 4}

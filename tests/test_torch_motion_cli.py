@@ -135,10 +135,7 @@ def test_y4m_writer_and_reader_match_jax(tmp_path, pix, crange):
     for mod in (jvideo, tvideo):
         buf = io.BytesIO()
         props = mod.ColorProps(pix_fmt=pix, color_range=crange, chroma_location="left")
-        if mod is jvideo:
-            mod._default_props("y4m", props)
-        else:
-            mod._default_props(props)
+        mod._default_props("y4m", props)
         wr = mod.Y4MWriter(buf, "mem", "yuv4mpegpipe", w, h, Fraction(30000, 1001),
                            mod.PIXEL_FORMATS[pix], props)
         for f in frames:
@@ -196,12 +193,13 @@ def test_video_helpers_match_jax():
         if not pt.is_rgb:
             assert tvideo._y4m_ctag(name, "topleft") == jvideo._y4m_ctag(name, "topleft")
     for req in (None, "gray", "yuv420p", "gbrp", "grayf32le", "yuv422p12le", "gbrpf32le"):
-        assert tvideo._negotiate_pix_fmt(tvideo.ColorProps(pix_fmt=req)) == \
-            jvideo._negotiate_pix_fmt("y4m", jvideo.ColorProps(pix_fmt=req))
-        pt, pj = tvideo.ColorProps(pix_fmt=req), jvideo.ColorProps(pix_fmt=req)
-        tvideo._default_props(pt)
-        jvideo._default_props("y4m", pj)
-        assert dataclasses.asdict(pt) == dataclasses.asdict(pj)
+        for fmt in ("y4m", "fvid", "image2"):
+            assert tvideo._negotiate_pix_fmt(fmt, tvideo.ColorProps(pix_fmt=req)) == \
+                jvideo._negotiate_pix_fmt(fmt, jvideo.ColorProps(pix_fmt=req))
+            pt, pj = tvideo.ColorProps(pix_fmt=req), jvideo.ColorProps(pix_fmt=req)
+            tvideo._default_props(fmt, pt)
+            jvideo._default_props(fmt, pj)
+            assert dataclasses.asdict(pt) == dataclasses.asdict(pj)
 
 
 def test_color_matches_jax():

@@ -50,7 +50,9 @@ def test_every_module_imports_without_jax():
         "models.motion_pipeline", "tools.motion", "ops.int8split",
         "benchmarks.calib_r3e", "benchmarks.calib_r3f", "io.png", "io.images",
         "utils.profiling", "tools._speccli", "tools.spec", "tools.ispec",
-        "tools.main")} <= names
+        "tools.main", "core.expr", "ops.scan_order", "ops.scan_methods", "ops.speclib",
+        "utils.checkpoint", "utils.hostcopy", "io.device_pack", "models.scan_pipeline",
+        "models.zoom_pipeline", "tools.scan", "tools.zoom")} <= names
 
 
 def test_calibration_counterparts_run_without_jax():
@@ -123,13 +125,46 @@ def test_spec_and_ispec_run_without_jax_and_pillow(tmp_path):
     assert res.stdout.split("\n")[:3] == ["exit 0", "exit 0", "16 ['DC'] 16 (24, 32, 3)"]
 
 
+def test_scan_and_zoom_run_without_jax_and_pillow(tmp_path):
+    """``python -m dspfun_tpu_torch.tools.main scan`` and ``zoom`` on the
+    CPU with jax, Pillow and the JAX package unimportable: a PNG in; a
+    y4m scan, an fvid pan with an animation expression and a 2x PNG out."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
+        "import runpy, numpy as np\n"
+        "from dspfun_tpu_torch.io import images, video\n"
+        f"d = {str(tmp_path)!r}\n"
+        "y, x = np.mgrid[0:24, 0:32] / 24.0\n"
+        "images.write_image(d + '/i.png', np.stack([0.5 + 0.4 * np.sin(6 * x),"
+        " 0.5 + 0.4 * np.cos(4 * y), x * 0 + 0.3], -1))\n"
+        "for argv in (['scan', '--device', 'cpu', '-m', 'zigzag', '-S', '100', '-q', d + '/i.png', d + '/s.y4m'],\n"
+        "             ['zoom', '--device', 'cpu', '-s', '2', d + '/i.png', d + '/z.png'],\n"
+        "             ['zoom', '--device', 'cpu', '-s', '2', '-v', '32x24', '-n', '3', '-q', '-x', '4*i',"
+        " d + '/i.png', d + '/p.fvid']):\n"
+        "    sys.argv = ['dspfun-torch'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('dspfun_tpu_torch.tools.main', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        print('exit', e.code)\n"
+        "print(video.open_input(d + '/s.y4m').frames, images.read_image(d + '/z.png').pixels.shape,"
+        " video.open_input(d + '/p.fvid').frames)\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[:4] == ["exit 0", "exit 0", "exit 0", "8 (48, 64, 3) 3"]
+    for tool in ("scan", "zoom"):
+        res = _run(["-m", f"dspfun_tpu_torch.tools.{tool}", "-h"])
+        assert res.returncode == 0 and f"Usage: {tool}" in res.stderr
+
+
 def test_dispatcher_lists_the_ported_tools_and_refuses_the_rest(capsys):
     """``dspfun-torch`` runs exactly the tools the port has; each other
     tool of the JAX package's dispatcher is refused by ROADMAP item."""
     from dspfun_tpu.tools import main as jmain
     from dspfun_tpu_torch.tools import main as tmain
 
-    assert sorted(tmain.TOOLS) == ["ispec", "motion", "spec"]
+    assert sorted(tmain.TOOLS) == ["ispec", "motion", "scan", "spec", "zoom"]
+    assert sorted(tmain.NOT_PORTED) == ["applybasis", "draw", "genbasis", "rotate", "transcode"]
     assert set(tmain.NOT_PORTED) == set(jmain.TOOLS) - set(tmain.TOOLS)
     tool_files = {p.stem for p in (PKG / "tools").glob("*.py")
                   if not p.stem.startswith("_") and p.stem != "main"}
@@ -244,7 +279,11 @@ def test_entry_points_default_to_the_card():
         "ops.blockdct.bdiag_axis_plan", "ops.block_filter.folded_filter_matrices",
         "benchmarks.calib_r3e.run_probes", "benchmarks.calib_r3f.inputs",
         "benchmarks.calib_r3f.run", "convert.axis_plan_from_jax",
-        "convert.filter_plans_from_jax", "convert.motion_plans_from_jax")} <= set(found)
+        "convert.filter_plans_from_jax", "convert.motion_plans_from_jax",
+        "convert.scan_plan_from_jax", "convert.zoom_plans_from_jax",
+        "models.scan_pipeline.forward_coeffs", "models.scan_pipeline.plan_scan",
+        "models.zoom_pipeline.forward_spectrum", "models.zoom_pipeline.zoom_plan",
+        "utils.hostcopy.upload_scalars")} <= set(found)
     assert {name: d for name, d in found.items() if d != "'cuda'"} == {}
 
 
