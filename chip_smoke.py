@@ -149,7 +149,36 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    run with the plain version forced, byte for byte, and its error stay
    within six standard deviations of the split's rounding model,
    computed from the run's spectrum.  (d) ``--showsamples=grid``, ``--basis
-   native`` and ``--basis centered`` at 320x240 against the oracle.
+   native`` and ``--basis centered`` at 320x240 against the oracle;
+11. main path 7, the basis tools in process on a seeded 256x256 8-bit RGB
+   PNG.  The values each applybasis run computes (complex64 at the
+   default policy) are held to 1e-5 of their largest |value| against a
+   float64 oracle on the card whose bases are closed-form cosines and
+   exponentials written here, and each PNG to one level of the same run
+   at ``f64`` (the share off by one printed).  (a) ``-f DCT2 -u 16x16``
+   (values [256, 256, 16, 16, 3], a 4353x4353 RGBA frame); (b)
+   ``-fDCT2 -u 256x256 -d full.coeff``, then ``-f DCT3 -I`` from the dump
+   at ``-u 256x256`` (the full reconstruction, within one level of the
+   input; its max and rms distance printed) and at ``-u 16x16`` (each
+   tile one coefficient block's contribution); (c) ``-f DFT -P magnitude
+   -R linearlog -N hue -g --bg '#204080' -u 8x8`` on a 128x128 crop; (d)
+   ``genbasis --function DFT --size 64x64 --natural --plane complex``
+   (host float64: default and f64 files byte-equal); (e) ``draw -b
+   3840x2160 -f 3x3:0.4 -f 2x5:0.2 -f 4x6:0.2`` at the default policy (no
+   launch) and at ``i8@1e-5`` (the counts set to 0 before the run: left3 1
+   along H, right3 1 along W, where the [H, W, 1] grid's one column takes
+   the right form), the canvas within 1e-5 of a float64 DCT-III, the file
+   byte-equal to a run with the plain version forced; then the 3-digit
+   kernels against their plain versions at draw's shapes, the batched
+   left form with one column (R=1) beside the right form, and the two
+   forms of the W contraction bit-equal with their times.  Prints seconds
+   by stage and the peak device memory of every run;
+12. main path 8, ``rotate`` and ``transcode`` (host work) on phase 6's
+   48-frame 1920x1080 yuv420p clip: ``rotate y-xz`` (90 degrees ccw) and
+   ``rotate zyx`` (1920 frames of 48x1080) to y4m, every pel equal to a
+   numpy index-map oracle of the reference's loop (rotate.c:159-172) on
+   the decoded clip; ``transcode`` y4m -> fvid -> y4m, byte-equal to the
+   clip.  Prints the seconds of each.
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -1527,6 +1556,335 @@ def _zoom_phase(torch, dev, plain_versions, int8mm, check_i8mm, hw=ZOOM_HW, scal
     return {"launches": launches, "stats": stats}
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the basis tools, rotate and transcode
+# ---------------------------------------------------------------------------
+
+BASIS_HW = (256, 256)             # applybasis (a)-(b): a 256x256 image, -u 16x16
+BASIS_CROP = 128                  # (c): the DFT on a 128x128 crop
+GENBASIS_SIZE = 64                # (d)
+DRAW_HW = (2160, 3840)            # (e): draw -b 3840x2160
+DRAW_COEFS = [(3, 3, 0.4), (2, 5, 0.2), (4, 6, 0.2)]
+# draw's launches at i8@1e-5: the DCT-III along H (left), then along W
+# (the [H, W, 1] grid's one column takes the right form on [H, W])
+DRAW_I8_EXPECT = {"left3": 1, "right3": 1}
+# rotate's two maps of phase 12, as the reference parses them (rotate.c:74-89):
+# (axis map, signs), written out here rather than parsed by the tool's code
+ROTATIONS = {"y-xz": ([1, 0, 2], [False, True, False]),   # 90 degrees ccw
+             "zyx": ([2, 1, 0], [False, False, False])}   # x and t swapped
+
+
+def _oracle_axis(torch, dev, family, ntiles, ncontent, psum, n_len, ortho, inverse):
+    """An applybasis axis matrix from its closed form, on the card in
+    float64 (complex128 for the DFT): forward Ah[k, i, s] at sample
+    n = i*psum + s, inverse Ch[a, s, i] at sample n = a*psum + s and
+    frequency i.  DCT-II: cos(pi k (2n+1) / 2N), times sqrt 2 for k > 0
+    when orthogonal; DCT-III: cos(pi n (2i+1) / 2N) for n > 0 (times
+    sqrt 2), 1/2 at n = 0 (times 2); DFT: exp(-2 pi i k n / N)."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    if inverse:
+        n = (torch.arange(ntiles, **f64)[:, None] * psum + torch.arange(psum, **f64)[None, :])[:, :, None]
+        k = torch.arange(ncontent, **f64)[None, None, :]
+        if family != "dct3":
+            raise ValueError(family)
+        c = torch.where(n > 0, torch.cos(np.pi * n * (2 * k + 1) / (2 * n_len)), torch.full_like(n * k, 0.5))
+        return c * torch.where(n > 0, torch.full_like(n, np.sqrt(2.0)), torch.full_like(n, 2.0)) if ortho else c
+    k = torch.arange(ntiles, **f64)[:, None, None]
+    n = (torch.arange(ncontent, **f64)[:, None] * psum + torch.arange(psum, **f64)[None, :])[None]
+    if family == "dft":
+        return torch.exp(-2j * np.pi * (k * n).to(torch.complex128) / n_len)
+    if family != "dct2":
+        raise ValueError(family)
+    c = torch.cos(np.pi * k * (2 * n + 1) / (2 * n_len))
+    return c * torch.where(k > 0, torch.full_like(k, np.sqrt(2.0)), torch.ones_like(k)) if ortho else c
+
+
+def _oracle_apply(torch, dev, x, family, psum, ortho, inverse):
+    """The float64 oracle of ``apply_basis`` with every term (terms = the
+    input's size) on the card: the three-operand sum of the module's
+    docstring, on closed-form axis matrices."""
+    h, w = x.shape[:2]
+    ph, pw = psum
+    xd = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    if inverse:
+        mh = _oracle_axis(torch, dev, family, h // ph, h, ph, h, ortho, True)
+        mw = _oracle_axis(torch, dev, family, w // pw, w, pw, w, ortho, True)
+        p = xd.reshape(h // ph, ph, w // pw, pw, 3)
+        if p.is_complex():
+            mh, mw = mh.to(p.dtype), mw.to(p.dtype)
+        return torch.einsum("asi,asbtz,btj->abijz", mh, p, mw)
+    mh = _oracle_axis(torch, dev, family, h, h // ph, ph, h, ortho, False)
+    mw = _oracle_axis(torch, dev, family, w, w // pw, pw, w, ortho, False)
+    p = xd.reshape(h // ph, ph, w // pw, pw, 3)
+    if mh.is_complex() or p.is_complex():
+        mh, p, mw = (t.to(torch.complex128) for t in (mh, p, mw))
+    return torch.einsum("ais,isjtz,bjt->abijz", mh, p, mw)
+
+
+def _levels8(png, path):
+    arr, _, _ = png.decode_png(open(path, "rb").read())
+    return arr.astype(np.int64)
+
+
+def _basis_phase(torch, dev, plain_versions, int8mm, check_i8mm, hw=BASIS_HW, crop=BASIS_CROP,
+                 gsize=GENBASIS_SIZE, draw_hw=DRAW_HW) -> dict:
+    """Main path 7: applybasis, genbasis and draw in process; returns the
+    int8 kernels' launches of draw at i8@1e-5 and their stats at draw's
+    shapes."""
+    from dspfun_tpu_torch.io import images, png
+    from dspfun_tpu_torch.models import basis_pipeline as bp
+    from dspfun_tpu_torch.tools import applybasis, draw, genbasis
+
+    h, w = hw
+    captured = {}
+    saved_apply, saved_draw = bp.apply_basis, draw.draw_canvas
+
+    def keep_values(*a, **k):
+        captured["values"] = saved_apply(*a, **k)
+        return captured["values"]
+
+    def keep_canvas(*a, **k):
+        captured["canvas"] = saved_draw(*a, **k)
+        return captured["canvas"]
+
+    def run(mod, args, policy, force_plain=False):
+        """One tool run: (wall s, stage s, int8 launches, peak device bytes
+        above what was held before)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _policy(policy), (plain_versions() if force_plain else contextlib.nullcontext()):
+            wall, st, got = _run_tool(torch, mod, args, int8mm)
+        return wall, st, got, torch.cuda.max_memory_allocated() - base
+
+    def values_vs_oracle(label, ref):
+        got = torch.from_numpy(captured.pop("values")).to(dev)
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max()) / scale
+        print(f"applybasis {label}: values {tuple(got.shape)} vs the float64 oracle (closed-form "
+              f"bases): {err:.3e} of the largest |value| {scale:.6g}", flush=True)
+        if not err <= TOOL_TOL:
+            raise RuntimeError(f"applybasis {label}: values off the float64 oracle")
+
+    def png_vs_f64(label, a, b):
+        la, lb = _levels8(png, a), _levels8(png, b)
+        d = np.abs(la - lb)
+        print(f"applybasis {label}: PNG {la.shape[1]}x{la.shape[0]} at the default policy vs the "
+              f"same run at f64: largest difference {int(d.max())} level, {int((d > 0).sum())} of "
+              f"{d.size} samples ({float((d > 0).mean()):.3e}) off by one", flush=True)
+        if la.shape != lb.shape or d.max() > 1:
+            raise RuntimeError(f"applybasis {label}: default and f64 PNGs differ by more than a level")
+
+    def report(label, wall, st, peak):
+        print(f"applybasis {label}: {wall:.3f} s wall; stages (s) {_stages(st)}; peak device "
+              f"memory {peak / 2**30:.3f} GiB above what was held", flush=True)
+
+    bp.apply_basis, draw.draw_canvas = keep_values, keep_canvas
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_basis_") as tmp:
+            src = os.path.join(tmp, "in.png")
+            _seeded_png(images, src, hw, 31)
+            shifted = images.read_image(src).pixels * 2 - 1       # the tool's shift2 input
+
+            # ---- (a) the README's progressive loop at 16x its size: -u 16x16
+            out = {p: os.path.join(tmp, f"a_{p}.png") for p in ("default", "f64")}
+            wall, st, got, peak = run(applybasis, ["-f", "DCT2", "-u", "16x16", src, out["default"]], None)
+            report(f"{w}x{h} -f DCT2 -u 16x16 (default policy)", wall, st, peak)
+            if got:
+                raise RuntimeError(f"applybasis launched {got}")
+            values_vs_oracle("-u 16x16", _oracle_apply(torch, dev, shifted, "dct2", (16, 16), False, False))
+            wall, st, _, peak = run(applybasis, ["-f", "DCT2", "-u", "16x16", src, out["f64"]], "f64:f64")
+            captured.pop("values")
+            report("-u 16x16 at f64", wall, st, peak)
+            png_vs_f64("-u 16x16", out["default"], out["f64"])
+            torch.cuda.empty_cache()
+
+            # ---- (b) the full-sum dump, the full reconstruction and the blocks from it
+            dump = os.path.join(tmp, "full.coeff")
+            wall, st, _, peak = run(applybasis, ["-fDCT2", "-u", f"{w}x{h}", "-d", dump, src,
+                                                 os.path.join(tmp, "full.png")], None)
+            report(f"-fDCT2 -u {w}x{h} -d full.coeff", wall, st, peak)
+            values_vs_oracle(f"-u {w}x{h} (the dump)",
+                             _oracle_apply(torch, dev, shifted, "dct2", (h, w), True, False))
+            coeffs, _ = bp.read_coeff_file(dump)
+            for u in (f"{w}x{h}", "16x16"):
+                ps = (h, w) if u == f"{w}x{h}" else (16, 16)
+                inv = {p: os.path.join(tmp, f"inv_{u}_{p}.png") for p in ("default", "f64")}
+                args = ["-f", "DCT3", "-I", "-u", u, dump]
+                wall, st, _, peak = run(applybasis, args + [inv["default"]], None)
+                report(f"-f DCT3 -I -u {u} full.coeff", wall, st, peak)
+                values_vs_oracle(f"-I -u {u}", _oracle_apply(torch, dev, coeffs, "dct3", ps, True, True))
+                run(applybasis, args + [inv["f64"]], "f64:f64")
+                captured.pop("values")
+                png_vs_f64(f"-I -u {u}", inv["default"], inv["f64"])
+                if u == f"{w}x{h}":
+                    back = _levels8(png, inv["default"])[1:-1, 1:-1, :3]
+                    d = back - _levels8(png, src)
+                    print(f"applybasis full reconstruction {w}x{h} vs the input: largest "
+                          f"{int(np.abs(d).max())} level, {float(np.sqrt(np.mean(d * d))):.4f} "
+                          f"levels rms", flush=True)
+                    if np.abs(d).max() > 1:
+                        raise RuntimeError("applybasis: the full reconstruction is off the input")
+            del coeffs
+            torch.cuda.empty_cache()
+
+            # ---- (c) the complex path, colour handling and -g on a crop
+            csrc = os.path.join(tmp, "crop.png")
+            images.write_image(csrc, images.read_image(src).pixels[:crop, :crop])
+            lin = images.read_image(csrc, linear=True).pixels      # -N hue: no shift2 encoding
+            flags = ["-f", "DFT", "-P", "magnitude", "-R", "linearlog", "-N", "hue", "-g",
+                     "--bg", "#204080", "-u", "8x8"]
+            out = {p: os.path.join(tmp, f"c_{p}.png") for p in ("default", "f64")}
+            wall, st, _, peak = run(applybasis, flags + [csrc, out["default"]], None)
+            report(f"{crop}x{crop} {' '.join(flags)}", wall, st, peak)
+            values_vs_oracle("-f DFT -u 8x8", _oracle_apply(torch, dev, lin, "dft", (8, 8), False, False))
+            run(applybasis, flags + [csrc, out["f64"]], "f64:f64")
+            captured.pop("values")
+            png_vs_f64("-f DFT -P magnitude -R linearlog -N hue -g", out["default"], out["f64"])
+
+            # ---- (d) genbasis: host float64 at any policy
+            gflags = ["--function", "DFT", "--size", f"{gsize}x{gsize}", "--natural", "--plane", "complex"]
+            gout = [os.path.join(tmp, f"g_{i}.png") for i in range(2)]
+            t0 = time.perf_counter()
+            with _policy(None):
+                if genbasis.main(gflags + [gout[0]]) != 0:
+                    raise RuntimeError("genbasis failed")
+            gwall = time.perf_counter() - t0
+            with _policy("f64:f64"):
+                genbasis.main(gflags + [gout[1]])
+            lv = _levels8(png, gout[0])
+            side = gsize * (gsize + 1) + 1
+            same = open(gout[0], "rb").read() == open(gout[1], "rb").read()
+            print(f"genbasis {' '.join(gflags)}: {gwall:.3f} s wall, {lv.shape[1]}x{lv.shape[0]} RGBA; "
+                  f"default and f64 files byte-equal: {same}", flush=True)
+            if lv.shape != (side, side, 4) or not same:
+                raise RuntimeError("genbasis failed")
+
+            # ---- (e) draw at 3840x2160: no launch by default, the int8 kernels at i8@1e-5
+            dh, dw = draw_hw
+            dflags = ["-b", f"{dw}x{dh}"] + sum((["-f", f"{x}x{y}:{s}"] for x, y, s in DRAW_COEFS), [])
+            grid = torch.zeros((dh, dw), dtype=torch.float64, device=dev)
+            for x, y, s in DRAW_COEFS:
+                grid[y, x] = s / 4.0
+            grid[0, 0] += 0.5
+            ref = _oracle_dct3(torch, dev, dh) @ grid @ _oracle_dct3(torch, dev, dw).T
+            del grid
+            files, launches = {}, {}
+            for tag, policy, plain in (("default", None, False), ("i8@1e-5", "i8@1e-5", False),
+                                       ("i8@1e-5, plain forced", "i8@1e-5", True)):
+                files[tag] = os.path.join(tmp, f"draw_{len(files)}.png")
+                if not plain:
+                    int8mm.LAUNCHES.clear()     # the counts start at 0 for each run
+                wall, st, got, peak = run(draw, dflags + [files[tag]], policy, force_plain=plain)
+                err = float((torch.from_numpy(captured.pop("canvas")).to(dev) - ref).abs().max())
+                launches[tag] = got
+                print(f"draw {' '.join(dflags)} at {tag}: {wall:.3f} s wall; stages (s) {_stages(st)}; "
+                      f"launches {json.dumps(got)}; canvas vs the float64 DCT-III {err:.3e}; peak "
+                      f"device memory {peak / 2**30:.3f} GiB above what was held", flush=True)
+                if err > TOOL_TOL:
+                    raise RuntimeError(f"draw at {tag}: the canvas is off the float64 DCT-III")
+            same = open(files["i8@1e-5"], "rb").read() == open(files["i8@1e-5, plain forced"], "rb").read()
+            d = np.abs(_levels8(png, files["i8@1e-5"]) - _levels8(png, files["default"]))
+            print(f"draw at i8@1e-5: file byte-equal kernel vs plain: {same}; vs the default "
+                  f"policy's file {int(d.max())} level", flush=True)
+            if launches["default"] or launches["i8@1e-5"] != DRAW_I8_EXPECT or not same or d.max() > 1:
+                raise RuntimeError(f"draw failed (launches {launches}, expected {DRAW_I8_EXPECT})")
+    finally:
+        bp.apply_basis, draw.draw_canvas = saved_apply, saved_draw
+
+    # the kernels at draw's shapes, and the second contraction's two forms
+    torch.cuda.empty_cache()
+    stats = {"left3 H": check_i8mm(3, "left", dh, dh, 1, dw, "draw H"),
+             "left3 W": check_i8mm(3, "left", dw, dw, dh, 1, "draw W left R=1"),
+             "right3 W": check_i8mm(3, "right", dw, dw, 1, dh, "draw W right")}
+    _draw_forms(torch, dev, int8mm, dh, dw)
+    torch.cuda.empty_cache()
+    return {"launches": launches["i8@1e-5"], "stats": stats}
+
+
+def _draw_forms(torch, dev, int8mm, h, w) -> None:
+    """draw's second contraction (DCT-III along W of the [H, W, 1] grid) in
+    the batched left form with one column and in the right form on the
+    [H, W] grid: both split x per row over K, so the digits, the kernel's
+    groups and the scales are the same; prints whether the two are
+    bit-equal and each one's time (split, kernel and scales)."""
+    from dspfun_tpu_torch.core.basis import dct3_matrix
+
+    a, sa = (torch.from_numpy(t).to(dev) for t in int8mm.split_matrix_i8(dct3_matrix(w), 3))
+    x = torch.randn((h, w), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+
+    def left():
+        xd, ex = int8mm._split_operand(x[:, :, None], 1, 3)
+        return int8mm._i8_groups(a, xd, "left") * ex * sa[None]
+
+    def right():
+        xd, ex = int8mm._split_operand(x[None], 2, 3)
+        return (int8mm._i8_groups(a, xd, "right")[0] * ex[0] * sa[:, 0][None, :])[:, :, None]
+
+    same = torch.equal(left(), right())
+    ms = {f: cuda_ms(fn) for f, fn in (("left", left), ("right", right))}
+    print(f"draw W contraction M=K={w} over {h} rows: batched left form (R=1) {ms['left']:.4f} ms, "
+          f"right form {ms['right']:.4f} ms (split, kernel, scales); bit-equal: {same}", flush=True)
+    if not same:
+        raise RuntimeError("draw's two forms of the W contraction differ")
+
+
+def _rotate_oracle_frame(vol, axmap, inv, t):
+    """Frame ``t`` of the rotated [T, H, W, C] volume by the reference's
+    index map (rotate.c:159-172): output position (a0, a1, a2) along
+    (x', y', t') takes source axis map[k] = a_k, and source axis i is
+    read backwards when inv[map[i]]."""
+    lens = [vol.shape[2], vol.shape[1], vol.shape[0]]
+    a1, a0 = np.mgrid[0:lens[axmap[1]], 0:lens[axmap[0]]]
+    axis = [None] * 3
+    axis[axmap[0]], axis[axmap[1]], axis[axmap[2]] = a0, a1, np.full_like(a0, t)
+    idx = [lens[i] - axis[i] - 1 if inv[axmap[i]] else axis[i] for i in range(3)]
+    return vol[idx[2], idx[1], idx[0]]
+
+
+def _rotate_phase(torch, int8mm) -> None:
+    """Main path 8: rotate and transcode on phase 6's 1080p 4:2:0 clip
+    (host work in both packages: no kernel may launch)."""
+    from dspfun_tpu_torch.io import video
+    from dspfun_tpu_torch.tools import rotate, transcode
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rotate_") as tmp:
+        clip = os.path.join(tmp, "clip.y4m")
+        _write_clip(video, clip)
+        r = video.open_input(clip)
+        vol = np.stack([r.read_frame_rgb() for _ in range(MFRAMES)])    # the clip as decoded RGB
+        r.close()
+        for spec, (axmap, inv) in ROTATIONS.items():
+            out = os.path.join(tmp, f"rot_{spec}.y4m")
+            wall, st, got = _run_tool(torch, rotate, ["-q", spec, clip, out], int8mm)
+            r = video.open_input(out)
+            frames, pf = r.frames, r.pix_fmt
+            t = 0
+            while (planes := r.read_frame(raw=True)) is not None:
+                want = video.rgb_to_planes(_rotate_oracle_frame(vol, axmap, inv, t), pf, r.props)
+                for i, (p, q) in enumerate(zip(planes, want)):
+                    if not np.array_equal(p, video._quantize_plane(q, pf, i, r.props.color_range)):
+                        raise RuntimeError(f"rotate {spec}: frame {t} plane {i} is off the index map")
+                t += 1
+            r.close()
+            print(f"rotate {spec} of {MW}x{MH} yuv420p, {MFRAMES} frames: {frames} frames of "
+                  f"{r.width}x{r.height} {pf.name} in {wall:.3f} s; stages (s) {_stages(st)}; "
+                  f"every pel equal to the index-map oracle", flush=True)
+            if t != frames or frames != vol.shape[[2, 1, 0][axmap[2]]] or got:
+                raise RuntimeError(f"rotate {spec}: {t} frames, launches {got}")
+        del vol
+        mid, back = os.path.join(tmp, "mid.fvid"), os.path.join(tmp, "back.y4m")
+        w1, _, got1 = _run_tool(torch, transcode, ["-q", clip, mid], int8mm)
+        w2, _, got2 = _run_tool(torch, transcode, ["-q", "-c", "pixel_format=yuv420p", mid, back],
+                                int8mm)
+        same = open(back, "rb").read() == open(clip, "rb").read()
+        print(f"transcode y4m -> fvid {w1:.3f} s ({os.path.getsize(mid)} bytes), fvid -> y4m "
+              f"{w2:.3f} s; round trip byte-equal: {same}", flush=True)
+        if not same or got1 or got2:
+            raise RuntimeError("transcode y4m -> fvid -> y4m changed the clip or launched a kernel")
+
+
 def main() -> int:
     import torch
 
@@ -1776,17 +2134,31 @@ def main() -> int:
             and zoom_launches["right4"] and zoom_launches["left3"] and zoom_launches["right3"]):
         raise RuntimeError("a kernel of the scan or zoom path never launched")
 
+    # ---- phase 11: main path 7, applybasis, genbasis and draw -------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    basis_cli = _basis_phase(torch, dev, plain_versions, int8mm, check_i8mm)
+    print(f"draw CLI main-path launches: {json.dumps(basis_cli['launches'])}; phase 11 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 12: main path 8, rotate and transcode ----------------------
+    t0 = time.perf_counter()
+    _rotate_phase(torch, int8mm)
+    print(f"phase 12 {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
                              + calib["i8mm_launches"][n] + spec_cli[n]
-                             + scan_cli["launches"].get(n, 0) + zoom_launches[n]),
+                             + scan_cli["launches"].get(n, 0) + zoom_launches[n]
+                             + basis_cli["launches"].get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
                                      "spec_cli": spec_cli[n],
                                      "scan_cli": scan_cli["launches"].get(n, 0),
-                                     "zoom_cli": zoom_launches[n]},
+                                     "zoom_cli": zoom_launches[n],
+                                     "draw_cli": basis_cli["launches"].get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -1800,6 +2172,11 @@ def main() -> int:
     for n, st in zoom_cli["stats"].items():
         kernels[list(REPLACES).index(n)].update(
             {f"zoom_cli_{key}": val for key, val in st.items()})
+    for shape, res in basis_cli["stats"].items():     # "left3 H", "left3 W", "right3 W"
+        n, axis = shape.split()
+        kernels[list(REPLACES).index(n)].update(
+            {f"draw_cli_{axis}_{key}": val for key, val in
+             zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), res)})
     kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
                     "replaces": BF_REPLACES,
                     "launches": motion_launches["block_filter"],

@@ -1,9 +1,11 @@
-"""FFTW-convention DCT basis matrices, in float64 numpy.
+"""Closed-form transform basis matrices, in float64 numpy.
 
 Copies of ``dspfun_tpu/core/basis.py:dct2_matrix``, ``dct3_matrix``,
-``clamp_scale`` and ``zoom_scaled_basis``: the port cannot import the JAX
-package (its ``__init__`` imports JAX), so the functions it needs are
-copied and a test pins each copy bit-equal to its original.
+``clamp_scale``, ``zoom_scaled_basis`` and the 12 per-element basis
+families of applybasis/genbasis (``BASIS_FAMILIES``, ``basis_fn``,
+``basis_matrix``): the port cannot import the JAX package (its
+``__init__`` imports JAX), so the functions it needs are copied and a
+test pins each copy bit-equal to its original.
 
     REDFT10:  Y_k = 2 * sum_n x_n cos(pi (n+1/2) k / N)
     REDFT01:  Y_k = x_0 + 2 * sum_{n>=1} x_n cos(pi n (k+1/2) / N)
@@ -17,9 +19,11 @@ import math
 
 import numpy as np
 
-__all__ = ["dct2_matrix", "dct3_matrix", "clamp_scale", "zoom_scaled_basis"]
+__all__ = ["dct2_matrix", "dct3_matrix", "clamp_scale", "zoom_scaled_basis",
+           "basis_fn", "basis_matrix", "BASIS_FAMILIES"]
 
 _PI = math.pi
+_SQRT2 = math.sqrt(2.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,3 +112,152 @@ def zoom_scaled_basis(
         raise ValueError(f"unknown scaling type {scaling_type!r}")
     basis = np.cos(_PI * (k + 0.5) * j / big_n)
     return basis, int(ncomponents)
+
+
+# ---------------------------------------------------------------------------
+# applybasis/genbasis closed-form families (reference applybasis.c:77-140).
+# k = frequency index, n = sample index, N = logical transform length.
+# Each returns a complex128 array broadcast over k and n.
+# ---------------------------------------------------------------------------
+
+
+def _dft(k, n, N, ortho):
+    return np.exp(-2j * _PI * k * n / N)
+
+
+def _idft(k, n, N, ortho):
+    return np.exp(2j * _PI * k * n / N)
+
+
+def _dct1(k, n, N, ortho):
+    # interior: cos(pi k n / (N-1)); boundary samples n==0 / n==N-1 get
+    # 1/2 resp. (-1)^k / 2 (applybasis.c:83-88)
+    interior = np.cos(_PI * (k * n) / (N - 1))
+    last = np.power(-1.0, k) / 2.0
+    first = 0.5
+    c = np.where(n == 0, first, np.where(n == N - 1, last, interior))
+    if ortho:
+        c = c * _SQRT2
+    return c.astype(np.complex128)
+
+
+def _dct2(k, n, N, ortho):
+    c = np.cos(_PI * (k * (2 * n + 1)) / (2 * N))
+    if ortho:
+        c = c * np.where(k != 0, _SQRT2, 1.0)
+    return c.astype(np.complex128)
+
+
+def _dct3(k, n, N, ortho):
+    c = np.where(n != 0, np.cos(_PI * (n * (2 * k + 1)) / (2 * N)), 0.5)
+    if ortho:
+        c = c * np.where(n != 0, _SQRT2, 2.0)
+    return c.astype(np.complex128)
+
+
+def _dct4(k, n, N, ortho):
+    c = np.cos(_PI * ((2 * k + 1) * (2 * n + 1)) / (4 * N))
+    if ortho:
+        c = c * _SQRT2
+    return c.astype(np.complex128)
+
+
+def _dst1(k, n, N, ortho):
+    c = np.sin(_PI * ((k + 1) * (n + 1)) / (N + 1))
+    if ortho:
+        c = c * _SQRT2
+    return c.astype(np.complex128)
+
+
+def _dst2(k, n, N, ortho):
+    c = np.sin(_PI * ((k + 1) * (2 * n + 1)) / (2 * N))
+    if ortho:
+        c = c * np.where(k != N - 1, _SQRT2, 1.0)
+    return c.astype(np.complex128)
+
+
+def _dst3(k, n, N, ortho):
+    interior = np.sin(_PI * ((2 * k + 1) * (n + 1)) / (2 * N))
+    last = np.power(-1.0, k) / 2.0
+    c = np.where(n != N - 1, interior, last)
+    if ortho:
+        c = c * np.where(n != N - 1, _SQRT2, 2.0)
+    return c.astype(np.complex128)
+
+
+def _dst4(k, n, N, ortho):
+    c = np.sin(_PI * ((2 * k + 1) * (2 * n + 1)) / (4 * N))
+    if ortho:
+        c = c * _SQRT2
+    return c.astype(np.complex128)
+
+
+def _wht(k, n, N, ortho):
+    """Walsh-Hadamard, sequency (Walsh) order (applybasis.c:131-137).
+
+    sign exponent = sum_i n_i * g_i(k) where g takes consecutive-bit
+    sums of k (gray-code ordering of the natural-order Hadamard rows).
+    """
+    k = np.asarray(k, dtype=np.int64)
+    n = np.asarray(n, dtype=np.int64)
+    nbits = int(round(math.log2(int(N))))
+    sig = (n & (k >> (nbits - 1))) & 1
+    nn = n >> 1
+    for m in range(nbits - 1, 0, -1):
+        sig = sig + ((nn & ((k >> (m - 1)) + (k >> m))) & 1)
+        nn = nn >> 1
+    return np.power(-1.0, sig).astype(np.complex128)
+
+
+def _dht(k, n, N, ortho):
+    # Hartley cas kernel written as sqrt2 * cos(theta - pi/4) (applybasis.c:138-140)
+    return (_SQRT2 * np.cos(2 * _PI * n * k / N - _PI / 4)).astype(np.complex128)
+
+
+BASIS_FAMILIES = {
+    "dft": _dft,
+    "idft": _idft,
+    "dct1": _dct1,
+    "dct2": _dct2,
+    "dct3": _dct3,
+    "dct4": _dct4,
+    "dst1": _dst1,
+    "dst2": _dst2,
+    "dst3": _dst3,
+    "dst4": _dst4,
+    "wht": _wht,
+    "dht": _dht,
+}
+
+
+def basis_fn(name: str):
+    """Look up a basis family by (case-insensitive) name.
+
+    Matches the reference CLI parsing (applybasis.c:227-245): "dct"/"dst"
+    without a digit mean variant 2; unknown digits fall back to 2.
+    """
+    key = name.lower()
+    if key in BASIS_FAMILIES:
+        return BASIS_FAMILIES[key]
+    if key.startswith("dct") or key.startswith("dst"):
+        head = key[:3]
+        variant = key[3:4]
+        if variant not in ("1", "3", "4"):
+            variant = "2"
+        return BASIS_FAMILIES[head + variant]
+    raise ValueError(f"unknown basis family {name!r}")
+
+
+def basis_matrix(name: str, K: int, N: int, *, length: int | None = None,
+                 ortho: bool = False, offset: int = 0) -> np.ndarray:
+    """Dense [K, N] complex basis matrix B[k, n] = f(k + offset, n, length).
+
+    ``length`` defaults to N (the logical transform size used inside the
+    kernel formulas — for genbasis this is always the --size dimension,
+    genbasis.c:260).
+    """
+    f = basis_fn(name)
+    L = N if length is None else length
+    k = np.arange(K, dtype=np.int64)[:, None] + offset
+    n = np.arange(N, dtype=np.int64)[None, :]
+    return np.asarray(f(k, n, L, ortho), dtype=np.complex128)

@@ -4,7 +4,8 @@
 The reference wraps libavformat/libavcodec/libswscale (include/ffapi.{h,c})
 for frame-by-frame video read/write with color-property negotiation.
 The JAX package carries its own containers; the port so far copies the
-ones its motion, scan and zoom CLIs need on the card, which has no JAX:
+ones its motion, scan, zoom, rotate and transcode CLIs need on the card,
+which has no JAX:
 
 * **y4m** (YUV4MPEG2), the reference's default for pipe video
   (ffapi.c:177-178,396-397): 8- to 16-bit planar YCbCr (mono, 420, 422,
@@ -21,8 +22,8 @@ ones its motion, scan and zoom CLIs need on the card, which has no JAX:
 
 Every other container (NUT, MKV, FFV1, the ffmpeg bridge, ``ffplay:``
 sinks) and image sequences as input raise "not ported yet".
-tests/test_torch_motion_cli.py and tests/test_torch_video_fvid.py pin the
-copy to its original.
+tests/test_torch_motion_cli.py, tests/test_torch_video_fvid.py and
+tests/test_torch_rotate_cli.py pin the copy to its original.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ __all__ = [
     "check_output",
     "rgb_to_planes",
     "planes_to_rgb",
+    "dequantize_planes",
 ]
 
 
@@ -292,6 +294,13 @@ def plane_from_pel(p: np.ndarray, pf: PixelFormat, plane_idx: int,
     inverse of :func:`plane_to_pel`."""
     return _dequantize_plane(np.asarray(p, dtype=np.float64), pf,
                              plane_idx, crange)
+
+
+def dequantize_planes(planes: list[np.ndarray], pf: "PixelFormat",
+                      crange: str | None) -> list[np.ndarray]:
+    """Stored-dtype planes -> normalized floats: the read_frame(raw=False)
+    mapping, for callers that buffered raw pels (e.g. rotate)."""
+    return [plane_from_pel(p, pf, i, crange) for i, p in enumerate(planes)]
 
 
 def _quantize_plane(p: np.ndarray, pf: PixelFormat, plane_idx: int,

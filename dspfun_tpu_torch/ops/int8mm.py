@@ -289,8 +289,9 @@ def i8_contract(x: torch.Tensor, digits_a: torch.Tensor, scale_a,
     3 digit planes run the 6-product kernel (~2^-21 truncation); 4
     planes the deep 10-product kernel (~2^-28).  ``axis == 0`` and
     ``axis == ndim-1`` run without a transpose, a middle axis of a
-    [C, H, W] tensor rides the kernel's batch dimension, and anything
-    else takes one ``movedim``.
+    [C, H, W] tensor rides the kernel's batch dimension (unless the last
+    axis has length 1: then the right form takes the squeezed tensor),
+    and anything else takes one ``movedim``.
     """
     da, m, kp = digits_a.shape
     if da not in (_NDIG, _NDIG + 1):
@@ -326,6 +327,13 @@ def _i8_dispatch(x, a_digits, scale_a, axis, m, kp):
     xf = x.to(torch.float32)
     sa = scale_a
 
+    if x.ndim >= 3 and axis == x.ndim - 2 and x.shape[-1] == 1:
+        # one column (draw's [H, W, 1] grid along W): the batched left
+        # form would fill each 128x64 tile with one live column, about
+        # 70x slower on an H100 at draw's 4K shape (chip_smoke.py phase
+        # 11 times both).  The right form on the squeezed tensor splits
+        # the same K-vectors under the same exponents: bit-equal.
+        return _i8_dispatch(xf[..., 0], a_digits, scale_a, axis, m, kp)[..., None]
     if axis == x.ndim - 1 and x.ndim >= 2:
         # right form: [pre..., K] -> [pre..., M]
         pre = tuple(xf.shape[:-1])

@@ -1,9 +1,11 @@
 """dspfun-torch — dispatcher for the tool CLIs the port has (PyTorch port
 of ``dspfun_tpu/tools/main.py``).
 
-``dspfun-torch <tool> [options]`` runs ``spec``, ``ispec``, ``motion``,
-``scan`` or ``zoom``.  The JAX package's other five tools are not ported yet: each is refused
-with exit code 1 and the ROADMAP item that ports it.
+``dspfun-torch <tool> [options]`` runs any of the JAX package's ten
+tools: ``spec``, ``ispec``, ``motion``, ``scan``, ``zoom``, ``applybasis``,
+``genbasis``, ``draw``, ``rotate`` and ``transcode``.  A tool of the JAX
+package that the port lacks goes into ``NOT_PORTED`` with the ROADMAP
+item that ports it, and is refused with exit code 1 (none is, now).
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ TOOLS = {
     "motion": "dspfun_tpu_torch.tools.motion",
     "scan": "dspfun_tpu_torch.tools.scan",
     "zoom": "dspfun_tpu_torch.tools.zoom",
+    "applybasis": "dspfun_tpu_torch.tools.applybasis",
+    "genbasis": "dspfun_tpu_torch.tools.genbasis",
+    "draw": "dspfun_tpu_torch.tools.draw",
+    "rotate": "dspfun_tpu_torch.tools.rotate",
+    "transcode": "dspfun_tpu_torch.tools.transcode",
 }
 
 # the JAX package's tools the port lacks, and the ROADMAP queue 1 item of each
-NOT_PORTED = {
-    "rotate": 17, "transcode": 17, "applybasis": 16, "genbasis": 16,
-    "draw": 16,
-}
+NOT_PORTED: dict[str, int] = {}
 
 
 def main(argv: list[str] | None = None) -> int:

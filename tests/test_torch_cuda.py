@@ -1,8 +1,8 @@
 """The port on a CUDA card: the hand-written kernels (int8 digit
 contraction, fused Kronecker block filter, int8 contraction with the
 in-kernel digit split) against their plain versions,
-and the card's chains, motion's filter_blocks and the motion, spec, ispec,
-scan and zoom CLIs against the CPU's and a float64 oracle.
+and the card's chains, motion's filter_blocks, apply_basis and the motion, spec, ispec,
+scan, zoom and draw CLIs against the CPU's and a float64 oracle.
 
 Every test here needs a card and skips without one.  The machine with the
 card has no JAX, so this file imports none; run it there without the
@@ -606,3 +606,54 @@ def test_zoom_cli_on_card(cuda, tmp_path, monkeypatch):
     assert zoom.main(["-s", "2", "-v", "320x272", "-n", "4", "-q", "-x", "8*i", src, out["pan"]]) == 0
     assert zoom.LAST_STAGE_TIMES["routes"] == ["device"] * 4
     assert dict(tmm.LAUNCHES) == {"left3": 2 + 4, "right3": 4}
+
+
+@pytest.mark.parametrize("fn,inverse,psum,cplx", [("dct2", False, (4, 4), False), ("dft", False, (8, 2), True),
+                                                  ("dct3", True, (4, 4), True), ("wht", True, (2, 8), False)])
+@pytest.mark.parametrize("spec", ["hilo", "f64:f64"])
+def test_apply_basis_card_equals_cpu(cuda, fn, inverse, psum, cplx, spec):
+    """``apply_basis``'s two contractions on the card against the same on
+    the CPU: complex64 (the default policy) within float32 rounding of
+    the largest |value|, complex128 (``f64``) within 1e-12 of it."""
+    from dspfun_tpu_torch.models import basis_pipeline as bp
+
+    rng = np.random.default_rng(sum(psum))
+    x = rng.random((32, 48, 3)) * 2 - 1
+    if cplx:
+        x = x + 1j * (rng.random((32, 48, 3)) * 2 - 1)
+    p = Precision.parse(spec)
+    kw = dict(partsum=psum, inverse=inverse, orthogonal=True, precision=p)
+    times = {}
+    a = bp.apply_basis(x, fn, device="cuda", times=times, **kw)
+    b = bp.apply_basis(x, fn, device="cpu", **kw)
+    assert a.shape == b.shape and a.dtype == np.complex128 and "compute_device" in times
+    tol = 1e-12 if spec == "f64:f64" else 2e-6
+    assert np.max(np.abs(a - b)) <= tol * np.abs(b).max()
+
+
+def test_draw_cli_on_card(cuda, tmp_path, monkeypatch):
+    """``draw`` at 320x256: no launch at the default policy and one
+    level from ``--device cpu``; at ``i8@1e-5`` the DCT-III launches the
+    left 3-digit kernel along H and the right one along W (the one-column
+    grid takes the right form), and the file equals the plain-forced
+    run's, byte for byte."""
+    from dspfun_tpu_torch.core import precision
+    from dspfun_tpu_torch.tools import draw
+
+    args = ["-b", "320x256", "-f", "3x3:0.4", "-f", "2x5:0.2", "-f", "100x7"]
+    out = {t: str(tmp_path / f"{t}.png") for t in ("card", "cpu", "i8", "plain")}
+    monkeypatch.setattr(precision, "_default", Precision())
+    monkeypatch.setattr(precision, "_explicit", True)
+    tmm.LAUNCHES.clear()
+    assert draw.main(args + [out["card"]]) == 0 and not tmm.LAUNCHES
+    assert draw.main(["--device", "cpu"] + args + [out["cpu"]]) == 0
+    from dspfun_tpu_torch.io import png
+
+    a, b = (png.decode_png(open(out[t], "rb").read())[0].astype(int) for t in ("card", "cpu"))
+    assert a.shape == b.shape == (256, 320, 3) and np.abs(a - b).max() <= 1
+    monkeypatch.setattr(precision, "_default", Precision.parse("i8@1e-5"))
+    assert draw.main(args + [out["i8"]]) == 0
+    assert dict(tmm.LAUNCHES) == {"left3": 1, "right3": 1}
+    monkeypatch.setattr(tmm, "_i8_groups", tmm._i8_groups_plain)
+    assert draw.main(args + [out["plain"]]) == 0
+    assert open(out["i8"], "rb").read() == open(out["plain"], "rb").read()

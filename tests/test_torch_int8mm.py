@@ -72,6 +72,29 @@ def test_i8_contract_matches_jax(axis, shape, ndig):
     assert np.max(np.abs(yt.numpy() - ref)) / np.max(np.abs(ref)) <= bound
 
 
+@pytest.mark.parametrize("ndig", [3, 4])
+@pytest.mark.parametrize("shape", [(300, 260, 1), (2, 40, 300, 1)])
+def test_one_column_takes_the_right_form_and_matches_jax(shape, ndig, monkeypatch):
+    """A middle axis whose last axis has length 1 (draw's [H, W, 1] grid
+    along W) goes through the right form on the squeezed tensor; the JAX
+    package (Pallas in interpret mode) takes the batched left form, and
+    the two agree bit for bit."""
+    axis = len(shape) - 2
+    k = shape[axis]
+    x = ((np.random.default_rng(7).random(shape) - 0.3) * 4).astype(np.float32)
+    digits, scale = jmm.split_matrix_i8(jbasis.dct3_matrix(k), ndig)
+    calls = []
+    plain = tmm._i8_groups
+    monkeypatch.setattr(tmm, "_i8_groups", lambda a, xd, layout: calls.append(
+        (layout, tuple(xd.shape))) or plain(a, xd, layout))
+    yt = tmm.i8_contract(_t(x), _t(digits), _t(scale), axis)
+    rows = int(np.prod(shape[:axis]))
+    assert calls == [("right", (ndig, 1, rows, k))]
+    assert tuple(yt.shape) == shape
+    yj = np.asarray(jmm.i8_contract(jnp.asarray(x), jnp.asarray(digits), jnp.asarray(scale), axis))
+    np.testing.assert_array_equal(yt.numpy(), yj)
+
+
 @pytest.mark.parametrize("axis,shape", [(0, (300, 7)), (2, (2, 3, 300))])
 def test_i8_contract_rt_matches_jax(axis, shape):
     rng = np.random.default_rng(4)

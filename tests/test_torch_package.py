@@ -52,7 +52,9 @@ def test_every_module_imports_without_jax():
         "utils.profiling", "tools._speccli", "tools.spec", "tools.ispec",
         "tools.main", "core.expr", "ops.scan_order", "ops.scan_methods", "ops.speclib",
         "utils.checkpoint", "utils.hostcopy", "io.device_pack", "models.scan_pipeline",
-        "models.zoom_pipeline", "tools.scan", "tools.zoom")} <= names
+        "models.zoom_pipeline", "tools.scan", "tools.zoom", "models.basis_pipeline",
+        "tools._colorspec", "tools.applybasis", "tools.genbasis", "tools.draw", "tools.rotate",
+        "tools.transcode")} <= names
 
 
 def test_calibration_counterparts_run_without_jax():
@@ -157,28 +159,70 @@ def test_scan_and_zoom_run_without_jax_and_pillow(tmp_path):
         assert res.returncode == 0 and f"Usage: {tool}" in res.stderr
 
 
-def test_dispatcher_lists_the_ported_tools_and_refuses_the_rest(capsys):
-    """``dspfun-torch`` runs exactly the tools the port has; each other
-    tool of the JAX package's dispatcher is refused by ROADMAP item."""
+def test_basis_rotate_and_transcode_run_without_jax_and_pillow(tmp_path):
+    """``python -m dspfun_tpu_torch.tools.main`` for applybasis (with a
+    ``.coeff`` dump and the inverse from it), genbasis, draw, rotate and
+    transcode on the CPU with jax, Pillow and the JAX package
+    unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
+        "import runpy, numpy as np\n"
+        "from fractions import Fraction\n"
+        "from dspfun_tpu_torch.io import images, video\n"
+        f"d = {str(tmp_path)!r}\n"
+        "images.write_image(d + '/i.png', np.random.default_rng(0).random((16, 16, 3)))\n"
+        "w = video.open_output(d + '/c.y4m', 8, 6, Fraction(25, 1), video.ColorProps(pix_fmt='yuv420p'))\n"
+        "[w.write_frame([np.full((h, x), 100.0 + t) for x, h in"
+        " video.PIXEL_FORMATS['yuv420p'].plane_dims(8, 6)], raw=True) for t in range(4)]\n"
+        "w.close()\n"
+        "for argv in (['applybasis', '--device', 'cpu', '-f', 'DCT2', '-u', '16x16', '-d', d + '/c.coeff',"
+        " d + '/i.png', d + '/a.png'],\n"
+        "             ['applybasis', '--device', 'cpu', '-f', 'DCT3', '-I', '-u', '16x16', d + '/c.coeff',"
+        " d + '/b.png'],\n"
+        "             ['genbasis', '-s', '4x4', d + '/g.png'],\n"
+        "             ['draw', '--device', 'cpu', '-b', '24x16', '-f', '2x3:0.5', d + '/d.png'],\n"
+        "             ['rotate', '-q', 'zyx', d + '/c.y4m', d + '/r.y4m'],\n"
+        "             ['transcode', '-q', d + '/c.y4m', d + '/t.fvid']):\n"
+        "    sys.argv = ['dspfun-torch'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('dspfun_tpu_torch.tools.main', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        print('exit', e.code)\n"
+        "print([images.read_image(d + f'/{n}.png').pixels.shape[:2] for n in 'abgd'],"
+        " video.open_input(d + '/r.y4m').frames, video.open_input(d + '/t.fvid').frames)\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split("\n")[:7] == ["exit 0"] * 6 + [
+        "[(33, 33), (18, 18), (21, 21), (16, 24)] 8 4"]
+    for tool in ("applybasis", "genbasis", "draw", "rotate", "transcode"):
+        res = _run(["-m", f"dspfun_tpu_torch.tools.{tool}", "-h"])
+        assert res.returncode == 0 and f"Usage: {tool}" in res.stdout
+
+
+def test_dispatcher_lists_the_ported_tools_and_refuses_the_rest(capsys, monkeypatch):
+    """``dspfun-torch`` runs every tool of the JAX package's dispatcher;
+    the refusal by ROADMAP item stays for a tool the port would lack."""
     from dspfun_tpu.tools import main as jmain
     from dspfun_tpu_torch.tools import main as tmain
 
-    assert sorted(tmain.TOOLS) == ["ispec", "motion", "scan", "spec", "zoom"]
-    assert sorted(tmain.NOT_PORTED) == ["applybasis", "draw", "genbasis", "rotate", "transcode"]
-    assert set(tmain.NOT_PORTED) == set(jmain.TOOLS) - set(tmain.TOOLS)
+    assert sorted(tmain.TOOLS) == sorted(jmain.TOOLS) == [
+        "applybasis", "draw", "genbasis", "ispec", "motion", "rotate", "scan", "spec",
+        "transcode", "zoom"]
+    assert tmain.NOT_PORTED == {}
     tool_files = {p.stem for p in (PKG / "tools").glob("*.py")
                   if not p.stem.startswith("_") and p.stem != "main"}
     assert tool_files == set(tmain.TOOLS)
-    for name, item in tmain.NOT_PORTED.items():
-        assert tmain.main([name, "-h"]) == 1
-        err = capsys.readouterr().err
-        assert f"queue 1, item {item}" in err and name in err
+    monkeypatch.setattr(tmain, "NOT_PORTED", {"nonesuch": 99})
+    assert tmain.main(["nonesuch", "-h"]) == 1
+    err = capsys.readouterr().err
+    assert "queue 1, item 99" in err and "nonesuch" in err
+    monkeypatch.undo()
     assert tmain.main(["nonesuch"]) == 1
     assert "unknown tool" in capsys.readouterr().err
     assert tmain.main([]) == 1 and tmain.main(["-h"]) == 0
     listed = capsys.readouterr().err
     assert all(f"   {name}" in listed for name in tmain.TOOLS)
-    assert not any(f"   {name}" in listed for name in tmain.NOT_PORTED)
     assert tmain.main(["spec", "-h"]) == 0 and "Usage: spec" in capsys.readouterr().out
     scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]["scripts"]
     assert scripts["dspfun-torch"] == "dspfun_tpu_torch.tools.main:main"
@@ -283,7 +327,8 @@ def test_entry_points_default_to_the_card():
         "convert.scan_plan_from_jax", "convert.zoom_plans_from_jax",
         "models.scan_pipeline.forward_coeffs", "models.scan_pipeline.plan_scan",
         "models.zoom_pipeline.forward_spectrum", "models.zoom_pipeline.zoom_plan",
-        "utils.hostcopy.upload_scalars")} <= set(found)
+        "utils.hostcopy.upload_scalars", "models.basis_pipeline.apply_basis",
+        "models.basis_pipeline.draw_canvas")} <= set(found)
     assert {name: d for name, d in found.items() if d != "'cuda'"} == {}
 
 
