@@ -178,7 +178,28 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``rotate zyx`` (1920 frames of 48x1080) to y4m, every pel equal to a
    numpy index-map oracle of the reference's loop (rotate.c:159-172) on
    the decoded clip; ``transcode`` y4m -> fvid -> y4m, byte-equal to the
-   clip.  Prints the seconds of each.
+   clip.  Prints the seconds of each;
+13. main path 9, motion's ``--eval``, FFV1-in-NUT and Matroska, and
+   ``--resume-file`` on phase 6's clip.  (a) The README's fade, ``-b
+   0x0x0 --eval 'c * ((width-x)/width) * ((height-y)/height) *
+   ((depth-z)/depth)'`` (one 1920x1080x48 block and two 960x540x48
+   blocks) to ``.nut`` at the default policy and at ``i8@1e-5``: every
+   pel within one level of a float64 scipy oracle (DCT-II, the weights,
+   DCT-III, rounding), the share off by one printed and under 0.1 % at
+   the default policy; at ``i8@1e-5`` left3 and right3 launch (counted
+   over that run), the file equals a plain-forced run's byte for byte,
+   and the kernels are held to their plain versions at the shapes the
+   run gave them; wall, stages, device busy time (torch.profiler) and
+   peak device memory of each run.  (b) ``--eval 'c*(1+0.1*random(0))'``
+   on a 64x48x4 crop with ``-b 8x8x2`` on the card and with ``--device
+   cpu``: equal slots and generator state after the run, frames within
+   one level, the host round trip's share of the wall.  (c) phase 6's
+   lowpass to ``.nut`` and ``.mkv`` (FFV1): both decode to the y4m run's
+   frames, kernel #3 launches, the chroma takes ``cuda-kron``; the write
+   stage against y4m's, and the read through ``NativeBackedReader``
+   against the Python reader's.  (d) ``--resume-file``: the lowpass to
+   ``.nut`` cut after one slab and finished by a rerun with the same
+   flags, equal to the uninterrupted run's frames.
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -1885,6 +1906,267 @@ def _rotate_phase(torch, int8mm) -> None:
             raise RuntimeError("transcode y4m -> fvid -> y4m changed the clip or launched a kernel")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: motion's --eval, FFV1-in-NUT and Matroska, --resume-file
+# ---------------------------------------------------------------------------
+
+FADE = "c * ((width-x)/width) * ((height-y)/height) * ((depth-z)/depth)"
+FADE_SHARE = 1e-3                 # pels off by one level against the float64 oracle
+STATEFUL = "c*(1+0.1*random(0))"
+STATEFUL_CROP = dict(hw=(48, 64), frames=4)
+
+
+class _Interrupted(Exception):
+    """Raised by phase 13(d) to cut a run after a given number of slabs."""
+
+
+def _fade_oracle(planes, fft) -> list:
+    """motion -b 0x0x0 --eval FADE in float64: per plane, the whole clip's
+    DCT-II, each coefficient times ((w-x)/w)((h-y)/h)((d-z)/d), the
+    DCT-III / (8 d h w), then floor(x + 0.5) clipped to 0..255 (the
+    uniform renorm and its inverse cancel on a linear expression)."""
+    out = []
+    for p in planes:
+        d, h, w = p.shape
+        f = fft.dctn(p.astype(np.float64), type=2, workers=-1)
+        f *= ((d - np.arange(d)) / d)[:, None, None]
+        f *= ((h - np.arange(h)) / h)[None, :, None]
+        f *= ((w - np.arange(w)) / w)[None, None, :]
+        y = fft.dctn(f, type=3, workers=-1)
+        y /= 8.0 * d * h * w
+        out.append(np.clip(np.floor(y + 0.5), 0, 255).astype(np.uint8))
+        del f, y
+    return out
+
+
+def _decode_planes(video, path, nframes=None):
+    """[T, h, w] stored planes of a clip and the reader's class name."""
+    r = video.open_input(path)
+    kind, frames = type(r).__name__, []
+    while (f := r.read_frame(raw=True)) is not None:
+        frames.append(f)
+    r.close()
+    if nframes is not None and len(frames) != nframes:
+        raise RuntimeError(f"{path}: {len(frames)} frames, expected {nframes}")
+    return [np.stack([f[i] for f in frames]) for i in range(len(frames[0]))], kind
+
+
+def _busy_ms(torch, fn):
+    """(result, device busy ms, device events) of one call under
+    torch.profiler: the union of the kernel and copy spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, reach = 0.0, spans[0][0] if spans else 0.0
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return res, busy / 1e3, len(spans)
+
+
+def _eval_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, fft,
+                hw=(MH, MW), frames=MFRAMES, crop=STATEFUL_CROP) -> dict:
+    """Main path 9: motion's --eval at full width, a stateful expression,
+    FFV1-in-NUT and Matroska outputs of phase 6's lowpass, and
+    --resume-file.  Returns the kernels' launches over the path."""
+    from dspfun_tpu_torch.io import video
+    from dspfun_tpu_torch.models import motion_pipeline as mp
+    from dspfun_tpu_torch.tools import motion
+
+    global MH, MW, MFRAMES
+    saved_dims = (MH, MW, MFRAMES)
+    MH, MW, MFRAMES = hw[0], hw[1], frames
+    launches = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+            clip = os.path.join(tmp, "clip.y4m")
+            src = _write_clip(video, clip)
+
+            def run(args, dst, extra=()):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                rc = motion.main(["-Q", *extra, *args, clip, dst])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if rc != 0:
+                    raise RuntimeError(f"motion {args} -> {dst} exited {rc}")
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                return wall, dict(motion.LAST_STAGE_TIMES), peak
+
+            # ---- (a) the README's fade over the whole clip, one block a plane
+            t0 = time.perf_counter()
+            oracle = _fade_oracle(src, fft)
+            print(f"phase 13a float64 oracle: {time.perf_counter() - t0:.1f} s", flush=True)
+            fade = ["-b", "0x0x0", "--eval", FADE]
+            files = {}
+            for label, policy in (("default", None), ("i8@1e-5", "i8@1e-5")):
+                out = os.path.join(tmp, f"fade_{label}.nut")
+                seen = []
+                real_groups = int8mm._i8_groups
+
+                def spy(a, x, layout, real=real_groups):
+                    seen.append((layout, tuple(a.shape), tuple(x.shape)))
+                    return real(a, x, layout)
+
+                int8mm.LAUNCHES.clear()
+                block_filter.LAUNCHES.clear()
+                int8mm._i8_groups = spy
+                try:
+                    with _policy(policy):
+                        (wall, st, peak), busy, events = _busy_ms(torch, lambda: run(fade, out))
+                finally:
+                    int8mm._i8_groups = real_groups
+                got = {n: c for n, c in {**int8mm.LAUNCHES, **block_filter.LAUNCHES}.items() if c}
+                planes, kind = _decode_planes(video, out, frames)
+                files[label] = out
+                total = off = 0
+                for i, (p, q) in enumerate(zip(planes, oracle)):
+                    diff = np.abs(p.astype(np.int16) - q.astype(np.int16))
+                    total, off = total + diff.size, off + int((diff > 0).sum())
+                    print(f"fade {label} plane {i} {p.shape}: max |pel - f64 oracle| "
+                          f"{int(diff.max())}, off by one {np.mean(diff > 0):.6f}", flush=True)
+                    if diff.max() > 1:
+                        raise RuntimeError(f"fade {label} plane {i} is {diff.max()} levels "
+                                           "from the float64 oracle")
+                shapes = sorted(set(seen))
+                print(f"fade {label} ({kind}, {frames} frames of {hw[1]}x{hw[0]} 4:2:0): "
+                      f"{wall:.3f} s wall, stages (s) {_stages(st)}, device busy {busy:.1f} ms "
+                      f"({events} device events), peak device memory {peak:.3f} GiB, "
+                      f"launches {json.dumps(got)}, int8 forms {shapes}; off by one "
+                      f"{off / total:.6f} of {total} pels ({'PASS' if off / total < FADE_SHARE else 'MISS'} "
+                      f"< {FADE_SHARE})", flush=True)
+                if off / total >= FADE_SHARE and label == "default":
+                    # i8@1e-5 splits the whole clip's coefficients, whose
+                    # range the DC sets, into 3 digits: printed, not gated
+                    raise RuntimeError(f"fade {label}: {off / total:.6f} of the pels are off "
+                                       f"by one (limit {FADE_SHARE})")
+                if label == "default" and got:
+                    raise RuntimeError(f"the default policy's fade launched {got}")
+                if label == "i8@1e-5":
+                    if not (got.get("left3") and got.get("right3")):
+                        raise RuntimeError(f"fade at i8@1e-5 launched {got}, not left3 and right3")
+                    launches.update(got)
+                    fade_forms = shapes
+            out_plain = os.path.join(tmp, "fade_plain.nut")
+            with _policy("i8@1e-5"), plain_versions():
+                wall_plain, _, _ = run(fade, out_plain)
+            same = open(out_plain, "rb").read() == open(files["i8@1e-5"], "rb").read()
+            print(f"fade i8@1e-5 plain forced: {wall_plain:.3f} s; file byte-equal to the "
+                  f"kernels' run: {same}", flush=True)
+            if not same:
+                raise RuntimeError("fade at i8@1e-5: the kernels' file differs from plain forced")
+            del oracle
+            for layout, ashape, xshape in fade_forms:
+                nd, m, _ = ashape
+                _, b, d1, d2 = xshape
+                k, r = (d1, d2) if layout == "left" else (d2, d1)
+                check_i8mm(nd, layout, m, k, b, r, f"fade {layout} M={m}")
+            torch.cuda.empty_cache()
+
+            # ---- (b) a stateful expression on a crop, card against CPU
+            (ch, cw), cn = crop["hw"], crop["frames"]
+            small = os.path.join(tmp, "crop.y4m")
+            w = video.open_output(small, cw, ch, Fraction(25, 1), video.ColorProps(pix_fmt="yuv420p"))
+            for t in range(cn):
+                w.write_frame([p[t, : (ch if i == 0 else ch // 2), : (cw if i == 0 else cw // 2)]
+                               for i, p in enumerate(src)], raw=True)
+            w.close()
+            parsed, real_parse = [], motion.parse_expr
+            motion.parse_expr = lambda *a: parsed.append(real_parse(*a)) or parsed[-1]
+            res = {}
+            try:
+                for d in ("cuda", "cpu"):
+                    out = os.path.join(tmp, f"stateful_{d}.y4m")
+                    t0 = time.perf_counter()
+                    if motion.main(["-Q", "--device", d, "-b", "8x8x2", "--eval", STATEFUL,
+                                    small, out]) != 0:
+                        raise RuntimeError(f"stateful --eval on {d} failed")
+                    res[d] = (time.perf_counter() - t0, dict(motion.LAST_STAGE_TIMES),
+                              _decode_planes(video, out, cn)[0])
+            finally:
+                motion.parse_expr = real_parse
+            (wa, sa, pa), (wb, _, pb) = res["cuda"], res["cpu"]
+            same_state = (parsed[0]._slots == parsed[1]._slots and parsed[0]._prng == parsed[1]._prng
+                          and bool(parsed[0]._slots))
+            worst = max(int(np.abs(a.astype(int) - b.astype(int)).max()) for a, b in zip(pa, pb))
+            print(f"stateful --eval '{STATEFUL}' on {cw}x{ch}x{cn}: card {wa:.3f} s (host "
+                  f"round trip {sa['host_eval']:.3f} s, {100 * sa['host_eval'] / wa:.1f} % of the "
+                  f"wall), cpu {wb:.3f} s; slots and generators equal: {same_state} "
+                  f"({parsed[0]._slots}); max |card - cpu| {worst} level", flush=True)
+            if not same_state or worst > 1:
+                raise RuntimeError("stateful --eval: the card's run differs from the CPU's")
+
+            # ---- (c) phase 6's lowpass into FFV1-in-NUT and Matroska
+            if not isinstance(video.open_input(clip), video.NativeBackedReader):
+                raise RuntimeError("the y4m clip did not open through NativeBackedReader")
+            ref_y4m = os.path.join(tmp, "low.y4m")
+            _, st_y4m, _ = run(MOTION_ARGS[1:], ref_y4m)
+            real_open = video.open_input
+            video.open_input = lambda spec, format=None: real_open(spec, format, native=False)
+            try:
+                _, st_py, _ = run(MOTION_ARGS[1:], ref_y4m)
+            finally:
+                video.open_input = real_open
+            ref = _decode_planes(video, ref_y4m, frames)[0]
+            int8mm.LAUNCHES.clear()
+            block_filter.LAUNCHES.clear()
+            for ext in ("nut", "mkv"):
+                out = os.path.join(tmp, f"low.{ext}")
+                wall, st, _ = run(MOTION_ARGS[1:], out)
+                planes, kind = _decode_planes(video, out, frames)
+                equal = all(np.array_equal(a, b) for a, b in zip(planes, ref))
+                print(f"motion lowpass to .{ext} ({kind}, FFV1): {wall:.3f} s, stages (s) "
+                      f"{_stages(st)}; write {st['write']:.3f} s against y4m's "
+                      f"{st_y4m['write']:.3f} s; {os.path.getsize(out)} bytes against "
+                      f"{os.path.getsize(ref_y4m)}; frames equal to the y4m run's: {equal}; "
+                      f"fast path {mp.LAST_FAST_PATH}", flush=True)
+                if not equal or mp.LAST_FAST_PATH != "cuda-kron":
+                    raise RuntimeError(f"motion lowpass to .{ext} differs from y4m or left cuda-kron")
+            print(f"motion lowpass read: {st_y4m['read']:.3f} s through NativeBackedReader, "
+                  f"{st_py['read']:.3f} s through the Python y4m reader", flush=True)
+            for n, c in {**int8mm.LAUNCHES, **block_filter.LAUNCHES}.items():
+                launches[n] = launches.get(n, 0) + c
+            if not launches.get("block_filter"):
+                raise RuntimeError("kernel #3 never launched on the lowpass into NUT and MKV")
+
+            # ---- (d) --resume-file: cut after one slab, finish with the same flags
+            part, state = os.path.join(tmp, "part.nut"), os.path.join(tmp, "state.json")
+            real_filter, calls = mp.filter_blocks, []
+
+            def cut(*a, **k):
+                calls.append(1)
+                if len(calls) > 3:                  # three planes a slab: stop in slab 2
+                    raise _Interrupted
+                return real_filter(*a, **k)
+
+            mp.filter_blocks = cut
+            try:
+                run(MOTION_ARGS[1:], part, ("--resume-file", state))
+                raise RuntimeError("the interrupted run was not interrupted")
+            except _Interrupted:
+                pass
+            finally:
+                mp.filter_blocks = real_filter
+            done = json.load(open(state))["slab"]
+            wall, _, _ = run(MOTION_ARGS[1:], part, ("--resume-file", state))
+            planes, _ = _decode_planes(video, part, frames)
+            equal = all(np.array_equal(a, b) for a, b in zip(planes, ref))
+            print(f"motion --resume-file: cut after {done} slab(s), resumed to "
+                  f"{json.load(open(state))['slab']} in {wall:.3f} s; frames equal to one "
+                  f"uninterrupted run: {equal}", flush=True)
+            if done != 1 or not equal:
+                raise RuntimeError("--resume-file did not reproduce the uninterrupted run")
+    finally:
+        MH, MW, MFRAMES = saved_dims
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2146,19 +2428,28 @@ def main() -> int:
     _rotate_phase(torch, int8mm)
     print(f"phase 12 {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 13: main path 9, motion --eval, NUT/MKV and --resume-file ---
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eval_cli = _eval_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm,
+                           scipy.fft)
+    print(f"motion --eval / NUT / MKV main-path launches: {json.dumps(eval_cli)}; phase 13 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
                              + calib["i8mm_launches"][n] + spec_cli[n]
                              + scan_cli["launches"].get(n, 0) + zoom_launches[n]
-                             + basis_cli["launches"].get(n, 0)),
+                             + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
                                      "spec_cli": spec_cli[n],
                                      "scan_cli": scan_cli["launches"].get(n, 0),
                                      "zoom_cli": zoom_launches[n],
-                                     "draw_cli": basis_cli["launches"].get(n, 0)},
+                                     "draw_cli": basis_cli["launches"].get(n, 0),
+                                     "motion_eval": eval_cli.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -2179,8 +2470,9 @@ def main() -> int:
              zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), res)})
     kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
                     "replaces": BF_REPLACES,
-                    "launches": motion_launches["block_filter"],
-                    "launches_by_path": {"motion": motion_launches["block_filter"]},
+                    "launches": motion_launches["block_filter"] + eval_cli["block_filter"],
+                    "launches_by_path": {"motion": motion_launches["block_filter"],
+                                         "motion_eval": eval_cli["block_filter"]},
                     **bf_stats})
     kernels += [{"name": f"i8split_{n}", "route": "cuda", "source": I8S_SRC,
                  "replaces": I8S_REPLACES[n], "launches": calib["launches"][n],

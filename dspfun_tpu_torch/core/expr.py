@@ -1,5 +1,5 @@
-"""FFmpeg av_expr-compatible expression engine: the host interpreter
-(copy of ``dspfun_tpu/core/expr.py`` without its JAX paths).
+"""FFmpeg av_expr-compatible expression engine (copy of
+``dspfun_tpu/core/expr.py`` with PyTorch in place of its JAX paths).
 
 The reference uses FFmpeg's expression evaluator as its user-scripting
 hook: zoom animation expressions (reference zoom/zoom.c:221-228,
@@ -8,10 +8,14 @@ hook: zoom animation expressions (reference zoom/zoom.c:221-228,
 (scan/scan_methods.c:333-391).
 
 All of those uses are *elementwise over coordinate grids* (or per-frame
-scalars), so this engine parses once into an AST and evaluates with
-numpy on the host (scan precompute, zoom per-frame scalars).  A
-vectorised device path (motion --eval on the card) is not ported yet
-(ROADMAP queue 1, item 12).
+scalars), so this engine parses once into an AST and evaluates it with
+numpy on the host (scan precompute, zoom per-frame scalars) or, through
+:class:`TorchNamespace`, as torch ops on the device that holds the grid
+(motion's ``--eval``): one walker, two array namespaces.  A stateful
+expression given the torch namespace takes its variables to the host in
+float64, evaluates per element in raster order, and returns the result
+to the device (the port's counterpart of the JAX package's ordered
+``io_callback``, ``host_eval_in_jit``).
 
 Grammar (the av_expr subset the dspfun docs exercise):
     expr   := term (('+'|'-') term)*
@@ -58,7 +62,7 @@ import sys
 import time as _time
 from typing import Any, Callable, Mapping
 
-__all__ = ["Expr", "parse_expr"]
+__all__ = ["Expr", "TorchNamespace", "parse_expr"]
 
 _U64 = (1 << 64) - 1
 _VARS = 10  # ffmpeg eval.c VARS: st()/ld()/random() slot count
@@ -296,7 +300,59 @@ class _Parser:
         raise ValueError(f"unexpected token {(kind, val)}")
 
 
+class TorchNamespace:
+    """What ``_funcs`` and ``Expr._eval_tree`` call on numpy, as torch
+    ops on ``device``.
+
+    Python scalars become 0-dim float64 tensors on ``device``: PyTorch
+    promotes a 0-dim operand no further than a dimensioned one of its
+    kind, as JAX does with weakly typed scalars, and a division by a
+    tensor on the device rounds once, where a host scalar divisor would
+    round twice (``core/precision.py:true_div``).  ``dtype`` is the dtype
+    a stateful evaluation's host result returns in."""
+
+    __name__ = "torch"
+
+    def __init__(self, device, dtype):
+        import torch  # noqa: PLC0415
+
+        self.torch, self.device, self.dtype = torch, torch.device(device), dtype
+        self.float64, self.int64 = torch.float64, torch.int64
+        t = torch
+        for name, fn in (("sin", t.sin), ("cos", t.cos), ("tan", t.tan),
+                         ("arcsin", t.asin), ("arccos", t.acos), ("arctan", t.atan),
+                         ("sinh", t.sinh), ("cosh", t.cosh), ("tanh", t.tanh),
+                         ("exp", t.exp), ("log", t.log), ("sqrt", t.sqrt),
+                         ("abs", t.abs), ("floor", t.floor), ("ceil", t.ceil),
+                         ("trunc", t.trunc), ("sign", t.sign), ("isnan", t.isnan),
+                         ("isinf", t.isinf), ("nan_to_num", t.nan_to_num),
+                         ("logical_not", t.logical_not)):
+            setattr(self, name, lambda x, fn=fn: fn(self.asarray(x)))
+        for name, fn in (("arctan2", t.atan2), ("power", t.pow), ("divide", t.div),
+                         ("hypot", t.hypot), ("gcd", t.gcd),
+                         ("logical_and", t.logical_and)):
+            setattr(self, name, lambda x, y, fn=fn: fn(self.asarray(x), self.asarray(y)))
+
+    def asarray(self, x):
+        if isinstance(x, self.torch.Tensor):
+            return x if x.device == self.device else x.to(self.device)
+        dtype = self.torch.bool if isinstance(x, bool) else self.float64
+        return self.torch.tensor(x, dtype=dtype, device=self.device)
+
+    def where(self, c, x, y):
+        return self.torch.where(self.asarray(c), self.asarray(x), self.asarray(y))
+
+    def cast(self, x, dtype: str):
+        return self.asarray(x).to(getattr(self.torch, dtype))
+
+
 def _funcs(xp) -> Mapping[str, Callable]:
+    if isinstance(xp, TorchNamespace):
+        cast = xp.cast
+    else:
+        def cast(v, dtype):
+            return v.astype(dtype)
+
     def _i64(x):
         # C (int64_t)double cast as the oracle's x86-64 build performs
         # it (cvttsd2si): truncate toward zero; NaN and out-of-range
@@ -305,7 +361,7 @@ def _funcs(xp) -> Mapping[str, Callable]:
         # matching this cast (differential fuzz vs cv2's libavutil).
         t = xp.trunc(x)
         in_range = (t >= -9.223372036854775808e18) & (t < 9.223372036854775808e18)
-        return xp.where(in_range, xp.nan_to_num(t), -9.223372036854775808e18).astype("int64")
+        return cast(xp.where(in_range, xp.nan_to_num(t), -9.223372036854775808e18), "int64")
 
     def _gcd(a):
         # av_gcd (libavutil/mathematics.c): a==0 -> b, b==0 -> a with
@@ -313,7 +369,7 @@ def _funcs(xp) -> Mapping[str, Callable]:
         ia, ib = _i64(a[0]), _i64(a[1])
         g = xp.gcd(xp.abs(ia), xp.abs(ib))
         out = xp.where(ia == 0, ib, xp.where(ib == 0, ia, g))
-        return out.astype("float64")
+        return cast(out, "float64")
 
     def _bitop(op):
         def f(a):
@@ -321,7 +377,7 @@ def _funcs(xp) -> Mapping[str, Callable]:
             # Tested per operand — isnan(a+b) would also fire on
             # inf + (-inf), where the oracle returns the saturated
             # INT64_MIN & INT64_MIN instead (probed: bitand(1/0,-1/0))
-            v = op(_i64(a[0]), _i64(a[1])).astype("float64")
+            v = cast(op(_i64(a[0]), _i64(a[1])), "float64")
             return xp.where(xp.isnan(a[0]) | xp.isnan(a[1]), math.nan, v)
         return f
 
@@ -382,8 +438,9 @@ def _funcs(xp) -> Mapping[str, Callable]:
         # between/clip are special-cased in the evaluator (argument
         # re-evaluation and && short-circuit semantics of eval.c)
         "lerp": lambda a: a[0] + (a[1] - a[0]) * a[2],
-        "squish": lambda a: 1.0 / (1.0 + xp.exp(4.0 * a[0])),
-        "gauss": lambda a: xp.exp(-a[0] * a[0] / 2.0) / math.sqrt(2.0 * math.pi),
+        # xp.divide: a torch scalar divisor must round once (true_div)
+        "squish": lambda a: xp.divide(1.0, 1.0 + xp.exp(4.0 * a[0])),
+        "gauss": lambda a: xp.divide(xp.exp(-a[0] * a[0] / 2.0), math.sqrt(2.0 * math.pi)),
     }
 
 
@@ -589,17 +646,28 @@ class Expr:
         self._prng.clear()
 
     def __call__(self, variables: Mapping[str, Any], xp=None):
+        """Evaluate over ``variables`` (scalars or broadcastable grids)
+        with numpy (the default) or a :class:`TorchNamespace`.  A stateful
+        expression evaluates per element in raster order on the host in
+        float64; under the torch namespace its result returns to the
+        device in ``xp.dtype``."""
         if xp is None:
             import numpy as xp  # noqa: PLC0415
         if not self.stateful:
             return self._eval_tree(variables, xp, {}, scalar=False)
+        import numpy as np  # noqa: PLC0415
+
+        if isinstance(xp, TorchNamespace):
+            host = {k: (v.detach().to("cpu", xp.float64).numpy()
+                        if isinstance(v, xp.torch.Tensor) else v)
+                    for k, v in variables.items()}
+            return xp.torch.from_numpy(np.asarray(self(host, np), np.float64)).to(
+                xp.device, xp.dtype)
         if xp.__name__ != "numpy":
             raise ValueError(
                 f"expression {self.source!r} uses a stateful av_expr form"
-                " (random/while/root/taylor): it evaluates on the host"
-                " with numpy only")
-        import numpy as np  # noqa: PLC0415
-
+                " (random/while/root/taylor): it evaluates with numpy or"
+                " through a TorchNamespace")
         arrs = {k: np.asarray(v, dtype=np.float64)
                 for k, v in variables.items()}
         shape = (np.broadcast_shapes(*(a.shape for a in arrs.values()))
@@ -759,8 +827,13 @@ class Expr:
                         ev(args[1])  # log level: evaluated, stderr either way
                     import numpy as _np  # noqa: PLC0415
 
-                    msg = (f"{float(v):f}" if _np.ndim(v) == 0
-                           else _np.array2string(_np.asarray(v)))
+                    if isinstance(xp, TorchNamespace):
+                        v = xp.asarray(v)
+                        hv = v.detach().cpu().numpy()
+                    else:
+                        hv = v
+                    msg = (f"{float(hv):f}" if _np.ndim(hv) == 0
+                           else _np.array2string(_np.asarray(hv)))
                     print(msg, file=sys.stderr)
                     return v
                 if name == "time":

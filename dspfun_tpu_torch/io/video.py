@@ -1,11 +1,10 @@
-"""Video I/O: the y4m, fvid and image-sequence subset of
-``dspfun_tpu/io/video.py``, copied.
+"""Video I/O: a copy of ``dspfun_tpu/io/video.py`` without the ffmpeg
+bridge.
 
 The reference wraps libavformat/libavcodec/libswscale (include/ffapi.{h,c})
 for frame-by-frame video read/write with color-property negotiation.
-The JAX package carries its own containers; the port so far copies the
-ones its motion, scan, zoom, rotate and transcode CLIs need on the card,
-which has no JAX:
+The JAX package carries its own containers, and so does the port, which
+has no JAX on the card:
 
 * **y4m** (YUV4MPEG2), the reference's default for pipe video
   (ffapi.c:177-178,396-397): 8- to 16-bit planar YCbCr (mono, 420, 422,
@@ -14,21 +13,35 @@ which has no JAX:
 * **fvid**, the package's own float container: a one-line ``DSPFVID``
   header with the color properties, then ``FRAME`` markers and raw
   float32 planes (gbrpf32le, grayf32le, yuv444pf32);
+* **NUT** (``io/nut.py``) with FFV1 (``io/ffv1.py``, the reference's
+  default codec for every video tool) or rawvideo payloads, append
+  included, read and written;
+* **Matroska** (``io/mkv.py``): FFV1 tracks read, and written as the
+  JAX package writes them when no ffmpeg binary is on PATH;
 * **image2**, a printf pattern (``frame%04d.png``) or a single image
-  path, written through ``io/images.write_image`` (PNG only);
+  path, read and written through ``io/images.py`` (PNG only);
 * the pixel formats, color properties (FFColorProperties, ffapi.h:16-23,
   parsed from the same "k=v:k=v" strings, ffapi.c:94-114) and the
   RGB <-> planar and pel conversions around them.
 
-Every other container (NUT, MKV, FFV1, the ffmpeg bridge, ``ffplay:``
-sinks) and image sequences as input raise "not ported yet".
-tests/test_torch_motion_cli.py, tests/test_torch_video_fvid.py and
-tests/test_torch_rotate_cli.py pin the copy to its original.
+y4m and fvid files (not pipes) are read through the host library's
+prefetching demuxer (``NativeBackedReader``, ``io/native.py``).  The host
+libraries build on first use (``_hostbuild.py``); when a build fails the
+reader or writer that needs it raises with the compiler's message, where
+the JAX package falls back to pure Python or to rawvideo payloads.
+
+Not ported yet, each refused with a message naming ROADMAP queue 1,
+item 13: the ffmpeg-bridge containers (mp4, mov, webm and the like, and
+NUT or Matroska content the native stack cannot decode), encoders other
+than FFV1 and rawvideo, and ``ffplay:`` sinks.  tests/test_torch_nut.py,
+test_torch_mkv.py, test_torch_native.py, test_torch_video_fvid.py and
+the CLI tests pin the copy to its original.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import os
 import re
 import sys
@@ -37,6 +50,10 @@ from fractions import Fraction
 import numpy as np
 
 from dspfun_tpu_torch.io import color as _color
+from dspfun_tpu_torch.io import ffv1 as _ffv1
+from dspfun_tpu_torch.io import mkv as _mkv
+from dspfun_tpu_torch.io import native as _native
+from dspfun_tpu_torch.io import nut as _nut
 
 __all__ = [
     "ColorProps",
@@ -52,7 +69,13 @@ __all__ = [
     "Y4MWriter",
     "FvidReader",
     "FvidWriter",
+    "ImageSeqReader",
     "ImageSeqWriter",
+    "NutVideoReader",
+    "NutVideoWriter",
+    "MkvVideoReader",
+    "MkvVideoWriter",
+    "NativeBackedReader",
     "split_codec_opts",
     "check_output",
     "rgb_to_planes",
@@ -157,8 +180,7 @@ _RANGE_ALIASES = {"full": "jpeg", "pc": "jpeg", "jpeg": "jpeg",
 
 # --ff-opts keys that address the encoder rather than color properties
 # (the reference passes one option dict to the codec, zoom.c:217-228):
-# they split off before color parsing.  No container of the port has an
-# encoder, so the CLIs drop them.
+# they split off before color parsing and go to the FFV1 encoder
 _CODEC_OPT_KEYS = {"level", "slices", "slicecrc", "negotiate"}
 
 
@@ -172,6 +194,16 @@ def split_codec_opts(optstring: str | None) -> tuple[str, str]:
         k = part.split("=", 1)[0].strip()
         (codec if k in _CODEC_OPT_KEYS else props).append(part)
     return ":".join(p for p in props if p), ":".join(c for c in codec if c)
+
+
+def _wants_negotiate(options: str | None) -> bool:
+    """Parse the ``negotiate`` opt-in VALUE: ``negotiate=0`` is an
+    explicit opt-out and must not down-convert float content."""
+    for part in re.split(r"[:,|]", options or ""):
+        k, eq, v = part.strip().partition("=")
+        if k == "negotiate":
+            return v.strip().lower() not in ("0", "false", "no") if eq else True
+    return False
 
 
 def parse_color_props(props: str | None) -> ColorProps:
@@ -411,6 +443,9 @@ class VideoReader:
             if self.read_frame() is None:
                 break
 
+    def plane_dims(self) -> list[tuple[int, int]]:
+        return self.pix_fmt.plane_dims(self.width, self.height)
+
     def close(self) -> None:
         # getattr: under contextlib.redirect_stdout/-stdin the
         # replacement (e.g. StringIO) has no .buffer, and evaluating it
@@ -580,6 +615,59 @@ class FvidReader(_HeaderedReader):
                 self.props.sample_aspect = v
 
 
+class ImageSeqReader(VideoReader):
+    """A printf pattern (``frame%04d.png``) or a single image as a
+    gbrpf32le clip, read through io/images.py (PNG only)."""
+
+    def __init__(self, pattern, spec, rate=Fraction(25, 1)):
+        super().__init__(None, spec, "image2")
+        from dspfun_tpu_torch.io.images import read_image  # noqa: PLC0415
+
+        self._read_image = read_image
+        self.pattern = pattern
+        self.rate = rate
+        self.pix_fmt = PIXEL_FORMATS["gbrpf32le"]
+        self.props = ColorProps(
+            # image2 default: full-range sRGB (reference ffapi.c:50-59)
+            color_range="jpeg", color_primaries="bt709",
+            color_trc="iec61966-2-1", color_space="rgb",
+        )
+        self._single = _PATTERN_RE.search(pattern) is None
+        start = 0
+        if self._single:
+            # a plain image path is a one-frame sequence (ffmpeg's
+            # image2 does the same for single files)
+            n = 1 if os.path.exists(pattern) else 0
+        else:
+            n = 0
+            while os.path.exists(pattern % n):
+                n += 1
+            if n == 0 and os.path.exists(pattern % 1):  # some sequences are 1-based
+                start = n = 1
+                while os.path.exists(pattern % (n + 1)):
+                    n += 1
+        self.frames = n
+        self._start = start
+        if n:
+            first = self._read_image(self._path(start))
+            self.height, self.width = first.pixels.shape[:2]
+
+    def _path(self, index: int) -> str:
+        return self.pattern if self._single else self.pattern % index
+
+    def read_frame(self, raw: bool = False):
+        if self.frames is not None and self.frame_index >= self.frames:
+            return None
+        rgb = self._read_image(self._path(self._start + self.frame_index)).pixels
+        self.frame_index += 1
+        # image2 planes are float (gbrpf32le): stored pel units and
+        # normalised values coincide, so ``raw`` needs no conversion
+        return [rgb[..., 1], rgb[..., 2], rgb[..., 0]]  # gbr planar
+
+    def close(self):
+        pass
+
+
 class VideoWriter:
     def __init__(self, stream, spec, fmt, width, height, rate, pix_fmt: PixelFormat,
                  props: ColorProps):
@@ -624,7 +712,7 @@ class VideoWriter:
 
     def supports_payload(self) -> bool:
         """True when :meth:`write_frame_payload` is available (raw
-        plane-payload framing: y4m and fvid)."""
+        plane-payload framing: y4m, fvid, NUT and Matroska)."""
         return True
 
     def write_frame_payload(self, payload: bytes) -> None:
@@ -638,6 +726,9 @@ class VideoWriter:
         self._stream.write(b"FRAME\n")
         self._stream.write(payload)
         self.frame_index += 1
+
+    def plane_dims(self) -> list[tuple[int, int]]:
+        return self.pix_fmt.plane_dims(self.width, self.height)
 
     def close(self) -> None:
         if not self._wrote_header:
@@ -681,6 +772,394 @@ class FvidWriter(VideoWriter):
             if val:
                 hdr += f" {tag}{val}"
         self._stream.write((hdr + "\n").encode("ascii"))
+
+
+class NutVideoReader(VideoReader):
+    """Native NUT demux (io/nut.py): FFV1 and rawvideo payloads, the
+    reference's default motion container family (FFV1-in-NUT at
+    motion.c:447) decoded by the native codec (io/ffv1.py)."""
+
+    def __init__(self, stream, spec):
+        super().__init__(stream, spec, "nut")
+        self._nr = _nut.NutReader(stream)
+        st = self._nr.state
+        if not st.streams:
+            raise ValueError(f"{spec!r}: NUT stream header missing")
+        s0 = st.streams[0]
+        tag = bytes(s0["fourcc"])
+        self.width, self.height = s0["width"], s0["height"]
+        self._ffv1 = None
+        self._native = None
+        self._first_packet: bytes | None = None
+        if tag == b"FFV1":
+            _ffv1._load()  # a failed build raises here, with its message
+            csd = bytes(s0["codec_specific"])
+            if csd:
+                # version >= 2: parameters ride in the extradata
+                # (real-FFmpeg files: v3, either coder, YCbCr or RGB);
+                # unsupported variants raise ValueError
+                self._ffv1 = _ffv1.FFV1Decoder(self.width, self.height,
+                                               extradata=csd)
+                params = self._ffv1.params
+            else:
+                # version 0/1: the parameter set rides in the first
+                # keyframe; probe it (the packet replays on first read)
+                got = self._nr.read_frame_bytes()
+                if got is None:
+                    raise ValueError(f"{spec!r}: FFV1 NUT stream has no frames")
+                _, pkt = got
+                params = _ffv1.probe(pkt, self.width, self.height)
+                self._ffv1 = _ffv1.FFV1Decoder(self.width, self.height)
+                self._first_packet = pkt
+            name = params.pix_fmt_name()
+        elif tag == b"DSPF":
+            name = s0["codec_specific"].decode("ascii", "replace")
+        else:
+            name = _nut._TAG_TO_FMT.get(tag, "")
+        if name not in PIXEL_FORMATS:
+            raise ValueError(f"{spec!r}: NUT codec {tag!r} is not FFV1 or rawvideo")
+        self.pix_fmt = PIXEL_FORMATS[name]
+        tbid = s0["time_base_id"]
+        tb = (st.time_bases[tbid] if 0 <= tbid < len(st.time_bases)
+              else Fraction(1, 25))
+        info = st.info
+        if "X-dspfun-rate" in info:
+            num, _, den = info["X-dspfun-rate"].partition("/")
+            self.rate = Fraction(int(num), int(den or 1))
+        elif tb:
+            self.rate = 1 / tb
+        self.props = ColorProps(
+            pix_fmt=name,
+            color_range=info.get("X-dspfun-color_range"),
+            color_primaries=info.get("X-dspfun-color_primaries"),
+            color_trc=info.get("X-dspfun-color_trc"),
+            color_space=info.get("X-dspfun-color_space"),
+            chroma_location=info.get("X-dspfun-chroma_location"),
+        )
+        sw, sh = s0.get("sample_width", 0), s0.get("sample_height", 0)
+        if sw and sh:
+            self.props.sample_aspect = f"{sw}:{sh}"
+        if self.props.color_range is None:
+            # colorspace_type carries range class (nut.txt): >= 16 full
+            cs = s0.get("colorspace_type", 0)
+            self.props.color_range = "jpeg" if cs >= 16 or cs == 0 else "mpeg"
+        self._prefetch = 4
+        if self._ffv1 is not None:
+            # variable packet sizes: no raw-payload index; v0/1 probing
+            # consumed (and holds) the first packet
+            held = 1 if self._first_packet is not None else 0
+            cf = self._nr.count_frames()
+            self.frames = None if cf is None else cf + held
+            return
+        # one packet-structure walk at open: the payload-offset scan both
+        # indexes the native demuxer (payload preads and the prefetch
+        # ring run in libdspio, dspio_open_indexed) and counts the
+        # frames; it bails (None) on pipes, header elision, irregular
+        # payloads or damage, and count_frames and the Python reader
+        # take over
+        offs = None
+        fb = self.pix_fmt.frame_bytes(self.width, self.height)
+        if (stream.seekable() and spec not in _PIPES_IN and os.path.exists(spec)):
+            offs = self._nr.scan_payload_offsets(fb)
+        self.frames = len(offs) if offs is not None else self._nr.count_frames()
+        if offs:
+            self._native = _native.NativeVideoReader(
+                spec, prefetch=0,
+                index=(offs, fb, self.plane_dims(), self.pix_fmt.dtype.itemsize,
+                       (self.width, self.height),
+                       (self.rate.numerator, self.rate.denominator)))
+
+    def seek_frame(self, n: int) -> None:
+        if self._native is not None and not self._native._pf:
+            self._native.seek(n)
+            self.frame_index = n
+            return
+        super().seek_frame(n)
+
+    def read_frame(self, raw: bool = False):
+        pf = self.pix_fmt
+        if self._ffv1 is not None:
+            while True:
+                if self._first_packet is not None:
+                    pkt, self._first_packet = self._first_packet, None
+                else:
+                    got = self._nr.read_frame_bytes()
+                    if got is None:
+                        return None
+                    _, pkt = got
+                try:
+                    planes = self._ffv1.decode(pkt)
+                    break
+                except ValueError:
+                    # payload-level damage: drop the frame and continue
+                    # at the next packet (every native frame is a
+                    # keyframe with reset contexts), mirroring the
+                    # container-level syncpoint recovery
+                    self._nr.damaged += 1
+                    print("nut: damaged FFV1 frame, skipping", file=sys.stderr)
+            self.frame_index += 1
+            if raw:
+                return planes
+            return [_dequantize_plane(p, pf, i, self.props.color_range)
+                    for i, p in enumerate(planes)]
+        if self._native is not None:
+            if self._prefetch:
+                self._native.start_prefetch(self._prefetch)
+                self._prefetch = 0
+            planes = self._native.read_frame()
+            if planes is None:
+                return None
+            self.frame_index += 1
+            if raw:
+                return [np.asarray(p) for p in planes]
+            return [_dequantize_plane(p, pf, i, self.props.color_range)
+                    for i, p in enumerate(planes)]
+        got = self._nr.read_frame_bytes()
+        if got is None:
+            return None
+        _, data = got
+        if len(data) < pf.frame_bytes(self.width, self.height):
+            raise ValueError(f"{self.spec!r}: short NUT frame")
+        # one plane split/dequantize implementation for every container
+        # (the y4m/fvid payload reader); only the byte source differs
+        planes = _read_frame_payload(io.BytesIO(data), pf, self.width,
+                                     self.height, self.props, raw)
+        self.frame_index += 1
+        return planes
+
+    def close(self) -> None:
+        if getattr(self, "_native", None) is not None:
+            self._native.close()
+            self._native = None
+        if getattr(self, "_ffv1", None) is not None:
+            self._ffv1.close()
+            self._ffv1 = None
+        super().close()
+
+
+class MkvVideoReader(VideoReader):
+    """Native Matroska demux (io/mkv.py) for FFV1 video tracks, the
+    real-world archival pairing of the reference's default codec
+    (ffapi.c:362-559 + AV_CODEC_ID_FFV1).  Seekable sources only;
+    anything else raises ValueError."""
+
+    def __init__(self, stream, spec):
+        super().__init__(stream, spec, "matroska")
+        if not stream.seekable():
+            raise ValueError(f"{spec!r}: Matroska on a pipe")
+        d = _mkv.MkvDemuxer(stream)
+        t = d.track
+        if t.codec_id != "V_FFV1":
+            raise ValueError(f"{spec!r}: Matroska codec {t.codec_id!r} is not FFV1")
+        _ffv1._load()  # a failed build raises here, with its message
+        self.width, self.height = t.width, t.height
+        self.rate = d.rate()
+        self._packets = d.scan_packets()
+        if t.codec_private:
+            self._ffv1 = _ffv1.FFV1Decoder(t.width, t.height,
+                                           extradata=t.codec_private)
+            params = self._ffv1.params
+        else:
+            self._ffv1 = _ffv1.FFV1Decoder(t.width, t.height)
+            if not self._packets:
+                raise ValueError(f"{spec!r}: Matroska FFV1 track is empty")
+            _, off, ln = self._packets[0]
+            stream.seek(off)
+            params = _ffv1.probe(stream.read(ln), t.width, t.height)
+        name = params.pix_fmt_name()
+        if name not in PIXEL_FORMATS:
+            raise ValueError(f"{spec!r}: FFV1 format {name!r} unsupported")
+        self.pix_fmt = PIXEL_FORMATS[name]
+        self.frames = len(self._packets)
+        self.props = ColorProps(
+            pix_fmt=name, color_range=t.color_range,
+            color_space=t.color_space, color_trc=t.color_trc,
+            color_primaries=t.color_primaries,
+        )
+        if self.props.color_range is None:
+            self.props.color_range = "jpeg" if self.pix_fmt.is_rgb else "mpeg"
+        if self.props.color_space is None and self.pix_fmt.is_rgb:
+            self.props.color_space = "rgb"
+
+    def read_frame(self, raw: bool = False):
+        if self.frame_index >= len(self._packets):
+            return None
+        _, off, ln = self._packets[self.frame_index]
+        self._stream.seek(off)
+        planes = self._ffv1.decode(self._stream.read(ln))
+        self.frame_index += 1
+        if raw:
+            return planes
+        return [_dequantize_plane(p, self.pix_fmt, i, self.props.color_range)
+                for i, p in enumerate(planes)]
+
+    def close(self) -> None:
+        if getattr(self, "_ffv1", None) is not None:
+            self._ffv1.close()
+            self._ffv1 = None
+        super().close()
+
+
+def _quantize_planes(planes, pf: PixelFormat, color_range, raw: bool) -> list[np.ndarray]:
+    """Planes in the container's stored dtype: stored pel values rounded
+    and clipped (``raw``; floats pass through), or normalised values
+    quantised per plane."""
+    out = []
+    for i, p in enumerate(planes):
+        if raw and not pf.is_float:
+            maxv = (1 << pf.depth) - 1
+            out.append(np.clip(np.rint(p), 0, maxv).astype(pf.dtype))
+        elif raw:
+            out.append(np.asarray(p, dtype=pf.dtype))
+        else:
+            out.append(_quantize_plane(p, pf, i, color_range))
+    return out
+
+
+def _split_payload(payload: bytes, pf: PixelFormat, width: int, height: int) -> list[np.ndarray]:
+    """Packed plane-payload bytes (the device packer's layout) as plane views."""
+    buf = np.frombuffer(payload, dtype=np.uint8)
+    planes, off = [], 0
+    for w, h in pf.plane_dims(width, height):
+        nb = w * h * pf.dtype.itemsize
+        planes.append(buf[off:off + nb].view(pf.dtype).reshape(h, w))
+        off += nb
+    return planes
+
+
+class MkvVideoWriter(VideoWriter):
+    """Native Matroska mux (io/mkv.py) with FFV1 payloads, what the JAX
+    package writes for `.mkv` outputs when no ffmpeg binary is on PATH."""
+
+    def __init__(self, stream, spec, width, height, rate, pix_fmt, props,
+                 options: str | None = None):
+        super().__init__(stream, spec, "matroska", width, height, rate,
+                         pix_fmt, props)
+        self.codec = "ffv1"
+        _ffv1._load()  # a failed build raises here, before any frame is computed
+        self._enc = _ffv1.FFV1Encoder(pix_fmt, width, height, options)
+        self._mux = _mkv.MkvMuxer(stream, width, height, rate,
+                                  codec_private=self._enc.extradata,
+                                  color_range=props.color_range,
+                                  color_space=props.color_space)
+
+    def _write_header(self):
+        pass  # the muxer writes its header lazily
+
+    def write_frame(self, planes: list[np.ndarray], raw: bool = False) -> None:
+        q = _quantize_planes(planes, self.pix_fmt, self.props.color_range, raw)
+        self._mux.write_frame_bytes(self._enc.encode(q))
+        self.frame_index = self._mux.frame_index
+
+    def write_frame_payload(self, payload: bytes) -> None:
+        planes = _split_payload(payload, self.pix_fmt, self.width, self.height)
+        self._mux.write_frame_bytes(self._enc.encode(planes))
+        self.frame_index = self._mux.frame_index
+
+    def close(self) -> None:
+        try:
+            self._mux.finalize()
+        except (OSError, ValueError):
+            pass
+        super().close()
+
+
+class NutVideoWriter(VideoWriter):
+    """Native NUT mux (io/nut.py): FFV1 payloads (the reference's
+    default codec, motion.c:447, through io/ffv1.py) or rawvideo."""
+
+    def __init__(self, stream, spec, width, height, rate, pix_fmt, props,
+                 start_index: int = 0, codec: str = "rawvideo",
+                 options: str | None = None):
+        super().__init__(stream, spec, "nut", width, height, rate,
+                         pix_fmt, props)
+        self.codec = codec
+        self._enc = None
+        csd = b""
+        if codec == "ffv1":
+            _ffv1._load()  # a failed build raises here, before any frame is computed
+            self._enc = _ffv1.FFV1Encoder(pix_fmt, width, height, options)
+            csd = self._enc.extradata
+        self._nw = _nut.NutWriter(stream, width, height, rate, pix_fmt,
+                                  props, start_index=start_index,
+                                  codec=codec, codec_private=csd)
+        self.frame_index = start_index
+        self._wrote_header = start_index > 0  # appending: the header exists
+
+    def _write_header(self):
+        if not self._nw._header_written:
+            self._nw.write_header()
+            self._nw._header_written = True
+
+    def _encode_planes(self, planes: list[np.ndarray]) -> bytes:
+        return self._enc.encode(planes)
+
+    def write_frame_payload(self, payload: bytes) -> None:
+        self._write_header()
+        self._wrote_header = True
+        if self._enc is not None:
+            # device-packed payload bytes are the quantised planes in
+            # layout order: split them and run them through the encoder
+            payload = self._encode_planes(
+                _split_payload(payload, self.pix_fmt, self.width, self.height))
+        self._nw.write_frame_bytes(payload)
+        self.frame_index = self._nw.frame_index
+
+    def write_frame(self, planes: list[np.ndarray], raw: bool = False) -> None:
+        self._write_header()
+        self._wrote_header = True
+        q = _quantize_planes(planes, self.pix_fmt, self.props.color_range, raw)
+        data = (self._encode_planes(q) if self._enc is not None
+                else b"".join(p.tobytes() for p in q))
+        self._nw.write_frame_bytes(data)
+        self.frame_index = self._nw.frame_index
+
+    def close(self) -> None:
+        # EOF index packet: exact duration/seek for libavformat readers
+        try:
+            self._nw.write_index()
+        except (OSError, ValueError):
+            pass  # the index is an optimisation; never fail the close
+        super().close()
+
+
+class NativeBackedReader(VideoReader):
+    """Demux a y4m or fvid file through the host library (libdspio) with
+    background prefetch from the first read; the header's metadata comes
+    from the Python parser, so color semantics match the Python readers
+    exactly."""
+
+    def __init__(self, meta: VideoReader, spec: str, prefetch: int = 4):
+        super().__init__(None, spec, meta.format)
+        self.width, self.height = meta.width, meta.height
+        self.rate, self.pix_fmt, self.props = meta.rate, meta.pix_fmt, meta.props
+        self.frames = meta.frames
+        meta.close()
+        self._nr = _native.NativeVideoReader(spec, prefetch=0)
+        self._prefetch = prefetch
+
+    def seek_frame(self, n: int) -> None:
+        self._nr.seek(n)
+        self.frame_index = n
+
+    def read_frame(self, raw: bool = False):
+        if self._prefetch:
+            # the first read pins the position; read ahead from here
+            self._nr.start_prefetch(self._prefetch)
+            self._prefetch = 0
+        planes = self._nr.read_frame()
+        if planes is None:
+            return None
+        self.frame_index += 1
+        if raw:
+            return [np.asarray(p) for p in planes]
+        return [_dequantize_plane(p, self.pix_fmt, i, self.props.color_range)
+                for i, p in enumerate(planes)]
+
+    def close(self) -> None:
+        if getattr(self, "_nr", None) is not None:
+            self._nr.close()
+            self._nr = None
 
 
 class ImageSeqWriter(VideoWriter):
@@ -733,33 +1212,39 @@ _PATTERN_RE = re.compile(r"%0?\d*d")
 _PIPES_IN = ("-", "pipe:", "pipe:0")
 _PIPES_OUT = ("-", "pipe:", "pipe:1")
 
-# extensions the JAX package hands to its ffmpeg bridge
+# extensions the JAX package hands to its ffmpeg bridge (mkv also has the
+# native Matroska path)
 _FFMPEG_EXTS = ("avi", "mkv", "mp4", "mov", "m4v", "webm", "mpg",
                 "mpeg", "ts", "gif", "flv", "wmv", "ogv")
+# the encoders the port's containers have (y4m, fvid and PNG ignore -e,
+# as the JAX package does)
+NATIVE_CODECS = (None, "", "rawvideo", "ffv1")
 
 
 def _not_ported(spec: str, what: str) -> ValueError:
     return ValueError(
-        f"{spec!r}: {what} is not ported yet; the port reads y4m and fvid "
-        "and writes y4m, fvid and PNG sequences (ROADMAP queue 1, item 13)")
+        f"{spec!r}: {what} is not ported yet; the port reads y4m, fvid, NUT, "
+        "Matroska (FFV1) and PNG sequences and writes y4m, fvid, NUT (FFV1 or "
+        "rawvideo), Matroska (FFV1) and PNG sequences; the ffmpeg bridge is "
+        "ROADMAP queue 1, item 13")
 
 
-def _sniff_format(path: str, fmt: str | None) -> str:
-    """"y4m", "fvid", "image2" or "pipe" (y4m on output, magic bytes on
-    input) as the JAX package's ``_sniff_format`` decides them; for any
-    container the port lacks, its name ("nut", an ffmpeg format or
-    extension), which the callers refuse."""
+def _sniff_format(path: str, fmt: str | None, for_output: bool = True) -> str:
+    """"y4m", "fvid", "nut", "mkv", "image2" or "pipe" (y4m on output,
+    magic bytes on input) as the JAX package's ``_sniff_format`` decides
+    them; any other container name, which the callers refuse.  An input
+    under an ffmpeg extension is sniffed by its magic bytes, as there."""
     if fmt:
         aliases = {"yuv4mpegpipe": "y4m", "y4m": "y4m", "fvid": "fvid",
-                   "image2": "image2"}
+                   "image2": "image2", "nut": "nut", "matroska": "mkv", "mkv": "mkv"}
         return aliases.get(fmt, fmt)
     if _PATTERN_RE.search(path):
         return "image2"
     ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
-    if ext in ("y4m", "fvid"):
+    if ext in ("y4m", "fvid", "nut"):
         return ext
-    if ext == "nut" or ext in _FFMPEG_EXTS:
-        return ext
+    if ext in _FFMPEG_EXTS:
+        return ("mkv" if ext == "mkv" else ext) if for_output else "pipe"
     if ext in ("png", "jpg", "ppm"):
         return "image2"
     # pipes default to y4m for output (reference ffapi.c:396-397) and
@@ -767,26 +1252,49 @@ def _sniff_format(path: str, fmt: str | None) -> str:
     return "pipe"
 
 
-def open_input(spec: str, format: str | None = None) -> VideoReader:
-    """Open a y4m or fvid input (path or ``-`` pipe), recognised by its
-    magic bytes first, so fvid content under a foreign extension still
-    opens."""
-    fmt = _sniff_format(spec, format)
+def open_input(spec: str, format: str | None = None, native: bool = True) -> VideoReader:
+    """Open a video input (path, ``-`` pipe, or printf image pattern).
+
+    Containers are recognised by their magic bytes first (so fvid content
+    under a foreign extension still opens).  y4m and fvid files demux
+    through the host library with background read-ahead
+    (``native=False`` forces the Python reader)."""
+    fmt = _sniff_format(spec, format, for_output=False)
     if fmt == "image2":
-        raise _not_ported(spec, "an image sequence as input")
-    if fmt not in ("y4m", "fvid", "pipe"):
+        return ImageSeqReader(spec, spec)
+    if fmt not in ("y4m", "fvid", "nut", "mkv", "pipe"):
         raise _not_ported(spec, f"the {fmt} container")
     stream = sys.stdin.buffer if spec in _PIPES_IN else open(spec, "rb")
     magic = stream.peek(9)[:9] if hasattr(stream, "peek") else b""
     if magic.startswith(b"DSPFVID"):
-        return FvidReader(stream, spec)
-    if magic and not magic.startswith(b"YUV4MPEG"):
+        fmt = "fvid"
+    elif magic.startswith(b"YUV4MPEG"):
+        fmt = "y4m"
+    elif magic.startswith(b"nut/"):
+        try:
+            return NutVideoReader(stream, spec)
+        except ValueError as e:
+            stream.close()
+            raise _not_ported(spec, f"NUT content the native stack cannot decode ({e})") from e
+    elif magic.startswith(b"\x1a\x45\xdf\xa3") and spec not in _PIPES_IN \
+            and stream.seekable():
+        try:
+            return MkvVideoReader(stream, spec)
+        except ValueError as e:
+            stream.close()
+            raise _not_ported(spec, f"Matroska content the native stack cannot "
+                                    f"decode ({e})") from e
+    elif magic and not (spec in _PIPES_IN and (b"YUV4MPEG".startswith(magic[:8])
+                                              or b"DSPFVID".startswith(magic[:7]))):
         if stream is not sys.stdin.buffer:
             stream.close()
-        raise _not_ported(spec, "a stream that is neither y4m nor fvid")
-    if fmt == "fvid":
-        return FvidReader(stream, spec)
-    return Y4MReader(stream, spec)
+        raise _not_ported(spec, "a stream that is not y4m, fvid, NUT or Matroska")
+    elif fmt not in ("fvid",):
+        fmt = "y4m"  # pipes default to y4m (reference ffapi.c:177)
+    reader: VideoReader = (FvidReader if fmt == "fvid" else Y4MReader)(stream, spec)
+    if native and reader.frames is not None and spec not in _PIPES_IN:
+        return NativeBackedReader(reader, spec)
+    return reader
 
 
 def open_output(
@@ -796,21 +1304,37 @@ def open_output(
     rate: Fraction = Fraction(25, 1),
     props: ColorProps | None = None,
     format: str | None = None,
+    options: str | None = None,
+    codec: str | None = None,
     append: bool = False,
 ) -> VideoWriter:
     """Open a video output.
 
     Format selection: explicit ``format`` > ``%d`` pattern (image2) >
-    extension (.y4m / .fvid / .png) > pipe defaults to y4m (reference
-    ffapi.c:390-397).  The pixel format is negotiated per container (an
-    RGB or float request becomes yuv444p or gray in y4m, reference
-    ffapi.c:78-80; fvid is float planar) and unset color properties take
-    the container's defaults (ffapi.c:33-92).  ``append`` continues an
-    existing y4m or fvid stream in place, or an image sequence after its
-    last frame (checkpoint/resume).
+    extension (.y4m / .fvid / .nut / .mkv / .png) > pipe defaults to y4m
+    (reference ffapi.c:390-397).  The pixel format is negotiated per
+    container (an RGB or float request becomes yuv444p or gray in y4m,
+    reference ffapi.c:78-80; fvid is float planar; NUT keeps it, Matroska
+    takes the nearest format FFV1 codes) and unset color properties take
+    the container's defaults (ffapi.c:33-92).  NUT and Matroska encode
+    FFV1 by default wherever FFV1 can carry the pixel format (``codec``
+    ``rawvideo`` selects raw planes in NUT); ``options`` are the FFV1
+    encoder's (``level``, ``slices``, ``negotiate``).  ``append``
+    continues an existing y4m, fvid or NUT stream in place, or an image
+    sequence after its last frame (checkpoint/resume).
     """
     props = (props or ColorProps()).copy()
-    fmt = check_output(spec, format)
+    fmt = check_output(spec, format, codec)
+    if fmt == "nut":
+        return _open_nut(spec, width, height, rate, props, options, codec, append)
+    if fmt == "mkv":
+        if append:
+            # the JAX package refuses it too: resuming would rewrite the file
+            raise RuntimeError(f"cannot append/resume into a Matroska output ({spec!r}); "
+                               "use a y4m, fvid or nut output for resumable runs")
+        _mkv_pix_fmt(props)
+        return MkvVideoWriter(open(spec, "wb"), spec, width, height, rate,
+                              PIXEL_FORMATS[props.pix_fmt], props, options=options)
     if fmt == "image2":
         pf = PIXEL_FORMATS[props.pix_fmt or "gbrpf32le"]
         _default_props(fmt, props)
@@ -839,12 +1363,96 @@ def open_output(
     return cls(stream, spec, name, width, height, rate, pf, props)
 
 
-def check_output(spec: str, format: str | None = None) -> str:
+def _ffv1_capable(pf: PixelFormat) -> bool:
+    return not pf.is_float and not (pf.is_rgb and pf.depth not in (8, 16))
+
+
+def _open_nut(spec, width, height, rate, props, options, codec, append) -> NutVideoWriter:
+    """The NUT branch of :func:`open_output` (the JAX package's, without
+    its fallback to rawvideo payloads when the FFV1 library is missing)."""
+    pf = PIXEL_FORMATS[_negotiate_pix_fmt("nut", props)]
+    # opt-in reference-parity negotiation (``negotiate=1`` in the encoder
+    # options): float content down-converts to the encoder's best integer
+    # format, as the reference's ffapi filters pix_fmts for the encoder
+    # (ffapi.c:137-149,239-253); without it, float keeps the lossless
+    # rawvideo payloads
+    if pf.is_float and _wants_negotiate(options):
+        req = {"gbrpf32le": "gbrp16le", "grayf32le": "gray16le",
+               "yuv444pf32": "yuv444p16le"}[pf.name]
+        pf = PIXEL_FORMATS[req]
+        props.pix_fmt = req
+    # FFV1 is the reference's default for FFV1-capable outputs
+    # (motion/README.md:70, motion.c:447); float content keeps rawvideo
+    if codec in (None, ""):
+        use = "ffv1" if _ffv1_capable(pf) else "rawvideo"
+    elif codec == "ffv1" and not _ffv1_capable(pf):
+        raise _not_ported(spec, f"FFV1 for {pf.name} (FFV1 codes integer samples only)")
+    else:
+        use = codec
+    _default_props("nut", props)
+    if append and spec not in _PIPES_OUT and os.path.exists(spec) \
+            and os.path.getsize(spec) > 0:
+        with open(spec, "rb") as f:
+            r = _nut.NutReader(f)
+            start = r.count_frames() or 0
+            s0 = r.state.streams[0] if r.state.streams else {}
+        # appended frames must match the existing payloads, and appended
+        # packets the header already in the file: its codec_specific_data
+        # decides FFV1 version 1 or 3
+        use = "ffv1" if bytes(s0.get("fourcc", b"")) == b"FFV1" else "rawvideo"
+        prior_csd = bytes(s0.get("codec_specific", b""))
+        stream = open(spec, "ab")
+        try:
+            w = NutVideoWriter(stream, spec, width, height, rate, pf, props,
+                               start_index=start, codec=use, options=options)
+        except BaseException:
+            stream.close()
+            raise
+        if use == "ffv1" and w._enc.extradata != prior_csd:
+            stream.close()
+            raise RuntimeError(f"{spec!r}: appended FFV1 parameters (level/slices) "
+                               "do not match the existing stream header")
+        return w
+    stream = sys.stdout.buffer if spec in _PIPES_OUT else open(spec, "wb")
+    return NutVideoWriter(stream, spec, width, height, rate, pf, props,
+                          codec=use, options=options)
+
+
+def _mkv_pix_fmt(props: ColorProps) -> None:
+    """Matroska's pixel format and color defaults, as the JAX package's
+    native Matroska writer negotiates them: content FFV1 cannot carry
+    takes the nearest integer YCbCr/gray format (as the reference's
+    ffapi converts through the encoder's pix_fmt list)."""
+    req = props.pix_fmt
+    if req in PIXEL_FORMATS:
+        rf = PIXEL_FORMATS[req]
+        if rf.is_float:
+            # the encoder's best integer formats (16-bit FFV1; RGB floats
+            # keep RGB through gbrp16le and version 3)
+            req = {1: "gray16le"}.get(rf.ncomp, "gbrp16le" if rf.is_rgb else "yuv444p16le")
+        elif rf.is_rgb and rf.depth not in (8, 16):
+            req = "yuv444p"
+    else:
+        req = "yuv420p"
+    pf = PIXEL_FORMATS[req]
+    props.pix_fmt = req
+    if pf.ncomp == 3 and not pf.is_rgb and props.color_space in (None, "rgb"):
+        # RGB content converted to YCbCr goes through the bt601 matrix
+        # (rgb_to_planes/_matrix_for): the container must not claim the
+        # identity matrix for it; FFV1-RGB (gbrp) keeps its rgb matrix
+        props.color_space = "smpte170m"
+    _default_props("nut", props)
+
+
+def check_output(spec: str, format: str | None = None, codec: str | None = None) -> str:
     """The container :func:`open_output` writes for ``spec`` ("y4m",
-    "fvid" or "image2"), or the ``ValueError`` of a target the port
-    cannot write: ``ffplay:`` sinks, containers it lacks, and image
-    sequences in another format than PNG.  The CLIs call it before they
-    read or compute anything."""
+    "fvid", "nut", "mkv" or "image2"), or the ``ValueError`` of a target
+    the port cannot write: ``ffplay:`` sinks, the ffmpeg bridge's
+    containers (Matroska on a pipe or under another extension included),
+    an encoder other than FFV1 or rawvideo for NUT or Matroska (y4m, fvid
+    and PNG ignore ``codec``, as in the JAX package), and image sequences
+    in another format than PNG.  The CLIs call it before they read or
+    compute anything."""
     if spec.startswith("ffplay:"):
         raise _not_ported(spec, "an ffplay sink")
     fmt = _sniff_format(spec, format)
@@ -853,6 +1461,15 @@ def check_output(spec: str, format: str | None = None) -> str:
         from dspfun_tpu_torch.io.images import check_target  # noqa: PLC0415
 
         check_target(spec if _PATTERN_RE.search(spec) is None else spec % 0)
+    elif fmt == "mkv":
+        ext = spec.rsplit(".", 1)[-1].lower() if "." in spec else ""
+        if spec in _PIPES_OUT or ext not in ("mkv", "matroska"):
+            raise _not_ported(spec, "Matroska on a pipe or under another extension")
+        if codec not in (None, "", "ffv1"):
+            raise _not_ported(spec, f"the {codec} encoder in Matroska")
+    elif fmt == "nut":
+        if codec not in NATIVE_CODECS:
+            raise _not_ported(spec, f"the {codec} encoder")
     elif fmt not in ("y4m", "fvid"):
         raise _not_ported(spec, f"the {fmt} container")
     return fmt

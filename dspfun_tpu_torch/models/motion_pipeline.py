@@ -36,10 +36,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 
 import numpy as np
 import torch
 
+from dspfun_tpu_torch.core.expr import TorchNamespace
 from dspfun_tpu_torch.core.precision import Precision, get_precision, true_div
 from dspfun_tpu_torch.core.transforms import apply_plan_nd, plan_axis
 
@@ -67,6 +69,9 @@ _SQRT2 = math.sqrt(2.0)
 # the fast path the most recent filter_blocks call took ("cuda-kron",
 # "plain-kron", "i8-kron", "sep"), or None after a general-chain call
 LAST_FAST_PATH: str | None = None
+# wall seconds the stateful --eval expressions have spent on the host
+# (the grid's round trip included); the motion CLI reads and resets it
+EXPR_HOST_SECONDS = 0.0
 
 _KRON_V_MAX = 1024  # the fused Kronecker kernel's bound (ops/block_filter.py)
 
@@ -189,12 +194,8 @@ def plan_geometry(
 
 @dataclasses.dataclass(frozen=True)
 class MotionParams:
-    """The filter-chain parameter set (reference motion.c:170-287).
-
-    ``expr`` (``--eval``) is carried for parity with the JAX package;
-    its device evaluation is not ported yet, and :func:`filter_blocks`
-    refuses a set expression.
-    """
+    """The filter-chain parameter set (reference motion.c:170-287);
+    ``expr`` is the parsed ``--eval`` expression (core/expr.py)."""
 
     spec: str | None = None          # abs | shift | flat | copy
     ispec: str | None = None         # shift | flat | copy
@@ -224,12 +225,6 @@ class MotionParams:
         # never via hash(): colliding-but-different params (boost=-1.0
         # vs -2.0 hash alike in CPython) must not share cached plans
         return isinstance(other, MotionParams) and self._key() == other._key()
-
-
-def _region_mask(md, mh, mw, dims: Dims) -> np.ndarray:
-    m = np.zeros((md, mh, mw), dtype=bool)
-    m[: dims.d, : dims.h, : dims.w] = True
-    return m
 
 
 def _uniform_factor(md, mh, mw) -> np.ndarray:
@@ -268,6 +263,16 @@ def _bandpass_mult(g: PlaneGeometry, boost: float, damp: float) -> np.ndarray:
         mult = mult * np.where(f, damp, 1.0)
     inside = mid_z & mid_y & (x >= bb.w) & (x < be.w)
     return mult * np.where(inside, boost, 1.0)
+
+
+def _bandpass_is_identity(g: PlaneGeometry, boost: float, damp: float) -> bool:
+    """True when :func:`_bandpass_mult` is 1 everywhere: the boost is 1 and
+    no damp face holds a coefficient (the default box, whole-block), so
+    the multiply can be skipped without changing a bit."""
+    bb, be = g.bp_begin, g.bp_end
+    faces_empty = (not (bb.d or bb.h or bb.w) and be.d >= g.active.d
+                   and be.h >= g.active.h and be.w >= g.active.w)
+    return boost == 1.0 and (damp == 1.0 or faces_empty)
 
 
 def _fast_eligible(g: PlaneGeometry, p: MotionParams) -> bool:
@@ -345,6 +350,27 @@ def _rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
     return torch.full((), c, dtype=t.dtype, device=t.device) / t
 
 
+def _renorm_window(md, mh, mw, active: Dims, inverse: bool, device) -> torch.Tensor:
+    """The uniform renorm factor ``uf`` of :func:`_uniform_factor` (``1.0 /
+    uf`` when ``inverse``) inside the ``active`` box of the [md, mh, mw]
+    buffer and 1.0 outside it, in float64, built on ``device`` from the
+    three axes with the numpy form's float64 operations (each division
+    rounds once): its values equal the JAX package's
+    ``np.where(_region_mask(...), uf, 1.0)`` bit for bit, and no [md, mh,
+    mw] array is made or copied on the host."""
+    f64 = torch.float64
+    ax = [torch.where(torch.arange(n, device=device) > 0,
+                      torch.ones((), dtype=f64, device=device),
+                      torch.full((), _SQRT2, dtype=f64, device=device)) for n in (md, mh, mw)]
+    uf = torch.full((), 2.0 * _SQRT2, dtype=f64, device=device) / (
+        ax[2][None, None, :] * ax[1][None, :, None] * ax[0][:, None, None])
+    if inverse:
+        uf = torch.ones((), dtype=f64, device=device) / uf
+    inside = torch.zeros((md, mh, mw), dtype=torch.bool, device=device)
+    inside[: active.d, : active.h, : active.w] = True
+    return torch.where(inside, uf, torch.ones((), dtype=f64, device=device))
+
+
 def _const(a: np.ndarray, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
@@ -362,17 +388,16 @@ def filter_blocks(
     """The full per-plane chain over all blocks of a slab, on ``blocks``'
     device (plans must lie there too).
 
+    ``block_coords`` (bx[NB], by[NB]) and ``bz`` are the ``--eval``
+    environment's block indices; ``block_coords=None`` numbers the blocks
+    in raster order within each slab of the batch.
+
     Returns (out_blocks [NB, sd, sh, sw] pel 0..255, coded [NB] int32
     per-block coded-coefficient counts).
     """
-    global LAST_FAST_PATH
-    del block_coords, bz, plane_index, nplanes  # read only by --eval
+    global LAST_FAST_PATH, EXPR_HOST_SECONDS
     g = geom
     p = params
-    if p.expr is not None:
-        raise NotImplementedError(
-            "--eval needs core/expr.py, which is not ported yet "
-            "(ROADMAP queue 1, item 12)")
     if not torch.is_floating_point(blocks):
         # integer container pels upload in their native dtype (4x less
         # host-to-device traffic for u8 sources); the cast runs on device
@@ -450,16 +475,16 @@ def filter_blocks(
     # --- forward transform + uniform renorm (motion.c:641-647) ---------
     if not p.ispec:
         x = apply_plan_nd(x, fwd_plans, (1, 2, 3))
-        uf = _uniform_factor(md, mh, mw)[: x.shape[1], : x.shape[2], : x.shape[3]]
-        act3 = _region_mask(md, mh, mw, g.active)[: x.shape[1], : x.shape[2], : x.shape[3]]
-        x = x * _const(np.where(act3, uf, 1.0), dtype, dev)
+        win = _renorm_window(md, mh, mw, g.active, False, dev)
+        x = x * win[: x.shape[1], : x.shape[2], : x.shape[3]].to(dtype)
 
     # embed into the minbuf-sized buffer (zero-pad / work at full size)
     M = torch.zeros((nb, md, mh, mw), dtype=dtype, device=dev)
     M[:, : x.shape[1], : x.shape[2], : x.shape[3]] = x.to(dtype)
 
     dc = M[:, 0, 0, 0].clone()
-    act = torch.from_numpy(_region_mask(md, mh, mw, g.active)).to(dev)
+    act = torch.zeros((md, mh, mw), dtype=torch.bool, device=dev)
+    act[: g.active.d, : g.active.h, : g.active.w] = True
 
     # --- top-N coefficient limit (motion.c:652-668) --------------------
     if p.coeff_limit:
@@ -472,8 +497,44 @@ def filter_blocks(
         keep.scatter_(1, idx, True)
         M = torch.where(keep.reshape(M.shape), M, torch.zeros_like(M))
 
+    # --- expression (motion.c:670-681) ---------------------------------
+    if p.expr is not None:
+        if block_coords is None:
+            bidx = torch.arange(nb, device=dev) % (g.nblocks.w * g.nblocks.h)
+            block_coords = (bidx % g.nblocks.w, bidx // g.nblocks.w)
+        bxs, bys = (torch.as_tensor(b, device=dev).to(dtype) for b in block_coords)
+        bzt = torch.as_tensor(0 if bz is None else bz, device=dev).to(dtype)
+        grid = [torch.arange(n, dtype=dtype, device=dev) for n in (md, mh, mw)]
+        # the coordinate grids stay unexpanded: every element takes the
+        # value it takes on the [md, mh, mw] grid the JAX package builds
+        env = {
+            "c": M * (norm2 / 255.0),
+            "x": grid[2][None, None, :],
+            "y": grid[1][None, :, None],
+            "z": grid[0][:, None, None],
+            "i": torch.tensor(float(plane_index), dtype=dtype, device=dev),
+            "width": float(g.block.w), "height": float(g.block.h),
+            "depth": float(g.block.d), "components": float(nplanes),
+            "bx": bxs[:, None, None, None],
+            "by": bys[:, None, None, None],
+            # scalar for the streaming slab loop; [NB] when slabs batch
+            "bz": bzt[:, None, None, None] if bzt.ndim else bzt,
+            "bwidth": float(g.nblocks.w), "bheight": float(g.nblocks.h),
+            "bdepth": float(g.nblocks.d),
+        }
+        xp = TorchNamespace(dev, dtype)
+        t0 = time.perf_counter()
+        # a stateful expression takes the grid to the host in float64 and
+        # evaluates it per coefficient in raster order, slots and
+        # generators persisting in the parsed Expr (the reference's host
+        # loop; the JAX package's ordered io_callback)
+        res = xp.asarray(p.expr(env, xp)) * (255.0 / norm2)
+        if p.expr.stateful:
+            EXPR_HOST_SECONDS += time.perf_counter() - t0
+        M = torch.where(act[None], res.to(dtype), M)
+
     # --- bandpass (motion.c:683-719) -----------------------------------
-    if p.damp != 1.0 or p.boost != 1.0:
+    if not _bandpass_is_identity(g, p.boost, p.damp):
         M = M * _const(_bandpass_mult(g, p.boost, p.damp), dtype, dev)
 
     # --- threshold (motion.c:721-728) ----------------------------------
@@ -486,7 +547,7 @@ def filter_blocks(
     # --- preserve DC (motion.c:730-738) --------------------------------
     if p.preserve_dc:
         dcstop = bool(g.bp_begin.d or g.bp_begin.h or g.bp_begin.w)
-        if dcstop or p.boost != 1.0 or p.threshold_max:
+        if p.expr is not None or dcstop or p.boost != 1.0 or p.threshold_max:
             M = M.clone()
             if p.preserve_dc == "dc":
                 M[:, 0, 0, 0] = dc
@@ -504,9 +565,7 @@ def filter_blocks(
 
     # --- inverse / spectrogram output (motion.c:746-771) ---------------
     if not p.spec:
-        uf = _uniform_factor(md, mh, mw)
-        M = M * _const(np.where(_region_mask(md, mh, mw, g.active), 1.0 / uf, 1.0),
-                       dtype, dev)
+        M = M * _renorm_window(md, mh, mw, g.active, True, dev).to(dtype)
         S = apply_plan_nd(M[:, :sd, :sh, :sw], inv_plans, (1, 2, 3))
     else:
         S = M[:, :sd, :sh, :sw]

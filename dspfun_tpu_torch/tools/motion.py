@@ -8,12 +8,18 @@ pipeline in ``dspfun_tpu_torch.models.motion_pipeline``.  Run it as
 
 It keeps the JAX tool's getopt surface and defaults.  ``--device``
 picks the torch device (default ``cuda``; without a card that is an
-error, and ``--device cpu`` runs the plain versions).  Not ported
-yet, each refused with exit code 1: ``--mesh``, ``--coordinator``,
-``--nprocs``, ``--proc-id`` (ROADMAP queue 1, item 18),
-``--resume-file`` (item 13), ``--eval`` (item 12) and containers other
-than y4m (item 13).  The FFTW planning flags are accepted for CLI
-parity and do nothing.
+error, and ``--device cpu`` runs the plain versions).  It reads y4m,
+fvid, NUT, Matroska (FFV1) and PNG sequences and writes y4m, fvid, NUT
+(FFV1 by default for integer pels) and Matroska (``io/video.py``).
+``--eval`` evaluates its av_expr on the coefficients' device; a
+stateful expression (random, while, root, taylor, time, or reads of
+slots stored by an earlier coefficient) takes the grid to the host,
+per coefficient in raster order, and runs one slab at a time.
+``--resume-file`` records the slab index after each slab and a rerun
+with the same flags appends from there.  The multi-process flags
+``--mesh``, ``--coordinator``, ``--nprocs`` and ``--proc-id`` are not
+ported yet and exit 1 (ROADMAP queue 1, item 18).  The FFTW planning
+flags are accepted for CLI parity and do nothing.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from dspfun_tpu_torch.core.expr import parse_expr
 from dspfun_tpu_torch.core.precision import apply_tool_default, get_precision
 from dspfun_tpu_torch.io import video
 from dspfun_tpu_torch.models import motion_pipeline as mp
 from dspfun_tpu_torch.tools import cli_device, run_main
+from dspfun_tpu_torch.utils.checkpoint import load_state, save_state
 
 # device-plan cache across main() invocations, keyed on device,
 # precision, geometry and params
@@ -39,7 +47,8 @@ _PLAN_CACHE: dict = {}
 # per-stage wall seconds of the last run: read = container decode on the
 # host; compute = host-to-device copy, block gather, filter_blocks and
 # the device-to-host copy of the results (which waits for the device);
-# write = host mux
+# write = host mux and encode; host_eval = the part of compute a stateful
+# --eval spent on the host (0 otherwise)
 LAST_STAGE_TIMES: dict = {}
 
 SHORT = "b:s:p:B:D:c:q:r:dQh"
@@ -63,15 +72,16 @@ _NOT_PORTED = {
     "--coordinator": "multi-process runs (ROADMAP queue 1, item 18)",
     "--nprocs": "multi-process runs (ROADMAP queue 1, item 18)",
     "--proc-id": "multi-process runs (ROADMAP queue 1, item 18)",
-    "--resume-file": "checkpoint/resume (ROADMAP queue 1, item 13)",
-    "--eval": "the expression evaluator (ROADMAP queue 1, item 12)",
 }
 
 USAGE = """Usage: motion [options] <infile> [outfile]
 [-s|--size WxHxD] [-b|--blocksize WxHxD] [-p|--bandpass X1xY1xZ1-X2xY2xZ2]
-[-B|--boost float] [-D|--damp float]  [--spectrogram=type] [--ispectrogram=type] [-q|--quant quant] [--threshold] [--coeff-limit limit] [-d|--dither] [--preserve-dc=type]
+[-B|--boost float] [-D|--damp float]  [--spectrogram=type] [--ispectrogram=type] [-q|--quant quant] [--threshold] [--coeff-limit limit] [-d|--dither] [--preserve-dc=type] [--eval expression]
 [-r|--framerate] [--keep-rate] [--samesize-chroma] [--frames lim] [--offset pos] [--csp|c colorspace options] [--iformat|--format fmt] [--codec codec] [--encopts|--decopts opts] [--loglevel int]
-[--slab-batch N|auto] [--device cuda|cpu] [-Q|--quiet]"""
+[--resume-file path] [--slab-batch N|auto] [--device cuda|cpu] [-Q|--quiet]"""
+
+EXPR_NAMES = ("c", "x", "y", "z", "i", "width", "height", "depth",
+              "components", "bx", "by", "bz", "bwidth", "bheight", "bdepth")
 
 
 def _parse_dims(arg: str, current: mp.Dims = mp.Dims(0, 0, 0)) -> mp.Dims:
@@ -119,6 +129,7 @@ def main(argv: list[str] | None = None) -> int:
     threshold_min = threshold_max = 0.0
     coeff_limit = 0
     spec = ispec = preserve_dc = None
+    exprstr = resume_file = codec = encopts = None
     dither = linear = samerate = samesize = quiet = False
     offset = 0
     maxframes = 0
@@ -186,6 +197,10 @@ def main(argv: list[str] | None = None) -> int:
             coeff_limit = int(arg)
         elif flag in ("-d", "--dither"):
             dither = True
+        elif flag == "--eval":
+            exprstr = arg
+        elif flag == "--resume-file":
+            resume_file = arg
         elif flag == "--linear":
             linear = True
         elif flag == "--format":
@@ -196,8 +211,12 @@ def main(argv: list[str] | None = None) -> int:
             slab_batch = arg  # int | "auto"
         elif flag == "--device":
             device_arg = arg
-        elif flag in ("--codec", "--encopts", "--decopts"):
-            pass  # CLI parity: options of the containers y4m is not
+        elif flag == "--codec":
+            codec = arg
+        elif flag == "--encopts":
+            encopts = arg
+        elif flag == "--decopts":
+            pass  # the options of the ffmpeg bridge's demuxers (not ported)
         elif flag in ("--loglevel", "--fftw-planning-method", "--fftw-threads",
                       "--fftw-wisdom-file"):
             pass  # CLI parity; PyTorch has no plans to tune or cache
@@ -215,14 +234,17 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Bad --device: {e}", file=sys.stderr)
         return 1
 
+    expr = None
+    if exprstr:
+        try:
+            expr = parse_expr(exprstr, EXPR_NAMES)
+        except ValueError as e:
+            print(f"Bad expression: {e}", file=sys.stderr)
+            return 1
+
     try:
         reader = video.open_input(infile, format=iformat)
-        if reader.format != "yuv4mpegpipe":
-            # io/video.py reads fvid for scan and zoom; motion's float
-            # path is held against the JAX tool on y4m only so far
-            reader.close()
-            raise video._not_ported(infile, f"the {reader.format} container in motion")
-    except (OSError, ValueError) as e:
+    except (OSError, ValueError, RuntimeError) as e:
         print(f'Error opening "{infile}": {e}', file=sys.stderr)
         return 1
 
@@ -305,17 +327,30 @@ def main(argv: list[str] | None = None) -> int:
     else:
         rate = out_rate
 
+    # checkpoint/resume: restart from the recorded slab index when the
+    # state file was written by a run with this geometry and these edits
+    start_slab = 0
+    fingerprint = repr((geoms, boost, damp, quant, threshold_min,
+                        threshold_max, coeff_limit, spec, ispec,
+                        preserve_dc, exprstr, dither, linear,
+                        proc_fmt.name))
+    if resume_file:
+        st = load_state(resume_file)
+        if (st.get("newres") == [g0.newres.w, g0.newres.h, g0.newres.d]
+                and st.get("fingerprint", fingerprint) == fingerprint):
+            start_slab = int(st.get("slab", 0))
+            if not quiet and start_slab:
+                print(f"resuming at slab {start_slab}", file=sys.stderr)
+
     props = proc_props.copy()
     props.pix_fmt = proc_fmt.name
     if spec:
         props.color_range = "jpeg"
     try:
-        ofmt = video.check_output(outfile, oformat)
-        if ofmt != "y4m":
-            raise video._not_ported(outfile, f"the {ofmt} container in motion")
         writer = video.open_output(
-            outfile, g0.newres.w, g0.newres.h, rate, props, format=oformat)
-    except (OSError, ValueError) as e:
+            outfile, g0.newres.w, g0.newres.h, rate, props, format=oformat,
+            codec=codec, options=encopts, append=start_slab > 0)
+    except (OSError, ValueError, RuntimeError) as e:
         print(f"Output setup failed for '{outfile}': {e}", file=sys.stderr)
         reader.close()
         return 1
@@ -336,15 +371,15 @@ def main(argv: list[str] | None = None) -> int:
               "output, disabling.", file=sys.stderr)
         dither = False
 
-    if offset:
-        reader.seek_frame(offset)
+    if offset or start_slab:
+        reader.seek_frame(offset + start_slab * g0.block.d)
 
     params = [
         mp.MotionParams(
             spec=spec, ispec=ispec, preserve_dc=preserve_dc,
             boost=boost[i], damp=damp[i], quant=quant,
             threshold_min=threshold_min, threshold_max=threshold_max,
-            coeff_limit=coeff_limit, dither=dither,
+            coeff_limit=coeff_limit, expr=expr, dither=dither,
             linear=linear, float_pixels=float_pixels,
         )
         for i in range(proc_fmt.ncomp)
@@ -387,14 +422,25 @@ def main(argv: list[str] | None = None) -> int:
 
     # --slab-batch: how many consecutive slabs' blocks run as one
     # filter_blocks call per plane (blocks are independent across
-    # slabs).  auto = 1: the JAX tool's auto = 2 was calibrated on a TPU
+    # slabs; bz rides per block into the --eval environment).  auto = 1:
+    # the JAX tool's auto = 2 was calibrated on a TPU
     slab_b = 1 if slab_batch == "auto" else max(1, int(slab_batch))
+    if slab_b > 1 and expr is not None and expr.stateful:
+        # batched slabs would evaluate the host expression plane-major
+        # across the batch and consume random()/st() state in another
+        # order than the reference's per-slab loop
+        if not quiet:
+            print("note: --slab-batch ignored (stateful --eval keeps "
+                  "the per-slab evaluation order)", file=sys.stderr)
+        slab_b = 1
 
     stage_s = {"read": 0.0, "compute": 0.0, "write": 0.0}
+    mp.EXPR_HOST_SECONDS = 0.0
     # per-plane coded counts stay on the device until the end of the run
     # (a fetch per plane per slab would synchronise the loop)
     coded_dev: list = []
-    written = read_count = 0
+    written = start_slab * g0.scaled.d
+    read_count = start_slab * g0.block.d
     padb = int(math.log10(max(source_d, 1))) + 1
     pads = int(math.log10(max(g0.newres.d, 1))) + 1
 
@@ -419,11 +465,12 @@ def main(argv: list[str] | None = None) -> int:
     tdims = proc_fmt.plane_dims(g0.newres.w, g0.newres.h)
     # 8-bit raw output is quantised on the device (the writer's
     # clip(rint), bit for bit): a quarter of the bytes cross to the host
-    quantise_u8 = not (float_pixels or out_convert) and writer.pix_fmt.depth == 8
+    quantise_u8 = (not (float_pixels or out_convert) and writer.pix_fmt.depth == 8
+                   and writer.supports_payload())
 
-    def compute_slabs(slabs):
+    def compute_slabs(slabs, bz0):
         """Per-slab lists of output planes (host numpy) for S consecutive
-        slabs, one filter_blocks call per plane."""
+        slabs from slab ``bz0``, one filter_blocks call per plane."""
         t0 = time.perf_counter()
         S = len(slabs)
         outs = [[] for _ in range(S)]
@@ -439,7 +486,9 @@ def main(argv: list[str] | None = None) -> int:
                 per.append(mp.frames_to_blocks(torch.from_numpy(frames).to(device), g))
             nb = per[0].shape[0]
             big = torch.cat(per) if S > 1 else per[0].contiguous()
-            out, c = mp.filter_blocks(big, plans[i], None, None,
+            bz = (torch.arange(bz0, bz0 + S, device=device).repeat_interleave(nb)
+                  if S > 1 else bz0)
+            out, c = mp.filter_blocks(big, plans[i], None, bz,
                                       geom=g, params=params[i], plane_index=i,
                                       nplanes=proc_fmt.ncomp)
             coded_dev.append(c)
@@ -486,7 +535,7 @@ def main(argv: list[str] | None = None) -> int:
 
     ret = 0
     try:
-        bz = 0
+        bz = start_slab
         while bz < g0.nblocks.d:
             t0 = time.perf_counter()
             staged, eof = [], False
@@ -498,9 +547,15 @@ def main(argv: list[str] | None = None) -> int:
                 staged.append(slab)
             stage_s["read"] += time.perf_counter() - t0
             if staged:
-                for out_planes in compute_slabs(staged):
+                for out_planes in compute_slabs(staged, bz):
                     write_slab(out_planes)
-                bz += len(staged)
+                    bz += 1
+                    if resume_file:
+                        save_state(resume_file, {
+                            "slab": bz,
+                            "newres": [g0.newres.w, g0.newres.h, g0.newres.d],
+                            "fingerprint": fingerprint,
+                        })
             if eof:
                 print("Error reading frame: end of stream", file=sys.stderr)
                 ret = 1
@@ -512,7 +567,7 @@ def main(argv: list[str] | None = None) -> int:
         reader.close()
     coded = int(sum(int(c.sum()) for c in coded_dev))
     LAST_STAGE_TIMES.clear()
-    LAST_STAGE_TIMES.update(stage_s)
+    LAST_STAGE_TIMES.update(stage_s, host_eval=mp.EXPR_HOST_SECONDS)
 
     if quant and not quiet:
         total = sum(g.newres.volume() for g in geoms)

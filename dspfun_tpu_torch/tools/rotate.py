@@ -8,11 +8,13 @@ in the JAX package.
     90 deg ccw = +y-x+z     90 deg cw = -y+x+z     180 deg = -x-y+z
 
 It keeps the JAX tool's getopt string, help text, exit codes and
-messages, on the port's containers: y4m and fvid in, y4m, fvid and PNG
-sequences out.  Everything else exits 1 naming ROADMAP queue 1, item 13,
-before the input is read: NUT, MKV and the ffmpeg containers, ``ffplay:``
-sinks, image sequences as input, and every encoder (``-e``) but
-``rawvideo`` (the JAX tool's default for FFV1-capable outputs is FFV1).
+messages, on the port's containers (``io/video.py``): y4m, fvid, NUT,
+Matroska (FFV1) and PNG sequences in; y4m, fvid, NUT and Matroska (FFV1
+by default wherever it codes the pixel format; ``-e rawvideo`` for raw
+NUT planes; ``-O`` the encoder's options) and PNG sequences out.  The
+ffmpeg bridge's containers, ``ffplay:`` sinks and every encoder but
+``ffv1`` and ``rawvideo`` exit 1 naming ROADMAP queue 1, item 13, before
+the input is read.
 
 ``LAST_STAGE_TIMES`` holds the last run's seconds per stage: ``read``
 (the whole clip), ``rotate`` and ``write``.
@@ -50,8 +52,6 @@ HELP = """Usage: rotate [options] [-]xyz <infile> <outfile>
   -l <int>        log level (accepted for CLI parity)
 """
 
-# the only encoder the port's containers have (y4m and fvid carry raw planes)
-RAW_CODECS = (None, "", "rawvideo")
 
 LAST_STAGE_TIMES: dict = {}
 
@@ -59,8 +59,7 @@ LAST_STAGE_TIMES: dict = {}
 def encoder_refusal(codec: str) -> str:
     """The message of an encoder the port lacks (exit code 1)."""
     return (f"-e {codec}: the {codec} encoder is not ported to dspfun_tpu_torch yet; "
-            "the port writes raw planes to y4m, fvid and PNG sequences "
-            "(ROADMAP queue 1, item 13)")
+            "the port encodes ffv1 and rawvideo (ROADMAP queue 1, item 13)")
 
 
 def parse_axis_map(spec: str) -> tuple[list[int], list[bool]]:
@@ -119,7 +118,7 @@ def main(argv: list[str] | None = None) -> int:
     frames = 0
     offset = 0
     quiet = False
-    ifmt = ofmt = cprops = codec = None
+    ifmt = ofmt = cprops = codec = encopts = None
     for flag, arg in flags:
         if flag == "-h":
             print(HELP)
@@ -143,7 +142,9 @@ def main(argv: list[str] | None = None) -> int:
             cprops = arg
         elif flag == "-e":
             codec = arg
-        # -o, -O, -l: parity only (y4m and fvid have no encoder options)
+        elif flag == "-O":
+            encopts = arg  # the FFV1 encoder's options (level, slices, negotiate)
+        # -o, -l: parity only
 
     if len(args) < 3:
         print(USAGE, file=sys.stderr)
@@ -153,11 +154,11 @@ def main(argv: list[str] | None = None) -> int:
     except ValueError:
         print(USAGE, file=sys.stderr)
         return 1
-    if codec not in RAW_CODECS:
+    if codec not in video.NATIVE_CODECS:
         print(encoder_refusal(codec), file=sys.stderr)
         return 1
     try:
-        video.check_output(args[2], ofmt)
+        video.check_output(args[2], ofmt, codec)
     except ValueError as e:
         print(f"error opening output file {args[2]}: {e}", file=sys.stderr)
         return 1
@@ -256,7 +257,7 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         writer = video.open_output(args[2], out_w, out_h, rate, props,
-                                   format=ofmt)
+                                   format=ofmt, codec=codec, options=encopts)
     except Exception as e:  # noqa: BLE001
         print(f"error opening output file {args[2]}: {e}", file=sys.stderr)
         return 1

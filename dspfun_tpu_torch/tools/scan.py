@@ -13,8 +13,10 @@ messages, with these differences:
   a card that is exit 1 "Bad --device", and ``--device cpu`` runs the
   kernels' plain versions);
 * ``--mesh`` and a set ``DSPFUN_MESH`` exit 1 (ROADMAP queue 1, item 18);
-* the input is a PNG (item 8); the output a y4m or fvid stream or a PNG
-  sequence; NUT, MKV, the ffmpeg bridge and ``ffplay:`` exit 1 (item 13),
+* the input is a PNG (item 8); the output a y4m, fvid, NUT or Matroska
+  stream or a PNG sequence (``--ff-opts`` carries the FFV1 encoder's
+  ``level``, ``slices`` and ``negotiate`` beside the color properties);
+  the ffmpeg bridge, foreign encoders and ``ffplay:`` exit 1 (item 13),
   checked before the input is read.
 
 ``LAST_STAGE_TIMES`` holds the last run's seconds per stage: ``read``,
@@ -84,8 +86,8 @@ options:
 output options:
    --device <cuda|cpu>     where to compute [default: cuda]
    --mesh <auto|N|space=N>  not ported yet (ROADMAP queue 1, item 18)
-   --ff-format <format>    output container format (y4m, fvid, image2)
-   --ff-encoder <enc>      accepted for CLI parity (containers are uncompressed)
+   --ff-format <format>    output container format (y4m, fvid, nut, matroska, image2)
+   --ff-encoder <enc>      ffv1 or rawvideo (NUT; FFV1 is the default for integer pels)
    --ff-rate <rate>        output framerate
    --ff-opts <optstring>   output color property string (k=v:...)
    --ff-loglevel <int>     accepted for CLI parity
@@ -139,7 +141,7 @@ def main(argv: list[str] | None = None) -> int:
     sparams = SpecParams()
     rate = Fraction(20, 1)
     ofmt = None
-    oopt = None
+    oopt = codec = None
     mesh_spec = None
     resume_file = None
     device_arg = None
@@ -210,8 +212,10 @@ def main(argv: list[str] | None = None) -> int:
             resume_file = arg
         elif flag == "--device":
             device_arg = arg
-        elif flag in ("--ff-encoder", "--ff-loglevel", "--fftw-threads"):
-            pass  # CLI parity only (no container here has an encoder)
+        elif flag == "--ff-encoder":
+            codec = arg
+        elif flag in ("--ff-loglevel", "--fftw-threads"):
+            pass  # CLI parity only
         elif flag == "--ff-rate":
             rate = video.parse_rate(arg)
         elif flag == "--spec-gain":
@@ -238,7 +242,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     if len(args) > 1:
         try:
-            video.check_output(args[1], ofmt)
+            video.check_output(args[1], ofmt, codec)
         except ValueError as e:
             print(f"Error opening output context: {e}", file=sys.stderr)
             return 1
@@ -329,9 +333,9 @@ def main(argv: list[str] | None = None) -> int:
     out_w = width * (2 if visualize else 1)
     out_h = height * (2 if intermediates else 1)
     try:
-        # codec-addressed keys (level/slices, negotiate) are dropped: no
-        # container here has an encoder; the rest parse as color properties
-        prop_str, _ = video.split_codec_opts(oopt)
+        # codec-addressed keys (FFV1 level/slices, negotiate) split off
+        # to the writer; the rest parse as color properties
+        prop_str, codec_opts = video.split_codec_opts(oopt)
         props = video.parse_color_props(prop_str)
     except ValueError as e:
         print(f"Bad --ff-opts option: {e}", file=sys.stderr)
@@ -344,7 +348,8 @@ def main(argv: list[str] | None = None) -> int:
         props.color_primaries = props.color_primaries or "bt709"
     try:
         writer = video.open_output(args[1], out_w, out_h, rate, props,
-                                   format=ofmt, append=start_frame > 0)
+                                   format=ofmt, codec=codec, options=codec_opts or None,
+                                   append=start_frame > 0)
     except Exception as e:  # noqa: BLE001
         print(f"Error opening output context: {e}", file=sys.stderr)
         return 1

@@ -7,11 +7,10 @@ decode -> encode pass-through exercising the container layer.  Host
 work only, as in the JAX package.
 
 It keeps the JAX tool's getopt string, help text, exit codes and
-messages, on the port's containers: y4m and fvid in, y4m, fvid and PNG
-sequences out.  Everything else exits 1 naming ROADMAP queue 1, item 13,
-before the input is read: NUT, MKV and the ffmpeg containers, ``ffplay:``
-sinks, image sequences as input, and every encoder (``-e``) but
-``rawvideo``.
+messages, on the port's containers (see ``tools/rotate.py``): FFV1 is
+the default encoder of NUT and Matroska outputs, ``-e rawvideo`` writes
+raw NUT planes, and every other encoder exits 1 naming ROADMAP queue 1,
+item 13, before the input is read.
 
 ``LAST_STAGE_TIMES`` holds the last run's seconds: ``copy`` (read,
 convert and write, frame by frame).
@@ -23,7 +22,7 @@ import getopt
 import sys
 
 from dspfun_tpu_torch.io import video
-from dspfun_tpu_torch.tools.rotate import RAW_CODECS, encoder_refusal
+from dspfun_tpu_torch.tools.rotate import encoder_refusal
 from dspfun_tpu_torch.utils.profiling import stage
 
 USAGE = "Usage: transcode [options] <input> <output>"
@@ -59,7 +58,7 @@ def main(argv: list[str] | None = None) -> int:
     frames = 0
     offset = 0
     quiet = False
-    ifmt = ofmt = cprops = codec = None
+    ifmt = ofmt = cprops = codec = encopts = None
     for flag, arg in flags:
         if flag == "-h":
             print(HELP)
@@ -80,16 +79,18 @@ def main(argv: list[str] | None = None) -> int:
             cprops = arg
         elif flag == "-e":
             codec = arg
-        # -o, -O, -l: parity only (y4m and fvid have no encoder options)
+        elif flag == "-O":
+            encopts = arg  # the FFV1 encoder's options (level, slices, negotiate)
+        # -o, -l: parity only
 
     if len(args) < 2:
         print(USAGE, file=sys.stderr)
         return 1
-    if codec not in RAW_CODECS:
+    if codec not in video.NATIVE_CODECS:
         print(encoder_refusal(codec), file=sys.stderr)
         return 1
     try:
-        video.check_output(args[1], ofmt)
+        video.check_output(args[1], ofmt, codec)
     except ValueError as e:
         print(f"Error opening output context: {e}", file=sys.stderr)
         return 1
@@ -129,7 +130,7 @@ def main(argv: list[str] | None = None) -> int:
     try:
         writer = video.open_output(
             args[1], reader.width, reader.height, rate or reader.rate,
-            props, format=ofmt,
+            props, format=ofmt, codec=codec, options=encopts,
         )
     except Exception as e:  # noqa: BLE001
         print(f"Error opening output context: {e}", file=sys.stderr)

@@ -14,8 +14,10 @@ and messages, with these differences:
   kernels' plain versions).  The default precision policy is deep ``i8``
   on a CUDA device and ``hilo`` on the CPU (core/precision.py);
 * ``--mesh`` and a set ``DSPFUN_MESH`` exit 1 (ROADMAP queue 1, item 18);
-* the input is a PNG (item 8); the output a y4m or fvid stream, one PNG
-  or a PNG sequence; NUT, MKV, the ffmpeg bridge and ``ffplay:`` exit 1
+* the input is a PNG (item 8); the output a y4m, fvid, NUT or Matroska
+  stream, one PNG or a PNG sequence (``--ff-opts`` carries the FFV1
+  encoder's ``level``, ``slices`` and ``negotiate`` beside the color
+  properties); the ffmpeg bridge, foreign encoders and ``ffplay:`` exit 1
   (item 13), checked before the input is read.
 
 ``LAST_STAGE_TIMES`` holds the last run's seconds per stage: ``read``,
@@ -95,7 +97,7 @@ output options:
    --device <cuda|cpu>     where to compute [default: cuda]
    --mesh <auto|N|space=N>  not ported yet (ROADMAP queue 1, item 18)
    --ff-format <format>    output container format
-   --ff-encoder <enc>      accepted for CLI parity
+   --ff-encoder <enc>      ffv1 or rawvideo (NUT; FFV1 is the default for integer pels)
    --ff-rate <rate>        output framerate
    --ff-opts <optstring>   output color property string (k=v:...)
    --ff-loglevel <int>     accepted for CLI parity
@@ -136,7 +138,7 @@ def main(argv: list[str] | None = None) -> int:
     scaling_type = "interpolated"
     nframes = 1
     rate = Fraction(60, 1)
-    oopt = ofmt = None
+    oopt = ofmt = codec = None
     mesh_spec = None
     resume_file = None
     device_arg = None
@@ -221,8 +223,10 @@ def main(argv: list[str] | None = None) -> int:
             resume_file = arg
         elif flag == "--device":
             device_arg = arg
-        elif flag in ("--ff-encoder", "--ff-loglevel"):
-            pass  # CLI parity only (no container here has an encoder)
+        elif flag == "--ff-encoder":
+            codec = arg
+        elif flag == "--ff-loglevel":
+            pass  # CLI parity only
 
     quiet |= nframes == 1
     if len(args) < 2:
@@ -242,7 +246,7 @@ def main(argv: list[str] | None = None) -> int:
     if mesh_refused(mesh_spec):
         return 1
     try:
-        video.check_output(args[1], ofmt)
+        video.check_output(args[1], ofmt, codec)
     except ValueError as e:
         print(f"Error opening output context: {e}", file=sys.stderr)
         return 1
@@ -287,9 +291,9 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     try:
-        # codec-addressed keys (level/slices, negotiate) are dropped: no
-        # container here has an encoder; the rest parse as color properties
-        prop_str, _ = video.split_codec_opts(oopt)
+        # codec-addressed keys (FFV1 level/slices, negotiate) split off
+        # to the writer; the rest parse as color properties
+        prop_str, codec_opts = video.split_codec_opts(oopt)
         props = video.parse_color_props(prop_str)
     except ValueError as e:
         print(f"Bad --ff-opts option: {e}", file=sys.stderr)
@@ -316,6 +320,7 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         writer = video.open_output(args[1], vw, vh, rate, props, format=ofmt,
+                                   codec=codec, options=codec_opts or None,
                                    append=start_frame > 0)
     except Exception as e:  # noqa: BLE001
         print(f"Error opening output context: {e}", file=sys.stderr)

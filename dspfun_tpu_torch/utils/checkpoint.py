@@ -2,11 +2,10 @@
 ``dspfun_tpu/utils/checkpoint.py``).
 
 The reference has no computation-state persistence; its manual resume
-story is --offset/--frames seeking (SURVEY.md section 5).  scan and zoom
-take ``--resume-file <path>``: after each chunk or frame is written the
-state file records the frame index, and a rerun with the same flags
-appends output from the recorded point.  (motion's ``--resume-file`` is
-not ported yet, ROADMAP queue 1, item 13.)
+story is --offset/--frames seeking (SURVEY.md section 5).  motion, scan
+and zoom take ``--resume-file <path>``: after each slab, chunk or frame
+is written the state file records its index, and a rerun with the same
+flags appends output from the recorded point.
 """
 
 from __future__ import annotations

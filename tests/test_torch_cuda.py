@@ -2,7 +2,9 @@
 contraction, fused Kronecker block filter, int8 contraction with the
 in-kernel digit split) against their plain versions,
 and the card's chains, motion's filter_blocks, apply_basis and the motion, spec, ispec,
-scan, zoom and draw CLIs against the CPU's and a float64 oracle.
+scan, zoom and draw CLIs against the CPU's and a float64 oracle; motion's
+``--eval`` (stateless and stateful) against the CPU's, and the host
+libraries (libdspio, libffv1) built and run on the card's machine.
 
 Every test here needs a card and skips without one.  The machine with the
 card has no JAX, so this file imports none; run it there without the
@@ -334,6 +336,99 @@ def test_motion_cli_card_equals_cpu(cuda, tmp_path):
     a = np.frombuffer(outs[0][ha:], np.uint8).astype(int)
     b = np.frombuffer(outs[1][hb:], np.uint8).astype(int)
     assert np.max(np.abs(a - b)) <= 1
+
+
+def _eval_clip(tmp_path, w=64, h=48, n=8):
+    from fractions import Fraction
+
+    from dspfun_tpu_torch.io import video
+
+    rng = np.random.default_rng(6)
+    clip = str(tmp_path / "clip.y4m")
+    with video.open_output(clip, w, h, Fraction(25, 1), video.ColorProps(pix_fmt="yuv420p")) as wr:
+        for _ in range(n):
+            wr.write_frame([rng.integers(0, 256, (ph, pw)).astype(np.uint8)
+                            for pw, ph in video.PIXEL_FORMATS["yuv420p"].plane_dims(w, h)],
+                           raw=True)
+    return clip
+
+
+def _decoded(path):
+    from dspfun_tpu_torch.io import video
+
+    with video.open_input(path) as r:
+        out = []
+        while (f := r.read_frame(raw=True)) is not None:
+            out.append(np.concatenate([p.astype(int).ravel() for p in f]))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("args", [
+    ["-b", "0x0x0", "--eval", "c * ((width-x)/width) * ((height-y)/height) * ((depth-z)/depth)"],
+    ["-b", "8x8x2", "--slab-batch", "2", "--eval", "c*gte(bz,2)*(1+bx/bwidth)"],
+    ["-b", "16x16x4", "--eval", "if(lt(x+y+z,4), c*gauss(x/4), c*squish(-i))"],
+])
+def test_motion_eval_card_equals_cpu(cuda, tmp_path, args):
+    """--eval on the card against --device cpu into FFV1-in-NUT: the frames
+    within one level (float32 transforms on two devices)."""
+    from dspfun_tpu_torch.tools import motion
+
+    clip = _eval_clip(tmp_path)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.nut")
+        assert motion.main(["-Q", "--device", dev] + args + [clip, out]) == 0
+        outs.append(_decoded(out))
+    assert outs[0].shape == outs[1].shape and np.max(np.abs(outs[0] - outs[1])) <= 1
+
+
+def test_motion_stateful_eval_leaves_the_cpu_state(cuda, tmp_path, monkeypatch):
+    """A stateful expression takes the grid to the host per slab and plane:
+    the parse ends the card's run with the slots and generator state of
+    the CPU's run, and the frames are within one level."""
+    from dspfun_tpu_torch.tools import motion
+
+    clip = _eval_clip(tmp_path, n=4)
+    parsed = []
+    real = motion.parse_expr
+    monkeypatch.setattr(motion, "parse_expr", lambda *a: parsed.append(real(*a)) or parsed[-1])
+    outs = []
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.y4m")
+        assert motion.main(["-Q", "--device", dev, "-b", "8x8x2", "--slab-batch", "2",
+                            "--eval", "c*(1+0.1*random(0))", clip, out]) == 0
+        outs.append(_decoded(out))
+    assert parsed[0]._slots and parsed[0]._slots == parsed[1]._slots
+    assert parsed[0]._prng == parsed[1]._prng
+    assert np.max(np.abs(outs[0] - outs[1])) <= 1
+    assert motion.LAST_STAGE_TIMES["host_eval"] > 0
+
+
+def test_host_libraries_load_on_the_card_machine(tmp_path):
+    """libdspio and libffv1 build from the package's sources with g++ here
+    too: a y4m read through the prefetching reader into FFV1-in-NUT and
+    Matroska and back, lossless."""
+    from fractions import Fraction
+
+    from dspfun_tpu_torch import _hostbuild
+    from dspfun_tpu_torch.io import ffv1, native, video
+
+    native._load()
+    ffv1._load()
+    assert _hostbuild.library_path("dspio").is_file() and _hostbuild.library_path("ffv1").is_file()
+    clip = _eval_clip(tmp_path, n=3)
+    want = _decoded(clip)
+    for ext in ("nut", "mkv"):
+        r = video.open_input(clip)
+        assert isinstance(r, video.NativeBackedReader)
+        out = str(tmp_path / f"o.{ext}")
+        w = video.open_output(out, r.width, r.height, Fraction(25), r.props)
+        while (f := r.read_frame(raw=True)) is not None:
+            w.write_frame(f, raw=True)
+        w.close()
+        r.close()
+        assert w.codec == "ffv1"
+        np.testing.assert_array_equal(_decoded(out), want)
 
 
 def test_spec_and_ispec_clis_on_card(cuda, tmp_path, monkeypatch):

@@ -112,8 +112,36 @@ def test_masks_match_jax(boost, damp, kw):
     m = gt.minbuf
     np.testing.assert_array_equal(tmp._uniform_factor(m.d, m.h, m.w),
                                   jmp._uniform_factor(m.d, m.h, m.w))
-    np.testing.assert_array_equal(tmp._region_mask(m.d, m.h, m.w, gt.active),
-                                  jmp._region_mask(m.d, m.h, m.w, gj.active))
+    uf = jmp._uniform_factor(m.d, m.h, m.w)
+    for inverse in (False, True):
+        np.testing.assert_array_equal(
+            tmp._renorm_window(m.d, m.h, m.w, gt.active, inverse, "cpu").numpy(),
+            np.where(jmp._region_mask(m.d, m.h, m.w, gj.active), 1.0 / uf if inverse else uf, 1.0))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(bp_end=JD(4, 4, 2)), dict(bp_begin=JD(1, 0, 0)),
+                                dict(bp_end=JD(8, 8, 4)), dict(block=JD(8, 8, 4), scaled=JD(4, 8, 4))])
+@pytest.mark.parametrize("boost,damp", [(1.0, 0.0), (1.0, 1.0), (1.25, 0.0), (1.0, 0.5)])
+def test_bandpass_identity_shortcut_is_exact(kw, boost, damp):
+    """The port skips the bandpass multiply exactly when the JAX package's
+    multiplier is 1 everywhere."""
+    (gj,), (gt,) = _geoms(16, 16, 8, **({"block": JD(8, 8, 4)} | kw))
+    ones = bool(np.all(jmp._bandpass_mult(gj, boost, damp) == 1.0))
+    assert tmp._bandpass_is_identity(gt, boost, damp) == ones
+
+
+@pytest.mark.parametrize("mdims,active", [((4, 6, 8), (3, 4, 5)), ((1, 1, 1), (1, 1, 1)),
+                                          ((3, 17, 9), (3, 17, 9)), ((8, 8, 8), (2, 8, 5))])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_renorm_window_equals_the_numpy_form(mdims, active, inverse):
+    """The uniform renorm window built on the device from its axes equals
+    the [md, mh, mw] numpy array the JAX package builds, bit for bit."""
+    d, h, w = active
+    uf = jmp._uniform_factor(*mdims)
+    want = np.where(jmp._region_mask(*mdims, JD(w, h, d)), 1.0 / uf if inverse else uf, 1.0)
+    got = tmp._renorm_window(*mdims, TD(w, h, d), inverse, "cpu")
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_motion_params_compare_by_value():
@@ -286,13 +314,33 @@ def test_24_cube_blocks_diverge_on_path_not_output():
     assert np.max(np.abs(ot - oj)) <= 2e-2
 
 
-def test_eval_is_not_ported():
-    (g,) = tmp.plan_geometry(8, 8, 1, 1, block=TD(8, 8, 1))
-    expr = parse_expr("c/2", ("c", "x", "y", "z"))
-    blocks = torch.zeros((1, 1, 8, 8))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmp.filter_blocks(blocks, tmp.make_plans(g, device="cpu"), None, 0, g,
-                          tmp.MotionParams(expr=expr), 0, 1)
+@pytest.mark.parametrize("src", ["c/2", "c * ((width-x)/width) * ((depth-z)/depth)",
+                                 "c*(1+bx+2*by)*gte(bz,1)*eq(i,0)", "if(lt(x+y,3), 0, c*sqrt(z+1))"])
+def test_filter_blocks_eval_matches_jax(src):
+    """The expression stage (motion.c:670-681) on two slabs of 2x2
+    blocks: the same environment (c scaled by norm2/255, the coordinate
+    grids, i, bx, by and a per-block bz), to 1e-3 pels as the general
+    chain."""
+    from dspfun_tpu_torch.core.expr import parse_expr as tparse
+
+    gj, gt = _geoms(16, 16, 4, block=JD(8, 8, 2), bp_end=JD(6, 6, 2))
+    gj, gt = gj[0], gt[0]
+    names = ("c", "x", "y", "z", "i", "width", "height", "depth", "components",
+             "bx", "by", "bz", "bwidth", "bheight", "bdepth")
+    blocks = np.concatenate([_blocks(gj, seed=s) for s in (5, 6)])
+    nb = blocks.shape[0]
+    plans = jmp.make_plans(gj)
+    bidx = np.arange(nb) % 4
+    bz = np.repeat([0, 1], 4).astype(np.int32)
+    pj = jmp.MotionParams(boost=1.5, damp=0.5, expr=parse_expr(src, names))
+    pt = tmp.MotionParams(boost=1.5, damp=0.5, expr=tparse(src, names))
+    oj, _ = jmp.filter_blocks(jnp.asarray(blocks), plans,
+                              (jnp.asarray(bidx % 2, jnp.int32), jnp.asarray(bidx // 2, jnp.int32)),
+                              jnp.asarray(bz), geom=gj, params=pj, plane_index=0, nplanes=1)
+    ot, _ = tmp.filter_blocks(torch.from_numpy(blocks), motion_plans_from_jax(plans, device="cpu"),
+                              None, torch.from_numpy(bz), gt, pt, 0, 1)
+    assert tmp.LAST_FAST_PATH is None
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=1e-3)
 
 
 def test_motion_plans_from_jax_keeps_the_structure():

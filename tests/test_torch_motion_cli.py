@@ -11,6 +11,11 @@ package's.
   are copies: equal bytes, equal arrays.  The torch transfer functions
   agree with the JAX device path to 1e-6 (float32, Newton-polished pow
   on both sides).
+* The containers: fvid, NUT, Matroska and PNG sequences in; NUT (FFV1
+  by default), Matroska and fvid out, against the JAX tool's output.
+* ``--resume-file``: an interrupted run finished by a rerun equals one
+  uninterrupted run, and the JAX package's own resume case through both
+  tools.
 * The flags the port refuses exit 1 and name the ROADMAP item.
 """
 
@@ -88,7 +93,6 @@ def test_cli_matches_jax(clip, tmp_path, case):
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "2"], "item 18"), (["--coordinator", "h:1"], "item 18"),
     (["--nprocs", "2"], "item 18"), (["--proc-id", "1"], "item 18"),
-    (["--resume-file", "state.json"], "item 13"), (["--eval", "c/2"], "item 12"),
 ])
 def test_refused_flags_exit_1(clip, tmp_path, capsys, flag, item):
     assert tmotion.main(["-Q", "--device", "cpu"] + flag + [clip, str(tmp_path / "o.y4m")]) == 1
@@ -96,13 +100,14 @@ def test_refused_flags_exit_1(clip, tmp_path, capsys, flag, item):
     assert "not ported" in err and f"ROADMAP queue 1, {item}" in err
 
 
-@pytest.mark.parametrize("src,dst", [("in.nut", "o.y4m"), ("clip", "o.mkv"),
-                                     ("clip", "frame%03d.png")])
+@pytest.mark.parametrize("src,dst", [("in.nut", "o.y4m"), ("clip", "o.webm"),
+                                     ("clip", "ffplay:")])
 def test_other_containers_are_refused(clip, tmp_path, capsys, src, dst):
     src = clip if src == "clip" else str(tmp_path / src)
     if src.endswith(".nut"):
         open(src, "wb").write(b"nut/multimedia container\0")
-    assert tmotion.main(["-Q", "--device", "cpu", src, str(tmp_path / dst)]) == 1
+    dst = dst if dst == "ffplay:" else str(tmp_path / dst)
+    assert tmotion.main(["-Q", "--device", "cpu", src, dst]) == 1
     assert "not ported yet" in capsys.readouterr().err
 
 
@@ -215,3 +220,146 @@ def test_color_matches_jax():
         yt = getattr(tcolor, fn)(torch.from_numpy(xf), torch)
         assert yt.dtype == torch.float32
         assert np.max(np.abs(yt.numpy() - yj)) <= 1e-6
+
+
+def _decoded(path, raw=True):
+    with tvideo.open_input(path) as r:
+        frames = []
+        while (f := r.read_frame(raw=raw)) is not None:
+            frames.append([np.asarray(p, np.float64) for p in f])
+    return frames
+
+
+def _close_to_jax(jpath, tpath, tol, share=None):
+    """Decoded frames (normalised) within ``tol``; with ``share``, at most
+    that share of samples differ at all."""
+    a, b = _decoded(jpath, raw=False), _decoded(tpath, raw=False)
+    assert len(a) == len(b) > 0
+    d = np.concatenate([np.abs(p - q).ravel() for fa, fb in zip(a, b) for p, q in zip(fa, fb)])
+    assert d.max() <= tol, d.max()
+    if share is not None:
+        assert np.mean(d > 1e-6) <= share, np.mean(d > 1e-6)
+
+
+@pytest.mark.parametrize("src_fmt", ["fvid", "nut", "mkv", "png"])
+@pytest.mark.parametrize("dst", ["o.nut", "o.mkv", "o.fvid"])
+def test_containers_in_and_out_match_jax(clip, tmp_path, src_fmt, dst):
+    """motion reads fvid, NUT (FFV1), Matroska (FFV1) and PNG sequences and
+    writes NUT, Matroska and fvid: the JAX tool's output from the same
+    input, within one 8-bit level on at most 0.1 % of the samples where
+    the pels are 8-bit, within 5e-6 (float pels: float32 sums over the
+    1024 coefficients of a block, in another order) plus one 16-bit level
+    where Matroska stores float content in 16 bits."""
+    j = jvideo.open_input(clip)
+    src = str(tmp_path / ("in%02d.png" if src_fmt == "png" else f"in.{src_fmt}"))
+    props = jvideo.ColorProps(pix_fmt="gbrpf32le" if src_fmt == "fvid" else "yuv420p")
+    w = jvideo.open_output(src, 64, 48, j.rate, props)
+    for _ in range(8):
+        w.write_frame_rgb(j.read_frame_rgb())
+    w.close()
+    j.close()
+    outs = []
+    for name, main, extra in (("jax", jmotion.main, []),
+                              ("torch", tmotion.main, ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}_{dst}")
+        assert main(["-Q", "-b", "16x16x4", "-p", "0x0x0-8x8x2", "-B", "1.25"] + extra
+                    + [src, out]) == 0
+        outs.append(out)
+    if src_fmt in ("nut", "mkv"):
+        _close_to_jax(*outs, 1.0 / 255 + 1e-6, share=1e-3)
+    else:
+        _close_to_jax(*outs, 5e-6 + (1.0 / 65535 if dst == "o.mkv" else 0.0))
+
+
+def test_nut_output_is_ffv1_and_matches_y4m(clip, tmp_path):
+    """The default NUT output codes FFV1 and decodes to the y4m run's
+    frames (FFV1 is lossless); --codec rawvideo writes raw planes."""
+    from dspfun_tpu_torch.io import nut as tnut
+
+    args = ["-Q", "--device", "cpu", "-b", "16x16x8", "-p", "0x0x0-8x8x4", "-B", "1.25"]
+    for out in ("o.y4m", "o.nut", "o.mkv"):
+        assert tmotion.main(args + [clip, str(tmp_path / out)]) == 0
+    assert tmotion.main(args + ["--codec", "rawvideo", clip, str(tmp_path / "r.nut")]) == 0
+    ref = _decoded(str(tmp_path / "o.y4m"))
+    for out in ("o.nut", "o.mkv", "r.nut"):
+        got = _decoded(str(tmp_path / out))
+        assert len(got) == len(ref) == 16
+        for fa, fb in zip(ref, got):
+            for p, q in zip(fa, fb):
+                np.testing.assert_array_equal(p, q)
+    for name, tag in (("o.nut", b"FFV1"), ("r.nut", b"I420")):
+        with open(tmp_path / name, "rb") as f:
+            assert bytes(tnut.NutReader(f).state.streams[0]["fourcc"]) == tag
+
+
+class _Interrupt(Exception):
+    pass
+
+
+@pytest.mark.parametrize("ext", ["nut", "y4m", "fvid"])
+def test_resume_after_an_interrupt_matches_a_single_run(clip, tmp_path, monkeypatch, ext):
+    """--resume-file: a run cut after two of four slabs, finished by a
+    rerun with the same flags into the same file, equals one
+    uninterrupted run (the slab index, the fingerprint and the append)."""
+    args = ["-Q", "--device", "cpu", "-b", "16x16x4", "-D", "0.5", "-p", "0x0x0-8x8x2"]
+    if ext == "fvid":
+        args += ["--csp", "pixel_format=gbrpf32le"]
+    single, part = str(tmp_path / f"single.{ext}"), str(tmp_path / f"part.{ext}")
+    state = str(tmp_path / "state.json")
+    assert tmotion.main(args + [clip, single]) == 0
+    real = tmotion.mp.filter_blocks
+    calls = []
+
+    def cut(*a, **k):
+        calls.append(1)
+        if len(calls) > 2 * 3:            # three planes a slab: stop in slab 3
+            raise _Interrupt
+        return real(*a, **k)
+
+    monkeypatch.setattr(tmotion.mp, "filter_blocks", cut)
+    with pytest.raises(_Interrupt):
+        tmotion.main(args + ["--resume-file", state, clip, part])
+    monkeypatch.setattr(tmotion.mp, "filter_blocks", real)
+    assert tmotion.load_state(state)["slab"] == 2
+    assert len(_decoded(part)) == 8
+    assert tmotion.main(args + ["--resume-file", state, clip, part]) == 0
+    assert tmotion.load_state(state)["slab"] == 4
+    a, b = _decoded(single), _decoded(part)
+    assert len(a) == len(b) == 16
+    for fa, fb in zip(a, b):
+        for p, q in zip(fa, fb):
+            np.testing.assert_array_equal(p, q)
+    if ext != "nut":
+        assert open(single, "rb").read() == open(part, "rb").read()
+
+
+def test_resume_with_other_flags_starts_over_and_mkv_refuses(clip, tmp_path, capsys):
+    """A state file from a run with another edit does not resume (the
+    fingerprint), and Matroska refuses resume as in the JAX tool."""
+    state = str(tmp_path / "state.json")
+    tmotion.save_state(state, {"slab": 3, "newres": [64, 48, 16], "fingerprint": "other"})
+    out = str(tmp_path / "o.y4m")
+    assert tmotion.main(["-Q", "--device", "cpu", "-b", "16x16x4", "--resume-file", state,
+                         clip, out]) == 0
+    assert len(_decoded(out)) == 16 and tmotion.load_state(state)["slab"] == 4
+    tmotion.save_state(state, {"slab": 1, "newres": [64, 48, 16]})
+    assert tmotion.main(["-Q", "--device", "cpu", "-b", "16x16x4", "--resume-file", state,
+                         clip, str(tmp_path / "o.mkv")]) == 1
+    assert "append/resume" in capsys.readouterr().err
+
+
+def test_resume_matches_the_jax_tool(clip, tmp_path):
+    """The JAX package's own resume case (tests/test_utils.py) through both
+    tools: an fvid of 6 frames, a partial run, a resumed run."""
+    from dspfun_tpu.utils import checkpoint as jcheckpoint
+
+    outs = []
+    for name, main, ck, extra in (("jax", jmotion.main, jcheckpoint, []),
+                                  ("torch", tmotion.main, tmotion, ["--device", "cpu"])):
+        state, part = str(tmp_path / f"{name}.json"), str(tmp_path / f"{name}.fvid")
+        assert main(["-Q", "-b", "8x8x2", "--frames", "4", "--resume-file", state] + extra
+                    + [clip, part]) == 0
+        ck.save_state(state, {"slab": 2, "newres": [64, 48, 16]})
+        assert main(["-Q", "-b", "8x8x2", "--resume-file", state] + extra + [clip, part]) == 0
+        outs.append(part)
+    _close_to_jax(*outs, 1.0 / 255 + 1e-6, share=1e-3)

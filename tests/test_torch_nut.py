@@ -1,0 +1,148 @@
+"""The port's NUT container (``dspfun_tpu_torch/io/nut.py`` and the NUT
+classes of ``io/video.py``) against the JAX package's.
+
+* Every case of ``tests/test_nut.py`` runs on the port's modules
+  (``tests/torch_port_cases.py``), but those that need what the port
+  leaves out: the ffmpeg bridge, the device mesh, and the JAX tools (the
+  port's tools write NUT in the CLI tests).
+* The same planes through both packages' writers give equal bytes, for
+  FFV1 at levels 1 and 3, rawvideo, 16-bit and float content, and each
+  package's reader decodes the other's file to equal planes.
+* Where the JAX package routes to its bridge the port refuses (ROADMAP
+  queue 1, item 13), and where it falls back to rawvideo payloads
+  because the FFV1 library cannot be built the port raises the build's
+  error.
+"""
+
+from fractions import Fraction
+
+import numpy as np
+import pytest
+
+import tests.test_nut as jnut_tests
+from dspfun_tpu.io import video as jvideo
+from dspfun_tpu_torch import _hostbuild
+from dspfun_tpu_torch.io import ffv1 as tffv1
+from dspfun_tpu_torch.io import nut as tnut
+from dspfun_tpu_torch.io import video as tvideo
+from tests.torch_port_cases import port_cases, run_on_port
+
+SKIP = {
+    "test_nut_foreign_codec_routes_to_bridge": "the ffmpeg bridge (item 13): "
+                                               "test_foreign_codec_is_refused",
+    "test_tools_roundtrip_through_nut": "the JAX tools; the port's write NUT in the CLI tests",
+    "test_scan_mesh_with_packed_emission": "the device mesh (item 18)",
+}
+
+
+@pytest.mark.parametrize("case", port_cases(jnut_tests, SKIP))
+def test_jax_nut_case_on_the_port(case, request):
+    run_on_port(request, jnut_tests, *case)
+
+
+WRITES = [  # (pix_fmt, codec, options)
+    ("yuv420p", None, None), ("yuv420p", "rawvideo", None), ("gray", None, "level=3:slices=4"),
+    ("yuv444p16le", None, None), ("gbrp", None, None), ("gbrpf32le", None, None),
+    ("gbrpf32le", None, "negotiate=1"), ("yuv422p10le", "ffv1", None),
+]
+
+
+@pytest.mark.parametrize("pix_fmt,codec,options", WRITES)
+def test_writers_give_equal_bytes_and_cross_decode(pix_fmt, codec, options, tmp_path):
+    rng = np.random.default_rng(3)
+    frames = [rng.random((18, 22, 3)) for _ in range(3)]
+    paths = {}
+    for name, mod in (("jax", jvideo), ("torch", tvideo)):
+        path = tmp_path / f"{name}.nut"
+        w = mod.open_output(str(path), 22, 18, Fraction(30000, 1001),
+                            mod.ColorProps(pix_fmt=pix_fmt, color_range="jpeg"),
+                            codec=codec, options=options)
+        w.write_frame_rgb(frames[0])
+        w.write_frame(mod.rgb_to_planes(frames[1], w.pix_fmt, w.props))
+        w.write_frame_payload(b"".join(
+            np.asarray(mod._quantize_plane(p, w.pix_fmt, i, w.props.color_range)).tobytes()
+            for i, p in enumerate(mod.rgb_to_planes(frames[2], w.pix_fmt, w.props))))
+        w.close()
+        paths[name] = path
+    assert paths["jax"].read_bytes() == paths["torch"].read_bytes()
+    for path in paths.values():
+        with jvideo.open_input(str(path)) as a, tvideo.open_input(str(path)) as b:
+            assert type(b).__name__ == type(a).__name__ == "NutVideoReader"
+            assert (b.frames, b.pix_fmt.name, b.rate, vars(b.props)) == \
+                (a.frames, a.pix_fmt.name, a.rate, vars(a.props))
+            for _ in range(3):
+                for x, y in zip(a.read_frame(raw=True), b.read_frame(raw=True)):
+                    np.testing.assert_array_equal(x, y)
+            assert b.read_frame() is None
+
+
+def test_append_gives_equal_bytes(tmp_path):
+    pf = tvideo.PIXEL_FORMATS["yuv420p"]
+    rng = np.random.default_rng(4)
+    frames = [[rng.integers(0, 256, (h, w)).astype(float) for w, h in pf.plane_dims(16, 12)]
+              for _ in range(4)]
+    out = []
+    for name, mod in (("jax", jvideo), ("torch", tvideo)):
+        path = str(tmp_path / f"{name}.nut")
+        for part, append in ((frames[:2], False), (frames[2:], True)):
+            with mod.open_output(path, 16, 12, Fraction(25), mod.ColorProps(pix_fmt="yuv420p"),
+                                 append=append) as w:
+                for f in part:
+                    w.write_frame(f, raw=True)
+        out.append(open(path, "rb").read())
+    assert out[0] == out[1]
+    with tvideo.open_input(str(tmp_path / "torch.nut")) as r:
+        assert r.frames == 4
+
+
+def test_foreign_codec_is_refused(tmp_path):
+    """A foreign encoder on a NUT target is the JAX package's bridge; the
+    port refuses it by name before anything is written, and FFV1 works."""
+    props = tvideo.parse_color_props("pixel_format=yuv420p")
+    with pytest.raises(ValueError, match="item 13"):
+        tvideo.open_output(str(tmp_path / "e.nut"), 8, 6, Fraction(25), props, codec="h264")
+    with pytest.raises(ValueError, match="item 13"):
+        tvideo.open_output(str(tmp_path / "f.nut"), 8, 6, Fraction(25),
+                           tvideo.parse_color_props("pixel_format=gbrpf32le"), codec="ffv1")
+    assert not list(tmp_path.iterdir())
+    with tvideo.open_output(str(tmp_path / "g.nut"), 8, 6, Fraction(25), props,
+                            codec="ffv1") as w:
+        assert w.codec == "ffv1"
+
+
+def test_undecodable_ffv1_is_refused(tmp_path):
+    """A NUT file whose FFV1 stream the native decoder rejects: the JAX
+    package hands it to its bridge, the port refuses it by name."""
+    pf = tvideo.PIXEL_FORMATS["yuv420p"]
+    p = tmp_path / "alien.nut"
+    with open(p, "wb") as f:
+        nw = tnut.NutWriter(f, 8, 6, Fraction(25), pf, tvideo.ColorProps(), codec="ffv1")
+        nw.write_header()
+        nw.write_frame_bytes(b"\x00" * 64)
+    with pytest.raises(ValueError, match="item 13"):
+        tvideo.open_input(str(p))
+
+
+def test_no_rawvideo_fallback_when_ffv1_cannot_build(tmp_path, monkeypatch):
+    """Where the JAX package writes rawvideo payloads because libffv1
+    cannot be built, the port raises the build's error: for the FFV1
+    default of integer content and for reading FFV1."""
+    good = tmp_path / "good.nut"
+    with tvideo.open_output(str(good), 8, 6, Fraction(25),
+                            tvideo.ColorProps(pix_fmt="gray")) as w:
+        w.write_frame([np.zeros((6, 8))], raw=True)
+
+    def broken():
+        raise RuntimeError("g++ failed (1): cannot build ffv1")
+
+    monkeypatch.setattr(tffv1, "_load", broken)
+    with pytest.raises(RuntimeError, match="g.. failed"):
+        tvideo.open_output(str(tmp_path / "a.nut"), 8, 6, Fraction(25),
+                           tvideo.ColorProps(pix_fmt="gray"))
+    with pytest.raises(RuntimeError, match="g.. failed"):
+        tvideo.open_input(str(good))
+    # float content never needed the codec
+    with tvideo.open_output(str(tmp_path / "f.nut"), 8, 6, Fraction(25),
+                            tvideo.ColorProps(pix_fmt="grayf32le")) as w:
+        assert w.codec == "rawvideo"
+    assert _hostbuild.library_path("ffv1").parent == _hostbuild.build_dir()

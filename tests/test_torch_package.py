@@ -54,7 +54,43 @@ def test_every_module_imports_without_jax():
         "utils.checkpoint", "utils.hostcopy", "io.device_pack", "models.scan_pipeline",
         "models.zoom_pipeline", "tools.scan", "tools.zoom", "models.basis_pipeline",
         "tools._colorspec", "tools.applybasis", "tools.genbasis", "tools.draw", "tools.rotate",
-        "tools.transcode")} <= names
+        "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild")} <= names
+
+
+def test_container_modules_need_no_jax_pillow_or_cv2_and_not_the_repos_native(tmp_path):
+    """The container stack imports and runs with jax, Pillow, cv2 and the
+    JAX package unimportable: a y4m through the host library's reader,
+    FFV1 into NUT and Matroska and back.  The host libraries it loads are
+    the port's own builds under build/native/, never a library of the
+    repo's native/ directory."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None; sys.modules['cv2'] = None\n"
+        "import numpy as np\n"
+        "from fractions import Fraction\n"
+        "from dspfun_tpu_torch.io import video\n"
+        f"d = {str(tmp_path)!r}\n"
+        "rng = np.random.default_rng(0)\n"
+        "w = video.open_output(d + '/c.y4m', 16, 12, Fraction(25), video.ColorProps(pix_fmt='yuv420p'))\n"
+        "[w.write_frame_rgb(rng.random((12, 16, 3))) for _ in range(3)]\n"
+        "w.close()\n"
+        "for ext in ('nut', 'mkv'):\n"
+        "    r = video.open_input(d + '/c.y4m')\n"
+        "    w = video.open_output(d + '/c.' + ext, 16, 12, r.rate, r.props)\n"
+        "    while (f := r.read_frame(raw=True)) is not None:\n"
+        "        w.write_frame(f, raw=True)\n"
+        "    w.close(); r.close()\n"
+        "    print(type(r).__name__, w.codec, video.open_input(d + '/c.' + ext).frames)\n"
+        "print('\\n'.join(sorted({ln.split()[-1] for ln in open('/proc/self/maps')\n"
+        "                         if ln.rstrip().endswith('.so')})))\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[:2] == ["NativeBackedReader ffv1 3"] * 2
+    libs = [Path(p) for p in lines[2:]]
+    ours = [p for p in libs if p.parent == ROOT / "build" / "native"]
+    assert sorted(p.name.split("_")[0] for p in ours) == ["libdspio", "libffv1"]
+    assert not [p for p in libs if p.parent == ROOT / "native"]
 
 
 def test_calibration_counterparts_run_without_jax():
@@ -232,12 +268,21 @@ def test_dispatcher_lists_the_ported_tools_and_refuses_the_rest(capsys, monkeypa
 
 def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
-    headers they include) matches a package-data pattern of
-    pyproject.toml, and the patterns name nothing that is not there."""
-    from dspfun_tpu_torch import _build
+    headers they include) and every host-library source ``_hostbuild.py``
+    compiles (the copies of native/dspio.cpp and native/ffv1.cpp) matches
+    a package-data pattern of pyproject.toml, and the patterns name
+    nothing that is not there; .gitignore lists both build directories."""
+    from dspfun_tpu_torch import _build, _hostbuild
 
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
     patterns = conf["package-data"]["dspfun_tpu_torch"]
+    host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
+    assert host == ["native/dspio.cpp", "native/ffv1.cpp"]
+    for rel in host:
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+    patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "build/kernels/" in ignored and "build/native/" in ignored
     inputs = [p.relative_to(PKG).as_posix() for p in _build.build_inputs()]
     assert "csrc/hopper_common.cuh" in inputs and "csrc/int8mm.cu" in inputs
     assert set(inputs) == {p.relative_to(PKG).as_posix()
@@ -263,7 +308,7 @@ def test_no_jax_imports_in_the_source():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "dspfun_tpu", "PIL"), f"{path}: {n}"
+                assert root not in ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"), f"{path}: {n}"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

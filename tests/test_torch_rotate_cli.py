@@ -2,8 +2,9 @@
 on the CPU: the same seeded y4m and fvid clips (8-bit 4:4:4 and 4:2:0,
 10-bit 4:2:0, float RGB) through ``dspfun_tpu.tools.<tool>`` and
 ``dspfun_tpu_torch.tools.<tool>`` with the same flags write files equal
-byte for byte.  The containers the port lacks are refused (exit 1,
-ROADMAP queue 1, item 13) before the input is read."""
+byte for byte, to y4m, fvid, PNG, NUT (FFV1 by default, rawvideo, FFV1
+level 3) and Matroska.  The containers and encoders the port lacks are
+refused (exit 1, ROADMAP queue 1, item 13) before the input is read."""
 
 import itertools
 from fractions import Fraction
@@ -154,8 +155,8 @@ def test_help_usage_and_exit_codes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("tool", [trotate, ttranscode], ids=["rotate", "transcode"])
-@pytest.mark.parametrize("target", ["o.nut", "o.mkv", "o.mp4", "ffplay:", "-e ffv1", "-e libx264",
-                                    "-F nut", "in.nut"])
+@pytest.mark.parametrize("target", ["o.webm", "-F matroska", "o.mp4", "ffplay:", "-e mpeg4",
+                                    "-e libx264", "-F mp4", "in.nut"])
 def test_refusals_name_item_13(tmp_path, capsys, tool, target):
     src = _clip(tmp_path, *CLIPS[0])
     lead = ["-q"] + (["zyx"] if tool is trotate else [])
@@ -181,3 +182,45 @@ def test_dispatcher_runs_rotate_and_transcode(tmp_path):
     with tvideo.open_input(r) as rr, jvideo.open_input(t) as tt:
         assert (rr.width, rr.height, rr.frames) == (5, 8, 12)
         assert (tt.width, tt.height, tt.frames) == (12, 8, 5)
+
+
+@pytest.mark.parametrize("tool", ["rotate", "transcode"])
+@pytest.mark.parametrize("clip", CLIPS, ids=lambda c: c[1])
+@pytest.mark.parametrize("argv,ext", [([], "nut"), (["-e", "rawvideo"], "nut"),
+                                      (["-e", "ffv1", "-O", "level=3:slices=4"], "nut"),
+                                      ([], "mkv")])
+def test_nut_and_mkv_files_equal(tmp_path, monkeypatch, tool, clip, argv, ext):
+    """FFV1 by default (NUT and Matroska), rawvideo and level 3 on request:
+    the files equal the JAX tools' byte for byte (the JAX package writes
+    native Matroska when no ffmpeg binary is on PATH), and the port reads
+    them back to the planes the JAX package reads."""
+    import shutil
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    src = _clip(tmp_path, *clip)
+    jt, tt = (jrotate, trotate) if tool == "rotate" else (jtranscode, ttranscode)
+    lead = ["-q"] + argv + (["zyx"] if tool == "rotate" else [])
+    if "ffv1" in argv and clip[1] == "gbrpf32le":
+        # FFV1 codes no float samples: the JAX package's bridge, refused here
+        out = str(tmp_path / f"o.{ext}")
+        assert jt.main(lead + [src, out]) == tt.main(lead + [src, out]) == 1
+        return
+    a, b = _both(tmp_path, jt, tt, lead + [src], ext)
+    assert a == b
+    with tvideo.open_input(str(tmp_path / f"t_o.{ext}")) as r, \
+            jvideo.open_input(str(tmp_path / f"j_o.{ext}")) as j:
+        assert r.frames == j.frames > 0 and r.pix_fmt.name == j.pix_fmt.name
+        for _ in range(r.frames):
+            for p, q in zip(r.read_frame(raw=True), j.read_frame(raw=True)):
+                np.testing.assert_array_equal(p, q)
+
+
+def test_ffv1_round_trip_reads_every_container(tmp_path):
+    """transcode y4m -> NUT (FFV1) -> MKV -> fvid -> y4m returns the clip's
+    bytes: FFV1 is lossless, and the NUT and Matroska readers feed the
+    next hop."""
+    src = _clip(tmp_path, "c420.y4m", "yuv420p", 5, 8, 12)
+    hops = [src] + [str(tmp_path / n) for n in ("a.nut", "b.mkv", "c.nut", "back.y4m")]
+    for a, b in zip(hops, hops[1:]):
+        assert ttranscode.main(["-q", a, b]) == 0
+    assert open(hops[-1], "rb").read() == open(src, "rb").read()

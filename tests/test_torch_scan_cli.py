@@ -5,7 +5,9 @@ The same PNG goes through ``dspfun_tpu.tools.scan`` and
 Tolerances: y4m streams equal in header and length and within one 8-bit
 level on < 0.5 % of the pels; fvid streams within 2e-6 (times the OETF's
 slope 12.92 where ``-g`` encodes); the ``-f`` serialisation file and the
-``-P`` message **equal**.
+``-P`` message **equal**.  NUT and Matroska targets decode within the
+same bounds (plus one 16-bit level where 16-bit FFV1 stores float
+frames).
 """
 
 import numpy as np
@@ -175,8 +177,8 @@ def test_png_sequence_output(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--mesh", "2", "IN", "o.y4m"], "queue 1, item 18"),
-    (["--device", "cpu", "IN", "o.nut"], "queue 1, item 13"),
-    (["--device", "cpu", "IN", "o.mkv"], "queue 1, item 13"),
+    (["--device", "cpu", "--ff-encoder", "libx264", "IN", "o.nut"], "queue 1, item 13"),
+    (["--device", "cpu", "IN", "o.webm"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "ffplay:"], "queue 1, item 13"),
     (["--device", "cpu", "--ff-format", "matroska", "IN", "o.y4m"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "o%02d.jpg"], "queue 1, item 8"),
@@ -221,3 +223,44 @@ def test_help_texts_and_dispatcher(tmp_path, capsys):
     out = str(tmp_path / "d.y4m")
     assert tmain.main(["scan", "--device", "cpu", "-m", "zigzag", "-S", "100", "-q", src, out]) == 0
     assert open(out, "rb").read().count(b"FRAME\n") == 8
+
+
+def _decoded_close(jout, tout, float_tol, share=None):
+    """Both files decode to the same format and to frames within one
+    stored level (integer pels; with ``share``, at most that share of
+    the samples differ at all) or ``float_tol`` (float pels)."""
+    worst, n, off = 0.0, 0, 0
+    with jvideo.open_input(jout) as jr, tvideo.open_input(tout) as tr:
+        assert type(tr).__name__ == type(jr).__name__ and tr.frames == jr.frames > 0
+        assert tr.pix_fmt.name == jr.pix_fmt.name
+        pf = tr.pix_fmt
+        for _ in range(tr.frames):
+            for p, q in zip(jr.read_frame(raw=True), tr.read_frame(raw=True)):
+                d = np.abs(np.asarray(p, np.float64) - q)
+                worst, n, off = max(worst, float(d.max())), n + d.size, off + int((d > 0).sum())
+    assert worst <= (float_tol if pf.is_float else 1.0), worst
+    if share is not None:
+        assert off / n < share, off / n
+    return pf
+
+
+NATIVE_TARGETS = [("nut", "pixel_format=yuv420p:color_range=tv"), ("nut", "negotiate=1:level=3:slices=4"),
+                  ("nut", None), ("mkv", None), ("mkv", "pixel_format=yuv444p:level=3")]
+
+
+@pytest.mark.parametrize("ext,opts", NATIVE_TARGETS)
+def test_nut_and_mkv_targets_match_jax(ext, opts, tmp_path, capsys, monkeypatch):
+    """NUT and Matroska with the codec options ``--ff-opts`` carries (FFV1
+    level and slices, ``negotiate=1``): decoded within the y4m test's one
+    8-bit level on < 0.5 % where the pels are 8-bit, the fvid test's 2e-6
+    where they are float, and one level where 16-bit FFV1 stores float
+    frames."""
+    import shutil
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)  # the JAX package's native Matroska
+    flags = ["-m", "zigzag", "-S", "16", "-q"] + (["--ff-opts", opts] if opts else [])
+    jout, tout, _, _ = _run_both(tmp_path, capsys, flags, _png(tmp_path), ext)
+    pf = _decoded_close(jout, tout, 2e-6, share=0.005 if ext == "nut" and opts and "yuv" in opts
+                        else None)
+    assert {None: pf.is_float or ext == "mkv", "negotiate=1:level=3:slices=4": pf.name == "gbrp16le"
+            }.get(opts, pf.depth == 8)

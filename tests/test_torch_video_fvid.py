@@ -4,9 +4,10 @@
 Container bytes are held to **equality** (fvid and y4m streams, resumed
 streams, PNG sequences decoded to pixels); the packer's payloads to the
 JAX packer's and to the host writers' but for <= 1 level at exact .5
-boundaries, as tests/test_device_pack.py allows.  What the port still
-lacks (NUT, MKV, the ffmpeg bridge, ``ffplay:``, image sequences as
-input) is refused with ROADMAP queue 1, item 13.
+boundaries, as tests/test_device_pack.py allows.  Files read through
+``NativeBackedReader`` by default, as in the JAX package.  What the port
+still lacks (the ffmpeg bridge's containers and encoders, ``ffplay:``)
+is refused with ROADMAP queue 1, item 13.
 """
 
 from fractions import Fraction
@@ -56,7 +57,7 @@ def test_fvid_stream_bytes_equal_and_read_back(req, tmp_path):
         paths.append(tmp_path / name)
     assert paths[0].read_bytes() == paths[1].read_bytes()
     jr = jvideo.open_input(str(paths[1]), native=False)
-    tr = tvideo.open_input(str(paths[0]))
+    tr = tvideo.open_input(str(paths[0]), native=False)
     assert isinstance(tr, tvideo.FvidReader) and tr.format == "fvid" and tr.frames == jr.frames == 3
     assert (tr.width, tr.height, tr.rate, tr.pix_fmt.name) == (jr.width, jr.height, jr.rate, jr.pix_fmt.name)
     assert vars(tr.props) == vars(jr.props)
@@ -66,10 +67,18 @@ def test_fvid_stream_bytes_equal_and_read_back(req, tmp_path):
     assert tr.read_frame() is None
     tr.close()
     jr.close()
+    # a file reads through the host library by default, as in the JAX package
+    with tvideo.open_input(str(paths[0])) as nr, jvideo.open_input(str(paths[1])) as njr:
+        assert isinstance(nr, tvideo.NativeBackedReader) and nr.format == "fvid"
+        assert type(njr).__name__ == "NativeBackedReader"
+        for _ in range(3):
+            for a, b in zip(njr.read_frame(), nr.read_frame()):
+                np.testing.assert_array_equal(a, b)
     # fvid under a foreign extension opens by its magic bytes
     other = tmp_path / "clip.bin"
     other.write_bytes(paths[1].read_bytes())
-    assert isinstance(tvideo.open_input(str(other)), tvideo.FvidReader)
+    assert isinstance(tvideo.open_input(str(other), native=False), tvideo.FvidReader)
+    assert tvideo.open_input(str(other)).format == "fvid"
     np.testing.assert_array_equal(tvideo.open_input(str(other)).read_frame_rgb(),
                                   jvideo.open_input(str(other), native=False).read_frame_rgb())
 
@@ -139,8 +148,8 @@ def test_output_format_follows_the_jax_sniffer(spec, fmt, want):
     assert tvideo.check_output(spec, fmt) == want == ("y4m" if j == "pipe" else j)
 
 
-@pytest.mark.parametrize("spec,fmt", [("o.nut", None), ("o.mkv", None), ("o.mp4", None),
-                                      ("ffplay:", None), ("ffplay:x", None), ("o.y4m", "nut"),
+@pytest.mark.parametrize("spec,fmt", [("o.webm", None), ("-", "matroska"), ("o.mp4", None),
+                                      ("ffplay:", None), ("ffplay:x", None), ("o.nut", "mp4"),
                                       ("o.y4m", "matroska"), ("f%02d.jpg", None), ("o.jpg", None)])
 def test_unported_targets_are_refused(spec, fmt, tmp_path):
     with pytest.raises(ValueError, match="not ported") as e:
@@ -154,8 +163,8 @@ def test_unported_targets_are_refused(spec, fmt, tmp_path):
 def test_unported_inputs_are_refused(tmp_path):
     (tmp_path / "a.nut").write_bytes(b"nut/multimedia container\0")
     (tmp_path / "a.mkv").write_bytes(b"\x1a\x45\xdf\xa3rest")
-    (tmp_path / "f000.png").write_bytes(b"")
-    for name, fmt in [("a.nut", None), ("a.mkv", None), ("f%03d.png", None), ("a.nut", "y4m")]:
+    (tmp_path / "a.mp4").write_bytes(b"\0\0\0\x18ftypmp42")
+    for name, fmt in [("a.nut", None), ("a.mkv", None), ("a.mp4", None), ("a.nut", "y4m")]:
         with pytest.raises(ValueError, match="item 13"):
             tvideo.open_input(str(tmp_path / name), fmt)
 

@@ -182,8 +182,8 @@ def test_png_sequence_and_non_finite_frames(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--mesh", "2", "IN", "o.y4m"], "queue 1, item 18"),
-    (["--device", "cpu", "IN", "o.nut"], "queue 1, item 13"),
-    (["--device", "cpu", "IN", "o.mkv"], "queue 1, item 13"),
+    (["--device", "cpu", "--ff-encoder", "libx264", "IN", "o.nut"], "queue 1, item 13"),
+    (["--device", "cpu", "IN", "o.webm"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "ffplay:"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "o.jpg"], "queue 1, item 8"),
     (["--device", "cpu", "-x", "i+(", "IN", "o.png"], "Bad expression"),
@@ -235,3 +235,21 @@ def test_help_and_dispatcher(tmp_path, capsys):
     out = str(tmp_path / "d.png")
     assert tmain.main(["zoom", "--device", "cpu", "-s", "2", src, out]) == 0
     assert timages.read_image(out).pixels.shape == (48, 64, 3)
+
+
+@pytest.mark.parametrize("ext,opts", [("nut", "pixel_format=yuv444p"), ("nut", "negotiate=1"),
+                                      ("mkv", None), ("nut", None)])
+def test_nut_and_mkv_targets_match_jax(ext, opts, tmp_path, monkeypatch):
+    """A 2x pan of 6 frames to NUT and Matroska with the codec options
+    ``--ff-opts`` carries: decoded within the fvid tests' 2e-6 where the
+    frames are float, one 8-bit level on < 0.5 % where they are 8-bit,
+    and one level where 16-bit FFV1 stores float frames."""
+    import shutil
+
+    from tests.test_torch_scan_cli import _decoded_close
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)  # the JAX package's native Matroska
+    flags = ["-s", "2", "-v", "20x16", "-n", "6", "-x", "2*i", "-q"] + (
+        ["--ff-opts", opts] if opts else [])
+    jout, tout = _run_both(tmp_path, flags, _png(tmp_path), ext)
+    _decoded_close(jout, tout, 2e-6, share=0.005 if opts == "pixel_format=yuv444p" else None)
