@@ -150,15 +150,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    within six standard deviations of the split's rounding model,
    computed from the run's spectrum.  (d) ``--showsamples=grid``, ``--basis
    native`` and ``--basis centered`` at 320x240 against the oracle;
-11. main path 7, the basis tools in process on a seeded 256x256 8-bit RGB
+11. main path 7, the basis tools in process on a seeded 128x128 8-bit RGB
    PNG.  The values each applybasis run computes (complex64 at the
    default policy) are held to 1e-5 of their largest |value| against a
    float64 oracle on the card whose bases are closed-form cosines and
    exponentials written here, and each PNG to one level of the same run
    at ``f64`` (the share off by one printed).  (a) ``-f DCT2 -u 16x16``
-   (values [256, 256, 16, 16, 3], a 4353x4353 RGBA frame); (b)
-   ``-fDCT2 -u 256x256 -d full.coeff``, then ``-f DCT3 -I`` from the dump
-   at ``-u 256x256`` (the full reconstruction, within one level of the
+   (values [128, 128, 16, 16, 3], a 2177x2177 RGBA frame); (b)
+   ``-fDCT2 -u 128x128 -d full.coeff``, then ``-f DCT3 -I`` from the dump
+   at ``-u 128x128`` (the full reconstruction, within one level of the
    input; its max and rms distance printed) and at ``-u 16x16`` (each
    tile one coefficient block's contribution); (c) ``-f DFT -P magnitude
    -R linearlog -N hue -g --bg '#204080' -u 8x8`` on a 128x128 crop; (d)
@@ -173,9 +173,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    left form with one column (R=1) beside the right form, and the two
    forms of the W contraction bit-equal with their times.  Prints seconds
    by stage and the peak device memory of every run;
-12. main path 8, ``rotate`` and ``transcode`` (host work) on phase 6's
-   48-frame 1920x1080 yuv420p clip: ``rotate y-xz`` (90 degrees ccw) and
-   ``rotate zyx`` (1920 frames of 48x1080) to y4m, every pel equal to a
+12. main path 8, ``rotate`` and ``transcode`` (host work) on the first 8
+   frames of phase 6's 1920x1080 yuv420p clip:
+   ``rotate y-xz`` (90 degrees ccw) and ``rotate zyx`` (1920 frames of
+   8x1080) to y4m, every pel equal to a
    numpy index-map oracle of the reference's loop (rotate.c:159-172) on
    the decoded clip; ``transcode`` y4m -> fvid -> y4m, byte-equal to the
    clip.  Prints the seconds of each;
@@ -199,7 +200,34 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    stage against y4m's, and the read through ``NativeBackedReader``
    against the Python reader's.  (d) ``--resume-file``: the lowpass to
    ``.nut`` cut after one slab and finished by a rerun with the same
-   flags, equal to the uninterrupted run's frames.
+   flags, equal to the uninterrupted run's frames;
+14. main path 10, the device mesh (``dspfun_tpu_torch/parallel``), kept
+   under 120 s.  (d) Each kernel against its plain version at one rank's
+   shard shape at two ranks (spec's W and H contractions, motion's luma
+   pair, zoom's 4-digit pair, the block filter at NB=4020), with times,
+   bounds and library yardsticks.  (a) Ranks that share the card over
+   gloo (``RankPool(["cuda:0"] * n, "gloo")``, spawned after the build),
+   2 and then 4 of them, each driving at full width: ``spec -t flat``
+   forward and inverse of 3840x2160 RGB at ``i8@1e-5`` (and, on 2 ranks,
+   at the default policy) over 'space'; motion's volume route (``-b 0x0x0``, a
+   lowpass box boosted, the rest damped, the DC kept) on phase 6's 1080p
+   4:2:0 clip over 'space' (2 ranks) and space=2,time=2 (4); motion's
+   block route (phase 6's lowpass) over 'space'; scan's 256x256 zigzag
+   ``-S 16`` (128 frames) at ``i8@1e-5``; zoom's 4x ``-g`` still of 1080p
+   at deep ``i8``.  Each runs twice (the first builds plans) and the
+   second is measured with the counts at 0 (kernel launches summed over
+   the ranks and returned to the parent; collectives synchronised so
+   their seconds are their own): seconds by stage, the collectives'
+   share of the wall, peak device memory per rank; then every rank
+   gathers and rank 0 holds the output to the single-device port on the
+   card (timed) with the JAX package's own mesh tolerances: the block
+   route bit-equal, spec 3e-5 forward and 1e-4 inverse (DC 1e-6), scan
+   1e-4 with equal parity, zoom 2e-5, the volume 1e-5 of the pel range.
+   (b) Every case once more over nccl at world size 1 on small inputs,
+   once each (each collective valid for NCCL; no times).  (c) With one card, ``motion --mesh
+   2`` and ``spec -M 2`` exit 1 (a mesh takes a card per rank); with more,
+   both run over nccl and equal one card's output.  Every kernel of the
+   path must launch on some rank;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -456,14 +484,17 @@ def _lowpass_box(dims, box, boost) -> np.ndarray:
     return m
 
 
-def _check_block_filter(torch, dev, block_filter, fft) -> dict:
+BF_SHAPES = (("chroma 1080p", MOTION_NB, (16, 8, 8)),
+             ("threshold 1080p luma 8^3", 32400, (8, 8, 8)),
+             ("ragged", 37, (8, 5, 5)))
+
+
+def _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES) -> dict:
     """Kernel #3 against its plain version at three shapes, and against
     scipy float64 on the linear chroma shape.  Returns its JSON stats."""
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ms_by_shape": {}}
-    for label, nb, dims in (("chroma 1080p", MOTION_NB, (16, 8, 8)),
-                            ("threshold 1080p luma 8^3", 32400, (8, 8, 8)),
-                            ("ragged", 37, (8, 5, 5))):
+    for label, nb, dims in shapes:
         v = int(np.prod(dims))
         uf = _uniform_factor(*dims)
         filt = uf * _lowpass_box(dims, (4, 4, 4), 1.25) if label.startswith("chroma") else uf
@@ -546,18 +577,20 @@ def _check_block_filter(torch, dev, block_filter, fft) -> dict:
     return out
 
 
-def _write_clip(video, path: str) -> list:
-    """A seeded MWxMH yuv420p y4m clip of MFRAMES frames (smooth moving
-    content plus noise), written with the port's Y4MWriter.  Returns the
-    planes as [MFRAMES, h, w] uint8 arrays."""
+def _write_clip(video, path: str | None, frames: int | None = None) -> list:
+    """A seeded MWxMH yuv420p y4m clip of MFRAMES frames (or its first
+    ``frames``; smooth moving content plus noise), written with the
+    port's Y4MWriter (unless ``path`` is None).  Returns the planes as
+    [frames, h, w] uint8 arrays."""
     rng = np.random.default_rng(0)
     pf = video.PIXEL_FORMATS["yuv420p"]
     dims = pf.plane_dims(MW, MH)
-    planes = [np.empty((MFRAMES, h, w), np.uint8) for w, h in dims]
-    writer = video.open_output(path, MW, MH, Fraction(25, 1),
-                               video.ColorProps(pix_fmt="yuv420p"))
+    nframes = MFRAMES if frames is None else frames
+    planes = [np.empty((nframes, h, w), np.uint8) for w, h in dims]
+    writer = (contextlib.nullcontext() if path is None else
+              video.open_output(path, MW, MH, Fraction(25, 1), video.ColorProps(pix_fmt="yuv420p")))
     with writer:
-        for t in range(MFRAMES):
+        for t in range(nframes):
             frame = []
             for i, (w, h) in enumerate(dims):
                 sx = np.sin(np.arange(w) / (23.0 + 4 * i) + t / 7.0)
@@ -566,7 +599,8 @@ def _write_clip(video, path: str) -> list:
                     + 8.0 * rng.standard_normal((h, w), dtype=np.float32)
                 planes[i][t] = np.clip(np.rint(p), 0, 255)
                 frame.append(planes[i][t])
-            writer.write_frame(frame, raw=True)
+            if path is not None:
+                writer.write_frame(frame, raw=True)
     return planes
 
 
@@ -1581,7 +1615,8 @@ def _zoom_phase(torch, dev, plain_versions, int8mm, check_i8mm, hw=ZOOM_HW, scal
 # phases 11 and 12: the basis tools, rotate and transcode
 # ---------------------------------------------------------------------------
 
-BASIS_HW = (256, 256)             # applybasis (a)-(b): a 256x256 image, -u 16x16
+BASIS_HW = (128, 128)             # applybasis (a)-(b): a 128x128 image, -u 16x16 (at
+                                  # 256x256 each run spent 15 s in the PNG encoder)
 BASIS_CROP = 128                  # (c): the DFT on a 128x128 crop
 GENBASIS_SIZE = 64                # (d)
 DRAW_HW = (2160, 3840)            # (e): draw -b 3840x2160
@@ -1864,17 +1899,22 @@ def _rotate_oracle_frame(vol, axmap, inv, t):
     return vol[idx[2], idx[1], idx[0]]
 
 
-def _rotate_phase(torch, int8mm) -> None:
-    """Main path 8: rotate and transcode on phase 6's 1080p 4:2:0 clip
-    (host work in both packages: no kernel may launch)."""
+ROTATE_FRAMES = 8                 # phase 12's depth: the first 8 frames of phase 6's
+                                  # clip (all 48 took 66 s of host work)
+
+
+def _rotate_phase(torch, int8mm, nframes=ROTATE_FRAMES) -> None:
+    """Main path 8: rotate and transcode on the first ``nframes`` frames of
+    phase 6's 1080p 4:2:0 clip (host work in both packages: no kernel may
+    launch)."""
     from dspfun_tpu_torch.io import video
     from dspfun_tpu_torch.tools import rotate, transcode
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rotate_") as tmp:
         clip = os.path.join(tmp, "clip.y4m")
-        _write_clip(video, clip)
+        _write_clip(video, clip, nframes)
         r = video.open_input(clip)
-        vol = np.stack([r.read_frame_rgb() for _ in range(MFRAMES)])    # the clip as decoded RGB
+        vol = np.stack([r.read_frame_rgb() for _ in range(nframes)])   # the clip as decoded RGB
         r.close()
         for spec, (axmap, inv) in ROTATIONS.items():
             out = os.path.join(tmp, f"rot_{spec}.y4m")
@@ -1889,7 +1929,7 @@ def _rotate_phase(torch, int8mm) -> None:
                         raise RuntimeError(f"rotate {spec}: frame {t} plane {i} is off the index map")
                 t += 1
             r.close()
-            print(f"rotate {spec} of {MW}x{MH} yuv420p, {MFRAMES} frames: {frames} frames of "
+            print(f"rotate {spec} of {MW}x{MH} yuv420p, {len(vol)} frames: {frames} frames of "
                   f"{r.width}x{r.height} {pf.name} in {wall:.3f} s; stages (s) {_stages(st)}; "
                   f"every pel equal to the index-map oracle", flush=True)
             if t != frames or frames != vol.shape[[2, 1, 0][axmap[2]]] or got:
@@ -2167,6 +2207,461 @@ def _eval_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, ff
     return launches
 
 
+# phase 14: the device mesh (ranks over torch.distributed) -------------------
+MESH_RANKS = (2, 4)               # ranks that share the card, over gloo
+MESH_SCAN = dict(hw=(256, 256), step=16, frames=128)
+MESH_ZOOM_SCALE = 4
+# motion's volume route: the whole clip as one block, a quarter lowpass
+# box boosted, the rest damped, the DC kept (filter_blocks' general chain
+# on the single device too)
+MESH_VOLUME = dict(bp_end=(480, 270, 12), boost=1.25, damp=0.5, preserve_dc="dc")
+# the JAX package's own mesh tolerances (tests/test_spec_sharded.py,
+# tests/test_mesh_cli.py): spec forward 3e-5 and inverse 1e-4, scan 1e-5
+# (1e-4 on i8 plans), zoom 2e-5, the volume 1e-5 of the pel range; the
+# block route bit-equal
+MESH_TOL = {"spec_forward": 3e-5, "spec_inverse": 1e-4, "scan": 1e-4, "zoom": 2e-5,
+            "volume": 1e-5 * 255.0, "blocks": 0.0}
+MESH_BUDGET_S = 120.0
+
+
+def _mesh_rank_begin(torch, dev):
+    """Per-task state of a rank: counts at zero, peak memory reset."""
+    from dspfun_tpu_torch.ops import block_filter, int8mm
+    from dspfun_tpu_torch.parallel import mesh as pm
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    int8mm.LAUNCHES.clear()
+    block_filter.LAUNCHES.clear()
+    pm.COUNTS.clear()
+    pm.SECONDS.clear()
+
+
+def _mesh_rank_end(torch, dev, t0, stages):
+    """What every rank returns: its launches, collectives, seconds by
+    stage, wall, collective seconds and peak device memory."""
+    from dspfun_tpu_torch.ops import block_filter, int8mm
+    from dspfun_tpu_torch.parallel import mesh as pm
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {n: c for n, c in {**int8mm.LAUNCHES, **block_filter.LAUNCHES}.items() if c}
+    return {"launches": launches, "collectives": dict(pm.COUNTS), "stages": stages,
+            "wall_s": time.perf_counter() - t0, "collective_s": float(sum(pm.SECONDS.values())),
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                         if dev.type == "cuda" else None)}
+
+
+def _mesh_timed(torch, dev, stages, name, fn):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def _mesh_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def _mesh_run(mesh, case, inputs, policy, small):
+    """A rank's task: one tool's sharded function, twice (the first call
+    builds its plans), the second with the counts at zero, its stages
+    timed and the collectives synchronised; then every rank gathers the
+    output and rank 0 holds it to the single-device port on the same
+    device.  Returns the readings (rank 0: with the errors); the case
+    function runs the path and returns the check that gathers and
+    compares, which the readings leave out."""
+    import torch
+
+    from dspfun_tpu_torch.core.precision import Precision
+    from dspfun_tpu_torch.parallel import mesh as pm
+
+    dev = mesh.device
+    p = Precision() if policy is None else Precision.parse(policy)
+    fn = {"spec": _mesh_spec, "volume": _mesh_volume, "blocks": _mesh_blocks,
+          "scan": _mesh_scan, "zoom": _mesh_zoom}[case]
+    if not small:                      # the small inputs of (b) check wiring, not times
+        fn(torch, mesh, dev, inputs, p, small, None)        # cold: plans, caches
+    _mesh_rank_begin(torch, dev)
+    pm.SYNC_TIMING = True
+    stages: dict = {}
+    t0 = time.perf_counter()
+    try:
+        check = fn(torch, mesh, dev, inputs, p, small, stages)
+    finally:
+        pm.SYNC_TIMING = False
+    res = _mesh_rank_end(torch, dev, t0, stages)
+    res["errors"] = check()
+    return res
+
+
+def _mesh_inputs(inputs, small):
+    img = np.load(inputs["image"], mmap_mode="r")
+    planes = [np.load(path, mmap_mode="r") for path in inputs["planes"]]
+    if small:
+        img = img[:256, :384]
+        planes = [pl[:16, : 144 >> (i > 0), : 256 >> (i > 0)] for i, pl in enumerate(planes)]
+    return np.array(img), [np.array(pl) for pl in planes]
+
+
+def _mesh_spec(torch, mesh, dev, inputs, p, small, stages):
+    """spec -t flat forward then inverse over 'space' (rows, then columns)."""
+    from dspfun_tpu_torch.models.spec_pipeline import SpecChainParams, spec_forward, spec_inverse
+    from dspfun_tpu_torch.parallel import spec_sharded as ss
+
+    img, _ = _mesh_inputs(inputs, small)
+    x = torch.from_numpy(img).to(dev)
+    params = SpecChainParams.template("flat")
+    st = {} if stages is None else stages
+    xs = ss.image_sharding(mesh)(x)
+    f, dc = _mesh_timed(torch, dev, st, "forward",
+                        lambda: ss.spec_forward_sharded(xs, params, mesh, p))
+    y = _mesh_timed(torch, dev, st, "inverse",
+                    lambda: ss.spec_inverse_sharded(f, params, mesh, dc=dc, precision=p))
+
+    def check():
+        f_all = ss.spectrum_sharding(mesh).gather(f)
+        y_all = ss.image_sharding(mesh).gather(y)
+        if mesh.rank:
+            return None
+        t1 = {}
+        rf, rdc = _mesh_timed(torch, dev, t1, "s", lambda: spec_forward(x, params, p))
+        ry = _mesh_timed(torch, dev, t1, "s", lambda: spec_inverse(rf, params, dc=rdc,
+                                                                     precision=p))
+        return {"spec_forward": _mesh_err(f_all, rf), "dc": _mesh_err(dc, rdc),
+                "spec_inverse": _mesh_err(y_all, ry), "round_trip": _mesh_err(y_all, x),
+                "one_device_s": t1["s"]}
+    return check
+
+
+def _mesh_geoms(mp, planes, block, bp_end):
+    t, h, w = planes[0].shape
+    return mp.plan_geometry(w, h, t, 3, 1, 1, block=mp.Dims(*block), bp_end=mp.Dims(*bp_end))
+
+
+def _mesh_volume(torch, mesh, dev, inputs, p, small, stages):
+    """motion's whole-clip volume chain (-b 0x0x0) on every plane."""
+    from dspfun_tpu_torch.models import motion_pipeline as mp
+    from dspfun_tpu_torch.parallel import motion_sharded as msh
+
+    _, planes = _mesh_inputs(inputs, small)
+    bp = MESH_VOLUME["bp_end"]
+    if small:
+        bp = (bp[0] * 256 // MW, bp[1] * 144 // MH, 4)
+    geoms = _mesh_geoms(mp, planes, (0, 0, 0), bp)
+    params = mp.MotionParams(boost=MESH_VOLUME["boost"], damp=MESH_VOLUME["damp"],
+                             preserve_dc=MESH_VOLUME["preserve_dc"], float_pixels=True)
+    vs = msh.volume_sharding(mesh)
+    st = {} if stages is None else stages
+    outs = []
+    for i, g in enumerate(geoms):
+        shard = torch.from_numpy(np.ascontiguousarray(vs(planes[i]))).to(dev)
+        out, _ = _mesh_timed(torch, dev, st, f"plane{i}", lambda: msh.motion_filter_volume_sharded(
+            shard, mesh, geom=g, params=params, plane_index=i, nplanes=3, precision=p))
+        outs.append(out)
+
+    def check():
+        full = [vs.gather(o) for o in outs]
+        if mesh.rank:
+            return None
+        err, t1 = 0.0, {}
+        for i, g in enumerate(geoms):
+            vol = torch.from_numpy(planes[i]).to(dev)[None]
+            plans = mp.make_plans(g, p, dev)
+            ref, _ = _mesh_timed(torch, dev, t1, "s", lambda: mp.filter_blocks(
+                vol, plans, None, 0, geom=g, params=params, plane_index=i, nplanes=3))
+            err = max(err, _mesh_err(full[i], ref[0]))
+            del ref
+        return {"volume": err, "one_device_s": t1["s"]}
+    return check
+
+
+def _mesh_blocks(torch, mesh, dev, inputs, p, small, stages):
+    """motion's block route (phase 6's lowpass), slab by slab over 'space'."""
+    from dspfun_tpu_torch.models import motion_pipeline as mp
+    from dspfun_tpu_torch.parallel.sharded import shard_blocks_filter
+
+    _, planes = _mesh_inputs(inputs, small)
+    geoms = _mesh_geoms(mp, planes, (16, 16, 16), (8, 8, 4))
+    params = mp.MotionParams(boost=1.25, damp=0.0, float_pixels=False)
+    plans = [(*mp.make_plans(g, p, dev), mp.maybe_kron_plans(g, params, device=dev))
+             for g in geoms]
+    st = {} if stages is None else stages
+    outs = []
+    for bz in range(planes[0].shape[0] // 16):
+        for i, g in enumerate(geoms):
+            blocks = mp.frames_to_blocks(
+                torch.from_numpy(planes[i][16 * bz:16 * (bz + 1)]).to(dev), g).contiguous()
+            out, _ = _mesh_timed(torch, dev, st, f"plane{i}", lambda: shard_blocks_filter(
+                blocks, plans[i], None, bz, mesh, geom=g, params=params, plane_index=i,
+                nplanes=3))
+            outs.append((out, blocks, i, bz))
+
+    def check():
+        if mesh.rank:
+            return None
+        err, t1 = 0.0, {}
+        for out, blocks, i, bz in outs:
+            ref, _ = _mesh_timed(torch, dev, t1, "s", lambda: mp.filter_blocks(
+                blocks, plans[i], None, bz, geom=geoms[i], params=params, plane_index=i,
+                nplanes=3))
+            err = max(err, _mesh_err(out, ref))
+        return {"blocks": err, "one_device_s": t1["s"]}
+    return check
+
+
+def _mesh_scan(torch, mesh, dev, inputs, p, small, stages):
+    """scan's 256x256 zigzag chunks with parity, rows over 'space'."""
+    from dspfun_tpu_torch.models import scan_pipeline as sp
+    from dspfun_tpu_torch.ops import scan_methods as sm
+
+    img, _ = _mesh_inputs(inputs, False)
+    h, w = MESH_SCAN["hw"]
+    x = np.ascontiguousarray(img[:h, :w]).astype(np.float64)
+    order = sm.get_method("zigzag").build(w, h)
+    coeffs = sp.forward_coeffs(x, p, dev)
+    plan = sp.plan_scan(order, w, h, 3, step=MESH_SCAN["step"], nframes=MESH_SCAN["frames"],
+                        chunk=32, precision=p, device=dev)
+
+    def collect(mesh_arg):
+        sums, parity = [], []
+        for _, res in sp.scan_chunks(plan, coeffs, orig=x, parity_depth=8, mesh=mesh_arg):
+            sums.append(res.sums)
+            parity.append(res.parity)
+        return np.concatenate(sums), np.concatenate(parity)
+
+    st = {} if stages is None else stages
+    got, parity = _mesh_timed(torch, dev, st, "chunks", lambda: collect(mesh))
+
+    def check():
+        if mesh.rank:
+            return None
+        t1 = {}
+        ref, rparity = _mesh_timed(torch, dev, t1, "s", lambda: collect(None))
+        return {"scan": float(np.max(np.abs(got - ref))),
+                "parity_equal": bool(np.array_equal(parity, rparity)), "one_device_s": t1["s"]}
+    return check
+
+
+def _mesh_zoom(torch, mesh, dev, inputs, p, small, stages):
+    """zoom's 4x still of 1080p (-g), the planned route, rows over 'space'."""
+    from dspfun_tpu_torch.models import zoom_pipeline as zp
+
+    img, _ = _mesh_inputs(inputs, False)
+    h, w = (270, 480) if small else (MH, MW)
+    x = np.ascontiguousarray(img[:h, :w]).astype(np.float64)
+    spec = zp.forward_spectrum(x, p, dev)
+    s = MESH_ZOOM_SCALE
+    args = ("interpolated", (s, 1.0), (s, 1.0), 0.0, 0.0, w * s, h * s)
+    st = {} if stages is None else stages
+    out = _mesh_timed(torch, dev, st, "frame", lambda: zp.zoom_frame(
+        spec, *args, precision=p, encode_trc=True, mesh=mesh))
+
+    def check():
+        if mesh.rank:
+            return None
+        t1 = {}
+        ref = _mesh_timed(torch, dev, t1, "s", lambda: zp.zoom_frame(
+            spec, *args, precision=p, encode_trc=True))
+        return {"zoom": _mesh_err(out, ref), "one_device_s": t1["s"]}
+    return check
+
+
+# one rank's shard of each kernel's contraction on the mesh path at two
+# ranks: (digits, layout, M, K, B, R, what)
+MESH_SHARD_SHAPES = [
+    (3, "right", W, W, 1, C * H // 2, "spec W shard"),
+    (3, "left", H, H, C, W // 2, "spec H shard"),
+    (3, "right", 256, 4096, 1, MOTION_NB // 2, "motion fwd shard"),
+    (3, "right", 4096, 256, 1, MOTION_NB // 2, "motion inv shard"),
+    (4, "left", 2 * MH, MH, C, MW, "zoom H shard"),
+    (4, "right", 4 * MW, MW, 1, C * 2 * MH, "zoom W shard"),
+]
+
+
+def _mesh_main(torch, dev, check_i8mm, block_filter, fft) -> dict:
+    """Phase 14: (d) the kernels against their plain versions at one
+    rank's shard shapes, (a)-(b) the sharded paths on ranks that share the
+    card and over nccl, (c) the CLIs' mesh on this machine's cards."""
+    from dspfun_tpu_torch.io import images, video
+
+    t0 = time.perf_counter()
+    stats: dict = {}
+    for nd, layout, m, k, b, r, what in MESH_SHARD_SHAPES:
+        res = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                       check_i8mm(nd, layout, m, k, b, r, what)))
+        stats.setdefault(f"{layout}{nd}", {})[what] = res
+    torch.cuda.empty_cache()
+    stats["block_filter"] = _check_block_filter(
+        torch, dev, block_filter, fft,
+        shapes=(("chroma 1080p shard", MOTION_NB // 2, (16, 8, 8)),))
+    stats["block_filter"].pop("ms_by_shape", None)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        # the clip as a file only where (c) runs the CLIs on it (two cards)
+        clip = os.path.join(tmp, "clip.y4m")
+        planes = _write_clip(video, clip if torch.cuda.device_count() > 1 else None)
+        rng = np.random.default_rng(14)
+        yy, xx = np.mgrid[0:H, 0:W] / float(max(H, W))
+        img = np.stack([0.5 + 0.3 * np.sin(9 * xx + c) * np.cos(7 * yy - c) for c in range(C)], -1)
+        img = (img + 0.05 * rng.standard_normal(img.shape)).astype(np.float32)
+        inputs = {"image": os.path.join(tmp, "image.npy"),
+                  "planes": [os.path.join(tmp, f"plane{i}.npy") for i in range(3)]}
+        np.save(inputs["image"], img)
+        for path, pl in zip(inputs["planes"], planes):
+            np.save(path, pl)
+        del img, planes
+        print(f"phase 14 inputs and shard-shape kernel checks: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        out = _mesh_phase(torch, dev, inputs)
+        png = os.path.join(tmp, "small.png")
+        images.write_image(png, rng.random((64, 96, 3)))
+        _mesh_cli_phase(torch, video, images, clip, png)
+    wall = time.perf_counter() - t0
+    note = "" if wall <= MESH_BUDGET_S else f" (over the {MESH_BUDGET_S:.0f} s budget)"
+    print(f"phase 14 {wall:.1f} s{note}", flush=True)
+    need = [f"{layout}{nd}" for nd, layout, *_ in MESH_SHARD_SHAPES] + ["block_filter"]
+    missing = [n for n in need if not out["launches"].get(n)]
+    if missing:
+        raise RuntimeError(f"mesh path: kernels {missing} never launched on a rank")
+    out["shard_stats"] = {n: st for n, st in stats.items()}
+    return out
+
+
+MESH_CASES = [  # (case, policy, what it runs, at how many ranks)
+    ("spec", None, "spec -t flat 3840x2160 RGB, default policy (exact)", (1, 2)),
+    ("spec", "i8@1e-5", "spec -t flat 3840x2160 RGB at i8@1e-5", (1, 2, 4)),
+    ("volume", None, "motion -b 0x0x0 on the 1080p 4:2:0 clip, 48 frames", (1, 2, 4)),
+    ("blocks", None, "motion -b 16x16x16 lowpass on the 1080p 4:2:0 clip", (1, 2, 4)),
+    ("scan", "i8@1e-5", "scan 256x256 zigzag -S 16, 128 frames, at i8@1e-5", (1, 2, 4)),
+    ("zoom", "i8", "zoom -s 4 -g still of 1080p, deep i8 (the card's default)", (1, 2, 4)),
+]
+
+
+def _mesh_meshes(pool, ranks):
+    """The meshes of each case at ``ranks`` ranks: the volume over
+    space=2,time=2 at four ranks, everything else over 'space'."""
+    return {case: (pool.mesh(space=ranks // 2, time=2) if case == "volume" and ranks == 4
+                   else pool.mesh(space=ranks)) for case, *_ in MESH_CASES}
+
+
+def _mesh_phase(torch, dev, inputs, devices=None, ranks=MESH_RANKS, small=False) -> dict:
+    """Main path 10 on the card: each case on ``ranks`` ranks that share
+    ``dev`` over gloo, then once over nccl at world size 1; launches
+    summed over the ranks of the measured runs."""
+    from dspfun_tpu_torch.parallel.mesh import RankPool
+
+    t_phase = time.perf_counter()
+    dev_name = str(dev) if devices is None else devices
+    total: dict = {}
+    readings = {}
+    for n in ranks:
+        t0 = time.perf_counter()
+        with RankPool([dev_name] * n, "gloo", timeout_s=120.0) as pool:
+            start_s = time.perf_counter() - t0
+            meshes = _mesh_meshes(pool, n)
+            for case, policy, what, at in MESH_CASES:
+                if n not in at:
+                    continue
+                res = pool.run(_mesh_run, meshes[case], case, inputs, policy, small)
+                _mesh_report(res, case, policy, what, meshes[case], n, "gloo", readings, total)
+        print(f"phase 14: {n} ranks over gloo, pool start {start_s:.1f} s, "
+              f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    # (b) every collective once over nccl at world size 1 (contiguity,
+    # dtypes, the split sizes of all_to_all_single), small inputs
+    t0 = time.perf_counter()
+    nccl = {}
+    if devices is None:
+        with RankPool([str(dev)], "nccl", timeout_s=120.0) as pool:
+            mesh = pool.mesh(space=1)
+            for case, policy, what, _ in MESH_CASES:
+                res = pool.run(_mesh_run, mesh, case, inputs, policy, True)
+                nccl[case] = _mesh_report(res, case, policy, what, mesh, 1, "nccl", {}, {})
+        print(f"phase 14 (b): every case over nccl at world size 1 in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 14 launches (measured runs, summed over ranks): {json.dumps(total)}; "
+          f"{wall:.1f} s", flush=True)
+    return {"launches": total, "readings": readings, "seconds": wall}
+
+
+def _mesh_report(res, case, policy, what, mesh, n, backend, readings, total):
+    """Print one case's readings and hold its errors to MESH_TOL."""
+    errs = res[0]["errors"]
+    bad = [k for k, tol in MESH_TOL.items() if k in errs and not errs[k] <= tol]
+    if case == "spec":
+        bad += [] if errs["dc"] <= 1e-6 else ["dc"]
+    if case == "scan" and not errs["parity_equal"]:
+        bad.append("parity")
+    launches: dict = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+            total[k] = total.get(k, 0) + v
+    wall = max(r["wall_s"] for r in res)
+    coll = max(r["collective_s"] for r in res)
+    peak = [None if r["peak_mib"] is None else round(r["peak_mib"], 1) for r in res]
+    stages = {k: round(max(r["stages"].get(k, 0.0) for r in res), 4) for k in res[0]["stages"]}
+    label = f"{case}{'' if policy is None else ' ' + policy}"
+    print(f"mesh {label} on {n} rank(s) {mesh.shape} over {backend} ({what}): errors vs one "
+          f"device {json.dumps({k: (round(v, 9) if isinstance(v, float) else v) for k, v in errs.items()})}; "
+          f"launches {json.dumps(launches)}; collectives {json.dumps(res[0]['collectives'])}; "
+          f"wall {wall:.4f} s, collectives {coll:.4f} s ({100 * coll / wall:.1f} % of the wall), "
+          f"stages {json.dumps(stages)}; peak MiB per rank {peak}", flush=True)
+    if bad:
+        raise RuntimeError(f"mesh {label} on {n} ranks over {backend}: {bad} out of "
+                           f"tolerance: {errs}")
+    readings[f"{label} x{n}"] = {"wall_s": wall, "collective_s": coll, "stages": stages,
+                                 "peak_mib": peak, "launches": launches}
+    return readings.get(f"{label} x{n}")
+
+
+def _mesh_cli_phase(torch, video, images, clip, png) -> None:
+    """(c) The CLIs over nccl with one rank per card: with one card a
+    mesh of two is refused (exit 1); with more, motion --mesh space=2 and
+    spec -M 2 run and equal one device's output."""
+    from dspfun_tpu_torch.tools import motion, spec
+
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_cli_") as tmp:
+        one_m, mesh_m = os.path.join(tmp, "one.y4m"), os.path.join(tmp, "mesh.y4m")
+        one_s, mesh_s = os.path.join(tmp, "one.png"), os.path.join(tmp, "mesh.png")
+        margs = MOTION_ARGS + [clip]
+        if n < 2:
+            for mod, args in ((motion, margs + ["--mesh", "2", mesh_m]),
+                              (spec, ["-M", "2", png, mesh_s])):
+                rc = mod.main(args)
+                print(f"{mod.__name__.rsplit('.', 1)[-1]} --mesh 2 on one card: exit {rc}",
+                      flush=True)
+                if rc != 1 or os.path.exists(mesh_m) or os.path.exists(mesh_s):
+                    raise RuntimeError("a mesh of two on one card was not refused")
+            return
+        for mod, one, mesh, args, margs_ in ((motion, one_m, mesh_m, margs, ["--mesh", "space=2"]),
+                                             (spec, one_s, mesh_s, [png], ["-M", "2"])):
+            t0 = time.perf_counter()
+            if mod.main(args + [one]) != 0:
+                raise RuntimeError(f"{mod.__name__} on one card failed")
+            t1 = time.perf_counter()
+            if mod.main(margs_ + args + [mesh]) != 0:
+                raise RuntimeError(f"{mod.__name__} {margs_} over nccl failed")
+            t2 = time.perf_counter()
+            if mod is motion:
+                same = open(one, "rb").read() == open(mesh, "rb").read()
+            else:
+                a, b = images.read_image(one).pixels, images.read_image(mesh).pixels
+                same = float(np.max(np.abs(a - b))) <= 2.0 / 65535
+            print(f"{mod.__name__.rsplit('.', 1)[-1]} {' '.join(margs_)} over nccl on 2 cards: "
+                  f"{t2 - t1:.3f} s against {t1 - t0:.3f} s on one; output equal: {same}",
+                  flush=True)
+            if not same:
+                raise RuntimeError(f"{mod.__name__} over nccl differs from one card")
+
+
 def main() -> int:
     import torch
 
@@ -2436,12 +2931,17 @@ def main() -> int:
     print(f"motion --eval / NUT / MKV main-path launches: {json.dumps(eval_cli)}; phase 13 "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 14: main path 10, the device mesh ---------------------------
+    torch.cuda.empty_cache()
+    mesh_path = _mesh_main(torch, dev, check_i8mm, block_filter, scipy.fft)
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
                              + calib["i8mm_launches"][n] + spec_cli[n]
                              + scan_cli["launches"].get(n, 0) + zoom_launches[n]
-                             + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)),
+                             + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)
+                             + mesh_path["launches"].get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -2449,7 +2949,8 @@ def main() -> int:
                                      "scan_cli": scan_cli["launches"].get(n, 0),
                                      "zoom_cli": zoom_launches[n],
                                      "draw_cli": basis_cli["launches"].get(n, 0),
-                                     "motion_eval": eval_cli.get(n, 0)},
+                                     "motion_eval": eval_cli.get(n, 0),
+                                     "mesh": mesh_path["launches"].get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -2468,12 +2969,20 @@ def main() -> int:
         kernels[list(REPLACES).index(n)].update(
             {f"draw_cli_{axis}_{key}": val for key, val in
              zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), res)})
+    for n, st in mesh_path["shard_stats"].items():
+        if n in REPLACES:
+            kernels[list(REPLACES).index(n)].update(
+                {f"mesh_shard_{key}": val for key, val in st.items()})
     kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
                     "replaces": BF_REPLACES,
-                    "launches": motion_launches["block_filter"] + eval_cli["block_filter"],
+                    "launches": (motion_launches["block_filter"] + eval_cli["block_filter"]
+                                 + mesh_path["launches"].get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
-                                         "motion_eval": eval_cli["block_filter"]},
-                    **bf_stats})
+                                         "motion_eval": eval_cli["block_filter"],
+                                         "mesh": mesh_path["launches"].get("block_filter", 0)},
+                    **bf_stats,
+                    **{f"mesh_shard_{key}": val for key, val in
+                       mesh_path["shard_stats"]["block_filter"].items()}})
     kernels += [{"name": f"i8split_{n}", "route": "cuda", "source": I8S_SRC,
                  "replaces": I8S_REPLACES[n], "launches": calib["launches"][n],
                  "launches_by_path": {"calibration": calib["launches"][n]},

@@ -53,6 +53,7 @@ __all__ = [
     "make_plans",
     "maybe_kron_plans",
     "filter_blocks",
+    "bandpass_mult_grid",
     "frames_to_blocks",
     "blocks_to_frames",
     "SPECTYPES",
@@ -263,6 +264,36 @@ def _bandpass_mult(g: PlaneGeometry, boost: float, damp: float) -> np.ndarray:
         mult = mult * np.where(f, damp, 1.0)
     inside = mid_z & mid_y & (x >= bb.w) & (x < be.w)
     return mult * np.where(inside, boost, 1.0)
+
+
+def bandpass_mult_grid(z, y, x, g: PlaneGeometry, boost: float, damp: float) -> torch.Tensor:
+    """:func:`_bandpass_mult` as float64 torch ops over broadcastable
+    coordinate tensors, on their device: the same values bit for bit
+    (the face products in the same order, each one IEEE multiply), at
+    any coordinates (the sharded volume path's global ones)."""
+    f64 = torch.float64
+    dev = x.device
+    one = torch.ones((), dtype=f64, device=dev)
+    dmp = torch.full((), damp, dtype=f64, device=dev)
+    bst = torch.full((), boost, dtype=f64, device=dev)
+    ad, ah, aw = g.active.d, g.active.h, g.active.w
+    bb, be = g.bp_begin, g.bp_end
+    act2 = (y < ah) & (x < aw)
+    mid_z = (z >= bb.d) & (z < be.d)
+    mid_y = (y >= bb.h) & (y < be.h)
+    faces = [
+        (z < bb.d) & act2,                                   # front
+        (z >= be.d) & (z < ad) & act2,                       # back
+        mid_z & (y < bb.h) & (x < aw),                       # top
+        mid_z & (y >= be.h) & (y < ah) & (x < aw),           # bottom
+        mid_z & mid_y & (x < bb.w),                          # left
+        mid_z & mid_y & (x >= be.w) & (x < aw),              # right
+    ]
+    mult = torch.ones(torch.broadcast_shapes(z.shape, y.shape, x.shape), dtype=f64, device=dev)
+    for f in faces:
+        mult = mult * torch.where(f, dmp, one)
+    inside = mid_z & mid_y & (x >= bb.w) & (x < be.w)
+    return mult * torch.where(inside, bst, one)
 
 
 def _bandpass_is_identity(g: PlaneGeometry, boost: float, damp: float) -> bool:
@@ -535,7 +566,11 @@ def filter_blocks(
 
     # --- bandpass (motion.c:683-719) -----------------------------------
     if not _bandpass_is_identity(g, p.boost, p.damp):
-        M = M * _const(_bandpass_mult(g, p.boost, p.damp), dtype, dev)
+        # built on the device from its three axes (a whole clip's
+        # float64 multiplier on the host took seconds)
+        ax = [torch.arange(n, device=dev) for n in (md, mh, mw)]
+        M = M * bandpass_mult_grid(ax[0][:, None, None], ax[1][None, :, None],
+                                   ax[2][None, None, :], g, p.boost, p.damp).to(dtype)
 
     # --- threshold (motion.c:721-728) ----------------------------------
     if p.threshold_max:

@@ -27,8 +27,10 @@ zeroed out of the coefficient source (scan/scan.c:444-445).
 
 Parity measurement (scan/scan.c:508-526) runs on the device per frame.
 
-Not ported: the row-sharded mesh path (``mesh=``, ``inter_mode="raw"``;
-ROADMAP queue 1, item 18).
+With ``mesh`` (inside a rank of ``parallel/mesh.py``) the output rows
+shard over the mesh's 'space' axis: the coefficient image is whole on
+every rank, each rank reconstructs its own rows, and the frames are
+gathered over 'space' before they leave the device.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ import torch
 
 from dspfun_tpu_torch.core import basis as basis_mod
 from dspfun_tpu_torch.core.precision import Precision, get_precision, true_div
-from dspfun_tpu_torch.core.transforms import apply_plan_nd, dct2_nd, plan_matrix
+from dspfun_tpu_torch.core.transforms import AxisPlan, apply_plan_nd, dct2_nd, plan_matrix
+from dspfun_tpu_torch.ops.int8mm import ceil_to
 from dspfun_tpu_torch.ops.scan_order import ScanOrder
 from dspfun_tpu_torch.utils.hostcopy import finish_copy, start_copy
 
@@ -234,11 +237,15 @@ def _scan_chunk(
     want_deltas: bool,
     measure_parity: bool,
     encode_trc: bool = False,
-    inter_mode: str | None = None,   # None | "unit" | "minmax"
+    inter_mode: str | None = None,   # None | "unit" | "minmax" | "raw"
+    grid_h: int | None = None,
 ):
     """One chunk of frames: returns (carry, display sums [F,H,W,C],
     deltas or None, intermediates pane or None, parity [F] or None), all
-    on ``carry``'s device."""
+    on ``carry``'s device.  ``carry`` may hold a shard's rows of a
+    ``grid_h``-row image (the plan of H then holds those rows only);
+    ``inter_mode="raw"`` returns the intermediates before normalisation
+    and encoding (the row-sharded minmax reduces its extrema first)."""
     h, w, c = carry.shape
     dev = carry.device
     ys, xs = _index(ys, dev), _index(xs, dev)
@@ -269,7 +276,7 @@ def _scan_chunk(
         # is zeroed in coeffs_nodc, so duplicate writes agree (index_put_
         # picks any of them on CUDA)
         fidx = torch.arange(f, device=dev)[:, None].expand_as(ys)
-        grid = torch.zeros((f, h, w, c), dtype=coeffs_nodc.dtype, device=dev)
+        grid = torch.zeros((f, grid_h or h, w, c), dtype=coeffs_nodc.dtype, device=dev)
         grid[fidx, ys, xs, :] = v
         delta = apply_plan_nd(grid, plans_inv, (1, 2))
 
@@ -302,10 +309,13 @@ def _scan_chunk(
             mx = torch.amax(flat, dim=1)
             rng = torch.where(mx - mn == 0, torch.ones_like(mx), mx - mn)
             inter = (base - mn[:, None, None, :]) / rng[:, None, None, :]
+        elif inter_mode == "raw":
+            return sums[-1].clone(), _enc(sums), (delta if want_deltas else None), \
+                base, parity
         elif inter_mode == "unit":  # fixed 0..1 window
             inter = base
         else:
-            raise ValueError(f"inter_mode {inter_mode!r}: None, 'unit' or 'minmax'")
+            raise ValueError(f"inter_mode {inter_mode!r}: None, 'unit', 'minmax' or 'raw'")
         inter = _enc(inter)
 
     return sums[-1].clone(), _enc(sums), (delta if want_deltas else None), \
@@ -322,6 +332,7 @@ def scan_chunks(
     inter_mode: str | None = None,
     packer=None,
     times: dict | None = None,
+    mesh=None,
 ):
     """Generator over chunks of frames, on ``coeffs``'s device.
 
@@ -341,6 +352,13 @@ def scan_chunks(
     ``dispatch`` (host seconds queueing), ``wait`` (host seconds blocked
     on copies) and, on a card, ``chunk_device_ms`` (a list, CUDA events
     around each chunk's compute and packing).
+
+    With ``mesh`` (called in every rank of it), output rows shard over
+    the mesh's 'space' axis, any height (the plan's rows zero-pad up to
+    the axis) and any ``inter_mode`` (minmax reduces its extrema over the
+    ranks): each rank reconstructs its own rows, and every result is
+    gathered over 'space', its padding rows dropped, before it is packed
+    or copied, so every rank yields the whole frames.
     """
     h, w, c = plan.height, plan.width, plan.channels
     dev = coeffs.device
@@ -352,6 +370,17 @@ def scan_chunks(
 
     # running sum starts as the DC everywhere (scan/scan.c:381-383)
     carry = dc.to(coeffs.dtype).expand(h, w, c).contiguous()
+    hl, r0 = h, 0
+    if mesh is not None:
+        from dspfun_tpu_torch.parallel.mesh import plan_row_spec  # noqa: PLC0415
+
+        hp = ceil_to(h, mesh.shape["space"])
+        hl = hp // mesh.shape["space"]
+        r0 = mesh.axis_index("space") * hl
+        plans_inv = (plan_row_spec(_pad_plan_rows(plans_inv[0], hp), mesh), plans_inv[1])
+        carry = _rows(carry, r0, hl)
+        if orig is not None:
+            orig = _rows(torch.from_numpy(np.asarray(orig)), r0, hl).numpy()
 
     # offset prefill: one dense IDCT over the filled coefficients
     # (reference scan.c:389-417)
@@ -384,8 +413,13 @@ def scan_chunks(
             plan.valid[start:end], plans_inv, orig_dev, dc,
             parity_scale=scale, use_pruned=plan.use_pruned,
             want_deltas=want_deltas, measure_parity=measure_parity,
-            encode_trc=encode_trc, inter_mode=inter_mode,
+            encode_trc=encode_trc,
+            inter_mode="raw" if mesh is not None and inter_mode == "minmax" else inter_mode,
+            grid_h=h if mesh is not None else None,
         )
+        if mesh is not None:
+            disp, deltas, inter, parity = _gather_rows(
+                mesh, disp, deltas, inter, parity, h, r0, inter_mode, encode_trc)
         packed = None
         if packer is not None:
             packed = packer(disp)
@@ -418,3 +452,64 @@ def scan_chunks(
         pending = nxt
     if pending is not None:
         yield materialise(*pending)
+
+
+def _rows(a: torch.Tensor, r0: int, n: int) -> torch.Tensor:
+    """Rows [r0, r0 + n) of ``a``, zero past its end (a shard's rows of
+    an image whose height pads up to the mesh)."""
+    out = a.new_zeros((n, *a.shape[1:]))
+    k = max(0, min(a.shape[0] - r0, n))
+    out[:k] = a[r0:r0 + k]
+    return out
+
+
+def _pad_plan_rows(plan: AxisPlan, rows: int) -> AxisPlan:
+    """Zero-pad an AxisPlan's OUTPUT rows to ``rows`` (row-sharded meshes
+    need the output axis divisible by the space axis; zero rows
+    synthesise zero output)."""
+    def pad(a, axis):
+        if a is None or a.ndim == 0 or a.shape[axis] >= rows:
+            return a
+        shape = list(a.shape)
+        shape[axis] = rows - a.shape[axis]
+        return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+    return AxisPlan(
+        hi=pad(plan.hi, 0),
+        lo=pad(plan.lo, 0),
+        digits=pad(plan.digits, 1),
+        # i8 plans carry a per-row [M, 1] scale; the zero pad value is
+        # irrelevant since padded digit rows are all-zero
+        scale=pad(plan.scale, 0) if plan.scale is not None and plan.scale.ndim == 2
+        else plan.scale,
+        rowsum=pad(plan.rowsum, 1),
+    )
+
+
+def _gather_rows(mesh, disp, deltas, inter, parity, h, r0, inter_mode, encode_trc):
+    """The row-sharded chunk's collectives: minmax intermediates take
+    their per-frame extrema over every rank's valid rows (padding rows
+    hold the DC, which must not reach the minimum), a frame's parity
+    holds when every rank's rows match, and the frames are gathered over
+    'space' with the padding rows dropped."""
+    from dspfun_tpu_torch.parallel.mesh import all_gather, pmax, pmin, psum  # noqa: PLC0415
+
+    if inter_mode == "minmax":
+        f, hl, w, c = inter.shape
+        valid = ((r0 + torch.arange(hl, device=inter.device)) < h)[None, :, None, None]
+        valid = valid.expand(inter.shape).reshape(f, -1, c)
+        flat = inter.reshape(f, -1, c)
+        inf = torch.full((), float("inf"), dtype=inter.dtype, device=inter.device)
+        mn = pmin(torch.amin(torch.where(valid, flat, inf), dim=1), mesh, "space")
+        mx = pmax(torch.amax(torch.where(valid, flat, -inf), dim=1), mesh, "space")
+        rng = torch.where(mx - mn == 0, torch.ones_like(mx), mx - mn)
+        inter = (inter - mn[:, None, None, :]) / rng[:, None, None, :]
+        if encode_trc:
+            from dspfun_tpu_torch.io.color import srgb_encode  # noqa: PLC0415
+
+            inter = srgb_encode(inter, torch)
+    if parity is not None:
+        parity = psum((~parity).to(torch.int32), mesh, "space") == 0
+    full = [None if a is None else all_gather(a, mesh, "space", 1)[:, :h]
+            for a in (disp, deltas, inter)]
+    return (*full, parity)

@@ -21,8 +21,13 @@ scale and offset with an implicit 1/2 weight on the DC column
   for animations; :func:`device_basis_accurate` says when that is
   accurate enough.
 
-Not ported: the row-sharded mesh paths (``zoom_frame_sharded``,
-``mesh=``; ROADMAP queue 1, item 18).
+Both take ``mesh=`` (inside a rank of ``parallel/mesh.py``): the output
+rows shard over the mesh's 'space' axis, the spectrum is whole on every
+rank, and each rank synthesises its own rows (the planned route from its
+rows of the Y plan, the device route from its own rows of the Y basis),
+with no collective but the one that gathers the frame.  Any view height
+works: rows pad up to the axis (the continuous basis extends past the
+view) and the extra rows are dropped after the gather.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from dspfun_tpu_torch.core import basis as basis_mod
 from dspfun_tpu_torch.core.precision import Precision, get_precision, true_div
 from dspfun_tpu_torch.core.transforms import apply_plan_nd, dct2_nd, plan_matrix
+from dspfun_tpu_torch.ops.int8mm import ceil_to
 from dspfun_tpu_torch.utils.hostcopy import upload_scalars
 
 __all__ = [
@@ -351,12 +357,16 @@ def zoom_frame_device(
     vh: int,
     encode_trc: bool = False,
     precision: Precision | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Fully device-side zoom frame on ``spectrum``'s device: the basis
     matrices are generated there from six scalars that go up in one
     queued copy (no host basis generation, no stall).  ``encode_trc``
     applies the sRGB OETF on the device (the -g output stage, reference
-    zoom.c:396-399)."""
+    zoom.c:396-399).  With ``mesh`` each rank builds its own rows of the
+    Y basis, their start an exact integer (the basis is affine in the
+    row index plus the offset, and integer starts stay out of the
+    float32 offset scalar), and the frame is gathered over 'space'."""
     p = precision or get_precision()
     h, w = spectrum.shape[:2]
     dtype = spectrum.dtype
@@ -364,8 +374,20 @@ def zoom_frame_device(
                        spectrum.device, dtype)
     sid = _SCALING_IDS[scaling_type]
     xb = _device_basis(sid, s[0], s[1], s[4], vw, w, dtype)
-    yb = _device_basis(sid, s[2], s[3], s[5], vh, h, dtype)
-    return _synth(spectrum, yb, xb, encode_trc, p)
+    if mesh is None:
+        yb = _device_basis(sid, s[2], s[3], s[5], vh, h, dtype)
+        return _synth(spectrum, yb, xb, encode_trc, p)
+    vhl = ceil_to(vh, mesh.shape["space"]) // mesh.shape["space"]
+    yb = _device_basis(sid, s[2], s[3], s[5], vhl, h, dtype,
+                       b0=mesh.axis_index("space") * vhl)
+    return _gather_rows(_synth(spectrum, yb, xb, encode_trc, p), mesh, vh)
+
+
+def _gather_rows(out: torch.Tensor, mesh, vh: int) -> torch.Tensor:
+    """The whole [vh, vw, C] frame from every rank's rows."""
+    from dspfun_tpu_torch.parallel.mesh import all_gather  # noqa: PLC0415
+
+    return all_gather(out, mesh, "space", 0)[:vh]
 
 
 def zoom_frame(
@@ -380,6 +402,7 @@ def zoom_frame(
     precision: Precision | None = None,
     encode_trc: bool = False,
     plans=None,
+    mesh=None,
 ) -> torch.Tensor:
     """One output frame [vh, vw, C] of the continuous zoom via the
     planned host-float64 basis (the accuracy path: basis exact, error =
@@ -387,12 +410,21 @@ def zoom_frame(
     ``spectrum``'s device.  Plans cache, so repeated frames at fixed
     (scale, offset, view) — stills and constant animations — cost just
     two contractions per dispatch.  ``plans`` is :func:`zoom_plan`'s
-    result for the same arguments, for a caller that already holds it."""
+    result for the same arguments, for a caller that already holds it
+    (with ``mesh``: for the view height padded up to the 'space' axis).
+    With ``mesh`` each rank contracts with its own rows of the Y plan and
+    the frame is gathered over 'space'."""
     p = precision or get_precision()
     h, w = spectrum.shape[:2]
+    vhp = vh if mesh is None else ceil_to(vh, mesh.shape["space"])
     plan_y, plan_x = plans or zoom_plan(scaling_type, xscale, yscale, vx, vy,
-                                        vw, vh, w, h, p, spectrum.device)
-    return _synthesize(spectrum, plan_y, plan_x, p, encode_trc)
+                                        vw, vhp, w, h, p, spectrum.device)
+    if mesh is None:
+        return _synthesize(spectrum, plan_y, plan_x, p, encode_trc)
+    from dspfun_tpu_torch.parallel.mesh import plan_row_spec  # noqa: PLC0415
+
+    out = _synthesize(spectrum, plan_row_spec(plan_y, mesh), plan_x, p, encode_trc)
+    return _gather_rows(out, mesh, vh)
 
 
 def showsamples_coords(start: float, scale: float, limit: int) -> list[int]:

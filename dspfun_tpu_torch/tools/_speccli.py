@@ -5,9 +5,10 @@ The option tables, ``spec_opt_proc``, ``SPEC_HELP`` and ``resolve_io``
 are the JAX package's (tests/test_torch_spec_cli.py pins them).  New
 here, shared by the port's spec and ispec: ``LONG`` and ``setup``, which
 handle what differs from the JAX tools: ``--device cuda|cpu`` (default
-``cuda``; exit 1 "Bad --device" without a card), ``-M``/``--mesh`` and a
-set ``DSPFUN_MESH`` refused (ROADMAP queue 1, item 18), and output
-targets the port cannot write refused before anything is read.
+``cuda``; exit 1 "Bad --device" without a card), ``-M``/``--mesh`` (or
+``DSPFUN_MESH``) resolved before anything is read, over every card or
+one CPU rank per core, and output targets the port cannot write refused
+before anything is read.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 
 from dspfun_tpu_torch.io import images
 from dspfun_tpu_torch.models.spec_pipeline import SpecChainParams
-from dspfun_tpu_torch.tools import cli_device, mesh_refused
+from dspfun_tpu_torch.ops.int8mm import ceil_to
+from dspfun_tpu_torch.parallel.mesh import current_mesh
+from dspfun_tpu_torch.tools import cli_device, resolve_mesh
 from dspfun_tpu_torch.utils.profiling import stage
 
 SPECTYPES = ("abs", "shift", "flat", "sign", "copy")
@@ -116,20 +119,36 @@ LONG = ["device=", "mesh="]
 
 def setup(opts: SpecOpts, mesh_spec: str | None, device_arg: str | None):
     """What the port's spec and ispec check before they read anything:
-    the mesh (refused), the output target (PNG only) and the device.
-    Returns the device, or None after printing why not (exit code 1)."""
-    if mesh_refused(mesh_spec, "-M/--mesh"):
-        return None
+    the output target (PNG only), the device and the mesh (-M N; the
+    space axis only).  Returns (device, mesh or None), or None after
+    printing why not (exit code 1).  Inside a rank the device is the
+    rank's own."""
     try:
         images.check_target(opts.output)
     except ValueError as e:
         print(e, file=sys.stderr)
         return None
     try:
-        return cli_device(device_arg)
+        device = cli_device(device_arg)
     except (RuntimeError, ValueError) as e:
         print(f"Bad --device: {e}", file=sys.stderr)
         return None
+    try:
+        mesh = resolve_mesh(mesh_spec, device,
+                            "spec mesh uses the space axis only; pass -M N")
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return None
+    return (device if mesh is None or current_mesh() is None else mesh.device), mesh
+
+
+def pad_to_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` [H, W, C] zero-padded so that rows AND columns divide the
+    mesh's 'space' axis (the padded basis rows and columns are zero,
+    parallel/spec_sharded.py), as the JAX tools pad before sharding."""
+    ns = mesh.shape["space"]
+    h0, w0 = x.shape[:2]
+    return torch.nn.functional.pad(x, (0, 0, 0, ceil_to(w0, ns) - w0, 0, ceil_to(h0, ns) - h0))
 
 
 def timed_compute(fn, times: dict, on_card: bool):

@@ -7,7 +7,8 @@ CLI-compatible rebuild of reference spec/ispec.c.  Run it as
 
 It keeps the JAX tool's getopt string, usage and help texts, exit codes
 and messages, with the differences ``tools/spec.py`` lists: ``--device``
-(default ``cuda``), ``-M``/``--mesh``/``DSPFUN_MESH`` refused, PNG only,
+(default ``cuda``), ``-M``/``--mesh``/``DSPFUN_MESH`` over the ranks of
+``tools.launch`` (exit 1 where the JAX tool falls back), PNG only,
 and float32 pixels made on the host (the spectrum and the signmap).
 ``LAST_STAGE_TIMES`` has the keys of spec's.
 """
@@ -23,13 +24,16 @@ import torch
 from dspfun_tpu_torch.core.precision import apply_tool_default
 from dspfun_tpu_torch.io import images
 from dspfun_tpu_torch.models.spec_pipeline import spec_inverse
+from dspfun_tpu_torch.models.spec_pipeline import signmap_restore
+from dspfun_tpu_torch.parallel.mesh import current_mesh
+from dspfun_tpu_torch.tools import launch
 from dspfun_tpu_torch.tools._speccli import (
-    LONG, SPEC_HELP, SpecOpts, resolve_io, setup, spec_opt_proc, timed_compute,
+    LONG, SPEC_HELP, SpecOpts, pad_to_mesh, resolve_io, setup, spec_opt_proc, timed_compute,
 )
 from dspfun_tpu_torch.tools.spec import _png_target
 from dspfun_tpu_torch.utils.profiling import stage
 
-USAGE = "Usage: ispec -h -p -m <signmap> --device cuda|cpu [spec options] <infile> <outfile>"
+USAGE = "Usage: ispec -h -p -m <signmap> -M mesh --device cuda|cpu [spec options] <infile> <outfile>"
 
 LAST_STAGE_TIMES: dict = {}
 
@@ -56,6 +60,7 @@ def main(argv: list[str] | None = None) -> int:
                 "  -h            This help text.\n"
                 "  -p            Apply the DC coefficient from the original image if available.\n"
                 "  -m <signmap>  Path to a file generated with `spec -t sign`\n"
+                "  -M <mesh>     Device mesh for huge images (auto|N|space=N).\n"
                 "  --device      Where to compute: cuda (default) or cpu.\n"
             )
             print(SPEC_HELP)
@@ -70,9 +75,12 @@ def main(argv: list[str] | None = None) -> int:
     if not resolve_io(args, opts):
         print(USAGE, file=sys.stderr)
         return 1
-    device = setup(opts, mesh_spec, device_arg)
-    if device is None:
+    res = setup(opts, mesh_spec, device_arg)
+    if res is None:
         return 1
+    device, mesh = res
+    if mesh is not None and current_mesh() is None:
+        return launch("dspfun_tpu_torch.tools.ispec", argv, mesh)
 
     times: dict = {}
     try:
@@ -108,10 +116,15 @@ def main(argv: list[str] | None = None) -> int:
         fd = torch.from_numpy(f).to(device)
         if signmap is not None:
             signmap = torch.from_numpy(signmap).to(device)
-    y = timed_compute(
-        lambda: spec_inverse(fd, params=opts.params, dc=dc, signmap=signmap,
-                             preserve_dc=preserve_dc),
-        times, device.type == "cuda")
+    if mesh is None:
+        y = timed_compute(
+            lambda: spec_inverse(fd, params=opts.params, dc=dc, signmap=signmap,
+                                 preserve_dc=preserve_dc),
+            times, device.type == "cuda")
+    else:
+        y = timed_compute(
+            lambda: _inverse_sharded(fd, opts.params, mesh, dc, signmap, preserve_dc),
+            times, device.type == "cuda")
     with stage("d2h", times):
         y = y.cpu().numpy()
 
@@ -120,14 +133,30 @@ def main(argv: list[str] | None = None) -> int:
         # reference writes at the wand's depth, ispec.c:170-182)
         depth = img.depth if _png_target(opts.output) else 8
         with stage("write", times):
-            images.write_image(opts.output, y, channels=opts.csp,
-                               to_srgb=opts.gamma, depth=depth)
+            if mesh is None or mesh.rank == 0:
+                images.write_image(opts.output, y, channels=opts.csp,
+                                   to_srgb=opts.gamma, depth=depth)
     except Exception as e:  # noqa: BLE001
         print(e, file=sys.stderr)
         return 1
     LAST_STAGE_TIMES.clear()
     LAST_STAGE_TIMES.update(times)
     return 0
+
+
+def _inverse_sharded(f, params, mesh, dc, signmap, preserve_dc):
+    """spec_inverse over the mesh: the signmap's sign restoration is a
+    whole-image pre-pass, then this rank's columns of the padded
+    spectrum in and the whole image (gathered, padding dropped) out."""
+    from dspfun_tpu_torch.parallel import spec_sharded as ss  # noqa: PLC0415
+
+    if signmap is not None and params.signtype == "abs":
+        f, dc = signmap_restore(f, signmap)
+    h0, w0 = f.shape[:2]
+    fs = ss.spectrum_sharding(mesh)(pad_to_mesh(f, mesh))
+    y = ss.spec_inverse_sharded(fs, params, mesh, dc=dc, preserve_dc=preserve_dc,
+                                true_shape=(h0, w0))
+    return ss.image_sharding(mesh).gather(y)[:h0, :w0]
 
 
 if __name__ == "__main__":

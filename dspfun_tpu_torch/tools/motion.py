@@ -16,10 +16,16 @@ stateful expression (random, while, root, taylor, time, or reads of
 slots stored by an earlier coefficient) takes the grid to the host,
 per coefficient in raster order, and runs one slab at a time.
 ``--resume-file`` records the slab index after each slab and a rerun
-with the same flags appends from there.  The multi-process flags
-``--mesh``, ``--coordinator``, ``--nprocs`` and ``--proc-id`` are not
-ported yet and exit 1 (ROADMAP queue 1, item 18).  The FFTW planning
-flags are accepted for CLI parity and do nothing.
+with the same flags appends from there.  ``--mesh`` (or ``DSPFUN_MESH``)
+runs one rank per device of the mesh (``tools.launch``: every card with
+``cuda``, over nccl; one CPU rank per core with ``cpu``, over gloo): a
+plane that is one whole-clip block on a compatible mesh takes the
+Ulysses-sharded volume chain (``parallel/motion_sharded.py``), any
+other the block batch over 'space' (``parallel/sharded.py``).
+``--coordinator host:port --nprocs N --proc-id I`` spreads the ranks over
+N host processes (process 0 serves the rendezvous at that address; each
+process starts one rank per local card, or its share of a CPU mesh).
+The FFTW planning flags are accepted for CLI parity and do nothing.
 """
 
 from __future__ import annotations
@@ -37,7 +43,11 @@ from dspfun_tpu_torch.core.expr import parse_expr
 from dspfun_tpu_torch.core.precision import apply_tool_default, get_precision
 from dspfun_tpu_torch.io import video
 from dspfun_tpu_torch.models import motion_pipeline as mp
-from dspfun_tpu_torch.tools import cli_device, run_main
+from dspfun_tpu_torch.parallel import motion_sharded as msh
+from dspfun_tpu_torch.parallel import multihost
+from dspfun_tpu_torch.parallel.mesh import cli_devices, current_mesh, mesh_from_spec
+from dspfun_tpu_torch.parallel.sharded import shard_blocks_filter
+from dspfun_tpu_torch.tools import cli_device, launch, open_rank_output, run_main
 from dspfun_tpu_torch.utils.checkpoint import load_state, save_state
 
 # device-plan cache across main() invocations, keyed on device,
@@ -66,19 +76,11 @@ LONG = [
 # rewritten to "--opt=" before parsing (empty value selects the default)
 _OPTIONAL_ARG = ("--spectrogram", "--ispectrogram", "--preserve-dc")
 
-# flags the port refuses, with the ROADMAP item that ports them
-_NOT_PORTED = {
-    "--mesh": "the device mesh (ROADMAP queue 1, item 18)",
-    "--coordinator": "multi-process runs (ROADMAP queue 1, item 18)",
-    "--nprocs": "multi-process runs (ROADMAP queue 1, item 18)",
-    "--proc-id": "multi-process runs (ROADMAP queue 1, item 18)",
-}
-
 USAGE = """Usage: motion [options] <infile> [outfile]
 [-s|--size WxHxD] [-b|--blocksize WxHxD] [-p|--bandpass X1xY1xZ1-X2xY2xZ2]
 [-B|--boost float] [-D|--damp float]  [--spectrogram=type] [--ispectrogram=type] [-q|--quant quant] [--threshold] [--coeff-limit limit] [-d|--dither] [--preserve-dc=type] [--eval expression]
 [-r|--framerate] [--keep-rate] [--samesize-chroma] [--frames lim] [--offset pos] [--csp|c colorspace options] [--iformat|--format fmt] [--codec codec] [--encopts|--decopts opts] [--loglevel int]
-[--resume-file path] [--slab-batch N|auto] [--device cuda|cpu] [-Q|--quiet]"""
+[--resume-file path] [--mesh auto|N|space=N[,time=M]] [--slab-batch N|auto] [--coordinator host:port --nprocs N --proc-id I] [--device cuda|cpu] [-Q|--quiet]"""
 
 EXPR_NAMES = ("c", "x", "y", "z", "i", "width", "height", "depth",
               "components", "bx", "by", "bz", "bwidth", "bheight", "bdepth")
@@ -137,14 +139,12 @@ def main(argv: list[str] | None = None) -> int:
     csp = iformat = oformat = None
     slab_batch = "auto"
     device_arg = None
+    mesh_spec = coordinator = None
+    nprocs, proc_id = 1, 0
     for flag, arg in flags:
         if flag in ("-h", "--help"):
             print(USAGE)
             return 0
-        elif flag in _NOT_PORTED:
-            print(f"{flag}: {_NOT_PORTED[flag]} is not ported to dspfun_tpu_torch "
-                  "yet; use dspfun_tpu.tools.motion", file=sys.stderr)
-            return 1
         elif flag in ("-b", "--blocksize"):
             block = _parse_dims(arg, block)
         elif flag in ("-s", "--size"):
@@ -208,7 +208,15 @@ def main(argv: list[str] | None = None) -> int:
         elif flag == "--iformat":
             iformat = arg
         elif flag == "--slab-batch":
-            slab_batch = arg  # int | "auto"
+            slab_batch = arg  # int | "auto"; 1 under a mesh
+        elif flag == "--mesh":
+            mesh_spec = arg
+        elif flag == "--coordinator":
+            coordinator = arg
+        elif flag == "--nprocs":
+            nprocs = int(arg)
+        elif flag == "--proc-id":
+            proc_id = int(arg)
         elif flag == "--device":
             device_arg = arg
         elif flag == "--codec":
@@ -241,6 +249,30 @@ def main(argv: list[str] | None = None) -> int:
         except ValueError as e:
             print(f"Bad expression: {e}", file=sys.stderr)
             return 1
+
+    # --mesh / DSPFUN_MESH: distribute the work over a (space, time) mesh
+    # of ranks; --coordinator/--nprocs/--proc-id over several processes
+    multi = nprocs > 1 or coordinator is not None
+    mesh = current_mesh()
+    if mesh is None:
+        try:
+            mesh, where = _resolve_mesh(mesh_spec, device, multi, coordinator, nprocs, proc_id)
+        except ValueError as e:
+            print(f"Bad --mesh: {e}", file=sys.stderr)
+            return 1
+        if expr is not None and expr.stateful and (mesh_spec or multi or mesh is not None):
+            # random()/while()/root()/taylor()/time() evaluate per
+            # coefficient in sequence on the host (reference
+            # motion.c:670-681 is a host loop too): a sharded evaluation
+            # order would diverge from the reference
+            print("--eval with stateful av_expr forms (random/randomi/"
+                  "while/root/taylor/time) is sequential; run without "
+                  "--mesh/--coordinator", file=sys.stderr)
+            return 1
+        if mesh is not None:
+            return launch("dspfun_tpu_torch.tools.motion", argv, mesh, quiet, **where)
+    else:
+        device = mesh.device
 
     try:
         reader = video.open_input(infile, format=iformat)
@@ -347,9 +379,9 @@ def main(argv: list[str] | None = None) -> int:
     if spec:
         props.color_range = "jpeg"
     try:
-        writer = video.open_output(
-            outfile, g0.newres.w, g0.newres.h, rate, props, format=oformat,
-            codec=codec, options=encopts, append=start_slab > 0)
+        writer = open_rank_output(mesh, lambda path, primary: video.open_output(
+            path, g0.newres.w, g0.newres.h, rate, props, format=oformat,
+            codec=codec, options=encopts, append=start_slab > 0 and primary), outfile)
     except (OSError, ValueError, RuntimeError) as e:
         print(f"Output setup failed for '{outfile}': {e}", file=sys.stderr)
         reader.close()
@@ -385,6 +417,25 @@ def main(argv: list[str] | None = None) -> int:
         for i in range(proc_fmt.ncomp)
     ]
 
+    use_volume = [False] * proc_fmt.ncomp
+    if mesh is not None:
+        use_volume = [g.nblocks == mp.Dims(1, 1, 1) and g.block == g.scaled
+                      and msh.volume_mesh_compatible((g.block.d, g.block.h, g.block.w), mesh)
+                      for g in geoms]
+        if mesh.procs > 1 and not all(use_volume):
+            print("multi-process motion runs the whole-clip volume path "
+                  "only: use -b 0x0x0 (or a geometry where every plane "
+                  "is one whole-clip block) with a compatible mesh",
+                  file=sys.stderr)
+            writer.close()
+            reader.close()
+            return 1
+        if not quiet:
+            strategies = ", ".join(f"plane {i}: {'volume' if v else 'blocks'}"
+                                   for i, v in enumerate(use_volume))
+            print(f"mesh: space={mesh.shape['space']} "
+                  f"time={mesh.shape['time']} ({strategies})", file=sys.stderr)
+
     # device-resident plans, cached across invocations in-process;
     # pruned int8 Kronecker plans ride along for fused fast-path
     # geometries with sparse bandpass supports (mp.maybe_kron_plans).
@@ -394,8 +445,9 @@ def main(argv: list[str] | None = None) -> int:
             tuple(p._key() for p in params))
     plans = _PLAN_CACHE.get(pkey)
     if plans is None:
+        # (a volume plane builds its own plans: it needs no Kronecker pair)
         plans = [(*mp.make_plans(g, device=device),
-                  mp.maybe_kron_plans(g, params[i], device=device))
+                  None if use_volume[i] else mp.maybe_kron_plans(g, params[i], device=device))
                  for i, g in enumerate(geoms)]
         while len(_PLAN_CACHE) >= 4:
             _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
@@ -424,7 +476,7 @@ def main(argv: list[str] | None = None) -> int:
     # filter_blocks call per plane (blocks are independent across
     # slabs; bz rides per block into the --eval environment).  auto = 1:
     # the JAX tool's auto = 2 was calibrated on a TPU
-    slab_b = 1 if slab_batch == "auto" else max(1, int(slab_batch))
+    slab_b = 1 if slab_batch == "auto" or mesh is not None else max(1, int(slab_batch))
     if slab_b > 1 and expr is not None and expr.stateful:
         # batched slabs would evaluate the host expression plane-major
         # across the batch and consume random()/st() state in another
@@ -439,6 +491,7 @@ def main(argv: list[str] | None = None) -> int:
     # per-plane coded counts stay on the device until the end of the run
     # (a fetch per plane per slab would synchronise the loop)
     coded_dev: list = []
+    coded_vol: list = []    # the volume chain's [hi, lo] limb pairs
     written = start_slab * g0.scaled.d
     read_count = start_slab * g0.block.d
     padb = int(math.log10(max(source_d, 1))) + 1
@@ -482,30 +535,32 @@ def main(argv: list[str] | None = None) -> int:
                     # 8-bit pels cross to the device as bytes and cast
                     # there; anything else as float32 (exact for 16-bit)
                     frames = frames.astype(np.float32)
+                if use_volume[i]:
+                    per.append(frames)
+                    continue
                 # the block gather is a strided copy: done on the device
                 per.append(mp.frames_to_blocks(torch.from_numpy(frames).to(device), g))
+            if use_volume[i]:
+                out, c = _volume_plane(per[0], g, mesh, params[i], i, proc_fmt.ncomp, bz0)
+                coded_vol.append(c)
+                outs[0].append(_pad_plane(out, tdims, i, quantise_u8))
+                continue
             nb = per[0].shape[0]
             big = torch.cat(per) if S > 1 else per[0].contiguous()
             bz = (torch.arange(bz0, bz0 + S, device=device).repeat_interleave(nb)
                   if S > 1 else bz0)
-            out, c = mp.filter_blocks(big, plans[i], None, bz,
-                                      geom=g, params=params[i], plane_index=i,
-                                      nplanes=proc_fmt.ncomp)
+            if mesh is not None:
+                out, c = shard_blocks_filter(big, plans[i], None, bz, mesh, geom=g,
+                                             params=params[i], plane_index=i,
+                                             nplanes=proc_fmt.ncomp)
+            else:
+                out, c = mp.filter_blocks(big, plans[i], None, bz,
+                                          geom=g, params=params[i], plane_index=i,
+                                          nplanes=proc_fmt.ncomp)
             coded_dev.append(c)
-            tw, th = tdims[i] if i < len(tdims) else tdims[-1]
             for s in range(S):
-                p = mp.blocks_to_frames(out[s * nb:(s + 1) * nb], g)
-                # indivisible block grids truncate a plane's processed
-                # region (the reference leaves the surplus rows of its
-                # frame buffer stale, motion.c:437-439); pad emitted
-                # planes to the container's plane dims with zeros
-                ph, pw = p.shape[1], p.shape[2]
-                if (ph, pw) != (th, tw):
-                    p = torch.nn.functional.pad(
-                        p, (0, max(tw - pw, 0), 0, max(th - ph, 0)))[:, :th, :tw]
-                if quantise_u8:
-                    p = torch.clamp(torch.round(p), 0, 255).to(torch.uint8)
-                outs[s].append(p)
+                outs[s].append(_pad_plane(mp.blocks_to_frames(out[s * nb:(s + 1) * nb], g),
+                                          tdims, i, quantise_u8))
         outs = [[p.cpu().numpy() for p in o] for o in outs]
         stage_s["compute"] += time.perf_counter() - t0
         return outs
@@ -550,7 +605,7 @@ def main(argv: list[str] | None = None) -> int:
                 for out_planes in compute_slabs(staged, bz):
                     write_slab(out_planes)
                     bz += 1
-                    if resume_file:
+                    if resume_file and (mesh is None or mesh.rank == 0):
                         save_state(resume_file, {
                             "slab": bz,
                             "newres": [g0.newres.w, g0.newres.h, g0.newres.d],
@@ -566,6 +621,7 @@ def main(argv: list[str] | None = None) -> int:
         writer.close()
         reader.close()
     coded = int(sum(int(c.sum()) for c in coded_dev))
+    coded += sum(msh.coded_count(c) for c in coded_vol)
     LAST_STAGE_TIMES.clear()
     LAST_STAGE_TIMES.update(stage_s, host_eval=mp.EXPR_HOST_SECONDS)
 
@@ -575,6 +631,78 @@ def main(argv: list[str] | None = None) -> int:
               f"zeroes: {total - coded} / {total} "
               f"({(total - coded) * 100.0 / total:2.0f}%)", file=sys.stderr)
     return ret
+
+
+def _resolve_mesh(spec, device, multi, coordinator, nprocs, proc_id):
+    """(mesh or None, where its ranks start) for the options: one host
+    process, or ``nprocs`` of them, each starting one rank per local
+    card (``cuda``) or its share of the mesh's CPU ranks (``cpu``)."""
+    if not multi:
+        return mesh_from_spec(spec, cli_devices(device)), {}
+    if coordinator is None:
+        raise ValueError("a run over several processes needs --coordinator host:port")
+    if not 0 <= proc_id < nprocs:
+        raise ValueError(f"--proc-id {proc_id} is not one of {nprocs} processes")
+    space_n = time_n = None
+    for part in (spec or "auto").split(","):
+        part = part.strip().lower()
+        if part in ("", "auto"):
+            continue
+        k, _, v = part.partition("=")
+        if k == "space":
+            space_n = int(v)
+        elif k == "time":
+            time_n = int(v)
+        else:
+            raise ValueError(f"multi-process mesh spec {part!r}")
+    if torch.device(device).type == "cuda":
+        local_devs = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    else:
+        n = (space_n or 1) * (time_n or 1) if space_n and time_n else nprocs
+        if n % nprocs:
+            raise ValueError(f"{n} ranks do not divide {nprocs} processes")
+        local_devs = ["cpu"] * (n // nprocs)
+    local = len(local_devs)
+    mesh = multihost.global_mesh(space_n, time_n, devices=local_devs * nprocs,
+                                 num_processes=nprocs,
+                                 backend="nccl" if local_devs[0].startswith("cuda") else "gloo")
+    return mesh, {"local": local, "rank_offset": proc_id * local,
+                  "init_method": f"tcp://{coordinator}"}
+
+
+def _volume_plane(frames, g, mesh, params, i, nplanes, bz):
+    """One plane of a whole-clip slab through the sharded volume chain:
+    this rank's shard in (its process's time slab, then its own rows),
+    the whole output plane (gathered over the mesh) and the coded
+    count's limbs out."""
+    vol = np.ascontiguousarray(frames[: g.block.d, : g.truncated.h, : g.truncated.w])
+    if mesh.procs > 1:
+        # a process stages only its own time-contiguous slab
+        per_proc = mesh.size // mesh.procs
+        tl = g.block.d // mesh.procs
+        proc = mesh.rank // per_proc
+        shard = multihost.stage_global_cube(vol[proc * tl:(proc + 1) * tl], mesh)
+    else:
+        shard = torch.from_numpy(np.ascontiguousarray(
+            msh.volume_sharding(mesh)(vol))).to(mesh.device)
+    out, c = msh.motion_filter_volume_sharded(shard, mesh, geom=g, params=params,
+                                              plane_index=i, nplanes=nplanes, bz=bz)
+    return msh.volume_sharding(mesh).gather(out), c
+
+
+def _pad_plane(p, tdims, i, quantise_u8):
+    """An output plane at the container's plane dims: indivisible block
+    grids truncate a plane's processed region (the reference leaves the
+    surplus rows of its frame buffer stale, motion.c:437-439); pad
+    emitted planes with zeros.  8-bit raw output is quantised here, on
+    the device."""
+    tw, th = tdims[i] if i < len(tdims) else tdims[-1]
+    ph, pw = p.shape[1], p.shape[2]
+    if (ph, pw) != (th, tw):
+        p = torch.nn.functional.pad(p, (0, max(tw - pw, 0), 0, max(th - ph, 0)))[:, :th, :tw]
+    if quantise_u8:
+        p = torch.clamp(torch.round(p), 0, 255).to(torch.uint8)
+    return p
 
 
 if __name__ == "__main__":

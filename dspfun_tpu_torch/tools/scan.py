@@ -12,7 +12,11 @@ messages, with these differences:
 * ``--device cuda|cpu`` picks the torch device (default ``cuda``; without
   a card that is exit 1 "Bad --device", and ``--device cpu`` runs the
   kernels' plain versions);
-* ``--mesh`` and a set ``DSPFUN_MESH`` exit 1 (ROADMAP queue 1, item 18);
+* ``--mesh`` (or ``DSPFUN_MESH``) shards the reconstruction rows over
+  the ranks of ``tools.launch`` (every card with ``cuda``, one CPU rank
+  per core with ``cpu``); where the JAX tool prints ``mesh unavailable
+  (...); running single-device`` or refuses a time axis and runs on one
+  device, this one prints the same and exits 1;
 * the input is a PNG (item 8); the output a y4m, fvid, NUT or Matroska
   stream or a PNG sequence (``--ff-opts`` carries the FFV1 encoder's
   ``level``, ``slices`` and ``negotiate`` beside the color properties);
@@ -44,7 +48,8 @@ from dspfun_tpu_torch.models import scan_pipeline as sp
 from dspfun_tpu_torch.ops import scan_methods as sm
 from dspfun_tpu_torch.ops import scan_order as so
 from dspfun_tpu_torch.ops.speclib import SpecParams, SpecScaler, parse_spec_params
-from dspfun_tpu_torch.tools import cli_device, mesh_refused
+from dspfun_tpu_torch.parallel.mesh import current_mesh
+from dspfun_tpu_torch.tools import cli_device, launch, open_rank_output, resolve_mesh
 from dspfun_tpu_torch.utils.checkpoint import load_state, save_state
 from dspfun_tpu_torch.utils.profiling import stage
 
@@ -85,7 +90,7 @@ options:
 
 output options:
    --device <cuda|cpu>     where to compute [default: cuda]
-   --mesh <auto|N|space=N>  not ported yet (ROADMAP queue 1, item 18)
+   --mesh <auto|N|space=N>  shard reconstruction rows over a device mesh
    --ff-format <format>    output container format (y4m, fvid, nut, matroska, image2)
    --ff-encoder <enc>      ffv1 or rawvideo (NUT; FFV1 is the default for integer pels)
    --ff-rate <rate>        output framerate
@@ -238,8 +243,6 @@ def main(argv: list[str] | None = None) -> int:
             print(name, file=sys.stderr)
         return 0
 
-    if mesh_refused(mesh_spec):
-        return 1
     if len(args) > 1:
         try:
             video.check_output(args[1], ofmt, codec)
@@ -251,6 +254,19 @@ def main(argv: list[str] | None = None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"Bad --device: {e}", file=sys.stderr)
         return 1
+    # --mesh: shard reconstruction rows over the mesh 'space' axis
+    # (collective-free but for the gather; coefficients whole on every
+    # rank; any height, rows pad internally, and any intermediates mode)
+    try:
+        mesh = resolve_mesh(mesh_spec, device, "scan --mesh shards space only (time=1); "
+                                               "running single-device")
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
+    if mesh is not None:
+        if current_mesh() is None:
+            return launch("dspfun_tpu_torch.tools.scan", argv, mesh, quiet)
+        device = mesh.device
 
     times: dict = {}
     try:
@@ -275,7 +291,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Error initializing scan: {e}", file=sys.stderr)
         return 1
 
-    if serialized_scan:
+    if serialized_scan and (mesh is None or mesh.rank == 0):
         try:
             with open(serialized_scan, "w") as f:
                 f.write(so.serialize(order, serialization_format))
@@ -347,9 +363,9 @@ def main(argv: list[str] | None = None) -> int:
         props.color_space = props.color_space or "rgb"
         props.color_primaries = props.color_primaries or "bt709"
     try:
-        writer = video.open_output(args[1], out_w, out_h, rate, props,
-                                   format=ofmt, codec=codec, options=codec_opts or None,
-                                   append=start_frame > 0)
+        writer = open_rank_output(mesh, lambda path, primary: video.open_output(
+            path, out_w, out_h, rate, props, format=ofmt, codec=codec,
+            options=codec_opts or None, append=start_frame > 0 and primary), args[1])
     except Exception as e:  # noqa: BLE001
         print(f"Error opening output context: {e}", file=sys.stderr)
         return 1
@@ -405,6 +421,7 @@ def main(argv: list[str] | None = None) -> int:
                         if intermediates else None),
             packer=packer,
             times=times,
+            mesh=mesh,
         ):
             t_emit = time.perf_counter()
             nf = (res.payload if res.sums is None else res.sums).shape[0]
@@ -441,7 +458,7 @@ def main(argv: list[str] | None = None) -> int:
                 if res.parity is not None and res.parity[k] \
                         and parity_index > start_frame + f:
                     parity_index = start_frame + f
-            if resume_file:
+            if resume_file and (mesh is None or mesh.rank == 0):
                 save_state(resume_file, {
                     "cfg": [width, height, step, offset, int(invert),
                             start_frame + plan.nframes,

@@ -12,8 +12,11 @@ and messages, with these differences:
 * ``--device cuda|cpu`` picks the torch device (default ``cuda``; without
   a card that is exit 1 "Bad --device", and ``--device cpu`` runs the
   kernels' plain versions);
-* ``-M``/``--mesh`` and a set ``DSPFUN_MESH`` exit 1 (ROADMAP queue 1,
-  item 18);
+* ``-M``/``--mesh`` (or ``DSPFUN_MESH``) runs one rank per device of the
+  mesh (``tools.launch``: every card with ``cuda``, one CPU rank per core
+  with ``cpu``); where the JAX tool prints ``mesh unavailable (...);
+  running single-device`` or refuses a time axis and runs on one device,
+  this one prints the same and exits 1;
 * images are PNG only: another input or output format exits 1 naming
   ROADMAP queue 1, item 8, and sixel (the default output on a terminal)
   item 21; the output is checked before the input is read;
@@ -40,12 +43,14 @@ import torch
 from dspfun_tpu_torch.core.precision import apply_tool_default
 from dspfun_tpu_torch.io import images
 from dspfun_tpu_torch.models.spec_pipeline import spec_forward
+from dspfun_tpu_torch.parallel.mesh import current_mesh
+from dspfun_tpu_torch.tools import launch
 from dspfun_tpu_torch.tools._speccli import (
-    LONG, SPEC_HELP, SpecOpts, resolve_io, setup, spec_opt_proc, timed_compute,
+    LONG, SPEC_HELP, SpecOpts, pad_to_mesh, resolve_io, setup, spec_opt_proc, timed_compute,
 )
 from dspfun_tpu_torch.utils.profiling import stage
 
-USAGE = "Usage: spec -h -g -c csp -t (abs|shift|flat|sign|copy) -R (one|dc|dcs) -T (linear|log) -S (abs|shift|saturate|retain) -G (native|reference|custom(float)) --device cuda|cpu <infile> <outfile>"
+USAGE = "Usage: spec -h -g -c csp -t (abs|shift|flat|sign|copy) -R (one|dc|dcs) -T (linear|log) -S (abs|shift|saturate|retain) -G (native|reference|custom(float)) -M mesh --device cuda|cpu <infile> <outfile>"
 
 LAST_STAGE_TIMES: dict = {}
 
@@ -62,7 +67,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     for flag, arg in flags:
         if flag == "-h":
-            print("Usage: spec [options] <infile> <outfile>\noptions:\n  -h  This help text.\n  --device  Where to compute: cuda (default) or cpu.\n")
+            print("Usage: spec [options] <infile> <outfile>\noptions:\n  -h  This help text.\n  -M  Device mesh for huge images (auto|N|space=N).\n  --device  Where to compute: cuda (default) or cpu.\n")
             print(SPEC_HELP)
             return 0
         if flag in ("-M", "--mesh"):
@@ -75,9 +80,12 @@ def main(argv: list[str] | None = None) -> int:
     if not resolve_io(args, opts):
         print(USAGE, file=sys.stderr)
         return 1
-    device = setup(opts, mesh_spec, device_arg)
-    if device is None:
+    res = setup(opts, mesh_spec, device_arg)
+    if res is None:
         return 1
+    device, mesh = res
+    if mesh is not None and current_mesh() is None:
+        return launch("dspfun_tpu_torch.tools.spec", argv, mesh)
 
     times: dict = {}
     try:
@@ -90,8 +98,12 @@ def main(argv: list[str] | None = None) -> int:
 
     with stage("h2d", times):
         xd = torch.from_numpy(x).to(device)
-    f, dc = timed_compute(lambda: spec_forward(xd, opts.params), times,
-                          device.type == "cuda")
+    if mesh is None:
+        f, dc = timed_compute(lambda: spec_forward(xd, opts.params), times,
+                              device.type == "cuda")
+    else:
+        f, dc = timed_compute(lambda: _forward_sharded(xd, opts.params, mesh), times,
+                              device.type == "cuda")
     with stage("d2h", times):
         f = f.cpu().numpy()
         dc = np.asarray(dc.cpu().numpy(), dtype=np.float64)
@@ -103,14 +115,26 @@ def main(argv: list[str] | None = None) -> int:
     depth = 16 if _png_target(opts.output) else 8
     try:
         with stage("write", times):
-            images.write_image(opts.output, f, channels=opts.csp,
-                               properties=props, depth=depth)
+            if mesh is None or mesh.rank == 0:
+                images.write_image(opts.output, f, channels=opts.csp,
+                                   properties=props, depth=depth)
     except Exception as e:  # noqa: BLE001
         print(e, file=sys.stderr)
         return 1
     LAST_STAGE_TIMES.clear()
     LAST_STAGE_TIMES.update(times)
     return 0
+
+
+def _forward_sharded(x, params, mesh):
+    """spec_forward over the mesh: this rank's rows of the padded image
+    in, the whole spectrum (gathered, padding dropped) and DC out."""
+    from dspfun_tpu_torch.parallel import spec_sharded as ss  # noqa: PLC0415
+
+    h0, w0 = x.shape[:2]
+    xs = ss.image_sharding(mesh)(pad_to_mesh(x, mesh))
+    f, dc = ss.spec_forward_sharded(xs, params, mesh, true_shape=(h0, w0))
+    return ss.spectrum_sharding(mesh).gather(f)[:h0, :w0], dc
 
 
 def _png_target(spec: str | None) -> bool:

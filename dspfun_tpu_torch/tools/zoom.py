@@ -13,7 +13,11 @@ and messages, with these differences:
   a card that is exit 1 "Bad --device", and ``--device cpu`` runs the
   kernels' plain versions).  The default precision policy is deep ``i8``
   on a CUDA device and ``hilo`` on the CPU (core/precision.py);
-* ``--mesh`` and a set ``DSPFUN_MESH`` exit 1 (ROADMAP queue 1, item 18);
+* ``--mesh`` (or ``DSPFUN_MESH``) shards each frame's synthesis rows
+  over the ranks of ``tools.launch`` (every card with ``cuda``, one CPU
+  rank per core with ``cpu``); where the JAX tool prints ``mesh
+  unavailable (...); running single-device`` or refuses a time axis and
+  runs on one device, this one prints the same and exits 1;
 * the input is a PNG (item 8); the output a y4m, fvid, NUT or Matroska
   stream, one PNG or a PNG sequence (``--ff-opts`` carries the FFV1
   encoder's ``level``, ``slices`` and ``negotiate`` beside the color
@@ -50,7 +54,9 @@ from dspfun_tpu_torch.core.precision import apply_tool_default
 from dspfun_tpu_torch.io import images, video
 from dspfun_tpu_torch.io.device_pack import make_packer
 from dspfun_tpu_torch.models import zoom_pipeline as zp
-from dspfun_tpu_torch.tools import cli_device, mesh_refused
+from dspfun_tpu_torch.ops.int8mm import ceil_to
+from dspfun_tpu_torch.parallel.mesh import current_mesh
+from dspfun_tpu_torch.tools import cli_device, launch, open_rank_output, resolve_mesh
 from dspfun_tpu_torch.utils.checkpoint import load_state, save_state
 from dspfun_tpu_torch.utils.hostcopy import finish_copy, start_copy
 from dspfun_tpu_torch.utils.profiling import stage, timings_enabled
@@ -95,7 +101,7 @@ animation options:
 
 output options:
    --device <cuda|cpu>     where to compute [default: cuda]
-   --mesh <auto|N|space=N>  not ported yet (ROADMAP queue 1, item 18)
+   --mesh <auto|N|space=N>  shard frame synthesis rows over a device mesh
    --ff-format <format>    output container format
    --ff-encoder <enc>      ffv1 or rawvideo (NUT; FFV1 is the default for integer pels)
    --ff-rate <rate>        output framerate
@@ -243,8 +249,6 @@ def main(argv: list[str] | None = None) -> int:
             return 1
     xexpr, yexpr, scaleexpr, xscaleexpr, yscaleexpr = exprs
 
-    if mesh_refused(mesh_spec):
-        return 1
     try:
         video.check_output(args[1], ofmt, codec)
     except ValueError as e:
@@ -255,6 +259,19 @@ def main(argv: list[str] | None = None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"Bad --device: {e}", file=sys.stderr)
         return 1
+    # --mesh: shard the per-frame synthesis over output rows (pure data
+    # parallelism over the mesh 'space' axis; the spectrum is whole on
+    # every rank)
+    try:
+        mesh = resolve_mesh(mesh_spec, device, "zoom --mesh shards space only (time=1); "
+                                               "running single-device")
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
+    if mesh is not None:
+        if current_mesh() is None:
+            return launch("dspfun_tpu_torch.tools.zoom", argv, mesh, quiet)
+        device = mesh.device
     apply_tool_default("zoom", device)
     time_device = device.type == "cuda" and (TIME_DEVICE or timings_enabled())
 
@@ -319,9 +336,9 @@ def main(argv: list[str] | None = None) -> int:
             start_frame = min(int(st.get("frame", 0)), nframes)
 
     try:
-        writer = video.open_output(args[1], vw, vh, rate, props, format=ofmt,
-                                   codec=codec, options=codec_opts or None,
-                                   append=start_frame > 0)
+        writer = open_rank_output(mesh, lambda path, primary: video.open_output(
+            path, vw, vh, rate, props, format=ofmt, codec=codec,
+            options=codec_opts or None, append=start_frame > 0 and primary), args[1])
     except Exception as e:  # noqa: BLE001
         print(f"Error opening output context: {e}", file=sys.stderr)
         return 1
@@ -353,7 +370,7 @@ def main(argv: list[str] | None = None) -> int:
             frame = zp.overlay_showsamples(frame, showsamples, xs, ys,
                                            cvx, cvy)
             writer.write_frame_rgb(frame)
-        if resume_file:
+        if resume_file and (mesh is None or mesh.rank == 0):
             save_state(resume_file, {"cfg": zoom_cfg, "frame": dd + 1})
         add("write", time.perf_counter() - t1)
         if not quiet:
@@ -415,8 +432,9 @@ def main(argv: list[str] | None = None) -> int:
                 # the host's float64 basis and its plan: cached for a
                 # still, built anew for every frame of a moving view
                 t_plan = time.perf_counter()
+                vhp = vh if mesh is None else ceil_to(vh, mesh.shape["space"])
                 plans = zp.zoom_plan(scaling_type, xscale, yscale, vx, vy,
-                                     vw, vh, width, height, None,
+                                     vw, vhp, width, height, None,
                                      spectrum.device)
                 add("plan", time.perf_counter() - t_plan)
             t_disp = time.perf_counter()
@@ -429,11 +447,11 @@ def main(argv: list[str] | None = None) -> int:
                 # for fixed params)
                 dev = zp.zoom_frame(spectrum, scaling_type, xscale, yscale,
                                     vx, vy, vw, vh, encode_trc=trc_encode,
-                                    plans=plans)
+                                    plans=plans, mesh=mesh)
             else:
                 dev = zp.zoom_frame_device(spectrum, scaling_type, xscale,
                                            yscale, vx, vy, vw, vh,
-                                           encode_trc=trc_encode)
+                                           encode_trc=trc_encode, mesh=mesh)
             if ev:
                 ev[1].record()
             buf = packer(dev[None]) if packer is not None else dev

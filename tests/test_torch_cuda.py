@@ -752,3 +752,27 @@ def test_draw_cli_on_card(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(tmm, "_i8_groups", tmm._i8_groups_plain)
     assert draw.main(args + [out["plain"]]) == 0
     assert open(out["i8"], "rb").read() == open(out["plain"], "rb").read()
+
+
+def test_two_ranks_of_the_sharded_3d_dct_on_one_card(cuda):
+    """dct3d_sharded_fn on two ranks that share the card (gloo, staged
+    through the host): the int8 kernels launch on each rank's shard, and
+    the filtered cube equals the single-device chain on the card within
+    float32 error."""
+    import torch_mesh_cases as cases
+    from dspfun_tpu_torch.parallel.mesh import RankPool
+
+    rng = np.random.default_rng(0)
+    t, h, w = 8, 256, 320
+    cube = rng.random((t, h, w, 1)).astype(np.float32)
+    mask = fused.lowpass_mask((t, h, w), cutoff=0.5, boost=1.25, damp=0.1)[..., None] \
+        .astype(np.float32)
+    p = Precision(coeff="float32", intermediate="i8", tol=1e-5)
+    with RankPool(["cuda:0", "cuda:0"]) as pool:
+        assert pool.backend == "gloo"
+        res = pool.run(cases.fused3d_launched, pool.mesh(space=2), cube, mask, p)
+    ref = fused.fused_filter_3d(torch.from_numpy(cube).to(cuda), torch.from_numpy(mask).to(cuda),
+                                fused.filter_plans((t, h, w), p, device=cuda), p).cpu().numpy()
+    for out, counts, launches in res:
+        assert counts == {"all_to_all": 4} and launches >= 4
+        np.testing.assert_allclose(out, ref, atol=1e-4)

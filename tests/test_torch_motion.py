@@ -110,6 +110,11 @@ def test_masks_match_jax(boost, damp, kw):
     np.testing.assert_array_equal(tmp._bandpass_mult(gt, boost, damp),
                                   jmp._bandpass_mult(gj, boost, damp))
     m = gt.minbuf
+    ax = [torch.arange(n) for n in (m.d, m.h, m.w)]
+    np.testing.assert_array_equal(
+        tmp.bandpass_mult_grid(ax[0][:, None, None], ax[1][None, :, None], ax[2][None, None, :],
+                               gt, boost, damp).numpy(),
+        jmp._bandpass_mult(gj, boost, damp))
     np.testing.assert_array_equal(tmp._uniform_factor(m.d, m.h, m.w),
                                   jmp._uniform_factor(m.d, m.h, m.w))
     uf = jmp._uniform_factor(m.d, m.h, m.w)

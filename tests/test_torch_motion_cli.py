@@ -16,7 +16,8 @@ package's.
 * ``--resume-file``: an interrupted run finished by a rerun equals one
   uninterrupted run, and the JAX package's own resume case through both
   tools.
-* The flags the port refuses exit 1 and name the ROADMAP item.
+* The flags the port refuses exit 1 and name the ROADMAP item; the mesh
+  flags exit 1 where the request cannot run.
 """
 
 import dataclasses
@@ -91,13 +92,19 @@ def test_cli_matches_jax(clip, tmp_path, case):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "2"], "item 18"), (["--coordinator", "h:1"], "item 18"),
-    (["--nprocs", "2"], "item 18"), (["--proc-id", "1"], "item 18"),
+    (["--mesh", "2", "--eval", "c*random(0)"], "stateful av_expr"),
+    (["--coordinator", "h:1", "--mesh", "rows=2"], "multi-process mesh spec 'rows=2'"),
+    (["--nprocs", "2"], "needs --coordinator host:port"),
+    (["--proc-id", "1", "--nprocs", "1", "--coordinator", "h:1"], "not one of 1 processes"),
 ])
 def test_refused_flags_exit_1(clip, tmp_path, capsys, flag, item):
+    """The mesh and multi-process flags run (tests/test_torch_mesh_cli.py,
+    test_torch_multihost.py); what they cannot run exits 1 before any
+    rank starts or anything is read or written."""
     assert tmotion.main(["-Q", "--device", "cpu"] + flag + [clip, str(tmp_path / "o.y4m")]) == 1
     err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP queue 1, {item}" in err
+    assert item in err and "not ported" not in err
+    assert not (tmp_path / "o.y4m").exists()
 
 
 @pytest.mark.parametrize("src,dst", [("in.nut", "o.y4m"), ("clip", "o.webm"),

@@ -3,7 +3,7 @@ classes of ``io/video.py``) against the JAX package's.
 
 * Every case of ``tests/test_nut.py`` runs on the port's modules
   (``tests/torch_port_cases.py``), but those that need what the port
-  leaves out: the ffmpeg bridge, the device mesh, and the JAX tools (the
+  leaves out: the ffmpeg bridge, the JAX tools' mesh call, and the JAX tools (the
   port's tools write NUT in the CLI tests).
 * The same planes through both packages' writers give equal bytes, for
   FFV1 at levels 1 and 3, rawvideo, 16-bit and float content, and each
@@ -31,7 +31,8 @@ SKIP = {
     "test_nut_foreign_codec_routes_to_bridge": "the ffmpeg bridge (item 13): "
                                                "test_foreign_codec_is_refused",
     "test_tools_roundtrip_through_nut": "the JAX tools; the port's write NUT in the CLI tests",
-    "test_scan_mesh_with_packed_emission": "the device mesh (item 18)",
+    "test_scan_mesh_with_packed_emission": "the JAX tool's call (no --device); "
+                                           "test_torch_mesh_cli.py runs it on the port",
 }
 
 

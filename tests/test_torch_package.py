@@ -54,7 +54,46 @@ def test_every_module_imports_without_jax():
         "utils.checkpoint", "utils.hostcopy", "io.device_pack", "models.scan_pipeline",
         "models.zoom_pipeline", "tools.scan", "tools.zoom", "models.basis_pipeline",
         "tools._colorspec", "tools.applybasis", "tools.genbasis", "tools.draw", "tools.rotate",
-        "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild")} <= names
+        "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild",
+        "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
+        "parallel.motion_sharded", "parallel.multihost")} <= names
+
+
+def test_mesh_ranks_import_no_jax(tmp_path):
+    """spec -M 2 and motion --mesh 2 on CPU ranks with jax, Pillow and the
+    JAX package unimportable in the tool's process and in every rank it
+    spawns (the ranks start fresh interpreters: the block is a package
+    of that name on their path that raises)."""
+    blocked = tmp_path / "blocked"
+    for name in ("jax", "jaxlib", "dspfun_tpu", "PIL"):
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    code = (
+        "import numpy as np\n"
+        "from fractions import Fraction\n"
+        "from dspfun_tpu_torch.io import images, video\n"
+        "from dspfun_tpu_torch.tools import motion, spec\n"
+        "if __name__ == '__main__':\n"
+        f"    d = {str(tmp_path)!r}\n"
+        "    rng = np.random.default_rng(0)\n"
+        "    images.write_image(d + '/s.png', rng.random((12, 10, 3)))\n"
+        "    print(spec.main(['--device', 'cpu', '-M', '2', d + '/s.png', d + '/f.png']))\n"
+        "    w = video.open_output(d + '/c.y4m', 16, 8, Fraction(25), video.ColorProps(pix_fmt='gray'))\n"
+        "    [w.write_frame([rng.integers(0, 256, (8, 16)).astype(np.uint8)], raw=True) for _ in range(2)]\n"
+        "    w.close()\n"
+        "    print(motion.main(['-Q', '--device', 'cpu', '-b', '8x8x1', '-B', '1.5', '--mesh', '2',\n"
+        "                       d + '/c.y4m', d + '/o.y4m']))\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_MESH", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["0", "0"], res.stderr
+    assert "ranks: 2 on cpu over gloo" in res.stderr
+    assert (tmp_path / "f.png").exists() and (tmp_path / "o.y4m").exists()
 
 
 def test_container_modules_need_no_jax_pillow_or_cv2_and_not_the_repos_native(tmp_path):

@@ -176,7 +176,7 @@ def test_png_sequence_output(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--mesh", "2", "IN", "o.y4m"], "queue 1, item 18"),
+    (["--device", "cpu", "--mesh", "space=2,time=2", "IN", "o.y4m"], "scan --mesh shards space only"),
     (["--device", "cpu", "--ff-encoder", "libx264", "IN", "o.nut"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "o.webm"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "ffplay:"], "queue 1, item 13"),
@@ -204,9 +204,11 @@ def test_device_defaults_to_the_card_and_mesh_env_is_refused(tmp_path, capsys, m
     for extra in ([], ["--device", "cuda"]):
         assert tscan.main(extra + ["-q", src, str(tmp_path / "o.y4m")]) == 1
         assert "Bad --device" in capsys.readouterr().err
-    monkeypatch.setenv("DSPFUN_MESH", "4")
+    # DSPFUN_MESH is read as --mesh is: a time axis is refused (the JAX
+    # tool falls back to one device; the port exits 1)
+    monkeypatch.setenv("DSPFUN_MESH", "time=4")
     assert tscan.main(["--device", "cpu", src, str(tmp_path / "o.y4m")]) == 1
-    assert "queue 1, item 18" in capsys.readouterr().err
+    assert "scan --mesh shards space only (time=1)" in capsys.readouterr().err
     assert not (tmp_path / "o.y4m").exists()
 
 

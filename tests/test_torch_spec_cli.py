@@ -23,10 +23,12 @@ and 300x260 (it becomes ``exact``).  Stated tolerances, port vs JAX:
   and is held to a float64 inverse of the file, within one level.
 
 Usage errors, ``-h``, a missing DC, the signmap warning and unreadable
-input give the JAX tool's exit code and message (its usage line names
-``-M mesh`` where the port's names ``--device cuda|cpu``).  What the port
-refuses exits 1 by ROADMAP item and writes nothing: ``-M``/``--mesh``,
-``DSPFUN_MESH``, sixel, other formats, and ``cuda`` without a card.
+input give the JAX tool's exit code and message (the port's usage line
+adds ``--device cuda|cpu`` after ``-M mesh``, and its help a
+``--device`` line).  What the port refuses exits 1 by ROADMAP item and
+writes nothing: sixel, other formats, and ``cuda`` without a card; a
+``-M``/``--mesh``/``DSPFUN_MESH`` request the JAX tool would run on one
+device (a time axis, more slots than devices) exits 1 with its message.
 """
 
 import math
@@ -313,7 +315,7 @@ def test_usage_errors_match_the_jax_tools(case, tool, sources, tmp_path, capsys)
     assert jmain(args) == 1
     ref = capsys.readouterr()
     assert got.out == ref.out == ""
-    assert got.err == ref.err.replace("-M mesh", "--device cuda|cpu")
+    assert got.err == ref.err.replace("-M mesh", "-M mesh --device cuda|cpu")
     assert "Usage: " + tool in got.err
     assert not (tmp_path / "o.png").exists()
 
@@ -326,14 +328,13 @@ def test_help_no_input_and_unreadable_input(tool, tmp_path, capsys, monkeypatch)
     assert jmain(["-h"]) == 0
     ref = capsys.readouterr()
     assert got.err == ref.err == ""
-    keep = [ln for ln in ref.out.splitlines() if "Device mesh" not in ln]
-    assert [ln for ln in got.out.splitlines() if "--device" not in ln] == keep
+    assert [ln for ln in got.out.splitlines() if "--device" not in ln] == ref.out.splitlines()
     assert "--device" in got.out and tcli.SPEC_HELP in got.out
     # no input named and stdin a terminal: usage, exit 1
     monkeypatch.setattr(sys.stdin, "isatty", lambda: True, raising=False)
     assert tmain(CPU) == 1 and jmain([]) == 1
     err = capsys.readouterr().err.splitlines()
-    assert err[0] == err[1].replace("-M mesh", "--device cuda|cpu")
+    assert err[0] == err[1].replace("-M mesh", "-M mesh --device cuda|cpu")
     # a missing file: the OS error's text, exit 1
     missing, out = str(tmp_path / "missing.png"), str(tmp_path / "o.png")
     assert tmain(CPU + [missing, out]) == 1
@@ -347,12 +348,14 @@ def test_what_the_port_refuses_exits_1_by_item(tool, sources, tmp_path, capsys, 
     main = tspec.main if tool == "spec" else tispec.main
     src, out = sources["64x48"], str(tmp_path / "o.png")
     monkeypatch.chdir(tmp_path)
-    for args in (["-M", "2"], ["--mesh", "space=2"], ["--mesh=auto"]):
+    for args, msg in ((["-M", "space=2,time=2"], "spec mesh uses the space axis only"),
+                      (["--mesh", "space=99"], "mesh unavailable (mesh needs 99 devices"),
+                      (["--mesh=time=2"], "spec mesh uses the space axis only; pass -M N")):
         assert main(CPU + args + ["-R", "one", src, out]) == 1
-        assert "queue 1, item 18" in capsys.readouterr().err
-    monkeypatch.setenv("DSPFUN_MESH", "2")
+        assert msg in capsys.readouterr().err
+    monkeypatch.setenv("DSPFUN_MESH", "space=2,time=2")
     assert main(CPU + ["-R", "one", src, out]) == 1
-    assert "DSPFUN_MESH" in capsys.readouterr().err
+    assert "spec mesh uses the space axis only" in capsys.readouterr().err
     monkeypatch.delenv("DSPFUN_MESH")
     for target in ("sixel:-", "sixel:o.six"):
         assert main(CPU + ["-R", "one", src, target]) == 1

@@ -181,7 +181,7 @@ def test_png_sequence_and_non_finite_frames(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--mesh", "2", "IN", "o.y4m"], "queue 1, item 18"),
+    (["--device", "cpu", "--mesh", "space=2,time=2", "IN", "o.y4m"], "zoom --mesh shards space only"),
     (["--device", "cpu", "--ff-encoder", "libx264", "IN", "o.nut"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "o.webm"], "queue 1, item 13"),
     (["--device", "cpu", "IN", "ffplay:"], "queue 1, item 13"),
@@ -220,9 +220,9 @@ def test_device_defaults_to_the_card_and_the_tool_default_follows_it(tmp_path, c
     monkeypatch.setattr(tprec, "_explicit", False)
     assert tzoom.main(["--device", "cpu", "-s", "2", src, str(tmp_path / "o.png")]) == 0
     assert tprec.get_precision() == tprec.Precision()                # --device cpu: hilo
-    monkeypatch.setenv("DSPFUN_MESH", "4")
+    monkeypatch.setenv("DSPFUN_MESH", "space=999")
     assert tzoom.main(["--device", "cpu", "-s", "2", src, str(tmp_path / "o.png")]) == 1
-    assert "queue 1, item 18" in capsys.readouterr().err
+    assert "mesh unavailable (mesh needs 999 devices" in capsys.readouterr().err
 
 
 def test_help_and_dispatcher(tmp_path, capsys):
