@@ -228,6 +228,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    2`` and ``spec -M 2`` exit 1 (a mesh takes a card per rank); with more,
    both run over nccl and equal one card's output.  Every kernel of the
    path must launch on some rank;
+15. main path 11, the ffmpeg bridge, ``ffplay:``, BMP and sixel, on shim
+   binaries (``tests/torch_ffmpeg_shims.py``: the card's machine has no
+   ffmpeg) put first on PATH for the phase alone.  (a) Phase 6's
+   lowpass on the first 16 frames of its clip, from ``in.mp4`` (the y4m
+   behind the shim's ``FAKEMP4`` header) to ``out.mp4``: equal byte for
+   byte to the same run from the y4m clip to y4m, launches of kernels #2
+   and #3 counted, the kernels held to their plain versions at the run's
+   shapes; again at 10 bits (a ``yuv420p10le`` probe: ``RawReader`` in,
+   ``RawWriter`` out), the payload equal to the 10-bit y4m run's; the
+   seconds of the probe, the pump in (read), compute and the pump out
+   (write), and the MB/s through the pipes.  (b) An ``ffplay:`` sink of
+   one 1920x1080 frame: the color properties on its logged argv.  (c)
+   ``spec`` and ``ispec -t flat`` at ``i8@1e-5`` of a 3840x2160 RGB BMP:
+   the spectrum equal to the one from the PNG of the same pixels, both
+   ispecs to BMP equal, kernels #1-#2 launched (counted on the BMP runs)
+   and held to their plain versions at spec's shapes; the BMP's decode
+   seconds.  (d) ``ispec`` to ``sixel:`` at 640x360: decoded exactly
+   where the image has at most 256 colours, else within the gate of
+   tests/test_torch_sixel.py (``SIXEL_MEAN``, ``SIXEL_MAX``), and the
+   encode seconds;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -577,18 +597,19 @@ def _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES) -> dict
     return out
 
 
-def _write_clip(video, path: str | None, frames: int | None = None) -> list:
-    """A seeded MWxMH yuv420p y4m clip of MFRAMES frames (or its first
-    ``frames``; smooth moving content plus noise), written with the
-    port's Y4MWriter (unless ``path`` is None).  Returns the planes as
-    [frames, h, w] uint8 arrays."""
+def _write_clip(video, path: str | None, frames: int | None = None, hw=None) -> list:
+    """A seeded MWxMH (or ``hw``) yuv420p y4m clip of MFRAMES frames (or
+    its first ``frames``; smooth moving content plus noise), written with
+    the port's Y4MWriter (unless ``path`` is None).  Returns the planes
+    as [frames, h, w] uint8 arrays."""
     rng = np.random.default_rng(0)
     pf = video.PIXEL_FORMATS["yuv420p"]
-    dims = pf.plane_dims(MW, MH)
+    mh, mw = hw or (MH, MW)
+    dims = pf.plane_dims(mw, mh)
     nframes = MFRAMES if frames is None else frames
     planes = [np.empty((nframes, h, w), np.uint8) for w, h in dims]
     writer = (contextlib.nullcontext() if path is None else
-              video.open_output(path, MW, MH, Fraction(25, 1), video.ColorProps(pix_fmt="yuv420p")))
+              video.open_output(path, mw, mh, Fraction(25, 1), video.ColorProps(pix_fmt="yuv420p")))
     with writer:
         for t in range(nframes):
             frame = []
@@ -2148,7 +2169,8 @@ def _eval_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, ff
             ref_y4m = os.path.join(tmp, "low.y4m")
             _, st_y4m, _ = run(MOTION_ARGS[1:], ref_y4m)
             real_open = video.open_input
-            video.open_input = lambda spec, format=None: real_open(spec, format, native=False)
+            video.open_input = lambda spec, format=None, options=None: real_open(
+                spec, format, native=False, options=options)
             try:
                 _, st_py, _ = run(MOTION_ARGS[1:], ref_y4m)
             finally:
@@ -2662,6 +2684,322 @@ def _mesh_cli_phase(torch, video, images, clip, png) -> None:
                 raise RuntimeError(f"{mod.__name__} over nccl differs from one card")
 
 
+# phase 15: the ffmpeg bridge, ffplay:, BMP and sixel ----------------------
+BRIDGE_FRAMES = 16                # phase 6's clip, its first 16 frames (one slab)
+BRIDGE_BMP_HW = (H, W)            # (c): spec of a 3840x2160 RGB BMP at i8@1e-5
+SIXEL_HW = (360, 640)             # (d): ispec to sixel: at 640x360
+# (d)'s gate where the image has more than 256 colours: the decoded sixel's
+# mean and largest error in 8-bit levels, the JAX encoder's own figures on
+# this phase's image (ispec's output of _seeded_png(..., SIXEL_HW, 16,
+# noise=0.02) at the default policy, 3.007 and 22.25, computed on the CPU
+# with Pillow, which the card's machine lacks) plus the margins of
+# tests/test_torch_sixel.py
+SIXEL_MEAN, SIXEL_MAX = 3.007 + 0.5, 22.25 + 2.0
+
+
+def _shim_module():
+    """``tests/torch_ffmpeg_shims.py`` of this checkout, loaded by its path
+    (another installed package may be named ``tests``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_ffmpeg_shims.py")
+    spec = importlib.util.spec_from_file_location("torch_ffmpeg_shims", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _shim_probe(path, pix_fmt, nframes, hw):
+    with open(path, "w") as f:
+        json.dump({"streams": [{"codec_type": "video", "pix_fmt": pix_fmt,
+                                "nb_frames": str(nframes), "avg_frame_rate": "25/1",
+                                "width": hw[1], "height": hw[0], "color_range": "tv"}],
+                   "format": {}}, f)
+
+
+def _y4m_payload(path):
+    """The frame payloads of a y4m file, its FRAME lines and header dropped."""
+    with open(path, "rb") as f:
+        f.readline()
+        return b"".join(f.read().split(b"FRAME\n"))
+
+
+def _decode_sixel(data: bytes):
+    """(index image [H, W], palette [N, 3] in whole percents) of a sixel
+    stream as io/sixel.py writes it."""
+    import re
+
+    body = data[3:-2].decode()
+    m = re.match(r'"1;1;(\d+);(\d+)', body)
+    w, h = int(m.group(1)), int(m.group(2))
+    pal, idx = {}, np.full((h, w), -1, np.int64)
+    i, color, x, y0 = m.end(), 0, 0, 0
+    while i < len(body):
+        ch = body[i]
+        if ch == "#":
+            m = re.match(r"#(\d+)(;2;(\d+);(\d+);(\d+))?", body[i:])
+            color = int(m.group(1))
+            if m.group(2):
+                pal[color] = tuple(int(m.group(k)) for k in (3, 4, 5))
+            i += m.end()
+            continue
+        if ch in "$-":
+            x, y0, i = 0, y0 + 6 * (ch == "-"), i + 1
+            continue
+        run = 1
+        if ch == "!":
+            m = re.match(r"!(\d+)", body[i:])
+            run, i = int(m.group(1)), i + m.end()
+            ch = body[i]
+        bits = ord(ch) - 63
+        for r in range(6):
+            if bits >> r & 1 and y0 + r < h:
+                idx[y0 + r, x:x + run] = color
+        x, i = x + run, i + 1
+    if (idx < 0).any():
+        raise RuntimeError("sixel: a pixel was never painted")
+    lut = np.zeros((max(pal) + 1, 3), np.int64)
+    for k, v in pal.items():
+        lut[k] = v
+    return idx, lut
+
+
+def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, fft,
+                  hw=(MH, MW), frames=BRIDGE_FRAMES, bmp_hw=BRIDGE_BMP_HW, sixel_hw=SIXEL_HW,
+                  device_args=()) -> dict:
+    """Main path 11: motion through the ffmpeg bridge (shim binaries) both
+    ways at 8 and 10 bits, an ``ffplay:`` sink, spec and ispec of a BMP,
+    ispec to sixel.  Returns the kernels' launches over the measured
+    runs."""
+    from dspfun_tpu_torch.io import ffmpeg_bridge, images, video
+    from dspfun_tpu_torch.io import sixel as _sixel
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+    shims = _shim_module()
+    FAKE_HEADER, install_shims = shims.FAKE_HEADER, shims.install_shims
+
+    h, w = hw
+    launches: dict = {}
+
+    def counted(fn):
+        int8mm.LAUNCHES.clear()
+        block_filter.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: c for n, c in {**int8mm.LAUNCHES, **block_filter.LAUNCHES}.items() if c}
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        return out, got
+
+    def run_motion(src, dst):
+        t0 = time.perf_counter()
+        rc = motion.main(MOTION_ARGS + list(device_args) + [src, dst])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"motion {src} -> {dst} exited {rc}")
+        return time.perf_counter() - t0, dict(motion.LAST_STAGE_TIMES)
+
+    saved_env = {k: os.environ.get(k) for k in ("PATH", "SHIM_LOG", "SHIM_PROBE")}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bridge_") as tmp:
+        bindir = install_shims(os.path.join(tmp, "bin"))
+        log = os.path.join(tmp, "shim.log")
+        probe = os.path.join(tmp, "probe.json")
+        os.environ["PATH"] = f"{bindir}{os.pathsep}{os.environ.get('PATH', '')}"
+        os.environ["SHIM_LOG"] = log
+        os.environ["SHIM_PROBE"] = probe
+        ffmpeg_bridge.have_ffmpeg.cache_clear()
+        ffmpeg_bridge.have_ffprobe.cache_clear()
+        try:
+            # ---- (a) motion through the bridge, 8-bit (y4m transport) ----
+            clip = os.path.join(tmp, "clip.y4m")
+            planes = _write_clip(video, clip, frames, hw)
+            mp4 = os.path.join(tmp, "in.mp4")
+            with open(mp4, "wb") as f:
+                f.write(FAKE_HEADER + open(clip, "rb").read())
+            _shim_probe(probe, "yuv420p", frames, hw)
+            t0 = time.perf_counter()
+            meta = ffmpeg_bridge.probe(mp4)
+            probe_s = time.perf_counter() - t0
+            if meta["streams"][0]["nb_frames"] != str(frames):
+                raise RuntimeError(f"shim probe: {meta}")
+            ref = os.path.join(tmp, "ref.y4m")
+            run_motion(clip, ref)                           # plans, warm
+            out = os.path.join(tmp, "out.mp4")
+            (wall, stages), got = counted(lambda: run_motion(mp4, out))
+            nbytes = os.path.getsize(mp4)
+            print(f"phase 15a bridge 8-bit {w}x{h} {frames} frames: launches {json.dumps(got)}; "
+                  f"probe {probe_s:.4f} s, pump in (read) {stages.get('read', 0):.4f} s "
+                  f"({nbytes / 1e6 / max(stages.get('read', 0), 1e-9):.1f} MB/s), compute "
+                  f"{stages.get('compute', 0):.4f} s, pump out (write) "
+                  f"{stages.get('write', 0):.4f} s "
+                  f"({os.path.getsize(out) / 1e6 / max(stages.get('write', 0), 1e-9):.1f} MB/s)"
+                  f", wall {wall:.3f} s", flush=True)
+            if not (got.get("right3") and got.get("block_filter")):
+                raise RuntimeError(f"phase 15a: kernels #2 and #3 did not launch: {got}")
+            same = open(out, "rb").read() == open(ref, "rb").read()
+            print(f"phase 15a mp4 -> mp4 through the bridge == y4m -> y4m: {same}", flush=True)
+            if not same:
+                raise RuntimeError("phase 15a: the bridge run differs from the y4m run")
+            argv = [json.loads(ln) for ln in open(log)]
+            dec = next(a for a in argv if "-map" in a and a[a.index("-i") + 1] == mp4)
+            enc = next(a for a in argv if a[-1] == out)
+            if not (dec[dec.index("-f") + 1] == "yuv4mpegpipe"
+                    and enc[enc.index("-f") + 1] == "yuv4mpegpipe"
+                    and "-c:v" not in enc):     # mp4: ffmpeg's default codec
+                raise RuntimeError(f"phase 15a: unexpected ffmpeg argv {argv}")
+            with plain_versions():
+                plain_out = os.path.join(tmp, "plain.mp4")
+                run_motion(mp4, plain_out)
+            ndiff = int(np.sum(np.frombuffer(open(out, "rb").read(), np.uint8)
+                               != np.frombuffer(open(plain_out, "rb").read(), np.uint8)))
+            print(f"phase 15a kernel vs plain through the bridge: {ndiff} bytes differ",
+                  flush=True)
+
+            # ---- (a) 10-bit: rawvideo transport, RawReader/RawWriter ----
+            pf10 = video.PIXEL_FORMATS["yuv420p10le"]
+            clip10 = os.path.join(tmp, "clip10.y4m")
+            rng = np.random.default_rng(10)
+            raw10 = bytearray(FAKE_HEADER)
+            with video.open_output(clip10, w, h, Fraction(25, 1),
+                                   video.ColorProps(pix_fmt="yuv420p10le")) as wr:
+                for t in range(frames):
+                    fr = [(p[t].astype(np.uint16) * 4
+                           + rng.integers(0, 4, p[t].shape)).astype("<u2") for p in planes]
+                    wr.write_frame(fr, raw=True)
+                    raw10 += b"".join(x.tobytes() for x in fr)
+            mp4_10 = os.path.join(tmp, "in10.mp4")
+            with open(mp4_10, "wb") as f:
+                f.write(raw10)
+            _shim_probe(probe, "yuv420p10le", frames, hw)
+            ref10 = os.path.join(tmp, "ref10.y4m")
+            run_motion(clip10, ref10)
+            out10 = os.path.join(tmp, "out10.mp4")
+            (wall, stages), got = counted(lambda: run_motion(mp4_10, out10))
+            argv = [json.loads(ln) for ln in open(log)]
+            # the two shims log as they start, in either order
+            dec = next(a for a in argv if "-map" in a and a[a.index("-i") + 1] == mp4_10)
+            enc = next(a for a in argv if a[-1] == out10)
+            if not (dec[dec.index("-pix_fmt") + 1] == "yuv420p10le"
+                    and dec[dec.index("-f", dec.index("-map")) + 1] == "rawvideo"
+                    and enc[enc.index("-pixel_format") + 1] == "yuv420p10le"):
+                raise RuntimeError(f"phase 15a 10-bit: not the rawvideo transport: {argv[-2:]}")
+            same = open(out10, "rb").read() == _y4m_payload(ref10)
+            print(f"phase 15a bridge 10-bit (rawvideo both ways): launches {json.dumps(got)}; "
+                  f"read {stages.get('read', 0):.4f} s "
+                  f"({(len(raw10) - 8) / 1e6 / max(stages.get('read', 0), 1e-9):.1f} MB/s), "
+                  f"compute {stages.get('compute', 0):.4f} s, write {stages.get('write', 0):.4f}"
+                  f" s, wall {wall:.3f} s; payload == y4m run's: {same}", flush=True)
+            if not (same and got.get("right3") and got.get("block_filter")):
+                raise RuntimeError("phase 15a 10-bit failed")
+            # kernels #2 and #3 against their plain versions at this run's shapes
+            if h == MH and w == MW:
+                for m, k, r, what in MOTION_I8_SHAPES:
+                    check_i8mm(3, "right", m, k, 1, r, what + " (bridge)")
+                _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+
+            # ---- (b) an ffplay: sink ----
+            t0 = time.perf_counter()
+            props = video.parse_color_props("pixel_format=yuv420p:color_range=jpeg:"
+                                            "color_trc=linear")
+            with video.open_output("ffplay:", w, h, Fraction(25), props) as wr:
+                wr.write_frame([p[0] for p in planes], raw=True)
+            play = [json.loads(ln) for ln in open(log)][-1]
+            want = {"-color_range": "pc", "-color_trc": "linear", "-pixel_format": "yuv420p",
+                    "-video_size": f"{w}x{h}"}
+            have = {k: play[play.index(k) + 1] for k in want}
+            print(f"phase 15b ffplay: argv {json.dumps(have)} in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            if have != want:
+                raise RuntimeError(f"phase 15b: ffplay argv {play}")
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            ffmpeg_bridge.have_ffmpeg.cache_clear()
+            ffmpeg_bridge.have_ffprobe.cache_clear()
+
+        # ---- (c) spec and ispec of a BMP at i8@1e-5 ----
+        bh, bw = bmp_hw
+        src_png = os.path.join(tmp, "in.png")
+        src_bmp = os.path.join(tmp, "in.bmp")
+        pix = _seeded_png(images, src_png, bmp_hw, 15)
+        images.write_image(src_bmp, pix)
+        t0 = time.perf_counter()
+        from_bmp = images.read_image(src_bmp)
+        bmp_s = time.perf_counter() - t0
+        if not np.array_equal(from_bmp.pixels, images.read_image(src_png).pixels):
+            raise RuntimeError("phase 15c: the BMP does not hold the PNG's pixels")
+        print(f"phase 15c BMP {bw}x{bh}: decode {bmp_s:.4f} s, {os.path.getsize(src_bmp)} bytes",
+              flush=True)
+        spec_i8 = {"left3": 1, "right3": 1} if min(bmp_hw) >= 256 else {}
+        with _policy("i8@1e-5"):
+            s_png, s_bmp = os.path.join(tmp, "s_png.png"), os.path.join(tmp, "s_bmp.png")
+            b_png, b_bmp = os.path.join(tmp, "b_png.bmp"), os.path.join(tmp, "b_bmp.bmp")
+            res = {}
+            for name, mod, args in (("spec png", spec, [src_png, s_png]),
+                                    ("spec bmp", spec, [src_bmp, s_bmp]),
+                                    ("ispec png", ispec, [s_png, b_png]),
+                                    ("ispec bmp", ispec, [s_bmp, b_bmp])):
+                measured = name.endswith("bmp")
+                fn = lambda mod=mod, args=args: _run_tool(  # noqa: E731
+                    torch, mod, list(device_args) + ["-t", "flat", "-G", "1000"] + args, int8mm)
+                (wall, stages, got), _ = counted(fn) if measured else (fn(), None)
+                res[name] = got
+                print(f"phase 15c {name} {bw}x{bh}: {wall:.3f} s; stages {_stages(stages)}; "
+                      f"launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 15c {name} launched {got}, expected {spec_i8}")
+        same_spec = open(s_png, "rb").read() == open(s_bmp, "rb").read()
+        same_back = open(b_png, "rb").read() == open(b_bmp, "rb").read()
+        print(f"phase 15c spectrum from the BMP == from the PNG: {same_spec}; their ispecs to "
+              f"BMP equal: {same_back}", flush=True)
+        if not (same_spec and same_back):
+            raise RuntimeError("phase 15c: the BMP route differs from the PNG route")
+        if tuple(bmp_hw) == (H, W):
+            for layout, m, k, b, r, what in SPEC_I8_SHAPES:
+                check_i8mm(3, layout, m, k, b, r, what + " (bmp)")
+
+        # ---- (d) ispec to sixel: ----
+        sh, sw = sixel_hw
+        src6 = os.path.join(tmp, "six.png")
+        _seeded_png(images, src6, sixel_hw, 16, noise=0.02)
+        spec6 = os.path.join(tmp, "six_spec.png")
+        _run_tool(torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", src6, spec6],
+                  int8mm)
+        six, ppm = os.path.join(tmp, "out.six"), os.path.join(tmp, "ref.ppm")
+        for target in (f"sixel:{six}", f"ppm:{ppm}"):
+            wall, stages, _ = _run_tool(torch, ispec, list(device_args)
+                                        + ["-t", "flat", "-G", "1000", spec6, target], int8mm)
+            if target.startswith("sixel"):
+                sixel_s = stages.get("write", 0.0)
+        data = open(six, "rb").read()
+        ppm_data = open(ppm, "rb").read()
+        ref8 = np.frombuffer(ppm_data[ppm_data.index(b"255\n") + 4:], np.uint8).reshape(sh, sw, 3)
+        idx, lut = _decode_sixel(data)
+        decoded = lut[idx] * 255.0 / 100.0
+        err = np.abs(decoded - ref8)
+        ncolors = len(np.unique(ref8.reshape(-1, 3), axis=0))
+        t0 = time.perf_counter()
+        again = _sixel.encode_sixel(ref8)
+        enc_s = time.perf_counter() - t0
+        exact = ncolors <= 256
+        ok = (np.array_equal(lut[idx], ref8.astype(np.int64) * 100 // 255) if exact
+              else err.mean() <= SIXEL_MEAN and err.max() <= SIXEL_MAX)
+        print(f"phase 15d sixel {sw}x{sh}: {ncolors} colours, {len(data)} bytes, decoded error "
+              f"mean {err.mean():.3f} max {err.max():.1f} levels (gate: "
+              f"{'exact' if exact else f'mean <= {SIXEL_MEAN:.3f}, max <= {SIXEL_MAX:.1f}'}): "
+              f"{'PASS' if ok else 'FAIL'}; ispec write {sixel_s:.4f} s, encode alone "
+              f"{enc_s:.4f} s, same bytes: {again == data}", flush=True)
+        if not (ok and again == data):
+            raise RuntimeError("phase 15d: sixel output failed its gate")
+    print(f"phase 15 {time.perf_counter() - t_phase:.1f} s; launches {json.dumps(launches)}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2935,13 +3273,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_path = _mesh_main(torch, dev, check_i8mm, block_filter, scipy.fft)
 
+    # ---- phase 15: main path 11, the ffmpeg bridge, ffplay:, BMP, sixel ----
+    torch.cuda.empty_cache()
+    bridge = _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm,
+                           scipy.fft)
+    if not (bridge.get("left3") and bridge.get("right3") and bridge.get("block_filter")):
+        raise RuntimeError(f"a kernel of the bridge path never launched: {bridge}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
                              + calib["i8mm_launches"][n] + spec_cli[n]
                              + scan_cli["launches"].get(n, 0) + zoom_launches[n]
                              + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)
-                             + mesh_path["launches"].get(n, 0)),
+                             + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -2950,7 +3295,8 @@ def main() -> int:
                                      "zoom_cli": zoom_launches[n],
                                      "draw_cli": basis_cli["launches"].get(n, 0),
                                      "motion_eval": eval_cli.get(n, 0),
-                                     "mesh": mesh_path["launches"].get(n, 0)},
+                                     "mesh": mesh_path["launches"].get(n, 0),
+                                     "bridge": bridge.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -2976,10 +3322,12 @@ def main() -> int:
     kernels.append({"name": "block_filter", "route": "cuda", "source": BF_SRC,
                     "replaces": BF_REPLACES,
                     "launches": (motion_launches["block_filter"] + eval_cli["block_filter"]
-                                 + mesh_path["launches"].get("block_filter", 0)),
+                                 + mesh_path["launches"].get("block_filter", 0)
+                                 + bridge.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
-                                         "mesh": mesh_path["launches"].get("block_filter", 0)},
+                                         "mesh": mesh_path["launches"].get("block_filter", 0),
+                                         "bridge": bridge.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

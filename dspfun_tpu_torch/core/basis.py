@@ -19,7 +19,7 @@ import math
 
 import numpy as np
 
-__all__ = ["dct2_matrix", "dct3_matrix", "clamp_scale", "zoom_scaled_basis",
+__all__ = ["dct2_matrix", "dct3_matrix", "clamp_scale", "scan_basis_matrix", "zoom_scaled_basis",
            "basis_fn", "basis_matrix", "BASIS_FAMILIES"]
 
 _PI = math.pi
@@ -60,6 +60,15 @@ def clamp_scale(n: int, num: float, den: float) -> tuple[float, float]:
     if n * num / den < 1:
         return 1.0, float(n)
     return num, den
+
+
+def scan_basis_matrix(n: int) -> np.ndarray:
+    """scan's pruned-IDCT basis (reference scan/scan.c:20-28).
+
+    B[k, j] = 1 if j == 0 else 2 cos(pi j (k + 1/2) / n) — identical to
+    :func:`dct3_matrix`; kept as an alias for parity with the reference.
+    """
+    return dct3_matrix(n)
 
 
 def zoom_scaled_basis(

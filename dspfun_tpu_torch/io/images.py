@@ -1,26 +1,31 @@
 """Still-image I/O of the port: the MagickWand surface of the reference
-(copy of ``dspfun_tpu/io/images.py`` on the port's own PNG codec).
+(copy of ``dspfun_tpu/io/images.py`` on the port's own codecs).
 
 Covers what the reference tools use from MagickWand
 (spec/spec.c:46-60,141-155, ispec.c:54-81,170-182):
 
 * read/write by path, ``-`` pipes, and ImageMagick-style ``fmt:path``
-  specifiers (``png:-``);
+  specifiers (``png:-``, ``sixel:-``);
 * pixel export/import as float arrays in [0, 1] with a channel string
   ("RGB", "RGBA", "I", ...);
 * image properties, notably the base16-encoded per-channel "DC"
   property spec smuggles through the file header
   (spec/spec.h:157-168, spec.c:145-148), stored as a PNG tEXt chunk;
 * sRGB <-> linear colorspace transform flags;
-* original bit depth.
+* original bit depth;
+* sixel output (``io/sixel.py``), also the default of
+  ``write_image(None, ...)`` on a terminal, as in the JAX package.
 
-The JAX package reads and writes through Pillow; the port has
-``io/png.py`` and nothing else, so it differs in what it refuses, each
-with a ``ValueError`` naming the ROADMAP item: every format but PNG, on
-read and on write (``png.NOT_PORTED``), and sixel output, including the
-tty default of ``write_image(None, ...)`` (``SIXEL_NOT_PORTED``: its
-palette comes from Pillow's quantiser).  Nothing falls back to another
-format.  tests/test_torch_images.py pins the rest to the original.
+The JAX package reads and writes through Pillow; the port has its own
+codecs: PNG (``io/png.py``), PNM, BMP and uncompressed TIFF
+(``io/imgcodecs.py``), each reading what Pillow decodes and writing
+what it writes.  The compressed formats (JPEG, WebP, GIF, compressed
+TIFF) go through ``cv2`` where it imports; where it does not, they are
+refused with a ``ValueError`` naming ROADMAP queue 1, item 8
+(``png.refusal``).  Inputs are recognised by their leading bytes, as
+Pillow recognises them; the ``fmt:`` prefix names the output format.
+tests/test_torch_images.py and test_torch_image_formats.py pin the rest
+to the original.
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ import sys
 import numpy as np
 
 from dspfun_tpu_torch.io import color as _color
+from dspfun_tpu_torch.io import cv2_bridge as _cv2_bridge
+from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import png as _png
+from dspfun_tpu_torch.io import sixel as _sixel
 
 __all__ = [
     "ImageData",
-    "SIXEL_NOT_PORTED",
     "read_image",
     "write_image",
     "check_target",
@@ -49,7 +56,11 @@ __all__ = [
 # Channel letters understood by the export/import surface.  "I" is
 # intensity (grayscale).
 _RGBA = "RGBA"
-SIXEL_NOT_PORTED = "ROADMAP.md queue 1, item 21"
+# the formats the port writes itself beside PNG, by Pillow's format name,
+# and those it hands to cv2 (with cv2's extension)
+_NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
+                   "TIFF": _codecs.encode_tiff}
+_CV2_WRITERS = {"JPEG": ".jpg", "WEBP": ".webp", "GIF": ".gif"}
 
 
 def base16_encode(data: bytes) -> str:
@@ -143,10 +154,10 @@ def _from_channels(pix: np.ndarray, channels: str) -> np.ndarray:
 
 
 def _rgba(arr: np.ndarray, trns: tuple | None) -> np.ndarray:
-    """A decoded PNG's [H, W, C] integers as float RGBA in [0, 1]: gray
+    """A decoded image's [H, W, C] integers as float RGBA in [0, 1]: gray
     replicated, a missing alpha 1, and the ``tRNS`` colour of an 8-bit
-    gray or RGB file transparent (what Pillow's ``convert("RGBA")``
-    makes of it)."""
+    gray or RGB PNG transparent (what Pillow's ``convert("RGBA")`` makes
+    of it)."""
     fa = arr.astype(np.float64) / float(np.iinfo(arr.dtype).max)
     h, w, nch = fa.shape
     rgba = np.zeros((h, w, 4), dtype=np.float64)
@@ -162,8 +173,50 @@ def _rgba(arr: np.ndarray, trns: tuple | None) -> np.ndarray:
     return rgba
 
 
+def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
+    """A compressed image through cv2 (imported here and nowhere else in
+    this module): samples as the other decoders give them, 16-bit color
+    cut to its high bytes as Pillow's ``RGB`` mode holds it."""
+    try:
+        import cv2  # noqa: PLC0415
+    except Exception:  # noqa: BLE001 — any import failure: no codec here
+        raise _png.refusal(f"{name} input") from None
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise ValueError(f"cv2 cannot decode this {name} input")
+    if img.ndim == 2:
+        img = img[..., None]
+    if name == "compressed TIFF" and img.shape[2] == 4:
+        raise ValueError("compressed TIFF with alpha: cv2 decodes it premultiplied")
+    if img.shape[2] >= 3:
+        img = img[..., [2, 1, 0, 3][:img.shape[2]]]  # BGR(A) -> RGB(A)
+    if img.dtype == np.uint16 and img.shape[2] > 1:
+        img = (img >> 8).astype(np.uint8)
+    return np.ascontiguousarray(img), 16 if img.dtype == np.uint16 else 8
+
+
+def _decoder(data: bytes):
+    """The decoder of an image file, by its leading bytes (as Pillow
+    identifies files): a function of the bytes to (samples, depth)."""
+    if data[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+        return _codecs.decode_pnm
+    if data[:2] == b"BM":
+        return _codecs.decode_bmp
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        if _codecs.tiff_compression(data) == 1:
+            return _codecs.decode_tiff
+        return lambda d: _cv2_decode(d, "compressed TIFF")
+    if data.startswith(b"\xff\xd8"):
+        return lambda d: _cv2_decode(d, "JPEG")
+    if data.startswith(b"GIF8"):
+        return lambda d: _cv2_decode(d, "GIF")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return lambda d: _cv2_decode(d, "WebP")
+    raise ValueError("cannot identify image file")
+
+
 def read_image(spec: str, channels: str = "RGB", linear: bool = False) -> ImageData:
-    """Read a PNG (path, ``-`` for stdin, or ``fmt:path``).
+    """Read an image (path, ``-`` for stdin, or ``fmt:path``).
 
     ``linear=True`` converts sRGB input to linear light, the ``-g``
     behaviour (MagickTransformImageColorspace(RGBColorspace),
@@ -176,8 +229,11 @@ def read_image(spec: str, channels: str = "RGB", linear: bool = False) -> ImageD
         with open(path, "rb") as f:
             data = f.read()
 
-    arr, properties, trns = _png.decode_png(data)
-    depth = 8 * arr.dtype.itemsize
+    if data.startswith(b"\x89PNG\r\n\x1a\n"):
+        arr, properties, trns = _png.decode_png(data)
+        depth = 8 * arr.dtype.itemsize
+    else:
+        (arr, depth), properties, trns = _decoder(data)(data), {}, None
     rgba = _rgba(arr, trns)
 
     was_linear = properties.get("colorspace") == "RGB"
@@ -195,19 +251,27 @@ def read_image(spec: str, channels: str = "RGB", linear: bool = False) -> ImageD
     )
 
 
+def _format_name(fmt: str | None, path: str) -> str:
+    """Pillow's format name for an output, as the JAX package picks it."""
+    name = (fmt or (path.rsplit(".", 1)[-1] if "." in path else "png")).upper()
+    if name == "JPG":
+        name = "JPEG"
+    if path == "-" and not fmt:
+        name = "PNG"
+    return name
+
+
 def check_target(spec: str | None) -> tuple[str | None, str]:
-    """The (format, path) of an output specifier, or the ``ValueError``
-    of a target the port does not write: sixel (also the default on a
-    tty) and every file format but PNG."""
+    """The (format, path) of an output specifier (``sixel:-`` for None on a
+    terminal, as in the JAX package), or the ``ValueError`` of a
+    compressed format when cv2 does not import here.  The tools call it
+    before they read anything."""
     if spec is None:
         spec = "sixel:-" if sys.stdout.isatty() else "-"
     fmt, path = _split_spec(spec)
-    if fmt == "sixel":
-        raise ValueError("sixel output (the default on a terminal) is not ported to "
-                         f"dspfun_tpu_torch; name a PNG file ({SIXEL_NOT_PORTED})")
-    name = (fmt or (path.rsplit(".", 1)[-1] if "." in path else "png")).lower()
-    if name != "png":
-        raise _png.refusal(f"{name.upper()} output")
+    if (fmt != "sixel" and _format_name(fmt, path) in _CV2_WRITERS
+            and not _cv2_bridge.available()):
+        raise _png.refusal(f"{_format_name(fmt, path)} output")
     return fmt, path
 
 
@@ -219,14 +283,16 @@ def write_image(
     to_srgb: bool = False,
     depth: int = 8,
 ) -> None:
-    """Write float pixels in [0,1] to a PNG: path / ``-`` stdout / ``png:path``.
+    """Write float pixels in [0,1] to path / ``-`` stdout / ``fmt:path``.
 
     ``to_srgb=True`` re-encodes linear-light pixels with the sRGB OETF
     before quantisation (the output half of ``-g``,
-    reference ispec.c:173-176).  ``spec=None`` is stdout, and refused on
-    a tty, where the reference tools write sixel (spec/spec.c:41-42).
+    reference ispec.c:173-176).  ``spec=None`` defaults to sixel on a
+    tty, matching the reference tools' isatty behaviour
+    (spec/spec.c:41-42).  Text properties go into PNG files only; 16-bit
+    output is PNG, or gray in PPM or TIFF (the JAX package's rules).
     """
-    _, path = check_target(spec)
+    fmt, path = check_target(spec)
 
     rgba = _from_channels(np.asarray(pixels, dtype=np.float64), channels)
     if to_srgb:
@@ -236,19 +302,58 @@ def write_image(
     scale = (1 << depth) - 1
     quant = np.clip(np.rint(np.clip(rgba, 0.0, 1.0) * scale), 0, scale)
 
+    if fmt == "sixel":
+        rgb8 = (quant[..., :3] * (255.0 / scale)).astype(np.uint8)
+        stream = sys.stdout.buffer if path == "-" else open(path, "wb")  # noqa: SIM115
+        try:
+            _sixel.write_sixel(rgb8, stream)
+        finally:
+            if path != "-":
+                stream.close()
+        return
+
+    name = _format_name(fmt, path)
     has_alpha = "A" in channels.upper()
     if depth == 16:
         if len(channels) == 1:
             arr = quant[..., 0].astype(np.uint16)       # 16-bit gray
-        else:
+        elif name == "PNG":
             arr = quant[..., :4 if has_alpha else 3].astype(np.uint16)
+        else:
+            fmt16 = (fmt or (path.rsplit(".", 1)[-1] if "." in path else "png")).lower()
+            raise ValueError(f"16-bit output requires PNG (got {fmt16!r})")
     else:
         arr = quant.astype(np.uint8)
         if not has_alpha:
             arr = arr[..., :3]
 
+    if name == "PNG":
+        data = _png.encode_png(arr, properties)
+    elif name in _NATIVE_WRITERS:
+        data = _NATIVE_WRITERS[name](arr)
+    elif name in _CV2_WRITERS:
+        data = _cv2_encode(arr, name)
+    else:
+        raise ValueError(f"unknown image format {name!r}")
     if path == "-":
-        _png.write_png(sys.stdout.buffer, arr, properties)
+        sys.stdout.buffer.write(data)
         sys.stdout.buffer.flush()
     else:
-        _png.write_png(path, arr, properties)
+        with open(path, "wb") as f:
+            f.write(data)
+
+
+def _cv2_encode(arr: np.ndarray, name: str) -> bytes:
+    """A compressed file through cv2, at Pillow's default quality (JPEG 75,
+    WebP 80).  JPEG takes no alpha and 16 bits, as with Pillow."""
+    import cv2  # noqa: PLC0415
+
+    if name == "JPEG" and (arr.dtype != np.uint8 or arr.ndim == 3 and arr.shape[2] == 4):
+        raise ValueError(f"cannot write {'I;16' if arr.dtype != np.uint8 else 'RGBA'} as JPEG")
+    img = arr if arr.ndim == 2 else arr[..., [2, 1, 0, 3][:arr.shape[2]]]
+    params = {"JPEG": [cv2.IMWRITE_JPEG_QUALITY, 75],
+              "WEBP": [cv2.IMWRITE_WEBP_QUALITY, 80]}.get(name, [])
+    ok, buf = cv2.imencode(_CV2_WRITERS[name], np.ascontiguousarray(img), params)
+    if not ok:
+        raise ValueError(f"cv2 cannot write this image as {name}")
+    return buf.tobytes()

@@ -19,12 +19,12 @@ the image data, and ``IEND`` last.  Whole-file equality with Pillow
 depends on the zlib both link; the scanline stream (filter bytes and
 filtered rows) and every chunk but ``IDAT`` do not.
 
-It reads non-interlaced PNGs of bit depth 8 or 16 and colour types 0, 2,
-4 and 6 with all five filters, the text chunks (``tEXt``, ``zTXt``,
-``iTXt``) and, for 8-bit types 0 and 2, the ``tRNS`` colour.  Everything
-else is refused with a ``ValueError`` that names the ROADMAP item:
-interlaced and palette PNGs, bit depths 1, 2 and 4, and every other
-format.
+It reads every PNG of the standard: bit depths 1, 2, 4, 8 and 16, colour
+types 0, 2, 3 (palette, with the ``tRNS`` alphas), 4 and 6, interlaced
+(Adam7) or not, with all five filters, the text chunks (``tEXt``,
+``zTXt``, ``iTXt``) and, for 8-bit types 0 and 2, the ``tRNS`` colour.
+Palette files come back as 8-bit RGB (RGBA with ``tRNS``) and gray of
+1, 2 or 4 bits scaled to 8 (Pillow's ``L``), as Pillow decodes them.
 
 Unfiltering: a pixel needs its left, upper and upper-left neighbours
 reconstructed, so pixels on one anti-diagonal are independent.
@@ -43,15 +43,13 @@ import numpy as np
 __all__ = ["NOT_PORTED", "decode_png", "encode_png", "refusal", "write_png"]
 
 _SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x start, y start, x step, y step) of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 _COLOR_OF_CHANNELS = {1: 0, 3: 2, 4: 6}
 NOT_PORTED = "ROADMAP.md queue 1, item 8"
-
-# leading bytes of the formats the JAX package reads through Pillow
-_MAGIC = ((b"\xff\xd8", "JPEG"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-          (b"BM", "BMP"), (b"GIF8", "GIF"), (b"RIFF", "WebP"), (b"P1", "PBM"),
-          (b"P2", "PGM"), (b"P3", "PPM"), (b"P4", "PBM"), (b"P5", "PGM"),
-          (b"P6", "PPM"))
 
 # Pillow tries the filters in this order (ZipEncode.c) and keeps the
 # first of the smallest sums
@@ -59,9 +57,11 @@ _PIL_ORDER = (0, 2, 1, 4)
 
 
 def refusal(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported to dspfun_tpu_torch: it reads and writes "
-                      f"non-interlaced PNG of bit depth 8 or 16, colour types 0, 2, 4 "
-                      f"and 6 ({NOT_PORTED})")
+    """The error of a compressed image format where no codec for it is
+    installed (``io/images.py`` reads and writes those through ``cv2``)."""
+    return ValueError(f"{what} needs cv2, which does not import here: the port reads "
+                      f"and writes PNG, PNM, BMP and uncompressed TIFF itself, and the "
+                      f"compressed formats only through cv2 ({NOT_PORTED})")
 
 
 def _chunk(typ: bytes, data: bytes) -> bytes:
@@ -247,18 +247,59 @@ def _text(typ: bytes, body: bytes) -> tuple[str, str] | None:
     return key.decode("latin-1"), value.decode("utf-8")
 
 
+def _unpack(rows: np.ndarray, w: int, nch: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines [h, stride] as samples [h, w, nch] (uint8 for
+    depths up to 8, big-endian pairs joined for 16), unscaled."""
+    h = rows.shape[0]
+    if depth == 16:
+        pairs = rows[:, :w * nch * 2].reshape(h, w, nch, 2)
+        return (pairs[..., 0].astype(np.uint16) << 8) | pairs[..., 1]
+    if depth == 8:
+        return rows[:, :w * nch].reshape(h, w, nch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    vals = (bits * weights).sum(axis=2, dtype=np.uint8)
+    return vals[:, :w * nch].reshape(h, w, nch)
+
+
+def _decode_pass(raw: np.ndarray, w: int, h: int, nch: int, depth: int) -> np.ndarray:
+    """One (sub)image of ``raw`` filtered bytes: samples [h, w, nch]."""
+    stride = (w * nch * depth + 7) // 8
+    bpp = max(1, nch * depth // 8)
+    if raw.size != h * (1 + stride):
+        raise ValueError(f"PNG image data holds {raw.size} bytes, not {h * (1 + stride)}")
+    return _unpack(_unfilter(raw.reshape(h, 1 + stride), h, stride, bpp), w, nch, depth)
+
+
+def _adam7(raw: np.ndarray, w: int, h: int, nch: int, depth: int) -> np.ndarray:
+    """The seven passes of an interlaced image, each filtered on its own,
+    put back on the image's grid."""
+    out = np.zeros((h, w, nch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for xs, ys, dx, dy in _ADAM7:
+        pw, ph = -(-(w - xs) // dx) if w > xs else 0, -(-(h - ys) // dy) if h > ys else 0
+        if not (pw and ph):
+            continue
+        size = ph * (1 + (pw * nch * depth + 7) // 8)
+        out[ys::dy, xs::dx] = _decode_pass(raw[pos:pos + size], pw, ph, nch, depth)
+        pos += size
+    if pos != raw.size:
+        raise ValueError(f"PNG image data holds {raw.size} bytes, not {pos}")
+    return out
+
+
 def decode_png(data: bytes) -> tuple[np.ndarray, dict, tuple | None]:
-    """Decode a PNG: (pixels [H, W, C] uint8 or uint16, C by the file's
-    colour type; text properties; the ``tRNS`` colour of an 8-bit type 0
-    or 2 file, else None)."""
+    """Decode a PNG: (pixels [H, W, C] uint8 or uint16; text properties;
+    the ``tRNS`` colour of an 8-bit type 0 or 2 file, else None).  C
+    follows the colour type: palette files give 3 (4 with ``tRNS``, whose
+    alphas become the fourth channel), and gray of 1, 2 or 4 bits is
+    scaled to 8 (Pillow's ``L``; its ``tRNS`` gray scaled alike)."""
     if not data.startswith(_SIG):
-        name = next((n for magic, n in _MAGIC if data.startswith(magic)), None)
-        raise refusal(f"input that is not a PNG ({name})" if name
-                      else "input that is not a PNG")
+        raise ValueError("not a PNG file")
     pos = 8
     idat = []
     props: dict[str, str] = {}
-    head = trns = None
+    head = trns = plte = None
     while pos + 8 <= len(data):
         ln, typ = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + ln]
@@ -271,6 +312,8 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict, tuple | None]:
                 props[kv[0]] = kv[1]
         elif typ == b"tRNS":
             trns = body
+        elif typ == b"PLTE":
+            plte = body
         elif typ == b"IDAT":
             idat.append(body)
         elif typ == b"IEND":
@@ -278,26 +321,27 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict, tuple | None]:
     if head is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _comp, _filt, interlace = head
-    if interlace:
-        raise refusal("an interlaced PNG")
-    if color == 3:
-        raise refusal("a palette PNG (colour type 3)")
-    if depth not in (8, 16) or color not in _CHANNELS:
-        raise refusal(f"a PNG of bit depth {depth}, colour type {color}")
+    if depth not in _DEPTHS.get(color, ()):
+        raise ValueError(f"invalid PNG: bit depth {depth} with colour type {color}")
     nch = _CHANNELS[color]
-    bpp = nch * depth // 8
-    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-    if raw.size != h * (1 + stride):
-        raise ValueError(f"PNG image data holds {raw.size} bytes, not {h * (1 + stride)}")
-    flat = _unfilter(raw.reshape(h, 1 + stride), h, stride, bpp)
+    out = (_adam7 if interlace else _decode_pass)(raw, w, h, nch, depth)
+    if color == 3:
+        if plte is None:
+            raise ValueError("palette PNG without PLTE")
+        pal = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)
+        pal = np.concatenate([pal, np.zeros((256 - len(pal), 3), np.uint8)])
+        if trns is not None:
+            alpha = np.full(256, 255, np.uint8)
+            alpha[:len(trns)] = np.frombuffer(trns[:256], np.uint8)
+            pal = np.concatenate([pal, alpha[:, None]], axis=1)
+        return pal[out[..., 0]], props, None
+    scale = 255 // ((1 << depth) - 1) if depth < 8 else 1
+    if scale > 1:
+        out = out * np.uint8(scale)
     if depth == 16:
-        pairs = flat.reshape(h, w, nch, 2)
-        out = (pairs[..., 0].astype(np.uint16) << 8) | pairs[..., 1]
-        trns = None
-    else:
-        out = flat.reshape(h, w, nch)
-        want = {0: 2, 2: 6}.get(color)
-        trns = (struct.unpack(f">{want // 2}H", trns)
-                if trns is not None and want == len(trns) else None)
+        return out, props, None
+    want = {0: 2, 2: 6}.get(color)
+    trns = (tuple(v * scale for v in struct.unpack(f">{want // 2}H", trns))
+            if trns is not None and want == len(trns) else None)
     return out, props, trns

@@ -1,5 +1,4 @@
-"""Video I/O: a copy of ``dspfun_tpu/io/video.py`` without the ffmpeg
-bridge.
+"""Video I/O: a copy of ``dspfun_tpu/io/video.py``.
 
 The reference wraps libavformat/libavcodec/libswscale (include/ffapi.{h,c})
 for frame-by-frame video read/write with color-property negotiation.
@@ -16,10 +15,16 @@ has no JAX on the card:
 * **NUT** (``io/nut.py``) with FFV1 (``io/ffv1.py``, the reference's
   default codec for every video tool) or rawvideo payloads, append
   included, read and written;
-* **Matroska** (``io/mkv.py``): FFV1 tracks read, and written as the
-  JAX package writes them when no ffmpeg binary is on PATH;
+* **Matroska** (``io/mkv.py``): FFV1 tracks read, and written when no
+  ffmpeg binary is on PATH;
 * **image2**, a printf pattern (``frame%04d.png``) or a single image
-  path, read and written through ``io/images.py`` (PNG only);
+  path, read and written through ``io/images.py``;
+* every other container (mp4, mov, webm, ..., NUT or Matroska content the
+  native stack cannot decode, encoders it lacks) through the ffmpeg
+  binary (``io/ffmpeg_bridge.py``, ``RawReader``/``RawWriter`` for its
+  rawvideo transport) or, for files without a binary, OpenCV's bundled
+  FFmpeg (``io/cv2_bridge.py``); ``ffplay:`` sinks through an ffplay
+  binary;
 * the pixel formats, color properties (FFColorProperties, ffapi.h:16-23,
   parsed from the same "k=v:k=v" strings, ffapi.c:94-114) and the
   RGB <-> planar and pel conversions around them.
@@ -29,13 +34,9 @@ prefetching demuxer (``NativeBackedReader``, ``io/native.py``).  The host
 libraries build on first use (``_hostbuild.py``); when a build fails the
 reader or writer that needs it raises with the compiler's message, where
 the JAX package falls back to pure Python or to rawvideo payloads.
-
-Not ported yet, each refused with a message naming ROADMAP queue 1,
-item 13: the ffmpeg-bridge containers (mp4, mov, webm and the like, and
-NUT or Matroska content the native stack cannot decode), encoders other
-than FFV1 and rawvideo, and ``ffplay:`` sinks.  tests/test_torch_nut.py,
-test_torch_mkv.py, test_torch_native.py, test_torch_video_fvid.py and
-the CLI tests pin the copy to its original.
+tests/test_torch_nut.py, test_torch_mkv.py, test_torch_native.py,
+test_torch_video_fvid.py, test_torch_ffmpeg_bridge.py and the CLI tests
+pin the copy to its original.
 """
 
 from __future__ import annotations
@@ -76,6 +77,8 @@ __all__ = [
     "MkvVideoReader",
     "MkvVideoWriter",
     "NativeBackedReader",
+    "RawReader",
+    "RawWriter",
     "split_codec_opts",
     "check_output",
     "rgb_to_planes",
@@ -617,7 +620,7 @@ class FvidReader(_HeaderedReader):
 
 class ImageSeqReader(VideoReader):
     """A printf pattern (``frame%04d.png``) or a single image as a
-    gbrpf32le clip, read through io/images.py (PNG only)."""
+    gbrpf32le clip, read through io/images.py."""
 
     def __init__(self, pattern, spec, rate=Fraction(25, 1)):
         super().__init__(None, spec, "image2")
@@ -1162,6 +1165,50 @@ class NativeBackedReader(VideoReader):
             self._nr = None
 
 
+class RawReader(VideoReader):
+    """Headerless fixed-size frames (ffmpeg ``-f rawvideo`` transport).
+
+    Used by the ffmpeg bridge for float/high-depth content (the
+    reference decodes any libav pix_fmt at native depth,
+    ffapi.c:239-326); geometry/rate/props come from the probe."""
+
+    def __init__(self, stream, spec: str, pf: PixelFormat, width: int,
+                 height: int, rate: Fraction, props: ColorProps):
+        super().__init__(stream, spec, "rawvideo")
+        self.width, self.height = width, height
+        self.rate = rate
+        self.pix_fmt = pf
+        self.props = props
+
+    def read_frame(self, raw: bool = False):
+        planes = _read_frame_payload(self._stream, self.pix_fmt, self.width,
+                                     self.height, self.props, raw)
+        if planes is not None:
+            self.frame_index += 1
+        return planes
+
+
+class RawWriter(VideoWriter):
+    """Headerless fixed-size frame writer (ffmpeg ``-f rawvideo``)."""
+
+    def write_frame_payload(self, payload: bytes) -> None:
+        self._stream.write(payload)
+        self.frame_index += 1
+
+    def write_frame(self, planes: list[np.ndarray], raw: bool = False) -> None:
+        pf = self.pix_fmt
+        for i, p in enumerate(planes):
+            if raw and not pf.is_float:
+                maxv = (1 << pf.depth) - 1
+                q = np.clip(np.rint(p), 0, maxv).astype(pf.dtype)
+            elif raw:
+                q = np.asarray(p, dtype=pf.dtype)
+            else:
+                q = _quantize_plane(p, pf, i, self.props.color_range)
+            self._stream.write(q.tobytes())
+        self.frame_index += 1
+
+
 class ImageSeqWriter(VideoWriter):
     def __init__(self, pattern, spec, width, height, rate, pix_fmt, props):
         super().__init__(None, spec, "image2", width, height, rate, pix_fmt, props)
@@ -1212,39 +1259,38 @@ _PATTERN_RE = re.compile(r"%0?\d*d")
 _PIPES_IN = ("-", "pipe:", "pipe:0")
 _PIPES_OUT = ("-", "pipe:", "pipe:1")
 
-# extensions the JAX package hands to its ffmpeg bridge (mkv also has the
-# native Matroska path)
+
+def _open_stream_in(path: str):
+    if path in _PIPES_IN:
+        return sys.stdin.buffer
+    return open(path, "rb")
+
+
+def _open_stream_out(path: str):
+    if path in _PIPES_OUT:
+        return sys.stdout.buffer
+    return open(path, "wb")
+
+
 _FFMPEG_EXTS = ("avi", "mkv", "mp4", "mov", "m4v", "webm", "mpg",
                 "mpeg", "ts", "gif", "flv", "wmv", "ogv")
-# the encoders the port's containers have (y4m, fvid and PNG ignore -e,
-# as the JAX package does)
-NATIVE_CODECS = (None, "", "rawvideo", "ffv1")
-
-
-def _not_ported(spec: str, what: str) -> ValueError:
-    return ValueError(
-        f"{spec!r}: {what} is not ported yet; the port reads y4m, fvid, NUT, "
-        "Matroska (FFV1) and PNG sequences and writes y4m, fvid, NUT (FFV1 or "
-        "rawvideo), Matroska (FFV1) and PNG sequences; the ffmpeg bridge is "
-        "ROADMAP queue 1, item 13")
 
 
 def _sniff_format(path: str, fmt: str | None, for_output: bool = True) -> str:
-    """"y4m", "fvid", "nut", "mkv", "image2" or "pipe" (y4m on output,
-    magic bytes on input) as the JAX package's ``_sniff_format`` decides
-    them; any other container name, which the callers refuse.  An input
-    under an ffmpeg extension is sniffed by its magic bytes, as there."""
     if fmt:
         aliases = {"yuv4mpegpipe": "y4m", "y4m": "y4m", "fvid": "fvid",
-                   "image2": "image2", "nut": "nut", "matroska": "mkv", "mkv": "mkv"}
-        return aliases.get(fmt, fmt)
+                   "image2": "image2", "nut": "nut"}
+        # any other format name is an ffmpeg container/demuxer request,
+        # served by the ffmpeg-binary bridge (reference --format passes
+        # straight to libavformat)
+        return aliases.get(fmt, "ffmpeg")
     if _PATTERN_RE.search(path):
         return "image2"
     ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
-    if ext in ("y4m", "fvid", "nut"):
+    if ext in ("nut", "y4m", "fvid"):
         return ext
     if ext in _FFMPEG_EXTS:
-        return ("mkv" if ext == "mkv" else ext) if for_output else "pipe"
+        return "ffmpeg"
     if ext in ("png", "jpg", "ppm"):
         return "image2"
     # pipes default to y4m for output (reference ffapi.c:396-397) and
@@ -1252,49 +1298,166 @@ def _sniff_format(path: str, fmt: str | None, for_output: bool = True) -> str:
     return "pipe"
 
 
-def open_input(spec: str, format: str | None = None, native: bool = True) -> VideoReader:
+class _RecordingStream:
+    """Wraps a pipe while a native container probe runs, so the bytes
+    the probe consumed can be replayed to the ffmpeg bridge when the
+    content turns out foreign (a codec the native demuxer does not
+    carry).  ``stop()`` ends recording once the native open succeeds;
+    ``replay()`` yields a read-only stream of recorded + live bytes."""
+
+    def __init__(self, s):
+        self._s = s
+        self._rec: bytearray | None = bytearray()
+
+    def read(self, n=-1):
+        data = self._s.read(n)
+        if self._rec is not None and data:
+            self._rec += data
+        return data
+
+    def stop(self) -> None:
+        self._rec = None
+
+    def replay(self):
+        head = io.BytesIO(bytes(self._rec or b""))
+        live = self._s
+
+        class _Chain:
+            def read(self, n=-1):
+                out = head.read(n)
+                if n is None or n < 0:
+                    return out + (live.read() or b"")
+                if len(out) < n:
+                    out += live.read(n - len(out)) or b""
+                return out
+
+            def close(self):
+                try:
+                    live.close()
+                except OSError:
+                    pass
+
+        return _Chain()
+
+    def seekable(self):
+        return False
+
+    def close(self):
+        self._s.close()
+
+
+def _bridge():
+    from dspfun_tpu_torch.io import ffmpeg_bridge  # noqa: PLC0415
+
+    return ffmpeg_bridge
+
+
+def open_input(spec: str, format: str | None = None, native: bool = True,
+               options: str | None = None) -> VideoReader:
     """Open a video input (path, ``-`` pipe, or printf image pattern).
 
-    Containers are recognised by their magic bytes first (so fvid content
-    under a foreign extension still opens).  y4m and fvid files demux
-    through the host library with background read-ahead
+    Native containers are recognised by magic bytes first (so fvid
+    content under a foreign extension still opens natively); anything
+    else goes through the ffmpeg-binary bridge (``io/ffmpeg_bridge.py``,
+    with ``options`` as its demuxer/decoder options).  y4m and fvid files
+    demux through the host library with background read-ahead
     (``native=False`` forces the Python reader)."""
     fmt = _sniff_format(spec, format, for_output=False)
     if fmt == "image2":
         return ImageSeqReader(spec, spec)
-    if fmt not in ("y4m", "fvid", "nut", "mkv", "pipe"):
-        raise _not_ported(spec, f"the {fmt} container")
-    stream = sys.stdin.buffer if spec in _PIPES_IN else open(spec, "rb")
-    magic = stream.peek(9)[:9] if hasattr(stream, "peek") else b""
-    if magic.startswith(b"DSPFVID"):
-        fmt = "fvid"
-    elif magic.startswith(b"YUV4MPEG"):
-        fmt = "y4m"
-    elif magic.startswith(b"nut/"):
-        try:
-            return NutVideoReader(stream, spec)
-        except ValueError as e:
+    if fmt == "ffmpeg" and format is not None and format != "nut":
+        return _bridge().open_ffmpeg_input(spec, format, options=options)
+    if fmt == "ffmpeg":
+        fmt = "pipe"  # extension suggests ffmpeg, but trust magic first
+    stream = _open_stream_in(spec)
+    if fmt in ("pipe", "nut"):
+        magic = stream.peek(9)[:9] if hasattr(stream, "peek") else b""
+        if magic.startswith(b"DSPFVID"):
+            fmt = "fvid"
+        elif magic.startswith(b"YUV4MPEG"):
+            fmt = "y4m"
+        elif magic.startswith(b"nut/"):
+            # native NUT demux; foreign codecs inside go to the bridge
+            pipe_src = spec in _PIPES_IN or not stream.seekable()
+            rec = _RecordingStream(stream) if pipe_src else stream
+            try:
+                r = NutVideoReader(rec, spec)
+                if pipe_src:
+                    rec.stop()  # don't accumulate the whole stream
+                return r
+            except ValueError:
+                if pipe_src:
+                    # the NUT probe consumed header bytes the bridge's
+                    # ffmpeg must also see: replay them ahead of the
+                    # still-live pipe
+                    return _bridge().open_ffmpeg_input(
+                        spec, "nut", options=options, stdin_stream=rec.replay())
+                stream.close()
+                return _bridge().open_ffmpeg_input(spec, "nut", options=options)
+        elif magic.startswith(b"\x1a\x45\xdf\xa3") and spec not in _PIPES_IN \
+                and stream.seekable():
+            # Matroska/WebM: native demux for FFV1 video tracks; anything
+            # else goes to the bridge, which probes the container
+            try:
+                return MkvVideoReader(stream, spec)
+            except ValueError:
+                stream.close()
+                return _bridge().open_ffmpeg_input(spec, options=options)
+        elif spec in _PIPES_IN:
+            if magic and not b"YUV4MPEG".startswith(magic[:8]) \
+                    and not b"DSPFVID".startswith(magic[:7]):
+                # a real container arriving on stdin: hand the buffered
+                # stream to the bridge (the reference probes any stream,
+                # ffapi.c:174-206)
+                return _bridge().open_ffmpeg_input(spec, options=options,
+                                                   stdin_stream=stream)
+            fmt = "y4m"  # pipes default to y4m (reference ffapi.c:177)
+        else:
+            # foreign magic (a .nut extension over other content
+            # included): the bridge probes it
             stream.close()
-            raise _not_ported(spec, f"NUT content the native stack cannot decode ({e})") from e
-    elif magic.startswith(b"\x1a\x45\xdf\xa3") and spec not in _PIPES_IN \
-            and stream.seekable():
-        try:
-            return MkvVideoReader(stream, spec)
-        except ValueError as e:
-            stream.close()
-            raise _not_ported(spec, f"Matroska content the native stack cannot "
-                                    f"decode ({e})") from e
-    elif magic and not (spec in _PIPES_IN and (b"YUV4MPEG".startswith(magic[:8])
-                                              or b"DSPFVID".startswith(magic[:7]))):
-        if stream is not sys.stdin.buffer:
-            stream.close()
-        raise _not_ported(spec, "a stream that is not y4m, fvid, NUT or Matroska")
-    elif fmt not in ("fvid",):
-        fmt = "y4m"  # pipes default to y4m (reference ffapi.c:177)
+            return _bridge().open_ffmpeg_input(spec, options=options)
     reader: VideoReader = (FvidReader if fmt == "fvid" else Y4MReader)(stream, spec)
     if native and reader.frames is not None and spec not in _PIPES_IN:
         return NativeBackedReader(reader, spec)
     return reader
+
+
+def _open_ffplay(spec, width, height, rate, props) -> VideoWriter:
+    """An ``ffplay:`` sink: y4m into an ffplay process, with the full
+    color-property set on its command line (reference ffapi.c:455-485)."""
+    import shutil  # noqa: PLC0415
+    import subprocess  # noqa: PLC0415
+
+    if not shutil.which("ffplay"):
+        raise RuntimeError("ffplay: outputs require an ffplay binary on PATH")
+    pf = PIXEL_FORMATS[_negotiate_pix_fmt("y4m", props)]
+    pprops = props.copy()
+    _default_props("y4m", pprops)
+    cmd = [
+        "ffplay", "-loglevel", "quiet", "-f", "yuv4mpegpipe",
+        "-video_size", f"{width}x{height}",
+        "-framerate", f"{rate.numerator}/{rate.denominator}",
+        "-pixel_format", pf.name,
+        "-color_range", "pc" if pprops.color_range == "jpeg" else "tv",
+    ]
+    for val, flag in ((pprops.color_primaries, "-color_primaries"),
+                      (pprops.color_trc, "-color_trc"),
+                      (pprops.color_space, "-colorspace"),
+                      (pprops.chroma_location, "-chroma_sample_location")):
+        if val:
+            cmd += [flag, val]
+    cmd += ["-"]
+    sub = subprocess.Popen(cmd, stdin=subprocess.PIPE)
+    w = Y4MWriter(sub.stdin, spec, "yuv4mpegpipe", width, height, rate, pf, pprops)
+    orig_close = w.close
+
+    def close():  # pclose semantics: wait for the player to exit
+        orig_close()
+        sub.wait()
+
+    w.close = close
+    return w
 
 
 def open_output(
@@ -1311,30 +1474,35 @@ def open_output(
     """Open a video output.
 
     Format selection: explicit ``format`` > ``%d`` pattern (image2) >
-    extension (.y4m / .fvid / .nut / .mkv / .png) > pipe defaults to y4m
-    (reference ffapi.c:390-397).  The pixel format is negotiated per
+    extension (.y4m / .fvid / .nut / .mkv / .png...) > pipe defaults to
+    y4m (reference ffapi.c:390-397).  The pixel format is negotiated per
     container (an RGB or float request becomes yuv444p or gray in y4m,
-    reference ffapi.c:78-80; fvid is float planar; NUT keeps it, Matroska
-    takes the nearest format FFV1 codes) and unset color properties take
-    the container's defaults (ffapi.c:33-92).  NUT and Matroska encode
-    FFV1 by default wherever FFV1 can carry the pixel format (``codec``
-    ``rawvideo`` selects raw planes in NUT); ``options`` are the FFV1
-    encoder's (``level``, ``slices``, ``negotiate``).  ``append``
-    continues an existing y4m, fvid or NUT stream in place, or an image
-    sequence after its last frame (checkpoint/resume).
+    reference ffapi.c:78-80; fvid is float planar; NUT keeps it) and
+    unset color properties take the container's defaults
+    (ffapi.c:33-92).  NUT encodes FFV1 by default wherever FFV1 can carry
+    the pixel format (``codec`` ``rawvideo`` selects raw planes);
+    ``options`` are the FFV1 encoder's (``level``, ``slices``,
+    ``negotiate``), or the bridge's ``-k v`` flags.  Every other
+    container, and a codec the native stack lacks, goes through the
+    ffmpeg-binary bridge; Matroska is written natively (FFV1) when no
+    ffmpeg binary is on PATH.  ``ffplay:`` sinks need an ffplay binary.
+    ``append`` continues an existing y4m, fvid or NUT stream in place, or
+    an image sequence after its last frame (checkpoint/resume).
     """
     props = (props or ColorProps()).copy()
-    fmt = check_output(spec, format, codec)
+    if spec.startswith("ffplay:"):
+        return _open_ffplay(spec, width, height, rate, props)
+    fmt = _sniff_format(spec, format, for_output=True)
     if fmt == "nut":
-        return _open_nut(spec, width, height, rate, props, options, codec, append)
-    if fmt == "mkv":
-        if append:
-            # the JAX package refuses it too: resuming would rewrite the file
-            raise RuntimeError(f"cannot append/resume into a Matroska output ({spec!r}); "
-                               "use a y4m, fvid or nut output for resumable runs")
-        _mkv_pix_fmt(props)
-        return MkvVideoWriter(open(spec, "wb"), spec, width, height, rate,
-                              PIXEL_FORMATS[props.pix_fmt], props, options=options)
+        w = _open_nut(spec, width, height, rate, props, options, codec, append)
+        if w is not None:
+            return w
+        fmt = "ffmpeg"  # a codec the native stack lacks: the bridge's
+    if fmt == "ffmpeg":
+        return _open_bridge_output(spec, width, height, rate, props, format, options,
+                                   codec, append)
+    if fmt == "pipe":
+        fmt = "y4m"
     if fmt == "image2":
         pf = PIXEL_FORMATS[props.pix_fmt or "gbrpf32le"]
         _default_props(fmt, props)
@@ -1359,17 +1527,43 @@ def open_output(
         w = cls(open(spec, "ab"), spec, name, width, height, rate, pf, props)
         w._wrote_header = True
         return w
-    stream = sys.stdout.buffer if spec in _PIPES_OUT else open(spec, "wb")
-    return cls(stream, spec, name, width, height, rate, pf, props)
+    return cls(_open_stream_out(spec), spec, name, width, height, rate, pf, props)
+
+
+def _open_bridge_output(spec, width, height, rate, props, format, options, codec,
+                        append) -> VideoWriter:
+    """The ffmpeg containers of :func:`open_output`: native Matroska (FFV1)
+    when no ffmpeg binary is on PATH, else the bridge."""
+    if append:
+        # resuming would re-run `ffmpeg -y` and destroy the frames
+        # already encoded; refuse rather than lose data
+        raise RuntimeError(
+            f"cannot append/resume into an ffmpeg container "
+            f"({spec!r}); use a y4m or fvid output for resumable runs")
+    bridge = _bridge()
+    ext = spec.rsplit(".", 1)[-1].lower() if "." in spec else ""
+    if (not bridge.have_ffmpeg() and ext in ("mkv", "matroska")
+            and format in (None, "", "matroska", "mkv")
+            and codec in (None, "", "ffv1") and spec not in _PIPES_OUT):
+        # zero-binary route: native FFV1-in-Matroska (io/mkv.py); with a
+        # binary present the bridge mirrors the reference's libavformat
+        _mkv_pix_fmt(props)
+        return MkvVideoWriter(_open_stream_out(spec), spec, width, height, rate,
+                              PIXEL_FORMATS[props.pix_fmt], props, options=options)
+    return bridge.open_ffmpeg_output(
+        spec, width, height, rate, props,
+        format=None if format in (None, "") else format, codec=codec, options=options)
 
 
 def _ffv1_capable(pf: PixelFormat) -> bool:
     return not pf.is_float and not (pf.is_rgb and pf.depth not in (8, 16))
 
 
-def _open_nut(spec, width, height, rate, props, options, codec, append) -> NutVideoWriter:
+def _open_nut(spec, width, height, rate, props, options, codec, append):
     """The NUT branch of :func:`open_output` (the JAX package's, without
-    its fallback to rawvideo payloads when the FFV1 library is missing)."""
+    its fallback to rawvideo payloads when the FFV1 library is missing),
+    or None for a codec the native NUT writer lacks (FFV1 for float
+    pels included), which goes to the bridge."""
     pf = PIXEL_FORMATS[_negotiate_pix_fmt("nut", props)]
     # opt-in reference-parity negotiation (``negotiate=1`` in the encoder
     # options): float content down-converts to the encoder's best integer
@@ -1385,10 +1579,10 @@ def _open_nut(spec, width, height, rate, props, options, codec, append) -> NutVi
     # (motion/README.md:70, motion.c:447); float content keeps rawvideo
     if codec in (None, ""):
         use = "ffv1" if _ffv1_capable(pf) else "rawvideo"
-    elif codec == "ffv1" and not _ffv1_capable(pf):
-        raise _not_ported(spec, f"FFV1 for {pf.name} (FFV1 codes integer samples only)")
-    else:
+    elif codec == "rawvideo" or (codec == "ffv1" and _ffv1_capable(pf)):
         use = codec
+    else:
+        return None
     _default_props("nut", props)
     if append and spec not in _PIPES_OUT and os.path.exists(spec) \
             and os.path.getsize(spec) > 0:
@@ -1446,33 +1640,20 @@ def _mkv_pix_fmt(props: ColorProps) -> None:
 
 def check_output(spec: str, format: str | None = None, codec: str | None = None) -> str:
     """The container :func:`open_output` writes for ``spec`` ("y4m",
-    "fvid", "nut", "mkv" or "image2"), or the ``ValueError`` of a target
-    the port cannot write: ``ffplay:`` sinks, the ffmpeg bridge's
-    containers (Matroska on a pipe or under another extension included),
-    an encoder other than FFV1 or rawvideo for NUT or Matroska (y4m, fvid
-    and PNG ignore ``codec``, as in the JAX package), and image sequences
-    in another format than PNG.  The CLIs call it before they read or
-    compute anything."""
+    "fvid", "nut", "ffmpeg", "ffplay" or "image2"), or the ``ValueError``
+    of an image sequence in a format the port cannot write here (a
+    compressed one without ``cv2``: ``io/images.check_target``).  The
+    CLIs call it before they read or compute anything; what needs a
+    binary (the bridge, ``ffplay:``) fails where the JAX package fails,
+    when the output is opened."""
     if spec.startswith("ffplay:"):
-        raise _not_ported(spec, "an ffplay sink")
+        return "ffplay"
     fmt = _sniff_format(spec, format)
-    fmt = "y4m" if fmt == "pipe" else fmt
     if fmt == "image2":
         from dspfun_tpu_torch.io.images import check_target  # noqa: PLC0415
 
         check_target(spec if _PATTERN_RE.search(spec) is None else spec % 0)
-    elif fmt == "mkv":
-        ext = spec.rsplit(".", 1)[-1].lower() if "." in spec else ""
-        if spec in _PIPES_OUT or ext not in ("mkv", "matroska"):
-            raise _not_ported(spec, "Matroska on a pipe or under another extension")
-        if codec not in (None, "", "ffv1"):
-            raise _not_ported(spec, f"the {codec} encoder in Matroska")
-    elif fmt == "nut":
-        if codec not in NATIVE_CODECS:
-            raise _not_ported(spec, f"the {codec} encoder")
-    elif fmt not in ("y4m", "fvid"):
-        raise _not_ported(spec, f"the {fmt} container")
-    return fmt
+    return "y4m" if fmt == "pipe" else fmt
 
 
 def _negotiate_pix_fmt(fmt: str, props: ColorProps) -> str:

@@ -349,26 +349,30 @@ def _maybe_kron_cached(g, params, max_support_frac, allow_cpu, device):
     vol = g.minbuf.volume()
     if not _fast_eligible(g, p) or vol <= _KRON_V_MAX:
         return None
+    # both folded contractions must fit the int8 kernel's exact-int32
+    # bound ([S, V] contracts K=V, [V, S] contracts K=S; S <= V); test
+    # K=V before anything is built: a whole clip never fits, and
+    # otherwise plan_matrix would fall back to bf16 digits, which the
+    # i8-kron branch cannot consume
+    if not i8_feasible(1, vol):
+        return None
     if not allow_cpu and torch.device(device).type == "cpu":
         return None
     dims3 = (g.block.d, g.block.h, g.block.w)
-    uf = _uniform_factor(*dims3).reshape(-1)
-    bpm = _bandpass_mult(g, p.boost, p.damp).reshape(-1)
-    support = np.flatnonzero(bpm != 0.0)
+    uf, bpm = _fast_multipliers(g, p, device)
+    support = torch.nonzero(bpm.reshape(-1) != 0.0).reshape(-1).cpu().numpy()
     if support.size > vol * max_support_frac:
         return None
-    # both folded contractions must fit the int8 kernel's exact-int32
-    # bound ([S, V] contracts K=V, [V, S] contracts K=S); otherwise
-    # plan_matrix would fall back to bf16 digits, which the i8-kron
-    # branch cannot consume
     if not (i8_feasible(support.size, vol) and i8_feasible(vol, support.size)):
         return None
     prec = Precision(coeff="float32", intermediate="i8", tol=1e-5)
     # only the support rows (columns) of the [V, V] kron matrices: the
     # same entries as slicing the full matrix, without building it
-    k2 = kron_dct_rows(dims3, "dct2", support) * (uf * bpm)[support][:, None]
+    uf = uf.reshape(-1)[torch.as_tensor(support, device=uf.device)].cpu().numpy()
+    bpm = bpm.reshape(-1)[torch.as_tensor(support, device=bpm.device)].cpu().numpy()
+    k2 = kron_dct_rows(dims3, "dct2", support) * (uf * bpm)[:, None]
     k3 = (kron_dct_rows(dims3, "dct3", support, columns=True) / (8.0 * vol)) \
-        * (1.0 / uf)[None, support]
+        * (1.0 / uf)[None, :]
     p2, p3 = plan_matrix(k2, prec, device), plan_matrix(k3, prec, device)
     if p2.digits.dtype != torch.int8 or p3.digits.dtype != torch.int8:
         raise AssertionError("i8-kron plans must carry int8 digits")  # the probe guards this
@@ -400,6 +404,20 @@ def _renorm_window(md, mh, mw, active: Dims, inverse: bool, device) -> torch.Ten
     inside = torch.zeros((md, mh, mw), dtype=torch.bool, device=device)
     inside[: active.d, : active.h, : active.w] = True
     return torch.where(inside, uf, torch.ones((), dtype=f64, device=device))
+
+
+def _fast_multipliers(g: PlaneGeometry, p: MotionParams, device):
+    """(``uf``, ``bpm``): :func:`_uniform_factor` of the block and
+    :func:`_bandpass_mult` of ``g`` as [d, h, w] float64 tensors built on
+    ``device`` from the three axes, bit-equal to the numpy forms (the fast
+    path has block == minbuf == scaled, so the renorm window is ``uf``
+    everywhere)."""
+    md, mh, mw = g.minbuf.d, g.minbuf.h, g.minbuf.w
+    uf = _renorm_window(md, mh, mw, g.minbuf, False, device)
+    ax = [torch.arange(n, device=device) for n in (md, mh, mw)]
+    bpm = bandpass_mult_grid(ax[0][:, None, None], ax[1][None, :, None], ax[2][None, None, :],
+                             g, p.boost, p.damp)
+    return uf, bpm
 
 
 def _const(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -448,8 +466,6 @@ def filter_blocks(
     kron_plans = plans[2] if len(plans) >= 3 else None
     if _fast_eligible(g, p):
         dims3 = (g.block.d, g.block.h, g.block.w)
-        uf = _uniform_factor(*dims3).reshape(-1)
-        bpm = _bandpass_mult(g, p.boost, p.damp).reshape(-1)
         tmin = p.threshold_min * 255.0 / norm2 if p.threshold_max else 0.0
         tmax = p.threshold_max * 255.0 / norm2 if p.threshold_max else 0.0
         flat = blocks.reshape(nb, -1)
@@ -457,6 +473,8 @@ def filter_blocks(
             from dspfun_tpu_torch.ops.block_filter import fused_block_filter  # noqa: PLC0415
 
             LAST_FAST_PATH = "plain-kron" if dev.type == "cpu" else "cuda-kron"
+            uf = _uniform_factor(*dims3).reshape(-1)
+            bpm = _bandpass_mult(g, p.boost, p.damp).reshape(-1)
             out = fused_block_filter(flat, dims3, uf * bpm, threshold=(tmin, tmax),
                                      post_filter=1.0 / uf)
         elif kron_plans is not None:
@@ -471,12 +489,15 @@ def filter_blocks(
             out = i8_contract(F, kp3.digits, kp3.scale, 1)
         else:
             LAST_FAST_PATH = "sep"
+            # the float64 constants are built on the device from the three
+            # axes (a whole clip's would take seconds on one host core)
+            uf, bpm = _fast_multipliers(g, p, dev)
             F = apply_plan_nd(blocks.to(torch.float32), plans[0], (1, 2, 3))
-            F = F * _const((uf * bpm).reshape(dims3), torch.float32, dev)
+            F = F * (uf * bpm).to(torch.float32)
             if p.threshold_max:
                 a = torch.abs(F)
                 F = torch.where((a < tmin) | (a > tmax), torch.zeros_like(F), F)
-            F = F * _const((1.0 / uf).reshape(dims3) / (8.0 * vol), torch.float32, dev)
+            F = F * true_div(_rdiv(1.0, uf), 8.0 * vol).to(torch.float32)
             out = apply_plan_nd(F, plans[1], (1, 2, 3)).reshape(nb, -1)
         pel = out.reshape(nb, sd, sh, sw).to(dtype)
         zero_coded = torch.zeros((nb,), dtype=torch.int32, device=dev)

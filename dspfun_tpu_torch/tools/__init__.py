@@ -11,6 +11,7 @@ once per rank, and rank 0 alone writes files and prints.
 """
 
 import importlib
+import io
 import os
 import shutil
 import sys
@@ -69,14 +70,31 @@ def resolve_mesh(mesh_spec: str | None, device: torch.device | str = "cuda",
     return mesh
 
 
-def launch(module: str, argv: list[str], mesh, quiet: bool = False, **where) -> int:
+def reads_stdin(spec: str | None) -> bool:
+    """Whether a tool's input specifier reads standard input: none given,
+    ``-``, ``pipe:``/``pipe:0``, or an image ``fmt:-``."""
+    if spec is None:
+        return True
+    from dspfun_tpu_torch.io.images import _split_spec  # noqa: PLC0415
+
+    return _split_spec(spec)[1] in ("-", "pipe:", "pipe:0")
+
+
+def launch(module: str, argv: list[str], mesh, input_spec: str | None,
+           quiet: bool = False, **where) -> int:
     """Run ``module.main(argv)`` once per rank of ``mesh`` (processes
     started with ``torch.multiprocessing``'s ``spawn``) and return the
     first non-zero exit code, else 0.  Rank 0 prints and writes; the
     other ranks' prints go nowhere.  ``where`` places this process's
     ranks in a world of several processes (``local``, ``rank_offset``,
     ``init_method``; see ``parallel/mesh.run_ranks``).  Rank 0's
-    ``LAST_STAGE_TIMES`` become the tool module's here."""
+    ``LAST_STAGE_TIMES`` become the tool module's here.
+
+    The ranks are started with no standard input, so when the tool's
+    input (``input_spec``) is a pipe (:func:`reads_stdin`) this process
+    reads it once into a temporary file, which becomes every rank's
+    ``sys.stdin``: each rank reads the same bytes the tool would have
+    read without a mesh."""
     from dspfun_tpu_torch.parallel.mesh import run_ranks  # noqa: PLC0415
 
     if not quiet:
@@ -84,11 +102,19 @@ def launch(module: str, argv: list[str], mesh, quiet: bool = False, **where) -> 
         print(f"ranks: {mesh.size} on {devs} over {mesh.backend}", file=sys.stderr)
     sys.stdout.flush()
     sys.stderr.flush()
+    staged = None
+    if reads_stdin(input_spec):
+        fd, staged = tempfile.mkstemp(prefix="dspfun_stdin_")
+        with os.fdopen(fd, "wb") as f:
+            shutil.copyfileobj(sys.stdin.buffer, f, 1 << 20)
     try:
-        res = run_ranks(mesh, _tool_rank, module, list(argv), **where)
+        res = run_ranks(mesh, _tool_rank, module, list(argv), staged, **where)
     except (RuntimeError, TimeoutError) as e:
         print(e, file=sys.stderr)
         return 1
+    finally:
+        if staged is not None:
+            os.unlink(staged)
     times = res[0][1]
     mod = importlib.import_module(module)
     if times is not None and hasattr(mod, "LAST_STAGE_TIMES"):
@@ -97,10 +123,13 @@ def launch(module: str, argv: list[str], mesh, quiet: bool = False, **where) -> 
     return next((rc for rc, _ in res if rc), 0)
 
 
-def _tool_rank(mesh, module: str, argv: list[str]):
-    """A rank of :func:`launch`: the tool's main, silent but on rank 0."""
+def _tool_rank(mesh, module: str, argv: list[str], stdin_path: str | None):
+    """A rank of :func:`launch`: the tool's main, silent but on rank 0,
+    reading ``stdin_path`` (the launcher's staged pipe) as stdin."""
     if mesh.rank != 0:
         sys.stdout = sys.stderr = open(os.devnull, "w")  # noqa: SIM115
+    if stdin_path is not None:
+        sys.stdin = io.TextIOWrapper(open(stdin_path, "rb"))  # noqa: SIM115
     mod = importlib.import_module(module)
     rc = mod.main(argv)
     sys.stdout.flush()

@@ -119,8 +119,8 @@ LONG = ["device=", "mesh="]
 
 def setup(opts: SpecOpts, mesh_spec: str | None, device_arg: str | None):
     """What the port's spec and ispec check before they read anything:
-    the output target (PNG only), the device and the mesh (-M N; the
-    space axis only).  Returns (device, mesh or None), or None after
+    the output target (``images.check_target``), the device and the mesh
+    (-M N; the space axis only).  Returns (device, mesh or None), or None after
     printing why not (exit code 1).  Inside a rank the device is the
     rank's own."""
     try:

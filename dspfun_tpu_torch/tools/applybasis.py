@@ -12,10 +12,10 @@ messages, with these differences:
 * ``--device cuda|cpu`` picks the torch device (default ``cuda``; without
   a card that is exit 1 "Bad --device", and ``--device cpu`` runs the
   contractions on the host);
-* images are PNG only: another input or output format exits 1 naming
-  ROADMAP queue 1, item 8, and sixel (the default output on a terminal)
-  item 21; the output and the device are checked before the input is
-  read;
+* images are read and written by the port's own codecs (PNG, PNM, BMP,
+  TIFF, sixel; the compressed formats through cv2, and without it exit 1
+  naming ROADMAP queue 1, item 8); the output and the device are checked
+  before the input is read;
 * the tools' default policy (hilo) contracts in complex64, as the JAX
   package does on its accelerator; ``DSPFUN_PRECISION=f64`` takes
   complex128 (models/basis_pipeline.py).

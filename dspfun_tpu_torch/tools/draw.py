@@ -7,9 +7,8 @@ differences:
 
 * ``--device cuda|cpu`` picks the torch device of the DCT-III (default
   ``cuda``; without a card that is exit 1 "Bad --device");
-* images are PNG only: another output format exits 1 naming ROADMAP
-  queue 1, item 8, and sixel (the default output on a terminal) item 21,
-  before anything is computed.
+* a compressed output format exits 1 naming ROADMAP queue 1, item 8,
+  where cv2 does not import, before anything is computed.
 
 At an ``i8`` policy (``DSPFUN_PRECISION=i8@1e-5``) and both sides of the
 canvas >= 256, the DCT-III's two contractions run on the int8 digit

@@ -4,10 +4,9 @@
 CLI-compatible rebuild of reference applybasis/genbasis.c.  The grid is
 closed-form float64 host work in both packages (``gen_basis_grid``), so
 the tool runs no device code and takes no ``--device``; it keeps the JAX
-tool's getopt strings, help text, exit codes and messages.  Images are
-PNG only: another output format exits 1 naming ROADMAP queue 1, item 8,
-and sixel (the default output on a terminal) item 21, before anything
-is computed.
+tool's getopt strings, help text, exit codes and messages.  A
+compressed output format exits 1 naming ROADMAP queue 1, item 8, where
+cv2 does not import, before anything is computed.
 """
 
 from __future__ import annotations

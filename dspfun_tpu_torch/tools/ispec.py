@@ -8,7 +8,7 @@ CLI-compatible rebuild of reference spec/ispec.c.  Run it as
 It keeps the JAX tool's getopt string, usage and help texts, exit codes
 and messages, with the differences ``tools/spec.py`` lists: ``--device``
 (default ``cuda``), ``-M``/``--mesh``/``DSPFUN_MESH`` over the ranks of
-``tools.launch`` (exit 1 where the JAX tool falls back), PNG only,
+``tools.launch`` (exit 1 where the JAX tool falls back), the image codecs,
 and float32 pixels made on the host (the spectrum and the signmap).
 ``LAST_STAGE_TIMES`` has the keys of spec's.
 """
@@ -80,7 +80,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     device, mesh = res
     if mesh is not None and current_mesh() is None:
-        return launch("dspfun_tpu_torch.tools.ispec", argv, mesh)
+        return launch("dspfun_tpu_torch.tools.ispec", argv, mesh, opts.input)
 
     times: dict = {}
     try:

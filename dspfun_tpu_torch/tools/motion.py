@@ -8,9 +8,11 @@ pipeline in ``dspfun_tpu_torch.models.motion_pipeline``.  Run it as
 
 It keeps the JAX tool's getopt surface and defaults.  ``--device``
 picks the torch device (default ``cuda``; without a card that is an
-error, and ``--device cpu`` runs the plain versions).  It reads y4m,
-fvid, NUT, Matroska (FFV1) and PNG sequences and writes y4m, fvid, NUT
-(FFV1 by default for integer pels) and Matroska (``io/video.py``).
+error, and ``--device cpu`` runs the plain versions).  It reads and
+writes y4m, fvid, NUT (FFV1 by default for integer pels), Matroska and
+image sequences natively, every other container through the ffmpeg
+bridge (``--decopts``/``--encopts`` are its options), and plays to
+``ffplay:`` (``io/video.py``).
 ``--eval`` evaluates its av_expr on the coefficients' device; a
 stateful expression (random, while, root, taylor, time, or reads of
 slots stored by an earlier coefficient) takes the grid to the host,
@@ -131,7 +133,7 @@ def main(argv: list[str] | None = None) -> int:
     threshold_min = threshold_max = 0.0
     coeff_limit = 0
     spec = ispec = preserve_dc = None
-    exprstr = resume_file = codec = encopts = None
+    exprstr = resume_file = codec = encopts = decopts = None
     dither = linear = samerate = samesize = quiet = False
     offset = 0
     maxframes = 0
@@ -220,11 +222,11 @@ def main(argv: list[str] | None = None) -> int:
         elif flag == "--device":
             device_arg = arg
         elif flag == "--codec":
-            codec = arg
+            codec = arg  # passed to the ffmpeg bridge for real containers
         elif flag == "--encopts":
             encopts = arg
         elif flag == "--decopts":
-            pass  # the options of the ffmpeg bridge's demuxers (not ported)
+            decopts = arg  # passed to the ffmpeg bridge demuxer
         elif flag in ("--loglevel", "--fftw-planning-method", "--fftw-threads",
                       "--fftw-wisdom-file"):
             pass  # CLI parity; PyTorch has no plans to tune or cache
@@ -270,12 +272,12 @@ def main(argv: list[str] | None = None) -> int:
                   "--mesh/--coordinator", file=sys.stderr)
             return 1
         if mesh is not None:
-            return launch("dspfun_tpu_torch.tools.motion", argv, mesh, quiet, **where)
+            return launch("dspfun_tpu_torch.tools.motion", argv, mesh, infile, quiet, **where)
     else:
         device = mesh.device
 
     try:
-        reader = video.open_input(infile, format=iformat)
+        reader = video.open_input(infile, format=iformat, options=decopts)
     except (OSError, ValueError, RuntimeError) as e:
         print(f'Error opening "{infile}": {e}', file=sys.stderr)
         return 1

@@ -9,12 +9,10 @@ in the JAX package.
 
 It keeps the JAX tool's getopt string, help text, exit codes and
 messages, on the port's containers (``io/video.py``): y4m, fvid, NUT,
-Matroska (FFV1) and PNG sequences in; y4m, fvid, NUT and Matroska (FFV1
-by default wherever it codes the pixel format; ``-e rawvideo`` for raw
-NUT planes; ``-O`` the encoder's options) and PNG sequences out.  The
-ffmpeg bridge's containers, ``ffplay:`` sinks and every encoder but
-``ffv1`` and ``rawvideo`` exit 1 naming ROADMAP queue 1, item 13, before
-the input is read.
+Matroska (FFV1 by default wherever it codes the pixel format; ``-e
+rawvideo`` for raw NUT planes; ``-O`` the encoder's options) and image
+sequences natively, and every other container and encoder (``-e``)
+through the ffmpeg bridge, as the JAX tool does.
 
 ``LAST_STAGE_TIMES`` holds the last run's seconds per stage: ``read``
 (the whole clip), ``rotate`` and ``write``.
@@ -54,12 +52,6 @@ HELP = """Usage: rotate [options] [-]xyz <infile> <outfile>
 
 
 LAST_STAGE_TIMES: dict = {}
-
-
-def encoder_refusal(codec: str) -> str:
-    """The message of an encoder the port lacks (exit code 1)."""
-    return (f"-e {codec}: the {codec} encoder is not ported to dspfun_tpu_torch yet; "
-            "the port encodes ffv1 and rawvideo (ROADMAP queue 1, item 13)")
 
 
 def parse_axis_map(spec: str) -> tuple[list[int], list[bool]]:
@@ -141,9 +133,9 @@ def main(argv: list[str] | None = None) -> int:
         elif flag == "-c":
             cprops = arg
         elif flag == "-e":
-            codec = arg
+            codec = arg  # native ffv1/rawvideo, else the ffmpeg bridge
         elif flag == "-O":
-            encopts = arg  # the FFV1 encoder's options (level, slices, negotiate)
+            encopts = arg  # encoder options (FFV1 level/slices, bridge)
         # -o, -l: parity only
 
     if len(args) < 3:
@@ -153,14 +145,6 @@ def main(argv: list[str] | None = None) -> int:
         axmap, invert = parse_axis_map(args[0])
     except ValueError:
         print(USAGE, file=sys.stderr)
-        return 1
-    if codec not in video.NATIVE_CODECS:
-        print(encoder_refusal(codec), file=sys.stderr)
-        return 1
-    try:
-        video.check_output(args[2], ofmt, codec)
-    except ValueError as e:
-        print(f"error opening output file {args[2]}: {e}", file=sys.stderr)
         return 1
 
     times: dict = {}

@@ -17,11 +17,10 @@ messages, with these differences:
   per core with ``cpu``); where the JAX tool prints ``mesh unavailable
   (...); running single-device`` or refuses a time axis and runs on one
   device, this one prints the same and exits 1;
-* the input is a PNG (item 8); the output a y4m, fvid, NUT or Matroska
-  stream or a PNG sequence (``--ff-opts`` carries the FFV1 encoder's
-  ``level``, ``slices`` and ``negotiate`` beside the color properties);
-  the ffmpeg bridge, foreign encoders and ``ffplay:`` exit 1 (item 13),
-  checked before the input is read.
+* an image sequence in a compressed format the port cannot write here
+  (no ``cv2``) exits 1 before the input is read; every container the
+  JAX tool writes, ``ffplay:`` and the ffmpeg bridge's encoders
+  (``--ff-encoder``, ``--ff-opts``) are taken as there.
 
 ``LAST_STAGE_TIMES`` holds the last run's seconds per stage: ``read``,
 ``forward`` (copy to the device, DCT, coefficients back), ``order`` (the
@@ -265,7 +264,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     if mesh is not None:
         if current_mesh() is None:
-            return launch("dspfun_tpu_torch.tools.scan", argv, mesh, quiet)
+            return launch("dspfun_tpu_torch.tools.scan", argv, mesh, args[0], quiet)
         device = mesh.device
 
     times: dict = {}

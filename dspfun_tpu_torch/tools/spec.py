@@ -17,9 +17,10 @@ and messages, with these differences:
   with ``cpu``); where the JAX tool prints ``mesh unavailable (...);
   running single-device`` or refuses a time axis and runs on one device,
   this one prints the same and exits 1;
-* images are PNG only: another input or output format exits 1 naming
-  ROADMAP queue 1, item 8, and sixel (the default output on a terminal)
-  item 21; the output is checked before the input is read;
+* images are read and written by the port's own codecs (PNG, PNM, BMP,
+  TIFF, sixel; the compressed formats through cv2, and without it exit 1
+  naming ROADMAP queue 1, item 8); the output is checked before the
+  input is read;
 * the JAX tool hands ``jax.jit`` float64 pixels, which it computes in
   float32: here the pixels are cast to float32 on the host, once, before
   the copy to the device, and DC comes back as the float64 of its
@@ -85,7 +86,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     device, mesh = res
     if mesh is not None and current_mesh() is None:
-        return launch("dspfun_tpu_torch.tools.spec", argv, mesh)
+        return launch("dspfun_tpu_torch.tools.spec", argv, mesh, opts.input)
 
     times: dict = {}
     try:
@@ -139,8 +140,7 @@ def _forward_sharded(x, params, mesh):
 
 def _png_target(spec: str | None) -> bool:
     """Whether an output specifier names a PNG (16 bits) or something
-    else (8).  ``setup`` refuses every other target for now, so this
-    decides again once sixel is ported (ROADMAP queue 1, item 21)."""
+    else, sixel included (8), as the JAX tool decides."""
     if spec is None:
         return not sys.stdout.isatty()
     fmt, path = images._split_spec(spec)

@@ -9,8 +9,8 @@ work only, as in the JAX package.
 It keeps the JAX tool's getopt string, help text, exit codes and
 messages, on the port's containers (see ``tools/rotate.py``): FFV1 is
 the default encoder of NUT and Matroska outputs, ``-e rawvideo`` writes
-raw NUT planes, and every other encoder exits 1 naming ROADMAP queue 1,
-item 13, before the input is read.
+raw NUT planes, and every other container and encoder goes through the
+ffmpeg bridge, as in the JAX tool.
 
 ``LAST_STAGE_TIMES`` holds the last run's seconds: ``copy`` (read,
 convert and write, frame by frame).
@@ -22,7 +22,6 @@ import getopt
 import sys
 
 from dspfun_tpu_torch.io import video
-from dspfun_tpu_torch.tools.rotate import encoder_refusal
 from dspfun_tpu_torch.utils.profiling import stage
 
 USAGE = "Usage: transcode [options] <input> <output>"
@@ -78,21 +77,13 @@ def main(argv: list[str] | None = None) -> int:
         elif flag == "-c":
             cprops = arg
         elif flag == "-e":
-            codec = arg
+            codec = arg  # native ffv1/rawvideo, else the ffmpeg bridge
         elif flag == "-O":
-            encopts = arg  # the FFV1 encoder's options (level, slices, negotiate)
+            encopts = arg  # encoder options (FFV1 level/slices, bridge)
         # -o, -l: parity only
 
     if len(args) < 2:
         print(USAGE, file=sys.stderr)
-        return 1
-    if codec not in video.NATIVE_CODECS:
-        print(encoder_refusal(codec), file=sys.stderr)
-        return 1
-    try:
-        video.check_output(args[1], ofmt, codec)
-    except ValueError as e:
-        print(f"Error opening output context: {e}", file=sys.stderr)
         return 1
 
     try:

@@ -263,3 +263,8 @@ def test_apply_basis_and_draw_default_to_the_card():
         tb.apply_basis(np.zeros((4, 4, 3)), "dct2")
     with pytest.raises((RuntimeError, AssertionError)):
         tb.draw_canvas((8, 8), [(1, 1, 0.5)])
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 16, 33])
+def test_scan_basis_matrix_is_pinned(n):
+    np.testing.assert_array_equal(tbasis.scan_basis_matrix(n), jbasis.scan_basis_matrix(n))

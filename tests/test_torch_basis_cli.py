@@ -239,19 +239,46 @@ def test_help_usage_and_exit_codes(tmp_path, capsys):
 
 
 def test_refusals_name_the_roadmap_item(tmp_path, capsys, monkeypatch):
+    """The outputs the port once refused (ROADMAP items 8 and 21) are
+    written as the JAX tools write them: the same exit code and files
+    that decode within one 8-bit level on average; sixel on a terminal
+    within the gate of tests/test_torch_sixel.py against the 8-bit
+    image (the same run to ``ppm:-``)."""
+    from dspfun_tpu.io import images as jimages
+    from tests.test_torch_sixel import MAX_MARGIN, MEAN_MARGIN, decoded_rgb
+
     src = _png(tmp_path)
-    for tool, argv in ((tapply, [src, str(tmp_path / "o.jpg")]),
-                       (tgen, ["-s", "8x8", str(tmp_path / "o.bmp")]),
-                       (tdraw, ["-b", "8x8", str(tmp_path / "o.tiff")])):
-        assert tool.main(argv) == 1
-        assert "item 8" in capsys.readouterr().err
-    assert not (tmp_path / "o.jpg").exists()
-    # a terminal's default output is sixel: refused by item 21
-    monkeypatch.setattr(sys, "stdout", io.TextIOWrapper(io.BytesIO()))
-    monkeypatch.setattr(sys.stdout, "isatty", lambda: True)
-    for tool, argv in ((tapply, [src]), (tgen, ["-s", "8x8"]), (tdraw, ["-b", "8x8"])):
-        assert tool.main(argv) == 1
-        assert "item 21" in capsys.readouterr().err
+    cases = ((japply, tapply, [src], True), (jgen, tgen, ["-s", "8x8"], False),
+             (jdraw, tdraw, ["-b", "8x8"], True))
+    for (jt, tt, argv, dev), ext in zip(cases, ("jpg", "bmp", "tiff")):
+        rcs = []
+        for name, tool in (("j", jt), ("t", tt)):
+            rcs.append(tool.main((["--device", "cpu"] if dev and name == "t" else [])
+                                 + argv + [str(tmp_path / f"{name}o.{ext}")]))
+        errs = capsys.readouterr().err
+        assert rcs[0] == rcs[1], errs
+        made = [(tmp_path / f"{n}o.{ext}").exists() for n in "jt"]
+        assert made[0] == made[1]
+        if made[0]:
+            a, b = (jimages.read_image(str(tmp_path / f"{n}o.{ext}")).pixels for n in "jt")
+            assert np.abs(a - b).mean() <= 1 / 255 and np.abs(a - b).max() <= 0.1
+    for jt, tt, argv, dev in cases:
+        out = {}
+        for name, tool, target in (("j", jt, None), ("t", tt, None), ("ref", tt, "ppm:-")):
+            std = io.TextIOWrapper(io.BytesIO())
+            monkeypatch.setattr(sys, "stdout", std)
+            monkeypatch.setattr(std, "isatty", lambda: target is None)
+            rc = tool.main((["--device", "cpu"] if dev and name != "j" else []) + argv
+                           + ([target] if target else []))
+            assert rc == 0
+            std.flush()
+            out[name] = std.buffer.getvalue()
+        ppm = out["ref"]
+        h, w = map(int, ppm.split(b"\n")[1].split())
+        ref8 = np.frombuffer(ppm[ppm.index(b"255\n") + 4:], np.uint8).reshape(h, w, 3)
+        assert out["j"].split(b"#", 1)[0] == out["t"].split(b"#", 1)[0]
+        ej, et = (np.abs(decoded_rgb(out[k]) - ref8) for k in ("j", "t"))
+        assert et.mean() <= ej.mean() + MEAN_MARGIN and et.max() <= ej.max() + MAX_MARGIN
 
 
 def test_device_defaults_to_the_card(tmp_path, capsys):

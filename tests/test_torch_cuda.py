@@ -776,3 +776,134 @@ def test_two_ranks_of_the_sharded_3d_dct_on_one_card(cuda):
     for out, counts, launches in res:
         assert counts == {"all_to_all": 4} and launches >= 4
         np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+# ---- path 11: the ffmpeg bridge, ffplay: and BMP on the card ----
+
+
+def _bridge_clip(tmp_path, pix_fmt="yuv420p", w=64, h=48, n=16):
+    """(y4m clip, the same frames behind the shim's FAKEMP4 header: y4m
+    for 8 bits, raw planes for more) of a seeded clip."""
+    from fractions import Fraction
+
+    from dspfun_tpu_torch.io import video
+    from torch_ffmpeg_shims import FAKE_HEADER
+
+    pf = video.PIXEL_FORMATS[pix_fmt]
+    rng = np.random.default_rng(8)
+    clip = str(tmp_path / f"clip_{pix_fmt}.y4m")
+    raw = bytearray(FAKE_HEADER)
+    with video.open_output(clip, w, h, Fraction(25, 1), video.ColorProps(pix_fmt=pix_fmt)) as wr:
+        for t in range(n):
+            y, x = np.mgrid[0:h, 0:w]
+            planes = [np.clip(128 + 60 * np.sin(x[:ph, :pw] / 7.0 + t / 5.0)
+                              + rng.integers(-8, 9, (ph, pw)), 0, 255).astype(np.uint16)
+                      << (pf.depth - 8) for pw, ph in pf.plane_dims(w, h)]
+            planes = [p.astype(pf.dtype) for p in planes]
+            wr.write_frame(planes, raw=True)
+            raw += b"".join(p.tobytes() for p in planes)
+    mp4 = str(tmp_path / f"in_{pix_fmt}.mp4")
+    with open(mp4, "wb") as f:
+        f.write(FAKE_HEADER + open(clip, "rb").read() if pf.depth == 8 else bytes(raw))
+    return clip, mp4
+
+
+@pytest.fixture
+def shims(tmp_path, monkeypatch):
+    """The shim binaries of tests/torch_ffmpeg_shims.py first on PATH for
+    the test, their argv log in ``tmp_path`` (returned), the bridge's
+    binary caches cleared before and after.  (Imported as a top-level
+    module: pytest puts this directory on the path, and the card's machine
+    may have another package named ``tests``.)"""
+    from dspfun_tpu_torch.io import ffmpeg_bridge
+    from torch_ffmpeg_shims import install_shims, shim_path
+
+    monkeypatch.setenv("PATH", shim_path(install_shims(tmp_path / "bin")))
+    log = str(tmp_path / "shim.log")
+    monkeypatch.setenv("SHIM_LOG", log)
+    for fn in (ffmpeg_bridge.have_ffmpeg, ffmpeg_bridge.have_ffprobe):
+        fn.cache_clear()
+    yield log
+    for fn in (ffmpeg_bridge.have_ffmpeg, ffmpeg_bridge.have_ffprobe):
+        fn.cache_clear()
+
+
+def _probe(monkeypatch, tmp_path, pix_fmt, w=64, h=48, n=16):
+    import json
+
+    p = tmp_path / "probe.json"
+    p.write_text(json.dumps({"streams": [{"codec_type": "video", "pix_fmt": pix_fmt,
+                                          "nb_frames": str(n), "avg_frame_rate": "25/1",
+                                          "width": w, "height": h, "color_range": "tv"}],
+                             "format": {}}))
+    monkeypatch.setenv("SHIM_PROBE", str(p))
+
+
+MOTION_BRIDGE = ["-Q", "--device", "cuda", "-b", "16x16x16", "-p", "0x0x0-8x8x4", "-B", "1.25"]
+
+
+@pytest.mark.parametrize("pix_fmt", ["yuv420p", "yuv420p10le"])
+def test_motion_through_the_bridge_on_card(cuda, shims, tmp_path, monkeypatch, pix_fmt):
+    """motion from ``in.mp4`` to ``out.mp4`` through the ffmpeg bridge (the
+    shim binaries) on the card: the same bytes as the card's y4m -> y4m
+    run (the y4m transport at 8 bits, rawvideo both ways at 10 bits),
+    the block filter and the right 3-digit kernel launched."""
+    from dspfun_tpu_torch.tools import motion
+
+    _probe(monkeypatch, tmp_path, pix_fmt)
+    clip, mp4 = _bridge_clip(tmp_path, pix_fmt)
+    ref, out = str(tmp_path / "ref.y4m"), str(tmp_path / "out.mp4")
+    assert motion.main(MOTION_BRIDGE + [clip, ref]) == 0
+    tmm.LAUNCHES.clear()
+    tbf.LAUNCHES.clear()
+    assert motion.main(MOTION_BRIDGE + [mp4, out]) == 0
+    assert tmm.LAUNCHES.get("right3") and tbf.LAUNCHES.get("block_filter")
+    got = open(out, "rb").read()
+    if pix_fmt == "yuv420p":
+        assert got == open(ref, "rb").read()
+    else:
+        with open(ref, "rb") as f:
+            f.readline()
+            assert got == b"".join(f.read().split(b"FRAME\n"))
+
+
+def test_ffplay_sink_on_card(cuda, shims, tmp_path):
+    """motion on the card into ``ffplay:``: the player gets the y4m stream
+    and the color properties on its command line."""
+    import json
+
+    from dspfun_tpu_torch.tools import motion
+
+    clip, _ = _bridge_clip(tmp_path)
+    assert motion.main(MOTION_BRIDGE + ["--csp", "color_range=jpeg:color_trc=linear",
+                                        clip, "ffplay:"]) == 0
+    play = [json.loads(ln) for ln in open(shims)][-1]
+    assert play[play.index("-video_size") + 1] == "64x48"
+    assert play[play.index("-pixel_format") + 1] == "yuv420p"
+
+
+def test_bmp_into_spec_at_i8_on_card(cuda, tmp_path, monkeypatch):
+    """spec at ``i8@1e-5`` of a BMP and of the PNG of the same pixels on
+    the card: the same spectrum, each run launching the left and the
+    right 3-digit kernel once; ispec of it to BMP and back."""
+    from dspfun_tpu_torch.core import precision
+    from dspfun_tpu_torch.io import images
+    from dspfun_tpu_torch.tools import ispec, spec
+
+    monkeypatch.setattr(precision, "_default", Precision.parse("i8@1e-5"))
+    monkeypatch.setattr(precision, "_explicit", True)
+    rng = np.random.default_rng(9)
+    pix = rng.random((272, 320, 3))
+    for ext in ("png", "bmp"):
+        images.write_image(str(tmp_path / f"in.{ext}"), pix)
+    spectra = []
+    for ext in ("png", "bmp"):
+        tmm.LAUNCHES.clear()
+        s = str(tmp_path / f"s_{ext}.png")
+        assert spec.main(["-t", "flat", "-G", "1000", str(tmp_path / f"in.{ext}"), s]) == 0
+        assert {n: c for n, c in tmm.LAUNCHES.items() if c} == {"left3": 1, "right3": 1}
+        spectra.append(open(s, "rb").read())
+    assert spectra[0] == spectra[1]
+    b = str(tmp_path / "back.bmp")
+    assert ispec.main(["-t", "flat", "-G", "1000", str(tmp_path / "s_bmp.png"), b]) == 0
+    assert images.read_image(b).pixels.shape == (272, 320, 3)

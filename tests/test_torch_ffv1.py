@@ -3,8 +3,8 @@ build of ``native/ffv1.cpp``) against the JAX package's.
 
 * Every case of ``tests/test_ffv1.py`` runs on the port's modules
   (``tests/torch_port_cases.py``), the pure-Python RFC 9043 reference
-  decoder ``tests/ffv1_pyref.py`` included, but the one that needs the
-  ffmpeg bridge (the port refuses that file: tests/test_torch_nut.py).
+  decoder ``tests/ffv1_pyref.py`` and the one that routes a file the
+  native decoder rejects to the ffmpeg bridge included.
 * The range coder is integer arithmetic: the port's encoder writes the
   JAX package's bytes for the same planes, at levels 1 and 3, and each
   decoder decodes the other's packets to equal planes.
@@ -22,7 +22,7 @@ from dspfun_tpu_torch.io import video as tvideo
 from tests import ffv1_pyref
 from tests.torch_port_cases import port_cases, run_on_port
 
-SKIP = {"test_unsupported_variant_routes_to_bridge": "the ffmpeg bridge (item 13)"}
+SKIP: dict = {}
 
 
 @pytest.mark.parametrize("case", port_cases(jffv1_tests, SKIP))

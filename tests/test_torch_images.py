@@ -3,8 +3,9 @@
 the same bytes, the same file read by both gives the same arrays, depth,
 properties and ``linear`` flag, for every channel string, both depths,
 ``linear``/``to_srgb``, ``-`` pipes and ``fmt:path`` specifiers; the
-base16 and DC codecs are bit-equal.  What the port refuses (every
-format but PNG, sixel) raises a ``ValueError`` naming the ROADMAP item.
+base16 and DC codecs are bit-equal.  The targets the port once refused
+(every format but PNG, sixel) are written as the JAX package writes
+them.
 """
 
 import dataclasses
@@ -14,6 +15,7 @@ import sys
 
 import numpy as np
 import pytest
+from PIL import Image
 
 from dspfun_tpu.io import images as jimages
 from dspfun_tpu_torch.io import images as timages
@@ -155,26 +157,66 @@ def test_base16_and_dc_codecs_bit_equal():
 @pytest.mark.parametrize("target", ["out.jpg", "jpeg:-", "out.tiff", "bmp:x", "x.ppm",
                                     "webp:x", "x.gif", "./noext"])
 def test_other_formats_are_refused_on_write(target, tmp_path, monkeypatch):
+    """Each target the port once refused (ROADMAP item 8) is written as the
+    JAX package writes it: the same bytes, or the same failure (16-bit
+    colour outside PNG), at both depths; GIF (cv2's palette) within the
+    bound of tests/test_torch_image_formats.py.  Without cv2 the
+    compressed targets are still refused by item 8, writing nothing."""
+    pytest.importorskip("cv2")
+    pix = _pixels(4, 4, 3)
     monkeypatch.chdir(tmp_path)
+    compressed = any(k in target for k in ("jp", "webp", "gif"))
     for depth in (8, 16):
+        out = {}
+        for name, mod in (("jax", jimages), ("torch", timages)):
+            std = _Std()
+            monkeypatch.setattr(sys, "stdout", std)
+            (tmp_path / name).mkdir(exist_ok=True)
+            spec = target if target.endswith("-") else target.replace(":", f":{name}/", 1) \
+                if ":" in target else f"{name}/{target}"
+            try:
+                mod.write_image(spec, pix, depth=depth)
+                path = spec.split(":", 1)[-1]
+                out[name] = std.buffer.getvalue() if path == "-" else open(path, "rb").read()
+            except (KeyError, OSError, ValueError):
+                out[name] = "failed"  # Pillow: no such format or mode for it
+        if "gif" in target and depth == 8:
+            dec = [np.asarray(Image.open(io.BytesIO(out[k])).convert("RGB"), np.float64)
+                   for k in ("jax", "torch")]
+            assert np.abs(dec[0] - dec[1]).mean() <= 0.08 * 255
+        else:
+            assert out["torch"] == out["jax"]
+    if compressed:
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        before = sorted(tmp_path.iterdir())
         with pytest.raises(ValueError, match="queue 1, item 8"):
-            timages.write_image(target, _pixels(4, 4, 3), depth=depth)
-    assert list(tmp_path.iterdir()) == []
+            timages.write_image(target, pix)
+        assert sorted(tmp_path.iterdir()) == before
 
 
 def test_sixel_is_refused_by_item(tmp_path, monkeypatch):
-    """``sixel:`` targets and the tty default: an error naming item 21,
-    never another format."""
+    """``sixel:`` targets and the tty default, once refused (ROADMAP item
+    21), write sixel as the JAX package does: the same header and size,
+    and decoded colours held to io/sixel.py's gate against the JAX
+    encoder's (tests/test_torch_sixel.py); not a tty, PNG to stdout."""
+    from tests.test_torch_sixel import decode_sixel
+
     pix = _pixels(4, 4, 3)
-    for target in ("sixel:-", f"sixel:{tmp_path / 's.six'}"):
-        with pytest.raises(ValueError, match="queue 1, item 21"):
-            timages.write_image(target, pix)
-    tty = _Std()
-    tty.isatty = lambda: True
-    monkeypatch.setattr(sys, "stdout", tty)
-    with pytest.raises(ValueError, match="queue 1, item 21"):
-        timages.write_image(None, pix)
-    assert tty.buffer.getvalue() == b"" and list(tmp_path.iterdir()) == []
+    got = {}
+    for name, mod in (("jax", jimages), ("torch", timages)):
+        mod.write_image(f"sixel:{tmp_path / name}.six", pix)
+        got[name] = (tmp_path / f"{name}.six").read_bytes()
+        tty = _Std()
+        tty.isatty = lambda: True
+        monkeypatch.setattr(sys, "stdout", tty)
+        mod.write_image(None, pix)
+        assert tty.buffer.getvalue() == got[name]
+    rgb8 = np.clip(np.rint(np.clip(pix, 0, 1) * 255), 0, 255)
+    for data in got.values():
+        assert data.startswith(b'\x1bPq"1;1;4;4') and data.endswith(b"\x1b\\")
+    idx, pal = decode_sixel(got["torch"])
+    lut = np.array([pal[k] for k in sorted(pal)])
+    np.testing.assert_array_equal(lut[idx], rgb8.astype(np.int64) * 100 // 255)  # 16 colours
     pipe = _Std()
     monkeypatch.setattr(sys, "stdout", pipe)
     timages.write_image(None, pix)           # not a tty: PNG to stdout

@@ -5,9 +5,8 @@ against files a real libavformat wrote (cv2's bundled FFmpeg).
 * Every case of ``tests/test_interop_cv2.py`` runs on the port's modules
   (``tests/torch_port_cases.py``): real FFV1 NUT and Matroska files
   decode sample-exactly, the port's files decode bit-exactly in real
-  libavcodec.  Left out: the one case that needs the JAX package's cv2
-  input fallback (the port refuses a foreign codec inside Matroska:
-  ``test_foreign_matroska_codec_is_refused``).
+  libavcodec; a foreign codec inside Matroska decodes through cv2's
+  bundled FFmpeg when no ffmpeg binary is on PATH, in both packages.
 * The same planes through both packages' Matroska writers give equal
   bytes (the JAX package writes native Matroska when no ffmpeg binary
   is on PATH, as here).
@@ -27,11 +26,9 @@ import tests.test_interop_cv2 as jinterop_tests  # noqa: E402
 from dspfun_tpu.io import video as jvideo  # noqa: E402
 from dspfun_tpu_torch.io import mkv as tmkv  # noqa: E402
 from dspfun_tpu_torch.io import video as tvideo  # noqa: E402
-from tests.torch_port_cases import port_cases, run_on_port  # noqa: E402
+from tests.torch_port_cases import hide_ffmpeg, port_cases, run_on_port  # noqa: E402
 
-SKIP = {"test_real_matroska_ffv1_decodes_natively_bit_exact":
-        "its second half needs the JAX package's cv2 input fallback; "
-        "test_real_matroska_decodes_and_foreign_codecs_are_refused covers the rest"}
+SKIP: dict = {}
 
 
 @pytest.mark.parametrize("case", port_cases(jinterop_tests, SKIP))
@@ -48,7 +45,7 @@ def _cv2_write(path, frames, fourcc, is_color=True):
     wr.release()
 
 
-def test_real_matroska_decodes_and_foreign_codecs_are_refused(tmp_path):
+def test_real_matroska_decodes_and_foreign_codecs_are_refused(tmp_path, monkeypatch):
     rng = np.random.default_rng(108)
     frames = [rng.integers(0, 256, (16, 24, 3)).astype(np.uint8) for _ in range(3)]
     p = tmp_path / "a.mkv"
@@ -61,19 +58,24 @@ def test_real_matroska_decodes_and_foreign_codecs_are_refused(tmp_path):
             for x, y in zip((g, b, rr), j.read_frame(raw=True)):
                 np.testing.assert_array_equal(x, y)
         assert r.read_frame() is None
+    # a foreign codec inside Matroska (once refused by the port, ROADMAP
+    # item 13): without an ffmpeg binary both packages decode it through
+    # cv2's bundled FFmpeg, to the same frames
+    hide_ffmpeg(monkeypatch)
     q = tmp_path / "m.mkv"
     _cv2_write(q, frames[:1], "MJPG")
-    with pytest.raises(ValueError, match="item 13"):
-        tvideo.open_input(str(q))
+    with tvideo.open_input(str(q)) as r, jvideo.open_input(str(q)) as j:
+        assert type(r).__name__ == type(j).__name__ and r.format == j.format == "opencv"
+        assert (r.pix_fmt.name, r.frames) == (j.pix_fmt.name, j.frames) == ("gbrp", 1)
+        for x, y in zip(r.read_frame(raw=True), j.read_frame(raw=True)):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("pix_fmt,options", [("yuv420p", None), ("gray", "level=3"),
                                              ("gbrp", None), ("gbrpf32le", None),
                                              ("yuv444pf32", None), (None, None)])
 def test_writers_give_equal_bytes(pix_fmt, options, tmp_path, monkeypatch):
-    import shutil
-
-    monkeypatch.setattr(shutil, "which", lambda name: None)  # the JAX package's native path
+    hide_ffmpeg(monkeypatch)  # both packages' native Matroska
     rng = np.random.default_rng(9)
     frames = [rng.random((12, 20, 3)) for _ in range(3)]
     out = {}
@@ -94,17 +96,26 @@ def test_writers_give_equal_bytes(pix_fmt, options, tmp_path, monkeypatch):
                 np.testing.assert_array_equal(x, y)
 
 
-def test_append_and_pipes_are_refused(tmp_path):
+def test_append_and_pipes_are_refused(tmp_path, monkeypatch):
+    """Append and resume into Matroska are refused, as in the JAX package.
+    Matroska on a pipe, under another extension or with another encoder
+    (once refused by the port, ROADMAP item 13) is the ffmpeg bridge's in
+    both packages: the same error without a binary."""
     path = str(tmp_path / "a.mkv")
     with tvideo.open_output(path, 8, 6, Fraction(25), tvideo.ColorProps(pix_fmt="gray")) as w:
         w.write_frame([np.zeros((6, 8))], raw=True)
     with pytest.raises(RuntimeError, match="append/resume"):
         tvideo.open_output(path, 8, 6, Fraction(25), append=True)
-    for spec, fmt in (("-", "matroska"), (str(tmp_path / "a.bin"), "matroska")):
-        with pytest.raises(ValueError, match="item 13"):
-            tvideo.open_output(spec, 8, 6, format=fmt)
-    with pytest.raises(ValueError, match="item 13"):
-        tvideo.open_output(str(tmp_path / "b.mkv"), 8, 6, codec="rawvideo")
+    hide_ffmpeg(monkeypatch)
+    for spec, fmt, codec in (("-", "matroska", None), (str(tmp_path / "a.bin"), "matroska", None),
+                             (str(tmp_path / "b.mkv"), None, "rawvideo")):
+        errs = []
+        for mod in (jvideo, tvideo):
+            with pytest.raises(RuntimeError, match="requires an ffmpeg binary") as e:
+                mod.open_output(spec, 8, 6, format=fmt, codec=codec)
+            errs.append(str(e.value))
+        assert errs[0] == errs[1]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["a.mkv"]
 
 
 def test_demuxer_copy_reads_the_jax_muxer():

@@ -355,3 +355,51 @@ def test_motion_plans_from_jax_keeps_the_structure():
     assert [len(p) for p in plans] == [3, 3, 2]
     assert plans[2][0].digits.dtype == torch.int8
     assert motion_plans_from_jax((*jmp.make_plans(gj), None), device="cpu")[2] is None
+
+
+@pytest.mark.parametrize("kw,boost,damp", [(dict(bp_end=JD(4, 4, 2)), 1.25, 0.0),
+                                           (dict(bp_begin=JD(6, 5, 3), bp_end=JD(2, 3, 1)), 2.0,
+                                            0.5),
+                                           (dict(), 1.0, 0.3)])
+def test_fast_path_multipliers_equal_the_numpy_form(kw, boost, damp):
+    """The fast path's ``uf`` and ``bpm``, built on the device from the
+    three axes, equal the numpy arrays bit for bit, and so do the two
+    constants it multiplies by (float32 of ``uf * bpm`` and of
+    ``(1 / uf) / (8 vol)``, one rounding each)."""
+    (gt,) = _geoms(24, 16, 8, block=JD(24, 16, 8), **kw)[1]
+    p = tmp.MotionParams(boost=boost, damp=damp)
+    uf, bpm = tmp._fast_multipliers(gt, p, "cpu")
+    m = gt.minbuf
+    uf_np, bpm_np = tmp._uniform_factor(m.d, m.h, m.w), tmp._bandpass_mult(gt, boost, damp)
+    np.testing.assert_array_equal(uf.numpy(), uf_np)
+    np.testing.assert_array_equal(bpm.numpy(), bpm_np)
+    vol = m.volume()
+    np.testing.assert_array_equal((uf * bpm).to(torch.float32).numpy(),
+                                  (uf_np * bpm_np).astype(np.float32))
+    np.testing.assert_array_equal(
+        tmp.true_div(tmp._rdiv(1.0, uf), 8.0 * vol).to(torch.float32).numpy(),
+        ((1.0 / uf_np) / (8.0 * vol)).astype(np.float32))
+
+
+def test_whole_clip_fast_path_builds_nothing_on_the_host(monkeypatch):
+    """``-b 0x0x0`` (one block the size of the clip): no i8-kron plan can
+    contract K = vol, so the planner returns before it builds anything,
+    and the chain's multipliers come from the device; the numpy builders
+    are called zero times.  The output equals the JAX package's separable
+    path within the module's 1e-3 pels."""
+    (gj,), (gt,) = _geoms(64, 48, 64, block=JD(0, 0, 0), bp_end=JD(16, 12, 16))
+    assert gt.block == gt.minbuf and gt.minbuf.volume() > 174762  # > _kmax(3)
+    params = tmp.MotionParams(boost=1.25, damp=0.0)
+    calls = []
+    for name in ("_bandpass_mult", "_uniform_factor"):
+        real = getattr(tmp, name)
+        monkeypatch.setattr(tmp, name, lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
+    tmp._maybe_kron_cached.cache_clear()
+    for allow_cpu in (False, True):
+        assert tmp.maybe_kron_plans(gt, params, allow_cpu=allow_cpu, device="cpu") is None
+    rng = np.random.default_rng(4)
+    blocks = rng.integers(0, 256, (1, 64, 48, 64)).astype(np.float32)
+    (oj, _), (ot, _) = _run(gj, gt, dict(boost=1.25, damp=0.0), blocks)
+    assert tmp.LAST_FAST_PATH == "sep" and calls == []
+    np.testing.assert_allclose(ot, oj, atol=1e-3)
+    tmp._maybe_kron_cached.cache_clear()

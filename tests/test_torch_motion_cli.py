@@ -37,6 +37,7 @@ from dspfun_tpu_torch.io import color as tcolor
 from dspfun_tpu_torch.io import video as tvideo
 from dspfun_tpu_torch.tools import cli_device
 from dspfun_tpu_torch.tools import motion as tmotion
+from tests.torch_port_cases import assert_cli_parity, run_cli_both
 
 
 def _planes(rng, pf, w, h, t):
@@ -109,13 +110,24 @@ def test_refused_flags_exit_1(clip, tmp_path, capsys, flag, item):
 
 @pytest.mark.parametrize("src,dst", [("in.nut", "o.y4m"), ("clip", "o.webm"),
                                      ("clip", "ffplay:")])
-def test_other_containers_are_refused(clip, tmp_path, capsys, src, dst):
-    src = clip if src == "clip" else str(tmp_path / src)
-    if src.endswith(".nut"):
-        open(src, "wb").write(b"nut/multimedia container\0")
-    dst = dst if dst == "ffplay:" else str(tmp_path / dst)
-    assert tmotion.main(["-Q", "--device", "cpu", src, dst]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+def test_other_containers_are_refused(clip, tmp_path, capsys, monkeypatch, src, dst):
+    """The containers the port once refused (ROADMAP item 13) take the
+    JAX tool's paths: with ffmpeg hidden and under the shim binaries, the
+    same exit code, last error line, shim argv and output within one
+    level."""
+    def argv_of(d):
+        s = clip if src == "clip" else str(d / src)
+        if s.endswith(".nut"):
+            open(s, "wb").write(b"nut/multimedia container\0")
+        dev = ["--device", "cpu"] if d.name.startswith("torch") else []
+        return ["-Q", *dev, "-b", "16x16x16", "-p", "0x0x0-8x8x4", "-B", "1.25", s,
+                dst if dst == "ffplay:" else str(d / dst)]
+
+    for shims in (False, True):
+        got = run_cli_both(tmp_path, monkeypatch, capsys,
+                           {"jax": jmotion.main, "torch": tmotion.main}, argv_of, shims)
+        assert_cli_parity(got)
+        assert got["torch"]["rc"] == (0 if shims and src == "clip" else 1)
 
 
 def test_device_cuda_without_a_card_is_an_error(clip, tmp_path, capsys, monkeypatch):

@@ -10,8 +10,13 @@ build of ``native/dspio.cpp``) against the JAX package's.
   default, pipes through the Python readers.
 * The port never loads a library built from the repo's ``native/``
   directory, and a failed build raises instead of falling back.
+* A cold build works while a test hides ffmpeg
+  (``torch_port_cases.hide_ffmpeg`` hides the ffmpeg binaries only, so
+  ``g++`` is still found: a worker that reaches such a test before any
+  library is built must build it).
 """
 
+import shutil
 import subprocess
 import sys
 from fractions import Fraction
@@ -25,7 +30,7 @@ from dspfun_tpu.io import native as jnative
 from dspfun_tpu.io import video as jvideo
 from dspfun_tpu_torch.io import native as tnative
 from dspfun_tpu_torch.io import video as tvideo
-from tests.torch_port_cases import port_cases, run_on_port
+from tests.torch_port_cases import hide_ffmpeg, port_cases, run_on_port
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -118,3 +123,22 @@ def test_concurrent_builds_leave_one_whole_library(tmp_path, monkeypatch):
     assert [o[0].strip() for o in outs] == [b"True"] * 3
     assert [p.name for p in (tmp_path / "native").iterdir()] == \
         [_hostbuild.library_path("dspio").name]
+
+
+def test_cold_build_while_ffmpeg_is_hidden(tmp_path, monkeypatch):
+    from dspfun_tpu_torch import _hostbuild
+    from dspfun_tpu_torch.io import ffmpeg_bridge
+
+    hide_ffmpeg(monkeypatch)
+    assert shutil.which("ffmpeg") is shutil.which("ffprobe") is shutil.which("ffplay") is None
+    assert shutil.which("g++") is not None
+    assert not ffmpeg_bridge.have_ffmpeg() and not ffmpeg_bridge.have_ffprobe()
+    monkeypatch.setattr(_hostbuild, "build_dir", lambda: tmp_path)
+    _hostbuild.load_library.cache_clear()
+    try:
+        assert list(tmp_path.iterdir()) == []
+        lib = _hostbuild.load_library("dspio")
+        assert Path(lib._name).parent == tmp_path
+        assert [p.name for p in tmp_path.iterdir()] == [_hostbuild.library_path("dspio").name]
+    finally:
+        _hostbuild.load_library.cache_clear()

@@ -2,18 +2,18 @@
 classes of ``io/video.py``) against the JAX package's.
 
 * Every case of ``tests/test_nut.py`` runs on the port's modules
-  (``tests/torch_port_cases.py``), but those that need what the port
-  leaves out: the ffmpeg bridge, the JAX tools' mesh call, and the JAX tools (the
-  port's tools write NUT in the CLI tests).
+  (``tests/torch_port_cases.py``), but the JAX tools' mesh call and the
+  JAX tools (the port's tools write NUT in the CLI tests).
 * The same planes through both packages' writers give equal bytes, for
   FFV1 at levels 1 and 3, rawvideo, 16-bit and float content, and each
   package's reader decodes the other's file to equal planes.
-* Where the JAX package routes to its bridge the port refuses (ROADMAP
-  queue 1, item 13), and where it falls back to rawvideo payloads
-  because the FFV1 library cannot be built the port raises the build's
-  error.
+* Where the JAX package routes to its ffmpeg bridge, so does the port
+  (the same errors without a binary, the same argv and bytes under the
+  shims); where it falls back to rawvideo payloads because the FFV1
+  library cannot be built the port raises the build's error.
 """
 
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -25,11 +25,10 @@ from dspfun_tpu_torch import _hostbuild
 from dspfun_tpu_torch.io import ffv1 as tffv1
 from dspfun_tpu_torch.io import nut as tnut
 from dspfun_tpu_torch.io import video as tvideo
-from tests.torch_port_cases import port_cases, run_on_port
+from tests.torch_port_cases import (clear_ffmpeg_caches, hide_ffmpeg, port_cases, run_on_port,
+                                    use_shims)
 
 SKIP = {
-    "test_nut_foreign_codec_routes_to_bridge": "the ffmpeg bridge (item 13): "
-                                               "test_foreign_codec_is_refused",
     "test_tools_roundtrip_through_nut": "the JAX tools; the port's write NUT in the CLI tests",
     "test_scan_mesh_with_packed_emission": "the JAX tool's call (no --device); "
                                            "test_torch_mesh_cli.py runs it on the port",
@@ -96,32 +95,66 @@ def test_append_gives_equal_bytes(tmp_path):
         assert r.frames == 4
 
 
-def test_foreign_codec_is_refused(tmp_path):
-    """A foreign encoder on a NUT target is the JAX package's bridge; the
-    port refuses it by name before anything is written, and FFV1 works."""
-    props = tvideo.parse_color_props("pixel_format=yuv420p")
-    with pytest.raises(ValueError, match="item 13"):
-        tvideo.open_output(str(tmp_path / "e.nut"), 8, 6, Fraction(25), props, codec="h264")
-    with pytest.raises(ValueError, match="item 13"):
-        tvideo.open_output(str(tmp_path / "f.nut"), 8, 6, Fraction(25),
-                           tvideo.parse_color_props("pixel_format=gbrpf32le"), codec="ffv1")
-    assert not list(tmp_path.iterdir())
-    with tvideo.open_output(str(tmp_path / "g.nut"), 8, 6, Fraction(25), props,
-                            codec="ffv1") as w:
-        assert w.codec == "ffv1"
+def _bridge_parity(tmp_path, monkeypatch, run):
+    """``run(video_module, d)`` on both packages, with ffmpeg hidden and
+    under the shims, each in a directory of its own: the same result
+    (``d`` written ``D``), shim argv and files."""
+    for shims in (False, True):
+        got = {}
+        for name, mod in (("jax", jvideo), ("torch", tvideo)):
+            d = tmp_path / f"{name}{int(shims)}"
+            d.mkdir()
+            with monkeypatch.context() as mp:
+                log = use_shims(mp, str(d)) if shims else hide_ffmpeg(mp)
+                try:
+                    res = run(mod, d)
+                except (RuntimeError, ValueError) as e:
+                    res = (type(e).__name__, str(e))
+                clear_ffmpeg_caches()
+            argv = sorted(open(log).read().splitlines()) if shims and os.path.exists(log) else []
+            files = sorted((p.name, p.read_bytes()) for p in d.iterdir() if p.suffix == ".nut")
+            got[name] = repr((res, argv, files)).replace(str(d), "D")
+        assert got["torch"] == got["jax"]
 
 
-def test_undecodable_ffv1_is_refused(tmp_path):
-    """A NUT file whose FFV1 stream the native decoder rejects: the JAX
-    package hands it to its bridge, the port refuses it by name."""
-    pf = tvideo.PIXEL_FORMATS["yuv420p"]
-    p = tmp_path / "alien.nut"
-    with open(p, "wb") as f:
-        nw = tnut.NutWriter(f, 8, 6, Fraction(25), pf, tvideo.ColorProps(), codec="ffv1")
-        nw.write_header()
-        nw.write_frame_bytes(b"\x00" * 64)
-    with pytest.raises(ValueError, match="item 13"):
-        tvideo.open_input(str(p))
+def test_foreign_codec_is_refused(tmp_path, monkeypatch):
+    """A foreign encoder on a NUT target, and FFV1 for float pels, are the
+    ffmpeg bridge's in both packages (once refused by the port, ROADMAP
+    item 13): the same error without a binary, the same argv and bytes
+    under the shims; FFV1 of integer pels stays native."""
+    def run(mod, d):
+        out = []
+        for name, pix, codec in (("e", "yuv420p", "h264"), ("f", "gbrpf32le", "ffv1"),
+                                 ("g", "yuv420p", "ffv1")):
+            try:
+                with mod.open_output(str(d / f"{name}.nut"), 8, 6, Fraction(25),
+                                     mod.parse_color_props(f"pixel_format={pix}"),
+                                     codec=codec) as w:
+                    w.write_frame_rgb(np.full((6, 8, 3), 0.5))
+                    out.append((type(w).__name__, getattr(w, "codec", None)))
+            except RuntimeError as e:
+                out.append(str(e))
+        return out
+
+    _bridge_parity(tmp_path, monkeypatch, run)
+
+
+def test_undecodable_ffv1_is_refused(tmp_path, monkeypatch):
+    """A NUT file whose FFV1 stream the native decoder rejects goes to the
+    ffmpeg bridge in both packages (once refused by the port, ROADMAP
+    item 13): the same error without a binary, the same argv under the
+    shims."""
+    def run(mod, d):
+        pf = tvideo.PIXEL_FORMATS["yuv420p"]
+        p = d / "alien.nut"
+        with open(p, "wb") as f:
+            nw = tnut.NutWriter(f, 8, 6, Fraction(25), pf, tvideo.ColorProps(), codec="ffv1")
+            nw.write_header()
+            nw.write_frame_bytes(b"\x00" * 64)
+        with mod.open_input(str(p)) as r:
+            return r.format, r.read_frame(raw=True) is None
+
+    _bridge_parity(tmp_path, monkeypatch, run)
 
 
 def test_no_rawvideo_fallback_when_ffv1_cannot_build(tmp_path, monkeypatch):

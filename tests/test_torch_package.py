@@ -1,4 +1,5 @@
-"""The port stands alone: it imports no JAX, no Pillow and no dspfun_tpu,
+"""The port stands alone: it imports no JAX, no Pillow and no dspfun_tpu
+(and cv2 only lazily, for the cv2 bridge and the compressed images),
 its entry points run on the card unless told otherwise, an installed
 copy ships every file its kernel build reads, its dispatcher lists the
 tools it has, and its chip smoke run refuses to run without a CUDA
@@ -36,6 +37,7 @@ def test_every_module_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
         "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
+        "sys.modules['cv2'] = None\n"
         "import importlib, pkgutil, dspfun_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dspfun_tpu_torch.__path__,"
         " 'dspfun_tpu_torch.')]\n"
@@ -56,7 +58,8 @@ def test_every_module_imports_without_jax():
         "tools._colorspec", "tools.applybasis", "tools.genbasis", "tools.draw", "tools.rotate",
         "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild",
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
-        "parallel.motion_sharded", "parallel.multihost")} <= names
+        "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
+        "io.sixel", "io.imgcodecs")} <= names
 
 
 def test_mesh_ranks_import_no_jax(tmp_path):
@@ -338,8 +341,15 @@ def test_package_data_ships_what_the_build_reads():
 
 
 def test_no_jax_imports_in_the_source():
+    """No jax, Pillow or JAX package anywhere; cv2 only inside functions of
+    ``io/cv2_bridge.py`` and ``io/images.py`` (the compressed formats)."""
+    lazy_cv2 = {PKG / "io" / "cv2_bridge.py", PKG / "io" / "images.py"}
     for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
-        for node in ast.walk(ast.parse(path.read_text())):
+        tree = ast.parse(path.read_text())
+        in_function = {id(n) for f in ast.walk(tree)
+                       if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                       for n in ast.walk(f)}
+        for node in ast.walk(tree):
             names = []
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -347,7 +357,9 @@ def test_no_jax_imports_in_the_source():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"), f"{path}: {n}"
+                assert root not in ("jax", "jaxlib", "dspfun_tpu", "PIL"), f"{path}: {n}"
+                if root == "cv2":
+                    assert path in lazy_cv2 and id(node) in in_function, f"{path}: {n}"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -12,19 +12,20 @@ writers and readers it stands in for: Pillow's PNG plugin and
   ``optimize`` filters), from ``png16``, and files with each of the five
   filters forced give the pixels, depth and properties of
   ``dspfun_tpu.io.images.read_image``, exactly.
-* every format and PNG variety the port does not read is refused with a
-  message naming the ROADMAP item.
+* the formats and PNG varieties the port once refused read as the JAX
+  package reads them (tests/test_torch_image_formats.py has the rest).
 """
 
 import io
 import struct
+import sys
 import zlib
 
 import numpy as np
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from PIL import Image, features
+from PIL import Image, UnidentifiedImageError
 from PIL.PngImagePlugin import PngInfo
 
 from dspfun_tpu.io import images as jimages
@@ -223,19 +224,21 @@ def _patched_ihdr(data, **fields):
 
 
 def _refused_files():
-    rgb = Image.fromarray(_array("random", np.uint8, 3))
-    good = _pil_file(rgb)
+    """The files the port refused before it read every format: now each
+    is read as the JAX package reads it (real interlaced and 4-bit files
+    take the place of the patched headers, which no reader decodes)."""
+    from tests.test_torch_image_formats import make_png
+
+    arr = _array("random", np.uint8, 3)
+    rgb = Image.fromarray(arr)
     out = {
-        "interlaced": _patched_ihdr(good, interlace=1),
+        "interlaced": make_png(arr, 8, 2, 1),
         "palette": _pil_file(rgb.convert("P")),
         "depth1": _pil_file(rgb.convert("1")),
-        "depth4": _patched_ihdr(_pil_file(rgb.convert("L")), depth=4),
+        "depth4": make_png(arr[..., :1] >> 4, 4, 0, 0),
         "not an image": b"hello, world\n",
     }
     for fmt in ("JPEG", "TIFF", "BMP", "PPM", "GIF", "WEBP"):
-        if fmt == "WEBP" and not features.check("webp"):
-            out[fmt] = b"RIFF\x00\x00\x00\x00WEBPVP8 "
-            continue
         buf = io.BytesIO()
         rgb.save(buf, format=fmt)
         out[fmt] = buf.getvalue()
@@ -244,12 +247,30 @@ def _refused_files():
 
 @pytest.mark.parametrize("case", ["interlaced", "palette", "depth1", "depth4", "not an image",
                                   "JPEG", "TIFF", "BMP", "PPM", "GIF", "WEBP"])
-def test_what_the_port_does_not_read_is_refused_by_item(case, tmp_path):
+def test_what_the_port_does_not_read_is_refused_by_item(case, tmp_path, monkeypatch):
+    """Each file the port used to refuse (naming ROADMAP item 8) reads as
+    the JAX package reads it: the same pixels and depth (the compressed
+    formats through cv2, within one 8-bit level), or an error in both
+    for what is no image.  Without cv2 the compressed formats are still
+    refused by item 8."""
     path = _write(tmp_path, _refused_files()[case], "in.bin")
-    with pytest.raises(ValueError, match="queue 1, item 8") as e:
-        timages.read_image(path)
-    if case.isupper():
+    if case == "not an image":
+        with pytest.raises(UnidentifiedImageError):
+            jimages.read_image(path)
+        with pytest.raises(ValueError, match="cannot identify"):
+            timages.read_image(path)
+        return
+    j, t = jimages.read_image(path, channels="RGBA"), timages.read_image(path, channels="RGBA")
+    assert t.depth == j.depth
+    if case in ("JPEG", "GIF", "WEBP"):
+        pytest.importorskip("cv2")
+        assert np.abs(t.pixels - j.pixels).max() <= 1 / 255 + 1e-12
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ValueError, match="queue 1, item 8") as e:
+            timages.read_image(path)
         assert ("WebP" if case == "WEBP" else case) in str(e.value)
+    else:
+        np.testing.assert_array_equal(t.pixels, j.pixels)
 
 
 def test_encode_refuses_what_it_cannot_write():

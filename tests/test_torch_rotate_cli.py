@@ -3,10 +3,12 @@ on the CPU: the same seeded y4m and fvid clips (8-bit 4:4:4 and 4:2:0,
 10-bit 4:2:0, float RGB) through ``dspfun_tpu.tools.<tool>`` and
 ``dspfun_tpu_torch.tools.<tool>`` with the same flags write files equal
 byte for byte, to y4m, fvid, PNG, NUT (FFV1 by default, rawvideo, FFV1
-level 3) and Matroska.  The containers and encoders the port lacks are
-refused (exit 1, ROADMAP queue 1, item 13) before the input is read."""
+level 3) and Matroska.  The ffmpeg bridge's containers, ``ffplay:`` and
+foreign encoders behave as in the JAX tools, with ffmpeg hidden and under
+the shim binaries of tests/test_ffmpeg_bridge.py."""
 
 import itertools
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -19,6 +21,7 @@ from dspfun_tpu_torch.io import video as tvideo
 from dspfun_tpu_torch.tools import main as tmain
 from dspfun_tpu_torch.tools import rotate as trotate
 from dspfun_tpu_torch.tools import transcode as ttranscode
+from tests.torch_port_cases import clear_ffmpeg_caches, hide_ffmpeg, use_shims
 
 # (file name, pixel format, frames, height, width)
 CLIPS = [("c444.y4m", "yuv444p", 4, 8, 12), ("c420.y4m", "yuv420p", 5, 8, 12),
@@ -157,21 +160,40 @@ def test_help_usage_and_exit_codes(tmp_path, capsys):
 @pytest.mark.parametrize("tool", [trotate, ttranscode], ids=["rotate", "transcode"])
 @pytest.mark.parametrize("target", ["o.webm", "-F matroska", "o.mp4", "ffplay:", "-e mpeg4",
                                     "-e libx264", "-F mp4", "in.nut"])
-def test_refusals_name_item_13(tmp_path, capsys, tool, target):
-    src = _clip(tmp_path, *CLIPS[0])
+def test_refusals_name_item_13(tmp_path, capsys, monkeypatch, tool, target):
+    """The targets the port once refused (ROADMAP item 13) now take the
+    JAX tools' paths: with ffmpeg hidden, the same exit code and leading
+    error text; under the shim binaries, the same exit code, ffmpeg and
+    ffplay argv and output bytes."""
+    jt = jrotate if tool is trotate else jtranscode
     lead = ["-q"] + (["zyx"] if tool is trotate else [])
-    out = str(tmp_path / "o.y4m")
-    if target.startswith("-"):
-        argv = lead + target.split() + [src, out]
-    elif target == "in.nut":
-        nut = str(tmp_path / "in.nut")
-        open(nut, "wb").write(b"nut/multimedia container\0")
-        argv = lead + [nut, out]
-    else:
-        argv = lead + [src, target if target == "ffplay:" else str(tmp_path / target)]
-    assert tool.main(argv) == 1
-    assert "item 13" in capsys.readouterr().err
-    assert not any(p.name.startswith("o.") for p in tmp_path.iterdir())
+    for shims in (False, True):
+        got = {}
+        for name, t in (("jax", jt), ("torch", tool)):
+            d = tmp_path / f"{name}{int(shims)}"
+            d.mkdir()
+            src = _clip(d, *CLIPS[0])
+            with monkeypatch.context() as mp:
+                log = use_shims(mp, str(d)) if shims else hide_ffmpeg(mp)
+                out = str(d / "o.y4m")
+                if target.startswith("-"):
+                    argv = lead + target.split() + [src, out]
+                elif target == "in.nut":
+                    nut = str(d / "in.nut")
+                    open(nut, "wb").write(b"nut/multimedia container\0")
+                    argv = lead + [nut, out]
+                else:
+                    argv = lead + [src, target if target == "ffplay:" else str(d / target)]
+                rc = t.main(argv)
+                clear_ffmpeg_caches()
+            err = capsys.readouterr().err.replace(str(d), "D")
+            argvs = sorted(open(log).read().replace(str(d), "D").splitlines()) \
+                if shims and os.path.exists(log) else []
+            outs = {p.name: p.read_bytes() for p in d.iterdir() if p.name.startswith("o.")}
+            got[name] = (rc, err[:60] if rc else "", argvs, outs)
+        assert got["torch"] == got["jax"]
+        if not shims and not target.startswith(("-e", "in.")):  # y4m ignores -e
+            assert got["torch"][0] == 1 and ("ffmpeg" in err or "ffplay" in err)
 
 
 def test_dispatcher_runs_rotate_and_transcode(tmp_path):
@@ -194,9 +216,7 @@ def test_nut_and_mkv_files_equal(tmp_path, monkeypatch, tool, clip, argv, ext):
     the files equal the JAX tools' byte for byte (the JAX package writes
     native Matroska when no ffmpeg binary is on PATH), and the port reads
     them back to the planes the JAX package reads."""
-    import shutil
-
-    monkeypatch.setattr(shutil, "which", lambda name: None)
+    hide_ffmpeg(monkeypatch)  # both packages' native Matroska
     src = _clip(tmp_path, *clip)
     jt, tt = (jrotate, trotate) if tool == "rotate" else (jtranscode, ttranscode)
     lead = ["-q"] + argv + (["zyx"] if tool == "rotate" else [])

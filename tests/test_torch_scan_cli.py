@@ -25,6 +25,7 @@ from dspfun_tpu_torch.ops.int8mm import LAUNCHES
 from dspfun_tpu_torch.tools import main as tmain
 from dspfun_tpu_torch.tools import scan as tscan
 
+from tests.torch_port_cases import assert_cli_parity, hide_ffmpeg, run_cli_both
 
 @pytest.fixture(autouse=True)
 def _policies(monkeypatch):
@@ -191,6 +192,26 @@ def test_png_sequence_output(tmp_path, capsys):
     (["--nonesuch"], "not recognized"),
 ])
 def test_refusals_and_errors_exit_1(argv, msg, tmp_path, capsys, monkeypatch):
+    """Errors exit 1 with the message.  The rows that once named ROADMAP
+    items 13 and 8 (the bridge's containers and encoders, ``ffplay:``, a
+    JPEG sequence) are held to the JAX tool instead: the same exit code,
+    last error line, shim argv and output within its tolerances, with
+    ffmpeg hidden and under the shim binaries."""
+    if msg.startswith("queue 1, item"):
+        runs = []
+        for shims in (False, True):
+            got = run_cli_both(
+                tmp_path, monkeypatch, capsys, {"jax": jscan.main, "torch": tscan.main},
+                lambda d: [_png(d) if a == "IN" else a for a in argv
+                           if a not in ("--device", "cpu") or d.name.startswith("torch")],
+                shims)
+            assert_cli_parity(got)
+            runs.append(got["torch"])
+        # the bridge needs the binary: exit 1 without it, a file with it
+        if "ffplay:" not in argv and not argv[-1].endswith(".jpg"):
+            assert runs[0]["rc"] == 1 and "ffmpeg binary" in runs[0]["err"]
+            assert runs[1]["rc"] == 0 and runs[1]["files"]
+        return
     monkeypatch.chdir(tmp_path)
     src = _png(tmp_path)
     assert tscan.main([src if a == "IN" else a for a in argv]) == 1
@@ -257,9 +278,7 @@ def test_nut_and_mkv_targets_match_jax(ext, opts, tmp_path, capsys, monkeypatch)
     8-bit level on < 0.5 % where the pels are 8-bit, the fvid test's 2e-6
     where they are float, and one level where 16-bit FFV1 stores float
     frames."""
-    import shutil
-
-    monkeypatch.setattr(shutil, "which", lambda name: None)  # the JAX package's native Matroska
+    hide_ffmpeg(monkeypatch)  # both packages' native Matroska
     flags = ["-m", "zigzag", "-S", "16", "-q"] + (["--ff-opts", opts] if opts else [])
     jout, tout, _, _ = _run_both(tmp_path, capsys, flags, _png(tmp_path), ext)
     pf = _decoded_close(jout, tout, 2e-6, share=0.005 if ext == "nut" and opts and "yuv" in opts

@@ -31,6 +31,7 @@ writes nothing: sixel, other formats, and ``cuda`` without a card; a
 device (a time axis, more slots than devices) exits 1 with its message.
 """
 
+import io
 import math
 import os
 import struct
@@ -357,23 +358,76 @@ def test_what_the_port_refuses_exits_1_by_item(tool, sources, tmp_path, capsys, 
     assert main(CPU + ["-R", "one", src, out]) == 1
     assert "spec mesh uses the space axis only" in capsys.readouterr().err
     monkeypatch.delenv("DSPFUN_MESH")
-    for target in ("sixel:-", "sixel:o.six"):
-        assert main(CPU + ["-R", "one", src, target]) == 1
-        assert "queue 1, item 21" in capsys.readouterr().err
-    monkeypatch.setattr(sys.stdout, "isatty", lambda: True, raising=False)
-    assert main(CPU + ["-R", "one", src]) == 1        # the tty default is sixel
-    assert "queue 1, item 21" in capsys.readouterr().err
-    monkeypatch.setattr(sys.stdout, "isatty", lambda: False, raising=False)
+    # what the port once refused (ROADMAP items 21 and 8) is held to the
+    # JAX tool: sixel (also the tty default) decodes within the gate of
+    # tests/test_torch_sixel.py against the 8-bit image, and the other
+    # formats decode
+    # to its files within one level on average (GIF: the bound of
+    # tests/test_torch_image_formats.py), from the same spectrum
+    from tests.test_torch_sixel import MAX_MARGIN, MEAN_MARGIN, decoded_rgb
+
+    jmain = jspec.main if tool == "spec" else jispec.main
+    if tool == "ispec":
+        src = str(tmp_path / "spectrum.png")
+        assert jspec.main(["-R", "one", sources["64x48"], src]) == 0
+
+    def both(args, target):
+        got = []
+        for name, run in (("j", lambda a: jmain(a)), ("t", lambda a: main(CPU + a))):
+            std = _BinStd()
+            monkeypatch.setattr(sys, "stdout", std)
+            spec = target.replace("o", f"{name}o", 1) if target else None
+            rc = run(args + ["-R", "one", src] + ([spec] if spec else []))
+            path = (spec or "-").split(":", 1)[-1]
+            got.append((rc, std.buffer.getvalue() if path == "-" else open(path, "rb").read()))
+        monkeypatch.setattr(sys, "stdout", sys.__stdout__)
+        assert got[0][0] == got[1][0] == 0
+        return got[0][1], got[1][1]
+
+    _, ppm = both([], "ppm:-")
+    ref8 = np.frombuffer(ppm[ppm.index(b"255\n") + 4:], np.uint8).reshape(48, 64, 3)
+    for target in ("sixel:-", "sixel:o.six", None):
+        _BinStd.tty = target is None       # the tty default is sixel
+        j, t = both([], target)
+        assert j.split(b"#", 1)[0] == t.split(b"#", 1)[0]       # the same size
+        ej, et = (np.abs(decoded_rgb(x) - ref8) for x in (j, t))
+        assert et.mean() <= ej.mean() + MEAN_MARGIN and et.max() <= ej.max() + MAX_MARGIN
+    _BinStd.tty = False
+    from dspfun_tpu.io import images as jimages
+
     for target in ("o.jpg", "tiff:o", "o.bmp", "ppm:-", "o.webp", "gif:o.png"):
-        assert main(CPU + ["-R", "one", src, target]) == 1
-        assert "queue 1, item 8" in capsys.readouterr().err
+        j, t = both([], target)
+        dec = []
+        for data in (j, t):
+            (tmp_path / "dec.bin").write_bytes(data)
+            dec.append(jimages.read_image(str(tmp_path / "dec.bin")).pixels)
+        bound = (0.08, 0.4) if target.startswith("gif") else (1 / 255, 0.1)
+        d = np.abs(dec[0] - dec[1])
+        assert d.mean() <= bound[0] and d.max() <= bound[1], (target, d.mean(), d.max())
     from PIL import Image
 
-    Image.new("RGB", (8, 8)).save(str(tmp_path / "in.jpg"))
-    assert main(CPU + ["-R", "one", "in.jpg", out]) == 1
-    err = capsys.readouterr().err
-    assert "JPEG" in err and "queue 1, item 8" in err
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["in.jpg"]
+    Image.new("RGB", (8, 8), (10, 200, 30)).save(str(tmp_path / "in.jpg"))
+    assert main(CPU + ["-R", "one", "in.jpg", "tin.png"]) == 0
+    assert jmain(["-R", "one", "in.jpg", "jin.png"]) == 0
+    _compare("tin.png", "jin.png", 2, 0.05)
+
+
+class _BinStd:
+    """A stdout with a binary buffer and a settable ``isatty``."""
+
+    tty = False
+
+    def __init__(self):
+        self.buffer = io.BytesIO()
+
+    def isatty(self):
+        return _BinStd.tty
+
+    def write(self, s):
+        self.buffer.write(s.encode())
+
+    def flush(self):
+        pass
 
 
 @pytest.mark.parametrize("tool", ["spec", "ispec"])

@@ -5,11 +5,12 @@ Container bytes are held to **equality** (fvid and y4m streams, resumed
 streams, PNG sequences decoded to pixels); the packer's payloads to the
 JAX packer's and to the host writers' but for <= 1 level at exact .5
 boundaries, as tests/test_device_pack.py allows.  Files read through
-``NativeBackedReader`` by default, as in the JAX package.  What the port
-still lacks (the ffmpeg bridge's containers and encoders, ``ffplay:``)
-is refused with ROADMAP queue 1, item 13.
+``NativeBackedReader`` by default, as in the JAX package.  The ffmpeg
+bridge's containers and encoders and ``ffplay:`` open and fail as in the
+JAX package, with ffmpeg hidden and under the shim binaries.
 """
 
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -24,6 +25,7 @@ from dspfun_tpu_torch.io import video as tvideo
 from dspfun_tpu_torch.io.device_pack import make_packer as tmake_packer
 from dspfun_tpu_torch.utils import checkpoint as tcheckpoint
 from dspfun_tpu.utils import checkpoint as jcheckpoint
+from tests.torch_port_cases import clear_ffmpeg_caches, hide_ffmpeg, use_shims
 
 
 @pytest.mark.parametrize("opts", [None, "", "pixel_format=yuv420p", "level=3:pixel_format=gray",
@@ -151,22 +153,65 @@ def test_output_format_follows_the_jax_sniffer(spec, fmt, want):
 @pytest.mark.parametrize("spec,fmt", [("o.webm", None), ("-", "matroska"), ("o.mp4", None),
                                       ("ffplay:", None), ("ffplay:x", None), ("o.nut", "mp4"),
                                       ("o.y4m", "matroska"), ("f%02d.jpg", None), ("o.jpg", None)])
-def test_unported_targets_are_refused(spec, fmt, tmp_path):
-    with pytest.raises(ValueError, match="not ported") as e:
-        tvideo.check_output(spec, fmt)
-    assert "queue 1, item 13" in str(e.value) or "queue 1, item 8" in str(e.value)
-    with pytest.raises(ValueError, match="not ported"):
-        tvideo.open_output(str(tmp_path / spec) if ":" not in spec else spec, 8, 8, format=fmt)
-    assert not list(tmp_path.iterdir())
+def test_unported_targets_are_refused(spec, fmt, tmp_path, monkeypatch):
+    """The targets the port once refused (ROADMAP items 13 and 8) open as
+    in the JAX package: with ffmpeg hidden, the same error or the same
+    writer; under the shim binaries (file targets), the same ffmpeg or
+    ffplay argv and the same bytes for one written frame."""
+    def run(mod, d):
+        target = spec if ":" in spec or spec == "-" else str(d / spec)
+        try:
+            w = mod.open_output(target, 8, 8, format=fmt,
+                                props=mod.ColorProps(pix_fmt="yuv420p"))
+        except (RuntimeError, ValueError) as e:
+            return type(e).__name__, str(e).replace(str(d), "D")
+        w.write_frame([np.full((8, 8), 0.25), np.full((4, 4), 0.5), np.full((4, 4), 0.5)])
+        w.close()
+        return type(w).__name__, sorted((p.name, p.read_bytes()) for p in d.iterdir()
+                                        if p.name != "bin" and p.name != "shim.log")
+
+    for shims in (False, True):
+        if shims and (spec == "-" or spec.startswith("f%")):
+            continue  # the shim would write a file named "-"; sequences need no binary
+        got = {}
+        for name, mod in (("jax", jvideo), ("torch", tvideo)):
+            d = tmp_path / f"{name}{int(shims)}"
+            d.mkdir()
+            with monkeypatch.context() as mp:
+                mp.chdir(d)
+                log = use_shims(mp, str(d)) if shims else hide_ffmpeg(mp)
+                res = run(mod, d)
+                clear_ffmpeg_caches()
+            argvs = sorted(open(log).read().replace(str(d), "D").splitlines()) \
+                if shims and os.path.exists(log) else []
+            got[name] = (res, argvs)
+        assert got["torch"] == got["jax"]
 
 
-def test_unported_inputs_are_refused(tmp_path):
+def test_unported_inputs_are_refused(tmp_path, monkeypatch):
+    """Inputs the port once refused (ROADMAP item 13): garbage NUT,
+    Matroska and mp4 go to the bridge and fail as in the JAX package, with
+    ffmpeg hidden (the same error texts) and under the shims."""
     (tmp_path / "a.nut").write_bytes(b"nut/multimedia container\0")
     (tmp_path / "a.mkv").write_bytes(b"\x1a\x45\xdf\xa3rest")
     (tmp_path / "a.mp4").write_bytes(b"\0\0\0\x18ftypmp42")
-    for name, fmt in [("a.nut", None), ("a.mkv", None), ("a.mp4", None), ("a.nut", "y4m")]:
-        with pytest.raises(ValueError, match="item 13"):
-            tvideo.open_input(str(tmp_path / name), fmt)
+    for shims in (False, True):
+        with monkeypatch.context() as mp:
+            if shims:
+                use_shims(mp, str(tmp_path / "sh"))
+            else:
+                hide_ffmpeg(mp)
+            for name, fmt in [("a.nut", None), ("a.mkv", None), ("a.mp4", None),
+                              ("a.nut", "y4m")]:
+                got = []
+                for mod in (jvideo, tvideo):
+                    try:
+                        with mod.open_input(str(tmp_path / name), fmt) as r:
+                            got.append(("read", r.read_frame(raw=True) is None))
+                    except (RuntimeError, ValueError) as e:
+                        got.append((type(e).__name__, str(e)))
+                assert got[0] == got[1], (shims, name, fmt)
+            clear_ffmpeg_caches()
 
 
 PACK_CASES = [("yuv444p", "mpeg"), ("yuv444p", "jpeg"), ("yuv420p", "mpeg"), ("yuv422p", "jpeg"),
