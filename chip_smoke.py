@@ -248,6 +248,23 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    where the image has at most 256 colours, else within the gate of
    tests/test_torch_sixel.py (``SIXEL_MEAN``, ``SIXEL_MAX``), and the
    encode seconds;
+16. main path 12, JPEG in and out through the port's own codec
+   (``io/jpeg.py``, ``native/jpeg.cpp``, built with g++ at first use).
+   (a) The seeded 3840x2160 and 517x333 RGB images encoded and decoded:
+   the file's and the decoded pixels' sha256 equal Pillow's
+   (``JPEG_DIGESTS``, pinned by tests/test_torch_jpeg.py), so this host's
+   ``-march=native`` build gives the bytes of any other; encode and
+   decode seconds and MB/s.  (b) ``spec`` and ``ispec -t flat -G 1000``
+   of the 4K JPEG at the default policy and at ``i8@1e-5``: the spectrum
+   equal to the one from a PNG of the JPEG's decoded pixels, both ispecs
+   to ``.jpg`` equal, kernels #1-#2 once a tool at ``i8@1e-5`` (none at
+   the default).  (c) motion's lowpass (phase 6's argv) on 16 1080p
+   frames written as ``in%04d.jpg``, to y4m and to ``out%04d.jpg``, each
+   equal byte for byte to the same run on a PPM sequence of the decoded
+   frames, with the same launches of kernels #2 and #3 (at least one);
+   seconds by stage (read is the decode, write the encode).  The int8
+   kernels are held to their plain versions at every shape the phase
+   gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -1120,16 +1137,20 @@ def _stages(st: dict) -> str:
     return json.dumps(out)
 
 
-def _seeded_png(images, path, hw, seed, noise=0.1):
-    """A seeded 8-bit RGB PNG (smooth terms plus noise, inside 0.2..0.8);
-    returns the float32 pixels of its levels, which the tools compute on."""
+def _seeded_pixels(hw, seed, noise=0.1):
+    """Seeded float RGB pixels: smooth terms plus noise, inside 0.2..0.8."""
     h, w = hw
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:h, 0:w]
     pix = np.stack([0.5 + 0.2 * np.sin(x / (19.0 + 3 * i) * 256.0 / w + y / 13.0 * 256.0 / h)
                     for i in range(C)], -1)
-    pix += noise * 2.0 * (rng.random((h, w, C)) - 0.5)
-    images.write_image(path, pix)
+    return pix + noise * 2.0 * (rng.random((h, w, C)) - 0.5)
+
+
+def _seeded_png(images, path, hw, seed, noise=0.1):
+    """A seeded 8-bit RGB PNG of ``_seeded_pixels``; returns the float32
+    pixels of its levels, which the tools compute on."""
+    images.write_image(path, _seeded_pixels(hw, seed, noise))
     return images.read_image(path).pixels.astype(np.float32)
 
 
@@ -3000,6 +3021,183 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
     return launches
 
 
+# phase 16: JPEG in and out (io/jpeg.py, native/jpeg.cpp) ----------------------
+# (a): (hw, seed) of _seeded_pixels, the 4K image and an odd-sized one, and
+# the sha256 of Pillow's default JPEG of each and of Pillow's decode of it
+# (tests/test_torch_jpeg.py pins them to Pillow)
+JPEG_IMAGES = (((H, W), 17), ((333, 517), 18))
+JPEG_DIGESTS = {
+    (H, W): ("2922d2f07e91ec1e77407005f830fb1857476705f3025593be4dc4d2871b01f2",
+             "e521fd3273e5075518eed789cee3c85e695b479b7312f1c4e22a281f3c5df3a9"),
+    (333, 517): ("f003e5ba82df34a0b6c27b9b941b28a4da4a957c5bd303800416c08e4146b589",
+                 "b90c8df1a83ae46a02a25fa98d70e78b1081469b6e6dda7acee804ef104ecd07"),
+}
+JPEG_FRAMES = 16                  # (c): motion's lowpass on 16 1080p frames
+
+
+def _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_images=JPEG_IMAGES,
+                motion_hw=(MH, MW), frames=JPEG_FRAMES, device_args=()) -> dict:
+    """Main path 12: JPEG in and out through the port's own codec.  (a)
+    The seeded images encoded and decoded: their digests Pillow's; (b)
+    spec and ispec of the first image's JPEG at the default policy and at
+    ``i8@1e-5`` against a PNG of its decoded pixels; (c) motion's lowpass
+    on a 1080p JPEG sequence against a PPM sequence of its decoded frames,
+    to y4m and to a JPEG sequence.  Returns the kernels' launches over the
+    JPEG runs."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs, jpeg
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+
+    launches: dict = {}
+    shapes: set = set()
+    i8_groups = int8mm._i8_groups
+
+    def spy(a, x, layout):      # the int8 kernels' shapes on this path
+        nd, m, _ = a.shape
+        b, r, k = (x.shape[1], x.shape[3], x.shape[2]) if layout == "left" \
+            else (x.shape[1], x.shape[2], x.shape[3])
+        shapes.add((nd, layout, m, k, b, r))
+        return i8_groups(a, x, layout)
+
+    def counted(fn, into=True):
+        int8mm.LAUNCHES.clear()
+        block_filter.LAUNCHES.clear()
+        int8mm._i8_groups = spy
+        try:
+            out = fn()
+        finally:
+            int8mm._i8_groups = i8_groups
+        torch.cuda.synchronize()
+        got = {n: c for n, c in {**int8mm.LAUNCHES, **block_filter.LAUNCHES}.items() if c}
+        for n, c in got.items():
+            if into:
+                launches[n] = launches.get(n, 0) + c
+        return out, got
+
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    jpeg._load()
+    print(f"phase 16 libjpeg build and load: {time.perf_counter() - t0:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as tmp:
+        # ---- (a) encode and decode, held to Pillow's digests ----
+        first = None
+        for hw, seed in jpeg_images:
+            h, w = hw
+            pix = _seeded_pixels(hw, seed)
+            rgb8 = np.clip(np.rint(np.clip(pix, 0.0, 1.0) * 255), 0, 255).astype(np.uint8)
+            t0 = time.perf_counter()
+            data = jpeg.encode_jpeg(rgb8)
+            enc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dec, _ = jpeg.decode_jpeg(data)
+            dec_s = time.perf_counter() - t0
+            path = os.path.join(tmp, f"in_{w}x{h}.jpg")
+            images.write_image(path, pix)
+            got = (hashlib.sha256(data).hexdigest(), hashlib.sha256(dec.tobytes()).hexdigest())
+            ok = got == JPEG_DIGESTS[tuple(hw)] and open(path, "rb").read() == data
+            mb = h * w * 3 / 1e6
+            print(f"phase 16a JPEG {w}x{h}: {len(data)} bytes; encode {enc_s:.4f} s "
+                  f"({mb / enc_s:.1f} MB/s of RGB), decode {dec_s:.4f} s ({mb / dec_s:.1f} MB/s); "
+                  f"file and pixels == Pillow's digests: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 16a: the {w}x{h} JPEG is not Pillow's: {got}")
+            first = first or (path, hw)
+
+        # ---- (b) spec and ispec of the JPEG against a PNG of its pixels ----
+        src_jpg, (bh, bw) = first
+        src_png = os.path.join(tmp, "in.png")
+        images.write_image(src_png, images.read_image(src_jpg).pixels)
+        spec_i8 = {"left3": 1, "right3": 1} if min(bh, bw) >= 256 else {}
+        for policy in (None, "i8@1e-5"):
+            tag = policy or "default"
+            out = {k: os.path.join(tmp, f"{k}_{tag}") for k in ("s_png", "s_jpg", "b_png", "b_jpg")}
+            with _policy(policy):
+                for name, mod, args in (("spec png", spec, [src_png, out["s_png"] + ".png"]),
+                                        ("spec jpg", spec, [src_jpg, out["s_jpg"] + ".png"]),
+                                        ("ispec png", ispec, [out["s_png"] + ".png",
+                                                              out["b_png"] + ".jpg"]),
+                                        ("ispec jpg", ispec, [out["s_jpg"] + ".png",
+                                                              out["b_jpg"] + ".jpg"])):
+                    fn = lambda mod=mod, args=args: _run_tool(  # noqa: E731
+                        torch, mod, list(device_args) + ["-t", "flat", "-G", "1000"] + args,
+                        int8mm)
+                    (wall, stages, got), _ = counted(fn, into=name.endswith("jpg"))
+                    print(f"phase 16b {name} {bw}x{bh} at {tag}: {wall:.3f} s; stages "
+                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                    want = spec_i8 if policy else {}
+                    if got != want:
+                        raise RuntimeError(f"phase 16b {name} at {tag} launched {got}, "
+                                           f"expected {want}")
+            ok = (same(out["s_png"] + ".png", out["s_jpg"] + ".png")
+                  and same(out["b_png"] + ".jpg", out["b_jpg"] + ".jpg"))
+            print(f"phase 16b at {tag}: spectrum from the JPEG == from the PNG and their "
+                  f"ispecs to JPEG equal: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 16b at {tag}: the JPEG route differs from the PNG route")
+
+        # ---- (c) motion's lowpass on a JPEG sequence against a PPM one ----
+        # the inputs straight from the codecs (the bytes write_image would
+        # write): a seeded strip, a window 4 columns further on each frame
+        mh, mw = motion_hw
+        base = _seeded_pixels((mh, mw + 4 * frames), 19)
+        base = np.clip(np.rint(np.clip(base, 0.0, 1.0) * 255), 0, 255).astype(np.uint8)
+        enc_s = copy_s = 0.0
+        for k in range(frames):
+            t0 = time.perf_counter()
+            data = jpeg.encode_jpeg(base[:, 4 * k:4 * k + mw])
+            enc_s += time.perf_counter() - t0
+            with open(os.path.join(tmp, f"in{k:04d}.jpg"), "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            ppm = imgcodecs.encode_pnm(jpeg.decode_jpeg(data)[0])
+            copy_s += time.perf_counter() - t0
+            with open(os.path.join(tmp, f"in{k:04d}.ppm"), "wb") as f:
+                f.write(ppm)
+        print(f"phase 16c {frames} frames {mw}x{mh}: JPEG encode {enc_s:.3f} s, "
+              f"decode + PPM copy {copy_s:.3f} s", flush=True)
+        runs = {}
+        for src in ("ppm", "jpg"):
+            for dst in ("y4m", "jpg"):
+                target = os.path.join(tmp, f"o_{src}" + (".y4m" if dst == "y4m" else "%04d.jpg"))
+                t0 = time.perf_counter()
+
+                def run(src=src, target=target):
+                    rc = motion.main(MOTION_ARGS + list(device_args)
+                                     + [os.path.join(tmp, f"in%04d.{src}"), target])
+                    if rc != 0:
+                        raise RuntimeError(f"phase 16c motion {src} -> {dst} exited {rc}")
+                    return dict(motion.LAST_STAGE_TIMES)
+
+                stages, got = counted(run, into=src == "jpg")
+                wall = time.perf_counter() - t0
+                runs[src, dst] = got
+                print(f"phase 16c motion {src} -> {dst}: {wall:.3f} s; stages "
+                      f"{_stages(stages)} (read decodes the frames, write encodes them); launches "
+                      f"{json.dumps(got)}", flush=True)
+        ok_y4m = same(os.path.join(tmp, "o_jpg.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        ok_jpg = all(same(os.path.join(tmp, f"o_jpg{k:04d}.jpg"),
+                          os.path.join(tmp, f"o_ppm{k:04d}.jpg")) for k in range(frames))
+        print(f"phase 16c JPEG sequence == PPM sequence: to y4m {ok_y4m}, to JPEG {ok_jpg}",
+              flush=True)
+        if not (ok_y4m and ok_jpg):
+            raise RuntimeError("phase 16c: the JPEG sequence's outputs differ from the PPM's")
+        for dst in ("y4m", "jpg"):
+            got = runs["jpg", dst]
+            if got != runs["ppm", dst] or not (got.get("right3") or got.get("block_filter")):
+                raise RuntimeError(f"phase 16c: launches {got} to {dst} (PPM route "
+                                   f"{runs['ppm', dst]}); kernels #2 and #3 never launched")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"jpeg {layout}{nd} {m}x{k}")
+        if launches.get("block_filter"):
+            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 16 {wall:.1f} s; launches {json.dumps(launches)}", flush=True)
+    return {"launches": launches, "shapes": sorted(shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -3280,13 +3478,20 @@ def main() -> int:
     if not (bridge.get("left3") and bridge.get("right3") and bridge.get("block_filter")):
         raise RuntimeError(f"a kernel of the bridge path never launched: {bridge}")
 
+    # ---- phase 16: main path 12, JPEG in and out ----------------------------
+    torch.cuda.empty_cache()
+    jpeg_path = _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft)["launches"]
+    if not (jpeg_path.get("left3") and jpeg_path.get("right3")):
+        raise RuntimeError(f"a kernel of the JPEG path never launched: {jpeg_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
                              + calib["i8mm_launches"][n] + spec_cli[n]
                              + scan_cli["launches"].get(n, 0) + zoom_launches[n]
                              + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)
-                             + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)),
+                             + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)
+                             + jpeg_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -3296,7 +3501,8 @@ def main() -> int:
                                      "draw_cli": basis_cli["launches"].get(n, 0),
                                      "motion_eval": eval_cli.get(n, 0),
                                      "mesh": mesh_path["launches"].get(n, 0),
-                                     "bridge": bridge.get(n, 0)},
+                                     "bridge": bridge.get(n, 0),
+                                     "jpeg": jpeg_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -3323,11 +3529,13 @@ def main() -> int:
                     "replaces": BF_REPLACES,
                     "launches": (motion_launches["block_filter"] + eval_cli["block_filter"]
                                  + mesh_path["launches"].get("block_filter", 0)
-                                 + bridge.get("block_filter", 0)),
+                                 + bridge.get("block_filter", 0)
+                                 + jpeg_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
-                                         "bridge": bridge.get("block_filter", 0)},
+                                         "bridge": bridge.get("block_filter", 0),
+                                         "jpeg": jpeg_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -18,10 +18,11 @@ Covers what the reference tools use from MagickWand
 
 The JAX package reads and writes through Pillow; the port has its own
 codecs: PNG (``io/png.py``), PNM, BMP and uncompressed TIFF
-(``io/imgcodecs.py``), each reading what Pillow decodes and writing
-what it writes.  The compressed formats (JPEG, WebP, GIF, compressed
-TIFF) go through ``cv2`` where it imports; where it does not, they are
-refused with a ``ValueError`` naming ROADMAP queue 1, item 8
+(``io/imgcodecs.py``) and baseline JPEG (``io/jpeg.py``), each reading
+what Pillow decodes and writing what it writes.  The other compressed
+formats (progressive, arithmetic-coded, 12-bit and CMYK JPEG, WebP, GIF,
+compressed TIFF) go through ``cv2`` where it imports; where it does not,
+they are refused with a ``ValueError`` naming ROADMAP queue 1, item 8
 (``png.refusal``).  Inputs are recognised by their leading bytes, as
 Pillow recognises them; the ``fmt:`` prefix names the output format.
 tests/test_torch_images.py and test_torch_image_formats.py pin the rest
@@ -39,6 +40,7 @@ import numpy as np
 from dspfun_tpu_torch.io import color as _color
 from dspfun_tpu_torch.io import cv2_bridge as _cv2_bridge
 from dspfun_tpu_torch.io import imgcodecs as _codecs
+from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
 from dspfun_tpu_torch.io import sixel as _sixel
 
@@ -59,8 +61,8 @@ _RGBA = "RGBA"
 # the formats the port writes itself beside PNG, by Pillow's format name,
 # and those it hands to cv2 (with cv2's extension)
 _NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
-                   "TIFF": _codecs.encode_tiff}
-_CV2_WRITERS = {"JPEG": ".jpg", "WEBP": ".webp", "GIF": ".gif"}
+                   "TIFF": _codecs.encode_tiff, "JPEG": _jpeg.encode_jpeg}
+_CV2_WRITERS = {"WEBP": ".webp", "GIF": ".gif"}
 
 
 def base16_encode(data: bytes) -> str:
@@ -207,6 +209,8 @@ def _decoder(data: bytes):
             return _codecs.decode_tiff
         return lambda d: _cv2_decode(d, "compressed TIFF")
     if data.startswith(b"\xff\xd8"):
+        if _jpeg.carries(data):
+            return _jpeg.decode_jpeg
         return lambda d: _cv2_decode(d, "JPEG")
     if data.startswith(b"GIF8"):
         return lambda d: _cv2_decode(d, "GIF")
@@ -329,6 +333,9 @@ def write_image(
 
     if name == "PNG":
         data = _png.encode_png(arr, properties)
+    elif name == "JPEG" and (arr.dtype != np.uint8 or arr.ndim == 3 and arr.shape[2] == 4):
+        # Pillow writes no alpha and no 16 bits as JPEG
+        raise ValueError(f"cannot write {'I;16' if arr.dtype != np.uint8 else 'RGBA'} as JPEG")
     elif name in _NATIVE_WRITERS:
         data = _NATIVE_WRITERS[name](arr)
     elif name in _CV2_WRITERS:
@@ -344,15 +351,12 @@ def write_image(
 
 
 def _cv2_encode(arr: np.ndarray, name: str) -> bytes:
-    """A compressed file through cv2, at Pillow's default quality (JPEG 75,
-    WebP 80).  JPEG takes no alpha and 16 bits, as with Pillow."""
+    """A compressed file through cv2, at Pillow's default quality (WebP
+    80)."""
     import cv2  # noqa: PLC0415
 
-    if name == "JPEG" and (arr.dtype != np.uint8 or arr.ndim == 3 and arr.shape[2] == 4):
-        raise ValueError(f"cannot write {'I;16' if arr.dtype != np.uint8 else 'RGBA'} as JPEG")
     img = arr if arr.ndim == 2 else arr[..., [2, 1, 0, 3][:arr.shape[2]]]
-    params = {"JPEG": [cv2.IMWRITE_JPEG_QUALITY, 75],
-              "WEBP": [cv2.IMWRITE_WEBP_QUALITY, 80]}.get(name, [])
+    params = {"WEBP": [cv2.IMWRITE_WEBP_QUALITY, 80]}.get(name, [])
     ok, buf = cv2.imencode(_CV2_WRITERS[name], np.ascontiguousarray(img), params)
     if not ok:
         raise ValueError(f"cv2 cannot write this image as {name}")

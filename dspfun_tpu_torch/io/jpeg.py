@@ -1,0 +1,512 @@
+"""Baseline JPEG of the port: no Pillow, no cv2.
+
+The JAX package reads and writes JPEG through Pillow, which links
+libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
+
+* ``decode_jpeg(data)`` returns the samples ``Image.open(...)`` decodes
+  (islow IDCT, fancy upsampling, libjpeg's YCbCr tables) for
+  baseline (``SOF0``) and extended-sequential (``SOF1``) Huffman files
+  of 8-bit samples with one or three components: any sampling factors
+  with integral ratios, one interleaved scan or a scan per component,
+  restart intervals, the standard Huffman tables where a scan names
+  table 0 or 1 without defining it (Motion-JPEG frames).  Colour space
+  as libjpeg picks it: one component gray; three YCbCr, or RGB under an
+  Adobe marker with transform 0 or the component IDs 'R', 'G', 'B'
+  (without a JFIF marker).
+* ``encode_jpeg(rgb)`` returns the bytes of Pillow's ``save(...,
+  "JPEG")`` at its defaults: JFIF 1.01, quality 75 (the Annex K tables at
+  50 %), Y at 2x2 and Cb, Cr at 1x1, the Annex K Huffman tables, one
+  interleaved scan.
+
+This module parses the markers and checks the tables; the entropy coding
+and the integer transforms are ``native/jpeg.cpp``, built at first use
+(``_hostbuild.py``; a failed build raises with the compiler's message).
+``carries(data)`` says whether a file is one the codec decodes: progressive,
+lossless, arithmetic-coded and 12-bit files, and four components, are not,
+and ``io/images.py`` sends those to cv2 (ROADMAP queue 1, item 8).
+A truncated or corrupt file raises ``ValueError``.
+tests/test_torch_jpeg.py holds both directions to Pillow.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import struct
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from dspfun_tpu_torch import _hostbuild
+
+__all__ = ["Component", "Frame", "carries", "decode_coefficients", "decode_jpeg",
+           "encode_jpeg"]
+
+
+def _zigzag() -> tuple[int, ...]:
+    """Natural (row-major) index of each zigzag position."""
+    order = sorted(((i + j, i if (i + j) % 2 else j, i, j) for i in range(8) for j in range(8)))
+    return tuple(8 * i + j for _, _, i, j in order)
+
+
+ZIGZAG = _zigzag()
+
+# Annex K: the example quantisation tables (natural order) and Huffman tables
+_LUMA_Q = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+           14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+           18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+           49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+_CHROMA_Q = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+             24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99) + (99,) * 32
+_AC_LUMA_VALS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+    "4a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA_VALS = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+# (counts of codes of lengths 1..16, values) by (class, index): class 0 DC, 1 AC
+STD_HUFFMAN = {
+    (0, 0): (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 0): (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]), _AC_LUMA_VALS),
+    (0, 1): (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 1): (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]), _AC_CHROMA_VALS),
+}
+
+_MAX_DIMENSION = 65500          # libjpeg's JPEG_MAX_DIMENSION
+_CARRIED = {0xC0: "baseline", 0xC1: "extended sequential"}
+_NOT_CARRIED = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+                0xC6: "differential progressive", 0xC7: "differential lossless",
+                0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
+                0xCB: "arithmetic-coded lossless", 0xCD: "differential arithmetic sequential",
+                0xCE: "differential arithmetic progressive",
+                0xCF: "differential arithmetic lossless"}
+_ERRORS = {-1: "JPEG data ends inside a scan (truncated file)",
+           -2: "corrupt JPEG data: no Huffman code matches",
+           -3: "corrupt JPEG data: a scan's data ends before its last block",
+           -4: "corrupt JPEG data: a restart marker is missing or out of order",
+           -5: "bad JPEG Huffman table (not a prefix code)",
+           -6: "out of memory"}
+_GRAY, _YCC, _RGB = 0, 1, 2
+
+
+def _quality_table(base, quality: int) -> np.ndarray:
+    """jcparam.c jpeg_add_quant_table at jpeg_quality_scaling(quality),
+    force_baseline: values clamped to 1..255."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.array([min(max((b * scale + 50) // 100, 1), 255) for b in base], np.uint16)
+
+
+_Q75 = (_quality_table(_LUMA_Q, 75), _quality_table(_CHROMA_Q, 75))
+
+
+@dataclass
+class Component:
+    id: int
+    h: int
+    v: int
+    tq: int
+    blocks_w: int = 0           # blocks that hold the component (width_in_blocks)
+    blocks_h: int = 0
+    stride: int = 0             # blocks per row of its coefficient array (whole MCUs)
+    rows: int = 0
+    qtable: np.ndarray | None = None    # latched at its first scan
+
+
+@dataclass
+class Frame:
+    marker: int
+    precision: int
+    height: int
+    width: int
+    components: list[Component] = field(default_factory=list)
+    hmax: int = 1
+    vmax: int = 1
+    mcus_x: int = 0
+    mcus_y: int = 0
+    colorspace: int = _YCC
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _markers(data: bytes, pos: int):
+    """Markers from ``pos`` on, as jdmarker.c's next_marker finds them
+    (bytes before a 0xFF and fill 0xFFs skipped): yields (code, index of
+    the byte after the code); the caller sets where the search resumes
+    by sending an index."""
+    n = len(data)
+    while True:
+        while pos < n and data[pos] != 0xFF:
+            pos += 1
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            raise ValueError("JPEG data ends before its EOI marker (truncated file)")
+        code = data[pos]
+        pos += 1
+        if code == 0:
+            continue
+        resume = yield code, pos
+        if resume is not None:
+            pos = resume
+
+
+def _segment(data: bytes, pos: int, name: str) -> bytes:
+    if pos + 2 > len(data):
+        raise ValueError(f"JPEG {name} segment is truncated")
+    length = struct.unpack_from(">H", data, pos)[0]
+    if length < 2 or pos + length > len(data):
+        raise ValueError(f"JPEG {name} segment is truncated or has a bad length")
+    return data[pos + 2:pos + length]
+
+
+def _sof(code: int, body: bytes) -> Frame:
+    if len(body) < 6:
+        raise ValueError("JPEG SOF segment is too short")
+    p, h, w, nf = struct.unpack_from(">BHHB", body)
+    if len(body) != 6 + 3 * nf:
+        raise ValueError("JPEG SOF segment has a bad length")
+    if h == 0 or w == 0 or nf == 0:
+        raise ValueError("empty JPEG image (a DNL height is not supported)")
+    if h > _MAX_DIMENSION or w > _MAX_DIMENSION:
+        raise ValueError(f"JPEG image of {w}x{h}: the largest side is {_MAX_DIMENSION}")
+    frame = Frame(code, p, h, w)
+    for i in range(nf):
+        cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
+        frame.components.append(Component(cid, hv >> 4, hv & 15, tq))
+    return frame
+
+
+def _layout(frame: Frame) -> None:
+    """Block counts of each component (jdinput.c initial_setup)."""
+    comps = frame.components
+    if any(not (1 <= c.h <= 4 and 1 <= c.v <= 4) for c in comps):
+        raise ValueError("bad JPEG sampling factors")
+    if any(c.tq > 3 for c in comps):
+        raise ValueError("bad JPEG quantisation table index")
+    frame.hmax = max(c.h for c in comps)
+    frame.vmax = max(c.v for c in comps)
+    if any(frame.hmax % c.h or frame.vmax % c.v for c in comps):
+        raise ValueError("fractional JPEG sampling ratios are not supported (as in libjpeg)")
+    frame.mcus_x = _ceil_div(frame.width, 8 * frame.hmax)
+    frame.mcus_y = _ceil_div(frame.height, 8 * frame.vmax)
+    for c in comps:
+        c.blocks_w = _ceil_div(frame.width * c.h, 8 * frame.hmax)
+        c.blocks_h = _ceil_div(frame.height * c.v, 8 * frame.vmax)
+        c.stride, c.rows = frame.mcus_x * c.h, frame.mcus_y * c.v
+
+
+def _dqt(body: bytes, tables: dict) -> None:
+    p = 0
+    while p < len(body):
+        pq, tq = body[p] >> 4, body[p] & 15
+        if tq > 3:
+            raise ValueError(f"bad JPEG quantisation table index {tq}")
+        size = 128 if pq else 64
+        if p + 1 + size > len(body):
+            raise ValueError("JPEG DQT segment is truncated")
+        vals = np.frombuffer(body, ">u2" if pq else np.uint8, 64, p + 1)
+        table = np.zeros(64, np.uint16)
+        table[list(ZIGZAG)] = vals
+        tables[tq] = table
+        p += 1 + size
+
+
+def _dht(body: bytes, tables: dict) -> None:
+    p = 0
+    while p < len(body):
+        if p + 17 > len(body):
+            raise ValueError("JPEG DHT segment is truncated")
+        tc, th = body[p] >> 4, body[p] & 15
+        if tc > 1 or th > 3:
+            raise ValueError(f"bad JPEG Huffman table class or index 0x{body[p]:02x}")
+        counts = body[p + 1:p + 17]
+        n = sum(counts)
+        if n > 256 or p + 17 + n > len(body):
+            raise ValueError("bad JPEG Huffman table")
+        tables[tc, th] = (counts, body[p + 17:p + 17 + n])
+        p += 17 + n
+
+
+def _table_bytes(table) -> bytes:
+    counts, vals = table
+    return bytes(counts) + bytes(vals).ljust(256, b"\0")
+
+
+def _colorspace(frame: Frame, jfif: bool, adobe: int | None) -> int:
+    """jdapimin.c default_decompress_parms for one or three components."""
+    if len(frame.components) == 1:
+        return _GRAY
+    if jfif:
+        return _YCC
+    if adobe is not None:
+        return _RGB if adobe == 0 else _YCC
+    ids = tuple(c.id for c in frame.components)
+    return _RGB if ids == (82, 71, 66) else _YCC
+
+
+class _Reader:
+    """Marker-level state of one decode (tables, restart interval, the
+    frame, its coefficients)."""
+
+    def __init__(self, data: bytes):
+        if not data.startswith(b"\xff\xd8"):
+            raise ValueError("not a JPEG file (no SOI marker)")
+        self.data = data
+        self.frame: Frame | None = None
+        self.qtables: dict = {}
+        self.htables: dict = {}
+        self.restart = 0
+        self.jfif = False
+        self.adobe: int | None = None
+        self.coefs: list[np.ndarray] = []
+        self.scanned: set = set()
+
+    def run(self, stop_at_sos: bool) -> None:
+        data = self.data
+        it = _markers(data, 2)
+        resume = None
+        while True:
+            code, pos = it.send(resume)
+            resume = None
+            if code == 0xD9:                              # EOI
+                break
+            if 0xD0 <= code <= 0xD7 or code == 0x01:      # RSTn, TEM: no segment
+                continue
+            if code == 0xD8:
+                raise ValueError("corrupt JPEG data: a second SOI marker")
+            body = _segment(data, pos, f"marker 0x{code:02x}")
+            resume = pos + 2 + len(body)
+            if code in _CARRIED or code in _NOT_CARRIED:
+                if self.frame is not None:
+                    raise ValueError("corrupt JPEG data: a second SOF marker")
+                self.frame = _sof(code, body)
+                if stop_at_sos:
+                    continue
+                if code in _NOT_CARRIED:
+                    raise ValueError(f"{_NOT_CARRIED[code]} JPEG is not carried by the "
+                                     "port's codec (ROADMAP.md queue 1, item 8)")
+                self._check_carried()
+                _layout(self.frame)
+            elif code == 0xC4:
+                _dht(body, self.htables)
+            elif code == 0xDB:
+                _dqt(body, self.qtables)
+            elif code == 0xDD:
+                if len(body) != 2:
+                    raise ValueError("JPEG DRI segment has a bad length")
+                self.restart = struct.unpack(">H", body)[0]
+            elif code == 0xE0:
+                self.jfif |= len(body) >= 14 and body[:5] == b"JFIF\0"
+            elif code == 0xEE:
+                if len(body) >= 12 and body[:5] == b"Adobe":
+                    self.adobe = body[11]
+            elif code == 0xDA:
+                if self.frame is None:
+                    raise ValueError("corrupt JPEG data: a scan before the frame header")
+                if stop_at_sos:
+                    return
+                resume = self._scan(body, resume)
+            elif not (0xE1 <= code <= 0xEF or code in (0xFE, 0xDC)):   # APPn, COM, DNL
+                raise ValueError(f"unknown JPEG marker 0x{code:02x}")
+        if stop_at_sos:
+            return
+        if self.frame is None or not self.coefs:
+            raise ValueError("JPEG file holds no image")
+        if len(self.scanned) != len(self.frame.components):
+            raise ValueError("corrupt JPEG data: a component has no scan")
+
+    def _check_carried(self) -> None:
+        f = self.frame
+        if f.precision != 8:
+            raise ValueError(f"{f.precision}-bit JPEG is not carried by the port's codec "
+                             "(ROADMAP.md queue 1, item 8)")
+        if len(f.components) not in (1, 3):
+            raise ValueError(f"JPEG of {len(f.components)} components is not carried by the "
+                             "port's codec (ROADMAP.md queue 1, item 8)")
+
+    def _scan(self, body: bytes, pos: int) -> int:
+        """Decode one scan from ``pos``; returns where its data ends."""
+        f = self.frame
+        ns = body[0] if body else 0
+        if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
+            raise ValueError("JPEG SOS segment has a bad length")
+        by_id = {c.id: i for i, c in enumerate(f.components)}
+        members, comp_args, tables = [], [], [b"\0" * 272] * 8
+        for k in range(ns):
+            cid, t = body[1 + 2 * k:3 + 2 * k]
+            if cid not in by_id or by_id[cid] in members:
+                raise ValueError(f"corrupt JPEG data: bad component {cid} in a scan")
+            members.append(by_id[cid])
+            td, ta = t >> 4, t & 15
+            for cls, idx in ((0, td), (1, ta)):
+                tab = self.htables.get((cls, idx))
+                if tab is None and idx <= 1:
+                    tab = STD_HUFFMAN[cls, idx]   # jstdhuff.c: Motion-JPEG's default tables
+                if tab is None:
+                    raise ValueError(f"JPEG Huffman table {('DC', 'AC')[cls]} {idx} "
+                                     "is not defined")
+                if cls == 0 and any(v > 15 for v in tab[1]):   # jdhuff.c's check
+                    raise ValueError("bad JPEG Huffman table (a DC value above 15)")
+                tables[4 * cls + idx] = _table_bytes(tab)
+        if not self.coefs:
+            self.coefs = [np.zeros((c.rows, c.stride, 64), np.int16) for c in f.components]
+        comps = [f.components[i] for i in members]
+        for c in comps:
+            if c.qtable is None:
+                if c.tq not in self.qtables:
+                    raise ValueError(f"JPEG quantisation table {c.tq} is not defined")
+                c.qtable = self.qtables[c.tq].copy()
+        if ns == 1:
+            c = comps[0]
+            mcus_x, mcus_y = c.blocks_w, c.blocks_h
+            hv = [(1, 1)]
+        else:
+            if sum(c.h * c.v for c in comps) > 10:
+                raise ValueError("JPEG sampling factors too large for an interleaved scan")
+            mcus_x, mcus_y = f.mcus_x, f.mcus_y
+            hv = [(c.h, c.v) for c in comps]
+        for k, (c, t) in enumerate(zip(comps, body[2:2 + 2 * ns:2])):
+            comp_args += [hv[k][0], hv[k][1], c.stride, t >> 4, t & 15]
+        lib = _load()
+        args = np.array(comp_args, np.int32)
+        ptrs = (ctypes.POINTER(ctypes.c_int16) * ns)(
+            *[self.coefs[i].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for i in members])
+        end = ctypes.c_int64(0)
+        rc = lib.jpg_decode_scan(self.data, len(self.data), pos, ns,
+                                 args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                 mcus_x, mcus_y, b"".join(tables), self.restart, ptrs,
+                                 ctypes.byref(end))
+        if rc:
+            raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
+        self.scanned.update(members)
+        return end.value
+
+
+def carries(data: bytes) -> bool:
+    """Whether ``decode_jpeg`` decodes this JPEG: its first SOF is SOF0
+    or SOF1, with 8-bit samples and one or three components, and no
+    Adobe transform 2 (YCCK) on three.  A file whose header cannot be
+    parsed counts as carried, so that ``decode_jpeg`` names the fault."""
+    r = _Reader(data)
+    try:
+        r.run(stop_at_sos=True)
+    except ValueError:
+        return True
+    f = r.frame
+    if f is None:
+        return True
+    return (f.marker in _CARRIED and f.precision == 8 and len(f.components) in (1, 3)
+            and not (len(f.components) == 3 and r.adobe == 2))
+
+
+def decode_coefficients(data: bytes) -> tuple[Frame, list[np.ndarray]]:
+    """The frame and each component's quantised DCT coefficients, int16
+    [rows, stride, 64] in natural order (whole MCUs; blocks past the
+    component's ``blocks_w`` x ``blocks_h`` are an interleaved scan's
+    dummy blocks)."""
+    r = _Reader(bytes(data))
+    r.run(stop_at_sos=False)
+    r.frame.colorspace = _colorspace(r.frame, r.jfif, r.adobe)
+    return r.frame, r.coefs
+
+
+def decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
+    """Samples uint8 [H, W, C] (C = 1 gray, 3 RGB) and the depth 8, as
+    Pillow decodes the file."""
+    frame, coefs = decode_coefficients(data)
+    comps = frame.components
+    n = len(comps)
+    out = np.empty((frame.height, frame.width, n), np.uint8)
+    args = np.array([[c.h, c.v, c.stride, c.rows] for c in comps], np.int32)
+    qt = np.ascontiguousarray(np.stack([c.qtable for c in comps]), np.uint16)
+    ptrs = (ctypes.POINTER(ctypes.c_int16) * n)(
+        *[k.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for k in coefs])
+    rc = _load().jpg_reconstruct(n, args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                 frame.width, frame.height, ptrs,
+                                 qt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                                 frame.colorspace,
+                                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if rc:
+        raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
+    return out, 8
+
+
+def _marker(code: int, body: bytes) -> bytes:
+    return bytes([0xFF, code]) + struct.pack(">H", len(body) + 2) + body
+
+
+@functools.lru_cache(maxsize=1)
+def _tables_head() -> bytes:
+    """SOI, JFIF APP0 and the two DQT segments of every encoded file."""
+    jfif = b"JFIF\0" + bytes([1, 1, 0]) + struct.pack(">HH", 1, 1) + b"\0\0"
+    dqt = b"".join(_marker(0xDB, bytes([t]) + bytes(q[list(ZIGZAG)].astype(np.uint8)))
+                   for t, q in enumerate(_Q75))
+    return b"\xff\xd8" + _marker(0xE0, jfif) + dqt
+
+
+@functools.lru_cache(maxsize=1)
+def _scan_head() -> bytes:
+    """The four DHT segments (DC0, AC0, DC1, AC1) and the SOS."""
+    dht = b"".join(_marker(0xC4, bytes([16 * cls + idx]) + bytes(STD_HUFFMAN[cls, idx][0])
+                           + bytes(STD_HUFFMAN[cls, idx][1]))
+                   for idx in (0, 1) for cls in (0, 1))
+    return dht + _marker(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+
+
+def encode_jpeg(rgb: np.ndarray) -> bytes:
+    """An RGB image, uint8 [H, W, 3], as Pillow's ``save(..., "JPEG")``
+    writes it at its defaults."""
+    a = np.ascontiguousarray(rgb)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"JPEG encodes uint8 RGB [H, W, 3], not {a.dtype} {a.shape}")
+    h, w = a.shape[:2]
+    if not (0 < h <= _MAX_DIMENSION and 0 < w <= _MAX_DIMENSION):
+        raise ValueError(f"JPEG image of {w}x{h}: sides must be 1..{_MAX_DIMENSION}")
+    sof = _marker(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+                  + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    qt = np.ascontiguousarray(np.stack(_Q75), np.uint16)
+    ht = b"".join(_table_bytes(STD_HUFFMAN[cls, idx]) for idx in (0, 1) for cls in (0, 1))
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_int64(0)
+    lib = _load()
+    rc = lib.jpg_encode_rgb(a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+                            qt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), ht,
+                            ctypes.byref(out), ctypes.byref(n))
+    if rc:
+        raise ValueError(_ERRORS.get(rc, f"JPEG encode failed ({rc})"))
+    try:
+        body = ctypes.string_at(out, n.value)
+    finally:
+        lib.jpg_free(out)
+    return _tables_head() + sof + _scan_head() + body + b"\xff\xd9"
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
+    """The loaded libjpeg with its signatures declared (built on first
+    use; raises when it cannot be built)."""
+    lib = _hostbuild.load_library("jpeg")
+    c = ctypes
+    i16pp = c.POINTER(c.POINTER(c.c_int16))
+    lib.jpg_decode_scan.restype = c.c_int
+    lib.jpg_decode_scan.argtypes = [c.c_char_p, c.c_int64, c.c_int64, c.c_int,
+                                    c.POINTER(c.c_int32), c.c_int, c.c_int, c.c_char_p,
+                                    c.c_int, i16pp, c.POINTER(c.c_int64)]
+    lib.jpg_reconstruct.restype = c.c_int
+    lib.jpg_reconstruct.argtypes = [c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int, i16pp,
+                                    c.POINTER(c.c_uint16), c.c_int, c.POINTER(c.c_uint8)]
+    lib.jpg_encode_rgb.restype = c.c_int
+    lib.jpg_encode_rgb.argtypes = [c.POINTER(c.c_uint8), c.c_int, c.c_int,
+                                   c.POINTER(c.c_uint16), c.c_char_p,
+                                   c.POINTER(c.POINTER(c.c_uint8)), c.POINTER(c.c_int64)]
+    lib.jpg_free.restype = None
+    lib.jpg_free.argtypes = [c.POINTER(c.c_uint8)]
+    return lib

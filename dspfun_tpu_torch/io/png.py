@@ -60,8 +60,9 @@ def refusal(what: str) -> ValueError:
     """The error of a compressed image format where no codec for it is
     installed (``io/images.py`` reads and writes those through ``cv2``)."""
     return ValueError(f"{what} needs cv2, which does not import here: the port reads "
-                      f"and writes PNG, PNM, BMP and uncompressed TIFF itself, and the "
-                      f"compressed formats only through cv2 ({NOT_PORTED})")
+                      f"and writes PNG, PNM, BMP, uncompressed TIFF and baseline JPEG "
+                      f"itself, and the other compressed formats only through cv2 "
+                      f"({NOT_PORTED})")
 
 
 def _chunk(typ: bytes, data: bytes) -> bytes:

@@ -1,19 +1,22 @@
 """The port's image formats beside PNG (``dspfun_tpu_torch/io/png.py``'s
 interlaced, palette and low-depth files, ``io/imgcodecs.py``'s PNM, BMP
-and TIFF, and the compressed formats through cv2 in ``io/images.py``)
-against the JAX package, which reads and writes them through Pillow.
+and TIFF, baseline JPEG in ``io/jpeg.py``, and the other compressed
+formats through cv2 in ``io/images.py``) against the JAX package, which
+reads and writes them through Pillow.
 
 * Reads: every file gives ``dspfun_tpu.io.images.read_image``'s pixels
-  and depth exactly (the compressed ones through cv2 too: both packages
-  link libjpeg-turbo and libwebp; the bound stated is one 8-bit level).
+  and depth exactly (JPEG through the port's own codec; WebP and GIF
+  through cv2: both packages link libwebp; the bound stated for those is
+  one 8-bit level).
 * Writes: PNM, BMP, uncompressed TIFF (but 16-bit gray, which Pillow
   decodes to the same image), JPEG and WebP equal the JAX package's
   bytes for the same pixels; GIF (cv2's encoder and palette,
   not Pillow's) decodes within a mean of 0.08 and a maximum of 0.4 of
   the JAX package's GIF on a smooth test image.
-* Without cv2 (its import blocked) the compressed formats are refused on
-  read and write with a ``ValueError`` naming ROADMAP queue 1, item 8.
-* Image sequences take the same formats.
+* Without cv2 (its import blocked) WebP, GIF and compressed TIFF are
+  refused on read and write with a ``ValueError`` naming ROADMAP queue
+  1, item 8, and JPEG reads and writes as with it.
+* Image sequences take the same formats (JPEG with cv2 blocked).
 """
 
 import io
@@ -211,14 +214,18 @@ def test_tiff_reads_as_pillow_reads_it(mode, compression, tmp_path):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "WEBP", "GIF"])
 def test_compressed_reads_as_pillow_reads_them(fmt, tmp_path):
-    """JPEG, WebP and GIF through cv2: the bound is one 8-bit level; the
-    two packages' libraries decode these files alike."""
+    """JPEG through the port's codec: exactly Pillow's pixels.  WebP and
+    GIF through cv2: the bound is one 8-bit level; the two packages'
+    libraries decode these files alike."""
     img = Image.fromarray((_smooth(24, 40) * 255).astype(np.uint8))
     path = tmp_path / "in.bin"
     path.write_bytes(_pil(img, fmt))
     j, t = jimages.read_image(str(path)), timages.read_image(str(path))
     assert t.depth == j.depth == 8
-    assert np.abs(t.pixels - j.pixels).max() <= 1 / 255 + 1e-12
+    if fmt == "JPEG":
+        np.testing.assert_array_equal(t.pixels, j.pixels)
+    else:
+        assert np.abs(t.pixels - j.pixels).max() <= 1 / 255 + 1e-12
 
 
 def _write_both(tmp_path, target, pix, **kw):
@@ -275,11 +282,19 @@ def no_cv2(monkeypatch):
 @pytest.mark.parametrize("fmt", ["JPEG", "WEBP", "GIF", "TIFF"])
 def test_compressed_formats_need_cv2(fmt, tmp_path, no_cv2):
     """Without cv2 the compressed formats are refused naming item 8, on
-    read and on write, before any file is made."""
+    read and on write, before any file is made; but baseline JPEG, which
+    the port's own codec reads and writes as the JAX package does."""
     img = Image.fromarray((_smooth(8, 8) * 255).astype(np.uint8))
     data = _pil(img, fmt, **({"compression": "tiff_lzw"} if fmt == "TIFF" else {}))
     path = tmp_path / "in.bin"
     path.write_bytes(data)
+    if fmt == "JPEG":
+        j, t = jimages.read_image(str(path)), timages.read_image(str(path))
+        np.testing.assert_array_equal(t.pixels, j.pixels)
+        out = _write_both(tmp_path, "OUT.jpg", _smooth(13, 21))
+        assert open(out["torch"], "rb").read() == open(out["jax"], "rb").read()
+        tvideo.check_output(str(tmp_path / "f%03d.jpg"))
+        return
     with pytest.raises(ValueError, match="queue 1, item 8"):
         timages.read_image(str(path))
     if fmt != "TIFF":
@@ -310,9 +325,12 @@ def test_pnm_bmp_tiff_encoders_decode_in_pillow():
 
 
 @pytest.mark.parametrize("ext", ["bmp", "ppm", "tiff", "jpg"])
-def test_image_sequences_take_the_formats(ext, tmp_path):
+def test_image_sequences_take_the_formats(ext, tmp_path, monkeypatch):
     """An image2 sequence of each format written by both packages is the
-    same files, and reads back to the same clip in both."""
+    same files, and reads back to the same clip in both (JPEG with cv2
+    blocked: the port's own codec)."""
+    if ext == "jpg":
+        monkeypatch.setitem(sys.modules, "cv2", None)
     frames = [_smooth(12, 16, seed=k) for k in range(3)]
     for name, mod in (("jax", jvideo), ("torch", tvideo)):
         w = mod.open_output(str(tmp_path / f"{name}%02d.{ext}"), 16, 12, Fraction(25),

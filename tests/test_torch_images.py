@@ -160,8 +160,9 @@ def test_other_formats_are_refused_on_write(target, tmp_path, monkeypatch):
     """Each target the port once refused (ROADMAP item 8) is written as the
     JAX package writes it: the same bytes, or the same failure (16-bit
     colour outside PNG), at both depths; GIF (cv2's palette) within the
-    bound of tests/test_torch_image_formats.py.  Without cv2 the
-    compressed targets are still refused by item 8, writing nothing."""
+    bound of tests/test_torch_image_formats.py.  Without cv2 WebP and GIF
+    are still refused by item 8, writing nothing, and JPEG (the port's
+    own codec) is written as with it."""
     pytest.importorskip("cv2")
     pix = _pixels(4, 4, 3)
     monkeypatch.chdir(tmp_path)
@@ -188,6 +189,17 @@ def test_other_formats_are_refused_on_write(target, tmp_path, monkeypatch):
             assert out["torch"] == out["jax"]
     if compressed:
         monkeypatch.setitem(sys.modules, "cv2", None)
+        if "jp" in target:
+            got = {}
+            for name, mod in (("jax", jimages), ("torch", timages)):
+                std = _Std()
+                monkeypatch.setattr(sys, "stdout", std)
+                spec = target if target.endswith("-") else f"{name}/{target}"
+                mod.write_image(spec, pix)
+                got[name] = std.buffer.getvalue() if spec.endswith("-") else \
+                    open(spec, "rb").read()
+            assert got["torch"] == got["jax"]
+            return
         before = sorted(tmp_path.iterdir())
         with pytest.raises(ValueError, match="queue 1, item 8"):
             timages.write_image(target, pix)

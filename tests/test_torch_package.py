@@ -59,7 +59,18 @@ def test_every_module_imports_without_jax():
         "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild",
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
-        "io.sixel", "io.imgcodecs")} <= names
+        "io.sixel", "io.imgcodecs", "io.jpeg")} <= names
+
+
+def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL")):
+    """A directory that, first on a process's path, makes each of
+    ``names`` a package whose import raises (for the process and every
+    interpreter it starts)."""
+    blocked = tmp_path / "blocked"
+    for name in names:
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    return blocked
 
 
 def test_mesh_ranks_import_no_jax(tmp_path):
@@ -67,10 +78,7 @@ def test_mesh_ranks_import_no_jax(tmp_path):
     JAX package unimportable in the tool's process and in every rank it
     spawns (the ranks start fresh interpreters: the block is a package
     of that name on their path that raises)."""
-    blocked = tmp_path / "blocked"
-    for name in ("jax", "jaxlib", "dspfun_tpu", "PIL"):
-        (blocked / name).mkdir(parents=True)
-        (blocked / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    blocked = _blocked(tmp_path)
     code = (
         "import numpy as np\n"
         "from fractions import Fraction\n"
@@ -102,9 +110,9 @@ def test_mesh_ranks_import_no_jax(tmp_path):
 def test_container_modules_need_no_jax_pillow_or_cv2_and_not_the_repos_native(tmp_path):
     """The container stack imports and runs with jax, Pillow, cv2 and the
     JAX package unimportable: a y4m through the host library's reader,
-    FFV1 into NUT and Matroska and back.  The host libraries it loads are
-    the port's own builds under build/native/, never a library of the
-    repo's native/ directory."""
+    FFV1 into NUT and Matroska and back, a JPEG through ``io/jpeg.py``.
+    The host libraries it loads are the port's own builds under
+    build/native/, never a library of the repo's native/ directory."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
         "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None; sys.modules['cv2'] = None\n"
@@ -123,16 +131,65 @@ def test_container_modules_need_no_jax_pillow_or_cv2_and_not_the_repos_native(tm
         "        w.write_frame(f, raw=True)\n"
         "    w.close(); r.close()\n"
         "    print(type(r).__name__, w.codec, video.open_input(d + '/c.' + ext).frames)\n"
+        "from dspfun_tpu_torch.io import jpeg\n"
+        "a = rng.integers(0, 256, (12, 16, 3)).astype(np.uint8)\n"
+        "print(jpeg.decode_jpeg(jpeg.encode_jpeg(a))[0].shape)\n"
         "print('\\n'.join(sorted({ln.split()[-1] for ln in open('/proc/self/maps')\n"
         "                         if ln.rstrip().endswith('.so')})))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    assert lines[:2] == ["NativeBackedReader ffv1 3"] * 2
-    libs = [Path(p) for p in lines[2:]]
+    assert lines[:3] == ["NativeBackedReader ffv1 3"] * 2 + ["(12, 16, 3)"]
+    libs = [Path(p) for p in lines[3:]]
     ours = [p for p in libs if p.parent == ROOT / "build" / "native"]
-    assert sorted(p.name.split("_")[0] for p in ours) == ["libdspio", "libffv1"]
+    assert sorted(p.name.split("_")[0] for p in ours) == ["libdspio", "libffv1", "libjpeg"]
     assert not [p for p in libs if p.parent == ROOT / "native"]
+
+
+def test_jpeg_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
+    """``spec`` then ``ispec`` on a JPEG, and ``motion`` on a ``%02d.jpg``
+    sequence, with jax, Pillow, cv2 and the JAX package unimportable: the
+    outputs (a spectrum, a JPEG; a y4m, a JPEG sequence) equal those of
+    the same runs on PNG and PPM copies of the decoded pixels."""
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    code = (
+        "import sys, numpy as np\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "from dspfun_tpu_torch.tools import ispec, motion, spec\n"
+        f"d = {str(tmp_path)!r} + '/'\n"
+        "rng = np.random.default_rng(0)\n"
+        "y, x = np.mgrid[0:24, 0:40] / 24.0\n"
+        "for k in range(4):\n"
+        "    pix = np.stack([0.5 + 0.3 * np.sin(6 * x + k), 0.5 + 0.3 * np.cos(4 * y), 0.3 + 0 * x],"
+        " -1) + 0.05 * rng.random((24, 40, 3))\n"
+        "    images.write_image(d + f'in{k:02d}.jpg', pix)\n"
+        "    images.write_image(d + f'in{k:02d}.ppm', images.read_image(d + f'in{k:02d}.jpg').pixels)\n"
+        "images.write_image(d + 'in.png', images.read_image(d + 'in00.jpg').pixels)\n"
+        "cpu = ['--device', 'cpu']\n"
+        "same = lambda a, b: open(d + a, 'rb').read() == open(d + b, 'rb').read()\n"
+        "rcs = [spec.main(cpu + ['-t', 'flat', d + 'in00.jpg', d + 's_j.png']),\n"
+        "       spec.main(cpu + ['-t', 'flat', d + 'in.png', d + 's_p.png']),\n"
+        "       ispec.main(cpu + ['-t', 'flat', d + 's_j.png', d + 'b_j.jpg']),\n"
+        "       ispec.main(cpu + ['-t', 'flat', d + 's_p.png', d + 'b_p.jpg'])]\n"
+        "args = cpu + ['-Q', '-b', '8x8x4', '-p', '0x0x0-4x4x2', '-B', '1.25']\n"
+        "for src in ('jpg', 'ppm'):\n"
+        "    rcs.append(motion.main(args + [d + 'in%02d.' + src, d + 'o_' + src + '.y4m']))\n"
+        "    rcs.append(motion.main(args + [d + 'in%02d.' + src, d + 'o_' + src + '%02d.jpg']))\n"
+        "print(rcs, same('s_j.png', 's_p.png'), same('b_j.jpg', 'b_p.jpg'),\n"
+        "      same('o_jpg.y4m', 'o_ppm.y4m'), all(same(f'o_jpg{k:02d}.jpg', f'o_ppm{k:02d}.jpg')\n"
+        "                                         for k in range(4)),\n"
+        "      open(d + 'b_j.jpg', 'rb').read()[:2] == b'\\xff\\xd8',\n"
+        "      'dspfun_tpu_torch.io.jpeg' in sys.modules)\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_PRECISION", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0] True True True True True True", \
+        res.stdout + res.stderr
 
 
 def test_calibration_counterparts_run_without_jax():
@@ -311,7 +368,8 @@ def test_dispatcher_lists_the_ported_tools_and_refuses_the_rest(capsys, monkeypa
 def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
-    compiles (the copies of native/dspio.cpp and native/ffv1.cpp) matches
+    compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
+    port's own native/jpeg.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -319,7 +377,7 @@ def test_package_data_ships_what_the_build_reads():
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
-    assert host == ["native/dspio.cpp", "native/ffv1.cpp"]
+    assert host == ["native/dspio.cpp", "native/ffv1.cpp", "native/jpeg.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]
