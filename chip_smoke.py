@@ -265,6 +265,28 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    seconds by stage (read is the decode, write the encode).  The int8
    kernels are held to their plain versions at every shape the phase
    gave them;
+17. main path 13, progressive JPEG and compressed TIFF through the port's
+   own codecs (``io/jpeg.py`` on ``native/jpeg.cpp``, ``io/imgcodecs.py``
+   on ``native/tiff.cpp`` and zlib).  (a) The fixtures of
+   ``tests/goldens/`` (``CODEC_FIXTURES``: Pillow's 3840x2160 progressive
+   JPEG, a gray and a 4:4:4 restart-marked 517x333 one, LZW TIFFs at
+   predictor 1 and 2, a PackBits TIFF and an associated-alpha RGBA LZW
+   TIFF, written by tests/torch_codec_fixtures.py) each decoded by the
+   codec ``read_image`` picks for it, file and pixels equal to Pillow's
+   sha256 (pinned by tests/test_torch_jpeg.py); the 4K progressive
+   decode equal to the port's decode of its own baseline encode of the
+   same levels; 3840x2160 deflate TIFFs at predictor 1 and 2, written
+   here with zlib, decoded to their levels; seconds and MB/s of RGB of
+   each decode.  (b) ``spec -t flat -G 1000`` of the 4K progressive JPEG
+   and of the predictor-2 deflate TIFF at the default policy and at
+   ``i8@1e-5``: the spectrum equal to the one from a PNG of the decoded
+   pixels, kernels #1-#2 once a tool at ``i8@1e-5`` (none at the
+   default); ``ispec`` of each at ``i8@1e-5`` back to its format.  (c)
+   motion's lowpass (phase 6's argv) on 16 1080p frames written as
+   deflate ``frame%04d.tif`` (predictor 1 and 2 in turn), equal byte for
+   byte to the same run on a PPM sequence of the same levels, with the
+   same launches of kernel #2 (at least one).  The int8 kernels are held
+   to their plain versions at every shape the phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -3021,6 +3043,42 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
     return launches
 
 
+class _Launches:
+    """The int8 and block filter kernels' launches over runs of a phase:
+    every count set to 0 just before a run and read just after it, the
+    int8 kernels' shapes recorded; ``total`` sums the runs counted into
+    the main path."""
+
+    def __init__(self, torch, int8mm, block_filter):
+        self.torch, self.int8mm, self.block_filter = torch, int8mm, block_filter
+        self.total: dict = {}
+        self.shapes: set = set()
+
+    def run(self, fn, into=True):
+        int8mm, i8_groups = self.int8mm, self.int8mm._i8_groups
+
+        def spy(a, x, layout):      # the int8 kernels' shapes on this path
+            nd, m, _ = a.shape
+            b, r, k = (x.shape[1], x.shape[3], x.shape[2]) if layout == "left" \
+                else (x.shape[1], x.shape[2], x.shape[3])
+            self.shapes.add((nd, layout, m, k, b, r))
+            return i8_groups(a, x, layout)
+
+        int8mm.LAUNCHES.clear()
+        self.block_filter.LAUNCHES.clear()
+        int8mm._i8_groups = spy
+        try:
+            out = fn()
+        finally:
+            int8mm._i8_groups = i8_groups
+        self.torch.cuda.synchronize()
+        got = {n: c for n, c in {**int8mm.LAUNCHES, **self.block_filter.LAUNCHES}.items() if c}
+        if into:
+            for n, c in got.items():
+                self.total[n] = self.total.get(n, 0) + c
+        return out, got
+
+
 # phase 16: JPEG in and out (io/jpeg.py, native/jpeg.cpp) ----------------------
 # (a): (hw, seed) of _seeded_pixels, the 4K image and an odd-sized one, and
 # the sha256 of Pillow's default JPEG of each and of Pillow's decode of it
@@ -3049,32 +3107,8 @@ def _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_images=J
     from dspfun_tpu_torch.io import images, imgcodecs, jpeg
     from dspfun_tpu_torch.tools import ispec, motion, spec
 
-    launches: dict = {}
-    shapes: set = set()
-    i8_groups = int8mm._i8_groups
-
-    def spy(a, x, layout):      # the int8 kernels' shapes on this path
-        nd, m, _ = a.shape
-        b, r, k = (x.shape[1], x.shape[3], x.shape[2]) if layout == "left" \
-            else (x.shape[1], x.shape[2], x.shape[3])
-        shapes.add((nd, layout, m, k, b, r))
-        return i8_groups(a, x, layout)
-
-    def counted(fn, into=True):
-        int8mm.LAUNCHES.clear()
-        block_filter.LAUNCHES.clear()
-        int8mm._i8_groups = spy
-        try:
-            out = fn()
-        finally:
-            int8mm._i8_groups = i8_groups
-        torch.cuda.synchronize()
-        got = {n: c for n, c in {**int8mm.LAUNCHES, **block_filter.LAUNCHES}.items() if c}
-        for n, c in got.items():
-            if into:
-                launches[n] = launches.get(n, 0) + c
-        return out, got
-
+    count = _Launches(torch, int8mm, block_filter)
+    launches, shapes, counted = count.total, count.shapes, count.run
     same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -3196,6 +3230,259 @@ def _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_images=J
     wall = time.perf_counter() - t_phase
     print(f"phase 16 {wall:.1f} s; launches {json.dumps(launches)}", flush=True)
     return {"launches": launches, "shapes": sorted(shapes)}
+
+
+# phase 17: progressive JPEG and compressed TIFF (io/jpeg.py, io/imgcodecs.py) --
+# (a): the fixtures of tests/goldens/ (tests/torch_codec_fixtures.py makes them
+# with Pillow): the sha256 of each file and of Pillow's decode of it
+# (np.asarray(Image.open(...))), pinned by tests/test_torch_jpeg.py
+CODEC_FIXTURES = {
+    "codec_prog_4k.jpg": ("3d382cfbe57ff35d20a4f79aa21d76dc3e0463cfaf653c87e7bba487569a8214",
+                          "d7027c43d242312e4986ffad0ce6a4be67e11946f7806210e8a5e848971ebb50"),
+    "codec_prog_gray.jpg": ("1c2957dc80c2c84fdb2c4bf187e6cca57c5d708ea44047882c6a31707eaea3c4",
+                            "7078d84cf03f63d133cca943c08ec23244ffcae67543bd0b317f899e2443b3e6"),
+    "codec_prog_444_rst.jpg": (
+        "c7c0b5c60d1086d180b11a8302fd28941249f86d655c1bc3e3b5db41ddab6e47",
+        "91c9650fbd43ff9bd50ab7a01cac085ffe53c8cdc3b6cfd9a81dbc85d3c75b5f"),
+    "codec_lzw_p1.tif": ("113fcc3eb59c4a69a2ad12bdc309d3f11e50583f27af88755de897cd4bdd9786",
+                         "26e602e2488eedb07c91e37aefd57f2fecf3364c5573099b5a25e535e9224de5"),
+    "codec_lzw_p2.tif": ("7c1ff693ae01d2facc7fb6b2392548d153507aac5a19c849099947ebb75ae289",
+                         "26e602e2488eedb07c91e37aefd57f2fecf3364c5573099b5a25e535e9224de5"),
+    "codec_packbits.tif": ("f16f76dd249bacabfd5359791345a36360fdd8aa84365c86f4a0ef8aa4b30c36",
+                           "26e602e2488eedb07c91e37aefd57f2fecf3364c5573099b5a25e535e9224de5"),
+    "codec_rgba_assoc.tif": ("9c267b63a84d4a47518dd521a038cae3f60c5d03486c0bd27885362de4b4c12a",
+                             "7ef3fc5b46e2d950a6b59b7b9a1d5e6f3baeb9ab27c0e71e02024015ae61ff59"),
+}
+CODEC_4K = ((H, W), 17, 0.02)     # (hw, seed, noise) of codec_prog_4k.jpg's levels
+CODEC_FRAMES = 16                 # (c): motion's lowpass on 16 1080p deflate TIFF frames
+
+
+def _rgb8(pix) -> np.ndarray:
+    """The 8-bit levels ``write_image`` makes of float pixels."""
+    return np.clip(np.rint(np.clip(pix, 0.0, 1.0) * 255), 0, 255).astype(np.uint8)
+
+
+def _deflate_tiff(rgb, predictor, rows_per_strip=64) -> bytes:
+    """A little-endian deflate (8) TIFF of uint8 RGB [h, w, 3] in strips of
+    ``rows_per_strip`` rows, horizontal predictor 1 or 2, written with the
+    standard library's zlib, as GIMP or a scanner writes one."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    v = rgb.copy()
+    if predictor == 2:
+        v[:, 1:] -= rgb[:, :-1]               # modulo 256
+    strips = [zlib.compress(v[y:y + rows_per_strip].tobytes()) for y in range(0, h, rows_per_strip)]
+    n = len(strips)
+    at = 8 + 6 + 8 * n                        # after BitsPerSample and the two strip arrays
+    offsets = []
+    for st in strips:
+        offsets.append(at)
+        at += len(st)
+    pad = at % 2
+    entries = [(256, 4, 1, struct.pack("<I", w)), (257, 4, 1, struct.pack("<I", h)),
+               (258, 3, 3, struct.pack("<I", 8)), (259, 3, 1, struct.pack("<HH", 8, 0)),
+               (262, 3, 1, struct.pack("<HH", 2, 0)),
+               (273, 4, n, struct.pack("<I", 14) if n > 1 else struct.pack("<I", offsets[0])),
+               (277, 3, 1, struct.pack("<HH", 3, 0)),
+               (278, 4, 1, struct.pack("<I", rows_per_strip)),
+               (279, 4, n, struct.pack("<I", 14 + 4 * n) if n > 1 else
+                struct.pack("<I", len(strips[0]))),
+               (284, 3, 1, struct.pack("<HH", 1, 0)), (317, 3, 1, struct.pack("<HH", predictor, 0))]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHI", tag, typ, cnt) + val for tag, typ, cnt, val in entries) + b"\0" * 4
+    return (b"II*\0" + struct.pack("<I", at + pad) + struct.pack("<3H", 8, 8, 8)
+            + struct.pack(f"<{n}I", *offsets) + struct.pack(f"<{n}I", *map(len, strips))
+            + b"".join(strips) + b"\0" * pad + ifd)
+
+
+def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(MH, MW),
+                  frames=CODEC_FRAMES, device_args=(), spec_crop=None) -> dict:
+    """Main path 13: progressive JPEG and compressed TIFF through the
+    port's own codecs.  (a) The fixtures of tests/goldens/ decoded, each
+    equal to Pillow's digest; the 4K progressive decode equal to the
+    port's decode of its baseline encode of the same levels; 4K deflate
+    TIFFs at predictor 1 and 2, written here with zlib, decoded to their
+    levels.  (b) spec of the 4K progressive JPEG and of the 4K deflate
+    TIFF at the default policy and at ``i8@1e-5`` against a PNG of the
+    decoded pixels, and ispec of each at ``i8@1e-5`` back to its format
+    (``spec_crop``: the 517x333 fixture and a TIFF of that size, for a
+    rehearsal on the CPU).  (c) motion's lowpass on a 1080p deflate TIFF
+    sequence against a PPM sequence of the same levels.  Returns the
+    kernels' launches over the runs of the progressive JPEG and the
+    TIFFs."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs, jpeg
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    jpeg._load()
+    imgcodecs._tiff_lib()
+    print(f"phase 17 libjpeg and libtiff build and load: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codecs_") as tmp:
+        # ---- (a) decodes: Pillow's digests, the baseline route, zlib's TIFFs ----
+        decoders = {".jpg": jpeg.decode_jpeg, ".tif": imgcodecs.decode_tiff}
+        for name, want in CODEC_FIXTURES.items():
+            with open(os.path.join(gold, name), "rb") as f:
+                data = f.read()
+            if images._decoder(data) is not decoders[name[-4:]]:
+                raise RuntimeError(f"phase 17a: {name} does not take the port's codec")
+            t0 = time.perf_counter()
+            arr, _ = decoders[name[-4:]](data)
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), sha(np.ascontiguousarray(arr).tobytes()))
+            h, w = arr.shape[:2]
+            print(f"phase 17a {name} {w}x{h}: {len(data)} bytes; decode {dec_s:.4f} s "
+                  f"({h * w * 3 / 1e6 / dec_s:.1f} MB/s of RGB); file and pixels == Pillow's "
+                  f"digests: {got == want}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 17a: {name} is not Pillow's: {got}")
+            if name == "codec_prog_4k.jpg":
+                prog = arr
+            if name.startswith("codec_lzw"):      # a small file: the rate includes the calls
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    imgcodecs.decode_tiff(data)
+                rep_s = (time.perf_counter() - t0) / 20
+                print(f"phase 17a {name} decoded 20 times: {rep_s:.5f} s each "
+                      f"({arr.nbytes / 1e6 / rep_s:.1f} MB/s of output)", flush=True)
+        (bh, bw), seed, noise = CODEC_4K
+        rgb8 = _rgb8(_seeded_pixels((bh, bw), seed, noise))
+        base = jpeg.encode_jpeg(rgb8)
+        t0 = time.perf_counter()
+        ok = np.array_equal(jpeg.decode_jpeg(base)[0], prog)
+        print(f"phase 17a 4K progressive decode == the port's decode of its own baseline "
+              f"encode of the same levels: {ok} (baseline decode {time.perf_counter() - t0:.4f} s, "
+              f"{len(base)} bytes)", flush=True)
+        if not ok:
+            raise RuntimeError("phase 17a: the progressive decode differs from the baseline one")
+        tifs = {}
+        for predictor in (1, 2):
+            t0 = time.perf_counter()
+            data = _deflate_tiff(rgb8, predictor)
+            enc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            arr, _ = imgcodecs.decode_tiff(data)
+            dec_s = time.perf_counter() - t0
+            ok = np.array_equal(arr, rgb8)
+            tifs[predictor] = os.path.join(tmp, f"deflate_p{predictor}.tif")
+            with open(tifs[predictor], "wb") as f:
+                f.write(data)
+            mb = bh * bw * 3 / 1e6
+            print(f"phase 17a deflate TIFF {bw}x{bh} predictor {predictor}: {len(data)} bytes, "
+                  f"written with zlib in {enc_s:.3f} s; decode {dec_s:.4f} s ({mb / dec_s:.1f} "
+                  f"MB/s of RGB); == its levels: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 17a: the predictor {predictor} deflate TIFF decodes "
+                                   "to other levels")
+
+        # ---- (b) spec and ispec of each against a PNG of its decoded pixels ----
+        if spec_crop is None:
+            sources = {"jpg": os.path.join(gold, "codec_prog_4k.jpg"), "tif": tifs[2]}
+        else:
+            ch, cw = spec_crop
+            sources = {"jpg": os.path.join(gold, "codec_prog_444_rst.jpg"),
+                       "tif": os.path.join(tmp, "crop.tif")}
+            with open(sources["tif"], "wb") as f:
+                f.write(_deflate_tiff(np.ascontiguousarray(rgb8[:ch, :cw]), 2))
+        for ext, src in sources.items():
+            ref = os.path.join(tmp, f"ref_{ext}.png")
+            pix = images.read_image(src).pixels
+            images.write_image(ref, pix)
+            sh, sw = pix.shape[:2]
+            spec_i8 = {"left3": 1, "right3": 1} if min(sh, sw) >= 256 else {}
+            for policy in (None, "i8@1e-5"):
+                tag = policy or "default"
+                out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
+                with _policy(policy):
+                    for name, inp in (("ref", ref), ("src", src)):
+                        fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                            torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                            int8mm)
+                        (wall, stages, got), _ = count.run(fn, into=name == "src")
+                        what = f"spec {os.path.basename(inp)}"
+                        print(f"phase 17b {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
+                              f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                        want = spec_i8 if policy else {}
+                        if got != want:
+                            raise RuntimeError(f"phase 17b {what} at {tag} launched {got}, "
+                                               f"expected {want}")
+                ok = same(out["ref"], out["src"])
+                print(f"phase 17b {ext} at {tag}: spectrum == the PNG route's: {ok}", flush=True)
+                if not ok:
+                    raise RuntimeError(f"phase 17b at {tag}: the {ext} route differs from PNG's")
+            back = os.path.join(tmp, "back." + {"jpg": "jpg", "tif": "tiff"}[ext])
+            with _policy("i8@1e-5"):
+                fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
+                                       + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
+                (wall, stages, got), _ = count.run(fn)
+            res = images.read_image(back).pixels
+            ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
+            print(f"phase 17b ispec to .{ext} at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
+                  f"launches {json.dumps(got)}; max abs diff to the input "
+                  f"{float(np.abs(res - pix).max()):.4f}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 17b ispec to .{ext} launched {got} or wrote "
+                                   f"{res.shape}")
+
+        # ---- (c) motion's lowpass on a deflate TIFF sequence against a PPM one ----
+        mh, mw = motion_hw
+        strip = _rgb8(_seeded_pixels((mh, mw + 4 * frames), 20))
+        enc_s = dec_s = 0.0
+        for k in range(frames):
+            frame = np.ascontiguousarray(strip[:, 4 * k:4 * k + mw])
+            t0 = time.perf_counter()
+            data = _deflate_tiff(frame, 1 + k % 2)
+            enc_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if not np.array_equal(imgcodecs.decode_tiff(data)[0], frame):
+                raise RuntimeError(f"phase 17c: TIFF frame {k} decodes to other levels")
+            dec_s += time.perf_counter() - t0
+            with open(os.path.join(tmp, f"frame{k:04d}.tif"), "wb") as f:
+                f.write(data)
+            with open(os.path.join(tmp, f"frame{k:04d}.ppm"), "wb") as f:
+                f.write(imgcodecs.encode_pnm(frame))
+        print(f"phase 17c {frames} frames {mw}x{mh}: deflate TIFF write {enc_s:.3f} s, decode "
+              f"{dec_s:.3f} s ({frames * mh * mw * 3 / 1e6 / dec_s:.1f} MB/s of RGB)", flush=True)
+        runs = {}
+        for src in ("ppm", "tif"):
+            t0 = time.perf_counter()
+
+            def run(src=src):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"frame%04d.{src}"),
+                                    os.path.join(tmp, f"o_{src}.y4m")])
+                if rc != 0:
+                    raise RuntimeError(f"phase 17c motion {src} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
+
+            stages, runs[src] = count.run(run, into=src == "tif")
+            print(f"phase 17c motion {src} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches "
+                  f"{json.dumps(runs[src])}", flush=True)
+        ok = same(os.path.join(tmp, "o_tif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 17c TIFF sequence == PPM sequence: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 17c: the TIFF sequence's output differs from the PPM's")
+        if runs["tif"] != runs["ppm"] or not runs["tif"].get("right3"):
+            raise RuntimeError(f"phase 17c: launches {runs['tif']} (PPM route {runs['ppm']}); "
+                               "kernel #2 never launched")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"codecs {layout}{nd} {m}x{k}")
+        if count.total.get("block_filter"):
+            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 17 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
 def main() -> int:
@@ -3484,6 +3771,13 @@ def main() -> int:
     if not (jpeg_path.get("left3") and jpeg_path.get("right3")):
         raise RuntimeError(f"a kernel of the JPEG path never launched: {jpeg_path}")
 
+    # ---- phase 17: main path 13, progressive JPEG and compressed TIFF -------
+    torch.cuda.empty_cache()
+    codec_path = _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                               scipy.fft)["launches"]
+    if not (codec_path.get("left3") and codec_path.get("right3")):
+        raise RuntimeError(f"a kernel of the codecs path never launched: {codec_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -3491,7 +3785,7 @@ def main() -> int:
                              + scan_cli["launches"].get(n, 0) + zoom_launches[n]
                              + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)
                              + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)
-                             + jpeg_path.get(n, 0)),
+                             + jpeg_path.get(n, 0) + codec_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -3502,7 +3796,8 @@ def main() -> int:
                                      "motion_eval": eval_cli.get(n, 0),
                                      "mesh": mesh_path["launches"].get(n, 0),
                                      "bridge": bridge.get(n, 0),
-                                     "jpeg": jpeg_path.get(n, 0)},
+                                     "jpeg": jpeg_path.get(n, 0),
+                                     "codecs": codec_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -3530,12 +3825,14 @@ def main() -> int:
                     "launches": (motion_launches["block_filter"] + eval_cli["block_filter"]
                                  + mesh_path["launches"].get("block_filter", 0)
                                  + bridge.get("block_filter", 0)
-                                 + jpeg_path.get("block_filter", 0)),
+                                 + jpeg_path.get("block_filter", 0)
+                                 + codec_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
                                          "bridge": bridge.get("block_filter", 0),
-                                         "jpeg": jpeg_path.get("block_filter", 0)},
+                                         "jpeg": jpeg_path.get("block_filter", 0),
+                                         "codecs": codec_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -17,14 +17,18 @@ Covers what the reference tools use from MagickWand
   ``write_image(None, ...)`` on a terminal, as in the JAX package.
 
 The JAX package reads and writes through Pillow; the port has its own
-codecs: PNG (``io/png.py``), PNM, BMP and uncompressed TIFF
-(``io/imgcodecs.py``) and baseline JPEG (``io/jpeg.py``), each reading
-what Pillow decodes and writing what it writes.  The other compressed
-formats (progressive, arithmetic-coded, 12-bit and CMYK JPEG, WebP, GIF,
-compressed TIFF) go through ``cv2`` where it imports; where it does not,
-they are refused with a ``ValueError`` naming ROADMAP queue 1, item 8
-(``png.refusal``).  Inputs are recognised by their leading bytes, as
-Pillow recognises them; the ``fmt:`` prefix names the output format.
+codecs: PNG (``io/png.py``), PNM, BMP and TIFF (``io/imgcodecs.py``:
+uncompressed, LZW, deflate and PackBits strips, predictor 1 or 2,
+associated or unassociated alpha) and JPEG (``io/jpeg.py``: baseline,
+extended-sequential and progressive Huffman), each reading what Pillow
+decodes and writing what it writes.  They take every file they carry,
+whether cv2 imports or not.  The rest (arithmetic-coded, 12-bit and CMYK
+JPEG, progressive JPEG whose scans leave coefficients short, tiled,
+planar and other compressed TIFF, WebP, GIF) goes through ``cv2`` where
+it imports; where it does not, it is refused with a ``ValueError``
+naming ROADMAP queue 1, item 8 and its part (``png.refusal``).  Inputs
+are recognised by their leading bytes, as Pillow recognises them; the
+``fmt:`` prefix names the output format.
 tests/test_torch_images.py and test_torch_image_formats.py pin the rest
 to the original.
 """
@@ -175,21 +179,33 @@ def _rgba(arr: np.ndarray, trns: tuple | None) -> np.ndarray:
     return rgba
 
 
+def _not_carried(data: bytes, name: str) -> tuple[str, str]:
+    """What a file the port's codecs do not take is, and the letter of its
+    part of ROADMAP queue 1 item 8 (for the refusal without cv2)."""
+    if name == "JPEG":
+        return _jpeg.not_carried(data) or (name, "")
+    if name == "TIFF":
+        return _codecs.tiff_not_carried(data) or (name, "c")
+    return name, {"GIF": "d", "WebP": "f"}.get(name, "")
+
+
 def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
-    """A compressed image through cv2 (imported here and nowhere else in
-    this module): samples as the other decoders give them, 16-bit color
-    cut to its high bytes as Pillow's ``RGB`` mode holds it."""
+    """An image the port's codecs do not take, through cv2 (imported here
+    and nowhere else in this module): samples as the other decoders give
+    them, 16-bit color cut to its high bytes as Pillow's ``RGB`` mode
+    holds it."""
     try:
         import cv2  # noqa: PLC0415
     except Exception:  # noqa: BLE001 — any import failure: no codec here
-        raise _png.refusal(f"{name} input") from None
+        what, part = _not_carried(data, name)
+        raise _png.refusal(f"{what} input", part) from None
     img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
     if img is None:
         raise ValueError(f"cv2 cannot decode this {name} input")
     if img.ndim == 2:
         img = img[..., None]
-    if name == "compressed TIFF" and img.shape[2] == 4:
-        raise ValueError("compressed TIFF with alpha: cv2 decodes it premultiplied")
+    if name == "TIFF" and img.shape[2] == 4:
+        raise ValueError("TIFF with alpha through cv2: cv2 decodes it premultiplied")
     if img.shape[2] >= 3:
         img = img[..., [2, 1, 0, 3][:img.shape[2]]]  # BGR(A) -> RGB(A)
     if img.dtype == np.uint16 and img.shape[2] > 1:
@@ -199,15 +215,17 @@ def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
 
 def _decoder(data: bytes):
     """The decoder of an image file, by its leading bytes (as Pillow
-    identifies files): a function of the bytes to (samples, depth)."""
+    identifies files): a function of the bytes to (samples, depth).  The
+    port's own codecs take every file they carry, whether cv2 imports or
+    not; cv2 takes the rest."""
     if data[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
         return _codecs.decode_pnm
     if data[:2] == b"BM":
         return _codecs.decode_bmp
     if data[:4] in (b"II*\x00", b"MM\x00*"):
-        if _codecs.tiff_compression(data) == 1:
+        if _codecs.tiff_not_carried(data) is None:
             return _codecs.decode_tiff
-        return lambda d: _cv2_decode(d, "compressed TIFF")
+        return lambda d: _cv2_decode(d, "TIFF")
     if data.startswith(b"\xff\xd8"):
         if _jpeg.carries(data):
             return _jpeg.decode_jpeg

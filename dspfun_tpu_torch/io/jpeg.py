@@ -1,18 +1,23 @@
-"""Baseline JPEG of the port: no Pillow, no cv2.
+"""JPEG of the port: no Pillow, no cv2.
 
 The JAX package reads and writes JPEG through Pillow, which links
 libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
 
 * ``decode_jpeg(data)`` returns the samples ``Image.open(...)`` decodes
   (islow IDCT, fancy upsampling, libjpeg's YCbCr tables) for
-  baseline (``SOF0``) and extended-sequential (``SOF1``) Huffman files
-  of 8-bit samples with one or three components: any sampling factors
-  with integral ratios, one interleaved scan or a scan per component,
-  restart intervals, the standard Huffman tables where a scan names
-  table 0 or 1 without defining it (Motion-JPEG frames).  Colour space
-  as libjpeg picks it: one component gray; three YCbCr, or RGB under an
-  Adobe marker with transform 0 or the component IDs 'R', 'G', 'B'
-  (without a JFIF marker).
+  baseline (``SOF0``), extended-sequential (``SOF1``) and progressive
+  (``SOF2``) Huffman files of 8-bit samples with one or three
+  components: any sampling factors with integral ratios, one interleaved
+  scan or a scan per component, restart intervals, the standard Huffman
+  tables where a sequential scan names table 0 or 1 without defining it
+  (Motion-JPEG frames; a progressive scan has no such default, as in
+  libjpeg).  A progressive file's scans (spectral selection, successive
+  approximation, end-of-band runs) refine the same coefficient arrays a
+  sequential file fills, checked as libjpeg checks them (a bad Ss, Se,
+  Ah or Al is an error, a scan out of the progression's order a warning
+  only).  Colour space as libjpeg picks it: one component gray; three
+  YCbCr, or RGB under an Adobe marker with transform 0 or the component
+  IDs 'R', 'G', 'B' (without a JFIF marker).
 * ``encode_jpeg(rgb)`` returns the bytes of Pillow's ``save(...,
   "JPEG")`` at its defaults: JFIF 1.01, quality 75 (the Annex K tables at
   50 %), Y at 2x2 and Cb, Cr at 1x1, the Annex K Huffman tables, one
@@ -21,11 +26,14 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
 This module parses the markers and checks the tables; the entropy coding
 and the integer transforms are ``native/jpeg.cpp``, built at first use
 (``_hostbuild.py``; a failed build raises with the compiler's message).
-``carries(data)`` says whether a file is one the codec decodes: progressive,
-lossless, arithmetic-coded and 12-bit files, and four components, are not,
-and ``io/images.py`` sends those to cv2 (ROADMAP queue 1, item 8).
-A truncated or corrupt file raises ``ValueError``.
-tests/test_torch_jpeg.py holds both directions to Pillow.
+``not_carried(data)`` says what of a file the codec does not decode, and
+``io/images.py`` sends those to cv2 (ROADMAP queue 1, item 8):
+lossless, arithmetic-coded and 12-bit files, four components (8e), and
+progressive files whose scans leave one of a component's first ten
+coefficients short, whose blocks libjpeg smooths (``jdcoefct.c``
+``smoothing_ok``; 8g).  A truncated or corrupt file raises
+``ValueError``.  tests/test_torch_jpeg.py holds both directions to
+Pillow.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import numpy as np
 from dspfun_tpu_torch import _hostbuild
 
 __all__ = ["Component", "Frame", "carries", "decode_coefficients", "decode_jpeg",
-           "encode_jpeg"]
+           "encode_jpeg", "not_carried", "reconstruct"]
 
 
 def _zigzag() -> tuple[int, ...]:
@@ -79,8 +87,8 @@ STD_HUFFMAN = {
 }
 
 _MAX_DIMENSION = 65500          # libjpeg's JPEG_MAX_DIMENSION
-_CARRIED = {0xC0: "baseline", 0xC1: "extended sequential"}
-_NOT_CARRIED = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+_CARRIED = {0xC0: "baseline", 0xC1: "extended sequential", 0xC2: "progressive"}
+_NOT_CARRIED = {0xC3: "lossless", 0xC5: "differential sequential",
                 0xC6: "differential progressive", 0xC7: "differential lossless",
                 0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
                 0xCB: "arithmetic-coded lossless", 0xCD: "differential arithmetic sequential",
@@ -93,6 +101,7 @@ _ERRORS = {-1: "JPEG data ends inside a scan (truncated file)",
            -5: "bad JPEG Huffman table (not a prefix code)",
            -6: "out of memory"}
 _GRAY, _YCC, _RGB = 0, 1, 2
+_SHORT = "progressive JPEG whose scans leave coefficients short (libjpeg smooths its blocks)"
 
 
 def _quality_table(base, quality: int) -> np.ndarray:
@@ -130,6 +139,7 @@ class Frame:
     mcus_x: int = 0
     mcus_y: int = 0
     colorspace: int = _YCC
+    smoothed: bool = False      # libjpeg would smooth this progressive file's blocks
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -143,8 +153,9 @@ def _markers(data: bytes, pos: int):
     by sending an index."""
     n = len(data)
     while True:
-        while pos < n and data[pos] != 0xFF:
-            pos += 1
+        pos = data.find(b"\xff", pos)
+        if pos < 0:
+            pos = n
         while pos < n and data[pos] == 0xFF:
             pos += 1
         if pos >= n:
@@ -254,7 +265,7 @@ def _colorspace(frame: Frame, jfif: bool, adobe: int | None) -> int:
 
 class _Reader:
     """Marker-level state of one decode (tables, restart interval, the
-    frame, its coefficients)."""
+    frame, its coefficients, and a progressive file's progression)."""
 
     def __init__(self, data: bytes):
         if not data.startswith(b"\xff\xd8"):
@@ -268,8 +279,15 @@ class _Reader:
         self.adobe: int | None = None
         self.coefs: list[np.ndarray] = []
         self.scanned: set = set()
+        # per component and zigzag position, the Al of its last scan (-1:
+        # none yet): jdphuff.c's coef_bits
+        self.coef_bits: list[list[int]] = []
 
-    def run(self, stop_at_sos: bool) -> None:
+    def run(self, decode: bool) -> None:
+        """Read the markers: with ``decode`` every scan into the
+        coefficient arrays; without, the headers only, up to the first
+        SOS of a sequential file and through every SOS of a progressive
+        one (what :func:`not_carried` needs)."""
         data = self.data
         it = _markers(data, 2)
         resume = None
@@ -288,11 +306,12 @@ class _Reader:
                 if self.frame is not None:
                     raise ValueError("corrupt JPEG data: a second SOF marker")
                 self.frame = _sof(code, body)
-                if stop_at_sos:
+                self.coef_bits = [[-1] * 64 for _ in self.frame.components]
+                if not decode:
                     continue
                 if code in _NOT_CARRIED:
                     raise ValueError(f"{_NOT_CARRIED[code]} JPEG is not carried by the "
-                                     "port's codec (ROADMAP.md queue 1, item 8)")
+                                     "port's codec (ROADMAP.md queue 1, item 8e)")
                 self._check_carried()
                 _layout(self.frame)
             elif code == 0xC4:
@@ -311,33 +330,73 @@ class _Reader:
             elif code == 0xDA:
                 if self.frame is None:
                     raise ValueError("corrupt JPEG data: a scan before the frame header")
-                if stop_at_sos:
+                if not decode and self.frame.marker != 0xC2:
                     return
-                resume = self._scan(body, resume)
+                resume = self._scan(body, resume, decode)
             elif not (0xE1 <= code <= 0xEF or code in (0xFE, 0xDC)):   # APPn, COM, DNL
                 raise ValueError(f"unknown JPEG marker 0x{code:02x}")
-        if stop_at_sos:
-            return
-        if self.frame is None or not self.coefs:
+        if self.frame is None or decode and not self.coefs:
             raise ValueError("JPEG file holds no image")
         if len(self.scanned) != len(self.frame.components):
             raise ValueError("corrupt JPEG data: a component has no scan")
+        self.frame.smoothed = self.frame.marker == 0xC2 and self._smoothing()
 
     def _check_carried(self) -> None:
         f = self.frame
         if f.precision != 8:
             raise ValueError(f"{f.precision}-bit JPEG is not carried by the port's codec "
-                             "(ROADMAP.md queue 1, item 8)")
+                             "(ROADMAP.md queue 1, item 8e)")
         if len(f.components) not in (1, 3):
             raise ValueError(f"JPEG of {len(f.components)} components is not carried by the "
-                             "port's codec (ROADMAP.md queue 1, item 8)")
+                             "port's codec (ROADMAP.md queue 1, item 8e)")
 
-    def _scan(self, body: bytes, pos: int) -> int:
-        """Decode one scan from ``pos``; returns where its data ends."""
+    def _progression(self, members: list, ss: int, se: int, ah: int, al: int) -> None:
+        """jdphuff.c start_pass_phuff_decoder: a bad Ss, Se, Ah or Al is
+        an error; a scan that does not follow the progression so far is a
+        warning only (whatever libjpeg decodes, the port decodes)."""
+        if ss == 0:
+            bad = se != 0
+        else:
+            bad = ss > se or se > 63 or len(members) != 1
+        if bad or (ah and al != ah - 1) or al > 13:
+            raise ValueError(f"corrupt JPEG data: bad progression Ss={ss} Se={se} Ah={ah} "
+                             f"Al={al}")
+        for i in members:
+            self.coef_bits[i][ss:se + 1] = [al] * (se + 1 - ss)
+
+    def _smoothing(self) -> bool:
+        """jdcoefct.c smoothing_ok after the last scan: whether
+        libjpeg-turbo (block smoothing on, as Pillow leaves it) would
+        smooth the output, because a component's first ten coefficients
+        are not all at full precision."""
+        useful = False
+        for c, bits in zip(self.frame.components, self.coef_bits):
+            if c.qtable is None or not all(c.qtable[ZIGZAG[k]] for k in range(10)) \
+                    or bits[0] < 0:
+                return False
+            useful |= any(b != 0 for b in bits[1:10])
+        return useful
+
+    def _scan(self, body: bytes, pos: int, decode: bool) -> int:
+        """One scan from ``pos``: its header checked and, with ``decode``,
+        its data decoded; returns where its data ends (``pos`` without
+        ``decode``: the marker search goes on through the data)."""
         f = self.frame
         ns = body[0] if body else 0
         if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
             raise ValueError("JPEG SOS segment has a bad length")
+        ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
+        ah, al = ahl >> 4, ahl & 15
+        progressive = f.marker == 0xC2
+        # the tables the scan's decoder reads: a sequential scan both, a
+        # progressive DC band's first pass DC, its refinements none, an
+        # AC band AC (jdphuff.c start_pass_phuff_decoder)
+        if not progressive:
+            classes = (0, 1)
+        elif ss == 0:
+            classes = () if ah else (0,)
+        else:
+            classes = (1,)
         by_id = {c.id: i for i, c in enumerate(f.components)}
         members, comp_args, tables = [], [], [b"\0" * 272] * 8
         for k in range(ns):
@@ -345,10 +404,10 @@ class _Reader:
             if cid not in by_id or by_id[cid] in members:
                 raise ValueError(f"corrupt JPEG data: bad component {cid} in a scan")
             members.append(by_id[cid])
-            td, ta = t >> 4, t & 15
-            for cls, idx in ((0, td), (1, ta)):
+            for cls in classes:
+                idx = (t >> 4, t & 15)[cls]
                 tab = self.htables.get((cls, idx))
-                if tab is None and idx <= 1:
+                if tab is None and idx <= 1 and not progressive:
                     tab = STD_HUFFMAN[cls, idx]   # jstdhuff.c: Motion-JPEG's default tables
                 if tab is None:
                     raise ValueError(f"JPEG Huffman table {('DC', 'AC')[cls]} {idx} "
@@ -356,72 +415,97 @@ class _Reader:
                 if cls == 0 and any(v > 15 for v in tab[1]):   # jdhuff.c's check
                     raise ValueError("bad JPEG Huffman table (a DC value above 15)")
                 tables[4 * cls + idx] = _table_bytes(tab)
-        if not self.coefs:
-            self.coefs = [np.zeros((c.rows, c.stride, 64), np.int16) for c in f.components]
         comps = [f.components[i] for i in members]
         for c in comps:
             if c.qtable is None:
                 if c.tq not in self.qtables:
                     raise ValueError(f"JPEG quantisation table {c.tq} is not defined")
                 c.qtable = self.qtables[c.tq].copy()
+        if ns > 1 and sum(c.h * c.v for c in comps) > 10:
+            raise ValueError("JPEG sampling factors too large for an interleaved scan")
+        if progressive:
+            self._progression(members, ss, se, ah, al)
+        self.scanned.update(members)
+        if not decode:
+            return pos
+        if not self.coefs:
+            self.coefs = [np.zeros((c.rows, c.stride, 64), np.int16) for c in f.components]
         if ns == 1:
             c = comps[0]
             mcus_x, mcus_y = c.blocks_w, c.blocks_h
             hv = [(1, 1)]
         else:
-            if sum(c.h * c.v for c in comps) > 10:
-                raise ValueError("JPEG sampling factors too large for an interleaved scan")
             mcus_x, mcus_y = f.mcus_x, f.mcus_y
             hv = [(c.h, c.v) for c in comps]
         for k, (c, t) in enumerate(zip(comps, body[2:2 + 2 * ns:2])):
             comp_args += [hv[k][0], hv[k][1], c.stride, t >> 4, t & 15]
         lib = _load()
-        args = np.array(comp_args, np.int32)
+        args = np.array(comp_args, np.int32).ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
         ptrs = (ctypes.POINTER(ctypes.c_int16) * ns)(
             *[self.coefs[i].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for i in members])
         end = ctypes.c_int64(0)
-        rc = lib.jpg_decode_scan(self.data, len(self.data), pos, ns,
-                                 args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                                 mcus_x, mcus_y, b"".join(tables), self.restart, ptrs,
-                                 ctypes.byref(end))
+        head = (self.data, len(self.data), pos, ns, args, mcus_x, mcus_y, b"".join(tables),
+                self.restart)
+        if progressive:
+            rc = lib.jpg_decode_progressive(*head, ss, se, ah, al, ptrs, ctypes.byref(end))
+        else:
+            rc = lib.jpg_decode_scan(*head, ptrs, ctypes.byref(end))
         if rc:
             raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
-        self.scanned.update(members)
         return end.value
 
 
-def carries(data: bytes) -> bool:
-    """Whether ``decode_jpeg`` decodes this JPEG: its first SOF is SOF0
-    or SOF1, with 8-bit samples and one or three components, and no
-    Adobe transform 2 (YCCK) on three.  A file whose header cannot be
-    parsed counts as carried, so that ``decode_jpeg`` names the fault."""
+def not_carried(data: bytes) -> tuple[str, str] | None:
+    """None where ``decode_jpeg`` decodes this JPEG (its SOF is SOF0,
+    SOF1 or SOF2, with 8-bit samples and one or three components, no
+    Adobe transform 2 (YCCK) on three, and a progressive file's scans
+    leave none of its first ten coefficients short, where libjpeg would
+    smooth the blocks); else what it is and the letter of its part of
+    ROADMAP queue 1 item 8.  A file whose headers cannot be parsed counts
+    as carried (but for what its frame header shows), so that
+    ``decode_jpeg`` names the fault."""
     r = _Reader(data)
     try:
-        r.run(stop_at_sos=True)
+        r.run(decode=False)
+        failed = False
     except ValueError:
-        return True
+        failed = True
     f = r.frame
     if f is None:
-        return True
-    return (f.marker in _CARRIED and f.precision == 8 and len(f.components) in (1, 3)
-            and not (len(f.components) == 3 and r.adobe == 2))
+        return None
+    if f.marker in _NOT_CARRIED:
+        return f"{_NOT_CARRIED[f.marker]} JPEG", "e"
+    if f.precision != 8:
+        return f"{f.precision}-bit JPEG", "e"
+    if len(f.components) not in (1, 3):
+        return f"JPEG of {len(f.components)} components", "e"
+    if r.adobe == 2 and len(f.components) == 3:
+        return "YCCK JPEG", "e"
+    if f.smoothed and not failed:
+        return _SHORT, "g"
+    return None
+
+
+def carries(data: bytes) -> bool:
+    """Whether ``decode_jpeg`` decodes this JPEG (:func:`not_carried`)."""
+    return not_carried(data) is None
 
 
 def decode_coefficients(data: bytes) -> tuple[Frame, list[np.ndarray]]:
     """The frame and each component's quantised DCT coefficients, int16
     [rows, stride, 64] in natural order (whole MCUs; blocks past the
     component's ``blocks_w`` x ``blocks_h`` are an interleaved scan's
-    dummy blocks)."""
+    dummy blocks), after the last scan (``frame.smoothed``: libjpeg
+    would smooth the blocks of this progressive file)."""
     r = _Reader(bytes(data))
-    r.run(stop_at_sos=False)
+    r.run(decode=True)
     r.frame.colorspace = _colorspace(r.frame, r.jfif, r.adobe)
     return r.frame, r.coefs
 
 
-def decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
-    """Samples uint8 [H, W, C] (C = 1 gray, 3 RGB) and the depth 8, as
-    Pillow decodes the file."""
-    frame, coefs = decode_coefficients(data)
+def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
+    """Samples uint8 [H, W, C] of the coefficients (libjpeg's islow IDCT,
+    fancy upsampling and colour conversion; no block smoothing)."""
     comps = frame.components
     n = len(comps)
     out = np.empty((frame.height, frame.width, n), np.uint8)
@@ -436,7 +520,17 @@ def decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     if rc:
         raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
-    return out, 8
+    return out
+
+
+def decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
+    """Samples uint8 [H, W, C] (C = 1 gray, 3 RGB) and the depth 8, as
+    Pillow decodes the file."""
+    frame, coefs = decode_coefficients(data)
+    if frame.smoothed:
+        raise ValueError(f"{_SHORT} is not carried by the port's codec "
+                         "(ROADMAP.md queue 1, item 8g)")
+    return reconstruct(frame, coefs), 8
 
 
 def _marker(code: int, body: bytes) -> bytes:
@@ -497,9 +591,11 @@ def _load() -> ctypes.CDLL:
     c = ctypes
     i16pp = c.POINTER(c.POINTER(c.c_int16))
     lib.jpg_decode_scan.restype = c.c_int
-    lib.jpg_decode_scan.argtypes = [c.c_char_p, c.c_int64, c.c_int64, c.c_int,
-                                    c.POINTER(c.c_int32), c.c_int, c.c_int, c.c_char_p,
-                                    c.c_int, i16pp, c.POINTER(c.c_int64)]
+    head = [c.c_char_p, c.c_int64, c.c_int64, c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int,
+            c.c_char_p, c.c_int]
+    lib.jpg_decode_scan.argtypes = head + [i16pp, c.POINTER(c.c_int64)]
+    lib.jpg_decode_progressive.restype = c.c_int
+    lib.jpg_decode_progressive.argtypes = head + [c.c_int] * 4 + [i16pp, c.POINTER(c.c_int64)]
     lib.jpg_reconstruct.restype = c.c_int
     lib.jpg_reconstruct.argtypes = [c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int, i16pp,
                                     c.POINTER(c.c_uint16), c.c_int, c.POINTER(c.c_uint8)]

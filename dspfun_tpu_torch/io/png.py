@@ -56,13 +56,15 @@ NOT_PORTED = "ROADMAP.md queue 1, item 8"
 _PIL_ORDER = (0, 2, 1, 4)
 
 
-def refusal(what: str) -> ValueError:
-    """The error of a compressed image format where no codec for it is
-    installed (``io/images.py`` reads and writes those through ``cv2``)."""
+def refusal(what: str, part: str = "") -> ValueError:
+    """The error of an image format, or a kind of file, that the port's
+    own codecs do not carry where cv2, which ``io/images.py`` reads and
+    writes those through, does not import; ``part`` is the letter of its
+    part of item 8."""
     return ValueError(f"{what} needs cv2, which does not import here: the port reads "
-                      f"and writes PNG, PNM, BMP, uncompressed TIFF and baseline JPEG "
-                      f"itself, and the other compressed formats only through cv2 "
-                      f"({NOT_PORTED})")
+                      f"and writes PNG, PNM, BMP, TIFF and JPEG itself (TIFF: uncompressed, "
+                      f"LZW, deflate or PackBits strips; JPEG: baseline and progressive "
+                      f"Huffman), and the rest only through cv2 ({NOT_PORTED}{part})")
 
 
 def _chunk(typ: bytes, data: bytes) -> bytes:

@@ -1,9 +1,9 @@
-// Baseline and extended-sequential JPEG (ITU-T T.81, Huffman coding,
-// 8-bit samples): the entropy decoder and encoder and the integer
-// transforms around them, written to give the bytes and pixels of
-// libjpeg-turbo's default paths, which Pillow and OpenCV use:
+// Baseline, extended-sequential and progressive JPEG (ITU-T T.81,
+// Huffman coding, 8-bit samples): the entropy decoders and encoder and
+// the integer transforms around them, written to give the bytes and
+// pixels of libjpeg-turbo's default paths, which Pillow and OpenCV use:
 //
-//   decode  jdhuff.c (entropy), jidctint.c jpeg_idct_islow with its
+//   decode  jdhuff.c and jdphuff.c (entropy), jidctint.c jpeg_idct_islow with its
 //           range-limit table, jdsample.c (fancy upsampling: h2v1, h1v2,
 //           h2v2; int_upsample otherwise), jdcolor.c ycc_rgb_convert;
 //   encode  jccolor.c rgb_ycc_convert, jcsample.c h2v2_downsample with
@@ -251,6 +251,156 @@ int64_t next_marker(const uint8_t* d, int64_t n, int64_t p) {
     if (d[p] != 0) return p;
     p++;
   }
+}
+
+// ---- progressive scans (jdphuff.c) ----------------------------------------
+// Each decodes one block's part of a scan: the DC band's first pass
+// (the difference of the value >> Al) and its refinements (one bit), an
+// AC band's first pass (values << Al, end-of-band runs counted in
+// *eobrun across blocks) and its refinements (a sign bit for each newly
+// nonzero coefficient, a correction bit for each one already nonzero).
+
+int dc_first(BitReader& br, const DecodeTable& dc, int al, int32_t* pred, int16_t* blk) {
+  int s, err;
+  int32_t r = 0;
+  if ((err = br.decode(dc, &s))) return err;
+  if (s) {
+    if ((err = br.get(s, &r))) return err;
+    r = extend(r, s);
+  }
+  *pred = static_cast<int32_t>(static_cast<uint32_t>(*pred) + static_cast<uint32_t>(r));
+  blk[0] = static_cast<int16_t>(static_cast<uint32_t>(*pred) << al);
+  return kOk;
+}
+
+int dc_refine(BitReader& br, int al, int16_t* blk) {
+  int32_t bit;
+  int err = br.get(1, &bit);
+  if (!err && bit) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  return err;
+}
+
+int ac_first(BitReader& br, const DecodeTable& ac, int ss, int se, int al, uint32_t* eobrun,
+             int16_t* blk) {
+  if (*eobrun) {
+    (*eobrun)--;
+    return kOk;
+  }
+  int s, err;
+  int32_t r;
+  for (int k = ss; k <= se; k++) {
+    if ((err = br.decode(ac, &s))) return err;
+    int run = s >> 4;
+    s &= 15;
+    if (s) {
+      k += run;
+      if ((err = br.get(s, &r))) return err;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(r, s)) << al);
+    } else if (run == 15) {
+      k += 15;
+    } else {
+      *eobrun = 1u << run;
+      if (run) {
+        if ((err = br.get(run, &r))) return err;
+        *eobrun += static_cast<uint32_t>(r);
+      }
+      (*eobrun)--;
+      break;
+    }
+  }
+  return kOk;
+}
+
+// a correction bit for the nonzero coefficient c: 1 adds 1 << Al to its
+// magnitude, unless that bit is already set
+inline int correct(BitReader& br, int p1, int16_t* c) {
+  int32_t bit;
+  int err = br.get(1, &bit);
+  if (!err && bit && (*c & p1) == 0) *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c - p1);
+  return err;
+}
+
+int ac_refine(BitReader& br, const DecodeTable& ac, int ss, int se, int al, uint32_t* eobrun,
+              int16_t* blk) {
+  const int p1 = 1 << al;
+  int k = ss, s, err;
+  int32_t bit;
+  if (*eobrun == 0) {
+    for (; k <= se; k++) {
+      if ((err = br.decode(ac, &s))) return err;
+      int r = s >> 4;
+      s &= 15;
+      if (s) {                      // a newly nonzero coefficient (size 1), its sign
+        if ((err = br.get(1, &bit))) return err;
+        s = bit ? p1 : -p1;
+      } else if (r != 15) {         // EOBr: the rest of this band, and 2^r + bits - 1 more
+        *eobrun = 1u << r;
+        if (r) {
+          if ((err = br.get(r, &bit))) return err;
+          *eobrun += static_cast<uint32_t>(bit);
+        }
+        break;
+      }
+      // past r zero coefficients (and ZRL's 16), correcting the nonzero ones
+      do {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) {
+          if ((err = correct(br, p1, c))) return err;
+        } else if (--r < 0) {
+          break;
+        }
+        k++;
+      } while (k <= se);
+      if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (*eobrun > 0) {
+    for (; k <= se; k++) {
+      int16_t* c = blk + kNatural[k];
+      if (*c != 0 && (err = correct(br, p1, c))) return err;
+    }
+    (*eobrun)--;
+  }
+  return kOk;
+}
+
+// The MCUs of one scan, restart markers between intervals: block(ci, c,
+// blk) decodes component ci's next block, reset() clears the predictors
+// (and end-of-band run) at each restart.
+template <class Block, class Reset>
+int scan_blocks(const uint8_t* data, int64_t len, BitReader& br, int ncomp,
+                const int32_t* comps, int mcus_x, int mcus_y, int restart,
+                int16_t* const* coefs, Block block, Reset reset) {
+  int err = kOk;
+  int64_t left = restart;
+  int next_rst = 0;
+  for (int my = 0; my < mcus_y && !err; my++) {
+    for (int mx = 0; mx < mcus_x && !err; mx++) {
+      if (restart && left == 0) {
+        int64_t m = next_marker(data, len, br.end());
+        if (m < 0) return kTruncated;
+        if (data[m] != 0xD0 + next_rst) {
+          br.restart(m);
+          return kBadRestart;
+        }
+        br.restart(m + 1);
+        next_rst = (next_rst + 1) & 7;
+        left = restart;
+        reset();
+      }
+      for (int ci = 0; ci < ncomp && !err; ci++) {
+        const int32_t* c = comps + 5 * ci;
+        int h = c[0], v = c[1];
+        int64_t stride = c[2];
+        for (int by = 0; by < v && !err; by++)
+          for (int bx = 0; bx < h && !err; bx++)
+            err = block(ci, c, coefs[ci] + ((static_cast<int64_t>(my) * v + by) * stride +
+                                             static_cast<int64_t>(mx) * h + bx) * 64);
+      }
+      left--;
+    }
+  }
+  return err;
 }
 
 // ---- inverse DCT, upsampling, colour ---------------------------------------
@@ -676,41 +826,68 @@ int jpg_decode_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
     if (used[i]) err = make_decode_table(tables + 272 * i, &dts[i]);
   BitReader br{data, len, pos};
   int32_t pred[4] = {0, 0, 0, 0};
-  int64_t left = restart;
-  int next_rst = 0;
-  for (int my = 0; my < mcus_y && !err; my++) {
-    for (int mx = 0; mx < mcus_x && !err; mx++) {
-      if (restart && left == 0) {
-        int64_t m = next_marker(data, len, br.end());
-        if (m < 0) {
-          err = kTruncated;
-          break;
-        }
-        if (data[m] != 0xD0 + next_rst) {
-          err = kBadRestart;
-          br.restart(m);
-          break;
-        }
-        br.restart(m + 1);
-        next_rst = (next_rst + 1) & 7;
-        left = restart;
-        std::memset(pred, 0, sizeof pred);
-      }
-      for (int ci = 0; ci < ncomp && !err; ci++) {
-        const int32_t* c = comps + 5 * ci;
-        int h = c[0], v = c[1];
-        int64_t stride = c[2];
-        const DecodeTable& dc = dts[c[3]];
-        const DecodeTable& ac = dts[4 + c[4]];
-        for (int by = 0; by < v && !err; by++)
-          for (int bx = 0; bx < h && !err; bx++) {
-            int16_t* blk = coefs[ci] + ((static_cast<int64_t>(my) * v + by) * stride +
-                                        static_cast<int64_t>(mx) * h + bx) * 64;
-            err = decode_block(br, dc, ac, &pred[ci], blk);
-          }
-      }
-      left--;
-    }
+  if (!err)
+    err = scan_blocks(
+        data, len, br, ncomp, comps, mcus_x, mcus_y, restart, coefs,
+        [&](int ci, const int32_t* c, int16_t* blk) {
+          return decode_block(br, dts[c[3] & 3], dts[4 + (c[4] & 3)], &pred[ci], blk);
+        },
+        [&] { std::memset(pred, 0, sizeof pred); });
+  *end = br.end();
+  delete[] dts;
+  return err;
+}
+
+// Decode one scan of a progressive file (SOF2) into the coefficients it
+// refines: arguments as jpg_decode_scan's, and the scan's spectral
+// selection ss..se (zigzag positions; 0..0 is the DC band, which may
+// interleave components; an AC band holds one) and successive
+// approximation ah, al (ah 0: the first pass, else a refinement of bit
+// al).  A DC refinement needs no table, an AC band only its AC table.
+int jpg_decode_progressive(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
+                           const int32_t* comps, int mcus_x, int mcus_y,
+                           const uint8_t* tables, int restart, int ss, int se, int ah, int al,
+                           int16_t* const* coefs, int64_t* end) {
+  DecodeTable* dts = new (std::nothrow) DecodeTable[8];
+  if (!dts) return kNoMemory;
+  int err = kOk;
+  const bool dc = ss == 0;
+  bool used[8] = {};
+  for (int ci = 0; ci < ncomp; ci++) {
+    if (dc && ah == 0) used[comps[5 * ci + 3] & 3] = true;
+    if (!dc) used[4 + (comps[5 * ci + 4] & 3)] = true;
+  }
+  for (int i = 0; i < 8 && !err; i++)
+    if (used[i]) err = make_decode_table(tables + 272 * i, &dts[i]);
+  BitReader br{data, len, pos};
+  int32_t pred[4] = {0, 0, 0, 0};
+  uint32_t eobrun = 0;
+  auto reset = [&] {
+    std::memset(pred, 0, sizeof pred);
+    eobrun = 0;
+  };
+  if (err) {
+  } else if (dc && ah == 0) {
+    err = scan_blocks(data, len, br, ncomp, comps, mcus_x, mcus_y, restart, coefs,
+                      [&](int ci, const int32_t* c, int16_t* blk) {
+                        return dc_first(br, dts[c[3] & 3], al, &pred[ci], blk);
+                      }, reset);
+  } else if (dc) {
+    err = scan_blocks(data, len, br, ncomp, comps, mcus_x, mcus_y, restart, coefs,
+                      [&](int, const int32_t*, int16_t* blk) { return dc_refine(br, al, blk); },
+                      reset);
+  } else {
+    const DecodeTable& ac = dts[4 + (comps[4] & 3)];
+    if (ah == 0)
+      err = scan_blocks(data, len, br, ncomp, comps, mcus_x, mcus_y, restart, coefs,
+                        [&](int, const int32_t*, int16_t* blk) {
+                          return ac_first(br, ac, ss, se, al, &eobrun, blk);
+                        }, reset);
+    else
+      err = scan_blocks(data, len, br, ncomp, comps, mcus_x, mcus_y, restart, coefs,
+                        [&](int, const int32_t*, int16_t* blk) {
+                          return ac_refine(br, ac, ss, se, al, &eobrun, blk);
+                        }, reset);
   }
   *end = br.end();
   delete[] dts;

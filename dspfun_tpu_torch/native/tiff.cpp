@@ -1,0 +1,130 @@
+// The strip decompressors of TIFF that need a loop over bits or bytes:
+// LZW (compression 5) and PackBits (32773), written to give the bytes of
+// libtiff's tif_lzw.c and tif_packbits.c, which Pillow and OpenCV use.
+//
+//   LZW       MSB-first codes of 9 to 12 bits, ClearCode 256 and EOI 257;
+//             the width grows one code early (at 511, 1023 and 2047), and
+//             the table holds 5119 entries (libtiff's CSIZE) before it is
+//             corrupt; a strip must start with a ClearCode; a string that
+//             does not fit is cut at the end of the strip;
+//   PackBits  a header byte n: 0..127 copies n + 1 bytes, -1..-127
+//             repeats the next byte 1 - n times, -128 is a no-op; runs past
+//             the end of the strip are cut.
+//
+// Each function fills at most n_out bytes and returns how many it wrote;
+// fewer than n_out means the strip's data ended early ("Not enough data"
+// in libtiff), which dspfun_tpu_torch/io/imgcodecs.py turns into an
+// error.  Deflate is the standard library's zlib there, and the
+// predictor is undone there with numpy.
+#include <cstdint>
+#include <vector>
+
+namespace {
+
+enum {
+  kCorrupt = -1,   // a code the table does not hold, or a table overflow
+  kCompat = -2,    // the old LSB-first LZW of libtiff's LZW_COMPAT
+};
+
+constexpr int kClear = 256;
+constexpr int kEoi = 257;
+constexpr int kFirst = 258;
+constexpr int kTableSize = 4095 + 1024;   // libtiff's CSIZE
+
+struct Entry {
+  int32_t prev;     // the code of the string without its last byte, -1 for a literal
+  int32_t length;
+  uint8_t first;
+  uint8_t last;
+};
+
+// MSB-first codes of the strip, as libtiff's GetNextCode reads them
+struct CodeReader {
+  const uint8_t* in;
+  int64_t nbits_total;
+  int64_t bitpos = 0;
+  bool next(int nbits, int* code) {
+    if (bitpos + nbits > nbits_total) return false;
+    int64_t byte = bitpos >> 3;
+    int64_t n = nbits_total >> 3;
+    uint32_t v = static_cast<uint32_t>(in[byte]) << 16;
+    if (byte + 1 < n) v |= static_cast<uint32_t>(in[byte + 1]) << 8;
+    if (byte + 2 < n) v |= in[byte + 2];
+    int shift = 24 - static_cast<int>(bitpos & 7) - nbits;
+    *code = static_cast<int>((v >> shift) & ((1u << nbits) - 1));
+    bitpos += nbits;
+    return true;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+int64_t tif_lzw_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int64_t n_out) {
+  if (n_in >= 2 && in[0] == 0 && (in[1] & 1)) return kCompat;
+  std::vector<Entry> table(kTableSize);
+  for (int i = 0; i < 256; i++)
+    table[i] = {-1, 1, static_cast<uint8_t>(i), static_cast<uint8_t>(i)};
+  CodeReader rd{in, n_in * 8};
+  int free_ent = kFirst, nbits = 9, old = -1, code = 0;
+  int64_t op = 0;
+  while (op < n_out) {
+    if (!rd.next(nbits, &code) || code == kEoi) break;
+    if (code == kClear) {
+      free_ent = kFirst;
+      nbits = 9;
+      do {
+        if (!rd.next(nbits, &code)) return op;
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return kCorrupt;
+      out[op++] = static_cast<uint8_t>(code);
+      old = code;
+      continue;
+    }
+    if (old < 0 || code > free_ent || free_ent >= kTableSize) return kCorrupt;
+    const Entry& prev = table[old];
+    table[free_ent] = {old, prev.length + 1, prev.first,
+                       code < free_ent ? table[code].first : prev.first};
+    if (++free_ent > (1 << nbits) - 2 && nbits < 12) nbits++;
+    old = code;
+    const Entry* e = &table[code];
+    int64_t len = e->length;
+    int64_t room = n_out - op;
+    int c = code;
+    while (len > room) {            // cut at the end of the strip: the head fits
+      c = table[c].prev;
+      len--;
+    }
+    for (int64_t k = len - 1; k >= 0; k--) {
+      out[op + k] = table[c].last;
+      c = table[c].prev;
+    }
+    op += len;
+  }
+  return op;
+}
+
+int64_t tif_packbits_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int64_t n_out) {
+  int64_t ip = 0, op = 0;
+  while (ip < n_in && op < n_out) {
+    int n = static_cast<int8_t>(in[ip++]);
+    if (n < 0) {
+      if (n == -128) continue;
+      int64_t run = 1 - n;
+      if (run > n_out - op) run = n_out - op;
+      if (ip >= n_in) break;
+      uint8_t b = in[ip++];
+      for (int64_t k = 0; k < run; k++) out[op++] = b;
+    } else {
+      int64_t run = n + 1;
+      if (run > n_out - op) run = n_out - op;
+      if (n_in - ip < run) break;
+      for (int64_t k = 0; k < run; k++) out[op++] = in[ip++];
+    }
+  }
+  return op;
+}
+
+}  // extern "C"

@@ -1,11 +1,12 @@
 """The port's image formats beside PNG (``dspfun_tpu_torch/io/png.py``'s
 interlaced, palette and low-depth files, ``io/imgcodecs.py``'s PNM, BMP
-and TIFF, baseline JPEG in ``io/jpeg.py``, and the other compressed
-formats through cv2 in ``io/images.py``) against the JAX package, which
-reads and writes them through Pillow.
+and TIFF, JPEG in ``io/jpeg.py``, and the other compressed formats
+through cv2 in ``io/images.py``) against the JAX package, which reads
+and writes them through Pillow.
 
 * Reads: every file gives ``dspfun_tpu.io.images.read_image``'s pixels
-  and depth exactly (JPEG through the port's own codec; WebP and GIF
+  and depth exactly (JPEG and compressed TIFF through the port's own
+  codecs, tests/test_torch_jpeg.py and test_torch_tiff.py; WebP and GIF
   through cv2: both packages link libwebp; the bound stated for those is
   one 8-bit level).
 * Writes: PNM, BMP, uncompressed TIFF (but 16-bit gray, which Pillow
@@ -13,9 +14,9 @@ reads and writes them through Pillow.
   bytes for the same pixels; GIF (cv2's encoder and palette,
   not Pillow's) decodes within a mean of 0.08 and a maximum of 0.4 of
   the JAX package's GIF on a smooth test image.
-* Without cv2 (its import blocked) WebP, GIF and compressed TIFF are
-  refused on read and write with a ``ValueError`` naming ROADMAP queue
-  1, item 8, and JPEG reads and writes as with it.
+* Without cv2 (its import blocked) WebP and GIF are refused on read and
+  write with a ``ValueError`` naming ROADMAP queue 1, item 8, and JPEG
+  and LZW TIFF read (and JPEG writes) as with it.
 * Image sequences take the same formats (JPEG with cv2 blocked).
 """
 
@@ -200,15 +201,13 @@ TIFF_CASES = ([(m, None) for m in ("RGB", "RGBA", "L", "1", "P", "LA", "I;16")]
 
 @pytest.mark.parametrize("mode,compression", TIFF_CASES)
 def test_tiff_reads_as_pillow_reads_it(mode, compression, tmp_path):
-    """Uncompressed baseline TIFF in numpy (every mode Pillow writes),
-    compressed TIFF through cv2 (8-bit gray and RGB; RGBA is refused:
-    cv2 hands back premultiplied colour)."""
+    """Uncompressed baseline TIFF (every mode Pillow writes) and
+    compressed TIFF (LZW, deflate, PackBits; RGBA too, which went to cv2
+    and was refused there before the port's codec carried it) through the
+    port's own codec."""
     kw = {"compression": compression} if compression else {}
     data = _pil(_pil_images()[mode], "TIFF", **kw)
-    if compression and mode == "RGBA":
-        with pytest.raises(ValueError, match="alpha"):
-            timages.read_image(_put(tmp_path, data))
-        return
+    assert imgcodecs.tiff_not_carried(data) is None
     _same_read(data, tmp_path)
 
 
@@ -281,13 +280,17 @@ def no_cv2(monkeypatch):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "WEBP", "GIF", "TIFF"])
 def test_compressed_formats_need_cv2(fmt, tmp_path, no_cv2):
-    """Without cv2 the compressed formats are refused naming item 8, on
-    read and on write, before any file is made; but baseline JPEG, which
-    the port's own codec reads and writes as the JAX package does."""
+    """Without cv2 WebP and GIF are refused naming item 8, on read and on
+    write, before any file is made; but JPEG and LZW TIFF, which the
+    port's own codecs read (and JPEG write) as the JAX package does."""
     img = Image.fromarray((_smooth(8, 8) * 255).astype(np.uint8))
     data = _pil(img, fmt, **({"compression": "tiff_lzw"} if fmt == "TIFF" else {}))
     path = tmp_path / "in.bin"
     path.write_bytes(data)
+    if fmt == "TIFF":
+        j, t = jimages.read_image(str(path)), timages.read_image(str(path))
+        np.testing.assert_array_equal(t.pixels, j.pixels)
+        return
     if fmt == "JPEG":
         j, t = jimages.read_image(str(path)), timages.read_image(str(path))
         np.testing.assert_array_equal(t.pixels, j.pixels)
@@ -297,12 +300,11 @@ def test_compressed_formats_need_cv2(fmt, tmp_path, no_cv2):
         return
     with pytest.raises(ValueError, match="queue 1, item 8"):
         timages.read_image(str(path))
-    if fmt != "TIFF":
-        target = str(tmp_path / f"o.{fmt.lower()}")
-        with pytest.raises(ValueError, match="queue 1, item 8"):
-            timages.write_image(target, _smooth(4, 4))
-        with pytest.raises(ValueError, match="queue 1, item 8"):
-            tvideo.check_output(str(tmp_path / f"f%03d.{fmt.lower()}"))
+    target = str(tmp_path / f"o.{fmt.lower()}")
+    with pytest.raises(ValueError, match="queue 1, item 8"):
+        timages.write_image(target, _smooth(4, 4))
+    with pytest.raises(ValueError, match="queue 1, item 8"):
+        tvideo.check_output(str(tmp_path / f"f%03d.{fmt.lower()}"))
     assert sorted(p.name for p in tmp_path.iterdir()) == ["in.bin"]
 
 

@@ -110,9 +110,20 @@ def test_mesh_ranks_import_no_jax(tmp_path):
 def test_container_modules_need_no_jax_pillow_or_cv2_and_not_the_repos_native(tmp_path):
     """The container stack imports and runs with jax, Pillow, cv2 and the
     JAX package unimportable: a y4m through the host library's reader,
-    FFV1 into NUT and Matroska and back, a JPEG through ``io/jpeg.py``.
-    The host libraries it loads are the port's own builds under
+    FFV1 into NUT and Matroska and back, a JPEG through ``io/jpeg.py``,
+    and Pillow's progressive JPEG and LZW and PackBits TIFF (written here,
+    before the process starts) through ``read_image``, equal to Pillow's
+    pixels.  The host libraries it loads are the port's own builds under
     build/native/, never a library of the repo's native/ directory."""
+    from PIL import Image
+
+    rng = np.random.default_rng(1)
+    img = Image.fromarray(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8))
+    img.save(tmp_path / "p.jpg", progressive=True)
+    img.save(tmp_path / "l.tif", compression="tiff_lzw", tiffinfo={317: 2})
+    img.save(tmp_path / "b.tif", compression="packbits")
+    want = [np.asarray(Image.open(tmp_path / n), np.float64) / 255
+            for n in ("p.jpg", "l.tif", "b.tif")]
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
         "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None; sys.modules['cv2'] = None\n"
@@ -134,6 +145,9 @@ def test_container_modules_need_no_jax_pillow_or_cv2_and_not_the_repos_native(tm
         "from dspfun_tpu_torch.io import jpeg\n"
         "a = rng.integers(0, 256, (12, 16, 3)).astype(np.uint8)\n"
         "print(jpeg.decode_jpeg(jpeg.encode_jpeg(a))[0].shape)\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "for n in ('p.jpg', 'l.tif', 'b.tif'):\n"
+        "    np.save(d + '/' + n + '.npy', images.read_image(d + '/' + n).pixels)\n"
         "print('\\n'.join(sorted({ln.split()[-1] for ln in open('/proc/self/maps')\n"
         "                         if ln.rstrip().endswith('.so')})))\n")
     res = _run(["-c", code])
@@ -142,8 +156,34 @@ def test_container_modules_need_no_jax_pillow_or_cv2_and_not_the_repos_native(tm
     assert lines[:3] == ["NativeBackedReader ffv1 3"] * 2 + ["(12, 16, 3)"]
     libs = [Path(p) for p in lines[3:]]
     ours = [p for p in libs if p.parent == ROOT / "build" / "native"]
-    assert sorted(p.name.split("_")[0] for p in ours) == ["libdspio", "libffv1", "libjpeg"]
+    assert sorted(p.name.split("_")[0] for p in ours) == ["libdspio", "libffv1", "libjpeg",
+                                                          "libtiff"]
     assert not [p for p in libs if p.parent == ROOT / "native"]
+    for n, ref in zip(("p.jpg", "l.tif", "b.tif"), want):
+        np.testing.assert_array_equal(np.load(tmp_path / (n + ".npy")), ref)
+
+
+def test_cold_build_of_the_tiff_library_while_ffmpeg_is_hidden(tmp_path, monkeypatch):
+    """``native/tiff.cpp`` builds into an empty build/native/ while a test
+    hides the ffmpeg binaries (g++ is still found), and its decoders run."""
+    import shutil
+
+    from dspfun_tpu_torch import _hostbuild
+    from tests.torch_port_cases import hide_ffmpeg
+
+    hide_ffmpeg(monkeypatch)
+    assert shutil.which("ffmpeg") is None and shutil.which("g++") is not None
+    monkeypatch.setattr(_hostbuild, "build_dir", lambda: tmp_path)
+    _hostbuild.load_library.cache_clear()
+    try:
+        lib = _hostbuild.load_library("tiff")
+        assert Path(lib._name).parent == tmp_path
+        assert [p.name for p in tmp_path.iterdir()] == [_hostbuild.library_path("tiff").name]
+        from dspfun_tpu_torch.io import imgcodecs
+
+        assert imgcodecs._tiff_strip(32773, b"\xfd\x07\x01\x09", 5) == b"\x07" * 4 + b"\x09"
+    finally:
+        _hostbuild.load_library.cache_clear()
 
 
 def test_jpeg_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
@@ -369,7 +409,7 @@ def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
-    port's own native/jpeg.cpp) matches
+    port's own native/jpeg.cpp and native/tiff.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -377,7 +417,8 @@ def test_package_data_ships_what_the_build_reads():
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
-    assert host == ["native/dspio.cpp", "native/ffv1.cpp", "native/jpeg.cpp"]
+    assert host == ["native/dspio.cpp", "native/ffv1.cpp", "native/jpeg.cpp",
+                    "native/tiff.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]
