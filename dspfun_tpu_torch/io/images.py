@@ -19,16 +19,17 @@ Covers what the reference tools use from MagickWand
 The JAX package reads and writes through Pillow; the port has its own
 codecs: PNG (``io/png.py``), PNM, BMP and TIFF (``io/imgcodecs.py``:
 uncompressed, LZW, deflate and PackBits strips, predictor 1 or 2,
-associated or unassociated alpha) and JPEG (``io/jpeg.py``: baseline,
-extended-sequential and progressive Huffman), each reading what Pillow
-decodes and writing what it writes.  They take every file they carry,
-whether cv2 imports or not.  The rest (arithmetic-coded, 12-bit and CMYK
-JPEG, progressive JPEG whose scans leave coefficients short, tiled,
-planar and other compressed TIFF, WebP, GIF) goes through ``cv2`` where
-it imports; where it does not, it is refused with a ``ValueError``
-naming ROADMAP queue 1, item 8 and its part (``png.refusal``).  Inputs
-are recognised by their leading bytes, as Pillow recognises them; the
-``fmt:`` prefix names the output format.
+associated or unassociated alpha), JPEG (``io/jpeg.py``: baseline,
+extended-sequential and progressive Huffman) and GIF (``io/gif.py``: the
+first frame read, Pillow's median-cut or octree palette written, through
+``io/quant.py``), each reading what Pillow decodes and writing what it
+writes.  They take every file they carry, whether cv2 imports or not.
+The rest (arithmetic-coded, 12-bit and CMYK JPEG, progressive JPEG whose
+scans leave coefficients short, tiled, planar and other compressed TIFF,
+WebP) goes through ``cv2`` where it imports; where it does not, it is
+refused with a ``ValueError`` naming ROADMAP queue 1, item 8 and its part
+(``png.refusal``).  Inputs are recognised by their leading bytes, as
+Pillow recognises them; the ``fmt:`` prefix names the output format.
 tests/test_torch_images.py and test_torch_image_formats.py pin the rest
 to the original.
 """
@@ -43,6 +44,7 @@ import numpy as np
 
 from dspfun_tpu_torch.io import color as _color
 from dspfun_tpu_torch.io import cv2_bridge as _cv2_bridge
+from dspfun_tpu_torch.io import gif as _gif
 from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
@@ -65,8 +67,9 @@ _RGBA = "RGBA"
 # the formats the port writes itself beside PNG, by Pillow's format name,
 # and those it hands to cv2 (with cv2's extension)
 _NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
-                   "TIFF": _codecs.encode_tiff, "JPEG": _jpeg.encode_jpeg}
-_CV2_WRITERS = {"WEBP": ".webp", "GIF": ".gif"}
+                   "TIFF": _codecs.encode_tiff, "JPEG": _jpeg.encode_jpeg,
+                   "GIF": _gif.encode_gif}
+_CV2_WRITERS = {"WEBP": ".webp"}
 
 
 def base16_encode(data: bytes) -> str:
@@ -186,7 +189,7 @@ def _not_carried(data: bytes, name: str) -> tuple[str, str]:
         return _jpeg.not_carried(data) or (name, "")
     if name == "TIFF":
         return _codecs.tiff_not_carried(data) or (name, "c")
-    return name, {"GIF": "d", "WebP": "f"}.get(name, "")
+    return name, {"WebP": "f"}.get(name, "")
 
 
 def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
@@ -231,7 +234,7 @@ def _decoder(data: bytes):
             return _jpeg.decode_jpeg
         return lambda d: _cv2_decode(d, "JPEG")
     if data.startswith(b"GIF8"):
-        return lambda d: _cv2_decode(d, "GIF")
+        return _gif.decode_gif
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return lambda d: _cv2_decode(d, "WebP")
     raise ValueError("cannot identify image file")

@@ -62,7 +62,7 @@ def refusal(what: str, part: str = "") -> ValueError:
     writes those through, does not import; ``part`` is the letter of its
     part of item 8."""
     return ValueError(f"{what} needs cv2, which does not import here: the port reads "
-                      f"and writes PNG, PNM, BMP, TIFF and JPEG itself (TIFF: uncompressed, "
+                      f"and writes PNG, PNM, BMP, TIFF, JPEG and GIF itself (TIFF: uncompressed, "
                       f"LZW, deflate or PackBits strips; JPEG: baseline and progressive "
                       f"Huffman), and the rest only through cv2 ({NOT_PORTED}{part})")
 

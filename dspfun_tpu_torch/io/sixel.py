@@ -7,16 +7,14 @@ applybasis/genbasis.c:132, draw.c:60-61, via ImageMagick's "sixel:"
 coder).  The output is a <= 256-colour palette and run-length encoded
 sixel bands.
 
-The JAX package takes its palette from Pillow's ``Image.quantize``
-(median cut, Floyd-Steinberg dither), which the port cannot call.
-:func:`quantize` builds one of its own: the image's own colours when
-there are at most ``max_colors`` of them (then the sixel is exact), else
-a median cut over the 8-bit colours weighted by their counts, each pixel
-taking its nearest palette entry, without dither.
+The JAX package takes its palette from Pillow's ``Image.quantize``,
+which, given no palette to map onto, ignores its ``dither`` argument and
+runs a plain median cut.  :func:`quantize` takes the same palette and
+index image from ``io/quant.py`` (Pillow's median cut, ported), and
 :func:`encode_bands` writes the sixel bytes of an index image and its
-palette as the JAX encoder writes them (tests/test_torch_sixel.py holds
-the two to equal bytes on the same palette), with its runs found by
-numpy instead of a loop over pixels.
+palette as the JAX encoder writes them, with its runs found by numpy
+instead of a loop over pixels; tests/test_torch_sixel.py holds
+:func:`encode_sixel` to the JAX encoder's bytes.
 """
 
 from __future__ import annotations
@@ -25,56 +23,17 @@ import sys
 
 import numpy as np
 
+from dspfun_tpu_torch.io import quant as _quant
+
 __all__ = ["encode_bands", "encode_sixel", "quantize", "write_sixel"]
-
-
-def _median_cut(colors: np.ndarray, counts: np.ndarray, n: int) -> np.ndarray:
-    """At most ``n`` palette colours for distinct ``colors`` [K, 3] seen
-    ``counts`` times: split the box of colours with the widest channel
-    range at the count-weighted median of that channel, until there are
-    ``n`` boxes or none can split; each box gives its weighted mean."""
-    boxes = [np.arange(len(colors))]
-    spans = [np.ptp(colors, axis=0)]
-    while len(boxes) < n:
-        widest = [int(s.max()) if len(b) > 1 else -1 for b, s in zip(boxes, spans)]
-        i = int(np.argmax(widest))
-        if widest[i] <= 0:
-            break
-        box, ch = boxes.pop(i), int(np.argmax(spans.pop(i)))
-        box = box[np.argsort(colors[box, ch], kind="stable")]
-        cum = np.cumsum(counts[box])
-        k = int(np.clip(np.searchsorted(cum, cum[-1] / 2.0) + 1, 1, len(box) - 1))
-        for part in (box[:k], box[k:]):
-            boxes.append(part)
-            spans.append(np.ptp(colors[part], axis=0))
-    w = [counts[b].astype(np.float64) for b in boxes]
-    return np.array([np.rint((colors[b] * wi[:, None]).sum(0) / wi.sum()) for b, wi in
-                     zip(boxes, w)], np.int64)
-
-
-def _nearest(colors: np.ndarray, palette: np.ndarray, chunk: int = 4096) -> np.ndarray:
-    """The index of the nearest palette entry (squared distance, the
-    first of equals) of each colour."""
-    pal = palette.astype(np.int64)
-    out = np.empty(len(colors), np.int64)
-    for lo in range(0, len(colors), chunk):
-        c = colors[lo:lo + chunk].astype(np.int64)
-        d = ((c[:, None, :] - pal[None, :, :]) ** 2).sum(axis=2)
-        out[lo:lo + chunk] = d.argmin(axis=1)
-    return out
 
 
 def quantize(rgb: np.ndarray, max_colors: int = 256) -> tuple[np.ndarray, np.ndarray]:
     """(index image [H, W] int32, palette [N, 3] int64 of 0..255) of an
-    [H, W, 3] uint8 image, N <= ``max_colors``."""
-    h, w, _ = rgb.shape
-    colors, inverse, counts = np.unique(rgb.reshape(-1, 3), axis=0, return_inverse=True,
-                                        return_counts=True)
-    inverse = inverse.reshape(-1)
-    if len(colors) <= max_colors:
-        return inverse.reshape(h, w).astype(np.int32), colors.astype(np.int64)
-    palette = _median_cut(colors, counts, max_colors)
-    return _nearest(colors, palette)[inverse].reshape(h, w).astype(np.int32), palette
+    [H, W, 3] uint8 image, N <= ``max_colors``: Pillow's
+    ``Image.quantize(max_colors)``."""
+    idx, palette, _ = _quant.quantize(np.asarray(rgb, dtype=np.uint8), max_colors)
+    return idx.astype(np.int32), palette.astype(np.int64)
 
 
 def encode_bands(idx: np.ndarray, palette: np.ndarray) -> bytes:

@@ -242,10 +242,10 @@ def test_refusals_name_the_roadmap_item(tmp_path, capsys, monkeypatch):
     """The outputs the port once refused (ROADMAP items 8 and 21) are
     written as the JAX tools write them: the same exit code and files
     that decode within one 8-bit level on average; sixel on a terminal
-    within the gate of tests/test_torch_sixel.py against the 8-bit
-    image (the same run to ``ppm:-``)."""
+    the JAX encoder's bytes of the image the same run writes to
+    ``ppm:-``."""
     from dspfun_tpu.io import images as jimages
-    from tests.test_torch_sixel import MAX_MARGIN, MEAN_MARGIN, decoded_rgb
+    from dspfun_tpu.io import sixel as jsixel
 
     src = _png(tmp_path)
     cases = ((japply, tapply, [src], True), (jgen, tgen, ["-s", "8x8"], False),
@@ -277,8 +277,7 @@ def test_refusals_name_the_roadmap_item(tmp_path, capsys, monkeypatch):
         h, w = map(int, ppm.split(b"\n")[1].split())
         ref8 = np.frombuffer(ppm[ppm.index(b"255\n") + 4:], np.uint8).reshape(h, w, 3)
         assert out["j"].split(b"#", 1)[0] == out["t"].split(b"#", 1)[0]
-        ej, et = (np.abs(decoded_rgb(out[k]) - ref8) for k in ("j", "t"))
-        assert et.mean() <= ej.mean() + MEAN_MARGIN and et.max() <= ej.max() + MAX_MARGIN
+        assert out["t"] == jsixel.encode_sixel(ref8)
 
 
 def test_device_defaults_to_the_card(tmp_path, capsys):

@@ -1,23 +1,21 @@
 """The port's image formats beside PNG (``dspfun_tpu_torch/io/png.py``'s
 interlaced, palette and low-depth files, ``io/imgcodecs.py``'s PNM, BMP
-and TIFF, JPEG in ``io/jpeg.py``, and the other compressed formats
-through cv2 in ``io/images.py``) against the JAX package, which reads
-and writes them through Pillow.
+and TIFF, JPEG in ``io/jpeg.py``, GIF in ``io/gif.py``, and WebP through
+cv2 in ``io/images.py``) against the JAX package, which reads and writes
+them through Pillow.
 
 * Reads: every file gives ``dspfun_tpu.io.images.read_image``'s pixels
-  and depth exactly (JPEG and compressed TIFF through the port's own
-  codecs, tests/test_torch_jpeg.py and test_torch_tiff.py; WebP and GIF
-  through cv2: both packages link libwebp; the bound stated for those is
-  one 8-bit level).
+  and depth exactly (JPEG, GIF and compressed TIFF through the port's own
+  codecs, tests/test_torch_jpeg.py, test_torch_gif.py and
+  test_torch_tiff.py; WebP through cv2: both packages link libwebp; the
+  bound stated for it is one 8-bit level).
 * Writes: PNM, BMP, uncompressed TIFF (but 16-bit gray, which Pillow
-  decodes to the same image), JPEG and WebP equal the JAX package's
-  bytes for the same pixels; GIF (cv2's encoder and palette,
-  not Pillow's) decodes within a mean of 0.08 and a maximum of 0.4 of
-  the JAX package's GIF on a smooth test image.
-* Without cv2 (its import blocked) WebP and GIF are refused on read and
-  write with a ``ValueError`` naming ROADMAP queue 1, item 8, and JPEG
-  and LZW TIFF read (and JPEG writes) as with it.
-* Image sequences take the same formats (JPEG with cv2 blocked).
+  decodes to the same image), JPEG, GIF and WebP equal the JAX package's
+  bytes for the same pixels.
+* Without cv2 (its import blocked) WebP is refused on read and write
+  with a ``ValueError`` naming ROADMAP queue 1, item 8, and JPEG, GIF and
+  LZW TIFF read (and JPEG and GIF write) as with it.
+* Image sequences take the same formats (JPEG and GIF with cv2 blocked).
 """
 
 import io
@@ -213,15 +211,15 @@ def test_tiff_reads_as_pillow_reads_it(mode, compression, tmp_path):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "WEBP", "GIF"])
 def test_compressed_reads_as_pillow_reads_them(fmt, tmp_path):
-    """JPEG through the port's codec: exactly Pillow's pixels.  WebP and
-    GIF through cv2: the bound is one 8-bit level; the two packages'
+    """JPEG and GIF through the port's codecs: exactly Pillow's pixels.
+    WebP through cv2: the bound is one 8-bit level; the two packages'
     libraries decode these files alike."""
     img = Image.fromarray((_smooth(24, 40) * 255).astype(np.uint8))
     path = tmp_path / "in.bin"
     path.write_bytes(_pil(img, fmt))
     j, t = jimages.read_image(str(path)), timages.read_image(str(path))
     assert t.depth == j.depth == 8
-    if fmt == "JPEG":
+    if fmt in ("JPEG", "GIF"):
         np.testing.assert_array_equal(t.pixels, j.pixels)
     else:
         assert np.abs(t.pixels - j.pixels).max() <= 1 / 255 + 1e-12
@@ -238,7 +236,8 @@ def _write_both(tmp_path, target, pix, **kw):
 
 @pytest.mark.parametrize("channels,depth", [("RGB", 8), ("RGBA", 8), ("I", 8), ("I", 16)])
 @pytest.mark.parametrize("target", ["OUT.ppm", "OUT.bmp", "OUT.tiff", "ppm:OUT.x", "bmp:OUT",
-                                    "tiff:OUT.bin", "OUT.jpg", "jpeg:OUT", "OUT.webp"])
+                                    "tiff:OUT.bin", "OUT.jpg", "jpeg:OUT", "OUT.webp",
+                                    "OUT.gif", "gif:OUT"])
 def test_writes_equal_the_jax_package(target, channels, depth, tmp_path):
     """The same pixels through both packages' ``write_image``: the same
     bytes, or the same error where Pillow cannot write the mode."""
@@ -266,11 +265,14 @@ def test_writes_equal_the_jax_package(target, channels, depth, tmp_path):
 
 
 def test_gif_writes_within_the_stated_bound(tmp_path):
-    """GIF goes through cv2's encoder, whose palette is not Pillow's: the
-    decoded files agree within a mean of 0.08 and a maximum of 0.4."""
-    out = _write_both(tmp_path, "OUT.gif", _smooth(40, 56))
-    j, t = jimages.read_image(out["jax"]).pixels, jimages.read_image(out["torch"]).pixels
-    assert np.abs(t - j).mean() <= 0.08 and np.abs(t - j).max() <= 0.4
+    """GIF goes through the port's encoder and Pillow's palette (median cut
+    for RGB, octree for RGBA): the files are the JAX package's bytes, on
+    an image of more than 256 colours, above and below 512x512 pixels."""
+    for hw in ((40, 56), (520, 510)):
+        for c in (3, 4):
+            pix = _smooth(*hw, c)
+            out = _write_both(tmp_path, "OUT.gif", pix, channels="RGBA"[:c])
+            assert open(out["torch"], "rb").read() == open(out["jax"], "rb").read()
 
 
 @pytest.fixture
@@ -280,9 +282,9 @@ def no_cv2(monkeypatch):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "WEBP", "GIF", "TIFF"])
 def test_compressed_formats_need_cv2(fmt, tmp_path, no_cv2):
-    """Without cv2 WebP and GIF are refused naming item 8, on read and on
-    write, before any file is made; but JPEG and LZW TIFF, which the
-    port's own codecs read (and JPEG write) as the JAX package does."""
+    """Without cv2 WebP is refused naming item 8, on read and on write,
+    before any file is made; but JPEG, GIF and LZW TIFF, which the port's
+    own codecs read (and JPEG and GIF write) as the JAX package does."""
     img = Image.fromarray((_smooth(8, 8) * 255).astype(np.uint8))
     data = _pil(img, fmt, **({"compression": "tiff_lzw"} if fmt == "TIFF" else {}))
     path = tmp_path / "in.bin"
@@ -291,12 +293,15 @@ def test_compressed_formats_need_cv2(fmt, tmp_path, no_cv2):
         j, t = jimages.read_image(str(path)), timages.read_image(str(path))
         np.testing.assert_array_equal(t.pixels, j.pixels)
         return
-    if fmt == "JPEG":
-        j, t = jimages.read_image(str(path)), timages.read_image(str(path))
-        np.testing.assert_array_equal(t.pixels, j.pixels)
-        out = _write_both(tmp_path, "OUT.jpg", _smooth(13, 21))
+    if fmt in ("JPEG", "GIF"):
+        ext = "jpg" if fmt == "JPEG" else "gif"
+        for ch in ("RGB", "RGBA"):
+            j, t = (m.read_image(str(path), channels=ch) for m in (jimages, timages))
+            np.testing.assert_array_equal(t.pixels, j.pixels)
+        out = _write_both(tmp_path, f"OUT.{ext}", _smooth(13, 21))
         assert open(out["torch"], "rb").read() == open(out["jax"], "rb").read()
-        tvideo.check_output(str(tmp_path / "f%03d.jpg"))
+        tvideo.check_output(str(tmp_path / f"f%03d.{ext}"))
+        timages.check_target(str(tmp_path / f"x%04d.{ext}"))
         return
     with pytest.raises(ValueError, match="queue 1, item 8"):
         timages.read_image(str(path))
@@ -326,12 +331,12 @@ def test_pnm_bmp_tiff_encoders_decode_in_pillow():
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("ext", ["bmp", "ppm", "tiff", "jpg"])
+@pytest.mark.parametrize("ext", ["bmp", "ppm", "tiff", "jpg", "gif"])
 def test_image_sequences_take_the_formats(ext, tmp_path, monkeypatch):
     """An image2 sequence of each format written by both packages is the
-    same files, and reads back to the same clip in both (JPEG with cv2
-    blocked: the port's own codec)."""
-    if ext == "jpg":
+    same files, and reads back to the same clip in both (JPEG and GIF with
+    cv2 blocked: the port's own codecs)."""
+    if ext in ("jpg", "gif"):
         monkeypatch.setitem(sys.modules, "cv2", None)
     frames = [_smooth(12, 16, seed=k) for k in range(3)]
     for name, mod in (("jax", jvideo), ("torch", tvideo)):

@@ -15,7 +15,6 @@ import sys
 
 import numpy as np
 import pytest
-from PIL import Image
 
 from dspfun_tpu.io import images as jimages
 from dspfun_tpu_torch.io import images as timages
@@ -159,10 +158,9 @@ def test_base16_and_dc_codecs_bit_equal():
 def test_other_formats_are_refused_on_write(target, tmp_path, monkeypatch):
     """Each target the port once refused (ROADMAP item 8) is written as the
     JAX package writes it: the same bytes, or the same failure (16-bit
-    colour outside PNG), at both depths; GIF (cv2's palette) within the
-    bound of tests/test_torch_image_formats.py.  Without cv2 WebP and GIF
-    are still refused by item 8, writing nothing, and JPEG (the port's
-    own codec) is written as with it."""
+    colour outside PNG), at both depths.  Without cv2 WebP is still
+    refused by item 8, writing nothing, and JPEG and GIF (the port's own
+    codecs) are written as with it."""
     pytest.importorskip("cv2")
     pix = _pixels(4, 4, 3)
     monkeypatch.chdir(tmp_path)
@@ -181,15 +179,10 @@ def test_other_formats_are_refused_on_write(target, tmp_path, monkeypatch):
                 out[name] = std.buffer.getvalue() if path == "-" else open(path, "rb").read()
             except (KeyError, OSError, ValueError):
                 out[name] = "failed"  # Pillow: no such format or mode for it
-        if "gif" in target and depth == 8:
-            dec = [np.asarray(Image.open(io.BytesIO(out[k])).convert("RGB"), np.float64)
-                   for k in ("jax", "torch")]
-            assert np.abs(dec[0] - dec[1]).mean() <= 0.08 * 255
-        else:
-            assert out["torch"] == out["jax"]
+        assert out["torch"] == out["jax"]
     if compressed:
         monkeypatch.setitem(sys.modules, "cv2", None)
-        if "jp" in target:
+        if "jp" in target or "gif" in target:
             got = {}
             for name, mod in (("jax", jimages), ("torch", timages)):
                 std = _Std()
@@ -209,8 +202,8 @@ def test_other_formats_are_refused_on_write(target, tmp_path, monkeypatch):
 def test_sixel_is_refused_by_item(tmp_path, monkeypatch):
     """``sixel:`` targets and the tty default, once refused (ROADMAP item
     21), write sixel as the JAX package does: the same header and size,
-    and decoded colours held to io/sixel.py's gate against the JAX
-    encoder's (tests/test_torch_sixel.py); not a tty, PNG to stdout."""
+    the JAX encoder's bytes (tests/test_torch_sixel.py), whose decoded
+    colours are the image's; not a tty, PNG to stdout."""
     from tests.test_torch_sixel import decode_sixel
 
     pix = _pixels(4, 4, 3)
@@ -223,6 +216,7 @@ def test_sixel_is_refused_by_item(tmp_path, monkeypatch):
         monkeypatch.setattr(sys, "stdout", tty)
         mod.write_image(None, pix)
         assert tty.buffer.getvalue() == got[name]
+    assert got["torch"] == got["jax"]
     rgb8 = np.clip(np.rint(np.clip(pix, 0, 1) * 255), 0, 255)
     for data in got.values():
         assert data.startswith(b'\x1bPq"1;1;4;4') and data.endswith(b"\x1b\\")

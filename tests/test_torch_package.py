@@ -59,7 +59,7 @@ def test_every_module_imports_without_jax():
         "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild",
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
-        "io.sixel", "io.imgcodecs", "io.jpeg")} <= names
+        "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL")):
@@ -230,6 +230,55 @@ def test_jpeg_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0] True True True True True True", \
         res.stdout + res.stderr
+
+
+def test_gif_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
+    """``spec`` then ``ispec`` on a GIF, and ``motion`` on a ``%02d.gif``
+    sequence, with jax, Pillow, cv2 and the JAX package unimportable: the
+    outputs (a spectrum, a GIF; a y4m, a GIF sequence) equal those of the
+    same runs on PNG and PPM copies of the decoded pixels, and a sixel is
+    written."""
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    code = (
+        "import sys, numpy as np\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "from dspfun_tpu_torch.tools import ispec, motion, spec\n"
+        f"d = {str(tmp_path)!r} + '/'\n"
+        "rng = np.random.default_rng(0)\n"
+        "y, x = np.mgrid[0:24, 0:40] / 24.0\n"
+        "for k in range(4):\n"
+        "    pix = np.stack([0.5 + 0.3 * np.sin(6 * x + k), 0.5 + 0.3 * np.cos(4 * y), 0.3 + 0 * x],"
+        " -1) + 0.05 * rng.random((24, 40, 3))\n"
+        "    images.write_image(d + f'in{k:02d}.gif', pix)\n"
+        "    images.write_image(d + f'in{k:02d}.ppm', images.read_image(d + f'in{k:02d}.gif').pixels)\n"
+        "images.write_image(d + 'in.png', images.read_image(d + 'in00.gif').pixels)\n"
+        "cpu = ['--device', 'cpu']\n"
+        "same = lambda a, b: open(d + a, 'rb').read() == open(d + b, 'rb').read()\n"
+        "rcs = [spec.main(cpu + ['-t', 'flat', d + 'in00.gif', d + 's_g.png']),\n"
+        "       spec.main(cpu + ['-t', 'flat', d + 'in.png', d + 's_p.png']),\n"
+        "       ispec.main(cpu + ['-t', 'flat', d + 's_g.png', d + 'b_g.gif']),\n"
+        "       ispec.main(cpu + ['-t', 'flat', d + 's_p.png', d + 'b_p.gif']),\n"
+        "       ispec.main(cpu + ['-t', 'flat', d + 's_g.png', 'sixel:' + d + 'b.six'])]\n"
+        "args = cpu + ['-Q', '-b', '8x8x4', '-p', '0x0x0-4x4x2', '-B', '1.25']\n"
+        "for src in ('gif', 'ppm'):\n"
+        "    rcs.append(motion.main(args + [d + 'in%02d.' + src, d + 'o_' + src + '.y4m']))\n"
+        "    rcs.append(motion.main(args + [d + 'in%02d.' + src, d + 'o_' + src + '%02d.gif']))\n"
+        "print(rcs, same('s_g.png', 's_p.png'), same('b_g.gif', 'b_p.gif'),\n"
+        "      same('o_gif.y4m', 'o_ppm.y4m'), all(same(f'o_gif{k:02d}.gif', f'o_ppm{k:02d}.gif')\n"
+        "                                         for k in range(4)),\n"
+        "      open(d + 'b_g.gif', 'rb').read()[:6] == b'GIF87a',\n"
+        "      open(d + 'b.six', 'rb').read()[:3] == b'\\x1bPq',\n"
+        "      'dspfun_tpu_torch.io.gif' in sys.modules)\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_PRECISION", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == \
+        "[0, 0, 0, 0, 0, 0, 0, 0, 0] True True True True True True True", res.stdout + res.stderr
 
 
 def test_calibration_counterparts_run_without_jax():
@@ -409,7 +458,7 @@ def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
-    port's own native/jpeg.cpp and native/tiff.cpp) matches
+    port's own native/gif.cpp, jpeg.cpp, quant.cpp and tiff.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -417,8 +466,8 @@ def test_package_data_ships_what_the_build_reads():
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
-    assert host == ["native/dspio.cpp", "native/ffv1.cpp", "native/jpeg.cpp",
-                    "native/tiff.cpp"]
+    assert host == ["native/dspio.cpp", "native/ffv1.cpp", "native/gif.cpp", "native/jpeg.cpp",
+                    "native/quant.cpp", "native/tiff.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]

@@ -359,12 +359,9 @@ def test_what_the_port_refuses_exits_1_by_item(tool, sources, tmp_path, capsys, 
     assert "spec mesh uses the space axis only" in capsys.readouterr().err
     monkeypatch.delenv("DSPFUN_MESH")
     # what the port once refused (ROADMAP items 21 and 8) is held to the
-    # JAX tool: sixel (also the tty default) decodes within the gate of
-    # tests/test_torch_sixel.py against the 8-bit image, and the other
-    # formats decode
-    # to its files within one level on average (GIF: the bound of
-    # tests/test_torch_image_formats.py), from the same spectrum
-    from tests.test_torch_sixel import MAX_MARGIN, MEAN_MARGIN, decoded_rgb
+    # JAX tool: sixel (also the tty default) and GIF are its bytes, and the
+    # other formats decode to its files within one level on average, from
+    # the same spectrum
 
     jmain = jspec.main if tool == "spec" else jispec.main
     if tool == "ispec":
@@ -384,14 +381,10 @@ def test_what_the_port_refuses_exits_1_by_item(tool, sources, tmp_path, capsys, 
         assert got[0][0] == got[1][0] == 0
         return got[0][1], got[1][1]
 
-    _, ppm = both([], "ppm:-")
-    ref8 = np.frombuffer(ppm[ppm.index(b"255\n") + 4:], np.uint8).reshape(48, 64, 3)
     for target in ("sixel:-", "sixel:o.six", None):
         _BinStd.tty = target is None       # the tty default is sixel
         j, t = both([], target)
-        assert j.split(b"#", 1)[0] == t.split(b"#", 1)[0]       # the same size
-        ej, et = (np.abs(decoded_rgb(x) - ref8) for x in (j, t))
-        assert et.mean() <= ej.mean() + MEAN_MARGIN and et.max() <= ej.max() + MAX_MARGIN
+        assert j.startswith(b"\x1bPq") and j == t
     _BinStd.tty = False
     from dspfun_tpu.io import images as jimages
 
@@ -401,7 +394,8 @@ def test_what_the_port_refuses_exits_1_by_item(tool, sources, tmp_path, capsys, 
         for data in (j, t):
             (tmp_path / "dec.bin").write_bytes(data)
             dec.append(jimages.read_image(str(tmp_path / "dec.bin")).pixels)
-        bound = (0.08, 0.4) if target.startswith("gif") else (1 / 255, 0.1)
+        bound = (0.0, 0.0) if target.startswith("gif") else (1 / 255, 0.1)
+        assert j == t or not target.startswith("gif")
         d = np.abs(dec[0] - dec[1])
         assert d.mean() <= bound[0] and d.max() <= bound[1], (target, d.mean(), d.max())
     from PIL import Image
