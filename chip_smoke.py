@@ -278,7 +278,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    sha256 (pinned by tests/test_torch_jpeg.py); the 4K progressive
    decode equal to the port's decode of its own baseline encode of the
    same levels; 3840x2160 deflate TIFFs at predictor 1 and 2, written
-   here with zlib, decoded to their levels; seconds and MB/s of RGB of
+   with zlib by ``tests/torch_codec_fixtures.py:make_tiff``, decoded to
+   their levels; seconds and MB/s of RGB of
    each decode.  (b) ``spec -t flat -G 1000`` of the 4K progressive JPEG
    and of the predictor-2 deflate TIFF at the default policy and at
    ``i8@1e-5``: the spectrum equal to the one from a PNG of the decoded
@@ -309,6 +310,33 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    sequence of the decoded frames, with the same launches of kernel #2
    (at least one); seconds by stage.  The int8 kernels are held to
    their plain versions at every shape the phase gave them;
+19. main path 15, TIFF layouts and sample formats, and CMYK JPEG, through
+   the port's own codecs (``io/imgcodecs.py``, ``io/jpeg.py`` on
+   ``native/jpeg.cpp``).  (a) Small TIFFs written by hand at run time
+   (``tests/torch_codec_fixtures.py:layout_tiffs``, no Pillow: tiles with
+   predictor 2, planar 16-bit RGBA, FillOrder 2, predictor 3 on float
+   samples, CMYK and 16-bit CMYK, I;32S, a 4-bit palette, PA,
+   Orientation 6 and 8) read to Pillow's pixels (``LAYOUT_TIFF_DIGESTS``);
+   the CMYK JPEG fixtures of ``tests/goldens/`` (``CMYK_FIXTURES``: the
+   4K progressive file, a baseline one with restart markers, it as YCCK
+   and without its Adobe marker) decoded, file and pixels equal to
+   Pillow's sha256; a 3840x2160 tiled (256x256) deflate CMYK TIFF with
+   predictor 2 and a 3840x2160 I;32S TIFF past 0 and 65535 written and
+   decoded to Pillow's digests (``TIFF_4K_DIGESTS``; all pinned by
+   tests/test_torch_tiff.py and test_torch_jpeg.py); seconds of each
+   write and decode.  (b) ``spec -t flat -G 1000`` of the three 4K files
+   at the default policy and at ``i8@1e-5``: the spectrum equal to the
+   one from the same pixels as a 16-bit PNG (the I;32S file, whose
+   pixels run past [0, 1], against its float pixels handed to the tool),
+   kernels #1-#2 once a tool at ``i8@1e-5`` (none at the default);
+   ``ispec`` of each at ``i8@1e-5`` back to PNG.  (c) motion's lowpass
+   (phase 6's argv) on 8 1080p frames (``TIFF_CMYK_FRAMES``) written as
+   ``in%04d.tif`` (tiled, planar, deflate CMYK, Orientation 1), to y4m and to ``out%04d.tiff``
+   (``.tif`` names no output format in either package), each equal byte
+   for byte to the same run on a PPM sequence of the decoded frames, with
+   the same launches of kernel #2 (at least one); seconds by stage.  The
+   int8 kernels are held to their plain versions at every shape the
+   phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -2773,6 +2801,19 @@ def _shim_module():
     return mod
 
 
+def _fixtures_module():
+    """``tests/torch_codec_fixtures.py`` of this checkout (its TIFF writer
+    and fixture tables need no Pillow), loaded by its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_codec_fixtures.py")
+    spec = importlib.util.spec_from_file_location("torch_codec_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _shim_probe(path, pix_fmt, nframes, hw):
     with open(path, "w") as f:
         json.dump({"streams": [{"codec_type": "video", "pix_fmt": pix_fmt,
@@ -3280,39 +3321,12 @@ def _rgb8(pix) -> np.ndarray:
     return np.clip(np.rint(np.clip(pix, 0.0, 1.0) * 255), 0, 255).astype(np.uint8)
 
 
-def _deflate_tiff(rgb, predictor, rows_per_strip=64) -> bytes:
+def _deflate_tiff(fx, rgb, predictor) -> bytes:
     """A little-endian deflate (8) TIFF of uint8 RGB [h, w, 3] in strips of
-    ``rows_per_strip`` rows, horizontal predictor 1 or 2, written with the
-    standard library's zlib, as GIMP or a scanner writes one."""
-    import struct
-    import zlib
-
-    h, w, _ = rgb.shape
-    v = rgb.copy()
-    if predictor == 2:
-        v[:, 1:] -= rgb[:, :-1]               # modulo 256
-    strips = [zlib.compress(v[y:y + rows_per_strip].tobytes()) for y in range(0, h, rows_per_strip)]
-    n = len(strips)
-    at = 8 + 6 + 8 * n                        # after BitsPerSample and the two strip arrays
-    offsets = []
-    for st in strips:
-        offsets.append(at)
-        at += len(st)
-    pad = at % 2
-    entries = [(256, 4, 1, struct.pack("<I", w)), (257, 4, 1, struct.pack("<I", h)),
-               (258, 3, 3, struct.pack("<I", 8)), (259, 3, 1, struct.pack("<HH", 8, 0)),
-               (262, 3, 1, struct.pack("<HH", 2, 0)),
-               (273, 4, n, struct.pack("<I", 14) if n > 1 else struct.pack("<I", offsets[0])),
-               (277, 3, 1, struct.pack("<HH", 3, 0)),
-               (278, 4, 1, struct.pack("<I", rows_per_strip)),
-               (279, 4, n, struct.pack("<I", 14 + 4 * n) if n > 1 else
-                struct.pack("<I", len(strips[0]))),
-               (284, 3, 1, struct.pack("<HH", 1, 0)), (317, 3, 1, struct.pack("<HH", predictor, 0))]
-    ifd = struct.pack("<H", len(entries)) + b"".join(
-        struct.pack("<HHI", tag, typ, cnt) + val for tag, typ, cnt, val in entries) + b"\0" * 4
-    return (b"II*\0" + struct.pack("<I", at + pad) + struct.pack("<3H", 8, 8, 8)
-            + struct.pack(f"<{n}I", *offsets) + struct.pack(f"<{n}I", *map(len, strips))
-            + b"".join(strips) + b"\0" * pad + ifd)
+    64 rows, horizontal predictor 1 or 2, written with the standard
+    library's zlib by ``tests/torch_codec_fixtures.py:make_tiff``, as GIMP
+    or a scanner writes one."""
+    return fx.make_tiff(rgb, "RGB", compression=8, predictor=predictor, rows_per_strip=64)
 
 
 def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(MH, MW),
@@ -3321,8 +3335,8 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
     port's own codecs.  (a) The fixtures of tests/goldens/ decoded, each
     equal to Pillow's digest; the 4K progressive decode equal to the
     port's decode of its baseline encode of the same levels; 4K deflate
-    TIFFs at predictor 1 and 2, written here with zlib, decoded to their
-    levels.  (b) spec of the 4K progressive JPEG and of the 4K deflate
+    TIFFs at predictor 1 and 2, written with zlib (``make_tiff``),
+    decoded to their levels.  (b) spec of the 4K progressive JPEG and of the 4K deflate
     TIFF at the default policy and at ``i8@1e-5`` against a PNG of the
     decoded pixels, and ispec of each at ``i8@1e-5`` back to its format
     (``spec_crop``: the 517x333 fixture and a TIFF of that size, for a
@@ -3335,6 +3349,7 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
     from dspfun_tpu_torch.io import images, imgcodecs, jpeg
     from dspfun_tpu_torch.tools import ispec, motion, spec
 
+    fx = _fixtures_module()
     count = _Launches(torch, int8mm, block_filter)
     same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
     sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
@@ -3385,7 +3400,7 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
         tifs = {}
         for predictor in (1, 2):
             t0 = time.perf_counter()
-            data = _deflate_tiff(rgb8, predictor)
+            data = _deflate_tiff(fx, rgb8, predictor)
             enc_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             arr, _ = imgcodecs.decode_tiff(data)
@@ -3410,7 +3425,7 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
             sources = {"jpg": os.path.join(gold, "codec_prog_444_rst.jpg"),
                        "tif": os.path.join(tmp, "crop.tif")}
             with open(sources["tif"], "wb") as f:
-                f.write(_deflate_tiff(np.ascontiguousarray(rgb8[:ch, :cw]), 2))
+                f.write(_deflate_tiff(fx, np.ascontiguousarray(rgb8[:ch, :cw]), 2))
         for ext, src in sources.items():
             ref = os.path.join(tmp, f"ref_{ext}.png")
             pix = images.read_image(src).pixels
@@ -3458,7 +3473,7 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
         for k in range(frames):
             frame = np.ascontiguousarray(strip[:, 4 * k:4 * k + mw])
             t0 = time.perf_counter()
-            data = _deflate_tiff(frame, 1 + k % 2)
+            data = _deflate_tiff(fx, frame, 1 + k % 2)
             enc_s += time.perf_counter() - t0
             t0 = time.perf_counter()
             if not np.array_equal(imgcodecs.decode_tiff(data)[0], frame):
@@ -3703,6 +3718,279 @@ def _gif_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
             _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
     wall = time.perf_counter() - t_phase
     print(f"phase 18 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
+# phase 19: TIFF layouts and sample formats, and CMYK JPEG (io/imgcodecs.py,
+# io/jpeg.py) ---------------------------------------------------------------------
+# (a): the TIFFs tests/torch_codec_fixtures.py:layout_tiffs() writes by hand
+# (no Pillow): the sha256 of the JAX package's read_image(..., "RGBA") float64
+# pixels of each (Pillow's decode); the CMYK JPEG fixtures of tests/goldens/
+# (torch_codec_fixtures.cmyk_fixtures): the sha256 of each file and of Pillow's
+# convert("RGB") of it; the 4K files' decodes: Pillow's convert("RGB") of the
+# tiled CMYK TIFF and its I-mode samples of the I;32S one.  tests/test_torch_tiff.py
+# and test_torch_jpeg.py pin all of them to Pillow.
+LAYOUT_TIFF_DIGESTS = {
+    "tiled LZW RGB predictor 2": "32be6c7b772103e46c6ea6ceb4dda584e0dad6fe2f38f966cb95ee07292f24d9",
+    "planar deflate RGBA;16": "96602767c8470f9857020d1cae354d4c8831465a115ed02170615f658767ff01",
+    "FillOrder 2 1 raw": "460b7eab1571ed1af068bae10706bcee3c5759e8958f596c4e12f78f1eba7bd4",
+    "FillOrder 2 1 LZW": "460b7eab1571ed1af068bae10706bcee3c5759e8958f596c4e12f78f1eba7bd4",
+    "FillOrder 2 L raw": "9c67728fee5ed329be34d34fcf88f4202a635213a9881f6346485c004506f5b0",
+    "FillOrder 2 L LZW": "9c67728fee5ed329be34d34fcf88f4202a635213a9881f6346485c004506f5b0",
+    "predictor 3 deflate F": "995b2c9a9e35a3e323250bebba9698c772b9402e6db9dab179b06c4db53f2748",
+    "CMYK raw": "7b6f776aa744dc3d67fdbfda5007a9d3fc5f04eaebbfe61f7d838d296d0f85da",
+    "CMYK;16 LZW big-endian": "63b49d2e26a6ec8f321390efd5e97a5c994731a450dee484d878fecf8bb28608",
+    "I;32S deflate": "c138d78d3048f0f416a61f3a4407dd39b429d1ae28646004afbabd1b7164d57f",
+    "4-bit palette PackBits": "64e434f4b8dec86f4c3508ef41543ab5469f3210e9257c1c34b82e77caa50848",
+    "PA LZW": "d6b13311e475fb3682ab705d464ee49f612682da769966a0a98e95ae2ee2163e",
+    "Orientation 6 RGB": "4f1441f967740366e2fbfb189972c5d1960c935b11b953303a3011b2463a5dc3",
+    "Orientation 8 RGB tiled": "bc3812ac6638459cb24885e80345e126ffa4e56293ca7f8db7b1381e5913909c",
+}
+CMYK_FIXTURES = {
+    "cmyk_prog_4k.jpg": ("2ef551bafb5f95e7133636568cacff55b96001b1198aa7bc8fb538b19f564cab",
+                         "d9b3712e02ad4cb0c15529312954ad7340f65ef19e83e0e5fc7b6c2199f9b0f1"),
+    "cmyk_rst.jpg": ("3cda68338aaa01236988af5c5251059b085999ff346a7adeaf9f0eee8e1e316d",
+                     "c8571490fbaedd120e6a33d43eb54f763b9df522489ff91c9607403c2233cb76"),
+    "cmyk_ycck.jpg": ("e5d28f78cc5a1adc9561118d83eecdfef2c59789ffcd24f167abc974bfc5d2c0",
+                      "6116f06f87d8206f4fead8349479f923ffb169039231d669e729a26e94b81002"),
+    "cmyk_no_adobe.jpg": ("7a3deb6bc4ae2e12fe5a467ba91d41edb3962ac57feefb5270f25317d2aaa482",
+                          "c8571490fbaedd120e6a33d43eb54f763b9df522489ff91c9607403c2233cb76"),
+}
+TIFF_4K_DIGESTS = {"cmyk": "44397006abd5cf6eb1eabc0d4984e689fb972af9566c6602e7a98829965dff0c",
+                   "i32": "0822a771adb5b13f156dbfb47f4369cbbd0b359a3fc79ef263e384a6809043f6"}
+TIFF_4K_TILE = (256, 256)
+TIFF_CMYK_FRAMES = 8              # (c): motion's lowpass on 8 1080p planar CMYK TIFF frames
+                                  # (16 took the phase to 122 s alone, cold plans)
+
+
+def _i32_levels(rgb8) -> np.ndarray:
+    """The 4K I;32S samples: the red level * 1000 - 100000 (past 0 and
+    65535 both ways)."""
+    return rgb8[..., :1].astype(np.int32) * 1000 - 100000
+
+
+def _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
+                     motion_hw=(MH, MW), frames=TIFF_CMYK_FRAMES, device_args=(),
+                     jpeg_4k="cmyk_prog_4k.jpg") -> dict:
+    """Main path 15: TIFF layouts and sample formats, and CMYK JPEG,
+    through the port's own codecs.  (a) Small TIFFs written by hand
+    (tiles, planes, FillOrder 2, predictors 2 and 3, CMYK, I;32S, a 4-bit
+    palette, PA, Orientation 6 and 8) and the CMYK JPEG fixtures (CMYK,
+    YCCK, no Adobe marker, progressive) decoded, each equal to Pillow's
+    digests; a 4K tiled deflate CMYK TIFF with predictor 2 and a 4K I;32S
+    TIFF written and decoded, each to Pillow's digest.  (b) spec of the
+    4K CMYK TIFF, the CMYK JPEG ``jpeg_4k`` and the I;32S TIFF at the
+    default policy and at ``i8@1e-5``, each against the same pixels given
+    as a 16-bit PNG (the I file, whose values run past [0, 1], against
+    its float pixels handed to the tool), and ispec at ``i8@1e-5`` back to
+    PNG.  (c) motion's lowpass on a 1080p tiled, planar, deflate CMYK TIFF
+    sequence (Orientation 1) against a PPM sequence of its decoded frames,
+    to y4m and to a TIFF sequence.  Returns the kernels' launches over
+    the CMYK and I runs."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs, jpeg
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    jpeg._load()
+    imgcodecs._tiff_lib()
+    print(f"phase 19 libjpeg and libtiff build and load: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiff_cmyk_") as tmp:
+        # ---- (a) small TIFFs and the CMYK JPEGs to Pillow's digests; 4K decodes ----
+        t0 = time.perf_counter()
+        small = fx.layout_tiffs()
+        print(f"phase 19a {len(small)} small TIFFs written by hand in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        path = os.path.join(tmp, "small.tif")
+        for name, data in small.items():
+            if images._decoder(data) is not imgcodecs.decode_tiff:
+                raise RuntimeError(f"phase 19a: {name} does not take the port's codec")
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            ok = fx.rgba_digest(img.pixels) == LAYOUT_TIFF_DIGESTS[name]
+            print(f"phase 19a TIFF {name} {img.width}x{img.height}: {len(data)} bytes, depth "
+                  f"{img.depth}; read {dec_s:.4f} s; pixels == Pillow's digest: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 19a: TIFF {name} is not Pillow's: "
+                                   f"{fx.rgba_digest(img.pixels)}")
+        for name, want in CMYK_FIXTURES.items():
+            with open(os.path.join(gold, name), "rb") as f:
+                data = f.read()
+            if images._decoder(data) is not jpeg.decode_jpeg:
+                raise RuntimeError(f"phase 19a: {name} does not take the port's codec")
+            t0 = time.perf_counter()
+            arr, _ = jpeg.decode_jpeg(data)
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), sha(np.ascontiguousarray(arr).tobytes()))
+            h, w = arr.shape[:2]
+            print(f"phase 19a {name} {w}x{h}: {len(data)} bytes; decode {dec_s:.4f} s "
+                  f"({h * w * 4 / 1e6 / dec_s:.1f} MB/s of CMYK); file and pixels == Pillow's "
+                  f"digests: {got == want}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 19a: {name} is not Pillow's: {got}")
+        (bh, bw), seed, noise = big
+        rgb8 = _rgb8(_seeded_pixels((bh, bw), seed, noise))
+        sources = {"cmyk_tif": os.path.join(tmp, "cmyk_4k.tif"),
+                   "cmyk_jpg": os.path.join(gold, jpeg_4k),
+                   "i32_tif": os.path.join(tmp, "i32_4k.tif")}
+        for key, kind, samples, kw in (
+                ("cmyk", "CMYK", fx.cmyk_levels(rgb8), dict(compression=8, predictor=2,
+                                                          tile=TIFF_4K_TILE)),
+                ("i32", "I;32S", _i32_levels(rgb8), dict(compression=8, rows_per_strip=64))):
+            t0 = time.perf_counter()
+            data = fx.make_tiff(samples, kind, **kw)
+            enc_s = time.perf_counter() - t0
+            with open(sources[f"{key}_tif"], "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            arr, depth = imgcodecs.decode_tiff(data)
+            dec_s = time.perf_counter() - t0
+            if (bh, bw) == (H, W):
+                ok = sha(np.ascontiguousarray(arr).tobytes()) == TIFF_4K_DIGESTS[key]
+            else:       # a rehearsal at another size: the samples Pillow gives for them
+                ok = np.array_equal(arr, imgcodecs._cmyk_rgb(samples) if key == "cmyk" else samples)
+            print(f"phase 19a {kind} TIFF {bw}x{bh} ({kw}): {len(data)} bytes, written in "
+                  f"{enc_s:.3f} s; decode {dec_s:.4f} s ({samples.nbytes / 1e6 / dec_s:.1f} "
+                  f"MB/s of samples), depth {depth}; pixels == Pillow's digest: {ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 19a: the 4K {kind} TIFF decodes to other pixels")
+
+        # ---- (b) spec and ispec of the three against the same pixels -----------
+        read_image = images.read_image
+        for ext, src in sources.items():
+            pix = read_image(src).pixels
+            sh, sw = pix.shape[:2]
+            # the H contraction goes left and the W one right, each from 256 on
+            spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+            if ext == "i32_tif":
+                want = np.repeat(_i32_levels(rgb8) / 65535.0, 3, axis=2)
+                ok = np.array_equal(pix, want) and pix.min() < 0 and pix.max() > 1
+                print(f"phase 19b I;32S pixels == samples / 65535 (past [0, 1]: "
+                      f"{pix.min():.4f} .. {pix.max():.4f}): {ok}", flush=True)
+                if not ok:
+                    raise RuntimeError("phase 19b: the I;32S TIFF's pixels are not samples / 65535")
+                ref = os.path.join(tmp, "float_ref.tif")      # its read is handed the pixels
+                shutil.copyfile(src, ref)
+            else:
+                ref = os.path.join(tmp, f"ref_{ext}.png")
+                images.write_image(ref, pix, depth=16)
+
+            def float_read(spec_, channels="RGB", linear=False, ref=ref, pix=pix):
+                if spec_ != ref:
+                    return read_image(spec_, channels=channels, linear=linear)
+                return images.ImageData(pixels=pix.copy(), channels=channels, depth=16)
+
+            for policy in (None, "i8@1e-5"):
+                tag = policy or "default"
+                out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
+                with _policy(policy):
+                    for name, inp in (("ref", ref), ("src", src)):
+                        fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                            torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                            int8mm)
+                        if ext == "i32_tif":
+                            images.read_image = float_read
+                        try:
+                            (wall, stages, got), _ = count.run(fn, into=name == "src")
+                        finally:
+                            images.read_image = read_image
+                        what = f"spec {ext} {name}"
+                        print(f"phase 19b {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
+                              f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                        want = spec_i8 if policy else {}
+                        if got != want:
+                            raise RuntimeError(f"phase 19b {what} at {tag} launched {got}, "
+                                               f"expected {want}")
+                ok = same(out["ref"], out["src"])
+                print(f"phase 19b {ext} at {tag}: spectrum == the "
+                      f"{'float pixels' if ext == 'i32_tif' else '16-bit PNG'} route's: {ok}",
+                      flush=True)
+                if not ok:
+                    raise RuntimeError(f"phase 19b at {tag}: the {ext} route differs")
+            back = os.path.join(tmp, f"back_{ext}.png")
+            with _policy("i8@1e-5"):
+                fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
+                                       + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
+                (wall, stages, got), _ = count.run(fn)
+            res = read_image(back).pixels
+            ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
+            print(f"phase 19b ispec of {ext} to PNG at i8@1e-5: {wall:.3f} s; stages "
+                  f"{_stages(stages)}; launches {json.dumps(got)}; max abs diff to the input "
+                  f"{float(np.abs(res - np.clip(pix, 0, 1)).max()):.4f}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 19b ispec of {ext} launched {got} or wrote {res.shape}")
+
+        # ---- (c) motion's lowpass on a planar CMYK TIFF sequence against PPM ----
+        mh, mw = motion_hw
+        strip = _rgb8(_seeded_pixels((mh, mw + 4 * frames), 25))
+        enc_s = dec_s = 0.0
+        for k in range(frames):
+            cmyk = fx.cmyk_levels(np.ascontiguousarray(strip[:, 4 * k:4 * k + mw]))
+            t0 = time.perf_counter()
+            data = fx.make_tiff(cmyk, "CMYK", compression=8, tile=TIFF_4K_TILE, planar=True,
+                                extra_tags={274: (3, [1])})
+            enc_s += time.perf_counter() - t0
+            with open(os.path.join(tmp, f"in{k:04d}.tif"), "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            dec = imgcodecs.decode_tiff(data)[0]
+            dec_s += time.perf_counter() - t0
+            if not np.array_equal(dec, imgcodecs._cmyk_rgb(cmyk)):
+                raise RuntimeError(f"phase 19c: TIFF frame {k} decodes to other pixels")
+            with open(os.path.join(tmp, f"in{k:04d}.ppm"), "wb") as f:
+                f.write(imgcodecs.encode_pnm(dec))
+        print(f"phase 19c {frames} frames {mw}x{mh}: planar tiled deflate CMYK TIFF write "
+              f"{enc_s:.3f} s, decode {dec_s:.3f} s ({frames * mh * mw * 4 / 1e6 / dec_s:.1f} "
+              "MB/s of CMYK)", flush=True)
+        runs = {}
+        for src in ("ppm", "tif"):
+            for dst in ("y4m", "tiff"):     # a ".tif" target is no format name, in either package
+                target = os.path.join(tmp, f"o_{src}" + (".y4m" if dst == "y4m" else "%04d.tiff"))
+                t0 = time.perf_counter()
+
+                def run(src=src, target=target, dst=dst):
+                    rc = motion.main(MOTION_ARGS + list(device_args)
+                                     + [os.path.join(tmp, f"in%04d.{src}"), target])
+                    if rc != 0:
+                        raise RuntimeError(f"phase 19c motion {src} -> {dst} exited {rc}")
+                    return dict(motion.LAST_STAGE_TIMES)
+
+                stages, got = count.run(run, into=src == "tif")
+                runs[src, dst] = got
+                print(f"phase 19c motion {src} -> {dst}: {time.perf_counter() - t0:.3f} s; "
+                      f"stages {_stages(stages)} (read decodes the frames, write encodes them); "
+                      f"launches {json.dumps(got)}", flush=True)
+        ok_y4m = same(os.path.join(tmp, "o_tif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        ok_tif = all(same(os.path.join(tmp, f"o_tif{k:04d}.tiff"),
+                          os.path.join(tmp, f"o_ppm{k:04d}.tiff")) for k in range(frames))
+        print(f"phase 19c CMYK TIFF sequence == PPM sequence: to y4m {ok_y4m}, to TIFF {ok_tif}",
+              flush=True)
+        if not (ok_y4m and ok_tif):
+            raise RuntimeError("phase 19c: the TIFF sequence's outputs differ from the PPM's")
+        for dst in ("y4m", "tiff"):
+            got = runs["tif", dst]
+            if got != runs["ppm", dst] or not got.get("right3"):
+                raise RuntimeError(f"phase 19c: launches {got} to {dst} (PPM route "
+                                   f"{runs['ppm', dst]}); kernel #2 never launched")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"tiff_cmyk {layout}{nd} {m}x{k}")
+        if count.total.get("block_filter"):
+            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 19 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
@@ -4005,6 +4293,13 @@ def main() -> int:
     if not (gif_path.get("left3") and gif_path.get("right3")):
         raise RuntimeError(f"a kernel of the GIF path never launched: {gif_path}")
 
+    # ---- phase 19: main path 15, TIFF layouts and sample formats, CMYK JPEG ---
+    torch.cuda.empty_cache()
+    cmyk_path = _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                                 scipy.fft)["launches"]
+    if not (cmyk_path.get("left3") and cmyk_path.get("right3")):
+        raise RuntimeError(f"a kernel of the TIFF and CMYK path never launched: {cmyk_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -4013,7 +4308,7 @@ def main() -> int:
                              + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)
                              + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)
                              + jpeg_path.get(n, 0) + codec_path.get(n, 0)
-                             + gif_path.get(n, 0)),
+                             + gif_path.get(n, 0) + cmyk_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -4026,7 +4321,8 @@ def main() -> int:
                                      "bridge": bridge.get(n, 0),
                                      "jpeg": jpeg_path.get(n, 0),
                                      "codecs": codec_path.get(n, 0),
-                                     "gif": gif_path.get(n, 0)},
+                                     "gif": gif_path.get(n, 0),
+                                     "tiff_cmyk": cmyk_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -4056,14 +4352,16 @@ def main() -> int:
                                  + bridge.get("block_filter", 0)
                                  + jpeg_path.get("block_filter", 0)
                                  + codec_path.get("block_filter", 0)
-                                 + gif_path.get("block_filter", 0)),
+                                 + gif_path.get("block_filter", 0)
+                                 + cmyk_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
                                          "bridge": bridge.get("block_filter", 0),
                                          "jpeg": jpeg_path.get("block_filter", 0),
                                          "codecs": codec_path.get("block_filter", 0),
-                                         "gif": gif_path.get("block_filter", 0)},
+                                         "gif": gif_path.get("block_filter", 0),
+                                         "tiff_cmyk": cmyk_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -18,17 +18,22 @@ Covers what the reference tools use from MagickWand
 
 The JAX package reads and writes through Pillow; the port has its own
 codecs: PNG (``io/png.py``), PNM, BMP and TIFF (``io/imgcodecs.py``:
-uncompressed, LZW, deflate and PackBits strips, predictor 1 or 2,
-associated or unassociated alpha), JPEG (``io/jpeg.py``: baseline,
-extended-sequential and progressive Huffman) and GIF (``io/gif.py``: the
-first frame read, Pillow's median-cut or octree palette written, through
-``io/quant.py``), each reading what Pillow decodes and writing what it
-writes.  They take every file they carry, whether cv2 imports or not.
-The rest (arithmetic-coded, 12-bit and CMYK JPEG, progressive JPEG whose
-scans leave coefficients short, tiled, planar and other compressed TIFF,
-WebP) goes through ``cv2`` where it imports; where it does not, it is
-refused with a ``ValueError`` naming ROADMAP queue 1, item 8 and its part
-(``png.refusal``).  Inputs are recognised by their leading bytes, as
+uncompressed, LZW, deflate and PackBits strips or tiles, chunky or
+planar, predictor 1, 2 or 3, either fill order, every key of Pillow's
+``OPEN_INFO`` but YCbCr and LAB (1- to 32-bit gray, signed and float
+samples, palettes, RGB(A), CMYK), the Orientation tag applied), JPEG
+(``io/jpeg.py``: baseline, extended-sequential and progressive Huffman;
+gray, RGB, CMYK and YCCK) and GIF (``io/gif.py``: the first frame read,
+Pillow's median-cut or octree palette written, through ``io/quant.py``),
+each reading what Pillow decodes and writing what it writes.  They take
+every file they carry, whether cv2 imports or not.  The rest
+(arithmetic-coded, 12-bit and lossless JPEG, progressive JPEG whose scans
+leave coefficients short, JPEG-in-TIFF, CCITT, LZMA, Zstandard and WebP
+compressed or YCbCr and LAB TIFF, WebP) goes through ``cv2`` where it
+imports, but the kinds cv2 reads otherwise than Pillow, which are
+refused with cv2 too (``_cv2_decode``); where cv2 does not import, it is
+refused with a ``ValueError`` naming ROADMAP queue 1, item 8 and its
+part (``png.refusal``).  Inputs are recognised by their leading bytes, as
 Pillow recognises them; the ``fmt:`` prefix names the output format.
 tests/test_torch_images.py and test_torch_image_formats.py pin the rest
 to the original.
@@ -166,8 +171,11 @@ def _rgba(arr: np.ndarray, trns: tuple | None) -> np.ndarray:
     """A decoded image's [H, W, C] integers as float RGBA in [0, 1]: gray
     replicated, a missing alpha 1, and the ``tRNS`` colour of an 8-bit
     gray or RGB PNG transparent (what Pillow's ``convert("RGBA")`` makes
-    of it)."""
-    fa = arr.astype(np.float64) / float(np.iinfo(arr.dtype).max)
+    of it).  int32 gray is Pillow's ``I`` mode, which the JAX package
+    divides by 65535 whatever its range (values below 0 and above 1
+    kept)."""
+    top = 65535.0 if arr.dtype == np.int32 else float(np.iinfo(arr.dtype).max)
+    fa = arr.astype(np.float64) / top
     h, w, nch = fa.shape
     rgba = np.zeros((h, w, 4), dtype=np.float64)
     rgba[..., 3] = 1.0
@@ -196,19 +204,25 @@ def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
     """An image the port's codecs do not take, through cv2 (imported here
     and nowhere else in this module): samples as the other decoders give
     them, 16-bit color cut to its high bytes as Pillow's ``RGB`` mode
-    holds it."""
+    holds it.  The kinds cv2 reads otherwise than Pillow are refused
+    with cv2 too, naming their part of item 8
+    (``imgcodecs.tiff_cv2_differs``; alpha in a TIFF)."""
+    what, part = _not_carried(data, name)
     try:
         import cv2  # noqa: PLC0415
     except Exception:  # noqa: BLE001 — any import failure: no codec here
-        what, part = _not_carried(data, name)
         raise _png.refusal(f"{what} input", part) from None
+    why = _codecs.tiff_cv2_differs(data) if name == "TIFF" else None
+    if why is not None:
+        raise ValueError(f"{what} is refused: {why} ({_png.NOT_PORTED}{part})")
     img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
     if img is None:
-        raise ValueError(f"cv2 cannot decode this {name} input")
+        raise ValueError(f"cv2 cannot decode this {what} input ({_png.NOT_PORTED}{part})")
     if img.ndim == 2:
         img = img[..., None]
     if name == "TIFF" and img.shape[2] == 4:
-        raise ValueError("TIFF with alpha through cv2: cv2 decodes it premultiplied")
+        raise ValueError(f"{what} with alpha through cv2: cv2 decodes it premultiplied "
+                         f"({_png.NOT_PORTED}{part})")
     if img.shape[2] >= 3:
         img = img[..., [2, 1, 0, 3][:img.shape[2]]]  # BGR(A) -> RGB(A)
     if img.dtype == np.uint16 and img.shape[2] > 1:

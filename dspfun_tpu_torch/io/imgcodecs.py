@@ -4,10 +4,11 @@ library.
 The JAX package reads and writes these formats through Pillow
 (``dspfun_tpu/io/images.py``).  Each decoder here returns what Pillow's
 plugin decodes, as ``(samples [H, W, C], depth)`` with C in 1..4 and
-uint8 samples at depth 8 or uint16 at depth 16 (Pillow's 16-bit gray
-``I`` modes); ``io/images.py`` makes float RGBA of them as Pillow's
-``convert("RGBA")`` does.  Each encoder writes, for the quantised arrays
-``io/images.py`` hands it (uint8 RGB or RGBA, or uint16 gray), the bytes
+uint8 samples at depth 8, or gray at depth 16: uint16 (Pillow's ``I;16``
+modes) or int32 (its ``I`` mode, which ``io/images.py`` divides by 65535
+as the JAX package does); ``io/images.py`` makes float RGBA of them as
+Pillow's ``convert("RGBA")`` does.  Each encoder writes, for the
+quantised arrays ``io/images.py`` hands it (uint8 RGB or RGBA, or uint16 gray), the bytes
 Pillow writes (PNM and BMP) or a file Pillow decodes to the same array
 (TIFF).  tests/test_torch_image_formats.py and test_torch_tiff.py hold
 all of it to Pillow.
@@ -23,20 +24,31 @@ all of it to Pillow.
   32 bits (``BI_RGB``: the fourth byte ignored) and the 32-bit
   ``BI_BITFIELDS`` layouts with an alpha mask.  Written: RGB as 24-bit,
   RGBA as 32-bit ``BGRA``, both at 96 dpi.
-* **TIFF** (``TiffImagePlugin`` and libtiff): the first image, in chunky
-  strips (RowsPerStrip each, the last one short), uncompressed or
-  compressed with LZW (``native/tiff.cpp``), deflate (8 and 32946, the
-  standard library's zlib) or PackBits (``native/tiff.cpp``), with the
-  horizontal predictor (2) undone where libtiff undoes it (LZW and
-  deflate); the modes of Pillow's ``OPEN_INFO`` it lists in
-  ``_TIFF_MODES``: bilevel, gray and gray+alpha of 8 bits, 16-bit gray,
-  RGB and RGBA of 8 and 16 bits (16-bit colour keeps each sample's high
-  byte, as Pillow's ``RGB`` mode does; associated alpha, ExtraSamples 1,
-  un-premultiplied as Pillow's ``RGBa`` unpacker does it) and 8-bit
-  palette.  Written: one strip, little endian, no compression.
-  :func:`tiff_not_carried` names what the decoder does not take (tiles,
-  planar strips, the floating-point predictor, other compressions and
-  modes; ROADMAP queue 1, item 8c), which ``io/images.py`` hands to cv2.
+* **TIFF** (``TiffImagePlugin`` and libtiff): the first image, keyed as
+  Pillow's ``_setup`` keys it into its ``OPEN_INFO`` table (kept here as
+  data, ``_OPEN_INFO_ROWS``, with every key but photometric 6 (YCbCr)
+  and 8 (LAB)) and unpacked by that key's rawmode as Pillow's unpackers
+  do it: 1-, 2-, 4- and 8-bit gray, 12- and 16-bit gray (``I;16``),
+  16- and 32-bit signed and 32-bit unsigned gray (``I``), 32-bit float
+  (``F``), gray + alpha, palettes of 1 to 8 bits with or without alpha,
+  RGB(A) of 8 and 16 bits with their extra samples (16-bit colour keeps
+  each sample's high byte; associated alpha, ExtraSamples 1,
+  un-premultiplied as Pillow's ``RGBa`` unpacker does it), CMYK of 8 and
+  16 bits (converted by Pillow's ``cmyk2rgb``), each in either fill
+  order.  Uncompressed files are read as Pillow's own reader reads them
+  (its strips and tiles, the one-letter rawmode of each plane of a
+  planar file); LZW (``native/tiff.cpp``), deflate (8 and 32946, the
+  standard library's zlib) and PackBits ones as libtiff hands them to
+  Pillow: bits reversed before decompression under FillOrder 2, samples
+  in native byte order, predictor 2 or 3 (libtiff's ``fpAcc``) undone in
+  each row of a strip or tile, planes interleaved.  Orientation 2-8
+  applied last, as ``ImageOps.exif_transpose`` does at Pillow's load.
+  Written: one strip, little endian, no compression.
+  :func:`tiff_not_carried` names what the decoder does not take (other
+  compressions, YCbCr and LAB; ROADMAP queue 1, item 8c), which
+  ``io/images.py`` hands to cv2; where Pillow raises (a key its table
+  lacks, a predictor or colormap libtiff refuses, a truncated or
+  corrupt strip or tile), :func:`decode_tiff` raises.
 
 Everything else raises ``ValueError``.
 """
@@ -54,7 +66,7 @@ from dspfun_tpu_torch import _hostbuild
 from dspfun_tpu_torch.io import png as _png
 
 __all__ = ["decode_bmp", "decode_pnm", "decode_tiff", "encode_bmp", "encode_pnm",
-           "encode_tiff", "tiff_not_carried"]
+           "encode_tiff", "tiff_cv2_differs", "tiff_not_carried"]
 
 _WS = b" \t\n\r\x0b\x0c"
 
@@ -231,25 +243,80 @@ _TIFF_CARRIED = {1: "uncompressed", 5: "LZW", 8: "deflate", 32946: "deflate",
 _TIFF_OTHERS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
                 7: "JPEG", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
                 34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
+_TIFF_PHOTOS = {6: "YCbCr", 8: "LAB"}      # the photometrics decode_tiff does not take
 _PREDICTED = (5, 8, 32946)      # the codecs libtiff runs the predictor with
-# Pillow's OPEN_INFO entries that decode_tiff carries, of either byte
-# order: (photometric, bits per sample, ExtraSamples) -> (mode, what the
-# extra samples are: None, "X" ignored, "A" unassociated alpha, "a"
-# associated alpha, then X).  16-bit photometric 0 is little-endian only.
-_TIFF_MODES = {
-    **{(p, (1,), ()): ("1", None) for p in (0, 1)},
-    **{(p, (8,), ()): ("L", None) for p in (0, 1)},
-    (1, (16,), ()): ("I;16", None),
-    (1, (8, 8), (2,)): ("LA", None),
-    (3, (8,), ()): ("P", None),
-    **{(2, (b,) * 3, ()): ("RGB", None) for b in (8, 16)},
-    **{(2, (b,) * 4, ()): ("RGBA", "A") for b in (8, 16)},
-    **{(2, (b,) * 4, (k,)): ("RGBA" if k else "RGB", "XaA"[k]) for b in (8, 16)
-       for k in (0, 1, 2)},
-    (2, (8,) * 4, (999,)): ("RGBA", "A"),
-    **{(2, (8,) * (4 + n), (k,) + (0,) * n): ("RGBA" if k else "RGB", "XaA"[k])
-       for n in (1, 2) for k in (0, 1, 2)},
-}
+
+# Pillow's OPEN_INFO (TiffImagePlugin.py) without photometric 6 (YCbCr)
+# and 8 (LAB): (byte orders, photometric, SampleFormat, FillOrder,
+# BitsPerSample, ExtraSamples, mode, rawmode)
+_OPEN_INFO_ROWS = (
+    ("<>", 0, (1,), 1, (1,), (), "1", "1;I"), ("<>", 0, (1,), 2, (1,), (), "1", "1;IR"),
+    ("<>", 1, (1,), 1, (1,), (), "1", "1"), ("<>", 1, (1,), 2, (1,), (), "1", "1;R"),
+    ("<>", 0, (1,), 1, (2,), (), "L", "L;2I"), ("<>", 0, (1,), 2, (2,), (), "L", "L;2IR"),
+    ("<>", 1, (1,), 1, (2,), (), "L", "L;2"), ("<>", 1, (1,), 2, (2,), (), "L", "L;2R"),
+    ("<>", 0, (1,), 1, (4,), (), "L", "L;4I"), ("<>", 0, (1,), 2, (4,), (), "L", "L;4IR"),
+    ("<>", 1, (1,), 1, (4,), (), "L", "L;4"), ("<>", 1, (1,), 2, (4,), (), "L", "L;4R"),
+    ("<>", 0, (1,), 1, (8,), (), "L", "L;I"), ("<>", 0, (1,), 2, (8,), (), "L", "L;IR"),
+    ("<>", 1, (1,), 1, (8,), (), "L", "L"), ("<>", 1, (2,), 1, (8,), (), "L", "L"),
+    ("<>", 1, (1,), 2, (8,), (), "L", "L;R"),
+    ("<", 1, (1,), 1, (12,), (), "I;16", "I;12"),
+    ("<", 0, (1,), 1, (16,), (), "I;16", "I;16"), ("<", 1, (1,), 1, (16,), (), "I;16", "I;16"),
+    (">", 1, (1,), 1, (16,), (), "I;16B", "I;16B"), ("<", 1, (1,), 2, (16,), (), "I;16", "I;16R"),
+    ("<", 1, (2,), 1, (16,), (), "I", "I;16S"), (">", 1, (2,), 1, (16,), (), "I", "I;16BS"),
+    ("<", 0, (3,), 1, (32,), (), "F", "F;32F"), (">", 0, (3,), 1, (32,), (), "F", "F;32BF"),
+    ("<", 1, (1,), 1, (32,), (), "I", "I;32N"),
+    ("<", 1, (2,), 1, (32,), (), "I", "I;32S"), (">", 1, (2,), 1, (32,), (), "I", "I;32BS"),
+    ("<", 1, (3,), 1, (32,), (), "F", "F;32F"), (">", 1, (3,), 1, (32,), (), "F", "F;32BF"),
+    ("<>", 1, (1,), 1, (8, 8), (2,), "LA", "LA"),
+    ("<>", 2, (1,), 1, (8,) * 3, (), "RGB", "RGB"), ("<>", 2, (1,), 2, (8,) * 3, (), "RGB", "RGB;R"),
+    ("<>", 2, (1,), 1, (8,) * 4, (), "RGBA", "RGBA"),
+    ("<>", 2, (1,), 1, (8,) * 4, (0,), "RGB", "RGBX"),
+    ("<>", 2, (1,), 1, (8,) * 5, (0, 0), "RGB", "RGBXX"),
+    ("<>", 2, (1,), 1, (8,) * 6, (0, 0, 0), "RGB", "RGBXXX"),
+    ("<>", 2, (1,), 1, (8,) * 4, (1,), "RGBA", "RGBa"),
+    ("<>", 2, (1,), 1, (8,) * 5, (1, 0), "RGBA", "RGBaX"),
+    ("<>", 2, (1,), 1, (8,) * 6, (1, 0, 0), "RGBA", "RGBaXX"),
+    ("<>", 2, (1,), 1, (8,) * 4, (2,), "RGBA", "RGBA"),
+    ("<>", 2, (1,), 1, (8,) * 5, (2, 0), "RGBA", "RGBAX"),
+    ("<>", 2, (1,), 1, (8,) * 6, (2, 0, 0), "RGBA", "RGBAXX"),
+    ("<>", 2, (1,), 1, (8,) * 4, (999,), "RGBA", "RGBA"),
+    ("<", 2, (1,), 1, (16,) * 3, (), "RGB", "RGB;16L"), (">", 2, (1,), 1, (16,) * 3, (), "RGB", "RGB;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, (), "RGBA", "RGBA;16L"),
+    (">", 2, (1,), 1, (16,) * 4, (), "RGBA", "RGBA;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, (0,), "RGB", "RGBX;16L"),
+    (">", 2, (1,), 1, (16,) * 4, (0,), "RGB", "RGBX;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, (1,), "RGBA", "RGBa;16L"),
+    (">", 2, (1,), 1, (16,) * 4, (1,), "RGBA", "RGBa;16B"),
+    ("<", 2, (1,), 1, (16,) * 4, (2,), "RGBA", "RGBA;16L"),
+    (">", 2, (1,), 1, (16,) * 4, (2,), "RGBA", "RGBA;16B"),
+    ("<>", 3, (1,), 1, (1,), (), "P", "P;1"), ("<>", 3, (1,), 2, (1,), (), "P", "P;1R"),
+    ("<>", 3, (1,), 1, (2,), (), "P", "P;2"), ("<>", 3, (1,), 2, (2,), (), "P", "P;2R"),
+    ("<>", 3, (1,), 1, (4,), (), "P", "P;4"), ("<>", 3, (1,), 2, (4,), (), "P", "P;4R"),
+    ("<>", 3, (1,), 1, (8,), (), "P", "P"), ("<>", 3, (1,), 2, (8,), (), "P", "P;R"),
+    ("<>", 3, (1,), 1, (8, 8), (0,), "P", "PX"), ("<>", 3, (1,), 1, (8, 8), (2,), "PA", "PA"),
+    ("<>", 5, (1,), 1, (8,) * 4, (), "CMYK", "CMYK"),
+    ("<>", 5, (1,), 1, (8,) * 5, (0,), "CMYK", "CMYKX"),
+    ("<>", 5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX"),
+    ("<", 5, (1,), 1, (16,) * 4, (), "CMYK", "CMYK;16L"),
+    (">", 5, (1,), 1, (16,) * 4, (), "CMYK", "CMYK;16B"),
+)
+_OPEN_INFO = {(bo, *key): mode for bos, *key, m, raw in _OPEN_INFO_ROWS for bo in bos
+              for mode in [(m, raw)]}
+# the unpackers Pillow lacks for some of those rawmodes (Image.frombytes
+# raises "unknown raw mode"), which only its own reader of uncompressed
+# files reaches
+_NO_UNPACKER = ("L;IR", "P;1R", "P;2R", "P;4R")
+# the bands of each mode's pixels, and which of its letters a one-band
+# rawmode may name (the planes of an uncompressed planar file)
+_MODE_BANDS = {"1": 1, "L": 1, "P": 1, "I;16": 1, "I;16B": 1, "I": 1, "F": 1, "LA": 2,
+               "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}
+_BAND_RAWMODES = {"1": "1", "L": "L", "P": "LP", "I": "I", "F": "F", "RGB": "RGB",
+                  "RGBA": "RGBA", "CMYK": "CMYK"}
+_BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+# Orientation (tag 274) 2-8 as ImageOps.exif_transpose applies it to [H, W, C]
+_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+           5: lambda a: a.swapaxes(0, 1), 6: lambda a: a.swapaxes(0, 1)[:, ::-1],
+           7: lambda a: a.swapaxes(0, 1)[::-1, ::-1], 8: lambda a: a.swapaxes(0, 1)[::-1]}
 
 
 def _tiff_tags(data: bytes) -> tuple[str, dict]:
@@ -276,44 +343,58 @@ def _tiff_tags(data: bytes) -> tuple[str, dict]:
     return bo, tags
 
 
-def _tiff_mode(bo: str, t: dict) -> tuple[tuple, int, int] | None:
-    """((mode, extra kind), samples per pixel, bits) of the first image as
-    Pillow's ``TiffImagePlugin._setup`` keys it (photometric 0 where the
-    tag is missing, one BitsPerSample for all samples), or None where
-    decode_tiff does not carry that key."""
+def _tiff_key(bo: str, t: dict) -> tuple:
+    """The first image's key into Pillow's OPEN_INFO, as
+    ``TiffImagePlugin._setup`` makes it: (byte order, photometric, sample
+    format ((1,) where every sample's is 1), fill order, bits per sample
+    (one value for all samples, extra values dropped), extra samples)."""
     spp = t.get(277, (1,))[0]
     bits = t.get(258, (1,))
+    if spp > 6:
+        raise ValueError("TIFF: invalid value for samples per pixel")
     if len(bits) > spp:
         bits = bits[:spp]
     elif len(bits) == 1:
         bits = bits * spp
-    if len(bits) != spp or any(f != 1 for f in t.get(339, (1,))):
-        return None
-    key = (t.get(262, (0,))[0], bits, t.get(338, ()))
-    mode = ("I;16", None) if key == (0, (16,), ()) and bo == "<" else _TIFF_MODES.get(key)
-    return None if mode is None else (mode, spp, bits[0])
+    if len(bits) != spp:
+        raise ValueError("TIFF: unknown data organization")
+    fmt = t.get(339, (1,))
+    if len(fmt) > 1 and set(fmt) == {1}:
+        fmt = (1,)
+    return (bo, t.get(262, (0,))[0], fmt, t.get(266, (1,))[0], bits, t.get(338, ()))
 
 
 def tiff_not_carried(data: bytes) -> tuple[str, str] | None:
-    """None where :func:`decode_tiff` decodes the first image of this
-    TIFF, else (what it is, the letter of its part of ROADMAP queue 1
-    item 8), which ``io/images.py`` hands to cv2 or names in its
-    refusal."""
-    bo, t = _tiff_tags(data)
+    """None where :func:`decode_tiff` takes the first image of this TIFF
+    (which it decodes, or refuses where Pillow raises), else (what it is,
+    the letter of its part of ROADMAP queue 1 item 8), which
+    ``io/images.py`` hands to cv2 or names in its refusal."""
+    _, t = _tiff_tags(data)
     comp = t.get(259, (1,))[0]
     if comp not in _TIFF_CARRIED:
         return f"{_TIFF_OTHERS.get(comp, f'compression {comp}')} TIFF", "c"
-    if t.get(284, (1,))[0] != 1:
-        return "planar TIFF (PlanarConfiguration 2)", "c"
-    if 322 in t or 324 in t:
-        return "tiled TIFF", "c"
-    if comp in _PREDICTED and t.get(317, (1,))[0] == 3:
-        return "TIFF with the floating-point predictor", "c"
-    if t.get(266, (1,))[0] != 1:
-        return "TIFF of FillOrder 2", "c"
-    if _tiff_mode(bo, t) is None:
-        return (f"TIFF of photometric {t.get(262, (0,))[0]} with "
-                f"{t.get(258, (1,))} bits and extra samples {t.get(338, ())}"), "c"
+    photo = t.get(262, (0,))[0]
+    if photo in _TIFF_PHOTOS:
+        return f"{_TIFF_PHOTOS[photo]} TIFF", "c"
+    return None
+
+
+def tiff_cv2_differs(data: bytes) -> str | None:
+    """Why cv2 reads a TIFF that :func:`decode_tiff` does not take to
+    other pixels than Pillow does (or reads it where Pillow raises), by its
+    tags; None for the kinds tests/test_torch_cv2_route.py holds equal.
+    (cv2's 4-channel read of alpha is caught after the decode.)"""
+    _, t = _tiff_tags(data)
+    photo, comp = t.get(262, (0,))[0], t.get(259, (1,))[0]
+    bits = t.get(258, (1,))
+    if photo == 8:
+        return "cv2 reads the CIELab samples otherwise than Pillow's LAB conversion"
+    if photo == 6 and comp not in (6, 7):
+        return "cv2 converts YCbCr to RGB where Pillow raises or reads the samples as RGB"
+    if photo == 5:
+        return "cv2 converts CMYK to RGB otherwise than Pillow's cmyk2rgb"
+    if max(bits) > 16 or any(f != 1 for f in t.get(339, (1,))):
+        return "cv2 reads 32-bit, signed and float samples otherwise than Pillow's I and F modes"
     return None
 
 
@@ -330,8 +411,9 @@ def _tiff_lib() -> ctypes.CDLL:
 
 
 def _tiff_strip(comp: int, raw: bytes, size: int) -> bytes:
-    """One strip decompressed to ``size`` bytes (the extra output of a
-    longer stream ignored, as libtiff ignores it), or ``ValueError``."""
+    """One strip or tile decompressed to ``size`` bytes (the extra output
+    of a longer stream ignored, as libtiff ignores it), or
+    ``ValueError``."""
     if comp in (8, 32946):
         try:
             out = zlib.decompressobj().decompress(raw, size)
@@ -354,41 +436,11 @@ def _tiff_strip(comp: int, raw: bytes, size: int) -> bytes:
     return out
 
 
-def _tiff_rows(data: bytes, bo: str, t: dict, h: int, stride: int) -> np.ndarray:
-    """The image's rows, uint8 [h, stride] in the file's byte order: the
-    strips gathered (RowsPerStrip of them each, the last one short) and
-    decompressed, and the horizontal predictor undone."""
-    comp = t.get(259, (1,))[0]
-    offsets, counts = t.get(273, ()), t.get(279, ())
-    if comp == 1:
-        strips = b"".join(data[o:o + n] for o, n in zip(offsets, counts))
-        if len(strips) < stride * h:
-            raise ValueError("uncompressed TIFF strips are truncated")
-        return np.frombuffer(strips, np.uint8, stride * h).reshape(h, stride)
-    rps = min(t.get(278, (h,))[0], h) or h
-    nstrips = -(-h // rps)
-    if len(offsets) < nstrips or len(counts) < nstrips:
-        raise ValueError(f"TIFF has {len(offsets)} strips of {nstrips}")
-    rows = np.empty((h, stride), np.uint8)
-    for i in range(nstrips):
-        y = i * rps
-        n = min(rps, h - y)
-        raw = data[offsets[i]:offsets[i] + counts[i]]
-        rows[y:y + n] = np.frombuffer(_tiff_strip(comp, raw, n * stride), np.uint8).reshape(n, -1)
-    predictor = t.get(317, (1,))[0] if comp in _PREDICTED else 1
-    if predictor == 1:
-        return rows
-    _, spp, bits = _tiff_mode(bo, t)
-    if predictor != 2 or bits not in (8, 16):
-        raise ValueError(f"TIFF: predictor {predictor} with {bits}-bit samples (libtiff "
-                         "refuses it)")
-    # horizontal differencing: each sample adds the one spp before it in
-    # its row, modulo 2^bits, on the values in the file's byte order
-    w = t[256][0]
-    if bits == 8:
-        return np.cumsum(rows.reshape(h, w, spp), axis=1, dtype=np.uint8).reshape(h, stride)
-    v = np.cumsum(rows.view(bo + "u2").reshape(h, w, spp), axis=1, dtype=np.uint16)
-    return v.astype(bo + "u2").view(np.uint8).reshape(h, stride)
+def _fields(rows: np.ndarray, bits: int, n: int) -> np.ndarray:
+    """The first ``n`` fields of ``bits`` bits of each row, most
+    significant bit first (uint16 [r, n])."""
+    b = np.unpackbits(rows, axis=1)[:, :n * bits].reshape(len(rows), n, bits).astype(np.uint16)
+    return (b << np.arange(bits - 1, -1, -1, dtype=np.uint16)).sum(axis=2, dtype=np.uint16)
 
 
 def _unpremultiply(rgb: np.ndarray, a: np.ndarray) -> np.ndarray:
@@ -399,45 +451,255 @@ def _unpremultiply(rgb: np.ndarray, a: np.ndarray) -> np.ndarray:
     return np.where(a == 0, 0, c).astype(np.uint8)
 
 
+def _rawmode_bits(raw: str) -> int:
+    """Bits per pixel of a rawmode, as Pillow's unpacker table gives them."""
+    letters, _, suffix = raw.partition(";")
+    if letters in ("I", "F"):
+        return int(suffix[:2]) if suffix else 32
+    if letters in ("1", "L", "P") and suffix[:1].isdigit():      # L;2 L;4I P;1 ...
+        return int(suffix[0])
+    if letters == "1":
+        return 1
+    return len(letters) * (16 if suffix.startswith("16") else 8)
+
+
+def _unpack(mode: str, raw: str, rows: np.ndarray, n: int) -> np.ndarray:
+    """Pillow's unpacker of ``raw`` for ``mode`` on rows of bytes
+    (uint8 [r, bytes], "N" read as little-endian): the first ``n`` pixels
+    of each row as the mode holds them, [r, n, bands] (uint8; uint16 for
+    I;16; int32 for I; float32 for F).  A one-letter rawmode of a
+    several-band mode gives that band alone, [r, n]."""
+    if raw in _NO_UNPACKER or len(raw) == 1 and raw not in _BAND_RAWMODES.get(mode, ""):
+        raise ValueError(f"TIFF: unknown raw mode {raw} for mode {mode}")
+    r = len(rows)
+    letters, _, suffix = raw.partition(";")
+    if "R" in suffix:                     # FillOrder 2: the bits of each byte reversed
+        rows = _BITREV[rows]
+    if mode in ("1", "L", "P") and letters in ("1", "L", "P"):
+        bits = _rawmode_bits(raw)
+        v = rows[:, :n] if bits == 8 else _fields(rows, bits, n).astype(np.uint8)
+        if mode == "1":
+            v = v * 255
+        elif mode == "L" and bits < 8:
+            v = v * (255 // ((1 << bits) - 1))
+        if "I" in suffix:
+            v = 255 - v
+        return v.astype(np.uint8)[..., None]
+    if raw == "I;12":
+        return _fields(rows, 12, n)[..., None]
+    if mode in ("I;16", "I;16B", "I", "F"):
+        bits = _rawmode_bits(raw)
+        big = raw in ("I;16B", "I;16BS", "I;32BS", "F;32BF")
+        kind = "f" if mode == "F" else ("i" if raw.endswith("S") else "u")
+        v = rows[:, :n * bits // 8].copy().view(f"{'>' if big else '<'}{kind}{bits // 8}")
+        return v.astype({"F": np.float32, "I": np.int32}.get(mode, np.uint16))[..., None]
+    size = 2 if suffix.startswith("16") else 1
+    v = rows[:, :n * len(letters) * size].reshape(r, n, len(letters), size)
+    v = v[..., 0 if suffix.endswith("B") else size - 1]       # a 16-bit sample's high byte
+    if len(letters) == 1:
+        return v[..., 0]
+    if letters.startswith("RGBa"):
+        return np.concatenate([_unpremultiply(v[..., :3], v[..., 3]), v[..., 3:4]], -1)
+    return v[..., :_MODE_BANDS[mode]]
+
+
+def _cmyk_rgb(v: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb`` (Convert.c): each of C, M, Y becomes
+    ``nk - MULDIV255(x, nk)`` with nk = 255 - K (in uint16, which holds
+    every intermediate: x * nk + 128 + 255 < 65536)."""
+    x = v[..., :3].astype(np.uint16)
+    nk = (255 - v[..., 3:4]).astype(np.uint16)
+    t = x * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
+def _tiff_layout(t: dict, w: int, h: int) -> tuple:
+    """(tiled, block width, block height, offsets, byte counts) of the
+    strips or tiles."""
+    if 324 in t or 322 in t:
+        try:
+            tiles = True, t[322][0], t[323][0], t[324], t.get(325, ())
+        except KeyError:
+            raise ValueError("TIFF: invalid tile dimensions") from None
+        if min(tiles[1:3]) <= 0:
+            raise ValueError("TIFF: invalid tile dimensions")
+        return tiles
+    if 273 not in t:
+        raise ValueError("TIFF: unknown data organization (no strips or tiles)")
+    return False, w, t.get(278, (h,))[0], t[273], t.get(279, ())
+
+
+def _tiff_raw(data: bytes, t: dict, mode: str, raw: str, bits: tuple, w: int, h: int) -> np.ndarray:
+    """An uncompressed image as Pillow's own reader makes it (its
+    ``_setup`` tiles and the raw decoder): each strip or tile read from its
+    offset, row after row (``stride`` apart at the image's right edge, as
+    ``_setup`` sets it), through the rawmode's unpacker, or through its
+    one-band rawmode ``raw[plane]`` in a planar file; byte counts unused."""
+    tiled, tw, th, offsets, _ = _tiff_layout(t, w, h)
+    planar = t.get(284, (1,))[0] == 2
+    photo = t.get(262, (0,))[0]
+    nbands = {2: 3, 5: 4}.get(photo, 1) + len(t.get(338, ()))
+    if tw == w and th == h and not planar:
+        offsets = offsets[-1:]
+    out = np.zeros((h, w) + ((_MODE_BANDS[mode],) if _MODE_BANDS[mode] > 1 else (1,)),
+                   {"I;16": np.uint16, "I;16B": np.uint16, "I": np.int32,
+                    "F": np.float32}.get(mode, np.uint8))
+    buf = np.frombuffer(data, np.uint8)
+    x = y = layer = 0
+    for off in offsets:
+        stride = tw * sum(bits) / 8 if x + tw > w else 0
+        tile_raw = raw
+        if planar:
+            if layer >= len(raw):
+                raise ValueError("TIFF: more planes than the mode has letters")
+            tile_raw = raw[layer]
+            stride /= nbands
+        x1, y1 = min(x + tw, w), min(y + th, h)
+        ew, eh = x1 - x, y1 - y
+        nbytes = (ew * _rawmode_bits(tile_raw) + 7) // 8
+        step = int(stride) or nbytes
+        if step < nbytes:
+            raise ValueError("TIFF: a tile's stride is shorter than its rows")
+        if off + (eh - 1) * step + nbytes > len(data):
+            raise ValueError("uncompressed TIFF strips are truncated (image file is truncated)")
+        rows = buf[off + step * np.arange(eh)[:, None] + np.arange(nbytes)]
+        v = _unpack(mode, tile_raw, rows, ew)
+        if v.ndim == 2:
+            out[y:y1, x:x1, _BAND_RAWMODES[mode].index(tile_raw)] = v
+        else:
+            out[y:y1, x:x1] = v
+        x += tw
+        if x >= w:
+            x, y = 0, y + th
+            if y >= h:
+                y, layer = 0, layer + 1
+    return out
+
+
+def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str, w: int,
+                  h: int) -> np.ndarray:
+    """A compressed image as Pillow's libtiff route makes it: every strip
+    or tile (of every plane) bit-reversed where FillOrder is 2,
+    decompressed, in native (little-endian) byte order (libtiff swaps a
+    big-endian file's 16- and 32-bit samples, but after the
+    floating-point predictor, whose output is native), the predictor
+    undone per row of the block, the blocks laid out as the image's rows
+    (a planar file's planes interleaved), then unpacked with the rawmode
+    (``;16N`` for the 16-bit ones)."""
+    comp = t.get(259, (1,))[0]
+    _, photo, fmt, fill, bits, extra = key
+    tiled, tw, th, offsets, counts = _tiff_layout(t, w, h)
+    planar = t.get(284, (1,))[0] == 2 and len(bits) > 1
+    if planar:
+        # Pillow reads LA, PA and PX planes, and RGBA without ExtraSamples,
+        # to other pixels than their chunky files; the port refuses them
+        if mode not in ("RGB", "RGBA", "CMYK") or len(bits) != {2: 3, 5: 4}[photo] + len(extra):
+            raise ValueError(f"planar TIFF of mode {mode} with {len(bits)} samples and extra "
+                             f"samples {extra} is not carried by the port's codec "
+                             f"({_png.NOT_PORTED}c)")
+        if not tiled and len(bits) > _MODE_BANDS[mode]:
+            raise ValueError("TIFF: planar strips of more samples than the mode has bands "
+                             "(Pillow's libtiff decoder refuses them)")
+    spp, b = len(bits), bits[0]
+    if photo == 3 and len(t.get(320, ())) != 3 << b:
+        raise ValueError(f"TIFF: a colormap of {len(t.get(320, ()))} values for {b}-bit "
+                         "indices (libtiff requires 3 * 2^bits)")
+    planes, per = (spp, 1) if planar else (1, spp)
+    if not tiled:
+        th = min(th, h) or h
+    nx, ny = -(-w // tw), -(-h // th)
+    row_bytes = (tw * per * b + 7) // 8
+    if len(offsets) < planes * nx * ny or len(counts) < planes * nx * ny:
+        raise ValueError(f"TIFF has {min(len(offsets), len(counts))} strips or tiles of "
+                         f"{planes * nx * ny}")
+    predictor = t.get(317, (1,))[0] if comp in _PREDICTED else 1
+    if predictor == 2 and b not in (8, 16, 32):
+        raise ValueError(f"TIFF: predictor 2 with {b}-bit samples (libtiff refuses it)")
+    if predictor == 3 and (fmt != (3,) or b not in (16, 32)):
+        raise ValueError(f"TIFF: predictor 3 with {b}-bit samples of format {fmt} (libtiff "
+                         "refuses it)")
+    if predictor not in (1, 2, 3):
+        raise ValueError(f"TIFF: predictor {predictor} (libtiff refuses it)")
+    img = np.empty((planes, ny * th if tiled else h, nx * row_bytes), np.uint8)
+    k = 0
+    for p in range(planes):
+        for j in range(ny):
+            n = th if tiled else min(th, h - j * th)
+            for i in range(nx):
+                blk = data[offsets[k]:offsets[k] + counts[k]]
+                if fill == 2:
+                    blk = _BITREV[np.frombuffer(blk, np.uint8)].tobytes()
+                img[p, j * th:j * th + n, i * row_bytes:(i + 1) * row_bytes] = np.frombuffer(
+                    _tiff_strip(comp, blk, n * row_bytes), np.uint8).reshape(n, row_bytes)
+                k += 1
+    if b in (16, 32) and bo == ">" and predictor != 3:
+        img = img.view(f">u{b // 8}").astype(f"<u{b // 8}").view(np.uint8)
+    if predictor == 2:      # each sample adds the one ``per`` before it in its block's row
+        v = img.view(f"<u{b // 8}").reshape(planes, -1, nx, tw, per)
+        img = np.cumsum(v, axis=3, dtype=v.dtype).view(np.uint8).reshape(img.shape)
+    elif predictor == 3:    # libtiff's fpAcc: bytes summed, then byte planes interleaved
+        sb = b // 8
+        v = img.reshape(planes, -1, nx, row_bytes // per, per)
+        v = np.cumsum(v, axis=3, dtype=np.uint8).reshape(planes, -1, nx, sb, tw * per)
+        img = np.ascontiguousarray(v[:, :, :, ::-1].swapaxes(3, 4)).reshape(img.shape)
+    if planar:
+        sb = b // 8
+        img = img.reshape(planes, img.shape[1], -1, sb)[:, :, :w].transpose(1, 2, 0, 3)
+        img = np.ascontiguousarray(img).reshape(img.shape[0], -1)
+    if raw == "I;16":
+        raw = "I;16N"
+    elif raw.endswith((";16B", ";16L")):
+        raw = raw[:-1] + "N"
+    return _unpack(mode, raw, img if planar else img[0], w)[:h]
+
+
 def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
-    """The first image of a TIFF that :func:`tiff_not_carried` takes:
-    uncompressed, LZW, deflate or PackBits strips, chunky, predictor 1 or
-    2; samples as Pillow's mode for it holds them."""
+    """The first image of a TIFF that :func:`tiff_not_carried` takes, as
+    Pillow reads it then ``io/images.py`` takes it: uncompressed strips
+    and tiles through Pillow's own reader, LZW, deflate and PackBits ones
+    through libtiff's, chunky or planar, predictor 1, 2 or 3, either fill
+    order, then the Orientation tag applied.  Samples: uint8 gray, gray
+    + alpha, RGB (palettes looked up, CMYK converted by Pillow's
+    ``cmyk2rgb``) or RGBA at depth 8; uint16 gray (Pillow's ``I;16``) and
+    int32 gray (its ``I``: 16- and 32-bit signed, 32-bit unsigned) at
+    depth 16; float samples (``F``) clamped to [0, 255] and truncated to
+    uint8, as Pillow's ``convert("RGBA")`` makes them, at depth 8."""
     bo, t = _tiff_tags(data)
     why = tiff_not_carried(data)
     if why is not None:
         raise ValueError(f"{why[0]} is not carried by the port's codec "
                          f"({_png.NOT_PORTED}{why[1]})")
-    (mode, extra), spp, bits = _tiff_mode(bo, t)
+    key = _tiff_key(bo, t)
+    if key not in _OPEN_INFO:
+        _, photo, fmt, fill, bits, extra = key
+        raise ValueError(f"TIFF of photometric {photo}, sample format {fmt}, fill order "
+                         f"{fill}, {bits} bits and extra samples {extra}: unknown pixel mode "
+                         "(Pillow's OPEN_INFO has no such key)")
+    mode, raw = _OPEN_INFO[key]
     try:
         w, h = t[256][0], t[257][0]
     except KeyError:
         raise ValueError("TIFF: missing dimensions") from None
-    stride = (w * spp * bits + 7) // 8
-    buf = _tiff_rows(data, bo, t, h, stride)
-    photo = t.get(262, (0,))[0]
-    if mode == "1":
-        v = np.unpackbits(buf, axis=1)[:, :w]
-        v = v if photo == 1 else 1 - v
-        return (v * 255).astype(np.uint8)[..., None], 8
-    if mode == "I;16":      # photometric 0 too: Pillow's rawmode I;16 does not invert
-        return buf.view(bo + "u2").reshape(h, w, 1).astype(np.uint16), 16
-    if bits == 16:          # RGB(A) keep each sample's high byte
-        v = (buf.view(bo + "u2").reshape(h, w, spp) >> 8).astype(np.uint8)
+    if t.get(259, (1,))[0] == 1:
+        v = _tiff_raw(data, t, mode, raw, key[4], w, h)
     else:
-        v = buf.reshape(h, w, spp)
-    if mode == "L":
-        return (v if photo == 1 else 255 - v), 8
-    if mode == "LA":
-        return v, 8
-    if mode == "P":
-        cmap = np.asarray(t[320], np.uint16).reshape(3, -1).T
-        return (cmap >> 8).astype(np.uint8)[v[..., 0]], 8
-    if extra in (None, "X"):
-        return v[..., :3], 8
-    if extra == "a":
-        return np.concatenate([_unpremultiply(v[..., :3], v[..., 3]), v[..., 3:4]], -1), 8
-    return v[..., :4], 8
+        if key[3] == 2:
+            mode, raw = _OPEN_INFO[key[:3] + (1,) + key[4:]]
+        v = _tiff_libtiff(data, bo, t, key, mode, raw, w, h)
+    v = _ORIENT.get(t.get(274, (1,))[0], lambda a: a)(v)
+    depth = 8
+    if mode in ("P", "PA"):
+        cmap = np.zeros((256, 3), np.uint8)
+        pal = (np.asarray(t.get(320, ()), np.uint16).reshape(3, -1).T >> 8).astype(np.uint8)
+        cmap[:min(len(pal), 256)] = pal[:256]
+        v = np.concatenate([cmap[v[..., 0]], v[..., 1:]], -1)
+    elif mode == "CMYK":
+        v = _cmyk_rgb(v)
+    elif mode == "F":
+        v = np.where(np.isnan(v), 0, np.clip(v, 0, 255)).astype(np.uint8)
+    elif mode in ("I;16", "I;16B", "I"):
+        depth = 16
+    return np.ascontiguousarray(v), depth
 
 
 def encode_tiff(arr: np.ndarray) -> bytes:

@@ -6,7 +6,7 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
 * ``decode_jpeg(data)`` returns the samples ``Image.open(...)`` decodes
   (islow IDCT, fancy upsampling, libjpeg's YCbCr tables) for
   baseline (``SOF0``), extended-sequential (``SOF1``) and progressive
-  (``SOF2``) Huffman files of 8-bit samples with one or three
+  (``SOF2``) Huffman files of 8-bit samples with one, three or four
   components: any sampling factors with integral ratios, one interleaved
   scan or a scan per component, restart intervals, the standard Huffman
   tables where a sequential scan names table 0 or 1 without defining it
@@ -17,7 +17,9 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
   Ah or Al is an error, a scan out of the progression's order a warning
   only).  Colour space as libjpeg picks it: one component gray; three
   YCbCr, or RGB under an Adobe marker with transform 0 or the component
-  IDs 'R', 'G', 'B' (without a JFIF marker).
+  IDs 'R', 'G', 'B' (without a JFIF marker); four CMYK, or YCCK under an
+  Adobe marker whose transform is not 0, which Pillow reads inverted
+  (``CMYK;I``) and converts to RGB with ``cmyk2rgb``.
 * ``encode_jpeg(rgb)`` returns the bytes of Pillow's ``save(...,
   "JPEG")`` at its defaults: JFIF 1.01, quality 75 (the Annex K tables at
   50 %), Y at 2x2 and Cb, Cr at 1x1, the Annex K Huffman tables, one
@@ -28,7 +30,7 @@ and the integer transforms are ``native/jpeg.cpp``, built at first use
 (``_hostbuild.py``; a failed build raises with the compiler's message).
 ``not_carried(data)`` says what of a file the codec does not decode, and
 ``io/images.py`` sends those to cv2 (ROADMAP queue 1, item 8):
-lossless, arithmetic-coded and 12-bit files, four components (8e), and
+lossless, arithmetic-coded and 12-bit files (8e), and
 progressive files whose scans leave one of a component's first ten
 coefficients short, whose blocks libjpeg smooths (``jdcoefct.c``
 ``smoothing_ok``; 8g).  A truncated or corrupt file raises
@@ -100,7 +102,7 @@ _ERRORS = {-1: "JPEG data ends inside a scan (truncated file)",
            -4: "corrupt JPEG data: a restart marker is missing or out of order",
            -5: "bad JPEG Huffman table (not a prefix code)",
            -6: "out of memory"}
-_GRAY, _YCC, _RGB = 0, 1, 2
+_GRAY, _YCC, _RGB, _CMYK, _YCCK = 0, 1, 2, 3, 4
 _SHORT = "progressive JPEG whose scans leave coefficients short (libjpeg smooths its blocks)"
 
 
@@ -252,9 +254,13 @@ def _table_bytes(table) -> bytes:
 
 
 def _colorspace(frame: Frame, jfif: bool, adobe: int | None) -> int:
-    """jdapimin.c default_decompress_parms for one or three components."""
+    """jdapimin.c default_decompress_parms for one, three or four
+    components (four: CMYK without an Adobe marker or with transform 0,
+    else YCCK)."""
     if len(frame.components) == 1:
         return _GRAY
+    if len(frame.components) == 4:
+        return _CMYK if adobe in (None, 0) else _YCCK
     if jfif:
         return _YCC
     if adobe is not None:
@@ -346,7 +352,7 @@ class _Reader:
         if f.precision != 8:
             raise ValueError(f"{f.precision}-bit JPEG is not carried by the port's codec "
                              "(ROADMAP.md queue 1, item 8e)")
-        if len(f.components) not in (1, 3):
+        if len(f.components) not in (1, 3, 4):
             raise ValueError(f"JPEG of {len(f.components)} components is not carried by the "
                              "port's codec (ROADMAP.md queue 1, item 8e)")
 
@@ -457,8 +463,8 @@ class _Reader:
 
 def not_carried(data: bytes) -> tuple[str, str] | None:
     """None where ``decode_jpeg`` decodes this JPEG (its SOF is SOF0,
-    SOF1 or SOF2, with 8-bit samples and one or three components, no
-    Adobe transform 2 (YCCK) on three, and a progressive file's scans
+    SOF1 or SOF2, with 8-bit samples and one, three or four components,
+    no Adobe transform 2 (YCCK) on three, and a progressive file's scans
     leave none of its first ten coefficients short, where libjpeg would
     smooth the blocks); else what it is and the letter of its part of
     ROADMAP queue 1 item 8.  A file whose headers cannot be parsed counts
@@ -477,7 +483,7 @@ def not_carried(data: bytes) -> tuple[str, str] | None:
         return f"{_NOT_CARRIED[f.marker]} JPEG", "e"
     if f.precision != 8:
         return f"{f.precision}-bit JPEG", "e"
-    if len(f.components) not in (1, 3):
+    if len(f.components) not in (1, 3, 4):
         return f"JPEG of {len(f.components)} components", "e"
     if r.adobe == 2 and len(f.components) == 3:
         return "YCCK JPEG", "e"
@@ -505,10 +511,12 @@ def decode_coefficients(data: bytes) -> tuple[Frame, list[np.ndarray]]:
 
 def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
     """Samples uint8 [H, W, C] of the coefficients (libjpeg's islow IDCT,
-    fancy upsampling and colour conversion; no block smoothing)."""
+    fancy upsampling and colour conversion; no block smoothing): C = 1
+    gray, 3 RGB; four components give the RGB of Pillow's
+    ``convert("RGBA")`` of its CMYK image."""
     comps = frame.components
     n = len(comps)
-    out = np.empty((frame.height, frame.width, n), np.uint8)
+    out = np.empty((frame.height, frame.width, 3 if n == 4 else n), np.uint8)
     args = np.array([[c.h, c.v, c.stride, c.rows] for c in comps], np.int32)
     qt = np.ascontiguousarray(np.stack([c.qtable for c in comps]), np.uint16)
     ptrs = (ctypes.POINTER(ctypes.c_int16) * n)(
@@ -525,7 +533,7 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
 
 def decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
     """Samples uint8 [H, W, C] (C = 1 gray, 3 RGB) and the depth 8, as
-    Pillow decodes the file."""
+    Pillow decodes the file (a CMYK or YCCK file as its RGB conversion)."""
     frame, coefs = decode_coefficients(data)
     if frame.smoothed:
         raise ValueError(f"{_SHORT} is not carried by the port's codec "

@@ -5,7 +5,9 @@
 //
 //   decode  jdhuff.c and jdphuff.c (entropy), jidctint.c jpeg_idct_islow with its
 //           range-limit table, jdsample.c (fancy upsampling: h2v1, h1v2,
-//           h2v2; int_upsample otherwise), jdcolor.c ycc_rgb_convert;
+//           h2v2; int_upsample otherwise), jdcolor.c ycc_rgb_convert and
+//           ycck_cmyk_convert, then Pillow's CMYK;I unpacker and its
+//           Convert.c cmyk2rgb for four components;
 //   encode  jccolor.c rgb_ycc_convert, jcsample.c h2v2_downsample with
 //           jcprepct.c's edge replication, jfdctint.c jpeg_fdct_islow,
 //           jcdctmgr.c quantize (16-bit reciprocals, as in the SIMD
@@ -898,8 +900,13 @@ int jpg_decode_progressive(const uint8_t* data, int64_t len, int64_t pos, int nc
 //   comps: per component, 4 ints: h, v (sampling factors), the row
 //          stride of its coefficient array in blocks, its rows of blocks;
 //   qtables: per component, 64 quantisation values in natural order;
-//   colorspace: 0 gray (one component), 1 YCbCr, 2 RGB;
-//   out: uint8 [height][width][ncomp].
+//   colorspace: 0 gray (one component), 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK
+//               (four components);
+//   out: uint8 [height][width][ncomp], or [height][width][3] for CMYK and
+//        YCCK: libjpeg's CMYK output (YCCK's first three components
+//        through ycc_rgb_convert's tables, then 255 - x; K as stored), each
+//        sample inverted as Pillow's CMYK;I rawmode reads it, then RGB by
+//        Pillow's cmyk2rgb: nk - MULDIV255(x, nk) with nk = 255 - K.
 int jpg_reconstruct(int ncomp, const int32_t* comps, int width, int height,
                     const int16_t* const* coefs, const uint16_t* qtables, int colorspace,
                     uint8_t* out) {
@@ -936,6 +943,23 @@ int jpg_reconstruct(int ncomp, const int32_t* comps, int width, int height,
       out[3 * i] = clamp255(yy + kYcc.cr_r[cr[i]]);
       out[3 * i + 1] = clamp255(yy + static_cast<int>((kYcc.cb_g[cb[i]] + kYcc.cr_g[cr[i]]) >> 16));
       out[3 * i + 2] = clamp255(yy + kYcc.cb_b[cb[i]]);
+    }
+  } else if (colorspace == 3 || colorspace == 4) {
+    const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data(),
+                  *c3 = full[3].data();
+    for (int64_t i = 0; i < npx; i++) {
+      int cmy[3] = {c0[i], c1[i], c2[i]};
+      if (colorspace == 4) {
+        int yy = c0[i];
+        cmy[0] = 255 - clamp255(yy + kYcc.cr_r[c2[i]]);
+        cmy[1] = 255 - clamp255(yy + static_cast<int>((kYcc.cb_g[c1[i]] + kYcc.cr_g[c2[i]]) >> 16));
+        cmy[2] = 255 - clamp255(yy + kYcc.cb_b[c1[i]]);
+      }
+      int nk = c3[i];                   // 255 - (255 - K): Pillow's inverted K
+      for (int k = 0; k < 3; k++) {
+        int t = (255 - cmy[k]) * nk + 128;
+        out[3 * i + k] = static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
+      }
     }
   } else {
     for (int ci = 0; ci < ncomp; ci++) {

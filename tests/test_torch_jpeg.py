@@ -26,7 +26,12 @@ and writes JPEG (``dspfun_tpu/io/images.py``).
   before DC, an end-of-band run across a restart).  A script that leaves
   a coefficient short (libjpeg smooths such files) is refused, and
   Pillow's pixels for it are not the unsmoothed reconstruction.
-* Arithmetic-coded, 12-bit and CMYK files go to cv2 (and are refused
+* CMYK: Pillow's CMYK files, baseline and progressive, at 4:4:4 and
+  4:2:0, with restart intervals, as stored (Adobe transform 0), as YCCK
+  (transform 2) and without an Adobe marker, read as the JAX package
+  reads them, with cv2 importable and blocked; the CMYK fixtures of
+  ``chip_smoke.py`` phase 19 are Pillow's.
+* Arithmetic-coded and 12-bit files go to cv2 (and are refused
   naming ROADMAP queue 1, item 8e, when it does not import); a
   truncated or corrupt file raises ``ValueError``.
 """
@@ -773,12 +778,12 @@ def _not_carried(kind):
 
 @pytest.mark.parametrize("kind", ["progressive", "arithmetic", "12-bit", "CMYK"])
 def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
-    """Arithmetic-coded, 12-bit and CMYK files go to cv2, or are refused
-    naming item 8e without it.  Progressive files, which went to cv2 before
-    the codec carried them, read as the JAX package reads them, with cv2
-    importable and blocked."""
+    """Arithmetic-coded and 12-bit files go to cv2, or are refused naming
+    item 8e without it.  Progressive and CMYK files, which went to cv2
+    before the codec carried them, read as the JAX package reads them,
+    with cv2 importable and blocked."""
     data = _not_carried(kind)
-    if kind == "progressive":
+    if kind in ("progressive", "CMYK"):
         assert jpeg.carries(data)
         _same_read(tmp_path, data)
         monkeypatch.setitem(sys.modules, "cv2", None)
@@ -832,3 +837,72 @@ def test_corrupt_files_raise():
             jpeg.decode_jpeg(d)
     with pytest.raises(ValueError, match="uint8 RGB"):
         jpeg.encode_jpeg(np.zeros((4, 4, 4), np.uint8))
+
+
+# ---- four components: CMYK and YCCK ---------------------------------------------
+
+
+def _cmyk(h, w, seed):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base = 128 + 100 * np.sin(x[..., None] / 5.0 + y[..., None] / 7.0 + np.arange(4))
+    return np.clip(base + rng.normal(0, 15, (h, w, 4)), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("colour", ["CMYK", "YCCK", "no Adobe marker", "Adobe transform 1"])
+def test_cmyk_reads_as_the_jax_package(colour, progressive, restart, tmp_path, monkeypatch):
+    """Pillow's CMYK JPEG (it writes an Adobe marker with transform 0 and
+    the samples inverted) at 4:4:4 and with the first component at 2x2,
+    37x53 and 8x8; the same file with the transform set to 2 (YCCK: the
+    first three components YCbCr, converted and inverted by libjpeg), to
+    1 (an unknown transform on four components: YCCK, as libjpeg assumes)
+    and without the marker (CMYK as stored).  Each reads to the JAX
+    package's pixels, with cv2 importable and blocked."""
+    from tests import torch_codec_fixtures as fx
+
+    for (h, w), sub in (((37, 53), 0), ((37, 53), 2), ((8, 8), 0)):
+        data = _pil(Image.fromarray(_cmyk(h, w, h + sub), "CMYK"), progressive=progressive,
+                    subsampling=sub, **({"restart_marker_blocks": restart} if restart else {}))
+        if colour == "YCCK":
+            data = fx.set_adobe_transform(data, 2)
+        elif colour == "Adobe transform 1":
+            data = fx.set_adobe_transform(data, 1)
+        elif colour == "no Adobe marker":
+            data = fx.without_adobe(data)
+        assert jpeg.carries(data)
+        _same_read(tmp_path, data)
+        with monkeypatch.context() as mp:
+            mp.setitem(sys.modules, "cv2", None)
+            _same_read(tmp_path, data)
+
+
+def test_cmyk_fixtures_are_pillows():
+    """Phase 19(a)'s CMYK JPEGs: remade with Pillow by
+    tests/torch_codec_fixtures.py they equal the committed files, and the
+    sha256 of each file and of Pillow's ``convert("RGB")`` of it are
+    ``chip_smoke.CMYK_FIXTURES``."""
+    from tests import torch_codec_fixtures as fx
+
+    made = fx.cmyk_fixtures()
+    assert sorted(made) == sorted(chip_smoke.CMYK_FIXTURES)
+    for name, data in made.items():
+        assert (fx.GOLDENS / name).read_bytes() == data, name
+        assert fx.cmyk_digests(data) == chip_smoke.CMYK_FIXTURES[name], name
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.CMYK_FIXTURES))
+def test_cmyk_fixtures_decode_as_pillow(name, tmp_path, monkeypatch):
+    """Each committed CMYK fixture, with cv2 blocked: the port's own codec
+    takes it and its samples hash to Pillow's ``convert("RGB")``; but the
+    4K file, ``read_image`` equals the JAX package's."""
+    from tests import torch_codec_fixtures as fx
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    data = (fx.GOLDENS / name).read_bytes()
+    assert timages._decoder(data) is jpeg.decode_jpeg
+    arr, _ = jpeg.decode_jpeg(data)
+    assert hashlib.sha256(arr.tobytes()).hexdigest() == chip_smoke.CMYK_FIXTURES[name][1]
+    if name != "cmyk_prog_4k.jpg":
+        _same_read(tmp_path, data, name)

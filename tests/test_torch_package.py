@@ -7,6 +7,7 @@ card."""
 
 import ast
 import fnmatch
+import io
 import json
 import os
 import subprocess
@@ -586,3 +587,61 @@ def test_filter_plans_without_a_device_need_the_card():
         return
     with pytest.raises((RuntimeError, AssertionError)):
         fused.filter_plans((64, 48), Precision(intermediate="i8"), mask=mask)
+
+
+def test_cmyk_tiff_and_jpeg_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
+    """``spec`` then ``ispec`` on a CMYK TIFF (tiled, planar, deflate) and
+    on a CMYK JPEG (YCCK), and ``motion`` on ``%02d.tif`` and ``%02d.jpg``
+    sequences of them, with jax, Pillow, cv2 and the JAX package
+    unimportable: the outputs (a spectrum, a PNG; a y4m) equal those of
+    the same runs on PNG and PPM copies of the decoded pixels."""
+    from PIL import Image
+
+    from tests import torch_codec_fixtures as fx
+
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:24, 0:40]
+    for k in range(4):
+        base = 128 + 90 * np.sin(x[..., None] / 5.0 + y[..., None] / 7.0 + np.arange(4) + k)
+        cmyk = np.clip(base + rng.normal(0, 10, base.shape), 0, 255).astype(np.uint8)
+        (tmp_path / f"in{k:02d}.tif").write_bytes(
+            fx.make_tiff(cmyk, "CMYK", compression=8, predictor=2, tile=(16, 16), planar=True))
+        buf = io.BytesIO()
+        Image.fromarray(cmyk, "CMYK").save(buf, "JPEG")
+        (tmp_path / f"jn{k:02d}.jpg").write_bytes(fx.set_adobe_transform(buf.getvalue(), 2))
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    code = (
+        "import sys\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "from dspfun_tpu_torch.tools import ispec, motion, spec\n"
+        f"d = {str(tmp_path)!r} + '/'\n"
+        "for src in ('in', 'jn'):\n"
+        "    ext = 'tif' if src == 'in' else 'jpg'\n"
+        "    for k in range(4):\n"
+        "        pix = images.read_image(d + f'{src}{k:02d}.{ext}').pixels\n"
+        "        images.write_image(d + f'{src}{k:02d}.ppm', pix)\n"
+        "    images.write_image(d + src + '.png', images.read_image(d + f'{src}00.{ext}').pixels)\n"
+        "cpu = ['--device', 'cpu']\n"
+        "same = lambda a, b: open(d + a, 'rb').read() == open(d + b, 'rb').read()\n"
+        "rcs, eq = [], []\n"
+        "args = cpu + ['-Q', '-b', '8x8x4', '-p', '0x0x0-4x4x2', '-B', '1.25']\n"
+        "for src, ext in (('in', 'tif'), ('jn', 'jpg')):\n"
+        "    rcs += [spec.main(cpu + ['-t', 'flat', d + f'{src}00.{ext}', d + f's_{src}.png']),\n"
+        "            spec.main(cpu + ['-t', 'flat', d + f'{src}.png', d + f's_{src}_p.png']),\n"
+        "            ispec.main(cpu + ['-t', 'flat', d + f's_{src}.png', d + f'b_{src}.png']),\n"
+        "            ispec.main(cpu + ['-t', 'flat', d + f's_{src}_p.png', d + f'b_{src}_p.png'])]\n"
+        "    for e in (ext, 'ppm'):\n"
+        "        rcs.append(motion.main(args + [d + src + '%02d.' + e, d + f'o_{src}_{e}.y4m']))\n"
+        "    eq += [same(f's_{src}.png', f's_{src}_p.png'), same(f'b_{src}.png', f'b_{src}_p.png'),\n"
+        "           same(f'o_{src}_{ext}.y4m', f'o_{src}_ppm.y4m')]\n"
+        "print(rcs, eq, 'dspfun_tpu_torch.io.imgcodecs' in sys.modules)\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_PRECISION", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0] " \
+        "[True, True, True, True, True, True] True", res.stdout + res.stderr

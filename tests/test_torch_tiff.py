@@ -1,184 +1,43 @@
-"""The port's compressed TIFF (``dspfun_tpu_torch/io/imgcodecs.py`` and
+"""The port's TIFF reader (``dspfun_tpu_torch/io/imgcodecs.py`` and
 ``native/tiff.cpp``) against the JAX package, which reads TIFF through
 Pillow and libtiff (``dspfun_tpu/io/images.py``).
 
-* Reads: files assembled here (LZW, deflate 8 and 32946, PackBits and
-  uncompressed strips; predictor 1 and 2; little- and big-endian; several
-  strips with a short last one, at odd sizes; every mode the codec
-  carries: 1, L, LA, P, RGB, RGBA with unassociated and associated alpha,
-  I;16 and 16-bit RGB(A)) give ``read_image``'s pixels and depth
-  exactly, with cv2 importable and with it blocked.
-* Associated alpha (ExtraSamples 1): every (colour, alpha) pair of 8
-  bits un-premultiplied as Pillow's ``RGBa`` unpacker does it.
-* What the codec does not carry (tiles, planar strips, the
-  floating-point predictor, JPEG-in-TIFF, CCITT, old-style LZW) goes to
-  cv2, or is refused naming ROADMAP queue 1, item 8c, without it; a
-  truncated or corrupt file raises ``ValueError``.
+* Reads: files assembled by ``tests/torch_codec_fixtures.py:make_tiff``
+  (LZW, deflate 8 and 32946, PackBits and uncompressed; strips and tiles,
+  chunky and planar; predictor 1, 2 and 3; both fill orders; little- and
+  big-endian; several strips with a short last one, edge tiles, at odd
+  sizes) give ``read_image``'s pixels and depth exactly, with cv2
+  importable and with it blocked: every key of Pillow's ``OPEN_INFO``
+  the codec carries (the key matrix), each layout (the layout matrix),
+  and Orientation 1-8.  Where Pillow raises, the port raises.
+* Pillow's unpacker of every rawmode the codec meets, against
+  ``Image.frombytes``; associated alpha (ExtraSamples 1) of every
+  (colour, alpha) pair of 8 bits.
+* What the codec does not carry (JPEG-in-TIFF, CCITT, LZMA, YCbCr, LAB,
+  old-style LZW) goes to cv2, or is refused naming ROADMAP queue 1, item
+  8c, without it; a truncated or corrupt strip, tile or plane raises.
 """
 
 import io
 import struct
 import sys
-import zlib
 
 import numpy as np
 import pytest
 from PIL import Image
 
+import chip_smoke
 from dspfun_tpu.io import images as jimages
 from dspfun_tpu_torch.io import imgcodecs
 from dspfun_tpu_torch.io import images as timages
-
-# ---- a TIFF writer with its own LZW and PackBits encoders --------------------
-
-
-def lzw_encode(data: bytes) -> bytes:
-    """TIFF's LZW as libtiff's tif_lzw.c writes it: MSB-first codes, a
-    ClearCode first, the width one code early, a ClearCode when the
-    table reaches 4094, EOI last."""
-    bits, nbits = [], 9
-    table = {bytes([i]): i for i in range(256)}
-    free = 258
-
-    def put(code):
-        bits.append(format(code, f"0{nbits}b"))
-
-    def grow():
-        nonlocal free, nbits, table
-        free += 1
-        if free == 4094:
-            put(256)
-            table = {bytes([i]): i for i in range(256)}
-            free, nbits = 258, 9
-        elif free > (1 << nbits) - 1:
-            nbits += 1
-
-    put(256)
-    w = b""
-    for b in data:
-        wb = w + bytes([b])
-        if wb in table:
-            w = wb
-            continue
-        put(table[w])
-        table[wb] = free
-        grow()
-        w = bytes([b])
-    if w:
-        put(table[w])
-        grow()
-    put(257)
-    s = "".join(bits)
-    s += "0" * (-len(s) % 8)
-    return bytes(int(s[i:i + 8], 2) for i in range(0, len(s), 8))
+from tests import torch_codec_fixtures as fx
+from tests.torch_codec_fixtures import MODES, make_tiff
 
 
-def packbits_encode(data: bytes) -> bytes:
-    """PackBits: repeats of 2 to 128 bytes, literals of up to 128, and a
-    no-op header (-128) in front."""
-    out, i, n = bytearray([0x80]), 0, len(data)
-    while i < n:
-        j = i + 1
-        while j < n and j - i < 128 and data[j] == data[i]:
-            j += 1
-        if j - i >= 2:
-            out += bytes([257 - (j - i), data[i]])
-            i = j
-            continue
-        k = i + 1
-        while k < n and k - i < 128 and not (k + 1 < n and data[k] == data[k + 1]):
-            k += 1
-        out += bytes([k - i - 1]) + data[i:k]
-        i = k
-    return bytes(out)
+_samples = fx.tiff_samples
 
 
-# (photometric, bits, samples per pixel, ExtraSamples) of each mode
-MODES = {
-    "1": (1, 1, 1, ()), "L": (1, 8, 1, ()), "L inverted": (0, 8, 1, ()),
-    "LA": (1, 8, 2, (2,)), "P": (3, 8, 1, ()), "RGB": (2, 8, 3, ()),
-    "RGBA": (2, 8, 4, (2,)), "RGBa": (2, 8, 4, (1,)), "RGBX": (2, 8, 4, (0,)),
-    "RGBaX": (2, 8, 5, (1, 0)), "RGBAXX": (2, 8, 6, (2, 0, 0)),
-    "I;16": (1, 16, 1, ()), "I;16 photometric 0": (0, 16, 1, ()),
-    "RGB;16": (2, 16, 3, ()), "RGBA;16": (2, 16, 4, (2,)), "RGBa;16": (2, 16, 4, (1,)),
-}
-COMPRESS = {1: lambda b: b, 5: lzw_encode, 8: zlib.compress, 32946: zlib.compress,
-            32773: packbits_encode}
-
-
-def _samples(mode, h, w, seed):
-    """Seeded samples of a mode: smooth (so predictor 2 and LZW have
-    something to find) plus noise; premultiplied colour never above its
-    alpha, as a writer of associated alpha stores it."""
-    photo, bits, spp, extra = MODES[mode]
-    rng = np.random.default_rng(seed)
-    top = (1 << bits) - 1
-    y, x = np.mgrid[0:h, 0:w]
-    base = (0.5 + 0.4 * np.sin(x[..., None] / 3.0 + y[..., None] / 5.0 + np.arange(spp)))
-    v = np.clip(base * top + rng.normal(0, top / 20, (h, w, spp)), 0, top).astype(np.int64)
-    if bits == 1:
-        return (v > 0).astype(np.uint8)
-    if extra[:1] == (1,):
-        v[..., :3] = v[..., :3] * v[..., 3:4] // top
-    return v.astype(np.uint16 if bits == 16 else np.uint8)
-
-
-def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=None,
-              cmap=None, extra_tags=()):
-    """A TIFF of samples [h, w, spp] in chunky strips, compressed and
-    predicted as asked, in byte order ``bo`` ('<' II, '>' MM)."""
-    photo, bits, spp, extra = MODES[mode]
-    h, w, _ = samples.shape
-    if bits == 1:
-        rows = [r.tobytes() for r in np.packbits(samples[..., 0], axis=1)]
-    else:
-        v = samples.astype(np.int64)
-        if predictor == 2 and compression in (5, 8, 32946):
-            v = v.copy()
-            v[:, 1:] = (samples[:, 1:].astype(np.int64) - samples[:, :-1]) % (1 << bits)
-        rows = [r.astype(bo + ("u2" if bits == 16 else "u1")).tobytes() for r in v]
-    rps = rows_per_strip or h
-    strips = [COMPRESS[compression](b"".join(rows[i:i + rps])) for i in range(0, h, rps)]
-    offsets, pos = [], 8
-    for s in strips:
-        offsets.append(pos)
-        pos += len(s)
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
-            262: (3, [photo]), 273: (4, offsets), 277: (3, [spp]), 278: (4, [rps]),
-            279: (4, [len(s) for s in strips]), 284: (3, [1])}
-    if predictor != 1:
-        tags[317] = (3, [predictor])
-    if extra:
-        tags[338] = (3, list(extra))
-    if cmap is not None:
-        tags[320] = (3, list(cmap))
-    tags.update(extra_tags)
-    body = b"".join(strips)
-    body += b"\0" * (pos % 2)
-    pos += pos % 2
-    entries, data_at = [], pos
-    out_of_line = bytearray()
-    ifd_at = data_at
-    for tag, (typ, vals) in sorted(tags.items()):
-        raw = struct.pack(bo + {3: "H", 4: "I"}[typ] * len(vals), *vals)
-        entries.append((tag, typ, len(vals), raw))
-        if len(raw) > 4:
-            ifd_at += len(raw) + len(raw) % 2
-    ifd = struct.pack(bo + "H", len(entries))
-    at = data_at
-    for tag, typ, n, raw in entries:
-        if len(raw) > 4:
-            ifd += struct.pack(bo + "HHII", tag, typ, n, at)
-            out_of_line += raw + b"\0" * (len(raw) % 2)
-            at += len(raw) + len(raw) % 2
-        else:
-            ifd += struct.pack(bo + "HHI", tag, typ, n) + raw.ljust(4, b"\0")
-    head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(bo + "I", ifd_at)
-    return head + body + bytes(out_of_line) + ifd + b"\0\0\0\0"
-
-
-def _palette(seed):
-    return np.random.default_rng(seed).integers(0, 65536, 768)
+_palette = fx.palette
 
 
 def _same_read(tmp_path, data, channels=("RGB", "RGBA", "I")):
@@ -189,6 +48,26 @@ def _same_read(tmp_path, data, channels=("RGB", "RGBA", "I")):
                                                                           channels=ch)
         assert t.depth == j.depth
         np.testing.assert_array_equal(t.pixels, j.pixels)
+
+
+def _same_or_both_raise(tmp_path, data, monkeypatch=None, channels=("RGB", "RGBA", "I")):
+    """The port reads ``data`` as the JAX package does, or raises
+    ``ValueError`` or ``OSError`` where it raises; with ``monkeypatch``,
+    with cv2 blocked too.  Returns whether it was read."""
+    path = tmp_path / "in.tif"
+    path.write_bytes(data)
+    try:
+        jimages.read_image(str(path))
+    except (OSError, ValueError, SyntaxError):
+        with pytest.raises((ValueError, OSError)):
+            timages.read_image(str(path))
+        return False
+    _same_read(tmp_path, data, channels)
+    if monkeypatch is not None:
+        with monkeypatch.context() as mp:
+            mp.setitem(sys.modules, "cv2", None)
+            _same_read(tmp_path, data, channels=("RGBA",))
+    return True
 
 
 MATRIX = [(c, p, m) for c in (5, 8, 32946, 32773) for p in (1, 2)
@@ -240,7 +119,9 @@ def test_more_modes_read_as_pillow_reads_them(mode, compression, tmp_path):
                 path.write_bytes(data)
                 with pytest.raises(OSError, match="cannot identify"):
                     jimages.read_image(str(path))
-                assert imgcodecs.tiff_not_carried(data)[1] == "c"
+                assert imgcodecs.tiff_not_carried(data) is None
+                with pytest.raises(ValueError, match="unknown pixel mode"):
+                    timages.read_image(str(path))
                 continue
             _same_read(tmp_path, data)
 
@@ -314,19 +195,32 @@ def test_pillows_own_files_with_predictor_and_strips(tmp_path):
 def _not_carried(kind):
     s = _samples("RGB", 8, 8, 0)
     if kind == "tiled":
-        return make_tiff(s, "RGB", "<", 5, extra_tags={322: (3, [16]), 323: (3, [16])})
+        return make_tiff(s, "RGB", "<", 5, tile=(16, 16))
     if kind == "planar":
-        return make_tiff(s, "RGB", "<", 8, extra_tags={284: (3, [2])})
+        return make_tiff(s, "RGB", "<", 8, planar=True)
     if kind == "predictor 3":
-        return make_tiff(s, "RGB", "<", 8, 3)
-    if kind == "JPEG":
-        return make_tiff(s, "RGB", "<", 1, extra_tags={259: (3, [7])})
+        return make_tiff(_samples("F", 8, 8, 0), "F", "<", 8, 3)
+    if kind in ("YCbCr", "LAB"):
+        return make_tiff(s, kind, "<", 1)
+    comp = {"JPEG": 7, "LZMA": 34925, "CCITT RLE": 2}.get(kind)
+    if comp is not None:
+        return make_tiff(s, "RGB", "<", 1, extra_tags={259: (3, [comp])})
     return make_tiff(s[..., :1] > 127, "1", "<", 1, extra_tags={259: (3, [4])})   # CCITT G4
 
 
-@pytest.mark.parametrize("kind", ["tiled", "planar", "predictor 3", "JPEG", "CCITT"])
+@pytest.mark.parametrize("kind", ["tiled", "planar", "predictor 3", "JPEG", "CCITT", "YCbCr",
+                                  "LAB", "LZMA", "CCITT RLE"])
 def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
+    """JPEG-in-TIFF, CCITT, LZMA, YCbCr and LAB go to cv2, or are refused
+    naming item 8c without it.  Tiles, planar files and the
+    floating-point predictor, which went to cv2 before the codec carried
+    them, read as the JAX package reads them, with cv2 importable and
+    blocked."""
     data = _not_carried(kind)
+    if kind in ("tiled", "planar", "predictor 3"):
+        assert imgcodecs.tiff_not_carried(data) is None
+        assert _same_or_both_raise(tmp_path, data, monkeypatch)
+        return
     assert imgcodecs.tiff_not_carried(data)[1] == "c"
     with pytest.raises(ValueError, match="not carried"):
         imgcodecs.decode_tiff(data)
@@ -387,3 +281,249 @@ def test_truncated_and_corrupt_files_raise(compression, tmp_path):
             timages.read_image(str(path))
         with pytest.raises(OSError):
             jimages.read_image(str(path))
+
+
+# ---- the key matrix: every OPEN_INFO key the codec carries ---------------------
+
+KEYED = [m for m in MODES if m not in ("YCbCr", "LAB")]
+
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+@pytest.mark.parametrize("mode", KEYED)
+def test_every_key_reads_as_pillow_reads_it(mode, compression, tmp_path, monkeypatch):
+    """Each mode of ``MODES`` (one key of Pillow's ``OPEN_INFO`` per byte
+    order: gray of 1 to 32 bits, signed and float samples, palettes of 1
+    to 8 bits, PX and PA, RGB(A) with their extra samples, CMYK of 8 and
+    16 bits) in both byte orders, in strips of 3 rows at 11x13, read as
+    RGB, RGBA and I: the JAX package's pixels and depth (32-bit and float
+    samples past 0 and 65535 kept, as Pillow's ``I`` and clamped ``F``
+    make them), or an error where Pillow has no such key or libtiff
+    refuses the file.  Every little-endian key is read."""
+    bits = MODES[mode][1]
+    read = {}
+    for bo in ("<", ">"):
+        s = _samples(mode, 11, 13, seed=compression)
+        data = make_tiff(s, mode, bo, compression, 1, 3,
+                         cmap=_palette(bits, bits) if mode.startswith("P") else None)
+        read[bo] = _same_or_both_raise(tmp_path, data, monkeypatch)
+    assert read["<"]
+
+
+LAYOUT_MODES = ["1", "L;4", "L inverted", "I;16", "I;32S", "F", "LA", "P;4", "P", "RGB", "RGBa",
+                "RGBX", "RGB;16", "RGBA;16", "CMYK", "CMYKX", "CMYK;16"]
+LAYOUTS = {
+    "tiles": dict(tile=(16, 16)),               # edge tiles to the right and below
+    "tiles 32x16 predictor 2": dict(tile=(32, 16), predictor=2),
+    "planar strips": dict(planar=True, rows_per_strip=5),
+    "planar tiles": dict(planar=True, tile=(16, 16)),
+    "planar tiles predictor 2": dict(planar=True, tile=(16, 32), predictor=2),
+    "fill order 2": dict(fill_order=2, rows_per_strip=4),
+    "fill order 2 tiles": dict(fill_order=2, tile=(16, 16)),
+    "predictor 3": dict(predictor=3, rows_per_strip=6),
+    "predictor 3 planar tiles": dict(predictor=3, planar=True, tile=(16, 16)),
+}
+# the planar modes of LAYOUT_MODES whose compressed planes Pillow reads
+# to other pixels than their chunky file's (LA's alpha lost), which the
+# port refuses
+PLANAR_REFUSED = ("LA",)
+
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_layouts_read_as_pillow_reads_them(layout, compression, tmp_path, monkeypatch):
+    """Tiles with edge tiles in both directions, planar strips and tiles,
+    FillOrder 2 (bits reversed by Pillow's ``;R`` unpackers in
+    uncompressed files, by libtiff before it decompresses the others),
+    predictor 2 on tiles and predictor 3 on float samples, over a set of
+    modes and both byte orders at 19x37: the JAX package's read, or an
+    error where it raises.  Pillow's own reader of uncompressed planar
+    files takes the rawmode's letter of each plane, and the port follows
+    it (16-bit and sub-byte planes included)."""
+    kw = LAYOUTS[layout]
+    modes = ["F"] if "predictor 3" in layout else LAYOUT_MODES
+    for mode in modes:
+        bits = MODES[mode][1]
+        for bo in ("<", ">"):
+            s = _samples(mode, 19, 37, seed=len(layout))
+            data = make_tiff(s, mode, bo, compression,
+                             cmap=_palette(bits, bits) if mode.startswith("P") else None, **kw)
+            if kw.get("planar") and compression != 1 and mode in PLANAR_REFUSED:
+                with pytest.raises(ValueError, match="planar TIFF .* not carried .*item 8c"):
+                    imgcodecs.decode_tiff(data)
+                continue
+            _same_or_both_raise(tmp_path, data, monkeypatch if mode == "RGB" else None)
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_orientation_is_applied_as_pillow_applies_it(orientation, tmp_path):
+    """Orientation (tag 274), which Pillow applies at load
+    (``ImageOps.exif_transpose``): RGB, ``I;16`` and ``P`` files,
+    uncompressed and LZW, both byte orders, read to the JAX package's
+    shape and pixels (5-8 swap width and height)."""
+    for mode in ("RGB", "I;16", "P"):
+        for compression in (1, 5):
+            for bo in ("<", ">"):
+                s = _samples(mode, 7, 11, seed=orientation)
+                data = make_tiff(s, mode, bo, compression, rows_per_strip=3,
+                                 cmap=_palette(1) if mode == "P" else None,
+                                 extra_tags={274: (3, [orientation])})
+                _same_read(tmp_path, data)
+                got, _ = imgcodecs.decode_tiff(data)
+                assert got.shape[:2] == ((11, 7) if orientation >= 5 else (7, 11))
+
+
+def test_orientation_outside_1_to_8_is_ignored(tmp_path):
+    s = _samples("RGB", 5, 6, seed=0)
+    for o in (0, 9, 300):
+        data = make_tiff(s, "RGB", "<", 1, extra_tags={274: (3, [o])})
+        _same_read(tmp_path, data)
+        np.testing.assert_array_equal(imgcodecs.decode_tiff(data)[0], s)
+
+
+RAWMODES = sorted({(m, raw) for *_, m, raw in imgcodecs._OPEN_INFO_ROWS}
+                  | {("I;16", "I;16N"), ("RGB", "RGB;16N"), ("RGBA", "RGBA;16N"),
+                     ("RGB", "RGBX;16N"), ("RGBA", "RGBa;16N"), ("CMYK", "CMYK;16N")}
+                  | {(m, c) for m, cs in imgcodecs._BAND_RAWMODES.items() for c in cs}
+                  | {("LA", "A"), ("RGB", "X"), ("I;16", "I"), ("PA", "P")})
+
+
+@pytest.mark.parametrize("mode,raw", RAWMODES)
+def test_unpackers_are_pillows(mode, raw):
+    """Each rawmode the codec meets (and the one-letter ones of planar
+    files) unpacks seeded bytes, 5 rows of 7 pixels, as
+    ``Image.frombytes(mode, ..., "raw", raw)`` does, or raises where
+    Pillow has no such unpacker."""
+    bits = imgcodecs._rawmode_bits(raw)
+    nbytes = (7 * bits + 7) // 8
+    rows = np.random.default_rng(len(raw)).integers(0, 256, (5, nbytes), dtype=np.uint8)
+    try:
+        want = np.asarray(Image.frombytes(mode, (7, 5), rows.tobytes(), "raw", raw))
+    except ValueError:
+        with pytest.raises(ValueError, match="unknown raw mode"):
+            imgcodecs._unpack(mode, raw, rows, 7)
+        return
+    got = imgcodecs._unpack(mode, raw, rows, 7)
+    if got.ndim == 2:           # one band of a several-band mode
+        got, want = got, want[..., imgcodecs._BAND_RAWMODES[mode].index(raw)]
+    if mode == "1":
+        want = want.astype(np.uint8) * 255
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
+def test_cmyk_conversion_is_pillows():
+    """Every (colour, K) pair of 8 bits through ``_cmyk_rgb`` equals
+    Pillow's ``convert("RGB")`` of a CMYK image."""
+    c, k = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    v = np.stack([c, 255 - c, (c * 7) % 256, k], -1).astype(np.uint8)
+    want = np.asarray(Image.frombytes("CMYK", (256, 256), v.tobytes()).convert("RGB"))
+    np.testing.assert_array_equal(imgcodecs._cmyk_rgb(v), want)
+
+
+CORRUPT = ["tile cut short", "tile with a bad code", "plane cut short", "uncompressed tile past "
+           "the end", "strip offsets missing"]
+
+
+@pytest.mark.parametrize("case", CORRUPT)
+def test_truncated_or_corrupt_tiles_and_planes_raise(case, tmp_path):
+    """A tile's or plane's byte count cut to a third, an LZW tile with a
+    bad code, an uncompressed tile whose rows run past the end of the
+    file, and a planar file short of its third plane's strips: the port
+    raises ``ValueError`` and the JAX package an error (Pillow loads no
+    partial image)."""
+    s = _samples("RGB", 21, 35, 1)
+    if case.startswith("tile"):
+        data = bytearray(make_tiff(s, "RGB", "<", 5, tile=(16, 16)))
+        _, t = imgcodecs._tiff_tags(bytes(data))
+        if case == "tile cut short":
+            data = _set_value(data, 325, 2, t[325][2] // 3)
+        else:
+            o = t[324][1]
+            data[o + 2:o + 6] = b"\xff\xff\xff\xff"
+    elif case == "plane cut short":
+        data = make_tiff(s, "RGB", "<", 8, planar=True, rows_per_strip=8)
+        _, t = imgcodecs._tiff_tags(data)
+        data = _set_value(bytearray(data), 279, 7, t[279][7] // 3)
+    elif case == "strip offsets missing":
+        data = make_tiff(s, "RGB", "<", 8, planar=True, rows_per_strip=8)
+        _, t = imgcodecs._tiff_tags(data)
+        data = _set_count(bytearray(data), 273, 6)
+    else:
+        data = make_tiff(s, "RGB", "<", 1, tile=(16, 16))
+        _, t = imgcodecs._tiff_tags(data)
+        data = _set_value(bytearray(data), 324, 5, len(data) - 50)
+    path = tmp_path / "in.tif"
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError):
+        timages.read_image(str(path))
+    with pytest.raises((OSError, ValueError)):
+        jimages.read_image(str(path))
+
+
+def _entry(data, tag):
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    for k in range(struct.unpack_from("<H", data, ifd)[0]):
+        at = ifd + 2 + 12 * k
+        if struct.unpack_from("<H", data, at)[0] == tag:
+            return at
+    raise KeyError(tag)
+
+
+def _set_value(data, tag, index, value):
+    """A little-endian file with value ``index`` of a LONG tag held out of
+    line set to ``value``."""
+    where = struct.unpack_from("<I", data, _entry(data, tag) + 8)[0]
+    struct.pack_into("<I", data, where + 4 * index, value)
+    return data
+
+
+def _set_count(data, tag, count):
+    struct.pack_into("<I", data, _entry(data, tag) + 4, count)
+    return data
+
+
+# ---- chip_smoke.py phase 19's TIFFs, pinned to Pillow ------------------------
+
+
+@pytest.mark.parametrize("name", sorted(fx.LAYOUT_TIFFS))
+def test_phase_19_tiffs_are_pillows(name, tmp_path, monkeypatch):
+    """The small TIFFs phase 19(a) writes by hand: the JAX package's
+    ``read_image(..., "RGBA")`` pixels hash to
+    ``chip_smoke.LAYOUT_TIFF_DIGESTS``, and the port's read equals it,
+    with cv2 blocked."""
+    data = fx.layout_tiffs()[name]
+    path = tmp_path / "in.tif"
+    path.write_bytes(data)
+    assert fx.rgba_digest(jimages.read_image(str(path), channels="RGBA").pixels) \
+        == chip_smoke.LAYOUT_TIFF_DIGESTS[name]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    assert timages._decoder(data) is imgcodecs.decode_tiff
+    _same_read(tmp_path, data)
+
+
+def test_phase_19_4k_digests_are_pillows():
+    """Phase 19's 3840x2160 TIFFs: Pillow's ``convert("RGB")`` of the
+    CMYK levels and its I-mode samples of the I;32S file hash to
+    ``chip_smoke.TIFF_4K_DIGESTS`` (the card holds the port's decodes to
+    them); the I;32S samples run past 0 and 65535."""
+    import hashlib
+
+    (h, w), seed, noise = chip_smoke.CODEC_4K
+    rgb8 = fx.levels((h, w), seed, noise)
+    cmyk = Image.fromarray(fx.cmyk_levels(rgb8), "CMYK").convert("RGB")
+    assert hashlib.sha256(np.asarray(cmyk).tobytes()).hexdigest() \
+        == chip_smoke.TIFF_4K_DIGESTS["cmyk"]
+    i32 = chip_smoke._i32_levels(rgb8)
+    assert i32.min() < 0 and i32.max() > 65535
+    data = make_tiff(i32, "I;32S", "<", 8, rows_per_strip=64)
+    got = np.ascontiguousarray(np.asarray(Image.open(io.BytesIO(data))), np.int32)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == chip_smoke.TIFF_4K_DIGESTS["i32"]
+
+
+def test_the_key_table_is_pillows():
+    """``_OPEN_INFO`` is Pillow's ``OPEN_INFO`` (mode and rawmode of every
+    key) but for photometric 6 (YCbCr) and 8 (LAB), which stay refused."""
+    from PIL import TiffImagePlugin
+
+    pillow = {({b"II": "<", b"MM": ">"}[k[0]],) + k[1:]: v
+              for k, v in TiffImagePlugin.OPEN_INFO.items() if k[1] not in (6, 8)}
+    assert imgcodecs._OPEN_INFO == pillow
