@@ -337,6 +337,30 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the same launches of kernel #2 (at least one); seconds by stage.  The
    int8 kernels are held to their plain versions at every shape the
    phase gave them;
+20. main path 16, JPEG-in-TIFF, YCbCr, CCITT fax and CIELab TIFF,
+   through the port's own codecs (``io/imgcodecs.py``, ``io/jpeg.py``,
+   ``native/fax.cpp``, ``native/tiff.cpp``).  (a) Small TIFFs written by hand at run time
+   (``tests/torch_codec_fixtures.py:more_tiffs``, no Pillow: a tiled
+   4:2:0 JPEG-in-TIFF of ``encode_jpeg``'s streams, YCbCr LZW at 2x2 and
+   4x2 with a ReferenceBlackWhite, G3 1-D, G3 2-D with EOL fill bits, G4
+   in FillOrder 2, CCITT RLE, CIELab deflate chunky and planar) and
+   Pillow's JPEG-in-TIFF goldens of
+   ``tests/goldens/`` (YCbCr at 1x1 in 8-row strips, RGB, gray, CMYK) read
+   to Pillow's pixels (``MORE_TIFF_DIGESTS``, ``TIFF_JPEG_FIXTURES``);
+   (b) a 3840x2160 tiled (256x256) 4:2:0 JPEG-in-TIFF, a 3840x2160 G4
+   document page and a 3840x2160 YCbCr 2x2 deflate TIFF written and
+   decoded to Pillow's digests (``TIFF_MORE_4K_DIGESTS``; all pinned by
+   tests/test_torch_tiff_more.py), seconds and MB/s of each; (c) ``spec
+   -t flat -G 1000`` of the JPEG-in-TIFF and the G4 page at the default
+   policy and at ``i8@1e-5``, each spectrum equal to the one from the same
+   pixels as a 16-bit PNG, kernels #1-#2 once a tool at ``i8@1e-5`` (none
+   at the default), and ``ispec`` of each at ``i8@1e-5`` back to PNG;
+   (d) motion's lowpass on 8 1080p frames written as ``in%04d.tif``
+   (4:2:0 JPEG-in-TIFF in 16-row strips) to y4m, equal byte for byte to
+   the same run on a PPM sequence of the decoded frames, with the same
+   launches of kernel #2 (at least one); seconds by stage.  The int8
+   kernels are held to their plain versions at every shape the phase gave
+   them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -3994,6 +4018,237 @@ def _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+# phase 20: JPEG-in-TIFF, YCbCr, CCITT fax, CIELab TIFF (io/imgcodecs.py,
+# io/jpeg.py, native/fax.cpp, native/tiff.cpp) ------------------------------------
+# (a): the TIFFs tests/torch_codec_fixtures.py:more_tiffs() writes by hand (no
+# Pillow): the sha256 of the JAX package's read_image(..., "RGBA") float64
+# pixels of each (Pillow's decode); Pillow's JPEG-in-TIFF goldens of
+# tests/goldens/ (torch_codec_fixtures.tiff_jpeg_goldens): the sha256 of each
+# file and of the JAX package's RGBA read of it; (b): Pillow's convert("RGB")
+# of each 4K file of torch_codec_fixtures.tiff_4k.  tests/test_torch_tiff_more.py
+# pins all of them to Pillow.
+MORE_TIFF_DIGESTS = {
+    "JPEG YCbCr 4:2:0 tiled": "1917235ed0e2481fac88efaa36241a14b3c64e1df4a6336e013b9d29e5817fa7",
+    "YCbCr 2x2 LZW ReferenceBlackWhite":
+        "20faae5529ce41dec532f81be35c89da2c7b1ccade705afaaec62a6b2e6419f2",
+    "YCbCr 4x2 LZW ReferenceBlackWhite":
+        "3b67f662e8752358cd927aecc54b9b3d3422dc2fd5a38c05b645f04deb310450",
+    "G3 1-D": "a8e14d7ccc2acb46a9e53cb78ac1a98faf5da61576f3b1d9ac0f2f1919e2ba30",
+    "G3 2-D EOL fill": "df0de68a80935a6ece1fee9d4a646aee2e0abf53172fb938841586877db29aa2",
+    "G4 FillOrder 2": "934804383a8803f02a84492b3f314fca5884dc778de43bad0c5839324d9450e0",
+    "CCITT RLE": "186082e8d7a9ee8fc65a52a363e6e649e6c2781f84f546f38d49f13455ed4960",
+    "LAB deflate": "c527a0ed2d5d04dc1816a3611371d00c5d8a2a02122254b8bf22c25b3b3af0bd",
+    "LAB planar deflate": "59699ce901b5e0a056172fcbf34eb697011a53480ec581ed6b24eb3dd3b54a26",
+}
+TIFF_JPEG_FIXTURES = {
+    "tiffjpeg_ycbcr11.tif": ("7243b51e8f3edd1b1d4391979d17ae6d083ee4d2b74acf165277ca4aa08c6672",
+                             "02bddf1baa8b7eff5e9ac431c45fca867472224f0587004af2252af892f9ed39"),
+    "tiffjpeg_rgb.tif": ("6f237356b83fa0b562e24155730d1177b3c211467b6045d3a37702845a24b7ee",
+                         "5e16122b78e5c743cc93006ef06bb1d1d0302d21018d399c61d271ad601a844d"),
+    "tiffjpeg_gray.tif": ("072d1b1966e463537bb46dc6dfd215afe2b1369b2e045957a0e9a28aa540ef6a",
+                          "a2ab6b7da301b75097ba5bba96f1fcc95dd1d86f8f839373b5aa6134aff1902a"),
+    "tiffjpeg_cmyk.tif": ("6db43aa924299ee2443fc7ec4fb2cccead12ec8d82655253aee5aff81207d007",
+                          "890e987f48fdff1c4459b05412376ff89e31fe2ef446d2093a16367b2fb8ab2b"),
+}
+TIFF_MORE_4K_DIGESTS = {
+    "jpeg": "267aca3c538ce990fba07f616359e10a0a28bdc78ad7cfb27e4adc80ecd4c291",
+    "g4": "ccccb0eb8412a85af82089972b37aac81b5d8d90e38e462f79132ed224597bbe",
+    "ycbcr": "3078292f10383b8d703387f140f45f553700cdd10a43639dc0f142e14d2a2bbc",
+}
+TIFF_MORE_FRAMES = 8              # (d): motion's lowpass on 8 1080p JPEG-in-TIFF frames
+TIFF_MORE_ROWS = 16               # their strips: one MCU row of 4:2:0
+
+
+def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
+                     motion_hw=(MH, MW), frames=TIFF_MORE_FRAMES, device_args=()) -> dict:
+    """Main path 16: JPEG-in-TIFF, YCbCr, CCITT fax and CIELab TIFF
+    through the port's own codecs.  (a) Small TIFFs written by hand (tiled
+    4:2:0 JPEG-in-TIFF, YCbCr LZW at 2x2 and 4x2 with a
+    ReferenceBlackWhite, G3 1-D, G3 2-D with EOL fill bits, G4 in
+    FillOrder 2, CCITT RLE, CIELab deflate chunky and planar) and
+    Pillow's JPEG-in-TIFF goldens (YCbCr at 1x1 in 8-row strips, RGB,
+    gray, CMYK), each read to Pillow's digest; (b) a 3840x2160 tiled
+    4:2:0 JPEG-in-TIFF, a G4 page and a YCbCr 2x2 deflate TIFF written
+    and decoded, each to Pillow's digest, with seconds and MB/s; (c)
+    spec of the JPEG-in-TIFF and the G4 page at the default policy and at
+    ``i8@1e-5``, each against the same pixels given as a 16-bit PNG, and
+    ispec at ``i8@1e-5`` back to PNG; (d) motion's lowpass on a 1080p
+    JPEG-in-TIFF sequence (4:2:0 in strips of 16 rows) to y4m against a
+    PPM sequence of its decoded frames.  Returns the kernels' launches
+    over the JPEG-in-TIFF and fax runs."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs, jpeg
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    jpeg._load()
+    imgcodecs._tiff_lib()
+    imgcodecs._fax_lib()
+    print(f"phase 20 libjpeg, libtiff and libfax build and load: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiff_more_") as tmp:
+        # ---- (a) small TIFFs and Pillow's JPEG-in-TIFF goldens to Pillow's digests ----
+        t0 = time.perf_counter()
+        small = fx.more_tiffs()
+        print(f"phase 20a {len(small)} small TIFFs written by hand in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        path = os.path.join(tmp, "small.tif")
+        cases = [(name, data, None, MORE_TIFF_DIGESTS[name]) for name, data in small.items()]
+        for name, (file_sha, want) in TIFF_JPEG_FIXTURES.items():
+            with open(os.path.join(gold, name), "rb") as f:
+                cases.append((name, f.read(), file_sha, want))
+        for name, data, file_sha, want in cases:
+            if images._decoder(data) is not imgcodecs.decode_tiff:
+                raise RuntimeError(f"phase 20a: {name} does not take the port's codec")
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            ok = fx.rgba_digest(img.pixels) == want and file_sha in (None, sha(data))
+            print(f"phase 20a TIFF {name} {img.width}x{img.height}: {len(data)} bytes, depth "
+                  f"{img.depth}; read {dec_s:.4f} s; file and pixels == Pillow's digests: {ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 20a: TIFF {name} is not Pillow's: "
+                                   f"{sha(data)} {fx.rgba_digest(img.pixels)}")
+
+        # ---- (b) the 4K files: write, decode, Pillow's digests --------------------
+        (bh, bw), seed, noise = big
+        sources = {}
+        for kind, what in (("jpeg", "tiled 4:2:0 JPEG-in-TIFF"), ("g4", "G4 page"),
+                           ("ycbcr", "YCbCr 2x2 deflate")):
+            t0 = time.perf_counter()
+            data = fx.tiff_4k(kind, (bh, bw), seed, noise)
+            enc_s = time.perf_counter() - t0
+            sources[kind] = os.path.join(tmp, f"{kind}_4k.tif")
+            with open(sources[kind], "wb") as f:
+                f.write(data)
+            if images._decoder(data) is not imgcodecs.decode_tiff:
+                raise RuntimeError(f"phase 20b: the 4K {what} does not take the port's codec")
+            t0 = time.perf_counter()
+            arr, depth = imgcodecs.decode_tiff(data)
+            dec_s = time.perf_counter() - t0
+            rgb = np.repeat(arr, 3, axis=2) if arr.shape[2] == 1 else arr    # gray as RGB
+            got = sha(np.ascontiguousarray(rgb).tobytes())
+            if (bh, bw) == (H, W):
+                ok = got == TIFF_MORE_4K_DIGESTS[kind]
+            else:       # a rehearsal at another size: no digest to hold it to
+                ok = arr.shape[:2] == (bh, bw)
+            print(f"phase 20b {what} {bw}x{bh}: {len(data)} bytes, written in {enc_s:.3f} s; "
+                  f"decode {dec_s:.4f} s ({bh * bw * 3 / 1e6 / dec_s:.1f} MB/s of RGB, "
+                  f"{len(data) / 1e6 / dec_s:.1f} MB/s of file), depth {depth}; pixels == "
+                  f"Pillow's digest: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 20b: the 4K {what} decodes to other pixels ({got})")
+
+        # ---- (c) spec and ispec of the JPEG-in-TIFF and the G4 page ---------------
+        read_image = images.read_image
+        for ext in ("jpeg", "g4"):
+            src = sources[ext]
+            pix = read_image(src).pixels
+            sh, sw = pix.shape[:2]
+            spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+            ref = os.path.join(tmp, f"ref_{ext}.png")
+            images.write_image(ref, pix, depth=16)
+            for policy in (None, "i8@1e-5"):
+                tag = policy or "default"
+                out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
+                with _policy(policy):
+                    for name, inp in (("ref", ref), ("src", src)):
+                        fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                            torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                            int8mm)
+                        (wall, stages, got), _ = count.run(fn, into=name == "src")
+                        what = f"spec {ext} {name}"
+                        print(f"phase 20c {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
+                              f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                        want = spec_i8 if policy else {}
+                        if got != want:
+                            raise RuntimeError(f"phase 20c {what} at {tag} launched {got}, "
+                                               f"expected {want}")
+                ok = same(out["ref"], out["src"])
+                print(f"phase 20c {ext} at {tag}: spectrum == the 16-bit PNG route's: {ok}",
+                      flush=True)
+                if not ok:
+                    raise RuntimeError(f"phase 20c at {tag}: the {ext} route differs")
+            back = os.path.join(tmp, f"back_{ext}.png")
+            with _policy("i8@1e-5"):
+                fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
+                                       + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
+                (wall, stages, got), _ = count.run(fn)
+            res = read_image(back).pixels
+            ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
+            print(f"phase 20c ispec of {ext} to PNG at i8@1e-5: {wall:.3f} s; stages "
+                  f"{_stages(stages)}; launches {json.dumps(got)}; max abs diff to the input "
+                  f"{float(np.abs(res - pix).max()):.4f}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 20c ispec of {ext} launched {got} or wrote {res.shape}")
+
+        # ---- (d) motion's lowpass on a JPEG-in-TIFF sequence against PPM ----------
+        mh, mw = motion_hw
+        strip = _rgb8(_seeded_pixels((mh, mw + 4 * frames), 26))
+        enc_s = dec_s = 0.0
+        for k in range(frames):
+            rgb = np.ascontiguousarray(strip[:, 4 * k:4 * k + mw])
+            t0 = time.perf_counter()
+            data = fx.make_tiff(rgb, "YCbCr", compression=7, rows_per_strip=TIFF_MORE_ROWS)
+            enc_s += time.perf_counter() - t0
+            with open(os.path.join(tmp, f"in{k:04d}.tif"), "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            dec = imgcodecs.decode_tiff(data)[0]
+            dec_s += time.perf_counter() - t0
+            rms = float(np.sqrt(np.mean((dec.astype(np.float64) - rgb) ** 2)))
+            if dec.shape != rgb.shape or rms > 24:     # quality 75 of noisy levels: about 14
+                raise RuntimeError(f"phase 20d: TIFF frame {k} decodes to {dec.shape}, rms "
+                                   f"{rms:.2f} levels from its samples")
+            with open(os.path.join(tmp, f"in{k:04d}.ppm"), "wb") as f:
+                f.write(imgcodecs.encode_pnm(dec))
+        print(f"phase 20d {frames} frames {mw}x{mh}: 4:2:0 JPEG-in-TIFF in strips of "
+              f"{TIFF_MORE_ROWS} rows, write {enc_s:.3f} s, decode {dec_s:.3f} s "
+              f"({frames * mh * mw * 3 / 1e6 / dec_s:.1f} MB/s of RGB)", flush=True)
+        runs = {}
+        for src in ("ppm", "tif"):
+            target = os.path.join(tmp, f"o_{src}.y4m")
+            t0 = time.perf_counter()
+
+            def run(src=src, target=target):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"in%04d.{src}"), target])
+                if rc != 0:
+                    raise RuntimeError(f"phase 20d motion {src} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
+
+            stages, got = count.run(run, into=src == "tif")
+            runs[src] = got
+            print(f"phase 20d motion {src} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches {json.dumps(got)}",
+                  flush=True)
+        ok = same(os.path.join(tmp, "o_tif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 20d JPEG-in-TIFF sequence == PPM sequence to y4m: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 20d: the TIFF sequence's y4m differs from the PPM's")
+        if runs["tif"] != runs["ppm"] or not runs["tif"].get("right3"):
+            raise RuntimeError(f"phase 20d: launches {runs['tif']} (PPM route {runs['ppm']}); "
+                               "kernel #2 never launched")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"tiff_jpeg {layout}{nd} {m}x{k}")
+        if count.total.get("block_filter"):
+            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 20 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -4300,6 +4555,14 @@ def main() -> int:
     if not (cmyk_path.get("left3") and cmyk_path.get("right3")):
         raise RuntimeError(f"a kernel of the TIFF and CMYK path never launched: {cmyk_path}")
 
+    # ---- phase 20: main path 16, JPEG-in-TIFF, YCbCr and fax TIFF ----------
+    torch.cuda.empty_cache()
+    more_path = _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                                 scipy.fft)["launches"]
+    if not (more_path.get("left3") and more_path.get("right3")):
+        raise RuntimeError(f"a kernel of the JPEG-in-TIFF and fax path never launched: "
+                           f"{more_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -4308,7 +4571,8 @@ def main() -> int:
                              + basis_cli["launches"].get(n, 0) + eval_cli.get(n, 0)
                              + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)
                              + jpeg_path.get(n, 0) + codec_path.get(n, 0)
-                             + gif_path.get(n, 0) + cmyk_path.get(n, 0)),
+                             + gif_path.get(n, 0) + cmyk_path.get(n, 0)
+                             + more_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -4322,7 +4586,8 @@ def main() -> int:
                                      "jpeg": jpeg_path.get(n, 0),
                                      "codecs": codec_path.get(n, 0),
                                      "gif": gif_path.get(n, 0),
-                                     "tiff_cmyk": cmyk_path.get(n, 0)},
+                                     "tiff_cmyk": cmyk_path.get(n, 0),
+                                     "tiff_jpeg": more_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -4353,7 +4618,8 @@ def main() -> int:
                                  + jpeg_path.get("block_filter", 0)
                                  + codec_path.get("block_filter", 0)
                                  + gif_path.get("block_filter", 0)
-                                 + cmyk_path.get("block_filter", 0)),
+                                 + cmyk_path.get("block_filter", 0)
+                                 + more_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -4361,7 +4627,8 @@ def main() -> int:
                                          "jpeg": jpeg_path.get("block_filter", 0),
                                          "codecs": codec_path.get("block_filter", 0),
                                          "gif": gif_path.get("block_filter", 0),
-                                         "tiff_cmyk": cmyk_path.get("block_filter", 0)},
+                                         "tiff_cmyk": cmyk_path.get("block_filter", 0),
+                                         "tiff_jpeg": more_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -5,7 +5,10 @@
   in-kernel digit split (``benchmarks/calib_r3e.py``);
 * :mod:`dspfun_tpu_torch.benchmarks.calib_r3f`: the in-kernel split at the
   4K chain's widest contraction, swept over the kernel's tiles
-  (``benchmarks/calib_r3f.py``).
+  (``benchmarks/calib_r3f.py``);
+* :mod:`dspfun_tpu_torch.benchmarks.jpeg_decode`: host decode times of
+  the port's JPEG codec on ``chip_smoke.py``'s 4K JPEG files (no
+  counterpart in the JAX package; it runs on the host's CPU).
 
 Each runs as ``python -m dspfun_tpu_torch.benchmarks.<name>``; nothing
 runs at import.

@@ -18,18 +18,22 @@ Covers what the reference tools use from MagickWand
 
 The JAX package reads and writes through Pillow; the port has its own
 codecs: PNG (``io/png.py``), PNM, BMP and TIFF (``io/imgcodecs.py``:
-uncompressed, LZW, deflate and PackBits strips or tiles, chunky or
-planar, predictor 1, 2 or 3, either fill order, every key of Pillow's
-``OPEN_INFO`` but YCbCr and LAB (1- to 32-bit gray, signed and float
-samples, palettes, RGB(A), CMYK), the Orientation tag applied), JPEG
+uncompressed, LZW, deflate, PackBits, JPEG (``io/jpeg.py`` with the
+JPEGTables) and CCITT RLE, Group 3 and Group 4 (``native/fax.cpp``)
+strips or tiles, chunky or planar, predictor 1, 2 or 3, either fill
+order, every key of Pillow's ``OPEN_INFO`` (1- to 32-bit gray, signed
+and float samples, palettes, RGB(A), CMYK, YCbCr through libtiff's RGBA
+reader or libjpeg, CIELab through Pillow's LittleCMS transform), the
+Orientation tag applied), JPEG
 (``io/jpeg.py``: baseline, extended-sequential and progressive Huffman;
 gray, RGB, CMYK and YCCK) and GIF (``io/gif.py``: the first frame read,
 Pillow's median-cut or octree palette written, through ``io/quant.py``),
 each reading what Pillow decodes and writing what it writes.  They take
 every file they carry, whether cv2 imports or not.  The rest
 (arithmetic-coded, 12-bit and lossless JPEG, progressive JPEG whose scans
-leave coefficients short, JPEG-in-TIFF, CCITT, LZMA, Zstandard and WebP
-compressed or YCbCr and LAB TIFF, WebP) goes through ``cv2`` where it
+leave coefficients short, old-style JPEG, LZMA, Zstandard, WebP,
+ThunderScan and SGILog compressed TIFF, WebP) goes through
+``cv2`` where it
 imports, but the kinds cv2 reads otherwise than Pillow, which are
 refused with cv2 too (``_cv2_decode``); where cv2 does not import, it is
 refused with a ``ValueError`` naming ROADMAP queue 1, item 8 and its

@@ -26,29 +26,42 @@ all of it to Pillow.
   RGBA as 32-bit ``BGRA``, both at 96 dpi.
 * **TIFF** (``TiffImagePlugin`` and libtiff): the first image, keyed as
   Pillow's ``_setup`` keys it into its ``OPEN_INFO`` table (kept here as
-  data, ``_OPEN_INFO_ROWS``, with every key but photometric 6 (YCbCr)
-  and 8 (LAB)) and unpacked by that key's rawmode as Pillow's unpackers
-  do it: 1-, 2-, 4- and 8-bit gray, 12- and 16-bit gray (``I;16``),
-  16- and 32-bit signed and 32-bit unsigned gray (``I``), 32-bit float
+  data, ``_OPEN_INFO_ROWS``) and unpacked by that key's rawmode as
+  Pillow's unpackers do it: 1-, 2-, 4- and 8-bit gray, 12- and 16-bit
+  gray (``I;16``), 16- and 32-bit signed and 32-bit unsigned gray (``I``), 32-bit float
   (``F``), gray + alpha, palettes of 1 to 8 bits with or without alpha,
   RGB(A) of 8 and 16 bits with their extra samples (16-bit colour keeps
   each sample's high byte; associated alpha, ExtraSamples 1,
   un-premultiplied as Pillow's ``RGBa`` unpacker does it), CMYK of 8 and
   16 bits (converted by Pillow's ``cmyk2rgb``), each in either fill
-  order.  Uncompressed files are read as Pillow's own reader reads them
-  (its strips and tiles, the one-letter rawmode of each plane of a
-  planar file); LZW (``native/tiff.cpp``), deflate (8 and 32946, the
-  standard library's zlib) and PackBits ones as libtiff hands them to
-  Pillow: bits reversed before decompression under FillOrder 2, samples
-  in native byte order, predictor 2 or 3 (libtiff's ``fpAcc``) undone in
-  each row of a strip or tile, planes interleaved.  Orientation 2-8
-  applied last, as ``ImageOps.exif_transpose`` does at Pillow's load.
-  Written: one strip, little endian, no compression.
-  :func:`tiff_not_carried` names what the decoder does not take (other
-  compressions, YCbCr and LAB; ROADMAP queue 1, item 8c), which
-  ``io/images.py`` hands to cv2; where Pillow raises (a key its table
-  lacks, a predictor or colormap libtiff refuses, a truncated or
-  corrupt strip or tile), :func:`decode_tiff` raises.
+  order, and YCbCr: chunky JPEG-compressed YCbCr converted to RGB by
+  libjpeg (``io/jpeg.py``), any other compressed YCbCr by libtiff's RGBA
+  reader (its subsampled blocks, chroma repeated over each block, its
+  float32 and fixed-point tables of YCbCrCoefficients and
+  ReferenceBlackWhite), uncompressed YCbCr as Pillow's own reader takes
+  it (rawmode ``RGBX``).  Uncompressed files are read as Pillow's own
+  reader reads them (its strips and tiles, the one-letter rawmode of
+  each plane of a planar file); LZW (``native/tiff.cpp``), deflate (8
+  and 32946, the standard library's zlib), PackBits, JPEG (each strip or
+  tile an abbreviated stream decoded with the JPEGTables tag, leniently
+  as libjpeg under libtiff decodes a damaged one) and CCITT RLE, Group 3
+  (1-D and 2-D) and Group 4 (``native/fax.cpp``, libtiff's fax decoder
+  with its recovery from bad codes) ones as libtiff hands them to Pillow:
+  bits reversed before decompression under FillOrder 2 (but for JPEG and
+  CCITT, whose decoders read the fill order), samples in native byte
+  order, predictor 2 or 3 (libtiff's ``fpAcc``) undone in each row of a
+  strip or tile, planes interleaved.  Orientation 2-8 applied last, as
+  ``ImageOps.exif_transpose`` does at Pillow's load.  Written: one strip,
+  little endian, no compression.  :func:`tiff_not_carried` names what the
+  decoder does not take (old-style JPEG, LZMA, Zstandard, WebP and the
+  other compressions, 12-bit JPEG-in-TIFF; ROADMAP queue 1, item 8c),
+  which ``io/images.py`` hands to cv2; where Pillow raises (a key
+  its table lacks, a predictor or colormap libtiff refuses, a truncated
+  or corrupt strip or tile), :func:`decode_tiff` raises, and where
+  Pillow reads a damaged strip to what the port cannot reproduce (a T.6
+  strip's rows libtiff leaves unwritten, a damaged JPEG block outside the
+  range where libjpeg-turbo's SIMD and C arithmetic agree), it raises
+  too.
 
 Everything else raises ``ValueError``.
 """
@@ -63,6 +76,7 @@ import zlib
 import numpy as np
 
 from dspfun_tpu_torch import _hostbuild
+from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
 
 __all__ = ["decode_bmp", "decode_pnm", "decode_tiff", "encode_bmp", "encode_pnm",
@@ -236,19 +250,19 @@ def encode_bmp(arr: np.ndarray) -> bytes:
 # TIFF
 # ---------------------------------------------------------------------------
 
-_TIFF_TYPES = {1: "B", 2: "c", 3: "H", 4: "I", 5: "II", 6: "b", 8: "h", 9: "i", 16: "Q"}
+_TIFF_TYPES = {1: "B", 2: "c", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
+               10: "ii", 11: "f", 12: "d", 16: "Q"}
 # the compressions decode_tiff undoes, and the names of some it does not
-_TIFF_CARRIED = {1: "uncompressed", 5: "LZW", 8: "deflate", 32946: "deflate",
-                 32773: "PackBits"}
-_TIFF_OTHERS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-                7: "JPEG", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
+_TIFF_CARRIED = {1: "uncompressed", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
+                 5: "LZW", 7: "JPEG", 8: "deflate", 32946: "deflate", 32773: "PackBits"}
+_TIFF_OTHERS = {6: "old-style JPEG", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
                 34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
-_TIFF_PHOTOS = {6: "YCbCr", 8: "LAB"}      # the photometrics decode_tiff does not take
 _PREDICTED = (5, 8, 32946)      # the codecs libtiff runs the predictor with
+_FAX = (2, 3, 4)                # CCITT RLE, Group 3, Group 4 (native/fax.cpp)
+_OWN_BIT_ORDER = (2, 3, 4, 7)   # the codecs that read FillOrder themselves (or ignore it)
 
-# Pillow's OPEN_INFO (TiffImagePlugin.py) without photometric 6 (YCbCr)
-# and 8 (LAB): (byte orders, photometric, SampleFormat, FillOrder,
-# BitsPerSample, ExtraSamples, mode, rawmode)
+# Pillow's OPEN_INFO (TiffImagePlugin.py): (byte orders, photometric,
+# SampleFormat, FillOrder, BitsPerSample, ExtraSamples, mode, rawmode)
 _OPEN_INFO_ROWS = (
     ("<>", 0, (1,), 1, (1,), (), "1", "1;I"), ("<>", 0, (1,), 2, (1,), (), "1", "1;IR"),
     ("<>", 1, (1,), 1, (1,), (), "1", "1"), ("<>", 1, (1,), 2, (1,), (), "1", "1;R"),
@@ -299,6 +313,8 @@ _OPEN_INFO_ROWS = (
     ("<>", 5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX"),
     ("<", 5, (1,), 1, (16,) * 4, (), "CMYK", "CMYK;16L"),
     (">", 5, (1,), 1, (16,) * 4, (), "CMYK", "CMYK;16B"),
+    ("<>", 6, (1,), 1, (8,), (), "L", "L"), ("<>", 6, (1,), 1, (8,) * 3, (), "RGB", "RGBX"),
+    ("<>", 8, (1,), 1, (8,) * 3, (), "LAB", "LAB"),
 )
 _OPEN_INFO = {(bo, *key): mode for bos, *key, m, raw in _OPEN_INFO_ROWS for bo in bos
               for mode in [(m, raw)]}
@@ -309,9 +325,9 @@ _NO_UNPACKER = ("L;IR", "P;1R", "P;2R", "P;4R")
 # the bands of each mode's pixels, and which of its letters a one-band
 # rawmode may name (the planes of an uncompressed planar file)
 _MODE_BANDS = {"1": 1, "L": 1, "P": 1, "I;16": 1, "I;16B": 1, "I": 1, "F": 1, "LA": 2,
-               "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}
+               "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "LAB": 3}
 _BAND_RAWMODES = {"1": "1", "L": "L", "P": "LP", "I": "I", "F": "F", "RGB": "RGB",
-                  "RGBA": "RGBA", "CMYK": "CMYK"}
+                  "RGBA": "RGBA", "CMYK": "CMYK", "LAB": "LAB"}
 _BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 # Orientation (tag 274) 2-8 as ImageOps.exif_transpose applies it to [H, W, C]
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
@@ -373,9 +389,8 @@ def tiff_not_carried(data: bytes) -> tuple[str, str] | None:
     comp = t.get(259, (1,))[0]
     if comp not in _TIFF_CARRIED:
         return f"{_TIFF_OTHERS.get(comp, f'compression {comp}')} TIFF", "c"
-    photo = t.get(262, (0,))[0]
-    if photo in _TIFF_PHOTOS:
-        return f"{_TIFF_PHOTOS[photo]} TIFF", "c"
+    if comp == 7 and any(b != 8 for b in t.get(258, (1,))):
+        return f"{max(t.get(258, (1,)))}-bit JPEG-in-TIFF", "c"
     return None
 
 
@@ -407,7 +422,51 @@ def _tiff_lib() -> ctypes.CDLL:
     for fn in (lib.tif_lzw_decode, lib.tif_packbits_decode):
         fn.restype = ctypes.c_int64
         fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+    lib.tif_lab_rgb.restype = None
+    lib.tif_lab_rgb.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fax_lib() -> ctypes.CDLL:
+    """The loaded ``native/fax.cpp`` with its signature declared."""
+    lib = _hostbuild.load_library("fax")
+    lib.fax_decode.restype = ctypes.c_int
+    lib.fax_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                               ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def _fax_inflater(t: dict, comp: int, fill: int, tw: int):
+    """The decoder of one strip or tile of CCITT data (``native/fax.cpp``,
+    libtiff's tif_fax3.c): compression 2 Modified Huffman, 3 T.4 (2-D
+    rows where T4Options bit 0 is set), 4 T.6; FillOrder read by the
+    decoder.  A T.4 strip read without EOLs leaves the strips after it
+    read so too, as libtiff's mode does.  A strip libtiff's decoder fails
+    on raises, and so does a T.6 strip that ends (EOFB or the data's end)
+    before its last row but one, whose later rows libtiff leaves as its
+    buffer held them (uninitialised memory in Pillow)."""
+    scheme = {2: 2, 4: 4}.get(comp, 32 if t.get(292, (0,))[0] & 1 else 3)
+    rb = (tw + 7) // 8
+    no_eol = ctypes.c_int(0)        # libtiff's FAXMODE_NOEOL, kept from strip to strip
+    lib = _fax_lib()
+
+    def inflate(blk, n, last):
+        buf = ctypes.create_string_buffer(n * rb)
+        done = ctypes.c_int64(0)
+        rc = lib.fax_decode(blk, len(blk), scheme, int(fill == 2), tw, n, buf, ctypes.byref(done),
+                            ctypes.byref(no_eol))
+        if rc < 0:
+            raise ValueError(f"{_TIFF_CARRIED[comp]} TIFF strip: libtiff's decoder fails at row "
+                             f"{done.value} of {n} (truncated or corrupt file)")
+        if done.value + 1 < n:
+            raise ValueError(f"{_TIFF_CARRIED[comp]} TIFF strip ends in row {done.value + 1} of "
+                             f"{n}: libtiff leaves the rows after it as its buffer held them "
+                             "(uninitialised memory in Pillow), which the port does not read")
+        return buf.raw
+    return inflate
 
 
 def _tiff_strip(comp: int, raw: bytes, size: int) -> bytes:
@@ -497,7 +556,9 @@ def _unpack(mode: str, raw: str, rows: np.ndarray, n: int) -> np.ndarray:
     v = rows[:, :n * len(letters) * size].reshape(r, n, len(letters), size)
     v = v[..., 0 if suffix.endswith("B") else size - 1]       # a 16-bit sample's high byte
     if len(letters) == 1:
-        return v[..., 0]
+        # LAB's a and b bands hold a plane's bytes as they are, which
+        # Pillow's array of its LAB image shows offset by 128
+        return v[..., 0] ^ np.uint8(128 if mode == "LAB" and letters in ("A", "B") else 0)
     if letters.startswith("RGBa"):
         return np.concatenate([_unpremultiply(v[..., :3], v[..., 3]), v[..., 3:4]], -1)
     return v[..., :_MODE_BANDS[mode]]
@@ -511,6 +572,114 @@ def _cmyk_rgb(v: np.ndarray) -> np.ndarray:
     nk = (255 - v[..., 3:4]).astype(np.uint16)
     t = x * nk + 128
     return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
+# ---- CIELab: Pillow's convert("RGBA") of its LAB mode, through LittleCMS ----
+#
+# Pillow converts LAB with an lcms transform from createProfile("LAB")
+# (cmsCreateLab2Profile: D50) to createProfile("sRGB") (cmsCreate_sRGBProfile)
+# at the perceptual intent.  lcms drops the identity and V2 <-> V4 stages,
+# is left with Lab -> XYZ, the inverse of sRGB's Bradford-adapted colorant
+# matrix and the inverse sRGB curves (each stage's output float32, its
+# arithmetic double), and samples that pipeline into a 33-point 16-bit
+# table, which native/tiff.cpp:tif_lab_rgb interpolates.  The table is
+# computed here in numpy and Python floats, in lcms's order of operations
+# (cmspcs.c, cmsmtrx.c, cmswtpnt.c, cmsvirt.c, cmsgamma.c, cmslut.c), so no
+# host's compiler contracts it into fused multiply-adds.
+
+_D50 = (0.9642, 1.0, 0.8249)
+_BRADFORD = ((0.8951, 0.2664, -0.1614), (-0.7502, 1.7135, 0.0367), (0.0389, -0.0685, 1.0296))
+_MAX_ENCODEABLE_XYZ = 1.0 + 32767.0 / 32768.0
+
+
+def _mat3_inverse(a) -> list:
+    """cmsmtrx.c _cmsMAT3inverse, by cofactors."""
+    c0 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
+    c1 = -a[1][0] * a[2][2] + a[1][2] * a[2][0]
+    c2 = a[1][0] * a[2][1] - a[1][1] * a[2][0]
+    det = a[0][0] * c0 + a[0][1] * c1 + a[0][2] * c2
+    return [[c0 / det, (a[0][2] * a[2][1] - a[0][1] * a[2][2]) / det,
+             (a[0][1] * a[1][2] - a[0][2] * a[1][1]) / det],
+            [c1 / det, (a[0][0] * a[2][2] - a[0][2] * a[2][0]) / det,
+             (a[0][2] * a[1][0] - a[0][0] * a[1][2]) / det],
+            [c2 / det, (a[0][1] * a[2][0] - a[0][0] * a[2][1]) / det,
+             (a[0][0] * a[1][1] - a[0][1] * a[1][0]) / det]]
+
+
+def _mat3_eval(a, v) -> list:
+    return [a[i][0] * v[0] + a[i][1] * v[1] + a[i][2] * v[2] for i in range(3)]
+
+
+def _mat3_per(a, b) -> list:
+    return [[a[i][0] * b[0][j] + a[i][1] * b[1][j] + a[i][2] * b[2][j] for j in range(3)]
+            for i in range(3)]
+
+
+def _srgb_to_d50() -> list:
+    """cmsCreate_sRGBProfile's colorants: Rec. 709 primaries and the white
+    (0.3127, 0.3290) through _cmsBuildRGB2XYZtransferMatrix, adapted to D50
+    by Bradford (_cmsAdaptMatrixToD50)."""
+    (xr, yr), (xg, yg), (xb, yb), (xn, yn) = (0.64, 0.33), (0.30, 0.60), (0.15, 0.06), \
+        (0.3127, 0.3290)
+    coef = _mat3_eval(_mat3_inverse([[xr, xg, xb], [yr, yg, yb],
+                                     [(1 - xr - yr), (1 - xg - yg), (1 - xb - yb)]]),
+                      [xn / yn, 1.0, (1.0 - xn - yn) / yn])
+    rgb = [[coef[0] * xr, coef[1] * xg, coef[2] * xb], [coef[0] * yr, coef[1] * yg, coef[2] * yb],
+           [coef[0] * (1.0 - xr - yr), coef[1] * (1.0 - xg - yg), coef[2] * (1.0 - xb - yb)]]
+    white = [(xn / yn) * 1.0, 1.0, ((1 - xn - yn) / yn) * 1.0]
+    src, dst = _mat3_eval(_BRADFORD, white), _mat3_eval(_BRADFORD, _D50)
+    cone = [[dst[0] / src[0], 0.0, 0.0], [0.0, dst[1] / src[1], 0.0], [0.0, 0.0, dst[2] / src[2]]]
+    adapt = _mat3_per(_mat3_inverse(_BRADFORD), _mat3_per(cone, _BRADFORD))
+    return _mat3_per(adapt, rgb)
+
+
+def _lcms_word(d: np.ndarray) -> np.ndarray:
+    """_cmsQuickSaturateWord: d + 0.5 floored after lcms's 16.16 magic
+    rounds it to a multiple of 2^-16, clamped to 0..65535."""
+    d = d + 0.5
+    magic = 1.5 * 2.0 ** 36
+    floor = np.floor(((d - 32767.0) + magic) - magic) + 32767
+    return np.where(d <= 0, 0, np.where(d >= 65535.0, 65535, floor)).astype(np.uint16)
+
+
+@functools.lru_cache(maxsize=1)
+def _lab_clut() -> np.ndarray:
+    """lcms's 33-point table of the Lab -> sRGB pipeline, uint16
+    [33, 33, 33, 3]: each node's 16-bit input (_cmsQuantizeVal) as float32
+    / 65535, Lab (V4 encoding) to XYZ under D50 (cmsLab2XYZ) over
+    MAX_ENCODEABLE_XYZ, the matrix, the inverse sRGB curve (parametric
+    type -4), each float32; then _cmsQuickSaturateWord of x 65535."""
+    f32 = np.float32
+    node = _lcms_word(np.arange(33) * 65535.0 / 32)
+    q = np.stack(np.meshgrid(node, node, node, indexing="ij"), -1).reshape(-1, 3)
+    x = (q.astype(f32) / f32(65535.0)).astype(np.float64)
+    y = (x[:, 0] * 100.0 + 16.0) / 116.0
+    t = np.stack([y + 0.002 * (x[:, 1] * 255.0 - 128.0), y, y - 0.005 * (x[:, 2] * 255.0 - 128.0)])
+    t = np.where(t <= 24.0 / 116.0, (108.0 / 841.0) * (t - 16.0 / 116.0), t * t * t)
+    xyz = [(t[i] * _D50[i] / _MAX_ENCODEABLE_XYZ).astype(f32).astype(np.float64) for i in range(3)]
+    inv = [[v * _MAX_ENCODEABLE_XYZ for v in row] for row in _mat3_inverse(_srgb_to_d50())]
+    lin = [((0.0 + xyz[0] * inv[i][0]) + xyz[1] * inv[i][1] + xyz[2] * inv[i][2])
+           .astype(f32).astype(np.float64) for i in range(3)]
+    g, a, b, c, d = 2.4, 1.0 / 1.055, 0.055 / 1.055, 1.0 / 12.92, 0.04045
+    disc = (a * d + b) ** g
+    out = []
+    for v in lin:
+        # the C library's pow, as lcms calls it (numpy's may be a SIMD one)
+        hi = np.array([(x ** (1.0 / g) - b) / a if x >= disc else x / c for x in v.tolist()])
+        out.append(_lcms_word(hi.astype(f32).astype(np.float64) * 65535.0))
+    return np.ascontiguousarray(np.stack(out, -1).reshape(33, 33, 33, 3))
+
+
+def _lab_rgb(v: np.ndarray) -> np.ndarray:
+    """RGB uint8 [..., 3] of LAB samples uint8 [..., 3] as Pillow's array
+    of its LAB image shows them (a and b signed), as its
+    ``convert("RGBA")`` makes them (of L, a + 128 and b + 128, which its
+    LAB image holds)."""
+    lab = np.ascontiguousarray(v ^ np.array([0, 128, 128], np.uint8))
+    out = np.empty(lab.shape, np.uint8)
+    _tiff_lib().tif_lab_rgb(lab.ctypes.data, lab.size // 3, _lab_clut().ctypes.data,
+                            out.ctypes.data, 3)
+    return out
 
 
 def _tiff_layout(t: dict, w: int, h: int) -> tuple:
@@ -529,6 +698,22 @@ def _tiff_layout(t: dict, w: int, h: int) -> tuple:
     return False, w, t.get(278, (h,))[0], t[273], t.get(279, ())
 
 
+def _estimated_count(data: bytes, bo: str) -> int:
+    """libtiff's EstimateStripByteCounts for a compressed file's one strip
+    whose StripByteCounts is 0: the file's size less the header, the IFD
+    and its out-of-line values, cut to what the file holds after the
+    strip's offset by the caller."""
+    ifd = struct.unpack_from(bo + "I", data, 4)[0]
+    (n,) = struct.unpack_from(bo + "H", data, ifd)
+    space = 8 + 2 + 12 * n + 4
+    for k in range(n):
+        typ, count = struct.unpack_from(bo + "HI", data, ifd + 4 + 12 * k)
+        size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8,
+                13: 4, 16: 8, 17: 8, 18: 8}.get(typ, 0) * count
+        space += size if size > 4 else 0
+    return max(len(data) - space, 0)
+
+
 def _tiff_raw(data: bytes, t: dict, mode: str, raw: str, bits: tuple, w: int, h: int) -> np.ndarray:
     """An uncompressed image as Pillow's own reader makes it (its
     ``_setup`` tiles and the raw decoder): each strip or tile read from its
@@ -538,7 +723,7 @@ def _tiff_raw(data: bytes, t: dict, mode: str, raw: str, bits: tuple, w: int, h:
     tiled, tw, th, offsets, _ = _tiff_layout(t, w, h)
     planar = t.get(284, (1,))[0] == 2
     photo = t.get(262, (0,))[0]
-    nbands = {2: 3, 5: 4}.get(photo, 1) + len(t.get(338, ()))
+    nbands = {2: 3, 5: 4, 8: 3}.get(photo, 1) + len(t.get(338, ()))
     if tw == w and th == h and not planar:
         offsets = offsets[-1:]
     out = np.zeros((h, w) + ((_MODE_BANDS[mode],) if _MODE_BANDS[mode] > 1 else (1,)),
@@ -576,6 +761,208 @@ def _tiff_raw(data: bytes, t: dict, mode: str, raw: str, bits: tuple, w: int, h:
     return out
 
 
+def _floats(t: dict, tag: int, default: tuple) -> np.ndarray:
+    """A RATIONAL (or FLOAT) tag's values as libtiff holds them: float32,
+    each numerator / denominator in double (0 for a zero denominator)."""
+    v = t.get(tag)
+    if v is None:
+        return np.array(default, np.float32)
+    if len(v) == 2 * len(default) and all(isinstance(x, int) for x in v):
+        v = [n / d if d else 0.0 for n, d in zip(v[::2], v[1::2])]
+    return np.array(v[:len(default)], np.float32)
+
+
+def _ycbcr_tables(t: dict) -> tuple:
+    """libtiff's ``TIFFYCbCrToRGBInit`` (tif_color.c) from YCbCrCoefficients
+    (529) and ReferenceBlackWhite (532), in its float32 and fixed-point
+    steps: (Y, Cr->R, Cb->B, Cr->G, Cb->G) tables, int64 [256] each."""
+    f = np.float32
+    luma = _floats(t, 529, (0.299, 0.587, 0.114))
+    rbw = _floats(t, 532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))
+    if np.isnan(luma).any() or luma[1] == 0:
+        raise ValueError("TIFF: invalid values for the YCbCrCoefficients tag (libtiff refuses "
+                         "them)")
+    if not ((rbw > f(-0x7FFFFFFF + 128)) & (rbw < f(0x7FFFFFFF))).all():
+        raise ValueError("TIFF: invalid values for the ReferenceBlackWhite tag (libtiff refuses "
+                         "them)")
+
+    def fix(x):     # FIX(CLAMP(x, 0, 2)): float32 * 65536, + 0.5 in double, truncated
+        x = min(max(x, f(0)), f(2)) if not np.isnan(x) else f(2)
+        return int(float(x * f(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):      # Code2V, then CLAMPw to +-4096 and the int32 cast
+        d = f(rw - rb)
+        v = (np.asarray(c - int(rb), np.float32) * f(cr)) / (d if d != 0 else f(1))
+        return np.trunc(np.clip(v, f(-4096), f(4096))).astype(np.int64)
+
+    with np.errstate(all="ignore"):
+        f1, f3 = f(2) - f(2) * luma[0], f(2) - f(2) * luma[2]
+        d1, d3 = fix(f1), fix(f3)
+        d2, d4 = -fix(luma[0] * f1 / luma[1]), -fix(luma[2] * f3 / luma[1])
+        x = np.arange(-128, 128)
+        cr = code2v(x, rbw[4] - f(128), rbw[5] - f(128), 127)
+        cb = code2v(x, rbw[2] - f(128), rbw[3] - f(128), 127)
+        y = code2v(x + 128, rbw[0], rbw[1], 255)
+    return y, (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768
+
+
+def _ycbcr_rgb(tabs: tuple, y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """libtiff's ``TIFFYCbCrtoRGB`` of uint8 samples: uint8 [..., 3]."""
+    ytab, cr_r, cb_b, cr_g, cb_g = tabs
+    yy = ytab[y]
+    rgb = np.stack([yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16), yy + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+# the subsamplings libtiff's TIFFRGBAImage converts (tif_getimage.c
+# PickContigCase; a planar file 1x1 only)
+_YCBCR_SUBSAMPLINGS = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
+
+
+def _tiff_ycbcr(data: bytes, t: dict, w: int, h: int) -> np.ndarray:
+    """A compressed YCbCr image (three 8-bit samples) as Pillow reads it
+    through libtiff's ``TIFFRGBAImage``: each strip or tile decompressed
+    to its blocks of YCbCrSubsampling (default 2x2: the block's luma
+    samples, row by row, then Cb and Cr), each block's chroma replicated
+    over its luma samples (no interpolation) and converted by
+    ``TIFFYCbCrtoRGB``; blocks cut by the image's edges converted in part
+    (and a right edge tile of 4x4 blocks read at libtiff's skew).
+    A planar file (1x1 only) holds a plane of each sample.  A strip of
+    4x4 blocks with an odd count of blocks per row is read short by
+    ``TIFFScanlineSize``'s rounding, as libtiff reads it: its last bytes
+    are zero.  A JPEG-compressed planar file's planes are one-component
+    streams, each decoded as stored by :func:`_jpeg_inflater`."""
+    comp = t.get(259, (1,))[0]
+    hs, vs = t.get(530, (2, 2))[:2] if len(t.get(530, ())) >= 2 else (2, 2)
+    planar = t.get(284, (1,))[0] == 2
+    if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+        raise ValueError(f"TIFF: invalid YCbCr subsampling {hs}x{vs} (libtiff refuses it)")
+    if (hs, vs) not in (_YCBCR_SUBSAMPLINGS[-1:] if planar else _YCBCR_SUBSAMPLINGS):
+        raise ValueError(f"TIFF: YCbCr subsampling {hs}x{vs}{' in planes' if planar else ''}: "
+                         "libtiff's RGBA reader cannot handle the format")
+    if t.get(317, (1,))[0] != 1 and comp in _PREDICTED:
+        raise ValueError("YCbCr TIFF with a predictor is not carried by the port's codec "
+                         f"({_png.NOT_PORTED}c)")
+    tabs = _ycbcr_tables(t)
+    tiled, tw, th, offsets, counts = _tiff_layout(t, w, h)
+    if not tiled:
+        th = min(th, h) or h
+    nx, ny = -(-w // tw), -(-h // th)
+    planes = 3 if planar else 1
+    if len(offsets) < planes * nx * ny or len(counts) < planes * nx * ny:
+        raise ValueError(f"TIFF has {min(len(offsets), len(counts))} strips or tiles of "
+                         f"{planes * nx * ny}")
+    if comp == 7:
+        plane = _jpeg_inflater(t, 2, 1, tw)     # one component, 1x1, as stored
+
+        def inflate(blk, size, n, last):
+            return plane(blk, n, last)
+    else:
+        def inflate(blk, size, n, last):
+            return _tiff_strip(comp, blk, size)
+    bw = -(-tw // hs)
+    unit = hs * vs + (0 if planar else 2)
+    out = np.empty((ny * th, nx * tw, 3), np.uint8)
+    k = 0
+    samples = np.empty((planes, ny * th, nx * tw), np.uint8) if planar else None
+    for p in range(planes):
+        for j in range(ny):
+            n = th if tiled else min(th, h - j * th)
+            for i in range(nx):
+                blk = data[offsets[k]:offsets[k] + counts[k]]
+                k += 1
+                last = not tiled and j == ny - 1
+                if planar:
+                    samples[p, j * th:j * th + n, i * tw:(i + 1) * tw] = np.frombuffer(
+                        inflate(blk, n * tw, n, last), np.uint8).reshape(n, tw)
+                    continue
+                brows = -(-n // vs)
+                size = brows * bw * unit
+                read = size if tiled else min(size, -(-n // vs) * vs * (bw * unit // vs))
+                raw = np.zeros(size, np.uint8)
+                raw[:read] = np.frombuffer(inflate(blk, read, n, last), np.uint8)
+                # a right edge tile's block rows are ``step`` bytes apart: its
+                # blocks, then the skipped ones (10 bytes each for 4x4, as
+                # putcontig8bitYCbCr44tile adjusts its skew)
+                npix = min(tw, w - i * tw)
+                cols = -(-npix // hs)
+                step = cols * unit + (tw - npix) // hs * (10 if (hs, vs) == (4, 4) else unit)
+                b = raw[(np.arange(brows)[:, None, None] * step
+                         + np.arange(bw)[:, None] % cols * unit + np.arange(unit))]
+                yb = b[..., :hs * vs].reshape(brows, bw, vs, hs).transpose(0, 2, 1, 3)
+                yy = yb.reshape(brows * vs, bw * hs)
+                cb = np.repeat(np.repeat(b[..., -2], vs, 0), hs, 1)
+                cr = np.repeat(np.repeat(b[..., -1], vs, 0), hs, 1)
+                rgb = _ycbcr_rgb(tabs, yy, cb, cr)
+                out[j * th:j * th + n, i * tw:(i + 1) * tw] = rgb[:n, :tw]
+    if planar:
+        out = _ycbcr_rgb(tabs, samples[0], samples[1], samples[2])
+    return out[:h, :w]
+
+
+def _jpeg_frame(blk: bytes, tables) -> tuple:
+    """One strip or tile of a JPEG-in-TIFF: its frame and coefficients,
+    decoded as libjpeg decodes it under libtiff (with the JPEGTables,
+    leniently: a truncated or corrupt stream decodes to what libjpeg
+    recovers)."""
+    if len(blk) < 2:
+        raise ValueError("TIFF: an empty JPEG strip or tile")
+    try:
+        frame, coefs = _jpeg.decode_coefficients(blk, tables, lenient=True)
+    except ValueError as e:
+        if "not carried" in str(e):
+            raise ValueError(f"JPEG-in-TIFF: {e}") from None
+        raise ValueError(f"corrupt JPEG-in-TIFF strip or tile: {e}") from None
+    if frame.smoothed:
+        raise ValueError("JPEG-in-TIFF of a progressive stream whose scans leave coefficients "
+                         f"short is not carried by the port's codec ({_png.NOT_PORTED}g)")
+    return frame, coefs
+
+
+def _jpeg_size(frame, seg_w: int, seg_h: int, last_strip: bool) -> None:
+    """libtiff's JPEGPreDecode check of a stream's size against its strip
+    or tile: a larger last strip of the same width is cut to the strip,
+    any other difference refused."""
+    if (frame.width, frame.height) == (seg_w, seg_h):
+        return
+    if frame.width == seg_w and frame.height > seg_h and last_strip:
+        return
+    raise ValueError(f"TIFF: a JPEG stream of {frame.width}x{frame.height} in a strip or tile "
+                     f"of {seg_w}x{seg_h} (libtiff refuses it)")
+
+
+def _jpeg_inflater(t: dict, photo: int, per: int, tw: int):
+    """The decoder of one strip or tile of a JPEG-in-TIFF (of a plane of
+    YCbCr with ``photo`` 2: its samples as stored): each an abbreviated
+    stream decoded with the JPEGTables tag, a chunky YCbCr one
+    (photometric 6) converted to RGB by libjpeg (libtiff's
+    JPEGCOLORMODE_RGB: its tables and fancy upsampling), every other one
+    as stored; cut to the strip's rows and the tile's width.  As in
+    libtiff's JPEGPreDecode, the stream must hold one component per
+    sample (one in a plane), the YCbCrSubsampling tag's sampling on its
+    first component (the stream's own where the tag is absent; 1x1 but
+    for YCbCr) and 1x1 on the others."""
+    tables = _jpeg.parse_tables(bytes(t[347])) if 347 in t else None
+    ycc = photo == 6
+    tag = tuple(t[530][:2]) if ycc and len(t.get(530, ())) >= 2 else None
+
+    def inflate(blk, n, last):
+        frame, coefs = _jpeg_frame(blk, tables)
+        comps = frame.components
+        if len(comps) != per:
+            raise ValueError(f"TIFF: a JPEG stream of {len(comps)} components for {per} samples "
+                             "(libtiff: improper JPEG component count)")
+        first = (comps[0].h, comps[0].v)
+        want = (tag or first) if ycc else (1, 1)
+        if first != want or any((c.h, c.v) != (1, 1) for c in comps[1:]):
+            raise ValueError(f"TIFF: JPEG sampling factors {[(c.h, c.v) for c in comps]} where "
+                             f"{want} is due (libtiff: improper JPEG sampling factors)")
+        _jpeg_size(frame, tw, n, last)
+        px = _jpeg.reconstruct(frame, coefs, as_stored=not ycc)
+        return np.ascontiguousarray(px[:n, :tw]).tobytes()
+    return inflate
+
+
 def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str, w: int,
                   h: int) -> np.ndarray:
     """A compressed image as Pillow's libtiff route makes it: every strip
@@ -593,7 +980,8 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
     if planar:
         # Pillow reads LA, PA and PX planes, and RGBA without ExtraSamples,
         # to other pixels than their chunky files; the port refuses them
-        if mode not in ("RGB", "RGBA", "CMYK") or len(bits) != {2: 3, 5: 4}[photo] + len(extra):
+        if (mode not in ("RGB", "RGBA", "CMYK", "LAB")
+                or len(bits) != {2: 3, 5: 4, 8: 3}[photo] + len(extra)):
             raise ValueError(f"planar TIFF of mode {mode} with {len(bits)} samples and extra "
                              f"samples {extra} is not carried by the port's codec "
                              f"({_png.NOT_PORTED}c)")
@@ -601,6 +989,9 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
             raise ValueError("TIFF: planar strips of more samples than the mode has bands "
                              "(Pillow's libtiff decoder refuses them)")
     spp, b = len(bits), bits[0]
+    if not tiled and len(offsets) == 1 and counts[:1] == (0,) and offsets[0]:
+        # TIFFReadDirectory: a lone strip's byte count of 0 is bogus, estimated
+        counts = (min(_estimated_count(data, bo), max(len(data) - offsets[0], 0)),)
     if photo == 3 and len(t.get(320, ())) != 3 << b:
         raise ValueError(f"TIFF: a colormap of {len(t.get(320, ()))} values for {b}-bit "
                          "indices (libtiff requires 3 * 2^bits)")
@@ -620,6 +1011,15 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
                          "refuses it)")
     if predictor not in (1, 2, 3):
         raise ValueError(f"TIFF: predictor {predictor} (libtiff refuses it)")
+    if comp == 7:
+        if photo == 6 and per != 3:
+            raise ValueError("TIFF: JPEG-compressed YCbCr of one sample (libjpeg: bogus colour "
+                             "space)")
+        inflate = _jpeg_inflater(t, photo, per, tw)
+    elif comp in _FAX:
+        inflate = _fax_inflater(t, comp, fill, tw)
+    else:
+        inflate = lambda blk, n, last: _tiff_strip(comp, blk, n * row_bytes)  # noqa: E731
     img = np.empty((planes, ny * th if tiled else h, nx * row_bytes), np.uint8)
     k = 0
     for p in range(planes):
@@ -627,10 +1027,10 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
             n = th if tiled else min(th, h - j * th)
             for i in range(nx):
                 blk = data[offsets[k]:offsets[k] + counts[k]]
-                if fill == 2:
+                if fill == 2 and comp not in _OWN_BIT_ORDER:
                     blk = _BITREV[np.frombuffer(blk, np.uint8)].tobytes()
                 img[p, j * th:j * th + n, i * row_bytes:(i + 1) * row_bytes] = np.frombuffer(
-                    _tiff_strip(comp, blk, n * row_bytes), np.uint8).reshape(n, row_bytes)
+                    inflate(blk, n, not tiled and j == ny - 1), np.uint8).reshape(n, row_bytes)
                 k += 1
     if b in (16, 32) and bo == ">" and predictor != 3:
         img = img.view(f">u{b // 8}").astype(f"<u{b // 8}").view(np.uint8)
@@ -646,7 +1046,11 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
         sb = b // 8
         img = img.reshape(planes, img.shape[1], -1, sb)[:, :, :w].transpose(1, 2, 0, 3)
         img = np.ascontiguousarray(img).reshape(img.shape[0], -1)
-    if raw == "I;16":
+    if photo == 6:          # Pillow's rawmode of chunky JPEG YCbCr, which libjpeg made RGB
+        raw = "RGB"
+    elif planar and photo == 8:     # its one-band unpackers of the L, a and b planes
+        return np.stack([_unpack(mode, c, img[:, k::3], w) for k, c in enumerate(raw)], -1)[:h]
+    elif raw == "I;16":
         raw = "I;16N"
     elif raw.endswith((";16B", ";16L")):
         raw = raw[:-1] + "N"
@@ -656,12 +1060,15 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
 def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
     """The first image of a TIFF that :func:`tiff_not_carried` takes, as
     Pillow reads it then ``io/images.py`` takes it: uncompressed strips
-    and tiles through Pillow's own reader, LZW, deflate and PackBits ones
-    through libtiff's, chunky or planar, predictor 1, 2 or 3, either fill
-    order, then the Orientation tag applied.  Samples: uint8 gray, gray
-    + alpha, RGB (palettes looked up, CMYK converted by Pillow's
-    ``cmyk2rgb``) or RGBA at depth 8; uint16 gray (Pillow's ``I;16``) and
-    int32 gray (its ``I``: 16- and 32-bit signed, 32-bit unsigned) at
+    and tiles through Pillow's own reader, LZW, deflate, PackBits, JPEG
+    and CCITT ones through libtiff's, compressed YCbCr (but chunky JPEG)
+    through libtiff's RGBA reader, chunky or planar, predictor 1, 2 or 3,
+    either fill order, then the Orientation tag applied.  Samples: uint8
+    gray, gray + alpha, RGB (palettes looked up, CMYK converted by Pillow's
+    ``cmyk2rgb``, YCbCr by libjpeg or libtiff, CIELab as Pillow's
+    LittleCMS transform converts it) or RGBA (a planar CIELab file's
+    alpha 0, as Pillow reads it) at depth 8; uint16
+    gray (Pillow's ``I;16``) and int32 gray (its ``I``: 16- and 32-bit signed, 32-bit unsigned) at
     depth 16; float samples (``F``) clamped to [0, 255] and truncated to
     uint8, as Pillow's ``convert("RGBA")`` makes them, at depth 8."""
     bo, t = _tiff_tags(data)
@@ -680,8 +1087,14 @@ def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
         w, h = t[256][0], t[257][0]
     except KeyError:
         raise ValueError("TIFF: missing dimensions") from None
-    if t.get(259, (1,))[0] == 1:
+    comp = t.get(259, (1,))[0]
+    if comp == 1:
         v = _tiff_raw(data, t, mode, raw, key[4], w, h)
+    elif key[1] == 6 and (comp != 7 or t.get(284, (1,))[0] == 2):
+        if len(key[4]) != 3:
+            raise ValueError("TIFF: compressed YCbCr of one sample: libtiff's RGBA reader cannot "
+                             "handle the format")
+        v = _tiff_ycbcr(data, t, w, h)
     else:
         if key[3] == 2:
             mode, raw = _OPEN_INFO[key[:3] + (1,) + key[4:]]
@@ -695,6 +1108,12 @@ def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
         v = np.concatenate([cmap[v[..., 0]], v[..., 1:]], -1)
     elif mode == "CMYK":
         v = _cmyk_rgb(v)
+    elif mode == "LAB":
+        v = _lab_rgb(v)
+        if t.get(284, (1,))[0] == 2:
+            # Pillow's band unpackers leave the byte its LAB pixels hold
+            # past L, a and b at 0, which its conversion carries as alpha
+            v = np.concatenate([v, np.zeros_like(v[..., :1])], -1)
     elif mode == "F":
         v = np.where(np.isnan(v), 0, np.clip(v, 0, 255)).astype(np.uint8)
     elif mode in ("I;16", "I;16B", "I"):
@@ -704,15 +1123,17 @@ def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
 
 def encode_tiff(arr: np.ndarray) -> bytes:
     """An uncompressed little-endian TIFF of uint8 RGB or RGBA (unassociated
-    alpha) or uint16 gray [H, W], in one strip."""
+    alpha) or uint16 gray [H, W], in one strip, with the tags Pillow writes
+    for its ``RGB``, ``RGBA`` and ``I;16`` modes (SamplesPerPixel only for
+    more than one sample)."""
     if arr.dtype == np.uint16:
         arr = arr.reshape(arr.shape[0], arr.shape[1], 1)
     h, w, c = arr.shape
     bits = 8 * arr.dtype.itemsize
     body = np.ascontiguousarray(arr, "<u2" if bits == 16 else np.uint8).tobytes()
     tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * c), (259, 3, [1]),
-            (262, 3, [1 if c == 1 else 2]), (273, 4, [0]), (277, 3, [c]),
-            (278, 4, [h]), (279, 4, [len(body)]), (284, 3, [1])]
+            (262, 3, [1 if c == 1 else 2]), (273, 4, [0])] + ([(277, 3, [c])] if c > 1 else []) \
+        + [(278, 4, [h]), (279, 4, [len(body)]), (284, 3, [1])]
     if c == 4:
         tags.append((338, 3, [2]))
     ifd_size = 2 + 12 * len(tags) + 4

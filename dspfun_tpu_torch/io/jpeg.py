@@ -34,8 +34,10 @@ lossless, arithmetic-coded and 12-bit files (8e), and
 progressive files whose scans leave one of a component's first ten
 coefficients short, whose blocks libjpeg smooths (``jdcoefct.c``
 ``smoothing_ok``; 8g).  A truncated or corrupt file raises
-``ValueError``.  tests/test_torch_jpeg.py holds both directions to
-Pillow.
+``ValueError``, and so does a damaged one with a block whose IDCT leaves
+the range where libjpeg-turbo's SIMD arithmetic, which Pillow runs,
+agrees with the C version the port follows (8e).
+tests/test_torch_jpeg.py holds both directions to Pillow.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import numpy as np
 from dspfun_tpu_torch import _hostbuild
 
 __all__ = ["Component", "Frame", "carries", "decode_coefficients", "decode_jpeg",
-           "encode_jpeg", "not_carried", "reconstruct"]
+           "encode_jpeg", "not_carried", "parse_tables", "reconstruct"]
 
 
 def _zigzag() -> tuple[int, ...]:
@@ -101,7 +103,10 @@ _ERRORS = {-1: "JPEG data ends inside a scan (truncated file)",
            -3: "corrupt JPEG data: a scan's data ends before its last block",
            -4: "corrupt JPEG data: a restart marker is missing or out of order",
            -5: "bad JPEG Huffman table (not a prefix code)",
-           -6: "out of memory"}
+           -6: "out of memory",
+           -7: "a damaged JPEG stream whose IDCT leaves the range in which libjpeg-turbo's "
+               "SIMD and C arithmetic agree is not carried by the port's codec "
+               "(ROADMAP.md queue 1, item 8e)"}
 _GRAY, _YCC, _RGB, _CMYK, _YCCK = 0, 1, 2, 3, 4
 _SHORT = "progressive JPEG whose scans leave coefficients short (libjpeg smooths its blocks)"
 
@@ -273,10 +278,11 @@ class _Reader:
     """Marker-level state of one decode (tables, restart interval, the
     frame, its coefficients, and a progressive file's progression)."""
 
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, lenient: bool = False):
         if not data.startswith(b"\xff\xd8"):
             raise ValueError("not a JPEG file (no SOI marker)")
         self.data = data
+        self.lenient = lenient
         self.frame: Frame | None = None
         self.qtables: dict = {}
         self.htables: dict = {}
@@ -298,7 +304,12 @@ class _Reader:
         it = _markers(data, 2)
         resume = None
         while True:
-            code, pos = it.send(resume)
+            try:
+                code, pos = it.send(resume)
+            except ValueError:
+                if not (self.lenient and self.coefs):
+                    raise
+                code = 0xD9         # libtiff's source: a fake EOI at the data's end
             resume = None
             if code == 0xD9:                              # EOI
                 break
@@ -455,7 +466,8 @@ class _Reader:
         if progressive:
             rc = lib.jpg_decode_progressive(*head, ss, se, ah, al, ptrs, ctypes.byref(end))
         else:
-            rc = lib.jpg_decode_scan(*head, ptrs, ctypes.byref(end))
+            rc = lib.jpg_decode_scan(*head, int(self.lenient and not self.restart), ptrs,
+                                     ctypes.byref(end))
         if rc:
             raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
         return end.value
@@ -497,26 +509,67 @@ def carries(data: bytes) -> bool:
     return not_carried(data) is None
 
 
-def decode_coefficients(data: bytes) -> tuple[Frame, list[np.ndarray]]:
+def parse_tables(data: bytes) -> tuple[dict, dict]:
+    """The quantisation and Huffman tables of a tables-only datastream
+    (SOI, DQT and DHT segments, EOI: what a TIFF's JPEGTables tag holds),
+    as ``decode_coefficients`` takes them."""
+    if not data.startswith(b"\xff\xd8"):
+        raise ValueError("JPEG tables: no SOI marker")
+    qtables, htables = {}, {}
+    it = _markers(data, 2)
+    resume = None
+    while True:
+        code, pos = it.send(resume)
+        if code == 0xD9:
+            return qtables, htables
+        body = _segment(data, pos, f"marker 0x{code:02x}")
+        resume = pos + 2 + len(body)
+        if code == 0xDB:
+            _dqt(body, qtables)
+        elif code == 0xC4:
+            _dht(body, htables)
+        elif not (0xE0 <= code <= 0xEF or code in (0xFE, 0xDD)):
+            raise ValueError(f"JPEG tables: unexpected marker 0x{code:02x}")
+
+
+def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
+                        lenient: bool = False) -> tuple[Frame, list[np.ndarray]]:
     """The frame and each component's quantised DCT coefficients, int16
     [rows, stride, 64] in natural order (whole MCUs; blocks past the
     component's ``blocks_w`` x ``blocks_h`` are an interleaved scan's
     dummy blocks), after the last scan (``frame.smoothed``: libjpeg
-    would smooth the blocks of this progressive file)."""
-    r = _Reader(bytes(data))
+    would smooth the blocks of this progressive file).  ``tables``
+    (:func:`parse_tables`) are in force before the stream's own, which
+    override them (an abbreviated stream, as a TIFF's strips and tiles
+    hold it).  ``lenient`` decodes a sequential stream as libjpeg does
+    when its source is all in memory (libtiff's): the data's end is an
+    EOI, a scan that runs out of data finishes its MCU on zero bits and
+    leaves the rest of its blocks zero (uniform gray), and a bit pattern
+    no Huffman code matches takes 17 bits and decodes as 0."""
+    r = _Reader(bytes(data), lenient)
+    if tables is not None:
+        r.qtables, r.htables = dict(tables[0]), dict(tables[1])
     r.run(decode=True)
     r.frame.colorspace = _colorspace(r.frame, r.jfif, r.adobe)
     return r.frame, r.coefs
 
 
-def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
+def reconstruct(frame: Frame, coefs: list[np.ndarray], as_stored: bool = False) -> np.ndarray:
     """Samples uint8 [H, W, C] of the coefficients (libjpeg's islow IDCT,
     fancy upsampling and colour conversion; no block smoothing): C = 1
     gray, 3 RGB; four components give the RGB of Pillow's
-    ``convert("RGBA")`` of its CMYK image."""
+    ``convert("RGBA")`` of its CMYK image.  ``as_stored``: every
+    component upsampled and none converted (libjpeg's ``JCS_UNKNOWN``,
+    as libtiff reads the strips of a TIFF that is not YCbCr), C = the
+    number of components.  Raises where a block's IDCT meets a value (a
+    product or sum past 16 bits, an output past the range table's wrap)
+    that libjpeg-turbo's SIMD IDCT, which Pillow runs, holds otherwise
+    than its C version, which the port follows: only damaged streams
+    have such blocks, and Pillow's pixels of them are not the port's."""
     comps = frame.components
     n = len(comps)
-    out = np.empty((frame.height, frame.width, 3 if n == 4 else n), np.uint8)
+    colorspace = _RGB if as_stored else frame.colorspace
+    out = np.empty((frame.height, frame.width, 3 if n == 4 and not as_stored else n), np.uint8)
     args = np.array([[c.h, c.v, c.stride, c.rows] for c in comps], np.int32)
     qt = np.ascontiguousarray(np.stack([c.qtable for c in comps]), np.uint16)
     ptrs = (ctypes.POINTER(ctypes.c_int16) * n)(
@@ -524,7 +577,7 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
     rc = _load().jpg_reconstruct(n, args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                                  frame.width, frame.height, ptrs,
                                  qt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-                                 frame.colorspace,
+                                 colorspace,
                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     if rc:
         raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
@@ -601,7 +654,7 @@ def _load() -> ctypes.CDLL:
     lib.jpg_decode_scan.restype = c.c_int
     head = [c.c_char_p, c.c_int64, c.c_int64, c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int,
             c.c_char_p, c.c_int]
-    lib.jpg_decode_scan.argtypes = head + [i16pp, c.POINTER(c.c_int64)]
+    lib.jpg_decode_scan.argtypes = head + [c.c_int, i16pp, c.POINTER(c.c_int64)]
     lib.jpg_decode_progressive.restype = c.c_int
     lib.jpg_decode_progressive.argtypes = head + [c.c_int] * 4 + [i16pp, c.POINTER(c.c_int64)]
     lib.jpg_reconstruct.restype = c.c_int

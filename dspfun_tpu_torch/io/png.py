@@ -63,9 +63,10 @@ def refusal(what: str, part: str = "") -> ValueError:
     part of item 8."""
     return ValueError(f"{what} needs cv2, which does not import here: the port reads "
                       f"and writes PNG, PNM, BMP, TIFF, JPEG and GIF itself (TIFF: uncompressed, "
-                      f"LZW, deflate or PackBits strips or tiles, chunky or planar, every "
-                      f"sample layout Pillow reads but YCbCr and LAB; JPEG: baseline and "
-                      f"progressive Huffman, gray, RGB, CMYK or YCCK), and the rest only "
+                      f"LZW, deflate, PackBits, JPEG or CCITT RLE, Group 3 or Group 4 strips or "
+                      f"tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
+                      f"and CIELab included; JPEG: baseline and progressive Huffman, gray, RGB, "
+                      f"CMYK or YCCK), and the rest only "
                       f"through cv2 ({NOT_PORTED}{part})")
 
 

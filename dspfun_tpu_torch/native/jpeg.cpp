@@ -43,6 +43,7 @@ enum {
   kBadRestart = -4,    // the next marker was not the expected RSTn
   kBadTable = -5,      // a Huffman table does not form a prefix code
   kNoMemory = -6,
+  kSimdRange = -7,     // a block whose IDCT libjpeg-turbo's SIMD build holds otherwise
 };
 
 // ---- Huffman tables -------------------------------------------------------
@@ -137,6 +138,8 @@ struct BitReader {
   bool at_marker = false;
   int64_t marker_pos = 0;  // first 0xFF of the marker the reader stopped at
   bool eof = false;        // the data ended before any marker
+  bool lenient = false;    // libjpeg's recovery: take the zeros, count a bad code as 0
+  bool insufficient = false;  // a zero past the marker was taken (lenient only)
 
   void fill() {
     while (bits <= 56) {
@@ -174,7 +177,9 @@ struct BitReader {
   bool skip(int k) {
     buf <<= k;
     bits -= k;
-    return bits >= fake;
+    if (bits >= fake) return true;
+    insufficient = lenient;
+    return lenient;
   }
   int get(int k, int32_t* out) {
     if (bits < k) fill();
@@ -195,7 +200,12 @@ struct BitReader {
           break;
         }
       }
-      if (l > 16) return kBadCode;
+      if (l > 16) {
+        if (!lenient) return kBadCode;
+        *sym = 0;  // jdhuff.c jpeg_huff_decode: 17 bits taken, a zero faked
+        if (bits < 17) fill();
+        l = 17;
+      }
     }
     if (!skip(l)) return eof ? kTruncated : kPastMarker;
     return kOk;
@@ -368,7 +378,9 @@ int ac_refine(BitReader& br, const DecodeTable& ac, int ss, int se, int al, uint
 
 // The MCUs of one scan, restart markers between intervals: block(ci, c,
 // blk) decodes component ci's next block, reset() clears the predictors
-// (and end-of-band run) at each restart.
+// (and end-of-band run) at each restart.  Once the reader has taken bits
+// past the data (br.insufficient, lenient only), the MCUs after the one
+// that took them are left as they are (jdhuff.c decode_mcu).
 template <class Block, class Reset>
 int scan_blocks(const uint8_t* data, int64_t len, BitReader& br, int ncomp,
                 const int32_t* comps, int mcus_x, int mcus_y, int restart,
@@ -390,7 +402,8 @@ int scan_blocks(const uint8_t* data, int64_t len, BitReader& br, int ncomp,
         left = restart;
         reset();
       }
-      for (int ci = 0; ci < ncomp && !err; ci++) {
+      const bool skip_mcu = br.insufficient;
+      for (int ci = 0; ci < ncomp && !err && !skip_mcu; ci++) {
         const int32_t* c = comps + 5 * ci;
         int h = c[0], v = c[1];
         int64_t stride = c[2];
@@ -437,38 +450,68 @@ const IdctLimit kIdctLimit;
 
 inline uint8_t clamp255(int v) { return v < 0 ? 0 : v > 255 ? 255 : static_cast<uint8_t>(v); }
 
+// 1 where v lies outside int16, where the SIMD build's 16-bit lanes wrap
+// or saturate
+inline int out16(int64_t v) { return static_cast<uint64_t>(v + 32768) > 65535u; }
+
+// A block whose dequantised coefficients sum, in absolute value, to at most
+// this keeps every product, sum and pass-1 output of idct_islow within 16
+// bits and every output within the range-limit table's wrap: with islow's
+// largest weight 11363 (of 2048 in pass 1, of 2^18 in pass 2), a pass-1
+// output is at most 5.549 times its column's sum, plus 1, and an output at
+// most 0.0434 times its row of those, plus 1 (506.8 at this sum).
+constexpr int32_t kNarrowL1 = 2100;
+
 // jidctint.c jpeg_idct_islow; q holds the quantisation table as the SIMD
-// build's 16-bit ISLOW_MULT_TYPE
-void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+// build's 16-bit ISLOW_MULT_TYPE.  Returns whether the block met a value
+// that libjpeg-turbo's SIMD islow IDCT holds otherwise than its C version,
+// which this follows: a dequantised coefficient, a sum of them or a
+// pass-1 output past 16 bits, or an output past the wrap of the
+// range-limit table (checked only past kNarrowL1).  Only damaged streams
+// have such blocks.
+bool idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int32_t dq[64];
   int ws[64];
+  int32_t l1 = 0;
+  for (int i = 0; i < 64; i++) {
+    dq[i] = in[i] * q[i];
+    int32_t a = dq[i] < 0 ? -dq[i] : dq[i];
+    l1 += a < 8192 ? a : 8192;
+  }
+  const bool wide = l1 > kNarrowL1;
+  int odd = 0;
+  if (wide)
+    for (int i = 0; i < 64; i++) odd |= out16(dq[i]);
   for (int c = 0; c < 8; c++) {
     const int16_t* ip = in + c;
-    const int16_t* qp = q + c;
+    const int32_t* dp = dq + c;
     int* wp = ws + c;
     if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-      int dc = static_cast<int>(static_cast<int64_t>(ip[0]) * qp[0] * 4);
-      for (int r = 0; r < 8; r++) wp[8 * r] = dc;
+      for (int r = 0; r < 8; r++) wp[8 * r] = static_cast<int>(int64_t{dp[0]} * 4);
       continue;
     }
-    int64_t z2 = static_cast<int64_t>(ip[16]) * qp[16];
-    int64_t z3 = static_cast<int64_t>(ip[48]) * qp[48];
+    int64_t z2 = dp[16];
+    int64_t z3 = dp[48];
+    if (wide)
+      odd |= out16(z2 + z3) | out16(int64_t{dp[0]} + dp[32]) | out16(int64_t{dp[0]} - dp[32]);
     int64_t z1 = (z2 + z3) * FIX_0_541196100;
     int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
     int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = static_cast<int64_t>(ip[0]) * qp[0];
-    z3 = static_cast<int64_t>(ip[32]) * qp[32];
+    z2 = dp[0];
+    z3 = dp[32];
     int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
     int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
     int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
     int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = static_cast<int64_t>(ip[56]) * qp[56];
-    tmp1 = static_cast<int64_t>(ip[40]) * qp[40];
-    tmp2 = static_cast<int64_t>(ip[24]) * qp[24];
-    tmp3 = static_cast<int64_t>(ip[8]) * qp[8];
+    tmp0 = dp[56];
+    tmp1 = dp[40];
+    tmp2 = dp[24];
+    tmp3 = dp[8];
     z1 = tmp0 + tmp3;
     z2 = tmp1 + tmp2;
     z3 = tmp0 + tmp2;
     int64_t z4 = tmp1 + tmp3;
+    if (wide) odd |= out16(z1) | out16(z2) | out16(z3) | out16(z4) | out16(z3 + z4);
     int64_t z5 = (z3 + z4) * FIX_1_175875602;
     tmp0 *= FIX_0_298631336;
     tmp1 *= FIX_2_053119869;
@@ -492,17 +535,24 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
     wp[24] = static_cast<int>(descale(tmp13 + tmp0, s));
     wp[32] = static_cast<int>(descale(tmp13 - tmp0, s));
   }
+  if (wide)
+    for (int i = 0; i < 64; i++) odd |= out16(ws[i]);
   const uint8_t* lim = kIdctLimit.t;
   for (int r = 0; r < 8; r++) {
     const int* wp = ws + 8 * r;
     uint8_t* op = out + static_cast<int64_t>(r) * stride;
     constexpr int s = CONST_BITS + PASS1_BITS + 3;
     int64_t z2 = wp[2], z3 = wp[6];
+    if (wide)
+      odd |= out16(z2 + z3) | out16(int64_t{wp[0]} + wp[4]) | out16(int64_t{wp[0]} - wp[4]) |
+             out16(int64_t{wp[7]} + wp[1]) | out16(int64_t{wp[5]} + wp[3]) |
+             out16(int64_t{wp[7]} + wp[3]) | out16(int64_t{wp[5]} + wp[1]) |
+             out16(int64_t{wp[7]} + wp[3] + wp[5] + wp[1]);
     int64_t z1 = (z2 + z3) * FIX_0_541196100;
     int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
     int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (static_cast<int64_t>(wp[0]) + wp[4]) * (1 << CONST_BITS);
-    int64_t tmp1 = (static_cast<int64_t>(wp[0]) - wp[4]) * (1 << CONST_BITS);
+    int64_t tmp0 = (int64_t{wp[0]} + wp[4]) * (1 << CONST_BITS);
+    int64_t tmp1 = (int64_t{wp[0]} - wp[4]) * (1 << CONST_BITS);
     int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
     int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
     tmp0 = wp[7];
@@ -526,15 +576,15 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
     tmp1 += z2 + z4;
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
-    op[0] = lim[descale(tmp10 + tmp3, s) & 1023];
-    op[7] = lim[descale(tmp10 - tmp3, s) & 1023];
-    op[1] = lim[descale(tmp11 + tmp2, s) & 1023];
-    op[6] = lim[descale(tmp11 - tmp2, s) & 1023];
-    op[2] = lim[descale(tmp12 + tmp1, s) & 1023];
-    op[5] = lim[descale(tmp12 - tmp1, s) & 1023];
-    op[3] = lim[descale(tmp13 + tmp0, s) & 1023];
-    op[4] = lim[descale(tmp13 - tmp0, s) & 1023];
+    const int64_t d[8] = {descale(tmp10 + tmp3, s), descale(tmp11 + tmp2, s),
+                          descale(tmp12 + tmp1, s), descale(tmp13 + tmp0, s),
+                          descale(tmp13 - tmp0, s), descale(tmp12 - tmp1, s),
+                          descale(tmp11 - tmp2, s), descale(tmp10 - tmp3, s)};
+    for (int x = 0; x < 8; x++) op[x] = lim[d[x] & 1023];
+    if (wide)  // the table wraps where the SIMD build saturates
+      for (int64_t v : d) odd |= static_cast<uint64_t>(v + 512) > 1023u;
   }
+  return odd != 0;
 }
 
 // One component's samples [ph, pw] (ph, pw: its downsampled height and
@@ -813,12 +863,14 @@ extern "C" {
 //          scan, the component's blocks);
 //   tables: 8 tables of 16 counts + 256 values, DC 0-3 then AC 0-3;
 //   restart: MCUs per restart interval, 0 for none;
+//   lenient: libjpeg's recovery from a scan that runs out of data or holds
+//          a bad code (BitReader::lenient; a stream without restarts);
 //   coefs: per component, int16 [rows][stride][64] in natural order.
 // Returns 0 and *end (the first byte after the scan's data), or a
 // negative code (see the enum above; *end = where decoding stopped).
 int jpg_decode_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
                     const int32_t* comps, int mcus_x, int mcus_y, const uint8_t* tables,
-                    int restart, int16_t* const* coefs, int64_t* end) {
+                    int restart, int lenient, int16_t* const* coefs, int64_t* end) {
   DecodeTable* dts = new (std::nothrow) DecodeTable[8];
   if (!dts) return kNoMemory;
   int err = kOk;
@@ -827,6 +879,7 @@ int jpg_decode_scan(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
   for (int i = 0; i < 8 && !err; i++)
     if (used[i]) err = make_decode_table(tables + 272 * i, &dts[i]);
   BitReader br{data, len, pos};
+  br.lenient = lenient != 0;
   int32_t pred[4] = {0, 0, 0, 0};
   if (!err)
     err = scan_blocks(
@@ -907,6 +960,9 @@ int jpg_decode_progressive(const uint8_t* data, int64_t len, int64_t pos, int nc
 //        through ycc_rgb_convert's tables, then 255 - x; K as stored), each
 //        sample inverted as Pillow's CMYK;I rawmode reads it, then RGB by
 //        Pillow's cmyk2rgb: nk - MULDIV255(x, nk) with nk = 255 - K.
+// Returns 0, or kSimdRange where a block's IDCT met a value that
+// libjpeg-turbo's SIMD build, which Pillow runs, holds otherwise than its C
+// version (idct_islow): the pixels would differ from Pillow's.
 int jpg_reconstruct(int ncomp, const int32_t* comps, int width, int height,
                     const int16_t* const* coefs, const uint16_t* qtables, int colorspace,
                     uint8_t* out) {
@@ -925,10 +981,12 @@ int jpg_reconstruct(int ncomp, const int32_t* comps, int width, int height,
     plane.assign(static_cast<size_t>(stride * bh * 8), 0);
     int16_t q[64];
     for (int i = 0; i < 64; i++) q[i] = static_cast<int16_t>(qtables[64 * ci + i]);
+    bool odd = false;
     for (int64_t by = 0; by < bh; by++)
       for (int64_t bx = 0; bx < bw; bx++)
-        idct_islow(coefs[ci] + (by * bw + bx) * 64, q, plane.data() + by * 8 * stride + bx * 8,
-                   static_cast<int>(stride));
+        odd |= idct_islow(coefs[ci] + (by * bw + bx) * 64, q,
+                          plane.data() + by * 8 * stride + bx * 8, static_cast<int>(stride));
+    if (odd) return kSimdRange;
     // jdmaster.c: the component's own size, rounded up
     int pw = static_cast<int>((static_cast<int64_t>(width) * h + hmax - 1) / hmax);
     int ph = static_cast<int>((static_cast<int64_t>(height) * v + vmax - 1) / vmax);

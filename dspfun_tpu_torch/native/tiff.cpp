@@ -16,6 +16,10 @@
 // in libtiff), which dspfun_tpu_torch/io/imgcodecs.py turns into an
 // error.  Deflate is the standard library's zlib there, and the
 // predictor is undone there with numpy.
+//
+// Besides, tif_lab_rgb converts CIELab samples to RGB as Pillow's
+// convert("RGBA") does through LittleCMS: integer interpolation of a
+// 16-bit table that imgcodecs.py samples in floating point.
 #include <cstdint>
 #include <vector>
 
@@ -125,6 +129,57 @@ int64_t tif_packbits_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int64
     }
   }
   return op;
+}
+
+// LittleCMS's 8-bit read through its optimised 16-bit table (cmsintrp.c
+// TetrahedralInterp16 on a 33-point grid, cmsxform.c's 8 <-> 16 bit
+// conversions), as Pillow's convert("RGBA") of its LAB mode runs it:
+//   lab    uint8 [n][3], as Pillow's LAB holds them (L, a + 128, b + 128);
+//          each widened to 16 bits (x 257);
+//   clut   uint16 [33][33][33][3], L slowest;
+//   out    uint8 [n][stride]: R, G, B in the first three of each pixel
+//          ((x * 65281 + 2^23) >> 24 of the 16-bit result).
+void tif_lab_rgb(const uint8_t* lab, int64_t n, const uint16_t* clut, uint8_t* out,
+                 int stride) {
+  constexpr int kGrid = 33;
+  constexpr int64_t kOpta2 = 3 * kGrid * kGrid, kOpta1 = 3 * kGrid, kOpta0 = 3;
+  for (int64_t i = 0; i < n; i++) {
+    const uint8_t* p = lab + 3 * i;
+    int64_t f[3], r[3];
+    for (int k = 0; k < 3; k++) {
+      int64_t a = int64_t{p[k]} * 257 * (kGrid - 1);
+      f[k] = a + (a + 0x7fff) / 0xffff;        // _cmsToFixedDomain
+      r[k] = f[k] & 0xffff;
+    }
+    const uint16_t* lut =
+        clut + kOpta2 * (f[0] >> 16) + kOpta1 * (f[1] >> 16) + kOpta0 * (f[2] >> 16);
+    const int64_t x1 = p[0] == 255 ? 0 : kOpta2, y1 = p[1] == 255 ? 0 : kOpta1,
+                  z1 = p[2] == 255 ? 0 : kOpta0;
+    const int64_t rx = r[0], ry = r[1], rz = r[2];
+    int64_t o1, o2, w1, w2, w3;                 // corners 1 and 2 and the weights in order
+    if (rx >= ry) {
+      if (ry >= rz) {
+        o1 = x1, o2 = x1 + y1, w1 = rx, w2 = ry, w3 = rz;
+      } else if (rz >= rx) {
+        o1 = z1, o2 = x1 + z1, w1 = rz, w2 = rx, w3 = ry;
+      } else {
+        o1 = x1, o2 = x1 + z1, w1 = rx, w2 = rz, w3 = ry;
+      }
+    } else if (rx >= rz) {
+      o1 = y1, o2 = x1 + y1, w1 = ry, w2 = rx, w3 = rz;
+    } else if (ry >= rz) {
+      o1 = y1, o2 = y1 + z1, w1 = ry, w2 = rz, w3 = rx;
+    } else {
+      o1 = z1, o2 = y1 + z1, w1 = rz, w2 = ry, w3 = rx;
+    }
+    const int64_t o3 = x1 + y1 + z1;
+    for (int k = 0; k < 3; k++) {
+      int64_t c0 = lut[k], c1 = lut[o1 + k], c2 = lut[o2 + k], c3 = lut[o3 + k];
+      int64_t rest = (c1 - c0) * w1 + (c2 - c1) * w2 + (c3 - c2) * w3 + 0x8001;
+      uint32_t v = static_cast<uint16_t>(c0 + ((rest + (rest >> 16)) >> 16));
+      out[stride * i + k] = static_cast<uint8_t>((v * 65281u + 8388608u) >> 24);
+    }
+  }
 }
 
 }  // extern "C"

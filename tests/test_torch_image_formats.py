@@ -331,6 +331,31 @@ def test_pnm_bmp_tiff_encoders_decode_in_pillow():
             np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("hw", [(1, 1), (1, 130), (5, 7), (64, 48)])
+def test_tiff_writes_are_the_jax_packages_bytes(hw, tmp_path):
+    """``write_image`` to ``.tiff`` and ``.tif`` in each mode Pillow writes
+    (``I;16`` of one channel at depth 16, ``RGB`` and ``RGBA`` at depth 8):
+    the port's file is the JAX package's byte for byte (one sample: no
+    SamplesPerPixel tag, as Pillow writes it), or both raise (``.tif``
+    names no format in Pillow)."""
+    rng = np.random.default_rng(hw[1])
+    for channels, depth in (("I", 16), ("RGB", 8), ("RGBA", 8)):
+        pix = rng.random(hw + (len(channels),))
+        for ext in ("tiff", "tif"):
+            out = {}
+            for name, mod in (("jax", jimages), ("torch", timages)):
+                path = tmp_path / f"{name}.{ext}"
+                try:
+                    mod.write_image(str(path), pix, channels=channels, depth=depth)
+                    out[name] = path.read_bytes()
+                except (KeyError, ValueError) as e:
+                    out[name] = type(e)
+            if isinstance(out["jax"], bytes):
+                assert out["torch"] == out["jax"], (channels, ext)
+            else:
+                assert out["torch"] is ValueError, (channels, ext)
+
+
 @pytest.mark.parametrize("ext", ["bmp", "ppm", "tiff", "jpg", "gif"])
 def test_image_sequences_take_the_formats(ext, tmp_path, monkeypatch):
     """An image2 sequence of each format written by both packages is the

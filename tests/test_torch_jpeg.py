@@ -38,8 +38,10 @@ and writes JPEG (``dspfun_tpu/io/images.py``).
 
 import hashlib
 import io
+import re
 import struct
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,6 +51,8 @@ import chip_smoke
 from dspfun_tpu.io import images as jimages
 from dspfun_tpu_torch.io import images as timages
 from dspfun_tpu_torch.io import jpeg
+
+ROOT = Path(__file__).resolve().parent.parent
 
 SIZES = [(1, 1), (7, 9), (17, 33), (37, 53)]
 
@@ -837,6 +841,98 @@ def test_corrupt_files_raise():
             jpeg.decode_jpeg(d)
     with pytest.raises(ValueError, match="uint8 RGB"):
         jpeg.encode_jpeg(np.zeros((4, 4, 4), np.uint8))
+
+
+def _islow_pass(v, shift):
+    """One pass of jidctint.c's islow IDCT on int64 [..., 8]: its eight
+    outputs descaled by ``shift``, and the sums libjpeg-turbo's SIMD build
+    holds in 16-bit lanes."""
+    z2, z3 = v[..., 2], v[..., 6]
+    sums = [z2 + z3, v[..., 0] + v[..., 4], v[..., 0] - v[..., 4]]
+    z1 = (z2 + z3) * 4433
+    t2, t3 = z1 - z3 * 15137, z1 + z2 * 6270
+    t0, t1 = (v[..., 0] + v[..., 4]) * 8192, (v[..., 0] - v[..., 4]) * 8192
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    a0, a1, a2, a3 = v[..., 7], v[..., 5], v[..., 3], v[..., 1]
+    z1, z2, z3, z4 = a0 + a3, a1 + a2, a0 + a2, a1 + a3
+    sums += [z1, z2, z3, z4, z3 + z4]
+    z5 = (z3 + z4) * 9633
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    z1, z2 = z1 * -7373, z2 * -20995
+    a0, a1 = a0 * 2446 + z1 + z3, a1 * 16819 + z2 + z4
+    a2, a3 = a2 * 25172 + z2 + z3, a3 * 12299 + z1 + z4
+    out = np.stack([t10 + a3, t11 + a2, t12 + a1, t13 + a0,
+                    t13 - a0, t12 - a1, t11 - a2, t10 - a3], -1)
+    if shift:
+        out = (out + (1 << (shift - 1))) >> shift
+    return out, np.stack(sums, -1)
+
+
+def _simd_safe(dq):
+    """Per block of dequantised coefficients int64 [N, 8, 8]: whether
+    every product, sum and pass-1 output stays within 16 bits and every
+    output within the range-limit table's wrap (where libjpeg-turbo's
+    SIMD and C IDCTs agree)."""
+    fits = lambda a: ((a >= -32768) & (a <= 32767)).reshape(len(a), -1).all(1)  # noqa: E731
+    cols, sums1 = _islow_pass(dq.transpose(0, 2, 1), 11)
+    ws = cols.transpose(0, 2, 1)
+    out, sums2 = _islow_pass(ws, 18)
+    return (fits(dq) & fits(sums1) & fits(ws) & fits(sums2)
+            & ((out >= -512) & (out <= 511)).reshape(len(out), -1).all(1))
+
+
+def test_blocks_under_the_idct_check_bound_stay_in_range():
+    """``native/jpeg.cpp`` checks a block for values where libjpeg-turbo's
+    SIMD and C IDCTs part only when its dequantised coefficients sum past
+    ``kNarrowL1`` in absolute value.  A numpy model of islow's arithmetic
+    holds every block at that sum in range: 200,000 seeded random blocks
+    (sparse and dense, heavy-tailed), every coefficient alone at either
+    sign, and for every output sample the block of that sum whose signs
+    follow the sample's weights; a DC of twice the bound leaves it."""
+    src = (ROOT / "dspfun_tpu_torch" / "native" / "jpeg.cpp").read_text()
+    bound = int(re.search(r"constexpr int32_t kNarrowL1 = (\d+);", src).group(1))
+    rng = np.random.default_rng(1)
+    n = 200_000
+    v = rng.standard_normal((n, 64)) ** np.where(np.arange(n) % 2, 3, 1)[:, None]
+    v *= rng.random((n, 64)) < rng.random((n, 1))
+    v[~v.any(1), 0] = 1.0
+    blocks = np.trunc(v / np.abs(v).sum(1, keepdims=True) * bound).astype(np.int64)
+    single = np.concatenate([np.eye(64, dtype=np.int64), -np.eye(64, dtype=np.int64)]) * bound
+    wt, _ = _islow_pass(np.eye(8, dtype=np.int64), 0)           # [coefficient, sample]
+    w = np.einsum("ly,kx->yxlk", wt, wt).reshape(64, 64)        # [sample, coefficient]
+    signed = np.sign(w) * (bound // 64)
+    worst = np.concatenate([blocks, single, signed, -signed]).reshape(-1, 8, 8)
+    assert np.abs(worst).reshape(len(worst), -1).sum(1).max() <= bound
+    assert _simd_safe(worst).all()
+    assert not _simd_safe(np.pad(np.array([[[2 * bound]]]), ((0, 0), (0, 7), (0, 7)))).all()
+
+
+@pytest.mark.parametrize("dc_q", [8, 64, 255])
+def test_blocks_past_the_simd_range_are_refused(dc_q, tmp_path, monkeypatch):
+    """A white image's JPEG with its luma DC quantiser raised from 8 (a
+    damaged DQT): Pillow reads it through libjpeg-turbo's SIMD IDCT, whose
+    16-bit lanes saturate or wrap where the C IDCT the port follows wraps
+    through its range-limit table (at 64 an output of 1016: Pillow's 255,
+    the C version's 120) or carries 32 bits (at 255, where these blocks'
+    two wraps happen to meet).  The port refuses both, naming item 8e,
+    with cv2 present and blocked: it judges the arithmetic, not pixels it
+    cannot compute.  At 8 (the table as written) it reads as Pillow."""
+    data = bytearray(jpeg.encode_jpeg(np.full((16, 24, 3), 255, np.uint8)))
+    at = data.index(b"\xff\xdb")
+    assert data[at + 4:at + 6] == b"\x00\x08"         # table 0, its DC entry
+    data[at + 5] = dc_q
+    path = tmp_path / "in.jpg"
+    path.write_bytes(bytes(data))
+    jimages.read_image(str(path))
+    if dc_q == 8:
+        _same_read(tmp_path, bytes(data))
+        return
+    for blocked in (False, True):
+        with monkeypatch.context() as mp:
+            if blocked:
+                mp.setitem(sys.modules, "cv2", None)
+            with pytest.raises(ValueError, match="SIMD and C arithmetic.*item 8e"):
+                timages.read_image(str(path))
 
 
 # ---- four components: CMYK and YCCK ---------------------------------------------

@@ -459,7 +459,7 @@ def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
-    port's own native/gif.cpp, jpeg.cpp, quant.cpp and tiff.cpp) matches
+    port's own native/fax.cpp, gif.cpp, jpeg.cpp, quant.cpp and tiff.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -467,8 +467,8 @@ def test_package_data_ships_what_the_build_reads():
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
-    assert host == ["native/dspio.cpp", "native/ffv1.cpp", "native/gif.cpp", "native/jpeg.cpp",
-                    "native/quant.cpp", "native/tiff.cpp"]
+    assert host == ["native/dspio.cpp", "native/fax.cpp", "native/ffv1.cpp", "native/gif.cpp",
+                    "native/jpeg.cpp", "native/quant.cpp", "native/tiff.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]

@@ -13,9 +13,12 @@ Pillow and libtiff (``dspfun_tpu/io/images.py``).
 * Pillow's unpacker of every rawmode the codec meets, against
   ``Image.frombytes``; associated alpha (ExtraSamples 1) of every
   (colour, alpha) pair of 8 bits.
-* What the codec does not carry (JPEG-in-TIFF, CCITT, LZMA, YCbCr, LAB,
-  old-style LZW) goes to cv2, or is refused naming ROADMAP queue 1, item
-  8c, without it; a truncated or corrupt strip, tile or plane raises.
+* What the codec does not carry (old-style JPEG, LZMA, Zstandard,
+  ThunderScan, old-style LZW) goes to cv2, or is refused naming ROADMAP
+  queue 1, item 8c, without it; a truncated or corrupt strip, tile or
+  plane raises.  JPEG-in-TIFF, CCITT, YCbCr and LAB, which went to cv2
+  before the codec carried them, read as the JAX package reads them here
+  and in tests/test_torch_tiff_more.py.
 """
 
 import io
@@ -192,6 +195,10 @@ def test_pillows_own_files_with_predictor_and_strips(tmp_path):
 
 # ---- what the codec does not carry ------------------------------------------
 
+# the kinds that went to cv2 before the codec carried them
+CARRIED_NOW = ("tiled", "planar", "predictor 3", "JPEG", "CCITT", "YCbCr", "CCITT RLE", "LAB")
+
+
 def _not_carried(kind):
     s = _samples("RGB", 8, 8, 0)
     if kind == "tiled":
@@ -200,24 +207,29 @@ def _not_carried(kind):
         return make_tiff(s, "RGB", "<", 8, planar=True)
     if kind == "predictor 3":
         return make_tiff(_samples("F", 8, 8, 0), "F", "<", 8, 3)
-    if kind in ("YCbCr", "LAB"):
+    if kind == "JPEG":
+        return make_tiff(s, "YCbCr", compression=7, rows_per_strip=16)
+    if kind == "YCbCr":
+        return make_tiff(s, "YCbCr", "<", 5, subsampling=(2, 2))
+    if kind == "LAB":
         return make_tiff(s, kind, "<", 1)
-    comp = {"JPEG": 7, "LZMA": 34925, "CCITT RLE": 2}.get(kind)
-    if comp is not None:
-        return make_tiff(s, "RGB", "<", 1, extra_tags={259: (3, [comp])})
-    return make_tiff(s[..., :1] > 127, "1", "<", 1, extra_tags={259: (3, [4])})   # CCITT G4
+    if kind in ("CCITT", "CCITT RLE"):
+        return make_tiff((s[..., :1] > 127).astype(np.uint8), "1", "<", 4 if kind == "CCITT" else 2)
+    comp = {"LZMA": 34925, "old-style JPEG": 6, "Zstandard": 50000, "ThunderScan": 32809}[kind]
+    return make_tiff(s, "RGB", "<", 1, extra_tags={259: (3, [comp])})
 
 
 @pytest.mark.parametrize("kind", ["tiled", "planar", "predictor 3", "JPEG", "CCITT", "YCbCr",
-                                  "LAB", "LZMA", "CCITT RLE"])
+                                  "LAB", "LZMA", "CCITT RLE", "old-style JPEG", "Zstandard",
+                                  "ThunderScan"])
 def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
-    """JPEG-in-TIFF, CCITT, LZMA, YCbCr and LAB go to cv2, or are refused
-    naming item 8c without it.  Tiles, planar files and the
-    floating-point predictor, which went to cv2 before the codec carried
-    them, read as the JAX package reads them, with cv2 importable and
-    blocked."""
+    """Old-style JPEG, LZMA, Zstandard and ThunderScan go to cv2, or are
+    refused naming item 8c without it.  Tiles, planar files, the
+    floating-point predictor, JPEG-in-TIFF, CCITT (Group 4 and RLE), YCbCr
+    and LAB, which went to cv2 before the codec carried them, read as the
+    JAX package reads them, with cv2 importable and blocked."""
     data = _not_carried(kind)
-    if kind in ("tiled", "planar", "predictor 3"):
+    if kind in CARRIED_NOW:
         assert imgcodecs.tiff_not_carried(data) is None
         assert _same_or_both_raise(tmp_path, data, monkeypatch)
         return
@@ -285,7 +297,7 @@ def test_truncated_and_corrupt_files_raise(compression, tmp_path):
 
 # ---- the key matrix: every OPEN_INFO key the codec carries ---------------------
 
-KEYED = [m for m in MODES if m not in ("YCbCr", "LAB")]
+KEYED = [m for m in MODES if m != "YCbCr"]     # test_torch_tiff_more.py: YCbCr
 
 
 @pytest.mark.parametrize("compression", [1, 5, 8, 32773])
@@ -294,7 +306,7 @@ def test_every_key_reads_as_pillow_reads_it(mode, compression, tmp_path, monkeyp
     """Each mode of ``MODES`` (one key of Pillow's ``OPEN_INFO`` per byte
     order: gray of 1 to 32 bits, signed and float samples, palettes of 1
     to 8 bits, PX and PA, RGB(A) with their extra samples, CMYK of 8 and
-    16 bits) in both byte orders, in strips of 3 rows at 11x13, read as
+    16 bits, CIELab) in both byte orders, in strips of 3 rows at 11x13, read as
     RGB, RGBA and I: the JAX package's pixels and depth (32-bit and float
     samples past 0 and 65535 kept, as Pillow's ``I`` and clamped ``F``
     make them), or an error where Pillow has no such key or libtiff
@@ -310,7 +322,7 @@ def test_every_key_reads_as_pillow_reads_it(mode, compression, tmp_path, monkeyp
 
 
 LAYOUT_MODES = ["1", "L;4", "L inverted", "I;16", "I;32S", "F", "LA", "P;4", "P", "RGB", "RGBa",
-                "RGBX", "RGB;16", "RGBA;16", "CMYK", "CMYKX", "CMYK;16"]
+                "RGBX", "RGB;16", "RGBA;16", "CMYK", "CMYKX", "CMYK;16", "LAB"]
 LAYOUTS = {
     "tiles": dict(tile=(16, 16)),               # edge tiles to the right and below
     "tiles 32x16 predictor 2": dict(tile=(32, 16), predictor=2),
@@ -521,9 +533,9 @@ def test_phase_19_4k_digests_are_pillows():
 
 def test_the_key_table_is_pillows():
     """``_OPEN_INFO`` is Pillow's ``OPEN_INFO`` (mode and rawmode of every
-    key) but for photometric 6 (YCbCr) and 8 (LAB), which stay refused."""
+    key, YCbCr's and LAB's too)."""
     from PIL import TiffImagePlugin
 
     pillow = {({b"II": "<", b"MM": ">"}[k[0]],) + k[1:]: v
-              for k, v in TiffImagePlugin.OPEN_INFO.items() if k[1] not in (6, 8)}
+              for k, v in TiffImagePlugin.OPEN_INFO.items()}
     assert imgcodecs._OPEN_INFO == pillow

@@ -62,6 +62,7 @@ and, to time the port's TIFF decoders against Pillow's on this host at
 
 from __future__ import annotations
 
+import bisect
 import hashlib
 import io
 import struct
@@ -217,8 +218,143 @@ def _row_bytes(block: np.ndarray, bits: int, bo: str, predictor: int) -> list[by
     return [r.tobytes() for r in u.astype(f"{bo}u{bits // 8}")]
 
 
+# ---- CCITT T.4 / T.6 (fax) coding, bits as strings, for make_tiff ------------
+
+_WHITE_TERM = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 110100 "
+    "110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 0101011 "
+    "0010011 0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 00010100 "
+    "00010101 00010110 00010111 00101000 00101001 00101010 00101011 00101100 00101101 00000100 "
+    "00000101 00001010 00001011 01010010 01010011 01010100 01010101 00100100 00100101 01011000 "
+    "01011001 01011010 01011011 01001010 01001011 00110010 00110011 00110100").split()
+_BLACK_TERM = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 "
+    "00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 "
+    "00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 000011001100 "
+    "000011001101 000001101000 000001101001 000001101010 000001101011 000011010010 000011010011 "
+    "000011010100 000011010101 000011010110 000011010111 000001101100 000001101101 000011011010 "
+    "000011011011 000001010100 000001010101 000001010110 000001010111 000001100100 000001100101 "
+    "000001010010 000001010011 000000100100 000000110111 000000111000 000000100111 000000101000 "
+    "000001011000 000001011001 000000101011 000000101100 000001011010 000001100110 "
+    "000001100111").split()
+_WHITE_MAKEUP = (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 01101000 01100111 011001100 "
+    "011001101 011010010 011010011 011010100 011010101 011010110 011010111 011011000 011011001 "
+    "011011010 011011011 010011000 010011001 010011010 011000 010011011").split()
+_BLACK_MAKEUP = (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 "
+    "0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 "
+    "0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 0000001110111 "
+    "0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 0000001011011 "
+    "0000001100100 0000001100101").split()
+_EXT_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 "
+               "000000010101 000000010110 000000010111 000000011100 000000011101 000000011110 "
+               "000000011111").split()      # 1792 .. 2560, either colour
+FAX_EOL = "000000000001"
+_MODES_2D = {"P": "0001", "H": "001", 0: "1", 1: "011", 2: "000011", 3: "0000011",
+             -1: "010", -2: "000010", -3: "0000010"}
+
+
+def fax_run(run: int, black: bool) -> str:
+    """The T.4 code words of one run: 2560s, a make-up code, a terminating
+    code."""
+    term, makeup = (_BLACK_TERM, _BLACK_MAKEUP) if black else (_WHITE_TERM, _WHITE_MAKEUP)
+    out = []
+    while run >= 2560:
+        out.append(_EXT_MAKEUP[-1])
+        run -= 2560
+    if run >= 64:
+        m = run // 64
+        out.append(makeup[m - 1] if m <= 27 else _EXT_MAKEUP[m - 28])
+    out.append(term[run % 64])
+    return "".join(out)
+
+
+def _changes(row: np.ndarray) -> list[int]:
+    """The changing elements of a row of 0/1 (the first pixel against an
+    imaginary 0), then the width."""
+    prev = np.concatenate([[0], row[:-1]])
+    return [int(p) for p in np.flatnonzero(row != prev)] + [len(row)]
+
+
+def fax_1d(row: np.ndarray) -> str:
+    """A row of 0/1 (1 the "black" runs) in Modified Huffman."""
+    ch = _changes(row)
+    out, pos, black = [], 0, False
+    for c in ch:
+        out.append(fax_run(c - pos, black))
+        pos, black = c, not black
+        if c >= len(row):
+            break
+    return "".join(out)
+
+
+def fax_2d(row: np.ndarray, ref: np.ndarray) -> str:
+    """A row coded against the reference row ``ref`` in T.4's 2-D modes
+    (the k-th changing element of a row, from 0, starts a black run where
+    k is even)."""
+    w = len(row)
+    cur, rch = _changes(row) + [w], _changes(ref) + [w, w]
+    out, a0, c = [], -1, 0
+    while a0 < w:
+        a1 = cur[bisect.bisect_right(cur, a0)]
+        k = bisect.bisect_right(rch, a0)
+        if k < len(rch) - 2 and rch[k] < w and k % 2 != c:    # b1: the colour opposite a0's
+            k += 1
+        b1, b2 = rch[k], rch[k + 1] if rch[k] < w else w
+        if b2 < a1:
+            out.append(_MODES_2D["P"])
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(_MODES_2D[a1 - b1])
+            a0, c = a1, 1 - c
+        else:
+            a2 = cur[bisect.bisect_right(cur, a1)] if a1 < w else w
+            out += [_MODES_2D["H"], fax_run(a1 - max(a0, 0), c == 1), fax_run(a2 - a1, c == 0)]
+            a0 = a2
+    return "".join(out)
+
+
+def _pack_bits(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def fax_encode(block: np.ndarray, compression: int, two_d_every: int = 0,
+               eol: str = "each", fill_bits: bool = False, rtc: bool = True) -> bytes:
+    """A block [rows, w] of 0/1 as CCITT data: compression 2 (Modified
+    Huffman, each row byte-aligned, no EOL), 3 (T.4: 1-D rows, or with
+    ``two_d_every`` k a 1-D row then k - 1 2-D rows, each row behind an
+    EOL (``eol`` "each"; "none": no EOL at all) and, for 2-D, its tag bit;
+    ``fill_bits``: zeros before each EOL so that it ends on a byte; RTC
+    (six EOLs) last with ``rtc``), or 4 (T.6: 2-D rows against the row
+    above, the first against white, then EOFB)."""
+    rows, w = block.shape
+    ref = np.zeros(w, np.uint8)
+    if compression == 2:
+        return b"".join(_pack_bits(fax_1d(r)) for r in block)
+    out = ""
+    for k, row in enumerate(block):
+        if compression == 4:
+            out += fax_2d(row, ref)
+        else:
+            one_d = not two_d_every or k % two_d_every == 0
+            if eol == "each":
+                if fill_bits:
+                    out += "0" * ((-len(out) - len(FAX_EOL)) % 8)
+                out += FAX_EOL + (("1" if one_d else "0") if two_d_every else "")
+            out += fax_1d(row) if one_d else fax_2d(row, ref)
+        ref = row
+    if compression == 4:
+        out += FAX_EOL * 2
+    elif rtc:
+        out += (FAX_EOL + ("1" if two_d_every else "")) * 6
+    return _pack_bits(out)
+
+
 def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=None,
-              cmap=None, extra_tags=(), tile=None, planar=False, fill_order=1) -> bytes:
+              cmap=None, extra_tags=(), tile=None, planar=False, fill_order=1, fax=None,
+              subsampling=None) -> bytes:
     """A TIFF of samples [h, w, spp] (uint8 or uint16 below 17 bits, the
     int or float type of the sample format at 16 and 32) in byte order
     ``bo`` ('<' II, '>' MM): in strips of ``rows_per_strip`` rows (the last
@@ -228,9 +364,19 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
     compressed as asked (``COMPRESS``), with the horizontal (2) or
     floating-point (3) predictor under LZW and deflate; ``fill_order`` 2
     with the bits of every stored byte reversed (after compression, as
-    libtiff reverses them before it decompresses)."""
+    libtiff reverses them before it decompresses).  CCITT (compressions
+    2, 3 and 4) of 1-bit samples through :func:`fax_encode`, ``fax`` its
+    options (T4Options or T6Options follow them, unless ``extra_tags``
+    sets them).  YCbCr samples (Y, Cb, Cr) with ``subsampling`` (h, v)
+    are stored in its blocks (the block's luma, then the Cb and Cr of its
+    top-left sample; edge samples repeated to whole blocks), with the
+    YCbCrSubsampling tag.  Compression 7 (JPEG) takes RGB samples, each
+    strip or tile coded by the port's ``encode_jpeg`` (Pillow's 4:2:0),
+    its tables moved to JPEGTables, as YCbCr with subsampling 2x2."""
     photo, bits, spp, extra, fmt = MODES[mode]
     h, w, _ = samples.shape
+    if compression == 7:
+        return _jpeg_tiff(samples, bo, rows_per_strip, tile, extra_tags)
     planes = [samples[..., k:k + 1] for k in range(spp)] if planar else [samples]
     if compression not in _PREDICTED:
         predictor_used = 1
@@ -254,22 +400,23 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
         else:
             full = plane
         for y, x in grid:
-            rows = _row_bytes(full[y:y + th, x:x + tw], bits, bo, predictor_used)
-            blk = COMPRESS[compression](b"".join(rows))
+            if compression in (2, 3, 4):
+                blk = fax_encode(full[y:y + th, x:x + tw, 0], compression, **(fax or {}))
+            elif subsampling:
+                blk = COMPRESS[compression](_ycbcr_blocks(full[y:y + th, x:x + tw], *subsampling))
+            else:
+                rows = _row_bytes(full[y:y + th, x:x + tw], bits, bo, predictor_used)
+                blk = COMPRESS[compression](b"".join(rows))
             if fill_order == 2:
                 blk = _BITREV[np.frombuffer(blk, np.uint8)].tobytes()
             blocks.append(blk)
-    offsets, pos = [], 8
-    for blk in blocks:
-        offsets.append(pos)
-        pos += len(blk)
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
             262: (3, [photo]), 277: (3, [spp]), 284: (3, [2 if planar else 1])}
     if tile:
-        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (4, []),
                      325: (4, [len(b) for b in blocks])})
     else:
-        tags.update({273: (4, offsets), 278: (4, [th]), 279: (4, [len(b) for b in blocks])})
+        tags.update({273: (4, []), 278: (4, [th]), 279: (4, [len(b) for b in blocks])})
     if predictor != 1:
         tags[317] = (3, [predictor])
     if extra:
@@ -280,7 +427,27 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
         tags[266] = (3, [fill_order])
     if cmap is not None:
         tags[320] = (3, list(cmap))
+    if subsampling:
+        tags[530] = (3, list(subsampling))
+    if compression == 3 and fax and fax.get("two_d_every"):
+        tags[292] = (4, [1 | (4 if fax.get("fill_bits") else 0)])
+    elif compression == 3 and fax and fax.get("fill_bits"):
+        tags[292] = (4, [4])
     tags.update(extra_tags)
+    return _assemble(blocks, tags, bo)
+
+
+def _assemble(blocks, tags, bo) -> bytes:
+    """A TIFF of the stored strips or tiles and the tags, (type, values)
+    by tag; the offsets (273 or 324) are filled in.  Types: 3 SHORT, 4
+    LONG, 5 RATIONAL (values in (numerator, denominator) pairs), 7
+    UNDEFINED (bytes)."""
+    offsets, pos = [], 8
+    for blk in blocks:
+        offsets.append(pos)
+        pos += len(blk)
+    tags = dict(tags)
+    tags[324 if 324 in tags else 273] = (4, offsets)
     body = b"".join(blocks)
     body += b"\0" * (pos % 2)
     pos += pos % 2
@@ -288,8 +455,8 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
     out_of_line = bytearray()
     ifd_at = data_at
     for tag, (typ, vals) in sorted(tags.items()):
-        raw = struct.pack(bo + {3: "H", 4: "I"}[typ] * len(vals), *vals)
-        entries.append((tag, typ, len(vals), raw))
+        raw = struct.pack(bo + {3: "H", 4: "I", 5: "I", 7: "B"}[typ] * len(vals), *vals)
+        entries.append((tag, typ, len(vals) // (2 if typ == 5 else 1), raw))
         if len(raw) > 4:
             ifd_at += len(raw) + len(raw) % 2
     ifd = struct.pack(bo + "H", len(entries))
@@ -303,6 +470,65 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
             ifd += struct.pack(bo + "HHI", tag, typ, n) + raw.ljust(4, b"\0")
     head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(bo + "I", ifd_at)
     return head + body + bytes(out_of_line) + ifd + b"\0\0\0\0"
+
+
+def _ycbcr_blocks(samples: np.ndarray, hs: int, vs: int) -> bytes:
+    """YCbCr samples [h, w, 3] in TIFF's subsampled layout: per block of
+    hs x vs luma samples (edge samples repeated to whole blocks) its luma,
+    row by row, then the Cb and Cr of its top-left sample."""
+    h, w, _ = samples.shape
+    ph, pw = -(-h // vs) * vs, -(-w // hs) * hs
+    full = np.pad(samples, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+    y = full[..., 0].reshape(ph // vs, vs, pw // hs, hs).transpose(0, 2, 1, 3)
+    y = y.reshape(ph // vs, pw // hs, hs * vs)
+    c = full[::vs, ::hs, 1:]
+    return np.ascontiguousarray(np.concatenate([y, c], -1), np.uint8).tobytes()
+
+
+def split_jpeg(stream: bytes) -> tuple[bytes, bytes]:
+    """A JPEG file as a TIFF holds it: (JPEGTables: SOI, its DQT and DHT
+    segments, EOI; the abbreviated stream: SOI, the rest but APPn)."""
+    tables, rest, pos = b"\xff\xd8", b"\xff\xd8", 2
+    while True:
+        code = stream[pos + 1]
+        if code == 0xDA:
+            return tables + b"\xff\xd9", rest + stream[pos:]
+        n = struct.unpack_from(">H", stream, pos + 2)[0]
+        seg = stream[pos:pos + 2 + n]
+        if code in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= code <= 0xEF:
+            rest += seg
+        pos += 2 + n
+
+
+def _jpeg_tiff(rgb, bo, rows_per_strip, tile, extra_tags) -> bytes:
+    """make_tiff's compression 7: strips of ``rows_per_strip`` rows or
+    tiles of ``tile`` (padded with the edge samples), each the port's
+    4:2:0 JPEG of its RGB, sharing one JPEGTables."""
+    from dspfun_tpu_torch.io import jpeg  # noqa: PLC0415
+
+    h, w, _ = rgb.shape
+    if tile:
+        th, tw = tile
+        full = np.pad(rgb, ((0, -h % th), (0, -w % tw), (0, 0)), mode="edge")
+        grid = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        th, tw, full = min(rows_per_strip or h, h), w, rgb
+        grid = [(y, 0) for y in range(0, h, th)]
+    blocks, tables = [], b""
+    for y, x in grid:
+        tables, blk = split_jpeg(jpeg.encode_jpeg(np.ascontiguousarray(full[y:y + th, x:x + tw])))
+        blocks.append(blk)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * 3), 259: (3, [7]), 262: (3, [6]),
+            277: (3, [3]), 284: (3, [1]), 347: (7, list(tables)), 530: (3, [2, 2])}
+    if tile:
+        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (4, []),
+                     325: (4, [len(b) for b in blocks])})
+    else:
+        tags.update({273: (4, []), 278: (4, [th]), 279: (4, [len(b) for b in blocks])})
+    tags.update(extra_tags)
+    return _assemble(blocks, tags, bo)
 
 
 def tiff_samples(mode, h, w, seed) -> np.ndarray:
@@ -370,11 +596,95 @@ def layout_tiffs() -> dict[str, bytes]:
     return out
 
 
+def doc_page(h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded bilevel page [h, w] of 0 (paper) and 1 (ink), as a
+    document scanner sees one: margins, lines of word-like blocks of
+    glyph strokes, a ruled box."""
+    rng = np.random.default_rng(seed)
+    page = np.zeros((h, w), np.uint8)
+    m, pitch = max(w // 16, 2), max(h // 60, 12)
+    for top in range(m, h - m - pitch, pitch):
+        x = m + int(rng.integers(0, 4 * pitch))
+        while x < w - m - pitch:
+            word = int(rng.integers(2, 9)) * (pitch // 2)
+            for gx in range(x, min(x + word, w - m), max(pitch // 2, 2)):
+                gh, gw = int(rng.integers(pitch // 3, 2 * pitch // 3 + 1)), max(pitch // 4, 1)
+                page[top + pitch - gh:top + pitch, gx:gx + gw] = 1
+                if rng.random() < 0.4:
+                    page[top + pitch - gh:top + pitch - gh + 2, gx:gx + pitch // 2] = 1
+            x += word + pitch
+    page[m // 2:m // 2 + 3, m:w - m] = 1
+    page[h - m // 2 - 3:h - m // 2, m:w - m] = 1
+    return page
+
+
 def cmyk_levels(rgb: np.ndarray) -> np.ndarray:
     """A fixed CMYK of 8-bit RGB levels: K half the darkness, C, M, Y the
     rest of each channel's."""
     k = (255 - rgb.max(axis=-1, keepdims=True).astype(np.int32)) // 2
     return np.concatenate([255 - rgb.astype(np.int32) - k, k], -1).astype(np.uint8)
+
+
+# the small TIFFs of chip_smoke.py phase 20(a) written here by hand: name ->
+# (mode, samples' (kind, seed), make_tiff's keywords); 45x67 samples
+REFBW = {532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])}
+MORE_TIFFS = {
+    "JPEG YCbCr 4:2:0 tiled": ("YCbCr", ("levels", 41), dict(compression=7, tile=(32, 48))),
+    "YCbCr 2x2 LZW ReferenceBlackWhite": ("YCbCr", ("samples", 42), dict(
+        compression=5, subsampling=(2, 2), rows_per_strip=8, extra_tags=REFBW)),
+    "YCbCr 4x2 LZW ReferenceBlackWhite": ("YCbCr", ("samples", 43), dict(
+        compression=5, subsampling=(4, 2), rows_per_strip=8, extra_tags=REFBW)),
+    "G3 1-D": ("1 inverted", ("page", 44), dict(compression=3, rows_per_strip=16)),
+    "G3 2-D EOL fill": ("1 inverted", ("page", 45), dict(
+        compression=3, fax=dict(two_d_every=4, fill_bits=True))),
+    "G4 FillOrder 2": ("1 inverted", ("page", 46), dict(compression=4, fill_order=2)),
+    "CCITT RLE": ("1", ("page", 47), dict(compression=2, rows_per_strip=10)),
+    "LAB deflate": ("LAB", ("samples", 48), dict(compression=8, rows_per_strip=8)),
+    "LAB planar deflate": ("LAB", ("samples", 49), dict(compression=8, rows_per_strip=8,
+                                                        planar=True)),
+}
+# Pillow's JPEG-in-TIFF goldens of phase 20(a) (tests/goldens/), which
+# encode_jpeg cannot write: 64x96 levels of seed 48 (YCbCr at 1x1 in
+# strips of 8 rows, RGB, gray, CMYK)
+TIFF_JPEG_GOLDENS = {"tiffjpeg_ycbcr11.tif": "YCbCr", "tiffjpeg_rgb.tif": "RGB",
+                     "tiffjpeg_gray.tif": "L", "tiffjpeg_cmyk.tif": "CMYK"}
+
+
+def more_tiffs() -> dict[str, bytes]:
+    """Each of ``MORE_TIFFS`` written by :func:`make_tiff` (no Pillow)."""
+    out = {}
+    for name, (mode, (kind, seed), kw) in MORE_TIFFS.items():
+        if kind == "levels":
+            s = levels((45, 67), seed)
+        elif kind == "page":
+            s = doc_page(45, 67, seed)[..., None]
+        else:
+            s = np.random.default_rng(seed).integers(0, 256, (45, 67, 3)).astype(np.uint8)
+        out[name] = make_tiff(s, mode, **kw)
+    return out
+
+
+def tiff_jpeg_goldens() -> dict[str, bytes]:
+    """Pillow's bytes of each of ``TIFF_JPEG_GOLDENS``."""
+    from PIL import Image  # noqa: PLC0415
+
+    img = Image.fromarray(levels((64, 96), 48))
+    return {name: _save(img.convert(mode), "TIFF", compression="jpeg",
+                        **({"strip_size": 96 * 3 * 8} if mode == "YCbCr" else {}))
+            for name, mode in TIFF_JPEG_GOLDENS.items()}
+
+
+def tiff_4k(kind: str, hw, seed: int, noise: float) -> bytes:
+    """Phase 20(b)'s 4K TIFFs of the seeded levels: "jpeg" the 256x256
+    tiled 4:2:0 JPEG-in-TIFF, "g4" a G4 page of :func:`doc_page`,
+    "ycbcr" the levels as YCbCr samples at 2x2 in deflate strips of 64
+    rows."""
+    if kind == "g4":
+        return make_tiff(doc_page(hw[0], hw[1], seed)[..., None], "1 inverted", compression=4)
+    rgb = levels(hw, seed, noise)
+    if kind == "jpeg":
+        return make_tiff(rgb, "YCbCr", compression=7, tile=(256, 256))
+    return make_tiff(rgb, "YCbCr", compression=8, subsampling=(2, 2), rows_per_strip=64)
 
 
 def rgba_digest(pixels: np.ndarray) -> str:
@@ -619,7 +929,7 @@ def main(argv=None) -> None:
         rates()
         return
     for made, digest in ((fixtures(), digests), (gif_fixtures(), gif_digests),
-                         (cmyk_fixtures(), cmyk_digests)):
+                         (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests)):
         for name, data in made.items():
             (GOLDENS / name).write_bytes(data)
             print(f"    {name!r}: {digest(data)},  # {len(data)} bytes")
