@@ -361,6 +361,25 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    launches of kernel #2 (at least one); seconds by stage.  The int8
    kernels are held to their plain versions at every shape the phase gave
    them;
+21. main path 17, WebP through the port's own decoder (``io/webp.py``,
+   ``native/webp.cpp``).  (a) The WebP fixtures of ``tests/goldens/``
+   (``WEBP_FIXTURES``: Pillow's lossy files at quality 80 and 100, RGBA
+   lossy with its ALPH chunk, lossless RGB, RGBA and a 16-colour palette,
+   a two-frame animation, a VP8X file written by hand with a raw
+   gradient-filtered ALPH chunk and metadata chunks, the 4K file and the 8
+   1080p frames of (c)) each read through ``images._decoder`` to the
+   port's decoder, file and RGBA pixels equal to the JAX package's sha256
+   (pinned by tests/test_torch_webp.py).  (b) ``codec_webp_4k.webp``
+   (Pillow's quality 80 of phase 17's 4K levels) decoded, the best of 5
+   in seconds and MB/s; ``spec -t flat -G 1000`` of it at the default
+   policy and at ``i8@1e-5``, each spectrum equal to the one from the same
+   pixels as a PNG, kernels #1-#2 once a tool at ``i8@1e-5`` (none at the
+   default), and ``ispec`` at ``i8@1e-5`` back to PNG.  (c) motion's
+   lowpass (phase 6's argv) on the 8 1080p WebP frames to y4m, equal byte
+   for byte to the same run on a PPM sequence of their decoded frames,
+   with the same launches of kernel #2 (at least one); seconds by stage.
+   The int8 kernels are held to their plain versions at every shape the
+   phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -4249,6 +4268,191 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+# phase 21: WebP through the port's own decoder (io/webp.py, native/webp.cpp) -------
+# The WebP fixtures of tests/goldens/ (tests/torch_codec_fixtures.py:webp_fixtures):
+# the sha256 of each file and of the JAX package's read_image(..., "RGBA") float64
+# pixels of it (Pillow's decode).  tests/test_torch_webp.py pins them to Pillow.
+WEBP_FIXTURES = {
+    "webp_lossy.webp": ("7c4266d534468aba5b5d35ff704bc930c88fe541a0676812aa85e450245f151f",
+                       "691939cbbd2a94768bac8974898e7135cfefde233f64d721826b68832ab93025"),
+    "webp_lossy_q100_m6.webp": ("0b4682d020bde6a0a2e854a9f38a0f78a377047500b411034092b6d3e6b0e8bc",
+                               "4aeee6aa77437427788bb9d335894b6d974247fb28018e91e1aed59d4df5a5de"),
+    "webp_lossy_alpha.webp": ("22b0575868bc6d851cfb0f57ed538c93fb175928ed7d25ffb24af59a974c4467",
+                             "e870cc1639c8c579ba0d831855ddba35830add7867b832ae8e81a0798d43445f"),
+    "webp_lossless.webp": ("d65dea2e8965a35a3445cdefd1b340c57496742a2b45da06dfe147aa23f2caa8",
+                          "bd9bac46cea0d610db4b1366e742f3edccc52d2526fe59e77194ad62bf323d42"),
+    "webp_lossless_alpha.webp": ("0f881ff708314ee7168c011a33a993e8f4460af0266fc818ec9fa4e8083fe62e",
+                                "0884f0d0555d3263d94b46ea78c0603d2d9cab3a2700cae32480216df670bc11"),
+    "webp_palette16.webp": ("a5c774ad837bd3bedefbc167d08bc6772c354a060aed31f8ecfd34562a6a194f",
+                           "144ee0f338893e62eaedd885c4b3876f8b97ad5147b91ef89c0b65d674c83cdc"),
+    "webp_anim.webp": ("4e7d4587ad2980490e1d1a847fc79bdd1409ba8855acfbcc6ce7799f49d45967",
+                      "0759c5074efcfb2e34f12a790775d4c7113c2b789ed2a6b7eacdf173da16698d"),
+    "webp_hand_raw_alph.webp": ("08366852dac73c35e66ffbcb735c067ca7f58e8315b53dace15bb377d97fbe5a",
+                               "69a4f7a6479979c9aa96a1d5ef8299af1a70e145a91a054733b9987f8118a9e1"),
+    "codec_webp_4k.webp": ("2161b336d36b588d940d467d324d9f2456e23869c6de14bda2adbdb5f8903fec",
+                          "db44f77ea613e7cbef5f93a5a211ef420ea7d63bbe847b91796affe5c91c2011"),
+    "webp_motion0000.webp": ("fe6cecf7d3e4f7615f5f4607d23aab17ea41f590c3eb229dfa71bc9b03dae5c0",
+                            "3bc282816f2dea5302a424c9f2bb44f3d31865f8c6497b2a93c886480fcee9df"),
+    "webp_motion0001.webp": ("4a8e20f54ed1b79e84eef789bd351713129300956c80c0cc3eddddb240211e65",
+                            "b15014613e04232cad046f226c67bd0234eb140b409dfac0179092908eac925e"),
+    "webp_motion0002.webp": ("1e1e4ad36ad0620b7e6fa25f39498a7a93a86f83920e22267663c9fc01bf1ae9",
+                            "4afaea4f902a9bfc54ba54693fb38517e56fed7ef6084479cda40046417ddd50"),
+    "webp_motion0003.webp": ("7beaeaf627796426f2def864f1aec1b5bf4e3eadd8fefef0c2fc5faa36d95df0",
+                            "be44421a410f4d5494d691f7bc40192859ad6758711a467e4fc1c60fa991d321"),
+    "webp_motion0004.webp": ("f635e6435121d4037e5ce49cb7fa136f38e4eaba9f3d397b274bc7644e4a0618",
+                            "20a312c2b5e391dc84445fef696af92274abbfece6614563c0ae4edce6c69406"),
+    "webp_motion0005.webp": ("e23434a944716785ae0c73d603f74e47bafc51025d185343031979c1af42ad30",
+                            "1caec465a739858583767e46c89394639efe2f7fcea31eb2cd8b715f9108305c"),
+    "webp_motion0006.webp": ("7e8b6ebfa91bd6455b5a3d685e85b89b45a935447805d27fa993bcfaa01c05a4",
+                            "f102380adfdc551019cf6a6c5bd6821df33a66ab7fbdc1213f14e38d773c83f6"),
+    "webp_motion0007.webp": ("3c528034d62b660285c3ef1922e17f187a6c1786830ab803d310299f61675ffc",
+                            "7aa0036cd9e9b524af78b237dccab2494fb8c6cb10051c3f798ab8a00f119ea5"),
+}
+WEBP_FRAMES = 8                   # (c): motion's lowpass on the 8 1080p WebP frames
+WEBP_REPEATS = 5                  # (b): the 4K decode, best of
+
+
+def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_FRAMES,
+                device_args=()) -> dict:
+    """Main path 17: WebP through the port's own decoder.  (a) The WebP
+    fixtures of tests/goldens/, each read to the JAX package's digests;
+    (b) the 4K file decoded (best of ``WEBP_REPEATS``, seconds and MB/s),
+    spec of it at the default policy and at ``i8@1e-5`` against the same
+    pixels given as a PNG, and ispec at ``i8@1e-5`` back to PNG; (c)
+    motion's lowpass on the 1080p WebP frames to y4m against a PPM
+    sequence of their decoded frames.  Returns the kernels' launches over
+    the WebP runs."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs, webp
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    webp._load()
+    print(f"phase 21 libwebp (native/webp.cpp) build and load: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_webp_") as tmp:
+        # ---- (a) the fixtures to the JAX package's digests -------------------------
+        for name, want in WEBP_FIXTURES.items():
+            path = os.path.join(gold, name)
+            with open(path, "rb") as f:
+                data = f.read()
+            if images._decoder(data) is not webp.decode_webp:
+                raise RuntimeError(f"phase 21a: {name} does not take the port's decoder")
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), fx.rgba_digest(img.pixels))
+            print(f"phase 21a WebP {name} {img.width}x{img.height}: {len(data)} bytes; read "
+                  f"{dec_s:.4f} s; file and pixels == the JAX package's digests: "
+                  f"{got == want}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 21a: WebP {name} is not Pillow's: {got}")
+
+        # ---- (b) the 4K file: decode, spec and ispec against a PNG of its pixels ---
+        src = os.path.join(gold, "codec_webp_4k.webp")
+        with open(src, "rb") as f:
+            data = f.read()
+        best = float("inf")
+        for _ in range(WEBP_REPEATS):
+            t0 = time.perf_counter()
+            arr, _ = webp.decode_webp(data)
+            best = min(best, time.perf_counter() - t0)
+        bh, bw = arr.shape[:2]
+        print(f"phase 21b WebP {bw}x{bh}: {len(data)} bytes; decode {best:.4f} s (best of "
+              f"{WEBP_REPEATS}; {bh * bw * 3 / 1e6 / best:.1f} MB/s of RGB, "
+              f"{len(data) / 1e6 / best:.2f} MB/s of file)", flush=True)
+        pix = images.read_image(src).pixels
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, pix)
+        spec_i8 = {n: 1 for n, side in (("left3", bh), ("right3", bw)) if side >= 256}
+        for policy in (None, "i8@1e-5"):
+            tag = policy or "default"
+            out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("ref", "webp")}
+            with _policy(policy):
+                for name, inp in (("ref", ref), ("webp", src)):
+                    fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                        int8mm)
+                    (wall, stages, got), _ = count.run(fn, into=name == "webp")
+                    print(f"phase 21b spec {name} {bw}x{bh} at {tag}: {wall:.3f} s; stages "
+                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                    want = spec_i8 if policy else {}
+                    if got != want:
+                        raise RuntimeError(f"phase 21b spec {name} at {tag} launched {got}, "
+                                           f"expected {want}")
+            ok = same(out["ref"], out["webp"])
+            print(f"phase 21b at {tag}: spectrum from the WebP == from the PNG: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 21b at {tag}: the WebP route differs from the PNG's")
+        back = os.path.join(tmp, "back.png")
+        with _policy("i8@1e-5"):
+            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
+                                   + ["-t", "flat", "-G", "1000", out["webp"], back], int8mm)
+            (wall, stages, got), _ = count.run(fn)
+        res = images.read_image(back).pixels
+        ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
+        print(f"phase 21b ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
+              f"launches {json.dumps(got)}; max abs diff to the input "
+              f"{float(np.abs(res - pix).max()):.4f}", flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 21b ispec launched {got} or wrote {res.shape}")
+
+        # ---- (c) motion's lowpass on the WebP frames against a PPM sequence -------
+        dec_s = 0.0
+        for k in range(frames):
+            name = f"webp_motion{k:04d}.webp"
+            with open(os.path.join(gold, name), "rb") as f:
+                data = f.read()
+            shutil.copy(os.path.join(gold, name), os.path.join(tmp, f"in{k:04d}.webp"))
+            t0 = time.perf_counter()
+            dec = webp.decode_webp(data)[0]
+            dec_s += time.perf_counter() - t0
+            with open(os.path.join(tmp, f"in{k:04d}.ppm"), "wb") as f:
+                f.write(imgcodecs.encode_pnm(dec))
+        mh, mw = dec.shape[:2]
+        print(f"phase 21c {frames} WebP frames {mw}x{mh}: decode {dec_s:.3f} s "
+              f"({frames * mh * mw * 3 / 1e6 / dec_s:.1f} MB/s of RGB)", flush=True)
+        runs = {}
+        for src in ("ppm", "webp"):
+            target = os.path.join(tmp, f"o_{src}.y4m")
+            t0 = time.perf_counter()
+
+            def run(src=src, target=target):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"in%04d.{src}"), target])
+                if rc != 0:
+                    raise RuntimeError(f"phase 21c motion {src} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
+
+            stages, got = count.run(run, into=src == "webp")
+            runs[src] = got
+            print(f"phase 21c motion {src} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches {json.dumps(got)}",
+                  flush=True)
+        ok = same(os.path.join(tmp, "o_webp.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 21c WebP sequence == PPM sequence to y4m: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 21c: the WebP sequence's y4m differs from the PPM's")
+        if runs["webp"] != runs["ppm"] or not runs["webp"].get("right3"):
+            raise RuntimeError(f"phase 21c: launches {runs['webp']} (PPM route {runs['ppm']}); "
+                               "kernel #2 never launched")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"webp {layout}{nd} {m}x{k}")
+        if count.total.get("block_filter"):
+            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 21 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -4563,6 +4767,13 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the JPEG-in-TIFF and fax path never launched: "
                            f"{more_path}")
 
+    # ---- phase 21: main path 17, WebP through the port's own decoder ---------
+    torch.cuda.empty_cache()
+    webp_path = _webp_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                            scipy.fft)["launches"]
+    if not (webp_path.get("left3") and webp_path.get("right3")):
+        raise RuntimeError(f"a kernel of the WebP path never launched: {webp_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -4572,7 +4783,7 @@ def main() -> int:
                              + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)
                              + jpeg_path.get(n, 0) + codec_path.get(n, 0)
                              + gif_path.get(n, 0) + cmyk_path.get(n, 0)
-                             + more_path.get(n, 0)),
+                             + more_path.get(n, 0) + webp_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -4587,7 +4798,8 @@ def main() -> int:
                                      "codecs": codec_path.get(n, 0),
                                      "gif": gif_path.get(n, 0),
                                      "tiff_cmyk": cmyk_path.get(n, 0),
-                                     "tiff_jpeg": more_path.get(n, 0)},
+                                     "tiff_jpeg": more_path.get(n, 0),
+                                     "webp": webp_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -4619,7 +4831,8 @@ def main() -> int:
                                  + codec_path.get("block_filter", 0)
                                  + gif_path.get("block_filter", 0)
                                  + cmyk_path.get("block_filter", 0)
-                                 + more_path.get("block_filter", 0)),
+                                 + more_path.get("block_filter", 0)
+                                 + webp_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -4628,7 +4841,8 @@ def main() -> int:
                                          "codecs": codec_path.get("block_filter", 0),
                                          "gif": gif_path.get("block_filter", 0),
                                          "tiff_cmyk": cmyk_path.get("block_filter", 0),
-                                         "tiff_jpeg": more_path.get("block_filter", 0)},
+                                         "tiff_jpeg": more_path.get("block_filter", 0),
+                                         "webp": webp_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

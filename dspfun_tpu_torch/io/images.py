@@ -26,19 +26,24 @@ and float samples, palettes, RGB(A), CMYK, YCbCr through libtiff's RGBA
 reader or libjpeg, CIELab through Pillow's LittleCMS transform), the
 Orientation tag applied), JPEG
 (``io/jpeg.py``: baseline, extended-sequential and progressive Huffman;
-gray, RGB, CMYK and YCCK) and GIF (``io/gif.py``: the first frame read,
-Pillow's median-cut or octree palette written, through ``io/quant.py``),
-each reading what Pillow decodes and writing what it writes.  They take
-every file they carry, whether cv2 imports or not.  The rest
-(arithmetic-coded, 12-bit and lossless JPEG, progressive JPEG whose scans
-leave coefficients short, old-style JPEG, LZMA, Zstandard, WebP,
-ThunderScan and SGILog compressed TIFF, WebP) goes through
-``cv2`` where it
-imports, but the kinds cv2 reads otherwise than Pillow, which are
-refused with cv2 too (``_cv2_decode``); where cv2 does not import, it is
-refused with a ``ValueError`` naming ROADMAP queue 1, item 8 and its
-part (``png.refusal``).  Inputs are recognised by their leading bytes, as
-Pillow recognises them; the ``fmt:`` prefix names the output format.
+gray, RGB, CMYK and YCCK), GIF (``io/gif.py``: the first frame read,
+Pillow's median-cut or octree palette written, through ``io/quant.py``)
+and WebP on read (``io/webp.py``: lossy, lossless, alpha, an animation's
+first frame), each reading what Pillow decodes and writing what it
+writes.  They take every file they carry, whether cv2 imports or not.
+The rest (arithmetic-coded, 12-bit and lossless JPEG, progressive JPEG
+whose scans leave coefficients short, old-style JPEG, LZMA, Zstandard,
+WebP, ThunderScan and SGILog compressed TIFF, WebP frames with the simple
+loop filter or several token partitions, and WebP output) goes through
+``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
+which are refused with cv2 too (``_cv2_decode``); where cv2 does not
+import, it is refused with a ``ValueError`` naming ROADMAP queue 1, item 8
+and its part (``png.refusal``).  Pillow's other formats (TGA, ICO, PCX,
+SGI, QOI, IM, DDS, PSD, JPEG 2000, AVIF and the rest of
+``_OTHER_READS`` and ``_OTHER_WRITES``) are refused with or without cv2,
+naming item 8h, on read and before anything is written.  Inputs are
+recognised by their leading bytes, as Pillow recognises them; the
+``fmt:`` prefix names the output format.
 tests/test_torch_images.py and test_torch_image_formats.py pin the rest
 to the original.
 """
@@ -46,6 +51,7 @@ to the original.
 from __future__ import annotations
 
 import dataclasses
+import math
 import struct
 import sys
 
@@ -58,6 +64,7 @@ from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
 from dspfun_tpu_torch.io import sixel as _sixel
+from dspfun_tpu_torch.io import webp as _webp
 
 __all__ = [
     "ImageData",
@@ -79,6 +86,70 @@ _NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
                    "TIFF": _codecs.encode_tiff, "JPEG": _jpeg.encode_jpeg,
                    "GIF": _gif.encode_gif}
 _CV2_WRITERS = {"WEBP": ".webp"}
+
+
+def _tga(d: bytes) -> bool:
+    """``TgaImageFile._open``'s header test (TGA has no signature)."""
+    return (len(d) >= 18 and d[1] in (0, 1) and d[2] in (1, 2, 3, 9, 10, 11)
+            and int.from_bytes(d[12:14], "little") > 0 and int.from_bytes(d[14:16], "little") > 0
+            and d[16] in (1, 8, 16, 24, 32) and (d[1] == 0 or d[7] in (16, 24, 32)))
+
+
+def _spider(d: bytes) -> bool:
+    """``SpiderImageFile._open``'s header test: 27 floats of either byte
+    order whose integer fields agree, iform 1 (a 2-D image)."""
+    if len(d) < 108:
+        return False
+    for order in ">", "<":
+        h = (99.0, *struct.unpack(order + "27f", d[:108]))
+        if not all(math.isfinite(h[i]) and h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+            continue
+        if int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]):
+            return int(h[5]) == 1
+    return False
+
+
+# Pillow 12.1's other formats, by the tests its plugins make of a file's
+# first 16 bytes (IM by its writer's first header line), refused naming
+# item 8h
+_OTHER_READS = (
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
+    ("JPEG 2000", lambda d: d.startswith((b"\xff\x4f\xff\x51",
+                                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
+    ("DIB", lambda d: int.from_bytes(d[:4], "little") in (12, 40, 52, 56, 64, 108, 124)),
+    ("ICO", lambda d: d.startswith(b"\0\0\1\0")),
+    ("CUR", lambda d: d.startswith(b"\0\0\2\0")),
+    ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
+    ("DCX", lambda d: d.startswith(b"\xb1\x68\xde\x3a")),
+    ("SGI", lambda d: d.startswith(b"\x01\xda")),
+    ("QOI", lambda d: d.startswith(b"qoif")),
+    ("IM", lambda d: d.startswith(b"Image type:")),
+    ("DDS", lambda d: d.startswith(b"DDS ")),
+    ("PSD", lambda d: d.startswith(b"8BPS")),
+    ("Sun raster", lambda d: d.startswith(b"\x59\xa6\x6a\x95")),
+    ("ICNS", lambda d: d.startswith(b"icns")),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define")),
+    ("XPM", lambda d: d.startswith(b"/* XPM */")),
+    ("FLI", lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
+     and d[14:16] in (b"\0\0", b"\3\0")),
+    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
+    ("FITS", lambda d: d.startswith(b"SIMPLE")),
+    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
+    ("EPS", lambda d: d.startswith((b"%!PS", b"\xc5\xd0\xd3\xc6"))),
+    ("FTEX", lambda d: d.startswith(b"FTEX")),
+    ("GBR", lambda d: len(d) >= 8 and int.from_bytes(d[:4], "big") >= 20
+     and int.from_bytes(d[4:8], "big") in (1, 2)),
+    ("McIdas", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4")),
+    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0")),
+    ("XV thumbnail", lambda d: d.startswith(b"P7 332")),
+    ("SPIDER", _spider),
+    ("TGA", _tga),
+)
+# Pillow 12.1's save formats that the port does not write, refused
+# naming item 8h before anything is read or written
+_OTHER_WRITES = frozenset({"AVIF", "BLP", "DDS", "DIB", "EPS", "ICNS", "ICO", "IM", "JPEG2000",
+                           "MPO", "MSP", "PALM", "PCX", "PDF", "QOI", "SGI", "SPIDER", "TGA",
+                           "XBM"})
 
 
 def base16_encode(data: bytes) -> str:
@@ -201,7 +272,7 @@ def _not_carried(data: bytes, name: str) -> tuple[str, str]:
         return _jpeg.not_carried(data) or (name, "")
     if name == "TIFF":
         return _codecs.tiff_not_carried(data) or (name, "c")
-    return name, {"WebP": "f"}.get(name, "")
+    return _webp.not_carried(data) or (name, "f")
 
 
 def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
@@ -253,8 +324,14 @@ def _decoder(data: bytes):
         return lambda d: _cv2_decode(d, "JPEG")
     if data.startswith(b"GIF8"):
         return _gif.decode_gif
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L",
+                                                                          b"VP8X"):
+        if _webp.not_carried(data) is None:
+            return _webp.decode_webp
         return lambda d: _cv2_decode(d, "WebP")
+    for name, accept in _OTHER_READS:
+        if accept(data):
+            raise _png.refusal(f"{name} input", "h")
     raise ValueError("cannot identify image file")
 
 
@@ -312,9 +389,11 @@ def check_target(spec: str | None) -> tuple[str | None, str]:
     if spec is None:
         spec = "sixel:-" if sys.stdout.isatty() else "-"
     fmt, path = _split_spec(spec)
-    if (fmt != "sixel" and _format_name(fmt, path) in _CV2_WRITERS
-            and not _cv2_bridge.available()):
-        raise _png.refusal(f"{_format_name(fmt, path)} output")
+    name = _format_name(fmt, path)
+    if fmt != "sixel" and name in _OTHER_WRITES:
+        raise _png.refusal(f"{name} output", "h")
+    if fmt != "sixel" and name in _CV2_WRITERS and not _cv2_bridge.available():
+        raise _png.refusal(f"{name} output", "f")
     return fmt, path
 
 

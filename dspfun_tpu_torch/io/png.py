@@ -60,14 +60,18 @@ def refusal(what: str, part: str = "") -> ValueError:
     """The error of an image format, or a kind of file, that the port's
     own codecs do not carry where cv2, which ``io/images.py`` reads and
     writes those through, does not import; ``part`` is the letter of its
-    part of item 8."""
-    return ValueError(f"{what} needs cv2, which does not import here: the port reads "
+    part of item 8.  Part ``h`` (Pillow's other formats) is refused with
+    cv2 too."""
+    lead, rest = ((f"{what} is not carried by the port, with or without cv2",
+                   "and no other format") if part == "h" else
+                  (f"{what} needs cv2, which does not import here", "and the rest only through cv2"))
+    return ValueError(f"{lead}: the port reads "
                       f"and writes PNG, PNM, BMP, TIFF, JPEG and GIF itself (TIFF: uncompressed, "
                       f"LZW, deflate, PackBits, JPEG or CCITT RLE, Group 3 or Group 4 strips or "
                       f"tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
                       f"and CIELab included; JPEG: baseline and progressive Huffman, gray, RGB, "
-                      f"CMYK or YCCK), and the rest only "
-                      f"through cv2 ({NOT_PORTED}{part})")
+                      f"CMYK or YCCK) and reads WebP itself (lossy, lossless, alpha, an "
+                      f"animation's first frame), {rest} ({NOT_PORTED}{part})")
 
 
 def _chunk(typ: bytes, data: bytes) -> bytes:

@@ -3,8 +3,7 @@
 package, which reads them through Pillow.
 
 Every kind Pillow writes here that goes to cv2 is read with cv2
-importable: the LZMA and Zstandard compressions, WebP
-(RGB and RGBA, lossy and lossless), and the JPEGs the codec leaves to cv2 (progressive files
+importable: the LZMA and Zstandard compressions, and the JPEGs the codec leaves to cv2 (progressive files
 whose scans leave coefficients short, three components under Adobe
 transform 2, and files whose frame header names arithmetic coding, 12
 bits or lossless coding).  Each is either read to the JAX package's
@@ -13,8 +12,9 @@ with cv2 present (a ``ValueError`` naming its part of ROADMAP queue 1,
 item 8) because cv2 reads it to other pixels (CMYK, LAB, 32-bit and
 float samples, alpha) or cannot decode it (this cv2 has neither LZMA nor
 Zstandard).  The kinds of ``OWN_CODEC`` (JPEG-in-TIFF, CCITT group 3 and
-4, uncompressed YCbCr and LAB) went to cv2 until the port's codec carried
-them: their cases now hold the port's own decoder to the JAX package.
+4, uncompressed YCbCr and LAB; WebP, RGB and RGBA, lossy and lossless)
+went to cv2 until the port's codecs carried them: their cases now hold
+the port's own decoder to the JAX package.
 """
 
 import io
@@ -24,7 +24,7 @@ import pytest
 from PIL import Image
 
 from dspfun_tpu.io import images as jimages
-from dspfun_tpu_torch.io import imgcodecs
+from dspfun_tpu_torch.io import imgcodecs, webp
 from dspfun_tpu_torch.io import images as timages
 
 cv2 = pytest.importorskip("cv2")
@@ -99,7 +99,8 @@ CASES = {
 }
 # the cases whose kind the port's own codec now carries
 OWN_CODEC = {"TIFF RGB JPEG", "TIFF L JPEG", "TIFF YCbCr JPEG", "TIFF CMYK JPEG", "TIFF 1 group3",
-             "TIFF 1 group4", "TIFF YCbCr uncompressed", "TIFF LAB uncompressed"}
+             "TIFF 1 group4", "TIFF YCbCr uncompressed", "TIFF LAB uncompressed",
+             *(n for n in CASES if n.startswith("WebP"))}
 JPEG_CASES = ["progressive, DC only", "progressive without its last scan",
               "three components, Adobe transform 2", "arithmetic SOF", "12-bit SOF",
               "lossless SOF"]
@@ -135,11 +136,13 @@ def test_what_goes_to_cv2_reads_as_the_jax_package_or_is_refused(name, tmp_path)
     make, refused = CASES[name]
     data = make()
     if name in OWN_CODEC:
-        assert timages._decoder(data) is imgcodecs.decode_tiff
-        _check(tmp_path, data, False, "tif")
+        webp_case = name.startswith("WebP")
+        own = webp.decode_webp if webp_case else imgcodecs.decode_tiff
+        assert timages._decoder(data) is own
+        _check(tmp_path, data, False, "webp" if webp_case else "tif")
         return
     assert timages._decoder(data).__name__ == "<lambda>"    # the cv2 route
-    _check(tmp_path, data, refused, "webp" if name.startswith("WebP") else "tif")
+    _check(tmp_path, data, refused, "tif")
 
 
 @pytest.mark.parametrize("name", JPEG_CASES)

@@ -1,19 +1,18 @@
 """The port's image formats beside PNG (``dspfun_tpu_torch/io/png.py``'s
 interlaced, palette and low-depth files, ``io/imgcodecs.py``'s PNM, BMP
-and TIFF, JPEG in ``io/jpeg.py``, GIF in ``io/gif.py``, and WebP through
-cv2 in ``io/images.py``) against the JAX package, which reads and writes
-them through Pillow.
+and TIFF, JPEG in ``io/jpeg.py``, GIF in ``io/gif.py``, WebP read in
+``io/webp.py`` and written through cv2 in ``io/images.py``) against the
+JAX package, which reads and writes them through Pillow.
 
 * Reads: every file gives ``dspfun_tpu.io.images.read_image``'s pixels
-  and depth exactly (JPEG, GIF and compressed TIFF through the port's own
-  codecs, tests/test_torch_jpeg.py, test_torch_gif.py and
-  test_torch_tiff.py; WebP through cv2: both packages link libwebp; the
-  bound stated for it is one 8-bit level).
+  and depth exactly (JPEG, GIF, WebP and compressed TIFF through the
+  port's own codecs, tests/test_torch_jpeg.py, test_torch_gif.py,
+  test_torch_webp.py and test_torch_tiff.py).
 * Writes: PNM, BMP, uncompressed TIFF (but 16-bit gray, which Pillow
   decodes to the same image), JPEG, GIF and WebP equal the JAX package's
   bytes for the same pixels.
-* Without cv2 (its import blocked) WebP is refused on read and write
-  with a ``ValueError`` naming ROADMAP queue 1, item 8, and JPEG, GIF and
+* Without cv2 (its import blocked) WebP output is refused with a
+  ``ValueError`` naming ROADMAP queue 1, item 8, and JPEG, GIF, WebP and
   LZW TIFF read (and JPEG and GIF write) as with it.
 * Image sequences take the same formats (JPEG and GIF with cv2 blocked).
 """
@@ -211,18 +210,14 @@ def test_tiff_reads_as_pillow_reads_it(mode, compression, tmp_path):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "WEBP", "GIF"])
 def test_compressed_reads_as_pillow_reads_them(fmt, tmp_path):
-    """JPEG and GIF through the port's codecs: exactly Pillow's pixels.
-    WebP through cv2: the bound is one 8-bit level; the two packages'
-    libraries decode these files alike."""
+    """JPEG, GIF and WebP through the port's codecs: exactly Pillow's
+    pixels."""
     img = Image.fromarray((_smooth(24, 40) * 255).astype(np.uint8))
     path = tmp_path / "in.bin"
     path.write_bytes(_pil(img, fmt))
     j, t = jimages.read_image(str(path)), timages.read_image(str(path))
     assert t.depth == j.depth == 8
-    if fmt in ("JPEG", "GIF"):
-        np.testing.assert_array_equal(t.pixels, j.pixels)
-    else:
-        assert np.abs(t.pixels - j.pixels).max() <= 1 / 255 + 1e-12
+    np.testing.assert_array_equal(t.pixels, j.pixels)
 
 
 def _write_both(tmp_path, target, pix, **kw):
@@ -282,9 +277,9 @@ def no_cv2(monkeypatch):
 
 @pytest.mark.parametrize("fmt", ["JPEG", "WEBP", "GIF", "TIFF"])
 def test_compressed_formats_need_cv2(fmt, tmp_path, no_cv2):
-    """Without cv2 WebP is refused naming item 8, on read and on write,
-    before any file is made; but JPEG, GIF and LZW TIFF, which the port's
-    own codecs read (and JPEG and GIF write) as the JAX package does."""
+    """Without cv2 WebP output is refused naming item 8, before any file is
+    made; but JPEG, GIF, WebP and LZW TIFF, which the port's own codecs
+    read (and JPEG and GIF write) as the JAX package does."""
     img = Image.fromarray((_smooth(8, 8) * 255).astype(np.uint8))
     data = _pil(img, fmt, **({"compression": "tiff_lzw"} if fmt == "TIFF" else {}))
     path = tmp_path / "in.bin"
@@ -303,8 +298,9 @@ def test_compressed_formats_need_cv2(fmt, tmp_path, no_cv2):
         tvideo.check_output(str(tmp_path / f"f%03d.{ext}"))
         timages.check_target(str(tmp_path / f"x%04d.{ext}"))
         return
-    with pytest.raises(ValueError, match="queue 1, item 8"):
-        timages.read_image(str(path))
+    for ch in ("RGB", "RGBA"):
+        j, t = (m.read_image(str(path), channels=ch) for m in (jimages, timages))
+        np.testing.assert_array_equal(t.pixels, j.pixels)
     target = str(tmp_path / f"o.{fmt.lower()}")
     with pytest.raises(ValueError, match="queue 1, item 8"):
         timages.write_image(target, _smooth(4, 4))

@@ -158,9 +158,9 @@ def test_base16_and_dc_codecs_bit_equal():
 def test_other_formats_are_refused_on_write(target, tmp_path, monkeypatch):
     """Each target the port once refused (ROADMAP item 8) is written as the
     JAX package writes it: the same bytes, or the same failure (16-bit
-    colour outside PNG), at both depths.  Without cv2 WebP is still
-    refused by item 8, writing nothing, and JPEG and GIF (the port's own
-    codecs) are written as with it."""
+    colour outside PNG), at both depths.  Without cv2 WebP output is still
+    refused by item 8 (8f's write), writing nothing, and JPEG and GIF (the
+    port's own codecs) are written as with it."""
     pytest.importorskip("cv2")
     pix = _pixels(4, 4, 3)
     monkeypatch.chdir(tmp_path)

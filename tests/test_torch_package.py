@@ -60,7 +60,7 @@ def test_every_module_imports_without_jax():
         "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild",
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
-        "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant")} <= names
+        "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL")):
@@ -282,6 +282,51 @@ def test_gif_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
         "[0, 0, 0, 0, 0, 0, 0, 0, 0] True True True True True True True", res.stdout + res.stderr
 
 
+def test_webp_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_path):
+    """``spec`` on a WebP and ``motion`` on a ``%02d.webp`` sequence (the
+    96x128 goldens of ``tests/goldens/``: lossy, lossless RGBA, a palette,
+    an animation), with jax, Pillow, cv2 and the JAX package unimportable:
+    the outputs equal those of the same runs on PNG and PPM copies of the
+    decoded pixels, and ``.webp`` output is refused naming item 8f."""
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    gold = ROOT / "tests" / "goldens"
+    names = ["webp_lossy.webp", "webp_lossless_alpha.webp", "webp_palette16.webp",
+             "webp_anim.webp"]
+    for k, name in enumerate(names):
+        (tmp_path / f"in{k:02d}.webp").write_bytes((gold / name).read_bytes())
+    code = (
+        "import sys\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "from dspfun_tpu_torch.tools import motion, spec\n"
+        f"d = {str(tmp_path)!r} + '/'\n"
+        "for k in range(4):\n"
+        "    images.write_image(d + f'in{k:02d}.ppm', images.read_image(d + f'in{k:02d}.webp').pixels)\n"
+        "images.write_image(d + 'in.png', images.read_image(d + 'in00.webp').pixels)\n"
+        "cpu = ['--device', 'cpu']\n"
+        "same = lambda a, b: open(d + a, 'rb').read() == open(d + b, 'rb').read()\n"
+        "rcs = [spec.main(cpu + ['-t', 'flat', d + 'in00.webp', d + 's_w.png']),\n"
+        "       spec.main(cpu + ['-t', 'flat', d + 'in.png', d + 's_p.png'])]\n"
+        "args = cpu + ['-Q', '-b', '8x8x4', '-p', '0x0x0-4x4x2', '-B', '1.25']\n"
+        "for src in ('webp', 'ppm'):\n"
+        "    rcs.append(motion.main(args + [d + 'in%02d.' + src, d + 'o_' + src + '.y4m']))\n"
+        "try:\n"
+        "    images.write_image(d + 'out.webp', images.read_image(d + 'in.png').pixels)\n"
+        "    refused = False\n"
+        "except ValueError as e:\n"
+        "    refused = 'queue 1, item 8f' in str(e)\n"
+        "print(rcs, same('s_w.png', 's_p.png'), same('o_webp.y4m', 'o_ppm.y4m'), refused,\n"
+        "      'dspfun_tpu_torch.io.webp' in sys.modules)\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_PRECISION", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[0, 0, 0, 0] True True True True", res.stdout + res.stderr
+
+
 def test_calibration_counterparts_run_without_jax():
     """``python -m dspfun_tpu_torch.benchmarks.calib_r3e`` and ``calib_r3f``
     (at a small shape) on the CPU with jax and the JAX package unimportable."""
@@ -459,7 +504,8 @@ def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
-    port's own native/fax.cpp, gif.cpp, jpeg.cpp, quant.cpp and tiff.cpp) matches
+    port's own native/fax.cpp, gif.cpp, jpeg.cpp, quant.cpp, tiff.cpp and
+    webp.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -468,7 +514,7 @@ def test_package_data_ships_what_the_build_reads():
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
     assert host == ["native/dspio.cpp", "native/fax.cpp", "native/ffv1.cpp", "native/gif.cpp",
-                    "native/jpeg.cpp", "native/quant.cpp", "native/tiff.cpp"]
+                    "native/jpeg.cpp", "native/quant.cpp", "native/tiff.cpp", "native/webp.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]

@@ -249,10 +249,9 @@ def _refused_files():
                                   "JPEG", "TIFF", "BMP", "PPM", "GIF", "WEBP"])
 def test_what_the_port_does_not_read_is_refused_by_item(case, tmp_path, monkeypatch):
     """Each file the port used to refuse (naming ROADMAP item 8) reads as
-    the JAX package reads it: the same pixels and depth (WebP through
-    cv2, within one 8-bit level), or an error in both for what is no
-    image.  Without cv2 WebP is still refused by item 8, and JPEG and GIF
-    (the port's own codecs) read the same pixels."""
+    the JAX package reads it: the same pixels and depth, or an error in
+    both for what is no image.  Without cv2 JPEG, GIF and WebP (the
+    port's own codecs) read the same pixels."""
     path = _write(tmp_path, _refused_files()[case], "in.bin")
     if case == "not an image":
         with pytest.raises(UnidentifiedImageError):
@@ -262,17 +261,10 @@ def test_what_the_port_does_not_read_is_refused_by_item(case, tmp_path, monkeypa
         return
     j, t = jimages.read_image(path, channels="RGBA"), timages.read_image(path, channels="RGBA")
     assert t.depth == j.depth
-    if case in ("JPEG", "GIF"):
+    if case in ("JPEG", "GIF", "WEBP"):
         np.testing.assert_array_equal(t.pixels, j.pixels)
         monkeypatch.setitem(sys.modules, "cv2", None)
         np.testing.assert_array_equal(timages.read_image(path, channels="RGBA").pixels, j.pixels)
-    elif case == "WEBP":
-        pytest.importorskip("cv2")
-        assert np.abs(t.pixels - j.pixels).max() <= 1 / 255 + 1e-12
-        monkeypatch.setitem(sys.modules, "cv2", None)
-        with pytest.raises(ValueError, match="queue 1, item 8") as e:
-            timages.read_image(path)
-        assert "WebP" in str(e.value)
     else:
         np.testing.assert_array_equal(t.pixels, j.pixels)
 

@@ -44,6 +44,22 @@ seed 24, restart markers every 5 MCUs), ``cmyk_ycck.jpg`` (that file with
 its Adobe transform set to 2) and ``cmyk_no_adobe.jpg`` (without its Adobe
 marker).
 
+The WebP fixtures of ``chip_smoke.py`` phase 21 (``webp_fixtures()``;
+``chip_smoke.WEBP_FIXTURES`` holds the sha256 of each file and of the JAX
+package's ``read_image(..., "RGBA")`` float64 pixels of it, checked by
+tests/test_torch_webp.py): Pillow's lossy WebP of 96x128 levels (seed 27)
+at its default quality 80, of 333x517 levels (seed 18) at quality 100 and
+method 6, their RGBA with a seeded alpha (``alpha_quality`` 50), their
+lossless RGB (the 333x517 levels at ``noise=0.02``) and RGBA
+(``exact``), a 16-colour lossless palette (pixel
+bundling), a two-frame animation, a ``VP8X`` file written by hand around
+Pillow's ``VP8 `` chunk with a raw gradient-filtered ``ALPH`` chunk and
+``ICCP``, ``EXIF``, ``XMP `` and unknown chunks (:func:`make_webp`),
+``codec_webp_4k.webp`` (Pillow's quality 80 of ``codec_prog_4k.jpg``'s
+levels) and ``webp_motion0000.webp`` to ``webp_motion0007.webp`` (quality
+80 of 1080p windows of seeded levels, seed 28, ``noise=0.02``, for
+phase 21c's motion sequence).
+
 The TIFF writer :func:`make_tiff` (its own LZW and PackBits encoders and
 zlib; strips or tiles, chunky or planar, predictors 2 and 3, either fill
 order, the sample formats of ``MODES``) needs no Pillow: the tests and
@@ -895,6 +911,105 @@ def digests(data: bytes) -> tuple[str, str]:
     return hashlib.sha256(data).hexdigest(), hashlib.sha256(pixels.tobytes()).hexdigest()
 
 
+def webp_chunk(fourcc: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk: its padding byte after an odd payload."""
+    return fourcc + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def make_webp(*chunks: bytes, vp8x: tuple[int, int, int] | None = None) -> bytes:
+    """A WebP file of ``chunks`` (see :func:`webp_chunk`), after a ``VP8X``
+    chunk of (flags, width, height) where given."""
+    if vp8x is not None:
+        flags, w, h = vp8x
+        chunks = (webp_chunk(b"VP8X", bytes([flags, 0, 0, 0])
+                             + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")),
+                  *chunks)
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def alpha_filter(alpha: np.ndarray, method: int) -> np.ndarray:
+    """The deltas of libwebp's alpha filters (0 none, 1 horizontal, 2
+    vertical, 3 gradient) that its unfilters turn back into ``alpha``."""
+    a = alpha.astype(np.int32)
+    pred = np.zeros_like(a)
+    if method:
+        pred[0, 1:] = a[0, :-1]                 # the first row: horizontal from 0
+        pred[1:, 0] = a[:-1, 0]                 # the first column: the pixel above
+        if method == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif method == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return ((a - pred) & 255).astype(np.uint8)
+
+
+def seeded_alpha(h: int, w: int, seed: int) -> np.ndarray:
+    """A gradient alpha with seeded holes of 0 and spots of 255."""
+    y, x = np.mgrid[0:h, 0:w]
+    alpha = ((x * 255) // max(w - 1, 1) + (y * 64) // max(h, 1)) % 256
+    r = np.random.default_rng(seed).random((h, w))
+    return np.where(r < 0.1, 0, np.where(r > 0.9, 255, alpha)).astype(np.uint8)
+
+
+
+def webp_fixtures() -> dict[str, bytes]:
+    """Each WebP fixture's name and its bytes (Pillow's or
+    :func:`make_webp`'s)."""
+    from PIL import Image  # noqa: PLC0415
+
+    import chip_smoke  # noqa: PLC0415
+
+    rgb, big = levels((96, 128), 27), levels((333, 517), 18)
+    rgba = np.dstack([rgb, seeded_alpha(96, 128, 27)])
+    big_rgba = np.dstack([big, seeded_alpha(333, 517, 18)])
+    vp8 = _save(Image.fromarray(rgb), "WEBP")[12:]
+    raw = bytes([3 << 2]) + alpha_filter(rgba[..., 3], 3).tobytes()
+    hand = make_webp(webp_chunk(b"ICCP", b"not a profile"), webp_chunk(b"ALPH", raw), vp8,
+                     webp_chunk(b"EXIF", b"Exif\0\0II*\0"), webp_chunk(b"XMP ", b"<x/>"),
+                     webp_chunk(b"ABCD", b"unknown"), vp8x=(0x10 | 0x20 | 0x08 | 0x04, 128, 96))
+    palette = np.random.default_rng(27).integers(0, 256, (16, 3), dtype=np.uint8)
+    anim = [Image.fromarray(np.roll(rgba, 9 * k, axis=1)) for k in range(2)]
+    buf = io.BytesIO()
+    anim[0].save(buf, format="WEBP", save_all=True, append_images=anim[1:], duration=80)
+    mh, mw = chip_smoke.MH, chip_smoke.MW
+    frames = chip_smoke.WEBP_FRAMES
+    strip = levels((mh, mw + 4 * frames), 28, noise=0.02)
+    return {
+        "webp_lossy.webp": _save(Image.fromarray(rgb), "WEBP"),
+        "webp_lossy_q100_m6.webp": _save(Image.fromarray(big), "WEBP", quality=100, method=6),
+        "webp_lossy_alpha.webp": _save(Image.fromarray(big_rgba), "WEBP", alpha_quality=50),
+        "webp_lossless.webp": _save(Image.fromarray(levels((333, 517), 18, noise=0.02)), "WEBP",
+                                    lossless=True),
+        "webp_lossless_alpha.webp": _save(Image.fromarray(rgba), "WEBP", lossless=True,
+                                          exact=True),
+        "webp_palette16.webp": _save(Image.fromarray(palette[(rgb[..., 0] // 16) % 16]), "WEBP",
+                                     lossless=True),
+        "webp_anim.webp": buf.getvalue(),
+        "webp_hand_raw_alph.webp": hand,
+        "codec_webp_4k.webp": _save(Image.fromarray(levels((chip_smoke.H, chip_smoke.W), 17,
+                                                           noise=0.02)), "WEBP"),
+        **{f"webp_motion{k:04d}.webp": _save(Image.fromarray(
+            np.ascontiguousarray(strip[:, 4 * k:4 * k + mw])), "WEBP")
+           for k in range(frames)},
+    }
+
+
+def webp_digests(data: bytes) -> tuple[str, str]:
+    """sha256 of a WebP file and of the JAX package's ``read_image(...,
+    "RGBA")`` float64 pixels of it."""
+    import tempfile  # noqa: PLC0415
+
+    from dspfun_tpu.io import images as jimages  # noqa: PLC0415
+
+    with tempfile.NamedTemporaryFile(suffix=".webp") as f:
+        f.write(data)
+        f.flush()
+        pixels = jimages.read_image(f.name, channels="RGBA").pixels
+    return hashlib.sha256(data).hexdigest(), rgba_digest(pixels)
+
+
 def rates(repeats: int = 5) -> None:
     """The port's decode of Pillow's 3840x2160 LZW (predictor 1 and 2),
     deflate and PackBits TIFFs of ``codec_prog_4k.jpg``'s levels, timed on
@@ -929,7 +1044,8 @@ def main(argv=None) -> None:
         rates()
         return
     for made, digest in ((fixtures(), digests), (gif_fixtures(), gif_digests),
-                         (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests)):
+                         (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests),
+                         (webp_fixtures(), webp_digests)):
         for name, data in made.items():
             (GOLDENS / name).write_bytes(data)
             print(f"    {name!r}: {digest(data)},  # {len(data)} bytes")
