@@ -260,10 +260,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    of the 4K JPEG at the default policy and at ``i8@1e-5``: the spectrum
    equal to the one from a PNG of the JPEG's decoded pixels, both ispecs
    to ``.jpg`` equal, kernels #1-#2 once a tool at ``i8@1e-5`` (none at
-   the default).  (c) motion's lowpass (phase 6's argv) on 16 1080p
-   frames written as ``in%04d.jpg``, to y4m and to ``out%04d.jpg``, each
-   equal byte for byte to the same run on a PPM sequence of the decoded
-   frames, with the same launches of kernels #2 and #3 (at least one);
+   the default).  (c) motion's lowpass (phase 6's argv) on 8 1080p
+   frames (``JPEG_FRAMES``) written as ``in%04d.jpg``, to y4m and to
+   ``out%04d.jpg``, each equal byte for byte to the same run on a PPM
+   sequence of the decoded frames, with the same launches of kernels #2
+   and #3 (at least one);
    seconds by stage (read is the decode, write the encode).  The int8
    kernels are held to their plain versions at every shape the phase
    gave them;
@@ -285,9 +286,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``i8@1e-5``: the spectrum equal to the one from a PNG of the decoded
    pixels, kernels #1-#2 once a tool at ``i8@1e-5`` (none at the
    default); ``ispec`` of each at ``i8@1e-5`` back to its format.  (c)
-   motion's lowpass (phase 6's argv) on 16 1080p frames written as
-   deflate ``frame%04d.tif`` (predictor 1 and 2 in turn), equal byte for
-   byte to the same run on a PPM sequence of the same levels, with the
+   motion's lowpass (phase 6's argv) on 8 1080p frames (``CODEC_FRAMES``)
+   written as deflate ``frame%04d.tif`` (predictor 1 and 2 in turn),
+   equal byte for byte to the same run on a PPM sequence of the same
+   levels, with the
    same launches of kernel #2 (at least one).  The int8 kernels are held
    to their plain versions at every shape the phase gave them;
 18. main path 14, GIF through the port's own codec (``io/gif.py`` on
@@ -305,7 +307,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    #1-#2 once a tool at ``i8@1e-5`` (none at the default); ``ispec`` at
    ``i8@1e-5`` to ``.gif`` equal to ``encode_gif`` of the levels the
    same ispec writes to PNG.  (c) motion's lowpass (phase 6's argv) on
-   16 1080p frames written as ``in%04d.gif``, to y4m and to
+   8 1080p frames (``GIF_FRAMES``) written as ``in%04d.gif``, to y4m and to
    ``out%04d.gif``, each equal byte for byte to the same run on a PPM
    sequence of the decoded frames, with the same launches of kernel #2
    (at least one); seconds by stage.  The int8 kernels are held to
@@ -380,6 +382,30 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    with the same launches of kernel #2 (at least one); seconds by stage.
    The int8 kernels are held to their plain versions at every shape the
    phase gave them;
+22. main path 18, TGA, PCX, SGI, QOI, IM, ICO and DIB through the port's
+   own codecs (``io/rawimg.py``, ``io/ico.py``, ``io/imgcodecs.py`` on
+   ``native/rawimg.cpp``).  (a) The fixtures of ``tests/goldens/``
+   (``OTHER_FIXTURES``: Pillow's files and, for the kinds Pillow does not
+   write, files made by ``tests/torch_codec_fixtures.py``: RLE, top-down,
+   flipped, 16-bit and colour-mapped TGA, 2- and 4-plane PCX, RLE SGI at 1
+   and 2 bytes a sample) each read through ``images._decoder`` to its
+   format's decoder, file and RGBA pixels equal to the JAX package's
+   sha256 (pinned by tests/test_torch_other_formats.py).  (b) A 3840x2160
+   QOI (the port's encoder) and RLE TGA (the fixtures module's maker) of
+   ``_seeded_pixels`` seed 43 at noise 0.02 decoded, the best of 5 in
+   seconds and MB/s;
+   ``spec -t flat -G 1000`` of each at the default policy and at
+   ``i8@1e-5``, each spectrum equal to the one from the same levels as a
+   PNG, kernels #1-#2 once a tool at ``i8@1e-5`` (none at the default);
+   ``ispec`` at ``i8@1e-5`` to PPM and to each of ``OTHER_EXTS``, each
+   file equal to the port's encoder of the PPM's pixels; and
+   ``write_image``'s encoder of each of ``OTHER_EXTS`` on the seeded
+   levels, timed, equal to the JAX package's (Pillow's) sha256.  (c) motion's lowpass
+   (phase 6's argv) on 8 1080p RLE TGA frames to y4m, equal byte for byte
+   to the same run on a PPM sequence of the decoded frames, with the same
+   launches of kernel #2 (at least one); seconds by stage.  The int8
+   kernels are held to their plain versions at every shape the phase gave
+   them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -3192,7 +3218,7 @@ JPEG_DIGESTS = {
     (333, 517): ("f003e5ba82df34a0b6c27b9b941b28a4da4a957c5bd303800416c08e4146b589",
                  "b90c8df1a83ae46a02a25fa98d70e78b1081469b6e6dda7acee804ef104ecd07"),
 }
-JPEG_FRAMES = 16                  # (c): motion's lowpass on 16 1080p frames
+JPEG_FRAMES = 8                   # (c): motion's lowpass on 8 1080p frames
 
 
 def _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_images=JPEG_IMAGES,
@@ -3356,7 +3382,7 @@ CODEC_FIXTURES = {
                              "7ef3fc5b46e2d950a6b59b7b9a1d5e6f3baeb9ab27c0e71e02024015ae61ff59"),
 }
 CODEC_4K = ((H, W), 17, 0.02)     # (hw, seed, noise) of codec_prog_4k.jpg's levels
-CODEC_FRAMES = 16                 # (c): motion's lowpass on 16 1080p deflate TIFF frames
+CODEC_FRAMES = 8                  # (c): motion's lowpass on 8 1080p deflate TIFF frames
 
 
 def _rgb8(pix) -> np.ndarray:
@@ -3586,7 +3612,7 @@ GIF_DIGESTS = {
     (H, W): ("1077f7b8a60f7bb79c884db72ef75b08f1607fbe9c309c33cb8e2b2a084ba190",
              "d033e75ed0530d07646535786bdb10b0ad9ac4227f750e4fcb5f53d16eda14df"),
 }
-GIF_FRAMES = 16                   # (c): motion's lowpass on 16 1080p GIF frames
+GIF_FRAMES = 8                    # (c): motion's lowpass on 8 1080p GIF frames
 
 
 def _rgba8(samples) -> np.ndarray:
@@ -4453,6 +4479,272 @@ def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_F
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+OTHER_FIXTURES = {
+    "tga_rgb.tga": ("f32a368243bfa06766b65c217b7128d50a98ec2adcd954ffbd17d02a8f394160",
+                  "1ed380322b2680d67bbb422c4a5307e64d503b301e6881d0da7faabff7c22f64"),
+    "tga_rgba_rle_top.tga": ("48741bf1fb8add5044d2344b00fa4926433a792136f5895ca2484b1bd826ebea",
+                           "fb998ab814175eb1e56210714c1bcd9e4204ef906d55c1534390d901e5f4328a"),
+    "tga_rgb_rle_flip.tga": ("6443ef652fb54c302e2209cae7dbb6da34c6261056a2a1040c73bad7e1837805",
+                           "1ed380322b2680d67bbb422c4a5307e64d503b301e6881d0da7faabff7c22f64"),
+    "tga_rgb_top_right.tga": ("ab36ac2f9fedae9eb472e76aac9fe41a5a934d332226f450a32c89602988f81c",
+                            "bac596043bc03cc18beb0b90bfebde3158277c00e46a5eb836070385ed93aa0f"),
+    "tga_16bit.tga": ("9865cbef15480fd6c2561503f2f2c2776a50d81060811d85c700ad709d90e243",
+                    "36de773b95d684e6d3def97256a37fc66f02c49da4cdbb0fecaeb1a8e4b6706c"),
+    "tga_cmap_rle.tga": ("eadf0bd5eb2e2db52a97e5d1def526579f9b22b1ca93b8b9d45c2ffc5a99ff4b",
+                       "44712aea5f6f1eb6eee18260a87abe1afaec66f876bcdd26782b88d580f2b224"),
+    "tga_cmap16.tga": ("e7d29618c4fb4ca0380c3ac19018fe9e0a187ad984561d55082505af3e65e07f",
+                     "0f61ef167845b3ef50f8f008c3c4f856caa384a4b18bae66268f0dc973023b2a"),
+    "tga_gray_rle.tga": ("306e7ac3bf74b704cb804297dec7961a5b09b0322f5a665584c0b4e5df7a2137",
+                       "c565ff857efbc0b65ff2ddd295d45a59394de513a85add709b89de82eb156c63"),
+    "tga_la.tga": ("882fae0b6c62c45cc33ea69a19a1ba529dfe8ab7e777b3976db95640d554a993",
+                 "9b257f30a7a08cc70fc9fe248ff814d750bdb5c2aa2e336601d4f8302393af3e"),
+    "tga_1bit.tga": ("3644d88c12c99d58904e3febf77ae25f4c4be8c2da77243d78a77e656cadcd57",
+                   "cd116ac77b81e029783aafbdfd2cf43c14325eda7b07a4601b69f767a756cf4d"),
+    "pcx_rgb.pcx": ("d7a28cfbdbbcf1da553ecea6fb83abc65f16813fee9d152a85a01641ae7c4148",
+                  "bac596043bc03cc18beb0b90bfebde3158277c00e46a5eb836070385ed93aa0f"),
+    "pcx_l.pcx": ("1bddc2071e65f4e442385372492a7e093cb14872803bfdf3447ed3353a85c913",
+                "c565ff857efbc0b65ff2ddd295d45a59394de513a85add709b89de82eb156c63"),
+    "pcx_p.pcx": ("4c942688dcef97ae6cc82baab5eb0fc2fa24c1e1b91b8427e62016a18bf5cafd",
+                "44712aea5f6f1eb6eee18260a87abe1afaec66f876bcdd26782b88d580f2b224"),
+    "pcx_1bit.pcx": ("4cc9343771759c371a28cf81dd80ccc58875ba2c3ab97df30a9ee4863d635775",
+                   "cd116ac77b81e029783aafbdfd2cf43c14325eda7b07a4601b69f767a756cf4d"),
+    "pcx_4plane.pcx": ("0f3fcc313aa923c7282db9229c495c53be833eec7197a62360fcaada438e6b5d",
+                     "44712aea5f6f1eb6eee18260a87abe1afaec66f876bcdd26782b88d580f2b224"),
+    "pcx_2plane.pcx": ("7e794c318e697f5ce8f224904bc7ed895981842a029a6cef1f24c6eef3c201c5",
+                     "e89a9336b71c4d7103efd5a13eef2645280db631716e16010e4d7608d6700c3c"),
+    "sgi_rgb.sgi": ("b0494953dab74d4ae800233a7ac1f21890fb4ec805fa2633041bb6c7738d54bc",
+                  "1ed380322b2680d67bbb422c4a5307e64d503b301e6881d0da7faabff7c22f64"),
+    "sgi_rgba.sgi": ("7f78855c7803c97f205022020e7cb98bec3693cdea2dc3121d072e215ff0d8ae",
+                   "fb998ab814175eb1e56210714c1bcd9e4204ef906d55c1534390d901e5f4328a"),
+    "sgi_l_bpc2.sgi": ("12a9601bf28fb946972412ea5156c53700691ac228fabd8c0bf074c743202f9b",
+                     "c565ff857efbc0b65ff2ddd295d45a59394de513a85add709b89de82eb156c63"),
+    "sgi_rle_rgb.sgi": ("00fa155f8aaf04667d66066cc0de57097ff46c6ecf89ea384593b4b4a555565e",
+                      "bac596043bc03cc18beb0b90bfebde3158277c00e46a5eb836070385ed93aa0f"),
+    "sgi_rle_rgba_bpc2.sgi": ("99cb2f28cd0f15b65572faff64374f50d8f978393053361785b23e611210294c",
+                            "81c13b4f231cee4ab232443380d1ba4f6b1763401e026449db4b63b7ed3fdfdd"),
+    "qoi_rgb.qoi": ("a9fb7be4926a6a08e75d4c30a0da21a5767cac86a73dab50ed1fcd0c224894ad",
+                  "1ed380322b2680d67bbb422c4a5307e64d503b301e6881d0da7faabff7c22f64"),
+    "qoi_rgba.qoi": ("04e399c047c9f8d8a178a1ceea3f1a7f849e167a81c1572f9b1ff1f71deac6f6",
+                   "fb998ab814175eb1e56210714c1bcd9e4204ef906d55c1534390d901e5f4328a"),
+    "im_rgb.im": ("0692c17cc1370a29288b0db678c3582a7fda3f807ce9686d7f97499d775ac010",
+                "1ed380322b2680d67bbb422c4a5307e64d503b301e6881d0da7faabff7c22f64"),
+    "im_l.im": ("67f7f6357ebaadb58b27b041c1641c323c17906cce026261fa74f873e7d546c1",
+              "c565ff857efbc0b65ff2ddd295d45a59394de513a85add709b89de82eb156c63"),
+    "im_l16.im": ("8fdf90449a7c7d61c69ce432873de25ce86c70de1146db6a8af3cedec66addd7",
+                "c565ff857efbc0b65ff2ddd295d45a59394de513a85add709b89de82eb156c63"),
+    "im_lut.im": ("3777f6dd4dd16756c2f9d95ef436ba8aa7031aed11d8b38eaab00c1822032b6d",
+                "44712aea5f6f1eb6eee18260a87abe1afaec66f876bcdd26782b88d580f2b224"),
+    "ico_png.ico": ("58bfcb3dc25cb7a51e499ebb04e34ec29e388b498dced88b0de41adce79d3930",
+                  "cc85ed6515c89c9605cb8c93cb38d5ca8c689143340e6c0e409441b808b87f67"),
+    "ico_bmp32.ico": ("1a702e28435cb9d0d309dce69577ad5a0dcce0a7e58834f978377792dd88db75",
+                    "cc85ed6515c89c9605cb8c93cb38d5ca8c689143340e6c0e409441b808b87f67"),
+    "ico_bmp8.ico": ("b15aaf399b207a658629741e0d2d133e5097c7e0626cb3fcfcb16d4435b7f11b",
+                   "43f48f47171f43f316160d6826354a42b0c59b0c464e463bafa001a993c6c9ed"),
+    "dib_rgb.dib": ("68f7cb9a37069bade506b858815eec73bec03fff151953d2fd907e9ddb759360",
+                  "bac596043bc03cc18beb0b90bfebde3158277c00e46a5eb836070385ed93aa0f"),
+    "dib_p8.dib": ("7d569f5560cda84050f858ad2fa6c792c4d4f129b46baf18bea2694b831f2477",
+                 "44712aea5f6f1eb6eee18260a87abe1afaec66f876bcdd26782b88d580f2b224"),
+}
+OTHER_4K_SEED = 43                # (b): the 4K stills' seeded pixels, at a noise that
+OTHER_4K_NOISE = 0.02             # keeps spec's 16-bit PNG write as short as phase 21's
+# (b): sha256 of the JAX package's write of them (named still.<ext>), by extension
+OTHER_4K_DIGESTS = {
+    "tga": "be5a977750330fd79cdaea1770186f8880bb1f0e6de7939682ade3255019bfca",
+    "qoi": "9fb7cc31459194927d09cab36e693f47522fd34151855e1849d201e8526c7a4c",
+    "sgi": "89472e043901b3fa2d3488214edb437afeebce8e3aa429d69ab712d97748686a",
+    "pcx": "e004ddcc40f54c9ddcc8942e87a06cf4947e1746d6ad6e262e4af26201758a51",
+    "im": "66b7d0884cadbdc1aa0ffbdf857116444c57929a69b703dac67b9e43821f52f8",
+    "ico": "7cc9a8fb27cb49d483222a024571271b3b9dd5c051384f0ec6982a5e1d3bd5f8",
+    "dib": "5d9e76b19b221519ac141be0f863dc4476221293498250e7b909070f0ee94c53",
+    "mpo": "2db80552a93896430e1396b6ae640cc9359e967949c909566f515d525b71c7d4",
+}
+OTHER_EXTS = ("tga", "qoi", "sgi", "pcx", "im", "ico", "dib", "mpo")
+OTHER_FRAMES = 8                  # (c): motion's lowpass on 8 1080p RLE TGA frames
+OTHER_REPEATS = 5                 # (b): the 4K decodes, best of
+
+
+def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER_FRAMES,
+                 device_args=()) -> dict:
+    """Main path 18: TGA, PCX, SGI, QOI, IM, ICO and DIB through the port's
+    own codecs (``io/rawimg.py``, ``io/ico.py``, ``io/imgcodecs.py``,
+    ``native/rawimg.cpp``).  (a) The fixtures of tests/goldens/, each to
+    its decoder and read to the JAX package's digests; (b) a 3840x2160
+    QOI (the port's encoder) and RLE TGA (``tga_rle`` of the fixtures
+    module) of the same seeded levels decoded (best of
+    ``OTHER_REPEATS``), spec of each at the default policy and at
+    ``i8@1e-5`` against the same levels as a PNG, ispec at ``i8@1e-5`` to
+    each format of ``OTHER_EXTS``, each file equal to the port's encoder
+    of the pixels of the same ispec written as PPM, and the 4K writes of
+    ``_seeded_pixels`` to Pillow's digests; (c) motion's lowpass on 1080p
+    RLE TGA frames to y4m against a PPM sequence of their decoded frames.
+    Returns the kernels' launches over the runs of the new formats."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import ico, images, imgcodecs, rawimg
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    decoders = {"tga": rawimg.decode_tga, "pcx": rawimg.decode_pcx, "sgi": rawimg.decode_sgi,
+                "qoi": rawimg.decode_qoi, "im": rawimg.decode_im, "ico": ico.decode_ico,
+                "dib": imgcodecs.decode_dib}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rawimg._load()
+    print(f"phase 22 native/rawimg.cpp build and load: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as tmp:
+        # ---- (a) the fixtures to the JAX package's digests -------------------------
+        for name, want in OTHER_FIXTURES.items():
+            path = os.path.join(gold, name)
+            with open(path, "rb") as f:
+                data = f.read()
+            ext = name.rsplit(".", 1)[1]
+            if images._decoder(data) is not decoders[ext]:
+                raise RuntimeError(f"phase 22a: {name} does not take the port's {ext} decoder")
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), fx.rgba_digest(img.pixels))
+            print(f"phase 22a {name} {img.width}x{img.height} depth {img.depth}: {len(data)} "
+                  f"bytes; read {dec_s:.4f} s; file and pixels == the JAX package's digests: "
+                  f"{got == want}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 22a: {name} is not Pillow's: {got}")
+
+        # ---- (b) the 4K stills: decode, spec and ispec ---------------------------
+        pix = _seeded_pixels((H, W), OTHER_4K_SEED, OTHER_4K_NOISE)
+        lv = np.clip(np.rint(np.clip(pix, 0.0, 1.0) * 255), 0, 255).astype(np.uint8)
+        stills = {"qoi": rawimg.encode_qoi(lv), "tga": fx.make_tga(lv[..., ::-1], 10, 24)}
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, pix)
+        src = {}
+        for kind, data in stills.items():
+            src[kind] = os.path.join(tmp, f"still.{kind}")
+            with open(src[kind], "wb") as f:
+                f.write(data)
+            best = float("inf")
+            for _ in range(OTHER_REPEATS):
+                t0 = time.perf_counter()
+                arr, _ = decoders[kind](data)
+                best = min(best, time.perf_counter() - t0)
+            if not np.array_equal(arr, lv):
+                raise RuntimeError(f"phase 22b: the 4K {kind} does not decode to its levels")
+            print(f"phase 22b {kind.upper()} {W}x{H}: {len(data)} bytes; decode {best:.4f} s "
+                  f"(best of {OTHER_REPEATS}; {H * W * 3 / 1e6 / best:.1f} MB/s of RGB, "
+                  f"{len(data) / 1e6 / best:.2f} MB/s of file)", flush=True)
+        spec_i8 = {n: 1 for n, side in (("left3", H), ("right3", W)) if side >= 256}
+        for policy in (None, "i8@1e-5"):
+            tag = policy or "default"
+            out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("ref", *stills)}
+            with _policy(policy):
+                for name, inp in (("ref", ref), *src.items()):
+                    fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                        int8mm)
+                    (wall, stages, got), _ = count.run(fn, into=name != "ref")
+                    print(f"phase 22b spec {name} {W}x{H} at {tag}: {wall:.3f} s; stages "
+                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                    want = spec_i8 if policy else {}
+                    if got != want:
+                        raise RuntimeError(f"phase 22b spec {name} at {tag} launched {got}, "
+                                           f"expected {want}")
+            for kind in stills:
+                ok = same(out["ref"], out[kind])
+                print(f"phase 22b at {tag}: spectrum from the {kind.upper()} == from the PNG: "
+                      f"{ok}", flush=True)
+                if not ok:
+                    raise RuntimeError(f"phase 22b at {tag}: the {kind} route differs from PNG's")
+        back = {}
+        with _policy("i8@1e-5"):
+            for ext in ("ppm",) + OTHER_EXTS:
+                back[ext] = os.path.join(tmp, f"back.{ext}")
+                fn = lambda o=back[ext]: _run_tool(  # noqa: E731
+                    torch, ispec, list(device_args)
+                    + ["-t", "flat", "-G", "1000", out["qoi"], o], int8mm)
+                (wall, stages, got), _ = count.run(fn)
+                print(f"phase 22b ispec to {ext} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 22b ispec to {ext} launched {got}")
+        with open(back["ppm"], "rb") as f:
+            arr = imgcodecs.decode_pnm(f.read())[0]
+        for ext in OTHER_EXTS:
+            name = images._format_name(None, back[ext])
+            enc = images._NAMED_WRITERS.get(name)
+            want = enc(arr, back[ext]) if enc else images._NATIVE_WRITERS[name](arr)
+            with open(back[ext], "rb") as f:
+                ok = f.read() == want
+            print(f"phase 22b ispec {ext} == the port's encoder of the PPM's pixels: {ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 22b: ispec's {ext} is not its encoder's bytes")
+        for ext in OTHER_EXTS:      # write_image's encoders on its levels of ``pix``
+            path = os.path.join(tmp, f"still.{ext}")
+            name = images._format_name(None, path)
+            enc = images._NAMED_WRITERS.get(name)
+            t0 = time.perf_counter()
+            data = enc(lv, path) if enc else images._NATIVE_WRITERS[name](lv)
+            enc_s = time.perf_counter() - t0
+            ok = sha(data) == OTHER_4K_DIGESTS[ext]
+            print(f"phase 22b encode {ext} {W}x{H}: {len(data)} bytes in {enc_s:.4f} s "
+                  f"({H * W * 3 / 1e6 / enc_s:.1f} MB/s of RGB); == Pillow's digest: {ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 22b: the 4K {ext} write is not Pillow's: {sha(data)}")
+
+        # ---- (c) motion's lowpass on RLE TGA frames against a PPM sequence --------
+        strip = fx.levels((MH, MW + 4 * frames), OTHER_4K_SEED + 1, noise=0.02)
+        dec_s = 0.0
+        for k in range(frames):
+            data = fx.make_tga(np.ascontiguousarray(strip[:, 4 * k:4 * k + MW, ::-1]), 10, 24)
+            with open(os.path.join(tmp, f"in{k:04d}.tga"), "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            dec = rawimg.decode_tga(data)[0]
+            dec_s += time.perf_counter() - t0
+            with open(os.path.join(tmp, f"in{k:04d}.ppm"), "wb") as f:
+                f.write(imgcodecs.encode_pnm(dec))
+        mh, mw = dec.shape[:2]
+        print(f"phase 22c {frames} RLE TGA frames {mw}x{mh}: decode {dec_s:.3f} s "
+              f"({frames * mh * mw * 3 / 1e6 / dec_s:.1f} MB/s of RGB)", flush=True)
+        runs = {}
+        for kind in ("ppm", "tga"):
+            target = os.path.join(tmp, f"o_{kind}.y4m")
+            t0 = time.perf_counter()
+
+            def run(kind=kind, target=target):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"in%04d.{kind}"), target])
+                if rc != 0:
+                    raise RuntimeError(f"phase 22c motion {kind} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
+
+            stages, got = count.run(run, into=kind == "tga")
+            runs[kind] = got
+            print(f"phase 22c motion {kind} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches {json.dumps(got)}",
+                  flush=True)
+        ok = same(os.path.join(tmp, "o_tga.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 22c TGA sequence == PPM sequence to y4m: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 22c: the TGA sequence's y4m differs from the PPM's")
+        if runs["tga"] != runs["ppm"] or not runs["tga"].get("right3"):
+            raise RuntimeError(f"phase 22c: launches {runs['tga']} (PPM route {runs['ppm']}); "
+                               "kernel #2 never launched")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"other {layout}{nd} {m}x{k}")
+        if count.total.get("block_filter"):
+            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+    wall = time.perf_counter() - t_phase
+    print(f"phase 22 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -4774,6 +5066,13 @@ def main() -> int:
     if not (webp_path.get("left3") and webp_path.get("right3")):
         raise RuntimeError(f"a kernel of the WebP path never launched: {webp_path}")
 
+    # ---- phase 22: main path 18, TGA, PCX, SGI, QOI, IM, ICO and DIB --------
+    torch.cuda.empty_cache()
+    other_path = _other_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                              scipy.fft)["launches"]
+    if not (other_path.get("left3") and other_path.get("right3")):
+        raise RuntimeError(f"a kernel of the TGA ... DIB path never launched: {other_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -4783,7 +5082,8 @@ def main() -> int:
                              + mesh_path["launches"].get(n, 0) + bridge.get(n, 0)
                              + jpeg_path.get(n, 0) + codec_path.get(n, 0)
                              + gif_path.get(n, 0) + cmyk_path.get(n, 0)
-                             + more_path.get(n, 0) + webp_path.get(n, 0)),
+                             + more_path.get(n, 0) + webp_path.get(n, 0)
+                             + other_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -4799,7 +5099,8 @@ def main() -> int:
                                      "gif": gif_path.get(n, 0),
                                      "tiff_cmyk": cmyk_path.get(n, 0),
                                      "tiff_jpeg": more_path.get(n, 0),
-                                     "webp": webp_path.get(n, 0)},
+                                     "webp": webp_path.get(n, 0),
+                                     "other_formats": other_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -4832,7 +5133,8 @@ def main() -> int:
                                  + gif_path.get("block_filter", 0)
                                  + cmyk_path.get("block_filter", 0)
                                  + more_path.get("block_filter", 0)
-                                 + webp_path.get("block_filter", 0)),
+                                 + webp_path.get("block_filter", 0)
+                                 + other_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -4842,7 +5144,8 @@ def main() -> int:
                                          "gif": gif_path.get("block_filter", 0),
                                          "tiff_cmyk": cmyk_path.get("block_filter", 0),
                                          "tiff_jpeg": more_path.get("block_filter", 0),
-                                         "webp": webp_path.get("block_filter", 0)},
+                                         "webp": webp_path.get("block_filter", 0),
+                                         "other_formats": other_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -27,10 +27,13 @@ reader or libjpeg, CIELab through Pillow's LittleCMS transform), the
 Orientation tag applied), JPEG
 (``io/jpeg.py``: baseline, extended-sequential and progressive Huffman;
 gray, RGB, CMYK and YCCK), GIF (``io/gif.py``: the first frame read,
-Pillow's median-cut or octree palette written, through ``io/quant.py``)
-and WebP on read (``io/webp.py``: lossy, lossless, alpha, an animation's
-first frame), each reading what Pillow decodes and writing what it
-writes.  They take every file they carry, whether cv2 imports or not.
+Pillow's median-cut or octree palette written, through ``io/quant.py``),
+WebP on read (``io/webp.py``: lossy, lossless, alpha, an animation's
+first frame), TGA, PCX, SGI, QOI and IM (``io/rawimg.py``), ICO
+(``io/ico.py``, with Pillow's LANCZOS thumbnails on write) and DIB
+(``io/imgcodecs.py``), and MPO on write (its one frame is a JPEG), each
+reading what Pillow decodes and writing what it writes.  They take
+every file they carry, whether cv2 imports or not.
 The rest (arithmetic-coded, 12-bit and lossless JPEG, progressive JPEG
 whose scans leave coefficients short, old-style JPEG, LZMA, Zstandard,
 WebP, ThunderScan and SGILog compressed TIFF, WebP frames with the simple
@@ -38,20 +41,22 @@ loop filter or several token partitions, and WebP output) goes through
 ``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
 which are refused with cv2 too (``_cv2_decode``); where cv2 does not
 import, it is refused with a ``ValueError`` naming ROADMAP queue 1, item 8
-and its part (``png.refusal``).  Pillow's other formats (TGA, ICO, PCX,
-SGI, QOI, IM, DDS, PSD, JPEG 2000, AVIF and the rest of
-``_OTHER_READS`` and ``_OTHER_WRITES``) are refused with or without cv2,
-naming item 8h, on read and before anything is written.  Inputs are
-recognised by their leading bytes, as Pillow recognises them; the
-``fmt:`` prefix names the output format.
-tests/test_torch_images.py and test_torch_image_formats.py pin the rest
-to the original.
+and its part (``png.refusal``).  Pillow's other formats (CUR, DCX, DDS, PSD,
+JPEG 2000, AVIF and the rest of ``_PILLOW_ORDER``'s refusals and
+``_OTHER_WRITES``; IM's floating-point and YCbCr modes) are refused with
+or without cv2, naming item 8h, on read and before anything is written.
+Inputs are identified as Pillow's ``Image.open`` identifies them: each
+plugin in its order, passing the file on where Pillow's plugin would
+(``_PILLOW_ORDER``); the ``fmt:`` prefix names the output format.
+tests/test_torch_images.py, test_torch_image_formats.py and
+test_torch_other_formats.py pin the rest to the original.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 import struct
 import sys
 
@@ -60,9 +65,11 @@ import numpy as np
 from dspfun_tpu_torch.io import color as _color
 from dspfun_tpu_torch.io import cv2_bridge as _cv2_bridge
 from dspfun_tpu_torch.io import gif as _gif
+from dspfun_tpu_torch.io import ico as _ico
 from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
+from dspfun_tpu_torch.io import rawimg as _rawimg
 from dspfun_tpu_torch.io import sixel as _sixel
 from dspfun_tpu_torch.io import webp as _webp
 
@@ -84,15 +91,12 @@ _RGBA = "RGBA"
 # and those it hands to cv2 (with cv2's extension)
 _NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
                    "TIFF": _codecs.encode_tiff, "JPEG": _jpeg.encode_jpeg,
-                   "GIF": _gif.encode_gif}
+                   "GIF": _gif.encode_gif, "TGA": _rawimg.encode_tga,
+                   "PCX": _rawimg.encode_pcx, "QOI": _rawimg.encode_qoi,
+                   "DIB": _codecs.encode_dib, "MPO": _jpeg.encode_jpeg, "ICO": _ico.encode_ico}
+# the writers that put the output's name into the file (Pillow's filename)
+_NAMED_WRITERS = {"SGI": _rawimg.encode_sgi, "IM": _rawimg.encode_im}
 _CV2_WRITERS = {"WEBP": ".webp"}
-
-
-def _tga(d: bytes) -> bool:
-    """``TgaImageFile._open``'s header test (TGA has no signature)."""
-    return (len(d) >= 18 and d[1] in (0, 1) and d[2] in (1, 2, 3, 9, 10, 11)
-            and int.from_bytes(d[12:14], "little") > 0 and int.from_bytes(d[14:16], "little") > 0
-            and d[16] in (1, 8, 16, 24, 32) and (d[1] == 0 or d[7] in (16, 24, 32)))
 
 
 def _spider(d: bytes) -> bool:
@@ -109,47 +113,206 @@ def _spider(d: bytes) -> bool:
     return False
 
 
-# Pillow 12.1's other formats, by the tests its plugins make of a file's
-# first 16 bytes (IM by its writer's first header line), refused naming
-# item 8h
-_OTHER_READS = (
-    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
-    ("JPEG 2000", lambda d: d.startswith((b"\xff\x4f\xff\x51",
-                                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
-    ("DIB", lambda d: int.from_bytes(d[:4], "little") in (12, 40, 52, 56, 64, 108, 124)),
-    ("ICO", lambda d: d.startswith(b"\0\0\1\0")),
-    ("CUR", lambda d: d.startswith(b"\0\0\2\0")),
-    ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
-    ("DCX", lambda d: d.startswith(b"\xb1\x68\xde\x3a")),
-    ("SGI", lambda d: d.startswith(b"\x01\xda")),
-    ("QOI", lambda d: d.startswith(b"qoif")),
-    ("IM", lambda d: d.startswith(b"Image type:")),
-    ("DDS", lambda d: d.startswith(b"DDS ")),
-    ("PSD", lambda d: d.startswith(b"8BPS")),
-    ("Sun raster", lambda d: d.startswith(b"\x59\xa6\x6a\x95")),
-    ("ICNS", lambda d: d.startswith(b"icns")),
-    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define")),
-    ("XPM", lambda d: d.startswith(b"/* XPM */")),
-    ("FLI", lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
-     and d[14:16] in (b"\0\0", b"\3\0")),
-    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
-    ("FITS", lambda d: d.startswith(b"SIMPLE")),
-    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
-    ("EPS", lambda d: d.startswith((b"%!PS", b"\xc5\xd0\xd3\xc6"))),
-    ("FTEX", lambda d: d.startswith(b"FTEX")),
-    ("GBR", lambda d: len(d) >= 8 and int.from_bytes(d[:4], "big") >= 20
-     and int.from_bytes(d[4:8], "big") in (1, 2)),
-    ("McIdas", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4")),
-    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0")),
-    ("XV thumbnail", lambda d: d.startswith(b"P7 332")),
-    ("SPIDER", _spider),
-    ("TGA", _tga),
+def _u32(d: bytes, o: int, order: str = "<") -> int:
+    if len(d) < o + 4:
+        raise _rawimg.Skip("short header")
+    return struct.unpack_from(order + "I", d, o)[0]
+
+
+def _cur(d: bytes) -> bool:
+    """``CurImageFile._open``: the largest cursor's bitmap parses."""
+    if not d.startswith(b"\0\0\2\0") or len(d) < 6:
+        return False
+    n, m = struct.unpack_from("<H", d, 4)[0], b""
+    for i in range(n):
+        e = d[6 + 16 * i:22 + 16 * i]
+        if not m:
+            m = e
+        elif e[0] > m[0] and e[1] > m[1]:
+            m = e
+    at = _u32(m, 12) if m else 0
+    if not m:
+        return False
+    _codecs.bitmap(d, at or 6 + 16 * n)
+    return True
+
+
+def _gbr(d: bytes) -> bool:
+    """``GbrImageFile._open``'s header checks."""
+    if not (len(d) >= 8 and _u32(d, 0, ">") >= 20 and _u32(d, 4, ">") in (1, 2)):
+        return False
+    w, h, depth = (_u32(d, o, ">") for o in (8, 12, 16))
+    return w > 0 and h > 0 and depth in (1, 4) and (_u32(d, 4, ">") == 1 or d[20:24] == b"GIMP")
+
+
+def _imt(d: bytes) -> bool:
+    """``ImtImageFile._open``: leading ``key value`` lines that give a
+    width, a height and ``pixel n8``."""
+    if b"\n" not in d[:100]:
+        return False
+    w = h = 0
+    gray = False
+    for line in d.split(b"\n"):
+        if not line or line[:1] == b"\x0c" or len(line) == 1 or len(line) > 100:
+            break
+        if line[:1] == b"*":
+            continue
+        m = re.match(rb"([a-z]*) ([^ \r\n]*)", line)
+        if not m:
+            break
+        k, v = m.group(1, 2)
+        if k in (b"width", b"height"):
+            w, h = (int(v), h) if k == b"width" else (w, int(v))
+        gray |= k == b"pixel" and v == b"n8"
+    return gray and w > 0 and h > 0
+
+
+def _iptc(d: bytes) -> bool:
+    """``IptcImageFile._open``'s field walk: 0x1c-tagged fields up to the
+    record (8, 10); the image's (3, 60) field is required."""
+    pos, info = 0, {}
+    while True:
+        s = d[pos:pos + 5]
+        pos += len(s)
+        if not s.strip(b"\0"):
+            break
+        if len(s) < 4 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+            return False
+        tag, size = (s[1], s[2]), s[3]
+        if size > 132:
+            raise OSError("illegal field length in IPTC/NAA file")
+        if size == 128:
+            size = 0
+        elif size > 128:
+            size = int.from_bytes((bytes(4) + d[pos:pos + size - 128])[-4:], "big")
+            pos += min(size - 128, len(d) - pos)
+        elif len(s) < 5:
+            return False
+        else:
+            size = struct.unpack_from(">H", s, 3)[0]
+        if tag == (8, 10):
+            break
+        info[tag] = d[pos:pos + size] if size else None
+        pos += len(info[tag] or b"")
+    if (3, 60) not in info:
+        raise ValueError("cannot identify image file (an IPTC record without its (3, 60) field)")
+    return isinstance(info[(3, 60)], bytes) and len(info[(3, 60)]) >= 2
+
+
+def _dib_open(d: bytes) -> None:
+    if int.from_bytes(d[:4], "little") not in (12, 40, 52, 56, 64, 108, 124):
+        raise _rawimg.Skip("not a DIB")
+    _codecs.bitmap(d, 0)
+
+
+def _bmp_open(d: bytes) -> None:
+    if d[:2] != b"BM":
+        raise _rawimg.Skip("not a BMP")
+    _codecs.bitmap(d, 14, _u32(d, 10))
+
+
+def _jpeg_claim(d: bytes):
+    if not d.startswith(b"\xff\xd8"):
+        return None
+    if _jpeg.carries(d):
+        return _jpeg.decode_jpeg
+    return lambda d: _cv2_decode(d, "JPEG")
+
+
+def _tiff_claim(d: bytes):
+    if d[:4] not in (b"II*\x00", b"MM\x00*"):
+        return None
+    if _codecs.tiff_not_carried(d) is None:
+        return _codecs.decode_tiff
+    return lambda d: _cv2_decode(d, "TIFF")
+
+
+def _webp_claim(d: bytes):
+    if not (d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in (b"VP8 ", b"VP8L", b"VP8X")):
+        return None
+    if _webp.not_carried(d) is None:
+        return _webp.decode_webp
+    return lambda d: _cv2_decode(d, "WebP")
+
+
+def _ported(opener, decode):
+    """The claim of a format the port reads: None where Pillow's plugin
+    tries the next format (``rawimg.Skip``), else the decoder."""
+    def claim(d: bytes):
+        try:
+            opener(d)
+        except _rawimg.Skip:
+            return None
+        return decode
+    return claim
+
+
+def _refused(name: str, test):
+    """A format of item 8h: refused where Pillow's plugin would open the
+    file (its accept test, or the first checks of its ``_open``, which may
+    raise ``rawimg.Skip`` as the plugin passes the file on)."""
+    def claim(d: bytes):
+        try:
+            ok = test(d)
+        except (_rawimg.Skip, IndexError, struct.error):
+            return None
+        if ok:
+            raise _png.refusal(f"{name} input", "h")
+        return None
+    return claim
+
+
+# Pillow 12.1's plugins in the order ``Image.open`` tries them (``Image.ID``
+# after ``Image.init()``), each a claim: the decoder of a format the port
+# reads, None where the plugin passes the file on, or the refusal (naming
+# item 8h) of one it does not carry.  PNG is taken first, in read_image.
+_PILLOW_ORDER = (
+    ("BMP", _ported(_bmp_open, _codecs.decode_bmp)),
+    ("DIB", _ported(_dib_open, _codecs.decode_dib)),
+    ("GIF", lambda d: _gif.decode_gif if d.startswith(b"GIF8") else None),
+    ("JPEG", _jpeg_claim),
+    ("PPM", lambda d: _codecs.decode_pnm if d[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6")
+     else None),
+    ("AVIF", _refused("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis",
+                                                                        b"mif1", b"msf1"))),
+    ("BLP", _refused("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")))),
+    ("CUR", _refused("CUR", _cur)),
+    ("PCX", _ported(_rawimg.open_pcx, _rawimg.decode_pcx)),
+    ("DCX", _refused("DCX", lambda d: d.startswith(b"\xb1\x68\xde\x3a"))),
+    ("DDS", _refused("DDS", lambda d: d.startswith(b"DDS "))),
+    ("EPS", _refused("EPS", lambda d: d.startswith((b"%!PS", b"\xc5\xd0\xd3\xc6")))),
+    ("FITS", _refused("FITS", lambda d: d.startswith(b"SIMPLE"))),
+    ("FLI", _refused("FLI", lambda d: len(d) >= 22 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
+                     and d[14:16] in (b"\0\0", b"\3\0") and d[20:22] == b"\0\0")),
+    ("FTEX", _refused("FTEX", lambda d: d.startswith(b"FTEX"))),
+    ("GBR", _refused("GBR", _gbr)),
+    ("JPEG 2000", _refused("JPEG 2000", lambda d: d.startswith(
+        (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")))),
+    ("ICNS", _refused("ICNS", lambda d: d.startswith(b"icns"))),
+    ("ICO", _ported(_ico.decode_ico, _ico.decode_ico)),  # Pillow decodes inside its open
+    ("IM", _ported(_rawimg.open_im, _rawimg.decode_im)),
+    ("IMT", _refused("IMT", _imt)),
+    ("IPTC", _refused("IPTC", _iptc)),
+    ("McIdas", _refused("McIdas", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4"))),
+    ("TIFF", _tiff_claim),
+    ("MSP", _refused("MSP", lambda d: d.startswith((b"DanM", b"LinS")))),
+    ("PCD", _refused("PCD", lambda d: d[2048:2052] == b"PCD_")),
+    ("PIXAR", _refused("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0"))),
+    ("PSD", _refused("PSD", lambda d: d.startswith(b"8BPS"))),
+    ("QOI", _ported(_rawimg.open_qoi, _rawimg.decode_qoi)),
+    ("SGI", _ported(_rawimg.open_sgi, _rawimg.decode_sgi)),
+    ("SPIDER", _refused("SPIDER", _spider)),
+    ("Sun raster", _refused("Sun raster", lambda d: d.startswith(b"\x59\xa6\x6a\x95"))),
+    ("TGA", _ported(_rawimg.open_tga, _rawimg.decode_tga)),
+    ("WEBP", _webp_claim),
+    ("XBM", _refused("XBM", lambda d: d[:16].lstrip().startswith(b"#define"))),
+    ("XPM", _refused("XPM", lambda d: d.startswith(b"/* XPM */"))),
+    ("XV thumbnail", _refused("XV thumbnail", lambda d: d.startswith(b"P7 332"))),
 )
 # Pillow 12.1's save formats that the port does not write, refused
 # naming item 8h before anything is read or written
-_OTHER_WRITES = frozenset({"AVIF", "BLP", "DDS", "DIB", "EPS", "ICNS", "ICO", "IM", "JPEG2000",
-                           "MPO", "MSP", "PALM", "PCX", "PDF", "QOI", "SGI", "SPIDER", "TGA",
-                           "XBM"})
+_OTHER_WRITES = frozenset({"AVIF", "BLP", "DDS", "EPS", "ICNS", "JPEG2000", "MSP", "PALM", "PDF",
+                           "SPIDER", "XBM"})
 
 
 def base16_encode(data: bytes) -> str:
@@ -306,32 +469,14 @@ def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
 
 
 def _decoder(data: bytes):
-    """The decoder of an image file, by its leading bytes (as Pillow
-    identifies files): a function of the bytes to (samples, depth).  The
-    port's own codecs take every file they carry, whether cv2 imports or
-    not; cv2 takes the rest."""
-    if data[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
-        return _codecs.decode_pnm
-    if data[:2] == b"BM":
-        return _codecs.decode_bmp
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
-        if _codecs.tiff_not_carried(data) is None:
-            return _codecs.decode_tiff
-        return lambda d: _cv2_decode(d, "TIFF")
-    if data.startswith(b"\xff\xd8"):
-        if _jpeg.carries(data):
-            return _jpeg.decode_jpeg
-        return lambda d: _cv2_decode(d, "JPEG")
-    if data.startswith(b"GIF8"):
-        return _gif.decode_gif
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L",
-                                                                          b"VP8X"):
-        if _webp.not_carried(data) is None:
-            return _webp.decode_webp
-        return lambda d: _cv2_decode(d, "WebP")
-    for name, accept in _OTHER_READS:
-        if accept(data):
-            raise _png.refusal(f"{name} input", "h")
+    """The decoder of an image file, found as Pillow's ``Image.open`` finds
+    it (``_PILLOW_ORDER``): a function of the bytes to (samples, depth).
+    The port's own codecs take every file they carry, whether cv2 imports
+    or not; cv2 takes the rest."""
+    for _name, claim in _PILLOW_ORDER:
+        decode = claim(data)
+        if decode is not None:
+            return decode
     raise ValueError("cannot identify image file")
 
 
@@ -451,11 +596,14 @@ def write_image(
 
     if name == "PNG":
         data = _png.encode_png(arr, properties)
-    elif name == "JPEG" and (arr.dtype != np.uint8 or arr.ndim == 3 and arr.shape[2] == 4):
-        # Pillow writes no alpha and no 16 bits as JPEG
+    elif name in ("JPEG", "MPO") and (arr.dtype != np.uint8 or arr.ndim == 3
+                                      and arr.shape[2] == 4):
+        # Pillow writes no alpha and no 16 bits as JPEG (an MPO's one frame)
         raise ValueError(f"cannot write {'I;16' if arr.dtype != np.uint8 else 'RGBA'} as JPEG")
     elif name in _NATIVE_WRITERS:
         data = _NATIVE_WRITERS[name](arr)
+    elif name in _NAMED_WRITERS:
+        data = _NAMED_WRITERS[name](arr, "" if path == "-" else path)
     elif name in _CV2_WRITERS:
         data = _cv2_encode(arr, name)
     else:

@@ -79,7 +79,8 @@ from dspfun_tpu_torch import _hostbuild
 from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
 
-__all__ = ["decode_bmp", "decode_pnm", "decode_tiff", "encode_bmp", "encode_pnm",
+__all__ = ["bitmap", "bitmap_pixels", "decode_bmp", "decode_dib", "decode_pnm", "decode_tiff",
+           "encode_bmp", "encode_dib", "encode_pnm",
            "encode_tiff", "tiff_cv2_differs", "tiff_not_carried"]
 
 _WS = b" \t\n\r\x0b\x0c"
@@ -169,67 +170,190 @@ def encode_pnm(arr: np.ndarray) -> bytes:
 # ---------------------------------------------------------------------------
 
 _BMP_PPM = int(96 * 39.3701 + 0.5)
-# 32-bit BI_BITFIELDS (r, g, b, a) masks Pillow reads, and the byte that
-# holds each of R, G, B, A in a little-endian pixel (None: no alpha)
+# BI_BITFIELDS masks Pillow reads, by bit count: (r, g, b, a) at 32 bits,
+# (r, g, b) at 24 and 16, each to its rawmode
 _BMP_MASKS = {
-    (0xFF0000, 0xFF00, 0xFF, 0x0): (2, 1, 0, None),
-    (0xFF000000, 0xFF0000, 0xFF00, 0x0): (3, 2, 1, None),
-    (0xFF000000, 0xFF00, 0xFF, 0x0): (3, 1, 0, None),
-    (0xFF000000, 0xFF0000, 0xFF00, 0xFF): (3, 2, 1, 0),
-    (0xFF, 0xFF00, 0xFF0000, 0xFF000000): (0, 1, 2, 3),
-    (0xFF0000, 0xFF00, 0xFF, 0xFF000000): (2, 1, 0, 3),
-    (0xFF000000, 0xFF00, 0xFF, 0xFF0000): (3, 1, 0, 2),
-    (0x0, 0x0, 0x0, 0x0): (2, 1, 0, 3),
+    32: {(0xFF0000, 0xFF00, 0xFF, 0x0): "BGRX", (0xFF000000, 0xFF0000, 0xFF00, 0x0): "XBGR",
+         (0xFF000000, 0xFF00, 0xFF, 0x0): "BGXR", (0xFF000000, 0xFF0000, 0xFF00, 0xFF): "ABGR",
+         (0xFF, 0xFF00, 0xFF0000, 0xFF000000): "RGBA", (0xFF0000, 0xFF00, 0xFF, 0xFF000000): "BGRA",
+         (0xFF000000, 0xFF00, 0xFF, 0xFF0000): "BGAR", (0x0, 0x0, 0x0, 0x0): "BGRA"},
+    24: {(0xFF0000, 0xFF00, 0xFF): "BGR"},
+    16: {(0xF800, 0x7E0, 0x1F): "BGR;16", (0x7C00, 0x3E0, 0x1F): "BGR;15"},
 }
+_BMP_BITS = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR", 32: "BGRX"}
 
 
-def decode_bmp(data: bytes) -> tuple[np.ndarray, int]:
-    if data[:2] not in (b"BM", b"BA", b"CI", b"CP", b"IC", b"PT"):
-        raise ValueError("Not a BMP file")
-    offset, hsize = struct.unpack_from("<II", data, 10)
-    hd = data[18:14 + hsize]
+def _u32(data: bytes, at: int) -> int:
+    from dspfun_tpu_torch.io.rawimg import Skip  # noqa: PLC0415
+
+    if len(data) < at + 4:
+        raise Skip("short BMP header")
+    return struct.unpack_from("<I", data, at)[0]
+
+
+def bitmap(data: bytes, at: int, offset: int = 0) -> dict:
+    """``BmpImageFile._bitmap``: the info header at ``at`` (12 bytes, OS/2,
+    or 40 to 124, Windows), its masks and palette, and where the pixels
+    start: ``offset`` (a BMP's bfOffBits, moved past the palette where it
+    points at the palette, as Pillow moves it) or, at 0, right after the
+    header, masks and palette (a DIB).  Raises ``rawimg.Skip`` where
+    Pillow's open tries the next format and ``OSError`` where it fails."""
+    from dspfun_tpu_torch.io.rawimg import Skip  # noqa: PLC0415
+
+    hsize = _u32(data, at)
+    hd = data[at + 4:at + hsize]
+    if hsize - 4 > 0 and len(hd) < hsize - 4:
+        raise OSError("Truncated File Read")
+    pos = at + max(hsize, 4)
     if hsize == 12:
         w, h, _planes, bits = struct.unpack_from("<HHHH", hd)
         comp, colors, pad, down = 0, 0, 3, False
     elif hsize in (40, 52, 56, 64, 108, 124):
-        w, h, _planes, bits, comp = struct.unpack_from("<iiHHI", hd)
-        colors = struct.unpack_from("<I", hd, 28)[0]
-        pad, down = 4, h < 0
-        h = abs(h)
+        down = hd[7] == 0xFF
+        w, h, _planes, bits, comp = struct.unpack_from("<IIHHI", hd)
+        h = 2 ** 32 - h if down else h
+        colors, pad = struct.unpack_from("<I", hd, 28)[0], 4
     else:
-        raise ValueError(f"Unsupported BMP header type ({hsize})")
-    pal_at = 14 + hsize
-    order = (2, 1, 0, None)
-    if comp == 3:
-        if bits != 32:
-            raise ValueError("Unsupported BMP bitfields layout")
-        n = 4 if hsize >= 56 else 3
-        masks = struct.unpack_from(f"<{n}I", data, 54) + ((0,) if n == 3 else ())
-        if hsize == 40:
-            pal_at += 12
-        if masks not in _BMP_MASKS:
-            raise ValueError("Unsupported BMP bitfields layout")
-        order = _BMP_MASKS[masks]
-    elif comp != 0:
-        raise ValueError(f"Unsupported BMP compression ({comp})")
-    if bits not in (1, 4, 8, 24, 32):
-        raise ValueError(f"Unsupported BMP pixel depth ({bits})")
-    stride = ((w * bits + 31) >> 3) & ~3
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
-    if not down:
-        rows = rows[::-1]
+        raise OSError(f"Unsupported BMP header type ({hsize})")
+    raw = None
+    if hsize != 12 and comp == 3:
+        if len(hd) >= 48:
+            masks = struct.unpack_from("<4I" if len(hd) >= 52 else "<3I", hd, 36)
+        else:
+            masks = tuple(_u32(data, pos + 4 * i) for i in range(3))
+            pos += 12
+        masks = masks + (0,) * (4 - len(masks))
+        table = _BMP_MASKS.get(bits, {})
+        raw = table.get(masks if bits == 32 else masks[:3])
+        if raw is None:
+            raise OSError("Unsupported BMP bitfields layout")
+    colors = colors or (1 << bits)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits not in _BMP_BITS:
+        raise OSError(f"Unsupported BMP pixel depth ({bits})")
+    raw = raw or _BMP_BITS[bits]
+    if comp not in (0, 1, 2, 3):
+        raise OSError(f"Unsupported BMP compression ({comp})")
+    palette = None
     if bits <= 8:
-        ncol = colors or (1 << bits)
-        pal = np.frombuffer(data, np.uint8, pad * ncol, pal_at).reshape(ncol, pad)[:, 2::-1]
-        idx = np.unpackbits(rows, axis=1).reshape(h, -1, bits) if bits < 8 else rows[..., None]
-        if bits < 8:
-            idx = (idx * (1 << np.arange(bits - 1, -1, -1))).sum(axis=2)[..., None]
-        full = np.zeros((256, 3), np.uint8)
-        full[:min(ncol, 256)] = pal[:256]
-        return full[idx[:, :w, 0]], 8
-    px = rows[:, :w * bits // 8].reshape(h, w, bits // 8)
-    chans = [px[..., i] for i in order if i is not None]
-    return np.stack(chans, axis=-1), 8
+        if not 0 < colors <= 65536:
+            raise OSError(f"Unsupported BMP Palette size ({colors})")
+        if colors > 256:
+            raise Skip("o8 of a palette index past 255")  # struct.error in Pillow's gray check
+        pal = data[pos:pos + pad * colors]
+        pos += len(pal)
+        n = len(pal) // pad
+        palette = np.frombuffer(pal, np.uint8, n * pad).reshape(n, pad)[:, 2::-1]
+    if w <= 0 or h <= 0:
+        raise Skip("an empty size: not identified by the plugin")  # ImageFile's check
+    return dict(size=(w, h), bits=bits, raw=raw, rle=comp in (1, 2) and comp, palette=palette,
+                down=down, start=offset or pos)
+
+
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
+    """Pillow's ``BmpRleDecoder`` (Python in Pillow): the indices it
+    collects, row after row as stored; fewer than w * h raise."""
+    out = bytearray()
+    x, n, total = 0, len(data), w * h
+    while len(out) < total:
+        if pos + 2 > n:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:
+            count = min(count, max(0, w - x)) if x + count > w else count
+            if rle4:
+                out += bytes((byte >> 4, byte & 15)[i % 2] for i in range(count))
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:
+            break
+        elif byte == 2:
+            if pos + 2 > n:
+                break
+            pos += 2  # Pillow reads two bytes, then takes the next two as the delta
+            if pos + 2 > n:
+                raise ValueError("not enough values to unpack")
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            out += bytes(right + up * w)
+            x = len(out) % w
+        else:
+            want = byte // 2 if rle4 else byte
+            got = data[pos:pos + want]
+            pos += len(got)
+            out += bytes(v for b in got for v in (b >> 4, b & 15)) if rle4 else got
+            if len(got) < want:
+                break
+            x += byte
+            if pos % 2:
+                pos += 1
+    if len(out) < total:
+        raise ValueError("not enough image data")
+    return np.frombuffer(bytes(out[:total]), np.uint8).reshape(h, w)
+
+
+def _bgr16(px: np.ndarray, raw: str) -> np.ndarray:
+    """Pillow's ``BGR;15`` and ``BGR;16`` unpackers."""
+    v = px[..., 0].astype(np.uint32) | px[..., 1].astype(np.uint32) << 8
+    gbits = 6 if raw == "BGR;16" else 5
+    r = (v >> (5 + gbits)) & 31
+    g = (v >> 5) & ((1 << gbits) - 1)
+    b = v & 31
+    return np.stack([r * 255 // 31, g * 255 // ((1 << gbits) - 1), b * 255 // 31],
+                    axis=-1).astype(np.uint8)
+
+
+def bitmap_pixels(data: bytes, bm: dict) -> np.ndarray:
+    """The pixels of :func:`bitmap`'s layout, as Pillow's ``raw`` or
+    ``bmp_rle`` decoder and ``convert("RGBA")`` give them (palettes
+    expanded to RGB)."""
+    (w, h), bits, raw = bm["size"], bm["bits"], bm["raw"]
+    from dspfun_tpu_torch.io.rawimg import bomb_check  # noqa: PLC0415
+
+    bomb_check(w, h)
+    if bm["rle"]:
+        idx = _bmp_rle(data, bm["start"], w, h, bm["rle"] == 2)
+        if not bm["down"]:
+            idx = idx[::-1]
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        need = stride * (h - 1) + (w * bits + 7) // 8  # the last row's padding is not read
+        if bm["start"] + need > len(data):
+            raise OSError("image file is truncated")
+        body = data[bm["start"]:bm["start"] + stride * h]
+        rows = np.frombuffer(body.ljust(stride * h, b"\0"), np.uint8).reshape(h, stride)
+        if not bm["down"]:
+            rows = rows[::-1]
+        if bits > 8:
+            px = rows[:, :w * bits // 8].reshape(h, w, bits // 8)
+            if bits == 16:
+                return _bgr16(px, raw)
+            order = [raw.index(ch) for ch in "RGBA" if ch in raw]
+            return np.ascontiguousarray(px[..., order])
+        idx = np.unpackbits(rows, axis=1)[:, :w * bits].reshape(h, w, bits)
+        idx = (idx * (1 << np.arange(bits - 1, -1, -1, dtype=np.uint8))).sum(-1)
+    pal = bm["palette"]
+    full = np.zeros((256, 3), np.uint8)
+    full[:min(len(pal), 256)] = pal[:256]
+    return full[idx]
+
+
+def decode_bmp(data: bytes) -> tuple[np.ndarray, int]:
+    if data[:2] != b"BM":
+        raise ValueError("Not a BMP file")
+    return bitmap_pixels(data, bitmap(data, 14, _u32(data, 10))), 8
+
+
+def decode_dib(data: bytes) -> tuple[np.ndarray, int]:
+    """A DIB: a BMP without its file header, the pixels right after the
+    header, masks and palette (Pillow's ``DibImageFile``)."""
+    return bitmap_pixels(data, bitmap(data, 0)), 8
 
 
 def encode_bmp(arr: np.ndarray) -> bytes:
@@ -244,6 +368,11 @@ def encode_bmp(arr: np.ndarray) -> bytes:
     head = struct.pack("<IiiHHIIiiII", 40, w, h, 1, bits, 0, stride * h,
                        _BMP_PPM, _BMP_PPM, 0, 0)
     return (b"BM" + struct.pack("<IiI", 54 + stride * h, 0, 54) + head + rows.tobytes())
+
+
+def encode_dib(arr: np.ndarray) -> bytes:
+    """Pillow's DIB: its BMP without the 14-byte file header."""
+    return encode_bmp(arr)[14:]
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,8 @@ def refusal(what: str, part: str = "") -> ValueError:
                    "and no other format") if part == "h" else
                   (f"{what} needs cv2, which does not import here", "and the rest only through cv2"))
     return ValueError(f"{lead}: the port reads "
-                      f"and writes PNG, PNM, BMP, TIFF, JPEG and GIF itself (TIFF: uncompressed, "
+                      f"and writes PNG, PNM, BMP, DIB, TIFF, JPEG, GIF, TGA, PCX, SGI, QOI, IM "
+                      f"and ICO itself, and MPO as JPEG (TIFF: uncompressed, "
                       f"LZW, deflate, PackBits, JPEG or CCITT RLE, Group 3 or Group 4 strips or "
                       f"tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
                       f"and CIELab included; JPEG: baseline and progressive Huffman, gray, RGB, "
@@ -298,12 +299,20 @@ def _adam7(raw: np.ndarray, w: int, h: int, nch: int, depth: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> tuple[np.ndarray, dict, tuple | None]:
+def _inflate(stream: bytes) -> bytes:
+    """The bytes of a zlib stream as far as it goes: a stream cut short
+    gives what it holds (a wrong checksum, where it is there, raises)."""
+    return zlib.decompressobj().decompress(stream)
+
+
+def decode_png(data: bytes, lenient: bool = False) -> tuple[np.ndarray, dict, tuple | None]:
     """Decode a PNG: (pixels [H, W, C] uint8 or uint16; text properties;
     the ``tRNS`` colour of an 8-bit type 0 or 2 file, else None).  C
     follows the colour type: palette files give 3 (4 with ``tRNS``, whose
     alphas become the fourth channel), and gray of 1, 2 or 4 bits is
-    scaled to 8 (Pillow's ``L``; its ``tRNS`` gray scaled alike)."""
+    scaled to 8 (Pillow's ``L``; its ``tRNS`` gray scaled alike).
+    ``lenient`` takes the image data as Pillow's decoder takes it: a zlib
+    stream cut after the pixels (no end, no checksum) still reads."""
     if not data.startswith(_SIG):
         raise ValueError("not a PNG file")
     pos = 8
@@ -334,7 +343,8 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict, tuple | None]:
     if depth not in _DEPTHS.get(color, ()):
         raise ValueError(f"invalid PNG: bit depth {depth} with colour type {color}")
     nch = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
+    raw = np.frombuffer(_inflate(b"".join(idat)) if lenient else zlib.decompress(b"".join(idat)),
+                        dtype=np.uint8)
     out = (_adam7 if interlace else _decode_pass)(raw, w, h, nch, depth)
     if color == 3:
         if plte is None:

@@ -60,7 +60,8 @@ def test_every_module_imports_without_jax():
         "tools.transcode", "io.native", "io.ffv1", "io.nut", "io.mkv", "_hostbuild",
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
-        "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp")} <= names
+        "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp", "io.rawimg",
+        "io.ico")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL")):
@@ -327,6 +328,63 @@ def test_webp_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_path):
     assert res.stdout.strip() == "[0, 0, 0, 0] True True True True", res.stdout + res.stderr
 
 
+def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_path):
+    """With jax, Pillow, cv2 and dspfun_tpu blocked: the TGA, PCX, SGI, QOI,
+    IM, ICO and DIB goldens read through the port's own codecs; spec of an
+    RLE TGA equals spec of the same pixels as PNG and motion on RLE TGA
+    frames equals motion on their PPMs, on the CPU; ispec writes every new
+    format; the rest of item 8h is still refused before any write."""
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    gold = ROOT / "tests" / "goldens"
+    names = ["tga_rgba_rle_top.tga", "pcx_4plane.pcx", "sgi_rle_rgb.sgi", "qoi_rgba.qoi",
+             "im_l16.im", "ico_bmp8.ico", "dib_p8.dib"]
+    for name in names:
+        (tmp_path / name).write_bytes((gold / name).read_bytes())
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, %r)\n"
+        "import numpy as np\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "from dspfun_tpu_torch.tools import ispec, motion, spec\n"
+        "import torch_codec_fixtures as fx\n"
+        "d = %r + '/'\n"
+        "depths = [images.read_image(d + n).depth for n in %r]\n"
+        "rng = np.random.default_rng(0)\n"
+        "for k in range(4):\n"
+        "    lv = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)\n"
+        "    lv[:, :20] = lv[:, :1]\n"
+        "    open(d + f'in{k:02d}.tga', 'wb').write(fx.make_tga(lv[..., ::-1], 10, 24))\n"
+        "    images.write_image(d + f'in{k:02d}.ppm', lv / 255.0)\n"
+        "images.write_image(d + 'in.png', images.read_image(d + 'in00.tga').pixels)\n"
+        "cpu = ['--device', 'cpu']\n"
+        "same = lambda a, b: open(d + a, 'rb').read() == open(d + b, 'rb').read()\n"
+        "rcs = [spec.main(cpu + ['-t', 'flat', d + 'in00.tga', d + 's_t.png']),\n"
+        "       spec.main(cpu + ['-t', 'flat', d + 'in.png', d + 's_p.png'])]\n"
+        "for ext in ('tga', 'pcx', 'sgi', 'qoi', 'im', 'ico', 'dib', 'mpo'):\n"
+        "    rcs.append(ispec.main(cpu + ['-t', 'flat', d + 's_t.png', d + 'back.' + ext]))\n"
+        "args = cpu + ['-Q', '-b', '8x8x4', '-p', '0x0x0-4x4x2', '-B', '1.25']\n"
+        "for src in ('tga', 'ppm'):\n"
+        "    rcs.append(motion.main(args + [d + 'in%%02d.' + src, d + 'o_' + src + '.y4m']))\n"
+        "try:\n"
+        "    images.write_image(d + 'out.dds', images.read_image(d + 'in.png').pixels)\n"
+        "    refused = False\n"
+        "except ValueError as e:\n"
+        "    refused = 'queue 1, item 8h' in str(e)\n"
+        "print(depths, set(rcs), same('s_t.png', 's_p.png'), same('o_tga.y4m', 'o_ppm.y4m'),\n"
+        "      refused, 'dspfun_tpu_torch.io.rawimg' in sys.modules)\n"
+    ) % (str(ROOT / "tests"), str(tmp_path), names)
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_PRECISION", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[8, 8, 8, 8, 16, 8, 8] {0} True True True True", \
+        res.stdout + res.stderr
+
+
 def test_calibration_counterparts_run_without_jax():
     """``python -m dspfun_tpu_torch.benchmarks.calib_r3e`` and ``calib_r3f``
     (at a small shape) on the CPU with jax and the JAX package unimportable."""
@@ -504,8 +562,8 @@ def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
-    port's own native/fax.cpp, gif.cpp, jpeg.cpp, quant.cpp, tiff.cpp and
-    webp.cpp) matches
+    port's own native/fax.cpp, gif.cpp, jpeg.cpp, quant.cpp, rawimg.cpp,
+    tiff.cpp and webp.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -514,7 +572,8 @@ def test_package_data_ships_what_the_build_reads():
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
     assert host == ["native/dspio.cpp", "native/fax.cpp", "native/ffv1.cpp", "native/gif.cpp",
-                    "native/jpeg.cpp", "native/quant.cpp", "native/tiff.cpp", "native/webp.cpp"]
+                    "native/jpeg.cpp", "native/quant.cpp", "native/rawimg.cpp", "native/tiff.cpp",
+                    "native/webp.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]

@@ -21,7 +21,9 @@ other formats (ROADMAP queue 1, item 8h).
   naming item 8f; ``.webp`` output is cv2's (Pillow's bytes) or refused
   naming 8f.
 * Item 8h: each format the JAX package reads or writes beyond the port's
-  is refused naming it, on read and before anything is written.
+  (TGA, PCX, SGI, QOI, IM, ICO, DIB and MPO are the port's own since;
+  tests/test_torch_other_formats.py) is refused naming it, on read and
+  before anything is written.
 * ``chip_smoke.WEBP_FIXTURES`` (phase 21) holds Pillow's files and the
   JAX package's pixels.
 * A failed build raises with the compiler's message.
@@ -391,11 +393,10 @@ def test_webp_output_is_unchanged(tmp_path, monkeypatch):
 
 # ---- item 8h: Pillow's other formats -----------------------------------------------
 
-OTHER_SAVES = {  # extension -> the mode Pillow writes it from
-    "tga": "RGB", "ico": "RGB", "pcx": "RGB", "sgi": "RGB", "qoi": "RGB", "im": "RGB",
+OTHER_SAVES = {  # extension -> the mode Pillow writes it from (the rest of item 8h; the
+    # formats the port carries are held to the JAX package in test_torch_other_formats.py)
     "dds": "RGB", "blp": "P", "icns": "RGB", "msp": "1", "xbm": "1", "spider": "F",
-    "jpeg2000": "RGB", "avif": "RGB", "bmp_as_dib": "RGB", "eps": "RGB", "pdf": "RGB",
-    "palm": "1",
+    "jpeg2000": "RGB", "avif": "RGB", "eps": "RGB", "pdf": "RGB", "palm": "1",
 }
 
 
@@ -403,7 +404,7 @@ def _other_file(ext: str) -> bytes:
     mode = OTHER_SAVES[ext]
     img = Image.fromarray(_image(32, 32, 5))
     img = img.convert(mode) if mode != "F" else img.convert("L").convert("F")
-    fmt = {"jpeg2000": "JPEG2000", "bmp_as_dib": "DIB"}.get(ext, ext.upper())
+    fmt = {"jpeg2000": "JPEG2000"}.get(ext, ext.upper())
     buf = io.BytesIO()
     img.save(buf, format=fmt)
     return buf.getvalue()
@@ -421,8 +422,8 @@ def _readable(data: bytes) -> bool:
 def test_pillows_other_formats_are_refused_by_8h(ext, tmp_path, monkeypatch):
     """A file Pillow writes in each of its other formats: where the JAX
     package reads it, the port refuses it naming item 8h, with cv2 and
-    without it (a DIB is a BMP without its file header); where it does not
-    (EPS without Ghostscript, PDF, Palm), the port raises too."""
+    without it; where it does not (EPS without Ghostscript, PDF, Palm), the
+    port raises too."""
     data = _other_file(ext)
     path = tmp_path / "in.bin"
     path.write_bytes(data)
@@ -438,9 +439,8 @@ def test_pillows_other_formats_are_refused_by_8h(ext, tmp_path, monkeypatch):
             timages.read_image(str(path))
 
 
-@pytest.mark.parametrize("name", sorted({"AVIF", "BLP", "DDS", "DIB", "EPS", "ICNS", "ICO", "IM",
-                                         "JPEG2000", "MPO", "MSP", "PALM", "PCX", "PDF", "QOI",
-                                         "SGI", "SPIDER", "TGA", "XBM"}))
+@pytest.mark.parametrize("name", sorted({"AVIF", "BLP", "DDS", "EPS", "ICNS", "JPEG2000", "MSP",
+                                         "PALM", "PDF", "SPIDER", "XBM"}))
 def test_pillows_other_save_formats_are_refused_before_writing(name, tmp_path, monkeypatch):
     """Every save format of Pillow 12.1 the port does not write: the port
     refuses it naming item 8h before any file is made, whatever the JAX

@@ -1010,6 +1010,236 @@ def webp_digests(data: bytes) -> tuple[str, str]:
     return hashlib.sha256(data).hexdigest(), rgba_digest(pixels)
 
 
+# ---- item 8h's formats: TGA, PCX, SGI written by hand (no Pillow) -----------
+
+
+def tga_rle(px: np.ndarray) -> bytes:
+    """TGA run-length packets of pixels [h, w, d] (the bytes of each pixel
+    as stored), packets within a row: runs of two or more equal pixels as
+    repeat packets, the rest as literal ones, each of at most 128 pixels.
+    Vectorised over the whole image, so a 4K frame takes a fraction of a
+    second."""
+    h, w, d = px.shape
+    flat = px.reshape(-1, d)
+    n = h * w
+    key = np.zeros(n, np.uint64)
+    for i in range(d):
+        key |= flat[:, i].astype(np.uint64) << np.uint64(8 * i)
+    idx = np.arange(n)
+    row_start = idx % w == 0
+    new = row_start.copy()
+    new[1:] |= key[1:] != key[:-1]
+    run_id = np.cumsum(new) - 1
+    starts = np.flatnonzero(new)
+    rep = np.diff(np.append(starts, n))[run_id] >= 2
+    lit_new = ~rep & (row_start | np.r_[True, rep[:-1]])
+    lit_starts = np.flatnonzero(lit_new)
+    lit_id = np.maximum(np.cumsum(lit_new) - 1, 0)
+    pos = np.where(rep, idx - starts[run_id],
+                   idx - (lit_starts[lit_id] if lit_starts.size else 0))
+    seg = np.flatnonzero(pos % 128 == 0)
+    seg_len = np.diff(np.append(seg, n))
+    seg_rep = rep[seg]
+    npx = np.where(seg_rep, 1, seg_len)
+    size = 1 + npx * d
+    off = np.cumsum(size) - size
+    out = np.empty(int(size.sum()), np.uint8)
+    out[off] = np.where(seg_rep, 0x80 | (seg_len - 1), seg_len - 1).astype(np.uint8)
+    of = np.repeat(np.arange(len(seg)), npx)
+    j = np.arange(int(npx.sum())) - (np.cumsum(npx) - npx)[of]
+    dst = off[of] + 1 + j * d
+    for b in range(d):
+        out[dst + b] = flat[seg[of] + j, b]
+    return out.tobytes()
+
+
+def make_tga(img: np.ndarray, itype: int, depth: int, *, orient: int = 0, ident: bytes = b"",
+             cmap: tuple | None = None, footer: bool = True) -> bytes:
+    """A TGA of ``img``, [h, w, k] uint8 as it reads (``k`` the stored
+    bytes of a pixel: indices, gray, gray + alpha, BGR(A), or the 2 bytes
+    of a 16-bit pixel; a 1-bit image as 0/1 values), of image type
+    ``itype`` (RLE where ``itype & 8``), stored in the ``orient`` (0x00,
+    0x10, 0x20, 0x30) of its descriptor: rows bottom-up unless 0x20,
+    columns right to left where 0x10.  ``cmap`` is (first index, map
+    depth, the map's bytes)."""
+    h, w = img.shape[:2]
+    rows = img if orient & 0x20 else img[::-1]
+    if orient & 0x10:
+        rows = rows[:, ::-1]
+    if depth == 1:
+        rows = np.packbits(rows[..., 0].astype(np.uint8), axis=1)[..., None]
+    first, mapdepth, table = cmap or (0, 0, b"")
+    ncol = len(table) // max(mapdepth // 8, 1) if cmap else 0
+    head = struct.pack("<BBBHHBHHHHBB", len(ident), 1 if cmap else 0, itype, first, ncol,
+                       mapdepth, 0, 0, w, h, depth, orient | (8 if depth == 32 else 0))
+    body = tga_rle(rows) if itype & 8 else np.ascontiguousarray(rows).tobytes()
+    tail = b"\0" * 8 + b"TRUEVISION-XFILE.\0" if footer else b""
+    return head + ident + table + body + tail
+
+
+def pcx_rle(line: bytes) -> bytes:
+    """One plane line in PCX's run-length code: runs of at most 63, a lone
+    byte below 0xc0 as itself."""
+    out, i = bytearray(), 0
+    while i < len(line):
+        j = i
+        while j < len(line) and line[j] == line[i] and j - i < 63:
+            j += 1
+        if j - i == 1 and line[i] < 0xC0:
+            out.append(line[i])
+        else:
+            out += bytes([0xC0 | (j - i), line[i]])
+        i = j
+    return bytes(out)
+
+
+def make_pcx_planes(idx: np.ndarray, planes: int, palette: bytes, stride: int | None = None
+                    ) -> bytes:
+    """A 1-bit, ``planes``-plane PCX (2 or 4) of palette indices [h, w]
+    with a 16-entry header palette; each plane line padded to ``stride``
+    bytes (the even stride by default)."""
+    h, w = idx.shape
+    s = (w + 7) // 8
+    stride = stride or s + s % 2
+    head = (struct.pack("<BBBBHHHHHH", 10, 5, 1, 1, 0, 0, w - 1, h - 1, 72, 72)
+            + palette[:48].ljust(48, b"\0") + b"\0"
+            + struct.pack("<BHHHH", planes, stride, 1, w, h) + b"\0" * 54)
+    body = bytearray()
+    for r in range(h):
+        line = b""
+        for k in range(planes):
+            bits = np.packbits(((idx[r] >> k) & 1).astype(np.uint8)).tobytes()
+            line += bits.ljust(stride, b"\0")
+        body += pcx_rle(line)
+    return head + bytes(body)
+
+
+def sgi_rle_row(values: np.ndarray, bpc: int) -> bytes:
+    """One channel row in SGI's run-length code: runs of 3 or more equal
+    samples as repeat packets, the rest copied, at most 127 a packet, a
+    zero count last (every count and sample ``bpc`` bytes wide)."""
+    out, i, n = bytearray(), 0, len(values)
+    fmt = ">B" if bpc == 1 else ">H"
+    while i < n:
+        j = i
+        while j < n and values[j] == values[i] and j - i < 127:
+            j += 1
+        if j - i >= 3:
+            out += struct.pack(fmt, j - i) + struct.pack(fmt, int(values[i]))
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 127 and not (j + 2 < n and values[j] == values[j + 1]
+                                               == values[j + 2]):
+            j += 1
+        out += struct.pack(fmt, 0x80 | (j - i)) + b"".join(struct.pack(fmt, int(v))
+                                                          for v in values[i:j])
+        i = j
+    return bytes(out + struct.pack(fmt, 0))
+
+
+def make_sgi(img: np.ndarray, bpc: int = 1, rle: bool = True, name: bytes = b"") -> bytes:
+    """An SGI of ``img`` [h, w, z] (uint8, or uint16 at ``bpc`` 2), rows
+    bottom-up, RLE with its offset and length tables or verbatim."""
+    h, w, z = img.shape
+    dim = 3 if z > 1 else 2
+    head = struct.pack(">hBBHHHHll4s79ssl404s", 474, 1 if rle else 0, bpc, dim, w, h, z, 0,
+                       255 if bpc == 1 else 65535, b"", name, b"", 0, b"")
+    planes = img[::-1].transpose(2, 0, 1)
+    if not rle:
+        return head + np.ascontiguousarray(planes, ">u2" if bpc == 2 else np.uint8).tobytes()
+    rows = [[sgi_rle_row(planes[c, r], bpc) for r in range(h)] for c in range(z)]
+    at = 512 + 8 * z * h
+    starts, lengths, body = [], [], bytearray()
+    for c in range(z):
+        for r in range(h):
+            starts.append(at + len(body))
+            lengths.append(len(rows[c][r]))
+            body += rows[c][r]
+    return (head + struct.pack(f">{z * h}I", *starts) + struct.pack(f">{z * h}I", *lengths)
+            + bytes(body))
+
+
+def _other_levels(hw, seed) -> np.ndarray:
+    """Seeded levels with flat stretches, so run-length codes have runs."""
+    rgb = levels(hw, seed)
+    rgb[:, : hw[1] // 4] = rgb[:, :1]
+    rgb[hw[0] // 3: hw[0] // 2] = rgb[hw[0] // 3]
+    return rgb
+
+
+def other_fixtures() -> dict[str, bytes]:
+    """The TGA, PCX, SGI, QOI, IM, ICO and DIB fixtures of phase 22: the
+    kinds Pillow writes by Pillow, the others by the makers above."""
+    from PIL import Image  # noqa: PLC0415
+
+    rgb = _other_levels((48, 64), 41)
+    alpha = seeded_alpha(48, 64, 41)
+    rgba = np.dstack([rgb, alpha])
+    gray = rgb[..., 1]
+    odd = _other_levels((37, 45), 42)
+    idx16 = (rgb[..., 0] // 16) % 16
+    pal = np.random.default_rng(41).integers(0, 256, (256, 3), dtype=np.uint8)
+    v16 = (rgb[..., :1].astype(np.uint16) << 7) | 0x8000 * (alpha[..., None] < 128)
+    px16 = np.dstack([(v16 & 255).astype(np.uint8), (v16 >> 8).astype(np.uint8)])
+    p_img = Image.fromarray(idx16.astype(np.uint8), "P")
+    p_img.putpalette(pal[:16].tobytes())
+    bmp_ico = _save(Image.fromarray(rgba), "ICO", sizes=[(32, 32), (48, 48)],
+                    bitmap_format="bmp")
+    p8_ico = _save(p_img.resize((32, 32)), "ICO", sizes=[(32, 32)], bitmap_format="bmp")
+    return {
+        "tga_rgb.tga": _save(Image.fromarray(rgb), "TGA"),
+        "tga_rgba_rle_top.tga": make_tga(rgba[..., [2, 1, 0, 3]], 10, 32, orient=0x20),
+        "tga_rgb_rle_flip.tga": make_tga(rgb[..., ::-1], 10, 24, orient=0x10),
+        "tga_rgb_top_right.tga": make_tga(odd[..., ::-1], 2, 24, orient=0x30,
+                                          ident=b"dspfun fixture"),
+        "tga_16bit.tga": make_tga(px16, 2, 16),
+        "tga_cmap_rle.tga": make_tga(idx16[..., None].astype(np.uint8) + 5, 9, 8,
+                                     cmap=(5, 24, pal[:16, ::-1].tobytes()), ident=b"id"),
+        "tga_cmap16.tga": make_tga(idx16[..., None].astype(np.uint8), 1, 8,
+                                   cmap=(0, 16, px16[0, :16].tobytes())),
+        "tga_gray_rle.tga": make_tga(gray[..., None], 11, 8, orient=0x20),
+        "tga_la.tga": make_tga(np.dstack([gray, alpha]), 3, 16),
+        "tga_1bit.tga": make_tga((gray[..., None] > 128).astype(np.uint8), 3, 1),
+        "pcx_rgb.pcx": _save(Image.fromarray(odd), "PCX"),
+        "pcx_l.pcx": _save(Image.fromarray(gray), "PCX"),
+        "pcx_p.pcx": _save(p_img, "PCX"),
+        "pcx_1bit.pcx": _save(Image.fromarray(gray > 128), "PCX"),
+        "pcx_4plane.pcx": make_pcx_planes(idx16, 4, pal[:16].tobytes()),
+        "pcx_2plane.pcx": make_pcx_planes(idx16 % 4, 2, pal[:16].tobytes()),
+        "sgi_rgb.sgi": _save(Image.fromarray(rgb), "SGI"),
+        "sgi_rgba.sgi": _save(Image.fromarray(rgba), "SGI"),
+        "sgi_l_bpc2.sgi": _save(Image.fromarray(gray), "SGI", bpc=2),
+        "sgi_rle_rgb.sgi": make_sgi(odd),
+        "sgi_rle_rgba_bpc2.sgi": make_sgi(rgba.astype(np.uint16) * 257 + 3, bpc=2),
+        "qoi_rgb.qoi": _save(Image.fromarray(rgb), "QOI"),
+        "qoi_rgba.qoi": _save(Image.fromarray(rgba), "QOI"),
+        "im_rgb.im": _save(Image.fromarray(rgb), "IM"),
+        "im_l.im": _save(Image.fromarray(gray), "IM"),
+        "im_l16.im": _save(Image.fromarray(gray.astype(np.uint16) * 257), "IM"),
+        "im_lut.im": _save(p_img, "IM"),
+        "ico_png.ico": _save(Image.fromarray(rgba), "ICO"),
+        "ico_bmp32.ico": bmp_ico,
+        "ico_bmp8.ico": p8_ico,
+        "dib_rgb.dib": _save(Image.fromarray(odd), "DIB"),
+        "dib_p8.dib": _save(p_img, "DIB"),
+    }
+
+
+def other_digests(data: bytes) -> tuple[str, str]:
+    """sha256 of a file and of the JAX package's ``read_image(...,
+    "RGBA")`` float64 pixels of it."""
+    import tempfile  # noqa: PLC0415
+
+    from dspfun_tpu.io import images as jimages  # noqa: PLC0415
+
+    with tempfile.NamedTemporaryFile(suffix=".bin") as f:
+        f.write(data)
+        f.flush()
+        pixels = jimages.read_image(f.name, channels="RGBA").pixels
+    return hashlib.sha256(data).hexdigest(), rgba_digest(pixels)
+
+
 def rates(repeats: int = 5) -> None:
     """The port's decode of Pillow's 3840x2160 LZW (predictor 1 and 2),
     deflate and PackBits TIFFs of ``codec_prog_4k.jpg``'s levels, timed on
@@ -1045,7 +1275,7 @@ def main(argv=None) -> None:
         return
     for made, digest in ((fixtures(), digests), (gif_fixtures(), gif_digests),
                          (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests),
-                         (webp_fixtures(), webp_digests)):
+                         (webp_fixtures(), webp_digests), (other_fixtures(), other_digests)):
         for name, data in made.items():
             (GOLDENS / name).write_bytes(data)
             print(f"    {name!r}: {digest(data)},  # {len(data)} bytes")
