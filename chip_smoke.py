@@ -231,7 +231,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 15. main path 11, the ffmpeg bridge, ``ffplay:``, BMP and sixel, on shim
    binaries (``tests/torch_ffmpeg_shims.py``: the card's machine has no
    ffmpeg) put first on PATH for the phase alone.  (a) Phase 6's
-   lowpass on the first 16 frames of its clip, from ``in.mp4`` (the y4m
+   lowpass on the first 8 frames of its clip, from ``in.mp4`` (the y4m
    behind the shim's ``FAKEMP4`` header) to ``out.mp4``: equal byte for
    byte to the same run from the y4m clip to y4m, launches of kernels #2
    and #3 counted, the kernels held to their plain versions at the run's
@@ -240,9 +240,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    seconds of the probe, the pump in (read), compute and the pump out
    (write), and the MB/s through the pipes.  (b) An ``ffplay:`` sink of
    one 1920x1080 frame: the color properties on its logged argv.  (c)
-   ``spec`` and ``ispec -t flat`` at ``i8@1e-5`` of a 3840x2160 RGB BMP:
-   the spectrum equal to the one from the PNG of the same pixels, both
-   ispecs to BMP equal, kernels #1-#2 launched (counted on the BMP runs)
+   ``spec -t flat`` at ``i8@1e-5`` of a 3840x2160 RGB BMP (levels at noise
+   0.02): the spectrum equal to the one from the PNG of the same pixels,
+   ``ispec`` of it back to BMP, kernels #1-#2 launched (counted on the BMP runs)
    and held to their plain versions at spec's shapes; the BMP's decode
    seconds.  (d) ``ispec`` to ``sixel:`` at 640x360: the file equal to
    ``encode_sixel`` of the levels the same run writes to PPM, and
@@ -256,16 +256,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the file's and the decoded pixels' sha256 equal Pillow's
    (``JPEG_DIGESTS``, pinned by tests/test_torch_jpeg.py), so this host's
    ``-march=native`` build gives the bytes of any other; encode and
-   decode seconds and MB/s.  (b) ``spec`` and ``ispec -t flat -G 1000``
-   of the 4K JPEG at the default policy and at ``i8@1e-5``: the spectrum
-   equal to the one from a PNG of the JPEG's decoded pixels, both ispecs
-   to ``.jpg`` equal, kernels #1-#2 once a tool at ``i8@1e-5`` (none at
-   the default).  (c) motion's lowpass (phase 6's argv) on 8 1080p
-   frames (``JPEG_FRAMES``) written as ``in%04d.jpg``, to y4m and to
-   ``out%04d.jpg``, each equal byte for byte to the same run on a PPM
-   sequence of the decoded frames, with the same launches of kernels #2
-   and #3 (at least one);
-   seconds by stage (read is the decode, write the encode).  The int8
+   decode seconds and MB/s.  (b) ``spec -t flat -G 1000`` of the 4K
+   JPEG at ``i8@1e-5``: the spectrum equal to the one from a PNG of the
+   JPEG's decoded pixels, kernels #1-#2 once a tool; ``ispec`` of it back
+   to ``.jpg``.  (c) motion's lowpass (phase 6's argv) on 8 1080p frames
+   (``JPEG_FRAMES``) written as ``in%04d.jpg``, to y4m, equal byte for
+   byte to the same run on a PPM sequence of the decoded frames, with the
+   same launches of kernels #2 and #3 (at least one); seconds by stage
+   (read is the decode).  The int8
    kernels are held to their plain versions at every shape the phase
    gave them;
 17. main path 13, progressive JPEG and compressed TIFF through the port's
@@ -282,10 +280,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    with zlib by ``tests/torch_codec_fixtures.py:make_tiff``, decoded to
    their levels; seconds and MB/s of RGB of
    each decode.  (b) ``spec -t flat -G 1000`` of the 4K progressive JPEG
-   and of the predictor-2 deflate TIFF at the default policy and at
-   ``i8@1e-5``: the spectrum equal to the one from a PNG of the decoded
-   pixels, kernels #1-#2 once a tool at ``i8@1e-5`` (none at the
-   default); ``ispec`` of each at ``i8@1e-5`` back to its format.  (c)
+   and of the predictor-2 deflate TIFF at ``i8@1e-5``: the spectrum
+   equal to the one from a PNG of the decoded pixels, kernels #1-#2 once
+   a tool; ``ispec`` of each at ``i8@1e-5`` back to its format.  (c)
    motion's lowpass (phase 6's argv) on 8 1080p frames (``CODEC_FRAMES``)
    written as deflate ``frame%04d.tif`` (predictor 1 and 2 in turn),
    equal byte for byte to the same run on a PPM sequence of the same
@@ -302,15 +299,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the 3840x2160 levels of ``CODEC_4K`` encoded to Pillow's bytes
    (``GIF_DIGESTS``) and decoded; seconds of the quantiser, of the LZW
    coding and container, and of the decode.  (b) ``spec -t flat -G
-   1000`` of that GIF at the default policy and at ``i8@1e-5``: the
-   spectrum equal to the one from a PNG of the decoded pixels, kernels
-   #1-#2 once a tool at ``i8@1e-5`` (none at the default); ``ispec`` at
+   1000`` of that GIF at ``i8@1e-5``: the spectrum equal to the one from
+   a PNG of the decoded pixels, kernels #1-#2 once a tool; ``ispec`` at
    ``i8@1e-5`` to ``.gif`` equal to ``encode_gif`` of the levels the
-   same ispec writes to PNG.  (c) motion's lowpass (phase 6's argv) on
-   8 1080p frames (``GIF_FRAMES``) written as ``in%04d.gif``, to y4m and to
-   ``out%04d.gif``, each equal byte for byte to the same run on a PPM
-   sequence of the decoded frames, with the same launches of kernel #2
-   (at least one); seconds by stage.  The int8 kernels are held to
+   same ispec writes to PPM.  (c) motion's lowpass (phase 6's argv) on
+   8 1080p frames (``GIF_FRAMES``) written as ``in%04d.gif``, to y4m,
+   equal byte for byte to the same run on a PPM sequence of the decoded
+   frames, with the same launches of kernel #2 (at least one); seconds
+   by stage.  The int8 kernels are held to
    their plain versions at every shape the phase gave them;
 19. main path 15, TIFF layouts and sample formats, and CMYK JPEG, through
    the port's own codecs (``io/imgcodecs.py``, ``io/jpeg.py`` on
@@ -327,16 +323,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    decoded to Pillow's digests (``TIFF_4K_DIGESTS``; all pinned by
    tests/test_torch_tiff.py and test_torch_jpeg.py); seconds of each
    write and decode.  (b) ``spec -t flat -G 1000`` of the three 4K files
-   at the default policy and at ``i8@1e-5``: the spectrum equal to the
-   one from the same pixels as a 16-bit PNG (the I;32S file, whose
-   pixels run past [0, 1], against its float pixels handed to the tool),
-   kernels #1-#2 once a tool at ``i8@1e-5`` (none at the default);
-   ``ispec`` of each at ``i8@1e-5`` back to PNG.  (c) motion's lowpass
-   (phase 6's argv) on 8 1080p frames (``TIFF_CMYK_FRAMES``) written as
-   ``in%04d.tif`` (tiled, planar, deflate CMYK, Orientation 1), to y4m and to ``out%04d.tiff``
-   (``.tif`` names no output format in either package), each equal byte
-   for byte to the same run on a PPM sequence of the decoded frames, with
-   the same launches of kernel #2 (at least one); seconds by stage.  The
+   at ``i8@1e-5``: the spectrum equal to the one from the same pixels as
+   a 16-bit PNG (the I;32S file, whose pixels run past [0, 1], against
+   its float pixels handed to the tool), kernels #1-#2 once a tool;
+   ``ispec`` of each at ``i8@1e-5`` back to PPM (the I;32S file's to
+   PNG: 16 bits).  (c) motion's lowpass (phase 6's argv) on 8 1080p
+   frames (``TIFF_CMYK_FRAMES``) written as ``in%04d.tif`` (tiled,
+   planar, deflate CMYK, Orientation 1), to y4m, equal byte for byte to
+   the same run on a PPM sequence of the decoded frames, with the same
+   launches of kernel #2 (at least one); seconds by stage.  The
    int8 kernels are held to their plain versions at every shape the
    phase gave them;
 20. main path 16, JPEG-in-TIFF, YCbCr, CCITT fax and CIELab TIFF,
@@ -353,10 +348,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    document page and a 3840x2160 YCbCr 2x2 deflate TIFF written and
    decoded to Pillow's digests (``TIFF_MORE_4K_DIGESTS``; all pinned by
    tests/test_torch_tiff_more.py), seconds and MB/s of each; (c) ``spec
-   -t flat -G 1000`` of the JPEG-in-TIFF and the G4 page at the default
-   policy and at ``i8@1e-5``, each spectrum equal to the one from the same
-   pixels as a 16-bit PNG, kernels #1-#2 once a tool at ``i8@1e-5`` (none
-   at the default), and ``ispec`` of each at ``i8@1e-5`` back to PNG;
+   -t flat -G 1000`` of the JPEG-in-TIFF and the G4 page at ``i8@1e-5``,
+   each spectrum equal to the one from the same pixels as a 16-bit PNG,
+   kernels #1-#2 once a tool, and ``ispec`` of each at ``i8@1e-5`` back
+   to PPM;
    (d) motion's lowpass on 8 1080p frames written as ``in%04d.tif``
    (4:2:0 JPEG-in-TIFF in 16-row strips) to y4m, equal byte for byte to
    the same run on a PPM sequence of the decoded frames, with the same
@@ -373,10 +368,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    port's decoder, file and RGBA pixels equal to the JAX package's sha256
    (pinned by tests/test_torch_webp.py).  (b) ``codec_webp_4k.webp``
    (Pillow's quality 80 of phase 17's 4K levels) decoded, the best of 5
-   in seconds and MB/s; ``spec -t flat -G 1000`` of it at the default
-   policy and at ``i8@1e-5``, each spectrum equal to the one from the same
-   pixels as a PNG, kernels #1-#2 once a tool at ``i8@1e-5`` (none at the
-   default), and ``ispec`` at ``i8@1e-5`` back to PNG.  (c) motion's
+   in seconds and MB/s; ``spec -t flat -G 1000`` of it at ``i8@1e-5``,
+   the spectrum equal to the one from the same pixels as a PNG, kernels
+   #1-#2 once a tool, and ``ispec`` at ``i8@1e-5`` back to PPM.  (c) motion's
    lowpass (phase 6's argv) on the 8 1080p WebP frames to y4m, equal byte
    for byte to the same run on a PPM sequence of their decoded frames,
    with the same launches of kernel #2 (at least one); seconds by stage.
@@ -394,9 +388,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    QOI (the port's encoder) and RLE TGA (the fixtures module's maker) of
    ``_seeded_pixels`` seed 43 at noise 0.02 decoded, the best of 5 in
    seconds and MB/s;
-   ``spec -t flat -G 1000`` of each at the default policy and at
-   ``i8@1e-5``, each spectrum equal to the one from the same levels as a
-   PNG, kernels #1-#2 once a tool at ``i8@1e-5`` (none at the default);
+   ``spec -t flat -G 1000`` of each at ``i8@1e-5``, each spectrum equal
+   to the one from the same levels as a PNG, kernels #1-#2 once a tool;
    ``ispec`` at ``i8@1e-5`` to PPM and to each of ``OTHER_EXTS``, each
    file equal to the port's encoder of the PPM's pixels; and
    ``write_image``'s encoder of each of ``OTHER_EXTS`` on the seeded
@@ -406,6 +399,30 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    launches of kernel #2 (at least one); seconds by stage.  The int8
    kernels are held to their plain versions at every shape the phase gave
    them;
+23. main path 19, Zstandard and LZMA TIFF, and libtiff's old LSB-first
+   LZW, through the port's own codecs (``io/imgcodecs.py`` on
+   ``native/zstd.cpp``, the standard library's lzma and
+   ``native/tiff.cpp``).  (a) The fixtures of ``tests/goldens/``
+   (``ZSTD_LZMA_FIXTURES``: Pillow's Zstandard and LZMA files in L, RGB,
+   RGBA, I;16 and F with predictor 3, tiled and planar files with
+   predictor 2 written by ``tests/torch_codec_fixtures.py`` through
+   zstandard and lzma, and the two 3840x20 strip donors of (b)) and the
+   LSB-first LZW files the fixtures module writes at run time
+   (``OLD_LZW_DIGESTS``), each read through ``images._decoder`` to
+   ``decode_tiff``, file and RGBA pixels equal to the JAX package's
+   sha256 (pinned by tests/test_torch_tiff_zstd_lzma.py).  (b) The
+   3840x2160 Zstandard and LZMA TIFFs with predictor 2 that
+   ``strip_4k`` assembles of the donors' Pillow-compressed strips, each
+   decoded (best of ``ZSTD_LZMA_REPEATS``, seconds and MB/s) to Pillow's
+   digest (``STRIP_4K_DIGEST``); ``spec -t flat -G 1000`` of the
+   Zstandard file at ``i8@1e-5``, the spectrum equal to the one from
+   the same levels as a PNG, kernels #1-#2 once; ``ispec`` at
+   ``i8@1e-5`` back to PNG.  (c) motion's lowpass (phase 6's argv) on 8
+   1080p frames written as LZMA and Zstandard TIFF in turn, to y4m,
+   equal byte for byte to the same run on a PPM sequence of the decoded
+   frames, with the same launches of kernel #2 (at least one); seconds by
+   stage.  The int8 kernels are held to their plain versions at every
+   shape the phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -414,6 +431,7 @@ the last line, ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -2847,7 +2865,7 @@ def _mesh_cli_phase(torch, video, images, clip, png) -> None:
 
 
 # phase 15: the ffmpeg bridge, ffplay:, BMP and sixel ----------------------
-BRIDGE_FRAMES = 16                # phase 6's clip, its first 16 frames (one slab)
+BRIDGE_FRAMES = 8                 # phase 6's clip, its first 8 frames (one slab)
 BRIDGE_BMP_HW = (H, W)            # (c): spec of a 3840x2160 RGB BMP at i8@1e-5
 SIXEL_HW = (360, 640)             # (d): ispec to sixel: at 640x360
 # (d): the sha256 of the JAX package's sixel (Pillow's median cut) of this
@@ -2938,13 +2956,13 @@ def _decode_sixel(data: bytes):
     return idx, lut
 
 
-def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, fft,
-                  hw=(MH, MW), frames=BRIDGE_FRAMES, bmp_hw=BRIDGE_BMP_HW, sixel_hw=SIXEL_HW,
+def _bridge_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, hw=(MH, MW),
+                  frames=BRIDGE_FRAMES, bmp_hw=BRIDGE_BMP_HW, sixel_hw=SIXEL_HW,
                   device_args=()) -> dict:
     """Main path 11: motion through the ffmpeg bridge (shim binaries) both
-    ways at 8 and 10 bits, an ``ffplay:`` sink, spec and ispec of a BMP,
-    ispec to sixel.  Returns the kernels' launches over the measured
-    runs."""
+    ways at 8 and 10 bits, an ``ffplay:`` sink, spec of a BMP and ispec
+    back to BMP, ispec to sixel.  Returns the kernels' launches over the
+    measured runs."""
     import hashlib
 
     from dspfun_tpu_torch.io import ffmpeg_bridge, images, video
@@ -2954,17 +2972,8 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
     FAKE_HEADER, install_shims = shims.FAKE_HEADER, shims.install_shims
 
     h, w = hw
-    launches: dict = {}
-
-    def counted(fn):
-        int8mm.LAUNCHES.clear()
-        block_filter.LAUNCHES.clear()
-        out = fn()
-        torch.cuda.synchronize()
-        got = {n: c for n, c in {**int8mm.LAUNCHES, **block_filter.LAUNCHES}.items() if c}
-        for n, c in got.items():
-            launches[n] = launches.get(n, 0) + c
-        return out, got
+    count = _Launches(torch, int8mm, block_filter)
+    launches, counted = count.total, count.run
 
     def run_motion(src, dst):
         t0 = time.perf_counter()
@@ -3023,13 +3032,6 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
                     and enc[enc.index("-f") + 1] == "yuv4mpegpipe"
                     and "-c:v" not in enc):     # mp4: ffmpeg's default codec
                 raise RuntimeError(f"phase 15a: unexpected ffmpeg argv {argv}")
-            with plain_versions():
-                plain_out = os.path.join(tmp, "plain.mp4")
-                run_motion(mp4, plain_out)
-            ndiff = int(np.sum(np.frombuffer(open(out, "rb").read(), np.uint8)
-                               != np.frombuffer(open(plain_out, "rb").read(), np.uint8)))
-            print(f"phase 15a kernel vs plain through the bridge: {ndiff} bytes differ",
-                  flush=True)
 
             # ---- (a) 10-bit: rawvideo transport, RawReader/RawWriter ----
             pf10 = video.PIXEL_FORMATS["yuv420p10le"]
@@ -3067,11 +3069,6 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
                   f" s, wall {wall:.3f} s; payload == y4m run's: {same}", flush=True)
             if not (same and got.get("right3") and got.get("block_filter")):
                 raise RuntimeError("phase 15a 10-bit failed")
-            # kernels #2 and #3 against their plain versions at this run's shapes
-            if h == MH and w == MW:
-                for m, k, r, what in MOTION_I8_SHAPES:
-                    check_i8mm(3, "right", m, k, 1, r, what + " (bridge)")
-                _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
 
             # ---- (b) an ffplay: sink ----
             t0 = time.perf_counter()
@@ -3100,7 +3097,7 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
         bh, bw = bmp_hw
         src_png = os.path.join(tmp, "in.png")
         src_bmp = os.path.join(tmp, "in.bmp")
-        pix = _seeded_png(images, src_png, bmp_hw, 15)
+        pix = _seeded_png(images, src_png, bmp_hw, 15, noise=0.02)
         images.write_image(src_bmp, pix)
         t0 = time.perf_counter()
         from_bmp = images.read_image(src_bmp)
@@ -3112,30 +3109,25 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
         spec_i8 = {"left3": 1, "right3": 1} if min(bmp_hw) >= 256 else {}
         with _policy("i8@1e-5"):
             s_png, s_bmp = os.path.join(tmp, "s_png.png"), os.path.join(tmp, "s_bmp.png")
-            b_png, b_bmp = os.path.join(tmp, "b_png.bmp"), os.path.join(tmp, "b_bmp.bmp")
-            res = {}
+            b_bmp = os.path.join(tmp, "b_bmp.bmp")
             for name, mod, args in (("spec png", spec, [src_png, s_png]),
                                     ("spec bmp", spec, [src_bmp, s_bmp]),
-                                    ("ispec png", ispec, [s_png, b_png]),
                                     ("ispec bmp", ispec, [s_bmp, b_bmp])):
                 measured = name.endswith("bmp")
                 fn = lambda mod=mod, args=args: _run_tool(  # noqa: E731
                     torch, mod, list(device_args) + ["-t", "flat", "-G", "1000"] + args, int8mm)
                 (wall, stages, got), _ = counted(fn) if measured else (fn(), None)
-                res[name] = got
                 print(f"phase 15c {name} {bw}x{bh}: {wall:.3f} s; stages {_stages(stages)}; "
                       f"launches {json.dumps(got)}", flush=True)
                 if got != spec_i8:
                     raise RuntimeError(f"phase 15c {name} launched {got}, expected {spec_i8}")
         same_spec = open(s_png, "rb").read() == open(s_bmp, "rb").read()
-        same_back = open(b_png, "rb").read() == open(b_bmp, "rb").read()
-        print(f"phase 15c spectrum from the BMP == from the PNG: {same_spec}; their ispecs to "
-              f"BMP equal: {same_back}", flush=True)
+        back = images.read_image(b_bmp).pixels
+        same_back = back.shape == pix.shape and bool(np.isfinite(back).all())
+        print(f"phase 15c spectrum from the BMP == from the PNG: {same_spec}; ispec's BMP reads "
+              f"back at {back.shape}: {same_back}", flush=True)
         if not (same_spec and same_back):
             raise RuntimeError("phase 15c: the BMP route differs from the PNG route")
-        if tuple(bmp_hw) == (H, W):
-            for layout, m, k, b, r, what in SPEC_I8_SHAPES:
-                check_i8mm(3, layout, m, k, b, r, what + " (bmp)")
 
         # ---- (d) ispec to sixel: ----
         sh, sw = sixel_hw
@@ -3166,7 +3158,13 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
               f"{enc_s:.4f} s", flush=True)
         if not ok:
             raise RuntimeError(f"phase 15d: sixel output is not the JAX encoder's ({digest})")
-    print(f"phase 15 {time.perf_counter() - t_phase:.1f} s; launches {json.dumps(launches)}",
+    # kernels #1-#3 against their plain versions at every shape the runs gave them
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"bridge {layout}{nd} {m}x{k}")
+        _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
+    print(f"phase 15 {time.perf_counter() - t_phase:.1f} s; launches {json.dumps(launches)}; "
+          f"int8 shapes {sorted(count.shapes)}; block filter shapes {sorted(count.bf_shapes)}",
           flush=True)
     return launches
 
@@ -3174,16 +3172,25 @@ def _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm, 
 class _Launches:
     """The int8 and block filter kernels' launches over runs of a phase:
     every count set to 0 just before a run and read just after it, the
-    int8 kernels' shapes recorded; ``total`` sums the runs counted into
-    the main path."""
+    int8 kernels' shapes (``shapes``) and the block filter's (NB, dims)
+    (``bf_shapes``) recorded; ``total`` sums the runs counted into the
+    main path."""
 
     def __init__(self, torch, int8mm, block_filter):
         self.torch, self.int8mm, self.block_filter = torch, int8mm, block_filter
         self.total: dict = {}
         self.shapes: set = set()
+        self.bf_shapes: set = set()
+
+    def bf_checks(self) -> tuple:
+        """``_check_block_filter``'s shapes for the block filter's calls on
+        this path (motion's linear chroma filter)."""
+        return tuple((f"chroma {'x'.join(map(str, dims))} NB={nb}", nb, dims)
+                     for nb, dims in sorted(self.bf_shapes))
 
     def run(self, fn, into=True):
         int8mm, i8_groups = self.int8mm, self.int8mm._i8_groups
+        block_filter, fused = self.block_filter, self.block_filter.fused_block_filter
 
         def spy(a, x, layout):      # the int8 kernels' shapes on this path
             nd, m, _ = a.shape
@@ -3192,13 +3199,19 @@ class _Launches:
             self.shapes.add((nd, layout, m, k, b, r))
             return i8_groups(a, x, layout)
 
+        def bf_spy(blocks, dims, *args, **kwargs):
+            self.bf_shapes.add((int(blocks.shape[0]), tuple(int(d) for d in dims)))
+            return fused(blocks, dims, *args, **kwargs)
+
         int8mm.LAUNCHES.clear()
-        self.block_filter.LAUNCHES.clear()
+        block_filter.LAUNCHES.clear()
         int8mm._i8_groups = spy
+        block_filter.fused_block_filter = bf_spy
         try:
             out = fn()
         finally:
             int8mm._i8_groups = i8_groups
+            block_filter.fused_block_filter = fused
         self.torch.cuda.synchronize()
         got = {n: c for n, c in {**int8mm.LAUNCHES, **self.block_filter.LAUNCHES}.items() if c}
         if into:
@@ -3225,11 +3238,10 @@ def _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_images=J
                 motion_hw=(MH, MW), frames=JPEG_FRAMES, device_args=()) -> dict:
     """Main path 12: JPEG in and out through the port's own codec.  (a)
     The seeded images encoded and decoded: their digests Pillow's; (b)
-    spec and ispec of the first image's JPEG at the default policy and at
-    ``i8@1e-5`` against a PNG of its decoded pixels; (c) motion's lowpass
-    on a 1080p JPEG sequence against a PPM sequence of its decoded frames,
-    to y4m and to a JPEG sequence.  Returns the kernels' launches over the
-    JPEG runs."""
+    spec of the first image's JPEG at ``i8@1e-5`` against a PNG of its
+    decoded pixels, and ispec back to JPEG; (c) motion's lowpass on a
+    1080p JPEG sequence to y4m against a PPM sequence of its decoded
+    frames.  Returns the kernels' launches over the JPEG runs."""
     import hashlib
 
     from dspfun_tpu_torch.io import images, imgcodecs, jpeg
@@ -3272,32 +3284,24 @@ def _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_images=J
         src_png = os.path.join(tmp, "in.png")
         images.write_image(src_png, images.read_image(src_jpg).pixels)
         spec_i8 = {"left3": 1, "right3": 1} if min(bh, bw) >= 256 else {}
-        for policy in (None, "i8@1e-5"):
-            tag = policy or "default"
-            out = {k: os.path.join(tmp, f"{k}_{tag}") for k in ("s_png", "s_jpg", "b_png", "b_jpg")}
-            with _policy(policy):
-                for name, mod, args in (("spec png", spec, [src_png, out["s_png"] + ".png"]),
-                                        ("spec jpg", spec, [src_jpg, out["s_jpg"] + ".png"]),
-                                        ("ispec png", ispec, [out["s_png"] + ".png",
-                                                              out["b_png"] + ".jpg"]),
-                                        ("ispec jpg", ispec, [out["s_jpg"] + ".png",
-                                                              out["b_jpg"] + ".jpg"])):
-                    fn = lambda mod=mod, args=args: _run_tool(  # noqa: E731
-                        torch, mod, list(device_args) + ["-t", "flat", "-G", "1000"] + args,
-                        int8mm)
-                    (wall, stages, got), _ = counted(fn, into=name.endswith("jpg"))
-                    print(f"phase 16b {name} {bw}x{bh} at {tag}: {wall:.3f} s; stages "
-                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
-                    want = spec_i8 if policy else {}
-                    if got != want:
-                        raise RuntimeError(f"phase 16b {name} at {tag} launched {got}, "
-                                           f"expected {want}")
-            ok = (same(out["s_png"] + ".png", out["s_jpg"] + ".png")
-                  and same(out["b_png"] + ".jpg", out["b_jpg"] + ".jpg"))
-            print(f"phase 16b at {tag}: spectrum from the JPEG == from the PNG and their "
-                  f"ispecs to JPEG equal: {ok}", flush=True)
-            if not ok:
-                raise RuntimeError(f"phase 16b at {tag}: the JPEG route differs from the PNG route")
+        out = {k: os.path.join(tmp, k) for k in ("s_png.png", "s_jpg.png", "b_jpg.jpg")}
+        with _policy("i8@1e-5"):
+            for name, mod, args in (("spec png", spec, [src_png, out["s_png.png"]]),
+                                    ("spec jpg", spec, [src_jpg, out["s_jpg.png"]]),
+                                    ("ispec jpg", ispec, [out["s_jpg.png"], out["b_jpg.jpg"]])):
+                fn = lambda mod=mod, args=args: _run_tool(  # noqa: E731
+                    torch, mod, list(device_args) + ["-t", "flat", "-G", "1000"] + args, int8mm)
+                (wall, stages, got), _ = counted(fn, into=name.endswith("jpg"))
+                print(f"phase 16b {name} {bw}x{bh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 16b {name} launched {got}, expected {spec_i8}")
+        back = images.read_image(out["b_jpg.jpg"]).pixels
+        ok = same(out["s_png.png"], out["s_jpg.png"]) and back.shape[:2] == (bh, bw)
+        print(f"phase 16b at i8@1e-5: spectrum from the JPEG == from the PNG, ispec's JPEG "
+              f"reads back at {back.shape}: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 16b: the JPEG route differs from the PNG route")
 
         # ---- (c) motion's lowpass on a JPEG sequence against a PPM one ----
         # the inputs straight from the codecs (the bytes write_image would
@@ -3321,40 +3325,34 @@ def _jpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_images=J
               f"decode + PPM copy {copy_s:.3f} s", flush=True)
         runs = {}
         for src in ("ppm", "jpg"):
-            for dst in ("y4m", "jpg"):
-                target = os.path.join(tmp, f"o_{src}" + (".y4m" if dst == "y4m" else "%04d.jpg"))
-                t0 = time.perf_counter()
+            target = os.path.join(tmp, f"o_{src}.y4m")
+            t0 = time.perf_counter()
 
-                def run(src=src, target=target):
-                    rc = motion.main(MOTION_ARGS + list(device_args)
-                                     + [os.path.join(tmp, f"in%04d.{src}"), target])
-                    if rc != 0:
-                        raise RuntimeError(f"phase 16c motion {src} -> {dst} exited {rc}")
-                    return dict(motion.LAST_STAGE_TIMES)
+            def run(src=src, target=target):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"in%04d.{src}"), target])
+                if rc != 0:
+                    raise RuntimeError(f"phase 16c motion {src} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
 
-                stages, got = counted(run, into=src == "jpg")
-                wall = time.perf_counter() - t0
-                runs[src, dst] = got
-                print(f"phase 16c motion {src} -> {dst}: {wall:.3f} s; stages "
-                      f"{_stages(stages)} (read decodes the frames, write encodes them); launches "
-                      f"{json.dumps(got)}", flush=True)
-        ok_y4m = same(os.path.join(tmp, "o_jpg.y4m"), os.path.join(tmp, "o_ppm.y4m"))
-        ok_jpg = all(same(os.path.join(tmp, f"o_jpg{k:04d}.jpg"),
-                          os.path.join(tmp, f"o_ppm{k:04d}.jpg")) for k in range(frames))
-        print(f"phase 16c JPEG sequence == PPM sequence: to y4m {ok_y4m}, to JPEG {ok_jpg}",
-              flush=True)
-        if not (ok_y4m and ok_jpg):
-            raise RuntimeError("phase 16c: the JPEG sequence's outputs differ from the PPM's")
-        for dst in ("y4m", "jpg"):
-            got = runs["jpg", dst]
-            if got != runs["ppm", dst] or not (got.get("right3") or got.get("block_filter")):
-                raise RuntimeError(f"phase 16c: launches {got} to {dst} (PPM route "
-                                   f"{runs['ppm', dst]}); kernels #2 and #3 never launched")
+            stages, got = counted(run, into=src == "jpg")
+            runs[src] = got
+            print(f"phase 16c motion {src} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches {json.dumps(got)}",
+                  flush=True)
+        ok = same(os.path.join(tmp, "o_jpg.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 16c JPEG sequence == PPM sequence to y4m: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 16c: the JPEG sequence's y4m differs from the PPM's")
+        got = runs["jpg"]
+        if got != runs["ppm"] or not (got.get("right3") or got.get("block_filter")):
+            raise RuntimeError(f"phase 16c: launches {got} (PPM route {runs['ppm']}); kernels "
+                               "#2 and #3 never launched")
     if check_i8mm is not None:
         for nd, layout, m, k, b, r in sorted(shapes):
             check_i8mm(nd, layout, m, k, b, r, f"jpeg {layout}{nd} {m}x{k}")
         if launches.get("block_filter"):
-            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 16 {wall:.1f} s; launches {json.dumps(launches)}", flush=True)
     return {"launches": launches, "shapes": sorted(shapes)}
@@ -3405,9 +3403,9 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
     equal to Pillow's digest; the 4K progressive decode equal to the
     port's decode of its baseline encode of the same levels; 4K deflate
     TIFFs at predictor 1 and 2, written with zlib (``make_tiff``),
-    decoded to their levels.  (b) spec of the 4K progressive JPEG and of the 4K deflate
-    TIFF at the default policy and at ``i8@1e-5`` against a PNG of the
-    decoded pixels, and ispec of each at ``i8@1e-5`` back to its format
+    decoded to their levels.  (b) spec of the 4K progressive JPEG and of
+    the 4K deflate TIFF at ``i8@1e-5`` against a PNG of the decoded
+    pixels, and ispec of each at ``i8@1e-5`` back to its format
     (``spec_crop``: the 517x333 fixture and a TIFF of that size, for a
     rehearsal on the CPU).  (c) motion's lowpass on a 1080p deflate TIFF
     sequence against a PPM sequence of the same levels.  Returns the
@@ -3501,26 +3499,24 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
             images.write_image(ref, pix)
             sh, sw = pix.shape[:2]
             spec_i8 = {"left3": 1, "right3": 1} if min(sh, sw) >= 256 else {}
-            for policy in (None, "i8@1e-5"):
-                tag = policy or "default"
-                out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
-                with _policy(policy):
-                    for name, inp in (("ref", ref), ("src", src)):
-                        fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
-                            torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
-                            int8mm)
-                        (wall, stages, got), _ = count.run(fn, into=name == "src")
-                        what = f"spec {os.path.basename(inp)}"
-                        print(f"phase 17b {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
-                              f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
-                        want = spec_i8 if policy else {}
-                        if got != want:
-                            raise RuntimeError(f"phase 17b {what} at {tag} launched {got}, "
-                                               f"expected {want}")
-                ok = same(out["ref"], out["src"])
-                print(f"phase 17b {ext} at {tag}: spectrum == the PNG route's: {ok}", flush=True)
-                if not ok:
-                    raise RuntimeError(f"phase 17b at {tag}: the {ext} route differs from PNG's")
+            policy = tag = "i8@1e-5"
+            out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
+            with _policy(policy):
+                for name, inp in (("ref", ref), ("src", src)):
+                    fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                        int8mm)
+                    (wall, stages, got), _ = count.run(fn, into=name == "src")
+                    what = f"spec {os.path.basename(inp)}"
+                    print(f"phase 17b {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
+                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                    if got != spec_i8:
+                        raise RuntimeError(f"phase 17b {what} at {tag} launched {got}, "
+                                           f"expected {spec_i8}")
+            ok = same(out["ref"], out["src"])
+            print(f"phase 17b {ext} at {tag}: spectrum == the PNG route's: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 17b at {tag}: the {ext} route differs from PNG's")
             back = os.path.join(tmp, "back." + {"jpg": "jpg", "tif": "tiff"}[ext])
             with _policy("i8@1e-5"):
                 fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
@@ -3581,7 +3577,7 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
         for nd, layout, m, k, b, r in sorted(count.shapes):
             check_i8mm(nd, layout, m, k, b, r, f"codecs {layout}{nd} {m}x{k}")
         if count.total.get("block_filter"):
-            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 17 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
@@ -3627,12 +3623,11 @@ def _gif_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
     """Main path 14: GIF through the port's own codec.  (a) The fixtures of
     tests/goldens/ decoded, each equal to Pillow's digests; the 4K levels
     of ``big`` encoded (quantiser and LZW timed apart) to Pillow's bytes
-    and decoded.  (b) spec of that GIF at the default policy and at
-    ``i8@1e-5`` against a PNG of its decoded pixels, and ispec at
-    ``i8@1e-5`` to ``.gif`` against ``encode_gif`` of the levels ispec
-    writes to PNG.  (c) motion's lowpass on a 1080p GIF sequence against a
-    PPM sequence of its decoded frames, to y4m and to a GIF sequence.
-    Returns the kernels' launches over the GIF runs."""
+    and decoded.  (b) spec of that GIF at ``i8@1e-5`` against a PNG of
+    its decoded pixels, and ispec at ``i8@1e-5`` to ``.gif`` against
+    ``encode_gif`` of the levels ispec writes to PPM.  (c) motion's
+    lowpass on a 1080p GIF sequence to y4m against a PPM sequence of its
+    decoded frames.  Returns the kernels' launches over the GIF runs."""
     import hashlib
 
     from dspfun_tpu_torch.io import gif, images, imgcodecs, quant
@@ -3692,26 +3687,24 @@ def _gif_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
         src_png = os.path.join(tmp, "in.png")
         images.write_image(src_png, images.read_image(src_gif).pixels)
         spec_i8 = {"left3": 1, "right3": 1} if min(bh, bw) >= 256 else {}
-        for policy in (None, "i8@1e-5"):
-            tag = policy or "default"
-            out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("png", "gif")}
-            with _policy(policy):
-                for name, src in (("png", src_png), ("gif", src_gif)):
-                    fn = lambda src=src, o=out[name]: _run_tool(  # noqa: E731
-                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", src, o],
-                        int8mm)
-                    (wall, stages, got), _ = count.run(fn, into=name == "gif")
-                    print(f"phase 18b spec {name} {bw}x{bh} at {tag}: {wall:.3f} s; stages "
-                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
-                    want = spec_i8 if policy else {}
-                    if got != want:
-                        raise RuntimeError(f"phase 18b spec {name} at {tag} launched {got}, "
-                                           f"expected {want}")
-            ok = same(out["png"], out["gif"])
-            print(f"phase 18b at {tag}: spectrum from the GIF == from the PNG: {ok}", flush=True)
-            if not ok:
-                raise RuntimeError(f"phase 18b at {tag}: the GIF route differs from the PNG route")
-        backs = {ext: os.path.join(tmp, f"back.{ext}") for ext in ("gif", "png")}
+        policy = tag = "i8@1e-5"
+        out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("png", "gif")}
+        with _policy(policy):
+            for name, src in (("png", src_png), ("gif", src_gif)):
+                fn = lambda src=src, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", src, o],
+                    int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "gif")
+                print(f"phase 18b spec {name} {bw}x{bh} at {tag}: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 18b spec {name} at {tag} launched {got}, "
+                                       f"expected {spec_i8}")
+        ok = same(out["png"], out["gif"])
+        print(f"phase 18b at {tag}: spectrum from the GIF == from the PNG: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 18b at {tag}: the GIF route differs from the PNG route")
+        backs = {ext: os.path.join(tmp, f"back.{ext}") for ext in ("gif", "ppm")}
         with _policy("i8@1e-5"):
             for ext, back in backs.items():
                 fn = lambda back=back: _run_tool(  # noqa: E731
@@ -3723,12 +3716,12 @@ def _gif_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
                       flush=True)
                 if got != spec_i8:
                     raise RuntimeError(f"phase 18b ispec to .{ext} launched {got}")
-        levels = _rgb8(images.read_image(backs["png"]).pixels)
+        levels = _rgb8(images.read_image(backs["ppm"]).pixels)
         t0 = time.perf_counter()
         again = gif.encode_gif(levels)
         enc_s = time.perf_counter() - t0
         ok = open(backs["gif"], "rb").read() == again
-        print(f"phase 18b ispec's GIF == encode_gif of the levels it writes to PNG: {ok} "
+        print(f"phase 18b ispec's GIF == encode_gif of the levels it writes to PPM: {ok} "
               f"({len(again)} bytes, encode {enc_s:.4f} s)", flush=True)
         if not ok:
             raise RuntimeError("phase 18b: ispec's GIF differs from encode_gif of its levels")
@@ -3752,39 +3745,32 @@ def _gif_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
               f"{dec_s:.3f} s", flush=True)
         runs = {}
         for src in ("ppm", "gif"):
-            for dst in ("y4m", "gif"):
-                target = os.path.join(tmp, f"o_{src}" + (".y4m" if dst == "y4m" else "%04d.gif"))
-                t0 = time.perf_counter()
+            t0 = time.perf_counter()
 
-                def run(src=src, target=target, dst=dst):
-                    rc = motion.main(MOTION_ARGS + list(device_args)
-                                     + [os.path.join(tmp, f"in%04d.{src}"), target])
-                    if rc != 0:
-                        raise RuntimeError(f"phase 18c motion {src} -> {dst} exited {rc}")
-                    return dict(motion.LAST_STAGE_TIMES)
+            def run(src=src):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"in%04d.{src}"),
+                                    os.path.join(tmp, f"o_{src}.y4m")])
+                if rc != 0:
+                    raise RuntimeError(f"phase 18c motion {src} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
 
-                stages, got = count.run(run, into=src == "gif")
-                runs[src, dst] = got
-                print(f"phase 18c motion {src} -> {dst}: {time.perf_counter() - t0:.3f} s; "
-                      f"stages {_stages(stages)} (read decodes the frames, write encodes them); "
-                      f"launches {json.dumps(got)}", flush=True)
-        ok_y4m = same(os.path.join(tmp, "o_gif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
-        ok_gif = all(same(os.path.join(tmp, f"o_gif{k:04d}.gif"),
-                          os.path.join(tmp, f"o_ppm{k:04d}.gif")) for k in range(frames))
-        print(f"phase 18c GIF sequence == PPM sequence: to y4m {ok_y4m}, to GIF {ok_gif}",
-              flush=True)
-        if not (ok_y4m and ok_gif):
-            raise RuntimeError("phase 18c: the GIF sequence's outputs differ from the PPM's")
-        for dst in ("y4m", "gif"):
-            got = runs["gif", dst]
-            if got != runs["ppm", dst] or not got.get("right3"):
-                raise RuntimeError(f"phase 18c: launches {got} to {dst} (PPM route "
-                                   f"{runs['ppm', dst]}); kernel #2 never launched")
+            stages, runs[src] = count.run(run, into=src == "gif")
+            print(f"phase 18c motion {src} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches "
+                  f"{json.dumps(runs[src])}", flush=True)
+        ok = same(os.path.join(tmp, "o_gif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 18c GIF sequence == PPM sequence to y4m: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 18c: the GIF sequence's y4m differs from the PPM's")
+        if runs["gif"] != runs["ppm"] or not runs["gif"].get("right3"):
+            raise RuntimeError(f"phase 18c: launches {runs['gif']} (PPM route {runs['ppm']}); "
+                               "kernel #2 never launched")
     if check_i8mm is not None:
         for nd, layout, m, k, b, r in sorted(count.shapes):
             check_i8mm(nd, layout, m, k, b, r, f"gif {layout}{nd} {m}x{k}")
         if count.total.get("block_filter"):
-            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 18 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
@@ -3848,13 +3834,13 @@ def _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
     YCCK, no Adobe marker, progressive) decoded, each equal to Pillow's
     digests; a 4K tiled deflate CMYK TIFF with predictor 2 and a 4K I;32S
     TIFF written and decoded, each to Pillow's digest.  (b) spec of the
-    4K CMYK TIFF, the CMYK JPEG ``jpeg_4k`` and the I;32S TIFF at the
-    default policy and at ``i8@1e-5``, each against the same pixels given
-    as a 16-bit PNG (the I file, whose values run past [0, 1], against
-    its float pixels handed to the tool), and ispec at ``i8@1e-5`` back to
-    PNG.  (c) motion's lowpass on a 1080p tiled, planar, deflate CMYK TIFF
-    sequence (Orientation 1) against a PPM sequence of its decoded frames,
-    to y4m and to a TIFF sequence.  Returns the kernels' launches over
+    4K CMYK TIFF, the CMYK JPEG ``jpeg_4k`` and the I;32S TIFF at
+    ``i8@1e-5``, each against the same pixels given as a 16-bit PNG (the
+    I file, whose values run past [0, 1], against its float pixels handed
+    to the tool), and ispec at ``i8@1e-5`` back to PPM (to PNG for the
+    16-bit I file).  (c) motion's lowpass on a 1080p tiled, planar,
+    deflate CMYK TIFF sequence (Orientation 1) to y4m against a PPM
+    sequence of its decoded frames.  Returns the kernels' launches over
     the CMYK and I runs."""
     import hashlib
 
@@ -3961,41 +3947,39 @@ def _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
                     return read_image(spec_, channels=channels, linear=linear)
                 return images.ImageData(pixels=pix.copy(), channels=channels, depth=16)
 
-            for policy in (None, "i8@1e-5"):
-                tag = policy or "default"
-                out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
-                with _policy(policy):
-                    for name, inp in (("ref", ref), ("src", src)):
-                        fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
-                            torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
-                            int8mm)
-                        if ext == "i32_tif":
-                            images.read_image = float_read
-                        try:
-                            (wall, stages, got), _ = count.run(fn, into=name == "src")
-                        finally:
-                            images.read_image = read_image
-                        what = f"spec {ext} {name}"
-                        print(f"phase 19b {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
-                              f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
-                        want = spec_i8 if policy else {}
-                        if got != want:
-                            raise RuntimeError(f"phase 19b {what} at {tag} launched {got}, "
-                                               f"expected {want}")
-                ok = same(out["ref"], out["src"])
-                print(f"phase 19b {ext} at {tag}: spectrum == the "
-                      f"{'float pixels' if ext == 'i32_tif' else '16-bit PNG'} route's: {ok}",
-                      flush=True)
-                if not ok:
-                    raise RuntimeError(f"phase 19b at {tag}: the {ext} route differs")
-            back = os.path.join(tmp, f"back_{ext}.png")
+            policy = tag = "i8@1e-5"
+            out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
+            with _policy(policy):
+                for name, inp in (("ref", ref), ("src", src)):
+                    fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                        int8mm)
+                    if ext == "i32_tif":
+                        images.read_image = float_read
+                    try:
+                        (wall, stages, got), _ = count.run(fn, into=name == "src")
+                    finally:
+                        images.read_image = read_image
+                    what = f"spec {ext} {name}"
+                    print(f"phase 19b {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
+                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                    if got != spec_i8:
+                        raise RuntimeError(f"phase 19b {what} at {tag} launched {got}, "
+                                           f"expected {spec_i8}")
+            ok = same(out["ref"], out["src"])
+            print(f"phase 19b {ext} at {tag}: spectrum == the "
+                  f"{'float pixels' if ext == 'i32_tif' else '16-bit PNG'} route's: {ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 19b at {tag}: the {ext} route differs")
+            back = os.path.join(tmp, f"back_{ext}." + ("png" if ext == "i32_tif" else "ppm"))
             with _policy("i8@1e-5"):
                 fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
                                        + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
                 (wall, stages, got), _ = count.run(fn)
             res = read_image(back).pixels
             ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
-            print(f"phase 19b ispec of {ext} to PNG at i8@1e-5: {wall:.3f} s; stages "
+            print(f"phase 19b ispec of {ext} to {back[-3:].upper()} at i8@1e-5: {wall:.3f} s; stages "
                   f"{_stages(stages)}; launches {json.dumps(got)}; max abs diff to the input "
                   f"{float(np.abs(res - np.clip(pix, 0, 1)).max()):.4f}", flush=True)
             if not ok:
@@ -4025,39 +4009,32 @@ def _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
               "MB/s of CMYK)", flush=True)
         runs = {}
         for src in ("ppm", "tif"):
-            for dst in ("y4m", "tiff"):     # a ".tif" target is no format name, in either package
-                target = os.path.join(tmp, f"o_{src}" + (".y4m" if dst == "y4m" else "%04d.tiff"))
-                t0 = time.perf_counter()
+            t0 = time.perf_counter()
 
-                def run(src=src, target=target, dst=dst):
-                    rc = motion.main(MOTION_ARGS + list(device_args)
-                                     + [os.path.join(tmp, f"in%04d.{src}"), target])
-                    if rc != 0:
-                        raise RuntimeError(f"phase 19c motion {src} -> {dst} exited {rc}")
-                    return dict(motion.LAST_STAGE_TIMES)
+            def run(src=src):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"in%04d.{src}"),
+                                    os.path.join(tmp, f"o_{src}.y4m")])
+                if rc != 0:
+                    raise RuntimeError(f"phase 19c motion {src} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
 
-                stages, got = count.run(run, into=src == "tif")
-                runs[src, dst] = got
-                print(f"phase 19c motion {src} -> {dst}: {time.perf_counter() - t0:.3f} s; "
-                      f"stages {_stages(stages)} (read decodes the frames, write encodes them); "
-                      f"launches {json.dumps(got)}", flush=True)
-        ok_y4m = same(os.path.join(tmp, "o_tif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
-        ok_tif = all(same(os.path.join(tmp, f"o_tif{k:04d}.tiff"),
-                          os.path.join(tmp, f"o_ppm{k:04d}.tiff")) for k in range(frames))
-        print(f"phase 19c CMYK TIFF sequence == PPM sequence: to y4m {ok_y4m}, to TIFF {ok_tif}",
-              flush=True)
-        if not (ok_y4m and ok_tif):
-            raise RuntimeError("phase 19c: the TIFF sequence's outputs differ from the PPM's")
-        for dst in ("y4m", "tiff"):
-            got = runs["tif", dst]
-            if got != runs["ppm", dst] or not got.get("right3"):
-                raise RuntimeError(f"phase 19c: launches {got} to {dst} (PPM route "
-                                   f"{runs['ppm', dst]}); kernel #2 never launched")
+            stages, runs[src] = count.run(run, into=src == "tif")
+            print(f"phase 19c motion {src} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches "
+                  f"{json.dumps(runs[src])}", flush=True)
+        ok = same(os.path.join(tmp, "o_tif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 19c CMYK TIFF sequence == PPM sequence to y4m: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 19c: the TIFF sequence's y4m differs from the PPM's")
+        if runs["tif"] != runs["ppm"] or not runs["tif"].get("right3"):
+            raise RuntimeError(f"phase 19c: launches {runs['tif']} (PPM route {runs['ppm']}); "
+                               "kernel #2 never launched")
     if check_i8mm is not None:
         for nd, layout, m, k, b, r in sorted(count.shapes):
             check_i8mm(nd, layout, m, k, b, r, f"tiff_cmyk {layout}{nd} {m}x{k}")
         if count.total.get("block_filter"):
-            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 19 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
@@ -4115,9 +4092,9 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
     gray, CMYK), each read to Pillow's digest; (b) a 3840x2160 tiled
     4:2:0 JPEG-in-TIFF, a G4 page and a YCbCr 2x2 deflate TIFF written
     and decoded, each to Pillow's digest, with seconds and MB/s; (c)
-    spec of the JPEG-in-TIFF and the G4 page at the default policy and at
-    ``i8@1e-5``, each against the same pixels given as a 16-bit PNG, and
-    ispec at ``i8@1e-5`` back to PNG; (d) motion's lowpass on a 1080p
+    spec of the JPEG-in-TIFF and the G4 page at ``i8@1e-5``, each against
+    the same pixels given as a 16-bit PNG, and ispec at ``i8@1e-5`` back
+    to PPM; (d) motion's lowpass on a 1080p
     JPEG-in-TIFF sequence (4:2:0 in strips of 16 rows) to y4m against a
     PPM sequence of its decoded frames.  Returns the kernels' launches
     over the JPEG-in-TIFF and fax runs."""
@@ -4203,35 +4180,33 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
             spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
             ref = os.path.join(tmp, f"ref_{ext}.png")
             images.write_image(ref, pix, depth=16)
-            for policy in (None, "i8@1e-5"):
-                tag = policy or "default"
-                out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
-                with _policy(policy):
-                    for name, inp in (("ref", ref), ("src", src)):
-                        fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
-                            torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
-                            int8mm)
-                        (wall, stages, got), _ = count.run(fn, into=name == "src")
-                        what = f"spec {ext} {name}"
-                        print(f"phase 20c {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
-                              f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
-                        want = spec_i8 if policy else {}
-                        if got != want:
-                            raise RuntimeError(f"phase 20c {what} at {tag} launched {got}, "
-                                               f"expected {want}")
-                ok = same(out["ref"], out["src"])
-                print(f"phase 20c {ext} at {tag}: spectrum == the 16-bit PNG route's: {ok}",
-                      flush=True)
-                if not ok:
-                    raise RuntimeError(f"phase 20c at {tag}: the {ext} route differs")
-            back = os.path.join(tmp, f"back_{ext}.png")
+            policy = tag = "i8@1e-5"
+            out = {k: os.path.join(tmp, f"{k}_{ext}_{tag}.png") for k in ("ref", "src")}
+            with _policy(policy):
+                for name, inp in (("ref", ref), ("src", src)):
+                    fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                        int8mm)
+                    (wall, stages, got), _ = count.run(fn, into=name == "src")
+                    what = f"spec {ext} {name}"
+                    print(f"phase 20c {what} {sw}x{sh} at {tag}: {wall:.3f} s; stages "
+                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                    if got != spec_i8:
+                        raise RuntimeError(f"phase 20c {what} at {tag} launched {got}, "
+                                           f"expected {spec_i8}")
+            ok = same(out["ref"], out["src"])
+            print(f"phase 20c {ext} at {tag}: spectrum == the 16-bit PNG route's: {ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 20c at {tag}: the {ext} route differs")
+            back = os.path.join(tmp, f"back_{ext}.ppm")
             with _policy("i8@1e-5"):
                 fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
                                        + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
                 (wall, stages, got), _ = count.run(fn)
             res = read_image(back).pixels
             ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
-            print(f"phase 20c ispec of {ext} to PNG at i8@1e-5: {wall:.3f} s; stages "
+            print(f"phase 20c ispec of {ext} to PPM at i8@1e-5: {wall:.3f} s; stages "
                   f"{_stages(stages)}; launches {json.dumps(got)}; max abs diff to the input "
                   f"{float(np.abs(res - pix).max()):.4f}", flush=True)
             if not ok:
@@ -4288,7 +4263,7 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
         for nd, layout, m, k, b, r in sorted(count.shapes):
             check_i8mm(nd, layout, m, k, b, r, f"tiff_jpeg {layout}{nd} {m}x{k}")
         if count.total.get("block_filter"):
-            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 20 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
@@ -4343,8 +4318,8 @@ def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_F
     """Main path 17: WebP through the port's own decoder.  (a) The WebP
     fixtures of tests/goldens/, each read to the JAX package's digests;
     (b) the 4K file decoded (best of ``WEBP_REPEATS``, seconds and MB/s),
-    spec of it at the default policy and at ``i8@1e-5`` against the same
-    pixels given as a PNG, and ispec at ``i8@1e-5`` back to PNG; (c)
+    spec of it at ``i8@1e-5`` against the same pixels given as a PNG, and
+    ispec at ``i8@1e-5`` back to PPM; (c)
     motion's lowpass on the 1080p WebP frames to y4m against a PPM
     sequence of their decoded frames.  Returns the kernels' launches over
     the WebP runs."""
@@ -4398,33 +4373,31 @@ def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_F
         ref = os.path.join(tmp, "ref.png")
         images.write_image(ref, pix)
         spec_i8 = {n: 1 for n, side in (("left3", bh), ("right3", bw)) if side >= 256}
-        for policy in (None, "i8@1e-5"):
-            tag = policy or "default"
-            out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("ref", "webp")}
-            with _policy(policy):
-                for name, inp in (("ref", ref), ("webp", src)):
-                    fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
-                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
-                        int8mm)
-                    (wall, stages, got), _ = count.run(fn, into=name == "webp")
-                    print(f"phase 21b spec {name} {bw}x{bh} at {tag}: {wall:.3f} s; stages "
-                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
-                    want = spec_i8 if policy else {}
-                    if got != want:
-                        raise RuntimeError(f"phase 21b spec {name} at {tag} launched {got}, "
-                                           f"expected {want}")
-            ok = same(out["ref"], out["webp"])
-            print(f"phase 21b at {tag}: spectrum from the WebP == from the PNG: {ok}", flush=True)
-            if not ok:
-                raise RuntimeError(f"phase 21b at {tag}: the WebP route differs from the PNG's")
-        back = os.path.join(tmp, "back.png")
+        policy = tag = "i8@1e-5"
+        out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("ref", "webp")}
+        with _policy(policy):
+            for name, inp in (("ref", ref), ("webp", src)):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                    int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "webp")
+                print(f"phase 21b spec {name} {bw}x{bh} at {tag}: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 21b spec {name} at {tag} launched {got}, "
+                                       f"expected {spec_i8}")
+        ok = same(out["ref"], out["webp"])
+        print(f"phase 21b at {tag}: spectrum from the WebP == from the PNG: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 21b at {tag}: the WebP route differs from the PNG's")
+        back = os.path.join(tmp, "back.ppm")
         with _policy("i8@1e-5"):
             fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
                                    + ["-t", "flat", "-G", "1000", out["webp"], back], int8mm)
             (wall, stages, got), _ = count.run(fn)
         res = images.read_image(back).pixels
         ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
-        print(f"phase 21b ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
+        print(f"phase 21b ispec to PPM at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
               f"launches {json.dumps(got)}; max abs diff to the input "
               f"{float(np.abs(res - pix).max()):.4f}", flush=True)
         if not ok:
@@ -4473,7 +4446,7 @@ def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_F
         for nd, layout, m, k, b, r in sorted(count.shapes):
             check_i8mm(nd, layout, m, k, b, r, f"webp {layout}{nd} {m}x{k}")
         if count.total.get("block_filter"):
-            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 21 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
@@ -4571,8 +4544,8 @@ def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER
     its decoder and read to the JAX package's digests; (b) a 3840x2160
     QOI (the port's encoder) and RLE TGA (``tga_rle`` of the fixtures
     module) of the same seeded levels decoded (best of
-    ``OTHER_REPEATS``), spec of each at the default policy and at
-    ``i8@1e-5`` against the same levels as a PNG, ispec at ``i8@1e-5`` to
+    ``OTHER_REPEATS``), spec of each at ``i8@1e-5`` against the same
+    levels as a PNG, ispec at ``i8@1e-5`` to
     each format of ``OTHER_EXTS``, each file equal to the port's encoder
     of the pixels of the same ispec written as PPM, and the 4K writes of
     ``_seeded_pixels`` to Pillow's digests; (c) motion's lowpass on 1080p
@@ -4637,27 +4610,25 @@ def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER
                   f"(best of {OTHER_REPEATS}; {H * W * 3 / 1e6 / best:.1f} MB/s of RGB, "
                   f"{len(data) / 1e6 / best:.2f} MB/s of file)", flush=True)
         spec_i8 = {n: 1 for n, side in (("left3", H), ("right3", W)) if side >= 256}
-        for policy in (None, "i8@1e-5"):
-            tag = policy or "default"
-            out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("ref", *stills)}
-            with _policy(policy):
-                for name, inp in (("ref", ref), *src.items()):
-                    fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
-                        torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
-                        int8mm)
-                    (wall, stages, got), _ = count.run(fn, into=name != "ref")
-                    print(f"phase 22b spec {name} {W}x{H} at {tag}: {wall:.3f} s; stages "
-                          f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
-                    want = spec_i8 if policy else {}
-                    if got != want:
-                        raise RuntimeError(f"phase 22b spec {name} at {tag} launched {got}, "
-                                           f"expected {want}")
-            for kind in stills:
-                ok = same(out["ref"], out[kind])
-                print(f"phase 22b at {tag}: spectrum from the {kind.upper()} == from the PNG: "
-                      f"{ok}", flush=True)
-                if not ok:
-                    raise RuntimeError(f"phase 22b at {tag}: the {kind} route differs from PNG's")
+        policy = tag = "i8@1e-5"
+        out = {k: os.path.join(tmp, f"{k}_{tag}.png") for k in ("ref", *stills)}
+        with _policy(policy):
+            for name, inp in (("ref", ref), *src.items()):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o],
+                    int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name != "ref")
+                print(f"phase 22b spec {name} {W}x{H} at {tag}: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 22b spec {name} at {tag} launched {got}, "
+                                       f"expected {spec_i8}")
+        for kind in stills:
+            ok = same(out["ref"], out[kind])
+            print(f"phase 22b at {tag}: spectrum from the {kind.upper()} == from the PNG: "
+                  f"{ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 22b at {tag}: the {kind} route differs from PNG's")
         back = {}
         with _policy("i8@1e-5"):
             for ext in ("ppm",) + OTHER_EXTS:
@@ -4739,9 +4710,237 @@ def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER
         for nd, layout, m, k, b, r in sorted(count.shapes):
             check_i8mm(nd, layout, m, k, b, r, f"other {layout}{nd} {m}x{k}")
         if count.total.get("block_filter"):
-            _check_block_filter(torch, dev, block_filter, fft, shapes=BF_SHAPES[:1])
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 22 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
+# phase 23: Zstandard and LZMA TIFF, and libtiff's old LSB-first LZW (io/imgcodecs.py,
+# native/zstd.cpp, the standard library's lzma, native/tiff.cpp) ------------------
+# (a): sha256 of each file of tests/goldens/ (tests/torch_codec_fixtures.py's
+# ZSTD_LZMA_PILLOW, ZSTD_LZMA_MADE and STRIP_DONORS) and of the JAX package's
+# read_image(..., "RGBA") float64 pixels of it
+ZSTD_LZMA_FIXTURES = {
+    "zstd_l.tif": ("4e2f523a73883f6162b3128d765e5553870702d3bc0d3b6c6790a6142c72a7c6",
+                   "b79fb33dc0fc56f346024b67e5d481d0648cf3072c3925f6815b160f1ad879f9"),
+    "zstd_rgb_p2.tif": ("fd8b6b8785a0e6d3efaf395dbcb17a39ec5a4cbcdb69e383f3d6f1aecdb7cba2",
+                        "d0a6abe82436af2984e26998994c9c28e2c83ff183cd622174855176a1fdd02d"),
+    "zstd_rgba.tif": ("038ad9128326ef464d420cc60d6550e88e09b07e8e51cf703fb622e856b1c640",
+                      "e34ff9f1ee77255a20e985d6b802f025f3209c050dd1ae25f00ede8e36d5fd2b"),
+    "zstd_i16_p2.tif": ("abd5f2b681b0e617a44b48d3f7d1b2c55e75e8a0524f4a724ced3b0a0093fe44",
+                        "69496c8f1250916a7c1d64c4f5bd942f2311d60154715d2636c4818d6f5579d1"),
+    "zstd_f_p3.tif": ("7176b2c468c3cd75eadf2f47b39569d9f67c2225af6362f6fd207fcc32b1ad00",
+                      "1b17c81e17b3b74a8c43fa9474f119e82dda0c661801d04051b2d0b88dc5f684"),
+    "lzma_l.tif": ("44dcd560b02d75b96c542a7450958bd319f870f8cccaf65e9dcda2b4af0273bc",
+                   "b79fb33dc0fc56f346024b67e5d481d0648cf3072c3925f6815b160f1ad879f9"),
+    "lzma_rgb_p2.tif": ("4576b7175bfa951bac57bda754c38effdee3d89ae6e559b19ac0cf3345e70e14",
+                        "d0a6abe82436af2984e26998994c9c28e2c83ff183cd622174855176a1fdd02d"),
+    "lzma_rgba.tif": ("489bafdf283b3506faea1206563d686a052c582628d35b4e28eec17c5ed61c14",
+                      "e34ff9f1ee77255a20e985d6b802f025f3209c050dd1ae25f00ede8e36d5fd2b"),
+    "lzma_i16_p2.tif": ("7878a5653979c1b29a9574a92d42e6887e3bca72782238f2c0a517818d886e7b",
+                        "69496c8f1250916a7c1d64c4f5bd942f2311d60154715d2636c4818d6f5579d1"),
+    "lzma_f_p3.tif": ("fc816304355e294e1f126f1c44ada84f99c894a22a7d6af6536b55032a441fb5",
+                      "1b17c81e17b3b74a8c43fa9474f119e82dda0c661801d04051b2d0b88dc5f684"),
+    "zstd_tiled_p2.tif": ("e331932a7eb7c2e7c339b1cdb07b87f6a49e21cfd113ab03e8180a608174f86a",
+                          "dc4e3fd1a79ed43a70c73d99bdd86fee29ba8c368a41a5f4e4e365929f6ce338"),
+    "zstd_planar_p2.tif": ("6c78ecc9957d1bc71bf55b423acaeaca52927a754063b840e8be4c04a2c2b67f",
+                           "7c6aeef4f3d60666bad6052acb539520dd2e1f099137669ce86a5ccb29cc5e5b"),
+    "lzma_tiled_p2.tif": ("20519d9fc6a46e13f7cf9afab86b07de2680315c1d6826b1b780e5fabecb167e",
+                          "dc4e3fd1a79ed43a70c73d99bdd86fee29ba8c368a41a5f4e4e365929f6ce338"),
+    "lzma_planar_p2.tif": ("6539a7993123aea97f49cb45438ffe272d17a1af8440af1a7efd805db42164e2",
+                           "7c6aeef4f3d60666bad6052acb539520dd2e1f099137669ce86a5ccb29cc5e5b"),
+    "zstd_4k_strips.tif": ("7b9c39d364493223603c43af7780184997b7f3624de956fe320192a4c4138679",
+                           "afbef5924440951f6b1206dca05b0c40e3fbcf6fd0f43355e8c234aa78fb3876"),
+    "lzma_4k_strips.tif": ("94d2745616c91ccf22b80660631bc006ba35e26f3be59b6d0fb07afeb5b3c249",
+                           "afbef5924440951f6b1206dca05b0c40e3fbcf6fd0f43355e8c234aa78fb3876"),
+}
+# (a): the same of the fixtures module's old_lzw_tiffs(), written at run time
+OLD_LZW_DIGESTS = {
+    "old LZW L": ("dfeba115b507a7d1f3fc3045d041ed825920b3d2ea8d1d7d3231995bd0b37be3",
+                  "d2ab5f4711634dc05287eeb0160193f0cf74cb82e424cd54fb99d97700912689"),
+    "old LZW RGB predictor 2": (
+        "2de7e8743b10a8fff2f7f848305a24ff6ed922a323a7dfd941cca1d000371ae0",
+        "bcfe00c05b8ba638639e131fa4ea1bc9df8a4baa07ab62e5647b79f8b53fcf4a"),
+    "old LZW tiled RGBA": ("ea8c213bc01d642aa5d8624642fe4907d263aca0e2d9b9aa24e41fbe32dd27b7",
+                           "bf93e7406dd56feb89d5b0035184e95303d471bf0f5ce63906a0bbc4771f67ee"),
+    "old LZW planar RGB;16 big-endian": (
+        "fff9b1c6d1b5f8d31891dd18cccc4d4aeb814946b640c671ce751d56f7e92f91",
+        "33a040a086060477cc7fac8fe6085c711d463c5b137b7d2874c93bdeabd2ff92"),
+    "old LZW FillOrder 2 L": ("0ab0c5654d1d3e237f5dce967c91b0d6d50214610470e4b29ec1d0fff67adaef",
+                              "d2ab5f4711634dc05287eeb0160193f0cf74cb82e424cd54fb99d97700912689"),
+}
+# (b): sha256 of Pillow's uint8 RGB decode of the 3840x2160 files that
+# strip_4k makes of either donor (both hold the same levels)
+STRIP_4K_DIGEST = "469384418e5de133b9e588d630a428dcd791be2b8a4e7cec937a83e1aa5328c1"
+ZSTD_LZMA_REPEATS = 5             # (b): the 4K decodes, best of
+ZSTD_LZMA_FRAMES = 8              # (c): motion's lowpass on 8 1080p LZMA and Zstandard frames
+
+
+def _zstd_lzma_phase(torch, dev, int8mm, block_filter, check_i8mm, fft,
+                     frames=ZSTD_LZMA_FRAMES, motion_hw=(MH, MW), device_args=()) -> dict:
+    """Main path 19: Zstandard and LZMA TIFF, and libtiff's old LSB-first
+    LZW, through the port's own codecs (``io/imgcodecs.py`` on
+    ``native/zstd.cpp``, the standard library's lzma and
+    ``native/tiff.cpp``).  (a) The fixtures of tests/goldens/ and the
+    old-LZW files the fixtures module writes, each through
+    ``images._decoder`` to ``decode_tiff`` and read to the JAX package's
+    digests; (b) the 3840x2160 Zstandard and LZMA files ``strip_4k``
+    assembles of the donors' strips decoded (best of
+    ``ZSTD_LZMA_REPEATS``) to Pillow's digest, spec of the Zstandard file
+    at ``i8@1e-5`` against the same levels as a PNG, and ispec at
+    ``i8@1e-5`` back to PNG; (c) motion's lowpass on 1080p frames written
+    as LZMA (even frames, liblzma's preset 0) and Zstandard (odd ones,
+    the fixtures module's raw blocks) TIFF to y4m against a PPM sequence
+    of their decoded frames.  Returns the kernels' launches over the
+    runs of the new formats."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs
+    from dspfun_tpu_torch.tools import ispec, motion, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    imgcodecs._zstd_lib()
+    imgcodecs._tiff_lib()
+    print(f"phase 23 native/zstd.cpp and native/tiff.cpp load: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zstd_") as tmp:
+        # ---- (a) the fixtures to the JAX package's digests -------------------------
+        files = {name: os.path.join(gold, name) for name in ZSTD_LZMA_FIXTURES}
+        for name, data in fx.old_lzw_tiffs().items():
+            files[name] = os.path.join(tmp, name.replace(" ", "_").replace(";", "") + ".tif")
+            with open(files[name], "wb") as f:
+                f.write(data)
+        for name, path in files.items():
+            with open(path, "rb") as f:
+                data = f.read()
+            if images._decoder(data) is not imgcodecs.decode_tiff:
+                raise RuntimeError(f"phase 23a: {name} does not take the port's TIFF decoder")
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), fx.rgba_digest(img.pixels))
+            want = ZSTD_LZMA_FIXTURES.get(name) or OLD_LZW_DIGESTS[name]
+            print(f"phase 23a {name} {img.width}x{img.height} depth {img.depth}: {len(data)} "
+                  f"bytes; read {dec_s:.4f} s; file and pixels == the JAX package's digests: "
+                  f"{got == want}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 23a: {name} is not read as the JAX package reads it: "
+                                   f"{got}")
+
+        # ---- (b) the 4K files: decode, spec and ispec ----------------------------
+        src = {}
+        for name, kind in fx.STRIP_DONORS.items():
+            with open(files[name], "rb") as f:
+                data = fx.strip_4k(f.read(), H)
+            src[kind] = os.path.join(tmp, f"still_{kind}.tif")
+            with open(src[kind], "wb") as f:
+                f.write(data)
+            best = float("inf")
+            for _ in range(ZSTD_LZMA_REPEATS):
+                t0 = time.perf_counter()
+                arr, _ = imgcodecs.decode_tiff(data)
+                best = min(best, time.perf_counter() - t0)
+            ok = sha(arr.tobytes()) == STRIP_4K_DIGEST
+            print(f"phase 23b {kind} TIFF {arr.shape[1]}x{arr.shape[0]} (predictor 2, "
+                  f"{len(data)} bytes): decode {best:.4f} s (best of {ZSTD_LZMA_REPEATS}; "
+                  f"{arr.size / 1e6 / best:.1f} MB/s of RGB, {len(data) / 1e6 / best:.2f} MB/s of "
+                  f"file); pixels == Pillow's digest: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 23b: the 4K {kind} TIFF decodes to other pixels")
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, arr / 255.0)
+        sh, sw = arr.shape[:2]
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        out = {k: os.path.join(tmp, f"spec_{k}.png") for k in ("ref", "zstd")}
+        with _policy("i8@1e-5"):
+            for name, inp in (("ref", ref), ("zstd", src["zstd"])):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "zstd")
+                print(f"phase 23b spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 23b spec {name} launched {got}, expected {spec_i8}")
+            ok = same(out["ref"], out["zstd"])
+            print(f"phase 23b spectrum from the Zstandard TIFF == from the PNG: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError("phase 23b: the Zstandard route differs from the PNG's")
+            back = os.path.join(tmp, "back.png")
+            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
+                                   + ["-t", "flat", "-G", "1000", out["zstd"], back], int8mm)
+            (wall, stages, got), _ = count.run(fn)
+        res = images.read_image(back).pixels
+        ok = got == spec_i8 and res.shape[:2] == (sh, sw) and bool(np.isfinite(res).all())
+        print(f"phase 23b ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
+              f"launches {json.dumps(got)}; max abs diff to the input "
+              f"{float(np.abs(res - arr / 255.0).max()):.4f}", flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 23b ispec launched {got} or wrote {res.shape}")
+
+        # ---- (c) motion's lowpass on LZMA and Zstandard frames against PPM --------
+        mh, mw = motion_hw
+        strip = fx.levels((mh, mw + 4 * frames), fx.STRIP_SEED + 1, noise=0.02)
+        enc_s = dec_s = 0.0
+        for k in range(frames):
+            frame = np.ascontiguousarray(strip[:, 4 * k:4 * k + mw])
+            t0 = time.perf_counter()
+            if k % 2:
+                data = fx.make_tiff(frame, "RGB", compression=50000, predictor=2,
+                                    rows_per_strip=64, codec=fx.zstd_stored)
+            else:
+                data = fx.make_tiff(frame, "RGB", compression=34925, predictor=2,
+                                    rows_per_strip=64, level=0)
+            enc_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dec = imgcodecs.decode_tiff(data)[0]
+            dec_s += time.perf_counter() - t0
+            if not np.array_equal(dec, frame):
+                raise RuntimeError(f"phase 23c: TIFF frame {k} decodes to other levels")
+            with open(os.path.join(tmp, f"in{k:04d}.tif"), "wb") as f:
+                f.write(data)
+            with open(os.path.join(tmp, f"in{k:04d}.ppm"), "wb") as f:
+                f.write(imgcodecs.encode_pnm(dec))
+        print(f"phase 23c {frames} frames {mw}x{mh}: LZMA and Zstandard TIFF write {enc_s:.3f} s, "
+              f"decode {dec_s:.3f} s ({frames * mh * mw * 3 / 1e6 / dec_s:.1f} MB/s of RGB)",
+              flush=True)
+        runs = {}
+        for kind in ("ppm", "tif"):
+            t0 = time.perf_counter()
+
+            def run(kind=kind):
+                rc = motion.main(MOTION_ARGS + list(device_args)
+                                 + [os.path.join(tmp, f"in%04d.{kind}"),
+                                    os.path.join(tmp, f"o_{kind}.y4m")])
+                if rc != 0:
+                    raise RuntimeError(f"phase 23c motion {kind} -> y4m exited {rc}")
+                return dict(motion.LAST_STAGE_TIMES)
+
+            stages, runs[kind] = count.run(run, into=kind == "tif")
+            print(f"phase 23c motion {kind} -> y4m: {time.perf_counter() - t0:.3f} s; stages "
+                  f"{_stages(stages)} (read decodes the frames); launches "
+                  f"{json.dumps(runs[kind])}", flush=True)
+        ok = same(os.path.join(tmp, "o_tif.y4m"), os.path.join(tmp, "o_ppm.y4m"))
+        print(f"phase 23c LZMA and Zstandard TIFF sequence == PPM sequence to y4m: {ok}",
+              flush=True)
+        if not ok:
+            raise RuntimeError("phase 23c: the TIFF sequence's y4m differs from the PPM's")
+        if runs["tif"] != runs["ppm"] or not runs["tif"].get("right3"):
+            raise RuntimeError(f"phase 23c: launches {runs['tif']} (PPM route {runs['ppm']}); "
+                               "kernel #2 never launched")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"zstd_lzma {layout}{nd} {m}x{k}")
+        if count.total.get("block_filter"):
+            _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
+    wall = time.perf_counter() - t_phase
+    print(f"phase 23 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
@@ -4757,7 +4956,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import scipy.fft
 
-    from dspfun_tpu_torch import _build
+    from dspfun_tpu_torch import _build, _hostbuild
     from dspfun_tpu_torch.core.precision import Precision
     from dspfun_tpu_torch.models.fused import (
         filter_plans, fused_filter_2d, lowpass_mask,
@@ -4779,10 +4978,18 @@ def main() -> int:
             or fp32["float32_matmul_precision"] != "highest":
         raise RuntimeError("TF32 is enabled; float32 contractions would lose accuracy")
 
+    # the kernels (one nvcc a source) and the host libraries of every phase
+    # (one g++ a native/*.cpp), all compiled at once
     t0 = time.perf_counter()
-    _build.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})",
-          flush=True)
+    hosts = [src.stem for src in _hostbuild.build_inputs()]
+    with concurrent.futures.ThreadPoolExecutor(len(hosts)) as pool:
+        built = pool.map(_hostbuild.load_library, hosts)
+        _build.load_library()
+        print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})",
+              flush=True)
+        list(built)
+    print(f"host libraries {', '.join(hosts)} built and loaded: {time.perf_counter() - t0:.2f} s "
+          "from the start of the build", flush=True)
 
     @contextlib.contextmanager
     def plain_versions():
@@ -5020,8 +5227,7 @@ def main() -> int:
 
     # ---- phase 15: main path 11, the ffmpeg bridge, ffplay:, BMP, sixel ----
     torch.cuda.empty_cache()
-    bridge = _bridge_phase(torch, dev, plain_versions, int8mm, block_filter, check_i8mm,
-                           scipy.fft)
+    bridge = _bridge_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft)
     if not (bridge.get("left3") and bridge.get("right3") and bridge.get("block_filter")):
         raise RuntimeError(f"a kernel of the bridge path never launched: {bridge}")
 
@@ -5073,6 +5279,13 @@ def main() -> int:
     if not (other_path.get("left3") and other_path.get("right3")):
         raise RuntimeError(f"a kernel of the TGA ... DIB path never launched: {other_path}")
 
+    # ---- phase 23: main path 19, Zstandard and LZMA TIFF, old LSB-first LZW --
+    torch.cuda.empty_cache()
+    zstd_path = _zstd_lzma_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                                 scipy.fft)["launches"]
+    if not (zstd_path.get("left3") and zstd_path.get("right3")):
+        raise RuntimeError(f"a kernel of the Zstandard and LZMA path never launched: {zstd_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -5083,7 +5296,7 @@ def main() -> int:
                              + jpeg_path.get(n, 0) + codec_path.get(n, 0)
                              + gif_path.get(n, 0) + cmyk_path.get(n, 0)
                              + more_path.get(n, 0) + webp_path.get(n, 0)
-                             + other_path.get(n, 0)),
+                             + other_path.get(n, 0) + zstd_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -5100,7 +5313,8 @@ def main() -> int:
                                      "tiff_cmyk": cmyk_path.get(n, 0),
                                      "tiff_jpeg": more_path.get(n, 0),
                                      "webp": webp_path.get(n, 0),
-                                     "other_formats": other_path.get(n, 0)},
+                                     "other_formats": other_path.get(n, 0),
+                                     "zstd_lzma_tiff": zstd_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -5134,7 +5348,8 @@ def main() -> int:
                                  + cmyk_path.get("block_filter", 0)
                                  + more_path.get("block_filter", 0)
                                  + webp_path.get("block_filter", 0)
-                                 + other_path.get("block_filter", 0)),
+                                 + other_path.get("block_filter", 0)
+                                 + zstd_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -5145,7 +5360,8 @@ def main() -> int:
                                          "tiff_cmyk": cmyk_path.get("block_filter", 0),
                                          "tiff_jpeg": more_path.get("block_filter", 0),
                                          "webp": webp_path.get("block_filter", 0),
-                                         "other_formats": other_path.get("block_filter", 0)},
+                                         "other_formats": other_path.get("block_filter", 0),
+                                         "zstd_lzma_tiff": zstd_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

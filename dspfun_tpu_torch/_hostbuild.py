@@ -3,9 +3,10 @@
 ``native/dspio.cpp`` (the y4m/fvid demuxer, the prefetching frame
 reader, pel conversions, Floyd-Steinberg dither) and ``native/ffv1.cpp``
 (the FFV1 codec) are copies of the JAX package's ``native/`` sources;
-``native/jpeg.cpp``, ``tiff.cpp``, ``fax.cpp``, ``gif.cpp``, ``webp.cpp``,
-``rawimg.cpp`` and ``quant.cpp`` (the codecs of ``io/jpeg.py``,
-``io/imgcodecs.py``, ``io/gif.py``, ``io/webp.py``, ``io/rawimg.py`` and
+``native/jpeg.cpp``, ``tiff.cpp``, ``fax.cpp``, ``zstd.cpp``, ``gif.cpp``,
+``webp.cpp``, ``rawimg.cpp`` and ``quant.cpp`` (the codecs of
+``io/jpeg.py``, ``io/imgcodecs.py`` (LZW, PackBits, CCITT and Zstandard
+TIFF strips), ``io/gif.py``, ``io/webp.py``, ``io/rawimg.py`` and
 ``io/ico.py``, and the quantiser of ``io/quant.py``) are the port's own.
 Each compiles with ``g++`` and the flags of that package's Makefile (never ``-ffast-math``:
 the dither, pel, JPEG and palette paths must round as specified) into ``build/native/`` at the root of the checkout, named by

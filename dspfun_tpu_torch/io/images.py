@@ -18,9 +18,10 @@ Covers what the reference tools use from MagickWand
 
 The JAX package reads and writes through Pillow; the port has its own
 codecs: PNG (``io/png.py``), PNM, BMP and TIFF (``io/imgcodecs.py``:
-uncompressed, LZW, deflate, PackBits, JPEG (``io/jpeg.py`` with the
-JPEGTables) and CCITT RLE, Group 3 and Group 4 (``native/fax.cpp``)
-strips or tiles, chunky or planar, predictor 1, 2 or 3, either fill
+uncompressed, LZW (libtiff's old LSB-first form too), deflate, PackBits,
+JPEG (``io/jpeg.py`` with the JPEGTables), CCITT RLE, Group 3 and Group 4
+(``native/fax.cpp``), Zstandard (``native/zstd.cpp``) and LZMA (the
+standard library's liblzma) strips or tiles, chunky or planar, predictor 1, 2 or 3, either fill
 order, every key of Pillow's ``OPEN_INFO`` (1- to 32-bit gray, signed
 and float samples, palettes, RGB(A), CMYK, YCbCr through libtiff's RGBA
 reader or libjpeg, CIELab through Pillow's LittleCMS transform), the
@@ -35,8 +36,8 @@ first frame), TGA, PCX, SGI, QOI and IM (``io/rawimg.py``), ICO
 reading what Pillow decodes and writing what it writes.  They take
 every file they carry, whether cv2 imports or not.
 The rest (arithmetic-coded, 12-bit and lossless JPEG, progressive JPEG
-whose scans leave coefficients short, old-style JPEG, LZMA, Zstandard,
-WebP, ThunderScan and SGILog compressed TIFF, WebP frames with the simple
+whose scans leave coefficients short, old-style JPEG, ThunderScan, SGILog
+and WebP compressed TIFF, 12-bit JPEG-in-TIFF, WebP frames with the simple
 loop filter or several token partitions, and WebP output) goes through
 ``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
 which are refused with cv2 too (``_cv2_decode``); where cv2 does not

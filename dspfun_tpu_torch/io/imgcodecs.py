@@ -41,8 +41,12 @@ all of it to Pillow.
   ReferenceBlackWhite), uncompressed YCbCr as Pillow's own reader takes
   it (rawmode ``RGBX``).  Uncompressed files are read as Pillow's own
   reader reads them (its strips and tiles, the one-letter rawmode of
-  each plane of a planar file); LZW (``native/tiff.cpp``), deflate (8
-  and 32946, the standard library's zlib), PackBits, JPEG (each strip or
+  each plane of a planar file); LZW (``native/tiff.cpp``, with libtiff's
+  old LSB-first form where the first strip starts as libtiff's
+  LZWPreDecode tests), deflate (8 and 32946, the standard library's zlib),
+  Zstandard (``native/zstd.cpp``, as libzstd decodes a strip for
+  libtiff), LZMA (the standard library's liblzma: the first xz stream of
+  each strip), PackBits, JPEG (each strip or
   tile an abbreviated stream decoded with the JPEGTables tag, leniently
   as libjpeg under libtiff decodes a damaged one) and CCITT RLE, Group 3
   (1-D and 2-D) and Group 4 (``native/fax.cpp``, libtiff's fax decoder
@@ -53,15 +57,15 @@ all of it to Pillow.
   strip or tile, planes interleaved.  Orientation 2-8 applied last, as
   ``ImageOps.exif_transpose`` does at Pillow's load.  Written: one strip,
   little endian, no compression.  :func:`tiff_not_carried` names what the
-  decoder does not take (old-style JPEG, LZMA, Zstandard, WebP and the
-  other compressions, 12-bit JPEG-in-TIFF; ROADMAP queue 1, item 8c),
+  decoder does not take (old-style JPEG, ThunderScan, SGILog, WebP and
+  any other compression, 12-bit JPEG-in-TIFF; ROADMAP queue 1, item 8c),
   which ``io/images.py`` hands to cv2; where Pillow raises (a key
   its table lacks, a predictor or colormap libtiff refuses, a truncated
   or corrupt strip or tile), :func:`decode_tiff` raises, and where
   Pillow reads a damaged strip to what the port cannot reproduce (a T.6
   strip's rows libtiff leaves unwritten, a damaged JPEG block outside the
-  range where libjpeg-turbo's SIMD and C arithmetic agree), it raises
-  too.
+  range where libjpeg-turbo's SIMD and C arithmetic agree, an xz stream
+  that liblzma finds corrupt before the strip is full), it raises too.
 
 Everything else raises ``ValueError``.
 """
@@ -383,10 +387,11 @@ _TIFF_TYPES = {1: "B", 2: "c", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 
                10: "ii", 11: "f", 12: "d", 16: "Q"}
 # the compressions decode_tiff undoes, and the names of some it does not
 _TIFF_CARRIED = {1: "uncompressed", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                 5: "LZW", 7: "JPEG", 8: "deflate", 32946: "deflate", 32773: "PackBits"}
+                 5: "LZW", 7: "JPEG", 8: "deflate", 32946: "deflate", 32773: "PackBits",
+                 34925: "LZMA", 50000: "Zstandard"}
 _TIFF_OTHERS = {6: "old-style JPEG", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-                34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
-_PREDICTED = (5, 8, 32946)      # the codecs libtiff runs the predictor with
+                50001: "WebP"}
+_PREDICTED = (5, 8, 32946, 34925, 50000)    # the codecs libtiff runs the predictor with
 _FAX = (2, 3, 4)                # CCITT RLE, Group 3, Group 4 (native/fax.cpp)
 _OWN_BIT_ORDER = (2, 3, 4, 7)   # the codecs that read FillOrder themselves (or ignore it)
 
@@ -513,7 +518,9 @@ def tiff_not_carried(data: bytes) -> tuple[str, str] | None:
     """None where :func:`decode_tiff` takes the first image of this TIFF
     (which it decodes, or refuses where Pillow raises), else (what it is,
     the letter of its part of ROADMAP queue 1 item 8), which
-    ``io/images.py`` hands to cv2 or names in its refusal."""
+    ``io/images.py`` hands to cv2 or names in its refusal: old-style JPEG,
+    ThunderScan, SGILog, WebP or an unknown compression, or 12-bit
+    JPEG-in-TIFF."""
     _, t = _tiff_tags(data)
     comp = t.get(259, (1,))[0]
     if comp not in _TIFF_CARRIED:
@@ -548,13 +555,81 @@ def _tiff_lib() -> ctypes.CDLL:
     signatures declared (built on first use; raises when it cannot be
     built)."""
     lib = _hostbuild.load_library("tiff")
-    for fn in (lib.tif_lzw_decode, lib.tif_packbits_decode):
-        fn.restype = ctypes.c_int64
-        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+    lib.tif_lzw_decode.restype = ctypes.c_int64
+    lib.tif_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_int]
+    lib.tif_packbits_decode.restype = ctypes.c_int64
+    lib.tif_packbits_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                        ctypes.c_int64]
     lib.tif_lab_rgb.restype = None
     lib.tif_lab_rgb.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                                 ctypes.c_void_p, ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _zstd_lib() -> ctypes.CDLL:
+    """The loaded ``native/zstd.cpp`` (Zstandard as libzstd decodes it for
+    libtiff) with its signatures declared."""
+    lib = _hostbuild.load_library("zstd")
+    lib.zst_strip_decode.restype = ctypes.c_int64
+    lib.zst_strip_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                     ctypes.c_int64]
+    return lib
+
+
+# native/zstd.cpp's errors, by libzstd's names for them
+_ZSTD_ERRORS = {-1: "Data corruption detected", -2: "Unknown frame descriptor",
+                -3: "Unsupported frame parameter",
+                -4: "Frame requires too much memory for decoding",
+                -5: "Dictionary mismatch", -6: "Restored data doesn't match checksum",
+                -7: "Destination buffer is too small", -8: "Src size is incorrect"}
+
+
+def zstd_decode(data: bytes, capacity: int) -> bytes:
+    """Zstandard through ``native/zstd.cpp``: what libtiff's ZSTDDecode
+    hands out for a strip of ``capacity`` bytes (one frame: at most
+    ``capacity`` bytes, fewer where the frame ends or the input runs out
+    first).  A libzstd error raises ``ValueError``."""
+    buf = ctypes.create_string_buffer(max(capacity, 1))
+    n = _zstd_lib().zst_strip_decode(data, len(data), buf, capacity)
+    if n < 0:
+        raise ValueError(f"Zstandard: {_ZSTD_ERRORS.get(n, n)} (libzstd refuses the data)")
+    return buf.raw[:n]
+
+
+def _lzma_strip(raw: bytes, size: int) -> bytes:
+    """libtiff's LZMADecode of one strip: the first xz stream (no
+    concatenated streams) decoded by liblzma into ``size`` bytes.  libtiff
+    keeps what liblzma decoded before an error, so a strip whose damage
+    lies past its data (the check, the index, the footer) reads: where
+    the standard library raises, the longest start of the input that
+    decodes without the error gives those bytes.  Where that start holds
+    fewer than ``size``, libtiff keeps what its own liblzma decoded into
+    the damage before noticing, which depends on the version (5.8
+    decodes further than 5.4): the port raises."""
+    import lzma  # noqa: PLC0415  (liblzma, as libtiff's tif_lzma.c calls it)
+
+    def run(data):
+        return lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(data, size)
+
+    try:
+        return run(raw)
+    except lzma.LZMAError as e:
+        lo, hi = 0, len(raw)        # run(raw[:lo]) reads, run(raw[:hi]) raises
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            try:
+                run(raw[:mid])
+                lo = mid
+            except lzma.LZMAError:
+                hi = mid
+        out = run(raw[:lo])
+        if len(out) < size:
+            raise ValueError(f"LZMA TIFF strip: liblzma finds the data corrupt ({e}) before "
+                             f"the strip's {size} bytes, where libtiff keeps what its liblzma "
+                             "decoded before noticing, which the port does not read") from None
+        return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -598,23 +673,32 @@ def _fax_inflater(t: dict, comp: int, fill: int, tw: int):
     return inflate
 
 
-def _tiff_strip(comp: int, raw: bytes, size: int) -> bytes:
+def _lzw_compat(first: bytes) -> bool:
+    """Whether libtiff reads an image's LZW as its old LSB-first form
+    (LZWPreDecode's test, on the first strip or tile it decodes)."""
+    return len(first) >= 2 and first[0] == 0 and bool(first[1] & 1)
+
+
+def _tiff_strip(comp: int, raw: bytes, size: int, compat: bool = False) -> bytes:
     """One strip or tile decompressed to ``size`` bytes (the extra output
     of a longer stream ignored, as libtiff ignores it), or
-    ``ValueError``."""
+    ``ValueError``; ``compat``: LZW in libtiff's old LSB-first form."""
     if comp in (8, 32946):
         try:
             out = zlib.decompressobj().decompress(raw, size)
         except zlib.error as e:
             raise ValueError(f"corrupt deflate TIFF strip: {e}") from None
+    elif comp == 50000:
+        out = zstd_decode(raw, size)
+    elif comp == 34925:
+        out = _lzma_strip(raw, size)
     else:
         lib = _tiff_lib()
-        fn = lib.tif_lzw_decode if comp == 5 else lib.tif_packbits_decode
         buf = ctypes.create_string_buffer(size)
-        n = fn(raw, len(raw), buf, size)
-        if n == -2:
-            raise ValueError("old-style (LSB-first) LZW TIFF is not carried by the port's "
-                             f"codec ({_png.NOT_PORTED}c)")
+        if comp == 5:
+            n = lib.tif_lzw_decode(raw, len(raw), buf, size, int(compat))
+        else:
+            n = lib.tif_packbits_decode(raw, len(raw), buf, size)
         if n < 0:
             raise ValueError("corrupt LZW TIFF strip")
         out = buf.raw[:n]
@@ -987,8 +1071,10 @@ def _tiff_ycbcr(data: bytes, t: dict, w: int, h: int) -> np.ndarray:
         def inflate(blk, size, n, last):
             return plane(blk, n, last)
     else:
+        compat = _lzw_compat(data[offsets[0]:offsets[0] + counts[0]])
+
         def inflate(blk, size, n, last):
-            return _tiff_strip(comp, blk, size)
+            return _tiff_strip(comp, blk, size, compat)
     bw = -(-tw // hs)
     unit = hs * vs + (0 if planar else 2)
     out = np.empty((ny * th, nx * tw, 3), np.uint8)
@@ -1148,7 +1234,11 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
     elif comp in _FAX:
         inflate = _fax_inflater(t, comp, fill, tw)
     else:
-        inflate = lambda blk, n, last: _tiff_strip(comp, blk, n * row_bytes)  # noqa: E731
+        first = data[offsets[0]:offsets[0] + counts[0]]
+        if fill == 2:
+            first = _BITREV[np.frombuffer(first, np.uint8)].tobytes()
+        compat = _lzw_compat(first)
+        inflate = lambda blk, n, last: _tiff_strip(comp, blk, n * row_bytes, compat)  # noqa: E731
     img = np.empty((planes, ny * th if tiled else h, nx * row_bytes), np.uint8)
     k = 0
     for p in range(planes):
@@ -1189,9 +1279,9 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
 def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
     """The first image of a TIFF that :func:`tiff_not_carried` takes, as
     Pillow reads it then ``io/images.py`` takes it: uncompressed strips
-    and tiles through Pillow's own reader, LZW, deflate, PackBits, JPEG
-    and CCITT ones through libtiff's, compressed YCbCr (but chunky JPEG)
-    through libtiff's RGBA reader, chunky or planar, predictor 1, 2 or 3,
+    and tiles through Pillow's own reader, LZW, deflate, PackBits, JPEG,
+    CCITT, Zstandard and LZMA ones through libtiff's, compressed YCbCr
+    (but chunky JPEG) through libtiff's RGBA reader, chunky or planar, predictor 1, 2 or 3,
     either fill order, then the Orientation tag applied.  Samples: uint8
     gray, gray + alpha, RGB (palettes looked up, CMYK converted by Pillow's
     ``cmyk2rgb``, YCbCr by libjpeg or libtiff, CIELab as Pillow's

@@ -68,8 +68,8 @@ def refusal(what: str, part: str = "") -> ValueError:
     return ValueError(f"{lead}: the port reads "
                       f"and writes PNG, PNM, BMP, DIB, TIFF, JPEG, GIF, TGA, PCX, SGI, QOI, IM "
                       f"and ICO itself, and MPO as JPEG (TIFF: uncompressed, "
-                      f"LZW, deflate, PackBits, JPEG or CCITT RLE, Group 3 or Group 4 strips or "
-                      f"tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
+                      f"LZW, deflate, PackBits, JPEG, CCITT RLE, Group 3 or Group 4, Zstandard "
+                      f"or LZMA strips or tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
                       f"and CIELab included; JPEG: baseline and progressive Huffman, gray, RGB, "
                       f"CMYK or YCCK) and reads WebP itself (lossy, lossless, alpha, an "
                       f"animation's first frame), {rest} ({NOT_PORTED}{part})")

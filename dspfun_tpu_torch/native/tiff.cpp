@@ -6,7 +6,13 @@
 //             the width grows one code early (at 511, 1023 and 2047), and
 //             the table holds 5119 entries (libtiff's CSIZE) before it is
 //             corrupt; a strip must start with a ClearCode; a string that
-//             does not fit is cut at the end of the strip;
+//             does not fit is cut at the end of the strip; a code past the
+//             table's next entry is corrupt.  libtiff's old LSB-first form
+//             (LZWDecodeCompat, which libtiff takes for a whole image when
+//             its first strip starts with a byte 0 and the next byte's low
+//             bit set) reads its codes from the low bits up and grows the
+//             width one code later (at 512, 1024 and 2048), otherwise the
+//             same;
 //   PackBits  a header byte n: 0..127 copies n + 1 bytes, -1..-127
 //             repeats the next byte 1 - n times, -128 is a no-op; runs past
 //             the end of the strip are cut.
@@ -27,7 +33,6 @@ namespace {
 
 enum {
   kCorrupt = -1,   // a code the table does not hold, or a table overflow
-  kCompat = -2,    // the old LSB-first LZW of libtiff's LZW_COMPAT
 };
 
 constexpr int kClear = 256;
@@ -42,20 +47,26 @@ struct Entry {
   uint8_t last;
 };
 
-// MSB-first codes of the strip, as libtiff's GetNextCode reads them
+// the codes of the strip, MSB-first as libtiff's GetNextCode reads them
+// or LSB-first as its GetNextCodeCompat does
 struct CodeReader {
   const uint8_t* in;
   int64_t nbits_total;
+  bool lsb;
   int64_t bitpos = 0;
   bool next(int nbits, int* code) {
     if (bitpos + nbits > nbits_total) return false;
     int64_t byte = bitpos >> 3;
     int64_t n = nbits_total >> 3;
-    uint32_t v = static_cast<uint32_t>(in[byte]) << 16;
-    if (byte + 1 < n) v |= static_cast<uint32_t>(in[byte + 1]) << 8;
-    if (byte + 2 < n) v |= in[byte + 2];
-    int shift = 24 - static_cast<int>(bitpos & 7) - nbits;
-    *code = static_cast<int>((v >> shift) & ((1u << nbits) - 1));
+    uint32_t b0 = in[byte], b1 = byte + 1 < n ? in[byte + 1] : 0, b2 = byte + 2 < n ? in[byte + 2] : 0;
+    if (lsb) {
+      uint32_t v = b0 | (b1 << 8) | (b2 << 16);
+      *code = static_cast<int>((v >> (bitpos & 7)) & ((1u << nbits) - 1));
+    } else {
+      uint32_t v = (b0 << 16) | (b1 << 8) | b2;
+      int shift = 24 - static_cast<int>(bitpos & 7) - nbits;
+      *code = static_cast<int>((v >> shift) & ((1u << nbits) - 1));
+    }
     bitpos += nbits;
     return true;
   }
@@ -65,12 +76,14 @@ struct CodeReader {
 
 extern "C" {
 
-int64_t tif_lzw_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int64_t n_out) {
-  if (n_in >= 2 && in[0] == 0 && (in[1] & 1)) return kCompat;
+// ``compat``: libtiff's LZWDecodeCompat (LSB-first codes, the width one
+// code later) in place of LZWDecode
+int64_t tif_lzw_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int64_t n_out, int compat) {
   std::vector<Entry> table(kTableSize);
   for (int i = 0; i < 256; i++)
     table[i] = {-1, 1, static_cast<uint8_t>(i), static_cast<uint8_t>(i)};
-  CodeReader rd{in, n_in * 8};
+  CodeReader rd{in, n_in * 8, compat != 0};
+  const int early = compat ? 1 : 2;
   int free_ent = kFirst, nbits = 9, old = -1, code = 0;
   int64_t op = 0;
   while (op < n_out) {
@@ -91,7 +104,7 @@ int64_t tif_lzw_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int64_t n_
     const Entry& prev = table[old];
     table[free_ent] = {old, prev.length + 1, prev.first,
                        code < free_ent ? table[code].first : prev.first};
-    if (++free_ent > (1 << nbits) - 2 && nbits < 12) nbits++;
+    if (++free_ent > (1 << nbits) - early && nbits < 12) nbits++;
     old = code;
     const Entry* e = &table[code];
     int64_t len = e->length;

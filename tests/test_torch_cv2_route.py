@@ -3,18 +3,18 @@
 package, which reads them through Pillow.
 
 Every kind Pillow writes here that goes to cv2 is read with cv2
-importable: the LZMA and Zstandard compressions, and the JPEGs the codec leaves to cv2 (progressive files
-whose scans leave coefficients short, three components under Adobe
-transform 2, and files whose frame header names arithmetic coding, 12
-bits or lossless coding).  Each is either read to the JAX package's
-pixels and depth, or raises where the JAX package raises, or is refused
-with cv2 present (a ``ValueError`` naming its part of ROADMAP queue 1,
-item 8) because cv2 reads it to other pixels (CMYK, LAB, 32-bit and
-float samples, alpha) or cannot decode it (this cv2 has neither LZMA nor
-Zstandard).  The kinds of ``OWN_CODEC`` (JPEG-in-TIFF, CCITT group 3 and
-4, uncompressed YCbCr and LAB; WebP, RGB and RGBA, lossy and lossless)
-went to cv2 until the port's codecs carried them: their cases now hold
-the port's own decoder to the JAX package.
+importable: the JPEGs the codec leaves to cv2 (progressive files whose
+scans leave coefficients short, three components under Adobe transform
+2, and files whose frame header names arithmetic coding, 12 bits or
+lossless coding).  Each is either read to the JAX package's pixels and
+depth, or raises where the JAX package raises, or is refused with cv2
+present (a ``ValueError`` naming its part of ROADMAP queue 1, item 8)
+because cv2 reads it to other pixels (CMYK, LAB, 32-bit and float
+samples, alpha) or cannot decode it.  The kinds of ``OWN_CODEC``
+(JPEG-in-TIFF, CCITT group 3 and 4, uncompressed YCbCr and LAB; WebP,
+RGB and RGBA, lossy and lossless; LZMA and Zstandard TIFF, which this
+cv2 decodes neither of) went to cv2 until the port's codecs carried
+them: their cases now hold the port's own decoder to the JAX package.
 """
 
 import io
@@ -83,7 +83,7 @@ CASES = {
     **{f"TIFF {m} JPEG": (lambda m=m: _tiff(m, "jpeg"), m == "CMYK")
        for m in ("RGB", "L", "YCbCr", "CMYK")},
     **{f"TIFF 1 {c}": (lambda c=c: _tiff("1", c), False) for c in ("group3", "group4")},
-    # this cv2 decodes neither LZMA nor Zstandard: refused with cv2 too
+    # this cv2 decodes neither LZMA nor Zstandard, which the port's codecs carry
     **{f"TIFF {m} LZMA": (lambda m=m: _tiff(m, "lzma"), True)
        for m in ("RGB", "L", "P", "1", "I;16", "RGBA", "CMYK", "F")},
     "TIFF RGB Zstandard": (lambda: _tiff("RGB", "zstd"), True),
@@ -100,7 +100,7 @@ CASES = {
 # the cases whose kind the port's own codec now carries
 OWN_CODEC = {"TIFF RGB JPEG", "TIFF L JPEG", "TIFF YCbCr JPEG", "TIFF CMYK JPEG", "TIFF 1 group3",
              "TIFF 1 group4", "TIFF YCbCr uncompressed", "TIFF LAB uncompressed",
-             *(n for n in CASES if n.startswith("WebP"))}
+             *(n for n in CASES if n.startswith("WebP") or "LZMA" in n or "Zstandard" in n)}
 JPEG_CASES = ["progressive, DC only", "progressive without its last scan",
               "three components, Adobe transform 2", "arithmetic SOF", "12-bit SOF",
               "lossless SOF"]

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX, no Pillow and no dspfun_tpu
-(and cv2 only lazily, for the cv2 bridge and the compressed images),
+"""The port stands alone: it imports no JAX, no Pillow, no zstandard and
+no dspfun_tpu (and cv2 only lazily, for the cv2 bridge and the compressed
+images),
 its entry points run on the card unless told otherwise, an installed
 copy ships every file its kernel build reads, its dispatcher lists the
 tools it has, and its chip smoke run refuses to run without a CUDA
@@ -38,7 +39,7 @@ def test_every_module_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
         "sys.modules['dspfun_tpu'] = None; sys.modules['PIL'] = None\n"
-        "sys.modules['cv2'] = None\n"
+        "sys.modules['cv2'] = None; sys.modules['zstandard'] = None\n"
         "import importlib, pkgutil, dspfun_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dspfun_tpu_torch.__path__,"
         " 'dspfun_tpu_torch.')]\n"
@@ -64,7 +65,7 @@ def test_every_module_imports_without_jax():
         "io.ico")} <= names
 
 
-def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL")):
+def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL", "zstandard")):
     """A directory that, first on a process's path, makes each of
     ``names`` a package whose import raises (for the process and every
     interpreter it starts)."""
@@ -193,7 +194,7 @@ def test_jpeg_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
     sequence, with jax, Pillow, cv2 and the JAX package unimportable: the
     outputs (a spectrum, a JPEG; a y4m, a JPEG sequence) equal those of
     the same runs on PNG and PPM copies of the decoded pixels."""
-    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
     code = (
         "import sys, numpy as np\n"
         "from dspfun_tpu_torch.io import images\n"
@@ -240,7 +241,7 @@ def test_gif_through_spec_ispec_and_motion_without_jax_pillow_or_cv2(tmp_path):
     outputs (a spectrum, a GIF; a y4m, a GIF sequence) equal those of the
     same runs on PNG and PPM copies of the decoded pixels, and a sixel is
     written."""
-    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
     code = (
         "import sys, numpy as np\n"
         "from dspfun_tpu_torch.io import images\n"
@@ -289,7 +290,7 @@ def test_webp_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_path):
     an animation), with jax, Pillow, cv2 and the JAX package unimportable:
     the outputs equal those of the same runs on PNG and PPM copies of the
     decoded pixels, and ``.webp`` output is refused naming item 8f."""
-    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
     gold = ROOT / "tests" / "goldens"
     names = ["webp_lossy.webp", "webp_lossless_alpha.webp", "webp_palette16.webp",
              "webp_anim.webp"]
@@ -334,7 +335,7 @@ def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_pat
     RLE TGA equals spec of the same pixels as PNG and motion on RLE TGA
     frames equals motion on their PPMs, on the CPU; ispec writes every new
     format; the rest of item 8h is still refused before any write."""
-    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
     gold = ROOT / "tests" / "goldens"
     names = ["tga_rgba_rle_top.tga", "pcx_4plane.pcx", "sgi_rle_rgb.sgi", "qoi_rgba.qoi",
              "im_l16.im", "ico_bmp8.ico", "dib_p8.dib"]
@@ -383,6 +384,60 @@ def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_pat
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[8, 8, 8, 8, 16, 8, 8] {0} True True True True", \
         res.stdout + res.stderr
+
+
+def test_zstd_and_lzma_tiff_through_spec_and_motion_without_jax_pillow_cv2_or_zstandard(
+        tmp_path):
+    """With jax, Pillow, cv2, zstandard and dspfun_tpu blocked: the
+    Zstandard and LZMA goldens and an old LSB-first LZW file read through
+    the port's own codecs; spec of a Zstandard TIFF equals spec of the same
+    pixels as PNG, and motion on LZMA and Zstandard TIFF frames equals
+    motion on their PPMs, on the CPU."""
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
+    gold = ROOT / "tests" / "goldens"
+    names = ["zstd_rgb_p2.tif", "zstd_f_p3.tif", "lzma_i16_p2.tif", "lzma_planar_p2.tif"]
+    for name in names:
+        (tmp_path / name).write_bytes((gold / name).read_bytes())
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, %r)\n"
+        "import numpy as np\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "from dspfun_tpu_torch.tools import motion, spec\n"
+        "import torch_codec_fixtures as fx\n"
+        "d = %r + '/'\n"
+        "depths = [images.read_image(d + n).depth for n in %r]\n"
+        "old = fx.old_lzw_tiffs()['old LZW RGB predictor 2']\n"
+        "open(d + 'old.tif', 'wb').write(old)\n"
+        "depths.append(images.read_image(d + 'old.tif').depth)\n"
+        "rng = np.random.default_rng(0)\n"
+        "for k in range(4):\n"
+        "    lv = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)\n"
+        "    lv[:, :20] = lv[:, :1]\n"
+        "    kw = dict(codec=fx.zstd_stored) if k %% 2 else dict(level=0)\n"
+        "    open(d + f'in{k:02d}.tif', 'wb').write(fx.make_tiff(\n"
+        "        lv, 'RGB', compression=50000 if k %% 2 else 34925, predictor=2, **kw))\n"
+        "    images.write_image(d + f'in{k:02d}.ppm', lv / 255.0)\n"
+        "images.write_image(d + 'in.png', images.read_image(d + 'zstd_rgb_p2.tif').pixels)\n"
+        "cpu = ['--device', 'cpu']\n"
+        "same = lambda a, b: open(d + a, 'rb').read() == open(d + b, 'rb').read()\n"
+        "rcs = [spec.main(cpu + ['-t', 'flat', d + 'zstd_rgb_p2.tif', d + 's_z.png']),\n"
+        "       spec.main(cpu + ['-t', 'flat', d + 'in.png', d + 's_p.png'])]\n"
+        "args = cpu + ['-Q', '-b', '8x8x4', '-p', '0x0x0-4x4x2', '-B', '1.25']\n"
+        "for src in ('tif', 'ppm'):\n"
+        "    rcs.append(motion.main(args + [d + 'in%%02d.' + src, d + 'o_' + src + '.y4m']))\n"
+        "print(depths, set(rcs), same('s_z.png', 's_p.png'), same('o_tif.y4m', 'o_ppm.y4m'),\n"
+        "      'zstandard' in sys.modules and sys.modules['zstandard'] is not None)\n"
+    ) % (str(ROOT / "tests"), str(tmp_path), names)
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("DSPFUN_PRECISION", None)
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[8, 8, 16, 8, 8] {0} True True False", res.stdout + res.stderr
 
 
 def test_calibration_counterparts_run_without_jax():
@@ -563,7 +618,7 @@ def test_package_data_ships_what_the_build_reads():
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
     port's own native/fax.cpp, gif.cpp, jpeg.cpp, quant.cpp, rawimg.cpp,
-    tiff.cpp and webp.cpp) matches
+    tiff.cpp, webp.cpp and zstd.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -573,7 +628,7 @@ def test_package_data_ships_what_the_build_reads():
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
     assert host == ["native/dspio.cpp", "native/fax.cpp", "native/ffv1.cpp", "native/gif.cpp",
                     "native/jpeg.cpp", "native/quant.cpp", "native/rawimg.cpp", "native/tiff.cpp",
-                    "native/webp.cpp"]
+                    "native/webp.cpp", "native/zstd.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]
@@ -595,7 +650,7 @@ def test_package_data_ships_what_the_build_reads():
 
 
 def test_no_jax_imports_in_the_source():
-    """No jax, Pillow or JAX package anywhere; cv2 only inside functions of
+    """No jax, Pillow, zstandard or JAX package anywhere; cv2 only inside functions of
     ``io/cv2_bridge.py`` and ``io/images.py`` (the compressed formats)."""
     lazy_cv2 = {PKG / "io" / "cv2_bridge.py", PKG / "io" / "images.py"}
     for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
@@ -611,7 +666,8 @@ def test_no_jax_imports_in_the_source():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "dspfun_tpu", "PIL"), f"{path}: {n}"
+                assert root not in ("jax", "jaxlib", "dspfun_tpu", "PIL", "zstandard"), \
+                    f"{path}: {n}"
                 if root == "cv2":
                     assert path in lazy_cv2 and id(node) in in_function, f"{path}: {n}"
 
@@ -714,7 +770,7 @@ def test_cmyk_tiff_and_jpeg_through_spec_ispec_and_motion_without_jax_pillow_or_
         buf = io.BytesIO()
         Image.fromarray(cmyk, "CMYK").save(buf, "JPEG")
         (tmp_path / f"jn{k:02d}.jpg").write_bytes(fx.set_adobe_transform(buf.getvalue(), 2))
-    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2"))
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
     code = (
         "import sys\n"
         "from dspfun_tpu_torch.io import images\n"

@@ -13,12 +13,13 @@ Pillow and libtiff (``dspfun_tpu/io/images.py``).
 * Pillow's unpacker of every rawmode the codec meets, against
   ``Image.frombytes``; associated alpha (ExtraSamples 1) of every
   (colour, alpha) pair of 8 bits.
-* What the codec does not carry (old-style JPEG, LZMA, Zstandard,
-  ThunderScan, old-style LZW) goes to cv2, or is refused naming ROADMAP
-  queue 1, item 8c, without it; a truncated or corrupt strip, tile or
-  plane raises.  JPEG-in-TIFF, CCITT, YCbCr and LAB, which went to cv2
-  before the codec carried them, read as the JAX package reads them here
-  and in tests/test_torch_tiff_more.py.
+* What the codec does not carry (old-style JPEG, ThunderScan) goes to
+  cv2, or is refused naming ROADMAP queue 1, item 8c, without it; a
+  truncated or corrupt strip, tile or plane raises.  JPEG-in-TIFF, CCITT,
+  YCbCr, LAB, LZMA, Zstandard and libtiff's old LSB-first LZW, which
+  went to cv2 or were refused before the codec carried them, read as the
+  JAX package reads them here, in tests/test_torch_tiff_more.py and in
+  tests/test_torch_tiff_zstd_lzma.py.
 """
 
 import io
@@ -196,7 +197,8 @@ def test_pillows_own_files_with_predictor_and_strips(tmp_path):
 # ---- what the codec does not carry ------------------------------------------
 
 # the kinds that went to cv2 before the codec carried them
-CARRIED_NOW = ("tiled", "planar", "predictor 3", "JPEG", "CCITT", "YCbCr", "CCITT RLE", "LAB")
+CARRIED_NOW = ("tiled", "planar", "predictor 3", "JPEG", "CCITT", "YCbCr", "CCITT RLE", "LAB",
+               "LZMA", "Zstandard")
 
 
 def _not_carried(kind):
@@ -215,7 +217,9 @@ def _not_carried(kind):
         return make_tiff(s, kind, "<", 1)
     if kind in ("CCITT", "CCITT RLE"):
         return make_tiff((s[..., :1] > 127).astype(np.uint8), "1", "<", 4 if kind == "CCITT" else 2)
-    comp = {"LZMA": 34925, "old-style JPEG": 6, "Zstandard": 50000, "ThunderScan": 32809}[kind]
+    if kind in ("LZMA", "Zstandard"):
+        return make_tiff(s, "RGB", "<", 34925 if kind == "LZMA" else 50000, 2)
+    comp = {"old-style JPEG": 6, "ThunderScan": 32809}[kind]
     return make_tiff(s, "RGB", "<", 1, extra_tags={259: (3, [comp])})
 
 
@@ -223,11 +227,11 @@ def _not_carried(kind):
                                   "LAB", "LZMA", "CCITT RLE", "old-style JPEG", "Zstandard",
                                   "ThunderScan"])
 def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
-    """Old-style JPEG, LZMA, Zstandard and ThunderScan go to cv2, or are
-    refused naming item 8c without it.  Tiles, planar files, the
-    floating-point predictor, JPEG-in-TIFF, CCITT (Group 4 and RLE), YCbCr
-    and LAB, which went to cv2 before the codec carried them, read as the
-    JAX package reads them, with cv2 importable and blocked."""
+    """Old-style JPEG and ThunderScan go to cv2, or are refused naming
+    item 8c without it.  Tiles, planar files, the floating-point
+    predictor, JPEG-in-TIFF, CCITT (Group 4 and RLE), YCbCr, LAB, LZMA and
+    Zstandard, which went to cv2 before the codec carried them, read as
+    the JAX package reads them, with cv2 importable and blocked."""
     data = _not_carried(kind)
     if kind in CARRIED_NOW:
         assert imgcodecs.tiff_not_carried(data) is None
@@ -254,15 +258,20 @@ def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
     assert "TIFF" in str(e.value)
 
 
-def test_old_style_lzw_is_refused():
-    """libtiff's LSB-first 'compat' LZW (a strip starting 0x00 with the
-    low bit of the next byte set) is refused naming item 8c."""
-    s = _samples("L", 4, 4, 0)
-    good = make_tiff(s, "L", "<", 5)
-    data = bytearray(good)
+def test_old_style_lzw_is_refused(tmp_path, monkeypatch):
+    """libtiff's LSB-first 'compat' LZW (a first strip starting 0x00 with
+    the low bit of the next byte set), which the codec refused until it
+    carried it, reads as the JAX package reads it: files in that form
+    (``make_tiff(..., old_lzw=True)``), and a new-style file whose first
+    bytes were set to the old form's test (both raise)."""
+    for mode, kw in (("L", {}), ("RGB", dict(predictor=2, rows_per_strip=3)),
+                     ("RGBA", dict(tile=(16, 16))), ("I;16", dict(bo=">", planar=True))):
+        data = make_tiff(_samples(mode, 21, 35, 1), mode, compression=5, old_lzw=True, **kw)
+        assert imgcodecs.tiff_not_carried(data) is None
+        assert _same_or_both_raise(tmp_path, data, monkeypatch)
+    data = bytearray(make_tiff(_samples("L", 4, 4, 0), "L", "<", 5))
     data[8:10] = b"\x00\x01"
-    with pytest.raises(ValueError, match="old-style .*item 8c"):
-        imgcodecs.decode_tiff(bytes(data))
+    assert not _same_or_both_raise(tmp_path, bytes(data))
 
 
 @pytest.mark.parametrize("compression", [5, 8, 32946, 32773])

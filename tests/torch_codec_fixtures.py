@@ -120,16 +120,19 @@ def _associated(data: bytes) -> bytes:
 # ---- a TIFF writer with its own LZW and PackBits encoders (no Pillow) --------
 
 
-def lzw_encode(data: bytes) -> bytes:
+def lzw_encode(data: bytes, lsb: bool = False) -> bytes:
     """TIFF's LZW as libtiff's tif_lzw.c writes it: MSB-first codes, a
     ClearCode first, the width one code early, a ClearCode when the
-    table reaches 4094, EOI last."""
-    bits, nbits = [], 9
+    table reaches 4094, EOI last.  With ``lsb``, libtiff's old LSB-first
+    form (which its LZWDecodeCompat reads): each code from the low bits
+    up, the width one code later."""
+    codes, nbits = [], 9
     table = {bytes([i]): i for i in range(256)}
     free = 258
+    late = 1 if lsb else 0
 
     def put(code):
-        bits.append(format(code, f"0{nbits}b"))
+        codes.append((code, nbits))
 
     def grow():
         nonlocal free, nbits, table
@@ -138,7 +141,7 @@ def lzw_encode(data: bytes) -> bytes:
             put(256)
             table = {bytes([i]): i for i in range(256)}
             free, nbits = 258, 9
-        elif free > (1 << nbits) - 1:
+        elif free > (1 << nbits) - 1 + late and nbits < 12:
             nbits += 1
 
     put(256)
@@ -156,9 +159,40 @@ def lzw_encode(data: bytes) -> bytes:
         put(table[w])
         grow()
     put(257)
-    s = "".join(bits)
+    if lsb:
+        acc = sum(code << at for (code, _), at in zip(
+            codes, np.cumsum([0] + [n for _, n in codes[:-1]]).tolist()))
+        total = sum(n for _, n in codes)
+        return acc.to_bytes((total + 7) // 8, "little")
+    s = "".join(format(code, f"0{n}b") for code, n in codes)
     s += "0" * (-len(s) % 8)
     return bytes(int(s[i:i + 8], 2) for i in range(0, len(s), 8))
+
+
+def zstd_compress(data: bytes, level: int = 3) -> bytes:
+    """A Zstandard frame of ``data`` by the zstandard package (libzstd),
+    content size in its header (as imagecodecs and tifffile write it)."""
+    import zstandard  # noqa: PLC0415
+
+    return zstandard.ZstdCompressor(level=level).compress(data)
+
+
+def zstd_stored(data: bytes) -> bytes:
+    """A Zstandard frame of raw blocks (at most 128 KiB each, the content
+    size in its header), written without libzstd."""
+    blocks = [data[k:k + 131072] for k in range(0, len(data), 131072)] or [b""]
+    out = bytearray(struct.pack("<IBI", 0xFD2FB528, 0xA0, len(data)))
+    for k, blk in enumerate(blocks):
+        out += ((len(blk) << 3) | (k == len(blocks) - 1)).to_bytes(3, "little") + blk
+    return bytes(out)
+
+
+def xz_compress(data: bytes, preset: int = 6) -> bytes:
+    """An xz stream of ``data`` with no integrity check, as libtiff's
+    tif_lzma.c writes a strip (its default preset is 6)."""
+    import lzma  # noqa: PLC0415
+
+    return lzma.compress(data, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE, preset=preset)
 
 
 def packbits_encode(data: bytes) -> bytes:
@@ -207,8 +241,9 @@ MODES = {
     "YCbCr": (6, 8, 3, (), 1), "LAB": (8, 8, 3, (), 1),
 }
 COMPRESS = {1: lambda b: b, 5: lzw_encode, 8: lambda b: zlib.compress(b, 1),
-            32946: lambda b: zlib.compress(b, 1), 32773: packbits_encode}
-_PREDICTED = (5, 8, 32946)
+            32946: lambda b: zlib.compress(b, 1), 32773: packbits_encode,
+            34925: xz_compress, 50000: zstd_compress}
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 _BITREV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
@@ -370,7 +405,7 @@ def fax_encode(block: np.ndarray, compression: int, two_d_every: int = 0,
 
 def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=None,
               cmap=None, extra_tags=(), tile=None, planar=False, fill_order=1, fax=None,
-              subsampling=None) -> bytes:
+              subsampling=None, level=None, old_lzw=False, codec=None) -> bytes:
     """A TIFF of samples [h, w, spp] (uint8 or uint16 below 17 bits, the
     int or float type of the sample format at 16 and 32) in byte order
     ``bo`` ('<' II, '>' MM): in strips of ``rows_per_strip`` rows (the last
@@ -388,8 +423,16 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
     top-left sample; edge samples repeated to whole blocks), with the
     YCbCrSubsampling tag.  Compression 7 (JPEG) takes RGB samples, each
     strip or tile coded by the port's ``encode_jpeg`` (Pillow's 4:2:0),
-    its tables moved to JPEGTables, as YCbCr with subsampling 2x2."""
+    its tables moved to JPEGTables, as YCbCr with subsampling 2x2.
+    ``level``: the Zstandard level or xz preset (compressions 50000 and
+    34925); ``old_lzw``: LZW in libtiff's old LSB-first form; ``codec``: a
+    function of a block's bytes in place of the compression's own."""
     photo, bits, spp, extra, fmt = MODES[mode]
+    compress = codec or COMPRESS.get(compression)
+    if codec is None and compression == 5 and old_lzw:
+        compress = lambda b: lzw_encode(b, lsb=True)  # noqa: E731
+    elif codec is None and level is not None:
+        compress = lambda b: COMPRESS[compression](b, level)  # noqa: E731
     h, w, _ = samples.shape
     if compression == 7:
         return _jpeg_tiff(samples, bo, rows_per_strip, tile, extra_tags)
@@ -419,10 +462,10 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
             if compression in (2, 3, 4):
                 blk = fax_encode(full[y:y + th, x:x + tw, 0], compression, **(fax or {}))
             elif subsampling:
-                blk = COMPRESS[compression](_ycbcr_blocks(full[y:y + th, x:x + tw], *subsampling))
+                blk = compress(_ycbcr_blocks(full[y:y + th, x:x + tw], *subsampling))
             else:
                 rows = _row_bytes(full[y:y + th, x:x + tw], bits, bo, predictor_used)
-                blk = COMPRESS[compression](b"".join(rows))
+                blk = compress(b"".join(rows))
             if fill_order == 2:
                 blk = _BITREV[np.frombuffer(blk, np.uint8)].tobytes()
             blocks.append(blk)
@@ -453,15 +496,18 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
     return _assemble(blocks, tags, bo)
 
 
-def _assemble(blocks, tags, bo) -> bytes:
+def _assemble(blocks, tags, bo, index=None) -> bytes:
     """A TIFF of the stored strips or tiles and the tags, (type, values)
-    by tag; the offsets (273 or 324) are filled in.  Types: 3 SHORT, 4
-    LONG, 5 RATIONAL (values in (numerator, denominator) pairs), 7
+    by tag; the offsets (273 or 324) are filled in: one strip or tile a
+    block, or the block ``index[k]`` for strip or tile k.  Types: 3 SHORT,
+    4 LONG, 5 RATIONAL (values in (numerator, denominator) pairs), 7
     UNDEFINED (bytes)."""
     offsets, pos = [], 8
     for blk in blocks:
         offsets.append(pos)
         pos += len(blk)
+    if index is not None:
+        offsets = [offsets[k] for k in index]
     tags = dict(tags)
     tags[324 if 324 in tags else 273] = (4, offsets)
     body = b"".join(blocks)
@@ -701,6 +747,99 @@ def tiff_4k(kind: str, hw, seed: int, noise: float) -> bytes:
     if kind == "jpeg":
         return make_tiff(rgb, "YCbCr", compression=7, tile=(256, 256))
     return make_tiff(rgb, "YCbCr", compression=8, subsampling=(2, 2), rows_per_strip=64)
+
+
+# the Zstandard and LZMA TIFFs of chip_smoke.py phase 23(a) in tests/goldens/:
+# Pillow's (libtiff's) of 48x64 samples (name -> mode, compression,
+# predictor) and make_tiff's tiled and planar ones with predictor 2 of
+# 45x67 samples (name -> mode, keywords); the card's machine has no
+# Zstandard encoder
+ZSTD_LZMA_PILLOW = {f"{c}_{name}.tif": (mode, c, pred) for c in ("zstd", "lzma")
+                    for name, mode, pred in (("l", "L", 1), ("rgb_p2", "RGB", 2),
+                                             ("rgba", "RGBA", 1), ("i16_p2", "I;16", 2),
+                                             ("f_p3", "F", 3))}
+ZSTD_LZMA_MADE = {
+    "zstd_tiled_p2.tif": ("RGB", dict(compression=50000, predictor=2, tile=(32, 16), level=19)),
+    "zstd_planar_p2.tif": ("RGBA;16", dict(compression=50000, predictor=2, planar=True,
+                                           rows_per_strip=8, level=1)),
+    "lzma_tiled_p2.tif": ("RGB", dict(compression=34925, predictor=2, tile=(32, 16))),
+    "lzma_planar_p2.tif": ("RGBA;16", dict(compression=34925, predictor=2, planar=True,
+                                           rows_per_strip=8, level=0)),
+}
+# phase 23(b)'s strips: Pillow's 3840x20 TIFF (four strips of 5 rows,
+# predictor 2) of levels((20, 3840), STRIP_SEED, STRIP_NOISE) in each
+# codec, whose strips strip_4k() repeats down a 3840x2160 file
+STRIP_DONORS = {"zstd_4k_strips.tif": "zstd", "lzma_4k_strips.tif": "lzma"}
+STRIP_SEED, STRIP_NOISE = 51, 0.02
+# phase 23(a)'s LZW TIFFs in libtiff's old LSB-first form, written at run
+# time (name -> mode, make_tiff's keywords; 45x67 samples of seed 52)
+OLD_LZW_TIFFS = {
+    "old LZW L": ("L", dict(rows_per_strip=16)),
+    "old LZW RGB predictor 2": ("RGB", dict(predictor=2, rows_per_strip=8)),
+    "old LZW tiled RGBA": ("RGBA", dict(tile=(16, 32))),
+    "old LZW planar RGB;16 big-endian": ("RGB;16", dict(bo=">", planar=True, predictor=2,
+                                                        rows_per_strip=12)),
+    "old LZW FillOrder 2 L": ("L", dict(fill_order=2, rows_per_strip=20)),
+}
+
+
+def _pillow_samples(mode: str, seed: int):
+    """A seeded 48x64 Pillow image of ``mode`` (L, RGB, RGBA, I;16 or F)."""
+    from PIL import Image  # noqa: PLC0415
+
+    rgb = levels((48, 64), seed)
+    if mode in ("L", "RGB"):
+        return Image.fromarray(rgb).convert(mode)
+    if mode == "RGBA":
+        return Image.fromarray(np.dstack([rgb, seeded_alpha(48, 64, seed)]))
+    if mode == "I;16":
+        v = rgb[..., 0].astype(np.uint16) * 257 + np.arange(64, dtype=np.uint16)
+        return Image.fromarray(v)
+    v = rgb[..., 1].astype(np.float32) * 1.5 - 40.25
+    v.flat[:3] = [np.nan, np.inf, -np.inf]
+    return Image.fromarray(v)
+
+
+def zstd_lzma_fixtures() -> dict[str, bytes]:
+    """Each of ``ZSTD_LZMA_PILLOW`` (Pillow's bytes), ``ZSTD_LZMA_MADE``
+    (make_tiff's, through zstandard and lzma) and ``STRIP_DONORS``."""
+    out = {}
+    for k, (name, (mode, comp, pred)) in enumerate(ZSTD_LZMA_PILLOW.items()):
+        out[name] = _save(_pillow_samples(mode, 53 + k % 5), "TIFF", compression=comp,
+                          **({"tiffinfo": {317: pred}} if pred > 1 else {}))
+    for name, (mode, kw) in ZSTD_LZMA_MADE.items():
+        out[name] = make_tiff(tiff_samples(mode, 45, 67, 54), mode, **kw)
+    from PIL import Image  # noqa: PLC0415
+
+    donor = Image.fromarray(levels((20, 3840), STRIP_SEED, STRIP_NOISE))
+    for name, comp in STRIP_DONORS.items():
+        out[name] = _save(donor, "TIFF", compression=comp, tiffinfo={317: 2})
+    return out
+
+
+def old_lzw_tiffs() -> dict[str, bytes]:
+    """Each of ``OLD_LZW_TIFFS`` written by :func:`make_tiff` (no Pillow)."""
+    return {name: make_tiff(tiff_samples(mode, 45, 67, 52), mode, compression=5, old_lzw=True,
+                            **kw) for name, (mode, kw) in OLD_LZW_TIFFS.items()}
+
+
+def strip_4k(donor: bytes, h: int = 2160) -> bytes:
+    """A TIFF of ``h`` rows whose strips are the donor's strips in turn
+    (the donor's tags but for its height, offsets and byte counts; each
+    strip's bytes stored once)."""
+    bo = {b"II": "<", b"MM": ">"}[donor[:2]]
+    ifd = struct.unpack_from(bo + "I", donor, 4)[0]
+    tags = {}
+    for k in range(struct.unpack_from(bo + "H", donor, ifd)[0]):
+        tag, typ, count, val = struct.unpack_from(bo + "HHI4s", donor, ifd + 2 + 12 * k)
+        code = {3: "H", 4: "I"}[typ]
+        size = struct.calcsize(code) * count
+        raw = val if size <= 4 else donor[struct.unpack(bo + "I", val)[0]:]
+        tags[tag] = (typ, list(struct.unpack(bo + code * count, raw[:size])))
+    donors = [donor[o:o + c] for o, c in zip(tags[273][1], tags[279][1])]
+    index = [k % len(donors) for k in range(-(-h // tags[278][1][0]))]
+    tags.update({257: (4, [h]), 273: (4, []), 279: (4, [len(donors[k]) for k in index])})
+    return _assemble(donors, tags, bo, index)
 
 
 def rgba_digest(pixels: np.ndarray) -> str:
