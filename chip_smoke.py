@@ -423,6 +423,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    frames, with the same launches of kernel #2 (at least one); seconds by
    stage.  The int8 kernels are held to their plain versions at every
    shape the phase gave them;
+24. main path 20, progressive JPEG left short (smoothed as libjpeg-turbo
+   smooths it) and 8-bit lossless JPEG, through the port's own codec
+   (``io/jpeg.py`` on ``native/jpeg.cpp``).  (a) The files
+   ``tests/torch_codec_fixtures.py`` makes at run time (``short_jpegs``:
+   Pillow's gray and 4:4:4 restart-marked goldens cut to their first scan,
+   without their last or without their AC refinements; ``lossless_jpegs``:
+   predictors 1-7, point transforms 1 and 2, restart intervals, a scan
+   per component, 4:2:0 sampling, CMYK) each read through
+   ``images._decoder`` to ``decode_jpeg``, file and pixels equal to
+   Pillow's sha256 (``SHORT_JPEG_DIGESTS``, ``LOSSLESS_DIGESTS``; pinned by
+   tests/test_torch_jpeg_lossless.py).  (b) ``codec_prog_4k.jpg``'s DC
+   scans alone and all its scans but the last, each decoded (best of
+   ``SHORT_REPEATS``, seconds and MB/s) to Pillow's digest; ``spec -t flat
+   -G 1000`` of the second at ``i8@1e-5``, the spectrum equal to the one
+   from the same pixels as a PNG, kernels #1-#2 once; ``ispec`` at
+   ``i8@1e-5`` back to PNG.  (c) A 3840x2160 lossless JPEG of
+   ``CODEC_4K``'s levels (predictor 1, a restart interval every 16 rows)
+   written by the fixtures module's numpy writer and decoded to those
+   levels exactly, seconds and MB/s.  The int8 kernels are held to their
+   plain versions at every shape the phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -4944,6 +4964,166 @@ def _zstd_lzma_phase(torch, dev, int8mm, block_filter, check_i8mm, fft,
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+# phase 24: progressive JPEG left short, smoothed, and 8-bit lossless JPEG
+# (io/jpeg.py, native/jpeg.cpp) ----------------------------------------------------
+# (a) and (b): sha256 of each file tests/torch_codec_fixtures.py makes at run
+# time (short_jpegs(): cut from Pillow's goldens; lossless_jpegs(): its own
+# writer) and of Pillow's convert("RGB") of it (tests/test_torch_jpeg_lossless.py
+# pins them to Pillow)
+SHORT_JPEG_DIGESTS = {
+    "prog4k_dc.jpg": ("38d1a19d53cb4f080c06a067393577538ce41dc6deefbbf86ba2fc8cba5e9f11",
+                      "d13ce96518455d1109e7166f82d06f711be0ee11d6bcf8cf009d2111b9a7f6e5"),
+    "prog4k_short.jpg": ("48742d4f07f0b81847595ee6c323824e1796e553ea622a95f39002742826b1a4",
+                         "f5071ca3999094727e8414361e9c1420d3d3c0ef055eb09fd353aa4df8dce289"),
+    "gray_short.jpg": ("c28b23af08a767789cb90addfce61d2fb551b3d0edf32cded003cf7994a5bceb",
+                       "f796c6e78144f9e545ba6f4a802960d861d8f6abb95112976f6307621ca4b9e2"),
+    "rst444_dc_al1.jpg": ("6eaab59ce59033b8c159d8cf004202f7b542a9fb0a7ce3060b8b63c4ac71ce2a",
+                          "2825bd3c7d5e94597870a5d823d3d6d6230610170914435c953b1288a42915fd"),
+    "rst444_unrefined.jpg": ("35bd583fe709fe464403940207b70f19e33ce69af83880810289546d5026fc69",
+                             "ead649316996cef06896c028252ed554fd9601ae6fd0777addea7f6973753285"),
+}
+LOSSLESS_DIGESTS = {
+    "ll_gray_p1.jpg": ("cb83303db76eadea8eb4fc0c1e38c1d93b808fb500618db0e586074a6ac10c10",
+                       "39031b6c510087a19bffe69fe2073597dae540d18cd0f94347f444a8f6dc707e"),
+    "ll_gray_p2_pt2.jpg": ("24cd8fa9e5dc8b3c3aa4b6b2bd3a7f51d58cbb0230a85cbba7adfd23f3e031c0",
+                           "0802d943054c454b2f019ba2ba87ce4e1fdf67791287f90b4059c5d29708c94f"),
+    "ll_rgb_p3.jpg": ("9e284ec938958dc100c7aaea5360a1ea13d5a1dff39c8f8618900743ed319e37",
+                      "b65fec3e22df69ca40ffdf9749d827c4ed2d479374360aca4c14795e8dc44c6d"),
+    "ll_rgb_p4_pt1_rst.jpg": ("c38dc8e96fddb8665ba861cf9858143d61e4729a597b793a29d217c7f7bec0c1",
+                              "0f715d25436d3329118d58ca5b640b44814c2b28354cbfabc68ce450c7a0e666"),
+    "ll_rgb_p5_scans.jpg": ("21a28d6e8e3648b2e77654f1677f0364b54e3beb1865721b26ab59a5f01ca89a",
+                            "1682a39efa4ce59d14b19766d25665540c0e119a448931287c520563395a9787"),
+    "ll_rgb_p6_420.jpg": ("25658e706e7126390d8ec0b1035a54a09149645de3ee0d909a10f9262f098ca2",
+                          "3d61e087c8b3f13b741c187abc91c1dc7eb50619442c9f7d703ee6072d9b602d"),
+    "ll_cmyk_p7_rst.jpg": ("279073f56a2f853ffb12ee0e855678d721214fc2ae95008eb1bcec2aef6acc9d",
+                           "33145a9afa68708f9bc828d9d0919c680c214d5fad86df9f37c5520abf2a4a7a"),
+}
+SHORT_4K = ("prog4k_dc.jpg", "prog4k_short.jpg")   # (b): decoded best of SHORT_REPEATS
+SHORT_SPEC = "prog4k_short.jpg"                    # (b): the file spec and ispec run on
+SHORT_REPEATS = 3
+LOSSLESS_4K = dict(predictor=1, restart=W * 16)    # (c): CODEC_4K's levels, 135 intervals
+
+
+def _short_lossless_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
+                          spec_file=SHORT_SPEC, lossless_kw=None, device_args=()) -> dict:
+    """Main path 20: progressive JPEG left short, smoothed as libjpeg-turbo
+    smooths it, and 8-bit lossless JPEG, through the port's own codec
+    (``io/jpeg.py`` on ``native/jpeg.cpp``).  (a) The short progressive
+    files the fixtures module cuts from Pillow's goldens and its
+    hand-made lossless files, each through ``images._decoder`` to
+    ``decode_jpeg``, file and pixels equal to Pillow's digests; (b) the
+    two 3840x2160 short files decoded (best of ``SHORT_REPEATS``) to
+    Pillow's digests, spec of ``spec_file`` at ``i8@1e-5`` against the
+    same pixels as a PNG, and ispec at ``i8@1e-5`` back to PNG; (c) a
+    3840x2160 lossless JPEG of ``big``'s levels written by the fixtures
+    module and decoded to those levels exactly.  Returns the kernels'
+    launches over the runs of the new formats."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, jpeg
+    from dspfun_tpu_torch.tools import ispec, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    jpeg._load()
+    print(f"phase 24 native/jpeg.cpp load: {time.perf_counter() - t0:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_short_") as tmp:
+        # ---- (a) the fixtures to Pillow's digests ---------------------------------
+        t0 = time.perf_counter()
+        made = {**fx.short_jpegs(), **fx.lossless_jpegs()}
+        print(f"phase 24a {len(made)} files cut and written: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        decoded = {}
+        for name, data in made.items():
+            if images._decoder(data) is not jpeg.decode_jpeg:
+                raise RuntimeError(f"phase 24a: {name} does not take the port's JPEG decoder")
+            frame = jpeg.decode_coefficients(data)[0]
+            kind = "lossless" if frame.lossless else \
+                f"smoothed, latch {frame.latch[:10]}" if frame.smoothed else "not smoothed"
+            if not (frame.lossless or frame.smoothed):
+                raise RuntimeError(f"phase 24a: {name} is neither lossless nor smoothed")
+            best = float("inf")
+            for _ in range(SHORT_REPEATS if name in SHORT_4K else 1):
+                t0 = time.perf_counter()
+                arr, depth = jpeg.decode_jpeg(data)
+                best = min(best, time.perf_counter() - t0)
+            decoded[name] = arr
+            got = (sha(data), fx.rgb_digest(arr))
+            want = SHORT_JPEG_DIGESTS.get(name) or LOSSLESS_DIGESTS[name]
+            reps = f" (best of {SHORT_REPEATS})" if name in SHORT_4K else ""
+            print(f"phase 24{'b' if name in SHORT_4K else 'a'} {name} {arr.shape[1]}x"
+                  f"{arr.shape[0]}x{arr.shape[2]} ({kind}; {len(data)} bytes): decode "
+                  f"{best:.4f} s{reps}, {arr.size / 1e6 / best:.1f} MB/s of samples; file and "
+                  f"pixels == Pillow's digests: {got == want}", flush=True)
+            if got != want:
+                raise RuntimeError(f"phase 24: {name} is not decoded as Pillow decodes it: {got}")
+
+        # ---- (b) spec and ispec of a short file ----------------------------------
+        src = os.path.join(tmp, spec_file)
+        with open(src, "wb") as f:
+            f.write(made[spec_file])
+        arr = decoded[spec_file]
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, arr / 255.0)
+        sh, sw = arr.shape[:2]
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        out = {k: os.path.join(tmp, f"spec_{k}.png") for k in ("ref", "jpg")}
+        with _policy("i8@1e-5"):
+            for name, inp in (("ref", ref), ("jpg", src)):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "jpg")
+                print(f"phase 24b spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 24b spec {name} launched {got}, expected {spec_i8}")
+            ok = same(out["ref"], out["jpg"])
+            print(f"phase 24b spectrum from {spec_file} == from the PNG: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError("phase 24b: the short JPEG's spectrum differs from the PNG's")
+            back = os.path.join(tmp, "back.png")
+            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
+                                   + ["-t", "flat", "-G", "1000", out["jpg"], back], int8mm)
+            (wall, stages, got), _ = count.run(fn)
+        res = images.read_image(back).pixels
+        ok = got == spec_i8 and res.shape[:2] == (sh, sw) and bool(np.isfinite(res).all())
+        print(f"phase 24b ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
+              f"launches {json.dumps(got)}; max abs diff to the input "
+              f"{float(np.abs(res - arr / 255.0).max()):.4f}", flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 24b ispec launched {got} or wrote {res.shape}")
+
+    # ---- (c) a 3840x2160 lossless JPEG to its levels ------------------------------
+    hw, seed, noise = big
+    kw = dict(LOSSLESS_4K if lossless_kw is None else lossless_kw)
+    levels = fx.levels(hw, seed, noise=noise)
+    t0 = time.perf_counter()
+    data = fx.make_lossless_jpeg(levels, **kw)
+    enc_s = time.perf_counter() - t0
+    best = float("inf")
+    for _ in range(SHORT_REPEATS):
+        t0 = time.perf_counter()
+        arr, _ = jpeg.decode_jpeg(data)
+        best = min(best, time.perf_counter() - t0)
+    ok = np.array_equal(arr, levels)
+    print(f"phase 24c lossless JPEG {hw[1]}x{hw[0]} RGB ({json.dumps(kw)}; {len(data)} bytes): "
+          f"write {enc_s:.3f} s (tests/torch_codec_fixtures.py, numpy); decode {best:.4f} s (best "
+          f"of {SHORT_REPEATS}), {arr.size / 1e6 / best:.1f} MB/s of RGB, "
+          f"{len(data) / 1e6 / best:.2f} MB/s of file; == its levels: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError("phase 24c: the lossless JPEG decodes to other levels")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"short_jpeg {layout}{nd} {m}x{k}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 24 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -5286,6 +5466,14 @@ def main() -> int:
     if not (zstd_path.get("left3") and zstd_path.get("right3")):
         raise RuntimeError(f"a kernel of the Zstandard and LZMA path never launched: {zstd_path}")
 
+    # ---- phase 24: main path 20, progressive JPEG left short, lossless JPEG --
+    torch.cuda.empty_cache()
+    short_path = _short_lossless_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                                       scipy.fft)["launches"]
+    if not (short_path.get("left3") and short_path.get("right3")):
+        raise RuntimeError(f"a kernel of the short and lossless JPEG path never launched: "
+                           f"{short_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -5296,7 +5484,8 @@ def main() -> int:
                              + jpeg_path.get(n, 0) + codec_path.get(n, 0)
                              + gif_path.get(n, 0) + cmyk_path.get(n, 0)
                              + more_path.get(n, 0) + webp_path.get(n, 0)
-                             + other_path.get(n, 0) + zstd_path.get(n, 0)),
+                             + other_path.get(n, 0) + zstd_path.get(n, 0)
+                             + short_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -5314,7 +5503,8 @@ def main() -> int:
                                      "tiff_jpeg": more_path.get(n, 0),
                                      "webp": webp_path.get(n, 0),
                                      "other_formats": other_path.get(n, 0),
-                                     "zstd_lzma_tiff": zstd_path.get(n, 0)},
+                                     "zstd_lzma_tiff": zstd_path.get(n, 0),
+                                     "short_lossless_jpeg": short_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -5349,7 +5539,8 @@ def main() -> int:
                                  + more_path.get("block_filter", 0)
                                  + webp_path.get("block_filter", 0)
                                  + other_path.get("block_filter", 0)
-                                 + zstd_path.get("block_filter", 0)),
+                                 + zstd_path.get("block_filter", 0)
+                                 + short_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -5361,7 +5552,9 @@ def main() -> int:
                                          "tiff_jpeg": more_path.get("block_filter", 0),
                                          "webp": webp_path.get("block_filter", 0),
                                          "other_formats": other_path.get("block_filter", 0),
-                                         "zstd_lzma_tiff": zstd_path.get("block_filter", 0)},
+                                         "zstd_lzma_tiff": zstd_path.get("block_filter", 0),
+                                         "short_lossless_jpeg":
+                                             short_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -17,7 +17,8 @@ Covers what the reference tools use from MagickWand
   ``write_image(None, ...)`` on a terminal, as in the JAX package.
 
 The JAX package reads and writes through Pillow; the port has its own
-codecs: PNG (``io/png.py``), PNM, BMP and TIFF (``io/imgcodecs.py``:
+codecs: PNG (``io/png.py``), PNM (Pillow's PFM, CMYK and test headers
+too), BMP and TIFF (``io/imgcodecs.py``:
 uncompressed, LZW (libtiff's old LSB-first form too), deflate, PackBits,
 JPEG (``io/jpeg.py`` with the JPEGTables), CCITT RLE, Group 3 and Group 4
 (``native/fax.cpp``), Zstandard (``native/zstd.cpp``) and LZMA (the
@@ -26,8 +27,9 @@ order, every key of Pillow's ``OPEN_INFO`` (1- to 32-bit gray, signed
 and float samples, palettes, RGB(A), CMYK, YCbCr through libtiff's RGBA
 reader or libjpeg, CIELab through Pillow's LittleCMS transform), the
 Orientation tag applied), JPEG
-(``io/jpeg.py``: baseline, extended-sequential and progressive Huffman;
-gray, RGB, CMYK and YCCK), GIF (``io/gif.py``: the first frame read,
+(``io/jpeg.py``: baseline, extended-sequential and progressive Huffman,
+a progressive file left short smoothed as libjpeg-turbo smooths it, and
+8-bit lossless; gray, RGB, CMYK and YCCK), GIF (``io/gif.py``: the first frame read,
 Pillow's median-cut or octree palette written, through ``io/quant.py``),
 WebP on read (``io/webp.py``: lossy, lossless, alpha, an animation's
 first frame), TGA, PCX, SGI, QOI and IM (``io/rawimg.py``), ICO
@@ -35,10 +37,9 @@ first frame), TGA, PCX, SGI, QOI and IM (``io/rawimg.py``), ICO
 (``io/imgcodecs.py``), and MPO on write (its one frame is a JPEG), each
 reading what Pillow decodes and writing what it writes.  They take
 every file they carry, whether cv2 imports or not.
-The rest (arithmetic-coded, 12-bit and lossless JPEG, progressive JPEG
-whose scans leave coefficients short, old-style JPEG, ThunderScan, SGILog
-and WebP compressed TIFF, 12-bit JPEG-in-TIFF, WebP frames with the simple
-loop filter or several token partitions, and WebP output) goes through
+The rest (arithmetic-coded JPEG, old-style JPEG, ThunderScan and CCITT
+RLE-W TIFF, 12-bit JPEG-in-TIFF, WebP frames with the simple loop filter
+or several token partitions, and WebP output) goes through
 ``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
 which are refused with cv2 too (``_cv2_decode``); where cv2 does not
 import, it is refused with a ``ValueError`` naming ROADMAP queue 1, item 8
@@ -48,7 +49,10 @@ JPEG 2000, AVIF and the rest of ``_PILLOW_ORDER``'s refusals and
 or without cv2, naming item 8h, on read and before anything is written.
 Inputs are identified as Pillow's ``Image.open`` identifies them: each
 plugin in its order, passing the file on where Pillow's plugin would
-(``_PILLOW_ORDER``); the ``fmt:`` prefix names the output format.
+(``_PILLOW_ORDER``: a JPEG frame of other than 8-bit samples, a TIFF whose
+compression or pixel layout Pillow's tables lack, a PPM magic number not
+among its modes), so a file no plugin opens raises "cannot identify image
+file" with or without cv2; the ``fmt:`` prefix names the output format.
 tests/test_torch_images.py, test_torch_image_formats.py and
 test_torch_other_formats.py pin the rest to the original.
 """
@@ -215,6 +219,10 @@ def _bmp_open(d: bytes) -> None:
 def _jpeg_claim(d: bytes):
     if not d.startswith(b"\xff\xd8"):
         return None
+    frame = _jpeg.frame_header(d)
+    why = frame and _jpeg.unidentified(frame)
+    if why:
+        raise _rawimg.Skip(why)     # Pillow's SOF handler raises SyntaxError
     if _jpeg.carries(d):
         return _jpeg.decode_jpeg
     return lambda d: _cv2_decode(d, "JPEG")
@@ -223,6 +231,9 @@ def _jpeg_claim(d: bytes):
 def _tiff_claim(d: bytes):
     if d[:4] not in (b"II*\x00", b"MM\x00*"):
         return None
+    why = _codecs.tiff_unidentified(d)
+    if why:
+        raise _rawimg.Skip(why)     # TiffImagePlugin._setup's KeyError, TypeError or SyntaxError
     if _codecs.tiff_not_carried(d) is None:
         return _codecs.decode_tiff
     return lambda d: _cv2_decode(d, "TIFF")
@@ -272,8 +283,7 @@ _PILLOW_ORDER = (
     ("DIB", _ported(_dib_open, _codecs.decode_dib)),
     ("GIF", lambda d: _gif.decode_gif if d.startswith(b"GIF8") else None),
     ("JPEG", _jpeg_claim),
-    ("PPM", lambda d: _codecs.decode_pnm if d[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6")
-     else None),
+    ("PPM", lambda d: _codecs.decode_pnm if _codecs.pnm_magic(d) else None),
     ("AVIF", _refused("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis",
                                                                         b"mif1", b"msf1"))),
     ("BLP", _refused("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")))),
@@ -474,11 +484,16 @@ def _decoder(data: bytes):
     it (``_PILLOW_ORDER``): a function of the bytes to (samples, depth).
     The port's own codecs take every file they carry, whether cv2 imports
     or not; cv2 takes the rest."""
+    passed = []
     for _name, claim in _PILLOW_ORDER:
-        decode = claim(data)
+        try:
+            decode = claim(data)
+        except _rawimg.Skip as e:     # the plugin's open failed: Pillow tries the next one
+            passed.append(str(e))
+            continue
         if decode is not None:
             return decode
-    raise ValueError("cannot identify image file")
+    raise ValueError("cannot identify image file" + (f" ({'; '.join(passed)})" if passed else ""))
 
 
 def read_image(spec: str, channels: str = "RGB", linear: bool = False) -> ImageData:

@@ -16,7 +16,10 @@ all of it to Pillow.
 * **PNM** (``PpmImagePlugin``): P1 and P4 bitmaps, P2 and P5 graymaps, P3
   and P6 pixmaps at any maxval; a maxval other than 255 (and 65535 for
   raw gray) is scaled to 8 bits, or to 16 for a graymap above 255, with
-  Python's ``round`` (half to even), as Pillow scales it.  Written: RGB
+  Python's ``round`` (half to even), as Pillow scales it; and Pillow's
+  other magic numbers: ``Pf`` (PFM, float32 gray, clamped and truncated
+  to 8 bits as its ``convert("RGBA")`` makes mode ``F``), ``P0CMYK`` and
+  ``PyCMYK`` (through ``cmyk2rgb``), ``PyRGBA`` and ``PyP``.  Written: RGB
   (and RGBA, without its alpha) as P6, 16-bit gray as P5 with maxval
   65535.
 * **BMP** (``BmpImagePlugin``): Windows headers of 40 to 124 bytes (and
@@ -56,12 +59,16 @@ all of it to Pillow.
   order, predictor 2 or 3 (libtiff's ``fpAcc``) undone in each row of a
   strip or tile, planes interleaved.  Orientation 2-8 applied last, as
   ``ImageOps.exif_transpose`` does at Pillow's load.  Written: one strip,
-  little endian, no compression.  :func:`tiff_not_carried` names what the
-  decoder does not take (old-style JPEG, ThunderScan, SGILog, WebP and
-  any other compression, 12-bit JPEG-in-TIFF; ROADMAP queue 1, item 8c),
-  which ``io/images.py`` hands to cv2; where Pillow raises (a key
-  its table lacks, a predictor or colormap libtiff refuses, a truncated
-  or corrupt strip or tile), :func:`decode_tiff` raises, and where
+  little endian, no compression.  :func:`tiff_unidentified` names the
+  files Pillow does not open (a compression that is not a key of its
+  COMPRESSION_INFO, such as JPEG 2000 or PNG; a key its OPEN_INFO lacks,
+  such as SGILog's photometrics), which ``io/images.py`` passes on as
+  ``Image.open`` does; :func:`tiff_not_carried` names what the decoder
+  does not take (old-style JPEG, ThunderScan, CCITT RLE-W, 12-bit
+  JPEG-in-TIFF; ROADMAP queue 1, item 8c), which ``io/images.py`` hands
+  to cv2; where Pillow raises (a predictor or colormap libtiff refuses,
+  SGILog or WebP compression, which its libtiff refuses at load, a
+  truncated or corrupt strip or tile), :func:`decode_tiff` raises, and where
   Pillow reads a damaged strip to what the port cannot reproduce (a T.6
   strip's rows libtiff leaves unwritten, a damaged JPEG block outside the
   range where libjpeg-turbo's SIMD and C arithmetic agree, an xz stream
@@ -84,8 +91,8 @@ from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
 
 __all__ = ["bitmap", "bitmap_pixels", "decode_bmp", "decode_dib", "decode_pnm", "decode_tiff",
-           "encode_bmp", "encode_dib", "encode_pnm",
-           "encode_tiff", "tiff_cv2_differs", "tiff_not_carried"]
+           "encode_bmp", "encode_dib", "encode_pnm", "encode_tiff", "pnm_magic",
+           "tiff_cv2_differs", "tiff_not_carried", "tiff_unidentified"]
 
 _WS = b" \t\n\r\x0b\x0c"
 
@@ -95,10 +102,35 @@ _WS = b" \t\n\r\x0b\x0c"
 # ---------------------------------------------------------------------------
 
 
-def _pnm_header(data: bytes, count: int) -> tuple[list[int], int]:
-    """The magic's ``count`` header integers and the offset of the data
-    (one whitespace byte after the last token; ``#`` comments skipped)."""
-    pos, vals = 2, []
+# PpmImagePlugin.MODES: each magic number and its mode
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+              b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+
+
+def pnm_magic(data: bytes) -> bytes | None:
+    """The magic number of a file ``PpmImagePlugin`` takes (its _accept:
+    ``P`` and one of ``0123456fy``), read as its _read_magic reads it (up to
+    six bytes, to the first whitespace); None where _accept does not take
+    the file.  Raises ``rawimg.Skip`` where the magic is not one of its
+    MODES (``PF``, colour PFM, say): Image.open tries the next format."""
+    from dspfun_tpu_torch.io.rawimg import Skip  # noqa: PLC0415
+
+    if len(data) < 2 or data[:1] != b"P" or data[1] not in b"0123456fy":
+        return None
+    magic = bytearray()
+    for c in data[:6]:
+        if c in _WS:
+            break
+        magic.append(c)
+    if bytes(magic) not in _PNM_MODES:
+        raise Skip("not a PPM file")
+    return bytes(magic)
+
+
+def _pnm_header(data: bytes, count: int, pos: int = 2) -> tuple[list[bytes], int]:
+    """``count`` header tokens from ``pos`` and the offset of the data (one
+    whitespace byte after the last token; ``#`` comments skipped)."""
+    vals = []
     while len(vals) < count:
         while pos < len(data) and data[pos] in _WS:
             pos += 1
@@ -111,7 +143,7 @@ def _pnm_header(data: bytes, count: int) -> tuple[list[int], int]:
             pos += 1
         if start == pos:
             raise ValueError("Reached EOF while reading header")
-        vals.append(int(data[start:pos]))
+        vals.append(data[start:pos])
     return vals, pos + 1
 
 
@@ -125,14 +157,27 @@ def _scale(vals: np.ndarray, maxval: int, out_max: int) -> np.ndarray:
     return np.minimum(out_max, np.rint(vals.astype(np.float64) / maxval * out_max))
 
 
+def _f2l(v: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert`` of float samples (mode ``F``) to 8 bits, as its
+    ``convert("RGBA")`` goes through ``L``: clamped to [0, 255] and
+    truncated, NaN 0."""
+    return np.where(np.isnan(v), 0, np.clip(v, 0, 255)).astype(np.uint8)
+
+
 def decode_pnm(data: bytes) -> tuple[np.ndarray, int]:
-    magic = data[:2]
-    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+    """A file of ``PpmImagePlugin``'s magic numbers as Pillow reads it then
+    ``io/images.py`` takes it: P1-P6; PFM (``Pf``, one float32 channel,
+    rows bottom-up, little-endian where the scale is negative) clamped
+    and truncated to 8 bits; ``P0CMYK`` and ``PyCMYK`` converted by
+    ``cmyk2rgb``; ``PyRGBA``; ``PyP``, whose image has no palette, black."""
+    magic = pnm_magic(data)
+    if magic is None:
         raise ValueError("not a PPM file")
-    kind = magic[1] - ord("0")
-    if kind in (1, 4):
-        (w, h), pos = _pnm_header(data, 2)
-        if kind == 4:
+    mode, at = _PNM_MODES[magic], len(magic)
+    if mode == "1":
+        (w, h), pos = _pnm_header(data, 2, at)
+        w, h = int(w), int(h)
+        if magic == b"P4":
             stride = (w + 7) // 8
             rows = np.frombuffer(data, np.uint8, h * stride, pos).reshape(h, stride)
             bits = np.unpackbits(rows, axis=1)[:, :w]
@@ -140,14 +185,22 @@ def decode_pnm(data: bytes) -> tuple[np.ndarray, int]:
             digits = b"".join(_plain_tokens(data[pos - 1:]))
             bits = np.frombuffer(digits[:w * h], np.uint8).reshape(h, w) - ord("0")
         return ((1 - bits) * 255).astype(np.uint8)[..., None], 8
-    (w, h, maxval), pos = _pnm_header(data, 3)
+    if mode == "F":
+        (w, h, scale), pos = _pnm_header(data, 3, at)
+        w, h, scale = int(w), int(h), float(scale)
+        if scale == 0.0 or not np.isfinite(scale):
+            raise ValueError("scale must be finite and non-zero")
+        v = np.frombuffer(data, "<f4" if scale < 0 else ">f4", w * h, pos).reshape(h, w)
+        return _f2l(v[::-1])[..., None], 8
+    (w, h, maxval), pos = _pnm_header(data, 3, at)
+    w, h, maxval = int(w), int(h), int(maxval)
     if not 0 < maxval < 65536:
         raise ValueError("maxval must be greater than 0 and less than 65536")
-    nch = 1 if kind in (2, 5) else 3
-    wide = nch == 1 and maxval > 255          # Pillow's mode I
+    nch = {"L": 1, "P": 1, "RGB": 3, "RGBA": 4, "CMYK": 4}[mode]
+    wide = mode == "L" and maxval > 255          # Pillow's mode I
     out_max = 65535 if wide else 255
     n = w * h * nch
-    if kind in (2, 3):
+    if magic in (b"P2", b"P3"):
         vals = np.array([int(t) for t in _plain_tokens(data[pos - 1:])[:n]], np.int64)
         if vals.size < n:
             raise ValueError("image file is truncated")
@@ -156,7 +209,12 @@ def decode_pnm(data: bytes) -> tuple[np.ndarray, int]:
         vals = np.frombuffer(data, ">u2" if maxval > 255 else np.uint8, n, pos)
         if maxval != out_max:
             vals = _scale(vals, maxval, out_max)
-    return vals.astype(np.uint16 if wide else np.uint8).reshape(h, w, nch), 16 if wide else 8
+    v = vals.astype(np.uint16 if wide else np.uint8).reshape(h, w, nch)
+    if mode == "CMYK":
+        v = _cmyk_rgb(v)
+    elif mode == "P":
+        v = np.zeros((h, w, 3), np.uint8)
+    return v, 16 if wide else 8
 
 
 def encode_pnm(arr: np.ndarray) -> bytes:
@@ -385,12 +443,21 @@ def encode_dib(arr: np.ndarray) -> bytes:
 
 _TIFF_TYPES = {1: "B", 2: "c", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
                10: "ii", 11: "f", 12: "d", 16: "Q"}
-# the compressions decode_tiff undoes, and the names of some it does not
+# the keys of Pillow 12.1's TiffImagePlugin.COMPRESSION_INFO: Image.open
+# passes any other compression on (the file is not identified)
+_PILLOW_COMPRESSIONS = frozenset({1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676,
+                                  34677, 34925, 50000, 50001})
+# the compressions decode_tiff undoes, the names of those it leaves to cv2,
+# and those Pillow's libtiff refuses at load: SGILog only takes the
+# photometrics 32844 and 32845, which OPEN_INFO lacks, and WebP is not
+# configured in it
 _TIFF_CARRIED = {1: "uncompressed", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
                  5: "LZW", 7: "JPEG", 8: "deflate", 32946: "deflate", 32773: "PackBits",
                  34925: "LZMA", 50000: "Zstandard"}
-_TIFF_OTHERS = {6: "old-style JPEG", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-                50001: "WebP"}
+_TIFF_OTHERS = {6: "old-style JPEG", 32771: "CCITT RLE-W", 32809: "ThunderScan"}
+_LIBTIFF_REFUSES = {34676: "SGILog compression with a photometric other than LogL or LogLuv",
+                    34677: "SGILog24 compression with a photometric other than LogLuv",
+                    50001: "WebP compression, which this libtiff is not configured for"}
 _PREDICTED = (5, 8, 32946, 34925, 50000)    # the codecs libtiff runs the predictor with
 _FAX = (2, 3, 4)                # CCITT RLE, Group 3, Group 4 (native/fax.cpp)
 _OWN_BIT_ORDER = (2, 3, 4, 7)   # the codecs that read FillOrder themselves (or ignore it)
@@ -498,7 +565,9 @@ def _tiff_key(bo: str, t: dict) -> tuple:
     ``TiffImagePlugin._setup`` makes it: (byte order, photometric, sample
     format ((1,) where every sample's is 1), fill order, bits per sample
     (one value for all samples, extra values dropped), extra samples)."""
-    spp = t.get(277, (1,))[0]
+    comp = t.get(259, (1,))[0]
+    photo = 6 if comp == 6 else t.get(262, (0,))[0]     # old-style JPEG is YCbCr to Pillow
+    spp = t.get(277, (3 if comp == 6 else 1,))[0]
     bits = t.get(258, (1,))
     if spp > 6:
         raise ValueError("TIFF: invalid value for samples per pixel")
@@ -511,7 +580,31 @@ def _tiff_key(bo: str, t: dict) -> tuple:
     fmt = t.get(339, (1,))
     if len(fmt) > 1 and set(fmt) == {1}:
         fmt = (1,)
-    return (bo, t.get(262, (0,))[0], fmt, t.get(266, (1,))[0], bits, t.get(338, ()))
+    return (bo, photo, fmt, t.get(266, (1,))[0], bits, t.get(338, ()))
+
+
+def tiff_unidentified(data: bytes) -> str | None:
+    """Why ``TiffImagePlugin._setup`` fails on the first image of this TIFF
+    with an error that ``Image.open`` takes as "not this format" (a
+    compression that is not a key of its COMPRESSION_INFO, no dimensions,
+    a bad sample count, a key its OPEN_INFO lacks, such as SGILog's
+    photometrics 32844 and 32845), or None where it opens the file."""
+    bo, t = _tiff_tags(data)
+    comp = t.get(259, (1,))[0]
+    if comp not in _PILLOW_COMPRESSIONS:
+        return f"compression {comp} is not one of Pillow's"
+    if 256 not in t or 257 not in t:
+        return "TIFF: missing dimensions"
+    try:
+        key = _tiff_key(bo, t)
+    except ValueError as e:
+        return str(e)
+    if key not in _OPEN_INFO:
+        _, photo, fmt, fill, bits, extra = key
+        return (f"TIFF of photometric {photo}, sample format {fmt}, fill order {fill}, {bits} "
+                f"bits and extra samples {extra}: unknown pixel mode (Pillow's OPEN_INFO has "
+                "no such key)")
+    return None
 
 
 def tiff_not_carried(data: bytes) -> tuple[str, str] | None:
@@ -519,11 +612,11 @@ def tiff_not_carried(data: bytes) -> tuple[str, str] | None:
     (which it decodes, or refuses where Pillow raises), else (what it is,
     the letter of its part of ROADMAP queue 1 item 8), which
     ``io/images.py`` hands to cv2 or names in its refusal: old-style JPEG,
-    ThunderScan, SGILog, WebP or an unknown compression, or 12-bit
-    JPEG-in-TIFF."""
+    CCITT RLE-W, ThunderScan, or 12-bit JPEG-in-TIFF.  (A file
+    :func:`tiff_unidentified` names is no TIFF to ``Image.open``.)"""
     _, t = _tiff_tags(data)
     comp = t.get(259, (1,))[0]
-    if comp not in _TIFF_CARRIED:
+    if comp not in _TIFF_CARRIED and comp not in _LIBTIFF_REFUSES:
         return f"{_TIFF_OTHERS.get(comp, f'compression {comp}')} TIFF", "c"
     if comp == 7 and any(b != 8 for b in t.get(258, (1,))):
         return f"{max(t.get(258, (1,)))}-bit JPEG-in-TIFF", "c"
@@ -1119,18 +1212,20 @@ def _jpeg_frame(blk: bytes, tables) -> tuple:
     """One strip or tile of a JPEG-in-TIFF: its frame and coefficients,
     decoded as libjpeg decodes it under libtiff (with the JPEGTables,
     leniently: a truncated or corrupt stream decodes to what libjpeg
-    recovers)."""
+    recovers); a frame whose samples are not 8-bit raises, as libtiff's
+    JPEGPreDecode does where BitsPerSample is 8."""
     if len(blk) < 2:
         raise ValueError("TIFF: an empty JPEG strip or tile")
+    head = _jpeg.frame_header(blk)
+    if head is not None and head.precision != 8:
+        raise ValueError(f"TIFF: a JPEG stream of {head.precision}-bit samples for 8-bit ones "
+                         "(libtiff: improper JPEG data precision)")
     try:
         frame, coefs = _jpeg.decode_coefficients(blk, tables, lenient=True)
     except ValueError as e:
         if "not carried" in str(e):
             raise ValueError(f"JPEG-in-TIFF: {e}") from None
         raise ValueError(f"corrupt JPEG-in-TIFF strip or tile: {e}") from None
-    if frame.smoothed:
-        raise ValueError("JPEG-in-TIFF of a progressive stream whose scans leave coefficients "
-                         f"short is not carried by the port's codec ({_png.NOT_PORTED}g)")
     return frame, coefs
 
 
@@ -1173,7 +1268,11 @@ def _jpeg_inflater(t: dict, photo: int, per: int, tw: int):
             raise ValueError(f"TIFF: JPEG sampling factors {[(c.h, c.v) for c in comps]} where "
                              f"{want} is due (libtiff: improper JPEG sampling factors)")
         _jpeg_size(frame, tw, n, last)
-        px = _jpeg.reconstruct(frame, coefs, as_stored=not ycc)
+        if ycc and frame.lossless:
+            raise ValueError("TIFF: a lossless JPEG stream in YCbCr (libjpeg converts no colours "
+                             "in lossless mode: unsupported color conversion request)")
+        # a progressive stream left short is smoothed, as libjpeg under libtiff smooths it
+        px = _jpeg.reconstruct(frame, coefs, frame.latch, as_stored=not ycc)
         return np.ascontiguousarray(px[:n, :tw]).tobytes()
     return inflate
 
@@ -1291,22 +1390,19 @@ def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
     depth 16; float samples (``F``) clamped to [0, 255] and truncated to
     uint8, as Pillow's ``convert("RGBA")`` makes them, at depth 8."""
     bo, t = _tiff_tags(data)
+    why = tiff_unidentified(data)
+    if why is not None:
+        raise ValueError(f"cannot identify image file ({why})")
     why = tiff_not_carried(data)
     if why is not None:
         raise ValueError(f"{why[0]} is not carried by the port's codec "
                          f"({_png.NOT_PORTED}{why[1]})")
-    key = _tiff_key(bo, t)
-    if key not in _OPEN_INFO:
-        _, photo, fmt, fill, bits, extra = key
-        raise ValueError(f"TIFF of photometric {photo}, sample format {fmt}, fill order "
-                         f"{fill}, {bits} bits and extra samples {extra}: unknown pixel mode "
-                         "(Pillow's OPEN_INFO has no such key)")
-    mode, raw = _OPEN_INFO[key]
-    try:
-        w, h = t[256][0], t[257][0]
-    except KeyError:
-        raise ValueError("TIFF: missing dimensions") from None
     comp = t.get(259, (1,))[0]
+    if comp in _LIBTIFF_REFUSES:
+        raise ValueError(f"TIFF of {_LIBTIFF_REFUSES[comp]}: Pillow's libtiff refuses it")
+    key = _tiff_key(bo, t)
+    mode, raw = _OPEN_INFO[key]
+    w, h = t[256][0], t[257][0]
     if comp == 1:
         v = _tiff_raw(data, t, mode, raw, key[4], w, h)
     elif key[1] == 6 and (comp != 7 or t.get(284, (1,))[0] == 2):
@@ -1334,7 +1430,7 @@ def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
             # past L, a and b at 0, which its conversion carries as alpha
             v = np.concatenate([v, np.zeros_like(v[..., :1])], -1)
     elif mode == "F":
-        v = np.where(np.isnan(v), 0, np.clip(v, 0, 255)).astype(np.uint8)
+        v = _f2l(v)
     elif mode in ("I;16", "I;16B", "I"):
         depth = 16
     return np.ascontiguousarray(v), depth

@@ -15,10 +15,18 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
   approximation, end-of-band runs) refine the same coefficient arrays a
   sequential file fills, checked as libjpeg checks them (a bad Ss, Se,
   Ah or Al is an error, a scan out of the progression's order a warning
-  only).  Colour space as libjpeg picks it: one component gray; three
-  YCbCr, or RGB under an Adobe marker with transform 0 or the component
-  IDs 'R', 'G', 'B' (without a JFIF marker); four CMYK, or YCCK under an
-  Adobe marker whose transform is not 0, which Pillow reads inverted
+  only).  A progressive file whose scans leave one of a component's first
+  ten coefficients short (an interrupted download) is smoothed as
+  libjpeg-turbo smooths it (``jdcoefct.c`` smoothing_ok and
+  decompress_smooth_data, with the latch of the last scan's Al).  Lossless
+  files (``SOF3``, Huffman DPCM, predictors 1-7, a point transform) decode
+  as ``jddiffct.c`` and ``jdlossls.c`` do, upsampled by replication and
+  converted in no colour space (a lossless file in YCbCr or YCCK raises,
+  as in Pillow).  Colour space as libjpeg picks it: one component gray;
+  three YCbCr, or RGB under an Adobe marker with transform 0, with the
+  component IDs 'R', 'G', 'B', or in a lossless file with IDs that name
+  nothing (without a JFIF marker); four CMYK, or YCCK under an Adobe
+  marker whose transform is not 0, which Pillow reads inverted
   (``CMYK;I``) and converts to RGB with ``cmyk2rgb``.
 * ``encode_jpeg(rgb)`` returns the bytes of Pillow's ``save(...,
   "JPEG")`` at its defaults: JFIF 1.01, quality 75 (the Annex K tables at
@@ -28,16 +36,17 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
 This module parses the markers and checks the tables; the entropy coding
 and the integer transforms are ``native/jpeg.cpp``, built at first use
 (``_hostbuild.py``; a failed build raises with the compiler's message).
-``not_carried(data)`` says what of a file the codec does not decode, and
-``io/images.py`` sends those to cv2 (ROADMAP queue 1, item 8):
-lossless, arithmetic-coded and 12-bit files (8e), and
-progressive files whose scans leave one of a component's first ten
-coefficients short, whose blocks libjpeg smooths (``jdcoefct.c``
-``smoothing_ok``; 8g).  A truncated or corrupt file raises
+``unidentified(frame)`` names the frames Pillow's plugin does not open
+(samples other than 8-bit, components other than 1, 3 or 4), which
+``io/images.py`` passes on; ``not_carried(data)`` says what of a file the
+codec does not decode, and ``io/images.py`` sends those to cv2 (ROADMAP
+queue 1, item 8e): arithmetic-coded and differential files, and three
+components under Adobe transform 2.  A truncated or corrupt file raises
 ``ValueError``, and so does a damaged one with a block whose IDCT leaves
 the range where libjpeg-turbo's SIMD arithmetic, which Pillow runs,
 agrees with the C version the port follows (8e).
-tests/test_torch_jpeg.py holds both directions to Pillow.
+tests/test_torch_jpeg.py and test_torch_jpeg_lossless.py hold both
+directions to Pillow.
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ import numpy as np
 from dspfun_tpu_torch import _hostbuild
 
 __all__ = ["Component", "Frame", "carries", "decode_coefficients", "decode_jpeg",
-           "encode_jpeg", "not_carried", "parse_tables", "reconstruct"]
+           "encode_jpeg", "frame_header", "not_carried", "parse_tables", "reconstruct",
+           "unidentified"]
 
 
 def _zigzag() -> tuple[int, ...]:
@@ -91,8 +101,9 @@ STD_HUFFMAN = {
 }
 
 _MAX_DIMENSION = 65500          # libjpeg's JPEG_MAX_DIMENSION
-_CARRIED = {0xC0: "baseline", 0xC1: "extended sequential", 0xC2: "progressive"}
-_NOT_CARRIED = {0xC3: "lossless", 0xC5: "differential sequential",
+_CARRIED = {0xC0: "baseline", 0xC1: "extended sequential", 0xC2: "progressive",
+            0xC3: "lossless"}
+_NOT_CARRIED = {0xC5: "differential sequential",
                 0xC6: "differential progressive", 0xC7: "differential lossless",
                 0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
                 0xCB: "arithmetic-coded lossless", 0xCD: "differential arithmetic sequential",
@@ -106,9 +117,9 @@ _ERRORS = {-1: "JPEG data ends inside a scan (truncated file)",
            -6: "out of memory",
            -7: "a damaged JPEG stream whose IDCT leaves the range in which libjpeg-turbo's "
                "SIMD and C arithmetic agree is not carried by the port's codec "
-               "(ROADMAP.md queue 1, item 8e)"}
+               "(ROADMAP.md queue 1, item 8e)",
+           -8: "bad lossless JPEG restart interval: not whole rows of MCUs (libjpeg refuses it)"}
 _GRAY, _YCC, _RGB, _CMYK, _YCCK = 0, 1, 2, 3, 4
-_SHORT = "progressive JPEG whose scans leave coefficients short (libjpeg smooths its blocks)"
 
 
 def _quality_table(base, quality: int) -> np.ndarray:
@@ -146,7 +157,14 @@ class Frame:
     mcus_x: int = 0
     mcus_y: int = 0
     colorspace: int = _YCC
-    smoothed: bool = False      # libjpeg would smooth this progressive file's blocks
+    smoothed: bool = False      # libjpeg smooths this progressive file's blocks
+    # where smoothed: per component, the Al of the last scan at zigzag
+    # positions 0-9, -1 where none came (jdcoefct.c's coef_bits_latch)
+    latch: tuple | None = None
+
+    @property
+    def lossless(self) -> bool:
+        return self.marker == 0xC3
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -203,7 +221,8 @@ def _sof(code: int, body: bytes) -> Frame:
 
 
 def _layout(frame: Frame) -> None:
-    """Block counts of each component (jdinput.c initial_setup)."""
+    """Block counts of each component (jdinput.c initial_setup; a lossless
+    file's data unit is one sample, not an 8x8 block)."""
     comps = frame.components
     if any(not (1 <= c.h <= 4 and 1 <= c.v <= 4) for c in comps):
         raise ValueError("bad JPEG sampling factors")
@@ -213,11 +232,12 @@ def _layout(frame: Frame) -> None:
     frame.vmax = max(c.v for c in comps)
     if any(frame.hmax % c.h or frame.vmax % c.v for c in comps):
         raise ValueError("fractional JPEG sampling ratios are not supported (as in libjpeg)")
-    frame.mcus_x = _ceil_div(frame.width, 8 * frame.hmax)
-    frame.mcus_y = _ceil_div(frame.height, 8 * frame.vmax)
+    unit = 1 if frame.lossless else 8
+    frame.mcus_x = _ceil_div(frame.width, unit * frame.hmax)
+    frame.mcus_y = _ceil_div(frame.height, unit * frame.vmax)
     for c in comps:
-        c.blocks_w = _ceil_div(frame.width * c.h, 8 * frame.hmax)
-        c.blocks_h = _ceil_div(frame.height * c.v, 8 * frame.vmax)
+        c.blocks_w = _ceil_div(frame.width * c.h, unit * frame.hmax)
+        c.blocks_h = _ceil_div(frame.height * c.v, unit * frame.vmax)
         c.stride, c.rows = frame.mcus_x * c.h, frame.mcus_y * c.v
 
 
@@ -261,7 +281,8 @@ def _table_bytes(table) -> bytes:
 def _colorspace(frame: Frame, jfif: bool, adobe: int | None) -> int:
     """jdapimin.c default_decompress_parms for one, three or four
     components (four: CMYK without an Adobe marker or with transform 0,
-    else YCCK)."""
+    else YCCK; three with unknown IDs: RGB in a lossless file, else
+    YCbCr)."""
     if len(frame.components) == 1:
         return _GRAY
     if len(frame.components) == 4:
@@ -271,7 +292,7 @@ def _colorspace(frame: Frame, jfif: bool, adobe: int | None) -> int:
     if adobe is not None:
         return _RGB if adobe == 0 else _YCC
     ids = tuple(c.id for c in frame.components)
-    return _RGB if ids == (82, 71, 66) else _YCC
+    return _RGB if ids == (82, 71, 66) or frame.lossless else _YCC
 
 
 class _Reader:
@@ -356,16 +377,15 @@ class _Reader:
             raise ValueError("JPEG file holds no image")
         if len(self.scanned) != len(self.frame.components):
             raise ValueError("corrupt JPEG data: a component has no scan")
-        self.frame.smoothed = self.frame.marker == 0xC2 and self._smoothing()
+        f = self.frame
+        f.smoothed = f.marker == 0xC2 and self._smoothing()
+        if f.smoothed:
+            f.latch = tuple(b for bits in self.coef_bits for b in bits[:10])
 
     def _check_carried(self) -> None:
-        f = self.frame
-        if f.precision != 8:
-            raise ValueError(f"{f.precision}-bit JPEG is not carried by the port's codec "
-                             "(ROADMAP.md queue 1, item 8e)")
-        if len(f.components) not in (1, 3, 4):
-            raise ValueError(f"JPEG of {len(f.components)} components is not carried by the "
-                             "port's codec (ROADMAP.md queue 1, item 8e)")
+        why = unidentified(self.frame)
+        if why:
+            raise ValueError(f"cannot identify image file ({why})")
 
     def _progression(self, members: list, ss: int, se: int, ah: int, al: int) -> None:
         """jdphuff.c start_pass_phuff_decoder: a bad Ss, Se, Ah or Al is
@@ -408,7 +428,9 @@ class _Reader:
         # the tables the scan's decoder reads: a sequential scan both, a
         # progressive DC band's first pass DC, its refinements none, an
         # AC band AC (jdphuff.c start_pass_phuff_decoder)
-        if not progressive:
+        if f.lossless:
+            classes = (0,)
+        elif not progressive:
             classes = (0, 1)
         elif ss == 0:
             classes = () if ah else (0,)
@@ -429,12 +451,13 @@ class _Reader:
                 if tab is None:
                     raise ValueError(f"JPEG Huffman table {('DC', 'AC')[cls]} {idx} "
                                      "is not defined")
-                if cls == 0 and any(v > 15 for v in tab[1]):   # jdhuff.c's check
-                    raise ValueError("bad JPEG Huffman table (a DC value above 15)")
+                top = 16 if f.lossless else 15                 # jdhuff.c's check
+                if cls == 0 and any(v > top for v in tab[1]):
+                    raise ValueError(f"bad JPEG Huffman table (a DC value above {top})")
                 tables[4 * cls + idx] = _table_bytes(tab)
         comps = [f.components[i] for i in members]
         for c in comps:
-            if c.qtable is None:
+            if c.qtable is None and not f.lossless:
                 if c.tq not in self.qtables:
                     raise ValueError(f"JPEG quantisation table {c.tq} is not defined")
                 c.qtable = self.qtables[c.tq].copy()
@@ -442,9 +465,14 @@ class _Reader:
             raise ValueError("JPEG sampling factors too large for an interleaved scan")
         if progressive:
             self._progression(members, ss, se, ah, al)
+        if f.lossless and not (1 <= ss <= 7 and se == 0 and ah == 0 and al < f.precision):
+            raise ValueError(f"corrupt JPEG data: bad lossless scan Ss={ss} Se={se} Ah={ah} "
+                             f"Al={al}")
         self.scanned.update(members)
         if not decode:
             return pos
+        if f.lossless:
+            return self._lossless_scan(members, body, pos, b"".join(tables[:4]), ss, al)
         if not self.coefs:
             self.coefs = [np.zeros((c.rows, c.stride, 64), np.int16) for c in f.components]
         if ns == 1:
@@ -472,36 +500,90 @@ class _Reader:
             raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
         return end.value
 
+    def _lossless_scan(self, members: list, body: bytes, pos: int, tables: bytes,
+                       predictor: int, pt: int) -> int:
+        """One scan of a lossless file: its components' samples, uint8
+        [blocks_h, blocks_w] each (the undifferenced values << pt, cut to 8
+        bits as jdlossls.c's scaler casts them)."""
+        f = self.frame
+        if not self.coefs:
+            self.coefs = [np.zeros((c.blocks_h, c.blocks_w), np.uint8) for c in f.components]
+        comps = [f.components[i] for i in members]
+        args = np.array([[c.h, c.v, c.blocks_w, c.blocks_h, t >> 4]
+                         for c, t in zip(comps, body[2:2 + 2 * len(members):2])], np.int32)
+        raw = [np.zeros((c.blocks_h, c.blocks_w), np.uint16) for c in comps]
+        ptrs = (ctypes.POINTER(ctypes.c_uint16) * len(raw))(
+            *[r.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)) for r in raw])
+        end = ctypes.c_int64(0)
+        rc = _load().jpg_decode_lossless(
+            self.data, len(self.data), pos, len(members),
+            args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), f.mcus_x, f.mcus_y, tables,
+            self.restart, predictor, pt, ptrs, ctypes.byref(end))
+        if rc:
+            raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
+        for i, r in zip(members, raw):
+            self.coefs[i] = (r.astype(np.uint32) << pt).astype(np.uint8)
+        return end.value
+
+
+def unidentified(frame: Frame) -> str | None:
+    """Why Pillow's JPEG plugin does not open a file of this frame header
+    (its SOF handler raises, so ``Image.open`` passes the file on): a
+    sample precision other than 8, or components other than 1, 3 or 4;
+    None where it opens it."""
+    if frame.precision != 8:
+        return f"Pillow's JPEG plugin cannot handle {frame.precision}-bit layers"
+    if len(frame.components) not in (1, 3, 4):
+        return f"Pillow's JPEG plugin cannot handle {len(frame.components)}-layer images"
+    return None
+
 
 def not_carried(data: bytes) -> tuple[str, str] | None:
-    """None where ``decode_jpeg`` decodes this JPEG (its SOF is SOF0,
-    SOF1 or SOF2, with 8-bit samples and one, three or four components,
-    no Adobe transform 2 (YCCK) on three, and a progressive file's scans
-    leave none of its first ten coefficients short, where libjpeg would
-    smooth the blocks); else what it is and the letter of its part of
-    ROADMAP queue 1 item 8.  A file whose headers cannot be parsed counts
-    as carried (but for what its frame header shows), so that
-    ``decode_jpeg`` names the fault."""
+    """None where ``decode_jpeg`` decodes this JPEG (its SOF is SOF0 to
+    SOF3, and three components are not under an Adobe transform 2, YCCK),
+    or raises where Pillow raises; else what it is and the letter of its
+    part of ROADMAP queue 1 item 8 (arithmetic-coded and differential
+    files, 8e).  A file whose headers cannot be parsed counts as carried
+    (but for what its frame header shows), so that ``decode_jpeg`` names
+    the fault.  Frames Pillow's plugin does not open at all (:func:`unidentified`)
+    are the caller's to pass on."""
     r = _Reader(data)
     try:
         r.run(decode=False)
-        failed = False
     except ValueError:
-        failed = True
+        pass
     f = r.frame
-    if f is None:
+    if f is None or unidentified(f):
         return None
     if f.marker in _NOT_CARRIED:
         return f"{_NOT_CARRIED[f.marker]} JPEG", "e"
-    if f.precision != 8:
-        return f"{f.precision}-bit JPEG", "e"
-    if len(f.components) not in (1, 3, 4):
-        return f"JPEG of {len(f.components)} components", "e"
     if r.adobe == 2 and len(f.components) == 3:
         return "YCCK JPEG", "e"
-    if f.smoothed and not failed:
-        return _SHORT, "g"
     return None
+
+
+def frame_header(data: bytes) -> Frame | None:
+    """The frame header of a JPEG as Pillow's plugin reads it (the first
+    SOF before the first scan), or None where there is none or the
+    markers before it cannot be parsed."""
+    if not data.startswith(b"\xff\xd8"):
+        return None
+    it = _markers(data, 2)
+    resume = None
+    try:
+        while True:
+            code, pos = it.send(resume)
+            if code in (0xD9, 0xDA):
+                return None
+            resume = None
+            if 0xD0 <= code <= 0xD7 or code in (0x01, 0xD8):
+                continue
+            body = _segment(data, pos, f"marker 0x{code:02x}")
+            resume = pos + 2 + len(body)
+            if code in _CARRIED or code in _NOT_CARRIED:
+                return _sof(code, body)
+    except (ValueError, struct.error):
+        return None
 
 
 def carries(data: bytes) -> bool:
@@ -538,7 +620,9 @@ def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
     [rows, stride, 64] in natural order (whole MCUs; blocks past the
     component's ``blocks_w`` x ``blocks_h`` are an interleaved scan's
     dummy blocks), after the last scan (``frame.smoothed``: libjpeg
-    would smooth the blocks of this progressive file).  ``tables``
+    smooths the blocks of this progressive file, with ``frame.latch``);
+    for a lossless frame, each component's samples, uint8 [blocks_h,
+    blocks_w] (its own size).  ``tables``
     (:func:`parse_tables`) are in force before the stream's own, which
     override them (an abbreviated stream, as a TIFF's strips and tiles
     hold it).  ``lenient`` decodes a sequential stream as libjpeg does
@@ -554,31 +638,53 @@ def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
     return r.frame, r.coefs
 
 
-def reconstruct(frame: Frame, coefs: list[np.ndarray], as_stored: bool = False) -> np.ndarray:
+def reconstruct(frame: Frame, coefs: list[np.ndarray], latch: tuple | None = None,
+                as_stored: bool = False) -> np.ndarray:
     """Samples uint8 [H, W, C] of the coefficients (libjpeg's islow IDCT,
-    fancy upsampling and colour conversion; no block smoothing): C = 1
-    gray, 3 RGB; four components give the RGB of Pillow's
-    ``convert("RGBA")`` of its CMYK image.  ``as_stored``: every
-    component upsampled and none converted (libjpeg's ``JCS_UNKNOWN``,
-    as libtiff reads the strips of a TIFF that is not YCbCr), C = the
-    number of components.  Raises where a block's IDCT meets a value (a
-    product or sum past 16 bits, an output past the range table's wrap)
-    that libjpeg-turbo's SIMD IDCT, which Pillow runs, holds otherwise
-    than its C version, which the port follows: only damaged streams
-    have such blocks, and Pillow's pixels of them are not the port's."""
+    fancy upsampling and colour conversion): C = 1 gray, 3 RGB; four
+    components give the RGB of Pillow's ``convert("RGBA")`` of its CMYK
+    image.  ``latch`` (a smoothed frame's ``frame.latch``): each block is
+    first smoothed as libjpeg-turbo smooths a progressive file left short
+    (``jdcoefct.c`` decompress_smooth_data); None: not smoothed.
+    ``as_stored``: every component upsampled and none converted (libjpeg's
+    ``JCS_UNKNOWN``, as libtiff reads the strips of a TIFF that is not
+    YCbCr), C = the number of components.  A lossless frame's samples
+    (``coefs``: uint8 [blocks_h, blocks_w] per component) are upsampled by
+    replication, as libjpeg does for a DCT size of 1, and not converted:
+    libjpeg refuses a lossless file in YCbCr or YCCK, and so does this.
+    Raises where a block's IDCT meets a value (a product or sum past 16
+    bits, an output past the range table's wrap) that libjpeg-turbo's SIMD
+    IDCT, which Pillow runs, holds otherwise than its C version, which the
+    port follows: only damaged streams have such blocks, and Pillow's
+    pixels of them are not the port's."""
     comps = frame.components
     n = len(comps)
     colorspace = _RGB if as_stored else frame.colorspace
     out = np.empty((frame.height, frame.width, 3 if n == 4 and not as_stored else n), np.uint8)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    if frame.lossless:
+        if colorspace in (_YCC, _YCCK):
+            raise ValueError("lossless JPEG in YCbCr or YCCK (a JFIF or Adobe marker): libjpeg "
+                             "converts no colours in lossless mode, and Pillow raises")
+        args = np.array([[c.h, c.v] for c in comps], np.int32)
+        planes = [np.ascontiguousarray(k) for k in coefs]
+        _load().jpg_lossless_pixels(n, args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                    frame.width, frame.height,
+                                    (u8 * n)(*[k.ctypes.data_as(u8) for k in planes]),
+                                    colorspace, out.ctypes.data_as(u8))
+        return out
     args = np.array([[c.h, c.v, c.stride, c.rows] for c in comps], np.int32)
     qt = np.ascontiguousarray(np.stack([c.qtable for c in comps]), np.uint16)
     ptrs = (ctypes.POINTER(ctypes.c_int16) * n)(
         *[k.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for k in coefs])
+    bits = None if latch is None else np.array(latch, np.int32)
     rc = _load().jpg_reconstruct(n, args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                                  frame.width, frame.height, ptrs,
                                  qt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
                                  colorspace,
-                                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+                                 None if bits is None else
+                                 bits.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                 out.ctypes.data_as(u8))
     if rc:
         raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
     return out
@@ -586,12 +692,10 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray], as_stored: bool = False) 
 
 def decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
     """Samples uint8 [H, W, C] (C = 1 gray, 3 RGB) and the depth 8, as
-    Pillow decodes the file (a CMYK or YCCK file as its RGB conversion)."""
+    Pillow decodes the file (a CMYK or YCCK file as its RGB conversion; a
+    progressive file left short smoothed as libjpeg-turbo smooths it)."""
     frame, coefs = decode_coefficients(data)
-    if frame.smoothed:
-        raise ValueError(f"{_SHORT} is not carried by the port's codec "
-                         "(ROADMAP.md queue 1, item 8g)")
-    return reconstruct(frame, coefs), 8
+    return reconstruct(frame, coefs, frame.latch), 8
 
 
 def _marker(code: int, body: bytes) -> bytes:
@@ -659,7 +763,15 @@ def _load() -> ctypes.CDLL:
     lib.jpg_decode_progressive.argtypes = head + [c.c_int] * 4 + [i16pp, c.POINTER(c.c_int64)]
     lib.jpg_reconstruct.restype = c.c_int
     lib.jpg_reconstruct.argtypes = [c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int, i16pp,
-                                    c.POINTER(c.c_uint16), c.c_int, c.POINTER(c.c_uint8)]
+                                    c.POINTER(c.c_uint16), c.c_int, c.POINTER(c.c_int32),
+                                    c.POINTER(c.c_uint8)]
+    lib.jpg_decode_lossless.restype = c.c_int
+    lib.jpg_decode_lossless.argtypes = head + [c.c_int, c.c_int, c.POINTER(c.POINTER(c.c_uint16)),
+                                               c.POINTER(c.c_int64)]
+    lib.jpg_lossless_pixels.restype = None
+    lib.jpg_lossless_pixels.argtypes = [c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int,
+                                        c.POINTER(c.POINTER(c.c_uint8)), c.c_int,
+                                        c.POINTER(c.c_uint8)]
     lib.jpg_encode_rgb.restype = c.c_int
     lib.jpg_encode_rgb.argtypes = [c.POINTER(c.c_uint8), c.c_int, c.c_int,
                                    c.POINTER(c.c_uint16), c.c_char_p,

@@ -44,6 +44,7 @@ enum {
   kBadTable = -5,      // a Huffman table does not form a prefix code
   kNoMemory = -6,
   kSimdRange = -7,     // a block whose IDCT libjpeg-turbo's SIMD build holds otherwise
+  kLosslessRestart = -8,  // a lossless restart interval that is not whole MCU rows
 };
 
 // ---- Huffman tables -------------------------------------------------------
@@ -587,14 +588,98 @@ bool idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
   return odd != 0;
 }
 
+// ---- block smoothing (jdcoefct.c decompress_smooth_data) -------------------
+// libjpeg-turbo smooths the blocks of a progressive file whose scans left
+// one of a component's first ten coefficients short: it estimates AC01,
+// AC10, AC20, AC11, AC02 (and, where no AC scan came at all, AC03, AC12,
+// AC21, AC30 and the DC) from the DC values of the block and its
+// neighbours, and fills each estimate into a copy of the block where the
+// coefficient is still zero and not known to full precision.
+
+// ((q << 7) +- num) / (q << 8), the magnitude clamped below 1 << al where al > 0
+inline int16_t smooth_estimate(int64_t num, int64_t q, int al) {
+  int64_t p = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+  if (al > 0 && p >= (int64_t{1} << al)) p = (int64_t{1} << al) - 1;
+  return static_cast<int16_t>(static_cast<int32_t>(num >= 0 ? p : -p));
+}
+
+// The smoothed copy of one block.  dc[5][5]: the stored DC values of the
+// block's neighbourhood (rows -2..2, columns -2..2, the edge repeated);
+// q: the component's quantisation table (natural order); bits: the latch
+// (the Al of the last scan at zigzag positions 0-9, -1 where none came).
+void smooth_block(const int16_t* in, const int (&dc)[5][5], const uint16_t* q,
+                  const int32_t* bits, bool change_dc, int16_t* ws) {
+  std::memcpy(ws, in, 64 * sizeof(int16_t));
+  const int64_t Q00 = q[0];
+  const int DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2], DC04 = dc[0][3], DC05 = dc[0][4];
+  const int DC06 = dc[1][0], DC07 = dc[1][1], DC08 = dc[1][2], DC09 = dc[1][3], DC10 = dc[1][4];
+  const int DC11 = dc[2][0], DC12 = dc[2][1], DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4];
+  const int DC16 = dc[3][0], DC17 = dc[3][1], DC18 = dc[3][2], DC19 = dc[3][3], DC20 = dc[3][4];
+  const int DC21 = dc[4][0], DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3], DC25 = dc[4][4];
+  // zigzag position, natural position, and the sum of weighted DC values
+  auto fill = [&](int zz, int pos, int64_t sum) {
+    if (bits[zz] != 0 && ws[pos] == 0) ws[pos] = smooth_estimate(Q00 * sum, q[pos], bits[zz]);
+  };
+  if (change_dc) {
+    fill(1, 1, -DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+                   3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+                   13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25);
+    fill(2, 8, -DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+                   13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                   3 * DC22 + 3 * DC23 + 3 * DC24 + DC25);
+    fill(3, 16, DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+                    2 * DC17 + 7 * DC18 + 2 * DC19 + DC23);
+    fill(4, 9, -DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25);
+    fill(5, 2, 2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+                   2 * DC17 - 5 * DC18 + 2 * DC19);
+    fill(6, 3, DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+    fill(7, 10, DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+    fill(8, 17, DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+    fill(9, 24, DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+    // the DC re-estimated from its 5x5 neighbourhood (weights summing to 256)
+    ws[0] = smooth_estimate(
+        Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+               42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 -
+               8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 -
+               6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+        Q00, 0);
+  } else {
+    fill(1, 1, -7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15);
+    fill(2, 8, -7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23);
+    fill(3, 16, -DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23);
+    fill(4, 9, DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+                   10 * DC07 - 10 * DC09);
+    fill(5, 2, -DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15);
+  }
+}
+
+// The block rows decompress_smooth_data reads as the rows -2, -1, +1, +2 of
+// block row `row` of a component with v block rows per iMCU row, bh rows
+// that hold the image and `imcu_rows` iMCU rows.  libjpeg-turbo counts the
+// rows of the last iMCU row (bh % v, or v) into its edge tests for that row
+// alone, so a row of an earlier iMCU row may read the padding rows of the
+// last one (an interleaved scan's dummy blocks), and a row of the last one
+// stops short of rows that exist.
+void smooth_rows(int64_t row, int v, int64_t bh, int64_t imcu_rows, int64_t out[4]) {
+  const int64_t last = imcu_rows - 1, r = row / v, b = row % v;
+  const int64_t block_rows = r < last ? v : (bh % v ? bh % v : v);
+  const int64_t ib = r * block_rows + b, ibs = block_rows * imcu_rows;
+  out[1] = ib > 0 ? row - 1 : row;
+  out[0] = ib > 1 ? row - 2 : out[1];
+  out[2] = ib < ibs - 1 ? row + 1 : row;
+  out[3] = ib < ibs - 2 ? row + 2 : out[2];
+}
+
 // One component's samples [ph, pw] (ph, pw: its downsampled height and
 // width, the rest of its blocks cropped) brought to [H, W] as
 // jdsample.c brings them: the fancy filters where libjpeg picks them,
 // replication otherwise.  Neighbours past an edge are the edge sample,
 // as jdmainct.c's context rows and the filters' end columns make them.
+// Without `fancy` (a lossless file, whose DCT size of 1 turns libjpeg's
+// fancy upsampling off), replication only.
 void upsample(const uint8_t* in, int64_t istride, int ph, int pw, int hexp, int vexp,
-              uint8_t* out, int H, int W) {
-  bool h2 = hexp == 2 && pw > 2;
+              uint8_t* out, int H, int W, bool fancy = true) {
+  bool h2 = fancy && hexp == 2 && pw > 2;
   if (hexp == 1 && vexp == 1) {
     for (int y = 0; y < H; y++) std::memcpy(out + static_cast<int64_t>(y) * W, in + y * istride, W);
   } else if (h2 && vexp == 1) {  // h2v1_fancy_upsample
@@ -607,7 +692,7 @@ void upsample(const uint8_t* in, int64_t istride, int ph, int pw, int hexp, int 
         op[x] = static_cast<uint8_t>((ip[i] * 3 + nb + 1 + (x & 1)) >> 2);
       }
     }
-  } else if (hexp == 1 && vexp == 2) {  // h1v2_fancy_upsample
+  } else if (fancy && hexp == 1 && vexp == 2) {  // h1v2_fancy_upsample
     for (int y = 0; y < H; y++) {
       int i = y >> 1;
       int j = (y & 1) ? (i + 1 < ph ? i + 1 : i) : (i > 0 ? i - 1 : 0);
@@ -658,6 +743,76 @@ struct YccTables {
   }
 };
 const YccTables kYcc;
+
+// The output samples of the components brought to full size (full[ci],
+// [H * W]): jdcolor.c's conversion for colorspace 1 (YCbCr) and 4 (YCCK,
+// then CMYK as 3), Pillow's CMYK;I read and cmyk2rgb for 3 and 4 (three
+// RGB samples a pixel), the components interleaved as they are otherwise.
+void convert(int ncomp, const std::vector<std::vector<uint8_t>>& full, int64_t npx,
+             int colorspace, uint8_t* out) {
+  if (colorspace == 1) {
+    const uint8_t *y = full[0].data(), *cb = full[1].data(), *cr = full[2].data();
+    for (int64_t i = 0; i < npx; i++) {
+      int yy = y[i];
+      out[3 * i] = clamp255(yy + kYcc.cr_r[cr[i]]);
+      out[3 * i + 1] = clamp255(yy + static_cast<int>((kYcc.cb_g[cb[i]] + kYcc.cr_g[cr[i]]) >> 16));
+      out[3 * i + 2] = clamp255(yy + kYcc.cb_b[cb[i]]);
+    }
+  } else if (colorspace == 3 || colorspace == 4) {
+    const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data(),
+                  *c3 = full[3].data();
+    for (int64_t i = 0; i < npx; i++) {
+      int cmy[3] = {c0[i], c1[i], c2[i]};
+      if (colorspace == 4) {
+        int yy = c0[i];
+        cmy[0] = 255 - clamp255(yy + kYcc.cr_r[c2[i]]);
+        cmy[1] = 255 - clamp255(yy + static_cast<int>((kYcc.cb_g[c1[i]] + kYcc.cr_g[c2[i]]) >> 16));
+        cmy[2] = 255 - clamp255(yy + kYcc.cb_b[c1[i]]);
+      }
+      int nk = c3[i];                   // 255 - (255 - K): Pillow's inverted K
+      for (int k = 0; k < 3; k++) {
+        int t = (255 - cmy[k]) * nk + 128;
+        out[3 * i + k] = static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
+      }
+    }
+  } else {
+    for (int ci = 0; ci < ncomp; ci++) {
+      const uint8_t* p = full[ci].data();
+      for (int64_t i = 0; i < npx; i++) out[ncomp * i + ci] = p[i];
+    }
+  }
+}
+
+// ---- lossless scans (jdlhuff.c, jddiffct.c, jdlossls.c) ------------------
+
+// One row of a component undifferenced (jdlossls.c): modulo 2^16, the
+// first row of the scan or of a restart interval from Ra (its first
+// sample from `initial`), any other row's first sample from Rb and the rest
+// from the scan's predictor 1-7.
+void undifference(const int32_t* d, const uint16_t* prev, uint16_t* out, int64_t w,
+                  int predictor, bool first, int initial) {
+  int ra = (d[0] + (first ? initial : prev[0])) & 0xFFFF;
+  out[0] = static_cast<uint16_t>(ra);
+  if (first) {
+    for (int64_t x = 1; x < w; x++) out[x] = static_cast<uint16_t>(ra = (d[x] + ra) & 0xFFFF);
+    return;
+  }
+  int rb = prev[0];
+  for (int64_t x = 1; x < w; x++) {
+    int rc = rb, p;
+    rb = prev[x];
+    switch (predictor) {
+      case 1: p = ra; break;
+      case 2: p = rb; break;
+      case 3: p = rc; break;
+      case 4: p = ra + rb - rc; break;
+      case 5: p = ra + ((rb - rc) >> 1); break;
+      case 6: p = rb + ((ra - rc) >> 1); break;
+      default: p = (ra + rb) >> 1; break;
+    }
+    out[x] = static_cast<uint16_t>(ra = (d[x] + p) & 0xFFFF);
+  }
+}
 
 // ---- forward path ------------------------------------------------------------
 
@@ -949,6 +1104,133 @@ int jpg_decode_progressive(const uint8_t* data, int64_t len, int64_t pos, int nc
   return err;
 }
 
+// Decode one scan of a lossless file (SOF3, Huffman): the differences of
+// every MCU (category 16: 32768 with no extra bits), then each component's
+// rows undifferenced and their dummy samples dropped, as jddiffct.c does an
+// iMCU row at a time.
+//   comps: per component of the scan, 5 ints: h, v (its sampling factors),
+//          width_in_blocks and height_in_blocks (samples: the component's
+//          own size), its DC table (0-3);
+//   mcus_x, mcus_y: MCUs per row and rows of MCUs of an interleaved scan
+//          (ignored for one component: its samples are the MCUs);
+//   tables, restart: as jpg_decode_scan's (restart: MCUs per interval,
+//          which must be whole rows of MCUs);
+//   predictor 1-7 (Ss), pt the point transform (Al);
+//   samples: per component, uint16 [height_in_blocks][width_in_blocks],
+//          the undifferenced values (before the shift by pt).
+// A restart resets the predictors of the rows undifferenced next: the
+// first row of each component in the iMCU row (v rows of a one-component
+// scan) it falls in.  Returns 0 and *end, or a negative code.
+int jpg_decode_lossless(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
+                        const int32_t* comps, int mcus_x, int mcus_y, const uint8_t* tables,
+                        int restart, int predictor, int pt, uint16_t* const* samples,
+                        int64_t* end) {
+  DecodeTable* dts = new (std::nothrow) DecodeTable[4];
+  if (!dts) return kNoMemory;
+  int err = kOk;
+  bool used[4] = {};
+  for (int ci = 0; ci < ncomp; ci++) used[comps[5 * ci + 4] & 3] = true;
+  for (int i = 0; i < 4 && !err; i++)
+    if (used[i]) err = make_decode_table(tables + 272 * i, &dts[i]);
+  const bool single = ncomp == 1;
+  const int64_t per_row = single ? comps[2] : mcus_x;     // MCUs in a row
+  const int64_t mcu_rows = single ? comps[3] : mcus_y;
+  const int64_t group = single ? comps[1] : 1;            // MCU rows in an iMCU row
+  if (!err && restart % per_row) err = kLosslessRestart;
+  // per component: the width and rows of its differences in one iMCU row
+  int64_t dw[4], dr[4];
+  std::vector<std::vector<int32_t>> diff(ncomp);
+  for (int ci = 0; ci < ncomp && !err; ci++) {
+    const int32_t* c = comps + 5 * ci;
+    dw[ci] = single ? c[2] : static_cast<int64_t>(mcus_x) * c[0];
+    dr[ci] = c[1];
+    diff[ci].assign(static_cast<size_t>(dw[ci] * dr[ci]), 0);
+  }
+  BitReader br{data, len, pos};
+  const int initial = 1 << (8 - pt - 1);
+  bool first[4] = {true, true, true, true};
+  int64_t rows_left = restart / per_row;
+  int next_rst = 0;
+  for (int64_t g = 0; g * group < mcu_rows && !err; g++) {
+    const int64_t n = std::min(group, mcu_rows - g * group);
+    for (int64_t yo = 0; yo < n && !err; yo++) {
+      if (restart && rows_left == 0) {
+        int64_t m = next_marker(data, len, br.end());
+        if (m < 0) {
+          err = kTruncated;
+          break;
+        }
+        if (data[m] != 0xD0 + next_rst) {
+          br.restart(m);
+          err = kBadRestart;
+          break;
+        }
+        br.restart(m + 1);
+        next_rst = (next_rst + 1) & 7;
+        rows_left = restart / per_row;
+        for (bool& f : first) f = true;
+      }
+      for (int64_t mx = 0; mx < per_row && !err; mx++)
+        for (int ci = 0; ci < ncomp && !err; ci++) {
+          const int32_t* c = comps + 5 * ci;
+          const int h = single ? 1 : c[0], v = single ? 1 : c[1];
+          for (int by = 0; by < v && !err; by++)
+            for (int bx = 0; bx < h && !err; bx++) {
+              int s;
+              int32_t r = 0;
+              if ((err = br.decode(dts[c[4] & 3], &s))) break;
+              if (s == 16) {
+                r = 32768;
+              } else if (s) {
+                if ((err = br.get(s, &r))) break;
+                r = extend(r, s);
+              }
+              diff[ci][(single ? yo : by) * dw[ci] + mx * h + bx] = r;
+            }
+        }
+      rows_left--;
+    }
+    // undifference the rows of this iMCU row that hold the image
+    for (int ci = 0; ci < ncomp && !err; ci++) {
+      const int32_t* c = comps + 5 * ci;
+      const int64_t w = c[2], bh = c[3];
+      for (int64_t k = 0; k < (single ? n : c[1]); k++) {
+        const int64_t row = (single ? g * group : g * c[1]) + k;
+        if (row >= bh) break;
+        uint16_t* o = samples[ci] + row * w;
+        undifference(diff[ci].data() + k * dw[ci], row ? o - w : o, o, w, predictor, first[ci],
+                     initial);
+        first[ci] = false;
+      }
+    }
+  }
+  *end = br.end();
+  delete[] dts;
+  return err;
+}
+
+// The output samples of a lossless file from each component's samples
+// (uint8 [ph][pw], its own size): brought to full size by replication and
+// converted as jpg_reconstruct converts (comps: h, v per component;
+// colorspace 0 gray, 2 RGB, 3 CMYK).
+void jpg_lossless_pixels(int ncomp, const int32_t* comps, int width, int height,
+                         const uint8_t* const* planes, int colorspace, uint8_t* out) {
+  int hmax = 1, vmax = 1;
+  for (int ci = 0; ci < ncomp; ci++) {
+    hmax = std::max(hmax, static_cast<int>(comps[2 * ci]));
+    vmax = std::max(vmax, static_cast<int>(comps[2 * ci + 1]));
+  }
+  std::vector<std::vector<uint8_t>> full(ncomp);
+  for (int ci = 0; ci < ncomp; ci++) {
+    const int h = comps[2 * ci], v = comps[2 * ci + 1];
+    const int pw = static_cast<int>((static_cast<int64_t>(width) * h + hmax - 1) / hmax);
+    const int ph = static_cast<int>((static_cast<int64_t>(height) * v + vmax - 1) / vmax);
+    full[ci].resize(static_cast<size_t>(width) * height);
+    upsample(planes[ci], pw, ph, pw, hmax / h, vmax / v, full[ci].data(), height, width, false);
+  }
+  convert(ncomp, full, static_cast<int64_t>(width) * height, colorspace, out);
+}
+
 // Samples of the decoded image from every component's coefficients.
 //   comps: per component, 4 ints: h, v (sampling factors), the row
 //          stride of its coefficient array in blocks, its rows of blocks;
@@ -960,32 +1242,64 @@ int jpg_decode_progressive(const uint8_t* data, int64_t len, int64_t pos, int nc
 //        through ycc_rgb_convert's tables, then 255 - x; K as stored), each
 //        sample inverted as Pillow's CMYK;I rawmode reads it, then RGB by
 //        Pillow's cmyk2rgb: nk - MULDIV255(x, nk) with nk = 255 - K.
+//   latch: null, or per component 10 ints, the Al of the last scan at
+//        zigzag positions 0-9 (-1 where none came): each block is then
+//        smoothed first (smooth_block), as libjpeg-turbo does where its
+//        smoothing_ok holds (the caller decides that).
+// Only the blocks that hold the image are transformed, as in libjpeg.
 // Returns 0, or kSimdRange where a block's IDCT met a value that
 // libjpeg-turbo's SIMD build, which Pillow runs, holds otherwise than its C
 // version (idct_islow): the pixels would differ from Pillow's.
 int jpg_reconstruct(int ncomp, const int32_t* comps, int width, int height,
                     const int16_t* const* coefs, const uint16_t* qtables, int colorspace,
-                    uint8_t* out) {
+                    const int32_t* latch, uint8_t* out) {
   int hmax = 1, vmax = 1;
   for (int ci = 0; ci < ncomp; ci++) {
     if (comps[4 * ci] > hmax) hmax = comps[4 * ci];
     if (comps[4 * ci + 1] > vmax) vmax = comps[4 * ci + 1];
   }
+  const int64_t imcu_rows = (static_cast<int64_t>(height) + 8 * vmax - 1) / (8 * vmax);
   std::vector<std::vector<uint8_t>> full(ncomp);
   std::vector<uint8_t> plane;
   for (int ci = 0; ci < ncomp; ci++) {
     const int32_t* c = comps + 4 * ci;
     int h = c[0], v = c[1];
-    int64_t bw = c[2], bh = c[3];
+    const int64_t stride_blocks = c[2];
+    // jdinput.c: width_in_blocks, height_in_blocks
+    const int64_t bw = (static_cast<int64_t>(width) * h + 8 * hmax - 1) / (8 * hmax);
+    const int64_t bh = (static_cast<int64_t>(height) * v + 8 * vmax - 1) / (8 * vmax);
     int64_t stride = bw * 8;
     plane.assign(static_cast<size_t>(stride * bh * 8), 0);
+    const uint16_t* qt = qtables + 64 * ci;
     int16_t q[64];
-    for (int i = 0; i < 64; i++) q[i] = static_cast<int16_t>(qtables[64 * ci + i]);
+    for (int i = 0; i < 64; i++) q[i] = static_cast<int16_t>(qt[i]);
+    const int16_t* k = coefs[ci];
+    const int32_t* bits = latch ? latch + 10 * ci : nullptr;
+    bool change_dc = bits != nullptr;
+    for (int i = 1; bits && i < 10; i++) change_dc &= bits[i] == -1;
     bool odd = false;
-    for (int64_t by = 0; by < bh; by++)
-      for (int64_t bx = 0; bx < bw; bx++)
-        odd |= idct_islow(coefs[ci] + (by * bw + bx) * 64, q,
-                          plane.data() + by * 8 * stride + bx * 8, static_cast<int>(stride));
+    int16_t ws[64];
+    for (int64_t by = 0; by < bh; by++) {
+      int64_t rows[4];
+      smooth_rows(by, v, bh, imcu_rows, rows);
+      const int16_t* r5[5] = {k + rows[0] * stride_blocks * 64, k + rows[1] * stride_blocks * 64,
+                              k + by * stride_blocks * 64, k + rows[2] * stride_blocks * 64,
+                              k + rows[3] * stride_blocks * 64};
+      for (int64_t bx = 0; bx < bw; bx++) {
+        const int16_t* blk = r5[2] + bx * 64;
+        if (bits) {
+          int dc[5][5];
+          for (int j = 0; j < 5; j++) {
+            int64_t x = std::min(std::max(bx + j - 2, int64_t{0}), bw - 1);
+            for (int i = 0; i < 5; i++) dc[i][j] = r5[i][x * 64];
+          }
+          smooth_block(blk, dc, qt, bits, change_dc, ws);
+          blk = ws;
+        }
+        odd |= idct_islow(blk, q, plane.data() + by * 8 * stride + bx * 8,
+                          static_cast<int>(stride));
+      }
+    }
     if (odd) return kSimdRange;
     // jdmaster.c: the component's own size, rounded up
     int pw = static_cast<int>((static_cast<int64_t>(width) * h + hmax - 1) / hmax);
@@ -993,38 +1307,7 @@ int jpg_reconstruct(int ncomp, const int32_t* comps, int width, int height,
     full[ci].resize(static_cast<size_t>(width) * height);
     upsample(plane.data(), stride, ph, pw, hmax / h, vmax / v, full[ci].data(), height, width);
   }
-  int64_t npx = static_cast<int64_t>(width) * height;
-  if (colorspace == 1) {
-    const uint8_t *y = full[0].data(), *cb = full[1].data(), *cr = full[2].data();
-    for (int64_t i = 0; i < npx; i++) {
-      int yy = y[i];
-      out[3 * i] = clamp255(yy + kYcc.cr_r[cr[i]]);
-      out[3 * i + 1] = clamp255(yy + static_cast<int>((kYcc.cb_g[cb[i]] + kYcc.cr_g[cr[i]]) >> 16));
-      out[3 * i + 2] = clamp255(yy + kYcc.cb_b[cb[i]]);
-    }
-  } else if (colorspace == 3 || colorspace == 4) {
-    const uint8_t *c0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data(),
-                  *c3 = full[3].data();
-    for (int64_t i = 0; i < npx; i++) {
-      int cmy[3] = {c0[i], c1[i], c2[i]};
-      if (colorspace == 4) {
-        int yy = c0[i];
-        cmy[0] = 255 - clamp255(yy + kYcc.cr_r[c2[i]]);
-        cmy[1] = 255 - clamp255(yy + static_cast<int>((kYcc.cb_g[c1[i]] + kYcc.cr_g[c2[i]]) >> 16));
-        cmy[2] = 255 - clamp255(yy + kYcc.cb_b[c1[i]]);
-      }
-      int nk = c3[i];                   // 255 - (255 - K): Pillow's inverted K
-      for (int k = 0; k < 3; k++) {
-        int t = (255 - cmy[k]) * nk + 128;
-        out[3 * i + k] = static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
-      }
-    }
-  } else {
-    for (int ci = 0; ci < ncomp; ci++) {
-      const uint8_t* p = full[ci].data();
-      for (int64_t i = 0; i < npx; i++) out[ncomp * i + ci] = p[i];
-    }
-  }
+  convert(ncomp, full, static_cast<int64_t>(width) * height, colorspace, out);
   return kOk;
 }
 

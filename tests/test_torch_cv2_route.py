@@ -3,21 +3,26 @@
 package, which reads them through Pillow.
 
 Every kind Pillow writes here that goes to cv2 is read with cv2
-importable: the JPEGs the codec leaves to cv2 (progressive files whose
-scans leave coefficients short, three components under Adobe transform
-2, and files whose frame header names arithmetic coding, 12 bits or
-lossless coding).  Each is either read to the JAX package's pixels and
-depth, or raises where the JAX package raises, or is refused with cv2
-present (a ``ValueError`` naming its part of ROADMAP queue 1, item 8)
-because cv2 reads it to other pixels (CMYK, LAB, 32-bit and float
-samples, alpha) or cannot decode it.  The kinds of ``OWN_CODEC``
-(JPEG-in-TIFF, CCITT group 3 and 4, uncompressed YCbCr and LAB; WebP,
-RGB and RGBA, lossy and lossless; LZMA and Zstandard TIFF, which this
-cv2 decodes neither of) went to cv2 until the port's codecs carried
-them: their cases now hold the port's own decoder to the JAX package.
+importable: the JPEGs the codec leaves to cv2 (three components under
+Adobe transform 2, and files whose frame header names arithmetic
+coding).  Each is either read to the JAX package's pixels and depth, or
+raises where the JAX package raises, or is refused with cv2 present (a
+``ValueError`` naming its part of ROADMAP queue 1, item 8) because cv2
+reads it to other pixels (CMYK, LAB, 32-bit and float samples, alpha) or
+cannot decode it.  The kinds of ``OWN_CODEC`` (JPEG-in-TIFF, CCITT group
+3 and 4, uncompressed YCbCr and LAB; WebP, RGB and RGBA, lossy and
+lossless; LZMA and Zstandard TIFF, which this cv2 decodes neither of;
+progressive JPEG left short and lossless JPEG) went to cv2 until the
+port's codecs carried them: their cases now hold the port's own decoder
+to the JAX package.  ``UNIDENTIFIED`` went to cv2 too, but Pillow does
+not open them at all (a 12-bit JPEG frame; TIFFs of a compression that
+is not a key of its ``COMPRESSION_INFO``, or of SGILog's photometrics):
+the port raises "cannot identify image file" as the JAX package does,
+with the real cv2 importable.
 """
 
 import io
+import sys
 
 import numpy as np
 import pytest
@@ -78,6 +83,25 @@ def _jpeg_cases():
             "lossless SOF": patched(sof + 1, 0xC3)}
 
 
+def _hand_tiff(compression, photometric, bits=8):
+    """A 4x2 one-sample strip TIFF written by hand, its data zeros."""
+    from tests import torch_codec_fixtures as fx
+
+    tags = {256: (4, [4]), 257: (4, [2]), 258: (3, [bits]), 259: (3, [compression]),
+            262: (3, [photometric]), 273: (4, []), 277: (3, [1]), 278: (4, [2]),
+            279: (4, [8 * bits // 8])}
+    return fx._assemble([bytes(8 * bits // 8)], tags, "<")
+
+
+def _tiff_jpeg_12bit():
+    """A JPEG-in-TIFF whose stream's frame says 12-bit samples."""
+    from tests import torch_codec_fixtures as fx
+
+    data = bytearray(fx.make_tiff(fx.levels((16, 24), 3), "RGB", compression=7))
+    data[data.index(b"\xff\xc0") + 4] = 12
+    return bytes(data)
+
+
 # name -> (bytes maker, whether the port refuses it with cv2 present)
 CASES = {
     **{f"TIFF {m} JPEG": (lambda m=m: _tiff(m, "jpeg"), m == "CMYK")
@@ -96,11 +120,22 @@ CASES = {
     **{f"WebP {m} {'lossless' if ll else 'lossy'}":
        (lambda m=m, ll=ll: _save(Image.fromarray(_levels()).convert(m), "WEBP", lossless=ll),
         False) for m in ("RGB", "RGBA") for ll in (False, True)},
+    # F1: Pillow does not identify these; the port once handed them to cv2
+    **{f"TIFF compression {c} photometric {p}": (lambda c=c, p=p: _hand_tiff(c, p), False)
+       for c in (34712, 34933) for p in (0, 1)},
+    **{f"TIFF SGILog photometric {p}": (lambda p=p: _hand_tiff(34676, p, 16), False)
+       for p in (32844, 32845)},
+    "TIFF SGILog24 photometric 32845": (lambda: _hand_tiff(34677, 32845, 32), False),
+    "TIFF JPEG of a 12-bit frame": (_tiff_jpeg_12bit, False),
 }
 # the cases whose kind the port's own codec now carries
 OWN_CODEC = {"TIFF RGB JPEG", "TIFF L JPEG", "TIFF YCbCr JPEG", "TIFF CMYK JPEG", "TIFF 1 group3",
              "TIFF 1 group4", "TIFF YCbCr uncompressed", "TIFF LAB uncompressed",
-             *(n for n in CASES if n.startswith("WebP") or "LZMA" in n or "Zstandard" in n)}
+             "TIFF JPEG of a 12-bit frame",
+             *(n for n in CASES if n.startswith("WebP") or "LZMA" in n or "Zstandard" in n),
+             "progressive, DC only", "progressive without its last scan", "lossless SOF"}
+# the cases Pillow does not open at all: "cannot identify image file" in both
+UNIDENTIFIED = {"12-bit SOF", *(n for n in CASES if "photometric" in n)}
 JPEG_CASES = ["progressive, DC only", "progressive without its last scan",
               "three components, Adobe transform 2", "arithmetic SOF", "12-bit SOF",
               "lossless SOF"]
@@ -131,10 +166,31 @@ def _check(tmp_path, data, refused, suffix):
         np.testing.assert_array_equal(t.pixels, j.pixels)
 
 
+def _unidentified(tmp_path, data, suffix, monkeypatch):
+    """Both packages raise "cannot identify image file", with the real cv2
+    importable and with it blocked (no numpy dtype error)."""
+    path = tmp_path / f"in.{suffix}"
+    path.write_bytes(data)
+    with pytest.raises(OSError, match="cannot identify image file"):
+        jimages.read_image(str(path))
+    for blocked in (False, True):
+        with monkeypatch.context() as mp:
+            if blocked:
+                mp.setitem(sys.modules, "cv2", None)
+            else:
+                assert sys.modules.get("cv2") is cv2
+            with pytest.raises(ValueError, match="cannot identify image file") as e:
+                timages.read_image(str(path))
+        assert "dtype" not in str(e.value)
+
+
 @pytest.mark.parametrize("name", list(CASES))
-def test_what_goes_to_cv2_reads_as_the_jax_package_or_is_refused(name, tmp_path):
+def test_what_goes_to_cv2_reads_as_the_jax_package_or_is_refused(name, tmp_path, monkeypatch):
     make, refused = CASES[name]
     data = make()
+    if name in UNIDENTIFIED:
+        _unidentified(tmp_path, data, "tif", monkeypatch)
+        return
     if name in OWN_CODEC:
         webp_case = name.startswith("WebP")
         own = webp.decode_webp if webp_case else imgcodecs.decode_tiff
@@ -146,7 +202,20 @@ def test_what_goes_to_cv2_reads_as_the_jax_package_or_is_refused(name, tmp_path)
 
 
 @pytest.mark.parametrize("name", JPEG_CASES)
-def test_jpegs_left_to_cv2_read_as_the_jax_package(name, tmp_path):
+def test_jpegs_left_to_cv2_read_as_the_jax_package(name, tmp_path, monkeypatch):
+    """The JPEG kinds that went to cv2: those the port's codec now carries
+    (progressive files left short; a baseline file whose SOF says lossless,
+    now a corrupt lossless stream that both packages refuse) through
+    ``decode_jpeg``, a 12-bit frame refused by both as unidentified, and
+    the rest still through cv2."""
     data = _jpeg_cases()[name]
-    assert timages._decoder(data).__name__ == "<lambda>"
+    if name in UNIDENTIFIED:
+        _unidentified(tmp_path, data, "jpg", monkeypatch)
+        return
+    if name in OWN_CODEC:
+        from dspfun_tpu_torch.io import jpeg
+
+        assert timages._decoder(data) is jpeg.decode_jpeg
+    else:
+        assert timages._decoder(data).__name__ == "<lambda>"
     _check(tmp_path, data, False, "jpg")

@@ -7,7 +7,8 @@ JAX package, which reads and writes them through Pillow.
 * Reads: every file gives ``dspfun_tpu.io.images.read_image``'s pixels
   and depth exactly (JPEG, GIF, WebP and compressed TIFF through the
   port's own codecs, tests/test_torch_jpeg.py, test_torch_gif.py,
-  test_torch_webp.py and test_torch_tiff.py).
+  test_torch_webp.py and test_torch_tiff.py), Pillow's other PPM headers
+  (PFM, P0CMYK, PyP, PyRGBA, PyCMYK) too; ``PF`` raises in both.
 * Writes: PNM, BMP, uncompressed TIFF (but 16-bit gray, which Pillow
   decodes to the same image), JPEG, GIF and WebP equal the JAX package's
   bytes for the same pixels.
@@ -154,6 +155,68 @@ def test_pnm_reads_as_pillow_reads_it(magic, maxval, tmp_path):
     c = 3 if magic in ("P3", "P6") else 1
     vals = rng.integers(0, (maxval or 1) + 1, (h, w * c))
     _same_read(_pnm(magic, w, h, maxval, vals), tmp_path)
+
+
+def _pfm(vals, scale, order, magic=b"Pf"):
+    """A PFM: rows stored bottom-up, float32 in the byte order ``order``."""
+    h, w = vals.shape
+    return magic + b"\n%d %d\n%s\n" % (w, h, scale.encode()) \
+        + np.ascontiguousarray(vals[::-1], order + "f4").tobytes()
+
+
+def _other_pnms():
+    """Pillow's other PpmImagePlugin headers (F2), each a file name and its
+    bytes: PFM of mode F written by Pillow and by hand in either byte
+    order (values past 0 and 255, NaN and infinities), P0CMYK, PyCMYK,
+    PyP and PyRGBA at maxval 255 and at maxvals Pillow scales."""
+    rng = np.random.default_rng(3)
+    h, w = 6, 9
+    f = rng.normal(120, 150, (h, w)).astype(np.float32)
+    f[0, :3] = (np.nan, np.inf, -np.inf)
+    buf = io.BytesIO()
+    Image.fromarray(f).save(buf, "PPM")
+    out = {"PFM by Pillow": buf.getvalue(),
+           "PFM little-endian": _pfm(f, "-2.5", "<"),
+           "PFM big-endian": _pfm(f, "1.0", ">"),
+           "PFM with a comment": _pfm(f, "0.5", ">").replace(b"\n", b"\n# note\n", 1)}
+    for magic, bands in ((b"P0CMYK", 4), (b"PyCMYK", 4), (b"PyRGBA", 4), (b"PyP", 1)):
+        for maxval in (255, 100, 1000):
+            v = rng.integers(0, maxval + 1, (h, w * bands))
+            body = v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+            out[f"{magic.decode()} maxval {maxval}"] = \
+                magic + b"\n%d %d\n%d\n" % (w, h, maxval) + body
+    return out
+
+
+@pytest.mark.parametrize("name", list(_other_pnms()))
+def test_other_ppm_headers_read_as_pillow_reads_them(name, tmp_path, monkeypatch):
+    """Pf (PFM: F clamped and truncated to 8 bits as Pillow's
+    ``convert("RGBA")`` makes it), P0CMYK and PyCMYK (``cmyk2rgb``),
+    PyRGBA and PyP (a palette image with no palette: black), with cv2
+    importable and blocked: the port's decode_pnm takes each."""
+    data = _other_pnms()[name]
+    assert timages._decoder(data) is imgcodecs.decode_pnm
+    _same_read(data, tmp_path, channels=("RGB", "RGBA", "I"))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    _same_read(data, tmp_path, channels=("RGBA",))
+
+
+@pytest.mark.parametrize("name", ["PF", "P6 without whitespace", "Pf of zero scale",
+                                  "P0CMYK cut short"])
+def test_ppm_headers_pillow_refuses(name, tmp_path):
+    """Colour PFM (``PF``, not among Pillow's magic numbers) and a magic
+    number run into its width (``P6x``) are not identified; a zero PFM
+    scale and truncated data raise: in both packages."""
+    f = np.ones((2, 3), np.float32)
+    data = {"PF": _pfm(np.repeat(f, 3, 1), "-1.0", "<", b"PF"),
+            "P6 without whitespace": b"P6x\n1 1\n255\n" + bytes(3),
+            "Pf of zero scale": _pfm(f, "0.0", "<"),
+            "P0CMYK cut short": b"P0CMYK\n3 2\n255\n" + bytes(10)}[name]
+    path = _put(tmp_path, data)
+    with pytest.raises((OSError, ValueError)):
+        jimages.read_image(path)
+    with pytest.raises(ValueError):
+        timages.read_image(path)
 
 
 def _pil(img, fmt, **kw):

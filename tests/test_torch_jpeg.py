@@ -23,17 +23,20 @@ and writes JPEG (``dspfun_tpu/io/images.py``).
   those of Pillow's baseline file of the same pixels; and for scripts
   assembled here that Pillow does not write (spectral selection only, DC
   successive approximation, one component per scan in another order, AC
-  before DC, an end-of-band run across a restart).  A script that leaves
-  a coefficient short (libjpeg smooths such files) is refused, and
-  Pillow's pixels for it are not the unsmoothed reconstruction.
+  before DC, an end-of-band run across a restart).
+* Progressive files left short (a script that leaves one of a
+  component's first ten coefficients short): smoothed as libjpeg-turbo
+  smooths them, equal to Pillow's pixels, for assembled scripts at 4:2:0,
+  4:4:4, gray and CMYK and for every cut of Pillow's own files.
 * CMYK: Pillow's CMYK files, baseline and progressive, at 4:4:4 and
   4:2:0, with restart intervals, as stored (Adobe transform 0), as YCCK
   (transform 2) and without an Adobe marker, read as the JAX package
   reads them, with cv2 importable and blocked; the CMYK fixtures of
   ``chip_smoke.py`` phase 19 are Pillow's.
-* Arithmetic-coded and 12-bit files go to cv2 (and are refused
-  naming ROADMAP queue 1, item 8e, when it does not import); a
-  truncated or corrupt file raises ``ValueError``.
+* Arithmetic-coded files go to cv2 (and are refused naming ROADMAP
+  queue 1, item 8e, when it does not import); 12-bit files are not
+  identified, as in Pillow; a truncated or corrupt file raises
+  ``ValueError``.  Lossless files: tests/test_torch_jpeg_lossless.py.
 """
 
 import hashlib
@@ -671,31 +674,126 @@ def _short_files():
     return {"DC only": dc_only, "without the last scan": full[:last] + b"\xff\xd9"}
 
 
-@pytest.mark.parametrize("case", ["DC only", "without the last scan"])
-def test_progressive_files_left_short_are_refused(case, tmp_path, monkeypatch):
-    """libjpeg smooths the blocks of such a file (jdcoefct.c smoothing_ok),
-    so Pillow's pixels are not the plain reconstruction of its
-    coefficients; the port does not carry that smoothing (item 8g): cv2
-    takes the file, or it is refused without cv2."""
-    data = _short_files()[case]
+def _short_source(kind, h, w):
+    """The layout, tables and coefficients of Pillow's baseline file of a
+    seeded image: 4:2:0, 4:4:4, gray or CMYK."""
+    img = Image.fromarray(_image(h, w))
+    data = {"420": lambda: _pil(img), "444": lambda: _pil(img, subsampling=0),
+            "gray": lambda: _pil(img.convert("L")),
+            "cmyk": lambda: _pil(img.convert("CMYK"))}[kind]()
     frame, coefs = jpeg.decode_coefficients(data)
-    assert frame.smoothed and jpeg.not_carried(data)[1] == "g"
+    return [(c.id, c.h, c.v, c.tq) for c in frame.components], _quant(data), coefs
+
+
+def _short_script(name, n):
+    """A progressive script [(components, Ss, Se, Ah, Al)] that leaves
+    coefficients short, for n components."""
+    every = tuple(range(n))
+    dc = [(every, 0, 0, 0, 0)]
+    return {"DC": dc,
+            "DC at Al 1": [(every, 0, 0, 0, 1)],
+            "spectral 1-5": dc + [((c,), 1, 5, 0, 0) for c in range(n)],
+            "spectral 1-2": dc + [((c,), 1, 2, 0, 0) for c in range(n)],
+            "AC at Al 2": dc + [((c,), 1, 63, 0, 2) for c in range(n)],
+            "AC at Al 1, DC at Al 1": [(every, 0, 0, 0, 1)] + [((c,), 1, 63, 0, 1)
+                                                               for c in range(n)],
+            "luma's AC alone": dc + [((0,), 1, 63, 0, 0)]}[name]
+
+
+# name -> (layout, (h, w), script, restart interval in MCUs)
+SHORT_CASES = {
+    "4:2:0 DC at Al 1": ("420", (37, 53), "DC at Al 1", 0),
+    "4:2:0 spectral 1-2, 17x9": ("420", (17, 9), "spectral 1-2", 0),
+    "4:2:0 AC at Al 2, 49x23": ("420", (49, 23), "AC at Al 2", 0),
+    "4:2:0 restarts, AC at Al 2": ("420", (37, 53), "AC at Al 2", 2),
+    "4:2:0 restarts, DC": ("420", (33, 41), "DC", 3),
+    "4:2:0 one block wide": ("420", (40, 8), "DC", 0),
+    "4:2:0 one block tall": ("420", (8, 40), "spectral 1-2", 0),
+    "4:2:0 luma's AC alone": ("420", (24, 16), "luma's AC alone", 0),
+    "4:4:4 spectral 1-5": ("444", (17, 9), "spectral 1-5", 0),
+    "4:4:4 spectral 1-2, restarts": ("444", (37, 53), "spectral 1-2", 5),
+    "4:4:4 one block tall": ("444", (8, 40), "AC at Al 1, DC at Al 1", 0),
+    "gray AC at Al 2": ("gray", (33, 41), "AC at Al 2", 0),
+    "gray DC, one block": ("gray", (8, 8), "DC", 0),
+    "gray one block wide": ("gray", (70, 9), "spectral 1-2", 0),
+    "gray 1x1": ("gray", (1, 1), "DC at Al 1", 0),
+    "CMYK spectral 1-2": ("cmyk", (16, 24), "spectral 1-2", 0),
+    "CMYK DC, restarts": ("cmyk", (23, 31), "DC", 2),
+}
+
+
+@pytest.mark.parametrize("case", ["DC only", "without the last scan", *SHORT_CASES])
+def test_progressive_files_left_short_are_refused(case, tmp_path, monkeypatch):
+    """Files whose scans leave one of a component's first ten coefficients
+    short, which libjpeg-turbo smooths (jdcoefct.c smoothing_ok,
+    decompress_smooth_data) and which the port once refused (item 8g):
+    their pixels are Pillow's, with cv2 importable and blocked, through
+    the port's own decoder, and not the plain reconstruction of the
+    coefficients where smoothing changes them.  Cases: the DC band alone
+    and Pillow's file without its last scan, and assembled scripts at
+    4:2:0, 4:4:4, gray and CMYK with restart intervals, unrefined Al > 0
+    bands, spectral selection alone, sizes that are not a multiple of the
+    MCU and images one block wide or tall."""
+    if case in SHORT_CASES:
+        kind, (h, w), script, restart = SHORT_CASES[case]
+        comps, qt, coefs = _short_source(kind, h, w)
+        data = assemble_progressive(h, w, comps, qt, coefs, _short_script(script, len(comps)),
+                                    restart=restart)
+    else:
+        data = _short_files()[case]
+    frame, coefs = jpeg.decode_coefficients(data)
+    assert frame.smoothed and len(frame.latch) == 10 * len(frame.components)
+    assert jpeg.not_carried(data) is None and timages._decoder(data) is jpeg.decode_jpeg
     pillow = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-    plain = jpeg.reconstruct(frame, coefs)
-    assert plain.shape == pillow.shape and not np.array_equal(plain, pillow)
-    with pytest.raises(ValueError, match="item 8g"):
-        jpeg.decode_jpeg(data)
-    path = tmp_path / "in.jpg"
-    path.write_bytes(data)
-    seen = []
-    with monkeypatch.context() as mp:
-        mp.setattr(timages, "_cv2_decode",
-                   lambda d, name: (seen.append(name), (pillow, 8))[1])
-        timages.read_image(str(path))
-    assert seen == ["JPEG"]
+    got = jpeg.decode_jpeg(data)[0]
+    np.testing.assert_array_equal(np.broadcast_to(got, pillow.shape), pillow)
+    if case in ("DC only", "without the last scan"):
+        assert not np.array_equal(jpeg.reconstruct(frame, coefs), got)
+    _same_read(tmp_path, data)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ValueError, match="queue 1, item 8g"):
-        timages.read_image(str(path))
+    _same_read(tmp_path, data)
+
+
+def test_smoothing_reads_an_interleaved_scans_padding_rows(tmp_path):
+    """libjpeg-turbo counts the last iMCU row's block rows into its edge
+    tests for that row alone: a luma row of an earlier iMCU row at 4:2:0
+    reads the padding row below the image (an interleaved DC scan's dummy
+    blocks) as a neighbour, and a row of the last one stops short.  With
+    the padding rows' DC values changed the pixels stay Pillow's."""
+    for h, w in ((17, 9), (33, 41), (49, 23)):
+        comps, qt, coefs = _short_source("420", h, w)
+        frame = jpeg.decode_coefficients(_pil(Image.fromarray(_image(h, w))))[0]
+        c = frame.components[0]
+        assert c.rows > c.blocks_h
+        coefs = [k.copy() for k in coefs]
+        coefs[0][c.blocks_h:, :, 0] += 37
+        data = assemble_progressive(h, w, comps, qt, coefs, _short_script("DC", 3))
+        pillow = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data)[0], pillow)
+
+
+def test_every_cut_of_pillows_progressive_files(tmp_path):
+    """Pillow's progressive files (4:2:0, 4:4:4, 4:2:2, gray, CMYK, with
+    and without restarts) cut after each of their scans: each cut that
+    libjpeg smooths reads to Pillow's pixels (only the last latch applies:
+    Pillow reads every scan before its output pass)."""
+    seen = 0
+    for h, w in ((37, 53), (9, 70)):
+        img = Image.fromarray(_image(h, w))
+        for mode, kw in (("L", {}), ("RGB", {"subsampling": 2}), ("RGB", {"subsampling": 0}),
+                         ("RGB", {"subsampling": 1}), ("CMYK", {}),
+                         ("RGB", {"subsampling": 2, "restart_marker_blocks": 2})):
+            full = _pil(img.convert(mode), quality=60, progressive=True, **kw)
+            at = [m.start() for m in re.finditer(b"\xff\xda", full)]
+            for k in at[1:]:
+                data = full[:k] + b"\xff\xd9"
+                if not jpeg.decode_coefficients(data)[0].smoothed:
+                    continue
+                seen += 1
+                want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+                got = jpeg.decode_jpeg(data)[0]
+                np.testing.assert_array_equal(np.broadcast_to(got, want.shape), want)
+    assert seen > 50
 
 
 def test_bad_progressive_files_raise(tmp_path):
@@ -782,22 +880,36 @@ def _not_carried(kind):
 
 @pytest.mark.parametrize("kind", ["progressive", "arithmetic", "12-bit", "CMYK"])
 def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
-    """Arithmetic-coded and 12-bit files go to cv2, or are refused naming
-    item 8e without it.  Progressive and CMYK files, which went to cv2
-    before the codec carried them, read as the JAX package reads them,
-    with cv2 importable and blocked."""
+    """Arithmetic-coded files go to cv2, or are refused naming item 8e
+    without it.  A 12-bit frame, which went to cv2 too, is no JPEG to
+    Pillow's plugin (its SOF handler raises): both packages raise "cannot
+    identify image file", with cv2 importable and blocked.  Progressive
+    and CMYK files, which went to cv2 before the codec carried them, read
+    as the JAX package reads them, with cv2 importable and blocked."""
     data = _not_carried(kind)
+    path = tmp_path / "in.jpg"
+    path.write_bytes(data)
     if kind in ("progressive", "CMYK"):
         assert jpeg.carries(data)
         _same_read(tmp_path, data)
         monkeypatch.setitem(sys.modules, "cv2", None)
         _same_read(tmp_path, data)
         return
+    if kind == "12-bit":
+        with pytest.raises(ValueError, match="cannot identify image file"):
+            jpeg.decode_jpeg(data)
+        for blocked in (False, True):
+            with monkeypatch.context() as mp:
+                if blocked:
+                    mp.setitem(sys.modules, "cv2", None)
+                with pytest.raises(OSError, match="cannot identify image file"):
+                    jimages.read_image(str(path))
+                with pytest.raises(ValueError, match="cannot identify image file .*12-bit"):
+                    timages.read_image(str(path))
+        return
     assert not jpeg.carries(data) and jpeg.not_carried(data)[1] == "e"
     with pytest.raises(ValueError, match="not carried"):
         jpeg.decode_jpeg(data)
-    path = tmp_path / "in.jpg"
-    path.write_bytes(data)
     seen = []
 
     def fake_cv2(d, name):

@@ -40,6 +40,7 @@ from PIL import Image
 import chip_smoke
 from dspfun_tpu.io import images as jimages
 from dspfun_tpu_torch.io import imgcodecs
+from dspfun_tpu_torch.io import jpeg as tjpeg
 from dspfun_tpu_torch.io import images as timages
 from tests import torch_codec_fixtures as fx
 from tests.test_torch_tiff import _same_or_both_raise, _same_read
@@ -173,9 +174,10 @@ def test_gray_jpeg_tiff_of_photometric_0(tmp_path):
 def test_progressive_jpeg_strips(tmp_path):
     """Strips that are progressive streams (Pillow's progressive JPEG of
     each strip, its own tables overriding the JPEGTables): read as Pillow
-    reads them; a stream whose scans leave
-    coefficients short (its last scan dropped), which libjpeg smooths, is
-    refused naming item 8g."""
+    reads them; a stream whose scans leave coefficients short (its last
+    scan dropped), which libjpeg under libtiff smooths and the port once
+    refused (item 8g), reads to Pillow's smoothed pixels, at 4:2:0 and at
+    4:4:4 in YCbCr and as RGB."""
     rgb = fx.levels((40, 56), 5)
     tables, blocks = b"", []
     for y in range(0, 40, 16):       # each strip keeps its own (optimised) tables
@@ -191,10 +193,19 @@ def test_progressive_jpeg_strips(tmp_path):
     from tests import test_torch_jpeg as tj
     short = tj._short_files()["without the last scan"]
     t2, blk = split_jpeg(short)
-    tags.update({256: (4, [24]), 257: (4, [16]), 278: (4, [16]), 279: (4, [len(blk)]),
+    tags.update({256: (4, [53]), 257: (4, [37]), 278: (4, [37]), 279: (4, [len(blk)]),
                  347: (7, list(t2)), 530: (3, [2, 2])})
-    with pytest.raises(ValueError, match="item 8g"):
-        imgcodecs.decode_tiff(fx._assemble([blk], tags, "<"))
+    assert _held(tmp_path, fx._assemble([blk], tags, "<"), "") == "same"
+    full = _jpeg(Image.fromarray(rgb), progressive=True, subsampling=0)
+    cut = full[:full.rindex(b"\xff\xda")] + b"\xff\xd9"
+    assert tjpeg.decode_coefficients(cut)[0].smoothed
+    t3, blk = split_jpeg(cut)
+    for photo in (6, 2):
+        tags.update({256: (4, [56]), 257: (4, [40]), 278: (4, [40]), 279: (4, [len(blk)]),
+                     347: (7, list(t3)), 530: (3, [1, 1]), 262: (3, [photo])})
+        if photo == 2:
+            del tags[530]
+        assert _held(tmp_path, fx._assemble([blk], tags, "<"), "") == "same"
 
 
 def test_twelve_bit_and_old_style_jpeg_are_not_carried():

@@ -193,15 +193,24 @@ def test_the_first_strip_decides_the_lzw_form(tmp_path):
 
 
 @pytest.mark.parametrize("comp,what", [(6, "old-style JPEG"), (32809, "ThunderScan"),
-                                       (34676, "SGILog"), (34677, "SGILog24"), (50001, "WebP"),
+                                       (34676, "libtiff"), (34677, "libtiff"), (50001, "libtiff"),
                                        (34925, None), (50000, None), (5, None)])
-def test_what_stays_refused(comp, what):
-    """Only old-style JPEG, ThunderScan, SGILog and WebP (and 12-bit
-    JPEG-in-TIFF) stay with item 8c."""
+def test_what_stays_refused(comp, what, tmp_path, monkeypatch):
+    """Only old-style JPEG and ThunderScan (and 12-bit JPEG-in-TIFF) stay
+    with item 8c.  SGILog, SGILog24 and WebP, which Pillow's libtiff
+    refuses at this photometric (and which the port once left to cv2),
+    raise in both packages, with cv2 importable and blocked."""
     s = fx.tiff_samples("RGB", 8, 8, 0)
     data = make_tiff(s, "RGB", "<", 1, extra_tags={259: (3, [comp])})
     if what is None:
         assert imgcodecs.tiff_not_carried(data) is None
+    elif what == "libtiff":
+        assert imgcodecs.tiff_not_carried(data) is None
+        with pytest.raises(ValueError, match="libtiff refuses"):
+            imgcodecs.decode_tiff(data)
+        assert _held(tmp_path, data, "") == "both raise"
+        monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+        assert _held(tmp_path, data, "") == "both raise"
     else:
         assert imgcodecs.tiff_not_carried(data) == (f"{what} TIFF", "c")
 

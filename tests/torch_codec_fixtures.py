@@ -1379,6 +1379,246 @@ def other_digests(data: bytes) -> tuple[str, str]:
     return hashlib.sha256(data).hexdigest(), rgba_digest(pixels)
 
 
+# ---- lossless JPEG (SOF3), which Pillow reads but does not write ----------------
+
+# a DC table of every category 0..16 (the standard luminance table's
+# lengths for 0..11, then 10..14 bits; no code of all ones)
+LOSSLESS_DC = (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0]), bytes(range(17)))
+
+
+def _jseg(code: int, body: bytes) -> bytes:
+    return bytes([0xFF, code]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _huffman_codes(table) -> tuple[np.ndarray, np.ndarray]:
+    """(code, length) of each value of a Huffman table (counts, values)."""
+    codes, lengths = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(table[0], 1):
+        for _ in range(n):
+            codes[table[1][k]], lengths[table[1][k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes, lengths
+
+
+def _pack_codes(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Codes of up to 32 bits each, most significant bit first, packed
+    without a loop over them; the last byte padded with 1 bits, 0xFF
+    stuffed with 0x00."""
+    ends = np.cumsum(lengths)
+    nbits = int(ends[-1]) if len(ends) else 0
+    starts = ends - lengths
+    word, off = starts // 32, starts % 32
+    first = np.minimum(lengths, 32 - off)                # bits in the first word
+    rest = lengths - first
+    hi = (values >> rest) << (32 - off - first)
+    lo = (values & ((1 << rest) - 1)) << (32 - rest)
+    nw = nbits // 32 + 2
+    # the codes' bits do not overlap, so a sum per word is their OR (exact in float64)
+    words = np.bincount(word, weights=hi, minlength=nw) \
+        + np.bincount(word + 1, weights=np.where(rest > 0, lo, 0), minlength=nw)
+    out = words.astype(np.uint64).astype(">u4").view(np.uint8)[:(nbits + 7) // 8].copy()
+    if nbits % 8:
+        out[-1] |= (1 << (8 - nbits % 8)) - 1
+    ff = np.flatnonzero(out == 0xFF)
+    return np.insert(out, ff + 1, 0).tobytes()
+
+
+def _lossless_diffs(plane: np.ndarray, predictor: int, pt: int, first_rows) -> np.ndarray:
+    """The differences jclossls.c codes for one component's samples (at
+    their own size): the samples >> pt, each less its prediction (T.81
+    H.1.2.1: Ra in a row that starts a restart interval, the first sample
+    of that row 2^(P - Pt - 1); Rb in the first column; the scan's
+    predictor elsewhere), modulo 2^16 as -32767..32768."""
+    x = plane.astype(np.int64) >> pt
+    ra = np.zeros_like(x)
+    ra[:, 1:] = x[:, :-1]
+    rb = np.zeros_like(x)
+    rb[1:] = x[:-1]
+    rc = np.zeros_like(x)
+    rc[1:, 1:] = x[:-1, :-1]
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+    pred[:, 0] = rb[:, 0]
+    first = np.zeros(len(x), bool)
+    first[list(first_rows)] = True
+    pred[first, 1:] = ra[first, 1:]
+    pred[first, 0] = 1 << (8 - pt - 1)
+    d = (x - pred) & 0xFFFF
+    return np.where(d > 32768, d - 65536, d)
+
+
+def make_lossless_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0, restart: int = 0,
+                       sampling=None, ids=None, scans=None, app: bytes = b"",
+                       precision: int = 8, diffs=None) -> bytes:
+    """A Huffman lossless JPEG (SOF3) of uint8 samples [H, W, C], C in 1..4,
+    as libjpeg-turbo's jclossls.c writes one, with no loop over samples:
+    ``sampling`` [(h, v)] per component (each component the samples of its
+    own grid, taken from the full-size plane), component ``ids`` (default
+    1, 2, ...), ``scans`` (tuples of component indices; default one
+    interleaved scan), a restart marker every ``restart`` MCUs (libjpeg
+    needs a multiple of the MCUs in a row), ``app`` segments after SOI;
+    every component codes with :data:`LOSSLESS_DC`.  ``precision`` is
+    only written into the frame header; ``diffs`` (per component, the
+    differences at its own size) are coded in place of the samples' (a
+    crafted stream: 32768 is category 16)."""
+    a = np.asarray(samples, np.uint8)
+    a = a[..., None] if a.ndim == 2 else a
+    h, w, nc = a.shape
+    sampling = sampling or [(1, 1)] * nc
+    ids = ids or list(range(1, nc + 1))
+    scans = scans or [tuple(range(nc))]
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    planes = []
+    for c, (ch, cv) in enumerate(sampling):
+        bw, bh = -(-w * ch // hmax), -(-h * cv // vmax)
+        planes.append(a[::vmax // cv, ::hmax // ch, c][:bh, :bw])
+    codes, lengths = _huffman_codes(LOSSLESS_DC)
+    out = b"\xff\xd8" + app
+    out += _jseg(0xC3, struct.pack(">BHHB", precision, h, w, nc)
+                 + b"".join(bytes([ids[c], 16 * ch + cv, 0]) for c, (ch, cv) in enumerate(sampling)))
+    out += _jseg(0xC4, b"\x00" + LOSSLESS_DC[0] + LOSSLESS_DC[1])
+    if restart:
+        out += _jseg(0xDD, struct.pack(">H", restart))
+    for members in scans:
+        single = len(members) == 1
+        mx = -(-w // hmax) if not single else planes[members[0]].shape[1]
+        my = -(-h // vmax) if not single else planes[members[0]].shape[0]
+        rpi = restart // mx if restart else 0            # MCU rows in a restart interval
+        units = []
+        for c in members:
+            ch, cv = (1, 1) if single else sampling[c]
+            v = sampling[c][1]
+            starts = [r for r in range(my) if r == 0 or rpi and r % rpi == 0]
+            # libjpeg undifferences an iMCU row after decoding it: a restart
+            # in it makes its first row of each component a first row
+            first = sorted({r * cv for r in starts} if not single
+                           else {r // v * v for r in starts})
+            d = _lossless_diffs(planes[c], predictor, pt, first) if diffs is None \
+                else np.asarray(diffs[c], np.int64)
+            full = np.zeros((my * cv, mx * ch), np.int64)
+            full[:d.shape[0], :d.shape[1]] = d
+            units.append(full.reshape(my, cv, mx, ch).transpose(0, 2, 1, 3).reshape(my, mx, -1))
+        coded = np.concatenate(units, -1).reshape(my * mx, -1)
+        mag = np.abs(coded)
+        cat = np.where(coded == 32768, 16, np.ceil(np.log2(mag + 1)).astype(np.int64))
+        extra = np.where(coded >= 0, coded, coded - 1) & ((1 << cat) - 1)
+        extra = np.where(cat == 16, 0, extra)
+        nextra = np.where(cat == 16, 0, cat)
+        vals = (codes[cat] << nextra) | extra
+        lens = lengths[cat] + nextra
+        step = restart or my * mx
+        out += _jseg(0xDA, bytes([len(members)]) + b"".join(bytes([ids[c], 0]) for c in members)
+                     + bytes([predictor, 0, pt]))
+        for k, at in enumerate(range(0, my * mx, step)):
+            if k:
+                out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+            out += _pack_codes(vals[at:at + step].ravel(), lens[at:at + step].ravel())
+    return out + b"\xff\xd9"
+
+
+def jpeg_scans(data: bytes) -> tuple[bytes, list[tuple[bytes, bytes]]]:
+    """A JPEG cut at its scans: the bytes before the first scan's tables
+    (SOI to the frame header) and, for each scan, its SOS body and its
+    bytes (the tables and markers since the previous scan's data, the SOS
+    and the entropy-coded data, restart markers included)."""
+    pos, head_end, frame, units, start = 2, None, False, [], None
+    while True:
+        while data[pos + 1] == 0xFF:                  # fill bytes
+            pos += 1
+        code = data[pos + 1]
+        if code == 0xD9:
+            return data[:head_end], units
+        n = struct.unpack_from(">H", data, pos + 2)[0]
+        if frame and head_end is None:
+            head_end = start = pos
+        frame |= 0xC0 <= code <= 0xC3
+        pos += 2 + n
+        if code == 0xDA:
+            body = data[pos - n + 2:pos]
+            while True:                               # the data runs to a marker but RSTn
+                pos = data.index(b"\xff", pos)
+                if data[pos + 1] != 0 and not 0xD0 <= data[pos + 1] <= 0xD7:
+                    break
+                pos += 2
+            units.append((body, data[start:pos]))
+            start = pos
+
+
+def cut_scans(data: bytes, keep) -> bytes:
+    """The JPEG with only the scans ``keep`` (a predicate of a scan's
+    index and its (Ss, Se, Ah, Al)) followed by EOI."""
+    head, units = jpeg_scans(data)
+    out = [head]
+    for k, (body, unit) in enumerate(units):
+        ss, se, ahl = body[-3:]
+        if keep(k, (ss, se, ahl >> 4, ahl & 15)):
+            out.append(unit)
+    return b"".join(out) + b"\xff\xd9"
+
+
+def short_jpegs() -> dict[str, bytes]:
+    """Progressive JPEGs whose scans leave coefficients short, cut from
+    Pillow's goldens (no Pillow needed): the 3840x2160 file's DC scans
+    alone and all its scans but the last (luma's last refinement, so its
+    AC band stays at Al 1); the gray file without its last scan; the
+    4:4:4 restart-marked file with its first scan alone (the DC at Al 1)
+    and without its AC refinements (every AC band at Al > 0)."""
+    prog4k = (GOLDENS / "codec_prog_4k.jpg").read_bytes()
+    gray = (GOLDENS / "codec_prog_gray.jpg").read_bytes()
+    rst = (GOLDENS / "codec_prog_444_rst.jpg").read_bytes()
+    n4k, ngray = len(jpeg_scans(prog4k)[1]), len(jpeg_scans(gray)[1])
+    return {
+        "prog4k_dc.jpg": cut_scans(prog4k, lambda k, s: s[0] == 0),
+        "prog4k_short.jpg": cut_scans(prog4k, lambda k, s: k < n4k - 1),
+        "gray_short.jpg": cut_scans(gray, lambda k, s: k < ngray - 1),
+        "rst444_dc_al1.jpg": cut_scans(rst, lambda k, s: k == 0),
+        "rst444_unrefined.jpg": cut_scans(rst, lambda k, s: s[0] == 0 or s[2] == 0),
+    }
+
+
+# name -> (levels (hw, seed), make_lossless_jpeg's arguments)
+LOSSLESS_FIXTURES = {
+    "ll_gray_p1.jpg": (((77, 123), 51), dict(predictor=1)),
+    "ll_gray_p2_pt2.jpg": (((77, 123), 52), dict(predictor=2, pt=2)),
+    "ll_rgb_p3.jpg": (((64, 96), 53), dict(predictor=3)),
+    "ll_rgb_p4_pt1_rst.jpg": (((64, 96), 54), dict(predictor=4, pt=1, restart=96 * 8)),
+    "ll_rgb_p5_scans.jpg": (((45, 70), 55), dict(predictor=5, scans=[(0,), (2,), (1,)],
+                                                 restart=70 * 5)),
+    "ll_rgb_p6_420.jpg": (((45, 71), 56), dict(predictor=6, sampling=[(2, 2), (1, 1), (1, 1)])),
+    "ll_cmyk_p7_rst.jpg": (((50, 60), 57), dict(predictor=7, restart=60 * 3)),
+}
+
+
+def lossless_jpegs() -> dict[str, bytes]:
+    """The lossless JPEGs of :data:`LOSSLESS_FIXTURES`, written by
+    :func:`make_lossless_jpeg` from seeded levels (gray: their first
+    channel; CMYK: :func:`cmyk_levels` of them)."""
+    out = {}
+    for name, ((hw, seed), kw) in LOSSLESS_FIXTURES.items():
+        rgb = levels(hw, seed)
+        samples = rgb[..., :1] if "gray" in name else cmyk_levels(rgb) if "cmyk" in name else rgb
+        out[name] = make_lossless_jpeg(samples, **kw)
+    return out
+
+
+def rgb_digest(pixels: np.ndarray) -> str:
+    """sha256 of uint8 [H, W, C] samples as RGB (gray repeated)."""
+    a = np.asarray(pixels, np.uint8)
+    a = a.reshape(a.shape[0], a.shape[1], -1)
+    return hashlib.sha256(np.ascontiguousarray(np.repeat(a, 3 // a.shape[2], 2)).tobytes()) \
+        .hexdigest()
+
+
+def jpeg_digests(data: bytes) -> tuple[str, str]:
+    """sha256 of a JPEG file and of Pillow's ``convert("RGB")`` of it."""
+    from PIL import Image  # noqa: PLC0415
+
+    return hashlib.sha256(data).hexdigest(), \
+        rgb_digest(np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
 def rates(repeats: int = 5) -> None:
     """The port's decode of Pillow's 3840x2160 LZW (predictor 1 and 2),
     deflate and PackBits TIFFs of ``codec_prog_4k.jpg``'s levels, timed on
