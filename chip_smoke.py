@@ -443,6 +443,23 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    written by the fixtures module's numpy writer and decoded to those
    levels exactly, seconds and MB/s.  The int8 kernels are held to their
    plain versions at every shape the phase gave them;
+25. main path 21, PSD and DDS read, DDS written, CUR, DCX and IM's float
+   and YCbCr modes, through the port's own codecs (``io/psd.py``,
+   ``io/dds.py`` on ``native/bcn.cpp``, ``io/ico.py``, ``io/rawimg.py``).
+   (a) Every fixture of ``tests/torch_codec_fixtures.py:psd_dds_fixtures``
+   (Pillow's DDS and DCX goldens; PSD, CUR, hand-made DDS and IM files
+   written at run time) read through ``images._decoder`` to its decoder,
+   file and pixels equal to the JAX package's sha256
+   (``PSD_DDS_FIXTURES``, pinned by tests/test_torch_dds.py).  (b) A
+   3840x2160 PackBits RGB PSD of ``CODEC_4K``'s levels and a DX10 BC7 DDS
+   of seeded random blocks, each decoded (best of ``PSD_DDS_REPEATS``,
+   seconds and MB/s) to the levels and to Pillow's digest.  (c) ``spec -t
+   flat -G 1000`` of the PSD at ``i8@1e-5``, the spectrum equal to the one
+   from the same levels as a PNG, kernels #1-#2 once.  (d) ``ispec`` at
+   ``i8@1e-5`` to DDS and to PPM: the DDS file equals ``encode_dds`` of
+   the PPM's pixels, and ``encode_dds`` of the levels Pillow's sha256.
+   The int8 kernels are held to their plain versions at every shape the
+   phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -5124,6 +5141,316 @@ def _short_lossless_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+# phase 25: PSD and DDS read, DDS written, CUR, DCX and IM's float and YCbCr
+# modes (io/psd.py, io/dds.py, native/bcn.cpp, io/ico.py, io/rawimg.py) -------
+# (a): sha256 of each fixture of tests/torch_codec_fixtures.py:psd_dds_fixtures()
+# (Pillow's DDS and DCX files from tests/goldens/, the rest written there at run
+# time) and of the JAX package's read_image(..., "RGBA") float64 pixels of it
+# (tests/test_torch_dds.py pins them)
+PSD_DDS_FIXTURES = {
+    "cur_1bit.cur":
+        ("e2f69b64dd2e763f62ac94986b0a81fa6b9e7b7f6fe82f341f5e6f8a972d9d8c",
+         "8044b4c5fde332a901a782c4a076c6704dc6bd94932008a4d7e991f0f23fc5b0"),
+    "cur_24bit.cur":
+        ("d0d1c1234c696940830b3bfab3202e6edd74ef20c0925952ab76bc1a6570520c",
+         "a4159eeec9896fe36504c28e10dc6da9921c7e162641d145965d76d2e62171aa"),
+    "cur_32bit.cur":
+        ("a33c2cdd3137f46bee3bf18e89ca6602d8a281a9fe042bee7fd6be0fb21b0b1e",
+         "ecade696c34b240f730adf38b6aaf8c910226cae776f667c62f705bd1e18ccd7"),
+    "cur_4bit.cur":
+        ("1ca8e146b45bbd6d4f038bca0622ace34404249b8985824b5a112f54704db7de",
+         "2840e12aaa409410b3ba121be7711332d49a8e4153f5edd363255e6bb8779125"),
+    "cur_8bit.cur":
+        ("7b2164787635dc400b824898d831066454bacd7b9d552463a3eb4f205af2ff12",
+         "8abd9f7074e1c9e5cd799ec708ccd41f11170aab5fc2b644047e08d1c9a03ba0"),
+    "cur_entries.cur":
+        ("e29c4a8819c2da4d69a32c253246bad1d0c4960945b1b988485846e04915417b",
+         "a4159eeec9896fe36504c28e10dc6da9921c7e162641d145965d76d2e62171aa"),
+    "dcx_p.dcx":
+        ("f2abe1145e99986a23dc33ffbc42219bc13f46b1184584022fd66ceb1d97261e",
+         "848907805bb3ad3b8240512328e7bc02b1af3aa1c15663c1d6d450d82faac430"),
+    "dcx_rgb_l.dcx":
+        ("84d2b3e5ff950cb853aa8edba81a841bc1f847de5dffc4181757710c1bfab71c",
+         "4eaa6e8d4cbaa794a7dcee878aaf61c403342de87e71c0e215f0e9c24fb96cc1"),
+    "dds_a2b10g10r10.dds":
+        ("705011445aa9c6bf310153748a41613d36248baf0de76093ab22f0fb2ec366b5",
+         "817936bbbd6e4241a315177dbca6759e6a80e310664c40099eaf69abce077956"),
+    "dds_argb4444.dds":
+        ("f1137e9c951abadf19a185ec46da2cfdb1d7335d45c9191bcbfedb06a3d44b71",
+         "5b26635fa6829fb60f9980dc7fff3eeacd5b9e46812bbd02803936653bd3d37c"),
+    "dds_ati1.dds":
+        ("a8b1eac7690c05b4844345f6cd1374a2439d3a6542b75c6e4b0ed61779002c3b",
+         "76935a72daa931d44994dceb1216bec214b15a304bdbd6666e001d1e7b268ba8"),
+    "dds_ati2.dds":
+        ("1578ce72dfb0834fb185ac8d597aa441a14a1dff166ba6f31deb8841eb8b2cb8",
+         "fd96c75615e16412fe857bea4abd51cefdad451c60fda4bcd1613871aa00339f"),
+    "dds_bc2.dds":
+        ("4bcaff6d6f620d04b1df5602af1e97860c2c7cc2b05493725d81926c760bdcb8",
+         "493c91035c10bc3ef9f7bf8065647539cd77ca37952ea0ba11e792f6e48c8dd0"),
+    "dds_bc3.dds":
+        ("0e7427b438238a2549934383b90104fc148fdb5853919a6f11d0bcbc10124131",
+         "c3996e2709b62714f598917c4f45d9805d21acdc5c90b238e8fb2db379e8641d"),
+    "dds_bc4.dds":
+        ("bfcd2c945ccfe064977f4e90ef9bdf222567bcf84d44fb96277b0eb55909f1a5",
+         "7d1ae0c51e3712022a53fee9921b35bac8b710f25a38b722bf407ad819c6a232"),
+    "dds_bc5.dds":
+        ("f7cb5a009c55c5077d8139cdf51a42dc23404547805db77430cafa77a52f925e",
+         "cc00685ac072c8bff31a4f04f9696dfe785853a320a2d0fb96c843e68c738097"),
+    "dds_bc5s.dds":
+        ("08d0404f5d55591eb98e93355b7166605222926eebbd29b54ac1c3b86ba0bdb6",
+         "3bf3fe93f0bdfcc4855d4ceab7e4ebef796728f281ea58103f6ef7214155e73a"),
+    "dds_bc6h_sf16.dds":
+        ("08ff749cc12c2c47fee707ac27cbf5fb3e952c0577758b5bb1e264cab09f2dd4",
+         "7a5bc594ff5db05e642049240b8eb289aecd9c4e5f55304e0602ead0e9075de7"),
+    "dds_bc6h_uf16.dds":
+        ("00a5765a2323815eac3b3187a71c6c51021d7d0eaba22b0855f1d3bb1e35f5f7",
+         "5caa83b4b61c5150b78ce24ad93504c7c950c0d969ff5d208739deaf57e8d208"),
+    "dds_bc7.dds":
+        ("e708d7c89657ba48de0a0e8b939a35a9682716031f450e5699f6573c1495b363",
+         "8333da3c1cfe0c62f412297079d75335c1b19e54a5fdd7ed0b64adee4fefe957"),
+    "dds_bc7_srgb.dds":
+        ("4803d7f33a9175f93b4526075e12cbd297cf911d54eb409cbc0bddc37f32ed5d",
+         "6c87d9a77ed98eef723cfbab1d5a2dc8f0c3149f4b180b9e3a8002ac0d06cb5b"),
+    "dds_dx10_bc1.dds":
+        ("18a759dc4fb39d00ae6300862e2d50d815fe1add0cfca35e2de975c08f86f950",
+         "6b4dc8693db1e995b03ffba6452dedce41800dbc56564590cbdb5aba2d1cbddd"),
+    "dds_dx10_rgba8.dds":
+        ("ed413fcb15302f0e16e6713cb79e312e0944001e6b4d2c24c90c4f31f476dcc3",
+         "09edb5d9ba55b1d9b932b1c7235f80ec95ff49cc05ffbec173a5c5239b1432d4"),
+    "dds_dxt1.dds":
+        ("b806ca8594a32f57f9b1a6f940ad4dfb277c836cf0c8a0c84901d160464981e3",
+         "82339900f16c7d8df61300027e99e07c527d22cf3659913ab44177fa40d5f2d0"),
+    "dds_dxt3.dds":
+        ("0feed8b7c908dafc914bc8c6c8cb977b1b50538fb6c0f00b1350148a01073c65",
+         "493c91035c10bc3ef9f7bf8065647539cd77ca37952ea0ba11e792f6e48c8dd0"),
+    "dds_dxt5.dds":
+        ("a1b9ec703c0b122c7e1d6430161049af2bf573177247c409b3e62170ef2bb589",
+         "c3996e2709b62714f598917c4f45d9805d21acdc5c90b238e8fb2db379e8641d"),
+    "dds_l.dds":
+        ("2a1c577c0f4b59cb5c879c1a33272e0adcae6f27963368a1c3ff997e2284ec6c",
+         "a3692b42e415b4c2bf3901a95eb78d620aa76f1e17d35fcd0b59ae12ca6b85bd"),
+    "dds_la.dds":
+        ("72fb943af8753fdfd7a30075d12e705e83c50bc4e38737889153b834bf97e038",
+         "9992f1d4e404c3716466e5f85f94610bf2fef407ec0a5c9b0346c4c42ee9538a"),
+    "dds_palette.dds":
+        ("71271ca54f03ae67f462d265b9f5c59ba8513cba506b24a9753a1e0d782ac2a2",
+         "7f7b16e8ba1c3a1c9068946a928cc7f9a983e7ff5bcf35e173f78a336671200b"),
+    "dds_rgb.dds":
+        ("00a846f487b5f8180359035aa0c83f7f073ec87d190a807455ef1c4f1a8c15d1",
+         "4eaa6e8d4cbaa794a7dcee878aaf61c403342de87e71c0e215f0e9c24fb96cc1"),
+    "dds_rgb24_bgr.dds":
+        ("f0b63e9f7ba2fbda5cac9ab00dd3a61be5d79d4b2c775914680956501aee7ffe",
+         "e54efec4a59c801d0a027148234fbe5529f1cceaa3a087990dfdd5562a356c5c"),
+    "dds_rgb565.dds":
+        ("3bcb07e894b92d14fe844de697551c2a0dbbd0deb1a0314ca52e74a79427e7d6",
+         "6dc10bde993bd9377f21d206b2d91983d9a279d3bcb706443daa80d160ad5c5b"),
+    "dds_rgba.dds":
+        ("6a16839fa2f1626c5530a4fb5b1ca948a6dfa97bf4f2dcbb8bb5df2ab5876a1d",
+         "e1b0fdc73582d1f08bde6c3281b1591309f510085514e902669cfa1f0fa388ce"),
+    "im_bits12.im":
+        ("d6b1631a0cef6943f4fa85fb942772ba915c40affe6c56ccf9da472393ff922a",
+         "899f3daf5d0d38411c32b605987370568a4b65fb82def751e13e97a24cb42636"),
+    "im_bits5.im":
+        ("60b0a7eada49bac57c9eb5ed0dfd606a332414af94c34d229a740d9475518d55",
+         "8a5a62e648582cf142a79bde70e89bd6a8fa1c51013db96a31ff400c9004e7ce"),
+    "im_f16s.im":
+        ("c00df471a6350899e0317fa4f4aec46731081e5899e8c65a3d333e53ffc7ee97",
+         "71a01d8d0de71aea3bfb36fb0a8ebdfdb7717256d601b7885b7147a4ab02db96"),
+    "im_f32.im":
+        ("454f60b5087c85e72a38192e9f274ad73050b98979098ccf490d670351e282c0",
+         "f5a3fe47bb1308337afbdd344682de27a3c0c99dfecb3ed365c038e099f46c55"),
+    "im_f32u.im":
+        ("bf6dc001dcf44abf4ade5a819c61c8478250ea0eb607452e81d2950455c22d06",
+         "ec4ca634c45fc914799660dd947b48cf6b27bdb2e7cc95a94a08c50e8df52502"),
+    "im_f8s.im":
+        ("77615581f6aa3fd99e98a936cea6a1b58529424274c0544686135526aba72932",
+         "cc06e2b7af50e0e3ab753effe1ebc274e07771ac60d3a843be6bbf36d310b59f"),
+    "im_ycc.im":
+        ("ac63e007e9a9bb7f0546f8c8621cbff7010549b72aa530bf313476a9c0cd2b59",
+         "e7b786b1e2b3eac2f554661fa67ef159efb7344f8d49dc6fd131dd08097acedb"),
+    "psd_bitmap_packbits.psd":
+        ("c0f8af97581f8807138fc33e3bb0339c70c0a57bcccf678c1863086a0b893946",
+         "8ec345ccefd321fa5e057d0db4c15d4dd193c423b838dba157e792bf0ca926ef"),
+    "psd_cmyk_packbits.psd":
+        ("596bbbbcc13f7f47f1f6c98f4b249829e222d49f11e94c92ffa75d20137ca2d7",
+         "8d2bba32e75d5ad5488aaa42118d6149ecdac693ac51c775d81f066627ffb5de"),
+    "psd_duotone_raw.psd":
+        ("3b7ece2294df267bb90dfa3c0fc45c4e738b464fad6719f2320eee4ec387d28a",
+         "e0ad83d15b0167258202a37d3a5a073db02f9de97a73fbb0c994e4e11556a9cb"),
+    "psd_gray_packbits.psd":
+        ("dbc648f426a7bc1141cb95085bdfde54617b552fe77ac3c94d72fbe18586ed59",
+         "e0ad83d15b0167258202a37d3a5a073db02f9de97a73fbb0c994e4e11556a9cb"),
+    "psd_indexed_raw.psd":
+        ("21dd17dc19a0781e37e764e6b82b0deb0fe46062c8cc07b1a3d66d541c072995",
+         "4f40924a1e8bf7d7a60b6de97ef1c68a7a46cec99bc36397b47d29ddc0297135"),
+    "psd_lab_raw.psd":
+        ("501975bb20df9f10eeccb6c67a77998eed10ae7d2c79c2609fc7c16771c4f483",
+         "eb5edb616e54e92f74eb83d0f48453bd02c923389d17c2a6f9d815a192256b73"),
+    "psd_multichannel_packbits.psd":
+        ("4307d3fc62b060c4eb921943d2ff1a9b6bb86bb99a88326f8480491457ab4c40",
+         "4bc2df48fada54fecf526835f950f0971ca09d7d6b7270166a7e1dff84986bdf"),
+    "psd_rgb_extra_raw.psd":
+        ("5f1c6b872c268af30d8a4d8937f35ab314bf6a2da5ec1ef25dfc0d8f515fb186",
+         "3932fc395066d0b1407e3509c9040f793d4a448688cdd488d3f37d243a439d38"),
+    "psd_rgb_packbits.psd":
+        ("b5f7df24edf8df1375103878ed35a6c12da7eeb5ea1a56850c5e552f5d1cb534",
+         "3932fc395066d0b1407e3509c9040f793d4a448688cdd488d3f37d243a439d38"),
+    "psd_rgb_raw.psd":
+        ("a6fec4b5a72f2aa5fc053d7a2c03a4a1feb269091ed43d055ca079f54938e225",
+         "3932fc395066d0b1407e3509c9040f793d4a448688cdd488d3f37d243a439d38"),
+    "psd_rgba_packbits.psd":
+        ("7dcb35ac75aa15de3e73bb5327dfb79cf2e9f934a2f2368777ca596dbbd9a9b2",
+         "48b4df7ee465c6f955e8fcc3e27ac800fc3b69df8c377b5fd268fd81e02b567d"),
+}
+PSD_4K_CROP = "891b9c7914c4b23abbdcdc83bde284b37eb2f75c7159c61b9b2a5facc7eb9f11"
+DDS_4K = "54ea3ceb35f00c19f86c4e48b9dfd15db66159cad1b904fd4911843f68483c9a"  # Pillow's DDS
+BC7_4K_SEED = 61                  # (b): the 4K BC7 file's random blocks
+BC7_4K = ("f80088f5359e9018606db025991fb4af45a38c844cfcd33cd1a4d6d07603eef5",   # the file
+          "b643c8aaf2a5fb85b16b8ac82b0c31e27212c4fd2c799607ab5f8bed9a9c9ee1")   # Pillow's RGBA
+PSD_DDS_REPEATS = 3               # (b): the 4K decodes, best of
+
+
+def _psd_dds_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
+                   device_args=()) -> dict:
+    """Main path 21: PSD and DDS read, DDS written, CUR, DCX and IM's float
+    and YCbCr modes through the port's own codecs (``io/psd.py``,
+    ``io/dds.py`` on ``native/bcn.cpp``, ``io/ico.py``, ``io/rawimg.py``).
+    (a) Every fixture of ``psd_dds_fixtures()`` through ``images._decoder``
+    to its decoder, file and pixels equal to the JAX package's digests;
+    (b) a 3840x2160 PackBits RGB PSD of ``big``'s levels (the fixtures
+    module's writer) and a DX10 BC7 DDS of seeded random blocks, decoded
+    (best of ``PSD_DDS_REPEATS``) to the levels and to Pillow's digest;
+    (c) spec of the PSD at ``i8@1e-5`` against the same levels as a PNG;
+    (d) ispec at ``i8@1e-5`` to DDS and to PPM, the DDS file equal to
+    ``encode_dds`` of the PPM's pixels, and ``encode_dds`` of the levels
+    equal to Pillow's digest.  Returns the kernels' launches over the runs
+    of the new formats."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import dds, ico, images, imgcodecs, psd, rawimg
+    from dspfun_tpu_torch.tools import ispec, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    decoders = {"psd": psd.decode_psd, "dds": dds.decode_dds, "cur": ico.decode_cur,
+                "dcx": rawimg.decode_dcx, "im": rawimg.decode_im}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dds._load()
+    rawimg._load()
+    print(f"phase 25 native/bcn.cpp and native/rawimg.cpp load: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_psd_dds_") as tmp:
+        # ---- (a) the fixtures to the JAX package's digests -------------------------
+        goldens = {}
+        for name in fx.PSD_DDS_GOLDENS:
+            with open(os.path.join(gold, name), "rb") as f:
+                goldens[name] = f.read()
+        made = fx.psd_dds_fixtures(goldens)
+        if sorted(made) != sorted(PSD_DDS_FIXTURES):
+            raise RuntimeError(f"phase 25a: the fixtures are not {sorted(PSD_DDS_FIXTURES)}")
+        for name, data in sorted(made.items()):
+            ext = name.rsplit(".", 1)[1]
+            if images._decoder(data) is not decoders[ext]:
+                raise RuntimeError(f"phase 25a: {name} does not take the port's {ext} decoder")
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), fx.rgba_digest(img.pixels))
+            print(f"phase 25a {name} {img.width}x{img.height} depth {img.depth}: {len(data)} "
+                  f"bytes; read {dec_s:.4f} s; file and pixels == the JAX package's digests: "
+                  f"{got == PSD_DDS_FIXTURES[name]}", flush=True)
+            if got != PSD_DDS_FIXTURES[name]:
+                raise RuntimeError(f"phase 25a: {name} is not read as Pillow reads it: {got}")
+
+        # ---- (b) the 4K PSD and BC7 DDS decoded --------------------------------------
+        hw, seed, noise = big
+        lv = fx.levels(hw, seed, noise=noise)
+        t0 = time.perf_counter()
+        files = {"psd": fx.psd_4k(lv), "dds": fx.bc7_4k(hw, BC7_4K_SEED)}
+        print(f"phase 25b 4K PSD and BC7 DDS written: {time.perf_counter() - t0:.3f} s "
+              f"(tests/torch_codec_fixtures.py)", flush=True)
+        if sha(files["dds"]) != BC7_4K[0]:
+            raise RuntimeError("phase 25b: the 4K BC7 file is not the pinned one")
+        for kind, data in files.items():
+            best = float("inf")
+            for _ in range(PSD_DDS_REPEATS):
+                t0 = time.perf_counter()
+                arr, _ = decoders[kind](data)
+                best = min(best, time.perf_counter() - t0)
+            ok = np.array_equal(arr, lv) if kind == "psd" else sha(arr.tobytes()) == BC7_4K[1]
+            what = "PackBits RGB PSD" if kind == "psd" else "DX10 BC7 DDS"
+            print(f"phase 25b {what} {hw[1]}x{hw[0]}: {len(data)} bytes; decode {best:.4f} s "
+                  f"(best of {PSD_DDS_REPEATS}; {arr.size / 1e6 / best:.1f} MB/s of samples, "
+                  f"{len(data) / 1e6 / best:.2f} MB/s of file); "
+                  f"{'== its levels' if kind == 'psd' else '== Pillow digest'}: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"phase 25b: the 4K {what} decodes to other pixels")
+
+        # ---- (c) spec of the PSD against the same levels as a PNG --------------------
+        src = os.path.join(tmp, "still.psd")
+        with open(src, "wb") as f:
+            f.write(files["psd"])
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, lv / 255.0)
+        sh, sw = hw
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        out = {k: os.path.join(tmp, f"spec_{k}.png") for k in ("ref", "psd")}
+        with _policy("i8@1e-5"):
+            for name, inp in (("ref", ref), ("psd", src)):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "psd")
+                print(f"phase 25c spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 25c spec {name} launched {got}, expected {spec_i8}")
+            ok = same(out["ref"], out["psd"])
+            print(f"phase 25c spectrum from the PSD == from the PNG: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError("phase 25c: the PSD's spectrum differs from the PNG's")
+
+            # ---- (d) ispec to DDS, the PPM route's pixels, Pillow's 4K DDS -------------
+            back = {}
+            for ext in ("dds", "ppm"):
+                back[ext] = os.path.join(tmp, f"back.{ext}")
+                fn = lambda o=back[ext]: _run_tool(  # noqa: E731
+                    torch, ispec, list(device_args)
+                    + ["-t", "flat", "-G", "1000", out["psd"], o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=ext == "dds")
+                print(f"phase 25d ispec to {ext} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 25d ispec to {ext} launched {got}")
+        with open(back["ppm"], "rb") as f:
+            arr = imgcodecs.decode_pnm(f.read())[0]
+        with open(back["dds"], "rb") as f:
+            ok = f.read() == dds.encode_dds(arr)
+        print(f"phase 25d ispec's DDS == encode_dds of the PPM's pixels: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 25d: ispec's DDS is not encode_dds's bytes")
+        t0 = time.perf_counter()
+        data = dds.encode_dds(lv)
+        enc_s = time.perf_counter() - t0
+        ok = sha(data) == DDS_4K
+        print(f"phase 25d encode_dds {sw}x{sh}: {len(data)} bytes in {enc_s:.4f} s "
+              f"({lv.size / 1e6 / enc_s:.1f} MB/s of RGB); == Pillow's digest: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 25d: the 4K DDS write is not Pillow's: {sha(data)}")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"psd_dds {layout}{nd} {m}x{k}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 25 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -5474,6 +5801,13 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the short and lossless JPEG path never launched: "
                            f"{short_path}")
 
+    # ---- phase 25: main path 21, PSD and DDS read, DDS written, CUR, DCX, IM --
+    torch.cuda.empty_cache()
+    psd_path = _psd_dds_phase(torch, dev, int8mm, block_filter, check_i8mm,
+                              scipy.fft)["launches"]
+    if not (psd_path.get("left3") and psd_path.get("right3")):
+        raise RuntimeError(f"a kernel of the PSD and DDS path never launched: {psd_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -5485,7 +5819,7 @@ def main() -> int:
                              + gif_path.get(n, 0) + cmyk_path.get(n, 0)
                              + more_path.get(n, 0) + webp_path.get(n, 0)
                              + other_path.get(n, 0) + zstd_path.get(n, 0)
-                             + short_path.get(n, 0)),
+                             + short_path.get(n, 0) + psd_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -5504,7 +5838,8 @@ def main() -> int:
                                      "webp": webp_path.get(n, 0),
                                      "other_formats": other_path.get(n, 0),
                                      "zstd_lzma_tiff": zstd_path.get(n, 0),
-                                     "short_lossless_jpeg": short_path.get(n, 0)},
+                                     "short_lossless_jpeg": short_path.get(n, 0),
+                                     "psd_dds": psd_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -5540,7 +5875,8 @@ def main() -> int:
                                  + webp_path.get("block_filter", 0)
                                  + other_path.get("block_filter", 0)
                                  + zstd_path.get("block_filter", 0)
-                                 + short_path.get("block_filter", 0)),
+                                 + short_path.get("block_filter", 0)
+                                 + psd_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -5554,7 +5890,8 @@ def main() -> int:
                                          "other_formats": other_path.get("block_filter", 0),
                                          "zstd_lzma_tiff": zstd_path.get("block_filter", 0),
                                          "short_lossless_jpeg":
-                                             short_path.get("block_filter", 0)},
+                                             short_path.get("block_filter", 0),
+                                         "psd_dds": psd_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -27,6 +27,12 @@ pixels and bytes.
   itself ``native/rawimg.cpp``'s port of ``Resample.c`` (LANCZOS weights
   from the C library's ``sin``, 22-bit fixed point for 8-bit samples,
   double weights for 16-bit gray).
+* **CUR** (``CurImageFile._open``): of the directory's entries the first,
+  replaced by each later one both wider and taller, read as a DIB at the
+  entry's offset with half its height (the first rows stored: no mask;
+  the fourth byte of a 32-bit bitmap is alpha only where the bitmap is
+  at offset 22, right after a one-entry directory, as Pillow's BMP
+  plugin has it).
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import png as _png
 from dspfun_tpu_torch.io import rawimg as _raw
 
-__all__ = ["ICO_SIZES", "decode_ico", "encode_ico", "open_ico", "resize", "thumbnail"]
+__all__ = ["ICO_SIZES", "decode_cur", "decode_ico", "encode_ico", "open_cur", "open_ico", "resize",
+           "thumbnail"]
 
 ICO_SIZES = ((16, 16), (24, 24), (32, 32), (48, 48), (64, 64), (128, 128), (256, 256))
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -220,3 +227,41 @@ def decode_ico(data: bytes) -> tuple[np.ndarray, int]:
     if head == _PNG_SIG:
         return _png_frame(data[e["offset"]:])
     return _bmp_frame(data, e)
+
+
+def open_cur(data: bytes) -> dict:
+    """``CurImageFile._open``: the largest cursor by Pillow's test (both
+    sides larger than the one kept), its DIB header at the entry's offset
+    (or, at offset 0, right after the directory), the height halved.
+    :class:`rawimg.Skip` where the plugin's open fails with what
+    ``Image.open`` takes as "not this format"."""
+    if not data.startswith(b"\0\0\2\0"):
+        raise _raw.Skip("not a CUR file")
+    try:
+        n, m, pos = struct.unpack_from("<H", data, 4)[0], b"", 6
+        for _ in range(n):
+            s = data[pos:pos + 16]
+            pos += len(s)
+            if not m:
+                m = s
+            elif s[0] > m[0] and s[1] > m[1]:
+                m = s
+        if not m:
+            raise _raw.Skip("No cursors were found")
+        at = struct.unpack_from("<I", m, 12)[0]
+    except (IndexError, struct.error) as e:
+        raise _raw.Skip(f"short CUR directory ({e})") from None
+    bm = _codecs.bitmap(data, at or pos)
+    if at == 22 and bm["bits"] == 32 and bm["compression"] == 0:
+        bm["raw"] = "BGRA"      # BmpImagePlugin's "32-bit .cur offset": the fourth byte alpha
+    w, h = bm["size"]
+    if h // 2 <= 0:
+        raise _raw.Skip("an empty size: not identified by the plugin")
+    bm["size"] = (w, h // 2)
+    return bm
+
+
+def decode_cur(data: bytes) -> tuple[np.ndarray, int]:
+    """The cursor Pillow opens: the bitmap's pixels, palettes expanded."""
+    data = bytes(data)
+    return _codecs.bitmap_pixels(data, open_cur(data)), 8

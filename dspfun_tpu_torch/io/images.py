@@ -32,9 +32,12 @@ a progressive file left short smoothed as libjpeg-turbo smooths it, and
 8-bit lossless; gray, RGB, CMYK and YCCK), GIF (``io/gif.py``: the first frame read,
 Pillow's median-cut or octree palette written, through ``io/quant.py``),
 WebP on read (``io/webp.py``: lossy, lossless, alpha, an animation's
-first frame), TGA, PCX, SGI, QOI and IM (``io/rawimg.py``), ICO
-(``io/ico.py``, with Pillow's LANCZOS thumbnails on write) and DIB
-(``io/imgcodecs.py``), and MPO on write (its one frame is a JPEG), each
+first frame), TGA, PCX, DCX, SGI, QOI and IM (``io/rawimg.py``; IM's
+floating-point and YCbCr modes too), ICO and CUR (``io/ico.py``, with
+Pillow's LANCZOS thumbnails on ICO write), DIB (``io/imgcodecs.py``), PSD
+(``io/psd.py``: the composite image), DDS (``io/dds.py`` with
+``native/bcn.cpp``: uncompressed, palette, BC1 to BC7; written
+uncompressed), and MPO on write (its one frame is a JPEG), each
 reading what Pillow decodes and writing what it writes.  They take
 every file they carry, whether cv2 imports or not.
 The rest (arithmetic-coded JPEG, old-style JPEG, ThunderScan and CCITT
@@ -43,10 +46,10 @@ or several token partitions, and WebP output) goes through
 ``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
 which are refused with cv2 too (``_cv2_decode``); where cv2 does not
 import, it is refused with a ``ValueError`` naming ROADMAP queue 1, item 8
-and its part (``png.refusal``).  Pillow's other formats (CUR, DCX, DDS, PSD,
-JPEG 2000, AVIF and the rest of ``_PILLOW_ORDER``'s refusals and
-``_OTHER_WRITES``; IM's floating-point and YCbCr modes) are refused with
-or without cv2, naming item 8h, on read and before anything is written.
+and its part (``png.refusal``).  Pillow's other formats (JPEG 2000, AVIF,
+EPS and the rest of ``_PILLOW_ORDER``'s refusals and ``_OTHER_WRITES``)
+are refused with or without cv2, naming item 8h, on read and before
+anything is written.
 Inputs are identified as Pillow's ``Image.open`` identifies them: each
 plugin in its order, passing the file on where Pillow's plugin would
 (``_PILLOW_ORDER``: a JPEG frame of other than 8-bit samples, a TIFF whose
@@ -69,11 +72,13 @@ import numpy as np
 
 from dspfun_tpu_torch.io import color as _color
 from dspfun_tpu_torch.io import cv2_bridge as _cv2_bridge
+from dspfun_tpu_torch.io import dds as _dds
 from dspfun_tpu_torch.io import gif as _gif
 from dspfun_tpu_torch.io import ico as _ico
 from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import png as _png
+from dspfun_tpu_torch.io import psd as _psd
 from dspfun_tpu_torch.io import rawimg as _rawimg
 from dspfun_tpu_torch.io import sixel as _sixel
 from dspfun_tpu_torch.io import webp as _webp
@@ -98,7 +103,8 @@ _NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
                    "TIFF": _codecs.encode_tiff, "JPEG": _jpeg.encode_jpeg,
                    "GIF": _gif.encode_gif, "TGA": _rawimg.encode_tga,
                    "PCX": _rawimg.encode_pcx, "QOI": _rawimg.encode_qoi,
-                   "DIB": _codecs.encode_dib, "MPO": _jpeg.encode_jpeg, "ICO": _ico.encode_ico}
+                   "DIB": _codecs.encode_dib, "MPO": _jpeg.encode_jpeg, "ICO": _ico.encode_ico,
+                   "DDS": _dds.encode_dds}
 # the writers that put the output's name into the file (Pillow's filename)
 _NAMED_WRITERS = {"SGI": _rawimg.encode_sgi, "IM": _rawimg.encode_im}
 _CV2_WRITERS = {"WEBP": ".webp"}
@@ -122,24 +128,6 @@ def _u32(d: bytes, o: int, order: str = "<") -> int:
     if len(d) < o + 4:
         raise _rawimg.Skip("short header")
     return struct.unpack_from(order + "I", d, o)[0]
-
-
-def _cur(d: bytes) -> bool:
-    """``CurImageFile._open``: the largest cursor's bitmap parses."""
-    if not d.startswith(b"\0\0\2\0") or len(d) < 6:
-        return False
-    n, m = struct.unpack_from("<H", d, 4)[0], b""
-    for i in range(n):
-        e = d[6 + 16 * i:22 + 16 * i]
-        if not m:
-            m = e
-        elif e[0] > m[0] and e[1] > m[1]:
-            m = e
-    at = _u32(m, 12) if m else 0
-    if not m:
-        return False
-    _codecs.bitmap(d, at or 6 + 16 * n)
-    return True
 
 
 def _gbr(d: bytes) -> bool:
@@ -287,10 +275,10 @@ _PILLOW_ORDER = (
     ("AVIF", _refused("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis",
                                                                         b"mif1", b"msf1"))),
     ("BLP", _refused("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")))),
-    ("CUR", _refused("CUR", _cur)),
+    ("CUR", _ported(_ico.open_cur, _ico.decode_cur)),
     ("PCX", _ported(_rawimg.open_pcx, _rawimg.decode_pcx)),
-    ("DCX", _refused("DCX", lambda d: d.startswith(b"\xb1\x68\xde\x3a"))),
-    ("DDS", _refused("DDS", lambda d: d.startswith(b"DDS "))),
+    ("DCX", _ported(_rawimg.open_dcx, _rawimg.decode_dcx)),
+    ("DDS", _ported(_dds.open_dds, _dds.decode_dds)),
     ("EPS", _refused("EPS", lambda d: d.startswith((b"%!PS", b"\xc5\xd0\xd3\xc6")))),
     ("FITS", _refused("FITS", lambda d: d.startswith(b"SIMPLE"))),
     ("FLI", _refused("FLI", lambda d: len(d) >= 22 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
@@ -309,7 +297,7 @@ _PILLOW_ORDER = (
     ("MSP", _refused("MSP", lambda d: d.startswith((b"DanM", b"LinS")))),
     ("PCD", _refused("PCD", lambda d: d[2048:2052] == b"PCD_")),
     ("PIXAR", _refused("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0"))),
-    ("PSD", _refused("PSD", lambda d: d.startswith(b"8BPS"))),
+    ("PSD", _ported(_psd.open_psd, _psd.decode_psd)),
     ("QOI", _ported(_rawimg.open_qoi, _rawimg.decode_qoi)),
     ("SGI", _ported(_rawimg.open_sgi, _rawimg.decode_sgi)),
     ("SPIDER", _refused("SPIDER", _spider)),
@@ -322,7 +310,7 @@ _PILLOW_ORDER = (
 )
 # Pillow 12.1's save formats that the port does not write, refused
 # naming item 8h before anything is read or written
-_OTHER_WRITES = frozenset({"AVIF", "BLP", "DDS", "EPS", "ICNS", "JPEG2000", "MSP", "PALM", "PDF",
+_OTHER_WRITES = frozenset({"AVIF", "BLP", "EPS", "ICNS", "JPEG2000", "MSP", "PALM", "PDF",
                            "SPIDER", "XBM"})
 
 

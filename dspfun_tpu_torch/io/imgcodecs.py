@@ -310,7 +310,7 @@ def bitmap(data: bytes, at: int, offset: int = 0) -> dict:
     if w <= 0 or h <= 0:
         raise Skip("an empty size: not identified by the plugin")  # ImageFile's check
     return dict(size=(w, h), bits=bits, raw=raw, rle=comp in (1, 2) and comp, palette=palette,
-                down=down, start=offset or pos)
+                down=down, start=offset or pos, compression=comp)
 
 
 def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:

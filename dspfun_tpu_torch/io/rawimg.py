@@ -38,9 +38,13 @@ raises.  Each ``encode_*`` writes Pillow's bytes for the arrays
 * **IM**: the header lines up to the ``0x1a`` byte as Pillow parses
   them, the ``OPEN`` modes 1, L, P (2-, 4- and 8-bit, with the ``Lut:``
   palette), LA, PA, RGB (line-interleaved, packed or in three planes),
-  RGBA, RGBX, CMYK and 16- and 32-bit gray.  Refused naming ROADMAP item
-  8h: the YCbCr and floating-point modes.  Written: RGB, RGBA and 16-bit
-  gray (``L 16``), with the ``Name:`` line of the output's base name.
+  RGBA, RGBX, CMYK, 16- and 32-bit gray, YCbCr (``YCC``, Pillow's integer
+  YCbCr -> RGB tables) and the floating-point modes (every ``F;*``
+  rawmode: 8-, 16- and 32-bit integers, signed or not, float32, and the
+  bit decoder's 2- to 31-bit samples), which Pillow's ``F -> L`` convert
+  truncates into 0..255.  Written: RGB, RGBA and 16-bit gray (``L 16``),
+  with the ``Name:`` line of the output's base name.
+* **DCX**: the first page of the directory, a PCX read at its offset.
 """
 
 from __future__ import annotations
@@ -57,9 +61,9 @@ from dspfun_tpu_torch import _hostbuild
 from dspfun_tpu_torch.io import gif as _gif
 from dspfun_tpu_torch.io import png as _png
 
-__all__ = ["Skip", "bomb_check", "decode_im", "decode_pcx", "decode_qoi", "decode_sgi",
-           "decode_tga", "encode_im", "encode_pcx", "encode_qoi", "encode_sgi", "encode_tga",
-           "open_im", "open_pcx", "open_qoi", "open_sgi", "open_tga"]
+__all__ = ["Skip", "bomb_check", "decode_dcx", "decode_im", "decode_pcx", "decode_qoi",
+           "decode_sgi", "decode_tga", "encode_im", "encode_pcx", "encode_qoi", "encode_sgi", "encode_tga",
+           "open_dcx", "open_im", "open_pcx", "open_qoi", "open_sgi", "open_tga"]
 
 _ERRORS = {-1: "buffer overrun when reading image file",
            -20: "image file is truncated"}
@@ -148,6 +152,8 @@ def _load() -> ctypes.CDLL:
     lib.sgi_rle_decode.argtypes = [c.c_char_p, i64, c.c_int, c.c_int, c.c_int, c.c_int, u8p]
     lib.pcx_decode.restype = c.c_int
     lib.pcx_decode.argtypes = [c.c_char_p, i64, i64, i64, i64, c.c_int, u8p]
+    lib.packbits_decode.restype = c.c_int
+    lib.packbits_decode.argtypes = [c.c_char_p, i64, i64, i64, i64, u8p]
     lib.pcx_encode.restype = i64
     lib.pcx_encode.argtypes = [u8p, c.c_int, i64, c.c_int, u8p]
     lib.resample_8bpc.restype = None
@@ -279,10 +285,12 @@ def encode_tga(arr: np.ndarray) -> bytes:
 _GRAY_RAMP = bytes(np.repeat(np.arange(256, dtype=np.uint8), 3))
 
 
-def open_pcx(data: bytes) -> dict:
-    """``PcxImageFile._open``: mode, size, palette and the decoder's
-    stride; ``OSError`` for a mode Pillow does not know."""
-    s = data[:68]
+def open_pcx(data: bytes, at: int = 0) -> dict:
+    """``PcxImageFile._open`` of the header at ``at``: mode, size, palette
+    and the decoder's stride; ``OSError`` for a mode Pillow does not know.
+    The palette of an 8-bit file is the last 769 bytes of all of ``data``
+    (a DCX page's too)."""
+    s = data[at:at + 68]
     if not (len(s) >= 2 and s[0] == 10 and s[1] in (0, 2, 3, 5)):
         raise Skip("not a PCX file")
     x0, y0, x1, y1 = _i16(s, 4), _i16(s, 6), _i16(s, 8) + 1, _i16(s, 10) + 1
@@ -309,21 +317,22 @@ def open_pcx(data: bytes) -> dict:
     stride = (w * bits + 7) // 8
     if stored != stride:
         stride += stride % 2
-    return dict(size=(w, h), mode=mode, rawmode=raw, palette=palette, bytes=planes * stride)
+    return dict(size=(w, h), mode=mode, rawmode=raw, palette=palette, bytes=planes * stride,
+                offset=at + 128)
 
 
 _PCX_BITS = {"1": 1, "P;2L": 2, "P;4L": 4, "L": 8, "P": 8, "RGB;L": 24}
 
 
-def decode_pcx(data: bytes) -> tuple[np.ndarray, int]:
+def decode_pcx(data: bytes, at: int = 0) -> tuple[np.ndarray, int]:
     data = bytes(data)
-    p = open_pcx(data)
+    p = open_pcx(data, at)
     (w, h), raw, nbytes = p["size"], p["rawmode"], p["bytes"]
     bomb_check(w, h)
     if (w * _PCX_BITS[raw] + 7) // 8 > nbytes:
         raise OSError(_ERRORS[-1])
     rows = np.empty((h, nbytes), np.uint8)
-    _check(_load().pcx_decode(data, len(data), 128, nbytes, w, h, _ptr(rows)))
+    _check(_load().pcx_decode(data, len(data), p["offset"], nbytes, w, h, _ptr(rows)))
     if raw == "1":
         return _bits(rows, w), 8
     if raw == "RGB;L":
@@ -355,6 +364,34 @@ def encode_pcx(arr: np.ndarray) -> bytes:
     out = np.empty(h * 3 * (2 * w + 1) + 16, np.uint8)
     n = _load().pcx_encode(_ptr(lines), h, w, 3, _ptr(out))
     return head + out[:n].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# DCX
+# ---------------------------------------------------------------------------
+
+def open_dcx(data: bytes) -> dict:
+    """``DcxImageFile._open``: the directory of at most 1024 offsets (up to
+    the first 0), then ``seek(0)``, the first page's PCX header."""
+    if not data.startswith(b"\xb1\x68\xde\x3a"):
+        raise Skip("not a DCX file")
+    offsets = []
+    for i in range(1024):
+        o = data[4 + 4 * i:8 + 4 * i]
+        if len(o) < 4:
+            raise Skip("short DCX directory")      # i32 of a short read: struct.error
+        o = struct.unpack("<I", o)[0]
+        if not o:
+            break
+        offsets.append(o)
+    if not offsets:
+        raise Skip("attempt to seek outside sequence")   # EOFError in Pillow's open
+    return open_pcx(data, offsets[0])
+
+
+def decode_dcx(data: bytes) -> tuple[np.ndarray, int]:
+    data = bytes(data)
+    return decode_pcx(data, open_dcx(data)["offset"] - 128)
 
 
 # ---------------------------------------------------------------------------
@@ -481,9 +518,60 @@ _IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 _IM_ROWS = {("1", "1"): None, ("L", "L"): (1, 1), ("P", "P"): (1, 1), ("P", "P;2"): None,
             ("P", "P;4"): None, ("LA", "LA;L"): (1, 2), ("PA", "PA;L"): (1, 2),
             ("RGB", "RGB;L"): (1, 3), ("RGB", "RGB"): (1, 3), ("RGB", "RGBX;L"): (1, 4),
-            ("RGBA", "RGBA;L"): (1, 4), ("CMYK", "CMYK;L"): (1, 4), ("I;16", "I;16"): (2, 1),
+            ("RGBA", "RGBA;L"): (1, 4), ("CMYK", "CMYK;L"): (1, 4), ("YCbCr", "YCbCr;L"): (1, 3), ("I;16", "I;16"): (2, 1),
             ("I;16L", "I;16L"): (2, 1), ("I;16B", "I;16B"): (2, 1), ("I", "I;32"): (4, 1),
             ("I", "I;32S"): (4, 1), ("RGB", "RGB;T"): None, ("RGB", "RYB;T"): None}
+
+
+# the F rawmodes of the raw decoder (Unpack.c: F;32 is unsigned), as numpy types
+_IM_FLOAT = {"F;8": "u1", "F;8S": "i1", "F;16": "<u2", "F;16S": "<i2", "F;32": "<u4",
+             "F;32F": "<f4"}
+
+
+def _bit_rows(data: bytes, pos: int, bits: int, w: int, h: int) -> np.ndarray:
+    """``BitDecode.c`` with IM's arguments (bits, pad 8, fill 3, unsigned,
+    bottom-up): samples read LSB first from each row's own bytes, the
+    bits left over at a row's end (the top of its last byte) ORed into the
+    next row's first byte, as the decoder's bit buffer keeps them."""
+    rb = (w * bits + 7) // 8
+    rows = _raw(data, pos, rb, h).astype(np.uint8)
+    left = 8 * rb - w * bits
+    if left:
+        rows = rows.copy()
+        for y in range(1, h):
+            rows[y, 0] |= rows[y - 1, rb - 1] >> (8 - left)
+    lsb = np.unpackbits(rows, axis=1, bitorder="little")[:, :w * bits].reshape(h, w, bits)
+    weights = (np.uint64(1) << np.arange(bits, dtype=np.uint64))
+    return (lsb.astype(np.uint64) * weights).sum(-1).astype(np.float32)
+
+
+def _im_float(data: bytes, pos: int, raw: str, w: int, h: int) -> np.ndarray:
+    """The float32 samples [H, W] of IM's ``F`` mode, top row first."""
+    if raw in _IM_FLOAT:
+        dt = np.dtype(_IM_FLOAT[raw])
+        rows = _raw(data, pos, w * dt.itemsize, h)
+        return rows.copy().view(dt).astype(np.float32)[::-1]
+    return _bit_rows(data, pos, int(raw[2:]), w, h)[::-1]
+
+
+def _ycbcr_table(k: float) -> np.ndarray:
+    """A row of ConvertYCbCr.c's YCbCr -> RGB tables: k * 64 * (i - 128)
+    rounded half up toward zero (C's ``(int)(x + 0.5)``)."""
+    return np.trunc(k * 64 * (np.arange(256) - 128) + 0.5).astype(np.int32)
+
+
+_YCC_R_CR, _YCC_G_CB, _YCC_G_CR, _YCC_B_CB = (_ycbcr_table(k) for k in
+                                              (1.40200, -0.34414, -0.71414, 1.77200))
+
+
+def _ycbcr_rgb(v: np.ndarray) -> np.ndarray:
+    """Pillow's ``ImagingConvertYCbCr2RGB`` of uint8 [..., 3] (Y, Cb, Cr):
+    Y plus the tables' sums shifted right by 6, clipped to 0..255."""
+    y = v[..., 0].astype(np.int32)
+    cb, cr = v[..., 1], v[..., 2]
+    out = np.stack([y + (_YCC_R_CR[cr] >> 6), y + ((_YCC_G_CB[cb] + _YCC_G_CR[cr]) >> 6),
+                    y + (_YCC_B_CB[cb] >> 6)], -1)
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def _im_number(s: str):
@@ -561,8 +649,10 @@ def decode_im(data: bytes) -> tuple[np.ndarray, int]:
     if not (isinstance(w, int) and isinstance(h, int)):
         raise ValueError(f"bad IM image size {m['size']}")
     bomb_check(w, h)
-    if mode in ("F", "YCbCr"):
-        raise _png.refusal(f"IM {mode} image", "h")
+    if mode == "F":
+        from dspfun_tpu_torch.io import imgcodecs as _codecs  # noqa: PLC0415
+
+        return _codecs._f2l(_im_float(data, pos, raw, w, h))[..., None], 8
     if (mode, raw) not in _IM_ROWS:
         raise ValueError(f"unknown raw mode {raw!r} for IM mode {mode!r}")
     if raw in ("RGB;T", "RYB;T"):
@@ -589,6 +679,8 @@ def decode_im(data: bytes) -> tuple[np.ndarray, int]:
         from dspfun_tpu_torch.io import imgcodecs as _codecs  # noqa: PLC0415
 
         out = _codecs._cmyk_rgb(out)
+    elif mode == "YCbCr":
+        out = _ycbcr_rgb(out)
     elif raw == "RGBX;L":
         out = out[..., :3]
     if mode in ("P", "PA"):

@@ -16,13 +16,16 @@
 //   PCX      PcxDecode.c (the band shift of a padded stride) and
 //            PcxEncode.c (runs of at most 63 per plane line, a lone byte
 //            below 0xc0 written as itself, the even stride's pad byte);
+//   PackBits PackBitsDecode.c, as PsdImagePlugin's tiles use it: one
+//            stream per channel, a packet that passes a row's end cut
+//            there (the rest dropped), the no-op 0x80 skipped;
 //   resample Resample.c: precompute_coeffs with the LANCZOS filter, the
 //            8-bit passes on 22-bit fixed-point weights (horizontal, then
 //            vertical, each clipped to 8 bits) and the 16-bit passes on
 //            double weights, for Image.thumbnail.
 //
 // The headers, palettes and the unpacking of rows are
-// dspfun_tpu_torch/io/rawimg.py and io/ico.py.
+// dspfun_tpu_torch/io/rawimg.py, io/ico.py and io/psd.py.
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -386,6 +389,38 @@ int pcx_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t bytes, int64
       memcpy(rows + static_cast<int64_t>(y) * bytes, buf.data(), bytes);
       x = 0;
       if (++y >= h) return overrun ? kOverrun : kOk;
+    }
+  }
+}
+
+// PackBits: h rows of `bytes` bytes from the packets at data[pos:n];
+// kTruncated where the data ends first.
+int packbits_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t bytes, int64_t h,
+                    uint8_t* rows) {
+  if (bytes <= 0 || h <= 0) return kOk;
+  int64_t x = 0, y = 0;
+  uint8_t* row = rows;
+  while (true) {
+    if (pos >= n) return kTruncated;
+    int b = data[pos];
+    if (b & 0x80) {
+      if (b == 0x80) {
+        pos++;
+        continue;
+      }
+      if (n - pos < 2) return kTruncated;
+      for (int k = 257 - b; k > 0 && x < bytes; k--) row[x++] = data[pos + 1];
+      pos += 2;
+    } else {
+      int64_t len = b + 1;
+      if (n - pos < len + 1) return kTruncated;
+      for (int64_t i = 1; i <= len && x < bytes; i++) row[x++] = data[pos + i];
+      pos += len + 1;
+    }
+    if (x >= bytes) {
+      x = 0;
+      if (++y >= h) return kOk;
+      row += bytes;
     }
   }
 }

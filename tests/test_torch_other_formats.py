@@ -36,7 +36,7 @@ from PIL import Image
 
 import chip_smoke
 from dspfun_tpu.io import images as jimages
-from dspfun_tpu_torch.io import ico, imgcodecs, rawimg
+from dspfun_tpu_torch.io import dds, ico, imgcodecs, psd, rawimg
 from dspfun_tpu_torch.io import images as timages
 from tests import torch_codec_fixtures as fx
 
@@ -431,6 +431,82 @@ def _png16(arr: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
+def _cur_cases() -> dict:
+    """Cursors of 1 to 32 bits; the largest entry by Pillow's rule (both
+    sides larger than the one kept); a 32-bit bitmap whose alpha counts
+    only at offset 22; top-down, RLE and bit-field bitmaps; offset 0; no
+    entries; entries past the end; a height of one row (half of it 0)."""
+    rgb = _image(11, 13, 23)
+    rgba = _image(11, 13, 24, 4)
+    pal = np.random.default_rng(25).integers(0, 256, (256, 3), dtype=np.uint8)
+    idx = rgb[..., 0]
+    d24 = fx.cursor_dib(rgb, 24, mask_seed=1)
+    d32 = fx.cursor_dib(rgba, 32, mask_seed=2)
+    small = fx.cursor_dib(rgb[:4, :5], 24, mask_seed=3)
+    top_down = bytearray(d24)
+    top_down[8:12] = struct.pack("<i", -22)
+    rle8 = _dib(13, 22, 8, comp=1, colors=4,
+                palette=np.hstack([pal[:4, ::-1], np.zeros((4, 1), np.uint8)]).tobytes(),
+                body=b"".join(bytes([13, (2 * y) % 4, 0, 0]) for y in range(22)) + b"\0\1")
+    bitfields = _dib(13, 22, 16, comp=3, masks=(0xF800, 0x7E0, 0x1F),
+                     body=_rows(rgb[..., :2].repeat(2, 0), 16))
+    one_row = fx.cursor_dib(rgb[:1, :5], 24, mask_seed=4)
+    one_row = one_row[:8] + struct.pack("<i", 1) + one_row[12:]
+    return {
+        "1-bit": fx.make_cur([(13, 11, fx.cursor_dib(idx % 2, 1, pal[:2], 5))]),
+        "4-bit": fx.make_cur([(13, 11, fx.cursor_dib(idx % 16, 4, pal[:16], 6))]),
+        "8-bit": fx.make_cur([(13, 11, fx.cursor_dib(idx, 8, pal, 7))]),
+        "24-bit": fx.make_cur([(13, 11, d24)]),
+        "32-bit at offset 22": fx.make_cur([(13, 11, d32)]),
+        "32-bit later": fx.make_cur([(4, 5, small), (13, 11, d32)]),
+        "largest needs both sides": fx.make_cur([(13, 11, d24), (20, 11, small),
+                                                 (5, 40, small), (14, 12, d32)]),
+        "size byte 0": fx.make_cur([(0, 0, d24), (13, 11, small)]),
+        "top-down": fx.make_cur([(13, 11, bytes(top_down))]),
+        "rle8": fx.make_cur([(13, 11, rle8)]),
+        "bit fields": fx.make_cur([(13, 11, bitfields)]),
+        "offset 0": fx.make_cur([(13, 11, 0)]) + d24,
+        "no entries": b"\0\0\2\0\0\0" + bytes(40),
+        "entries past the end": b"\0\0\2\0\5\0" + bytes(30),
+        "one row": fx.make_cur([(5, 1, one_row)]),
+    }
+
+
+def _dcx_cases() -> dict:
+    """DCX files of Pillow's PCX pages: the first page read; a directory
+    of one page at 1024 entries; an 8-bit gray page whose file ends in
+    another page's palette; a first offset past the end; an empty
+    directory; a directory cut short; a page that is not a PCX."""
+    rgb = _image(9, 14, 26)
+    gray = Image.fromarray(rgb[..., 1])
+    pages = {"rgb": _save(Image.fromarray(rgb), "PCX"), "l": _save(gray, "PCX"),
+             "p": _save(gray.convert("P", palette=Image.Palette.ADAPTIVE, colors=8), "PCX"),
+             "1": _save(gray.convert("1"), "PCX")}
+
+    def dcx(*names, offsets=None) -> bytes:
+        at = 8 + 4 * len(names)
+        if offsets is None:
+            offsets = []
+            for name in names:
+                offsets.append(at)
+                at += len(pages[name])
+        return struct.pack(f"<I{len(offsets)}II", 0x3ADE68B1, *offsets, 0) \
+            + b"".join(pages[name] for name in names)
+
+    full = struct.pack("<I", 0x3ADE68B1) + struct.pack("<1024I", *([4100] * 1024))
+    return {
+        "rgb then l": dcx("rgb", "l"),
+        "p": dcx("p", "rgb"),
+        "1-bit": dcx("1"),
+        "gray page, palette of the next": dcx("l", "p"),
+        "1024 entries": full + pages["rgb"],
+        "offset past the end": dcx("rgb", offsets=[9999]),
+        "empty directory": struct.pack("<II", 0x3ADE68B1, 0) + pages["rgb"],
+        "directory cut short": struct.pack("<III", 0x3ADE68B1, 12, 40),
+        "not a pcx page": dcx("rgb")[:12] + b"\x0b" + dcx("rgb")[13:],
+    }
+
+
 CASES = {**{f"tga {k}": v for k, v in _tga_cases().items()},
          **{f"pcx {k}": v for k, v in _pcx_cases().items()},
          **{f"sgi {k}": v for k, v in _sgi_cases().items()},
@@ -439,7 +515,9 @@ CASES = {**{f"tga {k}": v for k, v in _tga_cases().items()},
          **{f"dib {k}": v for k, v in _bmp_cases().items()},
          **{f"bmp {k}": (lambda d: b"BM" + struct.pack("<IiI", len(d) + 14, 0, 0) + d)(v)
             for k, v in _bmp_cases().items()},
-         **{f"ico {k}": v for k, v in _ico_cases().items()}}
+         **{f"ico {k}": v for k, v in _ico_cases().items()},
+         **{f"cur {k}": v for k, v in _cur_cases().items()},
+         **{f"dcx {k}": v for k, v in _dcx_cases().items()}}
 
 
 def _bmp_offsets(name: str, data: bytes) -> bytes:
@@ -460,18 +538,56 @@ def test_files_made_by_hand_read_as_the_jax_package_reads_them(name, tmp_path, m
     _same_read(tmp_path, data, monkeypatch)
 
 
-@pytest.mark.parametrize("mode", [b"L 32F", b"L 8S", b"L*12", b"YCC"])
-def test_im_float_and_ycbcr_modes_are_refused_by_8h(mode, tmp_path, monkeypatch):
-    """The IM modes the port does not read (the JAX package reads them):
-    refused naming item 8h, with cv2 and without it."""
-    path = tmp_path / "in.im"
-    path.write_bytes(_im(mode, 6, 5, bytes(range(200))))
-    assert not isinstance(_read(jimages, path, "RGB"), Exception)
-    for blocked in (False, True):
-        if blocked:
-            monkeypatch.setitem(sys.modules, "cv2", None)
-        with pytest.raises(ValueError, match=r"queue 1, item 8h"):
-            timages.read_image(str(path))
+IM_FLOAT_MODES = [b"L 32F", b"L 8S", b"L*12", b"YCC", b"L 8", b"L 16S", b"L*16S", b"L 32",
+                  b"L*32", b"L 32 F", b"L*2", b"L*7", b"L*13", b"L*31", b"L*16", b"L*8"]
+
+
+@pytest.mark.parametrize("mode", IM_FLOAT_MODES)
+def test_im_float_and_ycbcr_modes_read_as_the_jax_package_reads_them(mode, tmp_path,
+                                                                     monkeypatch):
+    """IM's floating-point modes (each ``F;*`` rawmode, the bit decoder's
+    odd widths) and YCbCr: the JAX package's pixels and depth, with cv2
+    and without it, at sizes whose rows end inside a byte; cut short, an
+    error in both."""
+    for w, h, seed in ((6, 5, 1), (7, 3, 2), (1, 4, 3), (13, 11, 4)):
+        rng = np.random.default_rng(seed)
+        body = rng.integers(0, 256, 4 * 3 * w * h, dtype=np.uint8)
+        if mode in (b"L 32F", b"L 32 F"):
+            body = rng.normal(120, 150, 3 * w * h).astype("<f4")
+            body[::5] = np.nan
+            body[1::7] = np.inf
+        data = _im(mode, w, h, body.tobytes())
+        jax = _same_read(tmp_path, data, monkeypatch)
+        assert not any(isinstance(j, Exception) for j in jax.values())
+    _same_read(tmp_path, _im(mode, 9, 9, bytes(20)), monkeypatch)
+
+
+def test_im_float_to_l_is_pillows_convert_on_a_sweep():
+    """``F -> L`` (the way ``convert("RGBA")`` takes from ``F``) on a sweep
+    of float32 values around 0 and 256, every 1/8 between, their
+    neighbours, the extremes, signed zeros, infinities and NaNs."""
+    v = np.concatenate([np.arange(-4, 262, 0.125), [0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan,
+                                                   1e-45, -1e-45, 3.4e38, -3.4e38]])
+    v = v.astype(np.float32)
+    v = np.concatenate([v, np.nextafter(v, np.float32(np.inf)),
+                        np.nextafter(v, np.float32(-np.inf))])
+    v = np.concatenate([v, np.random.default_rng(9).normal(128, 200, 20000).astype(np.float32)])
+    want = np.asarray(Image.frombytes("F", (len(v), 1), v.tobytes()).convert("RGBA"))[0, :, 0]
+    np.testing.assert_array_equal(imgcodecs._f2l(v), want)
+
+
+def test_im_ycbcr_is_pillows_convert_on_every_triple():
+    """The YCbCr -> RGB tables (ConvertYCbCr.c's, made by their formula)
+    on all 2^24 (Y, Cb, Cr) triples, a Y at a time over every (Cb, Cr)."""
+    cb, cr = np.meshgrid(np.arange(256, dtype=np.uint8), np.arange(256, dtype=np.uint8),
+                         indexing="ij")
+    for y0 in range(0, 256, 64):
+        ycc = np.stack([np.broadcast_to(np.arange(y0, y0 + 64, dtype=np.uint8)[:, None, None],
+                                        (64, 256, 256)),
+                        np.broadcast_to(cb, (64, 256, 256)), np.broadcast_to(cr, (64, 256, 256))],
+                       -1).reshape(64 * 256, 256, 3)
+        want = np.asarray(Image.frombytes("YCbCr", (256, 64 * 256), ycc.tobytes()).convert("RGB"))
+        np.testing.assert_array_equal(rawimg._ycbcr_rgb(ycc), want)
 
 
 def _damaged(seed: int) -> list:
@@ -507,7 +623,9 @@ def _port_format(data: bytes) -> str | Exception:
         return e
     return {rawimg.decode_tga: "TGA", rawimg.decode_pcx: "PCX", rawimg.decode_sgi: "SGI",
             rawimg.decode_qoi: "QOI", rawimg.decode_im: "IM", ico.decode_ico: "ICO",
-            imgcodecs.decode_dib: "DIB", imgcodecs.decode_bmp: "BMP"}.get(dec, repr(dec))
+            imgcodecs.decode_dib: "DIB", imgcodecs.decode_bmp: "BMP", ico.decode_cur: "CUR",
+            rawimg.decode_dcx: "DCX", psd.decode_psd: "PSD", dds.decode_dds: "DDS"}.get(dec,
+                                                                                     repr(dec))
 
 
 def _pillow_format(data: bytes) -> str | Exception:
@@ -656,9 +774,9 @@ def test_writes_to_stdout_are_pngs_as_in_the_jax_package(ch, capfdbinary):
 
 
 def test_check_target_takes_the_new_formats_and_refuses_the_rest():
-    for ext in WRITE_EXTS:
+    for ext in WRITE_EXTS + ("dds",):
         assert timages.check_target(f"out.{ext}") == (None, f"out.{ext}")
-    for name in ("DDS", "PDF", "XBM"):
+    for name in ("PDF", "XBM"):
         with pytest.raises(ValueError, match=r"queue 1, item 8h"):
             timages.check_target(f"out.{name.lower()}")
 

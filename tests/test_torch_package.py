@@ -62,7 +62,7 @@ def test_every_module_imports_without_jax():
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
         "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp", "io.rawimg",
-        "io.ico")} <= names
+        "io.ico", "io.psd", "io.dds")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL", "zstandard")):
@@ -334,7 +334,8 @@ def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_pat
     IM, ICO and DIB goldens read through the port's own codecs; spec of an
     RLE TGA equals spec of the same pixels as PNG and motion on RLE TGA
     frames equals motion on their PPMs, on the CPU; ispec writes every new
-    format; the rest of item 8h is still refused before any write."""
+    format; the rest of item 8h (PDF here) is still refused before any
+    write."""
     blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
     gold = ROOT / "tests" / "goldens"
     names = ["tga_rgba_rle_top.tga", "pcx_4plane.pcx", "sgi_rle_rgb.sgi", "qoi_rgba.qoi",
@@ -367,7 +368,7 @@ def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_pat
         "for src in ('tga', 'ppm'):\n"
         "    rcs.append(motion.main(args + [d + 'in%%02d.' + src, d + 'o_' + src + '.y4m']))\n"
         "try:\n"
-        "    images.write_image(d + 'out.dds', images.read_image(d + 'in.png').pixels)\n"
+        "    images.write_image(d + 'out.pdf', images.read_image(d + 'in.png').pixels)\n"
         "    refused = False\n"
         "except ValueError as e:\n"
         "    refused = 'queue 1, item 8h' in str(e)\n"
@@ -617,8 +618,8 @@ def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
-    port's own native/fax.cpp, gif.cpp, jpeg.cpp, quant.cpp, rawimg.cpp,
-    tiff.cpp, webp.cpp and zstd.cpp) matches
+    port's own native/bcn.cpp, fax.cpp, gif.cpp, jpeg.cpp, quant.cpp,
+    rawimg.cpp, tiff.cpp, webp.cpp and zstd.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
     from dspfun_tpu_torch import _build, _hostbuild
@@ -626,9 +627,9 @@ def test_package_data_ships_what_the_build_reads():
     conf = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
-    assert host == ["native/dspio.cpp", "native/fax.cpp", "native/ffv1.cpp", "native/gif.cpp",
-                    "native/jpeg.cpp", "native/quant.cpp", "native/rawimg.cpp", "native/tiff.cpp",
-                    "native/webp.cpp", "native/zstd.cpp"]
+    assert host == ["native/bcn.cpp", "native/dspio.cpp", "native/fax.cpp", "native/ffv1.cpp",
+                    "native/gif.cpp", "native/jpeg.cpp", "native/quant.cpp", "native/rawimg.cpp",
+                    "native/tiff.cpp", "native/webp.cpp", "native/zstd.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]

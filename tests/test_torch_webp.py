@@ -395,7 +395,7 @@ def test_webp_output_is_unchanged(tmp_path, monkeypatch):
 
 OTHER_SAVES = {  # extension -> the mode Pillow writes it from (the rest of item 8h; the
     # formats the port carries are held to the JAX package in test_torch_other_formats.py)
-    "dds": "RGB", "blp": "P", "icns": "RGB", "msp": "1", "xbm": "1", "spider": "F",
+    "blp": "P", "icns": "RGB", "msp": "1", "xbm": "1", "spider": "F",
     "jpeg2000": "RGB", "avif": "RGB", "eps": "RGB", "pdf": "RGB", "palm": "1",
 }
 
@@ -439,7 +439,7 @@ def test_pillows_other_formats_are_refused_by_8h(ext, tmp_path, monkeypatch):
             timages.read_image(str(path))
 
 
-@pytest.mark.parametrize("name", sorted({"AVIF", "BLP", "DDS", "EPS", "ICNS", "JPEG2000", "MSP",
+@pytest.mark.parametrize("name", sorted({"AVIF", "BLP", "EPS", "ICNS", "JPEG2000", "MSP",
                                          "PALM", "PDF", "SPIDER", "XBM"}))
 def test_pillows_other_save_formats_are_refused_before_writing(name, tmp_path, monkeypatch):
     """Every save format of Pillow 12.1 the port does not write: the port

@@ -60,6 +60,18 @@ levels) and ``webp_motion0000.webp`` to ``webp_motion0007.webp`` (quality
 80 of 1080p windows of seeded levels, seed 28, ``noise=0.02``, for
 phase 21c's motion sequence).
 
+The PSD, DDS, CUR, DCX and IM fixtures of ``chip_smoke.py`` phase 25
+(``psd_dds_fixtures()``; ``chip_smoke.PSD_DDS_FIXTURES`` holds the sha256
+of each file and of the JAX package's ``read_image(..., "RGBA")`` pixels
+of it, checked by tests/test_torch_dds.py): Pillow's DDS files (each
+uncompressed mode and ``pixel_format``) and DCX files of its PCX pages
+(``psd_dds_goldens()``, kept in tests/goldens/), and files written here
+without Pillow: PSDs (:func:`make_psd`), cursors (:func:`make_cur`), DDS
+headers around bit masks, palettes and seeded random blocks
+(:func:`dds_file`, :func:`bc_blocks`) and IM's float and YCbCr modes
+(:func:`make_im`); :func:`psd_4k` and :func:`bc7_4k` write phase 25's 4K
+PSD and BC7 DDS.
+
 The TIFF writer :func:`make_tiff` (its own LZW and PackBits encoders and
 zlib; strips or tiles, chunky or planar, predictors 2 and 3, either fill
 order, the sample formats of ``MODES``) needs no Pillow: the tests and
@@ -81,6 +93,7 @@ from __future__ import annotations
 import bisect
 import hashlib
 import io
+import re
 import struct
 import sys
 import zlib
@@ -1654,7 +1667,8 @@ def main(argv=None) -> None:
         return
     for made, digest in ((fixtures(), digests), (gif_fixtures(), gif_digests),
                          (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests),
-                         (webp_fixtures(), webp_digests), (other_fixtures(), other_digests)):
+                         (webp_fixtures(), webp_digests), (other_fixtures(), other_digests),
+                         (psd_dds_goldens(), other_digests)):
         for name, data in made.items():
             (GOLDENS / name).write_bytes(data)
             print(f"    {name!r}: {digest(data)},  # {len(data)} bytes")
@@ -1662,3 +1676,330 @@ def main(argv=None) -> None:
 
 if __name__ == "__main__":
     main()
+
+
+# ---- PSD and CUR, written by hand (Pillow writes neither) ----------------------
+
+_RUN3 = re.compile(rb"(.)\1{2,127}", re.S)
+
+
+def packbits_row(row: bytes) -> bytes:
+    """One row in PackBits, fast enough for 4K rows: each run of 3 to 128
+    equal bytes (found by a regular expression) a repeat, the bytes
+    between them literals of at most 128."""
+    out, at = bytearray(), 0
+
+    def literal(lit: bytes) -> None:
+        for k in range(0, len(lit), 128):
+            out.extend(bytes([len(lit[k:k + 128]) - 1]) + lit[k:k + 128])
+
+    for m in _RUN3.finditer(row):
+        literal(row[at:m.start()])
+        out.extend(bytes([257 - (m.end() - m.start()), row[m.start()]]))
+        at = m.end()
+    literal(row[at:])
+    return bytes(out)
+
+
+def psd_resource(rid: int, name: bytes, data: bytes) -> bytes:
+    """An image resource block: ``8BIM``, its id, a Pascal name padded to
+    even length, and its data padded to even length."""
+    pname = bytes([len(name)]) + name
+    pname += b"\0" * (len(pname) % 2)
+    return b"8BIM" + struct.pack(">H", rid) + pname + struct.pack(">I", len(data)) + data \
+        + b"\0" * (len(data) % 2)
+
+
+def make_psd(planes, mode: int, bits: int = 8, compression: int = 0, *, width: int | None = None,
+             color_data: bytes = b"", resources: bytes = b"", layers: bytes | None = None,
+             channels: int | None = None, body: bytes | None = None) -> bytes:
+    """A Photoshop file of ``planes`` (uint8 [C, H, rowbytes]: the rows of
+    each channel as stored, bits already packed for a 1-bit file): the
+    header (``channels`` defaults to C), the colour mode data, the image
+    resources, a layer section (``layers``: its content after the length;
+    None for an empty section) and the composite image, raw (0) or
+    PackBits (1: the table of each row's byte count, then the rows coded
+    one by one); any other ``compression`` stores ``body`` (or nothing)
+    after its number."""
+    planes = np.asarray(planes, np.uint8)
+    c, h, rb = planes.shape
+    w = rb if width is None else width
+    head = b"8BPS" + struct.pack(">H6sHIIHH", 1, b"", channels or c, h, w, bits, mode)
+    out = head + struct.pack(">I", len(color_data)) + color_data
+    out += struct.pack(">I", len(resources)) + resources
+    if layers is None:
+        out += struct.pack(">I", 0)
+    else:
+        out += struct.pack(">I", len(layers)) + layers
+    out += struct.pack(">H", compression)
+    if compression == 0:
+        return out + planes.tobytes()
+    if compression != 1:
+        return out + (body or b"")
+    rows = [packbits_row(planes[k, y].tobytes()) for k in range(c) for y in range(h)]
+    return out + struct.pack(f">{len(rows)}H", *map(len, rows)) + b"".join(rows)
+
+
+def psd_layers(seed: int, n: int = 2) -> bytes:
+    """A layer section Pillow's open skips (its length is all it reads):
+    the layer info length, a count and seeded records it never parses."""
+    rng = np.random.default_rng(seed)
+    info = struct.pack(">h", n) + rng.integers(0, 256, 40 * n, dtype=np.uint8).tobytes()
+    return struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+
+
+def make_cur(entries) -> bytes:
+    """A cursor file: the directory of ``entries`` (width byte, height
+    byte, DIB bytes or an int offset to point at instead), then the
+    DIBs in order."""
+    head = struct.pack("<HHH", 0, 2, len(entries))
+    at = len(head) + 16 * len(entries)
+    dirs, body = b"", b""
+    for w, h, dib in entries:
+        if isinstance(dib, int):
+            dirs += struct.pack("<BBBBHHII", w, h, 0, 0, 1, 1, 0, dib)
+            continue
+        dirs += struct.pack("<BBBBHHII", w, h, 0, 0, 1, 1, len(dib), at + len(body))
+        body += dib
+    return head + dirs + body
+
+
+def cursor_dib(img: np.ndarray, bits: int, palette: np.ndarray | None = None,
+               mask_seed: int = 0) -> bytes:
+    """A cursor's DIB: a 40-byte header of twice the height, the palette
+    (``bits`` <= 8: ``img`` holds indices), the bottom-up rows of ``img``
+    (BGR(A) for 24 and 32 bits) and a seeded AND mask."""
+    h, w = img.shape[:2]
+    ncol = 0 if bits > 8 else len(palette)
+    head = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 2835, 2835, ncol, 0)
+    pal = b"" if bits > 8 else np.hstack([palette[:, ::-1], np.zeros((ncol, 1), np.uint8)]) \
+        .astype(np.uint8).tobytes()
+    stride = ((w * bits + 31) >> 3) & ~3
+    if bits <= 8:
+        v = np.packbits(np.unpackbits(img.astype(np.uint8)[..., None], axis=-1)[..., 8 - bits:]
+                        .reshape(h, w * bits), axis=1)
+    else:
+        v = img[..., [2, 1, 0, 3][:bits // 8]].reshape(h, -1)
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :v.shape[1]] = v
+    mstride = ((w + 31) >> 3) & ~3
+    mask = np.random.default_rng(mask_seed).integers(0, 256, (h, mstride), dtype=np.uint8)
+    return head + pal + rows[::-1].tobytes() + mask.tobytes()
+
+
+def make_im(kind: str, w: int, h: int, body: bytes) -> bytes:
+    """An IM file: ``Image type: <kind> image`` and the size in a 512-byte
+    header, then ``body`` (bottom-up rows, as IM stores them)."""
+    head = f"Image type: {kind} image\r\nImage size (x*y): {w}*{h}\r\n".encode("ascii")
+    return head + b"\0" * (511 - len(head)) + b"\x1a" + body
+
+
+def dds_file(w: int, h: int, body: bytes, pfflags: int, fourcc: bytes = bytes(4),
+             bitcount: int = 0, masks=(0, 0, 0, 0), dxgi: int | None = None,
+             mipmaps: int = 0, palette: bytes = b"") -> bytes:
+    """A DDS file: the 124-byte header with the pixel format given, the
+    DX10 header where ``dxgi`` is set (four-CC ``DX10``), a palette, then
+    ``body`` (the top surface, and whatever follows it)."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    head = b"DDS " + struct.pack("<7I", 124, 0x1007 | (0x20000 if mipmaps else 0), h, w, 0, 0,
+                                 mipmaps) + bytes(44)
+    head += struct.pack("<2I4sI4I", 32, pfflags, fourcc, bitcount, *masks)
+    head += struct.pack("<5I", 0x1000 | (0x400008 if mipmaps else 0), 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + palette + body
+
+
+def bc_blocks(w: int, h: int, block_bytes: int, seed: int) -> bytes:
+    """Seeded random blocks for a w x h surface (any 16 bytes are a valid
+    block of each BC format)."""
+    n = ((w + 3) // 4) * ((h + 3) // 4)
+    return np.random.default_rng(seed).integers(0, 256, n * block_bytes, dtype=np.uint8).tobytes()
+
+
+def _packed(px: np.ndarray, masks, nbytes: int) -> bytes:
+    """uint8 channel values [H, W, C] placed in ``masks``' bits (each value
+    scaled to its mask's width), little-endian pixels of ``nbytes``."""
+    v = np.zeros(px.shape[:2], np.uint64)
+    for i, mask in enumerate(masks):
+        if mask:
+            shift = (mask & -mask).bit_length() - 1
+            top = mask >> shift
+            v |= ((px[..., i].astype(np.uint64) * top // 255) << np.uint64(shift)) & np.uint64(mask)
+    return np.ascontiguousarray(v.astype(f"<u{8 if nbytes > 4 else 4}")
+                                .view(np.uint8).reshape(*px.shape[:2], -1)[..., :nbytes]).tobytes()
+
+
+# the fixtures Pillow writes (remade by psd_dds_goldens(), kept in tests/goldens/)
+PSD_DDS_GOLDENS = ("dds_rgb.dds", "dds_rgba.dds", "dds_l.dds", "dds_la.dds", "dds_dxt1.dds",
+                   "dds_dxt3.dds", "dds_dxt5.dds", "dds_bc2.dds", "dds_bc3.dds", "dds_bc5.dds",
+                   "dcx_rgb_l.dcx", "dcx_p.dcx")
+
+
+def _slice_levels(hw, seed) -> np.ndarray:
+    rgb = levels(hw, seed)
+    rgb[:, : hw[1] // 3] = rgb[:, :1]
+    return rgb
+
+
+def psd_dds_goldens() -> dict[str, bytes]:
+    """Pillow's DDS files of 45x37 levels (seed 51): uncompressed RGB,
+    RGBA, L and LA and each ``pixel_format`` it writes, and DCX files of
+    Pillow's PCX pages behind a directory (the first page is the one
+    read)."""
+    from PIL import Image  # noqa: PLC0415
+
+    rgb = _slice_levels((37, 45), 51)
+    rgba = np.dstack([rgb, seeded_alpha(37, 45, 51)])
+    img, img_a = Image.fromarray(rgb), Image.fromarray(rgba)
+    out = {"dds_rgb.dds": _save(img, "DDS"), "dds_rgba.dds": _save(img_a, "DDS"),
+           "dds_l.dds": _save(img.convert("L"), "DDS"),
+           "dds_la.dds": _save(img_a.convert("LA"), "DDS")}
+    for pf in ("DXT1", "DXT3", "DXT5", "BC2", "BC3"):
+        out[f"dds_{pf.lower()}.dds"] = _save(img_a, "DDS", pixel_format=pf)
+    out["dds_bc5.dds"] = _save(img, "DDS", pixel_format="BC5")
+    p_img = img.convert("P", palette=Image.Palette.ADAPTIVE, colors=16)
+
+    def dcx(pages) -> bytes:
+        at = 4 + 4 * (len(pages) + 1)
+        offsets = []
+        for page in pages:
+            offsets.append(at)
+            at += len(page)
+        return struct.pack(f"<I{len(pages) + 1}I", 0x3ADE68B1, *offsets, 0) + b"".join(pages)
+
+    out["dcx_rgb_l.dcx"] = dcx([_save(img, "PCX"), _save(img.convert("L"), "PCX")])
+    out["dcx_p.dcx"] = dcx([_save(p_img, "PCX")])
+    return out
+
+
+def psd_fixtures() -> dict[str, bytes]:
+    """PSD files written by :func:`make_psd` (seed 52): each mode of
+    Pillow's ``MODES``, raw and PackBits, odd sizes, resources and a layer
+    section, and more channels than the mode's."""
+    rgb = _slice_levels((37, 45), 52)
+    alpha = seeded_alpha(37, 45, 52)
+    gray = rgb[..., 1]
+    chans = rgb.transpose(2, 0, 1)
+    pal = np.random.default_rng(52).integers(0, 256, 768, dtype=np.uint8).tobytes()
+    res = psd_resource(1005, b"res", b"x" * 16) + psd_resource(1039, b"", b"icc data!")
+    bits = np.packbits(gray > 128, axis=1)[None]
+    cmyk = np.stack([255 - rgb[..., 0], 255 - rgb[..., 1], 255 - rgb[..., 2], gray // 2])
+    lab = np.stack([gray, rgb[..., 0] // 2 + 64, rgb[..., 2] // 2 + 64])
+    return {
+        "psd_rgb_raw.psd": make_psd(chans, 3, resources=res, layers=psd_layers(52)),
+        "psd_rgb_packbits.psd": make_psd(chans, 3, compression=1, resources=res),
+        "psd_rgba_packbits.psd": make_psd(np.concatenate([chans, alpha[None]]), 3, compression=1,
+                                          layers=psd_layers(53)),
+        "psd_rgb_extra_raw.psd": make_psd(np.concatenate([chans, alpha[None], gray[None]]), 3),
+        "psd_cmyk_packbits.psd": make_psd(cmyk, 4, compression=1),
+        "psd_lab_raw.psd": make_psd(lab, 9, resources=res),
+        "psd_gray_packbits.psd": make_psd(gray[None], 1, compression=1),
+        "psd_indexed_raw.psd": make_psd((gray // 7)[None], 2, color_data=pal),
+        "psd_bitmap_packbits.psd": make_psd(bits, 0, bits=1, compression=1, width=45),
+        "psd_duotone_raw.psd": make_psd(gray[None], 8, color_data=b"duotone spec"),
+        "psd_multichannel_packbits.psd": make_psd(chans, 7, compression=1),
+    }
+
+
+def cur_fixtures() -> dict[str, bytes]:
+    """Cursor files written by :func:`make_cur` and :func:`cursor_dib`
+    (seed 53): 1, 4, 8, 24 and 32 bits, odd sizes, and several entries
+    whose largest is not the first."""
+    rgb = _slice_levels((19, 21), 53)
+    rgba = np.dstack([rgb, seeded_alpha(19, 21, 53)])
+    pal = np.random.default_rng(53).integers(0, 256, (256, 3), dtype=np.uint8)
+    idx = rgb[..., 0]
+    small = _slice_levels((8, 8), 54)
+    return {
+        "cur_1bit.cur": make_cur([(21, 19, cursor_dib(idx % 2, 1, pal[:2], 1))]),
+        "cur_4bit.cur": make_cur([(21, 19, cursor_dib(idx % 16, 4, pal[:16], 2))]),
+        "cur_8bit.cur": make_cur([(21, 19, cursor_dib(idx, 8, pal, 3))]),
+        "cur_24bit.cur": make_cur([(21, 19, cursor_dib(rgb, 24, mask_seed=4))]),
+        "cur_32bit.cur": make_cur([(21, 19, cursor_dib(rgba, 32, mask_seed=5))]),
+        "cur_entries.cur": make_cur([(8, 8, cursor_dib(small, 24, mask_seed=6)),
+                                     (21, 19, cursor_dib(rgb, 24, mask_seed=7)),
+                                     (21, 30, cursor_dib(rgb[:8], 24, mask_seed=8))]),
+    }
+
+
+def dds_made() -> dict[str, bytes]:
+    """DDS files written by :func:`dds_file` (seed 54): bit masks of 16,
+    24 and 32 bits, the 8-bit palette, BC4, BC5 signed, ATI1 and ATI2, and
+    DX10 headers (R8G8B8A8, BC1, BC6H unsigned and signed, BC7 and its
+    sRGB form), surfaces of 45x37 with a mipmap after one of them."""
+    w, h = 45, 37
+    rgb = _slice_levels((h, w), 54)
+    rgba = np.dstack([rgb, seeded_alpha(h, w, 54)])
+    pal = np.random.default_rng(54).integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    m565, m4444 = (0xF800, 0x7E0, 0x1F), (0xF00, 0xF0, 0xF, 0xF000)
+    m10 = (0x3FF, 0xFFC00, 0x3FF00000, 0xC0000000)
+    fourcc = lambda cc, nbytes, seed: dds_file(  # noqa: E731
+        w, h, bc_blocks(w, h, nbytes, seed), 0x4, fourcc=cc)
+    dx10 = lambda fmt, seed, **kw: dds_file(  # noqa: E731
+        w, h, bc_blocks(w, h, 8 if fmt in (71,) else 16, seed), 0x4, dxgi=fmt, **kw)
+    return {
+        "dds_rgb565.dds": dds_file(w, h, _packed(rgb, m565, 2), 0x40, bitcount=16,
+                                   masks=m565 + (0,)),
+        "dds_argb4444.dds": dds_file(w, h, _packed(rgba, m4444, 2), 0x41, bitcount=16,
+                                     masks=m4444),
+        "dds_rgb24_bgr.dds": dds_file(w, h, _packed(rgb, (0xFF0000, 0xFF00, 0xFF), 3), 0x40,
+                                      bitcount=24, masks=(0xFF0000, 0xFF00, 0xFF, 0)),
+        "dds_a2b10g10r10.dds": dds_file(w, h, _packed(rgba, m10, 4), 0x41, bitcount=32,
+                                        masks=m10),
+        "dds_palette.dds": dds_file(w, h, rgb[..., 0].tobytes(), 0x20, bitcount=8, palette=pal),
+        "dds_bc4.dds": fourcc(b"BC4U", 8, 1),
+        "dds_ati1.dds": fourcc(b"ATI1", 8, 2),
+        "dds_bc5s.dds": fourcc(b"BC5S", 16, 3),
+        "dds_ati2.dds": fourcc(b"ATI2", 16, 4),
+        "dds_dx10_rgba8.dds": dds_file(w, h, rgba.tobytes(), 0x4, dxgi=28),
+        "dds_dx10_bc1.dds": dx10(71, 5),
+        "dds_bc6h_uf16.dds": dx10(95, 6),
+        "dds_bc6h_sf16.dds": dx10(96, 7),
+        "dds_bc7.dds": dx10(98, 8, mipmaps=2),
+        "dds_bc7_srgb.dds": dx10(99, 9),
+    }
+
+
+def im_mode_fixtures() -> dict[str, bytes]:
+    """IM files of the floating-point and YCbCr modes (seed 55), written
+    by :func:`make_im`."""
+    w, h = 23, 17
+    rng = np.random.default_rng(55)
+    f = rng.normal(120, 100, (h, w)).astype("<f4")
+    f.flat[::9] = np.nan
+    f.flat[4::11] = np.inf
+    f.flat[5::13] = -np.inf
+    bits12 = rng.integers(0, 256, h * ((w * 12 + 7) // 8), dtype=np.uint8).tobytes()
+    bits5 = rng.integers(0, 256, h * ((w * 5 + 7) // 8), dtype=np.uint8).tobytes()
+    ycc = _slice_levels((h, w), 55)
+    return {
+        "im_f32.im": make_im("L 32F", w, h, f.tobytes()),
+        "im_f8s.im": make_im("L 8S", w, h, rng.integers(0, 256, w * h, dtype=np.uint8).tobytes()),
+        "im_f16s.im": make_im("L*16S", w, h, rng.integers(-300, 600, w * h).astype("<i2")
+                              .tobytes()),
+        "im_f32u.im": make_im("L 32", w, h, rng.integers(0, 400, w * h).astype("<u4").tobytes()),
+        "im_bits12.im": make_im("L*12", w, h, bits12),
+        "im_bits5.im": make_im("L*5", w, h, bits5),
+        "im_ycc.im": make_im("YCC", w, h, ycc.transpose(0, 2, 1).tobytes()),
+    }
+
+
+def psd_dds_fixtures(goldens: dict | None = None) -> dict[str, bytes]:
+    """Every fixture of phase 25: Pillow's (``goldens``, read from
+    tests/goldens/ when None) and those written here."""
+    if goldens is None:
+        goldens = {name: (GOLDENS / name).read_bytes() for name in PSD_DDS_GOLDENS}
+    return {**goldens, **psd_fixtures(), **cur_fixtures(), **dds_made(), **im_mode_fixtures()}
+
+
+def psd_4k(rgb: np.ndarray) -> bytes:
+    """Phase 25's 3840x2160 PackBits RGB PSD of ``rgb`` (uint8 [H, W, 3])."""
+    return make_psd(np.ascontiguousarray(rgb.transpose(2, 0, 1)), 3, compression=1)
+
+
+def bc7_4k(hw, seed: int) -> bytes:
+    """Phase 25's DX10 BC7 DDS of seeded random blocks."""
+    h, w = hw
+    return dds_file(w, h, bc_blocks(w, h, 16, seed), 0x4, dxgi=98)
