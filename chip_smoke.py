@@ -460,6 +460,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the PPM's pixels, and ``encode_dds`` of the levels Pillow's sha256.
    The int8 kernels are held to their plain versions at every shape the
    phase gave them;
+26. main path 22, JPEG 2000 read by the port's own codec
+   (``io/jpeg2000.py`` on ``native/j2k.cpp``).  (a) Every fixture of
+   ``tests/torch_codec_fixtures.py:j2k_fixtures`` (Pillow's JP2 and raw
+   codestream goldens, reversible and irreversible, tiles, RPCL with
+   precincts, quality layers, 16-bit gray, gray + alpha in CPRL, and the
+   sYCC, CMYK, palette and 12-bit signed edits made of them at run time)
+   read through ``images._decoder`` to ``decode_j2k``, file and pixels
+   equal to the JAX package's sha256 (``J2K_FIXTURES``, pinned by
+   tests/test_torch_jpeg2000.py).  (b) The two 3840x2160 goldens (an
+   irreversible JP2 of ``CODEC_4K``'s levels, a lossless JP2 of smooth
+   ramps), each decoded (best of ``J2K_REPEATS``, seconds and MB/s) to
+   Pillow's digest.  (c) ``spec -t flat -G 1000`` of the irreversible 4K
+   JP2 at ``i8@1e-5``, the spectrum equal to the one from the same levels
+   as a PNG, kernels #1-#2 once.  (d) ``ispec`` at ``i8@1e-5`` back to
+   PNG.  The int8 kernels are held to their plain versions at every shape
+   the phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -5451,6 +5467,174 @@ def _psd_dds_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+# phase 26: JPEG 2000 read by the port's own codec (io/jpeg2000.py, native/j2k.cpp) ---
+
+# name -> (sha256 of the file, of the JAX package's read_image(..., "RGBA")
+# float64 pixels; for the 4K goldens of Pillow's convert("RGB") samples)
+J2K_FIXTURES = {
+    "j2k_cmyk.jp2":
+        ("79be71ce92c4fbcf0487aca7582a5d2d9169c6e5dcbaf552bbfaf43169d3437d",
+         "50f6c6fbb1e9556bd64623a0e47b4bf1da17f0df14c56505aae100b6510d209f"),
+    "j2k_gray16.jp2":
+        ("874279a2a95b373de4f93b77a58932af45481d7ea0cc08ba9a735fa24b568bf1",
+         "107f2e1c0de2734fd4b22616627d0972b5b855dd09de56a7533c27a629d0d4ad"),
+    "j2k_index.j2k":
+        ("5b39b975713d82f6591bd78cb6de59ad61e7ee28ea2c1e80a3a59018802abe14",
+         "58f94928ebf0b27fe348547d590345a19d96e54854920b6f95db06c0b112702e"),
+    "j2k_la_cprl.j2k":
+        ("834a0d0d1d7e871523fb47e8f186ec0db8f3d5c9a7e7d1576a07122fa60096c2",
+         "9383cdac665ef02b6cee87fbfeee5748568e10ed3b06096e254c052d8b617e79"),
+    "j2k_layers.jp2":
+        ("732014e8c702332b376899a95bdf18a8b0e779ae971f82fd4626f37926d01048",
+         "f7cd4b59d523abfa1d17118a65e304fb8b088859061e3788a69d30cf7d15ad47"),
+    "j2k_pclr.jp2":
+        ("23a4b27d10dbbfe514cd481ee023cbab9a256bf7be17ce890c5ddf0fdd85af3d",
+         "ca342f762d64a24cb7ad2d2fdf9b3b942b9036c1e4418cdc2e122dae8160527f"),
+    "j2k_rgb_irreversible_mct.jp2":
+        ("747c2dc51ea4c2ad7ef4e51a653dee12254a75a9397cbc3b4a7f742fca8f49c8",
+         "9c8aaa9b872ca14d4fd2908c309d250082dab93f375456d01ce949e83bfbad08"),
+    "j2k_rgb_lossless.jp2":
+        ("8c75e9217e0622a5ec723e6fcafe22f1cb5d48f35ee35564636515c718cbfd4a",
+         "d6804c231409f7056bed7a908e3c8b66520932367683746ba7eacf08fe8c4e8e"),
+    "j2k_rgba_tiles.j2k":
+        ("fd4293db99cba9580a36b1d1d37e8fa853b7ec4ad7fe36f1275de46079f13244",
+         "0884f0d0555d3263d94b46ea78c0603d2d9cab3a2700cae32480216df670bc11"),
+    "j2k_rpcl_precincts.jp2":
+        ("d4d19b959af294db762c37af775e9e5872aef1a13e245c6cf8ba2fecc3979901",
+         "774459034d00e6317b4f181a4846986827b4f0c7f631f599111027f6397b2a69"),
+    "j2k_signed12.j2k":
+        ("a5517c673ba9a376abdc7db7f7e7b5752ce5688f58bd6145da2db380f65b8b98",
+         "cce3db30cf5ce81299e4270f83ee865afb8ad45182edd47c3cf8913278c2cb67"),
+    "j2k_sycc.jp2":
+        ("519ebeac209a736884d7704971cfc34a58ac21c3d9ea804fda4c0cd0321b2906",
+         "c4687ebcd9a803fbd0eea55490c26a718f07160e618de38e1d6f6b4f6d1c3101"),
+    "j2k_4k_irreversible.jp2":
+        ("eb89a1e12984c30c28b1021af380eb04905417bca811e37e6b1f01d94c156ee9",
+         "3f6611472f401ddb00a6e87650cfd637eea99d45eb02efe5e4cd6740c1e0aa62"),
+    "j2k_4k_lossless.jp2":
+        ("b7a4ab73102ac0770bea6aad1a30e30175f8399ef5a89f3ec3392cbe82c3730a",
+         "cf3dbfefad9371baa26077ed2d1aa8c57478573fb6403fadc7519c0cde039cf3"),
+}
+J2K_REPEATS = 3                   # (b): the 4K decodes, best of
+J2K_SPEC = "j2k_4k_irreversible.jp2"
+
+
+def _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, spec_file=J2K_SPEC,
+               device_args=()) -> dict:
+    """Main path 22: JPEG 2000 read by the port's own codec
+    (``io/jpeg2000.py`` on ``native/j2k.cpp``).  (a) Every fixture of
+    ``j2k_fixtures()`` (Pillow's goldens and the edits made of them)
+    through ``images._decoder`` to ``decode_j2k``, file and pixels equal to
+    the JAX package's digests; (b) the two 3840x2160 goldens decoded (best
+    of ``J2K_REPEATS``) to Pillow's digests; (c) spec of ``spec_file`` at
+    ``i8@1e-5`` against the same levels as a PNG; (d) ispec at
+    ``i8@1e-5`` back to PNG.  Returns the kernels' launches over the runs
+    of the JPEG 2000 files."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, jpeg2000
+    from dspfun_tpu_torch.tools import ispec, spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    same = lambda a, b: open(a, "rb").read() == open(b, "rb").read()  # noqa: E731
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    jpeg2000._load()
+    print(f"phase 26 native/j2k.cpp load: {time.perf_counter() - t0:.2f} s", flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    goldens = {}
+    for name in fx.j2k_golden_names():
+        with open(os.path.join(gold, name), "rb") as f:
+            goldens[name] = f.read()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_j2k_") as tmp:
+        # ---- (a) the fixtures to the JAX package's digests -------------------------
+        made = fx.j2k_fixtures(goldens)
+        if sorted([*made, *fx.J2K_4K]) != sorted(J2K_FIXTURES):
+            raise RuntimeError(f"phase 26a: the fixtures are not {sorted(J2K_FIXTURES)}")
+        for name, data in sorted(made.items()):
+            if images._decoder(data) is not jpeg2000.decode_j2k:
+                raise RuntimeError(f"phase 26a: {name} does not take the port's JPEG 2000 "
+                                   f"decoder")
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), fx.rgba_digest(img.pixels))
+            print(f"phase 26a {name} {img.width}x{img.height} depth {img.depth}: {len(data)} "
+                  f"bytes; read {dec_s:.4f} s; file and pixels == the JAX package's digests: "
+                  f"{got == J2K_FIXTURES[name]}", flush=True)
+            if got != J2K_FIXTURES[name]:
+                raise RuntimeError(f"phase 26a: {name} is not read as Pillow reads it: {got}")
+
+        # ---- (b) the 4K goldens decoded ------------------------------------------------
+        decoded = {}
+        for name in fx.J2K_4K:
+            data = goldens[name]
+            if images._decoder(data) is not jpeg2000.decode_j2k:
+                raise RuntimeError(f"phase 26b: {name} does not take the port's decoder")
+            best = float("inf")
+            for _ in range(J2K_REPEATS):
+                t0 = time.perf_counter()
+                arr, depth = jpeg2000.decode_j2k(data)
+                best = min(best, time.perf_counter() - t0)
+            decoded[name] = arr
+            got = (sha(data), fx.rgb_digest(arr))
+            print(f"phase 26b {name} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} ({len(data)} "
+                  f"bytes): decode {best:.4f} s (best of {J2K_REPEATS}), "
+                  f"{arr.size / 1e6 / best:.1f} MB/s of samples, {len(data) / 1e6 / best:.2f} "
+                  f"MB/s of file; file and pixels == Pillow's digests: "
+                  f"{got == J2K_FIXTURES[name]}", flush=True)
+            if got != J2K_FIXTURES[name] or depth != 8:
+                raise RuntimeError(f"phase 26b: {name} is not decoded as Pillow decodes it: {got}")
+
+        # ---- (c) spec of the 4K JP2 against the same levels as a PNG -------------------
+        src = os.path.join(tmp, "still.jp2")
+        with open(src, "wb") as f:
+            f.write(goldens[spec_file])
+        arr = decoded[spec_file]
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, arr / 255.0)
+        sh, sw = arr.shape[:2]
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        out = {k: os.path.join(tmp, f"spec_{k}.png") for k in ("ref", "jp2")}
+        with _policy("i8@1e-5"):
+            for name, inp in (("ref", ref), ("jp2", src)):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "jp2")
+                print(f"phase 26c spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 26c spec {name} launched {got}, expected {spec_i8}")
+            ok = same(out["ref"], out["jp2"])
+            print(f"phase 26c spectrum from {spec_file} == from the PNG: {ok}", flush=True)
+            if not ok:
+                raise RuntimeError("phase 26c: the JP2's spectrum differs from the PNG's")
+
+            # ---- (d) ispec back to PNG ---------------------------------------------------
+            back = os.path.join(tmp, "back.png")
+            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
+                                   + ["-t", "flat", "-G", "1000", out["jp2"], back], int8mm)
+            (wall, stages, got), _ = count.run(fn)
+        res = images.read_image(back).pixels
+        ok = got == spec_i8 and res.shape[:2] == (sh, sw) and bool(np.isfinite(res).all())
+        print(f"phase 26d ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
+              f"launches {json.dumps(got)}; max abs diff to the input "
+              f"{float(np.abs(res - arr / 255.0).max()):.4f}", flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 26d ispec launched {got} or wrote {res.shape}")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"jpeg2000 {layout}{nd} {m}x{k}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 26 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -5808,6 +5992,12 @@ def main() -> int:
     if not (psd_path.get("left3") and psd_path.get("right3")):
         raise RuntimeError(f"a kernel of the PSD and DDS path never launched: {psd_path}")
 
+    # ---- phase 26: main path 22, JPEG 2000 read by the port's own codec --------
+    torch.cuda.empty_cache()
+    j2k_path = _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft)["launches"]
+    if not (j2k_path.get("left3") and j2k_path.get("right3")):
+        raise RuntimeError(f"a kernel of the JPEG 2000 path never launched: {j2k_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -5819,7 +6009,8 @@ def main() -> int:
                              + gif_path.get(n, 0) + cmyk_path.get(n, 0)
                              + more_path.get(n, 0) + webp_path.get(n, 0)
                              + other_path.get(n, 0) + zstd_path.get(n, 0)
-                             + short_path.get(n, 0) + psd_path.get(n, 0)),
+                             + short_path.get(n, 0) + psd_path.get(n, 0)
+                             + j2k_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -5839,7 +6030,8 @@ def main() -> int:
                                      "other_formats": other_path.get(n, 0),
                                      "zstd_lzma_tiff": zstd_path.get(n, 0),
                                      "short_lossless_jpeg": short_path.get(n, 0),
-                                     "psd_dds": psd_path.get(n, 0)},
+                                     "psd_dds": psd_path.get(n, 0),
+                                     "jpeg2000": j2k_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -5876,7 +6068,8 @@ def main() -> int:
                                  + other_path.get("block_filter", 0)
                                  + zstd_path.get("block_filter", 0)
                                  + short_path.get("block_filter", 0)
-                                 + psd_path.get("block_filter", 0)),
+                                 + psd_path.get("block_filter", 0)
+                                 + j2k_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -5891,7 +6084,8 @@ def main() -> int:
                                          "zstd_lzma_tiff": zstd_path.get("block_filter", 0),
                                          "short_lossless_jpeg":
                                              short_path.get("block_filter", 0),
-                                         "psd_dds": psd_path.get("block_filter", 0)},
+                                         "psd_dds": psd_path.get("block_filter", 0),
+                                         "jpeg2000": j2k_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

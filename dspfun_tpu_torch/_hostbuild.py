@@ -4,11 +4,11 @@
 reader, pel conversions, Floyd-Steinberg dither) and ``native/ffv1.cpp``
 (the FFV1 codec) are copies of the JAX package's ``native/`` sources;
 ``native/jpeg.cpp``, ``tiff.cpp``, ``fax.cpp``, ``zstd.cpp``, ``gif.cpp``,
-``webp.cpp``, ``rawimg.cpp``, ``bcn.cpp`` and ``quant.cpp`` (the codecs of
-``io/jpeg.py``, ``io/imgcodecs.py`` (LZW, PackBits, CCITT and Zstandard
-TIFF strips), ``io/gif.py``, ``io/webp.py``, ``io/rawimg.py``,
-``io/ico.py``, ``io/psd.py`` and ``io/dds.py``, and the quantiser of
-``io/quant.py``) are the port's own.
+``webp.cpp``, ``rawimg.cpp``, ``bcn.cpp``, ``j2k.cpp`` and ``quant.cpp`` (the
+codecs of ``io/jpeg.py``, ``io/imgcodecs.py`` (LZW, PackBits, CCITT and
+Zstandard TIFF strips), ``io/gif.py``, ``io/webp.py``, ``io/rawimg.py``,
+``io/ico.py``, ``io/psd.py``, ``io/dds.py`` and ``io/jpeg2000.py``, and the
+quantiser of ``io/quant.py``) are the port's own.
 Each compiles with ``g++`` and the flags of that package's Makefile (never ``-ffast-math``:
 the dither, pel, JPEG and palette paths must round as specified) into ``build/native/`` at the root of the checkout, named by
 a hash of its source and flags, so an edited source rebuilds and an

@@ -37,7 +37,9 @@ floating-point and YCbCr modes too), ICO and CUR (``io/ico.py``, with
 Pillow's LANCZOS thumbnails on ICO write), DIB (``io/imgcodecs.py``), PSD
 (``io/psd.py``: the composite image), DDS (``io/dds.py`` with
 ``native/bcn.cpp``: uncompressed, palette, BC1 to BC7; written
-uncompressed), and MPO on write (its one frame is a JPEG), each
+uncompressed), JPEG 2000 on read (``io/jpeg2000.py`` with
+``native/j2k.cpp``: JP2 and raw codestreams, reversible and irreversible),
+and MPO on write (its one frame is a JPEG), each
 reading what Pillow decodes and writing what it writes.  They take
 every file they carry, whether cv2 imports or not.
 The rest (arithmetic-coded JPEG, old-style JPEG, ThunderScan and CCITT
@@ -46,8 +48,9 @@ or several token partitions, and WebP output) goes through
 ``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
 which are refused with cv2 too (``_cv2_decode``); where cv2 does not
 import, it is refused with a ``ValueError`` naming ROADMAP queue 1, item 8
-and its part (``png.refusal``).  Pillow's other formats (JPEG 2000, AVIF,
-EPS and the rest of ``_PILLOW_ORDER``'s refusals and ``_OTHER_WRITES``)
+and its part (``png.refusal``).  Pillow's other formats (AVIF, EPS and the
+rest of ``_PILLOW_ORDER``'s refusals and ``_OTHER_WRITES``, JPEG 2000
+writes among them), and the JPEG 2000 features no Pillow setting writes,
 are refused with or without cv2, naming item 8h, on read and before
 anything is written.
 Inputs are identified as Pillow's ``Image.open`` identifies them: each
@@ -77,6 +80,7 @@ from dspfun_tpu_torch.io import gif as _gif
 from dspfun_tpu_torch.io import ico as _ico
 from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import jpeg as _jpeg
+from dspfun_tpu_torch.io import jpeg2000 as _jpeg2000
 from dspfun_tpu_torch.io import png as _png
 from dspfun_tpu_torch.io import psd as _psd
 from dspfun_tpu_torch.io import rawimg as _rawimg
@@ -285,8 +289,7 @@ _PILLOW_ORDER = (
                      and d[14:16] in (b"\0\0", b"\3\0") and d[20:22] == b"\0\0")),
     ("FTEX", _refused("FTEX", lambda d: d.startswith(b"FTEX"))),
     ("GBR", _refused("GBR", _gbr)),
-    ("JPEG 2000", _refused("JPEG 2000", lambda d: d.startswith(
-        (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")))),
+    ("JPEG 2000", _ported(_jpeg2000.open_j2k, _jpeg2000.decode_j2k)),
     ("ICNS", _refused("ICNS", lambda d: d.startswith(b"icns"))),
     ("ICO", _ported(_ico.decode_ico, _ico.decode_ico)),  # Pillow decodes inside its open
     ("IM", _ported(_rawimg.open_im, _rawimg.decode_im)),

@@ -65,14 +65,17 @@ def refusal(what: str, part: str = "") -> ValueError:
     lead, rest = ((f"{what} is not carried by the port, with or without cv2",
                    "and no other format") if part == "h" else
                   (f"{what} needs cv2, which does not import here", "and the rest only through cv2"))
-    return ValueError(f"{lead}: the port reads "
-                      f"and writes PNG, PNM, BMP, DIB, TIFF, JPEG, GIF, TGA, PCX, SGI, QOI, IM "
-                      f"and ICO itself, and MPO as JPEG (TIFF: uncompressed, "
-                      f"LZW, deflate, PackBits, JPEG, CCITT RLE, Group 3 or Group 4, Zstandard "
-                      f"or LZMA strips or tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
-                      f"and CIELab included; JPEG: baseline and progressive Huffman, gray, RGB, "
-                      f"CMYK or YCCK) and reads WebP itself (lossy, lossless, alpha, an "
-                      f"animation's first frame), {rest} ({NOT_PORTED}{part})")
+    return ValueError(f"{lead}: the port reads and writes PNG, PNM, BMP, DIB, TIFF, JPEG, GIF, "
+                      f"TGA, PCX, SGI, QOI, IM, ICO and DDS itself, writes MPO as JPEG, and reads "
+                      f"WebP, PSD, CUR, DCX and JPEG 2000 itself (TIFF: uncompressed, LZW, "
+                      f"deflate, PackBits, JPEG, CCITT RLE, Group 3 or Group 4, Zstandard or LZMA "
+                      f"strips or tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
+                      f"and CIELab included; JPEG: baseline, extended and progressive Huffman, a "
+                      f"progressive file left short, 8-bit lossless, gray, RGB, CMYK or YCCK; "
+                      f"WebP: lossy, lossless, alpha, an animation's first frame; DDS: "
+                      f"uncompressed, palette and BC1 to BC7 read, uncompressed written; JPEG "
+                      f"2000: JP2 and raw codestreams, reversible and irreversible), {rest} "
+                      f"({NOT_PORTED}{part})")
 
 
 def _chunk(typ: bytes, data: bytes) -> bytes:

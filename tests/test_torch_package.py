@@ -62,7 +62,7 @@ def test_every_module_imports_without_jax():
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
         "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp", "io.rawimg",
-        "io.ico", "io.psd", "io.dds")} <= names
+        "io.ico", "io.psd", "io.dds", "io.jpeg2000")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL", "zstandard")):
@@ -618,7 +618,7 @@ def test_package_data_ships_what_the_build_reads():
     """Every file ``_build.py`` compiles or hashes (the sources and the
     headers they include) and every host-library source ``_hostbuild.py``
     compiles (the copies of native/dspio.cpp and native/ffv1.cpp, and the
-    port's own native/bcn.cpp, fax.cpp, gif.cpp, jpeg.cpp, quant.cpp,
+    port's own native/bcn.cpp, fax.cpp, gif.cpp, j2k.cpp, jpeg.cpp, quant.cpp,
     rawimg.cpp, tiff.cpp, webp.cpp and zstd.cpp) matches
     a package-data pattern of pyproject.toml, and the patterns name
     nothing that is not there; .gitignore lists both build directories."""
@@ -628,8 +628,8 @@ def test_package_data_ships_what_the_build_reads():
     patterns = conf["package-data"]["dspfun_tpu_torch"]
     host = [p.relative_to(PKG).as_posix() for p in _hostbuild.build_inputs()]
     assert host == ["native/bcn.cpp", "native/dspio.cpp", "native/fax.cpp", "native/ffv1.cpp",
-                    "native/gif.cpp", "native/jpeg.cpp", "native/quant.cpp", "native/rawimg.cpp",
-                    "native/tiff.cpp", "native/webp.cpp", "native/zstd.cpp"]
+                    "native/gif.cpp", "native/j2k.cpp", "native/jpeg.cpp", "native/quant.cpp",
+                    "native/rawimg.cpp", "native/tiff.cpp", "native/webp.cpp", "native/zstd.cpp"]
     for rel in host:
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
     patterns = [pat for pat in patterns if not fnmatch.fnmatch("native/x.cpp", pat)]

@@ -394,14 +394,15 @@ def test_webp_output_is_unchanged(tmp_path, monkeypatch):
 # ---- item 8h: Pillow's other formats -----------------------------------------------
 
 OTHER_SAVES = {  # extension -> the mode Pillow writes it from (the rest of item 8h; the
-    # formats the port carries are held to the JAX package in test_torch_other_formats.py)
+    # formats the port carries are held to the JAX package in test_torch_other_formats.py,
+    # and JPEG 2000 in test_torch_jpeg2000.py)
     "blp": "P", "icns": "RGB", "msp": "1", "xbm": "1", "spider": "F",
-    "jpeg2000": "RGB", "avif": "RGB", "eps": "RGB", "pdf": "RGB", "palm": "1",
+    "avif": "RGB", "eps": "RGB", "pdf": "RGB", "palm": "1",
 }
 
 
 def _other_file(ext: str) -> bytes:
-    mode = OTHER_SAVES[ext]
+    mode = {"jpeg2000": "RGB"}.get(ext) or OTHER_SAVES[ext]
     img = Image.fromarray(_image(32, 32, 5))
     img = img.convert(mode) if mode != "F" else img.convert("L").convert("F")
     fmt = {"jpeg2000": "JPEG2000"}.get(ext, ext.upper())
@@ -437,6 +438,21 @@ def test_pillows_other_formats_are_refused_by_8h(ext, tmp_path, monkeypatch):
             continue
         with pytest.raises(ValueError, match=r"queue 1, item 8h"):
             timages.read_image(str(path))
+
+
+def test_pillows_jpeg2000_is_read_as_the_jax_package_reads_it(tmp_path, monkeypatch):
+    """The JPEG 2000 file of this table (refused by 8h until the port
+    read JPEG 2000): read as the JAX package reads it, with cv2 and
+    without it."""
+    path = tmp_path / "in.bin"
+    path.write_bytes(_other_file("jpeg2000"))
+    jax = _read(jimages, path, "RGB")
+    for blocked in (False, True):
+        if blocked:
+            monkeypatch.setitem(sys.modules, "cv2", None)
+        port = timages.read_image(str(path))
+        assert port.depth == jax.depth
+        np.testing.assert_array_equal(port.pixels, jax.pixels)
 
 
 @pytest.mark.parametrize("name", sorted({"AVIF", "BLP", "EPS", "ICNS", "JPEG2000", "MSP",

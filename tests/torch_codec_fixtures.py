@@ -1668,7 +1668,7 @@ def main(argv=None) -> None:
     for made, digest in ((fixtures(), digests), (gif_fixtures(), gif_digests),
                          (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests),
                          (webp_fixtures(), webp_digests), (other_fixtures(), other_digests),
-                         (psd_dds_goldens(), other_digests)):
+                         (psd_dds_goldens(), other_digests), (j2k_goldens(), other_digests)):
         for name, data in made.items():
             (GOLDENS / name).write_bytes(data)
             print(f"    {name!r}: {digest(data)},  # {len(data)} bytes")
@@ -2003,3 +2003,151 @@ def bc7_4k(hw, seed: int) -> bytes:
     """Phase 25's DX10 BC7 DDS of seeded random blocks."""
     h, w = hw
     return dds_file(w, h, bc_blocks(w, h, 16, seed), 0x4, dxgi=98)
+
+
+# ---- JPEG 2000 (phase 26): Pillow's files, and edits of them made here ---------------
+
+J2K_4K = ("j2k_4k_irreversible.jp2", "j2k_4k_lossless.jp2")
+
+
+def j2k_ramps(hw) -> np.ndarray:
+    """Smooth 8-bit RGB levels whose lossless JPEG 2000 stays small at 4K:
+    a ramp across, a ramp down and a diagonal ramp."""
+    h, w = hw
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    return np.stack([np.rint(x * 255 / (w - 1)), np.rint(y * 255 / (h - 1)),
+                     np.rint((x + y) * 255 / (w + h - 2))], -1).astype(np.uint8)
+
+
+def j2k_goldens() -> dict[str, bytes]:
+    """Pillow's JPEG 2000 files of phase 26 (kept in tests/goldens/, as the
+    card's machine has no Pillow): both paths, JP2 and raw codestreams,
+    tiles with offsets, RPCL with precincts, quality layers, 16-bit gray,
+    gray + alpha in CPRL with PLT markers, a gray index plane for the
+    palette edit, and the two 3840x2160 files of phase 26b (the 4K levels
+    of ``codec_prog_4k.jpg`` irreversible at rate 150, and
+    :func:`j2k_ramps` lossless)."""
+    from PIL import Image  # noqa: PLC0415
+
+    import chip_smoke  # noqa: PLC0415
+
+    small = levels((120, 160), 19, noise=0.02)
+    mid = levels((333, 517), 18)
+    rgba = np.dstack([levels((96, 128), 27), seeded_alpha(96, 128, 27)])
+    gray16 = (levels((96, 128), 28)[..., 0].astype(np.uint16) * 257
+              + np.random.default_rng(28).integers(0, 256, (96, 128), dtype=np.uint16))
+    idx = (levels((64, 96), 29)[..., 0] // 7).astype(np.uint8)
+    hw = (chip_smoke.H, chip_smoke.W)
+    j2k = "JPEG2000"
+    return {
+        "j2k_rgb_lossless.jp2": _save(Image.fromarray(small), j2k),
+        "j2k_rgb_irreversible_mct.jp2": _save(Image.fromarray(mid), j2k, irreversible=True,
+                                              mct=1, quality_layers=[30]),
+        "j2k_rgba_tiles.j2k": _save(Image.fromarray(rgba), j2k, no_jp2=True, tile_size=(48, 40),
+                                    tile_offset=(5, 3), offset=(9, 7), progression="PCRL"),
+        "j2k_rpcl_precincts.jp2": _save(Image.fromarray(mid), j2k, irreversible=True,
+                                        progression="RPCL", precinct_size=(128, 128),
+                                        codeblock_size=(32, 32), quality_layers=[20]),
+        "j2k_layers.jp2": _save(Image.fromarray(small), j2k, mct=1, progression="RLCP",
+                                quality_layers=[40, 10, 2], quality_mode="rates"),
+        "j2k_gray16.jp2": _save(Image.fromarray(gray16), j2k, progression="CPRL"),
+        "j2k_la_cprl.j2k": _save(Image.fromarray(rgba).convert("LA"), j2k, no_jp2=True,
+                                 irreversible=True, progression="CPRL", codeblock_size=(16, 16),
+                                 num_resolutions=3, plt=True),
+        "j2k_index.j2k": _save(Image.fromarray(idx), j2k, no_jp2=True),
+        J2K_4K[0]: _save(Image.fromarray(levels(hw, 17, noise=0.02)), j2k, irreversible=True,
+                         quality_layers=[150]),
+        J2K_4K[1]: _save(Image.fromarray(j2k_ramps(hw)), j2k),
+    }
+
+
+def j2k_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body) + 8) + kind + body
+
+
+def make_jp2(codestream: bytes, header: bytes, nc: int, bpc: int) -> bytes:
+    """A JP2 file around a codestream: the signature and ``ftyp`` boxes, a
+    ``jp2h`` of ``ihdr`` (the codestream's size, ``nc`` components of
+    ``bpc`` - 1 | sign) and ``header`` (more boxes), and ``jp2c``."""
+    xsiz, ysiz, xo, yo = struct.unpack_from(">IIII", codestream, 8)
+    ihdr = j2k_box(b"ihdr", struct.pack(">IIHBBBB", ysiz - yo, xsiz - xo, nc, bpc, 7, 0, 0))
+    return (j2k_box(b"jP  ", b"\x0d\x0a\x87\x0a") + j2k_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + j2k_box(b"jp2h", ihdr + header) + j2k_box(b"jp2c", codestream))
+
+
+def j2k_colr(enumcs: int) -> bytes:
+    return j2k_box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs))
+
+
+def j2k_pclr(entries, depth: int = 7) -> bytes:
+    """A ``pclr`` box of 8-bit (``depth`` 7) entries, and the ``cmap`` box
+    that maps the one component through all its columns."""
+    npc = len(entries[0])
+    body = struct.pack(">HB", len(entries), npc) + bytes([depth] * npc)
+    cmap = b"".join(struct.pack(">HBB", 0, 1, i) for i in range(npc))
+    return j2k_box(b"pclr", body + b"".join(bytes(e) for e in entries)) + j2k_box(b"cmap", cmap)
+
+
+def set_enumcs(data: bytes, enumcs: int) -> bytes:
+    """A JP2 with its first ``colr`` box's enumerated colour space set."""
+    at = data.index(b"colr") + 7
+    return data[:at] + struct.pack(">I", enumcs) + data[at + 4:]
+
+
+def set_ssiz(data: bytes, ssiz: int) -> bytes:
+    """A codestream (or JP2) with every component's Ssiz byte set
+    (precision - 1, sign in the top bit)."""
+    at = data.index(b"\xff\x4f\xff\x51") + 4
+    csiz = struct.unpack_from(">H", data, at + 36)[0]
+    out = bytearray(data)
+    for c in range(csiz):
+        out[at + 38 + 3 * c] = ssiz
+    return bytes(out)
+
+
+def j2k_palette(n: int, seed: int) -> list:
+    """n seeded RGB entries, one of them repeated (Pillow's palette keeps
+    only the first of equal colours)."""
+    rng = np.random.default_rng(seed)
+    out = [tuple(int(v) for v in rng.integers(0, 256, 3)) for _ in range(n)]
+    out[5] = out[2]
+    return out
+
+
+def j2k_edits(goldens: dict) -> dict[str, bytes]:
+    """Phase 26's files edited from Pillow's without Pillow: the lossless
+    RGB file as sYCC (``colr`` 18), the RGBA tiles as CMYK (``colr`` 12 in
+    a JP2 around them), the index plane behind a 40-entry ``pclr``, and
+    the 16-bit gray file's codestream read at 12 bits, signed."""
+    gray16 = goldens["j2k_gray16.jp2"]
+    cs16 = gray16[gray16.index(b"\xff\x4f\xff\x51"):]
+    return {
+        "j2k_sycc.jp2": set_enumcs(goldens["j2k_rgb_lossless.jp2"], 18),
+        "j2k_cmyk.jp2": make_jp2(goldens["j2k_rgba_tiles.j2k"], j2k_colr(12), 4, 7),
+        "j2k_pclr.jp2": make_jp2(goldens["j2k_index.j2k"], j2k_colr(16)
+                                 + j2k_pclr(j2k_palette(40, 29)), 1, 7),
+        "j2k_signed12.j2k": set_ssiz(cs16, 0x80 | 11),
+    }
+
+
+def j2k_fixtures(goldens: dict | None = None) -> dict[str, bytes]:
+    """Every small fixture of phase 26a: Pillow's (read from tests/goldens/
+    when None) and the edits of :func:`j2k_edits`."""
+    if goldens is None:
+        goldens = {name: (GOLDENS / name).read_bytes() for name in j2k_golden_names()}
+    small = {k: v for k, v in goldens.items() if k not in J2K_4K}
+    return {**small, **j2k_edits(goldens)}
+
+
+def j2k_golden_names() -> tuple:
+    return ("j2k_rgb_lossless.jp2", "j2k_rgb_irreversible_mct.jp2", "j2k_rgba_tiles.j2k",
+            "j2k_rpcl_precincts.jp2", "j2k_layers.jp2", "j2k_gray16.jp2", "j2k_la_cprl.j2k",
+            "j2k_index.j2k", *J2K_4K)
+
+
+def j2k_4k_digest(data: bytes) -> tuple[str, str]:
+    """sha256 of a 4K file and of Pillow's ``convert("RGB")`` of it."""
+    from PIL import Image  # noqa: PLC0415
+
+    return hashlib.sha256(data).hexdigest(), rgb_digest(
+        np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
