@@ -476,6 +476,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    as a PNG, kernels #1-#2 once.  (d) ``ispec`` at ``i8@1e-5`` back to
    PNG.  The int8 kernels are held to their plain versions at every shape
    the phase gave them;
+27. main path 23, arithmetic-coded JPEG read by the port's own codec
+   (``io/jpeg.py`` on ``native/jpeg.cpp:jpg_decode_arith``).  (a) Every
+   golden of ``ARITH_FIXTURES`` (libjpeg's arithmetic coder wrote them:
+   sequential 4:2:0 and 4:4:4 with restarts, progressive gray with DAC
+   conditioning, CMYK with restarts, progressive YCCK, a short progressive
+   file, and JPEG-in-TIFF tiles and strips) through ``images._decoder`` to
+   ``decode_jpeg`` or ``decode_tiff``, file and pixels equal to Pillow's
+   digests.  (b) One golden padded past Pillow's 65,536-byte chunk raises,
+   as Pillow raises.  (c) A 3840x2160 JPEG-in-TIFF holding
+   ``codec_prog_4k.jpg``'s coefficients in one SOF9 strip, decoded (best of
+   ``ARITH_REPEATS``, seconds and MB/s) to that file's pixels, beside phase
+   17's Huffman decode of it.  (d) ``spec -t flat -G 1000`` of the TIFF at
+   ``i8@1e-5``, the spectrum equal to phase 17's of ``codec_prog_4k.jpg``,
+   kernels #1-#2 once; the int8 kernels are held to their plain versions at
+   every shape the phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -3499,7 +3514,7 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
             if got != want:
                 raise RuntimeError(f"phase 17a: {name} is not Pillow's: {got}")
             if name == "codec_prog_4k.jpg":
-                prog = arr
+                prog, prog_s = arr, dec_s
             if name.startswith("codec_lzw"):      # a small file: the rate includes the calls
                 t0 = time.perf_counter()
                 for _ in range(20):
@@ -3546,6 +3561,7 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
                        "tif": os.path.join(tmp, "crop.tif")}
             with open(sources["tif"], "wb") as f:
                 f.write(_deflate_tiff(fx, np.ascontiguousarray(rgb8[:ch, :cw]), 2))
+        spectra = {}
         for ext, src in sources.items():
             ref = os.path.join(tmp, f"ref_{ext}.png")
             pix = images.read_image(src).pixels
@@ -3567,6 +3583,8 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
                         raise RuntimeError(f"phase 17b {what} at {tag} launched {got}, "
                                            f"expected {spec_i8}")
             ok = same(out["ref"], out["src"])
+            with open(out["src"], "rb") as f:
+                spectra[ext] = sha(f.read())
             print(f"phase 17b {ext} at {tag}: spectrum == the PNG route's: {ok}", flush=True)
             if not ok:
                 raise RuntimeError(f"phase 17b at {tag}: the {ext} route differs from PNG's")
@@ -3633,7 +3651,10 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
             _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 17 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
-    return {"launches": count.total, "shapes": sorted(count.shapes)}
+    # for phase 27: codec_prog_4k.jpg's decode seconds and (unless cropped) the
+    # sha256 of its spectrum at i8@1e-5
+    return {"launches": count.total, "shapes": sorted(count.shapes), "prog_4k_decode_s": prog_s,
+            "prog_4k_spectrum": None if spec_crop else spectra["jpg"]}
 
 
 # phase 18: GIF through the port's own codec (io/gif.py, io/quant.py) -----------
@@ -5635,6 +5656,179 @@ def _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, spec_file=J2K_
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+# phase 27: arithmetic-coded JPEG read by the port's own codec (io/jpeg.py,
+# native/jpeg.cpp:jpg_decode_arith) -------------------------------------------------
+
+# name -> (sha256 of the golden, of Pillow's convert("RGB") samples); the
+# goldens are written by tests/torch_codec_fixtures.py:arith_goldens with
+# libjpeg's arithmetic coder (tests/jpeg_arith_writer.c) and pinned by
+# tests/test_torch_jpeg_arith.py
+ARITH_FIXTURES = {
+    "arith_seq_420.jpg": ("6cc6f2c285a6085d24d03fbf10e3de05cda956892f5d16fe1925dce7cd00ecc7",
+                          "b90c8df1a83ae46a02a25fa98d70e78b1081469b6e6dda7acee804ef104ecd07"),
+    "arith_seq_444_rst.jpg": ("5f7af69db38b8d6db9e714afb51a83f3729bb475ea64e9e454ddd7361b8e1f19",
+                              "91c9650fbd43ff9bd50ab7a01cac085ffe53c8cdc3b6cfd9a81dbc85d3c75b5f"),
+    "arith_prog_gray_dac.jpg": (
+        "1c96885cc5141ef5b244666d80d7d8db2a2f67b2c4ab6fcbfd2c4e1445c4e7d4",
+        "8bc188aabf9b4c55974cc32e20fad9d3c51935e5b7a1cf76dac02d6c83f0c0b5"),
+    "arith_cmyk_rows.jpg": ("c0e86d07a1be6cf5df612ef04fd308f48fece13a87eb8485b8225787f292271d",
+                            "c8571490fbaedd120e6a33d43eb54f763b9df522489ff91c9607403c2233cb76"),
+    "arith_ycck_prog.jpg": ("4ef1f94520cafe5933df768f0499f46a57fea7e338f2b8ddaa58e79cee03acc6",
+                            "6116f06f87d8206f4fead8349479f923ffb169039231d669e729a26e94b81002"),
+    "arith_prog_short.jpg": ("0a2d7eb462eaf281be96b7446d346bff60522268d0212d1d204d61c00d8b7850",
+                             "e1bf873f75a4d1546e0c3cd64e1187f9607633cdc074b59a6ca0f6f8a564151c"),
+    "arith_tiles.tif": ("7a8e8ef86ad412e26c91bb4658ed67589f286a09cd89e90bf5f1ad59715ef5cc",
+                        "4997b945f36e397bb6c97562bf80ecd50a3af948c5011d09de2feb19083b086b"),
+    "arith_gray_strips.tif": ("e6d96cac6e44798afe6876711f27fc81a7047f0df5a8cb19ee2f2390887d6f47",
+                              "3e9a02b066874bb9ada60fd04982807c8ca2c53d835ed42404592ed075173047"),
+    # codec_prog_4k.jpg's coefficients: its pixels are CODEC_FIXTURES' digest
+    "arith_4k.tif": ("60fd07a180c8a04c81de5d0ae66d2ccccc92a8086ed59036d87cda8c2525a113",
+                     "d7027c43d242312e4986ffad0ce6a4be67e11946f7806210e8a5e848971ebb50"),
+}
+ARITH_PAST = "arith_seq_444_rst.jpg"   # (b): padded to ARITH_PAST_SIZE bytes, it raises
+ARITH_PAST_SIZE = 65537
+ARITH_4K = "arith_4k.tif"
+ARITH_REPEATS = 3                 # (c): the 4K decode, best of
+
+
+def arith_past_window(data: bytes, size: int = ARITH_PAST_SIZE) -> bytes:
+    """A JPEG padded to ``size`` bytes by a COM segment after its SOI: its
+    scans move so far that the last needs bytes past the first 65,536, the
+    chunk Pillow hands libjpeg (``jpeg.PILLOW_CHUNK``)."""
+    n = size - len(data)
+    return data[:2] + b"\xff\xfe" + (n - 2).to_bytes(2, "big") + bytes(n - 4) + data[2:]
+
+
+def _arith_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, huffman_4k_s=None,
+                 jpg_spectrum=None, spec_pair=None, device_args=()) -> dict:
+    """Main path 23: arithmetic-coded JPEG through the port's own codec
+    (``io/jpeg.py`` on ``native/jpeg.cpp:jpg_decode_arith``).  (a) Every
+    golden of ``ARITH_FIXTURES`` through ``images._decoder`` to
+    ``decode_jpeg`` or ``decode_tiff``, file and pixels equal to Pillow's
+    digests (sequential, progressive, conditioned, restarts, CMYK, YCCK, a
+    short progressive file, tiles and strips of JPEG-in-TIFF); (b) a golden
+    padded past Pillow's 65,536-byte chunk raises, as Pillow raises; (c) the
+    3840x2160 JPEG-in-TIFF of ``codec_prog_4k.jpg``'s coefficients decoded
+    (best of ``ARITH_REPEATS``) to that file's pixels, beside phase 17's
+    Huffman decode of it (``huffman_4k_s``); (d) spec of the TIFF at
+    ``i8@1e-5`` equal to the spectrum of ``codec_prog_4k.jpg`` (phase 17's,
+    the sha256 ``jpg_spectrum``; run here where None; ``spec_pair``: a
+    TIFF's bytes and the path of a JPEG of the same coefficients in their
+    place, for a rehearsal on the CPU).  Returns the kernels' launches over
+    the run of the TIFF."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs, jpeg
+    from dspfun_tpu_torch.tools import spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    jpeg._load()
+    print(f"phase 27 native/jpeg.cpp load: {time.perf_counter() - t0:.2f} s", flush=True)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    goldens = {}
+    for name in ARITH_FIXTURES:
+        with open(os.path.join(gold, name), "rb") as f:
+            goldens[name] = f.read()
+    decoders = {".jpg": jpeg.decode_jpeg, ".tif": imgcodecs.decode_tiff}
+
+    # ---- (a) the goldens to Pillow's digests ---------------------------------------
+    for name, data in goldens.items():
+        if name == ARITH_4K:
+            continue
+        if images._decoder(data) is not decoders[name[-4:]]:
+            raise RuntimeError(f"phase 27a: {name} does not take the port's codec")
+        t0 = time.perf_counter()
+        arr, depth = decoders[name[-4:]](data)
+        dec_s = time.perf_counter() - t0
+        kind = ""
+        if name.endswith(".jpg"):
+            frame = jpeg.decode_coefficients(data)[0]
+            kind = (f"SOF{frame.marker - 0xC0}, {len(frame.components)} components"
+                    f"{', smoothed' if frame.smoothed else ''}; ")
+        got = (sha(data), fx.rgb_digest(arr))
+        print(f"phase 27a {name} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} ({kind}{len(data)} "
+              f"bytes): decode {dec_s:.4f} s; file and pixels == Pillow's digests: "
+              f"{got == ARITH_FIXTURES[name]}", flush=True)
+        if got != ARITH_FIXTURES[name] or depth != 8:
+            raise RuntimeError(f"phase 27a: {name} is not decoded as Pillow decodes it: {got}")
+
+    # ---- (b) past Pillow's chunk: a ValueError, as Pillow raises ----------------------
+    past = arith_past_window(goldens[ARITH_PAST])
+    try:
+        jpeg.decode_jpeg(past)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    ok = "broken data stream" in raised
+    print(f"phase 27b {ARITH_PAST} padded to {len(past)} bytes raises, as Pillow does: {ok} "
+          f"({raised[:80]})", flush=True)
+    if not ok:
+        raise RuntimeError("phase 27b: an arithmetic JPEG past Pillow's chunk does not raise")
+
+    # ---- (c) the 4K arithmetic JPEG-in-TIFF ---------------------------------------------
+    data = goldens[ARITH_4K]
+    if images._decoder(data) is not imgcodecs.decode_tiff:
+        raise RuntimeError(f"phase 27c: {ARITH_4K} does not take the port's TIFF codec")
+    best = float("inf")
+    for _ in range(ARITH_REPEATS):
+        t0 = time.perf_counter()
+        arr, _ = imgcodecs.decode_tiff(data)
+        best = min(best, time.perf_counter() - t0)
+    got = sha(np.ascontiguousarray(arr).tobytes())
+    ok = got == CODEC_FIXTURES["codec_prog_4k.jpg"][1] == ARITH_FIXTURES[ARITH_4K][1]
+    huffman = "not measured" if huffman_4k_s is None else \
+        f"{huffman_4k_s:.4f} s, {arr.size / 1e6 / huffman_4k_s:.1f} MB/s"
+    print(f"phase 27c {ARITH_4K} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} (SOF9 in one "
+          f"strip, {len(data)} bytes): decode {best:.4f} s (best of {ARITH_REPEATS}), "
+          f"{arr.size / 1e6 / best:.1f} MB/s of samples; phase 17's Huffman decode of "
+          f"codec_prog_4k.jpg {huffman}; pixels == codec_prog_4k.jpg's: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError(f"phase 27c: {ARITH_4K} decodes to other pixels: {got}")
+
+    # ---- (d) spec of the TIFF against spec of codec_prog_4k.jpg -------------------------
+    jpg = os.path.join(gold, "codec_prog_4k.jpg")
+    if spec_pair is not None:
+        (data, jpg), jpg_spectrum = spec_pair, None
+        arr, _ = imgcodecs.decode_tiff(data)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_arith_") as tmp:
+        src = os.path.join(tmp, "still.tiff")
+        with open(src, "wb") as f:
+            f.write(data)
+        sh, sw = arr.shape[:2]
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        runs = {"tif": src}
+        if jpg_spectrum is None:
+            runs["jpg"] = jpg
+        spectra = {"jpg": jpg_spectrum}
+        with _policy("i8@1e-5"):
+            for name, inp in runs.items():
+                o = os.path.join(tmp, f"spec_{name}.png")
+                fn = lambda inp=inp, o=o: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "tif")
+                with open(o, "rb") as f:
+                    spectra[name] = sha(f.read())
+                print(f"phase 27d spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 27d spec {name} launched {got}, expected {spec_i8}")
+    ok = spectra["tif"] == spectra["jpg"]
+    print(f"phase 27d spectrum of {ARITH_4K} == of codec_prog_4k.jpg"
+          f"{'' if 'jpg' in runs else ' (phase 17b)'}: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError("phase 27d: the arithmetic TIFF's spectrum differs from the JPEG's")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"arith {layout}{nd} {m}x{k}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 27 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -5930,8 +6124,8 @@ def main() -> int:
 
     # ---- phase 17: main path 13, progressive JPEG and compressed TIFF -------
     torch.cuda.empty_cache()
-    codec_path = _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm,
-                               scipy.fft)["launches"]
+    codecs = _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft)
+    codec_path = codecs["launches"]
     if not (codec_path.get("left3") and codec_path.get("right3")):
         raise RuntimeError(f"a kernel of the codecs path never launched: {codec_path}")
 
@@ -5998,6 +6192,14 @@ def main() -> int:
     if not (j2k_path.get("left3") and j2k_path.get("right3")):
         raise RuntimeError(f"a kernel of the JPEG 2000 path never launched: {j2k_path}")
 
+    # ---- phase 27: main path 23, arithmetic-coded JPEG read by the port's codec --
+    torch.cuda.empty_cache()
+    arith_path = _arith_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft,
+                              huffman_4k_s=codecs["prog_4k_decode_s"],
+                              jpg_spectrum=codecs["prog_4k_spectrum"])["launches"]
+    if not (arith_path.get("left3") and arith_path.get("right3")):
+        raise RuntimeError(f"a kernel of the arithmetic JPEG path never launched: {arith_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -6010,7 +6212,7 @@ def main() -> int:
                              + more_path.get(n, 0) + webp_path.get(n, 0)
                              + other_path.get(n, 0) + zstd_path.get(n, 0)
                              + short_path.get(n, 0) + psd_path.get(n, 0)
-                             + j2k_path.get(n, 0)),
+                             + j2k_path.get(n, 0) + arith_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -6031,7 +6233,8 @@ def main() -> int:
                                      "zstd_lzma_tiff": zstd_path.get(n, 0),
                                      "short_lossless_jpeg": short_path.get(n, 0),
                                      "psd_dds": psd_path.get(n, 0),
-                                     "jpeg2000": j2k_path.get(n, 0)},
+                                     "jpeg2000": j2k_path.get(n, 0),
+                                     "arith_jpeg": arith_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -6069,7 +6272,8 @@ def main() -> int:
                                  + zstd_path.get("block_filter", 0)
                                  + short_path.get("block_filter", 0)
                                  + psd_path.get("block_filter", 0)
-                                 + j2k_path.get("block_filter", 0)),
+                                 + j2k_path.get("block_filter", 0)
+                                 + arith_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -6085,7 +6289,8 @@ def main() -> int:
                                          "short_lossless_jpeg":
                                              short_path.get("block_filter", 0),
                                          "psd_dds": psd_path.get("block_filter", 0),
-                                         "jpeg2000": j2k_path.get("block_filter", 0)},
+                                         "jpeg2000": j2k_path.get("block_filter", 0),
+                                         "arith_jpeg": arith_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -28,8 +28,11 @@ and float samples, palettes, RGB(A), CMYK, YCbCr through libtiff's RGBA
 reader or libjpeg, CIELab through Pillow's LittleCMS transform), the
 Orientation tag applied), JPEG
 (``io/jpeg.py``: baseline, extended-sequential and progressive Huffman,
-a progressive file left short smoothed as libjpeg-turbo smooths it, and
-8-bit lossless; gray, RGB, CMYK and YCCK), GIF (``io/gif.py``: the first frame read,
+arithmetic-coded sequential and progressive (a ``.jpg`` within the
+65,536-byte chunks Pillow hands libjpeg, whose arithmetic decoder cannot
+wait for the next one; any JPEG-in-TIFF strip), a progressive file left
+short smoothed as libjpeg-turbo smooths it, and 8-bit lossless; gray,
+RGB, CMYK and YCCK; every JPEG, whether cv2 imports or not), GIF (``io/gif.py``: the first frame read,
 Pillow's median-cut or octree palette written, through ``io/quant.py``),
 WebP on read (``io/webp.py``: lossy, lossless, alpha, an animation's
 first frame), TGA, PCX, DCX, SGI, QOI and IM (``io/rawimg.py``; IM's
@@ -42,7 +45,7 @@ uncompressed), JPEG 2000 on read (``io/jpeg2000.py`` with
 and MPO on write (its one frame is a JPEG), each
 reading what Pillow decodes and writing what it writes.  They take
 every file they carry, whether cv2 imports or not.
-The rest (arithmetic-coded JPEG, old-style JPEG, ThunderScan and CCITT
+The rest (old-style JPEG, ThunderScan and CCITT
 RLE-W TIFF, 12-bit JPEG-in-TIFF, WebP frames with the simple loop filter
 or several token partitions, and WebP output) goes through
 ``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
@@ -215,9 +218,7 @@ def _jpeg_claim(d: bytes):
     why = frame and _jpeg.unidentified(frame)
     if why:
         raise _rawimg.Skip(why)     # Pillow's SOF handler raises SyntaxError
-    if _jpeg.carries(d):
-        return _jpeg.decode_jpeg
-    return lambda d: _cv2_decode(d, "JPEG")
+    return _jpeg.decode_jpeg
 
 
 def _tiff_claim(d: bytes):
@@ -433,8 +434,6 @@ def _rgba(arr: np.ndarray, trns: tuple | None) -> np.ndarray:
 def _not_carried(data: bytes, name: str) -> tuple[str, str]:
     """What a file the port's codecs do not take is, and the letter of its
     part of ROADMAP queue 1 item 8 (for the refusal without cv2)."""
-    if name == "JPEG":
-        return _jpeg.not_carried(data) or (name, "")
     if name == "TIFF":
         return _codecs.tiff_not_carried(data) or (name, "c")
     return _webp.not_carried(data) or (name, "f")

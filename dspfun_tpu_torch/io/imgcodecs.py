@@ -1223,8 +1223,6 @@ def _jpeg_frame(blk: bytes, tables) -> tuple:
     try:
         frame, coefs = _jpeg.decode_coefficients(blk, tables, lenient=True)
     except ValueError as e:
-        if "not carried" in str(e):
-            raise ValueError(f"JPEG-in-TIFF: {e}") from None
         raise ValueError(f"corrupt JPEG-in-TIFF strip or tile: {e}") from None
     return frame, coefs
 

@@ -15,7 +15,18 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
   approximation, end-of-band runs) refine the same coefficient arrays a
   sequential file fills, checked as libjpeg checks them (a bad Ss, Se,
   Ah or Al is an error, a scan out of the progression's order a warning
-  only).  A progressive file whose scans leave one of a component's first
+  only).  Arithmetic-coded files (``SOF9`` sequential, ``SOF10``
+  progressive: the QM coder of T.81 Annex D with the statistics of F.1.4
+  and G.1.3, as libjpeg's jdarith.c decodes them) fill the same arrays:
+  16 statistics tables, the DAC segment's conditioning (DC L and U, AC
+  Kx; defaults at every SOI), statistics and coder reset at each restart
+  marker, a bad code leaving the rest of its restart interval as it
+  stands, a marker met in the data ending its input with zeros.  Pillow
+  hands libjpeg a ``.jpg`` file 65,536 bytes at a time
+  (``PILLOW_CHUNK``), and libjpeg's arithmetic decoder cannot wait for the
+  next chunk: a scan that needs a byte past the chunks read when it starts
+  raises here as it does in Pillow ("broken data stream").  A
+  progressive file whose scans leave one of a component's first
   ten coefficients short (an interrupted download) is smoothed as
   libjpeg-turbo smooths it (``jdcoefct.c`` smoothing_ok and
   decompress_smooth_data, with the latch of the last scan's Al).  Lossless
@@ -25,9 +36,10 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
   as in Pillow).  Colour space as libjpeg picks it: one component gray;
   three YCbCr, or RGB under an Adobe marker with transform 0, with the
   component IDs 'R', 'G', 'B', or in a lossless file with IDs that name
-  nothing (without a JFIF marker); four CMYK, or YCCK under an Adobe
-  marker whose transform is not 0, which Pillow reads inverted
-  (``CMYK;I``) and converts to RGB with ``cmyk2rgb``.
+  nothing (without a JFIF marker; three components under an Adobe
+  transform other than 0 and 1 are YCbCr, as libjpeg assumes); four CMYK,
+  or YCCK under an Adobe marker whose transform is not 0, which Pillow
+  reads inverted (``CMYK;I``) and converts to RGB with ``cmyk2rgb``.
 * ``encode_jpeg(rgb)`` returns the bytes of Pillow's ``save(...,
   "JPEG")`` at its defaults: JFIF 1.01, quality 75 (the Annex K tables at
   50 %), Y at 2x2 and Cb, Cr at 1x1, the Annex K Huffman tables, one
@@ -38,15 +50,14 @@ and the integer transforms are ``native/jpeg.cpp``, built at first use
 (``_hostbuild.py``; a failed build raises with the compiler's message).
 ``unidentified(frame)`` names the frames Pillow's plugin does not open
 (samples other than 8-bit, components other than 1, 3 or 4), which
-``io/images.py`` passes on; ``not_carried(data)`` says what of a file the
-codec does not decode, and ``io/images.py`` sends those to cv2 (ROADMAP
-queue 1, item 8e): arithmetic-coded and differential files, and three
-components under Adobe transform 2.  A truncated or corrupt file raises
-``ValueError``, and so does a damaged one with a block whose IDCT leaves
-the range where libjpeg-turbo's SIMD arithmetic, which Pillow runs,
-agrees with the C version the port follows (8e).
-tests/test_torch_jpeg.py and test_torch_jpeg_lossless.py hold both
-directions to Pillow.
+``io/images.py`` passes on.  Frames libjpeg-turbo does not decode
+(differential ``SOF5``-``SOF7`` and ``SOF13``-``SOF15``, arithmetic
+lossless ``SOF11``) raise ``ValueError``, as Pillow raises.  A truncated or
+corrupt file raises ``ValueError``, and so does a damaged one with a block
+whose IDCT leaves the range where libjpeg-turbo's SIMD arithmetic, which
+Pillow runs, agrees with the C version the port follows (ROADMAP.md queue
+1, item 8e).  tests/test_torch_jpeg.py, test_torch_jpeg_lossless.py and
+test_torch_jpeg_arith.py hold both directions to Pillow.
 """
 
 from __future__ import annotations
@@ -60,9 +71,8 @@ import numpy as np
 
 from dspfun_tpu_torch import _hostbuild
 
-__all__ = ["Component", "Frame", "carries", "decode_coefficients", "decode_jpeg",
-           "encode_jpeg", "frame_header", "not_carried", "parse_tables", "reconstruct",
-           "unidentified"]
+__all__ = ["PILLOW_CHUNK", "Component", "Frame", "decode_coefficients", "decode_jpeg",
+           "encode_jpeg", "frame_header", "parse_tables", "reconstruct", "unidentified"]
 
 
 def _zigzag() -> tuple[int, ...]:
@@ -102,13 +112,20 @@ STD_HUFFMAN = {
 
 _MAX_DIMENSION = 65500          # libjpeg's JPEG_MAX_DIMENSION
 _CARRIED = {0xC0: "baseline", 0xC1: "extended sequential", 0xC2: "progressive",
-            0xC3: "lossless"}
-_NOT_CARRIED = {0xC5: "differential sequential",
-                0xC6: "differential progressive", 0xC7: "differential lossless",
-                0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
-                0xCB: "arithmetic-coded lossless", 0xCD: "differential arithmetic sequential",
-                0xCE: "differential arithmetic progressive",
-                0xCF: "differential arithmetic lossless"}
+            0xC3: "lossless", 0xC9: "arithmetic-coded sequential",
+            0xCA: "arithmetic-coded progressive"}
+# frames libjpeg-turbo does not decode (jdmarker.c: the hierarchical mode;
+# jdmaster.c: arithmetic-coded lossless): Pillow raises "broken data stream"
+_UNDECODED = {0xC5: "differential sequential", 0xC6: "differential progressive",
+              0xC7: "differential lossless", 0xCB: "arithmetic-coded lossless",
+              0xCD: "differential arithmetic sequential",
+              0xCE: "differential arithmetic progressive",
+              0xCF: "differential arithmetic lossless"}
+_SOF = {**_CARRIED, **_UNDECODED}
+# the bytes Pillow hands libjpeg at a time (ImageFile.MAXBLOCK), from the
+# start of the file: libjpeg's arithmetic decoder cannot suspend to wait for
+# the next ones
+PILLOW_CHUNK = 65536
 _ERRORS = {-1: "JPEG data ends inside a scan (truncated file)",
            -2: "corrupt JPEG data: no Huffman code matches",
            -3: "corrupt JPEG data: a scan's data ends before its last block",
@@ -118,7 +135,10 @@ _ERRORS = {-1: "JPEG data ends inside a scan (truncated file)",
            -7: "a damaged JPEG stream whose IDCT leaves the range in which libjpeg-turbo's "
                "SIMD and C arithmetic agree is not carried by the port's codec "
                "(ROADMAP.md queue 1, item 8e)",
-           -8: "bad lossless JPEG restart interval: not whole rows of MCUs (libjpeg refuses it)"}
+           -8: "bad lossless JPEG restart interval: not whole rows of MCUs (libjpeg refuses it)",
+           -9: "broken data stream: an arithmetic-coded scan of this JPEG runs past the "
+               f"{PILLOW_CHUNK:,}-byte chunk Pillow hands libjpeg, whose arithmetic decoder "
+               "cannot wait for the next chunk (Pillow raises)"}
 _GRAY, _YCC, _RGB, _CMYK, _YCCK = 0, 1, 2, 3, 4
 
 
@@ -165,6 +185,14 @@ class Frame:
     @property
     def lossless(self) -> bool:
         return self.marker == 0xC3
+
+    @property
+    def progressive(self) -> bool:
+        return self.marker in (0xC2, 0xCA)
+
+    @property
+    def arithmetic(self) -> bool:
+        return self.marker in (0xC9, 0xCA)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -273,6 +301,29 @@ def _dht(body: bytes, tables: dict) -> None:
         p += 17 + n
 
 
+def _default_conditioning() -> list[int]:
+    """L, U and Kx of arithmetic tables 0-15 as an SOI sets them (jdmarker.c
+    get_soi): L 0, U 1, Kx 5."""
+    return [0] * 16 + [1] * 16 + [5] * 16
+
+
+def _dac(body: bytes, cond: list[int]) -> None:
+    """jdmarker.c get_dac: per table, a DC table's L (low nibble) and U
+    (high nibble), L > U an error, or an AC table's Kx; an index past the
+    16 AC tables is an error."""
+    if len(body) % 2:
+        raise ValueError("JPEG DAC segment has a bad length")
+    for index, val in zip(body[::2], body[1::2]):
+        if index >= 32:
+            raise ValueError(f"bad JPEG DAC table index {index}")
+        if index >= 16:
+            cond[32 + index - 16] = val
+        elif val & 15 > val >> 4:
+            raise ValueError(f"bad JPEG DAC value 0x{val:02x} (L > U)")
+        else:
+            cond[index], cond[16 + index] = val & 15, val >> 4
+
+
 def _table_bytes(table) -> bytes:
     counts, vals = table
     return bytes(counts) + bytes(vals).ljust(256, b"\0")
@@ -299,14 +350,16 @@ class _Reader:
     """Marker-level state of one decode (tables, restart interval, the
     frame, its coefficients, and a progressive file's progression)."""
 
-    def __init__(self, data: bytes, lenient: bool = False):
+    def __init__(self, data: bytes, lenient: bool = False, window: int = 0):
         if not data.startswith(b"\xff\xd8"):
             raise ValueError("not a JPEG file (no SOI marker)")
         self.data = data
         self.lenient = lenient
+        self.window = window
         self.frame: Frame | None = None
         self.qtables: dict = {}
         self.htables: dict = {}
+        self.cond = _default_conditioning()
         self.restart = 0
         self.jfif = False
         self.adobe: int | None = None
@@ -316,11 +369,8 @@ class _Reader:
         # none yet): jdphuff.c's coef_bits
         self.coef_bits: list[list[int]] = []
 
-    def run(self, decode: bool) -> None:
-        """Read the markers: with ``decode`` every scan into the
-        coefficient arrays; without, the headers only, up to the first
-        SOS of a sequential file and through every SOS of a progressive
-        one (what :func:`not_carried` needs)."""
+    def run(self) -> None:
+        """Read the markers, and every scan into the coefficient arrays."""
         data = self.data
         it = _markers(data, 2)
         resume = None
@@ -340,20 +390,22 @@ class _Reader:
                 raise ValueError("corrupt JPEG data: a second SOI marker")
             body = _segment(data, pos, f"marker 0x{code:02x}")
             resume = pos + 2 + len(body)
-            if code in _CARRIED or code in _NOT_CARRIED:
+            if code in _SOF:
                 if self.frame is not None:
                     raise ValueError("corrupt JPEG data: a second SOF marker")
                 self.frame = _sof(code, body)
                 self.coef_bits = [[-1] * 64 for _ in self.frame.components]
-                if not decode:
-                    continue
-                if code in _NOT_CARRIED:
-                    raise ValueError(f"{_NOT_CARRIED[code]} JPEG is not carried by the "
-                                     "port's codec (ROADMAP.md queue 1, item 8e)")
-                self._check_carried()
+                why = unidentified(self.frame)
+                if why:
+                    raise ValueError(f"cannot identify image file ({why})")
+                if code in _UNDECODED:
+                    raise ValueError(f"{_UNDECODED[code]} JPEG (SOF{code - 0xC0}): libjpeg-turbo "
+                                     "does not decode it (Pillow raises: broken data stream)")
                 _layout(self.frame)
             elif code == 0xC4:
                 _dht(body, self.htables)
+            elif code == 0xCC:
+                _dac(body, self.cond)
             elif code == 0xDB:
                 _dqt(body, self.qtables)
             elif code == 0xDD:
@@ -368,29 +420,23 @@ class _Reader:
             elif code == 0xDA:
                 if self.frame is None:
                     raise ValueError("corrupt JPEG data: a scan before the frame header")
-                if not decode and self.frame.marker != 0xC2:
-                    return
-                resume = self._scan(body, resume, decode)
+                resume = self._scan(body, resume)
             elif not (0xE1 <= code <= 0xEF or code in (0xFE, 0xDC)):   # APPn, COM, DNL
                 raise ValueError(f"unknown JPEG marker 0x{code:02x}")
-        if self.frame is None or decode and not self.coefs:
+        if self.frame is None or not self.coefs:
             raise ValueError("JPEG file holds no image")
         if len(self.scanned) != len(self.frame.components):
             raise ValueError("corrupt JPEG data: a component has no scan")
         f = self.frame
-        f.smoothed = f.marker == 0xC2 and self._smoothing()
+        f.smoothed = f.progressive and self._smoothing()
         if f.smoothed:
             f.latch = tuple(b for bits in self.coef_bits for b in bits[:10])
 
-    def _check_carried(self) -> None:
-        why = unidentified(self.frame)
-        if why:
-            raise ValueError(f"cannot identify image file ({why})")
-
     def _progression(self, members: list, ss: int, se: int, ah: int, al: int) -> None:
-        """jdphuff.c start_pass_phuff_decoder: a bad Ss, Se, Ah or Al is
-        an error; a scan that does not follow the progression so far is a
-        warning only (whatever libjpeg decodes, the port decodes)."""
+        """jdphuff.c start_pass_phuff_decoder (and jdarith.c start_pass):
+        a bad Ss, Se, Ah or Al is an error; a scan that does not follow the
+        progression so far is a warning only (whatever libjpeg decodes, the
+        port decodes)."""
         if ss == 0:
             bad = se != 0
         else:
@@ -414,21 +460,23 @@ class _Reader:
             useful |= any(b != 0 for b in bits[1:10])
         return useful
 
-    def _scan(self, body: bytes, pos: int, decode: bool) -> int:
-        """One scan from ``pos``: its header checked and, with ``decode``,
-        its data decoded; returns where its data ends (``pos`` without
-        ``decode``: the marker search goes on through the data)."""
+    def _scan(self, body: bytes, pos: int) -> int:
+        """One scan from ``pos``: its header checked and its data decoded;
+        returns where its data ends."""
         f = self.frame
         ns = body[0] if body else 0
         if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
             raise ValueError("JPEG SOS segment has a bad length")
         ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
         ah, al = ahl >> 4, ahl & 15
-        progressive = f.marker == 0xC2
-        # the tables the scan's decoder reads: a sequential scan both, a
-        # progressive DC band's first pass DC, its refinements none, an
-        # AC band AC (jdphuff.c start_pass_phuff_decoder)
-        if f.lossless:
+        progressive = f.progressive
+        # the Huffman tables the scan's decoder reads: a sequential scan
+        # both, a progressive DC band's first pass DC, its refinements none,
+        # an AC band AC (jdphuff.c start_pass_phuff_decoder); an arithmetic
+        # scan none (its selectors name statistics, 0-15)
+        if f.arithmetic:
+            classes = ()
+        elif f.lossless:
             classes = (0,)
         elif not progressive:
             classes = (0, 1)
@@ -469,8 +517,6 @@ class _Reader:
             raise ValueError(f"corrupt JPEG data: bad lossless scan Ss={ss} Se={se} Ah={ah} "
                              f"Al={al}")
         self.scanned.update(members)
-        if not decode:
-            return pos
         if f.lossless:
             return self._lossless_scan(members, body, pos, b"".join(tables[:4]), ss, al)
         if not self.coefs:
@@ -489,12 +535,19 @@ class _Reader:
         ptrs = (ctypes.POINTER(ctypes.c_int16) * ns)(
             *[self.coefs[i].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for i in members])
         end = ctypes.c_int64(0)
-        head = (self.data, len(self.data), pos, ns, args, mcus_x, mcus_y, b"".join(tables),
-                self.restart)
-        if progressive:
-            rc = lib.jpg_decode_progressive(*head, ss, se, ah, al, ptrs, ctypes.byref(end))
+        head = (self.data, len(self.data), pos, ns, args, mcus_x, mcus_y)
+        if f.arithmetic:
+            # the chunks read when the scan starts: every one up to its header's end
+            limit = -(-pos // self.window) * self.window if self.window else len(self.data)
+            rc = lib.jpg_decode_arith(*head, bytes(self.cond), self.restart, int(progressive),
+                                      ss, se, ah, al, limit, int(self.lenient), ptrs,
+                                      ctypes.byref(end))
+        elif progressive:
+            rc = lib.jpg_decode_progressive(*head, b"".join(tables), self.restart, ss, se, ah,
+                                            al, ptrs, ctypes.byref(end))
         else:
-            rc = lib.jpg_decode_scan(*head, int(self.lenient and not self.restart), ptrs,
+            rc = lib.jpg_decode_scan(*head, b"".join(tables), self.restart,
+                                     int(self.lenient and not self.restart), ptrs,
                                      ctypes.byref(end))
         if rc:
             raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
@@ -538,30 +591,6 @@ def unidentified(frame: Frame) -> str | None:
     return None
 
 
-def not_carried(data: bytes) -> tuple[str, str] | None:
-    """None where ``decode_jpeg`` decodes this JPEG (its SOF is SOF0 to
-    SOF3, and three components are not under an Adobe transform 2, YCCK),
-    or raises where Pillow raises; else what it is and the letter of its
-    part of ROADMAP queue 1 item 8 (arithmetic-coded and differential
-    files, 8e).  A file whose headers cannot be parsed counts as carried
-    (but for what its frame header shows), so that ``decode_jpeg`` names
-    the fault.  Frames Pillow's plugin does not open at all (:func:`unidentified`)
-    are the caller's to pass on."""
-    r = _Reader(data)
-    try:
-        r.run(decode=False)
-    except ValueError:
-        pass
-    f = r.frame
-    if f is None or unidentified(f):
-        return None
-    if f.marker in _NOT_CARRIED:
-        return f"{_NOT_CARRIED[f.marker]} JPEG", "e"
-    if r.adobe == 2 and len(f.components) == 3:
-        return "YCCK JPEG", "e"
-    return None
-
-
 def frame_header(data: bytes) -> Frame | None:
     """The frame header of a JPEG as Pillow's plugin reads it (the first
     SOF before the first scan), or None where there is none or the
@@ -580,21 +609,19 @@ def frame_header(data: bytes) -> Frame | None:
                 continue
             body = _segment(data, pos, f"marker 0x{code:02x}")
             resume = pos + 2 + len(body)
-            if code in _CARRIED or code in _NOT_CARRIED:
+            if code in _SOF:
                 return _sof(code, body)
     except (ValueError, struct.error):
         return None
 
 
-def carries(data: bytes) -> bool:
-    """Whether ``decode_jpeg`` decodes this JPEG (:func:`not_carried`)."""
-    return not_carried(data) is None
-
-
 def parse_tables(data: bytes) -> tuple[dict, dict]:
     """The quantisation and Huffman tables of a tables-only datastream
     (SOI, DQT and DHT segments, EOI: what a TIFF's JPEGTables tag holds),
-    as ``decode_coefficients`` takes them."""
+    as ``decode_coefficients`` takes them.  A DAC segment is checked, but
+    its values do not reach a stream: the stream's own SOI sets every
+    table's conditioning back to the defaults (jdmarker.c get_soi), as it
+    does the restart interval."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("JPEG tables: no SOI marker")
     qtables, htables = {}, {}
@@ -610,12 +637,15 @@ def parse_tables(data: bytes) -> tuple[dict, dict]:
             _dqt(body, qtables)
         elif code == 0xC4:
             _dht(body, htables)
+        elif code == 0xCC:
+            _dac(body, _default_conditioning())
         elif not (0xE0 <= code <= 0xEF or code in (0xFE, 0xDD)):
             raise ValueError(f"JPEG tables: unexpected marker 0x{code:02x}")
 
 
 def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
-                        lenient: bool = False) -> tuple[Frame, list[np.ndarray]]:
+                        lenient: bool = False, window: int = 0
+                        ) -> tuple[Frame, list[np.ndarray]]:
     """The frame and each component's quantised DCT coefficients, int16
     [rows, stride, 64] in natural order (whole MCUs; blocks past the
     component's ``blocks_w`` x ``blocks_h`` are an interleaved scan's
@@ -629,11 +659,16 @@ def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
     when its source is all in memory (libtiff's): the data's end is an
     EOI, a scan that runs out of data finishes its MCU on zero bits and
     leaves the rest of its blocks zero (uniform gray), and a bit pattern
-    no Huffman code matches takes 17 bits and decodes as 0."""
-    r = _Reader(bytes(data), lenient)
+    no Huffman code matches takes 17 bits and decodes as 0; an
+    arithmetic-coded scan that runs out of data takes zeros.  ``window``
+    (0: none): the bytes libjpeg is handed at a time, from the file's
+    start, as Pillow hands them (``PILLOW_CHUNK``): an arithmetic-coded
+    scan that needs a byte past the chunks read when it starts (to its
+    header's end) raises, as libjpeg does."""
+    r = _Reader(bytes(data), lenient, window)
     if tables is not None:
         r.qtables, r.htables = dict(tables[0]), dict(tables[1])
-    r.run(decode=True)
+    r.run()
     r.frame.colorspace = _colorspace(r.frame, r.jfif, r.adobe)
     return r.frame, r.coefs
 
@@ -693,8 +728,9 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray], latch: tuple | None = Non
 def decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
     """Samples uint8 [H, W, C] (C = 1 gray, 3 RGB) and the depth 8, as
     Pillow decodes the file (a CMYK or YCCK file as its RGB conversion; a
-    progressive file left short smoothed as libjpeg-turbo smooths it)."""
-    frame, coefs = decode_coefficients(data)
+    progressive file left short smoothed as libjpeg-turbo smooths it; an
+    arithmetic-coded scan past Pillow's chunks raising, as in Pillow)."""
+    frame, coefs = decode_coefficients(data, window=PILLOW_CHUNK)
     return reconstruct(frame, coefs, frame.latch), 8
 
 
@@ -765,6 +801,9 @@ def _load() -> ctypes.CDLL:
     lib.jpg_reconstruct.argtypes = [c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int, i16pp,
                                     c.POINTER(c.c_uint16), c.c_int, c.POINTER(c.c_int32),
                                     c.POINTER(c.c_uint8)]
+    lib.jpg_decode_arith.restype = c.c_int
+    lib.jpg_decode_arith.argtypes = head[:7] + [c.c_char_p] + [c.c_int] * 6 + [
+        c.c_int64, c.c_int, i16pp, c.POINTER(c.c_int64)]
     lib.jpg_decode_lossless.restype = c.c_int
     lib.jpg_decode_lossless.argtypes = head + [c.c_int, c.c_int, c.POINTER(c.POINTER(c.c_uint16)),
                                                c.POINTER(c.c_int64)]

@@ -70,8 +70,9 @@ def refusal(what: str, part: str = "") -> ValueError:
                       f"WebP, PSD, CUR, DCX and JPEG 2000 itself (TIFF: uncompressed, LZW, "
                       f"deflate, PackBits, JPEG, CCITT RLE, Group 3 or Group 4, Zstandard or LZMA "
                       f"strips or tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
-                      f"and CIELab included; JPEG: baseline, extended and progressive Huffman, a "
-                      f"progressive file left short, 8-bit lossless, gray, RGB, CMYK or YCCK; "
+                      f"and CIELab included; JPEG: baseline, extended and progressive Huffman, "
+                      f"arithmetic-coded sequential and progressive, a progressive file left "
+                      f"short, 8-bit lossless, gray, RGB, CMYK or YCCK; "
                       f"WebP: lossy, lossless, alpha, an animation's first frame; DDS: "
                       f"uncompressed, palette and BC1 to BC7 read, uncompressed written; JPEG "
                       f"2000: JP2 and raw codestreams, reversible and irreversible), {rest} "

@@ -1,11 +1,14 @@
 // Baseline, extended-sequential and progressive JPEG (ITU-T T.81,
-// Huffman coding, 8-bit samples): the entropy decoders and encoder and
-// the integer transforms around them, written to give the bytes and
-// pixels of libjpeg-turbo's default paths, which Pillow and OpenCV use:
+// Huffman and arithmetic coding, 8-bit samples) and lossless JPEG: the
+// entropy decoders and encoder and the integer transforms around them,
+// written to give the bytes and pixels of libjpeg-turbo's default paths,
+// which Pillow and OpenCV use:
 //
-//   decode  jdhuff.c and jdphuff.c (entropy), jidctint.c jpeg_idct_islow with its
-//           range-limit table, jdsample.c (fancy upsampling: h2v1, h1v2,
-//           h2v2; int_upsample otherwise), jdcolor.c ycc_rgb_convert and
+//   decode  jdhuff.c, jdphuff.c and jdarith.c (entropy; the QM decoder
+//           and its statistics written from T.81 Annexes D, F and G),
+//           jidctint.c jpeg_idct_islow with its range-limit table,
+//           jdsample.c (fancy upsampling: h2v1, h1v2, h2v2; int_upsample
+//           otherwise), jdcolor.c ycc_rgb_convert and
 //           ycck_cmyk_convert, then Pillow's CMYK;I unpacker and its
 //           Convert.c cmyk2rgb for four components;
 //   encode  jccolor.c rgb_ycc_convert, jcsample.c h2v2_downsample with
@@ -45,6 +48,7 @@ enum {
   kNoMemory = -6,
   kSimdRange = -7,     // a block whose IDCT libjpeg-turbo's SIMD build holds otherwise
   kLosslessRestart = -8,  // a lossless restart interval that is not whole MCU rows
+  kWindow = -9,        // an arithmetic-coded scan needed a byte past the bytes allowed
 };
 
 // ---- Huffman tables -------------------------------------------------------
@@ -417,6 +421,295 @@ int scan_blocks(const uint8_t* data, int64_t len, BitReader& br, int ncomp,
     }
   }
   return err;
+}
+
+// ---- arithmetic decoding (T.81 Annex D, F.1.4, G.1.3) ----------------------
+// The QM decoder with its C register holding the next bytes below the
+// current interval (c, a, ct; 2 bytes read before the first decision),
+// renormalising lazily, before a decision: a scan reads no byte its last
+// decision does not need, as libjpeg's jdarith.c reads them.  0xFF 0x00 is a
+// data 0xFF; at 0xFF and a marker code the decoder takes zeros to the end
+// of the scan and leaves the marker for the marker reader.
+
+// Table D.2: Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS of each state
+struct QeState {
+  uint16_t qe;
+  uint8_t nlps, nmps, swtch;
+};
+const QeState kQe[114] = {
+    {0x5A1D,   1,   1, 1}, {0x2586,  14,   2, 0}, {0x1114,  16,   3, 0}, {0x080B,  18,   4, 0},
+    {0x03D8,  20,   5, 0}, {0x01DA,  23,   6, 0}, {0x00E5,  25,   7, 0}, {0x006F,  28,   8, 0},
+    {0x0036,  30,   9, 0}, {0x001A,  33,  10, 0}, {0x000D,  35,  11, 0}, {0x0006,   9,  12, 0},
+    {0x0003,  10,  13, 0}, {0x0001,  12,  13, 0}, {0x5A7F,  15,  15, 1}, {0x3F25,  36,  16, 0},
+    {0x2CF2,  38,  17, 0}, {0x207C,  39,  18, 0}, {0x17B9,  40,  19, 0}, {0x1182,  42,  20, 0},
+    {0x0CEF,  43,  21, 0}, {0x09A1,  45,  22, 0}, {0x072F,  46,  23, 0}, {0x055C,  48,  24, 0},
+    {0x0406,  49,  25, 0}, {0x0303,  51,  26, 0}, {0x0240,  52,  27, 0}, {0x01B1,  54,  28, 0},
+    {0x0144,  56,  29, 0}, {0x00F5,  57,  30, 0}, {0x00B7,  59,  31, 0}, {0x008A,  60,  32, 0},
+    {0x0068,  62,  33, 0}, {0x004E,  63,  34, 0}, {0x003B,  32,  35, 0}, {0x002C,  33,   9, 0},
+    {0x5AE1,  37,  37, 1}, {0x484C,  64,  38, 0}, {0x3A0D,  65,  39, 0}, {0x2EF1,  67,  40, 0},
+    {0x261F,  68,  41, 0}, {0x1F33,  69,  42, 0}, {0x19A8,  70,  43, 0}, {0x1518,  72,  44, 0},
+    {0x1177,  73,  45, 0}, {0x0E74,  74,  46, 0}, {0x0BFB,  75,  47, 0}, {0x09F8,  77,  48, 0},
+    {0x0861,  78,  49, 0}, {0x0706,  79,  50, 0}, {0x05CD,  48,  51, 0}, {0x04DE,  50,  52, 0},
+    {0x040F,  50,  53, 0}, {0x0363,  51,  54, 0}, {0x02D4,  52,  55, 0}, {0x025C,  53,  56, 0},
+    {0x01F8,  54,  57, 0}, {0x01A4,  55,  58, 0}, {0x0160,  56,  59, 0}, {0x0125,  57,  60, 0},
+    {0x00F6,  58,  61, 0}, {0x00CB,  59,  62, 0}, {0x00AB,  61,  63, 0}, {0x008F,  61,  32, 0},
+    {0x5B12,  65,  65, 1}, {0x4D04,  80,  66, 0}, {0x412C,  81,  67, 0}, {0x37D8,  82,  68, 0},
+    {0x2FE8,  83,  69, 0}, {0x293C,  84,  70, 0}, {0x2379,  86,  71, 0}, {0x1EDF,  87,  72, 0},
+    {0x1AA9,  87,  73, 0}, {0x174E,  72,  74, 0}, {0x1424,  72,  75, 0}, {0x119C,  74,  76, 0},
+    {0x0F6B,  74,  77, 0}, {0x0D51,  75,  78, 0}, {0x0BB6,  77,  79, 0}, {0x0A40,  77,  48, 0},
+    {0x5832,  80,  81, 1}, {0x4D1C,  88,  82, 0}, {0x438E,  89,  83, 0}, {0x3BDD,  90,  84, 0},
+    {0x34EE,  91,  85, 0}, {0x2EAE,  92,  86, 0}, {0x299A,  93,  87, 0}, {0x2516,  86,  71, 0},
+    {0x5570,  88,  89, 1}, {0x4CA9,  95,  90, 0}, {0x44D9,  96,  91, 0}, {0x3E22,  97,  92, 0},
+    {0x3824,  99,  93, 0}, {0x32B4,  99,  94, 0}, {0x2E17,  93,  86, 0}, {0x56A8,  95,  96, 1},
+    {0x4F46, 101,  97, 0}, {0x47E5, 102,  98, 0}, {0x41CF, 103,  99, 0}, {0x3C3D, 104, 100, 0},
+    {0x375E,  99,  93, 0}, {0x5231, 105, 102, 0}, {0x4C0F, 106, 103, 0}, {0x4639, 107, 104, 0},
+    {0x415E, 103,  99, 0}, {0x5627, 105, 106, 1}, {0x50E7, 108, 107, 0}, {0x4B85, 109, 103, 0},
+    {0x5597, 110, 109, 0}, {0x504F, 111, 107, 0}, {0x5A10, 110, 111, 1}, {0x5522, 112, 109, 0},
+    {0x59EB, 112, 111, 1}, {0x5A1D, 113, 113, 0},
+};
+
+constexpr int kTables = 16;        // libjpeg's NUM_ARITH_TBLS: selectors 0-15
+constexpr int kDcBins = 64, kAcBins = 256;
+constexpr int kFixedState = 113;   // the non-adapting state of sign and refinement bits
+
+struct ArithDecoder {
+  const uint8_t* d;
+  int64_t n;            // the data's length
+  int64_t limit;        // the bytes the decoder may read: [0, limit)
+  int64_t pos;
+  bool lenient;         // past the data, libtiff's fake EOI (0xFF 0xD9 repeated)
+  int64_t fake = 0;
+  int err = kOk;        // kTruncated or kWindow once a byte past limit was needed
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = 0;       // the marker code met in the data (libjpeg's unread_marker)
+  int64_t marker_at = 0;  // the index of its code byte
+  // a bin: its state (Table D.2 index) and MPS in bit 7
+  uint8_t dc_stats[kTables][kDcBins];
+  uint8_t ac_stats[kTables][kAcBins];
+  uint8_t fixed = kFixedState;
+
+  int get_byte() {
+    if (pos < limit) return d[pos++];
+    if (lenient && pos >= n) {
+      pos++;
+      return (fake++ & 1) ? 0xD9 : 0xFF;
+    }
+    if (!err) err = pos >= n ? kTruncated : kWindow;
+    return 0;
+  }
+  // jdmarker.c next_marker: skip to the next marker and take its code
+  void next_marker() {
+    for (;;) {
+      int v = get_byte();
+      while (v != 0xFF && !err) v = get_byte();
+      do v = get_byte();
+      while (v == 0xFF && !err);
+      if (err) return;
+      if (v) {
+        marker = v;
+        marker_at = pos - 1;
+        return;
+      }
+    }
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalisation and byte input (D.2.6)
+      if (--ct < 0) {
+        int v = 0;
+        if (!marker) {
+          v = get_byte();
+          if (v == 0xFF) {
+            do v = get_byte();
+            while (v == 0xFF && !err);
+            if (v == 0) {
+              v = 0xFF;
+            } else {
+              marker = v;
+              marker_at = pos - 1;
+              v = 0;
+            }
+          }
+        }
+        c = (c << 8) | v;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first two bytes read
+      }
+      a <<= 1;
+    }
+    // the decision and the estimate's update (D.2.4, D.2.5)
+    int sv = *st;
+    const QeState& q = kQe[sv & 0x7F];
+    const int64_t qe = q.qe;
+    int64_t t = a - qe;
+    a = t;
+    t <<= ct;
+    const uint8_t after_mps = static_cast<uint8_t>((sv & 0x80) ^ q.nmps);
+    const uint8_t after_lps = static_cast<uint8_t>((sv & 0x80) ^ (q.nlps | q.swtch << 7));
+    if (c >= t) {           // the lower subinterval: LPS, unless exchanged
+      c -= t;
+      if (a < qe) {
+        *st = after_mps;
+      } else {
+        *st = after_lps;
+        sv ^= 0x80;
+      }
+      a = qe;
+    } else if (a < 0x8000) {  // the upper one, renormalising: MPS, unless exchanged
+      if (a < qe) {
+        *st = after_lps;
+        sv ^= 0x80;
+      } else {
+        *st = after_mps;
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// F.1.4.4.1.2 and F.1.4.4.2: per table, L and U of the DC difference's
+// conditioning and Kx of the AC statistics (the DAC segment's values)
+struct Conditioning {
+  uint8_t L[kTables], U[kTables], K[kTables];
+};
+
+// Figures F.21-F.24: a nonzero value's sign (decided in bin sign), its
+// magnitude category (from bin first; then the categories' own bins from x1,
+// where the AC coder's second decision takes bin first again) and its
+// magnitude bits (each category's bin + 14).  Returns false on a category
+// past 2^15 (jdarith.c's warning: a bad code).  *cat: the top bit of
+// |value| - 1, 0 for a value of 1.
+bool decode_value(ArithDecoder& ad, uint8_t* stats, uint8_t* sign_bin, uint8_t* first,
+                  int x1, bool ac, int32_t* out, int32_t* cat) {
+  const int sign = ad.decode(sign_bin);
+  uint8_t* st = first + (ac ? 0 : sign);
+  int32_t m = ad.decode(st);
+  if (m) {
+    if (ac) {
+      if (ad.decode(st)) {
+        m = 2;
+        st = stats + x1;
+        while (ad.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st++;
+        }
+      }
+    } else {
+      st = stats + x1;
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st++;
+      }
+    }
+  }
+  *cat = m;
+  int32_t v = m;
+  st += 14;
+  while (m >>= 1)
+    if (ad.decode(st)) v |= m;
+  v += 1;
+  *out = sign ? -v : v;
+  return true;
+}
+
+// Figure F.19: one DC difference, its context updated (Table F.4; S0 at
+// the context, X1 = 20)
+bool decode_dc_diff(ArithDecoder& ad, int tbl, const Conditioning& cond, int* context,
+                    int32_t* diff) {
+  uint8_t* stats = ad.dc_stats[tbl];
+  uint8_t* s0 = stats + *context;
+  *diff = 0;
+  if (ad.decode(s0) == 0) {
+    *context = 0;
+    return true;
+  }
+  int32_t top;
+  if (!decode_value(ad, stats, s0 + 1, s0 + 2, 20, false, diff, &top)) return false;
+  // F.1.4.4.1.2: zero, small or large by the magnitude against L and U
+  const int neg = *diff < 0;
+  if (top < ((1 << cond.L[tbl]) >> 1))
+    *context = 0;
+  else if (top > ((1 << cond.U[tbl]) >> 1))
+    *context = 12 + 4 * neg;
+  else
+    *context = 4 + 4 * neg;
+  return true;
+}
+
+// Figure F.20 (and G.1.3.2): the AC coefficients ss..se of a block, values
+// << al; false on a bad code
+bool decode_ac(ArithDecoder& ad, int tbl, const Conditioning& cond, int ss, int se, int al,
+               int16_t* blk) {
+  uint8_t* stats = ad.ac_stats[tbl];
+  for (int k = ss; k <= se; k++) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (ad.decode(st)) break;  // end of block
+    while (ad.decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) return false;
+    }
+    int32_t v, cat;
+    if (!decode_value(ad, stats, &ad.fixed, st + 2, k <= cond.K[tbl] ? 189 : 217, true, &v,
+                      &cat))
+      return false;
+    blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+  }
+  return true;
+}
+
+// G.1.3.3: a refinement of the AC coefficients ss..se at bit al; false on a
+// bad code
+bool refine_ac(ArithDecoder& ad, int tbl, int ss, int se, int al, int16_t* blk) {
+  uint8_t* stats = ad.ac_stats[tbl];
+  const int p1 = 1 << al, m1 = -1 * (1 << al);
+  int eob = se;  // the end of block of the earlier passes
+  while (eob > 0 && blk[kNatural[eob]] == 0) eob--;
+  for (int k = ss; k <= se; k++) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (k > eob && ad.decode(st)) break;
+    for (;;) {
+      int16_t* coef = blk + kNatural[k];
+      if (*coef) {  // already nonzero: a correction bit
+        if (ad.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+        break;
+      }
+      if (ad.decode(st + 1)) {  // newly nonzero: its sign
+        *coef = static_cast<int16_t>(ad.decode(&ad.fixed) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) return false;
+    }
+  }
+  return true;
+}
+
+// jdmarker.c jpeg_resync_to_restart, where the marker met is not the RSTn
+// due: go on (the marker dropped), look for the next marker, or leave it
+// for the next intervals (which then decode from zeros)
+void resync(ArithDecoder& ad, int due) {
+  for (;;) {
+    const int m = ad.marker;
+    int action;
+    if (m < 0xC0) {
+      action = 2;
+    } else if (m < 0xD0 || m > 0xD7) {
+      action = 3;
+    } else if (m == 0xD0 + ((due + 1) & 7) || m == 0xD0 + ((due + 2) & 7)) {
+      action = 3;
+    } else if (m == 0xD0 + ((due - 1) & 7) || m == 0xD0 + ((due - 2) & 7)) {
+      action = 2;
+    } else {
+      action = 1;
+    }
+    if (action == 1) {
+      ad.marker = 0;
+      return;
+    }
+    if (action == 3) return;
+    ad.marker = 0;
+    ad.next_marker();
+    if (ad.err) return;
+  }
 }
 
 // ---- inverse DCT, upsampling, colour ---------------------------------------
@@ -1101,6 +1394,115 @@ int jpg_decode_progressive(const uint8_t* data, int64_t len, int64_t pos, int nc
   }
   *end = br.end();
   delete[] dts;
+  return err;
+}
+
+// Decode one arithmetic-coded scan (SOF9, or with progressive SOF10) into
+// the coefficients it fills or refines, as jdarith.c decodes it: arguments
+// as jpg_decode_progressive's, but for
+//   comps: the DC and AC selectors are 0-15 (libjpeg's arithmetic tables);
+//   conditioning: 48 bytes, L, U and Kx of tables 0-15 (the DAC values);
+//   limit: the data the decoder may read is data[0, limit): a byte past it
+//          is kWindow (kTruncated at len), as libjpeg raises where its
+//          arithmetic decoder cannot suspend to wait for the next bytes;
+//   lenient: past len the data is libtiff's fake EOI (limit is then len).
+// The statistics of the scan's tables start at state 0 at the scan and at
+// each restart marker.  A bad code (a magnitude or run past its range)
+// leaves the rest of its MCU and the MCUs up to the next restart as they
+// stand.  A marker met in the data ends the scan's input: the decoder takes
+// zeros, and *end is where that marker starts.
+int jpg_decode_arith(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
+                     const int32_t* comps, int mcus_x, int mcus_y, const uint8_t* conditioning,
+                     int restart, int progressive, int ss, int se, int ah, int al, int64_t limit,
+                     int lenient, int16_t* const* coefs, int64_t* end) {
+  ArithDecoder* ad = new (std::nothrow) ArithDecoder{data, len, std::min(limit, len), pos,
+                                                     lenient != 0};
+  if (!ad) return kNoMemory;
+  Conditioning cond;
+  std::memcpy(cond.L, conditioning, kTables);
+  std::memcpy(cond.U, conditioning + kTables, kTables);
+  std::memcpy(cond.K, conditioning + 2 * kTables, kTables);
+  const bool dc_stats = !progressive || (ss == 0 && ah == 0);
+  const bool ac_stats = !progressive || ss != 0;
+  if (!progressive) {
+    ss = 1;
+    se = 63;
+  }
+  int32_t last_dc[4] = {0, 0, 0, 0};
+  int context[4] = {0, 0, 0, 0};
+  auto reset = [&] {
+    for (int ci = 0; ci < ncomp; ci++) {
+      if (dc_stats) {
+        std::memset(ad->dc_stats[comps[5 * ci + 3] & 15], 0, kDcBins);
+        last_dc[ci] = 0;
+        context[ci] = 0;
+      }
+      if (ac_stats) std::memset(ad->ac_stats[comps[5 * ci + 4] & 15], 0, kAcBins);
+    }
+    ad->c = ad->a = 0;
+    ad->ct = -16;  // 2 bytes are read before the first decision
+  };
+  reset();
+  // one block: false on a bad code
+  auto block = [&](int ci, const int32_t* c, int16_t* blk) {
+    const int dct = c[3] & 15, act = c[4] & 15;
+    int32_t diff;
+    if (!progressive) {
+      if (!decode_dc_diff(*ad, dct, cond, &context[ci], &diff)) return false;
+      last_dc[ci] = static_cast<int32_t>(static_cast<uint32_t>(last_dc[ci]) + diff);
+      blk[0] = static_cast<int16_t>(last_dc[ci]);
+      return decode_ac(*ad, act, cond, ss, se, 0, blk);
+    }
+    if (ss == 0 && ah == 0) {
+      if (!decode_dc_diff(*ad, dct, cond, &context[ci], &diff)) return false;
+      last_dc[ci] = static_cast<int32_t>(static_cast<uint32_t>(last_dc[ci]) + diff);
+      blk[0] = static_cast<int16_t>(static_cast<uint32_t>(last_dc[ci]) << al);
+      return true;
+    }
+    if (ss == 0) {
+      if (ad->decode(&ad->fixed)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      return true;
+    }
+    return ah == 0 ? decode_ac(*ad, act, cond, ss, se, al, blk)
+                   : refine_ac(*ad, act, ss, se, al, blk);
+  };
+  int64_t left = restart;
+  int next_rst = 0;
+  for (int my = 0; my < mcus_y && !ad->err; my++) {
+    for (int mx = 0; mx < mcus_x && !ad->err; mx++) {
+      if (restart) {
+        if (left == 0) {  // jdarith.c process_restart
+          if (!ad->marker) ad->next_marker();
+          if (ad->err) break;
+          if (ad->marker == 0xD0 + next_rst)
+            ad->marker = 0;
+          else
+            resync(*ad, next_rst);
+          if (ad->err) break;
+          next_rst = (next_rst + 1) & 7;
+          left = restart;
+          reset();
+        }
+        left--;
+      }
+      if (ad->ct == -1) continue;  // after a bad code, up to the next restart
+      bool ok = true;
+      for (int ci = 0; ci < ncomp && ok; ci++) {
+        const int32_t* c = comps + 5 * ci;
+        const int h = c[0], v = c[1];
+        const int64_t stride = c[2];
+        for (int by = 0; by < v && ok; by++)
+          for (int bx = 0; bx < h && ok; bx++)
+            ok = block(ci, c, coefs[ci] + ((static_cast<int64_t>(my) * v + by) * stride +
+                                           static_cast<int64_t>(mx) * h + bx) * 64);
+      }
+      if (!ok) ad->ct = -1;
+    }
+  }
+  const int64_t stop = ad->marker ? ad->marker_at - 1 : ad->pos;
+  *end = std::min(stop, len);
+  const int err = ad->err;
+  delete ad;
   return err;
 }
 

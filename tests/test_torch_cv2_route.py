@@ -3,16 +3,18 @@
 package, which reads them through Pillow.
 
 Every kind Pillow writes here that goes to cv2 is read with cv2
-importable: the JPEGs the codec leaves to cv2 (three components under
-Adobe transform 2, and files whose frame header names arithmetic
-coding).  Each is either read to the JAX package's pixels and depth, or
+importable (no JPEG goes to cv2 any more).  Each is either read to the
+JAX package's pixels and depth, or
 raises where the JAX package raises, or is refused with cv2 present (a
 ``ValueError`` naming its part of ROADMAP queue 1, item 8) because cv2
 reads it to other pixels (CMYK, LAB, 32-bit and float samples, alpha) or
 cannot decode it.  The kinds of ``OWN_CODEC`` (JPEG-in-TIFF, CCITT group
 3 and 4, uncompressed YCbCr and LAB; WebP, RGB and RGBA, lossy and
 lossless; LZMA and Zstandard TIFF, which this cv2 decodes neither of;
-progressive JPEG left short and lossless JPEG) went to cv2 until the
+progressive JPEG left short and lossless JPEG; three components under
+Adobe transform 2, read as YCbCr; a baseline file whose frame header says
+arithmetic coding, its data decoded as arithmetic-coded data) went to cv2
+until the
 port's codecs carried them: their cases now hold the port's own decoder
 to the JAX package.  ``UNIDENTIFIED`` went to cv2 too, but Pillow does
 not open them at all (a 12-bit JPEG frame; TIFFs of a compression that
@@ -133,7 +135,8 @@ OWN_CODEC = {"TIFF RGB JPEG", "TIFF L JPEG", "TIFF YCbCr JPEG", "TIFF CMYK JPEG"
              "TIFF 1 group4", "TIFF YCbCr uncompressed", "TIFF LAB uncompressed",
              "TIFF JPEG of a 12-bit frame",
              *(n for n in CASES if n.startswith("WebP") or "LZMA" in n or "Zstandard" in n),
-             "progressive, DC only", "progressive without its last scan", "lossless SOF"}
+             "progressive, DC only", "progressive without its last scan", "lossless SOF",
+             "three components, Adobe transform 2", "arithmetic SOF"}
 # the cases Pillow does not open at all: "cannot identify image file" in both
 UNIDENTIFIED = {"12-bit SOF", *(n for n in CASES if "photometric" in n)}
 JPEG_CASES = ["progressive, DC only", "progressive without its last scan",
@@ -203,19 +206,17 @@ def test_what_goes_to_cv2_reads_as_the_jax_package_or_is_refused(name, tmp_path,
 
 @pytest.mark.parametrize("name", JPEG_CASES)
 def test_jpegs_left_to_cv2_read_as_the_jax_package(name, tmp_path, monkeypatch):
-    """The JPEG kinds that went to cv2: those the port's codec now carries
-    (progressive files left short; a baseline file whose SOF says lossless,
-    now a corrupt lossless stream that both packages refuse) through
-    ``decode_jpeg``, a 12-bit frame refused by both as unidentified, and
-    the rest still through cv2."""
+    """The JPEG kinds that went to cv2, all now through ``decode_jpeg``:
+    progressive files left short; a baseline file whose SOF says lossless,
+    now a corrupt lossless stream that both packages refuse; three
+    components under Adobe transform 2, read as YCbCr; a baseline file whose
+    SOF says arithmetic coding, read as the garbage Pillow reads; and a
+    12-bit frame refused by both as unidentified."""
+    from dspfun_tpu_torch.io import jpeg
+
     data = _jpeg_cases()[name]
     if name in UNIDENTIFIED:
         _unidentified(tmp_path, data, "jpg", monkeypatch)
         return
-    if name in OWN_CODEC:
-        from dspfun_tpu_torch.io import jpeg
-
-        assert timages._decoder(data) is jpeg.decode_jpeg
-    else:
-        assert timages._decoder(data).__name__ == "<lambda>"
+    assert name in OWN_CODEC and timages._decoder(data) is jpeg.decode_jpeg
     _check(tmp_path, data, False, "jpg")

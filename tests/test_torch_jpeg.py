@@ -33,10 +33,11 @@ and writes JPEG (``dspfun_tpu/io/images.py``).
   (transform 2) and without an Adobe marker, read as the JAX package
   reads them, with cv2 importable and blocked; the CMYK fixtures of
   ``chip_smoke.py`` phase 19 are Pillow's.
-* Arithmetic-coded files go to cv2 (and are refused naming ROADMAP
-  queue 1, item 8e, when it does not import); 12-bit files are not
-  identified, as in Pillow; a truncated or corrupt file raises
-  ``ValueError``.  Lossless files: tests/test_torch_jpeg_lossless.py.
+* No JPEG goes to cv2: a baseline file whose frame says arithmetic coding
+  reads as Pillow reads it (arithmetic-coded files:
+  tests/test_torch_jpeg_arith.py); 12-bit files are not identified, as in
+  Pillow; a truncated or corrupt file raises ``ValueError``.  Lossless
+  files: tests/test_torch_jpeg_lossless.py.
 """
 
 import hashlib
@@ -610,7 +611,8 @@ def test_progressive_decode_equals_pillow(sub, quality, hw, tmp_path, monkeypatc
     else:
         data = _pil(img, quality=quality, progressive=True,
                     subsampling={"444": 0, "422": 1, "420": 2}[sub])
-    assert jpeg.decode_coefficients(data)[0].marker == 0xC2 and jpeg.carries(data)
+    assert jpeg.decode_coefficients(data)[0].marker == 0xC2
+    assert timages._decoder(data) is jpeg.decode_jpeg
     _same_read(tmp_path, data)
     monkeypatch.setitem(sys.modules, "cv2", None)
     _same_read(tmp_path, data)
@@ -743,7 +745,7 @@ def test_progressive_files_left_short_are_refused(case, tmp_path, monkeypatch):
         data = _short_files()[case]
     frame, coefs = jpeg.decode_coefficients(data)
     assert frame.smoothed and len(frame.latch) == 10 * len(frame.components)
-    assert jpeg.not_carried(data) is None and timages._decoder(data) is jpeg.decode_jpeg
+    assert timages._decoder(data) is jpeg.decode_jpeg
     pillow = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
     got = jpeg.decode_jpeg(data)[0]
     np.testing.assert_array_equal(np.broadcast_to(got, pillow.shape), pillow)
@@ -880,21 +882,17 @@ def _not_carried(kind):
 
 @pytest.mark.parametrize("kind", ["progressive", "arithmetic", "12-bit", "CMYK"])
 def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
-    """Arithmetic-coded files go to cv2, or are refused naming item 8e
-    without it.  A 12-bit frame, which went to cv2 too, is no JPEG to
-    Pillow's plugin (its SOF handler raises): both packages raise "cannot
-    identify image file", with cv2 importable and blocked.  Progressive
-    and CMYK files, which went to cv2 before the codec carried them, read
-    as the JAX package reads them, with cv2 importable and blocked."""
+    """No JPEG goes to cv2 any more.  A 12-bit frame, which went to cv2
+    too, is no JPEG to Pillow's plugin (its SOF handler raises): both
+    packages raise "cannot identify image file", with cv2 importable and
+    blocked.  Progressive and CMYK files, and a baseline file whose frame
+    header says arithmetic coding (SOF9: its Huffman data decoded as
+    arithmetic-coded data, garbage that Pillow reads alike), which went to
+    cv2 before the codec carried them, read as the JAX package reads them
+    through the port's own decoder, with cv2 importable and blocked."""
     data = _not_carried(kind)
     path = tmp_path / "in.jpg"
     path.write_bytes(data)
-    if kind in ("progressive", "CMYK"):
-        assert jpeg.carries(data)
-        _same_read(tmp_path, data)
-        monkeypatch.setitem(sys.modules, "cv2", None)
-        _same_read(tmp_path, data)
-        return
     if kind == "12-bit":
         with pytest.raises(ValueError, match="cannot identify image file"):
             jpeg.decode_jpeg(data)
@@ -907,23 +905,17 @@ def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
                 with pytest.raises(ValueError, match="cannot identify image file .*12-bit"):
                     timages.read_image(str(path))
         return
-    assert not jpeg.carries(data) and jpeg.not_carried(data)[1] == "e"
-    with pytest.raises(ValueError, match="not carried"):
-        jpeg.decode_jpeg(data)
-    seen = []
+    assert timages._decoder(data) is jpeg.decode_jpeg
+    if kind == "arithmetic":
+        assert jpeg.decode_coefficients(data)[0].arithmetic
 
-    def fake_cv2(d, name):
-        seen.append(name)
-        return np.zeros((16, 24, 3), np.uint8), 8
+    def no_cv2(d, name):
+        raise AssertionError("a JPEG reached cv2")
 
-    with monkeypatch.context() as mp:
-        mp.setattr(timages, "_cv2_decode", fake_cv2)
-        timages.read_image(str(path))
-    assert seen == ["JPEG"]
+    monkeypatch.setattr(timages, "_cv2_decode", no_cv2)
+    _same_read(tmp_path, data)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ValueError, match="queue 1, item 8e") as e:
-        timages.read_image(str(path))
-    assert "JPEG" in str(e.value)
+    _same_read(tmp_path, data)
 
 
 @pytest.mark.parametrize("cut", [0.3, 0.9])
@@ -1079,7 +1071,7 @@ def test_cmyk_reads_as_the_jax_package(colour, progressive, restart, tmp_path, m
             data = fx.set_adobe_transform(data, 1)
         elif colour == "no Adobe marker":
             data = fx.without_adobe(data)
-        assert jpeg.carries(data)
+        assert timages._decoder(data) is jpeg.decode_jpeg
         _same_read(tmp_path, data)
         with monkeypatch.context() as mp:
             mp.setitem(sys.modules, "cv2", None)

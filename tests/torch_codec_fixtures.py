@@ -1546,7 +1546,7 @@ def jpeg_scans(data: bytes) -> tuple[bytes, list[tuple[bytes, bytes]]]:
         n = struct.unpack_from(">H", data, pos + 2)[0]
         if frame and head_end is None:
             head_end = start = pos
-        frame |= 0xC0 <= code <= 0xC3
+        frame |= 0xC0 <= code <= 0xC3 or code in (0xC9, 0xCA)
         pos += 2 + n
         if code == 0xDA:
             body = data[pos - n + 2:pos]
@@ -1668,14 +1668,19 @@ def main(argv=None) -> None:
     for made, digest in ((fixtures(), digests), (gif_fixtures(), gif_digests),
                          (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests),
                          (webp_fixtures(), webp_digests), (other_fixtures(), other_digests),
-                         (psd_dds_goldens(), other_digests), (j2k_goldens(), other_digests)):
+                         (psd_dds_goldens(), other_digests), (j2k_goldens(), other_digests),
+                         (_arith_goldens(), arith_digests)):
         for name, data in made.items():
             (GOLDENS / name).write_bytes(data)
             print(f"    {name!r}: {digest(data)},  # {len(data)} bytes")
 
 
-if __name__ == "__main__":
-    main()
+def _arith_goldens() -> dict[str, bytes]:
+    """:func:`arith_goldens` with a writer built for the call."""
+    import tempfile  # noqa: PLC0415
+
+    with tempfile.TemporaryDirectory(prefix="arith_writer_") as tmp:
+        return arith_goldens(build_arith_writer(tmp))
 
 
 # ---- PSD and CUR, written by hand (Pillow writes neither) ----------------------
@@ -2151,3 +2156,182 @@ def j2k_4k_digest(data: bytes) -> tuple[str, str]:
 
     return hashlib.sha256(data).hexdigest(), rgb_digest(
         np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
+# ---- arithmetic-coded JPEG, written by libjpeg (tests/jpeg_arith_writer.c) ------
+
+ARITH_WRITER = Path(__file__).resolve().parent / "jpeg_arith_writer.c"
+
+
+def build_arith_writer(directory) -> Path:
+    """``tests/jpeg_arith_writer.c`` compiled with ``gcc`` against the
+    system's libjpeg (its headers and ``-ljpeg``) into ``directory``;
+    raises ``RuntimeError`` with the compiler's message where it cannot."""
+    import subprocess  # noqa: PLC0415
+
+    out = Path(directory) / "jpeg_arith_writer"
+    r = subprocess.run(["gcc", "-O2", "-Wall", str(ARITH_WRITER), "-ljpeg", "-o", str(out)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"building {ARITH_WRITER.name} failed:\n{r.stdout}{r.stderr}")
+    return out
+
+
+def arith_transcode(writer, data: bytes, *opts) -> bytes:
+    """The coefficients of the JPEG ``data`` written again by ``writer``
+    (:func:`build_arith_writer`) with its options (arithmetic coding unless
+    ``-h``; see the source's head); raises ``RuntimeError`` with libjpeg's
+    message."""
+    import subprocess  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    with tempfile.TemporaryDirectory(prefix="arith_") as tmp:
+        src, dst = Path(tmp) / "in.jpg", Path(tmp) / "out.jpg"
+        src.write_bytes(data)
+        r = subprocess.run([str(writer), str(src), str(dst), *map(str, opts)],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"jpeg_arith_writer {' '.join(map(str, opts))}: {r.stderr}")
+        return dst.read_bytes()
+
+
+def jpeg_segments(data: bytes) -> list[tuple[int, bytes]]:
+    """(code, bytes) of each marker segment after SOI up to the first SOS,
+    then (0xDA, the rest of the file)."""
+    out, pos = [], 2
+    while True:
+        code = data[pos + 1]
+        if code == 0xDA:
+            out.append((code, data[pos:]))
+            return out
+        n = struct.unpack_from(">H", data, pos + 2)[0]
+        out.append((code, data[pos:pos + 2 + n]))
+        pos += 2 + n
+
+
+def abbreviate(data: bytes, table_codes=(0xDB, 0xC4)) -> tuple[bytes, bytes]:
+    """A one-scan JPEG as a TIFF holds it: (JPEGTables: SOI, the segments
+    of ``table_codes`` (DQT and DHT; DAC too where asked), EOI; the
+    abbreviated stream: SOI and the rest but APPn)."""
+    tables, rest = b"\xff\xd8", b"\xff\xd8"
+    for code, seg in jpeg_segments(data):
+        if code in table_codes:
+            tables += seg
+        elif not 0xE0 <= code <= 0xEF:
+            rest += seg
+    return tables + b"\xff\xd9", rest
+
+
+def jpeg_in_tiff(streams, w: int, h: int, photometric: int, spp: int, tile=None,
+                 rows: int | None = None, tables: bytes | None = None,
+                 subsampling=None) -> bytes:
+    """A little-endian JPEG-in-TIFF (compression 7) of one JPEG stream a
+    strip of ``rows`` rows or a tile of ``tile`` = (height, width), with the
+    JPEGTables ``tables`` where given, photometric 1 (gray), 2 (RGB) or 6
+    (YCbCr, ``subsampling`` its YCbCrSubsampling)."""
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [7]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [1])}
+    if tile:
+        tags.update({322: (3, [tile[1]]), 323: (3, [tile[0]]), 324: (4, []),
+                     325: (4, [len(s) for s in streams])})
+    else:
+        tags.update({273: (4, []), 278: (4, [rows or h]), 279: (4, [len(s) for s in streams])})
+    if tables is not None:
+        tags[347] = (7, list(tables))
+    if subsampling:
+        tags[530] = (3, list(subsampling))
+    return _assemble(list(streams), tags, "<")
+
+
+def arith_tiff(writer, pixels: np.ndarray, photometric: int, opts=(), tile=None,
+               rows: int | None = None, abbreviated: bool = False,
+               table_codes=(0xDB, 0xC4, 0xCC)) -> bytes:
+    """A JPEG-in-TIFF of ``pixels`` (uint8 [h, w] gray, or [h, w, 3]) whose
+    strips or tiles are arithmetic-coded: each block Pillow's JPEG (4:2:0
+    YCbCr for photometric 6, RGB components for 2, gray for 1; a tile's
+    part past the image filled with the edge samples) written again by
+    ``writer`` with ``opts``; whole streams, or ``abbreviated`` streams
+    under one JPEGTables holding the segments of ``table_codes``."""
+    from PIL import Image  # noqa: PLC0415
+
+    h, w = pixels.shape[:2]
+    if tile:
+        th, tw = tile
+        pad = ((0, -h % th), (0, -w % tw)) + ((0, 0),) * (pixels.ndim - 2)
+        full = np.pad(pixels, pad, mode="edge")
+        grid = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        th, tw, full = rows or h, w, pixels
+        grid = [(y, 0) for y in range(0, h, th)]
+    kw = {"keep_rgb": True, "subsampling": 0} if photometric == 2 else {}
+    streams, tables = [], None
+    for y, x in grid:
+        block = Image.fromarray(np.ascontiguousarray(full[y:y + th, x:x + tw]))
+        data = arith_transcode(writer, _save(block, "JPEG", **kw), *opts)
+        if abbreviated:
+            tables, data = abbreviate(data, table_codes)
+        streams.append(data)
+    spp = 1 if pixels.ndim == 2 else 3
+    return jpeg_in_tiff(streams, w, h, photometric, spp, tile, rows, tables,
+                        (2, 2) if photometric == 6 else None)
+
+
+# name -> (the Huffman source: a golden's name, or (hw, seed) of levels()
+# saved by Pillow at its defaults; the writer's options; the scans kept)
+ARITH_GOLDENS = {
+    "arith_seq_420.jpg": (((333, 517), 18), (), None),
+    "arith_seq_444_rst.jpg": ("codec_prog_444_rst.jpg", ("-r", 4), None),
+    "arith_prog_gray_dac.jpg": ("codec_prog_gray.jpg", ("-p", "-d", "0:2:5", "-k", "0:12"), None),
+    "arith_cmyk_rows.jpg": ("cmyk_rst.jpg", ("-R", 2), None),
+    "arith_ycck_prog.jpg": ("cmyk_rst.jpg", ("-p", "-y"), None),
+    "arith_prog_short.jpg": ("codec_prog_444_rst.jpg", ("-p",), 6),
+}
+ARITH_TIFFS = ("arith_tiles.tif", "arith_gray_strips.tif")
+ARITH_4K = "arith_4k.tif"
+
+
+def arith_source(name: str) -> bytes:
+    """The Huffman JPEG an arithmetic golden of ``ARITH_GOLDENS`` is
+    written from."""
+    src = ARITH_GOLDENS[name][0]
+    if isinstance(src, str):
+        return (GOLDENS / src).read_bytes()
+    from PIL import Image  # noqa: PLC0415
+
+    return _save(Image.fromarray(levels(*src)), "JPEG")
+
+
+def arith_goldens(writer) -> dict[str, bytes]:
+    """``chip_smoke.py`` phase 27's files, written by ``writer``: the
+    arithmetic JPEGs of ``ARITH_GOLDENS`` (a short file keeps its first
+    scans only); a 4:2:0 YCbCr TIFF of 64x64 tiles, abbreviated streams
+    (each with its own DAC: a stream's SOI sets the conditioning back to
+    the defaults) under a JPEGTables of their DQT; a gray TIFF of 16-row strips,
+    each a whole conditioned stream with a restart every 2 MCU rows; and
+    ``codec_prog_4k.jpg``'s coefficients, sequential, in the one strip of a
+    3840x2160 YCbCr TIFF."""
+    out = {}
+    for name, (_, opts, keep) in ARITH_GOLDENS.items():
+        data = arith_transcode(writer, arith_source(name), *opts)
+        out[name] = data if keep is None else cut_scans(data, lambda k, s: k < keep)
+    rgb = levels((120, 160), 81)
+    out["arith_tiles.tif"] = arith_tiff(writer, rgb, 6, tile=(64, 64), abbreviated=True,
+                                        opts=("-d", "1:0:3", "-k", "1:9"), table_codes=(0xDB,))
+    out["arith_gray_strips.tif"] = arith_tiff(writer, rgb[..., 1], 1, rows=16,
+                                              opts=("-d", "0:1:4", "-k", "0:20", "-R", 2))
+    prog4k = arith_transcode(writer, (GOLDENS / "codec_prog_4k.jpg").read_bytes())
+    out[ARITH_4K] = jpeg_in_tiff([abbreviate(prog4k, ())[1]], 3840, 2160, 6, 3,
+                                 subsampling=(2, 2))
+    return out
+
+
+def arith_digests(data: bytes) -> tuple[str, str]:
+    """sha256 of a file and of Pillow's ``convert("RGB")`` of it."""
+    from PIL import Image  # noqa: PLC0415
+
+    return hashlib.sha256(data).hexdigest(), \
+        rgb_digest(np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
+if __name__ == "__main__":
+    main()
