@@ -491,6 +491,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``i8@1e-5``, the spectrum equal to phase 17's of ``codec_prog_4k.jpg``,
    kernels #1-#2 once; the int8 kernels are held to their plain versions at
    every shape the phase gave them;
+28. main path 24, old-style JPEG, 12-bit JPEG-in-TIFF, ThunderScan and
+   RLE-W TIFF read by the port's own codecs (``io/ojpeg.py``,
+   ``io/imgcodecs.py``, ``native/jpeg.cpp``, ``tiff.cpp``, ``fax.cpp``).
+   (a) Every golden of ``OJPEG_FIXTURES`` (old-style JPEG in both layouts,
+   4:2:0, 4:2:2 with restarts in strips, 4:4:4 with ReferenceBlackWhite,
+   gray, big-endian; 12-bit SOF1 strips and SOF3 tiles; ThunderScan;
+   RLE-W under FillOrder 2) through ``images._decoder`` to ``decode_tiff``,
+   file and samples equal to Pillow's digests.  (b) The 3840x2160
+   old-style JPEG golden (Pillow's baseline JPEG of ``codec_prog_4k.jpg``'s
+   levels in 34 strips) decoded (best of ``OJPEG_REPEATS``) beside phase
+   20b's 4K JPEG-in-TIFF decode.  (c) A 4K 12-bit gray JPEG-in-TIFF,
+   written here, decoded (best of ``OJPEG_REPEATS``) to Pillow's digest.
+   (d) ``spec -t flat -G 1000`` of the old-style JPEG at ``i8@1e-5``,
+   kernels #1-#2 once, its spectrum equal to that of a PNG of the same
+   decoded pixels; the int8 kernels are held to their plain versions at
+   every shape the phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -4218,7 +4234,7 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
 
         # ---- (b) the 4K files: write, decode, Pillow's digests --------------------
         (bh, bw), seed, noise = big
-        sources = {}
+        sources, dec_times = {}, {}
         for kind, what in (("jpeg", "tiled 4:2:0 JPEG-in-TIFF"), ("g4", "G4 page"),
                            ("ycbcr", "YCbCr 2x2 deflate")):
             t0 = time.perf_counter()
@@ -4231,7 +4247,7 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
                 raise RuntimeError(f"phase 20b: the 4K {what} does not take the port's codec")
             t0 = time.perf_counter()
             arr, depth = imgcodecs.decode_tiff(data)
-            dec_s = time.perf_counter() - t0
+            dec_s = dec_times[kind] = time.perf_counter() - t0
             rgb = np.repeat(arr, 3, axis=2) if arr.shape[2] == 1 else arr    # gray as RGB
             got = sha(np.ascontiguousarray(rgb).tobytes())
             if (bh, bw) == (H, W):
@@ -4340,7 +4356,9 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
             _check_block_filter(torch, dev, block_filter, fft, shapes=count.bf_checks())
     wall = time.perf_counter() - t_phase
     print(f"phase 20 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
-    return {"launches": count.total, "shapes": sorted(count.shapes)}
+    # for phase 28: the 4K JPEG-in-TIFF's decode seconds
+    return {"launches": count.total, "shapes": sorted(count.shapes),
+            "jpeg_4k_decode_s": dec_times.get("jpeg")}
 
 
 # phase 21: WebP through the port's own decoder (io/webp.py, native/webp.cpp) -------
@@ -5829,6 +5847,167 @@ def _arith_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, huffman_4k_s
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
+# phase 28: old-style JPEG, 12-bit JPEG, ThunderScan and RLE-W TIFF read by the
+# port's own codecs (io/ojpeg.py, io/imgcodecs.py, native/jpeg.cpp, tiff.cpp, fax.cpp)
+
+# name -> (sha256 of the golden, of Pillow's samples: its I;16 array for a
+# 12-bit file, else its convert("RGB")); the goldens are written by
+# tests/torch_codec_fixtures.py:ojpeg_goldens and more_tiff_goldens and
+# pinned by tests/test_torch_tiff_ojpeg.py and test_torch_tiff_12bit.py
+OJPEG_FIXTURES = {
+    "ojpeg_jif_420.tif": ("908e9813640641994f3b82c258660d59915fb71f0c155b15ca1369febbde425d",
+                          "6098644d4e3a069ac9b3cb5d667cf6c15e56b0750ac0fc8e1d99cfe898f07e58"),
+    "ojpeg_tables_422_rst.tif": (
+        "d72700d4ac241150b2e46fd1adce0574f58b662971acf5f83bdd0ca8e9cf8587",
+        "257ad5826a96259536c5452e58fc4a2fadbcbaf908b8ecd67901e548ad0a605c"),
+    "ojpeg_jif_420_mm.tif": ("b17138b4e7337d80dff81b26ebab6f726f60af381a0cb97363a6dffeec09daeb",
+                             "4fee9cef04b19c9e2c3896d815b5ebf31670736800d9790bb262560300997aa9"),
+    "ojpeg_gray_tables.tif": ("ee73d49fe9a9db9694710d578a5f3909400625aa703aae3b165f5e99ad9553c6",
+                              "71b553c5aaf2ed370f8cbffd01cde84f184358ec8c51c0ccb80d9132690bc918"),
+    "ojpeg_jif_444_refbw.tif": (
+        "32c1e42a53041b0fc9c754aee97cb16618682ec4a7581d07c87c76b3f851bb00",
+        "d6e9f60466710cbefee3ab1ba26121d1b871ad51ba145060f39a015ac45727d7"),
+    "tiff12_sof1_strips.tif": ("7562d9553575a6fd3072760210caa804d9f04d909da51a81c2fe0d40a3a921b5",
+                               "001228d2779bfc95ac4f85195a8fce5af27641abb3904313bbafbcb6ace916e4"),
+    "tiff12_sof3_tiles.tif": ("13992c1337e7ad9248d13a031322bbb31447167bfd8abb53d575c679c1d84665",
+                              "ad28267a69ce3213326cdc022e103d19345b4dcef53c532d5da883add2f34321"),
+    "thunderscan.tif": ("b842a69771609465b200205ffafba6e398506d3960097075653bc7981cf58374",
+                        "02e025e4c56bceef5554ce638a477b1da91de8a1f8e52cb14419db386dbe1450"),
+    "rlew_fill2.tif": ("8adefb432be97c9ccad8f08f110dcea7a598c846819ca17be802f2786f446e21",
+                       "aff4dcdf588e2d65e1d19b6508f8cb9357a440166e92696e5bff3e0cdab8b890"),
+    # Pillow's baseline JPEG of codec_prog_4k.jpg's levels in 64-row strips
+    "ojpeg_4k.tif": ("4ebe118c90befc1384e6ff387916fc44e4b1e17a87e121e8753a83a970643122",
+                     "3b571e0ea07fb2ab0ebdb09d90766d4f8df55fffad0c89604591f86a47416f54"),
+}
+OJPEG_4K = "ojpeg_4k.tif"
+OJPEG_REPEATS = 3                 # (b), (c): the 4K decodes, best of
+TIFF12_4K_SEED = 62               # (c): tests/torch_codec_fixtures.py:gray12's seed
+TIFF12_4K_NOISE = 8.0             # and noise, in 12-bit levels
+# (c): sha256 of the 4K 12-bit file (one SOF1 strip of gray12's 3840x2160
+# levels) and of Pillow's I;16 samples of it (tests/test_torch_tiff_12bit.py)
+TIFF12_4K = ("2c8eaa9a93b7190ce9868fdd1e89c456b84b2b6e28113ee78299d361ed69a78b",
+             "3cc6d6d86a5b303f3e285981629c0600e482e975901f31b7983955c1b8bbbfd8")
+
+
+def _ojpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_tiff_4k_s=None,
+                 device_args=(), big=(H, W)) -> dict:
+    """Main path 24: old-style JPEG, 12-bit JPEG-in-TIFF, ThunderScan and
+    RLE-W TIFF through the port's own codecs.  (a) Every golden of
+    ``OJPEG_FIXTURES`` through ``images._decoder`` to ``decode_tiff``, file
+    and samples equal to Pillow's digests; (b) the 3840x2160 old-style JPEG
+    (``OJPEG_4K``, 34 strips) decoded (best of ``OJPEG_REPEATS``) beside
+    phase 20b's 4K JPEG-in-TIFF decode (``jpeg_tiff_4k_s``); (c) a 4K
+    12-bit gray JPEG-in-TIFF written here (one SOF1 strip) and decoded to
+    Pillow's digest; (d) spec of the old-style JPEG at ``i8@1e-5``: kernels
+    #1-#2 once each, its spectrum equal to that of a PNG of the same
+    decoded pixels.  ``big`` other than 4K: a rehearsal of (c) at that size,
+    (d) on the 4K file's top-left crop, with no digest to hold (c) to.
+    Returns the kernels' launches over the run of the TIFF."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, imgcodecs, jpeg
+    from dspfun_tpu_torch.tools import spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    goldens = {}
+    for name in OJPEG_FIXTURES:
+        with open(os.path.join(gold, name), "rb") as f:
+            goldens[name] = f.read()
+
+    # ---- (a) the goldens to Pillow's digests ---------------------------------------
+    for name, data in goldens.items():
+        if images._decoder(data) is not imgcodecs.decode_tiff:
+            raise RuntimeError(f"phase 28a: {name} does not take the port's TIFF codec")
+        if name == OJPEG_4K:
+            continue
+        t0 = time.perf_counter()
+        arr, depth = imgcodecs.decode_tiff(data)
+        dec_s = time.perf_counter() - t0
+        got = (sha(data), fx.port_digest(arr))
+        print(f"phase 28a {name} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} {arr.dtype} "
+              f"({len(data)} bytes): decode {dec_s:.4f} s, depth {depth}; file and samples == "
+              f"Pillow's digests: {got == OJPEG_FIXTURES[name]}", flush=True)
+        if got != OJPEG_FIXTURES[name]:
+            raise RuntimeError(f"phase 28a: {name} is not decoded as Pillow decodes it: {got}")
+
+    # ---- (b) the 4K old-style JPEG ----------------------------------------------------
+    data = goldens[OJPEG_4K]
+    best = float("inf")
+    for _ in range(OJPEG_REPEATS):
+        t0 = time.perf_counter()
+        arr, _ = imgcodecs.decode_tiff(data)
+        best = min(best, time.perf_counter() - t0)
+    ok = (sha(data), fx.port_digest(arr)) == OJPEG_FIXTURES[OJPEG_4K]
+    beside = "not measured" if jpeg_tiff_4k_s is None else \
+        f"{jpeg_tiff_4k_s:.4f} s, {arr.size / 1e6 / jpeg_tiff_4k_s:.1f} MB/s"
+    print(f"phase 28b {OJPEG_4K} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} (4:2:0 in 34 "
+          f"strips, {len(data)} bytes): decode {best:.4f} s (best of {OJPEG_REPEATS}), "
+          f"{arr.size / 1e6 / best:.1f} MB/s of samples; phase 20b's 4K JPEG-in-TIFF decode "
+          f"{beside}; pixels == Pillow's digest: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError("phase 28b: the 4K old-style JPEG decodes to other pixels")
+    pixels = arr
+
+    # ---- (c) a 4K 12-bit gray JPEG-in-TIFF -------------------------------------------
+    t0 = time.perf_counter()
+    data12 = fx.tiff12(fx.gray12(big, TIFF12_4K_SEED, TIFF12_4K_NOISE), "sof1")
+    enc_s = time.perf_counter() - t0
+    if images._decoder(data12) is not imgcodecs.decode_tiff:
+        raise RuntimeError("phase 28c: the 12-bit TIFF does not take the port's TIFF codec")
+    best = float("inf")
+    for _ in range(OJPEG_REPEATS):
+        t0 = time.perf_counter()
+        arr, depth = imgcodecs.decode_tiff(data12)
+        best = min(best, time.perf_counter() - t0)
+    got = (sha(data12), fx.port_digest(arr))
+    ok = got == TIFF12_4K if big == (H, W) else arr.shape == (*big, 1)
+    print(f"phase 28c 12-bit SOF1 JPEG-in-TIFF {big[1]}x{big[0]} ({len(data12)} bytes, written "
+          f"in {enc_s:.2f} s): decode {best:.4f} s (best of {OJPEG_REPEATS}), "
+          f"{arr.size / 1e6 / best:.1f} M samples/s, depth {depth}; file and samples == "
+          f"Pillow's digests: {ok}", flush=True)
+    if not ok or depth != 16:
+        raise RuntimeError(f"phase 28c: the 4K 12-bit TIFF decodes otherwise: {got}")
+
+    # ---- (d) spec of the old-style JPEG against a PNG of its pixels ------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ojpeg_") as tmp:
+        src = os.path.join(tmp, "still.tif")
+        if big != (H, W):       # a rehearsal: the top-left crop, as an old-style JPEG too
+            pixels = np.ascontiguousarray(pixels[:big[0], :big[1]])
+            data = fx.make_ojpeg(jpeg.encode_jpeg(pixels), big[1], big[0], "jif")
+            pixels = imgcodecs.decode_tiff(data)[0]
+        with open(src, "wb") as f:
+            f.write(data)
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, pixels / 255.0)
+        sh, sw = pixels.shape[:2]
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        out = {k: os.path.join(tmp, f"spec_{k}.png") for k in ("ref", "tif")}
+        with _policy("i8@1e-5"):
+            for name, inp in (("ref", ref), ("tif", src)):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "tif")
+                print(f"phase 28d spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 28d spec {name} launched {got}, expected {spec_i8}")
+        with open(out["ref"], "rb") as f, open(out["tif"], "rb") as g:
+            ok = f.read() == g.read()
+    print(f"phase 28d spectrum of the old-style JPEG == of the PNG: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError("phase 28d: the old-style JPEG's spectrum differs from the PNG's")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"ojpeg {layout}{nd} {m}x{k}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 28 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -6144,8 +6323,8 @@ def main() -> int:
 
     # ---- phase 20: main path 16, JPEG-in-TIFF, YCbCr and fax TIFF ----------
     torch.cuda.empty_cache()
-    more_path = _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm,
-                                 scipy.fft)["launches"]
+    more = _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft)
+    more_path = more["launches"]
     if not (more_path.get("left3") and more_path.get("right3")):
         raise RuntimeError(f"a kernel of the JPEG-in-TIFF and fax path never launched: "
                            f"{more_path}")
@@ -6200,6 +6379,14 @@ def main() -> int:
     if not (arith_path.get("left3") and arith_path.get("right3")):
         raise RuntimeError(f"a kernel of the arithmetic JPEG path never launched: {arith_path}")
 
+    # ---- phase 28: main path 24, old-style JPEG, 12-bit JPEG, ThunderScan and RLE-W TIFF --
+    torch.cuda.empty_cache()
+    ojpeg_path = _ojpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft,
+                              jpeg_tiff_4k_s=more["jpeg_4k_decode_s"])["launches"]
+    if not (ojpeg_path.get("left3") and ojpeg_path.get("right3")):
+        raise RuntimeError(f"a kernel of the old-style JPEG TIFF path never launched: "
+                           f"{ojpeg_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -6212,7 +6399,8 @@ def main() -> int:
                              + more_path.get(n, 0) + webp_path.get(n, 0)
                              + other_path.get(n, 0) + zstd_path.get(n, 0)
                              + short_path.get(n, 0) + psd_path.get(n, 0)
-                             + j2k_path.get(n, 0) + arith_path.get(n, 0)),
+                             + j2k_path.get(n, 0) + arith_path.get(n, 0)
+                             + ojpeg_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -6234,7 +6422,8 @@ def main() -> int:
                                      "short_lossless_jpeg": short_path.get(n, 0),
                                      "psd_dds": psd_path.get(n, 0),
                                      "jpeg2000": j2k_path.get(n, 0),
-                                     "arith_jpeg": arith_path.get(n, 0)},
+                                     "arith_jpeg": arith_path.get(n, 0),
+                                     "ojpeg_tiff": ojpeg_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -6273,7 +6462,8 @@ def main() -> int:
                                  + short_path.get("block_filter", 0)
                                  + psd_path.get("block_filter", 0)
                                  + j2k_path.get("block_filter", 0)
-                                 + arith_path.get("block_filter", 0)),
+                                 + arith_path.get("block_filter", 0)
+                                 + ojpeg_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -6290,7 +6480,8 @@ def main() -> int:
                                              short_path.get("block_filter", 0),
                                          "psd_dds": psd_path.get("block_filter", 0),
                                          "jpeg2000": j2k_path.get("block_filter", 0),
-                                         "arith_jpeg": arith_path.get("block_filter", 0)},
+                                         "arith_jpeg": arith_path.get("block_filter", 0),
+                                         "ojpeg_tiff": ojpeg_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

@@ -45,12 +45,11 @@ uncompressed), JPEG 2000 on read (``io/jpeg2000.py`` with
 and MPO on write (its one frame is a JPEG), each
 reading what Pillow decodes and writing what it writes.  They take
 every file they carry, whether cv2 imports or not.
-The rest (old-style JPEG, ThunderScan and CCITT
-RLE-W TIFF, 12-bit JPEG-in-TIFF, WebP frames with the simple loop filter
-or several token partitions, and WebP output) goes through
-``cv2`` where it imports, but the kinds cv2 reads otherwise than Pillow,
-which are refused with cv2 too (``_cv2_decode``); where cv2 does not
-import, it is refused with a ``ValueError`` naming ROADMAP queue 1, item 8
+Every TIFF Pillow opens goes to ``imgcodecs.decode_tiff``.
+The rest (WebP frames with the simple loop filter or several token
+partitions, and WebP output) goes through ``cv2`` where it imports
+(``_cv2_decode``); where cv2 does not import, it is refused with a
+``ValueError`` naming ROADMAP queue 1, item 8
 and its part (``png.refusal``).  Pillow's other formats (AVIF, EPS and the
 rest of ``_PILLOW_ORDER``'s refusals and ``_OTHER_WRITES``, JPEG 2000
 writes among them), and the JPEG 2000 features no Pillow setting writes,
@@ -227,9 +226,7 @@ def _tiff_claim(d: bytes):
     why = _codecs.tiff_unidentified(d)
     if why:
         raise _rawimg.Skip(why)     # TiffImagePlugin._setup's KeyError, TypeError or SyntaxError
-    if _codecs.tiff_not_carried(d) is None:
-        return _codecs.decode_tiff
-    return lambda d: _cv2_decode(d, "TIFF")
+    return _codecs.decode_tiff
 
 
 def _webp_claim(d: bytes):
@@ -431,37 +428,22 @@ def _rgba(arr: np.ndarray, trns: tuple | None) -> np.ndarray:
     return rgba
 
 
-def _not_carried(data: bytes, name: str) -> tuple[str, str]:
-    """What a file the port's codecs do not take is, and the letter of its
-    part of ROADMAP queue 1 item 8 (for the refusal without cv2)."""
-    if name == "TIFF":
-        return _codecs.tiff_not_carried(data) or (name, "c")
-    return _webp.not_carried(data) or (name, "f")
-
-
 def _cv2_decode(data: bytes, name: str) -> tuple[np.ndarray, int]:
-    """An image the port's codecs do not take, through cv2 (imported here
-    and nowhere else in this module): samples as the other decoders give
-    them, 16-bit color cut to its high bytes as Pillow's ``RGB`` mode
-    holds it.  The kinds cv2 reads otherwise than Pillow are refused
-    with cv2 too, naming their part of item 8
-    (``imgcodecs.tiff_cv2_differs``; alpha in a TIFF)."""
-    what, part = _not_carried(data, name)
+    """A WebP image the port's codec does not take (``webp.not_carried``),
+    through cv2 (imported here and nowhere else in this module): samples
+    as the other decoders give them, 16-bit color cut to its high bytes as
+    Pillow's ``RGB`` mode holds it.  Without cv2 it is refused naming its
+    part of ROADMAP queue 1 item 8."""
+    what, part = _webp.not_carried(data) or (name, "f")
     try:
         import cv2  # noqa: PLC0415
     except Exception:  # noqa: BLE001 — any import failure: no codec here
         raise _png.refusal(f"{what} input", part) from None
-    why = _codecs.tiff_cv2_differs(data) if name == "TIFF" else None
-    if why is not None:
-        raise ValueError(f"{what} is refused: {why} ({_png.NOT_PORTED}{part})")
     img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
     if img is None:
         raise ValueError(f"cv2 cannot decode this {what} input ({_png.NOT_PORTED}{part})")
     if img.ndim == 2:
         img = img[..., None]
-    if name == "TIFF" and img.shape[2] == 4:
-        raise ValueError(f"{what} with alpha through cv2: cv2 decodes it premultiplied "
-                         f"({_png.NOT_PORTED}{part})")
     if img.shape[2] >= 3:
         img = img[..., [2, 1, 0, 3][:img.shape[2]]]  # BGR(A) -> RGB(A)
     if img.dtype == np.uint16 and img.shape[2] > 1:

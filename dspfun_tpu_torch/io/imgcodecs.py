@@ -49,11 +49,16 @@ all of it to Pillow.
   LZWPreDecode tests), deflate (8 and 32946, the standard library's zlib),
   Zstandard (``native/zstd.cpp``, as libzstd decodes a strip for
   libtiff), LZMA (the standard library's liblzma: the first xz stream of
-  each strip), PackBits, JPEG (each strip or
-  tile an abbreviated stream decoded with the JPEGTables tag, leniently
-  as libjpeg under libtiff decodes a damaged one) and CCITT RLE, Group 3
-  (1-D and 2-D) and Group 4 (``native/fax.cpp``, libtiff's fax decoder
-  with its recovery from bad codes) ones as libtiff hands them to Pillow:
+  each strip), PackBits, ThunderScan (``native/tiff.cpp``, 4-bit gray),
+  JPEG (each strip or tile an abbreviated stream decoded with the
+  JPEGTables tag, leniently as libjpeg under libtiff decodes a damaged
+  one; 8-bit samples, and 12-bit gray ones packed two in three bytes as
+  libtiff packs them), old-style JPEG (``io/ojpeg.py``: the stream
+  libtiff's tif_ojpeg.c rebuilds from JPEGInterchangeFormat or the JPEG
+  tables' tags, its raw samples through libtiff's RGBA reader) and CCITT
+  RLE, RLE-W, Group 3 (1-D and 2-D) and Group 4 (``native/fax.cpp``,
+  libtiff's fax decoder with its recovery from bad codes) ones as libtiff
+  hands them to Pillow:
   bits reversed before decompression under FillOrder 2 (but for JPEG and
   CCITT, whose decoders read the fill order), samples in native byte
   order, predictor 2 or 3 (libtiff's ``fpAcc``) undone in each row of a
@@ -63,16 +68,19 @@ all of it to Pillow.
   files Pillow does not open (a compression that is not a key of its
   COMPRESSION_INFO, such as JPEG 2000 or PNG; a key its OPEN_INFO lacks,
   such as SGILog's photometrics), which ``io/images.py`` passes on as
-  ``Image.open`` does; :func:`tiff_not_carried` names what the decoder
-  does not take (old-style JPEG, ThunderScan, CCITT RLE-W, 12-bit
-  JPEG-in-TIFF; ROADMAP queue 1, item 8c), which ``io/images.py`` hands
-  to cv2; where Pillow raises (a predictor or colormap libtiff refuses,
+  ``Image.open`` does; every other TIFF goes to :func:`decode_tiff`, none
+  to cv2.  Where Pillow raises (a predictor or colormap libtiff refuses,
   SGILog or WebP compression, which its libtiff refuses at load, a
-  truncated or corrupt strip or tile), :func:`decode_tiff` raises, and where
-  Pillow reads a damaged strip to what the port cannot reproduce (a T.6
-  strip's rows libtiff leaves unwritten, a damaged JPEG block outside the
-  range where libjpeg-turbo's SIMD and C arithmetic agree, an xz stream
-  that liblzma finds corrupt before the strip is full), it raises too.
+  truncated or corrupt strip or tile), :func:`decode_tiff` raises, and
+  where Pillow reads a damaged strip to what the port cannot reproduce (a
+  T.6 strip's rows libtiff leaves unwritten, a damaged JPEG block outside
+  the range where libjpeg-turbo's SIMD and C arithmetic agree, an xz
+  stream that liblzma finds corrupt before the strip is full, the last
+  sample of each row of a 12-bit JPEG strip of an odd width, which
+  libtiff leaves unwritten), it raises too.  Old-style JPEG in tiles or
+  planes and 12-bit JPEG frames that are progressive or arithmetic-coded
+  raise naming ROADMAP queue 1, item 8c: no writer here makes them to pin
+  Pillow's reading.
 
 Everything else raises ``ValueError``.
 """
@@ -88,11 +96,12 @@ import numpy as np
 
 from dspfun_tpu_torch import _hostbuild
 from dspfun_tpu_torch.io import jpeg as _jpeg
+from dspfun_tpu_torch.io import ojpeg as _ojpeg
 from dspfun_tpu_torch.io import png as _png
 
 __all__ = ["bitmap", "bitmap_pixels", "decode_bmp", "decode_dib", "decode_pnm", "decode_tiff",
            "encode_bmp", "encode_dib", "encode_pnm", "encode_tiff", "pnm_magic",
-           "tiff_cv2_differs", "tiff_not_carried", "tiff_unidentified"]
+           "tiff_unidentified"]
 
 _WS = b" \t\n\r\x0b\x0c"
 
@@ -447,20 +456,19 @@ _TIFF_TYPES = {1: "B", 2: "c", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 
 # passes any other compression on (the file is not identified)
 _PILLOW_COMPRESSIONS = frozenset({1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676,
                                   34677, 34925, 50000, 50001})
-# the compressions decode_tiff undoes, the names of those it leaves to cv2,
-# and those Pillow's libtiff refuses at load: SGILog only takes the
-# photometrics 32844 and 32845, which OPEN_INFO lacks, and WebP is not
-# configured in it
+# the compressions decode_tiff undoes (every one of Pillow's), and those
+# Pillow's libtiff refuses at load: SGILog only takes the photometrics
+# 32844 and 32845, which OPEN_INFO lacks, and WebP is not configured in it
 _TIFF_CARRIED = {1: "uncompressed", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                 5: "LZW", 7: "JPEG", 8: "deflate", 32946: "deflate", 32773: "PackBits",
-                 34925: "LZMA", 50000: "Zstandard"}
-_TIFF_OTHERS = {6: "old-style JPEG", 32771: "CCITT RLE-W", 32809: "ThunderScan"}
+                 5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "deflate", 32946: "deflate",
+                 32771: "CCITT RLE-W", 32773: "PackBits", 32809: "ThunderScan", 34925: "LZMA",
+                 50000: "Zstandard"}
 _LIBTIFF_REFUSES = {34676: "SGILog compression with a photometric other than LogL or LogLuv",
                     34677: "SGILog24 compression with a photometric other than LogLuv",
                     50001: "WebP compression, which this libtiff is not configured for"}
 _PREDICTED = (5, 8, 32946, 34925, 50000)    # the codecs libtiff runs the predictor with
-_FAX = (2, 3, 4)                # CCITT RLE, Group 3, Group 4 (native/fax.cpp)
-_OWN_BIT_ORDER = (2, 3, 4, 7)   # the codecs that read FillOrder themselves (or ignore it)
+_FAX = (2, 3, 4, 32771)         # CCITT RLE, Group 3, Group 4, RLE-W (native/fax.cpp)
+_OWN_BIT_ORDER = (2, 3, 4, 7, 32771)    # the codecs that read FillOrder (or ignore it)
 
 # Pillow's OPEN_INFO (TiffImagePlugin.py): (byte orders, photometric,
 # SampleFormat, FillOrder, BitsPerSample, ExtraSamples, mode, rawmode)
@@ -607,44 +615,9 @@ def tiff_unidentified(data: bytes) -> str | None:
     return None
 
 
-def tiff_not_carried(data: bytes) -> tuple[str, str] | None:
-    """None where :func:`decode_tiff` takes the first image of this TIFF
-    (which it decodes, or refuses where Pillow raises), else (what it is,
-    the letter of its part of ROADMAP queue 1 item 8), which
-    ``io/images.py`` hands to cv2 or names in its refusal: old-style JPEG,
-    CCITT RLE-W, ThunderScan, or 12-bit JPEG-in-TIFF.  (A file
-    :func:`tiff_unidentified` names is no TIFF to ``Image.open``.)"""
-    _, t = _tiff_tags(data)
-    comp = t.get(259, (1,))[0]
-    if comp not in _TIFF_CARRIED and comp not in _LIBTIFF_REFUSES:
-        return f"{_TIFF_OTHERS.get(comp, f'compression {comp}')} TIFF", "c"
-    if comp == 7 and any(b != 8 for b in t.get(258, (1,))):
-        return f"{max(t.get(258, (1,)))}-bit JPEG-in-TIFF", "c"
-    return None
-
-
-def tiff_cv2_differs(data: bytes) -> str | None:
-    """Why cv2 reads a TIFF that :func:`decode_tiff` does not take to
-    other pixels than Pillow does (or reads it where Pillow raises), by its
-    tags; None for the kinds tests/test_torch_cv2_route.py holds equal.
-    (cv2's 4-channel read of alpha is caught after the decode.)"""
-    _, t = _tiff_tags(data)
-    photo, comp = t.get(262, (0,))[0], t.get(259, (1,))[0]
-    bits = t.get(258, (1,))
-    if photo == 8:
-        return "cv2 reads the CIELab samples otherwise than Pillow's LAB conversion"
-    if photo == 6 and comp not in (6, 7):
-        return "cv2 converts YCbCr to RGB where Pillow raises or reads the samples as RGB"
-    if photo == 5:
-        return "cv2 converts CMYK to RGB otherwise than Pillow's cmyk2rgb"
-    if max(bits) > 16 or any(f != 1 for f in t.get(339, (1,))):
-        return "cv2 reads 32-bit, signed and float samples otherwise than Pillow's I and F modes"
-    return None
-
-
 @functools.lru_cache(maxsize=None)
 def _tiff_lib() -> ctypes.CDLL:
-    """The loaded ``native/tiff.cpp`` (LZW and PackBits) with its
+    """The loaded ``native/tiff.cpp`` (LZW, PackBits and ThunderScan) with its
     signatures declared (built on first use; raises when it cannot be
     built)."""
     lib = _hostbuild.load_library("tiff")
@@ -654,6 +627,9 @@ def _tiff_lib() -> ctypes.CDLL:
     lib.tif_packbits_decode.restype = ctypes.c_int64
     lib.tif_packbits_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                         ctypes.c_int64]
+    lib.tif_thunder_decode.restype = ctypes.c_int64
+    lib.tif_thunder_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
     lib.tif_lab_rgb.restype = None
     lib.tif_lab_rgb.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                                 ctypes.c_void_p, ctypes.c_int]
@@ -738,14 +714,15 @@ def _fax_lib() -> ctypes.CDLL:
 
 def _fax_inflater(t: dict, comp: int, fill: int, tw: int):
     """The decoder of one strip or tile of CCITT data (``native/fax.cpp``,
-    libtiff's tif_fax3.c): compression 2 Modified Huffman, 3 T.4 (2-D
+    libtiff's tif_fax3.c): compression 2 Modified Huffman (32771 with
+    each row aligned to 16 bits), 3 T.4 (2-D
     rows where T4Options bit 0 is set), 4 T.6; FillOrder read by the
     decoder.  A T.4 strip read without EOLs leaves the strips after it
     read so too, as libtiff's mode does.  A strip libtiff's decoder fails
     on raises, and so does a T.6 strip that ends (EOFB or the data's end)
     before its last row but one, whose later rows libtiff leaves as its
     buffer held them (uninitialised memory in Pillow)."""
-    scheme = {2: 2, 4: 4}.get(comp, 32 if t.get(292, (0,))[0] & 1 else 3)
+    scheme = {2: 2, 4: 4, 32771: 16}.get(comp, 32 if t.get(292, (0,))[0] & 1 else 3)
     rb = (tw + 7) // 8
     no_eol = ctypes.c_int(0)        # libtiff's FAXMODE_NOEOL, kept from strip to strip
     lib = _fax_lib()
@@ -762,6 +739,30 @@ def _fax_inflater(t: dict, comp: int, fill: int, tw: int):
             raise ValueError(f"{_TIFF_CARRIED[comp]} TIFF strip ends in row {done.value + 1} of "
                              f"{n}: libtiff leaves the rows after it as its buffer held them "
                              "(uninitialised memory in Pillow), which the port does not read")
+        return buf.raw
+    return inflate
+
+
+def _thunder_inflater(bits: int, w: int, tiled: bool):
+    """The decoder of one ThunderScan strip (``native/tiff.cpp``, libtiff's
+    tif_thunder.c): 4-bit samples only, rows of the image's width, no
+    tiles, as libtiff takes them."""
+    if bits != 4:
+        raise ValueError(f"ThunderScan TIFF of {bits}-bit samples: libtiff's decoder only "
+                         "supports 4 bits per sample (Pillow raises)")
+    if tiled:
+        raise ValueError("ThunderScan TIFF in tiles: libtiff has no tile decoder for it "
+                         "(Pillow raises)")
+    lib = _tiff_lib()
+
+    def inflate(blk, n, last):
+        buf = ctypes.create_string_buffer(n * ((w + 1) // 2))
+        count = ctypes.c_int64(0)
+        done = lib.tif_thunder_decode(blk, len(blk), buf, w, n, ctypes.byref(count))
+        if done < n:
+            what = "Not enough" if count.value < w else "Too much"
+            raise ValueError(f"ThunderScan TIFF strip: {what} data at row {done} of {n} "
+                             f"({count.value} != {w} pixels; libtiff fails the strip)")
         return buf.raw
     return inflate
 
@@ -850,8 +851,13 @@ def _unpack(mode: str, raw: str, rows: np.ndarray, n: int) -> np.ndarray:
         if "I" in suffix:
             v = 255 - v
         return v.astype(np.uint8)[..., None]
-    if raw == "I;12":
-        return _fields(rows, 12, n)[..., None]
+    if raw == "I;12":                     # unpackI12_I16: two samples in three bytes
+        pairs = -(-n // 2)
+        b = np.zeros((r, 3 * pairs), np.uint16)
+        b[:, :min(rows.shape[1], 3 * pairs)] = rows[:, :3 * pairs]
+        b = b.reshape(r, pairs, 3)
+        v = np.stack([b[..., 0] << 4 | b[..., 1] >> 4, (b[..., 1] & 15) << 8 | b[..., 2]], -1)
+        return v.reshape(r, 2 * pairs)[:, :n, None]
     if mode in ("I;16", "I;16B", "I", "F"):
         bits = _rawmode_bits(raw)
         big = raw in ("I;16B", "I;16BS", "I;32BS", "F;32BF")
@@ -1208,20 +1214,25 @@ def _tiff_ycbcr(data: bytes, t: dict, w: int, h: int) -> np.ndarray:
     return out[:h, :w]
 
 
-def _jpeg_frame(blk: bytes, tables) -> tuple:
+def _jpeg_frame(blk: bytes, tables, bits: int = 8) -> tuple:
     """One strip or tile of a JPEG-in-TIFF: its frame and coefficients,
     decoded as libjpeg decodes it under libtiff (with the JPEGTables,
     leniently: a truncated or corrupt stream decodes to what libjpeg
-    recovers); a frame whose samples are not 8-bit raises, as libtiff's
-    JPEGPreDecode does where BitsPerSample is 8."""
+    recovers); a frame whose samples are not ``bits``-bit raises, as
+    libtiff's JPEGPreDecode does.  A 12-bit frame that is progressive or
+    arithmetic-coded is not carried (no writer here makes one to pin
+    libjpeg-turbo's 12-bit build against)."""
     if len(blk) < 2:
         raise ValueError("TIFF: an empty JPEG strip or tile")
     head = _jpeg.frame_header(blk)
-    if head is not None and head.precision != 8:
-        raise ValueError(f"TIFF: a JPEG stream of {head.precision}-bit samples for 8-bit ones "
-                         "(libtiff: improper JPEG data precision)")
+    if head is not None and head.precision != bits:
+        raise ValueError(f"TIFF: a JPEG stream of {head.precision}-bit samples for {bits}-bit "
+                         "ones (libtiff: improper JPEG data precision)")
+    if bits == 12 and head is not None and (head.progressive or head.arithmetic):
+        raise ValueError(f"12-bit {_jpeg._SOF[head.marker]} JPEG-in-TIFF is not carried by the "
+                         f"port's codec ({_png.NOT_PORTED}c)")
     try:
-        frame, coefs = _jpeg.decode_coefficients(blk, tables, lenient=True)
+        frame, coefs = _jpeg.decode_coefficients(blk, tables, lenient=True, precision=bits)
     except ValueError as e:
         raise ValueError(f"corrupt JPEG-in-TIFF strip or tile: {e}") from None
     return frame, coefs
@@ -1239,7 +1250,16 @@ def _jpeg_size(frame, seg_w: int, seg_h: int, last_strip: bool) -> None:
                      f"of {seg_w}x{seg_h} (libtiff refuses it)")
 
 
-def _jpeg_inflater(t: dict, photo: int, per: int, tw: int):
+def _pack12(px: np.ndarray) -> bytes:
+    """12-bit samples uint16 [rows, even width] as libtiff's JPEGDecode packs
+    libjpeg's 12-bit output: each pair in three bytes, high bits first."""
+    a = px.astype(np.uint16).reshape(len(px), -1, 2)
+    b = np.stack([(a[..., 0] & 0xFF0) >> 4, (a[..., 0] & 0xF) << 4 | (a[..., 1] & 0xF00) >> 8,
+                  a[..., 1] & 0xFF], -1)
+    return b.astype(np.uint8).tobytes()
+
+
+def _jpeg_inflater(t: dict, photo: int, per: int, tw: int, bits: int = 8):
     """The decoder of one strip or tile of a JPEG-in-TIFF (of a plane of
     YCbCr with ``photo`` 2: its samples as stored): each an abbreviated
     stream decoded with the JPEGTables tag, a chunky YCbCr one
@@ -1249,13 +1269,21 @@ def _jpeg_inflater(t: dict, photo: int, per: int, tw: int):
     libtiff's JPEGPreDecode, the stream must hold one component per
     sample (one in a plane), the YCbCrSubsampling tag's sampling on its
     first component (the stream's own where the tag is absent; 1x1 but
-    for YCbCr) and 1x1 on the others."""
+    for YCbCr) and 1x1 on the others.  12-bit samples (``bits`` 12: one
+    gray component) are packed as libtiff packs them, two in three bytes;
+    a strip of an odd width raises: libtiff leaves each row's last sample
+    unwritten (uninitialised memory in Pillow)."""
     tables = _jpeg.parse_tables(bytes(t[347])) if 347 in t else None
     ycc = photo == 6
     tag = tuple(t[530][:2]) if ycc and len(t.get(530, ())) >= 2 else None
 
+    if bits == 12 and tw % 2:
+        raise ValueError(f"12-bit JPEG-in-TIFF strips of an odd width ({tw}): libtiff packs the "
+                         "samples in pairs and leaves each row's last one unwritten "
+                         "(uninitialised memory in Pillow), which the port does not read")
+
     def inflate(blk, n, last):
-        frame, coefs = _jpeg_frame(blk, tables)
+        frame, coefs = _jpeg_frame(blk, tables, bits)
         comps = frame.components
         if len(comps) != per:
             raise ValueError(f"TIFF: a JPEG stream of {len(comps)} components for {per} samples "
@@ -1271,6 +1299,8 @@ def _jpeg_inflater(t: dict, photo: int, per: int, tw: int):
                              "in lossless mode: unsupported color conversion request)")
         # a progressive stream left short is smoothed, as libjpeg under libtiff smooths it
         px = _jpeg.reconstruct(frame, coefs, frame.latch, as_stored=not ycc)
+        if bits == 12:
+            return _pack12(px[:n, :tw, 0])
         return np.ascontiguousarray(px[:n, :tw]).tobytes()
     return inflate
 
@@ -1327,9 +1357,14 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
         if photo == 6 and per != 3:
             raise ValueError("TIFF: JPEG-compressed YCbCr of one sample (libjpeg: bogus colour "
                              "space)")
-        inflate = _jpeg_inflater(t, photo, per, tw)
+        if b not in (8, 12):
+            raise ValueError(f"TIFF: JPEG compression of {b}-bit samples (libtiff: improper JPEG "
+                             "data precision)")
+        inflate = _jpeg_inflater(t, photo, per, tw, b)
     elif comp in _FAX:
         inflate = _fax_inflater(t, comp, fill, tw)
+    elif comp == 32809:
+        inflate = _thunder_inflater(b, w, tiled)
     else:
         first = data[offsets[0]:offsets[0] + counts[0]]
         if fill == 2:
@@ -1374,11 +1409,12 @@ def _tiff_libtiff(data: bytes, bo: str, t: dict, key: tuple, mode: str, raw: str
 
 
 def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
-    """The first image of a TIFF that :func:`tiff_not_carried` takes, as
-    Pillow reads it then ``io/images.py`` takes it: uncompressed strips
-    and tiles through Pillow's own reader, LZW, deflate, PackBits, JPEG,
-    CCITT, Zstandard and LZMA ones through libtiff's, compressed YCbCr
-    (but chunky JPEG) through libtiff's RGBA reader, chunky or planar, predictor 1, 2 or 3,
+    """The first image of a TIFF that Pillow opens, as Pillow reads it
+    then ``io/images.py`` takes it: uncompressed strips and tiles through
+    Pillow's own reader, LZW, deflate, PackBits, ThunderScan, JPEG (8-
+    and 12-bit), CCITT, Zstandard and LZMA ones through libtiff's,
+    compressed YCbCr (but chunky JPEG) and old-style JPEG through
+    libtiff's RGBA reader, chunky or planar, predictor 1, 2 or 3,
     either fill order, then the Orientation tag applied.  Samples: uint8
     gray, gray + alpha, RGB (palettes looked up, CMYK converted by Pillow's
     ``cmyk2rgb``, YCbCr by libjpeg or libtiff, CIELab as Pillow's
@@ -1391,10 +1427,6 @@ def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
     why = tiff_unidentified(data)
     if why is not None:
         raise ValueError(f"cannot identify image file ({why})")
-    why = tiff_not_carried(data)
-    if why is not None:
-        raise ValueError(f"{why[0]} is not carried by the port's codec "
-                         f"({_png.NOT_PORTED}{why[1]})")
     comp = t.get(259, (1,))[0]
     if comp in _LIBTIFF_REFUSES:
         raise ValueError(f"TIFF of {_LIBTIFF_REFUSES[comp]}: Pillow's libtiff refuses it")
@@ -1403,6 +1435,12 @@ def decode_tiff(data: bytes) -> tuple[np.ndarray, int]:
     w, h = t[256][0], t[257][0]
     if comp == 1:
         v = _tiff_raw(data, t, mode, raw, key[4], w, h)
+    elif comp == 6:
+        v = _ojpeg.decode_ojpeg(data, t, w, h, _ycbcr_tables(t) if len(key[4]) == 3 else None)
+        if v.shape[-1] != len(key[4]):
+            raise ValueError(f"old-style JPEG TIFF of {v.shape[-1]} sample(s) to libtiff and "
+                             f"{len(key[4])} to Pillow's mode {mode}: Pillow reads libtiff's "
+                             "samples under another layout, which the port does not read")
     elif key[1] == 6 and (comp != 7 or t.get(284, (1,))[0] == 2):
         if len(key[4]) != 3:
             raise ValueError("TIFF: compressed YCbCr of one sample: libtiff's RGBA reader cannot "

@@ -45,6 +45,13 @@ libjpeg-turbo.  This codec gives the same results at Pillow's defaults:
   50 %), Y at 2x2 and Cb, Cr at 1x1, the Annex K Huffman tables, one
   interleaved scan.
 
+``decode_coefficients(..., precision=12)`` takes, as libtiff's 12-bit
+libjpeg does for a 12-bit JPEG-in-TIFF, a one-component frame of 12-bit
+samples (sequential Huffman or lossless), which ``reconstruct`` turns
+into uint16 samples with libjpeg-turbo's 12-bit islow IDCT (no SIMD
+build exists at 12 bits); ``one_scan=True`` reads a stream as libtiff's
+old-style JPEG session does (``io/ojpeg.py``).
+
 This module parses the markers and checks the tables; the entropy coding
 and the integer transforms are ``native/jpeg.cpp``, built at first use
 (``_hostbuild.py``; a failed build raises with the compiler's message).
@@ -350,12 +357,15 @@ class _Reader:
     """Marker-level state of one decode (tables, restart interval, the
     frame, its coefficients, and a progressive file's progression)."""
 
-    def __init__(self, data: bytes, lenient: bool = False, window: int = 0):
+    def __init__(self, data: bytes, lenient: bool = False, window: int = 0, precision: int = 8,
+                 one_scan: bool = False):
         if not data.startswith(b"\xff\xd8"):
             raise ValueError("not a JPEG file (no SOI marker)")
         self.data = data
         self.lenient = lenient
         self.window = window
+        self.precision = precision
+        self.one_scan = one_scan
         self.frame: Frame | None = None
         self.qtables: dict = {}
         self.htables: dict = {}
@@ -395,7 +405,8 @@ class _Reader:
                     raise ValueError("corrupt JPEG data: a second SOF marker")
                 self.frame = _sof(code, body)
                 self.coef_bits = [[-1] * 64 for _ in self.frame.components]
-                why = unidentified(self.frame)
+                twelve = self.frame.precision == self.precision == 12
+                why = None if twelve and len(self.frame.components) == 1 else unidentified(self.frame)
                 if why:
                     raise ValueError(f"cannot identify image file ({why})")
                 if code in _UNDECODED:
@@ -421,6 +432,8 @@ class _Reader:
                 if self.frame is None:
                     raise ValueError("corrupt JPEG data: a scan before the frame header")
                 resume = self._scan(body, resume)
+                if self.one_scan:
+                    break
             elif not (0xE1 <= code <= 0xEF or code in (0xFE, 0xDC)):   # APPn, COM, DNL
                 raise ValueError(f"unknown JPEG marker 0x{code:02x}")
         if self.frame is None or not self.coefs:
@@ -547,8 +560,8 @@ class _Reader:
                                             al, ptrs, ctypes.byref(end))
         else:
             rc = lib.jpg_decode_scan(*head, b"".join(tables), self.restart,
-                                     int(self.lenient and not self.restart), ptrs,
-                                     ctypes.byref(end))
+                                     int(self.lenient and (self.one_scan or not self.restart)),
+                                     ptrs, ctypes.byref(end))
         if rc:
             raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
         return end.value
@@ -557,10 +570,13 @@ class _Reader:
                        predictor: int, pt: int) -> int:
         """One scan of a lossless file: its components' samples, uint8
         [blocks_h, blocks_w] each (the undifferenced values << pt, cut to 8
-        bits as jdlossls.c's scaler casts them)."""
+        bits as jdlossls.c's scaler casts them; uint16 for 12-bit samples,
+        cut to 16 bits as its 12-bit build's short samples are)."""
         f = self.frame
+        wide = f.precision > 8
         if not self.coefs:
-            self.coefs = [np.zeros((c.blocks_h, c.blocks_w), np.uint8) for c in f.components]
+            self.coefs = [np.zeros((c.blocks_h, c.blocks_w), np.uint16 if wide else np.uint8)
+                          for c in f.components]
         comps = [f.components[i] for i in members]
         args = np.array([[c.h, c.v, c.blocks_w, c.blocks_h, t >> 4]
                          for c, t in zip(comps, body[2:2 + 2 * len(members):2])], np.int32)
@@ -571,11 +587,11 @@ class _Reader:
         rc = _load().jpg_decode_lossless(
             self.data, len(self.data), pos, len(members),
             args.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), f.mcus_x, f.mcus_y, tables,
-            self.restart, predictor, pt, ptrs, ctypes.byref(end))
+            self.restart, predictor, pt, f.precision, ptrs, ctypes.byref(end))
         if rc:
             raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
         for i, r in zip(members, raw):
-            self.coefs[i] = (r.astype(np.uint32) << pt).astype(np.uint8)
+            self.coefs[i] = (r.astype(np.uint32) << pt).astype(np.uint16 if wide else np.uint8)
         return end.value
 
 
@@ -644,8 +660,8 @@ def parse_tables(data: bytes) -> tuple[dict, dict]:
 
 
 def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
-                        lenient: bool = False, window: int = 0
-                        ) -> tuple[Frame, list[np.ndarray]]:
+                        lenient: bool = False, window: int = 0, precision: int = 8,
+                        one_scan: bool = False) -> tuple[Frame, list[np.ndarray]]:
     """The frame and each component's quantised DCT coefficients, int16
     [rows, stride, 64] in natural order (whole MCUs; blocks past the
     component's ``blocks_w`` x ``blocks_h`` are an interleaved scan's
@@ -664,8 +680,14 @@ def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
     (0: none): the bytes libjpeg is handed at a time, from the file's
     start, as Pillow hands them (``PILLOW_CHUNK``): an arithmetic-coded
     scan that needs a byte past the chunks read when it starts (to its
-    header's end) raises, as libjpeg does."""
-    r = _Reader(bytes(data), lenient, window)
+    header's end) raises, as libjpeg does.  ``precision`` 12 also takes a
+    one-component frame of 12-bit samples (as libjpeg-turbo's 12-bit
+    build, which libtiff runs for a 12-bit JPEG-in-TIFF); its lossless
+    samples are uint16.  ``one_scan`` reads the stream as libtiff's
+    old-style JPEG session does: no marker after the first scan's data
+    (libjpeg is never asked for one), and a lenient scan's restart markers
+    honoured (the MCUs after a run out of data zero up to the next one)."""
+    r = _Reader(bytes(data), lenient, window, precision, one_scan)
     if tables is not None:
         r.qtables, r.htables = dict(tables[0]), dict(tables[1])
     r.run()
@@ -694,6 +716,8 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray], latch: tuple | None = Non
     pixels of them are not the port's."""
     comps = frame.components
     n = len(comps)
+    if frame.precision == 12:
+        return _reconstruct12(frame, coefs)
     colorspace = _RGB if as_stored else frame.colorspace
     out = np.empty((frame.height, frame.width, 3 if n == 4 and not as_stored else n), np.uint8)
     u8 = ctypes.POINTER(ctypes.c_uint8)
@@ -720,6 +744,25 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray], latch: tuple | None = Non
                                  None if bits is None else
                                  bits.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                                  out.ctypes.data_as(u8))
+    if rc:
+        raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
+    return out
+
+
+def _reconstruct12(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
+    """The samples of a one-component frame of 12-bit samples, uint16
+    [H, W, 1] in 0..4095 (a lossless one's as decoded, cut to 16 bits):
+    libjpeg-turbo's 12-bit islow IDCT and range limit."""
+    c = frame.components[0]
+    if frame.lossless:
+        return np.ascontiguousarray(coefs[0][:frame.height, :frame.width, None])
+    out = np.empty((frame.height, frame.width, 1), np.uint16)
+    qt = np.ascontiguousarray(c.qtable, np.uint16)
+    k = np.ascontiguousarray(coefs[0])
+    rc = _load().jpg_reconstruct12(c.stride, c.rows, frame.width, frame.height,
+                                   k.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                                   qt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                                   out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
     if rc:
         raise ValueError(_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
     return out
@@ -805,8 +848,12 @@ def _load() -> ctypes.CDLL:
     lib.jpg_decode_arith.argtypes = head[:7] + [c.c_char_p] + [c.c_int] * 6 + [
         c.c_int64, c.c_int, i16pp, c.POINTER(c.c_int64)]
     lib.jpg_decode_lossless.restype = c.c_int
-    lib.jpg_decode_lossless.argtypes = head + [c.c_int, c.c_int, c.POINTER(c.POINTER(c.c_uint16)),
+    lib.jpg_decode_lossless.argtypes = head + [c.c_int, c.c_int, c.c_int,
+                                               c.POINTER(c.POINTER(c.c_uint16)),
                                                c.POINTER(c.c_int64)]
+    lib.jpg_reconstruct12.restype = c.c_int
+    lib.jpg_reconstruct12.argtypes = [c.c_int] * 4 + [c.POINTER(c.c_int16), c.POINTER(c.c_uint16),
+                                                      c.POINTER(c.c_uint16)]
     lib.jpg_lossless_pixels.restype = None
     lib.jpg_lossless_pixels.argtypes = [c.c_int, c.POINTER(c.c_int32), c.c_int, c.c_int,
                                         c.POINTER(c.POINTER(c.c_uint8)), c.c_int,

@@ -1,8 +1,8 @@
-// CCITT fax decoding of TIFF strips and tiles (compressions 2, 3 and 4) for
-// dspfun_tpu_torch/io/imgcodecs.py, as libtiff's tif_fax3.c decodes them
-// under Pillow, so that what Pillow reads from a damaged strip (libtiff
-// recovers from a bad code at the next row, and fills the row it stops
-// in) the port reads too.
+// CCITT fax decoding of TIFF strips and tiles (compressions 2, 3, 4 and
+// 32771) for dspfun_tpu_torch/io/imgcodecs.py, as libtiff's tif_fax3.c
+// decodes them under Pillow, so that what Pillow reads from a damaged
+// strip (libtiff recovers from a bad code at the next row, and fills the
+// row it stops in) the port reads too.
 //
 // The state machine follows tif_fax3.h: bits are taken least significant
 // first from bytes bit-reversed by the fill order (FillOrder 1 reversed),
@@ -434,7 +434,10 @@ extern "C" {
 // Decode one strip or tile of `rows` rows of `width` pixels into `out`
 // (rows of (width + 7) / 8 bytes, most significant bit first, 1 for a
 // black run; rows the decoder does not reach are left as they are).
-//   scheme: 2 Modified Huffman (each row byte-aligned), 3 T.4 1-D rows
+//   scheme: 2 Modified Huffman (each row byte-aligned), 16 the same with
+//           each row aligned to 16 bits from the strip's start (RLE-W,
+//           compression 32771: libtiff's FAXMODE_WORDALIGN, whose test of
+//           the pointer amounts to that in its word-aligned buffer), 3 T.4 1-D rows
 //           behind EOLs, 32 T.4 with 2-D rows (a tag bit after each EOL),
 //           4 T.6; where a T.4 row's EOL is never found, the strip is
 //           read again from its start without EOLs into that row and the
@@ -467,12 +470,17 @@ int fax_decode(const uint8_t* data, int64_t len, int scheme, int lsb_first, int 
     f.run_length = 0;
     f.pa = f.thisrun = f.curruns;
     Outcome o;
-    if (scheme == 2) {
+    if (scheme == 2 || scheme == 16) {
       o = f.expand1d();
       if (o == kFatal) return -1;
       fill_runs(buf, f.thisrun, f.pa, static_cast<uint32_t>(width));
       if (o == kEof) return -1;
-      f.clr(f.avail - (f.avail & ~7));     // FAXMODE_BYTEALIGN
+      if (scheme == 2) {
+        f.clr(f.avail - (f.avail & ~7));   // FAXMODE_BYTEALIGN
+      } else {                             // FAXMODE_WORDALIGN, from the strip's start
+        f.clr(f.avail - (f.avail & ~15));
+        if (f.avail == 0 && ((f.cp - f.start) & 1)) f.cp++;
+      }
     } else if (scheme == 3) {
       if (sync) {
         f.cleanup();

@@ -1,5 +1,6 @@
 // Baseline, extended-sequential and progressive JPEG (ITU-T T.81,
-// Huffman and arithmetic coding, 8-bit samples) and lossless JPEG: the
+// Huffman and arithmetic coding, 8-bit samples, and 12-bit ones of one
+// component: jpg_reconstruct12) and lossless JPEG: the
 // entropy decoders and encoder and the integer transforms around them,
 // written to give the bytes and pixels of libjpeg-turbo's default paths,
 // which Pillow and OpenCV use:
@@ -385,7 +386,11 @@ int ac_refine(BitReader& br, const DecodeTable& ac, int ss, int se, int al, uint
 // blk) decodes component ci's next block, reset() clears the predictors
 // (and end-of-band run) at each restart.  Once the reader has taken bits
 // past the data (br.insufficient, lenient only), the MCUs after the one
-// that took them are left as they are (jdhuff.c decode_mcu).
+// that took them are left as they are (jdhuff.c decode_mcu), up to the
+// next restart marker, which makes the data sufficient again (jdhuff.c
+// process_restart); where another marker stands for the restart marker
+// due, it is taken, skipped or left as libjpeg's jpeg_resync_to_restart
+// decides (lenient only; otherwise an error).
 template <class Block, class Reset>
 int scan_blocks(const uint8_t* data, int64_t len, BitReader& br, int ncomp,
                 const int32_t* comps, int mcus_x, int mcus_y, int restart,
@@ -398,11 +403,39 @@ int scan_blocks(const uint8_t* data, int64_t len, BitReader& br, int ncomp,
       if (restart && left == 0) {
         int64_t m = next_marker(data, len, br.end());
         if (m < 0) return kTruncated;
-        if (data[m] != 0xD0 + next_rst) {
+        if (data[m] != 0xD0 + next_rst && !br.lenient) {
           br.restart(m);
           return kBadRestart;
         }
-        br.restart(m + 1);
+        // jdmarker.c read_restart_marker, and jpeg_resync_to_restart where
+        // the marker is not the RSTn due: 1 take it, 2 look for the next
+        // marker, 3 leave it (the reader stays at it: the MCUs after take
+        // zeros)
+        for (;;) {
+          const int mk = data[m];
+          const int due = next_rst;
+          int action = 1;
+          if (mk < 0xC0) {
+            action = 2;
+          } else if (mk < 0xD0 || mk > 0xD7) {
+            action = 3;
+          } else if (mk == 0xD0 + ((due + 1) & 7) || mk == 0xD0 + ((due + 2) & 7)) {
+            action = 3;
+          } else if (mk == 0xD0 + ((due - 1) & 7) || mk == 0xD0 + ((due - 2) & 7)) {
+            action = 2;
+          }
+          if (action == 1) {
+            br.restart(m + 1);    // the marker read: the data is sufficient again
+            br.insufficient = false;
+            break;
+          }
+          if (action == 3) {
+            br.restart(m - 1);
+            break;
+          }
+          m = next_marker(data, len, m + 1);
+          if (m < 0) return kTruncated;
+        }
         next_rst = (next_rst + 1) & 7;
         left = restart;
         reset();
@@ -881,6 +914,114 @@ bool idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
   return odd != 0;
 }
 
+// jdmaster.c prepare_range_limit_table for 12-bit samples, the post-IDCT
+// half: x & 16383 -> sample
+struct IdctLimit12 {
+  uint16_t t[16384];
+  IdctLimit12() {
+    for (int i = 0; i < 16384; i++)
+      t[i] = static_cast<uint16_t>(i < 2048 ? i + 2048 : i < 8192 ? 4095 : i < 14336 ? 0 : i - 14336);
+  }
+};
+
+// jidctint.c jpeg_idct_islow as libjpeg-turbo builds it for 12-bit
+// samples: PASS1_BITS 1, dequantisation in 64 bits (its JLONG
+// ISLOW_MULT_TYPE), the workspace held in int, no SIMD version
+void idct_islow12(const int16_t* in, const uint16_t* q, uint16_t* out, int64_t stride) {
+  static const IdctLimit12 lim;
+  constexpr int kPass1 = 1;
+  int ws[64];
+  for (int c = 0; c < 8; c++) {
+    const int16_t* ip = in + c;
+    const uint16_t* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+      const int dc = static_cast<int>((int64_t{ip[0]} * qp[0]) * (1 << kPass1));
+      for (int r = 0; r < 8; r++) wp[8 * r] = dc;
+      continue;
+    }
+    int64_t z2 = int64_t{ip[16]} * qp[16], z3 = int64_t{ip[48]} * qp[48];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = int64_t{ip[0]} * qp[0];
+    z3 = int64_t{ip[32]} * qp[32];
+    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
+    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = int64_t{ip[56]} * qp[56];
+    tmp1 = int64_t{ip[40]} * qp[40];
+    tmp2 = int64_t{ip[24]} * qp[24];
+    tmp3 = int64_t{ip[8]} * qp[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 = z3 * -FIX_1_961570560 + z5;
+    z4 = z4 * -FIX_0_390180644 + z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int s = CONST_BITS - kPass1;
+    wp[0] = static_cast<int>(descale(tmp10 + tmp3, s));
+    wp[56] = static_cast<int>(descale(tmp10 - tmp3, s));
+    wp[8] = static_cast<int>(descale(tmp11 + tmp2, s));
+    wp[48] = static_cast<int>(descale(tmp11 - tmp2, s));
+    wp[16] = static_cast<int>(descale(tmp12 + tmp1, s));
+    wp[40] = static_cast<int>(descale(tmp12 - tmp1, s));
+    wp[24] = static_cast<int>(descale(tmp13 + tmp0, s));
+    wp[32] = static_cast<int>(descale(tmp13 - tmp0, s));
+  }
+  for (int r = 0; r < 8; r++) {
+    const int* wp = ws + 8 * r;
+    uint16_t* op = out + r * stride;
+    constexpr int s = CONST_BITS + kPass1 + 3;
+    int64_t z2 = wp[2], z3 = wp[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = (int64_t{wp[0]} + wp[4]) * (1 << CONST_BITS);
+    int64_t tmp1 = (int64_t{wp[0]} - wp[4]) * (1 << CONST_BITS);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = wp[7];
+    tmp1 = wp[5];
+    tmp2 = wp[3];
+    tmp3 = wp[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 = z3 * -FIX_1_961570560 + z5;
+    z4 = z4 * -FIX_0_390180644 + z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int64_t d[8] = {descale(tmp10 + tmp3, s), descale(tmp11 + tmp2, s),
+                          descale(tmp12 + tmp1, s), descale(tmp13 + tmp0, s),
+                          descale(tmp13 - tmp0, s), descale(tmp12 - tmp1, s),
+                          descale(tmp11 - tmp2, s), descale(tmp10 - tmp3, s)};
+    for (int x = 0; x < 8; x++) op[x] = lim.t[static_cast<int>(d[x]) & 16383];
+  }
+}
+
 // ---- block smoothing (jdcoefct.c decompress_smooth_data) -------------------
 // libjpeg-turbo smooths the blocks of a progressive file whose scans left
 // one of a component's first ten coefficients short: it estimates AC01,
@@ -1312,7 +1453,8 @@ extern "C" {
 //   tables: 8 tables of 16 counts + 256 values, DC 0-3 then AC 0-3;
 //   restart: MCUs per restart interval, 0 for none;
 //   lenient: libjpeg's recovery from a scan that runs out of data or holds
-//          a bad code (BitReader::lenient; a stream without restarts);
+//          a bad code (BitReader::lenient; across restart markers as
+//          scan_blocks says);
 //   coefs: per component, int16 [rows][stride][64] in natural order.
 // Returns 0 and *end (the first byte after the scan's data), or a
 // negative code (see the enum above; *end = where decoding stopped).
@@ -1517,7 +1659,9 @@ int jpg_decode_arith(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
 //          (ignored for one component: its samples are the MCUs);
 //   tables, restart: as jpg_decode_scan's (restart: MCUs per interval,
 //          which must be whole rows of MCUs);
-//   predictor 1-7 (Ss), pt the point transform (Al);
+//   predictor 1-7 (Ss), pt the point transform (Al), precision the
+//          frame's sample bits (8 or 12: the first sample's prediction is
+//          2^(precision - pt - 1));
 //   samples: per component, uint16 [height_in_blocks][width_in_blocks],
 //          the undifferenced values (before the shift by pt).
 // A restart resets the predictors of the rows undifferenced next: the
@@ -1525,8 +1669,8 @@ int jpg_decode_arith(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
 // scan) it falls in.  Returns 0 and *end, or a negative code.
 int jpg_decode_lossless(const uint8_t* data, int64_t len, int64_t pos, int ncomp,
                         const int32_t* comps, int mcus_x, int mcus_y, const uint8_t* tables,
-                        int restart, int predictor, int pt, uint16_t* const* samples,
-                        int64_t* end) {
+                        int restart, int predictor, int pt, int precision,
+                        uint16_t* const* samples, int64_t* end) {
   DecodeTable* dts = new (std::nothrow) DecodeTable[4];
   if (!dts) return kNoMemory;
   int err = kOk;
@@ -1549,7 +1693,7 @@ int jpg_decode_lossless(const uint8_t* data, int64_t len, int64_t pos, int ncomp
     diff[ci].assign(static_cast<size_t>(dw[ci] * dr[ci]), 0);
   }
   BitReader br{data, len, pos};
-  const int initial = 1 << (8 - pt - 1);
+  const int initial = 1 << (precision - pt - 1);
   bool first[4] = {true, true, true, true};
   int64_t rows_left = restart / per_row;
   int next_rst = 0;
@@ -1815,5 +1959,31 @@ int jpg_encode_rgb(const uint8_t* rgb, int height, int width, const uint16_t* qt
 }
 
 void jpg_free(uint8_t* p) { std::free(p); }
+
+// Samples of a one-component frame of 12-bit samples (libjpeg-turbo's
+// 12-bit islow IDCT and range limit; no upsampling or colour conversion
+// applies to one component):
+//   stride, rows: its coefficient array's blocks per row and rows of
+//          blocks; coefs int16 [rows][stride][64], qtable natural order;
+//   out: uint16 [height][width], 0..4095.
+// Only the blocks that hold the image are transformed.
+int jpg_reconstruct12(int stride, int rows, int width, int height, const int16_t* coefs,
+                      const uint16_t* qtable, uint16_t* out) {
+  const int64_t bw = (width + 7) / 8, bh = (height + 7) / 8;
+  if (bw > stride || bh > rows) return kNoMemory;
+  std::vector<uint16_t> plane;
+  try {
+    plane.resize(static_cast<size_t>(bw * 8 * bh * 8));
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+  for (int64_t by = 0; by < bh; by++)
+    for (int64_t bx = 0; bx < bw; bx++)
+      idct_islow12(coefs + (by * stride + bx) * 64, qtable, plane.data() + by * 8 * bw * 8 + bx * 8,
+                   bw * 8);
+  for (int64_t y = 0; y < height; y++)
+    std::memcpy(out + y * width, plane.data() + y * bw * 8, sizeof(uint16_t) * width);
+  return kOk;
+}
 
 }  // extern "C"

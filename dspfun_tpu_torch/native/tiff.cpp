@@ -1,6 +1,7 @@
 // The strip decompressors of TIFF that need a loop over bits or bytes:
-// LZW (compression 5) and PackBits (32773), written to give the bytes of
-// libtiff's tif_lzw.c and tif_packbits.c, which Pillow and OpenCV use.
+// LZW (compression 5), PackBits (32773) and ThunderScan (32809), written
+// to give the bytes of libtiff's tif_lzw.c, tif_packbits.c and
+// tif_thunder.c, which Pillow uses.
 //
 //   LZW       MSB-first codes of 9 to 12 bits, ClearCode 256 and EOI 257;
 //             the width grows one code early (at 511, 1023 and 2047), and
@@ -15,7 +16,13 @@
 //             same;
 //   PackBits  a header byte n: 0..127 copies n + 1 bytes, -1..-127
 //             repeats the next byte 1 - n times, -128 is a no-op; runs past
-//             the end of the strip are cut.
+//             the end of the strip are cut;
+//   ThunderScan  4-bit pixels, two to a byte, each row from a last pixel
+//             of 0: each code byte's top two bits choose a run of the last
+//             pixel (the low 6 bits its count), three 2-bit deltas
+//             (0, +1, skip, -1), two 3-bit deltas (0..3, skip, -3..-1) or a
+//             raw value; a row's codes must give its width exactly (see
+//             tif_thunder_decode).
 //
 // Each function fills at most n_out bytes and returns how many it wrote;
 // fewer than n_out means the strip's data ended early ("Not enough data"
@@ -142,6 +149,77 @@ int64_t tif_packbits_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int64
     }
   }
   return op;
+}
+
+// One strip of ThunderScan: `rows` rows of `width` pixels into `out`, rows
+// of (width + 1) / 2 bytes, as tif_thunder.c's ThunderDecodeRow reads it
+// (the codes run on from row to row; a run that would pass the row's end
+// writes nothing, and a run after an odd count repeats the byte it
+// completes, as libtiff 4.7 does).  Returns the rows decoded; fewer than
+// `rows` where a row's codes end short of its width or pass it ("Not
+// enough" or "Too much data at scanline": libtiff fails the strip), with
+// *count the pixels that row counted.
+int64_t tif_thunder_decode(const uint8_t* in, int64_t n_in, uint8_t* out, int width, int rows,
+                           int64_t* count) {
+  static const int kDelta2[4] = {0, 1, 0, -1};
+  static const int kDelta3[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const int64_t row_bytes = (static_cast<int64_t>(width) + 1) / 2;
+  const int64_t maxpixels = width;
+  int64_t ip = 0;
+  for (int r = 0; r < rows; r++) {
+    uint8_t* op = out + r * row_bytes;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1)
+          *op++ |= static_cast<uint8_t>(lastpixel);
+        else
+          op[0] = static_cast<uint8_t>(lastpixel << 4);
+      }
+    };
+    while (ip < n_in && npixels < maxpixels) {
+      int n = in[ip++];
+      int delta;
+      switch (n & 0xc0) {
+        case 0x00: {                      // a run of the last pixel
+          n &= 0x3f;
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            n--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += n;
+          if (npixels <= maxpixels)
+            for (; n > 0; n -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          if (n == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        }
+        case 0x40:                        // three 2-bit deltas
+          if ((delta = (n >> 4) & 3) != 2) setpixel(lastpixel + kDelta2[delta]);
+          if ((delta = (n >> 2) & 3) != 2) setpixel(lastpixel + kDelta2[delta]);
+          if ((delta = n & 3) != 2) setpixel(lastpixel + kDelta2[delta]);
+          break;
+        case 0x80:                        // two 3-bit deltas
+          if ((delta = (n >> 3) & 7) != 4) setpixel(lastpixel + kDelta3[delta]);
+          if ((delta = n & 7) != 4) setpixel(lastpixel + kDelta3[delta]);
+          break;
+        default:                          // a raw value
+          setpixel(static_cast<unsigned>(n));
+          break;
+      }
+    }
+    if (npixels != maxpixels) {
+      *count = npixels;
+      return r;
+    }
+  }
+  return rows;
 }
 
 // LittleCMS's 8-bit read through its optimised 16-bit table (cmsintrp.c

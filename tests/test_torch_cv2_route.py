@@ -3,7 +3,7 @@
 package, which reads them through Pillow.
 
 Every kind Pillow writes here that goes to cv2 is read with cv2
-importable (no JPEG goes to cv2 any more).  Each is either read to the
+importable (no JPEG and no TIFF goes to cv2 any more).  Each is either read to the
 JAX package's pixels and depth, or
 raises where the JAX package raises, or is refused with cv2 present (a
 ``ValueError`` naming its part of ROADMAP queue 1, item 8) because cv2

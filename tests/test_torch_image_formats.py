@@ -267,7 +267,7 @@ def test_tiff_reads_as_pillow_reads_it(mode, compression, tmp_path):
     port's own codec."""
     kw = {"compression": compression} if compression else {}
     data = _pil(_pil_images()[mode], "TIFF", **kw)
-    assert imgcodecs.tiff_not_carried(data) is None
+    assert timages._decoder(data) is imgcodecs.decode_tiff
     _same_read(data, tmp_path)
 
 

@@ -13,13 +13,11 @@ Pillow and libtiff (``dspfun_tpu/io/images.py``).
 * Pillow's unpacker of every rawmode the codec meets, against
   ``Image.frombytes``; associated alpha (ExtraSamples 1) of every
   (colour, alpha) pair of 8 bits.
-* What the codec does not carry (old-style JPEG, ThunderScan) goes to
-  cv2, or is refused naming ROADMAP queue 1, item 8c, without it; a
-  truncated or corrupt strip, tile or plane raises.  JPEG-in-TIFF, CCITT,
-  YCbCr, LAB, LZMA, Zstandard and libtiff's old LSB-first LZW, which
-  went to cv2 or were refused before the codec carried them, read as the
-  JAX package reads them here, in tests/test_torch_tiff_more.py and in
-  tests/test_torch_tiff_zstd_lzma.py.
+* No TIFF goes to cv2: the kinds that went there (or were refused)
+  before the codec carried them read as the JAX package reads them here,
+  in tests/test_torch_tiff_more.py, test_torch_tiff_zstd_lzma.py,
+  test_torch_tiff_ojpeg.py and test_torch_tiff_12bit.py; a truncated or
+  corrupt strip, tile or plane raises.
 """
 
 import io
@@ -123,7 +121,7 @@ def test_more_modes_read_as_pillow_reads_them(mode, compression, tmp_path):
                 path.write_bytes(data)
                 with pytest.raises(OSError, match="cannot identify"):
                     jimages.read_image(str(path))
-                assert imgcodecs.tiff_not_carried(data) is None
+                assert "unknown pixel mode" in imgcodecs.tiff_unidentified(data)
                 with pytest.raises(ValueError, match="unknown pixel mode"):
                     timages.read_image(str(path))
                 continue
@@ -196,11 +194,6 @@ def test_pillows_own_files_with_predictor_and_strips(tmp_path):
 
 # ---- what the codec does not carry ------------------------------------------
 
-# the kinds that went to cv2 before the codec carried them
-CARRIED_NOW = ("tiled", "planar", "predictor 3", "JPEG", "CCITT", "YCbCr", "CCITT RLE", "LAB",
-               "LZMA", "Zstandard")
-
-
 def _not_carried(kind):
     s = _samples("RGB", 8, 8, 0)
     if kind == "tiled":
@@ -227,35 +220,21 @@ def _not_carried(kind):
                                   "LAB", "LZMA", "CCITT RLE", "old-style JPEG", "Zstandard",
                                   "ThunderScan"])
 def test_what_the_codec_does_not_carry_goes_to_cv2(kind, tmp_path, monkeypatch):
-    """Old-style JPEG and ThunderScan go to cv2, or are refused naming
-    item 8c without it.  Tiles, planar files, the floating-point
-    predictor, JPEG-in-TIFF, CCITT (Group 4 and RLE), YCbCr, LAB, LZMA and
-    Zstandard, which went to cv2 before the codec carried them, read as
-    the JAX package reads them, with cv2 importable and blocked."""
+    """No TIFF goes to cv2 any more: each of these kinds, which went to
+    cv2 before the codec carried them, reaches ``decode_tiff`` and reads
+    as the JAX package reads it, with cv2 importable and blocked and with
+    a cv2 route that fails if called.  The old-style JPEG and ThunderScan
+    files here hold 8-bit RGB strips (no JPEG data; samples libtiff's
+    ThunderScan decoder refuses): both packages raise."""
     data = _not_carried(kind)
-    if kind in CARRIED_NOW:
-        assert imgcodecs.tiff_not_carried(data) is None
-        assert _same_or_both_raise(tmp_path, data, monkeypatch)
-        return
-    assert imgcodecs.tiff_not_carried(data)[1] == "c"
-    with pytest.raises(ValueError, match="not carried"):
-        imgcodecs.decode_tiff(data)
-    path = tmp_path / "in.tif"
-    path.write_bytes(data)
-    seen = []
+    assert timages._decoder(data) is imgcodecs.decode_tiff
 
-    def fake_cv2(d, name):
-        seen.append(name)
-        return np.zeros((8, 8, 3), np.uint8), 8
+    def no_cv2(d, name):
+        raise AssertionError("a TIFF reached cv2")
 
-    with monkeypatch.context() as mp:
-        mp.setattr(timages, "_cv2_decode", fake_cv2)
-        timages.read_image(str(path))
-    assert seen == ["TIFF"]
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ValueError, match="queue 1, item 8c") as e:
-        timages.read_image(str(path))
-    assert "TIFF" in str(e.value)
+    monkeypatch.setattr(timages, "_cv2_decode", no_cv2)
+    read = _same_or_both_raise(tmp_path, data, monkeypatch)
+    assert read == (kind not in ("old-style JPEG", "ThunderScan"))
 
 
 def test_old_style_lzw_is_refused(tmp_path, monkeypatch):
@@ -267,7 +246,7 @@ def test_old_style_lzw_is_refused(tmp_path, monkeypatch):
     for mode, kw in (("L", {}), ("RGB", dict(predictor=2, rows_per_strip=3)),
                      ("RGBA", dict(tile=(16, 16))), ("I;16", dict(bo=">", planar=True))):
         data = make_tiff(_samples(mode, 21, 35, 1), mode, compression=5, old_lzw=True, **kw)
-        assert imgcodecs.tiff_not_carried(data) is None
+        assert timages._decoder(data) is imgcodecs.decode_tiff
         assert _same_or_both_raise(tmp_path, data, monkeypatch)
     data = bytearray(make_tiff(_samples("L", 4, 4, 0), "L", "<", 5))
     data[8:10] = b"\x00\x01"

@@ -208,13 +208,21 @@ def test_progressive_jpeg_strips(tmp_path):
         assert _held(tmp_path, fx._assemble([blk], tags, "<"), "") == "same"
 
 
-def test_twelve_bit_and_old_style_jpeg_are_not_carried():
-    """12-bit JPEG-in-TIFF and old-style JPEG (compression 6) name item 8c."""
+def test_twelve_bit_and_old_style_jpeg_are_not_carried(tmp_path):
+    """12-bit JPEG-in-TIFF and old-style JPEG (compression 6), which
+    named item 8c until the codec carried them, reach ``decode_tiff``
+    (tests/test_torch_tiff_12bit.py and test_torch_tiff_ojpeg.py read
+    them).  These two read as Pillow reads them: a 12-bit YCbCr file is a
+    key Pillow's OPEN_INFO lacks ("cannot identify image file" in both),
+    and old-style JPEG over 8-bit RGB strips (no JPEG data) raises in
+    both."""
     s = fx.levels((8, 8), 1)
     data = make_tiff(s, "YCbCr", compression=7, extra_tags={258: (3, [12] * 3)})
-    assert imgcodecs.tiff_not_carried(data) == ("12-bit JPEG-in-TIFF", "c")
+    assert "unknown pixel mode" in imgcodecs.tiff_unidentified(data)
+    assert _held(tmp_path, data, "") == "both raise"
     old = make_tiff(s, "RGB", extra_tags={259: (3, [6])})
-    assert imgcodecs.tiff_not_carried(old) == ("old-style JPEG TIFF", "c")
+    assert timages._decoder(old) is imgcodecs.decode_tiff
+    assert _held(tmp_path, old, "") == "both raise"
 
 
 # ---- YCbCr --------------------------------------------------------------------
@@ -450,7 +458,7 @@ def test_lab_reads_as_pillow_reads_it(layout, tmp_path, monkeypatch):
     for compression, predictor in ((1, 1), (5, 1), (5, 2), (8, 2), (32946, 1), (32773, 1)):
         for bo in ("<", ">"):
             data = make_tiff(s, "LAB", bo, compression, predictor, **LAB_LAYOUTS[layout])
-            assert imgcodecs.tiff_not_carried(data) is None
+            assert timages._decoder(data) is imgcodecs.decode_tiff
             assert _same_or_both_raise(tmp_path, data, monkeypatch if bo == "<" else None)
 
 

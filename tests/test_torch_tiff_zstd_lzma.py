@@ -133,7 +133,7 @@ def test_pillows_files_read_as_the_jax_package_reads_them(comp, mode, tmp_path, 
         for kw in ({}, {"strip_size": img.width * max(len(img.getbands()), 1) * 7}):
             data = _pil(img, compression=comp, **({"tiffinfo": {317: pred}} if pred > 1 else {}),
                         **kw)
-            assert imgcodecs.tiff_not_carried(data) is None
+            assert timages._decoder(data) is imgcodecs.decode_tiff
             _same_read(tmp_path, data, monkeypatch if pred == 1 else None)
 
 
@@ -196,23 +196,24 @@ def test_the_first_strip_decides_the_lzw_form(tmp_path):
                                        (34676, "libtiff"), (34677, "libtiff"), (50001, "libtiff"),
                                        (34925, None), (50000, None), (5, None)])
 def test_what_stays_refused(comp, what, tmp_path, monkeypatch):
-    """Only old-style JPEG and ThunderScan (and 12-bit JPEG-in-TIFF) stay
-    with item 8c.  SGILog, SGILog24 and WebP, which Pillow's libtiff
-    refuses at this photometric (and which the port once left to cv2),
-    raise in both packages, with cv2 importable and blocked."""
+    """Nothing stays with item 8c.  SGILog, SGILog24 and WebP, which
+    Pillow's libtiff refuses at this photometric (and which the port once
+    left to cv2), raise in both packages, with cv2 importable and blocked;
+    so do old-style JPEG and ThunderScan over these 8-bit RGB strips,
+    which went to cv2 until the codec carried them (no JPEG data; samples
+    libtiff's ThunderScan decoder refuses).  LZMA, Zstandard and LZW
+    reach the codec too."""
     s = fx.tiff_samples("RGB", 8, 8, 0)
     data = make_tiff(s, "RGB", "<", 1, extra_tags={259: (3, [comp])})
+    assert timages._decoder(data) is imgcodecs.decode_tiff
     if what is None:
-        assert imgcodecs.tiff_not_carried(data) is None
-    elif what == "libtiff":
-        assert imgcodecs.tiff_not_carried(data) is None
+        return
+    if what == "libtiff":
         with pytest.raises(ValueError, match="libtiff refuses"):
             imgcodecs.decode_tiff(data)
-        assert _held(tmp_path, data, "") == "both raise"
-        monkeypatch.setitem(__import__("sys").modules, "cv2", None)
-        assert _held(tmp_path, data, "") == "both raise"
-    else:
-        assert imgcodecs.tiff_not_carried(data) == (f"{what} TIFF", "c")
+    assert _held(tmp_path, data, "") == "both raise"
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    assert _held(tmp_path, data, "") == "both raise"
 
 
 # ---- the Zstandard decoder against libzstd ----------------------------------------

@@ -387,7 +387,8 @@ def _pack_bits(bits: str) -> bytes:
 def fax_encode(block: np.ndarray, compression: int, two_d_every: int = 0,
                eol: str = "each", fill_bits: bool = False, rtc: bool = True) -> bytes:
     """A block [rows, w] of 0/1 as CCITT data: compression 2 (Modified
-    Huffman, each row byte-aligned, no EOL), 3 (T.4: 1-D rows, or with
+    Huffman, each row byte-aligned, no EOL; 32771, RLE-W: each row
+    aligned to 16 bits from the block's start), 3 (T.4: 1-D rows, or with
     ``two_d_every`` k a 1-D row then k - 1 2-D rows, each row behind an
     EOL (``eol`` "each"; "none": no EOL at all) and, for 2-D, its tag bit;
     ``fill_bits``: zeros before each EOL so that it ends on a byte; RTC
@@ -395,8 +396,9 @@ def fax_encode(block: np.ndarray, compression: int, two_d_every: int = 0,
     above, the first against white, then EOFB)."""
     rows, w = block.shape
     ref = np.zeros(w, np.uint8)
-    if compression == 2:
-        return b"".join(_pack_bits(fax_1d(r)) for r in block)
+    if compression in (2, 32771):
+        align = 8 if compression == 2 else 16
+        return b"".join(_pack_bits(fax_1d(r) + "0" * (-len(fax_1d(r)) % align)) for r in block)
     out = ""
     for k, row in enumerate(block):
         if compression == 4:
@@ -472,7 +474,7 @@ def make_tiff(samples, mode, bo="<", compression=1, predictor=1, rows_per_strip=
         else:
             full = plane
         for y, x in grid:
-            if compression in (2, 3, 4):
+            if compression in (2, 3, 4, 32771):
                 blk = fax_encode(full[y:y + th, x:x + tw, 0], compression, **(fax or {}))
             elif subsampling:
                 blk = compress(_ycbcr_blocks(full[y:y + th, x:x + tw], *subsampling))
@@ -1438,7 +1440,8 @@ def _pack_codes(values: np.ndarray, lengths: np.ndarray) -> bytes:
     return np.insert(out, ff + 1, 0).tobytes()
 
 
-def _lossless_diffs(plane: np.ndarray, predictor: int, pt: int, first_rows) -> np.ndarray:
+def _lossless_diffs(plane: np.ndarray, predictor: int, pt: int, first_rows,
+                    precision: int = 8) -> np.ndarray:
     """The differences jclossls.c codes for one component's samples (at
     their own size): the samples >> pt, each less its prediction (T.81
     H.1.2.1: Ra in a row that starts a restart interval, the first sample
@@ -1457,7 +1460,7 @@ def _lossless_diffs(plane: np.ndarray, predictor: int, pt: int, first_rows) -> n
     first = np.zeros(len(x), bool)
     first[list(first_rows)] = True
     pred[first, 1:] = ra[first, 1:]
-    pred[first, 0] = 1 << (8 - pt - 1)
+    pred[first, 0] = 1 << ((12 if precision == 12 else 8) - pt - 1)
     d = (x - pred) & 0xFFFF
     return np.where(d > 32768, d - 65536, d)
 
@@ -1472,11 +1475,12 @@ def make_lossless_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0, res
     1, 2, ...), ``scans`` (tuples of component indices; default one
     interleaved scan), a restart marker every ``restart`` MCUs (libjpeg
     needs a multiple of the MCUs in a row), ``app`` segments after SOI;
-    every component codes with :data:`LOSSLESS_DC`.  ``precision`` is
-    only written into the frame header; ``diffs`` (per component, the
+    every component codes with :data:`LOSSLESS_DC`.  ``precision`` 12
+    takes uint16 samples below 4096 (the first prediction 2^(P - Pt - 1));
+    any other is only written into the frame header; ``diffs`` (per component, the
     differences at its own size) are coded in place of the samples' (a
     crafted stream: 32768 is category 16)."""
-    a = np.asarray(samples, np.uint8)
+    a = np.asarray(samples, np.uint16 if precision == 12 else np.uint8)
     a = a[..., None] if a.ndim == 2 else a
     h, w, nc = a.shape
     sampling = sampling or [(1, 1)] * nc
@@ -1508,7 +1512,7 @@ def make_lossless_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0, res
             # in it makes its first row of each component a first row
             first = sorted({r * cv for r in starts} if not single
                            else {r // v * v for r in starts})
-            d = _lossless_diffs(planes[c], predictor, pt, first) if diffs is None \
+            d = _lossless_diffs(planes[c], predictor, pt, first, precision) if diffs is None \
                 else np.asarray(diffs[c], np.int64)
             full = np.zeros((my * cv, mx * ch), np.int64)
             full[:d.shape[0], :d.shape[1]] = d
@@ -2335,3 +2339,392 @@ def arith_digests(data: bytes) -> tuple[str, str]:
 
 if __name__ == "__main__":
     main()
+
+
+# ---- 12-bit JPEG, ThunderScan, RLE-W and old-style JPEG TIFF ---------------------
+# Pillow writes none of these, and the system's libjpeg is 8-bit only: the
+# writers below are numpy.
+
+# Huffman tables of every DC category 0..15 (5 bits each) and of every AC
+# symbol: EOB, ZRL and each run 0..15 with each size 1..15 (8 bits each)
+DC12 = (bytes([0, 0, 0, 0, 16] + [0] * 11), bytes(range(16)))
+AC12 = (bytes([0] * 7 + [242] + [0] * 8),
+        bytes([0x00, 0xF0] + [r << 4 | s for r in range(16) for s in range(1, 16)]))
+
+
+def _category(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(T.81's magnitude category, the extra bits) of each int value."""
+    cat = np.ceil(np.log2(np.abs(v) + 1)).astype(np.int64)
+    return cat, np.where(v >= 0, v, v - 1) & ((1 << cat) - 1)
+
+
+def jpeg12_coefficients(samples: np.ndarray, qtable, precision: int = 12) -> np.ndarray:
+    """Quantised coefficients int64 [bh, bw, 64] (natural order) of one
+    component's samples [h, w] (edge samples repeated to whole blocks):
+    a float DCT of the samples less 2^(P-1), divided by ``qtable`` and
+    rounded."""
+    s = np.asarray(samples, np.float64)
+    h, w = s.shape
+    s = np.pad(s, ((0, -h % 8), (0, -w % 8)), mode="edge") - (1 << (precision - 1))
+    k = np.arange(8)
+    d = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    d[0] /= np.sqrt(2)
+    blocks = s.reshape(s.shape[0] // 8, 8, s.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+    c = d @ blocks @ d.T
+    return np.rint(c.reshape(*c.shape[:2], 64) / np.asarray(qtable, np.float64)).astype(np.int64)
+
+
+def make_jpeg12(coefs: np.ndarray, qtable, width: int, height: int, marker: int = 0xC1,
+                restart: int = 0, precision: int = 12) -> bytes:
+    """A one-component sequential Huffman JPEG (``marker`` SOF0 or SOF1)
+    of quantised coefficients [bh, bw, 64] (natural order, bh x bw the
+    blocks of ``width`` x ``height``) at ``precision`` bits, coded with
+    :data:`DC12` and :data:`AC12` (no loop over blocks), a restart marker
+    every ``restart`` blocks; a 16-bit DQT where a value passes 255."""
+    from dspfun_tpu_torch.io.jpeg import ZIGZAG  # noqa: PLC0415
+
+    bh, bw = coefs.shape[:2]
+    zz = np.asarray(coefs, np.int64).reshape(bh * bw, 64)[:, list(ZIGZAG)]
+    n = len(zz)
+    step = restart or n
+    dc = zz[:, 0].copy()
+    prev = np.roll(dc, 1)
+    prev[::step] = 0
+    dcat, dbits = _category(dc - prev)
+    dcodes, dlens = _huffman_codes(DC12)
+    acodes, alens = _huffman_codes(AC12)
+    blk, pos = np.nonzero(zz[:, 1:])
+    pos = pos + 1
+    last = np.zeros(len(pos), np.int64)
+    same = np.flatnonzero(blk[1:] == blk[:-1]) + 1
+    last[same] = pos[same - 1]
+    run = pos - last - 1
+    zrl = run // 16
+    cat, bits = _category(zz[blk, pos])
+    sym = (run % 16) << 4 | cat
+    # tokens (block, position, order, code, length): DC, ZRLs, AC values, EOB
+    ends = np.zeros(n, np.int64)
+    ends[blk] = pos
+    eob = np.flatnonzero(ends < 63)
+    zb = np.repeat(np.arange(len(blk)), zrl)
+    zorder = np.arange(len(zb)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+    key_b = np.concatenate([np.arange(n), blk[zb], blk, eob])
+    key_p = np.concatenate([np.zeros(n, np.int64), pos[zb], pos, np.full(len(eob), 64)])
+    key_o = np.concatenate([np.zeros(n, np.int64), zorder, zrl, np.zeros(len(eob), np.int64)])
+    vals = np.concatenate([dcodes[dcat] << dcat | dbits, np.full(len(zb), acodes[0xF0]),
+                           acodes[sym] << cat | bits, np.full(len(eob), acodes[0])])
+    lens = np.concatenate([dlens[dcat] + dcat, np.full(len(zb), alens[0xF0]),
+                           alens[sym] + cat, np.full(len(eob), alens[0])])
+    order = np.lexsort((key_o, key_p, key_b))
+    key_b, vals, lens = key_b[order], vals[order], lens[order]
+    q = np.asarray(qtable, np.int64)[list(ZIGZAG)]
+    wide = int(q.max() > 255)
+    out = b"\xff\xd8" + _jseg(0xDB, bytes([wide << 4]) + q.astype(">u2" if wide else np.uint8)
+                              .tobytes())
+    out += _jseg(marker, struct.pack(">BHHB", precision, height, width, 1) + bytes([1, 0x11, 0]))
+    out += _jseg(0xC4, b"\x00" + DC12[0] + DC12[1]) + _jseg(0xC4, b"\x10" + AC12[0] + AC12[1])
+    if restart:
+        out += _jseg(0xDD, struct.pack(">H", restart))
+    out += _jseg(0xDA, bytes([1, 1, 0x00, 0, 63, 0]))
+    cuts = np.searchsorted(key_b, np.arange(0, n, step))
+    for k, (a, b) in enumerate(zip(cuts, list(cuts[1:]) + [len(key_b)])):
+        if k:
+            out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        out += _pack_codes(vals[a:b], lens[a:b])
+    return out + b"\xff\xd9"
+
+
+def jpeg_parts(data: bytes) -> dict:
+    """The parts of a one-scan Huffman JPEG that an old-style JPEG TIFF
+    holds as tags: quantisation tables (64 bytes, zigzag) and Huffman
+    tables (16 counts and the values) by (class, id) or id, the frame's
+    components ((id, h, v, tq) each), the scan's table selectors (per
+    component, (dc, ac)), the restart interval, and the entropy-coded
+    data cut at its restart markers (the segments, markers dropped)."""
+    q, huff, dri, comps, sel, pos = {}, {}, 0, [], [], 2
+    while True:
+        code = data[pos + 1]
+        n = struct.unpack_from(">H", data, pos + 2)[0]
+        body = data[pos + 4:pos + 2 + n]
+        pos += 2 + n
+        if code == 0xDB:
+            for k in range(0, len(body), 65):
+                q[body[k] & 15] = body[k + 1:k + 65]
+        elif code == 0xC4:
+            k = 0
+            while k < len(body):
+                cnt = body[k + 1:k + 17]
+                huff[body[k] >> 4, body[k] & 15] = cnt + body[k + 17:k + 17 + sum(cnt)]
+                k += 17 + sum(cnt)
+        elif code == 0xDD:
+            dri = struct.unpack(">H", body)[0]
+        elif code in (0xC0, 0xC1):
+            comps = [(body[6 + 3 * c], body[7 + 3 * c] >> 4, body[7 + 3 * c] & 15, body[8 + 3 * c])
+                     for c in range(body[5])]
+        elif code == 0xDA:
+            sel = [(body[2 + 2 * c] >> 4, body[2 + 2 * c] & 15) for c in range(body[0])]
+            break
+    end = data.rindex(b"\xff\xd9")
+    segments = re.split(rb"\xff[\xd0-\xd7]", data[pos:end])
+    return {"q": q, "huff": huff, "dri": dri, "comps": comps, "sel": sel, "segments": segments}
+
+
+def make_ojpeg(jpeg: bytes, w: int, h: int, layout: str, bo: str = "<", rows=None,
+               subsampling=None, photometric: int = 6, extra_tags=None) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of a baseline JPEG of w x h,
+    in either layout libtiff's tif_ojpeg.c reads:
+
+    * ``"jif"``: JPEGInterchangeFormat (513) and its length (514) point at
+      the whole stream, which is also the one strip;
+    * ``"tables"``: JPEGProc 1 (512), JPEGQTables, JPEGDCTables and
+      JPEGACTables (519-521: one offset per component, to the bare
+      tables), JPEGRestartInterval (515) where the stream has one, and the
+      entropy-coded data in strips of ``rows`` rows (each strip one of
+      the stream's restart intervals; the markers dropped, as libtiff
+      puts them back between strips).
+
+    YCbCrSubsampling (530) is ``subsampling``, or the frame's where None
+    (and left out for one component); ``extra_tags`` are set last."""
+    p = jpeg_parts(jpeg)
+    spp = len(p["comps"])
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * spp), 259: (3, [6]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [1])}
+    if spp == 3:
+        tags[530] = (3, list(subsampling or p["comps"][0][1:3]))
+    if layout == "jif":
+        blocks = [jpeg]
+        tags.update({273: (4, []), 278: (4, [h]), 279: (4, [len(jpeg)]), 513: (4, [8]),
+                     514: (4, [len(jpeg)])})
+    else:
+        segs = p["segments"]
+        nstrips = -(-h // (rows or h))
+        if len(segs) != nstrips:
+            raise ValueError(f"{len(segs)} restart intervals for {nstrips} strips")
+        tables, at = [], 8 + sum(len(s) for s in segs)
+        at += at % 2
+
+        def offsets(items):
+            nonlocal at
+            out = {}
+            for key, raw in items:
+                out[key] = at
+                tables.append(raw + b"\0" * (len(raw) % 2))
+                at += len(raw) + len(raw) % 2
+            return out
+
+        qo = offsets(sorted(p["q"].items()))
+        ho = offsets(sorted(p["huff"].items()))
+        blocks = segs[:-1] + [segs[-1] + b"\0" * ((8 + sum(map(len, segs))) % 2)] + tables
+        tags.update({273: (4, []), 278: (4, [rows or h]), 279: (4, [len(s) for s in segs]),
+                     512: (3, [1]),
+                     519: (4, [qo[c[3]] for c in p["comps"]]),
+                     520: (4, [ho[0, s[0]] for s in p["sel"]]),
+                     521: (4, [ho[1, s[1]] for s in p["sel"]])})
+        if p["dri"]:
+            tags[515] = (3, [p["dri"]])
+        data = _assemble(blocks, tags | dict(extra_tags or {}), bo, index=range(nstrips))
+        return data
+    tags.update(extra_tags or {})
+    return _assemble(blocks, tags, bo)
+
+
+def thunder_encode(rows: np.ndarray, seed: int) -> bytes:
+    """4-bit samples [h, w] as ThunderScan codes (libtiff's tif_thunder.c
+    reads them), each row from a last pixel of 0, the code at each step
+    drawn at random among those that fit: a run of the last pixel (up to
+    63; now and then an empty one), three 2-bit deltas (0, +1, -1, with a
+    skip where fewer pixels are left), two 3-bit deltas (-3..3, or one
+    and a skip), or a raw value."""
+    rng = np.random.default_rng(seed)
+    d2, d3 = {0: 0, 1: 1, 15: 3}, {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        last, k, w = 0, 0, len(row)
+        while k < w:
+            run = 0
+            while k + run < w and run < 63 and row[k + run] == last:
+                run += 1
+            steps = [(row[j] - prev) % 16 for j, prev in zip(range(k, min(k + 3, w)),
+                                                              [last, *row[k:k + 2]])]
+            opts = ["raw"] + (["run"] if run else []) + (["empty"] if rng.random() < 0.05 else [])
+            n2 = next((i for i, v in enumerate(steps) if v not in d2), len(steps))
+            n3 = next((i for i, v in enumerate(steps[:2]) if v not in d3), len(steps[:2]))
+            opts += (["d2"] if n2 else []) + (["d3"] if n3 else [])
+            pick = opts[rng.integers(len(opts))]
+            if pick == "run":
+                n = int(rng.integers(1, run + 1))
+                out.append(n)
+                k += n
+            elif pick == "empty":
+                out.append(0)
+            elif pick == "d2":
+                n = int(rng.integers(1, n2 + 1))
+                codes = [d2[v] for v in steps[:n]] + [2] * (3 - n)
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                k += n
+            elif pick == "d3":
+                n = int(rng.integers(1, n3 + 1))
+                codes = [d3[v] for v in steps[:n]] + [4] * (2 - n)
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                k += n
+            else:
+                out.append(0xC0 | int(row[k]))
+                k += 1
+            last = row[k - 1] if k else last
+    return bytes(out)
+
+
+def thunder_tiff(rows: np.ndarray, seed: int, photometric: int = 1, rows_per_strip=None,
+                 bo: str = "<", fill_order: int = 1, cmap=None, strip_codec=None) -> bytes:
+    """A ThunderScan TIFF (compression 32809) of 4-bit samples [h, w], each
+    strip's rows coded by :func:`thunder_encode` (``strip_codec``, a
+    function of a strip's rows and its index, in its place)."""
+    h, w = rows.shape
+    rps = rows_per_strip or h
+    code = strip_codec or (lambda r, k: thunder_encode(r, seed + k))
+    blocks = [code(rows[y:y + rps], k) for k, y in enumerate(range(0, h, rps))]
+    if fill_order == 2:
+        blocks = [_BITREV[np.frombuffer(b, np.uint8)].tobytes() for b in blocks]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [4]), 259: (3, [32809]),
+            262: (3, [photometric]), 273: (4, []), 277: (3, [1]), 278: (4, [rps]),
+            279: (4, [len(b) for b in blocks])}
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if cmap is not None:
+        tags[320] = (3, list(cmap))
+    return _assemble(blocks, tags, bo)
+
+
+def gray12(hw, seed: int, noise: float = 60.0) -> np.ndarray:
+    """Seeded smooth 12-bit gray levels [h, w] (uint16, 0..4095) with noise."""
+    h, w = hw
+    y, x = np.mgrid[0:h, 0:w]
+    rng = np.random.default_rng(seed)
+    v = 2048 + 1500 * np.sin(x / 7 + seed) * np.cos(y / 5) + rng.normal(0, noise, (h, w))
+    return np.clip(np.rint(v), 0, 4095).astype(np.uint16)
+
+
+def q12() -> np.ndarray:
+    """The quantisation table of the 12-bit fixtures (natural order): 1 at
+    the DC, 2..64 by zigzag position."""
+    from dspfun_tpu_torch.io.jpeg import ZIGZAG  # noqa: PLC0415
+
+    q = np.empty(64, np.int64)
+    q[list(ZIGZAG)] = np.arange(1, 65)
+    return q
+
+
+def tiff12(samples: np.ndarray, kind: str = "sof1", rows=None, tile=None, abbreviated=True,
+           restart: int = 0, qtable=None, bo: str = "<") -> bytes:
+    """A 12-bit gray JPEG-in-TIFF (BitsPerSample 12, photometric 1) of
+    uint16 samples [h, w]: one stream a strip of ``rows`` rows or a tile
+    of ``tile`` = (height, width) (the part past the image filled with the
+    edge samples), each :func:`make_jpeg12` of its coefficients (``kind``
+    "sof1" or "sof0") or :func:`make_lossless_jpeg` of its samples ("sof3",
+    predictor 1), abbreviated under one JPEGTables where asked."""
+    h, w = samples.shape
+    q = q12() if qtable is None else qtable
+    if tile:
+        th, tw = tile
+        full = np.pad(samples, ((0, -h % th), (0, -w % tw)), mode="edge")
+        grid = [(y, x, th, tw) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        th, full = rows or h, samples
+        grid = [(y, 0, min(th, h - y), w) for y in range(0, h, th)]
+    streams, tables = [], None
+    for y, x, bh, bw in grid:
+        blk = full[y:y + bh, x:x + bw]
+        if kind == "sof3":
+            data = make_lossless_jpeg(blk, restart=restart, precision=12)
+        else:
+            data = make_jpeg12(jpeg12_coefficients(blk, q), q, bw, bh,
+                               marker=0xC1 if kind == "sof1" else 0xC0, restart=restart)
+        if abbreviated:
+            tables, data = abbreviate(data)
+        streams.append(data)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [12]), 259: (3, [7]), 262: (3, [1]),
+            277: (3, [1]), 284: (3, [1])}
+    if tile:
+        tags.update({322: (3, [tile[1]]), 323: (3, [tile[0]]), 324: (4, []),
+                     325: (4, [len(s) for s in streams])})
+    else:
+        tags.update({273: (4, []), 278: (4, [th]), 279: (4, [len(s) for s in streams])})
+    if tables is not None:
+        tags[347] = (7, list(tables))
+    return _assemble(streams, tags, bo)
+
+
+# phase 28's goldens: name -> how it is made (tests/test_torch_tiff_ojpeg.py
+# and test_torch_tiff_12bit.py remake them and pin their digests)
+OJPEG_GOLDENS = ("ojpeg_jif_420.tif", "ojpeg_tables_422_rst.tif", "ojpeg_jif_420_mm.tif",
+                 "ojpeg_gray_tables.tif", "ojpeg_jif_444_refbw.tif", "ojpeg_4k.tif")
+MORE_TIFF_GOLDENS = ("tiff12_sof1_strips.tif", "tiff12_sof3_tiles.tif", "thunderscan.tif",
+                     "rlew_fill2.tif")
+OJPEG_4K = "ojpeg_4k.tif"
+
+
+def ojpeg_goldens() -> dict[str, bytes]:
+    """Phase 28's old-style JPEG goldens, made from Pillow's baseline JPEGs
+    of seeded levels: 77x53 4:2:0 in the JPEGInterchangeFormat layout,
+    little- and big-endian; 96x64 4:2:2 in the tables layout, a restart
+    every 2 MCU rows and a strip each; 61x45 gray in the tables layout; 4:4:4 with
+    ReferenceBlackWhite; and the 3840x2160 levels of
+    ``codec_prog_4k.jpg`` (4:2:0, a restart every 4 MCU rows) in 64-row
+    strips of the tables layout."""
+    from PIL import Image  # noqa: PLC0415
+
+    def jpg(a, **kw):
+        return _save(Image.fromarray(a), "JPEG", **kw)
+
+    out = {"ojpeg_jif_420.tif": make_ojpeg(jpg(levels((53, 77), 90)), 77, 53, "jif")}
+    out["ojpeg_tables_422_rst.tif"] = make_ojpeg(
+        jpg(levels((64, 96), 91), subsampling=1, restart_marker_rows=2), 96, 64, "tables",
+        rows=16)
+    out["ojpeg_jif_420_mm.tif"] = make_ojpeg(jpg(levels((53, 77), 98)), 77, 53, "jif", bo=">")
+    out["ojpeg_gray_tables.tif"] = make_ojpeg(jpg(levels((45, 61), 92)[..., 0]), 61, 45,
+                                              "tables", photometric=1)
+    out["ojpeg_jif_444_refbw.tif"] = make_ojpeg(jpg(levels((40, 56), 93), subsampling=0), 56, 40,
+                                                "jif", extra_tags=REFBW)
+    big = levels((2160, 3840), 17, noise=0.02)
+    out[OJPEG_4K] = make_ojpeg(jpg(big, restart_marker_rows=4), 3840, 2160, "tables", rows=64)
+    return out
+
+
+def more_tiff_goldens() -> dict[str, bytes]:
+    """Phase 28's 12-bit JPEG, ThunderScan and RLE-W goldens (no Pillow
+    needed): 12-bit SOF1 in 16-row strips under one JPEGTables (64x45),
+    12-bit lossless in 16x16 tiles (45x37, edge tiles), ThunderScan 4-bit
+    gray (37x23, 8-row strips), RLE-W under FillOrder 2 (a 70x33 page in
+    strips of 20 rows: libtiff's word alignment drops the bits it holds
+    past a 16-bit multiple, so it reads most rows of this writer's
+    strips otherwise than they were written, or fails on them; this one
+    it reads)."""
+    g = gray12((45, 64), 94)
+    return {
+        "tiff12_sof1_strips.tif": tiff12(g, "sof1", rows=16),
+        "tiff12_sof3_tiles.tif": tiff12(gray12((37, 45), 95), "sof3", tile=(16, 16)),
+        "thunderscan.tif": thunder_tiff((levels((23, 37), 96)[..., 0] >> 4), 96,
+                                        rows_per_strip=8),
+        "rlew_fill2.tif": make_tiff(doc_page(33, 70, 97)[..., None], "1", compression=32771,
+                                    rows_per_strip=20, fill_order=2),
+    }
+
+
+def pillow_digests(data: bytes) -> tuple[str, str]:
+    """sha256 of a TIFF and of Pillow's samples of it: its 16-bit gray
+    array for mode ``I;16``, else its ``convert("RGB")``."""
+    from PIL import Image  # noqa: PLC0415
+
+    im = Image.open(io.BytesIO(data))
+    if im.mode == "I;16":
+        px = hashlib.sha256(np.asarray(im).astype("<u2").tobytes()).hexdigest()
+    else:
+        px = rgb_digest(np.asarray(im.convert("RGB")))
+    return hashlib.sha256(data).hexdigest(), px
+
+
+def port_digest(samples: np.ndarray) -> str:
+    """The digest of :func:`pillow_digests` of the port's decode of it."""
+    if samples.dtype == np.uint16:
+        return hashlib.sha256(np.ascontiguousarray(samples, "<u2").tobytes()).hexdigest()
+    return rgb_digest(samples)
