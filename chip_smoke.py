@@ -282,7 +282,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    each decode.  (b) ``spec -t flat -G 1000`` of the 4K progressive JPEG
    and of the predictor-2 deflate TIFF at ``i8@1e-5``: the spectrum
    equal to the one from a PNG of the decoded pixels, kernels #1-#2 once
-   a tool; ``ispec`` of each at ``i8@1e-5`` back to its format.  (c)
+   a tool; ``ispec`` at ``i8@1e-5`` back to TIFF (phase 16 holds ispec
+   to a 4K JPEG).  (c)
    motion's lowpass (phase 6's argv) on 8 1080p frames (``CODEC_FRAMES``)
    written as deflate ``frame%04d.tif`` (predictor 1 and 2 in turn),
    equal byte for byte to the same run on a PPM sequence of the same
@@ -325,9 +326,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    write and decode.  (b) ``spec -t flat -G 1000`` of the three 4K files
    at ``i8@1e-5``: the spectrum equal to the one from the same pixels as
    a 16-bit PNG (the I;32S file, whose pixels run past [0, 1], against
-   its float pixels handed to the tool), kernels #1-#2 once a tool;
-   ``ispec`` of each at ``i8@1e-5`` back to PPM (the I;32S file's to
-   PNG: 16 bits).  (c) motion's lowpass (phase 6's argv) on 8 1080p
+   its float pixels handed to the tool), kernels #1-#2 once a tool.  (c)
+   motion's lowpass (phase 6's argv) on 8 1080p
    frames (``TIFF_CMYK_FRAMES``) written as ``in%04d.tif`` (tiled,
    planar, deflate CMYK, Orientation 1), to y4m, equal byte for byte to
    the same run on a PPM sequence of the decoded frames, with the same
@@ -350,8 +350,7 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    tests/test_torch_tiff_more.py), seconds and MB/s of each; (c) ``spec
    -t flat -G 1000`` of the JPEG-in-TIFF and the G4 page at ``i8@1e-5``,
    each spectrum equal to the one from the same pixels as a 16-bit PNG,
-   kernels #1-#2 once a tool, and ``ispec`` of each at ``i8@1e-5`` back
-   to PPM;
+   kernels #1-#2 once a tool;
    (d) motion's lowpass on 8 1080p frames written as ``in%04d.tif``
    (4:2:0 JPEG-in-TIFF in 16-row strips) to y4m, equal byte for byte to
    the same run on a PPM sequence of the decoded frames, with the same
@@ -367,10 +366,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    1080p frames of (c)) each read through ``images._decoder`` to the
    port's decoder, file and RGBA pixels equal to the JAX package's sha256
    (pinned by tests/test_torch_webp.py).  (b) ``codec_webp_4k.webp``
-   (Pillow's quality 80 of phase 17's 4K levels) decoded, the best of 5
-   in seconds and MB/s; ``spec -t flat -G 1000`` of it at ``i8@1e-5``,
-   the spectrum equal to the one from the same pixels as a PNG, kernels
-   #1-#2 once a tool, and ``ispec`` at ``i8@1e-5`` back to PPM.  (c) motion's
+   (Pillow's quality 80 of phase 17's 4K levels) decoded, the best of
+   ``WEBP_REPEATS`` in seconds and MB/s; ``spec -t flat -G 1000`` of it at
+   ``i8@1e-5``, the spectrum equal to the one from the same pixels as a
+   PNG, kernels #1-#2 once a tool.  (c) motion's
    lowpass (phase 6's argv) on the 8 1080p WebP frames to y4m, equal byte
    for byte to the same run on a PPM sequence of their decoded frames,
    with the same launches of kernel #2 (at least one); seconds by stage.
@@ -386,12 +385,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    format's decoder, file and RGBA pixels equal to the JAX package's
    sha256 (pinned by tests/test_torch_other_formats.py).  (b) A 3840x2160
    QOI (the port's encoder) and RLE TGA (the fixtures module's maker) of
-   ``_seeded_pixels`` seed 43 at noise 0.02 decoded, the best of 5 in
-   seconds and MB/s;
+   ``_seeded_pixels`` seed 43 at noise 0.02 decoded, the best of
+   ``OTHER_REPEATS`` in seconds and MB/s;
    ``spec -t flat -G 1000`` of each at ``i8@1e-5``, each spectrum equal
    to the one from the same levels as a PNG, kernels #1-#2 once a tool;
-   ``ispec`` at ``i8@1e-5`` to PPM and to each of ``OTHER_EXTS``, each
-   file equal to the port's encoder of the PPM's pixels; and
+   ``ispec`` at ``i8@1e-5`` to PPM and to each of ``OTHER_ISPEC`` (TGA,
+   ICO), each file equal to the port's encoder of the PPM's pixels; and
    ``write_image``'s encoder of each of ``OTHER_EXTS`` on the seeded
    levels, timed, equal to the JAX package's (Pillow's) sha256.  (c) motion's lowpass
    (phase 6's argv) on 8 1080p RLE TGA frames to y4m, equal byte for byte
@@ -416,9 +415,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    decoded (best of ``ZSTD_LZMA_REPEATS``, seconds and MB/s) to Pillow's
    digest (``STRIP_4K_DIGEST``); ``spec -t flat -G 1000`` of the
    Zstandard file at ``i8@1e-5``, the spectrum equal to the one from
-   the same levels as a PNG, kernels #1-#2 once; ``ispec`` at
-   ``i8@1e-5`` back to PNG.  (c) motion's lowpass (phase 6's argv) on 8
-   1080p frames written as LZMA and Zstandard TIFF in turn, to y4m,
+   the same levels as a PNG, kernels #1-#2 once.  (c) motion's lowpass
+   (phase 6's argv) on 8 1080p frames written as LZMA and Zstandard TIFF
+   in turn, to y4m,
    equal byte for byte to the same run on a PPM sequence of the decoded
    frames, with the same launches of kernel #2 (at least one); seconds by
    stage.  The int8 kernels are held to their plain versions at every
@@ -437,8 +436,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    scans alone and all its scans but the last, each decoded (best of
    ``SHORT_REPEATS``, seconds and MB/s) to Pillow's digest; ``spec -t flat
    -G 1000`` of the second at ``i8@1e-5``, the spectrum equal to the one
-   from the same pixels as a PNG, kernels #1-#2 once; ``ispec`` at
-   ``i8@1e-5`` back to PNG.  (c) A 3840x2160 lossless JPEG of
+   from the same pixels as a PNG, kernels #1-#2 once.  (c) A 3840x2160
+   lossless JPEG of
    ``CODEC_4K``'s levels (predictor 1, a restart interval every 16 rows)
    written by the fixtures module's numpy writer and decoded to those
    levels exactly, seconds and MB/s.  The int8 kernels are held to their
@@ -473,9 +472,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ramps), each decoded (best of ``J2K_REPEATS``, seconds and MB/s) to
    Pillow's digest.  (c) ``spec -t flat -G 1000`` of the irreversible 4K
    JP2 at ``i8@1e-5``, the spectrum equal to the one from the same levels
-   as a PNG, kernels #1-#2 once.  (d) ``ispec`` at ``i8@1e-5`` back to
-   PNG.  The int8 kernels are held to their plain versions at every shape
-   the phase gave them;
+   as a PNG, kernels #1-#2 once.  The int8 kernels are held to their
+   plain versions at every shape the phase gave them;
 27. main path 23, arithmetic-coded JPEG read by the port's own codec
    (``io/jpeg.py`` on ``native/jpeg.cpp:jpg_decode_arith``).  (a) Every
    golden of ``ARITH_FIXTURES`` (libjpeg's arithmetic coder wrote them:
@@ -507,6 +505,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    kernels #1-#2 once, its spectrum equal to that of a PNG of the same
    decoded pixels; the int8 kernels are held to their plain versions at
    every shape the phase gave them;
+29. main path 25, JPEG 2000's rest read by the port's own codec
+   (``io/jpeg2000.py``, ``native/j2k.cpp``).  (a) Every golden of
+   ``J2K_MORE_FIXTURES`` (Pillow's own OpenJPEG wrote them: POCs in the
+   main header, in every tile and over layers; SOP and EPH markers; each
+   code-block style switch alone and all six under both wavelets; RGN;
+   COC and QCC in the main and tile-part headers; 4:2:0 and 4:2:2
+   components, a sYCC JP2, four components with sub-sampled chroma)
+   through ``images._decoder`` to ``decode_j2k``, file and pixels equal to
+   the JAX package's digests.  (b) Pillow's 4096x2160 ``cinema4k-24`` file
+   and a 3840x2160 file in bypass with every pass terminated, decoded (best
+   of ``J2K_REPEATS``) to Pillow's digests beside phase 26b's plain 4K
+   decodes.  (c) ``spec -t flat -G 1000`` of the cinema file at
+   ``i8@1e-5``, kernels #1-#2 once, its spectrum equal to that of a PNG of
+   the same decoded pixels; the int8 kernels are held to their plain
+   versions at every shape the phase gave them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -3604,7 +3617,9 @@ def _codecs_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, motion_hw=(
             print(f"phase 17b {ext} at {tag}: spectrum == the PNG route's: {ok}", flush=True)
             if not ok:
                 raise RuntimeError(f"phase 17b at {tag}: the {ext} route differs from PNG's")
-            back = os.path.join(tmp, "back." + {"jpg": "jpg", "tif": "tiff"}[ext])
+            if ext == "jpg":        # phase 16b runs ispec to a 4K JPEG
+                continue
+            back = os.path.join(tmp, "back.tiff")
             with _policy("i8@1e-5"):
                 fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
                                        + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
@@ -3927,15 +3942,14 @@ def _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
     4K CMYK TIFF, the CMYK JPEG ``jpeg_4k`` and the I;32S TIFF at
     ``i8@1e-5``, each against the same pixels given as a 16-bit PNG (the
     I file, whose values run past [0, 1], against its float pixels handed
-    to the tool), and ispec at ``i8@1e-5`` back to PPM (to PNG for the
-    16-bit I file).  (c) motion's lowpass on a 1080p tiled, planar,
+    to the tool).  (c) motion's lowpass on a 1080p tiled, planar,
     deflate CMYK TIFF sequence (Orientation 1) to y4m against a PPM
     sequence of its decoded frames.  Returns the kernels' launches over
     the CMYK and I runs."""
     import hashlib
 
     from dspfun_tpu_torch.io import images, imgcodecs, jpeg
-    from dspfun_tpu_torch.tools import ispec, motion, spec
+    from dspfun_tpu_torch.tools import motion, spec
 
     fx = _fixtures_module()
     count = _Launches(torch, int8mm, block_filter)
@@ -4062,18 +4076,6 @@ def _tiff_cmyk_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
                   flush=True)
             if not ok:
                 raise RuntimeError(f"phase 19b at {tag}: the {ext} route differs")
-            back = os.path.join(tmp, f"back_{ext}." + ("png" if ext == "i32_tif" else "ppm"))
-            with _policy("i8@1e-5"):
-                fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
-                                       + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
-                (wall, stages, got), _ = count.run(fn)
-            res = read_image(back).pixels
-            ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
-            print(f"phase 19b ispec of {ext} to {back[-3:].upper()} at i8@1e-5: {wall:.3f} s; stages "
-                  f"{_stages(stages)}; launches {json.dumps(got)}; max abs diff to the input "
-                  f"{float(np.abs(res - np.clip(pix, 0, 1)).max()):.4f}", flush=True)
-            if not ok:
-                raise RuntimeError(f"phase 19b ispec of {ext} launched {got} or wrote {res.shape}")
 
         # ---- (c) motion's lowpass on a planar CMYK TIFF sequence against PPM ----
         mh, mw = motion_hw
@@ -4183,15 +4185,14 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
     4:2:0 JPEG-in-TIFF, a G4 page and a YCbCr 2x2 deflate TIFF written
     and decoded, each to Pillow's digest, with seconds and MB/s; (c)
     spec of the JPEG-in-TIFF and the G4 page at ``i8@1e-5``, each against
-    the same pixels given as a 16-bit PNG, and ispec at ``i8@1e-5`` back
-    to PPM; (d) motion's lowpass on a 1080p
+    the same pixels given as a 16-bit PNG; (d) motion's lowpass on a 1080p
     JPEG-in-TIFF sequence (4:2:0 in strips of 16 rows) to y4m against a
     PPM sequence of its decoded frames.  Returns the kernels' launches
     over the JPEG-in-TIFF and fax runs."""
     import hashlib
 
     from dspfun_tpu_torch.io import images, imgcodecs, jpeg
-    from dspfun_tpu_torch.tools import ispec, motion, spec
+    from dspfun_tpu_torch.tools import motion, spec
 
     fx = _fixtures_module()
     count = _Launches(torch, int8mm, block_filter)
@@ -4289,18 +4290,6 @@ def _tiff_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODE
                   flush=True)
             if not ok:
                 raise RuntimeError(f"phase 20c at {tag}: the {ext} route differs")
-            back = os.path.join(tmp, f"back_{ext}.ppm")
-            with _policy("i8@1e-5"):
-                fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
-                                       + ["-t", "flat", "-G", "1000", out["src"], back], int8mm)
-                (wall, stages, got), _ = count.run(fn)
-            res = read_image(back).pixels
-            ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
-            print(f"phase 20c ispec of {ext} to PPM at i8@1e-5: {wall:.3f} s; stages "
-                  f"{_stages(stages)}; launches {json.dumps(got)}; max abs diff to the input "
-                  f"{float(np.abs(res - pix).max()):.4f}", flush=True)
-            if not ok:
-                raise RuntimeError(f"phase 20c ispec of {ext} launched {got} or wrote {res.shape}")
 
         # ---- (d) motion's lowpass on a JPEG-in-TIFF sequence against PPM ----------
         mh, mw = motion_hw
@@ -4402,7 +4391,7 @@ WEBP_FIXTURES = {
                             "7aa0036cd9e9b524af78b237dccab2494fb8c6cb10051c3f798ab8a00f119ea5"),
 }
 WEBP_FRAMES = 8                   # (c): motion's lowpass on the 8 1080p WebP frames
-WEBP_REPEATS = 5                  # (b): the 4K decode, best of
+WEBP_REPEATS = 3                  # (b): the 4K decode, best of
 
 
 def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_FRAMES,
@@ -4410,15 +4399,14 @@ def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_F
     """Main path 17: WebP through the port's own decoder.  (a) The WebP
     fixtures of tests/goldens/, each read to the JAX package's digests;
     (b) the 4K file decoded (best of ``WEBP_REPEATS``, seconds and MB/s),
-    spec of it at ``i8@1e-5`` against the same pixels given as a PNG, and
-    ispec at ``i8@1e-5`` back to PPM; (c)
+    spec of it at ``i8@1e-5`` against the same pixels given as a PNG; (c)
     motion's lowpass on the 1080p WebP frames to y4m against a PPM
     sequence of their decoded frames.  Returns the kernels' launches over
     the WebP runs."""
     import hashlib
 
     from dspfun_tpu_torch.io import images, imgcodecs, webp
-    from dspfun_tpu_torch.tools import ispec, motion, spec
+    from dspfun_tpu_torch.tools import motion, spec
 
     fx = _fixtures_module()
     count = _Launches(torch, int8mm, block_filter)
@@ -4482,18 +4470,6 @@ def _webp_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=WEBP_F
         print(f"phase 21b at {tag}: spectrum from the WebP == from the PNG: {ok}", flush=True)
         if not ok:
             raise RuntimeError(f"phase 21b at {tag}: the WebP route differs from the PNG's")
-        back = os.path.join(tmp, "back.ppm")
-        with _policy("i8@1e-5"):
-            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
-                                   + ["-t", "flat", "-G", "1000", out["webp"], back], int8mm)
-            (wall, stages, got), _ = count.run(fn)
-        res = images.read_image(back).pixels
-        ok = got == spec_i8 and res.shape == pix.shape and bool(np.isfinite(res).all())
-        print(f"phase 21b ispec to PPM at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
-              f"launches {json.dumps(got)}; max abs diff to the input "
-              f"{float(np.abs(res - pix).max()):.4f}", flush=True)
-        if not ok:
-            raise RuntimeError(f"phase 21b ispec launched {got} or wrote {res.shape}")
 
         # ---- (c) motion's lowpass on the WebP frames against a PPM sequence -------
         dec_s = 0.0
@@ -4624,8 +4600,9 @@ OTHER_4K_DIGESTS = {
     "mpo": "2db80552a93896430e1396b6ae640cc9359e967949c909566f515d525b71c7d4",
 }
 OTHER_EXTS = ("tga", "qoi", "sgi", "pcx", "im", "ico", "dib", "mpo")
+OTHER_ISPEC = ("tga", "ico")      # (b): ispec writes these; every one's encoder is held at 4K
 OTHER_FRAMES = 8                  # (c): motion's lowpass on 8 1080p RLE TGA frames
-OTHER_REPEATS = 5                 # (b): the 4K decodes, best of
+OTHER_REPEATS = 3                 # (b): the 4K decodes, best of
 
 
 def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER_FRAMES,
@@ -4638,9 +4615,10 @@ def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER
     module) of the same seeded levels decoded (best of
     ``OTHER_REPEATS``), spec of each at ``i8@1e-5`` against the same
     levels as a PNG, ispec at ``i8@1e-5`` to
-    each format of ``OTHER_EXTS``, each file equal to the port's encoder
+    each format of ``OTHER_ISPEC``, each file equal to the port's encoder
     of the pixels of the same ispec written as PPM, and the 4K writes of
-    ``_seeded_pixels`` to Pillow's digests; (c) motion's lowpass on 1080p
+    ``_seeded_pixels`` in every format of ``OTHER_EXTS`` to Pillow's
+    digests; (c) motion's lowpass on 1080p
     RLE TGA frames to y4m against a PPM sequence of their decoded frames.
     Returns the kernels' launches over the runs of the new formats."""
     import hashlib
@@ -4723,7 +4701,7 @@ def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER
                 raise RuntimeError(f"phase 22b at {tag}: the {kind} route differs from PNG's")
         back = {}
         with _policy("i8@1e-5"):
-            for ext in ("ppm",) + OTHER_EXTS:
+            for ext in ("ppm",) + OTHER_ISPEC:
                 back[ext] = os.path.join(tmp, f"back.{ext}")
                 fn = lambda o=back[ext]: _run_tool(  # noqa: E731
                     torch, ispec, list(device_args)
@@ -4735,7 +4713,7 @@ def _other_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, frames=OTHER
                     raise RuntimeError(f"phase 22b ispec to {ext} launched {got}")
         with open(back["ppm"], "rb") as f:
             arr = imgcodecs.decode_pnm(f.read())[0]
-        for ext in OTHER_EXTS:
+        for ext in OTHER_ISPEC:
             name = images._format_name(None, back[ext])
             enc = images._NAMED_WRITERS.get(name)
             want = enc(arr, back[ext]) if enc else images._NATIVE_WRITERS[name](arr)
@@ -4865,7 +4843,7 @@ OLD_LZW_DIGESTS = {
 # (b): sha256 of Pillow's uint8 RGB decode of the 3840x2160 files that
 # strip_4k makes of either donor (both hold the same levels)
 STRIP_4K_DIGEST = "469384418e5de133b9e588d630a428dcd791be2b8a4e7cec937a83e1aa5328c1"
-ZSTD_LZMA_REPEATS = 5             # (b): the 4K decodes, best of
+ZSTD_LZMA_REPEATS = 3             # (b): the 4K decodes, best of
 ZSTD_LZMA_FRAMES = 8              # (c): motion's lowpass on 8 1080p LZMA and Zstandard frames
 
 
@@ -4880,8 +4858,7 @@ def _zstd_lzma_phase(torch, dev, int8mm, block_filter, check_i8mm, fft,
     digests; (b) the 3840x2160 Zstandard and LZMA files ``strip_4k``
     assembles of the donors' strips decoded (best of
     ``ZSTD_LZMA_REPEATS``) to Pillow's digest, spec of the Zstandard file
-    at ``i8@1e-5`` against the same levels as a PNG, and ispec at
-    ``i8@1e-5`` back to PNG; (c) motion's lowpass on 1080p frames written
+    at ``i8@1e-5`` against the same levels as a PNG; (c) motion's lowpass on 1080p frames written
     as LZMA (even frames, liblzma's preset 0) and Zstandard (odd ones,
     the fixtures module's raw blocks) TIFF to y4m against a PPM sequence
     of their decoded frames.  Returns the kernels' launches over the
@@ -4889,7 +4866,7 @@ def _zstd_lzma_phase(torch, dev, int8mm, block_filter, check_i8mm, fft,
     import hashlib
 
     from dspfun_tpu_torch.io import images, imgcodecs
-    from dspfun_tpu_torch.tools import ispec, motion, spec
+    from dspfun_tpu_torch.tools import motion, spec
 
     fx = _fixtures_module()
     count = _Launches(torch, int8mm, block_filter)
@@ -4964,17 +4941,6 @@ def _zstd_lzma_phase(torch, dev, int8mm, block_filter, check_i8mm, fft,
             print(f"phase 23b spectrum from the Zstandard TIFF == from the PNG: {ok}", flush=True)
             if not ok:
                 raise RuntimeError("phase 23b: the Zstandard route differs from the PNG's")
-            back = os.path.join(tmp, "back.png")
-            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
-                                   + ["-t", "flat", "-G", "1000", out["zstd"], back], int8mm)
-            (wall, stages, got), _ = count.run(fn)
-        res = images.read_image(back).pixels
-        ok = got == spec_i8 and res.shape[:2] == (sh, sw) and bool(np.isfinite(res).all())
-        print(f"phase 23b ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
-              f"launches {json.dumps(got)}; max abs diff to the input "
-              f"{float(np.abs(res - arr / 255.0).max()):.4f}", flush=True)
-        if not ok:
-            raise RuntimeError(f"phase 23b ispec launched {got} or wrote {res.shape}")
 
         # ---- (c) motion's lowpass on LZMA and Zstandard frames against PPM --------
         mh, mw = motion_hw
@@ -5072,7 +5038,7 @@ LOSSLESS_DIGESTS = {
 }
 SHORT_4K = ("prog4k_dc.jpg", "prog4k_short.jpg")   # (b): decoded best of SHORT_REPEATS
 SHORT_SPEC = "prog4k_short.jpg"                    # (b): the file spec and ispec run on
-SHORT_REPEATS = 3
+SHORT_REPEATS = 2
 LOSSLESS_4K = dict(predictor=1, restart=W * 16)    # (c): CODEC_4K's levels, 135 intervals
 
 
@@ -5086,14 +5052,14 @@ def _short_lossless_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big
     ``decode_jpeg``, file and pixels equal to Pillow's digests; (b) the
     two 3840x2160 short files decoded (best of ``SHORT_REPEATS``) to
     Pillow's digests, spec of ``spec_file`` at ``i8@1e-5`` against the
-    same pixels as a PNG, and ispec at ``i8@1e-5`` back to PNG; (c) a
+    same pixels as a PNG; (c) a
     3840x2160 lossless JPEG of ``big``'s levels written by the fixtures
     module and decoded to those levels exactly.  Returns the kernels'
     launches over the runs of the new formats."""
     import hashlib
 
     from dspfun_tpu_torch.io import images, jpeg
-    from dspfun_tpu_torch.tools import ispec, spec
+    from dspfun_tpu_torch.tools import spec
 
     fx = _fixtures_module()
     count = _Launches(torch, int8mm, block_filter)
@@ -5157,17 +5123,6 @@ def _short_lossless_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big
             print(f"phase 24b spectrum from {spec_file} == from the PNG: {ok}", flush=True)
             if not ok:
                 raise RuntimeError("phase 24b: the short JPEG's spectrum differs from the PNG's")
-            back = os.path.join(tmp, "back.png")
-            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
-                                   + ["-t", "flat", "-G", "1000", out["jpg"], back], int8mm)
-            (wall, stages, got), _ = count.run(fn)
-        res = images.read_image(back).pixels
-        ok = got == spec_i8 and res.shape[:2] == (sh, sw) and bool(np.isfinite(res).all())
-        print(f"phase 24b ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
-              f"launches {json.dumps(got)}; max abs diff to the input "
-              f"{float(np.abs(res - arr / 255.0).max()):.4f}", flush=True)
-        if not ok:
-            raise RuntimeError(f"phase 24b ispec launched {got} or wrote {res.shape}")
 
     # ---- (c) a 3840x2160 lossless JPEG to its levels ------------------------------
     hw, seed, noise = big
@@ -5362,7 +5317,7 @@ DDS_4K = "54ea3ceb35f00c19f86c4e48b9dfd15db66159cad1b904fd4911843f68483c9a"  # P
 BC7_4K_SEED = 61                  # (b): the 4K BC7 file's random blocks
 BC7_4K = ("f80088f5359e9018606db025991fb4af45a38c844cfcd33cd1a4d6d07603eef5",   # the file
           "b643c8aaf2a5fb85b16b8ac82b0c31e27212c4fd2c799607ab5f8bed9a9c9ee1")   # Pillow's RGBA
-PSD_DDS_REPEATS = 3               # (b): the 4K decodes, best of
+PSD_DDS_REPEATS = 2               # (b): the 4K decodes, best of
 
 
 def _psd_dds_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, big=CODEC_4K,
@@ -5554,7 +5509,7 @@ J2K_FIXTURES = {
         ("b7a4ab73102ac0770bea6aad1a30e30175f8399ef5a89f3ec3392cbe82c3730a",
          "cf3dbfefad9371baa26077ed2d1aa8c57478573fb6403fadc7519c0cde039cf3"),
 }
-J2K_REPEATS = 3                   # (b): the 4K decodes, best of
+J2K_REPEATS = 2                   # (b): the 4K decodes, best of
 J2K_SPEC = "j2k_4k_irreversible.jp2"
 
 
@@ -5566,13 +5521,12 @@ def _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, spec_file=J2K_
     through ``images._decoder`` to ``decode_j2k``, file and pixels equal to
     the JAX package's digests; (b) the two 3840x2160 goldens decoded (best
     of ``J2K_REPEATS``) to Pillow's digests; (c) spec of ``spec_file`` at
-    ``i8@1e-5`` against the same levels as a PNG; (d) ispec at
-    ``i8@1e-5`` back to PNG.  Returns the kernels' launches over the runs
+    ``i8@1e-5`` against the same levels as a PNG.  Returns the kernels' launches over the runs
     of the JPEG 2000 files."""
     import hashlib
 
     from dspfun_tpu_torch.io import images, jpeg2000
-    from dspfun_tpu_torch.tools import ispec, spec
+    from dspfun_tpu_torch.tools import spec
 
     fx = _fixtures_module()
     count = _Launches(torch, int8mm, block_filter)
@@ -5610,7 +5564,7 @@ def _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, spec_file=J2K_
                 raise RuntimeError(f"phase 26a: {name} is not read as Pillow reads it: {got}")
 
         # ---- (b) the 4K goldens decoded ------------------------------------------------
-        decoded = {}
+        decoded, plain_s = {}, {}
         for name in fx.J2K_4K:
             data = goldens[name]
             if images._decoder(data) is not jpeg2000.decode_j2k:
@@ -5621,6 +5575,7 @@ def _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, spec_file=J2K_
                 arr, depth = jpeg2000.decode_j2k(data)
                 best = min(best, time.perf_counter() - t0)
             decoded[name] = arr
+            plain_s[name] = round(best, 4)
             got = (sha(data), fx.rgb_digest(arr))
             print(f"phase 26b {name} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} ({len(data)} "
                   f"bytes): decode {best:.4f} s (best of {J2K_REPEATS}), "
@@ -5653,25 +5608,12 @@ def _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, spec_file=J2K_
             print(f"phase 26c spectrum from {spec_file} == from the PNG: {ok}", flush=True)
             if not ok:
                 raise RuntimeError("phase 26c: the JP2's spectrum differs from the PNG's")
-
-            # ---- (d) ispec back to PNG ---------------------------------------------------
-            back = os.path.join(tmp, "back.png")
-            fn = lambda: _run_tool(torch, ispec, list(device_args)  # noqa: E731
-                                   + ["-t", "flat", "-G", "1000", out["jp2"], back], int8mm)
-            (wall, stages, got), _ = count.run(fn)
-        res = images.read_image(back).pixels
-        ok = got == spec_i8 and res.shape[:2] == (sh, sw) and bool(np.isfinite(res).all())
-        print(f"phase 26d ispec to PNG at i8@1e-5: {wall:.3f} s; stages {_stages(stages)}; "
-              f"launches {json.dumps(got)}; max abs diff to the input "
-              f"{float(np.abs(res - arr / 255.0).max()):.4f}", flush=True)
-        if not ok:
-            raise RuntimeError(f"phase 26d ispec launched {got} or wrote {res.shape}")
     if check_i8mm is not None:
         for nd, layout, m, k, b, r in sorted(count.shapes):
             check_i8mm(nd, layout, m, k, b, r, f"jpeg2000 {layout}{nd} {m}x{k}")
     wall = time.perf_counter() - t_phase
     print(f"phase 26 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
-    return {"launches": count.total, "shapes": sorted(count.shapes)}
+    return {"launches": count.total, "shapes": sorted(count.shapes), "decode_4k_s": plain_s}
 
 
 # phase 27: arithmetic-coded JPEG read by the port's own codec (io/jpeg.py,
@@ -5706,7 +5648,7 @@ ARITH_FIXTURES = {
 ARITH_PAST = "arith_seq_444_rst.jpg"   # (b): padded to ARITH_PAST_SIZE bytes, it raises
 ARITH_PAST_SIZE = 65537
 ARITH_4K = "arith_4k.tif"
-ARITH_REPEATS = 3                 # (c): the 4K decode, best of
+ARITH_REPEATS = 2                 # (c): the 4K decode, best of
 
 
 def arith_past_window(data: bytes, size: int = ARITH_PAST_SIZE) -> bytes:
@@ -5880,7 +5822,7 @@ OJPEG_FIXTURES = {
                      "3b571e0ea07fb2ab0ebdb09d90766d4f8df55fffad0c89604591f86a47416f54"),
 }
 OJPEG_4K = "ojpeg_4k.tif"
-OJPEG_REPEATS = 3                 # (b), (c): the 4K decodes, best of
+OJPEG_REPEATS = 2                 # (b), (c): the 4K decodes, best of
 TIFF12_4K_SEED = 62               # (c): tests/torch_codec_fixtures.py:gray12's seed
 TIFF12_4K_NOISE = 8.0             # and noise, in 12-bit levels
 # (c): sha256 of the 4K 12-bit file (one SOF1 strip of gray12's 3840x2160
@@ -6005,6 +5947,194 @@ def _ojpeg_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, jpeg_tiff_4k
             check_i8mm(nd, layout, m, k, b, r, f"ojpeg {layout}{nd} {m}x{k}")
     wall = time.perf_counter() - t_phase
     print(f"phase 28 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
+# phase 29: JPEG 2000's rest read by the port's own codec: POC, SOP/EPH, the code-block
+# style switches, RGN, COC/QCC and sub-sampled components (io/jpeg2000.py, native/j2k.cpp)
+
+# name -> (sha256 of the golden, of the JAX package's read_image(..., "RGBA")
+# float64 pixels; for the 4K goldens of Pillow's convert("RGB") samples); the
+# goldens are written by tests/torch_codec_fixtures.py:j2k_more_goldens with
+# Pillow's own OpenJPEG and pinned by tests/test_torch_jpeg2000_more.py
+J2K_MORE_FIXTURES = {
+    "j2k_cinema4k.jp2":
+        ("5c6f4ea47936c1065862b297a883bff2c85c8a058176c1dcc732c563956732c3",
+         "330cdda96dc9a18b068421c452220b96a28fd11760b21ce0534588327b3afa93"),
+    "j2k_poc_tiles.j2k":
+        ("5e4e622f412f284bf4de5fbf1ebf83b166694f3827ec3b4cb65bebe95777be78",
+         "8a74dee5d7166ef2c4bde4fa129dcc4f546cad08798d4122649981c3e80c8e7c"),
+    "j2k_poc_layers.j2k":
+        ("f767b5e5529a3fedc38c09999caa0bf1f9af9fc267aa073fbac1306eda2095da",
+         "7d5621eb645f6aefd58391403bd325e4374cd000260c65c74d2e47e39a2f82b1"),
+    "j2k_sop_eph.j2k":
+        ("17a7515a2e6264b7ef25add96eea0ba57e6db6f39e75d7d28b2082aeb36f9935",
+         "8a74dee5d7166ef2c4bde4fa129dcc4f546cad08798d4122649981c3e80c8e7c"),
+    "j2k_style1_53.j2k":
+        ("df11b929dfba345c775620bfcd2ae42910bc3a0f14a45e2a97a2fcafbf4c2313",
+         "6e958b90f0bdf08b344911e82ed70759b154c89178edc1db8a195b083adcf55f"),
+    "j2k_style1_97.j2k":
+        ("f74027f8e5a91642373b635c46d9adffb54510fff91a82aecbb7d1ec2bf4ef25",
+         "a043162c54f1916527d6e99afd8bf20013b5acbdb93823d61be93f5715bd7661"),
+    "j2k_style2_53.j2k":
+        ("81db861d3509bd43bd0917f888dbff16d95c3852088d0129f6f1fcaf56fce538",
+         "6e958b90f0bdf08b344911e82ed70759b154c89178edc1db8a195b083adcf55f"),
+    "j2k_style2_97.j2k":
+        ("7d12fef5df7b35008c9485af12b090826849f47fb519220e03a18031eb99974d",
+         "4accf2bd3d87bb6ae76ef236957e90fcbcaaa25f3a340730620b42ee6e9062ae"),
+    "j2k_style4_53.j2k":
+        ("fe711b56bc3d0975112b8bfd30f3a226d06aa6b3f70640d4b428966164d4b358",
+         "6e958b90f0bdf08b344911e82ed70759b154c89178edc1db8a195b083adcf55f"),
+    "j2k_style4_97.j2k":
+        ("d396f060b64c032101bcaadc0cf1242ba8c5839e3c0abd531b56ad1f1d53e6b1",
+         "39d270d9b588d4ede60f2c609a9891d2f7da47713f986fc2bef038c7ddaad581"),
+    "j2k_style8_53.j2k":
+        ("991ca55e5eb90b24e44b635333ad7577e4b944286de396e2403551af02f1578f",
+         "6e958b90f0bdf08b344911e82ed70759b154c89178edc1db8a195b083adcf55f"),
+    "j2k_style8_97.j2k":
+        ("9d1e3af73ca6358fe52141076741b73b21647524e194121c5caace0540ed8834",
+         "3cf8ba99f947b3c99482c89687b48c59adfca130c610faaf0ad1e4c7db769a61"),
+    "j2k_style16_53.j2k":
+        ("d91513ba68e340a3d92817ee851ed4198b140feccdf6ed10835e21a87879d35c",
+         "6e958b90f0bdf08b344911e82ed70759b154c89178edc1db8a195b083adcf55f"),
+    "j2k_style16_97.j2k":
+        ("824e5e440c05cfee62a7b491502a479bbaca5e1c8b77120081cdf2c49ff29ac5",
+         "0a7e8b03de76ccd258adb8fb7bdc9c33437f61fbadd56a7d0f882341c982e11c"),
+    "j2k_style32_53.j2k":
+        ("7ef90f890689326b250ec3f46aed19efa722acae343faaec6e4ad38b3f5cbb55",
+         "6e958b90f0bdf08b344911e82ed70759b154c89178edc1db8a195b083adcf55f"),
+    "j2k_style32_97.j2k":
+        ("4685de90e15f5414b6199d9bb8793868922a7a0ca691515b39aa0fe5528897c4",
+         "cb160cbe266ca9113ad5b0a0c3b78f9710cb3cc9ce8dfea16e1412afb1db6597"),
+    "j2k_style63_53.j2k":
+        ("63c6e3daac21e8de8bb64f1c418c7fcb66efba290f0d9da0ae17731b03467a3a",
+         "6e958b90f0bdf08b344911e82ed70759b154c89178edc1db8a195b083adcf55f"),
+    "j2k_style63_97.j2k":
+        ("2e42a422679250afb445b933f0ba74eebb62cdd404015d5a3dcbe099bf10db7e",
+         "e390e8fbf58b908de2285bb1e5ce7b04d2a7ecf5c616230bc59962c199390a17"),
+    "j2k_rgn.j2k":
+        ("067745831d44c4af577f2571eff273c0153aee0f736992b131a1457a99372003",
+         "8a74dee5d7166ef2c4bde4fa129dcc4f546cad08798d4122649981c3e80c8e7c"),
+    "j2k_coc_qcc.j2k":
+        ("b6336407b6be8bc5e860aac1aa92be1b6e721fecf0ff027b96b236cd38b6a04d",
+         "e15e0b0b1117b53859828d869afab260008111475e7b7b22f22820360a57f89f"),
+    "j2k_tile_coc.j2k":
+        ("d9f295ab7164875b0618a53367bc35c3dfcb00efa79991076a92351cd53c582e",
+         "e15e0b0b1117b53859828d869afab260008111475e7b7b22f22820360a57f89f"),
+    "j2k_sub_420.j2k":
+        ("58ab1530b3ac38696ad5b1963ab96fe61737c4510cd93d450837c2ae9e26eff4",
+         "a02d1aacf6e128bb128018a6fe77f1ecf87830f7914af3cf186175bc09c94e85"),
+    "j2k_sub_422_tiles.j2k":
+        ("938e08e3ab26e2980105dc140c474e7b1178044cec1e5706d3bef3bafd7aed59",
+         "4dc13ccded0a8b7f161500c55ad9c3d2c128921a5fadcc021722c1761ac15f44"),
+    "j2k_sycc_420.jp2":
+        ("20ffeb65b8279b803dae5ffb74319047492e61783ae9490691c84a7c5ce8d6be",
+         "83e39c23e30adac95cd2b5dc52e6edb8f0a23bbd82971d59cd415273ff5380af"),
+    "j2k_sub_rgba.j2k":
+        ("d3838b1614d161b21c83f28b84e3bb78078254c98651e13c236cf6ad04cde6b8",
+         "40f343eb6367a95caf8a3f316f4d2b6528546aac6015c97fea02f3c625f8eb81"),
+    "j2k_4k_bypass_termall.j2k":
+        ("1fa286b6e1ac5a14e92930fc400843d4f2f845f68efea48215ee0fd88ced56d1",
+         "a1af61416c2938af8ca083c01a68983aa22c8ecef7f7357fc0a39d6ff8da841d"),
+}
+J2K_CINEMA = "j2k_cinema4k.jp2"   # (b), (c): Pillow's cinema4k-24, 4096x2160, a main-header POC
+J2K_BYPASS = "j2k_4k_bypass_termall.j2k"   # (b): 3840x2160, bypass and every pass terminated
+
+
+def _j2k_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, plain_4k_s=None,
+                    device_args=()) -> dict:
+    """Main path 25: JPEG 2000's rest through the port's own codec
+    (``io/jpeg2000.py`` on ``native/j2k.cpp``).  (a) Every golden of
+    ``J2K_MORE_FIXTURES`` (POCs, SOP/EPH, each code-block style switch,
+    RGN, COC/QCC, sub-sampled components) through ``images._decoder`` to
+    ``decode_j2k``, file and pixels equal to the JAX package's digests; (b)
+    Pillow's 4096x2160 ``cinema4k-24`` file and the 3840x2160 bypass and
+    termall file decoded (best of ``J2K_REPEATS``) to Pillow's digests,
+    beside phase 26b's plain 4K decodes (``plain_4k_s``); (c) spec of the
+    cinema file at ``i8@1e-5``: kernels #1-#2 once each, its spectrum
+    equal to that of a PNG of the same decoded pixels.  Returns the
+    kernels' launches over the run of the JPEG 2000 file and their shapes."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, jpeg2000
+    from dspfun_tpu_torch.tools import spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    made = fx.j2k_more_fixtures()
+    if sorted(made) != sorted(J2K_MORE_FIXTURES):
+        raise RuntimeError(f"phase 29a: the goldens are not {sorted(J2K_MORE_FIXTURES)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_j2k_more_") as tmp:
+        # ---- (a) the goldens to the JAX package's digests --------------------------
+        for name, data in made.items():
+            if images._decoder(data) is not jpeg2000.decode_j2k:
+                raise RuntimeError(f"phase 29a: {name} does not take the port's JPEG 2000 "
+                                   f"decoder")
+            if name in fx.J2K_MORE_4K:
+                continue
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), fx.rgba_digest(img.pixels))
+            print(f"phase 29a {name} {img.width}x{img.height} depth {img.depth}: {len(data)} "
+                  f"bytes; read {dec_s:.4f} s; file and pixels == the JAX package's digests: "
+                  f"{got == J2K_MORE_FIXTURES[name]}", flush=True)
+            if got != J2K_MORE_FIXTURES[name]:
+                raise RuntimeError(f"phase 29a: {name} is not read as Pillow reads it: {got}")
+
+        # ---- (b) the 4K files decoded, beside phase 26b's ------------------------------
+        decoded = {}
+        for name in fx.J2K_MORE_4K:
+            data = made[name]
+            best = float("inf")
+            for _ in range(J2K_REPEATS):
+                t0 = time.perf_counter()
+                arr, depth = jpeg2000.decode_j2k(data)
+                best = min(best, time.perf_counter() - t0)
+            decoded[name] = arr
+            got = (sha(data), fx.rgb_digest(arr))
+            print(f"phase 29b {name} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} ({len(data)} "
+                  f"bytes): decode {best:.4f} s (best of {J2K_REPEATS}), "
+                  f"{arr.size / 1e6 / best:.1f} MB/s of samples; phase 26b's plain 4K decodes "
+                  f"{json.dumps(plain_4k_s)}; file and pixels == Pillow's digests: "
+                  f"{got == J2K_MORE_FIXTURES[name]}", flush=True)
+            if got != J2K_MORE_FIXTURES[name] or depth != 8:
+                raise RuntimeError(f"phase 29b: {name} is not decoded as Pillow decodes it: {got}")
+
+        # ---- (c) spec of the cinema file against the same levels as a PNG ---------------
+        src = os.path.join(tmp, J2K_CINEMA)
+        with open(src, "wb") as f:
+            f.write(made[J2K_CINEMA])
+        arr = decoded[J2K_CINEMA]
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, arr / 255.0)
+        sh, sw = arr.shape[:2]
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        out = {k: os.path.join(tmp, f"spec_{k}.png") for k in ("ref", "jp2")}
+        with _policy("i8@1e-5"):
+            for name, inp in (("ref", ref), ("jp2", src)):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "jp2")
+                print(f"phase 29c spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 29c spec {name} launched {got}, expected {spec_i8}")
+        with open(out["ref"], "rb") as a, open(out["jp2"], "rb") as b:
+            ok = a.read() == b.read()
+        print(f"phase 29c spectrum from {J2K_CINEMA} == from the PNG: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 29c: the cinema file's spectrum differs from the PNG's")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"jpeg2000 more {layout}{nd} {m}x{k}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 29 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
@@ -6367,7 +6497,8 @@ def main() -> int:
 
     # ---- phase 26: main path 22, JPEG 2000 read by the port's own codec --------
     torch.cuda.empty_cache()
-    j2k_path = _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft)["launches"]
+    j2k = _j2k_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft)
+    j2k_path = j2k["launches"]
     if not (j2k_path.get("left3") and j2k_path.get("right3")):
         raise RuntimeError(f"a kernel of the JPEG 2000 path never launched: {j2k_path}")
 
@@ -6387,6 +6518,14 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the old-style JPEG TIFF path never launched: "
                            f"{ojpeg_path}")
 
+    # ---- phase 29: main path 25, JPEG 2000's rest (POC, SOP/EPH, styles, RGN, COC/QCC) --
+    torch.cuda.empty_cache()
+    j2k_more_path = _j2k_more_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft,
+                                    plain_4k_s=j2k["decode_4k_s"])["launches"]
+    if not (j2k_more_path.get("left3") and j2k_more_path.get("right3")):
+        raise RuntimeError(f"a kernel of the JPEG 2000 rest path never launched: "
+                           f"{j2k_more_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -6400,7 +6539,7 @@ def main() -> int:
                              + other_path.get(n, 0) + zstd_path.get(n, 0)
                              + short_path.get(n, 0) + psd_path.get(n, 0)
                              + j2k_path.get(n, 0) + arith_path.get(n, 0)
-                             + ojpeg_path.get(n, 0)),
+                             + ojpeg_path.get(n, 0) + j2k_more_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -6423,7 +6562,8 @@ def main() -> int:
                                      "psd_dds": psd_path.get(n, 0),
                                      "jpeg2000": j2k_path.get(n, 0),
                                      "arith_jpeg": arith_path.get(n, 0),
-                                     "ojpeg_tiff": ojpeg_path.get(n, 0)},
+                                     "ojpeg_tiff": ojpeg_path.get(n, 0),
+                                     "jpeg2000_more": j2k_more_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -6463,7 +6603,8 @@ def main() -> int:
                                  + psd_path.get("block_filter", 0)
                                  + j2k_path.get("block_filter", 0)
                                  + arith_path.get("block_filter", 0)
-                                 + ojpeg_path.get("block_filter", 0)),
+                                 + ojpeg_path.get("block_filter", 0)
+                                 + j2k_more_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -6481,7 +6622,8 @@ def main() -> int:
                                          "psd_dds": psd_path.get("block_filter", 0),
                                          "jpeg2000": j2k_path.get("block_filter", 0),
                                          "arith_jpeg": arith_path.get("block_filter", 0),
-                                         "ojpeg_tiff": ojpeg_path.get("block_filter", 0)},
+                                         "ojpeg_tiff": ojpeg_path.get("block_filter", 0),
+                                         "jpeg2000_more": j2k_more_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

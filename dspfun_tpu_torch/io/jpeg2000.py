@@ -15,23 +15,29 @@ Pillow.
   is passed on (:class:`rawimg.Skip`); where it raises anything else the
   open fails with a ``ValueError``.
 * **Decode** (:func:`decode_j2k`): the JP2 boxes as OpenJPEG walks them
-  to the codestream and its ``colr`` colour space; the main header (SIZ,
-  COD, QCD; TLM, PLM, CRG and COM skipped) and the tile parts (SOT, COD
-  and QCD of a tile, PLT and COM skipped), read as strictly as OpenJPEG's
-  strict mode reads them (a tile part longer than the stream raises, as
-  Pillow's "broken data stream" does); the tiles through
-  ``native/j2k.cpp`` (``j2k_decode``: tier-2, tier-1, the 5/3 or 9/7
-  inverse wavelet, the RCT or ICT, the level shift and clamp; built at
-  first use by ``_hostbuild.py``); then Pillow's unpacker of the mode and
-  colour space (``j2ku_*``: each component's samples shifted to 8 or 16
-  bits with its rounding offset and wrapped to them, sYCC through
-  Pillow's YCbCr -> RGB tables), and what ``convert("RGBA")`` (or
-  ``convert("I")`` for ``I;16``) makes of the mode: CMYK through
-  ``cmyk2rgb``, palettes expanded.
-* **Refused, naming item 8h**, with or without cv2 (no JPEG 2000 file reaches it),
-  for what no Pillow setting writes: SOP or EPH markers, any code-block
-  style switch, RGN, POC, PPM and PPT, COC and QCC, and sub-sampled
-  components.
+  to the codestream and its ``colr`` colour space; the main header and
+  the tile parts (SOT; TLM, PLM, PLT, CRG and COM skipped), read as
+  strictly as OpenJPEG's strict mode reads them (a tile part longer than
+  the stream raises, as Pillow's "broken data stream" does), their coding
+  markers in order as OpenJPEG applies them: COD and QCD set every
+  component and COC and QCC one (so a tile's override the main header's,
+  and a COD after a COC undoes it), RGN a component's max-shift ROI, POC
+  progressions appended to those read before; the tiles through
+  ``native/j2k.cpp`` (``j2k_decode``: tier-2 with SOP and EPH markers and
+  the POC progressions, tier-1 under every code-block style switch, the
+  5/3 or 9/7 inverse wavelet, the RCT or ICT, the level shift and clamp;
+  built at first use by ``_hostbuild.py``); then Pillow's unpacker of the
+  mode and colour space (``j2ku_*``: each component's samples shifted to
+  8 or 16 bits with its rounding offset and wrapped to them, sYCC through
+  Pillow's YCbCr -> RGB tables; a raw codestream with full-size luma and
+  sub-sampled chroma taken as sYCC, as Pillow guesses; sub-sampled planes
+  laid out tile by tile as Pillow reads them, :func:`_pillow_tiles`), and
+  what ``convert("RGBA")`` (or ``convert("I")`` for ``I;16``) makes of the
+  mode: CMYK through ``cmyk2rgb``, palettes expanded.
+* **Refused, naming item 8h**, with or without cv2 (no JPEG 2000 file
+  reaches it): PPM and PPT (packed packet headers), HT code-blocks, and
+  POC progressions that leave a component's highest resolution without a
+  packet (OpenJPEG then hands Pillow a smaller plane).
 """
 
 from __future__ import annotations
@@ -55,10 +61,6 @@ JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
 _SOT, _SOD, _EOC = 0xFF90, 0xFF93, 0xFFD9
 _SIZ, _COD, _COC, _QCD, _QCC = 0xFF51, 0xFF52, 0xFF53, 0xFF5C, 0xFF5D
 _RGN, _POC, _PPM, _PPT = 0xFF5E, 0xFF5F, 0xFF60, 0xFF61
-_REFUSED = {_COC: "a COC marker (coding style of one component)",
-            _QCC: "a QCC marker (quantisation of one component)",
-            _RGN: "an RGN marker (region of interest)", _POC: "a POC marker (progression change)",
-            _PPM: "a PPM marker (packed packet headers)", _PPT: "a PPT marker (packed packet headers)"}
 # OpenJPEG's colour spaces from a JP2 colr box's enumerated space
 _GRAY, _SRGB, _SYCC, _CMYK = "gray", "srgb", "sycc", "cmyk"
 _ENUMCS = {16: _SRGB, 17: _GRAY, 18: _SYCC, 24: "eycc", 12: _CMYK}
@@ -361,53 +363,175 @@ def _markers(cs: bytes, pos: int, end_markers) -> tuple[list, int]:
         pos += 2 + length
 
 
-def _cod(seg: bytes, cod: dict) -> None:
-    if len(seg) < 10:
-        raise ValueError("JPEG 2000: a short COD marker")
-    scod, prog, layers, mct, nl, xcb, ycb, style, transform = struct.unpack_from(">BBHBBBBBB", seg)
-    if scod & 6:
-        raise _png.refusal(f"JPEG 2000 with {'SOP' if scod & 2 else 'EPH'} markers", "h")
-    if style:
-        raise _png.refusal(f"JPEG 2000 with code-block style 0x{style:02x}", "h")
-    if prog > 4 or layers == 0 or nl > 32 or transform > 1:
-        raise ValueError("JPEG 2000: a COD marker of bad values")
+def _spcod(seg: bytes, at: int, comp: dict) -> None:
+    """OpenJPEG's ``opj_j2k_read_SPCod_SPCoc``: SPcod or SPcoc from ``at``
+    to the segment's end into a component's record (its precinct sizes
+    where the component's Scod or Scoc bit 0 says so)."""
+    if len(seg) < at + 5:
+        raise ValueError("JPEG 2000: a short SPcod or SPcoc element")
+    nl, xcb, ycb, style, transform = seg[at:at + 5]
+    if nl + 1 > 33:
+        raise ValueError("JPEG 2000: more than 33 resolutions")
     if xcb > 8 or ycb > 8 or xcb + ycb > 8:
         raise ValueError("JPEG 2000: a bad code-block size")
-    if scod & 1:
-        if len(seg) < 10 + nl:
-            raise ValueError("JPEG 2000: a short COD marker")
-        pp = seg[10:11 + nl]
+    if style & 0x80:
+        raise ValueError("JPEG 2000: the mixed HT code-block style")
+    if style & 0x40:
+        raise _png.refusal("JPEG 2000 with HT (high-throughput) code-blocks", "h")
+    if transform > 1:
+        raise ValueError("JPEG 2000: a bad wavelet transform")
+    at += 5
+    if comp["csty"] & 1:
+        if len(seg) < at + nl + 1:
+            raise ValueError("JPEG 2000: a short SPcod or SPcoc element")
+        pp = seg[at:at + nl + 1]
         ppx, ppy = [b & 15 for b in pp], [b >> 4 for b in pp]
         if any(v == 0 for v in ppx[1:] + ppy[1:]):
             raise ValueError("JPEG 2000: a precinct size of 1 above the lowest resolution")
+        at += nl + 1
     else:
         ppx = ppy = [15] * (nl + 1)
-    cod.update(prog=prog, layers=layers, mct=mct, numres=nl + 1, xcb=xcb + 2, ycb=ycb + 2,
-               reversible=transform, ppx=ppx, ppy=ppy)
+    if at != len(seg):
+        raise ValueError("JPEG 2000: a COD or COC marker of a bad length")
+    comp.update(numres=nl + 1, xcb=xcb + 2, ycb=ycb + 2, style=style, reversible=transform,
+                ppx=ppx, ppy=ppy)
 
 
-def _qcd(seg: bytes, qcd: dict) -> None:
-    if not seg:
-        raise ValueError("JPEG 2000: a short QCD marker")
-    style, guard = seg[0] & 0x1F, seg[0] >> 5
+_SPCOD_KEYS = ("numres", "xcb", "ycb", "style", "reversible", "ppx", "ppy")
+_QCD_KEYS = ("guard", "expn", "mant")
+
+
+def _cod(seg: bytes, tcp: dict) -> None:
+    """COD (``opj_j2k_read_cod``): SGcod, and SPcod into the first
+    component's record and copied to the others."""
+    if len(seg) < 5:
+        raise ValueError("JPEG 2000: a short COD marker")
+    scod, prog, layers, mct = struct.unpack_from(">BBHB", seg)
+    if scod & ~7:
+        raise ValueError("JPEG 2000: an unknown Scod value in COD")
+    if layers == 0 or mct > 1:
+        raise ValueError("JPEG 2000: a COD marker of bad values")
+    tcp.update(csty=scod, prog=prog, layers=layers, mct=mct, cod=True)
+    comps = tcp["comps"]
+    for comp in comps:
+        comp["csty"] = scod & 1
+    _spcod(seg, 5, comps[0])
+    for comp in comps[1:]:
+        comp.update({k: comps[0][k] for k in _SPCOD_KEYS})
+
+
+def _qcx(seg: bytes, at: int, comp: dict) -> None:
+    """OpenJPEG's ``opj_j2k_read_SQcd_SQcc``: the style, guard bits and
+    step sizes from ``at`` into a component's record (the bands the
+    segment does not give keep theirs)."""
+    if len(seg) < at + 1:
+        raise ValueError("JPEG 2000: a short QCD or QCC marker")
+    style, guard = seg[at] & 0x1F, seg[at] >> 5
+    body = seg[at + 1:]
+    expn, mant = list(comp.get("expn", [0] * 97)), list(comp.get("mant", [0] * 97))
     if style == 0:
-        expn, mant = [b >> 3 for b in seg[1:]], [0] * (len(seg) - 1)
-    elif style in (1, 2):
-        v = struct.unpack(f">{(len(seg) - 1) // 2}H", seg[1:1 + (len(seg) - 1) // 2 * 2])
-        if not v:
-            raise ValueError("JPEG 2000: a short QCD marker")
-        expn, mant = [x >> 11 for x in v], [x & 0x7FF for x in v]
-        if style == 1:      # derived from the LL band's (E-5)
-            expn = [expn[0]] + [max(expn[0] - (b - 1) // 3, 0) for b in range(1, 97)]
-            mant = [mant[0]] * 97
+        new = [(b >> 3, 0) for b in body]
+    elif style in (1, 2):      # a derived style gives the LL band's alone
+        if len(body) % 2 or (style == 1 and len(body) != 2):
+            raise ValueError("JPEG 2000: a QCD or QCC marker of a bad length")
+        new = [(x >> 11, x & 0x7FF) for x in struct.unpack(f">{len(body) // 2}H", body)]
     else:
         raise ValueError(f"JPEG 2000: quantisation style {style}")
-    qcd.update(guard=guard, expn=(expn + [0] * 97)[:97], mant=(mant + [0] * 97)[:97])
+    for i, (e, m) in enumerate(new[:97]):
+        expn[i], mant[i] = e, m
+    if style == 1:      # derived from the LL band's (E-5)
+        expn = [expn[0]] + [max(expn[0] - (b - 1) // 3, 0) for b in range(1, 97)]
+        mant = [mant[0]] * 97
+    comp.update(guard=guard, expn=expn, mant=mant)
+
+
+def _qcd(seg: bytes, tcp: dict) -> None:
+    comps = tcp["comps"]
+    _qcx(seg, 0, comps[0])
+    for comp in comps[1:]:
+        comp.update({k: comps[0][k] for k in _QCD_KEYS})
+    tcp["qcd"] = True
+
+
+def _component(seg: bytes, nc: int, what: str) -> tuple[int, int]:
+    """The component a COC, QCC or RGN names (one byte, two above 256
+    components) and where the rest starts."""
+    room = 1 if nc <= 256 else 2
+    if len(seg) < room:
+        raise ValueError(f"JPEG 2000: a short {what} marker")
+    c = seg[0] if room == 1 else struct.unpack_from(">H", seg)[0]
+    if c >= nc:
+        raise ValueError(f"JPEG 2000: a {what} marker of component {c} of {nc}")
+    return c, room
+
+
+def _coc(seg: bytes, tcp: dict) -> None:
+    comps = tcp["comps"]
+    c, at = _component(seg, len(comps), "COC")
+    if len(seg) < at + 1:
+        raise ValueError("JPEG 2000: a short COC marker")
+    comps[c]["csty"] = seg[at]
+    _spcod(seg, at + 1, comps[c])
+
+
+def _qcc(seg: bytes, tcp: dict) -> None:
+    c, at = _component(seg, len(tcp["comps"]), "QCC")
+    _qcx(seg, at, tcp["comps"][c])
+
+
+def _rgn(seg: bytes, tcp: dict) -> None:
+    """RGN (max-shift ROI): the component's shift (Srgn is not read)."""
+    nc = len(tcp["comps"])
+    if len(seg) != 2 + (1 if nc <= 256 else 2):
+        raise ValueError("JPEG 2000: an RGN marker of a bad length")
+    c, at = _component(seg, nc, "RGN")
+    tcp["comps"][c]["roishift"] = seg[at + 1]
+
+
+def _poc(seg: bytes, tcp: dict) -> None:
+    """POC (``opj_j2k_read_poc``): its progressions appended to those read
+    before for the main header or the tile, each LYEpoc held to the layers
+    known when it is read and each CEpoc to the components."""
+    nc = len(tcp["comps"])
+    room = 1 if nc <= 256 else 2
+    size = 5 + 2 * room
+    n, rest = divmod(len(seg), size)
+    pocs = tcp["pocs"] if tcp["pocs"] is not None else []
+    if n == 0 or rest:
+        raise ValueError("JPEG 2000: a POC marker of a bad length")
+    if len(pocs) + n >= 32:
+        raise ValueError("JPEG 2000: more than 31 progressions")
+    fmt = ">BBHBBB" if room == 1 else ">BHHBHB"
+    for k in range(n):
+        res0, comp0, lay1, res1, comp1, prg = struct.unpack_from(fmt, seg, k * size)
+        pocs.append((res0, comp0, min(lay1, tcp["layers"]), res1, min(comp1, nc), prg))
+    tcp["pocs"] = pocs
+
+
+_MARKERS = {_COD: _cod, _COC: _coc, _QCD: _qcd, _QCC: _qcc, _RGN: _rgn, _POC: _poc}
+_REFUSED = {_PPM: "a PPM marker (packed packet headers)",
+            _PPT: "a PPT marker (packed packet headers)"}
+
+
+def _read_markers(segs: list, tcp: dict) -> None:
+    """The coding markers of a header in their order, as OpenJPEG reads
+    them: a COD or QCD sets every component and a later COC or QCC one of
+    them, so a tile's markers override the main header's."""
+    for m, seg in segs:
+        if m in _REFUSED:
+            raise _png.refusal(f"JPEG 2000 with {_REFUSED[m]}", "h")
+        if m in _MARKERS:
+            _MARKERS[m](seg, tcp)
+
+
+def _copy_tcp(tcp: dict) -> dict:
+    return dict(tcp, comps=[dict(c) for c in tcp["comps"]],
+                pocs=None if tcp["pocs"] is None else list(tcp["pocs"]))
 
 
 def _main_header(cs: bytes) -> dict:
-    """SIZ, COD and QCD of the main header, and the tiles' joined tile-part
-    bodies with their own COD and QCD."""
+    """SIZ, the coding markers of the main header, and the tiles' joined
+    tile-part bodies with their own coding parameters."""
     if not cs.startswith(SOC_SIZ):
         raise ValueError("JPEG 2000: the codestream does not start with SOC and SIZ")
     segs, pos = _markers(cs, 2, (_SOT, _EOC))
@@ -422,22 +546,15 @@ def _main_header(cs: bytes) -> dict:
     comps = [struct.unpack_from(">BBB", siz, 36 + 3 * i) for i in range(csiz)]
     if any(c[1] == 0 or c[2] == 0 for c in comps):
         raise ValueError("JPEG 2000: a component sub-sampling of 0")
-    if any(c[1] != 1 or c[2] != 1 for c in comps):
-        raise _png.refusal("JPEG 2000 with sub-sampled components", "h")
     if any((c[0] & 0x7F) + 1 > 38 for c in comps):
         raise ValueError("JPEG 2000: a precision above 38 bits")
     if (xt == 0 or yt == 0 or xo >= xsiz or yo >= ysiz or xto > xo or yto > yo
             or xto + xt <= xo or yto + yt <= yo):
         raise ValueError("JPEG 2000: a SIZ marker of bad values")
-    cod, qcd = {}, {}
-    for m, seg in segs[1:]:
-        if m in _REFUSED:
-            raise _png.refusal(f"JPEG 2000 with {_REFUSED[m]}", "h")
-        if m == _COD:
-            _cod(seg, cod)
-        elif m == _QCD:
-            _qcd(seg, qcd)
-    if not cod or not qcd:
+    tcp = dict(csty=0, prog=0, layers=0, mct=0, pocs=None, cod=False, qcd=False,
+               comps=[dict(csty=0, roishift=0) for _ in comps])
+    _read_markers(segs[1:], tcp)
+    if not tcp["cod"] or not tcp["qcd"]:
         raise ValueError("JPEG 2000: no COD or QCD marker in the main header")
     ntx, nty = -(-(xsiz - xto) // xt), -(-(ysiz - yto) // yt)
     if ntx * nty > 65535:
@@ -461,72 +578,151 @@ def _main_header(cs: bytes) -> dict:
         if end > len(cs) or end < pos + 2:
             raise ValueError("JPEG 2000: a tile part longer than the codestream (Pillow: broken "
                              "data stream)")
-        tile = tiles.setdefault(isot, {"cod": dict(cod), "qcd": dict(qcd), "body": []})
-        for m, seg in tsegs:
-            if m in _REFUSED:
-                raise _png.refusal(f"JPEG 2000 with {_REFUSED[m]}", "h")
-            if m == _COD:
-                _cod(seg, tile["cod"])
-            elif m == _QCD:
-                _qcd(seg, tile["qcd"])
+        tile = tiles.setdefault(isot, {"tcp": _copy_tcp(tcp), "body": []})
+        _read_markers(tsegs, tile["tcp"])
         tile["body"].append(cs[pos + 2:end])
         pos = end
     return dict(size=(xsiz, ysiz), origin=(xo, yo), tile_size=(xt, yt), tile_origin=(xto, yto),
                 ntiles=(ntx, nty), comps=[((c[0] & 0x7F) + 1, c[0] >> 7) for c in comps],
-                tiles=tiles)
+                subsampling=[(c[1], c[2]) for c in comps], tiles=tiles)
 
 
-def _samples(head: dict) -> np.ndarray:
-    """The components' decoded samples, int32 [C, H, W] (the image area;
-    a tile with no tile part left at 0, as Pillow's image is)."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile_boxes(head: dict) -> list:
+    """Each tile's index and its area on the reference grid (the image
+    area's part of it), for the tiles with a tile part."""
     (xsiz, ysiz), (xo, yo) = head["size"], head["origin"]
     (xt, yt), (xto, yto), (ntx, _) = head["tile_size"], head["tile_origin"], head["ntiles"]
-    comps = head["comps"]
-    nc, w, h = len(comps), xsiz - xo, ysiz - yo
-    hdr = [nc, xo, yo, w, h, len(head["tiles"]), 0]
-    for prec, sgnd in comps:
-        hdr += [prec, sgnd]
-    bodies, off = [], 0
-    for t, tile in sorted(head["tiles"].items()):
+    out = []
+    for t in head["tiles"]:
         p, q = t % ntx, t // ntx
+        out.append((t, (max(xto + p * xt, xo), max(yto + q * yt, yo),
+                        min(xto + (p + 1) * xt, xsiz), min(yto + (q + 1) * yt, ysiz))))
+    return out
+
+
+def _samples(head: dict, packed: bool) -> np.ndarray:
+    """The components' decoded samples: int32 [C, H, W] over the image area
+    (a tile with no tile part left at 0, as Pillow's image is), or, packed,
+    each tile's tile-components one after another at their own sizes."""
+    (xsiz, ysiz), (xo, yo) = head["size"], head["origin"]
+    comps, subs = head["comps"], head["subsampling"]
+    nc, w, h = len(comps), xsiz - xo, ysiz - yo
+    boxes = _tile_boxes(head)
+    hdr = [nc, xo, yo, w, h, len(head["tiles"]), 0, int(packed)]
+    for (prec, sgnd), (dx, dy) in zip(comps, subs):
+        hdr += [prec, sgnd, dx, dy]
+    bodies, off, total = [], 0, 0
+    for t, box in boxes:
+        tile = head["tiles"][t]
+        tcp = tile["tcp"]
         body = b"".join(tile["body"])
-        cod, qcd = tile["cod"], tile["qcd"]
-        hdr += [max(xto + p * xt, xo), max(yto + q * yt, yo), min(xto + (p + 1) * xt, xsiz),
-                min(yto + (q + 1) * yt, ysiz), off, len(body), cod["prog"], cod["layers"],
-                cod["mct"]]
-        rec = [cod["numres"], cod["xcb"], cod["ycb"], cod["reversible"], qcd["guard"],
-               *(cod["ppx"] + [15] * 33)[:33], *(cod["ppy"] + [15] * 33)[:33],
-               *qcd["expn"], *qcd["mant"]]
-        hdr += rec * nc
+        pocs = tcp["pocs"] or []
+        hdr += [*box, off, len(body), tcp["prog"], tcp["layers"], tcp["mct"], tcp["csty"],
+                len(pocs)]
+        for pc in pocs:
+            hdr += pc
+        for comp, (dx, dy) in zip(tcp["comps"], subs):
+            hdr += [comp["numres"], comp["xcb"], comp["ycb"], comp["reversible"], comp["guard"],
+                    comp["style"], comp["roishift"], *(comp["ppx"] + [15] * 33)[:33],
+                    *(comp["ppy"] + [15] * 33)[:33], *comp["expn"], *comp["mant"]]
+            total += ((_cdiv(box[2], dx) - _cdiv(box[0], dx))
+                      * (_cdiv(box[3], dy) - _cdiv(box[1], dy)))
         bodies.append(body)
         off += len(body)
-    out = np.zeros((nc, h, w), np.int32)
+    out = np.zeros(total if packed else (nc, h, w), np.int32)
     if not head["tiles"]:
         return out
     params = np.asarray(hdr, np.int32)
     err = ctypes.create_string_buffer(256)
     body = b"".join(bodies)
-    if _load().j2k_decode(body, len(body), params.ctypes.data, out.ctypes.data, err, 256):
+    rc = _load().j2k_decode(body, len(body), params.ctypes.data, out.ctypes.data, err, 256)
+    if rc == 2:
+        raise _png.refusal(f"JPEG 2000 with {err.value.decode()}", "h")
+    if rc:
         raise ValueError(f"JPEG 2000: {err.value.decode()} (Pillow: broken data stream)")
     return out
 
 
-def _unpack(v: np.ndarray, prec: int, sgnd: int, bits: int) -> np.ndarray:
-    """Pillow's ``j2ku_*`` of one component: its stored bytes (1, 2 or 4
-    a sample) plus the signed offset and, above the target width, half
-    the dropped step, shifted to ``bits`` and wrapped to them."""
-    if prec == bits and not sgnd:       # the samples as they are
-        return v.astype(np.uint8 if bits == 8 else np.uint16)
-    size = (prec + 7) >> 3
-    size = 4 if size == 3 else size
-    word = v.astype(np.int64) & ((1 << (8 * size)) - 1)
+def _shift(word: np.ndarray, prec: int, sgnd: int, bits: int) -> np.ndarray:
+    """Pillow's ``j2ku_shift`` of stored words: plus the signed offset and,
+    above the target width, half the dropped step, shifted to ``bits`` and
+    wrapped to them."""
     shift = bits - prec
     offset = (1 << (prec - 1)) if sgnd else 0
     if shift < 0:
         offset += 1 << (-shift - 1)
-    x = (word + offset) & 0xFFFFFFFF
+    x = (word.astype(np.int64) + offset) & 0xFFFFFFFF
     x = x >> -shift if shift < 0 else (x << shift) & 0xFFFFFFFF
     return (x & ((1 << bits) - 1)).astype(np.uint8 if bits == 8 else np.uint16)
+
+
+def _csiz(prec: int) -> int:
+    """Bytes a sample as OpenJPEG hands a tile over (3 taken as 4)."""
+    size = (prec + 7) >> 3
+    return 4 if size == 3 else size
+
+
+def _unpack(v: np.ndarray, prec: int, sgnd: int, bits: int) -> np.ndarray:
+    """Pillow's ``j2ku_*`` of one component: its stored bytes (1, 2 or 4
+    a sample) through :func:`_shift`."""
+    if prec == bits and not sgnd:       # the samples as they are
+        return v.astype(np.uint8 if bits == 8 else np.uint16)
+    return _shift(v.astype(np.int64) & ((1 << (8 * _csiz(prec))) - 1), prec, sgnd, bits)
+
+
+# Pillow's unpackers that take sub-sampled components, and their channels
+_SUBSAMPLING = {"rgb": 3, "ycc": 3, "rgba": 4, "ycca": 4}
+
+
+def _pillow_tiles(head: dict, unpacker: str, bits: int) -> np.ndarray:
+    """Pillow's decode where a component is sub-sampled (its unpackers
+    ``rgb``, ``ycc``, ``rgba`` and ``ycca``): OpenJPEG packs each tile's
+    components one after another at their tile-component sizes (``_csiz``
+    bytes a sample) into a buffer Pillow has zeroed, and the unpacker reads
+    them back at its own layout, giving plane n ``w // dx * (h // dy)``
+    samples of the tile's w x h and reading sample ``(y // dy, x // dx)`` of
+    it.  The channels :func:`decode_j2k` makes of the samples, tile by
+    tile."""
+    comps, subs = head["comps"], head["subsampling"]
+    (xsiz, ysiz), (xo, yo) = head["size"], head["origin"]
+    csiz = [_csiz(p) for p, _ in comps]
+    samples = _samples(head, packed=True)
+    nch = _SUBSAMPLING[unpacker]
+    out = np.zeros((ysiz - yo, xsiz - xo, nch), np.uint16 if bits == 16 else np.uint8)
+    at = 0
+    for _t, (x0, y0, x1, y1) in _tile_boxes(head):
+        w, h = x1 - x0, y1 - y0
+        packed = []
+        for c, (dx, dy) in enumerate(subs):
+            n = (_cdiv(x1, dx) - _cdiv(x0, dx)) * (_cdiv(y1, dy) - _cdiv(y0, dy))
+            v = samples[at:at + n].astype("<i4").view(np.uint8).reshape(-1, 4)
+            packed.append(v[:, :csiz[c]].reshape(-1))
+            at += n
+        data = np.concatenate(packed)
+        buf = np.zeros(max(data.size, sum(csiz) * w * h), np.uint8)
+        buf[:data.size] = data
+        y, x = np.mgrid[0:h, 0:w]
+
+        def plane(c, off, idx):
+            word = np.zeros(idx.shape, np.int64)
+            for k in range(csiz[c]):
+                word |= buf[off + csiz[c] * idx + k].astype(np.int64) << (8 * k)
+            return _shift(word, *comps[c], bits)
+
+        chans, off = [], 0
+        for c in range(nch):
+            dx, dy = subs[c]
+            chans.append(plane(c, off, (y // dy) * (w // dx) + x // dx))
+            off += csiz[c] * (w // dx) * (h // dy)
+        tile = np.stack(chans, -1)
+        if unpacker.startswith("ycc"):
+            tile[..., :3] = _raw._ycbcr_rgb(tile[..., :3])
+        out[y0 - yo:y1 - yo, x0 - xo:x1 - xo] = tile
+    return out
 
 
 def _palette_rgba(mode: str, pal: bytes) -> np.ndarray:
@@ -554,8 +750,11 @@ def decode_j2k(data: bytes) -> tuple[np.ndarray, int]:
     head = _main_header(cs)
     comps = head["comps"]
     nc = len(comps)
+    subs = head["subsampling"]
     if space is None:       # a raw codestream or no known space: by the components
         space = _GRAY if nc <= 2 else _SRGB
+        if nc >= 3 and subs[0] == (1, 1) and subs[1:3] != [(1, 1), (1, 1)]:
+            space = _SYCC   # Pillow's guess: full-size luma, sub-sampled chroma
     unpacker = _UNPACKERS.get((mode, space, nc))
     if unpacker is None:
         raise ValueError(f"JPEG 2000: Pillow has no unpacker for {mode} from {nc} components "
@@ -563,23 +762,29 @@ def decode_j2k(data: bytes) -> tuple[np.ndarray, int]:
     (xsiz, ysiz), (xo, yo) = head["size"], head["origin"]
     if (xsiz - xo, ysiz - yo) != info["size"]:
         raise ValueError("JPEG 2000: the JP2 header's size is not the codestream's")
-    v = _samples(head)
     bits = 16 if unpacker == "i" else 8
-    planes = [_unpack(v[c], *comps[c], bits) for c in range(min(nc, 4))]
-    if unpacker in ("l", "i"):
-        out = planes[0][..., None]
-    elif unpacker == "la":
-        out = np.stack(planes[:2], -1)
-    elif unpacker == "gray_rgb":
-        out = np.repeat(planes[0][..., None], 3, -1)
-    elif unpacker in ("rgb", "ycc"):
-        out = np.stack(planes[:3], -1)
-        if unpacker == "ycc":
-            out = _raw._ycbcr_rgb(out)
-    else:       # rgba, ycca (CMYK too)
-        out = np.stack(planes[:4], -1)
-        if unpacker == "ycca":
-            out = np.concatenate([_raw._ycbcr_rgb(out[..., :3]), out[..., 3:]], -1)
+    if any(d != (1, 1) for d in subs):
+        if unpacker not in _SUBSAMPLING:
+            raise ValueError(f"JPEG 2000: Pillow's unpacker for {mode} takes no sub-sampled "
+                             "component (broken data stream)")
+        out = _pillow_tiles(head, unpacker, bits)
+    else:
+        v = _samples(head, packed=False)
+        planes = [_unpack(v[c], *comps[c], bits) for c in range(min(nc, 4))]
+        if unpacker in ("l", "i"):
+            out = planes[0][..., None]
+        elif unpacker == "la":
+            out = np.stack(planes[:2], -1)
+        elif unpacker == "gray_rgb":
+            out = np.repeat(planes[0][..., None], 3, -1)
+        elif unpacker in ("rgb", "ycc"):
+            out = np.stack(planes[:3], -1)
+            if unpacker == "ycc":
+                out = _raw._ycbcr_rgb(out)
+        else:       # rgba, ycca (CMYK too)
+            out = np.stack(planes[:4], -1)
+            if unpacker == "ycca":
+                out = np.concatenate([_raw._ycbcr_rgb(out[..., :3]), out[..., 3:]], -1)
     if mode == "CMYK":
         out = _codecs._cmyk_rgb(out)
     elif mode in ("P", "PA"):

@@ -2,29 +2,37 @@
 // samples OpenJPEG 2.5 gives Pillow 12.1 (Jpeg2KDecode.c decodes tile by tile,
 // whole tiles, every layer, no reduction):
 //
-//   tier-2   packets in the five progression orders (B.12, the position
-//            orders stepping through the tile as OpenJPEG's pi.c does),
-//            precincts, tag trees, code-block inclusion, zero bit-planes,
-//            the pass counts and Lblock (B.10), tile parts joined by the
-//            caller;
-//   tier-1   the MQ decoder (Annex C) and the significance, refinement and
-//            cleanup passes with run mode (Annex D), coefficients kept at
-//            twice their magnitude with the midpoint of the last decoded
-//            bit-plane, as OpenJPEG keeps them;
+//   tier-2   packets in the five progression orders and in the progressions
+//            of POC markers (B.12, the position orders stepping through the
+//            tile and the components' sub-sampling as OpenJPEG's pi.c does,
+//            a packet met again skipped), SOP segments skipped where found
+//            and EPH markers required, precincts, tag trees, code-block
+//            inclusion, zero bit-planes, the pass counts, Lblock and the
+//            codeword segments of the bypass and termall switches (B.10,
+//            OpenJPEG's opj_t2_init_seg), tile parts joined by the caller;
+//   tier-1   the MQ decoder (Annex C), raw bypass segments, the significance,
+//            refinement and cleanup passes with run mode (Annex D) under
+//            the reset, vertically causal and segmentation-symbol switches
+//            (predictable termination needs nothing on decode), coefficients
+//            kept at twice their magnitude with the midpoint of the last
+//            decoded bit-plane, as OpenJPEG keeps them, then the max-shift
+//            ROI's down-shift;
 //   then     5/3: the coefficient halved, the integer lifting (F.3.8);
 //            9/7: the coefficient times half the step size (E.1), OpenJPEG's
 //            float32 lifting (K and 1.625732422 scaling, then delta, gamma,
 //            beta, alpha) with whole-sample symmetric extension, rows before
 //            columns at each level; the RCT or ICT where COD's MCT flag is
-//            set; lrintf, the DC level shift and the clamp to the precision.
+//            set (the first component's wavelet picks it); lrintf, the DC
+//            level shift and the clamp to the precision.
 //
 // Every float step is one float32 multiply or add in OpenJPEG's order, so no
 // step may be contracted into a fused multiply-add (the host build uses
 // -march=native, where GCC would contract them).
 //
-// io/jpeg2000.py reads the JP2 boxes and the markers, refuses what this file
-// does not carry (SOP/EPH, code-block styles, RGN, POC, PPM/PPT, COC/QCC,
-// sub-sampled components), and unpacks the samples into Pillow's modes.
+// io/jpeg2000.py reads the JP2 boxes and the markers (COD/COC, QCD/QCC, RGN
+// and POC per component and tile, in OpenJPEG's order), refuses PPM/PPT and
+// HT code-blocks, and unpacks the samples into Pillow's modes (sub-sampled
+// components in Pillow's own layout, from the packed tile-components here).
 #pragma GCC optimize("fp-contract=off")
 #include <algorithm>
 #include <atomic>
@@ -40,6 +48,11 @@
 namespace {
 
 struct Error {
+  std::string msg;
+};
+
+// what OpenJPEG decodes and this file does not carry
+struct Refused {
   std::string msg;
 };
 
@@ -73,20 +86,48 @@ struct Mq {
   uint8_t st[NCX];
   uint8_t mps[NCX];
 
-  // data ends with two 0xFF bytes the caller appended (a marker the
-  // decoder stops on, feeding 1-bits, as T.800's BYTEIN does at the end)
-  void init(const uint8_t* data) {
-    bp = data;
+  // every context back to its initial state (D.7: at the start of a
+  // code-block, and after each pass under the reset switch)
+  void reset() {
     std::memset(st, 0, sizeof st);
     std::memset(mps, 0, sizeof mps);
     st[CX_UNI] = 46;
     st[CX_RL] = 3;
     st[0] = 4;
+  }
+  // data ends with two 0xFF bytes the caller appended (a marker the
+  // decoder stops on, feeding 1-bits, as T.800's BYTEIN does at the end);
+  // the contexts carry over from the segment before
+  void init(const uint8_t* data) {
+    bp = data;
     c = static_cast<uint32_t>(*bp) << 16;
     bytein();
     c <<= 7;
     ct -= 7;
     a = 0x8000;
+  }
+  // a raw (bypass) segment: its bits as they are, a 0 stuffed after 0xFF
+  void raw_init(const uint8_t* data) {
+    bp = data;
+    c = 0;
+    ct = 0;
+  }
+  inline int raw() {
+    if (ct == 0) {
+      if (c == 0xFF) {
+        if (*bp > 0x8F) {
+          ct = 8;
+        } else {
+          c = *bp++;
+          ct = 7;
+        }
+      } else {
+        c = *bp++;
+        ct = 8;
+      }
+    }
+    ct--;
+    return (c >> ct) & 1;
   }
   inline void bytein() {
     if (*bp == 0xFF) {
@@ -205,15 +246,25 @@ const Tables& tables() {
   return t;
 }
 
+// the code-block style switches of COD/COC (Table A.19)
+enum : int { S_LAZY = 1, S_RESET = 2, S_TERMALL = 4, S_VSC = 8, S_PTERM = 16, S_SEGSYM = 32 };
+
+// a codeword segment (OpenJPEG's opj_tcd_seg_t): its bytes and passes so far
+struct Seg {
+  int len = 0, npasses = 0, maxpasses = 0;
+  int newlen = 0, newpasses = 0;
+};
+
 struct Cblk {
   int x0, y0, x1, y1;
   int numbps = 0;
   int numlenbits = 0;
   int npasses = 0;
   int newpasses = 0;
-  int newlen = 0;
   bool seen = false;              // included in an earlier layer
-  std::vector<uint8_t> data;
+  int nsegs = 0;                  // segments that hold data (OpenJPEG's numsegs)
+  std::vector<Seg> segs;          // those and the ones the last header opened
+  std::vector<uint8_t> data;      // the segments' bytes, one after another
 };
 
 struct Band {
@@ -231,31 +282,57 @@ struct T1 {
   std::vector<uint16_t> flags;
   std::vector<int32_t> data;
   std::vector<uint8_t> buf;
+  bool vsc = false;
 
-  void decode(const Cblk& cb, const Band& band, bool reversible, void* dst, int stride) {
+  void decode(const Cblk& cb, const Band& band, bool reversible, int style, int roishift,
+              void* dst, int stride) {
     const int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
     if (w <= 0 || h <= 0) return;
     const int fs = w + 2;
     flags.assign(static_cast<size_t>(fs) * (h + 2), 0);
     data.assign(static_cast<size_t>(w) * h, 0);
-    int bpno = cb.numbps;
+    vsc = (style & S_VSC) != 0;
+    int bpno = roishift + cb.numbps;
     if (bpno >= 31) throw Error{"a code-block of 31 or more bit-planes"};
-    if (cb.npasses > 0 && bpno >= 1) {
-      buf.assign(cb.data.begin(), cb.data.end());
+    Mq mq;
+    mq.reset();
+    const Tables& tb = tables();
+    const uint8_t* zc = tb.zc[band.bandno == 1 ? 1 : band.bandno == 3 ? 2 : 0];
+    int passtype = 2;
+    size_t at = 0;
+    // OpenJPEG's opj_t1_decode_cblk: each segment from its own start, raw
+    // (the bypass switch, from the fifth bit-plane on) or MQ-coded
+    for (int sg = 0; sg < cb.nsegs; sg++) {
+      const Seg& seg = cb.segs[sg];
+      const bool raw = bpno <= cb.numbps - 4 && passtype < 2 && (style & S_LAZY);
+      buf.assign(cb.data.begin() + at, cb.data.begin() + at + seg.len);
       buf.push_back(0xFF);
       buf.push_back(0xFF);
-      Mq mq;
-      mq.init(buf.data());
-      const Tables& tb = tables();
-      const uint8_t* zc = tb.zc[band.bandno == 1 ? 1 : band.bandno == 3 ? 2 : 0];
-      int passtype = 2;
-      for (int pass = 0; pass < cb.npasses && bpno >= 1; pass++) {
-        if (passtype == 0) sigpass(mq, zc, tb.sc, w, h, bpno);
-        else if (passtype == 1) refpass(mq, w, h, bpno);
-        else clnpass(mq, zc, tb.sc, w, h, bpno);
+      at += seg.len;
+      if (raw) mq.raw_init(buf.data());
+      else mq.init(buf.data());
+      for (int pass = 0; pass < seg.npasses && bpno >= 1; pass++) {
+        if (passtype == 0) sigpass(mq, raw, zc, tb.sc, w, h, bpno);
+        else if (passtype == 1) refpass(mq, raw, w, h, bpno);
+        else clnpass(mq, zc, tb.sc, w, h, bpno, (style & S_SEGSYM) != 0);
+        if ((style & S_RESET) && !raw) mq.reset();
         if (++passtype == 3) {
           passtype = 0;
           bpno--;
+        }
+      }
+    }
+    if (roishift) {   // max-shift ROI: magnitudes at or above 2^shift shifted down
+      const int32_t thresh = roishift >= 31 ? 0 : int32_t(1) << roishift;
+      for (int32_t& v : data) {
+        if (roishift >= 31) {
+          v = 0;
+          continue;
+        }
+        int32_t mag = v < 0 ? -v : v;
+        if (mag >= thresh) {
+          mag >>= roishift;
+          v = v < 0 ? -mag : mag;
         }
       }
     }
@@ -272,26 +349,30 @@ struct T1 {
     }
   }
 
-  inline void set_sig(uint16_t* f, int fs, bool neg) {
+  // a sample of row y turned significant: its neighbours learn it (under
+  // the vertically causal switch the stripe above does not, D.7)
+  inline void set_sig(uint16_t* f, int fs, bool neg, int y) {
     f[0] |= F_SIG;
-    f[-fs] |= F_S | (neg ? F_SGN_S : 0);
+    if (!(vsc && (y & 3) == 0)) {
+      f[-fs] |= F_S | (neg ? F_SGN_S : 0);
+      f[-fs - 1] |= F_SE;
+      f[-fs + 1] |= F_SW;
+    }
     f[fs] |= F_N | (neg ? F_SGN_N : 0);
     f[-1] |= F_E | (neg ? F_SGN_E : 0);
     f[1] |= F_W | (neg ? F_SGN_W : 0);
-    f[-fs - 1] |= F_SE;
-    f[-fs + 1] |= F_SW;
     f[fs - 1] |= F_NE;
     f[fs + 1] |= F_NW;
   }
   static inline int sc_index(uint16_t fl) { return ((fl >> 4) & 0xF) | ((fl >> 8) & 0xF0); }
-  inline void sign(Mq& mq, const uint8_t* sc, uint16_t* f, int fs, int32_t* d, int32_t oph) {
+  inline void sign(Mq& mq, const uint8_t* sc, uint16_t* f, int fs, int32_t* d, int32_t oph, int y) {
     int s = sc[sc_index(*f)];
     int bit = mq.decode(s & 0x1F) ^ (s >> 5);
     *d = bit ? -oph : oph;
-    set_sig(f, fs, bit != 0);
+    set_sig(f, fs, bit != 0, y);
   }
 
-  void sigpass(Mq& mq, const uint8_t* zc, const uint8_t* sc, int w, int h, int bpno) {
+  void sigpass(Mq& mq, bool raw, const uint8_t* zc, const uint8_t* sc, int w, int h, int bpno) {
     const int fs = w + 2;
     const int32_t one = 1 << bpno, oph = one | (one >> 1);
     for (int y0 = 0; y0 < h; y0 += 4) {
@@ -300,14 +381,22 @@ struct T1 {
         for (int y = y0; y < y1; y++) {
           uint16_t* f = &flags[static_cast<size_t>(y + 1) * fs + x + 1];
           if ((*f & (F_SIG | F_VIS)) || !(*f & F_NBR)) continue;
-          if (mq.decode(zc[(*f >> 4) & 0xFF])) sign(mq, sc, f, fs, &data[y * w + x], oph);
+          if (raw) {
+            if (mq.raw()) {
+              const int neg = mq.raw();
+              data[y * w + x] = neg ? -oph : oph;
+              set_sig(f, fs, neg != 0, y);
+            }
+          } else if (mq.decode(zc[(*f >> 4) & 0xFF])) {
+            sign(mq, sc, f, fs, &data[y * w + x], oph, y);
+          }
           *f |= F_VIS;
         }
       }
     }
   }
 
-  void refpass(Mq& mq, int w, int h, int bpno) {
+  void refpass(Mq& mq, bool raw, int w, int h, int bpno) {
     const int fs = w + 2;
     const int32_t half = (1 << bpno) >> 1;
     for (int y0 = 0; y0 < h; y0 += 4) {
@@ -316,8 +405,7 @@ struct T1 {
         for (int y = y0; y < y1; y++) {
           uint16_t* f = &flags[static_cast<size_t>(y + 1) * fs + x + 1];
           if ((*f & (F_SIG | F_VIS)) != F_SIG) continue;
-          int cx = (*f & F_REF) ? 16 : (*f & F_NBR) ? 15 : 14;
-          int bit = mq.decode(cx);
+          int bit = raw ? mq.raw() : mq.decode((*f & F_REF) ? 16 : (*f & F_NBR) ? 15 : 14);
           int32_t& d = data[y * w + x];
           d += (bit ^ (d < 0)) ? half : -half;
           *f |= F_REF;
@@ -326,7 +414,7 @@ struct T1 {
     }
   }
 
-  void clnpass(Mq& mq, const uint8_t* zc, const uint8_t* sc, int w, int h, int bpno) {
+  void clnpass(Mq& mq, const uint8_t* zc, const uint8_t* sc, int w, int h, int bpno, bool segsym) {
     const int fs = w + 2;
     const int32_t one = 1 << bpno, oph = one | (one >> 1);
     for (int y0 = 0; y0 < h; y0 += 4) {
@@ -341,18 +429,20 @@ struct T1 {
             int r = mq.decode(CX_UNI) << 1;
             r |= mq.decode(CX_UNI);
             y = y0 + r;
-            sign(mq, sc, &col[r * fs], fs, &data[y * w + x], oph);
+            sign(mq, sc, &col[r * fs], fs, &data[y * w + x], oph, y);
             y++;
           }
         }
         for (; y < y1; y++) {
           uint16_t* f = &col[(y - y0) * fs];
           if (!(*f & (F_SIG | F_VIS)) && mq.decode(zc[(*f >> 4) & 0xFF]))
-            sign(mq, sc, f, fs, &data[y * w + x], oph);
+            sign(mq, sc, f, fs, &data[y * w + x], oph, y);
         }
         for (int yy = y0; yy < y1; yy++) col[(yy - y0) * fs] &= static_cast<uint16_t>(~F_VIS);
       }
     }
+    if (segsym)   // the segmentation symbol 1010, read and not checked, as OpenJPEG does
+      for (int i = 0; i < 4; i++) mq.decode(CX_UNI);
   }
 };
 
@@ -380,9 +470,15 @@ struct Bio {
     for (int i = n - 1; i >= 0; i--) v |= static_cast<uint32_t>(bit()) << i;
     return v;
   }
-  void inalign() {
-    if ((buf & 0xFF) == 0xFF) bytein();
+  // false where a 0xFF byte ends the data (OpenJPEG's opj_bio_inalign)
+  bool inalign() {
+    if ((buf & 0xFF) == 0xFF) {
+      const bool more = bp < end;
+      bytein();
+      if (!more) return false;
+    }
     ct = 0;
+    return true;
   }
 };
 
@@ -456,15 +552,22 @@ struct Res {
 
 struct Comp {
   int prec = 8, sgnd = 0;
+  int dx = 1, dy = 1;             // XRsiz, YRsiz
 };
 
 struct CompParams {
-  int numres, xcb, ycb, qmfbid, guard;
+  int numres, xcb, ycb, qmfbid, guard, style, roishift;
   int ppx[33], ppy[33];
   int expn[97], mant[97];
 };
-constexpr int kCompRec = 5 + 33 * 2 + 97 * 2;
-constexpr int kTileHead = 9;
+constexpr int kCompRec = 7 + 33 * 2 + 97 * 2;
+constexpr int kTileHead = 11;
+
+// a progression of a POC marker (or the one of COD): packets of layers
+// [0, lay1), resolutions [res0, res1), components [comp0, comp1) in order prg
+struct Poc {
+  int res0, comp0, lay1, res1, comp1, prg;
+};
 
 struct TileComp {
   int x0, y0, x1, y1;
@@ -487,19 +590,23 @@ inline int64_t ceildiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 struct Tile {
   int tx0, ty0, tx1, ty1;
-  int prog, nlayers, mct;
+  int prog, nlayers, mct, csty;
+  std::vector<Poc> pocs;          // empty: COD's progression over everything
   const uint8_t* body;
   int64_t len;
   std::vector<TileComp> comps;
   std::vector<Cblk> cblks;
 
-  void setup(const std::vector<Comp>& img) {
+  std::vector<Comp> img;
+
+  void setup(const std::vector<Comp>& image) {
+    img = image;
     for (size_t c = 0; c < comps.size(); c++) {
       TileComp& tc = comps[c];
-      tc.x0 = tx0;
-      tc.y0 = ty0;
-      tc.x1 = tx1;
-      tc.y1 = ty1;
+      tc.x0 = static_cast<int>(ceildiv(tx0, img[c].dx));
+      tc.y0 = static_cast<int>(ceildiv(ty0, img[c].dy));
+      tc.x1 = static_cast<int>(ceildiv(tx1, img[c].dx));
+      tc.y1 = static_cast<int>(ceildiv(ty1, img[c].dy));
       const CompParams& p = tc.p;
       const int nl = p.numres - 1;
       tc.res.resize(p.numres);
@@ -603,7 +710,9 @@ struct Tile {
     int comp, res, prec, layer;
   };
 
-  // the packets in the order of the progression (OpenJPEG's pi.c)
+  // the packets in the order of the progressions (OpenJPEG's pi.c): each
+  // POC's in turn (layers from 0, resolutions and components within its
+  // bounds), a packet already read under an earlier one skipped
   std::vector<Packet> packets() const {
     std::vector<Packet> out;
     const int nc = static_cast<int>(comps.size());
@@ -620,12 +729,16 @@ struct Tile {
       for (const Res& rs : comps[c].res) n += rs.prec.size() / rs.nbands;
       seen[c].assign(n * nlayers, 0);
     }
+    int l1 = 0;
     auto emit = [&](int c, int r, int p, int l) {
       uint8_t& s = seen[c][index(c, r, p) * nlayers + l];
       if (!s) {
         s = 1;
         out.push_back({c, r, p, l});
       }
+    };
+    auto emit_layers = [&](int c, int r, int p) {
+      for (int l = 0; l < l1; l++) emit(c, r, p, l);
     };
     auto nprec = [&](int c, int r) {
       const Res& rs = comps[c].res[r];
@@ -637,20 +750,22 @@ struct Tile {
       if (r >= tc.p.numres) return -1;
       const Res& rs = tc.res[r];
       const int lev = tc.p.numres - 1 - r;
-      if (lev >= 32) return -1;
-      const int64_t d = int64_t(1) << lev;
-      const int64_t trx0 = ceildiv(tx0, d), try0 = ceildiv(ty0, d);
-      const int64_t trx1 = ceildiv(tx1, d), try1 = ceildiv(ty1, d);
+      const int64_t cdx = img[c].dx, cdy = img[c].dy;
+      if (lev >= 32 || (cdx << lev) > INT_MAX || (cdy << lev) > INT_MAX) return -1;
+      const int64_t ddx = cdx << lev, ddy = cdy << lev;
+      const int64_t trx0 = ceildiv(tx0, ddx), try0 = ceildiv(ty0, ddy);
+      const int64_t trx1 = ceildiv(tx1, ddx), try1 = ceildiv(ty1, ddy);
       const int rpx = rs.pdx + lev, rpy = rs.pdy + lev;
-      if (rpx >= 31 || rpy >= 31) return -1;
-      if (!((y % (int64_t(1) << rpy)) == 0 || (y == ty0 && ((try0 << lev) % (int64_t(1) << rpy)))))
+      if (rpx >= 31 || rpy >= 31 || ((cdx << rpx) >> rpx) != cdx || ((cdy << rpy) >> rpy) != cdy)
         return -1;
-      if (!((x % (int64_t(1) << rpx)) == 0 || (x == tx0 && ((trx0 << lev) % (int64_t(1) << rpx)))))
+      if (!((y % (cdy << rpy)) == 0 || (y == ty0 && ((try0 << lev) % (int64_t(1) << rpy)))))
+        return -1;
+      if (!((x % (cdx << rpx)) == 0 || (x == tx0 && ((trx0 << lev) % (int64_t(1) << rpx)))))
         return -1;
       if (rs.pw == 0 || rs.ph == 0) return -1;
       if (trx0 == trx1 || try0 == try1) return -1;
-      const int64_t prci = (ceildiv(x, d) >> rs.pdx) - (trx0 >> rs.pdx);
-      const int64_t prcj = (ceildiv(y, d) >> rs.pdy) - (try0 >> rs.pdy);
+      const int64_t prci = (ceildiv(x, ddx) >> rs.pdx) - (trx0 >> rs.pdx);
+      const int64_t prcj = (ceildiv(y, ddy) >> rs.pdy) - (try0 >> rs.pdy);
       return static_cast<int>(prci + prcj * rs.pw);
     };
     auto steps = [&](int c0, int c1, int64_t& dx, int64_t& dy) {
@@ -658,66 +773,87 @@ struct Tile {
       for (int c = c0; c < c1; c++)
         for (int r = 0; r < comps[c].p.numres; r++) {
           const int lev = comps[c].p.numres - 1 - r;
-          const int64_t sx = int64_t(1) << std::min(62, comps[c].res[r].pdx + lev);
-          const int64_t sy = int64_t(1) << std::min(62, comps[c].res[r].pdy + lev);
-          dx = dx ? std::min(dx, sx) : sx;
-          dy = dy ? std::min(dy, sy) : sy;
+          const int ex = comps[c].res[r].pdx + lev, ey = comps[c].res[r].pdy + lev;
+          if (ex < 32 && static_cast<uint64_t>(img[c].dx) <= UINT32_MAX / (uint64_t(1) << ex)) {
+            const int64_t sx = int64_t(img[c].dx) << ex;
+            dx = dx ? std::min(dx, sx) : sx;
+          }
+          if (ey < 32 && static_cast<uint64_t>(img[c].dy) <= UINT32_MAX / (uint64_t(1) << ey)) {
+            const int64_t sy = int64_t(img[c].dy) << ey;
+            dy = dy ? std::min(dy, sy) : sy;
+          }
         }
     };
     auto next = [](int64_t v, int64_t step) { return v + (step - v % step); };
-    int64_t dx, dy;
-    switch (prog) {
-      case 0:  // LRCP
-        for (int l = 0; l < nlayers; l++)
-          for (int r = 0; r < maxres; r++)
-            for (int c = 0; c < nc; c++)
-              if (r < comps[c].p.numres)
-                for (int p = 0; p < nprec(c, r); p++) emit(c, r, p, l);
-        break;
-      case 1:  // RLCP
-        for (int r = 0; r < maxres; r++)
-          for (int l = 0; l < nlayers; l++)
-            for (int c = 0; c < nc; c++)
-              if (r < comps[c].p.numres)
-                for (int p = 0; p < nprec(c, r); p++) emit(c, r, p, l);
-        break;
-      case 2:  // RPCL
-        steps(0, nc, dx, dy);
-        for (int r = 0; r < maxres; r++)
+    std::vector<Poc> progs = pocs;
+    if (progs.empty()) progs.push_back({0, 0, nlayers, maxres, nc, prog});
+    for (const Poc& pc : progs) {
+      l1 = std::min(pc.lay1, nlayers);
+      const int r0 = pc.res0, r1 = std::min(pc.res1, maxres);
+      const int c0 = pc.comp0, c1 = std::min(pc.comp1, nc);
+      if (c0 >= nc) continue;   // OpenJPEG's iterator stops at once
+      int64_t dx, dy;
+      switch (pc.prg) {
+        case 0:  // LRCP
+          for (int l = 0; l < l1; l++)
+            for (int r = r0; r < r1; r++)
+              for (int c = c0; c < c1; c++)
+                if (r < comps[c].p.numres)
+                  for (int p = 0; p < nprec(c, r); p++) emit(c, r, p, l);
+          break;
+        case 1:  // RLCP
+          for (int r = r0; r < r1; r++)
+            for (int l = 0; l < l1; l++)
+              for (int c = c0; c < c1; c++)
+                if (r < comps[c].p.numres)
+                  for (int p = 0; p < nprec(c, r); p++) emit(c, r, p, l);
+          break;
+        case 2:  // RPCL
+          steps(0, nc, dx, dy);
+          if (!dx || !dy) break;
+          for (int r = r0; r < r1; r++)
+            for (int64_t y = ty0; y < ty1; y = next(y, dy))
+              for (int64_t x = tx0; x < tx1; x = next(x, dx))
+                for (int c = c0; c < c1; c++) {
+                  int p = precinct_at(c, r, x, y);
+                  if (p >= 0) emit_layers(c, r, p);
+                }
+          break;
+        case 3:  // PCRL
+          steps(0, nc, dx, dy);
+          if (!dx || !dy) break;
           for (int64_t y = ty0; y < ty1; y = next(y, dy))
             for (int64_t x = tx0; x < tx1; x = next(x, dx))
-              for (int c = 0; c < nc; c++) {
-                int p = precinct_at(c, r, x, y);
-                if (p >= 0)
-                  for (int l = 0; l < nlayers; l++) emit(c, r, p, l);
-              }
-        break;
-      case 3:  // PCRL
-        steps(0, nc, dx, dy);
-        for (int64_t y = ty0; y < ty1; y = next(y, dy))
-          for (int64_t x = tx0; x < tx1; x = next(x, dx))
-            for (int c = 0; c < nc; c++)
-              for (int r = 0; r < comps[c].p.numres; r++) {
-                int p = precinct_at(c, r, x, y);
-                if (p >= 0)
-                  for (int l = 0; l < nlayers; l++) emit(c, r, p, l);
-              }
-        break;
-      case 4:  // CPRL
-        for (int c = 0; c < nc; c++) {
-          steps(c, c + 1, dx, dy);
-          for (int64_t y = ty0; y < ty1; y = next(y, dy))
-            for (int64_t x = tx0; x < tx1; x = next(x, dx))
-              for (int r = 0; r < comps[c].p.numres; r++) {
-                int p = precinct_at(c, r, x, y);
-                if (p >= 0)
-                  for (int l = 0; l < nlayers; l++) emit(c, r, p, l);
-              }
-        }
-        break;
-      default:
-        throw Error{"an unknown progression order"};
+              for (int c = c0; c < c1; c++)
+                for (int r = r0; r < std::min(r1, comps[c].p.numres); r++) {
+                  int p = precinct_at(c, r, x, y);
+                  if (p >= 0) emit_layers(c, r, p);
+                }
+          break;
+        case 4:  // CPRL
+          for (int c = c0; c < c1; c++) {
+            steps(c, c + 1, dx, dy);
+            if (!dx || !dy) break;
+            for (int64_t y = ty0; y < ty1; y = next(y, dy))
+              for (int64_t x = tx0; x < tx1; x = next(x, dx))
+                for (int r = r0; r < std::min(r1, comps[c].p.numres); r++) {
+                  int p = precinct_at(c, r, x, y);
+                  if (p >= 0) emit_layers(c, r, p);
+                }
+          }
+          break;
+        default:  // an unknown Ppoc: OpenJPEG's iterator gives no packet
+          if (pocs.empty()) throw Error{"an unknown progression order"};
+      }
     }
+    // OpenJPEG decodes a component only up to the highest resolution it
+    // read a packet of, and hands Pillow the smaller plane: not carried
+    std::vector<uint8_t> top(nc, 0);
+    for (const Packet& pk : out)
+      if (pk.res == comps[pk.comp].p.numres - 1) top[pk.comp] = 1;
+    for (int c = 0; c < nc; c++)
+      if (!top[c] && nprec(c, comps[c].p.numres - 1) > 0)
+        throw Refused{"progressions that leave out a component's highest resolution"};
     return out;
   }
 
@@ -740,14 +876,29 @@ struct Tile {
     return l;
   }
 
-  // read every packet of the tile, gathering each code-block's bytes
+  // OpenJPEG's opj_t2_init_seg: how many passes segment k may hold
+  static void init_seg(Cblk& cb, size_t k, int style, bool first) {
+    if (cb.segs.size() <= k) cb.segs.resize(k + 1);
+    Seg& sg = cb.segs[k];
+    sg = Seg();
+    if (style & S_TERMALL) sg.maxpasses = 1;
+    else if (style & S_LAZY)
+      sg.maxpasses = first ? 10 : (cb.segs[k - 1].maxpasses == 1 || cb.segs[k - 1].maxpasses == 10) ? 2 : 1;
+    else sg.maxpasses = 109;
+  }
+
+  // read every packet of the tile, gathering each code-block's bytes by
+  // codeword segment; an SOP segment before a packet and an EPH marker
+  // after its header are skipped where found, and where they are missing
+  // the packet is read on (OpenJPEG warns)
   void tier2() {
     const uint8_t* p = body;
     const uint8_t* end = body + len;
     for (const Packet& pk : packets()) {
       TileComp& tc = comps[pk.comp];
       Res& rs = tc.res[pk.res];
-      if (p >= end) throw Error{"the tile's data ends before its last packet"};
+      const int style = tc.p.style;
+      if ((csty & 2) && end - p >= 6 && p[0] == 0xFF && p[1] == 0x91) p += 6;
       Bio bio(p, end);
       const int present = bio.bit();
       if (present) {
@@ -776,20 +927,33 @@ struct Tile {
             }
             cb.newpasses = numpasses(bio);
             while (bio.bit()) {
-              cb.numlenbits++;
-              if (bio.over || cb.numlenbits > 32) throw Error{"a bad Lblock increment"};
+              if (++cb.numlenbits > 32) throw Error{"a bad Lblock increment"};
             }
-            const int bits = cb.numlenbits + floorlog2(cb.newpasses);
-            if (bits > 32) throw Error{"a code-block length of more than 32 bits"};
-            cb.newlen = static_cast<int>(bio.read(bits));
-            if (cb.npasses + cb.newpasses > 109)
-              throw Error{"more than 109 passes in a code-block"};
+            size_t sg = 0;
+            if (!cb.nsegs) {
+              init_seg(cb, 0, style, true);
+            } else {
+              sg = cb.nsegs - 1;
+              if (cb.segs[sg].npasses == cb.segs[sg].maxpasses) init_seg(cb, ++sg, style, false);
+            }
+            for (int n = cb.newpasses; n > 0;) {
+              Seg& seg = cb.segs[sg];
+              seg.newpasses = std::min(seg.maxpasses - seg.npasses, n);
+              const int bits = cb.numlenbits + floorlog2(seg.newpasses);
+              if (bits > 32) throw Error{"a code-block length of more than 32 bits"};
+              seg.newlen = static_cast<int>(bio.read(bits));
+              n -= seg.newpasses;
+              if (n > 0) init_seg(cb, ++sg, style, false);
+            }
           }
         }
       }
-      bio.inalign();
-      if (bio.over) throw Error{"a packet header runs past the tile's data"};
+      if (!bio.inalign()) throw Error{"a packet header runs past the tile's data"};
       p = bio.bp;
+      if (csty & 4) {
+        if (end - p < 2 || p[0] != 0xFF || p[1] != 0x92) throw Error{"an EPH marker missing"};
+        p += 2;
+      }
       if (!present) continue;
       for (int b = 0; b < rs.nbands; b++) {
         if (rs.bands[b].empty()) continue;
@@ -797,10 +961,29 @@ struct Tile {
         for (int ci : pb.cblks) {
           Cblk& cb = cblks[ci];
           if (!cb.newpasses) continue;
-          if (cb.newlen > end - p) throw Error{"a code-block's data runs past the tile's data"};
-          cb.data.insert(cb.data.end(), p, p + cb.newlen);
-          p += cb.newlen;
-          cb.npasses += cb.newpasses;
+          size_t sg = 0;
+          if (!cb.nsegs) {
+            cb.nsegs = 1;
+          } else {
+            sg = cb.nsegs - 1;
+            if (cb.segs[sg].npasses == cb.segs[sg].maxpasses) {
+              sg++;
+              cb.nsegs++;
+            }
+          }
+          for (;;) {
+            Seg& seg = cb.segs[sg];
+            if (seg.newlen > end - p) throw Error{"a code-block's data runs past the tile's data"};
+            cb.data.insert(cb.data.end(), p, p + seg.newlen);
+            p += seg.newlen;
+            seg.len += seg.newlen;
+            seg.npasses += seg.newpasses;
+            cb.npasses += seg.newpasses;
+            cb.newpasses -= seg.newpasses;
+            if (cb.newpasses <= 0) break;
+            sg++;
+            cb.nsegs++;
+          }
           cb.newpasses = 0;
         }
       }
@@ -952,30 +1135,92 @@ void synthesize(TileComp& tc, bool reversible, int threads) {
   }
 }
 
+// the RCT or ICT of the first three components (OpenJPEG's
+// opj_tcd_mct_decode): all three must be of one size; the first one's
+// transform picks the RCT or the ICT, and a component of the other
+// transform has its samples' bits taken as they lie, as OpenJPEG's shared
+// int32 buffer takes them
+void mct(Tile& tl) {
+  TileComp* c3[3] = {&tl.comps[0], &tl.comps[1], &tl.comps[2]};
+  const size_t n = static_cast<size_t>(c3[0]->width()) * c3[0]->height();
+  for (int k = 1; k < 3; k++)
+    if (c3[k]->p.numres != c3[0]->p.numres || static_cast<size_t>(c3[k]->width()) * c3[k]->height() != n)
+      throw Error{"a component transform over components of different sizes"};
+  const bool rev = c3[0]->p.qmfbid == 1;
+  std::vector<int32_t> ibits[3];
+  std::vector<float> fbits[3];
+  int32_t* iv[3];
+  float* fv[3];
+  for (int k = 0; k < 3; k++) {
+    TileComp& tc = *c3[k];
+    if (rev && tc.p.qmfbid != 1) {
+      ibits[k].resize(n);
+      std::memcpy(ibits[k].data(), tc.fdata.data(), n * 4);
+    } else if (!rev && tc.p.qmfbid == 1) {
+      fbits[k].resize(n);
+      std::memcpy(fbits[k].data(), tc.idata.data(), n * 4);
+    }
+    iv[k] = ibits[k].empty() ? tc.idata.data() : ibits[k].data();
+    fv[k] = fbits[k].empty() ? tc.fdata.data() : fbits[k].data();
+  }
+  if (rev) {
+    for (size_t k = 0; k < n; k++) {
+      const int32_t y = iv[0][k], u = iv[1][k], v = iv[2][k];
+      const int32_t g = y - ((u + v) >> 2);
+      iv[0][k] = v + g;
+      iv[1][k] = g;
+      iv[2][k] = u + g;
+    }
+  } else {
+    for (size_t k = 0; k < n; k++) {
+      const float y = fv[0][k], u = fv[1][k], v = fv[2][k];
+      const float r = y + (v * 1.402f);
+      const float g = y - (u * 0.34413f) - (v * 0.71414f);
+      const float b = y + (u * 1.772f);
+      fv[0][k] = r;
+      fv[1][k] = g;
+      fv[2][k] = b;
+    }
+  }
+  for (int k = 0; k < 3; k++) {
+    if (!ibits[k].empty()) std::memcpy(c3[k]->fdata.data(), ibits[k].data(), n * 4);
+    if (!fbits[k].empty()) std::memcpy(c3[k]->idata.data(), fbits[k].data(), n * 4);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Decode the tiles of a codestream into out, int32 [ncomp][H][W] (the image
-// area).  hdr: ncomp, X0, Y0, W, H, ntiles, threads (0: the host's cores, at
-// most 8); prec and signedness of each component; then per tile tx0, ty0,
-// tx1, ty1, the offset and length of its joined tile-part bodies in body,
-// the progression order, the layers and the MCT flag, and per component
-// the levels + 1, the code-block exponents, the transform (1: 5/3), the
-// guard bits, 33 precinct width and 33 height exponents, 97 step exponents
-// and 97 mantissas (a derived quantisation expanded by the caller).
-// Returns 0, or 1 with the reason in err.
+// Decode the tiles of a codestream into out.  hdr: ncomp, X0, Y0, W, H,
+// ntiles, threads (0: the host's cores, at most 8), packed; the precision,
+// signedness and XRsiz, YRsiz of each component; then per tile tx0, ty0,
+// tx1, ty1 (on the reference grid), the offset and length of its joined
+// tile-part bodies in body, the progression order, the layers, the MCT flag,
+// COD's Scod and the number of POC progressions, 6 values each (RSpoc,
+// CSpoc, LYEpoc, REpoc, CEpoc, Ppoc), and per component the levels + 1, the
+// code-block exponents, the transform (1: 5/3), the guard bits, the
+// code-block style, the ROI shift, 33 precinct width and 33 height
+// exponents, 97 step exponents and 97 mantissas (a derived quantisation
+// expanded by the caller).  out: int32 [ncomp][H][W] (the image area; every
+// XRsiz and YRsiz 1), or, packed, each tile's components one after another,
+// each at its tile-component's size, as OpenJPEG hands a tile to Pillow.
+// Returns 0, or 1 with the reason in err (2: a file this decoder refuses).
 int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_t* out, char* err,
                int errlen) {
   try {
     const int nc = hdr[0], X0 = hdr[1], Y0 = hdr[2], W = hdr[3], H = hdr[4], nt = hdr[5];
     int threads = hdr[6];
+    const bool packed = hdr[7] != 0;
     if (threads <= 0) threads = static_cast<int>(std::min(8u, std::max(1u, std::thread::hardware_concurrency())));
     std::vector<Comp> img(nc);
-    const int32_t* q = hdr + 7;
+    const int32_t* q = hdr + 8;
     for (int c = 0; c < nc; c++) {
-      img[c].prec = *q++;
-      img[c].sgnd = *q++;
+      img[c].prec = q[0];
+      img[c].sgnd = q[1];
+      img[c].dx = q[2];
+      img[c].dy = q[3];
+      q += 4;
     }
     std::vector<Tile> tiles(nt);
     for (int t = 0; t < nt; t++) {
@@ -991,7 +1236,10 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
       tl.prog = q[6];
       tl.nlayers = q[7];
       tl.mct = q[8];
+      tl.csty = q[9];
+      const int npocs = q[10];
       q += kTileHead;
+      for (int k = 0; k < npocs; k++, q += 6) tl.pocs.push_back({q[0], q[1], q[2], q[3], q[4], q[5]});
       tl.comps.resize(nc);
       for (int c = 0; c < nc; c++) {
         CompParams& p = tl.comps[c].p;
@@ -1000,10 +1248,12 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
         p.ycb = q[2];
         p.qmfbid = q[3];
         p.guard = q[4];
-        std::memcpy(p.ppx, q + 5, sizeof p.ppx);
-        std::memcpy(p.ppy, q + 38, sizeof p.ppy);
-        std::memcpy(p.expn, q + 71, sizeof p.expn);
-        std::memcpy(p.mant, q + 168, sizeof p.mant);
+        p.style = q[5];
+        p.roishift = q[6];
+        std::memcpy(p.ppx, q + 7, sizeof p.ppx);
+        std::memcpy(p.ppy, q + 40, sizeof p.ppy);
+        std::memcpy(p.expn, q + 73, sizeof p.expn);
+        std::memcpy(p.mant, q + 170, sizeof p.mant);
         q += kCompRec;
       }
       tl.setup(img);
@@ -1030,7 +1280,7 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
       const size_t at = static_cast<size_t>(cb.y0 - bd.y0 + bd.yoff) * stride + (cb.x0 - bd.x0 + bd.xoff);
       const bool rev = tc.p.qmfbid == 1;
       void* dst = rev ? static_cast<void*>(tc.idata.data() + at) : static_cast<void*>(tc.fdata.data() + at);
-      t1s[th].decode(cb, bd, rev, dst, stride);
+      t1s[th].decode(cb, bd, rev, tc.p.style, tc.p.roishift, dst, stride);
       std::vector<uint8_t>().swap(cb.data);
     });
     // the inverse transforms, component transforms and level shifts
@@ -1039,63 +1289,46 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
       TileComp& tc = tiles[i / nc].comps[i % nc];
       synthesize(tc, tc.p.qmfbid == 1, inner);
     });
+    std::vector<size_t> at(nt + 1, 0);     // each tile's offset in a packed out
+    for (int t = 0; t < nt; t++) {
+      at[t + 1] = at[t];
+      for (const TileComp& tc : tiles[t].comps) at[t + 1] += static_cast<size_t>(tc.width()) * tc.height();
+    }
     parallel(nt, threads, [&](int t, int) {
       Tile& tl = tiles[t];
-      const size_t n = static_cast<size_t>(tl.tx1 - tl.tx0) * (tl.ty1 - tl.ty0);
-      if (tl.mct && nc >= 3) {
-        const bool rev = tl.comps[0].p.qmfbid == 1;
-        if (rev != (tl.comps[1].p.qmfbid == 1) || rev != (tl.comps[2].p.qmfbid == 1))
-          throw Error{"a component transform over mixed wavelets"};
-        if (rev) {
-          int32_t *c0 = tl.comps[0].idata.data(), *c1 = tl.comps[1].idata.data(),
-                  *c2 = tl.comps[2].idata.data();
-          for (size_t k = 0; k < n; k++) {
-            const int32_t y = c0[k], u = c1[k], v = c2[k];
-            const int32_t g = y - ((u + v) >> 2);
-            c0[k] = v + g;
-            c1[k] = g;
-            c2[k] = u + g;
-          }
-        } else {
-          float *c0 = tl.comps[0].fdata.data(), *c1 = tl.comps[1].fdata.data(),
-                *c2 = tl.comps[2].fdata.data();
-          for (size_t k = 0; k < n; k++) {
-            const float y = c0[k], u = c1[k], v = c2[k];
-            const float r = y + (v * 1.402f);
-            const float g = y - (u * 0.34413f) - (v * 0.71414f);
-            const float b = y + (u * 1.772f);
-            c0[k] = r;
-            c1[k] = g;
-            c2[k] = b;
-          }
-        }
-      }
-      const int tw = tl.tx1 - tl.tx0;
+      if (tl.mct && nc >= 3) mct(tl);
+      size_t o = at[t];
       for (int c = 0; c < nc; c++) {
         const TileComp& tc = tl.comps[c];
         const int prec = img[c].prec;
         const int64_t lo = img[c].sgnd ? -(int64_t(1) << (prec - 1)) : 0;
         const int64_t hi = img[c].sgnd ? (int64_t(1) << (prec - 1)) - 1 : (int64_t(1) << prec) - 1;
         const int64_t shift = img[c].sgnd ? 0 : int64_t(1) << (prec - 1);
-        for (int y = tl.ty0; y < tl.ty1; y++) {
-          int32_t* o = out + (static_cast<size_t>(c) * H + (y - Y0)) * W + (tl.tx0 - X0);
-          const size_t row = static_cast<size_t>(y - tl.ty0) * tw;
+        const int tw = tc.width();
+        for (int y = tc.y0; y < tc.y1; y++) {
+          int32_t* row = packed ? out + o + static_cast<size_t>(y - tc.y0) * tw
+                                : out + (static_cast<size_t>(c) * H + (y - Y0)) * W + (tl.tx0 - X0);
+          const size_t src = static_cast<size_t>(y - tc.y0) * tw;
           for (int x = 0; x < tw; x++) {
             int64_t v;
             if (tc.p.qmfbid == 1) {
-              v = tc.idata[row + x] + shift;
+              v = tc.idata[src + x] + shift;
             } else {
-              const float f = tc.fdata[row + x];
+              const float f = tc.fdata[src + x];
               if (f > static_cast<float>(INT_MAX)) v = hi;
               else if (f < static_cast<float>(INT_MIN)) v = lo;
               else v = static_cast<int64_t>(lrintf(f)) + shift;
             }
-            o[x] = static_cast<int32_t>(std::min(hi, std::max(lo, v)));
+            row[x] = static_cast<int32_t>(std::min(hi, std::max(lo, v)));
           }
         }
+        o += static_cast<size_t>(tw) * tc.height();
       }
     });
     return 0;
+  } catch (const Refused& e) {
+    std::snprintf(err, errlen, "%s", e.msg.c_str());
+    return 2;
   } catch (const Error& e) {
     std::snprintf(err, errlen, "%s", e.msg.c_str());
     return 1;

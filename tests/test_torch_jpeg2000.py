@@ -14,10 +14,12 @@ which reads JPEG 2000 through Pillow 12.1 and OpenJPEG 2.5.
   over four components, unknown ones, ICC profiles); palettes (``pclr``
   with and without ``cmap``, repeated colours, short palettes, RGBA
   palettes, ``PA``); the same pixels, or an error in both.
-* Truncated files raise in both packages; what no Pillow setting writes
-  (SOP and EPH markers, the code-block style switches, RGN, POC, PPM, PPT,
-  COC, QCC, sub-sampled components) is refused naming item 8h with and
-  without cv2; headers Pillow passes on are passed on.
+* Truncated files raise in both packages; a Pillow file edited to carry
+  an SOP or EPH flag, a code-block style bit, RGN, POC, COC, QCC or a
+  sub-sampled component reads as the JAX package reads it, or raises in
+  both (files coded with them: ``test_torch_jpeg2000_more.py``); PPM and
+  PPT are refused naming item 8h with and without cv2; headers Pillow
+  passes on are passed on.
 * ``chip_smoke.J2K_FIXTURES`` (phase 26) holds the sha256 of each file of
   ``torch_codec_fixtures.j2k_fixtures()`` and of the JAX package's read
   of it, and of the two 4K goldens and Pillow's decode of them; the
@@ -271,7 +273,7 @@ def _in_tile_part(data: bytes, segment: bytes) -> bytes:
     return out[:at + 6] + struct.pack(">I", psot + len(segment)) + out[at + 10:]
 
 
-def _refused(kind: str) -> bytes:
+def _edited(kind: str) -> bytes:
     d = _codestream()
     cod, siz = d.index(b"\xff\x52"), d.index(b"\xff\x51")
     if kind in ("SOP", "EPH"):
@@ -290,17 +292,27 @@ def _refused(kind: str) -> bytes:
             }[kind]()
 
 
-REFUSED = ("SOP", "EPH", *(f"style{b}" for b in range(6)), "RGN", "POC", "PPM", "PPT", "COC",
-           "QCC", "tile-COC", "subsampled-x", "subsampled-y")
+CARRIED = ("SOP", "EPH", *(f"style{b}" for b in range(6)), "RGN", "POC", "COC", "QCC",
+           "tile-COC", "subsampled-x", "subsampled-y")
+REFUSED = ("PPM", "PPT")
+
+
+@pytest.mark.parametrize("kind", CARRIED)
+def test_edited_markers_read_as_the_jax_package_reads_them(kind, tmp_path, monkeypatch):
+    """Each marker or bit set in a Pillow-written codestream (on data not
+    coded with it): the same pixels as the JAX package's, or an error in
+    both (EPH without EPH markers, a COC whose code-blocks overrun the
+    data), with cv2 importable and blocked."""
+    _read_both(tmp_path, _edited(kind), monkeypatch)
 
 
 @pytest.mark.parametrize("kind", REFUSED)
 def test_what_no_pillow_setting_writes_is_refused_by_8h(kind, tmp_path, monkeypatch):
-    """Each marker or bit set in a Pillow-written codestream: refused
-    naming item 8h, with cv2 importable and blocked (no JPEG 2000 file
-    reaches cv2)."""
+    """Packed packet headers (PPM, PPT) set in a Pillow-written codestream:
+    refused naming item 8h, with cv2 importable and blocked (no JPEG 2000
+    file reaches cv2)."""
     path = tmp_path / "in.j2k"
-    path.write_bytes(_refused(kind))
+    path.write_bytes(_edited(kind))
     for blocked in (False, True):
         if blocked:
             monkeypatch.setitem(sys.modules, "cv2", None)

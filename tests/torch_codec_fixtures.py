@@ -72,6 +72,16 @@ headers around bit masks, palettes and seeded random blocks
 (:func:`make_im`); :func:`psd_4k` and :func:`bc7_4k` write phase 25's 4K
 PSD and BC7 DDS.
 
+The JPEG 2000 fixtures of ``chip_smoke.py`` phase 29
+(``j2k_more_goldens()``, kept in tests/goldens/; ``chip_smoke.J2K_MORE_FIXTURES``
+holds the sha256 of each file and of the JAX package's ``read_image(...,
+"RGBA")`` pixels of it, or of Pillow's RGB decode for the two 4K files,
+checked by tests/test_torch_jpeg2000_more.py): files coded by Pillow's own
+OpenJPEG 2.5 (``pillow.libs/libopenjp2-*.so*``) through ctypes
+(:func:`j2k_write`, which checks the COD, RGN and POC bytes it writes;
+:func:`j2k_stitch` joins single-component codestreams under COC and QCC),
+and Pillow's ``cinema4k-24`` file.  Remaking them needs that library.
+
 The TIFF writer :func:`make_tiff` (its own LZW and PackBits encoders and
 zlib; strips or tiles, chunky or planar, predictors 2 and 3, either fill
 order, the sample formats of ``MODES``) needs no Pillow: the tests and
@@ -91,6 +101,7 @@ and, to time the port's TIFF decoders against Pillow's on this host at
 from __future__ import annotations
 
 import bisect
+import functools
 import hashlib
 import io
 import re
@@ -1673,10 +1684,20 @@ def main(argv=None) -> None:
                          (cmyk_fixtures(), cmyk_digests), (tiff_jpeg_goldens(), digests),
                          (webp_fixtures(), webp_digests), (other_fixtures(), other_digests),
                          (psd_dds_goldens(), other_digests), (j2k_goldens(), other_digests),
-                         (_arith_goldens(), arith_digests)):
+                         (_arith_goldens(), arith_digests),
+                         (j2k_more_goldens(), _j2k_more_digests)):
         for name, data in made.items():
             (GOLDENS / name).write_bytes(data)
             print(f"    {name!r}: {digest(data)},  # {len(data)} bytes")
+
+
+def _j2k_more_digests(data: bytes) -> tuple[str, str]:
+    """``chip_smoke.J2K_MORE_FIXTURES``' digests of a phase 29 golden: of
+    Pillow's RGB decode for a 4K one, of the JAX package's RGBA read for
+    the others."""
+    at = data.index(b"\xff\x4f\xff\x51") + 8
+    xsiz, ysiz, xo, yo = struct.unpack_from(">IIII", data, at)
+    return (j2k_4k_digest if (xsiz - xo) * (ysiz - yo) >= 3840 * 2160 else other_digests)(data)
 
 
 def _arith_goldens() -> dict[str, bytes]:
@@ -2160,6 +2181,327 @@ def j2k_4k_digest(data: bytes) -> tuple[str, str]:
 
     return hashlib.sha256(data).hexdigest(), rgb_digest(
         np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
+# ---- JPEG 2000 written by Pillow's own OpenJPEG through ctypes (phase 29) -------
+
+_OPJ_PROG = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+# byte offsets into OpenJPEG 2.5's opj_cparameters_t (openjpeg.h), a
+# 148-byte opj_poc_t each in POC[32], and into opj_image_t / opj_image_comp_t
+_CP = dict(tile_size_on=0, cp_tx0=4, cp_ty0=8, cp_tdx=12, cp_tdy=16, cp_disto_alloc=20,
+           csty=48, prog_order=52, POC=56, numpocs=4792, tcp_numlayers=4796, tcp_rates=4800,
+           numresolution=5600, cblockw_init=5604, cblockh_init=5608, mode=5612,
+           irreversible=5616, roi_compno=5620, roi_shift=5624, res_spec=5628, prcw_init=5632,
+           prch_init=5764, image_offset_x0=18188, image_offset_y0=18192, tcp_mct=18698)
+_CP_SIZE = 32768            # more than sizeof(opj_cparameters_t), 18720 on x86-64
+_POC_SIZE, _COMP_SIZE = 148, 64
+_CLRSPC = {"srgb": 1, "gray": 2, "sycc": 3}
+
+
+def openjpeg_library():
+    """The OpenJPEG library bundled with Pillow (the one that decodes for the
+    JAX package), loaded with ctypes, or None where it is not found."""
+    import ctypes  # noqa: PLC0415
+    import glob  # noqa: PLC0415
+    import os  # noqa: PLC0415
+
+    try:
+        import PIL  # noqa: PLC0415
+    except ImportError:
+        return None
+    found = sorted(glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                                          "pillow.libs", "libopenjp2-*.so*")))
+    if not found:
+        return None
+    lib = ctypes.CDLL(found[0])
+    c, p = ctypes, ctypes.c_void_p
+    for name, res, args in (("opj_image_create", p, [c.c_uint32, p, c.c_int]),
+                            ("opj_create_compress", p, [c.c_int]),
+                            ("opj_set_default_encoder_parameters", None, [p]),
+                            ("opj_set_error_handler", c.c_int, [p, p, p]),
+                            ("opj_setup_encoder", c.c_int, [p, p, p]),
+                            ("opj_stream_create_default_file_stream", p, [c.c_char_p, c.c_int]),
+                            ("opj_start_compress", c.c_int, [p, p, p]),
+                            ("opj_encode", c.c_int, [p, p]), ("opj_end_compress", c.c_int, [p, p]),
+                            ("opj_stream_destroy", None, [p]), ("opj_destroy_codec", None, [p]),
+                            ("opj_image_destroy", None, [p])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def _j2k_segment(cs: bytes, at: int) -> bytes:
+    return cs[at + 4:at + 2 + struct.unpack_from(">H", cs, at + 2)[0]]
+
+
+def _j2k_check(cs: bytes, nc: int, want: dict) -> None:
+    """The coding markers OpenJPEG wrote are the ones asked for: COD's Scod,
+    progression and code-block style, RGN, and each tile's POC."""
+    cod = _j2k_segment(cs, cs.index(b"\xff\x52"))
+    assert (cod[0], cod[1], cod[8]) == (want["scod"], want["prog"], want["mode"]), \
+        ("COD", cod.hex(), want)
+    if want["roi"] is not None:
+        c, shift = want["roi"]
+        assert _j2k_segment(cs, cs.index(b"\xff\x5e")) == bytes([c, 0, shift]), "RGN"
+    else:
+        assert b"\xff\x5e" not in cs[:cs.index(b"\xff\x90")], "RGN"
+    pos, tiles = cs.index(b"\xff\x90"), {}
+    while cs[pos:pos + 2] == b"\xff\x90":
+        _l, isot, psot = struct.unpack_from(">HHI", cs, pos + 2)
+        sod = cs.index(b"\xff\x93", pos)
+        hdr, k = cs[pos + 12:sod], 0
+        while k < len(hdr):
+            m, n = struct.unpack_from(">HH", hdr, k)
+            if m == 0xFF5F:
+                tiles[isot] = tiles.get(isot, b"") + hdr[k + 4:k + 2 + n]
+            k += 2 + n
+        pos += psot
+    for t in set(tiles) | set(want["pocs"]):
+        assert tiles.get(t) == want["pocs"].get(t), ("POC", t, tiles.get(t), want["pocs"].get(t))
+
+
+def j2k_write(planes, *, subsampling=None, prec=8, signed=False, origin=(0, 0), tiles=None,
+              numres=6, cblk=(64, 64), prog="LRCP", irreversible=False, mct=False, sop=False,
+              eph=False, mode=0, roi=None, rates=(0.0,), pocs=(), precincts=None, jp2=False,
+              space=None, lib=None) -> bytes:
+    """A codestream (or, ``jp2``, a JP2 file) OpenJPEG codes from int planes
+    (component c at ``subsampling[c]``, the image's extent that of plane 0
+    from ``origin``) with ``opj_encode``: tiles ``((w, h), (x0, y0))``,
+    ``numres`` resolutions, code-blocks ``cblk``, progression ``prog``, the
+    9/7 wavelet, MCT, SOP and EPH markers, the code-block style ``mode``
+    (COD's SPcod byte 8), ``roi`` (component, shift) for RGN, a layer per
+    rate (0: lossless), POC progressions (dicts of ``res0``, ``comp0``,
+    ``lay1``, ``res1``, ``comp1``, ``prg`` and the 1-based ``tile``) and
+    precinct sizes per resolution.  Checks that COD, RGN and POC are the
+    bytes asked for."""
+    import ctypes  # noqa: PLC0415
+    import os  # noqa: PLC0415
+    import tempfile  # noqa: PLC0415
+
+    lib = lib or openjpeg_library()
+    nc = len(planes)
+    subs = list(subsampling or [(1, 1)] * nc)
+    precs = list(prec) if isinstance(prec, (list, tuple)) else [prec] * nc
+    x0, y0 = origin
+    x1, y1 = x0 + planes[0].shape[1] * subs[0][0], y0 + planes[0].shape[0] * subs[0][1]
+    parms = (ctypes.c_uint32 * (9 * nc))()
+    for c, (plane, (dx, dy)) in enumerate(zip(planes, subs)):
+        w, h = -(-x1 // dx) - -(-x0 // dx), -(-y1 // dy) - -(-y0 // dy)
+        assert plane.shape == (h, w), (c, plane.shape, (h, w))
+        parms[9 * c:9 * c + 9] = [dx, dy, w, h, -(-x0 // dx), -(-y0 // dy), precs[c], precs[c],
+                                  int(signed)]
+    space = space or ("srgb" if nc >= 3 else "gray")
+    img = lib.opj_image_create(nc, parms, _CLRSPC[space])
+    (ctypes.c_uint32 * 4).from_address(img)[:] = [x0, y0, x1, y1]
+    comps = ctypes.c_void_p.from_address(img + 24).value
+    kept = []
+    for c, plane in enumerate(planes):
+        a = np.ascontiguousarray(plane, np.int32)
+        kept.append(a)              # alive until the copy is made
+        ctypes.memmove(ctypes.c_void_p.from_address(comps + _COMP_SIZE * c + 48).value,
+                       a.ctypes.data, a.nbytes)
+    par = ctypes.create_string_buffer(_CP_SIZE)
+    lib.opj_set_default_encoder_parameters(par)
+
+    def put(key, v, fmt="<i", k=0):
+        struct.pack_into(fmt, par, _CP[key] + k, v)
+
+    if tiles:
+        (tdx, tdy), (tx0, ty0) = tiles
+        for key, v in (("tile_size_on", 1), ("cp_tx0", tx0), ("cp_ty0", ty0), ("cp_tdx", tdx),
+                       ("cp_tdy", tdy)):
+            put(key, v)
+    scod = (1 if precincts else 0) | (2 if sop else 0) | (4 if eph else 0)
+    put("cp_disto_alloc", 1)
+    put("csty", scod)
+    put("prog_order", _OPJ_PROG[prog])
+    for k, pc in enumerate(pocs):
+        for field, at in (("res0", 0), ("comp0", 4), ("lay1", 8), ("res1", 12), ("comp1", 16),
+                          ("tile", 48)):
+            put("POC", pc.get(field, 1), k=_POC_SIZE * k + at)
+        put("POC", _OPJ_PROG[pc["prg"]], k=_POC_SIZE * k + 32)
+    put("numpocs", len(pocs))
+    put("tcp_numlayers", len(rates))
+    for k, r in enumerate(rates):
+        put("tcp_rates", float(r), "<f", 4 * k)
+    put("numresolution", numres)
+    put("cblockw_init", cblk[0])
+    put("cblockh_init", cblk[1])
+    put("mode", mode)
+    put("irreversible", int(irreversible))
+    if roi:
+        put("roi_compno", roi[0])
+        put("roi_shift", roi[1])
+    if precincts:
+        put("res_spec", len(precincts))
+        for k, (pw, ph) in enumerate(precincts):
+            put("prcw_init", pw, k=4 * k)
+            put("prch_init", ph, k=4 * k)
+    put("image_offset_x0", x0)
+    put("image_offset_y0", y0)
+    put("tcp_mct", int(mct), "<b")
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    msgs = []
+    handler = ctypes.CFUNCTYPE(None, ctypes.c_char_p, ctypes.c_void_p)(
+        lambda m, _d: msgs.append(m.decode().strip()))
+    lib.opj_set_error_handler(codec, handler, None)
+    with tempfile.TemporaryDirectory(prefix="j2k_write_") as tmp:
+        path = os.path.join(tmp, "out").encode()
+        stream = lib.opj_stream_create_default_file_stream(path, 0)
+        ok = (lib.opj_setup_encoder(codec, par, img) and lib.opj_start_compress(codec, img, stream)
+              and lib.opj_encode(codec, stream) and lib.opj_end_compress(codec, stream))
+        lib.opj_stream_destroy(stream)
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(img)
+        if not ok:
+            raise RuntimeError(f"OpenJPEG did not encode: {msgs}")
+        with open(path, "rb") as f:
+            data = f.read()
+    cs = data[data.index(b"\xff\x4f\xff\x51"):]
+    want_pocs = {}
+    for t in range(256):        # OpenJPEG gives tile t the first n POCs, n those of tile t + 1
+        n = sum(pc.get("tile", 1) == t + 1 for pc in pocs)
+        if n:
+            want_pocs[t] = b"".join(struct.pack(">BBHBBB", pc["res0"], pc["comp0"], pc["lay1"],
+                                                pc["res1"], min(pc["comp1"], nc),
+                                                _OPJ_PROG[pc["prg"]]) for pc in pocs[:n])
+    _j2k_check(cs, nc, dict(scod=scod, prog=_OPJ_PROG[prog], mode=mode, roi=roi, pocs=want_pocs))
+    return data
+
+
+def j2k_stitch(streams, tile_coc=(), main_coc_from=None) -> bytes:
+    """One codestream of the components of single-component, one-tile-part
+    CPRL codestreams of one geometry (component c's packets follow component
+    c - 1's in CPRL): SIZ with each one's Ssiz and sub-sampling, COD and QCD
+    of the first, COC and QCC of the others.  A component in ``tile_coc``
+    has its COC in every tile-part header instead, and the main header then
+    a COC made of component ``main_coc_from``'s COD, which the tile's
+    overrides."""
+    parsed = []
+    for cs in streams:
+        pos, main = 2, {}
+        while cs[pos:pos + 2] != b"\xff\x90":
+            main[struct.unpack_from(">H", cs, pos)[0]] = _j2k_segment(cs, pos)
+            pos += 2 + struct.unpack_from(">H", cs, pos + 2)[0]
+        bodies = []
+        while cs[pos:pos + 2] == b"\xff\x90":
+            psot = struct.unpack_from(">I", cs, pos + 6)[0]
+            bodies.append(cs[cs.index(b"\xff\x93", pos) + 2:pos + psot])
+            pos += psot
+        parsed.append((main, bodies))
+
+    def seg(marker, body):
+        return struct.pack(">HH", marker, len(body) + 2) + body
+
+    def coc(c, cod):
+        return seg(0xFF53, bytes([c, cod[0] & 1]) + cod[5:])
+
+    nc = len(streams)
+    siz = parsed[0][0][0xFF51]
+    siz = siz[:34] + struct.pack(">H", nc) + b"".join(m[0xFF51][36:39] for m, _ in parsed)
+    out = b"\xff\x4f" + seg(0xFF51, siz) + seg(0xFF52, parsed[0][0][0xFF52])
+    for c in range(1, nc):
+        if c not in tile_coc:
+            out += coc(c, parsed[c][0][0xFF52])
+        elif main_coc_from is not None:
+            out += coc(c, parsed[main_coc_from][0][0xFF52])
+    out += seg(0xFF5C, parsed[0][0][0xFF5C])
+    out += b"".join(seg(0xFF5D, bytes([c]) + parsed[c][0][0xFF5C]) for c in range(1, nc))
+    for t in range(len(parsed[0][1])):
+        hdr = b"".join(coc(c, parsed[c][0][0xFF52]) for c in tile_coc)
+        body = b"".join(bodies[t] for _, bodies in parsed)
+        out += struct.pack(">HHHIBB", 0xFF90, 10, t, 14 + len(hdr) + len(body), 0, 1) + hdr \
+            + b"\xff\x93" + body
+    return out + b"\xff\xd9"
+
+
+J2K_MORE_4K = ("j2k_cinema4k.jp2", "j2k_4k_bypass_termall.j2k")
+J2K_STYLES = (1, 2, 4, 8, 16, 32, 63)      # each code-block style switch alone, and all six
+
+
+def _planes(rgb: np.ndarray) -> list:
+    return [rgb[..., c].astype(np.int32) for c in range(rgb.shape[-1])]
+
+
+def _j2k_single(plane, **kw) -> bytes:
+    return j2k_write([plane], prog="CPRL", **kw)
+
+
+def j2k_more_goldens(lib=None) -> dict[str, bytes]:
+    """The JPEG 2000 files of phase 29 (kept in tests/goldens/, as the
+    card's machine has neither Pillow nor its OpenJPEG), each coded with
+    what it pins by Pillow's OpenJPEG 2.5: Pillow's ``cinema4k-24`` of the
+    4096x2160 :func:`j2k_ramps` (a POC marker in the main header and a tile
+    part per component); POCs in every tile's header, and three POCs over
+    three layers; SOP and EPH markers over layers and tiles; each code-block
+    style switch alone and all six, 5/3 lossless and 9/7 at rate 3; an RGN
+    marker (max shift 6 on the second component); COC and QCC (components
+    coded apart in CPRL by :func:`j2k_write` and joined by
+    :func:`j2k_stitch`: 5/3, 9/7 with every style switch, 5/3 in bypass with
+    precincts), and COC in every tile-part header over a main-header COC;
+    sub-sampled components (4:2:0 and tiled 4:2:2 codestreams Pillow reads
+    as sYCC, a 4:2:0 JP2 in sYCC, four components with 4:2:0 chroma); and
+    the 3840x2160 levels of ``codec_prog_4k.jpg`` in bypass with every pass
+    terminated, 9/7 at rate 150."""
+    from PIL import Image  # noqa: PLC0415
+
+    import chip_smoke  # noqa: PLC0415
+
+    lib = lib or openjpeg_library()
+    w = functools.partial(j2k_write, lib=lib)
+    small = _planes(levels((48, 64), 41, noise=0.02))
+    mid = _planes(levels((80, 96), 42, noise=0.02))
+    odd = _planes(levels((61, 75), 43, noise=0.02))
+    out = {"j2k_cinema4k.jp2": _save(Image.fromarray(j2k_ramps((2160, 4096))), "JPEG2000",
+                                     cinema_mode="cinema4k-24")}
+    split = [dict(res0=r0, comp0=0, lay1=1, res1=r1, comp1=3, prg=prg, tile=t + 1)
+             for t in range(4) for r0, r1, prg in ((0, 2, "CPRL"), (2, 4, "LRCP"))]
+    out["j2k_poc_tiles.j2k"] = w(mid, numres=4, tiles=((48, 40), (0, 0)), pocs=split)
+    out["j2k_poc_layers.j2k"] = w(mid, numres=4, rates=(40, 12, 0), pocs=[
+        dict(res0=0, comp0=0, lay1=1, res1=4, comp1=3, prg="RPCL"),
+        dict(res0=0, comp0=0, lay1=3, res1=2, comp1=2, prg="RLCP"),
+        dict(res0=0, comp0=0, lay1=3, res1=4, comp1=3, prg="PCRL")])
+    out["j2k_sop_eph.j2k"] = w(mid, numres=3, rates=(30, 8, 0), sop=True, eph=True, mct=True,
+                               tiles=((48, 40), (0, 0)), prog="RPCL")
+    for style in J2K_STYLES:
+        out[f"j2k_style{style}_53.j2k"] = w(small, numres=3, cblk=(16, 16), mode=style, mct=True)
+        out[f"j2k_style{style}_97.j2k"] = w(small, numres=3, cblk=(16, 16), mode=style, mct=True,
+                                            irreversible=True, rates=(3,))
+    out["j2k_rgn.j2k"] = w(mid, numres=3, roi=(1, 6), rates=(20, 0))
+    comps = [_j2k_single(mid[0], numres=4, cblk=(32, 32), tiles=((48, 40), (0, 0)), lib=lib),
+             _j2k_single(mid[1], numres=2, cblk=(8, 16), mode=63, irreversible=True, rates=(6,),
+                         tiles=((48, 40), (0, 0)), lib=lib),
+             _j2k_single(mid[2], numres=4, cblk=(16, 16), mode=1, precincts=[(32, 32), (16, 16)],
+                         tiles=((48, 40), (0, 0)), lib=lib)]
+    out["j2k_coc_qcc.j2k"] = j2k_stitch(comps)
+    out["j2k_tile_coc.j2k"] = j2k_stitch(comps, tile_coc=(1, 2), main_coc_from=0)
+    out["j2k_sub_420.j2k"] = w([mid[0], mid[1][::2, ::2], mid[2][::2, ::2]],
+                               subsampling=[(1, 1), (2, 2), (2, 2)], numres=3)
+    out["j2k_sub_422_tiles.j2k"] = w([odd[0], odd[1][:, ::2], odd[2][:, ::2]],
+                                     subsampling=[(1, 1), (2, 1), (2, 1)], numres=3,
+                                     tiles=((40, 32), (0, 0)))
+    out["j2k_sycc_420.jp2"] = w([mid[0], mid[1][::2, ::2], mid[2][::2, ::2]],
+                                subsampling=[(1, 1), (2, 2), (2, 2)], numres=3, jp2=True,
+                                space="sycc", irreversible=True, rates=(8,))
+    alpha = seeded_alpha(80, 96, 42).astype(np.int32)
+    out["j2k_sub_rgba.j2k"] = w([mid[0], mid[1][::2, ::2], mid[2][::2, ::2], alpha],
+                                subsampling=[(1, 1), (2, 2), (2, 2), (1, 1)], numres=3)
+    big = _planes(levels((chip_smoke.H, chip_smoke.W), 17, noise=0.02))
+    out["j2k_4k_bypass_termall.j2k"] = w(big, mode=5, mct=True, irreversible=True, rates=(150,))
+    return out
+
+
+def j2k_more_names() -> tuple:
+    return ("j2k_cinema4k.jp2", "j2k_poc_tiles.j2k", "j2k_poc_layers.j2k", "j2k_sop_eph.j2k",
+            *(f"j2k_style{s}_{p}.j2k" for s in J2K_STYLES for p in ("53", "97")),
+            "j2k_rgn.j2k", "j2k_coc_qcc.j2k", "j2k_tile_coc.j2k", "j2k_sub_420.j2k",
+            "j2k_sub_422_tiles.j2k", "j2k_sycc_420.jp2", "j2k_sub_rgba.j2k",
+            "j2k_4k_bypass_termall.j2k")
+
+
+def j2k_more_fixtures() -> dict[str, bytes]:
+    """Phase 29's goldens, as tests/goldens/ holds them."""
+    return {name: (GOLDENS / name).read_bytes() for name in j2k_more_names()}
 
 
 # ---- arithmetic-coded JPEG, written by libjpeg (tests/jpeg_arith_writer.c) ------
