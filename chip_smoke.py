@@ -511,7 +511,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    main header, in every tile and over layers; SOP and EPH markers; each
    code-block style switch alone and all six under both wavelets; RGN;
    COC and QCC in the main and tile-part headers; 4:2:0 and 4:2:2
-   components, a sYCC JP2, four components with sub-sampled chroma)
+   components, a sYCC JP2, four components with sub-sampled chroma; and,
+   main path 26, the SOP+EPH golden's packet headers packed into PPM
+   markers (one; three out of order with Z gaps and no SOP segments) and
+   PPT markers (one and two a tile part), and POCs that leave out the
+   highest resolution of all components, of one, and of one tile of two)
    through ``images._decoder`` to ``decode_j2k``, file and pixels equal to
    the JAX package's digests.  (b) Pillow's 4096x2160 ``cinema4k-24`` file
    and a 3840x2160 file in bypass with every pass terminated, decoded (best
@@ -520,6 +524,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``i8@1e-5``, kernels #1-#2 once, its spectrum equal to that of a PNG of
    the same decoded pixels; the int8 kernels are held to their plain
    versions at every shape the phase gave them;
+30. main path 27, g1's header-and-rows rasters read by the port's own
+   code (``io/rasters.py``, ``native/rawimg.cpp``).  (a) Every golden of
+   ``RASTER_FIXTURES`` (FITS at every BITPIX, NAXIS 1 and GZIP_1; Sun
+   rasters at every depth, with colour maps, RGB order and RLE; XBM; XPM;
+   MSP versions 1 and 2; SPIDER of both byte orders and a stack; PIXAR;
+   McIdas at 1, 2 and 4 bytes; XV thumbnail; GBR versions 1 and 2; IMT)
+   through ``images._decoder`` to its decoder, file and pixels equal to the
+   JAX package's digests.  (b) A 3840x2160 24-bit RLE Sun raster and a
+   BITPIX 16 FITS, made here by the fixtures' numpy writers, decoded (best
+   of ``RASTER_REPEATS``, seconds and MB/s) beside phase 26b's plain 4K
+   decodes, file and pixels equal to ``RASTER_4K_DIGESTS``.  (c) ``spec -t
+   flat -G 1000`` of the Sun raster at ``i8@1e-5``, kernels #1-#2 once, its
+   spectrum equal to that of a PNG of the same decoded pixels; the int8
+   kernels are held to their plain versions at every shape the phase gave
+   them;
 
 Prints one JSON line of per-kernel results (launches on the main paths,
 max abs error, ms, plain_ms, bound_ms, bound_by, library_ms), then, as
@@ -6036,6 +6055,141 @@ J2K_MORE_FIXTURES = {
     "j2k_4k_bypass_termall.j2k":
         ("1fa286b6e1ac5a14e92930fc400843d4f2f845f68efea48215ee0fd88ced56d1",
          "a1af61416c2938af8ca083c01a68983aa22c8ecef7f7357fc0a39d6ff8da841d"),
+    "j2k_ppm.j2k":
+        ("be489611db5f04d011339de51b4495186c381961877c2515a7089f618c3fe5e9",
+         "8a74dee5d7166ef2c4bde4fa129dcc4f546cad08798d4122649981c3e80c8e7c"),
+    "j2k_ppm_split.j2k":
+        ("cc6bd0468b35a00205178fb90a697e8ee363e53ff158280dc2ac3169ff1965cc",
+         "8a74dee5d7166ef2c4bde4fa129dcc4f546cad08798d4122649981c3e80c8e7c"),
+    "j2k_ppt.j2k":
+        ("499e5ac9240f97da2bd04fe2bf6d62bfab24fc3dcc97e2ba7c4e8b259c65ec6f",
+         "8a74dee5d7166ef2c4bde4fa129dcc4f546cad08798d4122649981c3e80c8e7c"),
+    "j2k_ppt_split.j2k":
+        ("e8f00eb765352fbcc9313fb05005e14eadab41737e4f232f9b35521861af3f8b",
+         "8a74dee5d7166ef2c4bde4fa129dcc4f546cad08798d4122649981c3e80c8e7c"),
+    "j2k_pocres_all.j2k":
+        ("a4654076958c0ebe78fb351030c60c64033f59705f9a46500019ace47208b1a0",
+         "7e4d8fc2398f33cb9aadb21c0d5170c094e5ab7fa13ce67299c1abe41c2d246f"),
+    "j2k_pocres_one.j2k":
+        ("63f264e83ac1649dd22517596e12cc8518af4ce016a1de00e7a47f7e73c83311",
+         "1d746680b1b1def11c8f710a6edbe4c9ef557c78ae1d40e2ebcdd94e62862c9e"),
+    "j2k_pocres_tiles.j2k":
+        ("67eeacf509e973434136b10f870284bc784011729cd18667bf7ed22029a13a26",
+         "6bcd972598d4862290e0da9434646765d59a09134114275314af1b4b29d3d2b1"),
+}
+# name -> (sha256 of the golden, of the JAX package's read_image(..., "RGBA")
+# float64 pixels); the goldens are written by
+# tests/torch_codec_fixtures.py:raster_goldens (Pillow for XBM, MSP version 1
+# and SPIDER, numpy for the rest) and pinned by tests/test_torch_rasters.py
+RASTER_FIXTURES = {
+    "raster_fits8.fits":
+        ("3365c6430b203fd28cd65d1973eda4391a13b03ccb604c6970dcfd0bc4b51de2",
+         "f50ae1255f2927b8d54fc59813eaf0de672351997788d33ef32e1ca853289e54"),
+    "raster_fits16.fits":
+        ("dfb8f08495afbefad5ed90c4cb802f36638fe9ca1cfc72787bbcb320a25a24ae",
+         "8fa20696e4e86c60476f883c6a02ddd9cca55d5f86ab1b5f70d7d5c50e9860de"),
+    "raster_fits32.fits":
+        ("b96bf1e7e0dbad45a8e0319139988120bc3eaaee0b37e7bfa861a6cb15ac7fec",
+         "bd4711a5e963536029778e1147d0c5883eda8e2b8f86cb1d3ad94135d9cb56f1"),
+    "raster_fitsm32.fits":
+        ("1aff40058d39efd27976e6ef1a7261e1e94b09803d6a3e5f068cee45cb9e0bfc",
+         "b5efc3babcf8a96694d84d0c635b71a8f25c82aa2949edf452b41cc912ff877e"),
+    "raster_fitsm64.fits":
+        ("ffebc17b1ade7df0b722b2c96bf7d56969c7a8e94198b8b9afc9a38ff17544b3",
+         "4e7a4b3963bf92327544fa1576aa0cdcc4473c6e63219f441ff8c98e0bdc3e97"),
+    "raster_fits_naxis1.fits":
+        ("9a7884ae4047db6432bdbd6cbda534bd2cf6d1b7d407f0bbbfc4ea01cf392463",
+         "3665d87bb9e4abc65e77f1abe4b936c6d4c0ff6f1431277b3e5a620a9e08080c"),
+    "raster_fits_gzip16.fits":
+        ("3fa0ade757ffd725bb6218b07074cf51df4af9c256384cc80b27d47f2ef6f60c",
+         "8fa20696e4e86c60476f883c6a02ddd9cca55d5f86ab1b5f70d7d5c50e9860de"),
+    "raster_fits_gzip32.fits":
+        ("9764ad1d1d73bd5858578607f69afa9cba57a72210d8aa1f1374fd57af30b940",
+         "bd4711a5e963536029778e1147d0c5883eda8e2b8f86cb1d3ad94135d9cb56f1"),
+    "raster_sun1.ras":
+        ("6eafdb4f13ad928d2cfadf306ad84e93fe9b4dbb5cba01023e520b5a391e2803",
+         "90abaafd67d1f8038cf8019abe8e1f11a8859923c877bc0e6f3bf5c378e1cc2e"),
+    "raster_sun4.ras":
+        ("b8bd5497f3f51c560a46d71dd229039931c15bccec839dff6acca7f81d29d3bb",
+         "95abae578a85c322d1ca38153c10cc99f225ff8c09068ff269c04a704c9db6c3"),
+    "raster_sun4_map.ras":
+        ("3479ce69b3d0f295241dcf077e14559e75bd0288b7be81b76008d80eb6cb9cc6",
+         "d886e2e25904f4b1de60940a5dea5609e73cd6e1344b6b3e84f5d12910318882"),
+    "raster_sun8.ras":
+        ("7f66794684dbb2dbf5e72b68ddbfcc9bbc1a3e3633aa5d51664ec792389cc72d",
+         "d016923def3b6f6e03ad98a6b972ff48da0633b647643ef653c4311b2e4d2e61"),
+    "raster_sun8_map.ras":
+        ("53ed66fc28b5be99c4427f9c1427fcad8397b64a5a4a475b60e73d3963575e80",
+         "a93f1a17eae83bee3e2a19a1a04ba0124a14100ff8013b11b952baef8f6440f3"),
+    "raster_sun24.ras":
+        ("601c4053ab99bcb87ee7894d0efc8647b29ceee890533ca0791279100baee4f7",
+         "1ceb3138fe1a79968f5d5a063b16b89539ee3ffc0a6aaa11a10de05610673ff3"),
+    "raster_sun24_rgb.ras":
+        ("0d69dddec052008c5b25961b23cf673dd4ab01b7f176205ecae537e21fb7d2ac",
+         "1ceb3138fe1a79968f5d5a063b16b89539ee3ffc0a6aaa11a10de05610673ff3"),
+    "raster_sun32.ras":
+        ("33715699bdcf9c5aa4cab7445f14f7a0760cf1ca3ebc5489c0568575a765821b",
+         "1ceb3138fe1a79968f5d5a063b16b89539ee3ffc0a6aaa11a10de05610673ff3"),
+    "raster_sun_rle8.ras":
+        ("dd17611c60cd34abdce6137561a04424200f81d4b04e8b13dfed9e01076011ca",
+         "8e1b8abfc2916cc76adf230ff06dc782f240fdbf59f993e29c4894ca552c0b9a"),
+    "raster_sun_rle24.ras":
+        ("e4b3e779f75e80273e85ce19bb2669388969e26d3a8277a634df9948461c3de7",
+         "80f6213a899670d21af67bddeb533738151983c7b0744308c82775f91cc8932a"),
+    "raster_xbm.xbm":
+        ("21999aa41be6382dcc6b9ed2d15372043196286236ecadb8b1d4f676f158c5f0",
+         "051609b5b9ad08bd0b70ec3ae31a670474fa19194d20a8605047405ebc0fbc50"),
+    "raster_xbm_hot.xbm":
+        ("222073e45362b7ea83767c8e6cbcdeef719f3971de509096abe59e03f6dd24cc",
+         "72a01640f54e04b3440496a5f2532ec5763740cb8661af511829478a6d31ecb4"),
+    "raster_xpm.xpm":
+        ("206a1b2bc281927fdb55f320a5e38dc9f4ebde11c6662ad22b588b8665f983eb",
+         "0bf44255638480ab63f44fbb109d183761509a5dba13ad9161a505bb474db616"),
+    "raster_xpm_none.xpm":
+        ("3e5136c01fd9e8186e0644b52843da645f08d89f8ad6063f3efc9672e68b4ff8",
+         "0bf44255638480ab63f44fbb109d183761509a5dba13ad9161a505bb474db616"),
+    "raster_xpm_rgb.xpm":
+        ("579be7602caf9f3878252fbe9adf73093b7d8323477f065c3438f79499e40d40",
+         "e2f8b79fa9debeb085f19c423cb60840d9c3db0bb6152b672d41d5e807eca553"),
+    "raster_msp1.msp":
+        ("c56c0b457e0cb74816dd4c579a7115da0e33becf912dbffe400a755306ad068d",
+         "051609b5b9ad08bd0b70ec3ae31a670474fa19194d20a8605047405ebc0fbc50"),
+    "raster_msp2.msp":
+        ("5d9888e9a02c4d2000eacde511acf477ed709942d0883190518106beeb4a3268",
+         "5eb2fa7bc78b4a82386139828a46b368571a5e17914f018cc146852dff3b542e"),
+    "raster_spider.spi":
+        ("531caf1af16dee464d11c224c9f08560c67b2e7cc8d0a2d721d6b4750d85bc3d",
+         "61879f31914a40d45ef80b660281b3bffba0f22b087e773b922251ebdd3e1dd3"),
+    "raster_spider_be.spi":
+        ("e6a3c829b7608fcd65be8086c4c21fce57b59524d2173286c1975c1e960982dc",
+         "61879f31914a40d45ef80b660281b3bffba0f22b087e773b922251ebdd3e1dd3"),
+    "raster_spider_stack.spi":
+        ("1fe757e9801a3afedf6877a998d2640c332a6d44cde7a21adf3b525cbb740f97",
+         "1b4b97add1308782ceea36fe2b19001fbc64e56047f655a1baee9201eebe1a7b"),
+    "raster_pixar.pxr":
+        ("2fc741f23ec556e13f9ec988c7dc51562d66d5fc250cb633bd81bb3833d20815",
+         "1ceb3138fe1a79968f5d5a063b16b89539ee3ffc0a6aaa11a10de05610673ff3"),
+    "raster_mcidas8.area":
+        ("254ccea2707f2087f55f2b182c43c2680aee160e6c7ff2601bc094a5871a0732",
+         "d016923def3b6f6e03ad98a6b972ff48da0633b647643ef653c4311b2e4d2e61"),
+    "raster_mcidas16.area":
+        ("eba7637d53861bb4ca667ad70316d1cae4bc1be72da019b2134af75ed2af2edf",
+         "d1a6b3fe4b199ddea1a06b779bf45896c2c0f9ca4fb16624452ae898732b8491"),
+    "raster_mcidas32.area":
+        ("b2e7909f9564bb39ba9aa61091760b85e9be809185d72ce12926892681312032",
+         "3b12d666aea3b27d377d1641943464360fb2ccfa19591ec6a8c55e3787811509"),
+    "raster_xv.xv":
+        ("774c2f498059874f5cec079addc267a6c645843b1971901abf3ebc97c9db36a9",
+         "e2fb6d4840b958e230703a195946db2db74bd034983ec920e952939b87c5629a"),
+    "raster_gbr1.gbr":
+        ("e40ce163f3eb22e229717ae5634b6ee4a6bba9c397f1264bdf7763f6bb1b3b94",
+         "d016923def3b6f6e03ad98a6b972ff48da0633b647643ef653c4311b2e4d2e61"),
+    "raster_gbr2.gbr":
+        ("afb1156ca5d08bf2c4830d88bdd9dca263a125b04bc90e4757be4c73cf61b962",
+         "059948154620f740c4b4f5a858d85d275bbffd53760aa7b8080439b0ea5acda0"),
+    "raster_imt.imt":
+        ("69bffedaf150606dc6dbfb766ed4d8d876737654946b12102db037c8890cdb8b",
+         "d016923def3b6f6e03ad98a6b972ff48da0633b647643ef653c4311b2e4d2e61"),
 }
 J2K_CINEMA = "j2k_cinema4k.jp2"   # (b), (c): Pillow's cinema4k-24, 4096x2160, a main-header POC
 J2K_BYPASS = "j2k_4k_bypass_termall.j2k"   # (b): 3840x2160, bypass and every pass terminated
@@ -6135,6 +6289,133 @@ def _j2k_more_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, plain_4k_
             check_i8mm(nd, layout, m, k, b, r, f"jpeg2000 more {layout}{nd} {m}x{k}")
     wall = time.perf_counter() - t_phase
     print(f"phase 29 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
+    return {"launches": count.total, "shapes": sorted(count.shapes)}
+
+
+# phase 30: main path 27, g1's header-and-rows rasters read by the port's own code
+# (io/rasters.py): FITS, Sun raster, XBM, XPM, MSP, SPIDER, PIXAR, McIdas, XV
+# thumbnail, GBR and IMT; the 4K files are made here by the fixtures' numpy
+# writers.  kind -> (sha256 of fx.raster_4k(kind), of the JAX package's
+# read_image(..., "RGB") float64 pixels), pinned by tests/test_torch_rasters.py
+RASTER_4K_DIGESTS = {
+    "sun": ("c117d071e9923918f23ec250a1f7acfec6ed3b64490dc593a714fa6c40107b77",
+            "cef2c0a00d1843f482d2deeca366b8f9d2099f288928db0dc6808fc78cdbb9d2"),
+    "fits": ("1915397f69abfc4e34d86254f9f51d3dcbd9dcb2402fe047d9b16751c3edc3f2",
+             "572a9110fbd725103061bf450ff9fddfda220b5bdcf9c776892fa5853ebb6b30"),
+}
+RASTER_REPEATS = 2                # (b): the 4K decodes, best of
+# a golden's extension -> its decoder in io/rasters.py
+RASTER_DECODERS = {"fits": "decode_fits", "ras": "decode_sun", "xbm": "decode_xbm",
+                   "xpm": "decode_xpm", "msp": "decode_msp", "spi": "decode_spider",
+                   "pxr": "decode_pixar", "area": "decode_mcidas", "xv": "decode_xvthumb",
+                   "gbr": "decode_gbr", "imt": "decode_imt"}
+
+
+def _raster_decoder(rasters, name: str):
+    return getattr(rasters, RASTER_DECODERS[name.rsplit(".", 1)[1]])
+
+
+def _raster_phase(torch, dev, int8mm, block_filter, check_i8mm, fft, plain_4k_s=None,
+                  device_args=()) -> dict:
+    """Main path 27: g1's header-and-rows rasters through the port's own
+    code (``io/rasters.py``, its RLE and hex loops in
+    ``native/rawimg.cpp``).  (a) Every golden of ``RASTER_FIXTURES`` (each
+    kind and variant) through ``images._decoder`` to its decoder, file and
+    pixels equal to the JAX package's digests; (b) a 3840x2160 24-bit
+    type-2 (RLE) Sun raster and a BITPIX 16 FITS made here by the
+    fixtures' numpy writers, decoded (best of ``RASTER_REPEATS``) beside
+    phase 26b's plain 4K JPEG 2000 decodes (``plain_4k_s``), files and
+    ``read_image`` pixels equal to ``RASTER_4K_DIGESTS``; (c) spec of the
+    Sun file at ``i8@1e-5``: kernels #1-#2 once each, its spectrum equal to
+    that of a PNG of the same decoded pixels.  Returns the kernels'
+    launches over the run of the Sun file and their shapes."""
+    import hashlib
+
+    from dspfun_tpu_torch.io import images, rasters
+    from dspfun_tpu_torch.tools import spec
+
+    fx = _fixtures_module()
+    count = _Launches(torch, int8mm, block_filter)
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_phase = time.perf_counter()
+    made = fx.raster_fixtures()
+    if sorted(made) != sorted(RASTER_FIXTURES):
+        raise RuntimeError(f"phase 30a: the goldens are not {sorted(RASTER_FIXTURES)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rasters_") as tmp:
+        # ---- (a) the goldens to the JAX package's digests --------------------------
+        for name, data in made.items():
+            decoder = _raster_decoder(rasters, name)
+            if images._decoder(data) is not decoder:
+                raise RuntimeError(f"phase 30a: {name} does not take {decoder.__name__}")
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            img = images.read_image(path, channels="RGBA")
+            dec_s = time.perf_counter() - t0
+            got = (sha(data), fx.rgba_digest(img.pixels))
+            print(f"phase 30a {name} {img.width}x{img.height} depth {img.depth}: {len(data)} "
+                  f"bytes; read {dec_s:.4f} s; file and pixels == the JAX package's digests: "
+                  f"{got == RASTER_FIXTURES[name]}", flush=True)
+            if got != RASTER_FIXTURES[name]:
+                raise RuntimeError(f"phase 30a: {name} is not read as Pillow reads it: {got}")
+
+        # ---- (b) the 4K files made here, decoded beside phase 26b's --------------------
+        t0 = time.perf_counter()
+        picture = fx.raster_picture()
+        files = {kind: fx.raster_4k(kind, picture) for kind in RASTER_4K_DIGESTS}
+        print(f"phase 30b the 4K files made by the numpy writers: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        decoded = {}
+        for kind, data in files.items():
+            decode = rasters.decode_sun if kind == "sun" else rasters.decode_fits
+            best = float("inf")
+            for _ in range(RASTER_REPEATS):
+                t0 = time.perf_counter()
+                arr, depth = decode(data)
+                best = min(best, time.perf_counter() - t0)
+            decoded[kind] = arr
+            path = os.path.join(tmp, f"4k_{kind}")
+            with open(path, "wb") as f:
+                f.write(data)
+            got = (sha(data), fx.rgba_digest(images.read_image(path, channels="RGB").pixels))
+            print(f"phase 30b {kind} {arr.shape[1]}x{arr.shape[0]}x{arr.shape[2]} depth {depth} "
+                  f"({len(data)} bytes): decode {best:.4f} s (best of {RASTER_REPEATS}), "
+                  f"{len(data) / 1e6 / best:.1f} MB/s of file, "
+                  f"{arr.nbytes / 1e6 / best:.1f} MB/s of samples; phase 26b's plain 4K "
+                  f"decodes {json.dumps(plain_4k_s)}; file and pixels == the JAX package's "
+                  f"digests: {got == RASTER_4K_DIGESTS[kind]}", flush=True)
+            if got != RASTER_4K_DIGESTS[kind]:
+                raise RuntimeError(f"phase 30b: the 4K {kind} file is not read as Pillow reads "
+                                   f"it: {got}")
+
+        # ---- (c) spec of the Sun file against the same levels as a PNG ------------------
+        src = os.path.join(tmp, "4k_sun")
+        arr = decoded["sun"]
+        ref = os.path.join(tmp, "ref.png")
+        images.write_image(ref, arr / 255.0)
+        sh, sw = arr.shape[:2]
+        spec_i8 = {n: 1 for n, side in (("left3", sh), ("right3", sw)) if side >= 256}
+        out = {k: os.path.join(tmp, f"spec_{k}.png") for k in ("ref", "sun")}
+        with _policy("i8@1e-5"):
+            for name, inp in (("ref", ref), ("sun", src)):
+                fn = lambda inp=inp, o=out[name]: _run_tool(  # noqa: E731
+                    torch, spec, list(device_args) + ["-t", "flat", "-G", "1000", inp, o], int8mm)
+                (wall, stages, got), _ = count.run(fn, into=name == "sun")
+                print(f"phase 30c spec {name} {sw}x{sh} at i8@1e-5: {wall:.3f} s; stages "
+                      f"{_stages(stages)}; launches {json.dumps(got)}", flush=True)
+                if got != spec_i8:
+                    raise RuntimeError(f"phase 30c spec {name} launched {got}, expected {spec_i8}")
+        with open(out["ref"], "rb") as a, open(out["sun"], "rb") as b:
+            ok = a.read() == b.read()
+        print(f"phase 30c spectrum from the Sun raster == from the PNG: {ok}", flush=True)
+        if not ok:
+            raise RuntimeError("phase 30c: the Sun raster's spectrum differs from the PNG's")
+    if check_i8mm is not None:
+        for nd, layout, m, k, b, r in sorted(count.shapes):
+            check_i8mm(nd, layout, m, k, b, r, f"rasters {layout}{nd} {m}x{k}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 30 {wall:.1f} s; launches {json.dumps(count.total)}", flush=True)
     return {"launches": count.total, "shapes": sorted(count.shapes)}
 
 
@@ -6526,6 +6807,13 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the JPEG 2000 rest path never launched: "
                            f"{j2k_more_path}")
 
+    # ---- phase 30: main path 27, g1's rasters (FITS, Sun, XBM, XPM, MSP, SPIDER, ...) --
+    torch.cuda.empty_cache()
+    raster_path = _raster_phase(torch, dev, int8mm, block_filter, check_i8mm, scipy.fft,
+                                plain_4k_s=j2k["decode_4k_s"])["launches"]
+    if not (raster_path.get("left3") and raster_path.get("right3")):
+        raise RuntimeError(f"a kernel of the raster path never launched: {raster_path}")
+
     kernels = [{"name": f"i8mm_{n}", "route": "cuda", "source": SRC,
                 "replaces": REPLACES[n],
                 "launches": (launches[n] + motion_launches.get(n, 0)
@@ -6539,7 +6827,8 @@ def main() -> int:
                              + other_path.get(n, 0) + zstd_path.get(n, 0)
                              + short_path.get(n, 0) + psd_path.get(n, 0)
                              + j2k_path.get(n, 0) + arith_path.get(n, 0)
-                             + ojpeg_path.get(n, 0) + j2k_more_path.get(n, 0)),
+                             + ojpeg_path.get(n, 0) + j2k_more_path.get(n, 0)
+                             + raster_path.get(n, 0)),
                 "launches_by_path": {"4k_chain": launches[n],
                                      "motion": motion_launches.get(n, 0),
                                      "calibration": calib["i8mm_launches"][n],
@@ -6563,7 +6852,8 @@ def main() -> int:
                                      "jpeg2000": j2k_path.get(n, 0),
                                      "arith_jpeg": arith_path.get(n, 0),
                                      "ojpeg_tiff": ojpeg_path.get(n, 0),
-                                     "jpeg2000_more": j2k_more_path.get(n, 0)},
+                                     "jpeg2000_more": j2k_more_path.get(n, 0),
+                                     "rasters": raster_path.get(n, 0)},
                 **{key: stats[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "by_shape")}}
                for n in REPLACES]
@@ -6604,7 +6894,8 @@ def main() -> int:
                                  + j2k_path.get("block_filter", 0)
                                  + arith_path.get("block_filter", 0)
                                  + ojpeg_path.get("block_filter", 0)
-                                 + j2k_more_path.get("block_filter", 0)),
+                                 + j2k_more_path.get("block_filter", 0)
+                                 + raster_path.get("block_filter", 0)),
                     "launches_by_path": {"motion": motion_launches["block_filter"],
                                          "motion_eval": eval_cli["block_filter"],
                                          "mesh": mesh_path["launches"].get("block_filter", 0),
@@ -6623,7 +6914,8 @@ def main() -> int:
                                          "jpeg2000": j2k_path.get("block_filter", 0),
                                          "arith_jpeg": arith_path.get("block_filter", 0),
                                          "ojpeg_tiff": ojpeg_path.get("block_filter", 0),
-                                         "jpeg2000_more": j2k_more_path.get("block_filter", 0)},
+                                         "jpeg2000_more": j2k_more_path.get("block_filter", 0),
+                                         "rasters": raster_path.get("block_filter", 0)},
                     **bf_stats,
                     **{f"mesh_shard_{key}": val for key, val in
                        mesh_path["shard_stats"]["block_filter"].items()}})

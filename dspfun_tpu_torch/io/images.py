@@ -68,8 +68,6 @@ test_torch_other_formats.py pin the rest to the original.
 from __future__ import annotations
 
 import dataclasses
-import math
-import re
 import struct
 import sys
 
@@ -85,6 +83,7 @@ from dspfun_tpu_torch.io import jpeg as _jpeg
 from dspfun_tpu_torch.io import jpeg2000 as _jpeg2000
 from dspfun_tpu_torch.io import png as _png
 from dspfun_tpu_torch.io import psd as _psd
+from dspfun_tpu_torch.io import rasters as _rasters
 from dspfun_tpu_torch.io import rawimg as _rawimg
 from dspfun_tpu_torch.io import sixel as _sixel
 from dspfun_tpu_torch.io import webp as _webp
@@ -116,54 +115,10 @@ _NAMED_WRITERS = {"SGI": _rawimg.encode_sgi, "IM": _rawimg.encode_im}
 _CV2_WRITERS = {"WEBP": ".webp"}
 
 
-def _spider(d: bytes) -> bool:
-    """``SpiderImageFile._open``'s header test: 27 floats of either byte
-    order whose integer fields agree, iform 1 (a 2-D image)."""
-    if len(d) < 108:
-        return False
-    for order in ">", "<":
-        h = (99.0, *struct.unpack(order + "27f", d[:108]))
-        if not all(math.isfinite(h[i]) and h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
-            continue
-        if int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]):
-            return int(h[5]) == 1
-    return False
-
-
 def _u32(d: bytes, o: int, order: str = "<") -> int:
     if len(d) < o + 4:
         raise _rawimg.Skip("short header")
     return struct.unpack_from(order + "I", d, o)[0]
-
-
-def _gbr(d: bytes) -> bool:
-    """``GbrImageFile._open``'s header checks."""
-    if not (len(d) >= 8 and _u32(d, 0, ">") >= 20 and _u32(d, 4, ">") in (1, 2)):
-        return False
-    w, h, depth = (_u32(d, o, ">") for o in (8, 12, 16))
-    return w > 0 and h > 0 and depth in (1, 4) and (_u32(d, 4, ">") == 1 or d[20:24] == b"GIMP")
-
-
-def _imt(d: bytes) -> bool:
-    """``ImtImageFile._open``: leading ``key value`` lines that give a
-    width, a height and ``pixel n8``."""
-    if b"\n" not in d[:100]:
-        return False
-    w = h = 0
-    gray = False
-    for line in d.split(b"\n"):
-        if not line or line[:1] == b"\x0c" or len(line) == 1 or len(line) > 100:
-            break
-        if line[:1] == b"*":
-            continue
-        m = re.match(rb"([a-z]*) ([^ \r\n]*)", line)
-        if not m:
-            break
-        k, v = m.group(1, 2)
-        if k in (b"width", b"height"):
-            w, h = (int(v), h) if k == b"width" else (w, int(v))
-        gray |= k == b"pixel" and v == b"n8"
-    return gray and w > 0 and h > 0
 
 
 def _iptc(d: bytes) -> bool:
@@ -193,8 +148,8 @@ def _iptc(d: bytes) -> bool:
             break
         info[tag] = d[pos:pos + size] if size else None
         pos += len(info[tag] or b"")
-    if (3, 60) not in info:
-        raise ValueError("cannot identify image file (an IPTC record without its (3, 60) field)")
+    if (3, 60) not in info:     # Pillow's KeyError: the next plugin is tried
+        raise _rawimg.Skip("an IPTC record without its (3, 60) field")
     return isinstance(info[(3, 60)], bytes) and len(info[(3, 60)]) >= 2
 
 
@@ -282,32 +237,32 @@ _PILLOW_ORDER = (
     ("DCX", _ported(_rawimg.open_dcx, _rawimg.decode_dcx)),
     ("DDS", _ported(_dds.open_dds, _dds.decode_dds)),
     ("EPS", _refused("EPS", lambda d: d.startswith((b"%!PS", b"\xc5\xd0\xd3\xc6")))),
-    ("FITS", _refused("FITS", lambda d: d.startswith(b"SIMPLE"))),
+    ("FITS", _ported(_rasters.open_fits, _rasters.decode_fits)),
     ("FLI", _refused("FLI", lambda d: len(d) >= 22 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
                      and d[14:16] in (b"\0\0", b"\3\0") and d[20:22] == b"\0\0")),
     ("FTEX", _refused("FTEX", lambda d: d.startswith(b"FTEX"))),
-    ("GBR", _refused("GBR", _gbr)),
+    ("GBR", _ported(_rasters.open_gbr, _rasters.decode_gbr)),
     ("JPEG 2000", _ported(_jpeg2000.open_j2k, _jpeg2000.decode_j2k)),
     ("ICNS", _refused("ICNS", lambda d: d.startswith(b"icns"))),
     ("ICO", _ported(_ico.decode_ico, _ico.decode_ico)),  # Pillow decodes inside its open
     ("IM", _ported(_rawimg.open_im, _rawimg.decode_im)),
-    ("IMT", _refused("IMT", _imt)),
+    ("IMT", _ported(_rasters.open_imt, _rasters.decode_imt)),
     ("IPTC", _refused("IPTC", _iptc)),
-    ("McIdas", _refused("McIdas", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4"))),
+    ("McIdas", _ported(_rasters.open_mcidas, _rasters.decode_mcidas)),
     ("TIFF", _tiff_claim),
-    ("MSP", _refused("MSP", lambda d: d.startswith((b"DanM", b"LinS")))),
+    ("MSP", _ported(_rasters.open_msp, _rasters.decode_msp)),
     ("PCD", _refused("PCD", lambda d: d[2048:2052] == b"PCD_")),
-    ("PIXAR", _refused("PIXAR", lambda d: d.startswith(b"\x80\xe8\0\0"))),
+    ("PIXAR", _ported(_rasters.open_pixar, _rasters.decode_pixar)),
     ("PSD", _ported(_psd.open_psd, _psd.decode_psd)),
     ("QOI", _ported(_rawimg.open_qoi, _rawimg.decode_qoi)),
     ("SGI", _ported(_rawimg.open_sgi, _rawimg.decode_sgi)),
-    ("SPIDER", _refused("SPIDER", _spider)),
-    ("Sun raster", _refused("Sun raster", lambda d: d.startswith(b"\x59\xa6\x6a\x95"))),
+    ("SPIDER", _ported(_rasters.open_spider, _rasters.decode_spider)),
+    ("Sun raster", _ported(_rasters.open_sun, _rasters.decode_sun)),
     ("TGA", _ported(_rawimg.open_tga, _rawimg.decode_tga)),
     ("WEBP", _webp_claim),
-    ("XBM", _refused("XBM", lambda d: d[:16].lstrip().startswith(b"#define"))),
-    ("XPM", _refused("XPM", lambda d: d.startswith(b"/* XPM */"))),
-    ("XV thumbnail", _refused("XV thumbnail", lambda d: d.startswith(b"P7 332"))),
+    ("XBM", _ported(_rasters.open_xbm, _rasters.decode_xbm)),
+    ("XPM", _ported(_rasters.open_xpm, _rasters.decode_xpm)),
+    ("XV thumbnail", _ported(_rasters.open_xvthumb, _rasters.decode_xvthumb)),
 )
 # Pillow 12.1's save formats that the port does not write, refused
 # naming item 8h before anything is read or written

@@ -22,22 +22,26 @@ Pillow.
   markers in order as OpenJPEG applies them: COD and QCD set every
   component and COC and QCC one (so a tile's override the main header's,
   and a COD after a COC undoes it), RGN a component's max-shift ROI, POC
-  progressions appended to those read before; the tiles through
-  ``native/j2k.cpp`` (``j2k_decode``: tier-2 with SOP and EPH markers and
-  the POC progressions, tier-1 under every code-block style switch, the
-  5/3 or 9/7 inverse wavelet, the RCT or ICT, the level shift and clamp;
-  built at first use by ``_hostbuild.py``); then Pillow's unpacker of the
-  mode and colour space (``j2ku_*``: each component's samples shifted to
-  8 or 16 bits with its rounding offset and wrapped to them, sYCC through
-  Pillow's YCbCr -> RGB tables; a raw codestream with full-size luma and
-  sub-sampled chroma taken as sYCC, as Pillow guesses; sub-sampled planes
-  laid out tile by tile as Pillow reads them, :func:`_pillow_tiles`), and
-  what ``convert("RGBA")`` (or ``convert("I")`` for ``I;16``) makes of the
-  mode: CMYK through ``cmyk2rgb``, palettes expanded.
+  progressions appended to those read before; packed packet headers as
+  OpenJPEG joins them (:func:`_merge_ppm`: PPM markers in Zppm order, one
+  stream of headers over the tiles in their decoding order, the Nppm
+  lengths only checked; PPT markers per tile in Zppt order); the tiles
+  through ``native/j2k.cpp`` (``j2k_decode``: tier-2 with SOP and EPH
+  markers, the packed headers and the POC progressions, tier-1 under every
+  code-block style switch, the 5/3 or 9/7 inverse wavelet up to the
+  highest resolution each component read a packet of, the RCT or ICT, the
+  level shift and clamp; built at first use by ``_hostbuild.py``); then
+  Pillow's unpacker of the mode and colour space (``j2ku_*``: each
+  component's samples shifted to 8 or 16 bits with its rounding offset and
+  wrapped to them, sYCC through Pillow's YCbCr -> RGB tables; a raw
+  codestream with full-size luma and sub-sampled chroma taken as sYCC, as
+  Pillow guesses; sub-sampled planes, and planes OpenJPEG hands over below
+  their full size, laid out tile by tile as Pillow reads them,
+  :func:`_pillow_tiles`), and what ``convert("RGBA")`` (or
+  ``convert("I")`` for ``I;16``) makes of the mode: CMYK through
+  ``cmyk2rgb``, palettes expanded.
 * **Refused, naming item 8h**, with or without cv2 (no JPEG 2000 file
-  reaches it): PPM and PPT (packed packet headers), HT code-blocks, and
-  POC progressions that leave a component's highest resolution without a
-  packet (OpenJPEG then hands Pillow a smaller plane).
+  reaches it): HT code-blocks.
 """
 
 from __future__ import annotations
@@ -81,8 +85,8 @@ def _load() -> ctypes.CDLL:
     lib = _hostbuild.load_library("j2k")
     c = ctypes
     lib.j2k_decode.restype = c.c_int
-    lib.j2k_decode.argtypes = [c.c_char_p, c.c_int64, c.c_void_p, c.c_void_p, c.c_char_p,
-                               c.c_int]
+    lib.j2k_decode.argtypes = [c.c_char_p, c.c_int64, c.c_char_p, c.c_int64, c.c_void_p,
+                               c.c_void_p, c.c_void_p, c.c_char_p, c.c_int]
     return lib
 
 
@@ -509,19 +513,60 @@ def _poc(seg: bytes, tcp: dict) -> None:
 
 
 _MARKERS = {_COD: _cod, _COC: _coc, _QCD: _qcd, _QCC: _qcc, _RGN: _rgn, _POC: _poc}
-_REFUSED = {_PPM: "a PPM marker (packed packet headers)",
-            _PPT: "a PPT marker (packed packet headers)"}
 
 
-def _read_markers(segs: list, tcp: dict) -> None:
+def _packed(seg: bytes, store: dict, what: str) -> None:
+    """``opj_j2k_read_ppm`` and ``opj_j2k_read_ppt``: the segment's data
+    kept under its Z index (one marker an index)."""
+    if len(seg) < 2:
+        raise ValueError(f"JPEG 2000: a short {what} marker")
+    if seg[0] in store:
+        raise ValueError(f"JPEG 2000: a second {what} marker of index {seg[0]}")
+    store[seg[0]] = seg[1:]
+
+
+def _read_markers(segs: list, tcp: dict, packed: dict, main: bool) -> None:
     """The coding markers of a header in their order, as OpenJPEG reads
     them: a COD or QCD sets every component and a later COC or QCC one of
-    them, so a tile's markers override the main header's."""
+    them, so a tile's markers override the main header's.  PPM markers
+    (main header only) and PPT markers (tile-part headers only, and none
+    after a PPM) go into ``packed`` by their index."""
     for m, seg in segs:
-        if m in _REFUSED:
-            raise _png.refusal(f"JPEG 2000 with {_REFUSED[m]}", "h")
-        if m in _MARKERS:
+        if m in (_PPM, _PPT):
+            if (m == _PPM) != main:
+                raise ValueError(f"JPEG 2000: a {'PPM' if m == _PPM else 'PPT'} marker in the "
+                                 f"{'main' if main else 'tile-part'} header")
+            if m == _PPT and tcp["ppm"]:
+                raise ValueError("JPEG 2000: a PPT marker after PPM markers")
+            _packed(seg, packed, "PPM" if m == _PPM else "PPT")
+        elif m in _MARKERS:
             _MARKERS[m](seg, tcp)
+
+
+def _merge_ppm(markers: dict) -> bytes:
+    """``opj_j2k_merge_ppm``: the PPM markers' data in Zppm order (gaps
+    allowed), each Nppm a 4-byte length whose Ippm run may go on into the
+    next markers, joined without the lengths into one stream of packet
+    headers (an Nppm split between markers, or one longer than the data
+    left, raises as OpenJPEG's "Not enough bytes to read Nppm" and
+    "Corrupted PPM markers" do)."""
+    out, remaining = [], 0
+    for z in sorted(markers):
+        data = markers[z]
+        take = min(remaining, len(data))
+        out.append(data[:take])
+        data, remaining = data[take:], remaining - take
+        while data:
+            if len(data) < 4:
+                raise ValueError("JPEG 2000: not enough bytes to read Nppm (Pillow: broken data "
+                                 "stream)")
+            n = struct.unpack_from(">I", data)[0]
+            out.append(data[4:4 + n])
+            remaining = max(0, n - (len(data) - 4))
+            data = data[4 + n:]
+    if remaining:
+        raise ValueError("JPEG 2000: corrupted PPM markers (Pillow: broken data stream)")
+    return b"".join(out)
 
 
 def _copy_tcp(tcp: dict) -> dict:
@@ -551,15 +596,17 @@ def _main_header(cs: bytes) -> dict:
     if (xt == 0 or yt == 0 or xo >= xsiz or yo >= ysiz or xto > xo or yto > yo
             or xto + xt <= xo or yto + yt <= yo):
         raise ValueError("JPEG 2000: a SIZ marker of bad values")
-    tcp = dict(csty=0, prog=0, layers=0, mct=0, pocs=None, cod=False, qcd=False,
+    ppm = {}
+    tcp = dict(csty=0, prog=0, layers=0, mct=0, pocs=None, cod=False, qcd=False, ppm=False,
                comps=[dict(csty=0, roishift=0) for _ in comps])
-    _read_markers(segs[1:], tcp)
+    _read_markers(segs[1:], tcp, ppm, main=True)
+    tcp["ppm"] = bool(ppm)
     if not tcp["cod"] or not tcp["qcd"]:
         raise ValueError("JPEG 2000: no COD or QCD marker in the main header")
     ntx, nty = -(-(xsiz - xto) // xt), -(-(ysiz - yto) // yt)
     if ntx * nty > 65535:
         raise ValueError("JPEG 2000: more than 65535 tiles")
-    tiles = {}
+    tiles, done = {}, []
     while True:
         if pos + 2 > len(cs):
             raise ValueError("JPEG 2000: the codestream ends before its EOC marker (Pillow: "
@@ -569,7 +616,7 @@ def _main_header(cs: bytes) -> dict:
             break
         if m != _SOT or pos + 12 > len(cs):     # (a codestream without EOC too)
             raise ValueError("JPEG 2000: expected a tile part (Pillow: broken data stream)")
-        lsot, isot, psot, _tpsot, _tnsot = struct.unpack_from(">HHIBB", cs, pos + 2)
+        lsot, isot, psot, tpsot, tnsot = struct.unpack_from(">HHIBB", cs, pos + 2)
         if lsot != 10 or isot >= ntx * nty:
             raise ValueError("JPEG 2000: a bad SOT marker")
         start = pos
@@ -578,13 +625,24 @@ def _main_header(cs: bytes) -> dict:
         if end > len(cs) or end < pos + 2:
             raise ValueError("JPEG 2000: a tile part longer than the codestream (Pillow: broken "
                              "data stream)")
-        tile = tiles.setdefault(isot, {"tcp": _copy_tcp(tcp), "body": []})
-        _read_markers(tsegs, tile["tcp"])
+        tile = tiles.setdefault(isot, {"tcp": _copy_tcp(tcp), "body": [], "ppt": {}})
+        _read_markers(tsegs, tile["tcp"], tile["ppt"], main=False)
         tile["body"].append(cs[pos + 2:end])
+        if tnsot and tpsot + 1 == tnsot and isot not in done:
+            done.append(isot)
         pos = end
+    # OpenJPEG decodes a tile when its last tile part (by TNsot) is read,
+    # and the rest at the end in index order: the order the PPM stream's
+    # headers are read in
+    order = done + sorted(t for t in tiles if t not in done)
+    tiles = {t: tiles[t] for t in order}
+    for tile in tiles.values():
+        ppt = tile.pop("ppt")
+        tile["heads"] = b"".join(ppt[z] for z in sorted(ppt)) if ppt else None
     return dict(size=(xsiz, ysiz), origin=(xo, yo), tile_size=(xt, yt), tile_origin=(xto, yto),
                 ntiles=(ntx, nty), comps=[((c[0] & 0x7F) + 1, c[0] >> 7) for c in comps],
-                subsampling=[(c[1], c[2]) for c in comps], tiles=tiles)
+                subsampling=[(c[1], c[2]) for c in comps], tiles=tiles,
+                ppm=_merge_ppm(ppm) if ppm else None)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -604,10 +662,15 @@ def _tile_boxes(head: dict) -> list:
     return out
 
 
-def _samples(head: dict, packed: bool) -> np.ndarray:
+def _samples(head: dict, packed: bool) -> tuple[np.ndarray, np.ndarray, bool]:
     """The components' decoded samples: int32 [C, H, W] over the image area
-    (a tile with no tile part left at 0, as Pillow's image is), or, packed,
-    each tile's tile-components one after another at their own sizes."""
+    (a tile with no tile part left at 0, as Pillow's image is), or, packed
+    (always where ``packed``, else where a component is decoded below its
+    highest resolution, in the [C, H, W] array's memory), each tile's
+    tile-components one after another, each at the size of the highest
+    resolution its tile read a packet of; those resolutions, int32 [tiles,
+    C] (the tiles in ``head["tiles"]``'s order); and whether the samples
+    are packed."""
     (xsiz, ysiz), (xo, yo) = head["size"], head["origin"]
     comps, subs = head["comps"], head["subsampling"]
     nc, w, h = len(comps), xsiz - xo, ysiz - yo
@@ -615,14 +678,24 @@ def _samples(head: dict, packed: bool) -> np.ndarray:
     hdr = [nc, xo, yo, w, h, len(head["tiles"]), 0, int(packed)]
     for (prec, sgnd), (dx, dy) in zip(comps, subs):
         hdr += [prec, sgnd, dx, dy]
-    bodies, off, total = [], 0, 0
+    ppm = head["ppm"]
+    heads = [ppm] if ppm is not None else []
+    bodies, off, hoff, total = [], 0, len(ppm or b""), 0
     for t, box in boxes:
         tile = head["tiles"][t]
         tcp = tile["tcp"]
         body = b"".join(tile["body"])
         pocs = tcp["pocs"] or []
+        if ppm is not None:
+            where = [2, 0, len(ppm)]
+        elif tile["heads"] is not None:
+            where = [1, hoff, len(tile["heads"])]
+            heads.append(tile["heads"])
+            hoff += len(tile["heads"])
+        else:
+            where = [0, 0, 0]
         hdr += [*box, off, len(body), tcp["prog"], tcp["layers"], tcp["mct"], tcp["csty"],
-                len(pocs)]
+                *where, len(pocs)]
         for pc in pocs:
             hdr += pc
         for comp, (dx, dy) in zip(tcp["comps"], subs):
@@ -634,17 +707,17 @@ def _samples(head: dict, packed: bool) -> np.ndarray:
         bodies.append(body)
         off += len(body)
     out = np.zeros(total if packed else (nc, h, w), np.int32)
+    resdec = np.zeros((len(boxes), nc), np.int32)
     if not head["tiles"]:
-        return out
+        return out, resdec, bool(packed)
     params = np.asarray(hdr, np.int32)
     err = ctypes.create_string_buffer(256)
-    body = b"".join(bodies)
-    rc = _load().j2k_decode(body, len(body), params.ctypes.data, out.ctypes.data, err, 256)
-    if rc == 2:
-        raise _png.refusal(f"JPEG 2000 with {err.value.decode()}", "h")
-    if rc:
+    body, packed_heads = b"".join(bodies), b"".join(heads)
+    rc = _load().j2k_decode(body, len(body), packed_heads, len(packed_heads), params.ctypes.data,
+                            out.ctypes.data, resdec.ctypes.data, err, 256)
+    if rc not in (0, 4):
         raise ValueError(f"JPEG 2000: {err.value.decode()} (Pillow: broken data stream)")
-    return out
+    return (out.reshape(-1) if rc else out), resdec, rc == 4
 
 
 def _shift(word: np.ndarray, prec: int, sgnd: int, bits: int) -> np.ndarray:
@@ -674,55 +747,68 @@ def _unpack(v: np.ndarray, prec: int, sgnd: int, bits: int) -> np.ndarray:
     return _shift(v.astype(np.int64) & ((1 << (8 * _csiz(prec))) - 1), prec, sgnd, bits)
 
 
-# Pillow's unpackers that take sub-sampled components, and their channels
-_SUBSAMPLING = {"rgb": 3, "ycc": 3, "rgba": 4, "ycca": 4}
+# Pillow's unpackers that take sub-sampled components; the components each
+# unpacker reads
+_SUBSAMPLING = ("rgb", "ycc", "rgba", "ycca")
+_READS = {"l": 1, "i": 1, "gray_rgb": 1, "la": 2, "rgb": 3, "ycc": 3, "rgba": 4, "ycca": 4}
 
 
-def _pillow_tiles(head: dict, unpacker: str, bits: int) -> np.ndarray:
-    """Pillow's decode where a component is sub-sampled (its unpackers
-    ``rgb``, ``ycc``, ``rgba`` and ``ycca``): OpenJPEG packs each tile's
-    components one after another at their tile-component sizes (``_csiz``
-    bytes a sample) into a buffer Pillow has zeroed, and the unpacker reads
-    them back at its own layout, giving plane n ``w // dx * (h // dy)``
-    samples of the tile's w x h and reading sample ``(y // dy, x // dx)`` of
-    it.  The channels :func:`decode_j2k` makes of the samples, tile by
-    tile."""
+def _pillow_tiles(head: dict, unpacker: str, bits: int, samples: np.ndarray,
+                  resdec: np.ndarray) -> np.ndarray:
+    """Pillow's decode, tile by tile, of the tile-components as OpenJPEG
+    hands them over (each at the size of the highest resolution its tile
+    read a packet of, ``_csiz`` bytes a sample, one after another in a
+    buffer Pillow zeroes for each tile, at least ``w * h`` samples of every
+    component long): the unpacker reads them back at its own layout, giving
+    plane n ``w // dx * (h // dy)`` samples of the tile's w x h and reading
+    sample ``(y // dy, x // dx)`` of it, so a plane smaller than that is
+    read across its rows and the next plane's.  Returns the channels of the
+    unpacker (``_READS``; gray replicated for ``gray_rgb``, sYCC converted)
+    over the image area, from :func:`_samples`' packed samples and
+    resolutions."""
     comps, subs = head["comps"], head["subsampling"]
     (xsiz, ysiz), (xo, yo) = head["size"], head["origin"]
     csiz = [_csiz(p) for p, _ in comps]
-    samples = _samples(head, packed=True)
-    nch = _SUBSAMPLING[unpacker]
+    nch = _READS[unpacker]
     out = np.zeros((ysiz - yo, xsiz - xo, nch), np.uint16 if bits == 16 else np.uint8)
+    words = {1: np.uint8, 2: np.dtype("<u2"), 4: np.dtype("<u4")}
     at = 0
-    for _t, (x0, y0, x1, y1) in _tile_boxes(head):
+    for k, (t, (x0, y0, x1, y1)) in enumerate(_tile_boxes(head)):
         w, h = x1 - x0, y1 - y0
-        packed = []
+        sizes = []
         for c, (dx, dy) in enumerate(subs):
-            n = (_cdiv(x1, dx) - _cdiv(x0, dx)) * (_cdiv(y1, dy) - _cdiv(y0, dy))
-            v = samples[at:at + n].astype("<i4").view(np.uint8).reshape(-1, 4)
-            packed.append(v[:, :csiz[c]].reshape(-1))
-            at += n
-        data = np.concatenate(packed)
-        buf = np.zeros(max(data.size, sum(csiz) * w * h), np.uint8)
-        buf[:data.size] = data
-        y, x = np.mgrid[0:h, 0:w]
+            lev = head["tiles"][t]["tcp"]["comps"][c]["numres"] - 1 - int(resdec[k, c])
+            sizes.append((_cdiv(_cdiv(x1, dx), 1 << lev) - _cdiv(_cdiv(x0, dx), 1 << lev))
+                         * (_cdiv(_cdiv(y1, dy), 1 << lev) - _cdiv(_cdiv(y0, dy), 1 << lev)))
+        written = sum(n * size for n, size in zip(sizes, csiz))
+        buf = np.zeros(max(written, sum(csiz) * w * h), np.uint8)
+        pos = 0
+        for c, n in enumerate(sizes):       # each plane's low bytes, little-endian
+            buf[pos:pos + n * csiz[c]] = samples[at:at + n].astype(words[csiz[c]]).view(np.uint8)
+            pos, at = pos + n * csiz[c], at + n
 
-        def plane(c, off, idx):
-            word = np.zeros(idx.shape, np.int64)
-            for k in range(csiz[c]):
-                word |= buf[off + csiz[c] * idx + k].astype(np.int64) << (8 * k)
-            return _shift(word, *comps[c], bits)
+        def plane(c, off):
+            dx, dy = subs[c]
+            size, (prec, sgnd) = csiz[c], comps[c]
+            if (dx, dy) == (1, 1):
+                word = buf[off:off + size * w * h].view(words[size]).reshape(h, w)
+            else:       # (y // dy, x // dx) may run past the plane's rows and end
+                idx = np.add.outer(np.arange(h) // dy * (w // dx), np.arange(w) // dx)
+                word = np.ascontiguousarray(buf[off + size * idx[..., None] + np.arange(size)])
+                word = word.view(words[size])[..., 0]
+            if prec == bits and not sgnd:       # the samples as they are
+                return word.astype(np.uint8 if bits == 8 else np.uint16)
+            return _shift(word.astype(np.int64), prec, sgnd, bits)
 
         chans, off = [], 0
         for c in range(nch):
-            dx, dy = subs[c]
-            chans.append(plane(c, off, (y // dy) * (w // dx) + x // dx))
-            off += csiz[c] * (w // dx) * (h // dy)
+            chans.append(plane(c, off))
+            off += csiz[c] * (w // subs[c][0]) * (h // subs[c][1])
         tile = np.stack(chans, -1)
         if unpacker.startswith("ycc"):
             tile[..., :3] = _raw._ycbcr_rgb(tile[..., :3])
         out[y0 - yo:y1 - yo, x0 - xo:x1 - xo] = tile
-    return out
+    return np.repeat(out, 3, -1) if unpacker == "gray_rgb" else out
 
 
 def _palette_rgba(mode: str, pal: bytes) -> np.ndarray:
@@ -763,28 +849,20 @@ def decode_j2k(data: bytes) -> tuple[np.ndarray, int]:
     if (xsiz - xo, ysiz - yo) != info["size"]:
         raise ValueError("JPEG 2000: the JP2 header's size is not the codestream's")
     bits = 16 if unpacker == "i" else 8
-    if any(d != (1, 1) for d in subs):
-        if unpacker not in _SUBSAMPLING:
-            raise ValueError(f"JPEG 2000: Pillow's unpacker for {mode} takes no sub-sampled "
-                             "component (broken data stream)")
-        out = _pillow_tiles(head, unpacker, bits)
+    subsampled = any(d != (1, 1) for d in subs)
+    if subsampled and unpacker not in _SUBSAMPLING:
+        raise ValueError(f"JPEG 2000: Pillow's unpacker for {mode} takes no sub-sampled "
+                         "component (broken data stream)")
+    v, resdec, packed = _samples(head, packed=subsampled)
+    if packed:      # sub-sampled, or a component handed over below its full size
+        out = _pillow_tiles(head, unpacker, bits, v, resdec)
     else:
-        v = _samples(head, packed=False)
-        planes = [_unpack(v[c], *comps[c], bits) for c in range(min(nc, 4))]
-        if unpacker in ("l", "i"):
-            out = planes[0][..., None]
-        elif unpacker == "la":
-            out = np.stack(planes[:2], -1)
-        elif unpacker == "gray_rgb":
-            out = np.repeat(planes[0][..., None], 3, -1)
-        elif unpacker in ("rgb", "ycc"):
-            out = np.stack(planes[:3], -1)
-            if unpacker == "ycc":
-                out = _raw._ycbcr_rgb(out)
-        else:       # rgba, ycca (CMYK too)
-            out = np.stack(planes[:4], -1)
-            if unpacker == "ycca":
-                out = np.concatenate([_raw._ycbcr_rgb(out[..., :3]), out[..., 3:]], -1)
+        planes = [_unpack(v[c], *comps[c], bits) for c in range(_READS[unpacker])]
+        out = np.stack(planes, -1)
+        if unpacker == "gray_rgb":
+            out = np.repeat(out, 3, -1)
+        elif unpacker.startswith("ycc"):
+            out[..., :3] = _raw._ycbcr_rgb(out[..., :3])
     if mode == "CMYK":
         out = _codecs._cmyk_rgb(out)
     elif mode in ("P", "PA"):

@@ -67,7 +67,8 @@ def refusal(what: str, part: str = "") -> ValueError:
                   (f"{what} needs cv2, which does not import here", "and the rest only through cv2"))
     return ValueError(f"{lead}: the port reads and writes PNG, PNM, BMP, DIB, TIFF, JPEG, GIF, "
                       f"TGA, PCX, SGI, QOI, IM, ICO and DDS itself, writes MPO as JPEG, and reads "
-                      f"WebP, PSD, CUR, DCX and JPEG 2000 itself (TIFF: uncompressed, LZW, "
+                      f"WebP, PSD, CUR, DCX, JPEG 2000, FITS, Sun raster, XBM, XPM, MSP, SPIDER, "
+                      f"PIXAR, McIdas, XV thumbnail, GBR and IMT itself (TIFF: uncompressed, LZW, "
                       f"deflate, PackBits, JPEG, CCITT RLE, Group 3 or Group 4, Zstandard or LZMA "
                       f"strips or tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
                       f"and CIELab included; JPEG: baseline, extended and progressive Huffman, "
@@ -75,7 +76,8 @@ def refusal(what: str, part: str = "") -> ValueError:
                       f"short, 8-bit lossless, gray, RGB, CMYK or YCCK; "
                       f"WebP: lossy, lossless, alpha, an animation's first frame; DDS: "
                       f"uncompressed, palette and BC1 to BC7 read, uncompressed written; JPEG "
-                      f"2000: JP2 and raw codestreams, reversible and irreversible), {rest} "
+                      f"2000: JP2 and raw codestreams, reversible and irreversible, packed packet "
+                      f"headers), {rest} "
                       f"({NOT_PORTED}{part})")
 
 

@@ -154,6 +154,12 @@ def _load() -> ctypes.CDLL:
     lib.pcx_decode.argtypes = [c.c_char_p, i64, i64, i64, i64, c.c_int, u8p]
     lib.packbits_decode.restype = c.c_int
     lib.packbits_decode.argtypes = [c.c_char_p, i64, i64, i64, i64, u8p]
+    lib.sun_rle_decode.restype = c.c_int
+    lib.sun_rle_decode.argtypes = [c.c_char_p, i64, i64, i64, i64, u8p]
+    lib.msp_rle_decode.restype = i64
+    lib.msp_rle_decode.argtypes = [c.c_char_p, i64, i64, i64, i64, u8p, c.POINTER(i64)]
+    lib.xbm_decode.restype = c.c_int
+    lib.xbm_decode.argtypes = [c.c_char_p, i64, i64, i64, i64, u8p]
     lib.pcx_encode.restype = i64
     lib.pcx_encode.argtypes = [u8p, c.c_int, i64, c.c_int, u8p]
     lib.resample_8bpc.restype = None

@@ -6,7 +6,9 @@
 //            of POC markers (B.12, the position orders stepping through the
 //            tile and the components' sub-sampling as OpenJPEG's pi.c does,
 //            a packet met again skipped), SOP segments skipped where found
-//            and EPH markers required, precincts, tag trees, code-block
+//            and EPH markers required, the packet headers read from the tile
+//            data or from packed headers (PPT per tile; PPM one stream over
+//            the tiles in their decoding order), precincts, tag trees, code-block
 //            inclusion, zero bit-planes, the pass counts, Lblock and the
 //            codeword segments of the bypass and termall switches (B.10,
 //            OpenJPEG's opj_t2_init_seg), tile parts joined by the caller;
@@ -23,16 +25,19 @@
 //            beta, alpha) with whole-sample symmetric extension, rows before
 //            columns at each level; the RCT or ICT where COD's MCT flag is
 //            set (the first component's wavelet picks it); lrintf, the DC
-//            level shift and the clamp to the precision.
+//            level shift and the clamp to the precision.  A component is
+//            decoded up to the highest resolution the tile read a packet of
+//            (OpenJPEG's resno_decoded), and handed over at that size.
 //
 // Every float step is one float32 multiply or add in OpenJPEG's order, so no
 // step may be contracted into a fused multiply-add (the host build uses
 // -march=native, where GCC would contract them).
 //
 // io/jpeg2000.py reads the JP2 boxes and the markers (COD/COC, QCD/QCC, RGN
-// and POC per component and tile, in OpenJPEG's order), refuses PPM/PPT and
-// HT code-blocks, and unpacks the samples into Pillow's modes (sub-sampled
-// components in Pillow's own layout, from the packed tile-components here).
+// and POC per component and tile, in OpenJPEG's order), joins PPM and PPT
+// markers, refuses HT code-blocks, and unpacks the samples into Pillow's
+// modes (sub-sampled or smaller components in Pillow's own layout, from the
+// packed tile-components here).
 #pragma GCC optimize("fp-contract=off")
 #include <algorithm>
 #include <atomic>
@@ -48,11 +53,6 @@
 namespace {
 
 struct Error {
-  std::string msg;
-};
-
-// what OpenJPEG decodes and this file does not carry
-struct Refused {
   std::string msg;
 };
 
@@ -561,7 +561,7 @@ struct CompParams {
   int expn[97], mant[97];
 };
 constexpr int kCompRec = 7 + 33 * 2 + 97 * 2;
-constexpr int kTileHead = 11;
+constexpr int kTileHead = 14;
 
 // a progression of a POC marker (or the one of COD): packets of layers
 // [0, lay1), resolutions [res0, res1), components [comp0, comp1) in order prg
@@ -594,6 +594,7 @@ struct Tile {
   std::vector<Poc> pocs;          // empty: COD's progression over everything
   const uint8_t* body;
   int64_t len;
+  std::vector<int> resdec;        // per component the highest resolution read
   std::vector<TileComp> comps;
   std::vector<Cblk> cblks;
 
@@ -846,14 +847,6 @@ struct Tile {
           if (pocs.empty()) throw Error{"an unknown progression order"};
       }
     }
-    // OpenJPEG decodes a component only up to the highest resolution it
-    // read a packet of, and hands Pillow the smaller plane: not carried
-    std::vector<uint8_t> top(nc, 0);
-    for (const Packet& pk : out)
-      if (pk.res == comps[pk.comp].p.numres - 1) top[pk.comp] = 1;
-    for (int c = 0; c < nc; c++)
-      if (!top[c] && nprec(c, comps[c].p.numres - 1) > 0)
-        throw Refused{"progressions that leave out a component's highest resolution"};
     return out;
   }
 
@@ -888,18 +881,26 @@ struct Tile {
   }
 
   // read every packet of the tile, gathering each code-block's bytes by
-  // codeword segment; an SOP segment before a packet and an EPH marker
-  // after its header are skipped where found, and where they are missing
-  // the packet is read on (OpenJPEG warns)
-  void tier2() {
+  // codeword segment; an SOP segment before a packet is skipped where
+  // found in the tile data, and an EPH marker after its header is
+  // required.  The headers come from the tile data, or from the packed
+  // headers at hp (up to hend) where hp is set, which it leaves after the
+  // last one read.  resdec: per component the highest resolution of a
+  // packet read (OpenJPEG's resno_decoded, 0 where none was)
+  void tier2(const uint8_t*& hp, const uint8_t* hend) {
     const uint8_t* p = body;
     const uint8_t* end = body + len;
+    const bool packed = hp != nullptr;
+    const uint8_t*& q = packed ? hp : p;
+    const uint8_t* qend = packed ? hend : end;
+    resdec.assign(comps.size(), 0);
     for (const Packet& pk : packets()) {
       TileComp& tc = comps[pk.comp];
       Res& rs = tc.res[pk.res];
       const int style = tc.p.style;
+      resdec[pk.comp] = std::max(resdec[pk.comp], pk.res);
       if ((csty & 2) && end - p >= 6 && p[0] == 0xFF && p[1] == 0x91) p += 6;
-      Bio bio(p, end);
+      Bio bio(q, qend);
       const int present = bio.bit();
       if (present) {
         for (int b = 0; b < rs.nbands; b++) {
@@ -948,11 +949,11 @@ struct Tile {
           }
         }
       }
-      if (!bio.inalign()) throw Error{"a packet header runs past the tile's data"};
-      p = bio.bp;
+      if (!bio.inalign()) throw Error{"a packet header runs past its data"};
+      q = bio.bp;
       if (csty & 4) {
-        if (end - p < 2 || p[0] != 0xFF || p[1] != 0x92) throw Error{"an EPH marker missing"};
-        p += 2;
+        if (qend - q < 2 || q[0] != 0xFF || q[1] != 0x92) throw Error{"an EPH marker missing"};
+        q += 2;
       }
       if (!present) continue;
       for (int b = 0; b < rs.nbands; b++) {
@@ -1121,9 +1122,10 @@ void level(T* a, int stride, int rw, int rh, int sn, int sv, int casx, int casy,
   });
 }
 
-void synthesize(TileComp& tc, bool reversible, int threads) {
+// the levels up to resolution top
+void synthesize(TileComp& tc, bool reversible, int top, int threads) {
   const int stride = tc.width();
-  for (size_t r = 1; r < tc.res.size(); r++) {
+  for (size_t r = 1; r <= static_cast<size_t>(top) && r < tc.res.size(); r++) {
     const Res &lo = tc.res[r - 1], &rs = tc.res[r];
     const int rw = rs.x1 - rs.x0, rh = rs.y1 - rs.y0;
     if (rw <= 0 || rh <= 0) continue;
@@ -1144,7 +1146,8 @@ void mct(Tile& tl) {
   TileComp* c3[3] = {&tl.comps[0], &tl.comps[1], &tl.comps[2]};
   const size_t n = static_cast<size_t>(c3[0]->width()) * c3[0]->height();
   for (int k = 1; k < 3; k++)
-    if (c3[k]->p.numres != c3[0]->p.numres || static_cast<size_t>(c3[k]->width()) * c3[k]->height() != n)
+    if (c3[k]->p.numres != c3[0]->p.numres || tl.resdec[k] != tl.resdec[0] ||
+        static_cast<size_t>(c3[k]->width()) * c3[k]->height() != n)
       throw Error{"a component transform over components of different sizes"};
   const bool rev = c3[0]->p.qmfbid == 1;
   std::vector<int32_t> ibits[3];
@@ -1193,25 +1196,32 @@ void mct(Tile& tl) {
 extern "C" {
 
 // Decode the tiles of a codestream into out.  hdr: ncomp, X0, Y0, W, H,
-// ntiles, threads (0: the host's cores, at most 8), packed; the precision,
+// ntiles, threads (0: the host's cores, at most 8), packed (1; 0: only where a
+// component is decoded below its highest resolution); the precision,
 // signedness and XRsiz, YRsiz of each component; then per tile tx0, ty0,
 // tx1, ty1 (on the reference grid), the offset and length of its joined
 // tile-part bodies in body, the progression order, the layers, the MCT flag,
-// COD's Scod and the number of POC progressions, 6 values each (RSpoc,
+// COD's Scod, where its packet headers are (0: in its data; 1: its own
+// stream at the offset and length that follow in heads, its PPT markers
+// joined; 2: the PPM stream, the whole of heads, read on from where the
+// tile before stopped) with that offset and length, and the number of POC
+// progressions, 6 values each (RSpoc,
 // CSpoc, LYEpoc, REpoc, CEpoc, Ppoc), and per component the levels + 1, the
 // code-block exponents, the transform (1: 5/3), the guard bits, the
 // code-block style, the ROI shift, 33 precinct width and 33 height
 // exponents, 97 step exponents and 97 mantissas (a derived quantisation
 // expanded by the caller).  out: int32 [ncomp][H][W] (the image area; every
-// XRsiz and YRsiz 1), or, packed, each tile's components one after another,
-// each at its tile-component's size, as OpenJPEG hands a tile to Pillow.
-// Returns 0, or 1 with the reason in err (2: a file this decoder refuses).
-int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_t* out, char* err,
-               int errlen) {
+// XRsiz and YRsiz 1, every component decoded to its highest resolution), or,
+// packed, each tile's components one after another, each at the size of
+// the highest resolution its tile read a packet of, as OpenJPEG hands a tile
+// to Pillow; resdec: int32 [ntiles][ncomp], those resolutions.  Returns 0
+// (out unpacked), 4 (out packed), or 1 with the reason in err.
+int j2k_decode(const uint8_t* body, int64_t body_len, const uint8_t* heads, int64_t heads_len,
+               const int32_t* hdr, int32_t* out, int32_t* resdec, char* err, int errlen) {
   try {
     const int nc = hdr[0], X0 = hdr[1], Y0 = hdr[2], W = hdr[3], H = hdr[4], nt = hdr[5];
     int threads = hdr[6];
-    const bool packed = hdr[7] != 0;
+    bool packed = hdr[7] != 0;
     if (threads <= 0) threads = static_cast<int>(std::min(8u, std::max(1u, std::thread::hardware_concurrency())));
     std::vector<Comp> img(nc);
     const int32_t* q = hdr + 8;
@@ -1223,6 +1233,7 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
       q += 4;
     }
     std::vector<Tile> tiles(nt);
+    const uint8_t* ppm = nullptr;   // the PPM stream where the tile before stopped
     for (int t = 0; t < nt; t++) {
       Tile& tl = tiles[t];
       tl.tx0 = q[0];
@@ -1237,7 +1248,11 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
       tl.nlayers = q[7];
       tl.mct = q[8];
       tl.csty = q[9];
-      const int npocs = q[10];
+      const int hmode = q[10];
+      const int64_t hoff = q[11], hlen = q[12];
+      const int npocs = q[13];
+      if (hmode && (hoff < 0 || hlen < 0 || hoff + hlen > heads_len))
+        throw Error{"a tile's packed headers lie outside their stream"};
       q += kTileHead;
       for (int k = 0; k < npocs; k++, q += 6) tl.pocs.push_back({q[0], q[1], q[2], q[3], q[4], q[5]});
       tl.comps.resize(nc);
@@ -1257,7 +1272,11 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
         q += kCompRec;
       }
       tl.setup(img);
-      tl.tier2();
+      const uint8_t* hp = hmode == 1 ? heads + hoff : nullptr;
+      if (hmode == 2) hp = ppm ? ppm : heads + hoff;
+      tl.tier2(hp, heads + hoff + hlen);
+      if (hmode == 2) ppm = hp;
+      for (int c = 0; c < nc; c++) resdec[static_cast<size_t>(t) * nc + c] = tl.resdec[c];
     }
     // tier-1 of every code-block of every tile
     std::vector<Job> jobs;
@@ -1287,13 +1306,27 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
     const int inner = std::max(1, threads / (nt * nc));
     parallel(nt * nc, threads, [&](int i, int) {
       TileComp& tc = tiles[i / nc].comps[i % nc];
-      synthesize(tc, tc.p.qmfbid == 1, inner);
+      synthesize(tc, tc.p.qmfbid == 1, tiles[i / nc].resdec[i % nc], inner);
     });
-    std::vector<size_t> at(nt + 1, 0);     // each tile's offset in a packed out
+    // each component's decoded area (its top-left res[resdec]), and each
+    // tile's offset in a packed out
+    auto area = [&](const Tile& tl, int c, int& w, int& h) {
+      const Res& rs = tl.comps[c].res[tl.resdec[c]];
+      w = rs.x1 - rs.x0;
+      h = rs.y1 - rs.y0;
+    };
+    std::vector<size_t> at(nt + 1, 0);
+    bool below = false;
     for (int t = 0; t < nt; t++) {
       at[t + 1] = at[t];
-      for (const TileComp& tc : tiles[t].comps) at[t + 1] += static_cast<size_t>(tc.width()) * tc.height();
+      for (int c = 0; c < nc; c++) {
+        int w, h;
+        area(tiles[t], c, w, h);
+        below |= w != tiles[t].comps[c].width() || h != tiles[t].comps[c].height();
+        at[t + 1] += static_cast<size_t>(w) * h;
+      }
     }
+    packed |= below;
     parallel(nt, threads, [&](int t, int) {
       Tile& tl = tiles[t];
       if (tl.mct && nc >= 3) mct(tl);
@@ -1304,11 +1337,13 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
         const int64_t lo = img[c].sgnd ? -(int64_t(1) << (prec - 1)) : 0;
         const int64_t hi = img[c].sgnd ? (int64_t(1) << (prec - 1)) - 1 : (int64_t(1) << prec) - 1;
         const int64_t shift = img[c].sgnd ? 0 : int64_t(1) << (prec - 1);
-        const int tw = tc.width();
-        for (int y = tc.y0; y < tc.y1; y++) {
-          int32_t* row = packed ? out + o + static_cast<size_t>(y - tc.y0) * tw
-                                : out + (static_cast<size_t>(c) * H + (y - Y0)) * W + (tl.tx0 - X0);
-          const size_t src = static_cast<size_t>(y - tc.y0) * tw;
+        const int stride = tc.width();
+        int tw, th;
+        area(tl, c, tw, th);
+        for (int y = 0; y < th; y++) {
+          int32_t* row = packed ? out + o + static_cast<size_t>(y) * tw
+                                : out + (static_cast<size_t>(c) * H + (y + tc.y0 - Y0)) * W + (tl.tx0 - X0);
+          const size_t src = static_cast<size_t>(y) * stride;
           for (int x = 0; x < tw; x++) {
             int64_t v;
             if (tc.p.qmfbid == 1) {
@@ -1322,13 +1357,10 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const int32_t* hdr, int32_
             row[x] = static_cast<int32_t>(std::min(hi, std::max(lo, v)));
           }
         }
-        o += static_cast<size_t>(tw) * tc.height();
+        o += static_cast<size_t>(tw) * th;
       }
     });
-    return 0;
-  } catch (const Refused& e) {
-    std::snprintf(err, errlen, "%s", e.msg.c_str());
-    return 2;
+    return packed ? 4 : 0;
   } catch (const Error& e) {
     std::snprintf(err, errlen, "%s", e.msg.c_str());
     return 1;

@@ -22,10 +22,20 @@
 //   resample Resample.c: precompute_coeffs with the LANCZOS filter, the
 //            8-bit passes on 22-bit fixed-point weights (horizontal, then
 //            vertical, each clipped to 8 bits) and the 16-bit passes on
-//            double weights, for Image.thumbnail.
+//            double weights, for Image.thumbnail;
+//   Sun RLE  SunRleDecode.c: 0x80 0 a literal 0x80, 0x80 n v a run of n + 1,
+//            a run past a row's end carried into the next rows (its
+//            length held in a byte, so a run of 256 that crosses a row
+//            wraps), rows of (bits * width + 7) / 8 bytes, unpadded;
+//   MSP RLE  MspImagePlugin's MspDecoder (Python in Pillow): the row map,
+//            each row's runs written one after another into one byte
+//            stream (rows not aligned), an empty row a white one;
+//   XBM      XbmDecode.c: each "x" and the two characters after it a byte
+//            (a character that is not a hex digit counts 0).
 //
 // The headers, palettes and the unpacking of rows are
-// dspfun_tpu_torch/io/rawimg.py, io/ico.py and io/psd.py.
+// dspfun_tpu_torch/io/rawimg.py, io/ico.py, io/psd.py and io/rasters.py.
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -423,6 +433,113 @@ int packbits_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t bytes, 
       row += bytes;
     }
   }
+}
+
+// Sun RLE: h rows of `bytes` bytes from data[pos:n]; kTruncated where the
+// data ends first.
+int sun_rle_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t bytes, int64_t h,
+                   uint8_t* rows) {
+  if (bytes <= 0 || h <= 0) return kOk;
+  std::vector<uint8_t> buf(bytes);
+  int64_t x = 0, y = 0;
+  uint8_t extra_data = 0, extra_bytes = 0;
+  while (true) {
+    if (pos >= n) return kTruncated;
+    int64_t run = 1;
+    if (data[pos] == 0x80) {
+      if (n - pos < 2) return kTruncated;
+      run = data[pos + 1];
+      if (run == 0) {
+        run = 1;
+        buf[x] = 0x80;
+        pos += 2;
+      } else {
+        if (n - pos < 3) return kTruncated;
+        run += 1;
+        if (x + run > bytes) {
+          extra_bytes = static_cast<uint8_t>(run);
+          run = bytes - x;
+          extra_bytes = static_cast<uint8_t>(extra_bytes - run);
+          extra_data = data[pos + 2];
+        }
+        std::memset(buf.data() + x, data[pos + 2], run);
+        pos += 3;
+      }
+    } else {
+      buf[x] = data[pos++];
+    }
+    while (true) {
+      x += run;
+      if (x >= bytes) {
+        std::memcpy(rows + y * bytes, buf.data(), bytes);
+        x = 0;
+        if (++y >= h) return kOk;
+      }
+      if (extra_bytes == 0 || x > 0) break;
+      run = extra_bytes >= bytes ? bytes : extra_bytes;
+      std::memset(buf.data(), extra_data, run);
+      extra_bytes = static_cast<uint8_t>(extra_bytes - run);
+    }
+  }
+}
+
+// MSP RLE: the stream of h rows (the row map of h 16-bit lengths at 32,
+// the rows after it), its first cap bytes into out.  Returns the stream's
+// length, or -2 (a short row map), -3 (a short row) or -4 (a run cut off)
+// with the row in *row.
+int64_t msp_rle_decode(const uint8_t* data, int64_t n, int64_t h, int64_t stride, int64_t cap,
+                       uint8_t* out, int64_t* row) {
+  if (32 + 2 * h > n) return -2;
+  int64_t pos = 32 + 2 * h, len = 0;
+  auto put = [&](const uint8_t* src, uint8_t value, int64_t count) {
+    for (int64_t k = 0; k < count; k++, len++)
+      if (len < cap) out[len] = src ? src[k] : value;
+  };
+  for (int64_t y = 0; y < h; y++) {
+    *row = y;
+    const int64_t rowlen = data[32 + 2 * y] | data[33 + 2 * y] << 8;
+    if (rowlen == 0) {
+      put(nullptr, 0xFF, stride);
+      continue;
+    }
+    if (pos + rowlen > n) return -3;
+    const uint8_t* r = data + pos;
+    pos += rowlen;
+    for (int64_t i = 0; i < rowlen;) {
+      const int type = r[i++];
+      if (type == 0) {
+        if (rowlen - i < 2) return -4;
+        put(nullptr, r[i + 1], r[i]);
+        i += 2;
+      } else {
+        const int64_t count = std::min<int64_t>(type, rowlen - i);
+        put(r + i, 0, count);
+        i += type;
+      }
+    }
+  }
+  return len;
+}
+
+inline int hex_digit(uint8_t v) {
+  if (v >= '0' && v <= '9') return v - '0';
+  if (v >= 'a' && v <= 'f') return v - 'a' + 10;
+  if (v >= 'A' && v <= 'F') return v - 'A' + 10;
+  return 0;
+}
+
+// XBM: h rows of `bytes` bytes from the hex values at data[pos:n];
+// kTruncated where the data ends first.
+int xbm_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t bytes, int64_t h,
+               uint8_t* rows) {
+  const int64_t total = bytes * h;
+  for (int64_t k = 0; k < total; k++) {
+    while (pos < n && data[pos] != 'x') pos++;
+    if (n - pos < 3) return kTruncated;
+    rows[k] = static_cast<uint8_t>(hex_digit(data[pos + 1]) << 4 | hex_digit(data[pos + 2]));
+    pos += 3;
+  }
+  return kOk;
 }
 
 // PCX: h lines of planes * bpl bytes (each plane's bytes in turn) run-length

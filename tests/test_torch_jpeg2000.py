@@ -280,6 +280,8 @@ def _edited(kind: str) -> bytes:
         return _set(d, cod + 4, d[cod + 4] | (2 if kind == "SOP" else 4))
     if kind.startswith("style"):
         return _set(d, cod + 12, 1 << int(kind[-1]))
+    if kind == "HT":
+        return _set(d, cod + 12, 0x40)
     if kind.startswith("subsampled"):
         return _set(d, siz + 40 + (1 if kind.endswith("x") else 2), 2)
     return {"RGN": lambda: _after_cod(d, b"\xff\x5e\x00\x05\x00\x00\x03"),
@@ -289,12 +291,13 @@ def _edited(kind: str) -> bytes:
             "COC": lambda: _after_cod(d, b"\xff\x53\x00\x09\x00\x00\x05\x04\x04\x00\x01"),
             "QCC": lambda: _after_cod(d, b"\xff\x5d\x00\x05\x00\x40\x48"),
             "tile-COC": lambda: _in_tile_part(d, b"\xff\x53\x00\x09\x00\x00\x05\x04\x04\x00\x01"),
+            "HT-COC": lambda: _in_tile_part(d, b"\xff\x53\x00\x09\x00\x00\x05\x04\x04\x40\x01"),
             }[kind]()
 
 
 CARRIED = ("SOP", "EPH", *(f"style{b}" for b in range(6)), "RGN", "POC", "COC", "QCC",
-           "tile-COC", "subsampled-x", "subsampled-y")
-REFUSED = ("PPM", "PPT")
+           "tile-COC", "subsampled-x", "subsampled-y", "PPM", "PPT")
+REFUSED = ("HT", "HT-COC")
 
 
 @pytest.mark.parametrize("kind", CARRIED)
@@ -302,15 +305,17 @@ def test_edited_markers_read_as_the_jax_package_reads_them(kind, tmp_path, monke
     """Each marker or bit set in a Pillow-written codestream (on data not
     coded with it): the same pixels as the JAX package's, or an error in
     both (EPH without EPH markers, a COC whose code-blocks overrun the
-    data), with cv2 importable and blocked."""
+    data, a PPM or PPT marker of its index alone), with cv2 importable and
+    blocked."""
     _read_both(tmp_path, _edited(kind), monkeypatch)
 
 
 @pytest.mark.parametrize("kind", REFUSED)
 def test_what_no_pillow_setting_writes_is_refused_by_8h(kind, tmp_path, monkeypatch):
-    """Packed packet headers (PPM, PPT) set in a Pillow-written codestream:
-    refused naming item 8h, with cv2 importable and blocked (no JPEG 2000
-    file reaches cv2)."""
+    """HT (high-throughput) code-blocks, the style bit 0x40 set in a
+    Pillow-written codestream's COD or in a COC of its tile part: refused
+    naming item 8h, with cv2 importable and blocked (no JPEG 2000 file
+    reaches cv2; no encoder here writes HT code-blocks to pin a decoder)."""
     path = tmp_path / "in.j2k"
     path.write_bytes(_edited(kind))
     for blocked in (False, True):

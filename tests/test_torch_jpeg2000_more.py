@@ -359,14 +359,14 @@ def test_edits(name, tmp_path, monkeypatch):
         _raises(jax)
 
 
-def test_progressions_that_leave_out_a_resolution_are_refused():
-    """POCs under which a component's highest resolution has no packet:
-    OpenJPEG decodes that component only to the highest resolution it read
-    and hands Pillow the smaller plane, which the port does not carry; it
-    raises naming item 8h, with cv2 importable and blocked."""
+def test_progressions_that_leave_out_a_resolution_are_refused(tmp_path, monkeypatch):
+    """POCs under which a component's highest resolution has no packet
+    (REpoc cut to 3 of 4): OpenJPEG decodes each component only to the
+    highest resolution it read and hands Pillow the smaller plane, which
+    Pillow's unpacker reads at the full size; the port reads the same
+    pixels, with cv2 importable and blocked."""
     data = _set_entries("j2k_poc_layers.j2k", lambda e: e[:4] + bytes([min(e[4], 3)]) + e[5:])
-    with pytest.raises(ValueError, match=r"highest resolution .* item 8h"):
-        jpeg2000.decode_j2k(data)
+    _ok(_read_both(tmp_path, data, monkeypatch))
 
 
 # ---- seeded sweeps -----------------------------------------------------------------

@@ -62,7 +62,7 @@ def test_every_module_imports_without_jax():
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
         "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp", "io.rawimg",
-        "io.ico", "io.psd", "io.dds", "io.jpeg2000")} <= names
+        "io.ico", "io.psd", "io.dds", "io.jpeg2000", "io.rasters")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL", "zstandard")):

@@ -2488,7 +2488,160 @@ def j2k_more_goldens(lib=None) -> dict[str, bytes]:
                                 subsampling=[(1, 1), (2, 2), (2, 2), (1, 1)], numres=3)
     big = _planes(levels((chip_smoke.H, chip_smoke.W), 17, noise=0.02))
     out["j2k_4k_bypass_termall.j2k"] = w(big, mode=5, mct=True, irreversible=True, rates=(150,))
+    out.update(j2k_packed_goldens(out["j2k_sop_eph.j2k"], lib))
     return out
+
+
+# ---- packed packet headers (PPM, PPT) and resolution-short POCs ------------------
+
+
+def j2k_split(cs: bytes) -> tuple[list, list]:
+    """A codestream's main-header segments (markers included) and its tile
+    parts as (the 12 bytes of SOT, header segments, body)."""
+    def segments(pos, stop):
+        out = []
+        while cs[pos:pos + 2] != stop:
+            n = struct.unpack_from(">H", cs, pos + 2)[0]
+            out.append(cs[pos:pos + 2 + n])
+            pos += 2 + n
+        return out, pos
+
+    main, pos = segments(2, b"\xff\x90")
+    parts = []
+    while cs[pos:pos + 2] == b"\xff\x90":
+        psot = struct.unpack_from(">I", cs, pos + 6)[0]
+        segs, sod = segments(pos + 12, b"\xff\x93")
+        parts.append((cs[pos:pos + 12], segs, cs[sod + 2:pos + psot]))
+        pos += psot
+    return main, parts
+
+
+def j2k_join(main: list, parts: list) -> bytes:
+    """:func:`j2k_split`'s pieces as a codestream again (each Psot remade)."""
+    out = b"\xff\x4f" + b"".join(main)
+    for sot, segs, body in parts:
+        hdr = b"".join(segs)
+        out += sot[:6] + struct.pack(">I", 14 + len(hdr) + len(body)) + sot[10:] + hdr \
+            + b"\xff\x93" + body
+    return out + b"\xff\xd9"
+
+
+def j2k_marker(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def j2k_packets(body: bytes) -> list:
+    """A tile part's body coded with SOP and EPH markers as its packets'
+    (SOP segment, header up to and with its EPH marker, data): neither
+    marker can occur in a bit-stuffed header or in code-block data."""
+    starts = [m.start() for m in re.finditer(b"\xff\x91\x00\x04", body)]
+    assert starts and starts[0] == 0, "a body of SOP-led packets"
+    out = []
+    for a, b in zip(starts, starts[1:] + [len(body)]):
+        pkt = body[a:b]
+        e = pkt.index(b"\xff\x92", 6) + 2
+        out.append((pkt[:6], pkt[6:e], pkt[e:]))
+    return out
+
+
+def _cuts(size: int, pieces: int, avoid=()) -> list:
+    """``pieces`` non-empty spans of ``size`` bytes, no cut inside a span
+    of ``avoid`` ((start, end) pairs)."""
+    cuts = [0]
+    for k in range(1, pieces):
+        at = size * k // pieces
+        for a, b in avoid:
+            if a < at < b:
+                at = b
+        if cuts[-1] < at < size:
+            cuts.append(at)
+    return cuts + [size]
+
+
+def j2k_pack(cs: bytes, where: str = "ppm", pieces: int = 1, zs=None, appear=None,
+             keep_sop: bool = True, eph: bool = True, nppm_split: bool = False) -> bytes:
+    """A codestream coded with SOP and EPH markers, its packet headers
+    moved into packed headers: ``where`` ``ppm`` (the main header: an Nppm
+    and the headers of each tile part in codestream order, the whole cut
+    into ``pieces`` PPM markers, no cut inside an Nppm unless
+    ``nppm_split``) or ``ppt`` (each tile part's headers in ``pieces`` PPT
+    markers of its header).  The markers take the Z indices ``zs`` (in the
+    data's order, gaps allowed; a tile's later tile parts theirs past the
+    largest, as a tile's PPT indices run on) and stand in the order
+    ``appear``; the
+    bodies keep their SOP segments (``keep_sop``), the headers their EPH
+    markers (``eph``: else the markers go and Scod's bit 2 is cleared)."""
+    main, parts = j2k_split(cs)
+    if not eph:
+        main = [s[:4] + bytes([s[4] & ~4]) + s[5:] if s[:2] == b"\xff\x52" else s for s in main]
+    heads, bodies = [], []
+    for _sot, _segs, body in parts:
+        pk = j2k_packets(body)
+        heads.append(b"".join(h if eph else h[:-2] for _, h, _ in pk))
+        bodies.append(b"".join((s if keep_sop else b"") + d for s, _, d in pk))
+
+    def markers(marker, data, avoid=(), part=0):
+        cuts = _cuts(len(data), pieces, avoid)
+        chunks = [data[a:b] for a, b in zip(cuts, cuts[1:])]
+        z = list(zs or range(pieces))
+        z = [k + part * (max(z) + 1) for k in z[:len(chunks)]]
+        segs = [j2k_marker(marker, bytes([k]) + c) for k, c in zip(z, chunks)]
+        return [segs[k] for k in (appear or range(len(segs))) if k < len(segs)]
+
+    if where == "ppm":
+        payload, avoid = b"", []
+        for h in heads:
+            avoid.append((len(payload) + (2 if nppm_split else 4), len(payload) + 4))
+            payload += struct.pack(">I", len(h)) + h
+        if nppm_split:
+            avoid = [(a, a + 1) for a, _ in avoid]
+            cuts = [0, avoid[len(avoid) // 2][0], len(payload)]
+            chunks = [payload[a:b] for a, b in zip(cuts, cuts[1:])]
+            return j2k_join(main + [j2k_marker(0xFF60, bytes([k]) + c)
+                                    for k, c in enumerate(chunks)],
+                            [(sot, segs, b) for (sot, segs, _), b in zip(parts, bodies)])
+        return j2k_join(main + markers(0xFF60, payload, avoid),
+                        [(sot, segs, b) for (sot, segs, _), b in zip(parts, bodies)])
+    return j2k_join(main, [(sot, segs + markers(0xFF61, h, part=sot[10]), b)
+                           for (sot, segs, _), h, b in zip(parts, heads, bodies)])
+
+
+def j2k_poc(r1: int, c0: int = 0, c1: int = 3, tile: int = 1, prg: str = "LRCP",
+            r0: int = 0, lay1: int = 1) -> dict:
+    """A POC progression for :func:`j2k_write` (``tile`` 1-based)."""
+    return dict(res0=r0, comp0=c0, lay1=lay1, res1=r1, comp1=c1, prg=prg, tile=tile)
+
+
+J2K_PACKED = ("j2k_ppm.j2k", "j2k_ppm_split.j2k", "j2k_ppt.j2k", "j2k_ppt_split.j2k",
+              "j2k_pocres_all.j2k", "j2k_pocres_one.j2k", "j2k_pocres_tiles.j2k")
+
+
+def j2k_packed_goldens(sop_eph: bytes, lib=None) -> dict[str, bytes]:
+    """Phase 29's goldens of packed headers and resolution-short POCs: the
+    SOP+EPH golden's headers in one PPM marker; in three PPM markers of Z
+    indices 0, 2 and 5 standing in the order 5, 0, 2 with the SOP segments
+    dropped from the bodies; in a PPT marker per tile part; in two PPT
+    markers a tile part (Z 1 and 3, the second first); and files OpenJPEG
+    coded under POCs that leave out the highest resolution: of all three
+    components (9/7, MCT), of the first only, and of the first tile only
+    (the second tile's three POCs cover it)."""
+    lib = lib or openjpeg_library()
+    mid = _planes(levels((80, 96), 42, noise=0.02))
+    return {
+        "j2k_ppm.j2k": j2k_pack(sop_eph),
+        "j2k_ppm_split.j2k": j2k_pack(sop_eph, pieces=3, zs=(0, 2, 5), appear=(2, 0, 1),
+                                      keep_sop=False),
+        "j2k_ppt.j2k": j2k_pack(sop_eph, "ppt"),
+        "j2k_ppt_split.j2k": j2k_pack(sop_eph, "ppt", pieces=2, zs=(1, 3), appear=(1, 0)),
+        "j2k_pocres_all.j2k": j2k_write(mid, numres=4, mct=True, irreversible=True, rates=(6,),
+                                        pocs=[j2k_poc(3)], lib=lib),
+        "j2k_pocres_one.j2k": j2k_write(mid, numres=4, pocs=[j2k_poc(3, 0, 1),
+                                                             j2k_poc(4, 1, 3, prg="RPCL")],
+                                        lib=lib),
+        "j2k_pocres_tiles.j2k": j2k_write(mid, numres=4, tiles=((48, 80), (0, 0)),
+                                          pocs=[j2k_poc(3), j2k_poc(4, tile=2),
+                                                j2k_poc(4, tile=2)], lib=lib),
+    }
 
 
 def j2k_more_names() -> tuple:
@@ -2496,7 +2649,7 @@ def j2k_more_names() -> tuple:
             *(f"j2k_style{s}_{p}.j2k" for s in J2K_STYLES for p in ("53", "97")),
             "j2k_rgn.j2k", "j2k_coc_qcc.j2k", "j2k_tile_coc.j2k", "j2k_sub_420.j2k",
             "j2k_sub_422_tiles.j2k", "j2k_sycc_420.jp2", "j2k_sub_rgba.j2k",
-            "j2k_4k_bypass_termall.j2k")
+            "j2k_4k_bypass_termall.j2k", *J2K_PACKED)
 
 
 def j2k_more_fixtures() -> dict[str, bytes]:
@@ -3070,3 +3223,364 @@ def port_digest(samples: np.ndarray) -> str:
     if samples.dtype == np.uint16:
         return hashlib.sha256(np.ascontiguousarray(samples, "<u2").tobytes()).hexdigest()
     return rgb_digest(samples)
+
+
+# ---- item 8h's header-and-rows rasters (g1), written by hand --------------------
+# Pillow writes XBM, MSP (version 1) and SPIDER; the rest, and the forms
+# Pillow does not write, are written here with numpy (no Pillow), so the
+# card's machine can make phase 30's 4K files itself.
+
+
+def _card(key: str, value) -> bytes:
+    """One 80-byte FITS card (``value`` None: the key alone)."""
+    if value is None:
+        return key.encode().ljust(80)
+    if isinstance(value, bool):
+        value = "T" if value else "F"
+    return f"{key:<8}= {value!s:>20}".encode().ljust(80)
+
+
+def _fits_block(cards) -> bytes:
+    data = b"".join(_card(k, v) for k, v in cards) + _card("END", None)
+    return data.ljust(-(-len(data) // 2880) * 2880)
+
+
+_FITS_TYPES = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}
+
+
+def make_fits(samples: np.ndarray, bitpix: int, cards=(), naxis: int | None = None) -> bytes:
+    """A primary-HDU FITS image: ``samples`` [h, w] as BITPIX big-endian
+    samples, FITS row 0 first; ``cards`` extra (key, value) cards before
+    END; ``naxis`` 1 writes NAXIS1 = h alone (a column)."""
+    h, w = samples.shape
+    axes = [("NAXIS", 1), ("NAXIS1", h)] if naxis == 1 else [("NAXIS", 2), ("NAXIS1", w),
+                                                            ("NAXIS2", h)]
+    head = _fits_block([("SIMPLE", True), ("BITPIX", bitpix), *axes, *cards])
+    data = np.ascontiguousarray(samples, _FITS_TYPES[bitpix]).tobytes()
+    return head + data.ljust(-(-len(data) // 2880) * 2880, b"\0")
+
+
+def make_fits_gzip(samples: np.ndarray, bitpix: int, level: int = 6) -> bytes:
+    """A tile-compressed FITS image as Pillow's ``FitsGzipDecoder`` reads
+    it: a data-less primary HDU, then a BINTABLE HDU (``ZIMAGE`` T,
+    ``ZCMPTYPE`` 'GZIP_1') whose one-row table (an 8-byte descriptor) is
+    followed by the gzip of the samples as 4-byte big-endian integers."""
+    h, w = samples.shape
+    body = gzip_bytes(np.ascontiguousarray(samples, ">i4").tobytes(), level)
+    table = struct.pack(">II", len(body), 0)
+    head = _fits_block([("SIMPLE", True), ("BITPIX", 8), ("NAXIS", 0), ("EXTEND", True)])
+    ext = _fits_block([("XTENSION", "'BINTABLE'"), ("BITPIX", 8), ("NAXIS", 2),
+                       ("NAXIS1", 8), ("NAXIS2", 1), ("PCOUNT", len(body)), ("GCOUNT", 1),
+                       ("TFIELDS", 1), ("TTYPE1", "'COMPRESSED_DATA'"),
+                       ("TFORM1", f"'1PB({len(body)})'"), ("ZIMAGE", True),
+                       ("ZBITPIX", bitpix), ("ZNAXIS", 2), ("ZNAXIS1", w), ("ZNAXIS2", h),
+                       ("ZCMPTYPE", "'GZIP_1  '")])
+    data = table + body
+    return head + ext + data.ljust(-(-len(data) // 2880) * 2880, b"\0")
+
+
+def gzip_bytes(data: bytes, level: int = 6) -> bytes:
+    """A gzip member with no name and time 0 (the same bytes every run)."""
+    import gzip  # noqa: PLC0415
+
+    return gzip.compress(data, level, mtime=0)
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's type-2 run-length code of a byte stream (runs may cross rows,
+    as Pillow reads them): a run of 3 to 256 ``0x80 n-1 v``, a 0x80 alone
+    ``0x80 0``, two 0x80s a run, other bytes as they are; numpy, for 4K."""
+    a = np.frombuffer(data, np.uint8)
+    if not a.size:
+        return b""
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    lengths = np.diff(np.r_[starts, a.size])
+    values = a[starts]
+    chunks = -(-lengths // 256)                         # runs of at most 256
+    cval = np.repeat(values, chunks)
+    first = np.repeat(np.cumsum(chunks) - chunks, chunks)
+    k = np.arange(cval.size) - first
+    clen = np.minimum(256, np.repeat(lengths, chunks) - 256 * k)
+    is80 = cval == 0x80
+    run = (clen >= 3) | (is80 & (clen == 2))
+    single80 = is80 & (clen == 1)
+    size = np.where(run, 3, np.where(single80, 2, clen))
+    at = np.cumsum(size) - size
+    out = np.empty(int(size.sum()), np.uint8)
+    lit = ~run & ~single80
+    lit_at = np.repeat(at[lit], clen[lit]) + (np.arange(int(clen[lit].sum()))
+                                              - np.repeat(np.cumsum(clen[lit]) - clen[lit],
+                                                          clen[lit]))
+    out[lit_at] = np.repeat(cval[lit], clen[lit])
+    out[at[run]], out[at[run] + 1], out[at[run] + 2] = 0x80, clen[run] - 1, cval[run]
+    out[at[single80]], out[at[single80] + 1] = 0x80, 0
+    return out.tobytes()
+
+
+def make_sun(rows: np.ndarray, width: int, depth: int, ftype: int = 1, palette: bytes = b"",
+             maptype: int = 1) -> bytes:
+    """A Sun raster of ``rows`` uint8 [h, bytes] (each row's samples as the
+    file holds them: bits MSB first, BGR or, type 3, RGB), padded to 16
+    bits for the raw types, run-length coded unpadded for type 2; a colour
+    map ``palette`` (all reds, then greens, then blues)."""
+    h, rowbytes = rows.shape
+    if ftype == 2:
+        data = sun_rle(rows.tobytes())
+    else:
+        stride = ((width * depth + 15) // 16) * 2
+        data = np.pad(rows, ((0, 0), (0, stride - rowbytes))).tobytes()
+    head = struct.pack(">8I", 0x59A66A95, width, h, depth, len(data), ftype,
+                       maptype if palette else 0, len(palette))
+    return head + palette + data
+
+
+def make_xpm(indices: np.ndarray, colors: list, bpp: int = 1, none_key: bytes | None = None,
+             pixels_line: bool = True) -> bytes:
+    """An XPM of palette indices [h, w] over ``colors`` (RGB tuples), each
+    colour a key of ``bpp`` characters; ``none_key`` adds a ``c None``
+    entry (counted in the colours, used by no pixel)."""
+    chars = "".join(chr(c) for c in range(35, 127) if chr(c) not in '"\\')
+    keys = []
+    for i in range(len(colors)):
+        k, j = "", i
+        for _ in range(bpp):
+            k, j = k + chars[j % len(chars)], j // len(chars)
+        keys.append(k.encode())
+    h, w = indices.shape
+    n = len(colors) + (none_key is not None)
+    out = [b"/* XPM */", b"static char *image[] = {", b"/* columns rows colors chars */",
+           f'"{w} {h} {n} {bpp}",'.encode()]
+    if none_key is not None:
+        out.append(b'"' + none_key + b' c None",')
+    out += [b'"' + k + b" c #%02x%02x%02x" % tuple(c) + b'",' for k, c in zip(keys, colors)]
+    if pixels_line:
+        out.append(b"/* pixels */")
+    out += [b'"' + b"".join(keys[i] for i in row) + b'",' for row in indices]
+    return b"\n".join(out) + b"\n};\n"
+
+
+def msp_rle_row(row: bytes) -> bytes:
+    """One MSP version 2 row: runs of 3 to 255 equal bytes ``0 n v``, the
+    bytes between them literal packets of at most 255."""
+    out, at = bytearray(), 0
+    for m in re.finditer(rb"(.)\1{2,254}", row, re.S):
+        for k in range(at, m.start(), 255):
+            lit = row[k:min(k + 255, m.start())]
+            out += bytes([len(lit)]) + lit
+        out += bytes([0, m.end() - m.start()]) + m.group(1)
+        at = m.end()
+    for k in range(at, len(row), 255):
+        lit = row[k:k + 255]
+        out += bytes([len(lit)]) + lit
+    return bytes(out)
+
+
+def make_msp(rows: np.ndarray, width: int, version: int = 2, blank=()) -> bytes:
+    """An MSP of packed 1-bit rows [h, (w + 7) // 8] (a set bit white):
+    version 1 raw, or version 2 with its row map and run-length rows (the
+    rows in ``blank`` written with length 0, a white row)."""
+    h = rows.shape[0]
+    words = [0] * 16
+    words[0], words[1] = struct.unpack("<HH", b"DanM" if version == 1 else b"LinS")
+    words[2], words[3], words[4:8], words[8], words[9] = width, h, [1, 1, 1, 1], width, h
+    for wd in words[:12] + words[13:]:
+        words[12] ^= wd
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    coded = [b"" if y in blank else msp_rle_row(rows[y].tobytes()) for y in range(h)]
+    return head + struct.pack(f"<{h}H", *map(len, coded)) + b"".join(coded)
+
+
+def make_spider(image: np.ndarray, order: str = ">", stack: int = 0) -> bytes:
+    """A SPIDER image of float32 [h, w] (``order`` its byte order), alone
+    or (``stack`` > 0) as the first of a stack of ``stack`` images: the
+    stack's header, then each image's header and samples."""
+    h, w = image.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+
+    def header(istack, imgnum, maxim):
+        v = np.zeros(labbyt // 4, np.float64)
+        v[[0, 1, 4, 11, 12, 21, 22]] = [1, h, 1, w, labrec, labbyt, lenbyt]
+        v[23], v[25], v[26] = istack, maxim, imgnum
+        return v.astype(order + "f4").tobytes()
+
+    body = np.ascontiguousarray(image, order + "f4").tobytes()
+    if not stack:
+        return header(0, 0, 0) + body
+    return header(2, 0, stack) + b"".join(header(0, k + 1, 0) + body for k in range(stack))
+
+
+def make_pixar(rgb: np.ndarray, chan: int = 14, depth: int = 2) -> bytes:
+    """A PIXAR picture: the 1024-byte header (the size at 418 and 416, the
+    channel and depth words at 424 and 426), RGB samples after it."""
+    h, w, _ = rgb.shape
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, chan, depth)
+    return bytes(head) + np.ascontiguousarray(rgb, np.uint8).tobytes()
+
+
+def make_mcidas(samples: np.ndarray, nbytes: int, prefix: int = 0, offset: int = 256) -> bytes:
+    """A McIdas area of one band, ``nbytes`` big-endian bytes a sample,
+    each line after ``prefix`` bytes, the data at ``offset``."""
+    h, w = samples.shape
+    words = np.zeros(65, np.int64)
+    words[2], words[9], words[10], words[11], words[14] = 4, h, w, nbytes, 1
+    words[15], words[34] = prefix, offset
+    head = words[1:].astype(">i4").tobytes().ljust(offset, b"\0")
+    dtype = {1: ">u1", 2: ">u2", 4: ">i4"}[nbytes]
+    lines = np.ascontiguousarray(samples, dtype).view(np.uint8).reshape(h, -1)
+    return head + np.pad(lines, ((0, 0), (prefix, 0)), constant_values=7).tobytes()
+
+
+def make_xvthumb(indices: np.ndarray, comments=(b"#XVVERSION:Version 3.10a",
+                                                b"#END_OF_COMMENTS")) -> bytes:
+    """An XV thumbnail of 3-3-2 palette indices [h, w]."""
+    h, w = indices.shape
+    return b"P7 332\n" + b"".join(c + b"\n" for c in comments) + f"{w} {h} 255\n".encode() \
+        + np.ascontiguousarray(indices, np.uint8).tobytes()
+
+
+def make_gbr(pixels: np.ndarray, version: int = 2, name: bytes = b"brush",
+             spacing: int = 25) -> bytes:
+    """A GIMP brush of uint8 [h, w] (depth 1) or [h, w, 4] (depth 4)."""
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else pixels.shape[2]
+    comment = name + b"\0"
+    size = (20 if version == 1 else 28) + len(comment)
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", spacing)
+    return head + comment + np.ascontiguousarray(pixels, np.uint8).tobytes()
+
+
+def make_imt(gray: np.ndarray, extra=(b"* an IM Tools image",)) -> bytes:
+    """An IM Tools image: ``key value`` lines, a form feed, 8-bit rows."""
+    h, w = gray.shape
+    lines = [*extra, f"width {w}".encode(), f"height {h}".encode(), b"pixel n8"]
+    return b"\n".join(lines) + b"\n\x0c" + np.ascontiguousarray(gray, np.uint8).tobytes()
+
+
+def _raster_planes(hw=(30, 45), seed=61) -> tuple:
+    """A seeded picture's RGB levels and gray, 16-bit, 32-bit and float
+    planes of it."""
+    rgb = levels(hw, seed, noise=0.05)
+    g = rgb[..., 1].astype(np.int64)
+    return (rgb, g, g * 257 - 32768, (g - 128) * 16_777_259 + g,
+            (g.astype(np.float64) - 60.0) * 1.37)
+
+
+def raster_goldens() -> dict[str, bytes]:
+    """Phase 30's small goldens, a file per g1 kind and variant (Pillow's
+    writes of XBM, MSP version 1 and SPIDER; the rest from the writers
+    above): FITS at every BITPIX, NAXIS 1 and GZIP_1; Sun rasters at every
+    depth, with colour maps, type 3 and type 2 (RLE); XBM with and without
+    a hotspot; XPM with a ``None`` colour and above 256 colours; MSP
+    versions 1 and 2; SPIDER little- and big-endian and a stack; PIXAR;
+    McIdas at 1, 2 and 4 bytes; XV thumbnail; GBR versions 1 and 2; IMT."""
+    from PIL import Image  # noqa: PLC0415
+
+    rgb, g, g16, g32, gf = _raster_planes()
+    h, w = g.shape
+    bits = (g > 150) ^ (np.arange(w) % 7 == 0)
+    bgr = rgb[..., ::-1].reshape(h, -1)
+    pal = bytes(np.concatenate([np.arange(16) * 17, np.arange(16)[::-1] * 16,
+                                (np.arange(16) * 5) % 256]).astype(np.uint8))
+    idx = (g // 32).astype(np.uint8)
+    colors = [(40 * k % 256, 255 - 30 * k, 90 + 20 * k) for k in range(8)]
+    many = (g[:, :, None] * [1, 3, 7] % 256).astype(np.uint8).reshape(-1, 3)
+    uniq, inv = np.unique(many, axis=0, return_inverse=True)
+    out = {
+        "raster_fits8.fits": make_fits(g, 8),
+        "raster_fits16.fits": make_fits(g16, 16),
+        "raster_fits32.fits": make_fits(g32, 32, cards=[("BSCALE", 1), ("BZERO", 0)]),
+        "raster_fitsm32.fits": make_fits(gf, -32),
+        "raster_fitsm64.fits": make_fits(gf, -64),
+        "raster_fits_naxis1.fits": make_fits(g16[:, :1], 16, naxis=1),
+        "raster_fits_gzip16.fits": make_fits_gzip(g16, 16),
+        "raster_fits_gzip32.fits": make_fits_gzip(g32, 32),
+        "raster_sun1.ras": make_sun(np.packbits(bits, axis=1), w, 1),
+        "raster_sun4.ras": make_sun((idx[:, 0::2] << 4 | np.pad(idx, ((0, 0), (0, 1)))[:, 1::2]
+                                     [:, :(w + 1) // 2]), w, 4),
+        "raster_sun4_map.ras": make_sun((idx[:, 0::2] << 4 | np.pad(idx, ((0, 0), (0, 1)))
+                                         [:, 1::2][:, :(w + 1) // 2]), w, 4, palette=pal),
+        "raster_sun8.ras": make_sun(g.astype(np.uint8), w, 8),
+        "raster_sun8_map.ras": make_sun(idx * 2, w, 8, palette=pal),
+        "raster_sun24.ras": make_sun(bgr, w, 24),
+        "raster_sun24_rgb.ras": make_sun(rgb.reshape(h, -1), w, 24, ftype=3),
+        "raster_sun32.ras": make_sun(np.concatenate([rgb[..., ::-1], g[..., None] % 7], -1)
+                                     .astype(np.uint8).reshape(h, -1), w, 32),
+        "raster_sun_rle8.ras": make_sun((g // 16 * 16).astype(np.uint8), w, 8, ftype=2),
+        "raster_sun_rle24.ras": make_sun(bgr // 8 * 8, w, 24, ftype=2),
+        "raster_xbm.xbm": _save(Image.fromarray(bits), "XBM"),
+        "raster_xbm_hot.xbm": _save(Image.fromarray(bits[:17, :20]), "XBM", hotspot=(5, 9)),
+        "raster_xpm.xpm": make_xpm(idx, colors),
+        "raster_xpm_none.xpm": make_xpm(idx, colors, none_key=b" "),
+        "raster_xpm_rgb.xpm": make_xpm(inv.reshape(h, w), [tuple(c) for c in uniq], bpp=2),
+        "raster_msp1.msp": _save(Image.fromarray(bits), "MSP"),
+        "raster_msp2.msp": make_msp(np.packbits(bits, axis=1), w, blank=(3,)),
+        "raster_spider.spi": _save(Image.fromarray(gf.astype(np.float32)), "SPIDER"),
+        "raster_spider_be.spi": make_spider(gf.astype(np.float32)),
+        "raster_spider_stack.spi": make_spider(gf.astype(np.float32)[::-1], "<", stack=2),
+        "raster_pixar.pxr": make_pixar(rgb),
+        "raster_mcidas8.area": make_mcidas(g, 1),
+        "raster_mcidas16.area": make_mcidas(g16 & 0xFFFF, 2, prefix=4),
+        "raster_mcidas32.area": make_mcidas(g32, 4, prefix=8, offset=512),
+        "raster_xv.xv": make_xvthumb(rgb[..., 0] // 32 * 32 | rgb[..., 1] // 32 * 4
+                                     | rgb[..., 2] // 64),
+        "raster_gbr1.gbr": make_gbr(g.astype(np.uint8), 1),
+        "raster_gbr2.gbr": make_gbr(np.concatenate([rgb, g[..., None]], -1).astype(np.uint8)),
+        "raster_imt.imt": make_imt(g.astype(np.uint8)),
+    }
+    return out
+
+
+RASTER_NAMES = (
+    "raster_fits8.fits", "raster_fits16.fits", "raster_fits32.fits", "raster_fitsm32.fits",
+    "raster_fitsm64.fits", "raster_fits_naxis1.fits", "raster_fits_gzip16.fits",
+    "raster_fits_gzip32.fits", "raster_sun1.ras", "raster_sun4.ras", "raster_sun4_map.ras",
+    "raster_sun8.ras", "raster_sun8_map.ras", "raster_sun24.ras", "raster_sun24_rgb.ras",
+    "raster_sun32.ras", "raster_sun_rle8.ras", "raster_sun_rle24.ras", "raster_xbm.xbm",
+    "raster_xbm_hot.xbm", "raster_xpm.xpm", "raster_xpm_none.xpm", "raster_xpm_rgb.xpm",
+    "raster_msp1.msp", "raster_msp2.msp", "raster_spider.spi", "raster_spider_be.spi",
+    "raster_spider_stack.spi", "raster_pixar.pxr", "raster_mcidas8.area",
+    "raster_mcidas16.area", "raster_mcidas32.area", "raster_xv.xv", "raster_gbr1.gbr",
+    "raster_gbr2.gbr", "raster_imt.imt")
+# the goldens Pillow writes (remade with Pillow); the rest are numpy's
+RASTER_PILLOW = ("raster_xbm.xbm", "raster_xbm_hot.xbm", "raster_msp1.msp", "raster_spider.spi")
+
+
+def raster_fixtures() -> dict[str, bytes]:
+    """Phase 30's goldens, as tests/goldens/ holds them."""
+    return {name: (GOLDENS / name).read_bytes() for name in RASTER_NAMES}
+
+
+def raster_picture(hw=(2160, 3840), seed: int = 71) -> np.ndarray:
+    """A seeded RGB picture with runs for run-length codes: gray squares of
+    16 pixels (equal bytes across B, G and R), seeded noise of up to 6
+    levels a channel in a quarter of its 64-pixel blocks (literal bytes;
+    soft enough that spec's 16-bit spectrum of it compresses)."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    y, x = np.ogrid[0:h, 0:w]
+    rgb = np.repeat((((x // 16 + y // 16) % 8) * 32 + 16).astype(np.uint8)[..., None], 3, -1)
+    blocks = rng.random((-(-h // 64), -(-w // 64))) < 0.25
+    mask = np.repeat(np.repeat(blocks, 64, 0), 64, 1)[:h, :w]
+    noise = rng.integers(-6, 7, (int(mask.sum()), 3))
+    rgb[mask] = (rgb[mask].astype(np.int64) + noise).astype(np.uint8)
+    return rgb
+
+
+def raster_4k(kind: str, rgb: np.ndarray | None = None) -> bytes:
+    """Phase 30's 4K files, made with numpy alone from :func:`raster_picture`
+    (or ``rgb``): ``sun`` a 24-bit type-2 (RLE) Sun raster, ``fits`` a
+    BITPIX 16 FITS of its green levels."""
+    rgb = raster_picture() if rgb is None else rgb
+    h, w, _ = rgb.shape
+    if kind == "sun":
+        return make_sun(rgb[..., ::-1].reshape(h, -1), w, 24, ftype=2)
+    return make_fits(rgb[..., 1].astype(np.int64) * 257 - 32768, 16)
