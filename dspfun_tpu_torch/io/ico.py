@@ -48,8 +48,8 @@ from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import png as _png
 from dspfun_tpu_torch.io import rawimg as _raw
 
-__all__ = ["ICO_SIZES", "decode_cur", "decode_ico", "encode_ico", "open_cur", "open_ico", "resize",
-           "thumbnail"]
+__all__ = ["BICUBIC", "ICO_SIZES", "LANCZOS", "decode_cur", "decode_ico", "encode_ico", "open_cur",
+           "open_ico", "resize", "thumbnail"]
 
 ICO_SIZES = ((16, 16), (24, 24), (32, 32), (48, 48), (64, 64), (128, 128), (256, 256))
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -72,15 +72,20 @@ def _thumbnail_size(w: int, h: int, size: tuple[int, int]) -> tuple[int, int] | 
     return x, y
 
 
-def resize(arr: np.ndarray, ow: int, oh: int) -> np.ndarray:
-    """``Image.resize((ow, oh), LANCZOS)`` of uint8 [H, W, 3|4] (RGBA
-    through ``RGBa``) or uint16 gray [H, W]."""
+# Resample.c's filters by the index native/rawimg.cpp takes
+LANCZOS, BICUBIC = 0, 1
+
+
+def resize(arr: np.ndarray, ow: int, oh: int, resample: int = LANCZOS) -> np.ndarray:
+    """``Image.resize((ow, oh), resample)`` of uint8 [H, W, 3|4] (RGBA
+    through ``RGBa``) or uint16 gray [H, W]; ``resample`` is
+    :data:`LANCZOS` or :data:`BICUBIC` (``resize``'s default)."""
     lib = _raw._load()
     if arr.dtype == np.uint16:
         src = np.ascontiguousarray(arr)
         out = np.empty((oh, ow), np.uint16)
         ptr = lambda a: a.ctypes.data_as(_raw.ctypes.POINTER(_raw.ctypes.c_uint16))  # noqa: E731
-        lib.resample_16bpc(ptr(src), src.shape[1], src.shape[0], ow, oh, ptr(out))
+        lib.resample_16bpc(ptr(src), src.shape[1], src.shape[0], ow, oh, resample, ptr(out))
         return out
     h, w, c = arr.shape
     src = np.ascontiguousarray(arr)
@@ -88,7 +93,7 @@ def resize(arr: np.ndarray, ow: int, oh: int) -> np.ndarray:
         t = src[..., :3].astype(np.uint32) * src[..., 3:].astype(np.uint32) + 128
         src = np.concatenate([(((t >> 8) + t) >> 8).astype(np.uint8), src[..., 3:]], axis=-1)
     out = np.empty((oh, ow, c), np.uint8)
-    lib.resample_8bpc(_raw._ptr(src), w, h, c, ow, oh, _raw._ptr(out))
+    lib.resample_8bpc(_raw._ptr(src), w, h, c, ow, oh, resample, _raw._ptr(out))
     if c == 4:  # RGBa -> RGBA: CLIP8(255 * x / alpha) where alpha is not 0 or 255
         a = out[..., 3:].astype(np.uint32)
         div = np.minimum(255 * out[..., :3].astype(np.uint32) // np.maximum(a, 1), 255)

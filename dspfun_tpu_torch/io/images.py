@@ -42,19 +42,24 @@ Pillow's LANCZOS thumbnails on ICO write), DIB (``io/imgcodecs.py``), PSD
 ``native/bcn.cpp``: uncompressed, palette, BC1 to BC7; written
 uncompressed), JPEG 2000 on read (``io/jpeg2000.py`` with
 ``native/j2k.cpp``: JP2 and raw codestreams, reversible and irreversible),
-and MPO on write (its one frame is a JPEG), each
+MPO on write (its one frame is a JPEG), g1's header-and-rows rasters
+(``io/rasters.py``: FITS, Sun raster, XBM, XPM, MSP, SPIDER, PIXAR, McIdas,
+XV thumbnail, GBR and IMT read; SPIDER written), ICNS (``io/icns.py``: read,
+and written with Pillow's BICUBIC resizes), BLP (``io/blp.py``) and FTEX,
+FLI, PCD and IPTC (``io/containers.py``) on read, each
 reading what Pillow decodes and writing what it writes.  They take
-every file they carry, whether cv2 imports or not.
+every file they carry, whether cv2 imports or not.  XBM, MSP, Palm and
+BLP writes fail as they fail in the JAX package, whose Pillow cannot save
+its ``RGB``, ``RGBA`` or ``I;16`` images in them (``_PILLOW_FAILS``).
 Every TIFF Pillow opens goes to ``imgcodecs.decode_tiff``.
 The rest (WebP frames with the simple loop filter or several token
 partitions, and WebP output) goes through ``cv2`` where it imports
 (``_cv2_decode``); where cv2 does not import, it is refused with a
 ``ValueError`` naming ROADMAP queue 1, item 8
-and its part (``png.refusal``).  Pillow's other formats (AVIF, EPS and the
-rest of ``_PILLOW_ORDER``'s refusals and ``_OTHER_WRITES``, JPEG 2000
-writes among them), and the JPEG 2000 features no Pillow setting writes,
-are refused with or without cv2, naming item 8h, on read and before
-anything is written.
+and its part (``png.refusal``).  Pillow's other formats (AVIF and EPS
+reads, ``_OTHER_WRITES``: AVIF, EPS, PDF and JPEG 2000 writes), and the
+JPEG 2000 features no Pillow setting writes, are refused with or without
+cv2, naming item 8h, on read and before anything is written.
 Inputs are identified as Pillow's ``Image.open`` identifies them: each
 plugin in its order, passing the file on where Pillow's plugin would
 (``_PILLOW_ORDER``: a JPEG frame of other than 8-bit samples, a TIFF whose
@@ -73,10 +78,13 @@ import sys
 
 import numpy as np
 
+from dspfun_tpu_torch.io import blp as _blp
 from dspfun_tpu_torch.io import color as _color
+from dspfun_tpu_torch.io import containers as _containers
 from dspfun_tpu_torch.io import cv2_bridge as _cv2_bridge
 from dspfun_tpu_torch.io import dds as _dds
 from dspfun_tpu_torch.io import gif as _gif
+from dspfun_tpu_torch.io import icns as _icns
 from dspfun_tpu_torch.io import ico as _ico
 from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import jpeg as _jpeg
@@ -109,7 +117,15 @@ _NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
                    "GIF": _gif.encode_gif, "TGA": _rawimg.encode_tga,
                    "PCX": _rawimg.encode_pcx, "QOI": _rawimg.encode_qoi,
                    "DIB": _codecs.encode_dib, "MPO": _jpeg.encode_jpeg, "ICO": _ico.encode_ico,
-                   "DDS": _dds.encode_dds}
+                   "DDS": _dds.encode_dds, "ICNS": _icns.encode_icns,
+                   "SPIDER": _rasters.encode_spider}
+# the formats Pillow cannot save any image the JAX package hands it in (it
+# wants 1-bit XBM, MSP and Palm, and a P image for BLP): the error it raises,
+# of the mode of the image (RGB, RGBA or I;16)
+_PILLOW_FAILS = {"XBM": lambda mode: OSError(f"cannot write mode {mode} as XBM"),
+                 "MSP": lambda mode: OSError(f"cannot write mode {mode} as MSP"),
+                 "PALM": lambda mode: OSError(f"cannot write mode {mode} as Palm"),
+                 "BLP": lambda mode: ValueError("Unsupported BLP image mode")}
 # the writers that put the output's name into the file (Pillow's filename)
 _NAMED_WRITERS = {"SGI": _rawimg.encode_sgi, "IM": _rawimg.encode_im}
 _CV2_WRITERS = {"WEBP": ".webp"}
@@ -119,38 +135,6 @@ def _u32(d: bytes, o: int, order: str = "<") -> int:
     if len(d) < o + 4:
         raise _rawimg.Skip("short header")
     return struct.unpack_from(order + "I", d, o)[0]
-
-
-def _iptc(d: bytes) -> bool:
-    """``IptcImageFile._open``'s field walk: 0x1c-tagged fields up to the
-    record (8, 10); the image's (3, 60) field is required."""
-    pos, info = 0, {}
-    while True:
-        s = d[pos:pos + 5]
-        pos += len(s)
-        if not s.strip(b"\0"):
-            break
-        if len(s) < 4 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            return False
-        tag, size = (s[1], s[2]), s[3]
-        if size > 132:
-            raise OSError("illegal field length in IPTC/NAA file")
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size = int.from_bytes((bytes(4) + d[pos:pos + size - 128])[-4:], "big")
-            pos += min(size - 128, len(d) - pos)
-        elif len(s) < 5:
-            return False
-        else:
-            size = struct.unpack_from(">H", s, 3)[0]
-        if tag == (8, 10):
-            break
-        info[tag] = d[pos:pos + size] if size else None
-        pos += len(info[tag] or b"")
-    if (3, 60) not in info:     # Pillow's KeyError: the next plugin is tried
-        raise _rawimg.Skip("an IPTC record without its (3, 60) field")
-    return isinstance(info[(3, 60)], bytes) and len(info[(3, 60)]) >= 2
 
 
 def _dib_open(d: bytes) -> None:
@@ -231,27 +215,26 @@ _PILLOW_ORDER = (
     ("PPM", lambda d: _codecs.decode_pnm if _codecs.pnm_magic(d) else None),
     ("AVIF", _refused("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis",
                                                                         b"mif1", b"msf1"))),
-    ("BLP", _refused("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")))),
+    ("BLP", _ported(_blp.open_blp, _blp.decode_blp)),
     ("CUR", _ported(_ico.open_cur, _ico.decode_cur)),
     ("PCX", _ported(_rawimg.open_pcx, _rawimg.decode_pcx)),
     ("DCX", _ported(_rawimg.open_dcx, _rawimg.decode_dcx)),
     ("DDS", _ported(_dds.open_dds, _dds.decode_dds)),
     ("EPS", _refused("EPS", lambda d: d.startswith((b"%!PS", b"\xc5\xd0\xd3\xc6")))),
     ("FITS", _ported(_rasters.open_fits, _rasters.decode_fits)),
-    ("FLI", _refused("FLI", lambda d: len(d) >= 22 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
-                     and d[14:16] in (b"\0\0", b"\3\0") and d[20:22] == b"\0\0")),
-    ("FTEX", _refused("FTEX", lambda d: d.startswith(b"FTEX"))),
+    ("FLI", _ported(_containers.open_fli, _containers.decode_fli)),
+    ("FTEX", _ported(_containers.open_ftex, _containers.decode_ftex)),
     ("GBR", _ported(_rasters.open_gbr, _rasters.decode_gbr)),
     ("JPEG 2000", _ported(_jpeg2000.open_j2k, _jpeg2000.decode_j2k)),
-    ("ICNS", _refused("ICNS", lambda d: d.startswith(b"icns"))),
+    ("ICNS", _ported(_icns.open_icns, _icns.decode_icns)),
     ("ICO", _ported(_ico.decode_ico, _ico.decode_ico)),  # Pillow decodes inside its open
     ("IM", _ported(_rawimg.open_im, _rawimg.decode_im)),
     ("IMT", _ported(_rasters.open_imt, _rasters.decode_imt)),
-    ("IPTC", _refused("IPTC", _iptc)),
+    ("IPTC", _ported(_containers.open_iptc, _containers.decode_iptc)),
     ("McIdas", _ported(_rasters.open_mcidas, _rasters.decode_mcidas)),
     ("TIFF", _tiff_claim),
     ("MSP", _ported(_rasters.open_msp, _rasters.decode_msp)),
-    ("PCD", _refused("PCD", lambda d: d[2048:2052] == b"PCD_")),
+    ("PCD", _ported(_containers.open_pcd, _containers.decode_pcd)),
     ("PIXAR", _ported(_rasters.open_pixar, _rasters.decode_pixar)),
     ("PSD", _ported(_psd.open_psd, _psd.decode_psd)),
     ("QOI", _ported(_rawimg.open_qoi, _rawimg.decode_qoi)),
@@ -266,8 +249,7 @@ _PILLOW_ORDER = (
 )
 # Pillow 12.1's save formats that the port does not write, refused
 # naming item 8h before anything is read or written
-_OTHER_WRITES = frozenset({"AVIF", "BLP", "EPS", "ICNS", "JPEG2000", "MSP", "PALM", "PDF",
-                           "SPIDER", "XBM"})
+_OTHER_WRITES = frozenset({"AVIF", "EPS", "JPEG2000", "PDF"})
 
 
 def base16_encode(data: bytes) -> str:
@@ -543,6 +525,9 @@ def write_image(
                                       and arr.shape[2] == 4):
         # Pillow writes no alpha and no 16 bits as JPEG (an MPO's one frame)
         raise ValueError(f"cannot write {'I;16' if arr.dtype != np.uint8 else 'RGBA'} as JPEG")
+    elif name in _PILLOW_FAILS:
+        raise _PILLOW_FAILS[name]("I;16" if arr.dtype != np.uint8 else "RGBA" if arr.shape[2] == 4
+                                  else "RGB")
     elif name in _NATIVE_WRITERS:
         data = _NATIVE_WRITERS[name](arr)
     elif name in _NAMED_WRITERS:

@@ -696,7 +696,7 @@ def decode_coefficients(data: bytes, tables: tuple[dict, dict] | None = None,
 
 
 def reconstruct(frame: Frame, coefs: list[np.ndarray], latch: tuple | None = None,
-                as_stored: bool = False) -> np.ndarray:
+                as_stored: bool = False, ycck_as_cmyk: bool = False) -> np.ndarray:
     """Samples uint8 [H, W, C] of the coefficients (libjpeg's islow IDCT,
     fancy upsampling and colour conversion): C = 1 gray, 3 RGB; four
     components give the RGB of Pillow's ``convert("RGBA")`` of its CMYK
@@ -705,7 +705,9 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray], latch: tuple | None = Non
     (``jdcoefct.c`` decompress_smooth_data); None: not smoothed.
     ``as_stored``: every component upsampled and none converted (libjpeg's
     ``JCS_UNKNOWN``, as libtiff reads the strips of a TIFF that is not
-    YCbCr), C = the number of components.  A lossless frame's samples
+    YCbCr), C = the number of components.  ``ycck_as_cmyk``: four
+    components read as CMYK whatever the Adobe marker says (the ``CMYK``
+    JPEG colour space ``BlpImagePlugin`` sets).  A lossless frame's samples
     (``coefs``: uint8 [blocks_h, blocks_w] per component) are upsampled by
     replication, as libjpeg does for a DCT size of 1, and not converted:
     libjpeg refuses a lossless file in YCbCr or YCCK, and so does this.
@@ -719,6 +721,8 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray], latch: tuple | None = Non
     if frame.precision == 12:
         return _reconstruct12(frame, coefs)
     colorspace = _RGB if as_stored else frame.colorspace
+    if ycck_as_cmyk and colorspace == _YCCK:
+        colorspace = _CMYK
     out = np.empty((frame.height, frame.width, 3 if n == 4 and not as_stored else n), np.uint8)
     u8 = ctypes.POINTER(ctypes.c_uint8)
     if frame.lossless:

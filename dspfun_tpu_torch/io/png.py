@@ -66,9 +66,10 @@ def refusal(what: str, part: str = "") -> ValueError:
                    "and no other format") if part == "h" else
                   (f"{what} needs cv2, which does not import here", "and the rest only through cv2"))
     return ValueError(f"{lead}: the port reads and writes PNG, PNM, BMP, DIB, TIFF, JPEG, GIF, "
-                      f"TGA, PCX, SGI, QOI, IM, ICO and DDS itself, writes MPO as JPEG, and reads "
-                      f"WebP, PSD, CUR, DCX, JPEG 2000, FITS, Sun raster, XBM, XPM, MSP, SPIDER, "
-                      f"PIXAR, McIdas, XV thumbnail, GBR and IMT itself (TIFF: uncompressed, LZW, "
+                      f"TGA, PCX, SGI, QOI, IM, ICO, DDS, ICNS and SPIDER itself, writes MPO as "
+                      f"JPEG, and reads WebP, PSD, CUR, DCX, JPEG 2000, FITS, Sun raster, XBM, "
+                      f"XPM, MSP, PIXAR, McIdas, XV thumbnail, GBR, IMT, BLP, FTEX, FLI, PCD and "
+                      f"IPTC itself (TIFF: uncompressed, LZW, "
                       f"deflate, PackBits, JPEG, CCITT RLE, Group 3 or Group 4, Zstandard or LZMA "
                       f"strips or tiles, chunky or planar, every sample layout Pillow reads, YCbCr "
                       f"and CIELab included; JPEG: baseline, extended and progressive Huffman, "

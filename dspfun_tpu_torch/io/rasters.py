@@ -32,7 +32,8 @@ corrected:
 * **MSP**: version 1 raw rows, version 2 through
   ``native/rawimg.cpp:msp_rle_decode`` (``MspDecoder``);
 * **SPIDER**: the first image of a file or stack, float32 of either byte
-  order;
+  order; written (:func:`encode_spider`) as ``SpiderImagePlugin._save``
+  writes the JAX package's ``RGB``, ``RGBA`` and ``I;16`` images;
 * **PIXAR** (``RGB`` at 1024), **McIdas** (8-, 16- and 32-bit big-endian
   with its stride), **XV thumbnail** (3-3-2 palette), **GBR** (versions 1
   and 2, ``L`` or ``RGBA``) and **IMT** (``L``).
@@ -54,8 +55,9 @@ from dspfun_tpu_torch.io import rawimg as _raw
 
 __all__ = ["decode_fits", "decode_gbr", "decode_imt", "decode_mcidas", "decode_msp",
            "decode_pixar", "decode_spider", "decode_sun", "decode_xbm", "decode_xpm",
-           "decode_xvthumb", "open_fits", "open_gbr", "open_imt", "open_mcidas", "open_msp",
-           "open_pixar", "open_spider", "open_sun", "open_xbm", "open_xpm", "open_xvthumb"]
+           "decode_xvthumb", "encode_spider", "open_fits", "open_gbr", "open_imt",
+           "open_mcidas", "open_msp", "open_pixar", "open_spider", "open_sun", "open_xbm",
+           "open_xpm", "open_xvthumb", "to_float"]
 
 _Skip = _raw.Skip
 
@@ -505,6 +507,32 @@ def decode_spider(data: bytes) -> tuple[np.ndarray, int]:
     s = open_spider(data)
     (w, h) = s["size"]
     return _gray(_samples(_rows(data, s["offset"], 4 * w, h), w, s["dtype"]), "F")
+
+
+def to_float(arr: np.ndarray) -> np.ndarray:
+    """``convert("F")`` of uint8 RGB or RGBA (``R * 0.299 + G * 0.587 + B *
+    0.114`` in double, then float32; alpha unread) or uint16 gray
+    (``I;16``, exact)."""
+    if arr.dtype == np.uint16:
+        return arr.astype(np.float32)
+    a = arr.astype(np.float64)
+    return (a[..., 0] * 0.299 + a[..., 1] * 0.587 + a[..., 2] * 0.114).astype(np.float32)
+
+
+def encode_spider(arr: np.ndarray) -> bytes:
+    """``SpiderImagePlugin._save`` of uint8 RGB or RGBA or uint16 gray:
+    ``convert("F")``, ``makeSpiderHeader`` (labrec records of 4 * nsam
+    bytes, the Fortran-indexed values shifted down by one) and the
+    samples as little-endian float32 (``F;32NF``, native order on the
+    port's hosts)."""
+    f = to_float(arr)
+    nrow, nsam = f.shape
+    lenbyt = nsam * 4
+    labrec = 1024 // lenbyt + (1024 % lenbyt != 0)
+    labbyt = labrec * lenbyt
+    hdr = np.zeros(labbyt // 4, "<f4")
+    hdr[[0, 1, 2, 4, 11, 12, 21, 22]] = [1, nrow, nrow, 1, nsam, labrec, labbyt, lenbyt]
+    return hdr.tobytes() + np.ascontiguousarray(f, "<f4").tobytes()
 
 
 # ---- PIXAR, McIdas, XV thumbnail ----------------------------------------------------

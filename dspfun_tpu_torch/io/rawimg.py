@@ -163,10 +163,14 @@ def _load() -> ctypes.CDLL:
     lib.pcx_encode.restype = i64
     lib.pcx_encode.argtypes = [u8p, c.c_int, i64, c.c_int, u8p]
     lib.resample_8bpc.restype = None
-    lib.resample_8bpc.argtypes = [u8p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, u8p]
+    lib.resample_8bpc.argtypes = [u8p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, u8p]
     lib.resample_16bpc.restype = None
     lib.resample_16bpc.argtypes = [c.POINTER(c.c_uint16), c.c_int, c.c_int, c.c_int, c.c_int,
-                                   c.POINTER(c.c_uint16)]
+                                   c.c_int, c.POINTER(c.c_uint16)]
+    lib.fli_decode.restype = i64
+    lib.fli_decode.argtypes = [c.c_char_p, i64, c.c_int, c.c_int, u8p, c.POINTER(c.c_int)]
+    lib.blp_dxt_decode.restype = None
+    lib.blp_dxt_decode.argtypes = [c.c_char_p, i64, i64, c.c_int, c.c_int, u8p]
     return lib
 
 

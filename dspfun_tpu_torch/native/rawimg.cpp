@@ -19,10 +19,12 @@
 //   PackBits PackBitsDecode.c, as PsdImagePlugin's tiles use it: one
 //            stream per channel, a packet that passes a row's end cut
 //            there (the rest dropped), the no-op 0x80 skipped;
-//   resample Resample.c: precompute_coeffs with the LANCZOS filter, the
-//            8-bit passes on 22-bit fixed-point weights (horizontal, then
-//            vertical, each clipped to 8 bits) and the 16-bit passes on
-//            double weights, for Image.thumbnail;
+//   resample Resample.c: precompute_coeffs with the LANCZOS filter (for
+//            Image.thumbnail) or the BICUBIC one (a = -0.5, support 2; for
+//            Image.resize's default), the 8-bit passes on 22-bit fixed-point
+//            weights (horizontal, then vertical, each clipped to 8 bits) and
+//            the 16-bit passes on double weights, no step contracted into a
+//            fused multiply-add (Pillow's x86-64 build has none);
 //   Sun RLE  SunRleDecode.c: 0x80 0 a literal 0x80, 0x80 n v a run of n + 1,
 //            a run past a row's end carried into the next rows (its
 //            length held in a byte, so a run of 256 that crosses a row
@@ -31,10 +33,20 @@
 //            each row's runs written one after another into one byte
 //            stream (rows not aligned), an empty row a white one;
 //   XBM      XbmDecode.c: each "x" and the two characters after it a byte
-//            (a character that is not a hex digit counts 0).
+//            (a character that is not a hex digit counts 0);
+//   FLI      FliDecode.c: the frame chunk's subchunks (SS2, LC, BLACK, BRUN,
+//            COPY; colour and stamp chunks passed over) on the bytes
+//            ImageFile.load has handed over so far, returning what the C
+//            decoder returns;
+//   BLP DXT  BlpImagePlugin's decode_dxt1, decode_dxt3 and decode_dxt5
+//            (Python in Pillow): 5:6:5 colours widened by a plain shift, the
+//            two mixed colours divided with //, DXT1's 3-colour mode only
+//            where color0 > color1 says so; not BcnDecode.c.
 //
 // The headers, palettes and the unpacking of rows are
-// dspfun_tpu_torch/io/rawimg.py, io/ico.py, io/psd.py and io/rasters.py.
+// dspfun_tpu_torch/io/rawimg.py, io/ico.py, io/icns.py, io/psd.py,
+// io/rasters.py, io/blp.py and io/containers.py.
+#pragma GCC optimize("fp-contract=off")
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -70,12 +82,29 @@ double lanczos(double x) {
   return 0.0;
 }
 
+double bicubic(double x) {
+  constexpr double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+struct Filter {
+  double (*fn)(double);
+  double support;
+};
+
+// by the index io/ico.py passes: 0 LANCZOS, 1 BICUBIC
+const Filter kFilters[] = {{lanczos, 3.0}, {bicubic, 2.0}};
+
 // precompute_coeffs (box from 0 to in_size, as a float)
-int coeffs(int in_size, int out_size, std::vector<int>& bounds, std::vector<double>& kk) {
+int coeffs(int in_size, int out_size, std::vector<int>& bounds, std::vector<double>& kk,
+           const Filter& f) {
   float in0 = 0.0f, in1 = static_cast<float>(in_size);
   double scale = static_cast<double>(in1 - in0) / out_size;
   double filterscale = scale < 1.0 ? 1.0 : scale;
-  double support = 3.0 * filterscale;
+  double support = f.support * filterscale;
   int ksize = static_cast<int>(ceil(support)) * 2 + 1;
   kk.assign(static_cast<size_t>(out_size) * ksize, 0.0);
   bounds.assign(static_cast<size_t>(out_size) * 2, 0);
@@ -89,7 +118,7 @@ int coeffs(int in_size, int out_size, std::vector<int>& bounds, std::vector<doub
     xmax -= xmin;
     double* k = &kk[static_cast<size_t>(xx) * ksize];
     for (int x = 0; x < xmax; x++) {
-      double w = lanczos((x + xmin - center + 0.5) * ss);
+      double w = f.fn((x + xmin - center + 0.5) * ss);
       k[x] = w;
       ww += w;
     }
@@ -591,11 +620,13 @@ int64_t pcx_encode(const uint8_t* lines, int h, int64_t bpl, int planes, uint8_t
   return o;
 }
 
-// Image.resize(LANCZOS) of 8-bit samples [h, w, c] to [oh, ow, c].
-void resample_8bpc(const uint8_t* in, int w, int h, int c, int ow, int oh, uint8_t* out) {
+// Image.resize(filter) of 8-bit samples [h, w, c] to [oh, ow, c].
+void resample_8bpc(const uint8_t* in, int w, int h, int c, int ow, int oh, int filter,
+                   uint8_t* out) {
   std::vector<int> bh, bv;
   std::vector<double> kh, kv;
-  int ksh = coeffs(w, ow, bh, kh), ksv = coeffs(h, oh, bv, kv);
+  const Filter& f = kFilters[filter];
+  int ksh = coeffs(w, ow, bh, kh, f), ksv = coeffs(h, oh, bv, kv, f);
   bool horiz = ow != w, vert = oh != h;
   int first = bv[0], last = bv[oh * 2 - 2] + bv[oh * 2 - 1];
   std::vector<uint8_t> tmp;
@@ -642,10 +673,12 @@ void resample_8bpc(const uint8_t* in, int w, int h, int c, int ow, int oh, uint8
 }
 
 // The same for 16-bit gray (Pillow's I;16), on double weights.
-void resample_16bpc(const uint16_t* in, int w, int h, int ow, int oh, uint16_t* out) {
+void resample_16bpc(const uint16_t* in, int w, int h, int ow, int oh, int filter,
+                    uint16_t* out) {
   std::vector<int> bh, bv;
   std::vector<double> kh, kv;
-  int ksh = coeffs(w, ow, bh, kh), ksv = coeffs(h, oh, bv, kv);
+  const Filter& f = kFilters[filter];
+  int ksh = coeffs(w, ow, bh, kh, f), ksv = coeffs(h, oh, bv, kv, f);
   bool horiz = ow != w, vert = oh != h;
   int first = bv[0], last = bv[oh * 2 - 2] + bv[oh * 2 - 1];
   auto pack = [](double ss) {
@@ -683,6 +716,269 @@ void resample_16bpc(const uint16_t* in, int w, int h, int ow, int oh, uint16_t* 
       double ss = 0.0;
       for (int y = 0; y < ymax; y++) ss += src[static_cast<int64_t>(y + ymin) * sw + xx] * kk[y];
       out[static_cast<int64_t>(yy) * sw + xx] = pack(ss);
+    }
+  }
+}
+
+// FLI: one call of FliDecode.c on buf[0:bytes] (what ImageFile.load has
+// read of the frame so far) into the P image im of h rows of w bytes.
+// Returns the C decoder's status: 0 or a count of bytes consumed (it
+// wants more data), or -1 (done), with its error code in *err (0, -2
+// IMAGING_CODEC_OVERRUN, -3 IMAGING_CODEC_BROKEN, -4
+// IMAGING_CODEC_UNKNOWN).
+int64_t fli_decode(const uint8_t* buf, int64_t bytes, int w, int h, uint8_t* im, int* err) {
+  auto i16 = [](const uint8_t* p) { return p[0] + (p[1] << 8); };
+  auto i32 = [](const uint8_t* p) {
+    return static_cast<int32_t>(static_cast<uint32_t>(p[0]) | static_cast<uint32_t>(p[1]) << 8 |
+                                static_cast<uint32_t>(p[2]) << 16 |
+                                static_cast<uint32_t>(p[3]) << 24);
+  };
+  *err = 0;
+  if (bytes < 4) return 0;
+  const uint8_t* ptr = buf;
+  int64_t framesize = i32(ptr);
+  if (bytes + (bytes % 2) < framesize) return 0;
+  if (bytes < 8) {
+    *err = -2;
+    return -1;
+  }
+  if (i16(ptr + 4) != 0xF1FA) {
+    *err = -4;
+    return -1;
+  }
+  int chunks = i16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+#define FLI_OOB(offset)                 \
+  if ((data + (offset)) > ptr + bytes) { \
+    *err = -2;                          \
+    return -1;                          \
+  }
+  for (int c = 0; c < chunks; c++) {
+    if (bytes < 10) {
+      *err = -2;
+      return -1;
+    }
+    const uint8_t* data = ptr + 6;
+    int x = 0, y, i = 0;
+    switch (i16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;  // colour (read by the plugin) and stamp chunks
+      case 7: {  // SS2, word delta
+        int lines = i16(data), l;
+        data += 2;
+        for (l = y = 0; l < lines && y < h; l++, y++) {
+          uint8_t* local = im + static_cast<int64_t>(y) * w;
+          FLI_OOB(2)
+          int packets = i16(data), p;
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;  // skip lines
+              if (y >= h) {
+                *err = -2;
+                return -1;
+              }
+              local = im + static_cast<int64_t>(y) * w;
+            } else {
+              local[w - 1] = static_cast<uint8_t>(packets);  // the odd width's last byte
+            }
+            FLI_OOB(2)
+            packets = i16(data);
+            data += 2;
+          }
+          for (p = x = 0; p < packets; p++) {
+            FLI_OOB(2)
+            x += data[0];
+            if (data[1] >= 128) {
+              FLI_OOB(4)
+              i = 256 - data[1];
+              if (x + i + i > w) break;
+              for (int j = 0; j < i; j++) {
+                local[x++] = data[2];
+                local[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * static_cast<int>(data[1]);
+              if (x + i > w) break;
+              FLI_OOB(2 + i)
+              memcpy(local + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) {
+          *err = -2;
+          return -1;
+        }
+        break;
+      }
+      case 12: {  // LC, byte delta
+        y = i16(data);
+        int ymax = y + i16(data + 2);
+        data += 4;
+        for (; y < ymax && y < h; y++) {
+          uint8_t* out = im + static_cast<int64_t>(y) * w;
+          FLI_OOB(1)
+          int packets = *data++, p;
+          for (p = x = 0; p < packets; p++, x += i) {
+            FLI_OOB(2)
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > w) break;
+              FLI_OOB(3)
+              memset(out + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > w) break;
+              FLI_OOB(2 + i)
+              memcpy(out + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) {
+          *err = -2;
+          return -1;
+        }
+        break;
+      }
+      case 13:  // BLACK
+        memset(im, 0, static_cast<size_t>(w) * h);
+        break;
+      case 15:  // BRUN
+        for (y = 0; y < h; y++) {
+          uint8_t* out = im + static_cast<int64_t>(y) * w;
+          data += 1;  // the packet count, not read
+          for (x = 0; x < w; x += i) {
+            FLI_OOB(2)
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > w) break;
+              FLI_OOB(i + 1)
+              memcpy(out + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > w) break;
+              memset(out + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != w) {
+            *err = -2;
+            return -1;
+          }
+        }
+        break;
+      case 16:  // COPY
+        if (INT32_MAX / w < h) {
+          *err = -2;
+          return -1;
+        }
+        if (data + static_cast<int64_t>(w) * h > ptr + bytes) return ptr - buf;
+        for (y = 0; y < h; y++, data += w) memcpy(im + static_cast<int64_t>(y) * w, data, w);
+        break;
+      default:
+        *err = -4;
+        return -1;
+    }
+    int64_t advance = i32(ptr);
+    if (advance == 0) {
+      *err = -3;
+      return -1;
+    }
+    if (advance < 0 || advance > bytes) {
+      *err = -2;
+      return -1;
+    }
+    ptr += advance;
+    bytes -= advance;
+  }
+#undef FLI_OOB
+  return -1;
+}
+
+// BLP DXT: block_rows rows of blocks 8 (kind 1) or 16 (kinds 3 and 5)
+// bytes long, decoded as BlpImagePlugin's decode_dxt1/3/5 into their
+// stream: for each block row, its 4 pixel rows of 4 * blocks pixels, C =
+// 4 bytes a pixel (3 for DXT1 without alpha).
+void blp_dxt_decode(const uint8_t* data, int64_t blocks, int64_t block_rows, int kind, int alpha,
+                    uint8_t* out) {
+  const int C = kind == 1 && !alpha ? 3 : 4, size = kind == 1 ? 8 : 16;
+  const int64_t row = 4 * blocks * C;
+  for (int64_t yb = 0; yb < block_rows; yb++) {
+    for (int64_t bx = 0; bx < blocks; bx++) {
+      const uint8_t* s = data + (yb * blocks + bx) * size;
+      const uint8_t* c = kind == 1 ? s : s + 8;
+      int color0 = c[0] | c[1] << 8, color1 = c[2] | c[3] << 8;
+      uint32_t code = c[4] | c[5] << 8 | c[6] << 16 | static_cast<uint32_t>(c[7]) << 24;
+      int r0 = ((color0 >> 11) & 0x1F) << 3, g0 = ((color0 >> 5) & 0x3F) << 2,
+          b0 = (color0 & 0x1F) << 3;
+      int r1 = ((color1 >> 11) & 0x1F) << 3, g1 = ((color1 >> 5) & 0x3F) << 2,
+          b1 = (color1 & 0x1F) << 3;
+      bool four = kind != 1 || color0 > color1;
+      uint32_t ac1 = s[4] | s[5] << 8 | s[6] << 16 | static_cast<uint32_t>(s[7]) << 24;
+      uint32_t ac2 = s[2] | s[3] << 8;
+      for (int j = 0; j < 4; j++) {
+        uint8_t* px = out + (yb * 4 + j) * row + bx * 4 * C;
+        for (int i = 0; i < 4; i++, px += C) {
+          int k = 4 * j + i, ctl = (code >> (2 * k)) & 3, r, g, b, a = 255;
+          if (ctl == 0) {
+            r = r0, g = g0, b = b0;
+          } else if (ctl == 1) {
+            r = r1, g = g1, b = b1;
+          } else if (ctl == 2) {
+            if (four) {
+              r = (2 * r0 + r1) / 3, g = (2 * g0 + g1) / 3, b = (2 * b0 + b1) / 3;
+            } else {
+              r = (r0 + r1) / 2, g = (g0 + g1) / 2, b = (b0 + b1) / 2;
+            }
+          } else if (four) {
+            r = (2 * r1 + r0) / 3, g = (2 * g1 + g0) / 3, b = (2 * b1 + b0) / 3;
+          } else {
+            r = g = b = a = 0;
+          }
+          if (kind == 3) {
+            int v = s[k / 2];
+            a = (i & 1 ? v >> 4 : v & 0xF) * 17;
+          } else if (kind == 5) {
+            int a0 = s[0], a1 = s[1], idx = 3 * k, ac;
+            if (idx <= 12) {
+              ac = (ac2 >> idx) & 7;
+            } else if (idx == 15) {
+              ac = (ac2 >> 15) | ((ac1 << 1) & 6);
+            } else {
+              ac = (ac1 >> (idx - 16)) & 7;
+            }
+            if (ac == 0) {
+              a = a0;
+            } else if (ac == 1) {
+              a = a1;
+            } else if (a0 > a1) {
+              a = ((8 - ac) * a0 + (ac - 1) * a1) / 7;
+            } else if (ac == 6) {
+              a = 0;
+            } else if (ac == 7) {
+              a = 255;
+            } else {
+              a = ((6 - ac) * a0 + (ac - 1) * a1) / 5;
+            }
+          }
+          px[0] = static_cast<uint8_t>(r);
+          px[1] = static_cast<uint8_t>(g);
+          px[2] = static_cast<uint8_t>(b);
+          if (C == 4) px[3] = static_cast<uint8_t>(a);
+        }
+      }
     }
   }
 }

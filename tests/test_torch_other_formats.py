@@ -774,9 +774,9 @@ def test_writes_to_stdout_are_pngs_as_in_the_jax_package(ch, capfdbinary):
 
 
 def test_check_target_takes_the_new_formats_and_refuses_the_rest():
-    for ext in WRITE_EXTS + ("dds",):
+    for ext in WRITE_EXTS + ("dds", "xbm", "msp", "palm", "blp", "icns", "spider"):
         assert timages.check_target(f"out.{ext}") == (None, f"out.{ext}")
-    for name in ("PDF", "XBM"):
+    for name in ("PDF", "EPS"):
         with pytest.raises(ValueError, match=r"queue 1, item 8h"):
             timages.check_target(f"out.{name.lower()}")
 

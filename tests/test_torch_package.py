@@ -62,7 +62,8 @@ def test_every_module_imports_without_jax():
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.spec_sharded",
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
         "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp", "io.rawimg",
-        "io.ico", "io.psd", "io.dds", "io.jpeg2000", "io.rasters")} <= names
+        "io.ico", "io.psd", "io.dds", "io.jpeg2000", "io.rasters", "io.icns", "io.blp",
+        "io.containers")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL", "zstandard")):
@@ -385,6 +386,52 @@ def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_pat
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[8, 8, 8, 8, 16, 8, 8] {0} True True True True", \
         res.stdout + res.stderr
+
+
+def test_g2_containers_and_g1_writes_without_jax_pillow_or_cv2(tmp_path):
+    """With jax, Pillow, cv2 and dspfun_tpu blocked: every g2 golden (ICNS,
+    BLP, FTEX, FLI, PCD, IPTC) reads through ``io/icns.py``, ``io/blp.py``
+    and ``io/containers.py`` to the JAX package's pixels (read here, before
+    the process starts), and the ICNS and SPIDER writes are the JAX
+    package's bytes; XBM still fails as Pillow fails it."""
+    from dspfun_tpu.io import images as jimages
+    from tests import torch_codec_fixtures as fx
+
+    blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
+    files = fx.container_fixtures()
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        np.save(tmp_path / f"{name}.npy", jimages.read_image(str(tmp_path / name), "RGBA").pixels)
+    pix = np.random.default_rng(5).random((21, 34, 3))
+    np.save(tmp_path / "pix.npy", pix)
+    for ext in ("icns", "spider"):
+        jimages.write_image(str(tmp_path / f"j.{ext}"), pix)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from dspfun_tpu_torch.io import images\n"
+        "d = %r + '/'\n"
+        "ok = [np.array_equal(images.read_image(d + n, 'RGBA').pixels, np.load(d + n + '.npy'))\n"
+        "      for n in %r]\n"
+        "pix = np.load(d + 'pix.npy')\n"
+        "for ext in ('icns', 'spider'):\n"
+        "    images.write_image(d + 't.' + ext, pix)\n"
+        "    ok.append(open(d + 't.' + ext, 'rb').read() == open(d + 'j.' + ext, 'rb').read())\n"
+        "try:\n"
+        "    images.write_image(d + 't.xbm', pix)\n"
+        "except OSError as e:\n"
+        "    ok.append(str(e) == 'cannot write mode RGB as XBM')\n"
+        "print(len(ok), all(ok), sorted(m for m in sys.modules if m.startswith(('PIL', 'cv2',\n"
+        "                                                                  'jax', 'dspfun_tpu.'))))\n"
+    ) % (str(tmp_path), sorted(files))
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocked), str(ROOT)]),
+           "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == f"{len(files) + 3} True []", res.stdout + res.stderr
 
 
 def test_zstd_and_lzma_tiff_through_spec_and_motion_without_jax_pillow_cv2_or_zstandard(

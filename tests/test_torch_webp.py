@@ -420,17 +420,17 @@ def _readable(data: bytes) -> bool:
 
 
 # the formats of the table whose reads the port carries since g1's reads
-# (io/rasters.py); their writes stay refused by 8h
-READ_SINCE_G1 = ("msp", "spider", "xbm")
+# (io/rasters.py) and g2's (io/icns.py, io/blp.py)
+READ_SINCE_G1 = ("blp", "icns", "msp", "spider", "xbm")
 
 
 @pytest.mark.parametrize("ext", sorted(OTHER_SAVES))
 def test_pillows_other_formats_are_refused_by_8h(ext, tmp_path, monkeypatch):
     """A file Pillow writes in each of its other formats: where the JAX
     package reads it, the port refuses it naming item 8h, with cv2 and
-    without it, or, for MSP, SPIDER and XBM (``READ_SINCE_G1``), reads the
-    same pixels and depth; where it does not (EPS without Ghostscript, PDF,
-    Palm), the port raises too."""
+    without it, or, for BLP, ICNS, MSP, SPIDER and XBM (``READ_SINCE_G1``),
+    reads the same pixels and depth; where it does not (EPS without
+    Ghostscript, PDF, Palm), the port raises too."""
     data = _other_file(ext)
     path = tmp_path / "in.bin"
     path.write_bytes(data)
@@ -466,13 +466,13 @@ def test_pillows_jpeg2000_is_read_as_the_jax_package_reads_it(tmp_path, monkeypa
         np.testing.assert_array_equal(port.pixels, jax.pixels)
 
 
-@pytest.mark.parametrize("name", sorted({"AVIF", "BLP", "EPS", "ICNS", "JPEG2000", "MSP",
-                                         "PALM", "PDF", "SPIDER", "XBM"}))
+@pytest.mark.parametrize("name", sorted({"AVIF", "EPS", "JPEG2000", "PDF"}))
 def test_pillows_other_save_formats_are_refused_before_writing(name, tmp_path, monkeypatch):
     """Every save format of Pillow 12.1 the port does not write: the port
     refuses it naming item 8h before any file is made, whatever the JAX
-    package does with the pixels (it writes most, and fails where Pillow
-    cannot write the mode: XBM, MSP and PALM want 1-bit)."""
+    package does with the pixels (it writes them).  ICNS and SPIDER are
+    written, and XBM, MSP, PALM and BLP fail as in the JAX package
+    (tests/test_torch_writes_g1.py)."""
     monkeypatch.chdir(tmp_path)
     pix = _image(16, 16, 6).astype(np.float64) / 255
     target = f"out.{name.lower()}"

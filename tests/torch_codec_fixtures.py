@@ -3584,3 +3584,378 @@ def raster_4k(kind: str, rgb: np.ndarray | None = None) -> bytes:
     if kind == "sun":
         return make_sun(rgb[..., ::-1].reshape(h, -1), w, 24, ftype=2)
     return make_fits(rgb[..., 1].astype(np.int64) * 257 - 32768, 16)
+
+
+# ---- item 8h's containers (g2), written by hand ---------------------------------
+# Pillow writes ICNS and BLP from P images; the rest (FTEX, BLP DXT, raw and
+# JPEG, FLI chunks, PCD, IPTC, ICNS RLE and JPEG 2000 payloads) are written
+# here with numpy (no Pillow), so the card's machine can make phase 31's 4K
+# files itself.
+
+
+def bc1_blocks(rgb: np.ndarray, rows: int = 32) -> bytes:
+    """A plain BC1 (DXT1) encoder of uint8 [H, W, 3]: per 4x4 block (edges
+    padded by repetition) the 5:6:5 of its darkest and brightest pixels,
+    the larger first (4-colour mode), each pixel the index of the nearest
+    of the four colours; ``rows`` block rows at a time."""
+    h, w, _ = rgb.shape
+    bh, bw = -(-h // 4), -(-w // 4)
+    p = np.pad(rgb, ((0, 4 * bh - h), (0, 4 * bw - w), (0, 0)), mode="edge")
+    return b"".join(_bc1_slab(p[4 * r:4 * (r + rows)].astype(np.int64))
+                    for r in range(0, bh, rows))
+
+
+def _bc1_slab(p: np.ndarray) -> bytes:
+    bh, bw = p.shape[0] // 4, p.shape[1] // 4
+    blocks = p.reshape(bh, 4, bw, 4, 3).transpose(0, 2, 1, 3, 4).reshape(bh, bw, 16, 3)
+    luma = blocks @ np.array([2, 4, 1])
+    lo = np.take_along_axis(blocks, luma.argmin(-1)[..., None, None], 2)[..., 0, :]
+    hi = np.take_along_axis(blocks, luma.argmax(-1)[..., None, None], 2)[..., 0, :]
+
+    def pack(c):
+        return (c[..., 0] >> 3) << 11 | (c[..., 1] >> 2) << 5 | c[..., 2] >> 3
+
+    c0, c1 = pack(hi), pack(lo)
+    swap = c0 < c1
+    c0, c1 = np.where(swap, c1, c0), np.where(swap, c0, c1)
+
+    def unpack(c):
+        r, g, b = c >> 11 & 31, c >> 5 & 63, c & 31
+        return np.stack([r << 3 | r >> 2, g << 2 | g >> 4, b << 3 | b >> 2], -1)
+
+    e0, e1 = unpack(c0), unpack(c1)
+    pal = np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], 2)     # [bh, bw, 4, 3]
+    dist = ((blocks[:, :, :, None, :] - pal[:, :, None, :, :]) ** 2).sum(-1)
+    idx = np.where((c0 == c1)[..., None], 0, dist.argmin(-1))
+    code = (idx << (2 * np.arange(16))).sum(-1)
+    out = np.zeros((bh, bw, 8), np.uint8)
+    out[..., 0], out[..., 1] = c0 & 255, c0 >> 8
+    out[..., 2], out[..., 3] = c1 & 255, c1 >> 8
+    for k in range(4):
+        out[..., 4 + k] = code >> (8 * k) & 255
+    return out.tobytes()
+
+
+def make_ftex(payload: bytes, w: int, h: int, fmt: int = 0, nformats: int = 1,
+              where: int | None = None, size: int | None = None) -> bytes:
+    """An FTEX file: the header, one format (0 DXT1, 1 raw RGB) and its
+    mipmap (its length word, ``size`` if given, then ``payload``)."""
+    where = 32 if where is None else where
+    head = b"FTEX" + struct.pack("<5i", 1, w, h, 1, nformats) + struct.pack("<2i", fmt, where)
+    head = head.ljust(where, b"\0")
+    return head + struct.pack("<i", len(payload) if size is None else size) + payload
+
+
+def make_blp(w: int, h: int, mip: bytes, version: int = 2, compression: int = 1,
+             encoding: int = 2, alpha: int = 0, alpha_encoding: int = 0,
+             palette: bytes = b"", jpeg_header: bytes = b"", offset: int | None = None,
+             length: int | None = None) -> bytes:
+    """A BLP file of one mipmap: BLP1 (``version`` 1: JPEG when
+    ``compression`` is 0, with ``jpeg_header`` shared; else palette of
+    ``encoding`` 4 or 5) or BLP2 (palette encoding 1, DXT encoding 2 with
+    ``alpha_encoding`` 0, 1 or 7); ``palette`` the 256 BGRA entries (zeros
+    when empty), ``offset`` and ``length`` the first mipmap's table
+    entries (where it lies, and its size, by default)."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIII", compression, alpha, w, h) \
+            + struct.pack("<ii", encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 0,
+                                     w, h)
+    fixed = len(head) + 128
+    if version == 1 and compression == 0:
+        body = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        body = palette.ljust(1024, b"\0")
+    at = fixed + len(body) if offset is None else offset
+    tables = struct.pack("<16I", at, *(0,) * 15) \
+        + struct.pack("<16I", len(mip) if length is None else length, *(0,) * 15)
+    out = head + tables + body
+    return out + bytes(max(0, at - len(out))) + mip
+
+
+def fli_chunk(kind: int, body: bytes, pad: bool = True) -> bytes:
+    """One FLI subchunk: its size, type and body (padded to an even size)."""
+    if pad and len(body) % 2:
+        body += b"\0"
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_color(entries, kind: int = 4) -> bytes:
+    """A colour chunk (4: 256-level, 11: 64-level) of (skip, [(r, g, b),
+    ...]) packets; a packet of 256 entries has the count 0."""
+    body = struct.pack("<H", len(entries))
+    for skip, rgb in entries:
+        body += bytes([skip, len(rgb) & 255]) + bytes(np.asarray(rgb, np.uint8).ravel())
+    return fli_chunk(kind, body)
+
+
+def fli_brun(idx: np.ndarray) -> bytes:
+    """BRUN (15) of uint8 [H, W]: per row a packet count byte (unread),
+    then runs (count, value) of equal bytes and literals (-count, bytes)."""
+    body = bytearray()
+    for row in idx:
+        body.append(0)
+        x, w = 0, len(row)
+        while x < w:
+            run = 1
+            while x + run < w and run < 127 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3:
+                body += bytes([run, row[x]])
+                x += run
+                continue
+            n = 1
+            while x + n < w and n < 127 and not (x + n + 2 < w and row[x + n] == row[x + n + 1]
+                                                 == row[x + n + 2]):
+                n += 1
+            body += bytes([256 - n]) + bytes(row[x:x + n])
+            x += n
+    return fli_chunk(15, bytes(body))
+
+
+def fli_lc(rows: dict, y0: int, nlines: int) -> bytes:
+    """LC (12): lines y0.. y0 + nlines, each a list of (skip, run or
+    literal) packets: ("r", n, v) or ("l", bytes)."""
+    body = bytearray(struct.pack("<HH", y0, nlines))
+    for y in range(y0, y0 + nlines):
+        packets = rows.get(y, [])
+        body.append(len(packets))
+        for skip, p in packets:
+            body += bytes([skip, 256 - p[1], p[2]]) if p[0] == "r" else \
+                bytes([skip, len(p[1])]) + p[1]
+    return fli_chunk(12, bytes(body))
+
+
+def fli_ss2(lines: list) -> bytes:
+    """SS2 (7): per line its packet words (skip words 0xC000 | -n, the odd
+    width's last-byte word 0x8000 | v, then the count) and its packets
+    (skip, ("r", n, (a, b)) or ("l", bytes of even length))."""
+    body = bytearray(struct.pack("<H", len(lines)))
+    for words, packets in lines:
+        for wd in words:
+            body += struct.pack("<H", wd & 0xFFFF)
+        body += struct.pack("<H", len(packets))
+        for skip, p in packets:
+            body += bytes([skip, 256 - p[1], *p[2]]) if p[0] == "r" else \
+                bytes([skip, len(p[1]) // 2]) + p[1]
+    return fli_chunk(7, bytes(body))
+
+
+def make_fli(w: int, h: int, chunks, magic: int = 0xAF12, frames: int = 1,
+             prefix: bytes | None = None, framesize: int | None = None, flags: int = 3) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file whose first frame (0xF1FA)
+    holds ``chunks``; ``prefix`` a prefix chunk's body put before it."""
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHH", head, 0, 0, magic, frames, w, h, 8, flags)
+    struct.pack_into("<I", head, 16, 5)
+    body = b"".join(chunks)
+    frame = struct.pack("<IHH8x", 16 + len(body) if framesize is None else framesize, 0xF1FA,
+                        len(chunks)) + body
+    pre = b"" if prefix is None else struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix
+    out = bytes(head) + pre + frame
+    struct.pack_into("<I", head, 0, len(out))
+    return bytes(head) + out[128:]
+
+
+def make_pcd(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, orientation: int = 0) -> bytes:
+    """A PhotoCD file of its base image: the ``PCD_`` tag at 2048, the
+    orientation byte at 2048 + 1538, and at 96 * 2048 the 256 pairs of
+    luma rows (uint8 [512, 768]), each followed by its Cb and Cr rows
+    (uint8 [256, 384])."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    body = np.concatenate([y.reshape(256, 2 * 768), cb, cr], axis=1).astype(np.uint8)
+    return bytes(head) + body.tobytes()
+
+
+def iptc_field(record: int, tag: int, data: bytes, extended: int = 0) -> bytes:
+    """One IPTC field: 0x1C, its record and tag, a 2-byte length (or, with
+    ``extended`` 1-4, 0x8000 | extended and that many length bytes)."""
+    if extended:
+        return bytes([0x1C, record, tag, 0x80, extended]) \
+            + len(data).to_bytes(extended, "big") + data
+    return bytes([0x1C, record, tag]) + struct.pack(">H", len(data)) + data
+
+
+def make_iptc(w: int, h: int, image: bytes, layers: int = 1, component: int = 0,
+              compression: int = 1, band: int | None = None, chunk: int = 0,
+              extra=()) -> bytes:
+    """An IPTC/NAA image: record 2's caption, record 3's fields (3, 20)
+    width, (3, 30) height, (3, 60) layers and component, (3, 65) the band,
+    (3, 120) compression, then the image in (8, 10) records of ``chunk``
+    bytes (all in one when 0)."""
+    f = [iptc_field(2, 120, b"a caption"), *extra,
+         iptc_field(3, 20, struct.pack(">I", w)), iptc_field(3, 30, struct.pack(">H", h)),
+         iptc_field(3, 60, bytes([layers, component]))]
+    if band is not None:
+        f.append(iptc_field(3, 65, bytes([band])))
+    f.append(iptc_field(3, 120, bytes([compression])))
+    step = chunk or max(len(image), 1)
+    f += [iptc_field(8, 10, image[k:k + step]) for k in range(0, max(len(image), 1), step)]
+    return b"".join(f)
+
+
+def icns_rle(band: np.ndarray) -> bytes:
+    """ICNS's RLE of one 8-bit band: runs of 3 to 130 equal bytes as
+    ``0x80 + n - 3`` and the byte, literals of up to 128 as ``n - 1`` and
+    the bytes."""
+    v, out, x = bytes(np.asarray(band, np.uint8).ravel()), bytearray(), 0
+    while x < len(v):
+        run = 1
+        while x + run < len(v) and run < 130 and v[x + run] == v[x]:
+            run += 1
+        if run >= 3:
+            out += bytes([0x80 + run - 3, v[x]])
+            x += run
+            continue
+        n = 1
+        while x + n < len(v) and n < 128 and not (x + n + 2 < len(v) and v[x + n] == v[x + n + 1]
+                                                  == v[x + n + 2]):
+            n += 1
+        out += bytes([n - 1]) + v[x:x + n]
+        x += n
+    return bytes(out)
+
+
+def make_icns(blocks, toc: bool = False, length: int | None = None) -> bytes:
+    """An ICNS file of (type, payload) blocks, a table of contents first
+    when ``toc``; ``length`` the header's file length if given."""
+    body = [(t, p) for t, p in blocks]
+    if toc:
+        body.insert(0, (b"TOC ", b"".join(t + struct.pack(">I", 8 + len(p)) for t, p in blocks)))
+    data = b"".join(t + struct.pack(">I", 8 + len(p)) + p for t, p in body)
+    return b"icns" + struct.pack(">I", 8 + len(data) if length is None else length) + data
+
+
+def icns_rgb(rgb: np.ndarray, it32: bool = False) -> bytes:
+    """The RLE payload of uint8 [S, S, 3]: each band's runs in turn (with
+    ``it32``'s four zero bytes first)."""
+    return (bytes(4) if it32 else b"") + b"".join(icns_rle(rgb[..., k]) for k in range(3))
+
+
+def _container_planes(hw=(24, 20), seed=81) -> tuple:
+    """A seeded picture's RGB levels, its gray and a flat four-colour icon
+    (so Pillow's 1024-pixel ICNS frames compress)."""
+    rgb = levels(hw, seed, noise=0.05)
+    icon = np.zeros((16, 16, 4), np.uint8)
+    icon[:8, :8], icon[8:, :8], icon[:, 8:] = (200, 30, 30, 255), (30, 200, 30, 128), \
+        (30, 30, 200, 255)
+    return rgb, rgb[..., 1], icon
+
+
+def container_goldens() -> dict[str, bytes]:
+    """Phase 31's small goldens, a file per g2 kind and variant but PCD
+    (Pillow's writes of ICNS, of BLP1 and BLP2 from ``P`` images, and of
+    the JPEG and JPEG 2000 payloads; the rest from the writers above): ICNS
+    from Pillow, RLE with masks at three sizes, ``it32`` and a JPEG 2000
+    payload; BLP palette, DXT1 with and without alpha, DXT3, DXT5 and
+    JPEG; FTEX DXT1 and raw; FLI and FLC with each frame chunk and both
+    colour chunks; IPTC raw, JPEG and a merged band of RGB and CMYK."""
+    from PIL import Image  # noqa: PLC0415
+
+    rgb, g, icon = _container_planes()
+    h, w = g.shape
+    rng = np.random.default_rng(82)
+    big = np.repeat(np.repeat(icon[..., :3], 8, 0), 8, 1)
+    mask = np.repeat(np.repeat(icon[..., 3], 8, 0), 8, 1)
+    pal_img = Image.fromarray(rgb).quantize(40)
+    pal_rgba = pal_img.copy()
+    pal_rgba.putpalette(bytes(np.concatenate([np.asarray(pal_img.getpalette()[:120]).reshape(40, 3),
+                                              np.arange(40)[:, None] * 6], 1)
+                              .astype(np.uint8).ravel()), "RGBA")
+    bgra = np.concatenate([rgb[..., ::-1].reshape(-1, 3), np.full((h * w, 1), 255)], 1)[:256]
+    pal = bytes(np.pad(bgra, ((0, 256 - len(bgra)), (0, 0))).astype(np.uint8).ravel())
+    idx = (np.arange(h * w) % 256).astype(np.uint8).tobytes()
+    dxt3 = bytes(np.concatenate([rng.integers(0, 256, (30, 8)),
+                                 np.frombuffer(bc1_blocks(rgb), np.uint8).reshape(30, 8)], 1)
+                 .astype(np.uint8).ravel())
+    dxt5 = bytes(np.concatenate([np.tile([[200, 40]], (30, 1)), rng.integers(0, 256, (30, 6)),
+                                 np.frombuffer(bc1_blocks(rgb), np.uint8).reshape(30, 8)], 1)
+                 .astype(np.uint8).ravel())
+    jpg = _save(Image.fromarray(rgb), "JPEG", quality=90)
+    gray_jpg = _save(Image.fromarray(g), "JPEG", quality=90)
+    j2k = _save(Image.fromarray(big), "JPEG2000", no_jp2=True)
+    fw, fh = 37, 23
+    fidx = (np.add.outer(np.arange(fh) // 3, np.arange(fw) // 5) * 7 % 256).astype(np.uint8)
+    fpal = [(0, (np.arange(256)[:, None] * [1, 3, 7] % 256))]
+    lc = {2: [(3, ("r", 5, 9)), (1, ("l", b"abcdef"))], 4: [(0, ("l", b"xy"))]}
+    ss2 = [([], [(2, ("r", 3, (7, 8))), (1, ("l", b"abcd"))]), ([0xFFFE], [(0, ("l", b"zz"))]),
+           ([0x8000 | 77], [(4, ("r", 2, (1, 2)))])]
+    return {
+        "icns_pillow_rgb.icns": _save(Image.fromarray(icon[..., :3]), "ICNS"),
+        "icns_pillow_rgba.icns": _save(Image.fromarray(icon), "ICNS"),
+        "icns_rle_masks.icns": make_icns([
+            (b"is32", icns_rgb(icon[..., :3])), (b"s8mk", icon[..., 3].tobytes()),
+            (b"il32", icns_rgb(np.repeat(np.repeat(icon[..., :3], 2, 0), 2, 1))),
+            (b"l8mk", np.repeat(np.repeat(icon[..., 3], 2, 0), 2, 1).tobytes()),
+            (b"ih32", icns_rgb(np.repeat(np.repeat(icon[..., :3], 3, 0), 3, 1)))], toc=True),
+        "icns_it32.icns": make_icns([(b"it32", icns_rgb(big, True)), (b"t8mk", mask.tobytes())]),
+        "icns_raw_rgb.icns": make_icns([(b"is32", icon[..., :3].tobytes())]),
+        "icns_jpeg2000.icns": make_icns([(b"ic07", j2k)]),
+        "blp1_palette.blp": _save(pal_img, "BLP", blp_version="BLP1"),
+        "blp2_palette_rgba.blp": _save(pal_rgba, "BLP"),
+        "blp1_palette_enc4.blp": make_blp(w, h, idx, 1, 1, 4, 8, palette=pal),
+        "blp2_dxt1.blp": make_blp(w, h, bc1_blocks(rgb), 2, 1, 2, 0, 0),
+        "blp2_dxt1_alpha.blp": make_blp(w, h, bc1_blocks(rgb), 2, 1, 2, 1, 0),
+        "blp2_dxt3.blp": make_blp(w, h, dxt3, 2, 1, 2, 8, 1),
+        "blp2_dxt5.blp": make_blp(w, h, dxt5, 2, 1, 2, 8, 7),
+        "blp1_jpeg.blp": make_blp(w, h, jpg[400:], 1, 0, 5, 0, jpeg_header=jpg[:400]),
+        "blp1_jpeg_gray_alpha.blp": make_blp(w, h, gray_jpg[300:], 1, 0, 5, 8,
+                                             jpeg_header=gray_jpg[:300], offset=2048),
+        "ftex_dxt1.ftc": make_ftex(bc1_blocks(rgb), w, h, 0),
+        "ftex_raw.ftu": make_ftex(rgb.tobytes(), w, h, 1),
+        "fli_brun.fli": make_fli(fw, fh, [fli_color(fpal), fli_brun(fidx)], 0xAF11),
+        "flc_chunks.flc": make_fli(fw, fh, [
+            fli_color([(3, np.arange(120).reshape(40, 3) % 64), (10, [(63, 0, 32)] * 5)], 11),
+            fli_chunk(18, b"a stamp"), fli_brun(fidx), fli_lc(lc, 2, 4), fli_ss2(ss2)]),
+        "flc_copy_black.flc": make_fli(fw, fh, [fli_color(fpal), fli_chunk(16, fidx.tobytes()),
+                                                fli_chunk(13, b""),
+                                                fli_lc({1: [(4, ("l", b"ab"))]}, 1, 1)]),
+        "iptc_raw.iim": make_iptc(w, h, g.tobytes(), chunk=200),
+        "iptc_jpeg.iim": make_iptc(w, h, gray_jpg, compression=5),
+        "iptc_rgb_band.iim": make_iptc(w, h, g.tobytes(), 3, 1, band=2),
+        "iptc_cmyk_band.iim": make_iptc(w, h, gray_jpg, 4, 1, 5, band=4),
+    }
+
+
+CONTAINER_NAMES = (
+    "icns_pillow_rgb.icns", "icns_pillow_rgba.icns", "icns_rle_masks.icns", "icns_it32.icns",
+    "icns_raw_rgb.icns", "icns_jpeg2000.icns", "blp1_palette.blp", "blp2_palette_rgba.blp",
+    "blp1_palette_enc4.blp", "blp2_dxt1.blp", "blp2_dxt1_alpha.blp", "blp2_dxt3.blp",
+    "blp2_dxt5.blp", "blp1_jpeg.blp", "blp1_jpeg_gray_alpha.blp", "ftex_dxt1.ftc", "ftex_raw.ftu",
+    "fli_brun.fli", "flc_chunks.flc", "flc_copy_black.flc", "iptc_raw.iim", "iptc_jpeg.iim",
+    "iptc_rgb_band.iim", "iptc_cmyk_band.iim")
+# made at run time, not kept: a PhotoCD base image is 786,432 bytes whatever it shows
+PCD_NAMES = ("pcd.pcd", "pcd_turned_90.pcd", "pcd_turned_270.pcd")
+
+
+def pcd_file(orientation: int = 0, seed: int = 83) -> bytes:
+    """A PhotoCD file of a seeded picture's PhotoYCC-like levels."""
+    rgb = levels((512, 768), seed, noise=0.05).astype(np.int64)
+    y = (rgb @ [77, 150, 29]) >> 8
+    cb = (rgb[::2, ::2, 2] - y[::2, ::2]) // 2 + 156
+    cr = (rgb[::2, ::2, 0] - y[::2, ::2]) // 2 + 137
+    return make_pcd(np.clip(y * 3 // 4, 0, 255), np.clip(cb, 0, 255), np.clip(cr, 0, 255),
+                    orientation)
+
+
+def container_fixtures() -> dict[str, bytes]:
+    """Phase 31's goldens, as tests/goldens/ holds them, and the PCD files
+    made here."""
+    out = {name: (GOLDENS / name).read_bytes() for name in CONTAINER_NAMES}
+    out.update(zip(PCD_NAMES, (pcd_file(0), pcd_file(1), pcd_file(7))))
+    return out
+
+
+def container_4k(kind: str, rgb: np.ndarray | None = None, blocks: bytes | None = None) -> bytes:
+    """Phase 31's 4K files, made with numpy alone from
+    :func:`raster_picture` (or ``rgb``): ``blp`` a BLP2 DXT1 file, ``ftex``
+    an FTEX DXT1 file, of the same blocks (``blocks`` if given)."""
+    rgb = raster_picture() if rgb is None else rgb
+    h, w, _ = rgb.shape
+    blocks = bc1_blocks(rgb) if blocks is None else blocks
+    if kind == "blp":
+        return make_blp(w, h, blocks, 2, 1, 2, 0, 0)
+    return make_ftex(blocks, w, h, 0)
