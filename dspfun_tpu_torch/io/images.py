@@ -40,34 +40,44 @@ floating-point and YCbCr modes too), ICO and CUR (``io/ico.py``, with
 Pillow's LANCZOS thumbnails on ICO write), DIB (``io/imgcodecs.py``), PSD
 (``io/psd.py``: the composite image), DDS (``io/dds.py`` with
 ``native/bcn.cpp``: uncompressed, palette, BC1 to BC7; written
-uncompressed), JPEG 2000 on read (``io/jpeg2000.py`` with
-``native/j2k.cpp``: JP2 and raw codestreams, reversible and irreversible),
-MPO on write (its one frame is a JPEG), g1's header-and-rows rasters
-(``io/rasters.py``: FITS, Sun raster, XBM, XPM, MSP, SPIDER, PIXAR, McIdas,
-XV thumbnail, GBR and IMT read; SPIDER written), ICNS (``io/icns.py``: read,
+uncompressed), JPEG 2000 (``io/jpeg2000.py`` with ``native/j2k.cpp``:
+JP2 and raw codestreams, reversible and irreversible, read; written as
+Pillow's lossless JP2), EPS and PDF on write (``io/documents.py``; a PDF
+holds the JPEG of an RGB image or the JP2 of an RGBA one), MPO on write
+(its one frame is a JPEG), g1's header-and-rows rasters
+(``io/rasters.py``: FITS, Sun raster, XBM, XPM, MSP, SPIDER, PIXAR,
+McIdas, XV thumbnail, GBR and IMT read; SPIDER written), ICNS (``io/icns.py``: read,
 and written with Pillow's BICUBIC resizes), BLP (``io/blp.py``) and FTEX,
 FLI, PCD and IPTC (``io/containers.py``) on read, each
 reading what Pillow decodes and writing what it writes.  They take
-every file they carry, whether cv2 imports or not.  XBM, MSP, Palm and
-BLP writes fail as they fail in the JAX package, whose Pillow cannot save
-its ``RGB``, ``RGBA`` or ``I;16`` images in them (``_PILLOW_FAILS``).
-Every TIFF Pillow opens goes to ``imgcodecs.decode_tiff``.
+every file they carry, whether cv2 imports or not.  A write fails where
+the JAX package's fails, with its exception and message and no file
+left, after the compute as there: a format name Pillow has no save
+handler for (``_PILLOW_SAVES``, a copy of Pillow's ``Image.SAVE`` keys:
+``.tif``, ``.jp2``, ``.ps`` and any unknown extension) raises
+``KeyError(name)``, and ``_PILLOW_FAILS`` holds the errors Pillow's
+handlers raise of the JAX package's ``RGB``, ``RGBA`` and ``I;16``
+images: XBM, MSP, Palm and BLP of every one, JPEG and MPO of ``RGBA`` and
+``I;16``, BMP, DIB, DDS and TGA of ``I;16``, EPS of ``RGBA`` and
+``I;16``, PDF of ``I;16``, and the stub handlers of BUFR, GRIB, HDF5 and
+WMF.  Every TIFF Pillow opens goes to ``imgcodecs.decode_tiff``.
 The rest (WebP frames with the simple loop filter or several token
 partitions, and WebP output) goes through ``cv2`` where it imports
 (``_cv2_decode``); where cv2 does not import, it is refused with a
 ``ValueError`` naming ROADMAP queue 1, item 8
 and its part (``png.refusal``).  Pillow's other formats (AVIF and EPS
-reads, ``_OTHER_WRITES``: AVIF, EPS, PDF and JPEG 2000 writes), and the
-JPEG 2000 features no Pillow setting writes, are refused with or without
-cv2, naming item 8h, on read and before anything is written.
+reads, ``_OTHER_WRITES``: AVIF writes), and the JPEG 2000 features no
+Pillow setting writes, are refused with or without cv2, naming item 8h,
+on read and before anything is written.
 Inputs are identified as Pillow's ``Image.open`` identifies them: each
 plugin in its order, passing the file on where Pillow's plugin would
 (``_PILLOW_ORDER``: a JPEG frame of other than 8-bit samples, a TIFF whose
 compression or pixel layout Pillow's tables lack, a PPM magic number not
 among its modes), so a file no plugin opens raises "cannot identify image
 file" with or without cv2; the ``fmt:`` prefix names the output format.
-tests/test_torch_images.py, test_torch_image_formats.py and
-test_torch_other_formats.py pin the rest to the original.
+tests/test_torch_images.py, test_torch_image_formats.py,
+test_torch_other_formats.py and test_torch_writes_g3.py pin the rest to
+the original.
 """
 
 from __future__ import annotations
@@ -83,6 +93,7 @@ from dspfun_tpu_torch.io import color as _color
 from dspfun_tpu_torch.io import containers as _containers
 from dspfun_tpu_torch.io import cv2_bridge as _cv2_bridge
 from dspfun_tpu_torch.io import dds as _dds
+from dspfun_tpu_torch.io import documents as _documents
 from dspfun_tpu_torch.io import gif as _gif
 from dspfun_tpu_torch.io import icns as _icns
 from dspfun_tpu_torch.io import ico as _ico
@@ -118,16 +129,40 @@ _NATIVE_WRITERS = {"PPM": _codecs.encode_pnm, "BMP": _codecs.encode_bmp,
                    "PCX": _rawimg.encode_pcx, "QOI": _rawimg.encode_qoi,
                    "DIB": _codecs.encode_dib, "MPO": _jpeg.encode_jpeg, "ICO": _ico.encode_ico,
                    "DDS": _dds.encode_dds, "ICNS": _icns.encode_icns,
-                   "SPIDER": _rasters.encode_spider}
-# the formats Pillow cannot save any image the JAX package hands it in (it
-# wants 1-bit XBM, MSP and Palm, and a P image for BLP): the error it raises,
-# of the mode of the image (RGB, RGBA or I;16)
-_PILLOW_FAILS = {"XBM": lambda mode: OSError(f"cannot write mode {mode} as XBM"),
-                 "MSP": lambda mode: OSError(f"cannot write mode {mode} as MSP"),
-                 "PALM": lambda mode: OSError(f"cannot write mode {mode} as Palm"),
-                 "BLP": lambda mode: ValueError("Unsupported BLP image mode")}
+                   "SPIDER": _rasters.encode_spider, "EPS": _documents.encode_eps,
+                   "JPEG2000": _jpeg2000.encode_jpeg2000}
+# Pillow 12.1's save formats (the keys of ``Image.SAVE`` after
+# ``Image.init()``, copied here: the card's machine has no Pillow); any other
+# format name fails at the lookup with ``KeyError(name)``
+_PILLOW_SAVES = frozenset({
+    "AVIF", "BLP", "BMP", "BUFR", "DDS", "DIB", "EPS", "GIF", "GRIB", "HDF5", "ICNS", "ICO",
+    "IM", "JPEG", "JPEG2000", "MPO", "MSP", "PALM", "PCX", "PDF", "PNG", "PPM", "QOI", "SGI",
+    "SPIDER", "TGA", "TIFF", "WEBP", "WMF", "XBM"})
+_ALL = ("RGB", "RGBA", "I;16")
+_JPEG_FAILS = (("RGBA", "I;16"), lambda mode: OSError(f"cannot write mode {mode} as JPEG"))
+_BMP_FAILS = (("I;16",), lambda mode: OSError(f"cannot write mode {mode} as BMP"))
+# the errors Pillow's save handlers raise of the images the JAX package hands
+# them (mode RGB, RGBA or I;16), by format: (the modes that fail, the error of
+# the mode).  XBM, MSP and Palm want 1-bit images and BLP a P image; JPEG (an
+# MPO's one frame too) takes no alpha and no 16 bits, BMP, DDS and TGA no 16
+# bits, EPS only RGB, PDF no I;16; the handlers of BUFR, GRIB, HDF5 and WMF
+# are stubs without their optional modules
+_PILLOW_FAILS = {
+    "XBM": (_ALL, lambda mode: OSError(f"cannot write mode {mode} as XBM")),
+    "MSP": (_ALL, lambda mode: OSError(f"cannot write mode {mode} as MSP")),
+    "PALM": (_ALL, lambda mode: OSError(f"cannot write mode {mode} as Palm")),
+    "BLP": (_ALL, lambda mode: ValueError("Unsupported BLP image mode")),
+    "JPEG": _JPEG_FAILS, "MPO": _JPEG_FAILS, "BMP": _BMP_FAILS, "DIB": _BMP_FAILS,
+    "DDS": (("I;16",), lambda mode: OSError(f"cannot write mode {mode} as DDS")),
+    "TGA": (("I;16",), lambda mode: OSError(f"cannot write mode {mode} as TGA")),
+    "EPS": (("RGBA", "I;16"), lambda mode: ValueError("image mode is not supported")),
+    "PDF": (("I;16",), lambda mode: ValueError(f"cannot save mode {mode}")),
+    **{name: (_ALL, lambda mode, name=name: OSError(f"{name} save handler not installed"))
+       for name in ("BUFR", "GRIB", "HDF5", "WMF")},
+}
 # the writers that put the output's name into the file (Pillow's filename)
-_NAMED_WRITERS = {"SGI": _rawimg.encode_sgi, "IM": _rawimg.encode_im}
+_NAMED_WRITERS = {"SGI": _rawimg.encode_sgi, "IM": _rawimg.encode_im,
+                  "PDF": _documents.encode_pdf}
 _CV2_WRITERS = {"WEBP": ".webp"}
 
 
@@ -249,7 +284,7 @@ _PILLOW_ORDER = (
 )
 # Pillow 12.1's save formats that the port does not write, refused
 # naming item 8h before anything is read or written
-_OTHER_WRITES = frozenset({"AVIF", "EPS", "JPEG2000", "PDF"})
+_OTHER_WRITES = frozenset({"AVIF"})
 
 
 def base16_encode(data: bytes) -> str:
@@ -313,6 +348,8 @@ def _split_spec(spec: str) -> tuple[str | None, str]:
 
 def _to_channels(rgba: np.ndarray, channels: str) -> np.ndarray:
     """Map an [H,W,4] float RGBA array onto a channel-letter string."""
+    if channels.upper() in ("RGB", _RGBA):        # one copy of the leading planes
+        return np.ascontiguousarray(rgba[..., :len(channels)])
     planes = []
     for ch in channels.upper():
         if ch in _RGBA:
@@ -330,8 +367,12 @@ def _to_channels(rgba: np.ndarray, channels: str) -> np.ndarray:
 def _from_channels(pix: np.ndarray, channels: str) -> np.ndarray:
     """Expand channel-letter planes back to [H,W,4] RGBA in [0,1]."""
     h, w = pix.shape[:2]
-    rgba = np.zeros((h, w, 4), dtype=np.float64)
+    rgba = np.empty((h, w, 4), dtype=np.float64)
     rgba[..., 3] = 1.0
+    if channels.upper() in ("RGB", _RGBA):        # one copy of the leading planes
+        rgba[..., :len(channels)] = pix[..., :len(channels)]
+        return rgba
+    rgba[..., :3] = 0.0
     for i, ch in enumerate(channels.upper()):
         if ch in _RGBA:
             rgba[..., _RGBA.index(ch)] = pix[..., i]
@@ -350,16 +391,19 @@ def _rgba(arr: np.ndarray, trns: tuple | None) -> np.ndarray:
     divides by 65535 whatever its range (values below 0 and above 1
     kept)."""
     top = 65535.0 if arr.dtype == np.int32 else float(np.iinfo(arr.dtype).max)
-    fa = arr.astype(np.float64) / top
-    h, w, nch = fa.shape
-    rgba = np.zeros((h, w, 4), dtype=np.float64)
+    h, w, nch = arr.shape
+    rgba = np.empty((h, w, 4), dtype=np.float64)
     rgba[..., 3] = 1.0
     if nch <= 2:
-        rgba[..., 0] = rgba[..., 1] = rgba[..., 2] = fa[..., 0]
+        rgba[..., 0] = arr[..., 0]
+        rgba[..., 0] /= top
+        rgba[..., 1] = rgba[..., 2] = rgba[..., 0]
         if nch == 2:
-            rgba[..., 3] = fa[..., 1]
+            rgba[..., 3] = arr[..., 1]
+            rgba[..., 3] /= top
     else:
-        rgba[..., :nch] = fa
+        rgba[..., :nch] = arr
+        rgba[..., :nch] /= top
     if trns is not None:
         rgba[(arr == np.asarray(trns)).all(axis=-1), 3] = 0.0
     return rgba
@@ -453,9 +497,11 @@ def _format_name(fmt: str | None, path: str) -> str:
 
 def check_target(spec: str | None) -> tuple[str | None, str]:
     """The (format, path) of an output specifier (``sixel:-`` for None on a
-    terminal, as in the JAX package), or the ``ValueError`` of a
-    compressed format when cv2 does not import here.  The tools call it
-    before they read anything."""
+    terminal, as in the JAX package), or the ``ValueError`` of a format
+    the port refuses: AVIF, or WebP when cv2 does not import here.  The
+    tools call it before they read anything; what Pillow itself cannot
+    save fails in ``write_image``, after the compute, as in the JAX
+    package."""
     if spec is None:
         spec = "sixel:-" if sys.stdout.isatty() else "-"
     fmt, path = _split_spec(spec)
@@ -488,11 +534,12 @@ def write_image(
 
     rgba = _from_channels(np.asarray(pixels, dtype=np.float64), channels)
     if to_srgb:
-        rgba = np.concatenate(
-            [_color.srgb_encode(rgba[..., :3]), rgba[..., 3:]], axis=-1
-        )
+        rgba[..., :3] = _color.srgb_encode(rgba[..., :3])
     scale = (1 << depth) - 1
-    quant = np.clip(np.rint(np.clip(rgba, 0.0, 1.0) * scale), 0, scale)
+    # rint(clip(rgba, 0, 1) * scale), in place: the levels 0..scale
+    np.clip(rgba, 0.0, 1.0, out=rgba)
+    rgba *= scale
+    quant = np.rint(rgba, out=rgba)
 
     if fmt == "sixel":
         rgb8 = (quant[..., :3] * (255.0 / scale)).astype(np.uint8)
@@ -519,23 +566,20 @@ def write_image(
         if not has_alpha:
             arr = arr[..., :3]
 
+    mode = "I;16" if arr.dtype != np.uint8 else "RGBA" if arr.shape[2] == 4 else "RGB"
+    fails, fail = _PILLOW_FAILS.get(name, ((), None))
     if name == "PNG":
         data = _png.encode_png(arr, properties)
-    elif name in ("JPEG", "MPO") and (arr.dtype != np.uint8 or arr.ndim == 3
-                                      and arr.shape[2] == 4):
-        # Pillow writes no alpha and no 16 bits as JPEG (an MPO's one frame)
-        raise ValueError(f"cannot write {'I;16' if arr.dtype != np.uint8 else 'RGBA'} as JPEG")
-    elif name in _PILLOW_FAILS:
-        raise _PILLOW_FAILS[name]("I;16" if arr.dtype != np.uint8 else "RGBA" if arr.shape[2] == 4
-                                  else "RGB")
+    elif name not in _PILLOW_SAVES:
+        raise KeyError(name)        # Pillow's SAVE[name], before any file is made
+    elif mode in fails:
+        raise fail(mode)
     elif name in _NATIVE_WRITERS:
         data = _NATIVE_WRITERS[name](arr)
     elif name in _NAMED_WRITERS:
         data = _NAMED_WRITERS[name](arr, "" if path == "-" else path)
-    elif name in _CV2_WRITERS:
-        data = _cv2_encode(arr, name)
     else:
-        raise ValueError(f"unknown image format {name!r}")
+        data = _cv2_encode(arr, name)
     if path == "-":
         sys.stdout.buffer.write(data)
         sys.stdout.buffer.flush()

@@ -40,6 +40,10 @@ Pillow.
   :func:`_pillow_tiles`), and what ``convert("RGBA")`` (or
   ``convert("I")`` for ``I;16``) makes of the mode: CMYK through
   ``cmyk2rgb``, palettes expanded.
+* **Write** (:func:`encode_jpeg2000`, ``Jpeg2KImagePlugin._save`` at
+  Pillow's defaults): the lossless JP2 Pillow writes through OpenJPEG
+  2.5.4 of ``RGB``, ``RGBA`` and ``I;16`` samples, the boxes and markers
+  here, the tile's packets from ``native/j2k.cpp`` (``j2k_encode``).
 * **Refused, naming item 8h**, with or without cv2 (no JPEG 2000 file
   reaches it): HT code-blocks.
 """
@@ -58,13 +62,13 @@ from dspfun_tpu_torch.io import imgcodecs as _codecs
 from dspfun_tpu_torch.io import png as _png
 from dspfun_tpu_torch.io import rawimg as _raw
 
-__all__ = ["decode_j2k", "open_j2k"]
+__all__ = ["decode_j2k", "encode_jpeg2000", "open_j2k"]
 
 SOC_SIZ = b"\xff\x4f\xff\x51"
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
 _SOT, _SOD, _EOC = 0xFF90, 0xFF93, 0xFFD9
 _SIZ, _COD, _COC, _QCD, _QCC = 0xFF51, 0xFF52, 0xFF53, 0xFF5C, 0xFF5D
-_RGN, _POC, _PPM, _PPT = 0xFF5E, 0xFF5F, 0xFF60, 0xFF61
+_RGN, _POC, _PPM, _PPT, _COM = 0xFF5E, 0xFF5F, 0xFF60, 0xFF61, 0xFF64
 # OpenJPEG's colour spaces from a JP2 colr box's enumerated space
 _GRAY, _SRGB, _SYCC, _CMYK = "gray", "srgb", "sycc", "cmyk"
 _ENUMCS = {16: _SRGB, 17: _GRAY, 18: _SYCC, 24: "eycc", 12: _CMYK}
@@ -87,6 +91,9 @@ def _load() -> ctypes.CDLL:
     lib.j2k_decode.restype = c.c_int
     lib.j2k_decode.argtypes = [c.c_char_p, c.c_int64, c.c_char_p, c.c_int64, c.c_void_p,
                                c.c_void_p, c.c_void_p, c.c_char_p, c.c_int]
+    lib.j2k_encode.restype = c.c_int64
+    lib.j2k_encode.argtypes = [c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+                               c.c_void_p, c.c_int64, c.c_char_p, c.c_int]
     return lib
 
 
@@ -876,3 +883,71 @@ def decode_j2k(data: bytes) -> tuple[np.ndarray, int]:
     elif mode == "RGBA" and unpacker == "la":
         out = np.concatenate([np.repeat(out[..., :1], 3, -1), out[..., 1:]], -1)
     return np.ascontiguousarray(out), 16 if mode == "I;16" else 8
+
+
+# ---- Pillow's write -----------------------------------------------------------------
+
+# the library version Pillow 12.1's JPEG 2000 codec is built on, which
+# OpenJPEG writes into every codestream's COM marker
+OPENJPEG_VERSION = "2.5.4"
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def _marker(code: int, payload: bytes) -> bytes:
+    return struct.pack(">HH", code, 2 + len(payload)) + payload
+
+
+def encode_jpeg2000(arr: np.ndarray, threads: int = 0) -> bytes:
+    """The JP2 file Pillow 12.1's ``Jpeg2KImagePlugin._save`` writes through
+    OpenJPEG 2.5.4 at its defaults (``Jpeg2KEncode.c``): uint8 [H, W, 3]
+    (``RGB``) or [H, W, 4] (``RGBA``, a ``cdef`` box naming the alpha) or
+    uint16 [H, W] (``I;16``).  Lossless: one tile, reversible 5/3, no
+    component transform, LRCP, one layer, 64 x 64 code-blocks of style 0,
+    default precincts, five decomposition levels or as many as the smaller
+    side holds (2^levels at most its length), guard bits 2, a COM marker
+    naming OpenJPEG.  The tile's packets come from ``native/j2k.cpp``
+    (``j2k_encode``, its code-blocks on ``threads`` host threads, 0: the
+    host's cores up to 8; the bytes do not depend on it)."""
+    arr = np.asarray(arr)
+    gray = arr.ndim == 2
+    if not (gray and arr.dtype == np.uint16 or not gray and arr.dtype == np.uint8
+            and arr.ndim == 3 and arr.shape[2] in (3, 4)):
+        raise ValueError(f"cannot write {arr.dtype} {arr.shape} as JPEG 2000")
+    h, w = arr.shape[:2]
+    nc, prec = (1, 16) if gray else (arr.shape[2], 8)
+    levels = 0
+    while levels < 5 and min(w, h) >= 2 << levels:
+        levels += 1
+    planes = np.ascontiguousarray(np.moveaxis(arr.reshape(h, w, nc), -1, 0), dtype=np.int32)
+    err = ctypes.create_string_buffer(256)
+    cap = planes.size * 2 + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = _load().j2k_encode(planes.ctypes.data, nc, w, h, prec, levels, threads,
+                               out.ctypes.data, cap, err, 256)
+        if n < 0:
+            raise ValueError(f"JPEG 2000: cannot encode this image ({err.value.decode()})")
+        if n <= cap:
+            break
+        cap = n
+    tile = out[:n].tobytes()
+    steps = [prec << 3] + [(prec + g) << 3 for _ in range(levels) for g in (1, 1, 2)]
+    text = f"Created by OpenJPEG version {OPENJPEG_VERSION}".encode()
+    cs = (SOC_SIZ[:2]
+          + _marker(_SIZ, struct.pack(">HIIIIIIIIH", 0, w, h, 0, 0, w, h, 0, 0, nc)
+                    + bytes([prec - 1, 1, 1]) * nc)
+          + _marker(_COD, bytes([0, 0, 0, 1, 0, levels, 4, 4, 0, 1]))
+          + _marker(_QCD, bytes([0x40] + steps))
+          + _marker(_COM, struct.pack(">H", 1) + text)
+          + struct.pack(">HHHIBBH", _SOT, 10, 0, 14 + len(tile), 0, 1, _SOD)
+          + tile + struct.pack(">H", _EOC))
+    header = _box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, prec - 1, 7, 0, 0))
+    header += _box(b"colr", struct.pack(">BBBI", 1, 0, 0, 17 if gray else 16))
+    if nc == 4:
+        header += _box(b"cdef", struct.pack(">H", 4) + struct.pack(
+            ">12H", 0, 0, 1, 1, 0, 2, 2, 0, 3, 3, 1, 0))
+    return (JP2_SIGNATURE + _box(b"ftyp", b"jp2 " + bytes(4) + b"jp2 ") + _box(b"jp2h", header)
+            + _box(b"jp2c", cs))

@@ -66,8 +66,9 @@ def refusal(what: str, part: str = "") -> ValueError:
                    "and no other format") if part == "h" else
                   (f"{what} needs cv2, which does not import here", "and the rest only through cv2"))
     return ValueError(f"{lead}: the port reads and writes PNG, PNM, BMP, DIB, TIFF, JPEG, GIF, "
-                      f"TGA, PCX, SGI, QOI, IM, ICO, DDS, ICNS and SPIDER itself, writes MPO as "
-                      f"JPEG, and reads WebP, PSD, CUR, DCX, JPEG 2000, FITS, Sun raster, XBM, "
+                      f"TGA, PCX, SGI, QOI, IM, ICO, DDS, ICNS, SPIDER and JPEG 2000 itself, "
+                      f"writes MPO as JPEG, EPS and PDF, and reads WebP, PSD, CUR, DCX, FITS, "
+                      f"Sun raster, XBM, "
                       f"XPM, MSP, PIXAR, McIdas, XV thumbnail, GBR, IMT, BLP, FTEX, FLI, PCD and "
                       f"IPTC itself (TIFF: uncompressed, LZW, "
                       f"deflate, PackBits, JPEG, CCITT RLE, Group 3 or Group 4, Zstandard or LZMA "
@@ -78,7 +79,7 @@ def refusal(what: str, part: str = "") -> ValueError:
                       f"WebP: lossy, lossless, alpha, an animation's first frame; DDS: "
                       f"uncompressed, palette and BC1 to BC7 read, uncompressed written; JPEG "
                       f"2000: JP2 and raw codestreams, reversible and irreversible, packed packet "
-                      f"headers), {rest} "
+                      f"headers; written lossless as Pillow writes it), {rest} "
                       f"({NOT_PORTED}{part})")
 
 

@@ -38,6 +38,17 @@
 // markers, refuses HT code-blocks, and unpacks the samples into Pillow's
 // modes (sub-sampled or smaller components in Pillow's own layout, from the
 // packed tile-components here).
+//
+// j2k_encode is the tile encoder of Pillow 12.1's JPEG 2000 writes through
+// OpenJPEG 2.5.4 (lossless, one tile, one layer): the DC level shift, the
+// forward 5/3 lifting (columns then rows, each line deinterleaved; the
+// inverse of idwt53), tier-1 at code-block style 0 (the MQ encoder of
+// OpenJPEG's opj_mqc_*_enc on the decoder's state table, the three passes
+// from the cleanup of the highest bit-plane down, one flush at the end, the
+// code-blocks on host threads), and tier-2 LRCP packet headers (inclusion
+// and zero bit-plane tag trees, pass counts, Lblock, 0xFF bit-stuffing, a
+// header's first bit 1 even where it includes no code-block, as OpenJPEG
+// 2.5.4 writes it).  io/jpeg2000.py writes the boxes and the markers.
 #pragma GCC optimize("fp-contract=off")
 #include <algorithm>
 #include <atomic>
@@ -1191,6 +1202,375 @@ void mct(Tile& tl) {
   }
 }
 
+
+// ---- the encoder (OpenJPEG 2.5's opj_compress path at Pillow's settings) --------
+//
+// One tile, reversible 5/3, no MCT, LRCP, one layer holding every pass,
+// code-block style 0, default precincts (2^15), as Pillow 12.1's
+// Jpeg2KEncode.c asks of OpenJPEG 2.5.4.
+
+// the MQ encoder (Annex C, OpenJPEG's opj_mqc_*_enc): out[0] is the byte
+// before the code-block's first (OpenJPEG's bp = start - 1, zeroed)
+struct MqEnc {
+  std::vector<uint8_t> out;
+  size_t bp = 0;
+  uint32_t c = 0, a = 0x8000;
+  int ct = 12;
+  uint8_t st[NCX];
+  uint8_t mps[NCX];
+
+  void init() {
+    out.assign(1, 0);
+    bp = 0;
+    c = 0;
+    a = 0x8000;
+    ct = 12;
+    std::memset(st, 0, sizeof st);
+    std::memset(mps, 0, sizeof mps);
+    st[CX_UNI] = 46;
+    st[CX_RL] = 3;
+    st[0] = 4;
+  }
+  inline void put(uint32_t v) {
+    if (++bp == out.size()) out.push_back(static_cast<uint8_t>(v));
+    else out[bp] = static_cast<uint8_t>(v);
+  }
+  inline void byteout() {
+    if (out[bp] == 0xFF) {
+      put(c >> 20);
+      c &= 0xFFFFF;
+      ct = 7;
+    } else if ((c & 0x8000000) == 0) {
+      put(c >> 19);
+      c &= 0x7FFFF;
+      ct = 8;
+    } else {
+      out[bp]++;
+      if (out[bp] == 0xFF) {
+        c &= 0x7FFFFFF;
+        put(c >> 20);
+        c &= 0xFFFFF;
+        ct = 7;
+      } else {
+        put(c >> 19);
+        c &= 0x7FFFF;
+        ct = 8;
+      }
+    }
+  }
+  inline void renorm() {
+    do {
+      a <<= 1;
+      c <<= 1;
+      if (--ct == 0) byteout();
+    } while ((a & 0x8000) == 0);
+  }
+  inline void encode(int cx, int d) {
+    const MqState& s = kMq[st[cx]];
+    const uint32_t qe = s.qe;
+    a -= qe;
+    if (mps[cx] == d) {
+      if ((a & 0x8000) == 0) {
+        if (a < qe) a = qe;
+        else c += qe;
+        st[cx] = s.nmps;
+        renorm();
+      } else {
+        c += qe;
+      }
+    } else {
+      if (a < qe) c += qe;
+      else a = qe;
+      if (s.sw) mps[cx] ^= 1;
+      st[cx] = s.nlps;
+      renorm();
+    }
+  }
+  // OpenJPEG's opj_mqc_flush: a final 0xFF left out of the byte count
+  size_t flush() {
+    const uint32_t tempc = c + a;
+    c |= 0xFFFF;
+    if (c >= tempc) c -= 0x8000;
+    c <<= ct;
+    byteout();
+    c <<= ct;
+    byteout();
+    if (out[bp] != 0xFF) bp++;
+    return bp - 1;
+  }
+};
+
+// tier-1 of one code-block (OpenJPEG's opj_t1_encode_cblk at style 0): the
+// magnitudes and signs of its coefficients, the passes from the cleanup of
+// the highest bit-plane down, the last one terminated
+struct T1Enc : T1 {
+  std::vector<uint32_t> mag;
+  std::vector<uint8_t> neg;
+  MqEnc mq;
+
+  // returns the bit-planes (0: an all-zero block, no passes); data: the
+  // coded bytes; npasses: the passes
+  int encode(const int32_t* src, int stride, int w, int h, int bandno, std::vector<uint8_t>& data,
+             int& npasses) {
+    mag.resize(static_cast<size_t>(w) * h);
+    neg.resize(static_cast<size_t>(w) * h);
+    uint32_t top = 0;
+    for (int y = 0; y < h; y++)
+      for (int x = 0; x < w; x++) {
+        const int32_t v = src[static_cast<size_t>(y) * stride + x];
+        const uint32_t m = static_cast<uint32_t>(v < 0 ? -static_cast<int64_t>(v) : v);
+        mag[y * w + x] = m;
+        neg[y * w + x] = v < 0;
+        top = std::max(top, m);
+      }
+    int numbps = 0;
+    while (numbps < 32 && (top >> numbps)) numbps++;
+    data.clear();
+    npasses = 0;
+    if (!numbps) return 0;
+    if (numbps >= 31) throw Error{"a code-block of 31 or more bit-planes"};
+    const int fs = w + 2;
+    flags.assign(static_cast<size_t>(fs) * (h + 2), 0);
+    vsc = false;
+    mq.init();
+    const Tables& tb = tables();
+    const uint8_t* zc = tb.zc[bandno == 1 ? 1 : bandno == 3 ? 2 : 0];
+    int passtype = 2;
+    for (int bpno = numbps - 1; bpno >= 0;) {
+      if (passtype == 0) sigpass(zc, tb.sc, w, h, bpno);
+      else if (passtype == 1) refpass(w, h, bpno);
+      else clnpass(zc, tb.sc, w, h, bpno);
+      npasses++;
+      if (++passtype == 3) {
+        passtype = 0;
+        bpno--;
+      }
+    }
+    const size_t n = mq.flush();
+    data.assign(mq.out.begin() + 1, mq.out.begin() + 1 + n);
+    return numbps;
+  }
+
+  inline void sign(const uint8_t* sc, uint16_t* f, int fs, int i, int y) {
+    const int s = sc[sc_index(*f)];
+    mq.encode(s & 0x1F, neg[i] ^ (s >> 5));
+    set_sig(f, fs, neg[i] != 0, y);
+  }
+
+  void sigpass(const uint8_t* zc, const uint8_t* sc, int w, int h, int bpno) {
+    const int fs = w + 2;
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      const int y1 = std::min(y0 + 4, h);
+      for (int x = 0; x < w; x++) {
+        for (int y = y0; y < y1; y++) {
+          uint16_t* f = &flags[static_cast<size_t>(y + 1) * fs + x + 1];
+          if ((*f & (F_SIG | F_VIS)) || !(*f & F_NBR)) continue;
+          const int i = y * w + x, v = (mag[i] >> bpno) & 1;
+          mq.encode(zc[(*f >> 4) & 0xFF], v);
+          if (v) sign(sc, f, fs, i, y);
+          *f |= F_VIS;
+        }
+      }
+    }
+  }
+
+  void refpass(int w, int h, int bpno) {
+    const int fs = w + 2;
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      const int y1 = std::min(y0 + 4, h);
+      for (int x = 0; x < w; x++) {
+        for (int y = y0; y < y1; y++) {
+          uint16_t* f = &flags[static_cast<size_t>(y + 1) * fs + x + 1];
+          if ((*f & (F_SIG | F_VIS)) != F_SIG) continue;
+          mq.encode((*f & F_REF) ? 16 : (*f & F_NBR) ? 15 : 14, (mag[y * w + x] >> bpno) & 1);
+          *f |= F_REF;
+        }
+      }
+    }
+  }
+
+  void clnpass(const uint8_t* zc, const uint8_t* sc, int w, int h, int bpno) {
+    const int fs = w + 2;
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      const int y1 = std::min(y0 + 4, h);
+      for (int x = 0; x < w; x++) {
+        uint16_t* col = &flags[static_cast<size_t>(y0 + 1) * fs + x + 1];
+        int y = y0;
+        if (y1 - y0 == 4) {
+          const uint16_t m = F_SIG | F_VIS | F_NBR;
+          if (!((col[0] | col[fs] | col[2 * fs] | col[3 * fs]) & m)) {
+            int r = 0;
+            while (r < 4 && !((mag[(y0 + r) * w + x] >> bpno) & 1)) r++;
+            mq.encode(CX_RL, r != 4);
+            if (r == 4) continue;
+            mq.encode(CX_UNI, r >> 1);
+            mq.encode(CX_UNI, r & 1);
+            y = y0 + r;
+            sign(sc, &col[r * fs], fs, y * w + x, y);
+            y++;
+          }
+        }
+        for (; y < y1; y++) {
+          uint16_t* f = &col[(y - y0) * fs];
+          if (*f & (F_SIG | F_VIS)) continue;
+          const int i = y * w + x, v = (mag[i] >> bpno) & 1;
+          mq.encode(zc[(*f >> 4) & 0xFF], v);
+          if (v) sign(sc, f, fs, i, y);
+        }
+        for (int yy = y0; yy < y1; yy++) col[(yy - y0) * fs] &= static_cast<uint16_t>(~F_VIS);
+      }
+    }
+  }
+};
+
+// the packet header's bit writer (OpenJPEG's opj_bio_*_enc): a 0 bit
+// stuffed after every 0xFF byte
+struct BioEnc {
+  std::vector<uint8_t>& out;
+  uint32_t buf = 0;
+  int ct = 8;
+  explicit BioEnc(std::vector<uint8_t>& o) : out(o) {}
+  void byteout() {
+    buf = (buf << 8) & 0xFFFF;
+    ct = buf == 0xFF00 ? 7 : 8;
+    out.push_back(static_cast<uint8_t>(buf >> 8));
+  }
+  void bit(int b) {
+    if (ct == 0) byteout();
+    ct--;
+    buf |= static_cast<uint32_t>(b) << ct;
+  }
+  void write(uint32_t v, int n) {
+    for (int i = n - 1; i >= 0; i--) bit((v >> i) & 1);
+  }
+  void flush() {
+    byteout();
+    if (ct == 7) byteout();
+  }
+};
+
+// the encoding twin of TagTree (OpenJPEG's opj_tgt_setvalue and
+// opj_tgt_encode)
+struct TagTreeEnc {
+  struct Node {
+    int parent, value, low;
+    bool known;
+  };
+  std::vector<Node> nodes;
+  void build(int w, int h) {
+    TagTree t;
+    t.build(w, h);
+    nodes.resize(t.nodes.size());
+    for (size_t i = 0; i < nodes.size(); i++) nodes[i] = {t.nodes[i].parent, 999, 0, false};
+  }
+  void set(int leaf, int value) {
+    for (int n = leaf; n >= 0 && nodes[n].value > value; n = nodes[n].parent) nodes[n].value = value;
+  }
+  void encode(BioEnc& bio, int leaf, int threshold) {
+    int stk[32], sp = 0;
+    int node = leaf;
+    while (nodes[node].parent >= 0) {
+      stk[sp++] = node;
+      node = nodes[node].parent;
+    }
+    int low = 0;
+    for (;;) {
+      Node& n = nodes[node];
+      if (low > n.low) n.low = low;
+      else low = n.low;
+      while (low < threshold) {
+        if (low >= n.value) {
+          if (!n.known) {
+            bio.bit(1);
+            n.known = true;
+          }
+          break;
+        }
+        bio.bit(0);
+        ++low;
+      }
+      n.low = low;
+      if (sp == 0) break;
+      node = stk[--sp];
+    }
+  }
+};
+
+// forward reversible 5/3 lifting on an interleaved line (the inverse of
+// idwt53: the same parity and mirroring)
+void fdwt53(int32_t* w, int n, int cas, int lanes) {
+  if (n == 1) {
+    if (cas)
+      for (int k = 0; k < lanes; k++) w[k] *= 2;
+    return;
+  }
+  if (n < 1) return;
+  for (int j = 1 - cas; j < n; j += 2) {
+    const int32_t *l = w + mirror(j - 1, n) * lanes, *r = w + mirror(j + 1, n) * lanes;
+    int32_t* x = w + j * lanes;
+    for (int k = 0; k < lanes; k++) x[k] -= (l[k] + r[k]) >> 1;
+  }
+  for (int j = cas; j < n; j += 2) {
+    const int32_t *l = w + mirror(j - 1, n) * lanes, *r = w + mirror(j + 1, n) * lanes;
+    int32_t* x = w + j * lanes;
+    for (int k = 0; k < lanes; k++) x[k] += (l[k] + r[k] + 2) >> 2;
+  }
+}
+
+// a level of the 2-D analysis (OpenJPEG's opj_dwt_encode_procedure):
+// columns then rows of the rw x rh region, each line deinterleaved, its
+// sn (sv) low samples first
+void analyse(int32_t* a, int stride, int rw, int rh, int sn, int sv, int casx, int casy,
+             int threads) {
+  const int blocks = (rw + kLanes - 1) / kLanes;
+  parallel(blocks, threads, [&](int b, int) {
+    const int x0 = b * kLanes, nl = std::min(kLanes, rw - x0);
+    std::vector<int32_t> tmp(static_cast<size_t>(rh) * nl);
+    for (int i = 0; i < rh; i++)
+      std::copy(a + static_cast<size_t>(i) * stride + x0, a + static_cast<size_t>(i) * stride + x0 + nl,
+                tmp.begin() + static_cast<size_t>(i) * nl);
+    fdwt53(tmp.data(), rh, casy, nl);
+    for (int j = 0; j < rh; j++) {
+      const int i = (j & 1) == casy ? j / 2 : sv + j / 2;
+      std::copy(tmp.begin() + static_cast<size_t>(j) * nl, tmp.begin() + static_cast<size_t>(j + 1) * nl,
+                a + static_cast<size_t>(i) * stride + x0);
+    }
+  });
+  const int rows = std::max(1, threads);
+  parallel(rows, threads, [&](int part, int) {
+    std::vector<int32_t> tmp(rw);
+    for (int y = part * rh / rows; y < (part + 1) * rh / rows; y++) {
+      int32_t* row = a + static_cast<size_t>(y) * stride;
+      std::copy(row, row + rw, tmp.begin());
+      fdwt53(tmp.data(), rw, casx, 1);
+      for (int j = 0; j < rw; j++) row[(j & 1) == casx ? j / 2 : sn + j / 2] = tmp[j];
+    }
+  });
+}
+
+struct EncBlock {
+  int comp, x0, y0, x1, y1;       // in its tile-component's buffer
+  int bandno;
+  int numbps = 0, npasses = 0;
+  std::vector<uint8_t> data;
+};
+
+// a band's part of a precinct: its code-blocks in raster order and tag trees
+struct EncPrecBand {
+  int band = -1;
+  std::vector<int> blocks;
+  int cw = 0, ch = 0;
+};
+
+// OpenJPEG's opj_t2_putnumpasses
+void put_numpasses(BioEnc& bio, int n) {
+  if (n == 1) bio.write(0, 1);
+  else if (n == 2) bio.write(2, 2);
+  else if (n <= 5) bio.write(0xC | (n - 3), 4);
+  else if (n <= 36) bio.write(0x1E0 | (n - 6), 9);
+  else bio.write(0xFF80 | (n - 37), 16);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1367,6 +1747,135 @@ int j2k_decode(const uint8_t* body, int64_t body_len, const uint8_t* heads, int6
   } catch (const std::bad_alloc&) {
     std::snprintf(err, errlen, "out of memory");
     return 1;
+  }
+}
+
+// Encode one tile: ncomp components of w x h unsigned samples of prec bits
+// (int32 [ncomp][h][w]) at levels decomposition levels, threads host threads
+// (0: the host's cores, at most 8; the bytes do not depend on it), into its
+// packets (the tile data after SOD).  Returns their length, written to out
+// only where it is at most cap, or -1 with the reason in err.
+int64_t j2k_encode(const int32_t* samples, int ncomp, int w, int h, int prec, int levels,
+                   int threads, uint8_t* out, int64_t cap, char* err, int errlen) {
+  try {
+    if (threads <= 0) threads = static_cast<int>(std::min(8u, std::max(1u, std::thread::hardware_concurrency())));
+    if (ncomp < 1 || w < 1 || h < 1 || prec < 1 || prec > 16 || levels < 0 || levels > 32)
+      throw Error{"bad image parameters"};
+    const int numres = levels + 1;
+    std::vector<int> rw(numres), rh(numres);
+    for (int r = 0; r < numres; r++) {
+      rw[r] = ceildivpow2(w, levels - r);
+      rh[r] = ceildivpow2(h, levels - r);
+    }
+    // the DC level shift and the forward transform of each component
+    const size_t plane = static_cast<size_t>(w) * h;
+    std::vector<std::vector<int32_t>> coef(ncomp);
+    for (int c = 0; c < ncomp; c++) {
+      coef[c].resize(plane);
+      const int32_t shift = int32_t(1) << (prec - 1);
+      const int32_t* src = samples + c * plane;
+      for (size_t i = 0; i < plane; i++) coef[c][i] = src[i] - shift;
+      for (int r = numres - 1; r >= 1; r--)
+        analyse(coef[c].data(), w, rw[r], rh[r], rw[r - 1], rh[r - 1], 0, 0, threads);
+    }
+    // the precincts' bands and their code-blocks (64 x 64), as Tile::setup
+    // lays them out for a tile at the origin with 2^15 precincts
+    std::vector<EncBlock> blocks;
+    // [comp][res] -> the precincts, each its bands
+    std::vector<std::vector<std::vector<std::vector<EncPrecBand>>>> precs(
+        ncomp, std::vector<std::vector<std::vector<EncPrecBand>>>(numres));
+    std::vector<int> band_numbps(4);
+    for (int b = 0; b < 4; b++) band_numbps[b] = prec + (b == 0 ? 0 : b == 3 ? 2 : 1) + 2 - 1;
+    for (int c = 0; c < ncomp; c++)
+      for (int r = 0; r < numres; r++) {
+        const int pdx = 15, cbg = r == 0 ? 15 : 14;
+        const int pw = ceildivpow2(rw[r], pdx), ph = ceildivpow2(rh[r], pdx);
+        auto& rp = precs[c][r];
+        rp.assign(static_cast<size_t>(pw) * ph, {});
+        for (int b = (r == 0 ? 0 : 1); b <= (r == 0 ? 0 : 3); b++) {
+          const int xb = b & 1, yb = b >> 1;
+          const int bw = r == 0 ? rw[0] : xb ? rw[r] - rw[r - 1] : rw[r - 1];
+          const int bh = r == 0 ? rh[0] : yb ? rh[r] - rh[r - 1] : rh[r - 1];
+          const int xoff = r > 0 && xb ? rw[r - 1] : 0, yoff = r > 0 && yb ? rh[r - 1] : 0;
+          if (bw == 0 || bh == 0) continue;   // an empty band: in no packet
+          for (int pj = 0; pj < ph; pj++)
+            for (int pi = 0; pi < pw; pi++) {
+              EncPrecBand pb;
+              pb.band = b;
+              const int px0 = std::min(bw, pi << cbg), py0 = std::min(bh, pj << cbg);
+              const int px1 = std::min(bw, (pi + 1) << cbg), py1 = std::min(bh, (pj + 1) << cbg);
+              const int bx0 = px0 >> 6, by0 = py0 >> 6;
+              pb.cw = std::max(0, ceildivpow2(px1, 6) - bx0);
+              pb.ch = std::max(0, ceildivpow2(py1, 6) - by0);
+              for (int j = 0; j < pb.ch; j++)
+                for (int i = 0; i < pb.cw; i++) {
+                  EncBlock eb;
+                  eb.comp = c;
+                  eb.bandno = b;
+                  eb.x0 = xoff + std::max(px0, (bx0 + i) << 6);
+                  eb.y0 = yoff + std::max(py0, (by0 + j) << 6);
+                  eb.x1 = xoff + std::min(px1, (bx0 + i + 1) << 6);
+                  eb.y1 = yoff + std::min(py1, (by0 + j + 1) << 6);
+                  pb.blocks.push_back(static_cast<int>(blocks.size()));
+                  blocks.push_back(std::move(eb));
+                }
+              rp[static_cast<size_t>(pj) * pw + pi].push_back(std::move(pb));
+            }
+        }
+      }
+    // tier-1 of every code-block
+    std::vector<T1Enc> t1s(threads);
+    parallel(static_cast<int>(blocks.size()), threads, [&](int i, int th) {
+      EncBlock& eb = blocks[i];
+      eb.numbps = t1s[th].encode(coef[eb.comp].data() + static_cast<size_t>(eb.y0) * w + eb.x0, w,
+                                 eb.x1 - eb.x0, eb.y1 - eb.y0, eb.bandno, eb.data, eb.npasses);
+      if (eb.numbps > band_numbps[eb.bandno]) throw Error{"a code-block above its band's bit-planes"};
+    });
+    // tier-2: the packets of the one layer in LRCP order
+    std::vector<uint8_t> body;
+    for (int r = 0; r < numres; r++)
+      for (int c = 0; c < ncomp; c++)
+        for (const auto& bands : precs[c][r]) {
+          // the header's first bit is 1 whether or not a code-block is
+          // included (OpenJPEG 2.5.4 writes no empty packet)
+          BioEnc bio(body);
+          bio.bit(1);
+          for (size_t b = 0; b < bands.size(); b++) {
+            const EncPrecBand& pb = bands[b];
+            TagTreeEnc incl, imsb;
+            incl.build(pb.cw, pb.ch);
+            imsb.build(pb.cw, pb.ch);
+            const int n = static_cast<int>(pb.blocks.size());
+            for (int k = 0; k < n; k++) imsb.set(k, band_numbps[pb.band] - blocks[pb.blocks[k]].numbps);
+            for (int k = 0; k < n; k++)
+              if (blocks[pb.blocks[k]].npasses) incl.set(k, 0);
+            for (int k = 0; k < n; k++) {
+              const EncBlock& eb = blocks[pb.blocks[k]];
+              incl.encode(bio, k, 1);
+              if (!eb.npasses) continue;
+              imsb.encode(bio, k, 999);
+              put_numpasses(bio, eb.npasses);
+              const int len = static_cast<int>(eb.data.size());
+              const int nlog = Tile::floorlog2(eb.npasses);
+              const int inc = std::max(0, Tile::floorlog2(len) + 1 - (3 + nlog));
+              for (int i = 0; i < inc; i++) bio.bit(1);
+              bio.bit(0);
+              bio.write(static_cast<uint32_t>(len), 3 + inc + nlog);
+            }
+          }
+          bio.flush();
+          for (const EncPrecBand& pb : bands)
+            for (int k : pb.blocks) body.insert(body.end(), blocks[k].data.begin(), blocks[k].data.end());
+        }
+    const int64_t n = static_cast<int64_t>(body.size());
+    if (n <= cap) std::memcpy(out, body.data(), body.size());
+    return n;
+  } catch (const Error& e) {
+    std::snprintf(err, errlen, "%s", e.msg.c_str());
+    return -1;
+  } catch (const std::bad_alloc&) {
+    std::snprintf(err, errlen, "out of memory");
+    return -1;
   }
 }
 

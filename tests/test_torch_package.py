@@ -63,7 +63,7 @@ def test_every_module_imports_without_jax():
         "parallel.motion_sharded", "parallel.multihost", "io.ffmpeg_bridge", "io.cv2_bridge",
         "io.sixel", "io.imgcodecs", "io.jpeg", "io.gif", "io.quant", "io.webp", "io.rawimg",
         "io.ico", "io.psd", "io.dds", "io.jpeg2000", "io.rasters", "io.icns", "io.blp",
-        "io.containers")} <= names
+        "io.containers", "io.documents")} <= names
 
 
 def _blocked(tmp_path, names=("jax", "jaxlib", "dspfun_tpu", "PIL", "zstandard")):
@@ -335,8 +335,8 @@ def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_pat
     IM, ICO and DIB goldens read through the port's own codecs; spec of an
     RLE TGA equals spec of the same pixels as PNG and motion on RLE TGA
     frames equals motion on their PPMs, on the CPU; ispec writes every new
-    format; the rest of item 8h (PDF here) is still refused before any
-    write."""
+    format, PDF, EPS and JPEG 2000 among them; the rest of item 8h (AVIF)
+    is still refused before any write."""
     blocked = _blocked(tmp_path, ("jax", "jaxlib", "dspfun_tpu", "PIL", "cv2", "zstandard"))
     gold = ROOT / "tests" / "goldens"
     names = ["tga_rgba_rle_top.tga", "pcx_4plane.pcx", "sgi_rle_rgb.sgi", "qoi_rgba.qoi",
@@ -363,13 +363,14 @@ def test_other_formats_through_spec_and_motion_without_jax_pillow_or_cv2(tmp_pat
         "same = lambda a, b: open(d + a, 'rb').read() == open(d + b, 'rb').read()\n"
         "rcs = [spec.main(cpu + ['-t', 'flat', d + 'in00.tga', d + 's_t.png']),\n"
         "       spec.main(cpu + ['-t', 'flat', d + 'in.png', d + 's_p.png'])]\n"
-        "for ext in ('tga', 'pcx', 'sgi', 'qoi', 'im', 'ico', 'dib', 'mpo'):\n"
+        "for ext in ('tga', 'pcx', 'sgi', 'qoi', 'im', 'ico', 'dib', 'mpo', 'pdf', 'eps',\n"
+        "            'jpeg2000'):\n"
         "    rcs.append(ispec.main(cpu + ['-t', 'flat', d + 's_t.png', d + 'back.' + ext]))\n"
         "args = cpu + ['-Q', '-b', '8x8x4', '-p', '0x0x0-4x4x2', '-B', '1.25']\n"
         "for src in ('tga', 'ppm'):\n"
         "    rcs.append(motion.main(args + [d + 'in%%02d.' + src, d + 'o_' + src + '.y4m']))\n"
         "try:\n"
-        "    images.write_image(d + 'out.pdf', images.read_image(d + 'in.png').pixels)\n"
+        "    images.write_image(d + 'out.avif', images.read_image(d + 'in.png').pixels)\n"
         "    refused = False\n"
         "except ValueError as e:\n"
         "    refused = 'queue 1, item 8h' in str(e)\n"

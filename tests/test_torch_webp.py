@@ -468,26 +468,40 @@ def test_pillows_jpeg2000_is_read_as_the_jax_package_reads_it(tmp_path, monkeypa
 
 @pytest.mark.parametrize("name", sorted({"AVIF", "EPS", "JPEG2000", "PDF"}))
 def test_pillows_other_save_formats_are_refused_before_writing(name, tmp_path, monkeypatch):
-    """Every save format of Pillow 12.1 the port does not write: the port
-    refuses it naming item 8h before any file is made, whatever the JAX
-    package does with the pixels (it writes them).  ICNS and SPIDER are
-    written, and XBM, MSP, PALM and BLP fail as in the JAX package
+    """AVIF, the one save format of Pillow 12.1 the port does not write: the
+    port refuses it naming item 8h before any file is made, whatever the
+    JAX package does with the pixels (it writes them).  EPS, JPEG 2000 and
+    PDF, refused here until the port wrote them, are now the JAX package's
+    bytes (the PDF's clock fixed), with cv2 and without it (the rest:
+    tests/test_torch_writes_g3.py).  ICNS and SPIDER are written, and XBM,
+    MSP, PALM and BLP fail as in the JAX package
     (tests/test_torch_writes_g1.py)."""
-    monkeypatch.chdir(tmp_path)
+    import time
+
+    fixed = time.struct_time((2025, 6, 30, 12, 0, 59, 0, 181, 0))
+    monkeypatch.setattr(time, "gmtime", lambda *a: fixed)
     pix = _image(16, 16, 6).astype(np.float64) / 255
     target = f"out.{name.lower()}"
+    for sub in ("jax", "port"):
+        (tmp_path / sub).mkdir()
+    jax = tmp_path / "jax" / target
     try:
-        jimages.write_image(f"jax_{target}", pix)
+        jimages.write_image(str(jax), pix)
     except Exception:  # noqa: BLE001, S110 — Pillow cannot write the mode
         pass
+    port = tmp_path / "port" / target
     for blocked in (False, True):
         if blocked:
             monkeypatch.setitem(sys.modules, "cv2", None)
+        if name != "AVIF":
+            timages.write_image(str(port), pix)
+            assert port.read_bytes() == jax.read_bytes()
+            continue
         with pytest.raises(ValueError, match=r"queue 1, item 8h"):
-            timages.check_target(target)
+            timages.check_target(str(port))
         with pytest.raises(ValueError, match=r"queue 1, item 8h"):
-            timages.write_image(target, pix)
-        assert not (tmp_path / target).exists()
+            timages.write_image(str(port), pix)
+        assert not port.exists()
 
 
 @pytest.mark.parametrize("head", [b"hello, world\n", b"\0" * 64, b"RIFF\x10\0\0\0WEBPVP8Z",

@@ -3575,6 +3575,26 @@ def raster_picture(hw=(2160, 3840), seed: int = 71) -> np.ndarray:
     return rgb
 
 
+def g3_pixels(kind: str, hw=(72, 136), seed: int = 29) -> np.ndarray:
+    """The seeded samples of the g3 goldens (``chip_smoke.DOCUMENT_GOLDENS``):
+    smooth ramps with a little noise and an all-zero corner (code-blocks
+    with no pass), uint8 [H, W, 3] for ``RGB``, [H, W, 4] for ``RGBA`` (a
+    soft alpha ramp), uint16 [H, W] for ``I;16``."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    top = 65535 if kind == "I;16" else 255
+    ramps = [(x * 7 + y * 3) % (top + 1), top // 2 + (top // 3) * np.sin(x / 9.0 + y / 13.0),
+             (y * top) // max(1, h - 1), top - (x * top) // max(1, w - 1)]
+    planes = []
+    for c in range({"RGB": 3, "RGBA": 4, "I;16": 1}[kind]):
+        p = np.asarray(ramps[c], np.float64) + rng.integers(-3, 4, (h, w)) * (top // 255)
+        p[: h // 3, : w // 3] = 0
+        planes.append(np.clip(np.rint(p), 0, top))
+    out = np.stack(planes, -1).astype(np.uint16 if kind == "I;16" else np.uint8)
+    return out[..., 0] if kind == "I;16" else out
+
+
 def raster_4k(kind: str, rgb: np.ndarray | None = None) -> bytes:
     """Phase 30's 4K files, made with numpy alone from :func:`raster_picture`
     (or ``rgb``): ``sun`` a 24-bit type-2 (RLE) Sun raster, ``fits`` a
